@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gptq_for_llama_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--phases build,kernels,...]
 
 Phases, in order, on one card:
   card     the card is there; prints nvidia-smi's name and power limit.
@@ -16,8 +16,18 @@ Phases, in order, on one card:
            8 greedy steps on the card (bf16, kernels) against the same
            weights on the CPU (fp32, plain versions).
   full     LLaMA-7B INT4-g128, 32 layers, batch 1: ``generate`` greedily for
-           three prompts of ragged lengths; every kernel's launch count must
-           move. Prints ms/token, tok/s, peak memory and the roofline share.
+           three prompts of ragged lengths; every kernel of the decode path
+           must launch. Prints ms/token, tok/s, peak memory and the roofline
+           share.
+  quantize the quantize -> pack -> save -> reload -> perplexity path through
+           the CLI, in-process: a dense F16 LLaMA checkpoint at 7B width and
+           2 layers written from a seed, then ``--wbits 4 --groupsize 128
+           --act-order --true-sequential --nsamples 128 --save OUT --eval``
+           and ``--load OUT --eval --benchmark 128 --check``. Prints s/layer
+           (forwards, Hessians, solver), eval tok/s, peak memory and launches
+           per path; checks GPTQ against RTN, the card's Hessian against fp64,
+           the solver card vs CPU, the reloaded wire bytes, and a window's NLL
+           card vs the fp32 CPU plain path.
   profile  torch.profiler over eager decode steps of a 4-layer 7B-width
            model: device time per kernel and the device busy share.
 
@@ -32,8 +42,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,7 +54,12 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 L2_BYTES = 50 * 2**20
-PHASES = ("build", "kernels", "e2e", "full", "profile")
+PHASES = ("build", "kernels", "e2e", "full", "quantize", "profile")
+# kernels each path must launch: the decode path (prefill at a cache offset,
+# then decode steps), the calibration forward, the perplexity eval
+PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked"},
+         "quantize": {"flash_prefill"},
+         "eval": {"flash_prefill", "qmm", "fused_mlp"}}
 
 
 def log(msg: str) -> None:
@@ -87,10 +105,65 @@ def copies_for(nbytes: int) -> int:
     return max(2, math.ceil(3 * L2_BYTES / max(nbytes, 1)))
 
 
+def write_dense_llama(torch, path: str, layers: int, seed: int) -> int:
+    """A dense LLaMA HF checkpoint at 7B width (hidden 4096, intermediate
+    11008, 32 heads, vocab 32000) and ``layers`` layers, stored F16 as
+    published LLaMA checkpoints are: matrices N(0, 0.02) (the HF LLaMA
+    initializer range) drawn on the card from ``seed``, norms 1. Returns the
+    bytes written."""
+    from gptq_for_llama_tpu_torch.engine.safetensors_io import save_file
+    h, inter, vocab = 4096, 11008, 32000
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda") * 0.02).half().cpu()
+
+    ones = torch.ones(h, dtype=torch.float16)
+    flat = {"model.embed_tokens.weight": w(vocab, h), "model.norm.weight": ones,
+            "lm_head.weight": w(vocab, h)}
+    shapes = {"self_attn.q_proj": (h, h), "self_attn.k_proj": (h, h), "self_attn.v_proj": (h, h),
+              "self_attn.o_proj": (h, h), "mlp.gate_proj": (inter, h), "mlp.up_proj": (inter, h),
+              "mlp.down_proj": (h, inter)}
+    for i in range(layers):
+        p = f"model.layers.{i}"
+        flat[f"{p}.input_layernorm.weight"] = ones
+        flat[f"{p}.post_attention_layernorm.weight"] = ones
+        for name, shape in shapes.items():
+            flat[f"{p}.{name}.weight"] = w(*shape)
+    os.makedirs(path, exist_ok=True)
+    save_file(flat, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "llama", "vocab_size": vocab, "hidden_size": h,
+                   "intermediate_size": inter, "num_hidden_layers": layers,
+                   "num_attention_heads": 32, "num_key_value_heads": 32, "rms_norm_eps": 1e-6,
+                   "max_position_embeddings": 2048, "hidden_act": "silu",
+                   "tie_word_embeddings": False}, f)
+    return sum(t.numel() * t.element_size() for t in flat.values())
+
+
+def solver_agreement(got, want) -> dict:
+    """How closely two GPTQResults (CPU tensors) agree: the fraction of group
+    scales within 1e-5 relative, of zeros equal, of integer codes equal, the
+    largest code difference and the relative difference of the error."""
+    gq, gs, gz, gg, ge = (t.double().numpy() if hasattr(t, "numpy") else t for t in got)
+    wq, ws, wz, wg, we = (t.double().numpy() if hasattr(t, "numpy") else t for t in want)
+    gi, wi = gg.astype(np.int64), wg.astype(np.int64)
+    if not np.array_equal(gi, wi):
+        raise AssertionError("solver: group indices differ")
+    gc = np.rint(gq / gs[:, gi] + gz[:, gi])
+    wc = np.rint(wq / ws[:, wi] + wz[:, wi])
+    return {"scales_close": float((np.abs(gs - ws) <= 1e-5 * np.abs(ws)).mean()),
+            "zeros_equal": float((gz == wz).mean()),
+            "codes_equal": float((gc == wc).mean()),
+            "codes_max_diff": int(np.abs(gc - wc).max()),
+            "error_rel": float(abs(float(ge) - float(we)) / abs(float(we)))}
+
+
 class Smoke:
     def __init__(self):
         self.card = ""
-        self.launches = {}  # kernel name -> launches on the main path (phase full)
+        self.launches = {}  # path -> {kernel name: launches on that path}
         self.report = {"kernels": {}}
         self.entries = {}   # kernel name -> JSON entry
 
@@ -282,7 +355,78 @@ class Smoke:
                          f"SKV={s} offset={off}", err, tol, ms, pms, lms, nbytes,
                          4 * b * h * pairs * d, main=(off == 0))
             del caches
+        self._kernel5(torch, F, randn)
+        self._ppl_eval_linears(torch, rng, randn)
         torch.cuda.synchronize()
+
+    def _kernel5(self, torch, F, randn):
+        """Kernel 5 at the 7B calibration (B=1) and eval (B=8) shapes, GQA and
+        a ragged S. Tolerance 1e-2 * max|plain|, as kernels 3-4: both softmax
+        in fp32; the kernel rounds p and its output to bf16."""
+        from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import (flash_prefill_cuda,
+                                                                     flash_prefill_plain)
+        d = 128
+        for b, s, h, hkv in ((1, 2048, 32, 32), (8, 2048, 32, 32), (1, 2048, 32, 8),
+                             (1, 1000, 32, 32)):
+            ncopy = copies_for(b * s * (2 * h + 2 * hkv) * d * 2)
+            ins = [(randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d))
+                   for _ in range(ncopy)]
+            q, k, v = ins[0]
+            y = flash_prefill_cuda(q, k, v, d ** -0.5)
+            ref = flash_prefill_plain(q, k, v, d ** -0.5)
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 1e-2 * ref.float().abs().max().item()
+            del ref
+            ms = graph_ms(torch, [lambda t=t: flash_prefill_cuda(*t, d ** -0.5) for t in ins],
+                          iters=20)
+            pms = graph_ms(torch, [lambda t=t: flash_prefill_plain(*t, d ** -0.5)
+                                   for t in ins[:1]], iters=2)
+            gqa = {"enable_gqa": True} if h != hkv else {}
+            lms = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(
+                t[0].transpose(1, 2), t[1].transpose(1, 2), t[2].transpose(1, 2),
+                is_causal=True, **gqa) for t in ins], iters=20)
+            pairs = s * (s + 1) // 2   # the causal half, diagonal included
+            nbytes = b * s * (2 * h + 2 * hkv) * d * 2
+            self._record("flash_prefill", f"B={b} S={s} H={h} Hkv={hkv}", err, tol, ms, pms,
+                         lms, nbytes, 4 * b * h * pairs * d, main=(b == 8))
+            del ins
+            torch.cuda.empty_cache()
+
+    def _ppl_eval_linears(self, torch, rng, randn):
+        """Kernels 1-2 at the perplexity-eval M (8 windows x 2048 tokens)."""
+        from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+        from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp_cuda, fused_mlp_plain
+        from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
+        bf, m = torch.bfloat16, 16384
+        for k, n, what in ((4096, 4096, "q_proj"), (11008, 4096, "down_proj")):
+            lin = self._linears(torch, rng, k, n, 1)[0]
+            x = randn(m, k)
+            y = qmm_cuda(x, lin)
+            ref = quant_matmul_plain(x, lin, bf)
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 2e-2 * ref.float().abs().max().item()
+            wdq = lin.dequantize(bf)
+            ms = graph_ms(torch, [lambda: qmm_cuda(x, lin)], iters=2)
+            pms = graph_ms(torch, [lambda: quant_matmul_plain(x, lin, bf)], iters=2)
+            lms = graph_ms(torch, [lambda: torch.matmul(x, wdq)], iters=2)
+            nbytes = m * k * 2 + self._lin_bytes(lin) + m * n * 2
+            self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
+                         2 * m * k * n)
+            del x, y, ref, wdq
+        k, n = 4096, 11008
+        gate, up = (self._linears(torch, rng, k, n, 1)[0] for _ in range(2))
+        x = randn(m, k)
+        y = fused_mlp_cuda(x, gate, up)
+        ref = fused_mlp_plain(x, gate, up)
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = 2e-2 * ref.float().abs().max().item()
+        ms = graph_ms(torch, [lambda: fused_mlp_cuda(x, gate, up)], iters=2)
+        pms = graph_ms(torch, [lambda: fused_mlp_plain(x, gate, up)], iters=2)
+        nbytes = m * k * 2 + 2 * self._lin_bytes(gate) + m * n * 2
+        self._record("fused_mlp", f"gate+up {k}x{n} M={m}", err, tol, ms, pms, None, nbytes,
+                     4 * m * k * n)
+        del x, y, ref
+        torch.cuda.empty_cache()
 
     # -- phase 4 ---------------------------------------------------------------
     def phase_e2e(self, torch):
@@ -379,9 +523,7 @@ class Smoke:
         for p, o in zip(prompts, outs):
             if o.shape != (1, len(p) + new) or not ((o >= 0) & (o < cfg.vocab_size)).all():
                 raise AssertionError(f"full: bad generate output {o.shape}")
-        missing = [k for k, v in counts.items() if v == 0]
-        if missing:
-            raise AssertionError(f"full: kernels never launched on the main path: {missing}")
+        self.check_path("decode", counts)
 
         # decode speed: greedy loop after a prefill, host clock, synchronized
         cache = runner.init_cache()
@@ -416,9 +558,202 @@ class Smoke:
                                "tok_s": tok_s, "graph_ms_per_token": dev_ms,
                                "roofline_tok_s": roof_tok_s, "roofline_share": tok_s / roof_tok_s,
                                "peak_memory_bytes": peak, "weight_bytes": wbytes}
-        self.launches = counts
+
+    def check_path(self, path, counts):
+        """Record a path's launch counts; fail if a kernel of it never launched."""
+        self.launches[path] = counts
+        missing = sorted(k for k in PATHS[path] if counts.get(k, 0) == 0)
+        if missing:
+            raise AssertionError(f"{path} path: kernels never launched: {missing}")
 
     # -- phase 6 ---------------------------------------------------------------
+    def phase_quantize(self, torch):
+        tmp = tempfile.mkdtemp(prefix="gptq_smoke_")
+        try:
+            self._quantize_path(torch, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _quantize_path(self, torch, tmp):
+        from gptq_for_llama_tpu_torch.cli.main import main as cli
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+
+        layers = 2
+        model, out = os.path.join(tmp, "model"), os.path.join(tmp, "packed")
+        t0 = time.perf_counter()
+        nbytes = write_dense_llama(torch, model, layers, seed=11)
+        log(f"[quantize] dense F16 LLaMA at 7B width, {layers} layers: {nbytes / 2**30:.2f} GiB "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep1 = cli([model, "synthetic", "--wbits", "4", "--groupsize", "128", "--act-order",
+                    "--true-sequential", "--nsamples", "128", "--save", out, "--eval"])
+        t_first = time.perf_counter() - t0
+        peak_q = rep1["peak_memory"]["quantize"]
+        t0 = time.perf_counter()
+        rep2 = cli([model, "synthetic", "--load", out, "--eval", "--benchmark", "128", "--check"])
+        t_second = time.perf_counter() - t0
+        peak_e = rep2["peak_memory"]["eval:synthetic"]
+
+        self.check_path("quantize", rep1["launches"]["quantize"])
+        self.check_path("eval", rep2["launches"]["eval:synthetic"])
+        for rep in (rep1, rep2):
+            if rep["launches"]["eval:synthetic"].get("flash_prefill", 0) == 0:
+                raise AssertionError("eval: the causal prefill kernel never launched")
+        ppl1, ppl2 = rep1["ppl"]["synthetic"], rep2["ppl"]["synthetic"]
+        ppl_rel = abs(ppl1 - ppl2) / ppl2
+        if not (math.isfinite(ppl1) and math.isfinite(ppl2)) or ppl_rel > 1e-4:
+            raise AssertionError(f"quantize: ppl {ppl1} after quantizing vs {ppl2} reloaded")
+        split = {k: v / layers for k, v in rep1["quantize_split"].items()}
+        eval_tokens = (50_000 // 2048) * 2048   # the synthetic test stream, whole windows
+        tok_s = eval_tokens / rep2["phases"]["eval:synthetic"]
+        bench = rep2["benchmark"]
+        log(f"[quantize] CLI quantize+pack+save+eval {t_first:.1f} s, reload+eval+benchmark "
+            f"{t_second:.1f} s; phases {json.dumps(rep1['phases'])} / "
+            f"{json.dumps(rep2['phases'])}")
+        log(f"[quantize] s/layer: forwards {split['forward']:.3f}, Hessians "
+            f"{split['hessian']:.3f}, solver {split['solver']:.3f} "
+            f"(total {sum(split.values()):.3f}) | {self.card}")
+        log(f"[quantize] ppl {ppl1:.4f} (after quantize) vs {ppl2:.4f} (reloaded), rel "
+            f"{ppl_rel:.2e}; eval {eval_tokens} tokens at {tok_s:.1f} tok/s; decode benchmark "
+            f"{bench['tokens_per_s']:.1f} tok/s, check ppl {bench.get('ppl', float('nan')):.4f}; "
+            f"peak memory {peak_q / 2**30:.2f} GiB (quantize) / {peak_e / 2**30:.2f} GiB "
+            f"(eval) | {self.card}")
+        log(f"[quantize] launches: quantize {rep1['launches']['quantize']}; eval "
+            f"{rep2['launches']['eval:synthetic']}; benchmark {rep2['launches']['benchmark']}")
+        self.report["quantize"] = {
+            "layers": layers, "s_per_layer": split, "ppl_after_quantize": ppl1,
+            "ppl_reloaded": ppl2, "eval_tokens": eval_tokens, "eval_tok_s": tok_s,
+            "benchmark": bench, "peak_memory_bytes": {"quantize": peak_q, "eval": peak_e},
+            "phases": [rep1["phases"], rep2["phases"]],
+            "peak_memory_by_phase": [rep1["peak_memory"], rep2["peak_memory"]],
+            "launches": [rep1["launches"], rep2["launches"]]}
+        self._quantize_checks(torch, model, out)
+
+    def _quantize_checks(self, torch, model, out):
+        from gptq_for_llama_tpu_torch.data import get_loaders
+        from gptq_for_llama_tpu_torch.engine.evaluate import window_nll
+        from gptq_for_llama_tpu_torch.engine.quantize import get_path
+        from gptq_for_llama_tpu_torch.models import hf_loader
+        from gptq_for_llama_tpu_torch.models.common import causal_mask
+        from gptq_for_llama_tpu_torch.models.registry import get_arch
+        from gptq_for_llama_tpu_torch.quant import packing
+        from gptq_for_llama_tpu_torch.quant.gptq import (batch_hessian, fp32_matmul,
+                                                         gptq_quantize, rtn_quantize)
+        from gptq_for_llama_tpu_torch.quant.quantizer import QuantConfig
+
+        arch = get_arch("llama")
+        res = self.report["quantize"]
+        # reloaded wire buffers are byte-equal to the saved ones
+        flat = hf_loader.read_flat_state(out)
+        cfg, packed = hf_loader.load_params(out, device="cuda")
+        nbuf = 0
+        for li, lp in enumerate(packed["layers"]):
+            for name in arch.LAYER_LINEARS:
+                for k, v in get_path(lp, name).to_wire().items():
+                    ref = flat[f"model.layers.{li}.{name}.{k}"]
+                    if v.dtype != ref.dtype or v.tobytes() != ref.tobytes():
+                        raise AssertionError(f"reload: layers.{li}.{name}.{k} differs")
+                    nbuf += 1
+        log(f"[quantize] reload: {nbuf} wire buffers byte-equal to the saved file")
+
+        # GPTQ beats RTN on one calibration chunk, every linear of layer 0
+        _, dense = hf_loader.load_params(model, device="cuda")
+        train, test = get_loaders("synthetic", nsamples=128, seed=0, seqlen=2048, model=cfg)
+        ids = torch.as_tensor(train[:16], dtype=torch.long, device="cuda")
+        pos = torch.arange(2048, device="cuda")[None, :]
+        with torch.inference_mode():
+            x = arch.embed(dense, cfg, ids)
+            _, taps, _ = arch.layer(cfg, dense["layers"][0], x, pos,
+                                    causal_mask(2048, 2048, device="cuda"))
+        rtn_cfg = QuantConfig(bits=4, wire_safe=True)
+        rows = []
+        with fp32_matmul():
+            for name in arch.LAYER_LINEARS:
+                xt = taps[name].reshape(-1, taps[name].shape[-1]).float()
+                w = get_path(dense["layers"][0], name)["kernel"].float()          # (in, out)
+                wire = get_path(packed["layers"][0], name).to_wire()
+                wq = packing.dequantize(wire["qweight"], wire["qzeros"], wire["scales"],
+                                        wire["g_idx"], 4).cuda()
+                wr = rtn_quantize(w.T, rtn_cfg, groupsize=128).T
+                e_g = float(((xt @ (wq - w)) ** 2).sum())
+                e_r = float(((xt @ (wr - w)) ** 2).sum())
+                rows.append((name, e_g, e_r))
+                del xt, wq, wr
+        for name, e_g, e_r in rows:
+            log(f"[quantize] layer 0 {name}: |X(Wq-W)|^2 GPTQ {e_g:.4e} vs RTN {e_r:.4e} "
+                f"({e_g / e_r:.3f})")
+        worse = [n for n, e_g, e_r in rows if not e_g < e_r]
+        if worse:
+            raise AssertionError(f"GPTQ not below RTN on one calibration chunk: {worse}")
+        res["gptq_vs_rtn"] = {n: {"gptq": g, "rtn": r} for n, g, r in rows}
+
+        # the card's Hessian against fp64 on the CPU, same taps (one chunk);
+        # beside it what a plain fp32 GEMM and a TF32 one would give
+        xt = taps["self_attn.q_proj"].reshape(-1, cfg.hidden_size)
+        ref = 2.0 * (lambda a: a.T @ a)(xt.double().cpu())
+        scale = ref.abs().max().item()
+
+        def rel(h):
+            return (h.double().cpu() - ref).abs().max().item() / scale
+
+        h_rel = rel(batch_hessian(xt[None]))
+        with fp32_matmul():
+            xf = xt.float()
+            fp32_rel = rel(2.0 * (xf.T @ xf))
+        old = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32_rel = rel(2.0 * (xf.T @ xf))
+        torch.backends.cuda.matmul.allow_tf32 = old
+        log(f"[quantize] Hessian of q_proj on {xt.shape[0]} tokens: card vs fp64 CPU "
+            f"{h_rel:.2e} (tol 1e-4); a plain fp32 GEMM gives {fp32_rel:.2e}, TF32 "
+            f"{tf32_rel:.2e}")
+        if h_rel > 1e-4:
+            raise AssertionError(f"card Hessian disagrees with fp64: {h_rel}")
+        del taps, x, xf
+        res["hessian_rel"] = {"card": h_rel, "fp32_gemm": fp32_rel, "tf32_gemm": tf32_rel}
+
+        # the solver on the card vs on the CPU, same W and a full-rank H
+        w = get_path(dense["layers"][0], "self_attn.k_proj")["kernel"].float().T.contiguous()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        xg = torch.randn(1, 8192, cfg.hidden_size, generator=gen, device="cuda")
+        with fp32_matmul():
+            h = 2.0 * (lambda a: a.T @ a)(xg[0])
+        args = dict(cfg=QuantConfig(bits=4, wire_safe=True), groupsize=128, actorder=True)
+        t0 = time.perf_counter()
+        got = gptq_quantize(w, h, **args)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = gptq_quantize(w.cpu(), h.cpu(), **args)
+        t_cpu = time.perf_counter() - t0
+        stats = solver_agreement([a.cpu() if isinstance(a, torch.Tensor) else a for a in got],
+                                 want)
+        log(f"[quantize] gptq_quantize 4096x4096 act-order g128, card {t_card:.2f} s vs CPU "
+            f"{t_cpu:.2f} s: scales within 1e-5 {stats['scales_close']:.6f}, zeros equal "
+            f"{stats['zeros_equal']:.6f}, codes equal {stats['codes_equal']:.6f} (max diff "
+            f"{stats['codes_max_diff']}), error rel {stats['error_rel']:.2e}")
+        if not (stats["scales_close"] >= 0.999 and stats["zeros_equal"] >= 0.999
+                and stats["codes_equal"] >= 0.999 and stats["error_rel"] <= 1e-4):
+            raise AssertionError(f"solver card vs CPU: {stats}")
+        res["solver_card_vs_cpu"] = dict(stats, card_s=t_card, cpu_s=t_cpu)
+        del dense, xg, h
+
+        # one 512-token window's NLL: the packed model on the card (bf16,
+        # kernels) vs on the CPU (fp32, plain versions)
+        win = np.asarray(test[:512])[None]
+        _, packed_cpu = hf_loader.load_params(out, device="cpu", dtype=torch.float32)
+        nll_card = window_nll(arch, cfg, packed, torch.as_tensor(win, device="cuda")).item()
+        nll_cpu = window_nll(arch, cfg, packed_cpu, torch.as_tensor(win)).item()
+        nll_rel = abs(nll_card - nll_cpu) / abs(nll_cpu)
+        log(f"[quantize] 512-token window NLL: card {nll_card:.4f} vs CPU fp32 {nll_cpu:.4f}, "
+            f"rel {nll_rel:.2e} (tol 1e-2)")
+        if not math.isfinite(nll_card) or nll_rel > 1e-2:
+            raise AssertionError(f"window NLL card vs CPU: rel {nll_rel}")
+        res["window_nll"] = {"card": nll_card, "cpu": nll_cpu, "rel": nll_rel}
+
+    # -- phase 7 ---------------------------------------------------------------
     def phase_profile(self, torch):
         from torch.profiler import ProfilerActivity, profile
         from gptq_for_llama_tpu_torch.models.config import ModelConfig
@@ -469,9 +804,10 @@ class Smoke:
         rows = []
         for name, (mod, _) in kernels.KERNELS.items():
             e = self.entries.get(name, {})
+            by_path = {p: c.get(name, 0) for p, c in self.launches.items()}
             rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                          "replaces": mod.REPLACES,
-                         "launches": self.launches.get(name),
+                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                          "max_abs_err": e.get("max_abs_err"), "ms": e.get("ms"),
                          "plain_ms": e.get("plain_ms"), "bound_ms": e.get("bound_ms"),
                          "bound_by": e.get("bound_by"), "library_ms": e.get("library_ms"),
@@ -482,7 +818,12 @@ class Smoke:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="write the detailed report here")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the phases to run (default: all)")
     args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}; have {PHASES}")
 
     import torch
     if not torch.cuda.is_available():
@@ -492,7 +833,7 @@ def main() -> int:
 
     smoke = Smoke()
     smoke.phase_card(torch)
-    for p in PHASES:
+    for p in phases:
         t0 = time.perf_counter()
         log(f"== phase {p}")
         getattr(smoke, f"phase_{p}")(torch)

@@ -6,7 +6,10 @@ as numpy: a packed linear as its ``PackedLinear.to_wire()`` dict plus
 norms and embeddings as arrays, nested in dicts and lists as in
 ``models/llama.py``. Every packed linear is rebuilt through this package's
 own ``PackedLinear.from_wire``, so both packages compute from the same wire
-bytes. The port never imports the TPU package.
+bytes; dense kernels (in, out) become tensors, so both packages quantize the
+same weights. ``records_from_jax`` / ``record_to_numpy`` carry per-linear
+quantization records across as plain numpy fields. The port never imports
+the TPU package.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .engine.quantize import QuantRecord
 from .ops.linear import PackedLinear, dense
 
 
@@ -36,3 +40,20 @@ def params_from_jax(tree, device, dtype=torch.bfloat16):
 
 def _tensor(a, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
+
+
+def records_from_jax(records: dict) -> dict:
+    """{name: record} with the TPU package's QuantRecord fields (a NamedTuple
+    or a dict of numpy arrays and scalars) -> this package's QuantRecords."""
+    out = {}
+    for name, rec in records.items():
+        d = rec._asdict() if hasattr(rec, "_asdict") else dict(rec)
+        out[name] = QuantRecord(np.asarray(d["scale"]), np.asarray(d["zero"]),
+                                np.asarray(d["g_idx"]), int(d["wbits"]), int(d["groupsize"]),
+                                float(d["error"]), sym=bool(d.get("sym", False)))
+    return out
+
+
+def record_to_numpy(rec: QuantRecord) -> dict:
+    """A QuantRecord as {field: numpy array or scalar}."""
+    return dict(rec._asdict())

@@ -3,8 +3,9 @@
 Counterpart of ``gptq_for_llama_tpu/models/common.py``, dense-cache subset.
 fp32 is used for normalization statistics and softmax; everything else runs
 in the compute dtype. RMSNorm, RoPE and the cache write are plain torch, as
-the TPU package leaves them to XLA; attention with a cache offset goes to the
-kernels of ``ops/cuda`` exactly where the TPU package dispatches to Pallas.
+the TPU package leaves them to XLA. Attention on a CUDA tensor always goes to
+a kernel of ``ops/cuda``: with a cache offset to the decode or blocked prefill
+kernel, without a cache (causal) to the causal prefill kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda.attention import attention_plain, decode_attention
 from ..ops.cuda.flash import flash_prefill_blocked
+from ..ops.cuda.flash_prefill import flash_prefill
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -109,21 +111,26 @@ def apply_kv_cache(past_kv, k, v):
 
 def attention_block(past_kv, q, k, v, mask, scale=None):
     """Cache write, then attention over the cache (the classic form):
-    returns (attn_out, present)."""
+    returns (attn_out, present). Without a cache the forward is causal."""
     k_eff, v_eff, present, off = apply_kv_cache(past_kv, k, v)
-    out = sdpa(q, k_eff, v_eff, mask, scale, decode_offset=off)
+    out = sdpa(q, k_eff, v_eff, mask, scale, decode_offset=off, causal=past_kv is None)
     return out, present
 
 
-def sdpa(q, k, v, mask=None, scale: float | None = None, decode_offset=None):
+def sdpa(q, k, v, mask=None, scale: float | None = None, decode_offset=None,
+         causal: bool = False):
     """Scaled dot-product attention with fp32 softmax.
 
     q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D), H a multiple of Hkv. mask:
     additive (Sq, Skv) or (B, 1, Sq, Skv). decode_offset DECLARES that the
     mask is exactly the causal-at-offset predicate: with Sq == 1 it goes to
     the decode-attention kernel, with Sq > 1 and a scalar offset to the
-    blocked prefill kernel (gptq_for_llama_tpu/models/common.py:404-447);
-    both ignore ``mask``. Every other call takes the plain masked softmax."""
+    blocked prefill kernel (gptq_for_llama_tpu/models/common.py:404-447).
+    causal DECLARES that the mask is plain causal self-attention: the causal
+    prefill kernel takes every Sq (the TPU package's Sq > 256 and VMEM gates
+    exist only for its kernel). The kernels ignore ``mask``. On a CPU tensor
+    each path takes its plain version; a CUDA tensor with any other mask
+    raises, since no kernel applies an arbitrary mask."""
     sq, d = q.shape[1], q.shape[3]
     sc = scale if scale is not None else 1.0 / (d ** 0.5)
     if decode_offset is not None:
@@ -134,6 +141,13 @@ def sdpa(q, k, v, mask=None, scale: float | None = None, decode_offset=None):
             return flash_prefill_blocked(q, k, v, int(decode_offset), sc)
         if mask is None:
             mask = decode_mask(sq, k.shape[1], decode_offset)
+    elif causal:
+        return flash_prefill(q, k, v, sc)
+    if q.is_cuda:
+        raise NotImplementedError(
+            "attention on the card runs only through its kernels: a cache offset "
+            "(decode_offset) or causal self-attention (causal=True); no kernel takes an "
+            "arbitrary mask")
     return attention_plain(q, k, v, sc, mask)
 
 

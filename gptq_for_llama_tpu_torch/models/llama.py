@@ -17,6 +17,19 @@ from ..ops.quant_matmul import fused_gate_up
 
 NAME = "llama"
 
+LAYER_LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                 "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
+
+
+def sequential_groups(true_sequential: bool):
+    """Quantization order within a layer (reference: llama.py:86-90)."""
+    if true_sequential:
+        return [["self_attn.k_proj", "self_attn.v_proj", "self_attn.q_proj"],
+                ["self_attn.o_proj"],
+                ["mlp.up_proj", "mlp.gate_proj"],
+                ["mlp.down_proj"]]
+    return [list(LAYER_LINEARS)]
+
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.bfloat16,
                 device="cpu"):

@@ -10,14 +10,17 @@ Sources live in ``gptq_for_llama_tpu_torch/csrc`` and are built by
 
 from __future__ import annotations
 
-from . import attention, flash, matmul, mlp
+from . import attention, flash, flash_prefill, matmul, mlp
 
-# name -> (module, wrapper): the four kernels of the prefill + decode path
+# name -> (module, wrapper): the kernels of the decode path (prefill at a
+# cache offset, then decode steps) and of the cache-less causal forward
+# (calibration, perplexity)
 KERNELS = {
     "qmm": (matmul, matmul.qmm_cuda),
     "fused_mlp": (mlp, mlp.fused_mlp_cuda),
     "decode_attention": (attention, attention.decode_attention_cuda),
     "flash_prefill_blocked": (flash, flash.flash_prefill_blocked_cuda),
+    "flash_prefill": (flash_prefill, flash_prefill.flash_prefill_cuda),
 }
 
 

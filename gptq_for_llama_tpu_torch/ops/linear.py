@@ -87,14 +87,15 @@ class PackedLinear:
             codes = packing.unpack_rows(qweight, 3, k=k)
             qweight = packing.pack_rows(codes.astype(np.uint32), 4)
             wire_bits, bits = 3, 4
-        if perm is not None:
-            qweight = packing.gather_rows_packed(qweight, perm, bits)
 
         def dev(a, dt):
             return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
 
+        qweight = dev(qweight, torch.int32)
+        if perm is not None:   # the row sort runs where the weight lives
+            qweight = packing.gather_rows_packed_torch(qweight, dev(perm, torch.int64), bits)
         return cls(
-            qweight=dev(qweight, torch.int32),
+            qweight=qweight,
             scales=dev(scales.astype(np.float32), dtype),
             zeros=dev(zeros, dtype),
             perm=None if perm is None else dev(perm, torch.int64),
@@ -105,11 +106,12 @@ class PackedLinear:
 
     def to_wire(self) -> dict:
         """Reference wire-format numpy buffers (original, unsorted row order)."""
-        qweight = self.qweight.cpu().numpy()
+        qweight = self.qweight
         k = self.in_features
         if self.perm is not None:
-            inv = np.argsort(self.perm.cpu().numpy()).astype(np.int32)
-            qweight = packing.gather_rows_packed(qweight, inv, self.bits)
+            qweight = packing.gather_rows_packed_torch(qweight, torch.argsort(self.perm),
+                                                       self.bits)
+        qweight = qweight.cpu().numpy()
         if self.wire_bits is not None and self.wire_bits != self.bits:
             # nibble device codes of an INT3 checkpoint: codes <= 7 narrow exactly
             codes = packing.unpack_rows(qweight, self.bits, k=k)

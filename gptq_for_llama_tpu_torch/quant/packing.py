@@ -15,8 +15,9 @@ so an out-of-range code (the zeros-1 wrap at zero 0) corrupts only its own slot.
 
 The device layout of the port IS the wire layout: a column's packed words lie
 along K, so neighbouring threads reading neighbouring columns make coalesced
-4-byte loads. Only the numpy half of the reference module is needed here, plus
-a torch unpack for the plain dequantize.
+4-byte loads. The numpy functions are the reference's; their ``*_torch``
+twins (2/4/8 bits) give the same bytes on the card, where checkpoint packing
+and the act-order row sort run.
 """
 
 from __future__ import annotations
@@ -113,6 +114,51 @@ def gather_rows_packed(packed: np.ndarray, perm: np.ndarray, bits: int) -> np.nd
     return pack_rows(unpack_rows(packed, bits, k=k)[perm].astype(np.uint32), bits)
 
 
+def quantize_weight_to_codes(w, scales: np.ndarray, zeros: np.ndarray,
+                             g_idx: np.ndarray) -> torch.Tensor:
+    """Integer codes (K, N), int64 on w's device, of a fake-quantized weight w
+    (N, K) (out, in; a tensor or numpy): rint(w / scale + zero) in float64,
+    per-out-channel per-group params scales/zeros (N, G), group index g_idx
+    (K,). The reference computes round((w + scale * zero) / scale)."""
+    w = torch.as_tensor(w)
+    g = torch.as_tensor(np.asarray(g_idx), dtype=torch.long, device=w.device)
+    s = torch.as_tensor(np.asarray(scales), device=w.device).double()[:, g]
+    z = torch.as_tensor(np.asarray(zeros), device=w.device).double()[:, g]
+    return torch.round(w.double() / s + z).long().T
+
+
+def pack_quantized(w, scales: np.ndarray, zeros: np.ndarray, g_idx: np.ndarray,
+                   bits: int) -> dict:
+    """Wire buffers {'qweight','qzeros','scales','g_idx'} (numpy) of one linear
+    from its fake-quantized weight w (N, K) (a tensor, on any device, or
+    numpy), scales/zeros (N, G) and g_idx (K,): codes and the 2/4/8-bit pack
+    on w's device, scales transposed to (G, N) fp16, qzeros offset by -1 (an
+    unsigned wrap at zero 0, as the reference)."""
+    codes = quantize_weight_to_codes(w, scales, zeros, g_idx)
+    qweight = (pack_rows_torch(codes, bits).cpu().numpy() if bits in (2, 4, 8)
+               else pack_rows(codes.cpu().numpy(), bits))
+    z = np.rint(np.asarray(zeros).T.astype(np.float64)).astype(np.int64)
+    return {
+        "qweight": qweight,
+        "qzeros": pack_cols((z - 1).astype(np.uint32), bits),
+        "scales": np.asarray(scales).T.astype(np.float16),
+        "g_idx": np.asarray(g_idx).astype(np.int32),
+    }
+
+
+def dequantize(qweight, qzeros, scales, g_idx, bits: int, dtype=torch.float32) -> torch.Tensor:
+    """Dense (K, N) weight from wire buffers (numpy or tensors):
+    (code - (qzero + 1)) * scale, each row's group from g_idx. 3-bit words are
+    unpacked on the host."""
+    g_idx = torch.as_tensor(np.asarray(g_idx), dtype=torch.long)
+    k = g_idx.shape[0]
+    codes = torch.as_tensor(unpack_rows(np.asarray(qweight), bits, k=k))
+    n = codes.shape[1]
+    zeros = torch.as_tensor(unpack_cols(np.asarray(qzeros), bits, n=n)) + 1
+    s = torch.as_tensor(np.asarray(scales)).float()[g_idx]
+    return ((codes - zeros[g_idx]).float() * s).to(dtype)
+
+
 def unpack_rows_torch(packed: torch.Tensor, bits: int, k: int | None = None) -> torch.Tensor:
     """Torch unpack of 2/4/8-bit words: int32 (K*bits//32, N) -> int32 (K, N).
 
@@ -125,3 +171,27 @@ def unpack_rows_torch(packed: torch.Tensor, bits: int, k: int | None = None) -> 
     vals = [(packed >> (bits * j)) & maxq for j in range(ipw)]
     out = torch.stack(vals, dim=1).reshape(-1, packed.shape[1])
     return out if k is None else out[:k]
+
+
+def pack_rows_torch(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Torch twin of ``pack_rows`` for 2/4/8 bits: integer codes (K, N) ->
+    int32 (K*bits//32, N), each code masked to its width, the same bytes."""
+    if bits not in (2, 4, 8):
+        raise NotImplementedError(f"torch pack takes 2/4/8 bits, got {bits}")
+    ipw = 32 // bits
+    k, n = codes.shape
+    if k % ipw:
+        raise ValueError(f"{bits}-bit packing needs K % {ipw} == 0, got {k}")
+    v = (codes.long() & ((1 << bits) - 1)).reshape(k // ipw, ipw, n)
+    shifts = torch.arange(0, 32, bits, device=codes.device).reshape(1, ipw, 1)
+    words = (v << shifts).sum(dim=1)        # disjoint bit fields: the sum is the OR
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def gather_rows_packed_torch(packed: torch.Tensor, perm: torch.Tensor, bits: int) -> torch.Tensor:
+    """Torch twin of ``gather_rows_packed`` for 2/4/8 bits, on packed's device."""
+    k = perm.shape[0]
+    if k * bits != packed.shape[0] * 32:
+        raise ValueError(f"gather_rows_packed needs a full-length permutation: perm has "
+                         f"{k} rows, packed holds {packed.shape[0] * 32 // bits}")
+    return pack_rows_torch(unpack_rows_torch(packed, bits, k=k)[perm.long()], bits)

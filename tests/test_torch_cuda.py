@@ -12,8 +12,10 @@ import torch
 
 from gptq_for_llama_tpu_torch.ops import cuda as kernels
 from gptq_for_llama_tpu_torch.ops.cuda.attention import decode_attention, decode_attention_plain
+from gptq_for_llama_tpu_torch.models import common
 from gptq_for_llama_tpu_torch.ops.cuda.flash import (flash_prefill_blocked,
                                                      flash_prefill_blocked_plain)
+from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill, flash_prefill_plain
 from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp, fused_mlp_plain
 from gptq_for_llama_tpu_torch.ops.linear import PackedLinear, quant_matmul_plain
 from gptq_for_llama_tpu_torch.ops.quant_matmul import quant_matmul
@@ -108,3 +110,40 @@ def test_flash_prefill_blocked_matches_plain(card, sq, off, hkv):
     assert _close(flash_prefill_blocked(q, k, v, off, 128 ** -0.5),
                   flash_prefill_blocked_plain(q, k, v, off, 128 ** -0.5), 1e-2)
     assert kernels.launch_counts()["flash_prefill_blocked"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv", [(1, 1, 8, 8), (2, 63, 8, 2), (1, 64, 4, 4),
+                                       (1, 65, 8, 8), (2, 300, 8, 2), (1, 1000, 4, 1)])
+def test_flash_prefill_matches_plain(card, b, s, h, hkv):
+    """1e-2 * max|y|: both softmax in fp32; the kernel rounds p and its
+    output to bf16."""
+    q = torch.randn(b, s, h, 128, device=card).bfloat16()
+    k = torch.randn(b, s, hkv, 128, device=card).bfloat16()
+    v = torch.randn(b, s, hkv, 128, device=card).bfloat16()
+    kernels.reset_launch_counts()
+    got = flash_prefill(q, k, v, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_prefill"] == 1
+    assert torch.isfinite(got.float()).all()
+    assert _close(got, flash_prefill_plain(q, k, v, 128 ** -0.5), 1e-2)
+
+
+@pytest.mark.cuda
+def test_causal_sdpa_goes_through_kernel_5(card):
+    """A cache-less causal sdpa on the card launches kernel 5 for any S; a
+    cache-less call with another mask raises instead of running plain."""
+    q = torch.randn(1, 37, 8, 128, device=card).bfloat16()
+    kernels.reset_launch_counts()
+    common.sdpa(q, q, q, None, causal=True)
+    assert kernels.launch_counts()["flash_prefill"] == 1
+    with pytest.raises(NotImplementedError):
+        common.sdpa(q, q, q, common.causal_mask(37, 37, device=card))
+    with pytest.raises(TypeError):
+        flash_prefill(q.float(), q.float(), q.float(), 0.1)
+    k8 = q.to(torch.float8_e4m3fn)
+    with pytest.raises(TypeError):
+        flash_prefill(q, k8, k8, 0.1)
+    q64 = torch.randn(1, 8, 4, 64, device=card).bfloat16()
+    with pytest.raises(ValueError):
+        flash_prefill(q64, q64, q64, 0.1)

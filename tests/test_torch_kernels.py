@@ -22,6 +22,8 @@ from gptq_for_llama_tpu.quant import packing as jpack
 from gptq_for_llama_tpu_torch.models import common
 from gptq_for_llama_tpu_torch.ops.cuda.attention import decode_attention, decode_attention_cuda
 from gptq_for_llama_tpu_torch.ops.cuda.flash import flash_prefill_blocked
+from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import (flash_prefill, flash_prefill_cuda,
+                                                             flash_prefill_plain)
 from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp, supports_fused
 from gptq_for_llama_tpu_torch.ops.linear import PackedLinear
 from gptq_for_llama_tpu_torch.ops.quant_matmul import quant_matmul
@@ -181,3 +183,59 @@ def test_sdpa_dispatch_matches_jax_sdpa(sq, off):
     want = np.asarray(jcommon.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                    jcommon.decode_mask(sq, s, jnp.int32(off))))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: causal prefill attention without a cache
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,hkv", [(256, 4), (256, 2), (512, 4), (512, 2)])
+def test_flash_prefill_plain_matches_pallas_interpret(s, hkv):
+    """The Pallas kernel feeds bf16 to the MXU: 3e-2 * max|y|, as kernel 4."""
+    b, h, d = 1, 4, 128
+    rng = np.random.RandomState(s + hkv)
+    q, k, v = (rng.standard_normal(sh).astype(np.float32)
+               for sh in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    got = flash_prefill(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+                        d ** -0.5).numpy()
+    assert np.array_equal(got, flash_prefill_plain(torch.as_tensor(q), torch.as_tensor(k),
+                                                   torch.as_tensor(v), d ** -0.5).numpy())
+    want = np.asarray(jflash.flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           d ** -0.5, interpret=True))
+    np.testing.assert_allclose(got, want, atol=3e-2 * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("s,impl", [(100, ""), (512, "pallas")])
+def test_sdpa_causal_matches_jax_sdpa(monkeypatch, s, impl):
+    """Port sdpa(causal=True) (kernel 5 dispatch, plain on the CPU) against JAX
+    sdpa(causal=True): its XLA masked softmax at S = 100 (fp32, 1e-5), its
+    Pallas flash kernel in interpret mode at S = 512 (bf16 MXU, 3e-2 * max|y|)."""
+    if impl:
+        monkeypatch.setenv("GPTQ_TPU_ATTN_IMPL", impl)
+    b, h, hkv, d = 2, 4, 2, 128
+    rng = np.random.RandomState(s)
+    q, k, v = (rng.standard_normal(sh).astype(np.float32)
+               for sh in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    mask = common.causal_mask(s, s)
+    got = common.sdpa(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), mask,
+                      causal=True).numpy()
+    want = np.asarray(jcommon.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jcommon.causal_mask(s, s), causal=True))
+    if impl:
+        np.testing.assert_allclose(got, want, atol=3e-2 * np.abs(want).max(), rtol=0)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_flash_prefill_wrapper_refuses_cpu_and_bad_shapes():
+    """The kernel wrapper never takes the plain path: CPU tensors, D != 128
+    and H % Hkv != 0 raise before any launch."""
+    q = torch.zeros(1, 8, 4, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_prefill_cuda(q, q, q, 0.1)
+    q64 = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_prefill_cuda(q64, q64, q64, 0.1)
+    k3 = torch.zeros(1, 8, 3, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_prefill_cuda(q, k3, k3, 0.1)
