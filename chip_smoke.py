@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gptq_for_llama_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases build,kernels,...]
+    python3 chip_smoke.py [--json PATH]
 
 Phases, in order, on one card:
   card     the card is there; prints nvidia-smi's name and power limit.
   build    builds every kernel of csrc/ with nvcc (timed) and prints the
            ptxas register / spill lines.
   kernels  each kernel against its plain PyTorch version on the card at the
-           shapes LLaMA-7B prefill and decode give it: max error vs the
-           stated tolerance, kernel / plain / library-call time (CUDA events
+           shapes LLaMA-7B prefill, decode, calibration and eval give it:
+           error vs the stated tolerance (attention: per output row, relative
+           to the row's norm), kernel / plain / library-call time (CUDA events
            around a CUDA-graph replay of many launches, weights cycled
            through copies larger than the 50 MB L2), and the bound.
   e2e      a random wire-format LLaMA at 7B width and 2 layers: prefill and
@@ -71,6 +72,15 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     memory rate and operations over the bf16 peak."""
     tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def row_rel_err(got, want) -> float:
+    """Largest over output rows (all indices but the last) of
+    |got - want| / |want|. A causal row i averages i + 1 values, so its size
+    falls like 1/sqrt(i + 1); an error bound set from the largest value of
+    the whole output would let late rows be wrong by as much as they are."""
+    g, w = got.float(), want.float()
+    return ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
 
 
 def graph_ms(torch, fns, iters: int = 60) -> float:
@@ -202,20 +212,27 @@ class Smoke:
         self.report["build_s"] = dt
 
     # -- phase 3 ---------------------------------------------------------------
-    def _record(self, kernel, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops, main=False):
+    def _record(self, kernel, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops, main=False,
+                row_rel=None, ref_max=None):
+        """One kernel row. The check is ``err <= tol`` or, where ``row_rel``
+        (the per-row relative error) is given, ``row_rel <= tol``."""
         b_ms, b_by = bound(nbytes, flops)
-        ok = err <= tol
-        row = {"shape": shape, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "flops": flops, "ok": ok}
+        checked = err if row_rel is None else row_rel
+        ok = checked <= tol
+        row = {"shape": shape, "max_abs_err": err, "row_rel_err": row_rel, "max_abs_ref": ref_max,
+               "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops, "ok": ok}
         self.report["kernels"].setdefault(kernel, []).append(row)
-        log(f"[kernel {kernel}] {shape}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+        what = (f"max_abs_err {err:.3e} (tol {tol:.3e})" if row_rel is None else
+                f"max_abs_err {err:.3e}, max|plain| {ref_max:.3e}, worst row rel {row_rel:.3e} "
+                f"(tol {tol:.3e})")
+        log(f"[kernel {kernel}] {shape}: {what} "
             f"{'ok' if ok else 'FAIL'} | kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
             f"library {'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
             f"bound {b_ms * 1e3:.2f} us ({b_by}) | {self.card}")
         if not ok:
             raise AssertionError(f"{kernel} {shape}: kernel disagrees with its plain version "
-                                 f"({err} > {tol})")
+                                 f"({checked} > {tol})")
         if main:
             self.entries[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
@@ -289,8 +306,9 @@ class Smoke:
             self._record("fused_mlp", f"gate+up {k}x{n} M={m}", err, tol, ms, pms, None,
                          nbytes, 4 * m * k * n, main=(m == 1))
         del gates, ups
-        # kernel 3: tolerance 1e-2 * max|plain|: both sides softmax in fp32,
-        # the output is rounded to bf16 (2^-8 relative)
+        # kernels 3-5: tolerance 1e-2 of each output row's norm: both sides
+        # softmax in fp32, the output is rounded to bf16 (2^-9 relative);
+        # kernel 5 also rounds p to bf16
         d, s = 128, 2048
         for b, h, hkv, offs in ((1, 32, 32, 0), (1, 32, 32, 127), (1, 32, 32, 2047),
                                 (2, 32, 8, (100, 1500))):
@@ -305,7 +323,7 @@ class Smoke:
             y = decode_attention_cuda(q, kc, vc, off_arg, d ** -0.5)
             ref = decode_attention_plain(q, kc, vc, off_t, d ** -0.5)
             err = (y.float() - ref.float()).abs().max().item()
-            tol = 1e-2 * ref.float().abs().max().item()
+            rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
             ms = graph_ms(torch, [lambda c=c: decode_attention_cuda(q, c[0], c[1], off_arg,
                                                                     d ** -0.5)
                                   for c in caches])
@@ -322,11 +340,10 @@ class Smoke:
             live_slots = int((off_t.clamp(max=s - 1) + 1).sum().item())
             nbytes = 2 * b * h * d * 2 + live_slots * hkv * d * 2 * 2
             self._record("decode_attention",
-                         f"B={b} H={h} Hkv={hkv} S={s} offset={offs}", err, tol, ms, pms, lms,
+                         f"B={b} H={h} Hkv={hkv} S={s} offset={offs}", err, 1e-2, ms, pms, lms,
                          nbytes, 4 * live_slots * h * d,
-                         main=(h == hkv and offs == 127))
+                         main=(h == hkv and offs == 127), row_rel=rel, ref_max=ref_max)
             del caches
-        # kernel 4: same tolerance and reason as kernel 3
         b, sq, h, hkv = 1, 100, 32, 32
         for off in (0, 128):
             ncopy = copies_for(2 * b * s * hkv * d * 2)
@@ -336,7 +353,7 @@ class Smoke:
             y = flash_prefill_blocked_cuda(q, kc, vc, off, d ** -0.5)
             ref = flash_prefill_blocked_plain(q, kc, vc, off, d ** -0.5)
             err = (y.float() - ref.float()).abs().max().item()
-            tol = 1e-2 * ref.float().abs().max().item()
+            rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
             ms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_cuda(q, c[0], c[1], off,
                                                                          d ** -0.5)
                                   for c in caches])
@@ -352,22 +369,25 @@ class Smoke:
             pairs = sum(off + i + 1 for i in range(sq))
             nbytes = 2 * b * sq * h * d * 2 + b * (off + sq) * hkv * d * 2 * 2
             self._record("flash_prefill_blocked", f"B={b} SQ={sq} H={h} Hkv={hkv} "
-                         f"SKV={s} offset={off}", err, tol, ms, pms, lms, nbytes,
-                         4 * b * h * pairs * d, main=(off == 0))
+                         f"SKV={s} offset={off}", err, 1e-2, ms, pms, lms, nbytes,
+                         4 * b * h * pairs * d, main=(off == 0), row_rel=rel, ref_max=ref_max)
             del caches
         self._kernel5(torch, F, randn)
         self._ppl_eval_linears(torch, rng, randn)
         torch.cuda.synchronize()
 
     def _kernel5(self, torch, F, randn):
-        """Kernel 5 at the 7B calibration (B=1) and eval (B=8) shapes, GQA and
-        a ragged S. Tolerance 1e-2 * max|plain|, as kernels 3-4: both softmax
-        in fp32; the kernel rounds p and its output to bf16."""
+        """Kernel 5 at the shapes of 7B quantization and eval: one window, the
+        calibration forward (16 windows, the CLI's --chunk) and the eval batch
+        (8 windows), then GQA and a ragged S. Tolerance 1e-2 of each output
+        row's norm, as kernels 3-4."""
         from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import (flash_prefill_cuda,
                                                                      flash_prefill_plain)
         d = 128
-        for b, s, h, hkv in ((1, 2048, 32, 32), (8, 2048, 32, 32), (1, 2048, 32, 8),
-                             (1, 1000, 32, 32)):
+        for b, s, h, hkv, what in ((1, 2048, 32, 32, "one window"),
+                                   (16, 2048, 32, 32, "calibration chunk"),
+                                   (8, 2048, 32, 32, "eval batch"), (1, 2048, 32, 8, "GQA"),
+                                   (1, 1000, 32, 32, "ragged")):
             ncopy = copies_for(b * s * (2 * h + 2 * hkv) * d * 2)
             ins = [(randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d))
                    for _ in range(ncopy)]
@@ -375,20 +395,21 @@ class Smoke:
             y = flash_prefill_cuda(q, k, v, d ** -0.5)
             ref = flash_prefill_plain(q, k, v, d ** -0.5)
             err = (y.float() - ref.float()).abs().max().item()
-            tol = 1e-2 * ref.float().abs().max().item()
-            del ref
+            rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
+            del y, ref
             ms = graph_ms(torch, [lambda t=t: flash_prefill_cuda(*t, d ** -0.5) for t in ins],
                           iters=20)
             pms = graph_ms(torch, [lambda t=t: flash_prefill_plain(*t, d ** -0.5)
-                                   for t in ins[:1]], iters=2)
+                                   for t in ins[:1]], iters=1 if b > 8 else 2)
             gqa = {"enable_gqa": True} if h != hkv else {}
             lms = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(
                 t[0].transpose(1, 2), t[1].transpose(1, 2), t[2].transpose(1, 2),
                 is_causal=True, **gqa) for t in ins], iters=20)
             pairs = s * (s + 1) // 2   # the causal half, diagonal included
             nbytes = b * s * (2 * h + 2 * hkv) * d * 2
-            self._record("flash_prefill", f"B={b} S={s} H={h} Hkv={hkv}", err, tol, ms, pms,
-                         lms, nbytes, 4 * b * h * pairs * d, main=(b == 8))
+            self._record("flash_prefill", f"{what} B={b} S={s} H={h} Hkv={hkv}", err, 1e-2,
+                         ms, pms, lms, nbytes, 4 * b * h * pairs * d, main=(b == 8),
+                         row_rel=rel, ref_max=ref_max)
             del ins
             torch.cuda.empty_cache()
 
@@ -710,6 +731,8 @@ class Smoke:
             f"{tf32_rel:.2e}")
         if h_rel > 1e-4:
             raise AssertionError(f"card Hessian disagrees with fp64: {h_rel}")
+        if not tf32_rel > 1e-4:   # the control: the limit must reject a TF32 GEMM
+            raise AssertionError(f"the 1e-4 Hessian limit does not reject TF32 ({tf32_rel})")
         del taps, x, xf
         res["hessian_rel"] = {"card": h_rel, "fp32_gemm": fp32_rel, "tf32_gemm": tf32_rel}
 
@@ -818,12 +841,7 @@ class Smoke:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="write the detailed report here")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of the phases to run (default: all)")
     args = ap.parse_args()
-    phases = [p for p in args.phases.split(",") if p]
-    if set(phases) - set(PHASES):
-        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}; have {PHASES}")
 
     import torch
     if not torch.cuda.is_available():
@@ -833,7 +851,7 @@ def main() -> int:
 
     smoke = Smoke()
     smoke.phase_card(torch)
-    for p in phases:
+    for p in PHASES:
         t0 = time.perf_counter()
         log(f"== phase {p}")
         getattr(smoke, f"phase_{p}")(torch)

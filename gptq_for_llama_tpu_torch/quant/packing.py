@@ -101,19 +101,6 @@ def unpack_cols(packed: np.ndarray, bits: int, n: int | None = None) -> np.ndarr
     return np.ascontiguousarray(np.swapaxes(unpack_rows(np.swapaxes(packed, 0, -1), bits, k=n), 0, -1))
 
 
-def gather_rows_packed(packed: np.ndarray, perm: np.ndarray, bits: int) -> np.ndarray:
-    """codes[perm] re-packed: out code-row r = in code-row perm[r].
-
-    perm must be a full-length permutation of all K code rows."""
-    perm = np.asarray(perm, np.int32)
-    k = perm.shape[0]
-    if k * bits != np.asarray(packed).shape[0] * 32:
-        raise ValueError(
-            f"gather_rows_packed needs a full-length permutation: perm has "
-            f"{k} rows, packed holds {np.asarray(packed).shape[0] * 32 // bits}")
-    return pack_rows(unpack_rows(packed, bits, k=k)[perm].astype(np.uint32), bits)
-
-
 def quantize_weight_to_codes(w, scales: np.ndarray, zeros: np.ndarray,
                              g_idx: np.ndarray) -> torch.Tensor:
     """Integer codes (K, N), int64 on w's device, of a fake-quantized weight w
@@ -189,7 +176,9 @@ def pack_rows_torch(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def gather_rows_packed_torch(packed: torch.Tensor, perm: torch.Tensor, bits: int) -> torch.Tensor:
-    """Torch twin of ``gather_rows_packed`` for 2/4/8 bits, on packed's device."""
+    """codes[perm] re-packed, 2/4/8 bits, on packed's device: out code-row r
+    = in code-row perm[r]. perm must be a full-length permutation of all K
+    code rows."""
     k = perm.shape[0]
     if k * bits != packed.shape[0] * 32:
         raise ValueError(f"gather_rows_packed needs a full-length permutation: perm has "

@@ -49,6 +49,15 @@ def _close(got, want, rel):
     return float((got - want).abs().max()) <= rel * float(want.abs().max())
 
 
+def _rows_close(got, want, rel):
+    """Every output row (all indices but the last) within ``rel`` of its own
+    norm: a causal row i averages i + 1 values, so its size falls like
+    1/sqrt(i + 1), and a bound on the largest value would let late rows
+    carry errors as large as themselves."""
+    got, want = got.float(), want.float()
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max()) <= rel
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits,m,k,gs,actorder", [
     (4, 1, 4096, 128, False), (4, 37, 1024, 128, True), (2, 3, 512, 128, False),
@@ -74,16 +83,17 @@ def test_fused_mlp_matches_plain(card, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,hkv", [(8, 8), (8, 2), (12, 4)])
 def test_decode_attention_matches_plain(card, h, hkv):
-    """1e-2 * max|y|: both softmax in fp32; the kernel's output is bf16."""
+    """1e-2 of each row's norm: both softmax in fp32; the kernel's output is
+    bf16."""
     q = torch.randn(2, 1, h, 128, device=card).bfloat16()
     k = torch.randn(2, 300, hkv, 128, device=card).bfloat16()
     v = torch.randn(2, 300, hkv, 128, device=card).bfloat16()
     off = torch.tensor([5, 299], dtype=torch.int32, device=card)
-    assert _close(decode_attention(q, k, v, off, 128 ** -0.5),
-                  decode_attention_plain(q, k, v, off, 128 ** -0.5), 1e-2)
+    assert _rows_close(decode_attention(q, k, v, off, 128 ** -0.5),
+                       decode_attention_plain(q, k, v, off, 128 ** -0.5), 1e-2)
     for o in (77, 299):   # one chunk; two chunks and the combine kernel
-        assert _close(decode_attention(q, k, v, o, 128 ** -0.5),
-                      decode_attention_plain(q, k, v, o, 128 ** -0.5), 1e-2)
+        assert _rows_close(decode_attention(q, k, v, o, 128 ** -0.5),
+                           decode_attention_plain(q, k, v, o, 128 ** -0.5), 1e-2)
 
 
 @pytest.mark.cuda
@@ -107,17 +117,18 @@ def test_flash_prefill_blocked_matches_plain(card, sq, off, hkv):
     k = torch.randn(1, 256, hkv, 128, device=card).bfloat16()
     v = torch.randn(1, 256, hkv, 128, device=card).bfloat16()
     kernels.reset_launch_counts()
-    assert _close(flash_prefill_blocked(q, k, v, off, 128 ** -0.5),
-                  flash_prefill_blocked_plain(q, k, v, off, 128 ** -0.5), 1e-2)
+    assert _rows_close(flash_prefill_blocked(q, k, v, off, 128 ** -0.5),
+                       flash_prefill_blocked_plain(q, k, v, off, 128 ** -0.5), 1e-2)
     assert kernels.launch_counts()["flash_prefill_blocked"] == 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,hkv", [(1, 1, 8, 8), (2, 63, 8, 2), (1, 64, 4, 4),
-                                       (1, 65, 8, 8), (2, 300, 8, 2), (1, 1000, 4, 1)])
+                                       (1, 65, 8, 8), (2, 300, 8, 2), (1, 1000, 4, 1),
+                                       (1, 2048, 4, 2)])
 def test_flash_prefill_matches_plain(card, b, s, h, hkv):
-    """1e-2 * max|y|: both softmax in fp32; the kernel rounds p and its
-    output to bf16."""
+    """1e-2 of each row's norm: both softmax in fp32; the kernel rounds p and
+    its output to bf16 (about 2^-9 relative each)."""
     q = torch.randn(b, s, h, 128, device=card).bfloat16()
     k = torch.randn(b, s, hkv, 128, device=card).bfloat16()
     v = torch.randn(b, s, hkv, 128, device=card).bfloat16()
@@ -126,7 +137,7 @@ def test_flash_prefill_matches_plain(card, b, s, h, hkv):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_prefill"] == 1
     assert torch.isfinite(got.float()).all()
-    assert _close(got, flash_prefill_plain(q, k, v, 128 ** -0.5), 1e-2)
+    assert _rows_close(got, flash_prefill_plain(q, k, v, 128 ** -0.5), 1e-2)
 
 
 @pytest.mark.cuda

@@ -35,9 +35,11 @@ def test_pack_unpack_byte_equal(bits):
     pc = jpack.pack_cols(zc, bits)
     np.testing.assert_array_equal(tpack.unpack_cols(pc, bits, n=96),
                                   jpack.unpack_cols(pc, bits, n=96))
-    perm = rng.permutation(k).astype(np.int32)
-    np.testing.assert_array_equal(tpack.gather_rows_packed(packed, perm, bits),
-                                  jpack.gather_rows_packed(packed, perm, bits))
+    if bits != 3:   # the device layout never holds 3-bit words
+        perm = rng.permutation(k).astype(np.int32)
+        got = tpack.gather_rows_packed_torch(torch.as_tensor(packed), torch.as_tensor(perm),
+                                             bits)
+        np.testing.assert_array_equal(got.numpy(), jpack.gather_rows_packed(packed, perm, bits))
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])

@@ -237,11 +237,11 @@ def test_pack_quantized_byte_equal(bits, gs, actorder):
         for key in want:
             assert got[key].dtype == want[key].dtype, key
             assert got[key].tobytes() == want[key].tobytes(), key
-    if bits != 3:   # the torch row gather is the numpy one, byte for byte
+    if bits != 3:   # the torch row gather is the JAX package's, byte for byte
         perm = np.random.RandomState(bits).permutation(q.shape[1]).astype(np.int32)
         np.testing.assert_array_equal(
             packing.gather_rows_packed_torch(_t(want["qweight"]), _t(perm), bits).numpy(),
-            packing.gather_rows_packed(want["qweight"], perm, bits))
+            jpack.gather_rows_packed(want["qweight"], perm, bits))
     dq = packing.dequantize(want["qweight"], want["qzeros"], want["scales"], g, bits).numpy()
     jdq = np.asarray(jpack.dequantize(jnp.asarray(want["qweight"]), jnp.asarray(want["qzeros"]),
                                       jnp.asarray(want["scales"]), jnp.asarray(g), bits))
