@@ -8,7 +8,7 @@ Phases, in order, on one card:
   build    builds every kernel of csrc/ with nvcc (timed) and prints the
            ptxas register / spill lines.
   kernels  each kernel against its plain PyTorch version on the card at the
-           shapes LLaMA-7B prefill, decode, calibration and eval give it:
+           shapes LLaMA-7B prefill, decode, calibration, eval and serving give it:
            error vs the stated tolerance (attention: per output row, relative
            to the row's norm), kernel / plain / library-call time (CUDA events
            around a CUDA-graph replay of many launches, weights cycled
@@ -29,6 +29,16 @@ Phases, in order, on one card:
            per path; checks GPTQ against RTN, the card's Hessian against fp64,
            the solver card vs CPU, the reloaded wire bytes, and a window's NLL
            card vs the fp32 CPU plain path.
+  serve    continuous-batching serving of the ``full`` phase's LLaMA-7B through
+           ``ServingEngine``: 12 greedy requests (prompts of 37..600 tokens, 48
+           new tokens each) on 8 slots, paged KV (block 16, span 8, over a pool
+           poisoned with NaN; and span 1), then a dense cache with chunked
+           prefill (chunk 128), fused with the decode step and not. Tokens are
+           held against the single-sequence runner where its top-2 margin is
+           clear, the k/v left in the caches against the runner's cache, paged
+           against dense, launch counts against the forwards the engine made. Then the serving CLI (``--demo``, paged) on the 2-layer
+           checkpoint the ``quantize`` phase saved. Prints tok/s, ttft and
+           latency percentiles, steps and peak memory.
   profile  torch.profiler over eager decode steps of a 4-layer 7B-width
            model: device time per kernel and the device busy share.
 
@@ -55,12 +65,22 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 L2_BYTES = 50 * 2**20
-PHASES = ("build", "kernels", "e2e", "full", "quantize", "profile")
+PHASES = ("build", "kernels", "e2e", "full", "quantize", "serve", "profile")
 # kernels each path must launch: the decode path (prefill at a cache offset,
-# then decode steps), the calibration forward, the perplexity eval
-PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked"},
-         "quantize": {"flash_prefill"},
-         "eval": {"flash_prefill", "qmm", "fused_mlp"}}
+# then decode steps), the calibration forward, the perplexity eval, paged
+# serving (bucketed and batched admission, spans) and dense serving with
+# chunked prefill
+PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked", "rms_norm"},
+         "quantize": {"flash_prefill", "rms_norm"},
+         "eval": {"flash_prefill", "qmm", "fused_mlp", "rms_norm"},
+         "serve:paged": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill_blocked",
+                         "flash_prefill", "rms_norm"},
+         "serve:dense": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
+                         "rms_norm"},
+         # the CLI's demo prompts all have one length: every admission is batched
+         "serve:cli": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill", "rms_norm"}}
+LLAMA_7B = dict(arch="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128, max_seq_len=2048)
 
 
 def log(msg: str) -> None:
@@ -81,6 +101,15 @@ def row_rel_err(got, want) -> float:
     the whole output would let late rows be wrong by as much as they are."""
     g, w = got.float(), want.float()
     return ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+
+
+def bf16_ulps(torch, got, want) -> int:
+    """Largest distance of two bf16 tensors in units of the last place: the
+    difference of their bit patterns on the monotonic integer line."""
+    def line(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((line(got) - line(want)).abs().max())
 
 
 def graph_ms(torch, fns, iters: int = 60) -> float:
@@ -176,6 +205,8 @@ class Smoke:
         self.launches = {}  # path -> {kernel name: launches on that path}
         self.report = {"kernels": {}}
         self.entries = {}   # kernel name -> JSON entry
+        self.tmp = None     # scratch directory of the quantize and serve phases
+        self.model7b = None  # (cfg, params) of the full phase, served again
 
     # -- phase 1 ---------------------------------------------------------------
     def phase_card(self, torch):
@@ -213,17 +244,20 @@ class Smoke:
 
     # -- phase 3 ---------------------------------------------------------------
     def _record(self, kernel, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops, main=False,
-                row_rel=None, ref_max=None):
-        """One kernel row. The check is ``err <= tol`` or, where ``row_rel``
-        (the per-row relative error) is given, ``row_rel <= tol``."""
+                row_rel=None, ref_max=None, ulps=None):
+        """One kernel row. The check is ``err <= tol``; where ``row_rel`` (the
+        per-row relative error) is given, ``row_rel <= tol``; where ``ulps``
+        (the distance in bf16 units of the last place) is given, ``ulps <= tol``."""
         b_ms, b_by = bound(nbytes, flops)
-        checked = err if row_rel is None else row_rel
+        checked = ulps if ulps is not None else err if row_rel is None else row_rel
         ok = checked <= tol
         row = {"shape": shape, "max_abs_err": err, "row_rel_err": row_rel, "max_abs_ref": ref_max,
-               "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops, "ok": ok}
+               "bf16_ulps": ulps, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "ok": ok}
         self.report["kernels"].setdefault(kernel, []).append(row)
-        what = (f"max_abs_err {err:.3e} (tol {tol:.3e})" if row_rel is None else
+        what = (f"max_abs_err {err:.3e}, {ulps} bf16 ulp (tol {tol})" if ulps is not None else
+                f"max_abs_err {err:.3e} (tol {tol:.3e})" if row_rel is None else
                 f"max_abs_err {err:.3e}, max|plain| {ref_max:.3e}, worst row rel {row_rel:.3e} "
                 f"(tol {tol:.3e})")
         log(f"[kernel {kernel}] {shape}: {what} "
@@ -310,22 +344,25 @@ class Smoke:
         # softmax in fp32, the output is rounded to bf16 (2^-9 relative);
         # kernel 5 also rounds p to bf16
         d, s = 128, 2048
+        serving = (37, 150, 300, 511, 512, 900, 1200, 1500)   # kernel 7's mixed row, dense
         for b, h, hkv, offs in ((1, 32, 32, 0), (1, 32, 32, 127), (1, 32, 32, 2047),
-                                (2, 32, 8, (100, 1500))):
+                                (2, 32, 8, (100, 1500)), (8, 32, 32, serving)):
             ncopy = copies_for(2 * b * s * hkv * d * 2)
             q = randn(b, 1, h, d)
             caches = [(randn(b, s, hkv, d), randn(b, s, hkv, d)) for _ in range(ncopy)]
             off_t = torch.tensor(offs if isinstance(offs, tuple) else [offs] * b,
                                  dtype=torch.int32, device="cuda")
-            # a host int, as the runner passes it, except for per-row offsets
+            # a host int, as the runner passes it, except for per-row offsets;
+            # the serving row also passes the engine's host-side bound
             off_arg = off_t if isinstance(offs, tuple) else offs
+            max_live = max(offs) + 1 if offs == serving else None
             kc, vc = caches[0]
-            y = decode_attention_cuda(q, kc, vc, off_arg, d ** -0.5)
+            y = decode_attention_cuda(q, kc, vc, off_arg, d ** -0.5, max_live)
             ref = decode_attention_plain(q, kc, vc, off_t, d ** -0.5)
             err = (y.float() - ref.float()).abs().max().item()
             rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
             ms = graph_ms(torch, [lambda c=c: decode_attention_cuda(q, c[0], c[1], off_arg,
-                                                                    d ** -0.5)
+                                                                    d ** -0.5, max_live)
                                   for c in caches])
             pms = graph_ms(torch, [lambda c=c: decode_attention_plain(q, c[0], c[1], off_t,
                                                                       d ** -0.5)
@@ -373,6 +410,8 @@ class Smoke:
                          4 * b * h * pairs * d, main=(off == 0), row_rel=rel, ref_max=ref_max)
             del caches
         self._kernel5(torch, F, randn)
+        self._kernel6(torch, F, randn)
+        self._kernel7(torch, F, gen)
         self._ppl_eval_linears(torch, rng, randn)
         torch.cuda.synchronize()
 
@@ -411,6 +450,111 @@ class Smoke:
                          ms, pms, lms, nbytes, 4 * b * h * pairs * d, main=(b == 8),
                          row_rel=rel, ref_max=ref_max)
             del ins
+            torch.cuda.empty_cache()
+
+    def _kernel6(self, torch, F, randn):
+        """Kernel 6 at 7B's width: the decode step (M = 1), the serving decode
+        step (8 slots), a prompt (100) and the eval batch (16384 rows). Held to
+        1 bf16 ulp of its plain version: the sum of squares is taken in another
+        order; the rest is the same fp32 arithmetic, rounded once. Inputs cycle
+        through at most 8 copies: a norm's input was written by the kernel
+        before it, so the caller finds it in the L2 unless it is larger."""
+        from gptq_for_llama_tpu_torch.ops.cuda.norm import rms_norm_cuda, rms_norm_plain
+        h, eps = 4096, 1e-6
+        w = (1 + 0.1 * randn(h).float()).bfloat16()
+        lib = getattr(F, "rms_norm", None)
+        for m in (1, 8, 100, 16384):
+            xs = [randn(m, h, scale=3.0) for _ in range(min(8, copies_for(2 * m * h * 2)))]
+            y = rms_norm_cuda(xs[0], w, eps)
+            ref = rms_norm_plain(xs[0], w, eps)
+            torch.cuda.synchronize()
+            ulps = bf16_ulps(torch, y, ref)
+            err = (y.float() - ref.float()).abs().max().item()
+            iters = 60 if m <= 100 else 6
+            ms = graph_ms(torch, [lambda x=x: rms_norm_cuda(x, w, eps) for x in xs], iters=iters)
+            pms = graph_ms(torch, [lambda x=x: rms_norm_plain(x, w, eps) for x in xs],
+                           iters=iters)
+            lms = None if lib is None else graph_ms(
+                torch, [lambda x=x: lib(x, (h,), w, eps) for x in xs], iters=iters)
+            self._record("rms_norm", f"M={m} H={h}", err, 1, ms, pms, lms,
+                         2 * m * h * 2 + h * 2, 4 * m * h, main=(m == 8), ulps=ulps)
+            del xs
+
+    def _kernel7(self, torch, F, gen):
+        """Kernel 7 at the serving shapes: 8 slots, block 16, 128 blocks per
+        slot (2048 slots), the tables a random permutation of the pool (no two
+        logical neighbours are physical neighbours). The pool is POISONED: NaN
+        in every block no row owns and in every slot past a row's offset, so a
+        kernel that read one would return NaN. Tolerance 1e-2 of each output
+        row's norm, as kernel 3. The library call is the gather through the
+        tables plus SDPA, both inside the timed region. Each launch of a timed
+        run reads another region of the pool (copies larger than the L2)."""
+        from gptq_for_llama_tpu_torch.ops.cuda.attention import (pool_decode_attention_cuda,
+                                                                 pool_decode_attention_plain)
+        b, h, d, bs, mb = 8, 32, 128, 16, 128
+        bf = torch.bfloat16
+        mixed = (37, 150, 300, 511, 512, 900, 1200, 1500)
+        for hkv, offs, what in ((32, (127,) * b, "offsets 127"), (32, (2047,) * b, "offsets 2047"),
+                                (32, mixed, "offsets 37..1500"), (8, mixed, "GQA, offsets 37..1500")):
+            off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            live_slots = int((off + 1).sum().item())
+            live_bytes = live_slots * hkv * d * 2 * 2
+            ncopy = copies_for(live_bytes)
+            nb = ncopy * b * mb + 1
+            kp = (torch.randn(nb, bs, hkv, d, generator=gen, device="cuda", dtype=bf))
+            vp = (torch.randn(nb, bs, hkv, d, generator=gen, device="cuda", dtype=bf))
+            q = torch.randn(b, 1, h, d, generator=gen, device="cuda").to(bf)
+            perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1   # block 0: scratch
+            tables = [perm[i * b * mb:(i + 1) * b * mb].reshape(b, mb).int().contiguous()
+                      for i in range(ncopy)]
+            # poison: every slot past its row's offset, and the scratch block
+            # (the one block no row owns: the permutation hands out all others)
+            dead = (torch.arange(mb * bs, device="cuda")[None, :] > off[:, None]).reshape(b, mb, bs)
+            dead_pool = torch.zeros(nb, bs, dtype=torch.bool, device="cuda")
+            dead_pool[0] = True
+            for t in tables:
+                dead_pool[t.long()] = dead
+            kp[dead_pool] = float("nan")
+            vp[dead_pool] = float("nan")
+            max_live = max(offs) + 1   # the engine's host-side bound
+            y = pool_decode_attention_cuda(q, kp, vp, tables[0], off, d ** -0.5, max_live)
+            ref = pool_decode_attention_plain(q, kp, vp, tables[0], off, d ** -0.5)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y.float()).all() and torch.isfinite(ref.float()).all()):
+                raise AssertionError(f"pool_decode_attention {what}: a poisoned slot was read")
+            err = (y.float() - ref.float()).abs().max().item()
+            rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
+            ms = graph_ms(torch, [lambda t=t: pool_decode_attention_cuda(
+                q, kp, vp, t, off, d ** -0.5, max_live) for t in tables])
+            pms = graph_ms(torch, [lambda t=t: pool_decode_attention_plain(
+                q, kp, vp, t, off, d ** -0.5) for t in tables], iters=10)
+            mask = (torch.arange(mb * bs, device="cuda")[None, :] <= off[:, None])[:, None, None, :]
+            qt = q.transpose(1, 2)
+            gqa = {"enable_gqa": True} if h != hkv else {}
+            zero = torch.zeros((), dtype=bf, device="cuda")
+
+            def library(t):
+                idx = t.long()
+                # dead slots zeroed as in the plain version: SDPA multiplies
+                # them by zero weights, and 0 * NaN is NaN
+                kd = torch.where(mask[:, 0, 0, :, None, None], kp[idx].reshape(b, mb * bs, hkv, d),
+                                 zero)
+                vd = torch.where(mask[:, 0, 0, :, None, None], vp[idx].reshape(b, mb * bs, hkv, d),
+                                 zero)
+                return F.scaled_dot_product_attention(qt, kd.transpose(1, 2), vd.transpose(1, 2),
+                                                      attn_mask=mask, **gqa)
+
+            lib_err = row_rel_err(library(tables[0]).transpose(1, 2), ref)
+            if not lib_err <= 1e-2:
+                raise AssertionError(f"pool_decode_attention {what}: the library yardstick "
+                                     f"computes another function ({lib_err})")
+            lms = graph_ms(torch, [lambda t=t: library(t) for t in tables], iters=10)
+            self._record("pool_decode_attention",
+                         f"B={b} H={h} Hkv={hkv} BS={bs} MB={mb} {what}", err, 1e-2, ms, pms, lms,
+                         2 * b * h * d * 2 + live_bytes + b * 4 + live_slots // bs * 4,
+                         4 * live_slots * h * d, main=(hkv == 32 and offs == mixed),
+                         row_rel=rel, ref_max=ref_max)
+            del kp, vp, tables
             torch.cuda.empty_cache()
 
     def _ppl_eval_linears(self, torch, rng, randn):
@@ -519,14 +663,13 @@ class Smoke:
         from gptq_for_llama_tpu_torch.runtime.random_model import (model_weight_bytes,
                                                                    random_wire_llama)
 
-        cfg = ModelConfig(arch="llama", vocab_size=32000, hidden_size=4096,
-                          intermediate_size=11008, num_layers=32, num_heads=32,
-                          num_kv_heads=32, head_dim=128, max_seq_len=2048)
+        cfg = ModelConfig(**LLAMA_7B)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = random_wire_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
         torch.cuda.synchronize()
         log(f"[full] 7B INT4-g128 random wire weights loaded in {time.perf_counter() - t0:.1f} s")
+        self.model7b = (cfg, params)
         runner = ModelRunner("llama", cfg, params, dtype=torch.bfloat16, device="cuda")
         runner.warmup(prefill_buckets=(16,))
         rng = np.random.RandomState(0)
@@ -581,26 +724,22 @@ class Smoke:
                                "peak_memory_bytes": peak, "weight_bytes": wbytes}
 
     def check_path(self, path, counts):
-        """Record a path's launch counts; fail if a kernel of it never launched."""
-        self.launches[path] = counts
+        """Record one run's launch counts under its path (runs of one path add
+        up); fail if a kernel of the path never launched in this run."""
+        acc = self.launches.setdefault(path, {})
+        for k, v in counts.items():
+            acc[k] = acc.get(k, 0) + v
         missing = sorted(k for k in PATHS[path] if counts.get(k, 0) == 0)
         if missing:
             raise AssertionError(f"{path} path: kernels never launched: {missing}")
 
     # -- phase 6 ---------------------------------------------------------------
     def phase_quantize(self, torch):
-        tmp = tempfile.mkdtemp(prefix="gptq_smoke_")
-        try:
-            self._quantize_path(torch, tmp)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-
-    def _quantize_path(self, torch, tmp):
         from gptq_for_llama_tpu_torch.cli.main import main as cli
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
 
         layers = 2
-        model, out = os.path.join(tmp, "model"), os.path.join(tmp, "packed")
+        model, out = os.path.join(self.tmp, "model"), os.path.join(self.tmp, "packed")
         t0 = time.perf_counter()
         nbytes = write_dense_llama(torch, model, layers, seed=11)
         log(f"[quantize] dense F16 LLaMA at 7B width, {layers} layers: {nbytes / 2**30:.2f} GiB "
@@ -777,8 +916,317 @@ class Smoke:
         res["window_nll"] = {"card": nll_card, "cpu": nll_cpu, "rel": nll_rel}
 
     # -- phase 7 ---------------------------------------------------------------
+    SERVE_LENS = (37, 50, 100, 120, 200, 300, 450, 600, 64, 90, 256, 512)
+    SERVE_NEW = 48
+
+    def _forced_reference(self, torch, runner, prompts, results, eng=None):
+        """The single-sequence runner, teacher-forced with each request's served
+        tokens (prefill, then one decode step per token, as ``generate`` runs
+        them): per request the runner's argmax at every position and whether
+        its top-2 margin is clear. The rule of the e2e phase: a served token
+        must equal the runner's wherever the margin exceeds 2 * 2e-2 * max|logit|
+        (batch-8 and batch-1 GEMMs round differently, so a near-tie may flip).
+
+        With ``eng`` (the engine after its run) the k/v the engine left for
+        the last request of each slot are also held against the runner's cache,
+        per (position, head) row at 2e-2 of the row's norm: every layer's k/v
+        at every position depends on all that came before it, so a wrong
+        cache, table or offset shows here even where the argmax does not move.
+        Returns (reference, worst cache row error or None)."""
+        rel_tol, out, worst = 2e-2, {}, None
+        slot_of = {} if eng is None else {s.req.uid: i for i, s in enumerate(eng.slots)}
+        for uid, p in enumerate(prompts):
+            toks = torch.as_tensor(np.asarray(results[uid], np.int64), device="cuda")[None]
+            logits, cache = runner.prefill(torch.as_tensor(p[None], device="cuda"),
+                                           runner.init_cache())
+            rows = [logits[0, -1].float()]
+            for i in range(toks.shape[1] - 1):
+                logits, cache = runner.decode(toks[:, i:i + 1], cache)
+                rows.append(logits[0, -1].float())
+            ref = torch.stack(rows)
+            top2 = ref.topk(2, dim=-1)
+            clear = (top2.values[:, 0] - top2.values[:, 1]) > 2 * rel_tol * ref.abs().max()
+            out[uid] = (top2.indices[:, 0].cpu().numpy(), clear.cpu().numpy())
+            if uid in slot_of:
+                i, n, st = slot_of[uid], cache.offset, eng.state
+                if n != int(st["host_off"][i]):
+                    raise AssertionError(f"slot {i}: the engine holds {st['host_off'][i]} "
+                                         f"positions of request {uid}, the runner {n}")
+                for li in range(len(cache.k)):
+                    for got, want in ((st["k"][li], cache.k[li]), (st["v"][li], cache.v[li])):
+                        if eng.paged:   # the slot's logical view, through its table row
+                            got = got[st["tables"][i].long()].reshape(-1, *got.shape[2:])
+                        else:
+                            got = got[i]
+                        err = row_rel_err(got[:n], want[0, :n])
+                        worst = err if worst is None else max(worst, err)
+                        if not err <= rel_tol:
+                            raise AssertionError(f"slot {i} (request {uid}), layer {li}: the "
+                                                 f"engine's cache is {err} off the runner's")
+        return out, worst
+
+    @staticmethod
+    def _hold_to_reference(what, results, reference):
+        """Fail if a served token differs from the runner's where the margin is
+        clear; returns (compared, positions, raw agreement)."""
+        compared = total = same = 0
+        for uid, (argmax, clear) in reference.items():
+            got = np.asarray(results[uid])
+            bad = np.nonzero(clear & (got != argmax))[0]
+            if bad.size:
+                raise AssertionError(f"{what}: request {uid} token {bad[0]} is {got[bad[0]]}, the "
+                                     f"single-sequence runner says {argmax[bad[0]]} with a clear "
+                                     f"margin")
+            compared += int(clear.sum())
+            total += len(got)
+            same += int((got == argmax).sum())
+        if compared == 0:
+            raise AssertionError(f"{what}: no token cleared the margin; the check is dead")
+        return compared, total, same
+
+    @staticmethod
+    def _hold_to_run(what, results, other, reference):
+        """Two runs of the same requests: equal up to each request's first
+        difference, which must sit where the reference's margin is not clear
+        (both have the same history up to there)."""
+        equal = 0
+        for uid, (_, clear) in reference.items():
+            a, b = np.asarray(results[uid]), np.asarray(other[uid])
+            diff = np.nonzero(a != b)[0] if len(a) == len(b) else np.array([min(len(a), len(b))])
+            if diff.size and (diff[0] >= len(clear) or clear[diff[0]]):
+                raise AssertionError(f"{what}: request {uid} differs at token {diff[0]} where the "
+                                     f"runner's margin is clear")
+            equal += int(not diff.size)
+        return equal
+
+    def _serve_run(self, torch, label, path, prompts, poison=False, **kw):
+        """One ``ServingEngine.run`` over the 12 requests on the 7B model: the
+        tokens, the engine's stats, and the launch counts held against the
+        forwards the engine made."""
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime import GenRequest, ServingEngine
+        cfg, params = self.model7b
+        eng = ServingEngine("llama", cfg, params, batch_slots=8, max_seq_len=2048,
+                            prefill_buckets=(32, 128, 512), **kw)
+        if poison:   # every pool block starts as NaN: no block is owned yet
+            eng._new_cache = lambda shape: [
+                torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
+                for _ in range(cfg.num_layers)]
+        for uid, p in enumerate(prompts):
+            eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=self.SERVE_NEW))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        self.check_path(path, counts)
+
+        f, layers = eng.forwards, cfg.num_layers
+        total = sum(f.values())
+        steps = f["decode"] + f["chunk+decode"]
+        want = {"rms_norm": (2 * layers + 1) * total, "qmm": 5 * layers * total,
+                "fused_mlp": layers * total,
+                "pool_decode_attention": layers * steps if eng.paged else 0,
+                "decode_attention": 0 if eng.paged else layers * steps,
+                "flash_prefill_blocked": layers * (f["prefill"] + f["chunk"] + f["chunk+decode"]),
+                "flash_prefill": layers * f["admit"]}
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts} but the forwards {f} predict {want}")
+        tokens = sum(len(r) for r in results.values())
+        if sorted(results) != list(range(len(prompts))) or tokens != len(prompts) * self.SERVE_NEW:
+            raise AssertionError(f"{label}: {len(results)} results, {tokens} tokens")
+        for r in results.values():
+            if not ((r >= 0) & (r < cfg.vocab_size)).all():
+                raise AssertionError(f"{label}: token out of the vocabulary")
+        stats = eng.stats()
+        distinct = len(set(np.concatenate(list(results.values())).tolist()))
+        log(f"[serve] {label}: {tokens} tokens ({distinct} distinct) in {dt:.2f} s = "
+            f"{tokens / dt:.1f} tok/s aggregate; "
+            f"ttft p50/p95 {stats['ttft_p50_s']}/{stats['ttft_p95_s']} s, latency p50/p95 "
+            f"{stats['latency_p50_s']}/{stats['latency_p95_s']} s; {eng.steps} engine steps, "
+            f"forwards {f}; peak memory {peak / 2**30:.2f} GiB | {self.card}")
+        log(f"[serve] {label}: launches {counts}")
+        self.report.setdefault("serve", {})[label] = {
+            "seconds": dt, "tokens": tokens, "distinct_tokens": distinct, "tok_s": tokens / dt,
+            "stats": stats,
+            "steps": eng.steps, "forwards": dict(f), "launches": counts,
+            "peak_memory_bytes": peak}
+        return results, eng
+
+    def _serve_step_times(self, torch, eng):
+        """Where a serving decode step's time goes: the engine's batched decode
+        step (8 slots over the pool the run left, every slot at its last
+        offset) timed on the host clock, replayed as a CUDA graph (device time),
+        and under torch.profiler (device time per kernel)."""
+        state = eng.state
+        off0 = state["off"].clone()
+        toks = torch.zeros((eng.b, 1), dtype=torch.long, device="cuda")
+        live = torch.ones(eng.b, dtype=torch.bool, device="cuda")
+        max_live = int(state["host_off"].max()) + 1
+
+        def step():
+            state["off"] = off0   # every replay decodes at the same offsets
+            eng._decode_step(state, toks, live, max_live)
+
+        with torch.inference_mode():
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            n = 16
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / n * 1e3
+            dev_ms = graph_ms(torch, [step], iters=4)
+            log(f"[serve] one paged decode step, 8 slots at offsets {off0.tolist()}: "
+                f"{host_ms:.3f} ms eager on the host clock, {dev_ms:.3f} ms of device time as a "
+                f"CUDA graph (host share {1 - dev_ms / host_ms:.3f}); "
+                f"{8e3 / host_ms:.1f} / {8e3 / dev_ms:.1f} tok/s | {self.card}")
+            self._profile_steps(torch, "serve-profile", "eager paged decode steps of LLaMA-7B, "
+                                "8 slots", step, 4)
+        self.report["serve"]["decode_step"] = {"host_ms": host_ms, "graph_ms": dev_ms,
+                                               "offsets": off0.tolist()}
+
+    def phase_serve(self, torch):
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner
+        cfg, params = self.model7b
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(1, cfg.vocab_size, size=n) for n in self.SERVE_LENS]
+        res = self.report.setdefault("serve", {})
+
+        # how far batch-8 and batch-1 logits of the same sequence are apart:
+        # the rounding the token rule has to allow for
+        ids = torch.as_tensor(np.stack([prompts[2]] * 8), device="cuda")
+        r8 = ModelRunner("llama", cfg, params, batch_size=8, max_seq_len=128, device="cuda")
+        r1 = ModelRunner("llama", cfg, params, batch_size=1, max_seq_len=128, device="cuda")
+        l8, c8 = r8.prefill(ids, r8.init_cache())
+        l1, c1 = r1.prefill(ids[:1], r1.init_cache())
+        tok = l1[:, -1:].float().argmax(-1)
+        d8, _ = r8.decode(tok.expand(8, 1).contiguous(), c8)
+        d1, _ = r1.decode(tok, c1)
+        diff = (d8[0].float() - d1[0].float()).abs().max().item()
+        scale = d1.float().abs().max().item()
+        log(f"[serve] decode logits of one sequence at batch 8 vs batch 1: max abs diff "
+            f"{diff:.4f}, max |logit| {scale:.3f}, rel {diff / scale:.2e} (token rule allows 2e-2)")
+        res["batch8_vs_batch1_rel"] = diff / scale
+        del r8, r1, c8, c1, l8, l1, d8, d1
+
+        # paged, span 8, over a pool that starts as NaN everywhere
+        paged, eng = self._serve_run(torch, "paged span 8 (poisoned pool)", "serve:paged",
+                                     prompts, poison=True, paged=True, block_size=16,
+                                     decode_span=8)
+        state, host_off = eng.state, eng.state["host_off"]
+        for i in range(eng.b):   # what each slot's last request wrote holds no NaN
+            blocks = state["tables"][i].long()
+            for li in range(cfg.num_layers):
+                for pool in (state["k"][li], state["v"][li]):
+                    live = pool[blocks].reshape(-1, *pool.shape[2:])[:int(host_off[i])]
+                    if not torch.isfinite(live.float()).all():
+                        raise AssertionError(f"paged: NaN in the live cache of slot {i}, layer {li}")
+        log(f"[serve] paged: the live prefix of every slot (offsets {host_off.tolist()}) holds "
+            f"no NaN in any of {cfg.num_layers} layers after a run over a pool poisoned with NaN")
+
+        runner = ModelRunner("llama", cfg, params, batch_size=1, max_seq_len=2048, device="cuda")
+        t0 = time.perf_counter()
+        ref, cache_err = self._forced_reference(torch, runner, prompts, paged, eng)
+        t_ref = time.perf_counter() - t0
+        del eng, state
+        torch.cuda.empty_cache()
+        compared, total, same = self._hold_to_reference("paged", paged, ref)
+        log(f"[serve] paged vs the single-sequence runner (teacher-forced, {t_ref:.1f} s): "
+            f"{compared}/{total} positions clear the margin, all agree; {same}/{total} agree "
+            f"in all; the k/v left in the pool for each slot's last request are within "
+            f"{cache_err:.2e} of the runner's cache per row (tol 2e-2), all layers")
+        res["paged_vs_runner"] = {"compared": compared, "positions": total, "agree": same,
+                                  "cache_row_rel_err": cache_err}
+
+        # the same without spans: what a span saves on this card; a clean pool
+        # must give the poisoned run's tokens exactly (same kernels, same order)
+        span1, eng = self._serve_run(torch, "paged span 1", "serve:paged", prompts, paged=True,
+                                     block_size=16, decode_span=1)
+        self._serve_step_times(torch, eng)
+        del eng
+        torch.cuda.empty_cache()
+        for uid in paged:
+            if not np.array_equal(span1[uid], paged[uid]):
+                raise AssertionError(f"paged: request {uid} differs between span 8 over a poisoned "
+                                     f"pool and span 1 over a clean one")
+        a, b = res["paged span 8 (poisoned pool)"], res["paged span 1"]
+        log(f"[serve] span 8 vs span 1: {a['tok_s']:.1f} vs {b['tok_s']:.1f} tok/s "
+            f"({a['seconds']:.2f} vs {b['seconds']:.2f} s, {a['steps']} vs {b['steps']} engine "
+            f"steps); tokens identical | {self.card}")
+
+        # dense cache, chunked prefill: fused with the decode step, and not
+        fused, eng = self._serve_run(torch, "dense chunk 128 fused", "serve:dense", prompts,
+                                     prefill_chunk=128, decode_span=8)
+        ref_d, cache_err = self._forced_reference(torch, runner, prompts, fused, eng)
+        del eng
+        torch.cuda.empty_cache()
+        compared, total, same = self._hold_to_reference("dense chunked", fused, ref_d)
+        log(f"[serve] dense chunked vs the single-sequence runner: {compared}/{total} positions "
+            f"clear the margin, all agree; {same}/{total} agree in all; the dense cache of "
+            f"each slot's last request is within {cache_err:.2e} of the runner's per row")
+        res["dense_vs_runner"] = {"compared": compared, "positions": total, "agree": same,
+                                  "cache_row_rel_err": cache_err}
+        equal = self._hold_to_run("paged vs dense", paged, fused, ref)
+        log(f"[serve] paged vs dense chunked: {equal}/{len(prompts)} requests identical, the "
+            f"others first differ where the runner's margin is not clear")
+        unfused, eng = self._serve_run(torch, "dense chunk 128 unfused", "serve:dense", prompts,
+                                       prefill_chunk=128, decode_span=8, fused_chunk_decode=False)
+        del eng, runner
+        torch.cuda.empty_cache()
+        equal = self._hold_to_run("fused vs unfused", fused, unfused, ref_d)
+        log(f"[serve] fused vs unfused chunk+decode: {equal}/{len(prompts)} requests identical, "
+            f"the others first differ where the runner's margin is not clear")
+        self.model7b = None
+        del params
+        torch.cuda.empty_cache()
+        self._serve_cli(torch, kernels)
+
+    def _serve_cli(self, torch, kernels):
+        """The serving CLI on the 2-layer 7B-width checkpoint the quantize phase
+        packed: load, 12 demo requests of 100 tokens on 8 slots, paged, span 8."""
+        from gptq_for_llama_tpu_torch.cli.serve import main as serve_cli
+        from gptq_for_llama_tpu_torch.models import hf_loader
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner
+        model, packed = os.path.join(self.tmp, "model"), os.path.join(self.tmp, "packed")
+        n, plen, new = 12, 100, 32
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = serve_cli([model, "--load", packed, "--demo", str(n), "--demo-prompt-len",
+                         str(plen), "--max-new-tokens", str(new), "--paged", "--quiet"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        self.check_path("serve:cli", counts)
+        stats, reqs = rep["stats"], rep["requests"]
+        if (stats["requests"] != n or stats["tokens"] != n * new or not stats["paged"]
+                or [r["uid"] for r in reqs] != list(range(n))
+                or any(r["prompt_tokens"] != plen or len(r["tokens"]) != new for r in reqs)):
+            raise AssertionError(f"serve CLI: unexpected output {stats}")
+        cfg, params = hf_loader.load_params(packed, device="cuda")
+        rng = np.random.RandomState(0)   # the CLI's demo prompts, from its --seed
+        prompts = [rng.randint(1, cfg.vocab_size, size=(plen,)) for _ in range(n)]
+        runner = ModelRunner("llama", cfg, params, batch_size=1, max_seq_len=plen + new + 1,
+                             device="cuda")
+        results = {r["uid"]: np.asarray(r["tokens"]) for r in reqs}
+        ref, _ = self._forced_reference(torch, runner, prompts, results)
+        compared, total, same = self._hold_to_reference("serve CLI", results, ref)
+        log(f"[serve] CLI --demo {n} --paged on the packed 2-layer checkpoint: {dt:.1f} s with "
+            f"the load, {stats['tok_s']} tok/s, ttft p50 {stats['ttft_p50_s']} s; "
+            f"{compared}/{total} positions clear the runner's margin, all agree ({same}/{total} "
+            f"agree in all); launches {counts} | {self.card}")
+        self.report["serve"]["cli"] = {"seconds": dt, "stats": stats, "launches": counts,
+                                       "compared": compared, "agree": same}
+
+    # -- phase 8 ---------------------------------------------------------------
     def phase_profile(self, torch):
-        from torch.profiler import ProfilerActivity, profile
         from gptq_for_llama_tpu_torch.models.config import ModelConfig
         from gptq_for_llama_tpu_torch.runtime import ModelRunner
         from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_llama
@@ -791,14 +1239,24 @@ class Smoke:
                               device="cuda")
         logits, cache = runner.prefill(ids, runner.init_cache())
         tok = logits[:, -1:].float().argmax(-1)
-        steps = 4
         for _ in range(2):
             logits, cache = runner.decode(tok, cache)
+
+        def step():
+            runner.decode(tok, cache)   # the same slot rewritten: the offset stays
+
+        self._profile_steps(torch, "profile", "eager decode steps of a 4-layer 7B-width model",
+                            step, 4)
+
+    def _profile_steps(self, torch, key, what, step, steps):
+        """torch.profiler over ``steps`` calls of ``step``: host wall time, the
+        device's busy share and device time per kernel name."""
+        from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
-                logits, cache = runner.decode(tok, cache)
+                step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         rows = []   # kernels only: an aten op row repeats its kernels' time
@@ -812,24 +1270,23 @@ class Smoke:
                 rows.append((dev, e.count, e.key))
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows) / 1e6
-        log(f"[profile] {steps} eager decode steps of a 4-layer 7B-width model: wall "
-            f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
-            f"(busy share {busy / wall:.4f}) | {self.card}")
-        for dev, count, key in rows[:25]:
-            log(f"[profile]   {dev / steps:10.1f} us/step  {count // steps:4d} calls/step  "
-                f"{key[:110]}")
-        self.report["profile"] = {"wall_s": wall, "busy_s": busy, "steps": steps,
-                                  "kernels": [{"us_per_step": d / steps, "calls": c, "name": k}
-                                              for d, c, k in rows]}
+        log(f"[{key}] {steps} {what}: wall {wall * 1e3:.3f} ms, device busy "
+            f"{busy * 1e3:.3f} ms (busy share {busy / wall:.4f}) | {self.card}")
+        for dev, count, name in rows[:25]:
+            log(f"[{key}]   {dev / steps:10.1f} us/step  {count // steps:4d} calls/step  "
+                f"{name[:110]}")
+        self.report[key] = {"wall_s": wall, "busy_s": busy, "steps": steps,
+                            "kernels": [{"us_per_step": d / steps, "calls": c, "name": k}
+                                        for d, c, k in rows]}
 
     def kernels_line(self) -> str:
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
         rows = []
-        for name, (mod, _) in kernels.KERNELS.items():
+        for name, kernel in kernels.KERNELS.items():
             e = self.entries.get(name, {})
             by_path = {p: c.get(name, 0) for p, c in self.launches.items()}
-            rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
-                         "replaces": mod.REPLACES,
+            rows.append({"name": name, "route": "cuda", "source": kernel.source,
+                         "replaces": kernel.replaces,
                          "launches": sum(by_path.values()), "launches_by_path": by_path,
                          "max_abs_err": e.get("max_abs_err"), "ms": e.get("ms"),
                          "plain_ms": e.get("plain_ms"), "bound_ms": e.get("bound_ms"),
@@ -851,11 +1308,15 @@ def main() -> int:
 
     smoke = Smoke()
     smoke.phase_card(torch)
-    for p in PHASES:
-        t0 = time.perf_counter()
-        log(f"== phase {p}")
-        getattr(smoke, f"phase_{p}")(torch)
-        log(f"== phase {p} done in {time.perf_counter() - t0:.1f} s")
+    smoke.tmp = tempfile.mkdtemp(prefix="gptq_smoke_")
+    try:
+        for p in PHASES:
+            t0 = time.perf_counter()
+            log(f"== phase {p}")
+            getattr(smoke, f"phase_{p}")(torch)
+            log(f"== phase {p} done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(smoke.tmp, ignore_errors=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(smoke.report, f, indent=1)

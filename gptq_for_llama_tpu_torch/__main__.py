@@ -1,8 +1,10 @@
 import sys
 
 if len(sys.argv) > 1 and sys.argv[1] == "serve":
-    raise NotImplementedError("the serving CLI is not yet ported to gptq_for_llama_tpu_torch "
-                              "(ROADMAP A13)")
-from .cli.main import main
+    from .cli.serve import main
 
-main()
+    main(sys.argv[2:])
+else:
+    from .cli.main import main
+
+    main()

@@ -1,0 +1,171 @@
+"""Serving front door: the continuous-batching engine as a CLI.
+
+Counterpart of ``gptq_for_llama_tpu/cli/serve.py``, with the same flag surface
+and one addition, ``--device``: the CLI runs on the card unless it is given
+``--device cpu`` (the plain PyTorch versions), and without a card and without
+that flag it raises. It stands up ``runtime.serve.ServingEngine`` (slots,
+decode spans, optional paged KV pool, chunked prefill) over a packed
+checkpoint, feeds it a batch of prompts, and reports aggregate throughput.
+Flags of slices not ported yet raise NotImplementedError naming their
+ROADMAP item.
+
+Usage:
+  # real prompts (one per line; tokenizer read from MODEL_DIR)
+  python -m gptq_for_llama_tpu_torch serve MODEL_DIR --load PACKED_DIR \\
+      --prompts prompts.txt --slots 16 --span 8 --paged
+
+  # synthetic smoke/benchmark (no tokenizer needed)
+  python -m gptq_for_llama_tpu_torch serve MODEL_DIR --demo 16 --max-new-tokens 32
+
+Output: one JSON line per finished request ({"uid", "prompt_tokens",
+"new_tokens", "text"|"tokens"}) then one final stats line ({"requests",
+"tokens", "tok_s", ...knobs}).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("gptq_for_llama_tpu_torch serve")
+    p.add_argument("model", type=str, help="HF checkpoint directory (tokenizer + config)")
+    p.add_argument("--load", type=str, default="",
+                   help="packed checkpoint directory (default: MODEL_DIR)")
+    # workload
+    p.add_argument("--prompts", type=str, default=None, help="text file, one prompt per line")
+    p.add_argument("--demo", type=int, default=0,
+                   help="serve N synthetic prompts instead of --prompts")
+    p.add_argument("--demo-prompt-len", type=int, default=16)
+    p.add_argument("--max-new-tokens", type=int, default=64)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--top_p", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    # engine knobs (see runtime/serve.py)
+    p.add_argument("--slots", type=int, default=8,
+                   help="concurrent decode slots (continuous batching)")
+    p.add_argument("--span", type=int, default=8, help="decode steps queued per host read")
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV pool instead of dense per-slot cache")
+    p.add_argument("--block-size", type=int, default=16)
+    p.add_argument("--num-blocks", type=int, default=None,
+                   help="paged pool size (default: slots * max_len / block)")
+    p.add_argument("--prefill-chunk", type=int, default=None,
+                   help="chunked prefill: one fixed-size prompt chunk per engine tick rides "
+                        "along with decode")
+    p.add_argument("--buckets", type=str, default="32,128,512",
+                   help="prefill length buckets (comma-separated)")
+    p.add_argument("--max-seq-len", type=int, default=None)
+    p.add_argument("--tp", type=int, default=None, help="tensor-parallel degree")
+    p.add_argument("--distributed", action="store_true", help="multi-host initialization")
+    p.add_argument("--quiet", action="store_true", help="suppress progress lines on stderr")
+    p.add_argument("--kv-dtype", type=str, default=None, dest="kv_dtype",
+                   choices=["bf16", "f32", "fp8", "fp8_e5m2"], help="KV storage dtype")
+    p.add_argument("--fuse-attn", action="store_true", dest="fuse_attn",
+                   help="fuse q/k/v into one packed projection at load")
+    p.add_argument("--device", type=str, default=None,
+                   help="'cpu' runs the plain PyTorch versions on the CPU; default: the card")
+    return p
+
+
+# flag -> (is it set, ROADMAP item of the slice that ports it)
+_UNPORTED = {
+    "--tp": (lambda a: bool(a.tp and a.tp > 1), "A18"),
+    "--distributed": (lambda a: a.distributed, "A18"),
+    "--fuse-attn": (lambda a: a.fuse_attn, "A4 (concat_outputs / fuse_attention)"),
+    "--kv-dtype": (lambda a: a.kv_dtype not in (None, "bf16"), "A14"),
+}
+
+
+def main(argv=None) -> dict:
+    """Run the serving CLI; returns what it printed: "requests" (the
+    per-request records) and "stats" (the final line)."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for flag, (is_set, item) in _UNPORTED.items():
+        if is_set(args):
+            raise NotImplementedError(f"{flag} is not yet ported to gptq_for_llama_tpu_torch "
+                                      f"(ROADMAP {item})")
+    if not args.prompts and not args.demo:
+        parser.error("need --prompts FILE or --demo N")
+    try:
+        buckets = tuple(sorted(int(b) for b in args.buckets.split(",") if b.strip()))
+    except ValueError:
+        parser.error(f"--buckets must be comma-separated ints, got {args.buckets!r}")
+    if not buckets:
+        parser.error("--buckets is empty")
+    prompt_lines = None
+    if args.prompts:  # validate BEFORE the checkpoint load
+        with open(args.prompts) as f:
+            prompt_lines = [line.rstrip("\n") for line in f if line.strip()]
+        if not prompt_lines:
+            parser.error(f"--prompts {args.prompts}: no non-empty lines")
+    from .. import resolve_device
+    from ..models import hf_loader
+    from ..runtime.serve import GenRequest, ServingEngine
+
+    device = resolve_device(args.device)
+    t0 = time.time()
+    model_dir = args.load or args.model
+    cfg, params = hf_loader.load_params(model_dir, seqlen=args.max_seq_len, dtype=torch.bfloat16,
+                                        device=device)
+    log = (lambda *a: None) if args.quiet else \
+        (lambda *a: print(*a, file=sys.stderr, flush=True))
+    log(f"loaded {cfg.arch} from {model_dir} on {device} ({time.time() - t0:.1f}s)")
+
+    # workload
+    tokenizer = None
+    eos = None
+    if args.prompts:
+        from transformers import AutoTokenizer
+        tokenizer = AutoTokenizer.from_pretrained(args.model)
+        eos = tokenizer.eos_token_id
+        prompts = [np.asarray(tokenizer(line)["input_ids"], np.int32) for line in prompt_lines]
+    else:
+        rng = np.random.RandomState(args.seed)
+        prompts = [rng.randint(1, cfg.vocab_size, size=(args.demo_prompt_len,)).astype(np.int32)
+                   for _ in range(args.demo)]
+
+    max_len = args.max_seq_len or min(
+        cfg.max_seq_len, max(len(p) for p in prompts) + args.max_new_tokens + 1)
+    engine = ServingEngine(
+        cfg.arch, cfg, params, batch_slots=args.slots, max_seq_len=max_len, paged=args.paged,
+        block_size=args.block_size, num_blocks=args.num_blocks,
+        prefill_chunk=args.prefill_chunk, decode_span=args.span, prefill_buckets=buckets,
+        device=device, seed=args.seed)
+    for uid, prompt in enumerate(prompts):
+        engine.submit(GenRequest(uid=uid, prompt=prompt, max_new_tokens=args.max_new_tokens,
+                                 temperature=args.temperature, top_p=args.top_p,
+                                 eos_token_id=eos))
+
+    t1 = time.time()
+    results = engine.run(log=log)
+    dt = time.time() - t1
+
+    total, records = 0, []
+    for uid in sorted(results):
+        toks = results[uid]
+        total += len(toks)
+        rec = {"uid": uid, "prompt_tokens": int(len(prompts[uid])), "new_tokens": int(len(toks))}
+        if tokenizer is not None:
+            rec["text"] = tokenizer.decode(toks)
+        else:
+            rec["tokens"] = [int(t) for t in toks]
+        print(json.dumps(rec), flush=True)
+        records.append(rec)
+    stats = {"requests": len(results), "tokens": total,
+             "tok_s": round(total / max(dt, 1e-9), 2), **engine.stats(),
+             "slots": args.slots, "span": args.span, "paged": args.paged,
+             "prefill_chunk": args.prefill_chunk, "tp": args.tp, "max_seq_len": max_len}
+    print(json.dumps(stats), flush=True)
+    return {"requests": records, "stats": stats}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,15 @@
 """Shared model building blocks: norms, RoPE, KV cache, attention.
 
-Counterpart of ``gptq_for_llama_tpu/models/common.py``, dense-cache subset.
-fp32 is used for normalization statistics and softmax; everything else runs
-in the compute dtype. RMSNorm, RoPE and the cache write are plain torch, as
-the TPU package leaves them to XLA. Attention on a CUDA tensor always goes to
-a kernel of ``ops/cuda``: with a cache offset to the decode or blocked prefill
-kernel, without a cache (causal) to the causal prefill kernel.
+Counterpart of ``gptq_for_llama_tpu/models/common.py``: the dense cache and
+the serving engine's cache protocol (per-slot offsets, paged block pools,
+batched admission, the token-fused chunk+decode step). fp32 is used for
+normalization statistics and softmax; everything else runs in the compute
+dtype. RoPE and the cache writes are plain torch, as the TPU package leaves
+them to XLA. RMSNorm and attention on a CUDA tensor always go to a kernel of
+``ops/cuda``: a decode row over a dense cache to the decode kernel, over a
+block pool to the pool kernel, a chunk of queries at a cache offset to the
+blocked prefill kernel, and causal self-attention without a cache to the
+causal prefill kernel.
 """
 
 from __future__ import annotations
@@ -13,15 +17,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda.attention import attention_plain, decode_attention
+from ..ops.cuda.attention import attention_plain, decode_attention, pool_decode_attention
 from ..ops.cuda.flash import flash_prefill_blocked
 from ..ops.cuda.flash_prefill import flash_prefill
-
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
-    return (y * weight.float()).to(x.dtype)
+from ..ops.cuda.norm import rms_norm  # noqa: F401  (kernel 6 on the card, plain on the CPU)
 
 
 def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float, dtype=torch.float32):
@@ -98,45 +97,164 @@ def causal_mask(q_len: int, kv_len: int, dtype=torch.float32, device=None):
 
 
 def apply_kv_cache(past_kv, k, v):
-    """Cache protocol of every layer: past_kv is None (no cache) or
-    (cache_k, cache_v, offset[, write_mask]) (dense static cache). Returns
-    (k_eff, v_eff, present, offset_or_None)."""
+    """Cache protocol of every layer. The caches and pools are written in
+    place. past_kv forms (``max_live``, optional and last, is a host-side
+    bound on offset + 1 over the rows, for the decode kernels' split plan):
+      None                                    no cache (plain causal forward)
+      (ck, cv, offset[, write_mask[, max_live]])
+                                              dense static cache; offset an
+                                              int (rows aligned) or (B,)
+      ("paged", kp, vp, tables, offset[, write_mask[, max_live]])
+                                              one layer's block pool
+                                              (NB, BS, Hkv, D); runtime/paged.py
+      ("fresh", ck, cv, write_mask)           batched admission: every masked
+      ("fresh_paged", kp, vp, tables, write_mask)
+                                              row's prompt starts at cache
+                                              position 0; the cache is written
+                                              under the mask (paged: unmasked
+                                              rows go to scratch block 0) and
+                                              attention is causal over the
+                                              fresh chunk alone
+      ("grouped", ck, cv, offsets, live, slot, off0, b_dec[, max_live])
+      ("grouped_paged", kp, vp, tables, offsets, live, slot, off0, b_dec[, max_live])
+                                              token-fused serving step over one
+                                              flat (1, B + C) token row: rows
+                                              0..B-1 are one decode token per
+                                              slot, rows B.. a prompt chunk of
+                                              slot ``slot`` (host int) starting
+                                              at ``off0`` (host int)
+    Returns (k_eff, v_eff, present, offset): what attention reads (tensors,
+    or ("pool", pool, tables) markers), what the layer returns as its cache,
+    and the offset declaration for ``sdpa`` (None: causal over k_eff)."""
     if past_kv is None:
         return k, v, (k, v), None
+    tag = past_kv[0] if isinstance(past_kv[0], str) else "dense"
+    if tag in ("paged", "fresh_paged", "grouped_paged"):
+        from ..runtime.paged import gather_prefix, paged_update_layer
+    if tag == "fresh":
+        _, ck, cv, wmask = past_kv
+        zero = torch.zeros(k.shape[0], dtype=torch.long, device=k.device)
+        ck, cv = update_kv_cache(ck, cv, k, v, zero, write_mask=wmask)
+        return k, v, (ck, cv), None
+    if tag == "fresh_paged":
+        _, kp, vp, tables, wmask = past_kv
+        kp, vp, _, _ = paged_update_layer(kp, vp, k, v, tables, 0, write_mask=wmask,
+                                          gather=False)
+        return k, v, (kp, vp), None
+    if tag == "grouped":
+        _, ck, cv, offsets, live, slot, off0, b_dec = past_kv[:8]
+        c = k.shape[1] - b_dec
+        ck[slot, off0:off0 + c] = k[0, b_dec:].to(ck.dtype)
+        cv[slot, off0:off0 + c] = v[0, b_dec:].to(cv.dtype)
+        ck, cv = update_kv_cache(ck, cv, k[0, :b_dec, None], v[0, :b_dec, None], offsets,
+                                 write_mask=live)
+        return ck, cv, (ck, cv), ("grouped", offsets, slot, off0, b_dec, *past_kv[8:])
+    if tag == "grouped_paged":
+        _, kp, vp, tables, offsets, live, slot, off0, b_dec = past_kv[:9]
+        kp, vp, _, _ = paged_update_layer(kp, vp, k[:, b_dec:], v[:, b_dec:],
+                                          tables[slot:slot + 1], off0, gather=False)
+        kp, vp, _, _ = paged_update_layer(kp, vp, k[0, :b_dec, None], v[0, :b_dec, None],
+                                          tables, offsets, write_mask=live, gather=False)
+        return (("pool", kp, tables), ("pool", vp, tables), (kp, vp),
+                ("grouped", offsets, slot, off0, b_dec, *past_kv[9:]))
+    if tag == "paged":
+        _, kp, vp, tables, offset = past_kv[:5]
+        write_mask = past_kv[5] if len(past_kv) > 5 else None
+        max_live = past_kv[6] if len(past_kv) > 6 else None
+        s = k.shape[1]
+        if s == 1:
+            # decode step: attention reads the pool itself through the tables
+            kp, vp, _, _ = paged_update_layer(kp, vp, k, v, tables, offset,
+                                              write_mask=write_mask, gather=False)
+            return (("pool", kp, tables), ("pool", vp, tables), (kp, vp),
+                    _rows(offset, max_live))
+        if not isinstance(offset, torch.Tensor) and tables.shape[0] == 1:
+            # one slot's prefill chunk at a host offset: gather only the
+            # blocks its queries can see
+            kp, vp, _, _ = paged_update_layer(kp, vp, k, v, tables, offset,
+                                              write_mask=write_mask, gather=False)
+            return (gather_prefix(kp, tables[0], offset + s),
+                    gather_prefix(vp, tables[0], offset + s), (kp, vp), offset)
+        kp, vp, k_eff, v_eff = paged_update_layer(kp, vp, k, v, tables, offset,
+                                                  write_mask=write_mask)
+        return k_eff, v_eff, (kp, vp), offset
     cache_k, cache_v, offset = past_kv[:3]
     write_mask = past_kv[3] if len(past_kv) > 3 else None
+    max_live = past_kv[4] if len(past_kv) > 4 else None
     k, v = update_kv_cache(cache_k, cache_v, k, v, offset, write_mask=write_mask)
-    return k, v, (k, v), offset
+    return k, v, (k, v), _rows(offset, max_live)
+
+
+def _rows(offset, max_live):
+    """Per-row offsets with their host-side bound, for ``sdpa``."""
+    return offset if max_live is None else ("rows", offset, max_live)
 
 
 def attention_block(past_kv, q, k, v, mask, scale=None):
     """Cache write, then attention over the cache (the classic form):
-    returns (attn_out, present). Without a cache the forward is causal."""
+    returns (attn_out, present). Without a cache, and for a fresh batched
+    admission, the forward is causal over the new tokens."""
     k_eff, v_eff, present, off = apply_kv_cache(past_kv, k, v)
-    out = sdpa(q, k_eff, v_eff, mask, scale, decode_offset=off, causal=past_kv is None)
+    out = sdpa(q, k_eff, v_eff, mask, scale, decode_offset=off, causal=off is None)
     return out, present
+
+
+def _grouped_attention(q, k, v, sc, offsets, slot, off0, b_dec, max_live=None):
+    """The token-fused serving step (see apply_kv_cache "grouped"): the flat
+    token rows split into the per-slot decode group and the one-slot chunk
+    group, each attending its own view of the updated cache. k/v are dense
+    (B, S, Hkv, D) caches or ("pool", pool, tables) markers."""
+    q_dec = q[0, :b_dec, None]                       # (B, 1, H, D)
+    q_chunk = q[:, b_dec:]                           # (1, C, H, D)
+    seen = off0 + q_chunk.shape[1]                   # slots the chunk's queries can see
+    if isinstance(k, tuple):
+        from ..runtime.paged import gather_prefix
+        (_, kp, tables), (_, vp, _) = k, v
+        out_dec = pool_decode_attention(q_dec, kp, vp, tables, offsets, sc, max_live)
+        kc = gather_prefix(kp, tables[slot], seen).to(q.dtype)
+        vc = gather_prefix(vp, tables[slot], seen).to(q.dtype)
+    else:
+        out_dec = decode_attention(q_dec, k, v, offsets, sc, max_live)
+        kc, vc = k[slot:slot + 1, :seen], v[slot:slot + 1, :seen]
+    out_chunk = flash_prefill_blocked(q_chunk, kc.contiguous(), vc.contiguous(), off0, sc)
+    return torch.cat([out_dec[:, 0][None], out_chunk], dim=1)
 
 
 def sdpa(q, k, v, mask=None, scale: float | None = None, decode_offset=None,
          causal: bool = False):
     """Scaled dot-product attention with fp32 softmax.
 
-    q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D), H a multiple of Hkv. mask:
-    additive (Sq, Skv) or (B, 1, Sq, Skv). decode_offset DECLARES that the
-    mask is exactly the causal-at-offset predicate: with Sq == 1 it goes to
-    the decode-attention kernel, with Sq > 1 and a scalar offset to the
-    blocked prefill kernel (gptq_for_llama_tpu/models/common.py:404-447).
-    causal DECLARES that the mask is plain causal self-attention: the causal
-    prefill kernel takes every Sq (the TPU package's Sq > 256 and VMEM gates
-    exist only for its kernel). The kernels ignore ``mask``. On a CPU tensor
-    each path takes its plain version; a CUDA tensor with any other mask
-    raises, since no kernel applies an arbitrary mask."""
+    q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D), H a multiple of Hkv, or
+    ("pool", pool (NB, BS, Hkv, D), tables (B, MB)) markers of a paged decode
+    step. mask: additive (Sq, Skv) or (B, 1, Sq, Skv). decode_offset DECLARES
+    that the mask is exactly the causal-at-offset predicate: with Sq == 1 it
+    goes to the decode-attention kernel (over a pool: the pool kernel), with
+    Sq > 1 and a host-int or 0-d offset to the blocked prefill kernel
+    (gptq_for_llama_tpu/models/common.py:341-447). It is an int, a tensor,
+    ("rows", offsets, max_live) (per-row offsets with a host-side bound on the
+    live length) or the ("grouped", ...) marker of the token-fused serving
+    step. causal DECLARES that the mask is plain causal self-attention: the
+    causal prefill kernel takes every Sq (the TPU package's Sq > 256 and VMEM
+    gates exist only for its kernel). The kernels ignore ``mask``. On a CPU
+    tensor each path takes its plain version; a CUDA tensor with any other
+    mask raises, since no kernel applies an arbitrary mask (so a per-row
+    prefill passes its offset as a host int, not as a (1,) tensor)."""
     sq, d = q.shape[1], q.shape[3]
     sc = scale if scale is not None else 1.0 / (d ** 0.5)
+    max_live = None
+    if isinstance(decode_offset, tuple):
+        if decode_offset[0] == "grouped":
+            return _grouped_attention(q, k, v, sc, *decode_offset[1:])
+        _, decode_offset, max_live = decode_offset
+    if isinstance(k, tuple):
+        (_, kp, tables), (_, vp, _) = k, v
+        if sq != 1 or decode_offset is None:
+            raise ValueError("a block pool is attended one decode token per row at its offset")
+        return pool_decode_attention(q, kp, vp, tables, decode_offset, sc, max_live)
     if decode_offset is not None:
         scalar = not isinstance(decode_offset, torch.Tensor) or decode_offset.ndim == 0
         if sq == 1:
-            return decode_attention(q, k, v, decode_offset, sc)
+            return decode_attention(q, k, v, decode_offset, sc, max_live)
         if scalar:
             return flash_prefill_blocked(q, k, v, int(decode_offset), sc)
         if mask is None:
@@ -146,8 +264,8 @@ def sdpa(q, k, v, mask=None, scale: float | None = None, decode_offset=None,
     if q.is_cuda:
         raise NotImplementedError(
             "attention on the card runs only through its kernels: a cache offset "
-            "(decode_offset) or causal self-attention (causal=True); no kernel takes an "
-            "arbitrary mask")
+            "(decode_offset; a host int for a chunk of queries) or causal self-attention "
+            "(causal=True); no kernel takes an arbitrary mask")
     return attention_plain(q, k, v, sc, mask)
 
 

@@ -1,33 +1,48 @@
-"""Hand-written CUDA kernels for Hopper (sm_90a), one module per kernel.
+"""Hand-written CUDA kernels for Hopper (sm_90a).
 
-Each module holds the kernel's wrapper (``*_cuda``, with a plain-int launch
-count ``.launches`` that it raises by one per kernel launch), the plain
-PyTorch version (``*_plain``) and a dispatching function that takes the plain
-version only for a CPU tensor: a CUDA tensor launches the kernel or raises.
-Sources live in ``gptq_for_llama_tpu_torch/csrc`` and are built by
-``build.py`` at first use.
+Each kernel has a wrapper (``*_cuda``, with a plain-int launch count
+``.launches`` that it raises by one per kernel launch), a plain PyTorch
+version (``*_plain``) and a dispatching function that takes the plain version
+only for a CPU tensor: a CUDA tensor launches the kernel or raises. Sources
+live in ``gptq_for_llama_tpu_torch/csrc`` and are built by ``build.py`` at
+first use.
 """
 
 from __future__ import annotations
 
-from . import attention, flash, flash_prefill, matmul, mlp
+from typing import Callable, NamedTuple
 
-# name -> (module, wrapper): the kernels of the decode path (prefill at a
-# cache offset, then decode steps) and of the cache-less causal forward
-# (calibration, perplexity)
+from . import attention, flash, flash_prefill, matmul, mlp, norm
+
+
+class Kernel(NamedTuple):
+    wrapper: Callable   # launches the kernel; counts in ``wrapper.launches``
+    source: str         # the CUDA source, relative to the repository root
+    replaces: str       # file:line of the TPU kernel it replaces
+
+
+# the kernels of the decode path (prefill at a cache offset, then decode
+# steps), of the cache-less causal forward (calibration, perplexity, batched
+# admission), of every norm, and of paged serving
 KERNELS = {
-    "qmm": (matmul, matmul.qmm_cuda),
-    "fused_mlp": (mlp, mlp.fused_mlp_cuda),
-    "decode_attention": (attention, attention.decode_attention_cuda),
-    "flash_prefill_blocked": (flash, flash.flash_prefill_blocked_cuda),
-    "flash_prefill": (flash_prefill, flash_prefill.flash_prefill_cuda),
+    "qmm": Kernel(matmul.qmm_cuda, matmul.SOURCE, matmul.REPLACES),
+    "fused_mlp": Kernel(mlp.fused_mlp_cuda, mlp.SOURCE, mlp.REPLACES),
+    "decode_attention": Kernel(attention.decode_attention_cuda, attention.SOURCE,
+                               attention.REPLACES),
+    "flash_prefill_blocked": Kernel(flash.flash_prefill_blocked_cuda, flash.SOURCE,
+                                    flash.REPLACES),
+    "flash_prefill": Kernel(flash_prefill.flash_prefill_cuda, flash_prefill.SOURCE,
+                            flash_prefill.REPLACES),
+    "rms_norm": Kernel(norm.rms_norm_cuda, norm.SOURCE, norm.REPLACES),
+    "pool_decode_attention": Kernel(attention.pool_decode_attention_cuda,
+                                    attention.POOL_SOURCE, attention.POOL_REPLACES),
 }
 
 
 def reset_launch_counts() -> None:
-    for _, wrapper in KERNELS.values():
-        wrapper.launches = 0
+    for kernel in KERNELS.values():
+        kernel.wrapper.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: wrapper.launches for name, (_, wrapper) in KERNELS.items()}
+    return {name: kernel.wrapper.launches for name, kernel in KERNELS.items()}

@@ -1,12 +1,16 @@
-"""Kernel 3, decode attention: dispatch, CUDA wrapper, launch count and plain
-version.
+"""Kernels 3 and 7, decode attention over a dense cache and over a paged block
+pool: dispatch, CUDA wrappers, launch counts and plain versions.
 
-Replaces ``gptq_for_llama_tpu/ops/pallas/attention.py:_attn_kernel`` and
-``:_attn_kernel_gqa`` (entry ``decode_attention``). The kernel is
-``csrc/decode_attention.cu``: one block per (batch row, kv head, chunk of
-live slots) serving the head's G query heads, reading only the live cache
-prefix (its bound on the H100: those bytes). The plain version is the TPU package's
-``_xla_decode_fallback``.
+Kernel 3 replaces ``gptq_for_llama_tpu/ops/pallas/attention.py:_attn_kernel``
+and ``:_attn_kernel_gqa`` (entry ``decode_attention``); kernel 7 replaces
+``:pool_decode_attention`` (the same bodies with the block index routed
+through the slot's table row). Both are ``csrc/decode_attention_common.cuh``
+(entries ``csrc/decode_attention.cu`` and ``csrc/pool_decode_attention.cu``):
+one block per (batch row, kv head, chunk of live slots) serving the head's G
+query heads, reading only the live cache prefix (its bound on the H100: those
+bytes); the paged form addresses the pool through the table and builds no
+gathered view. The plain versions are the TPU package's
+``_xla_decode_fallback``, for the pool after a gather through the tables.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from .matmul import _sm_count, check_tensor
 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "gptq_for_llama_tpu/ops/pallas/attention.py:66"
+POOL_SOURCE = "gptq_for_llama_tpu_torch/csrc/pool_decode_attention.cu"
+POOL_REPLACES = "gptq_for_llama_tpu/ops/pallas/attention.py:412"
 MAX_GROUP = 8   # query heads per kv head the kernel is instantiated for
 TILE = 64       # cache slots per tile
 CHUNK = 256     # live slots one block takes before the slots are split
@@ -69,10 +75,24 @@ def split_plan(live: int, blocks: int, sms: int = 132):
     return -(-live // chunk), chunk
 
 
-def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float) -> torch.Tensor:
+def _plan(b: int, hkv: int, g: int, live: int, q: torch.Tensor):
+    """(chunks, slots per chunk, scratch for the chunk partials or None)."""
+    nsplit, chunk = split_plan(live, b * hkv, _sm_count(q.device.index or 0))
+    part = (torch.empty(b * hkv * nsplit * g * (q.shape[-1] + 2), dtype=torch.float32,
+                        device=q.device) if nsplit > 1 else None)
+    return nsplit, chunk, part
+
+
+def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float,
+                          max_live: int | None = None) -> torch.Tensor:
     """The kernel: q (B, 1, H, D) bf16, caches (B, S, Hkv, D) bf16, offset an
     int (every row) or an int32 CUDA tensor () / (B,). D must be 128 and
-    H / Hkv at most 8; an fp8 cache raises (it comes with the fp8-KV slice)."""
+    H / Hkv at most 8; an fp8 cache raises (it comes with the fp8-KV slice).
+
+    Per-row offsets stay on the device, so the split over chunks is planned
+    for the whole cache unless the caller knows a bound on the live length
+    (``max_live``, a host int >= max(offset) + 1). The bound shapes the plan
+    only: the offsets still decide what each row reads."""
     b, sq, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     if sq != 1 or d != 128 or h % hkv or h // hkv > MAX_GROUP:
@@ -85,14 +105,12 @@ def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float) -> torch.Te
     if isinstance(offset, torch.Tensor):
         offs = offset.reshape(-1).expand(b).contiguous()
         check_tensor(offs, "offset", torch.int32, (b,))
-        live = s   # per-row offsets stay on the device: plan for the whole cache
+        live = s if max_live is None else min(max(int(max_live), 1), s)
     else:
         off_scalar = int(offset)
         live = min(max(off_scalar, 0), s - 1) + 1
-    nsplit, chunk = split_plan(live, b * hkv, _sm_count(q.device.index or 0))
+    nsplit, chunk, part = _plan(b, hkv, h // hkv, live, q)
     out = torch.empty_like(q)
-    part = (torch.empty(b * hkv * nsplit * (h // hkv) * (d + 2), dtype=torch.float32,
-                        device=q.device) if nsplit > 1 else None)
     fn = _entry()
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              None if offs is None else offs.data_ptr(), off_scalar, out.data_ptr(),
@@ -107,9 +125,98 @@ def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float) -> torch.Te
 decode_attention_cuda.launches = 0
 
 
-def decode_attention(q, k_cache, v_cache, offset, scale: float) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, offset, scale: float,
+                     max_live: int | None = None) -> torch.Tensor:
     """q (B, 1, H, D) attends slots <= offset of the caches: the kernel for a
     CUDA tensor, the plain version for a CPU tensor."""
     if q.is_cuda:
-        return decode_attention_cuda(q, k_cache, v_cache, offset, scale)
+        return decode_attention_cuda(q, k_cache, v_cache, offset, scale, max_live)
     return decode_attention_plain(q, k_cache, v_cache, offset, scale)
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: the same attention directly over a paged block pool
+# ---------------------------------------------------------------------------
+
+def supports_paged_decode(block_size: int, num_heads: int, num_kv_heads: int, head_dim: int,
+                          itemsize: int = 2) -> bool:
+    """What the pool kernel takes: blocks of a multiple of 8 slots, head_dim
+    128, at most 8 query heads per kv head, a bf16 pool."""
+    return (block_size >= 8 and block_size % 8 == 0 and head_dim == 128 and itemsize == 2
+            and num_heads % num_kv_heads == 0 and num_heads // num_kv_heads <= MAX_GROUP)
+
+
+def pool_decode_attention_plain(q, k_pool, v_pool, tables, offset, scale: float) -> torch.Tensor:
+    """q (B, 1, H, D); pools (NB, BS, Hkv, D); tables (B, MB): row b attends
+    logical slots j <= offset[b], slot j at pool[tables[b, j // BS], j % BS].
+    Gathers each row's logical view, then ``decode_attention_plain``. Dead
+    slots (past the offset, or in blocks the row does not own) are zeroed
+    first: whatever they hold, a NaN included, must not reach the output."""
+    b, (bs, hkv, d) = q.shape[0], k_pool.shape[1:]
+    idx = tables.long()
+    kd = k_pool[idx].reshape(b, -1, hkv, d)
+    vd = v_pool[idx].reshape(b, -1, hkv, d)
+    offs = torch.as_tensor(offset, device=q.device).reshape(-1).expand(b)
+    live = (torch.arange(kd.shape[1], device=q.device)[None, :] <= offs[:, None])[:, :, None, None]
+    zero = torch.zeros((), dtype=kd.dtype, device=q.device)
+    return decode_attention_plain(q, torch.where(live, kd, zero), torch.where(live, vd, zero),
+                                  offs, scale)
+
+
+def _pool_entry():
+    fn = build.library("pool_decode_attention").gptq_pool_decode_attention
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_float, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
+                               max_live: int | None = None) -> torch.Tensor:
+    """The kernel: q (B, 1, H, 128) bf16; pools (NB, BS, Hkv, 128) bf16 with BS
+    a multiple of 8; tables (B, MB) int32; offset (B,) int32, all on the card.
+    ``max_live`` as in ``decode_attention_cuda`` (default: the logical length
+    MB * BS). Reads only logical blocks <= offset[b] // BS of each row."""
+    b, sq, h, d = q.shape
+    nb, bs, hkv = k_pool.shape[:3]
+    if sq != 1 or h % hkv or not supports_paged_decode(bs, h, hkv, d, k_pool.element_size()):
+        raise ValueError(f"pool decode attention kernel takes q (B, 1, H, 128), H/Hkv <= "
+                         f"{MAX_GROUP} and bf16 pools whose block size is a multiple of 8; got "
+                         f"q {tuple(q.shape)}, pool {tuple(k_pool.shape)} {k_pool.dtype}")
+    check_tensor(q, "q", torch.bfloat16)
+    check_tensor(k_pool, "k_pool", torch.bfloat16, (nb, bs, hkv, d))
+    check_tensor(v_pool, "v_pool", torch.bfloat16, (nb, bs, hkv, d))
+    if tables.ndim != 2 or tables.shape[0] != b:
+        raise ValueError(f"tables: expected (B={b}, MB), got {tuple(tables.shape)}")
+    mb = tables.shape[1]
+    if not (tables.is_cuda and tables.dtype == torch.int32 and tables.is_contiguous()):
+        raise ValueError("tables: the kernel takes a contiguous int32 CUDA tensor")
+    if not isinstance(offset, torch.Tensor):
+        raise TypeError("offset: the pool kernel takes per-row offsets, an int32 CUDA tensor")
+    offs = offset.reshape(-1).expand(b).contiguous()
+    check_tensor(offs, "offset", torch.int32, (b,))
+    s = mb * bs
+    live = s if max_live is None else min(max(int(max_live), 1), s)
+    nsplit, chunk, part = _plan(b, hkv, h // hkv, live, q)
+    out = torch.empty_like(q)
+    fn = _pool_entry()
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+             offs.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+             b, nb, bs, mb, hkv, h // hkv, d, float(scale), nsplit, chunk,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(build.library("pool_decode_attention"), err, "pool_decode_attention")
+    pool_decode_attention_cuda.launches += 1
+    return out
+
+
+pool_decode_attention_cuda.launches = 0
+
+
+def pool_decode_attention(q, k_pool, v_pool, tables, offset, scale: float,
+                          max_live: int | None = None) -> torch.Tensor:
+    """Decode attention over the block pool: the kernel for a CUDA tensor (a
+    shape it does not take raises), the plain version for a CPU tensor."""
+    if q.is_cuda:
+        return pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale, max_live)
+    return pool_decode_attention_plain(q, k_pool, v_pool, tables, offset, scale)

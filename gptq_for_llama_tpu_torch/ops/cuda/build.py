@@ -22,7 +22,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked", "flash_prefill")
+SOURCES = ("qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked", "flash_prefill",
+           "rms_norm", "pool_decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,7 +41,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fn in sorted(os.listdir(CSRC)):
+    for fn in sorted(os.listdir(CSRC)):   # headers (.cuh) included
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(fn.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

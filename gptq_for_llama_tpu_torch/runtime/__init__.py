@@ -1,5 +1,7 @@
-"""Inference runtime: runner, sampling, generation, decode benchmark."""
+"""Inference runtime: runner, sampling, generation, decode benchmark, serving engine."""
 
 from .runner import KVCache, ModelRunner, benchmark_decode, generate, sample_logits
+from .serve import GenRequest, ServingEngine
 
-__all__ = ["KVCache", "ModelRunner", "benchmark_decode", "generate", "sample_logits"]
+__all__ = ["GenRequest", "KVCache", "ModelRunner", "ServingEngine", "benchmark_decode",
+           "generate", "sample_logits"]

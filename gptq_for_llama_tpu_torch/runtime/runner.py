@@ -131,20 +131,35 @@ def _sync(device: torch.device) -> None:
 # ---------------------------------------------------------------------------
 
 def sample_logits(logits: torch.Tensor, generator: torch.Generator, temperature=0.8,
-                  top_p=0.95, top_k: int = 0) -> torch.Tensor:
+                  top_p=0.95, top_k: int = 0, mode: Optional[str] = None) -> torch.Tensor:
     """Temperature + nucleus (top-p) + optional top-k sampling; (B, V) -> (B,).
 
     temperature/top_p are floats or per-row (B,) tensors; rows with
-    temperature 0 take the argmax. All-greedy python floats skip the sort."""
+    temperature 0 take the argmax. All-greedy python floats skip the sort.
+
+    mode is a host-side promise that skips the full-vocab sort, legal only
+    when the host KNOWS the params satisfy it:
+      "greedy"      every row it cares about has temperature == 0: argmax.
+      "categorical" top_k == 0 and every top_p >= 1: no tail filtering, a
+                    temperature-scaled categorical draw (rows with
+                    temperature 0 still take the argmax).
+      None          the general sort + top-k / top-p filter path."""
+    if mode not in (None, "greedy", "categorical"):
+        raise ValueError(f"mode must be None, 'greedy' or 'categorical', got {mode!r}")
     logits = logits.float()
     b = logits.shape[0]
     greedy = logits.argmax(-1)
-    if not isinstance(temperature, torch.Tensor) and temperature == 0:
+    if mode == "greedy" or (not isinstance(temperature, torch.Tensor) and temperature == 0):
         return greedy
     temperature = torch.as_tensor(temperature, dtype=torch.float32,
                                   device=logits.device).reshape(-1).expand(b)
     top_p = torch.as_tensor(top_p, dtype=torch.float32, device=logits.device).reshape(-1).expand(b)
     scaled = logits / temperature.clamp_min(1e-6)[:, None]
+    if mode == "categorical":
+        if top_k:
+            raise ValueError("mode='categorical' requires top_k == 0")
+        sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1, generator=generator)[:, 0]
+        return torch.where(temperature == 0, greedy, sampled)
     sorted_logits = scaled.sort(dim=-1, descending=True).values
     if top_k and top_k > 0:
         kth = sorted_logits[:, top_k - 1:top_k]

@@ -1,0 +1,559 @@
+"""Continuous-batching serving engine.
+
+Counterpart of ``gptq_for_llama_tpu/runtime/serve.py``. Decode throughput
+comes from keeping the weight-bandwidth-bound decode step busy with many
+sequences:
+
+- a fixed pool of B cache slots over one static per-layer (B, max_len, Hkv, D)
+  KV cache, or (paged) one shared per-layer block pool; every slot has its
+  OWN offset;
+- ONE decode step advances all live slots per iteration (``write_mask`` keeps
+  retired and mid-prefill slots from clobbering their rows);
+- arrivals are prefilled into free slots, right-padded to a length bucket
+  (padded cache slots are masked until the real token at that position
+  overwrites them before its first read), several same-bucket arrivals in one
+  batched forward, or (``prefill_chunk``) one fixed-size chunk per iteration,
+  fused with the decode step into one forward over a flat (1, B + C) token row;
+- finished sequences (eos / max_new) free their slot at once and the scheduler
+  backfills from the queue.
+
+PyTorch runs eagerly, so the TPU package's compiled programs have no
+counterpart: each step is a Python loop over the layers whose caches are
+written in place, and a decode span is ``decode_span`` decode+sample steps
+queued on the card with ONE host read at the end. Per-row offsets live on the
+card; the host keeps its own copy (``host_off``) to schedule, to bound the
+decode kernels' split plan, and to pass one slot's prefill offset as a host
+int (so the blocked prefill kernel takes it). ``forwards`` counts the
+forwards of each kind that ``run`` has made.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models.registry import get_arch
+from .runner import sample_logits
+
+
+@dataclasses.dataclass
+class GenRequest:
+    uid: int
+    prompt: np.ndarray            # (S,) ints
+    max_new_tokens: int = 64
+    temperature: float = 0.0
+    top_p: float = 1.0
+    eos_token_id: Optional[int] = None
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Optional[GenRequest] = None
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = True
+    # chunked-prefill progress (prefill_chunk mode)
+    pending: Optional[np.ndarray] = None   # chunk-padded prompt still to feed
+    ppos: int = 0                          # next chunk start
+    plen: int = 0                          # true prompt length
+
+
+def _bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"prompt length {n} exceeds largest bucket {buckets[-1]}")
+
+
+def _req_mode(req) -> Optional[str]:
+    """Sampling fast path for one request's prefill-tail token."""
+    return "greedy" if req.temperature == 0 else "categorical" if req.top_p >= 1 else None
+
+
+class ServingEngine:
+    def __init__(self, arch_name: str, cfg, params, batch_slots: int = 8,
+                 max_seq_len: Optional[int] = None, dtype=torch.bfloat16,
+                 prefill_buckets=(32, 128, 512), paged: bool = False, block_size: int = 16,
+                 num_blocks: Optional[int] = None, prefill_chunk: Optional[int] = None,
+                 decode_span: int = 1, fused_chunk_decode: bool = True,
+                 admit_batch_max: int = 128, mesh=None, shard_map_tp: bool = False,
+                 fuse_qkv: bool = False, kv_dtype=None, device=None, seed: int = 0):
+        for given, what in ((mesh is not None or shard_map_tp, "tensor-parallel serving (A18)"),
+                            (fuse_qkv, "fuse_qkv (A4)"),
+                            (kv_dtype not in (None, dtype),
+                             "a KV storage dtype other than the compute dtype (A14)")):
+            if given:
+                raise NotImplementedError(f"{what} is not yet ported to "
+                                          f"gptq_for_llama_tpu_torch (see ROADMAP)")
+        self.device = resolve_device(device)
+        if params["embed_tokens"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed_tokens'].device}, "
+                             f"the engine on {self.device}")
+        self.arch = get_arch(arch_name)
+        self.arch_name = arch_name
+        self.cfg = cfg
+        self.params = params
+        self.num_layers = len(params["layers"])
+        self.dtype = dtype
+        self.b = batch_slots
+        self.max_len = max_seq_len or cfg.max_seq_len
+        self.buckets = tuple(b for b in prefill_buckets if b <= self.max_len)
+        # implicit final bucket: a prompt longer than every configured bucket
+        # but within the cache must still be servable
+        if not self.buckets or self.buckets[-1] < self.max_len:
+            self.buckets = self.buckets + (self.max_len,)
+        # paged mode: slots share a block pool sized by actual tokens instead
+        # of slots * max_len (runtime/paged.py); prompts always start at a
+        # block boundary (offset 0), so prefill writes whole blocks
+        self.paged = paged
+        self.block_size = block_size
+        # chunked prefill: at most ONE fixed-size prompt chunk per engine
+        # iteration, so decode stalls are bounded by a chunk, not a prompt
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk is not None and paged and prefill_chunk % block_size:
+            raise ValueError("prefill_chunk must be a multiple of block_size in paged mode")
+        # cache capacity must cover chunk-padded prompt writes
+        cap = self.max_len if prefill_chunk is None else \
+            -(-self.max_len // prefill_chunk) * prefill_chunk
+        self.max_blocks = -(-cap // block_size)
+        self.num_blocks = num_blocks or batch_slots * self.max_blocks
+        self.logical_len = self.max_blocks * block_size
+        if prefill_chunk is not None and not paged:
+            self.max_len = cap  # dense cache rows must fit padded writes
+        # decode span: `decode_span` decode+sample steps queued on the card per
+        # host read. Sequences may overshoot eos/max_new by up to span-1 tokens
+        # on the device; the host trims them (same results as span=1).
+        self.decode_span = max(1, int(decode_span))
+        # chunked prefill + decode in ONE forward: the pending slot's next
+        # chunk and a decode token for every live slot share each weight read
+        self.fused_chunk_decode = bool(fused_chunk_decode)
+        # batched admission: same-bucket admissions share one prefill forward
+        # up to this bucket size (beyond it the forward's B * bucket rows,
+        # most of them padding or write-masked, outweigh the saved forwards)
+        self.admit_batch_max = int(admit_batch_max)
+        self.slots = [_Slot() for _ in range(batch_slots)]
+        self.queue: list[GenRequest] = []
+        self.results: dict[int, np.ndarray] = {}
+        # per-request wall-clock metrics: submit -> first token -> done
+        self._meta: dict[int, dict] = {}
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.forwards = {"decode": 0, "prefill": 0, "admit": 0, "chunk": 0, "chunk+decode": 0}
+        self.steps = 0      # engine iterations of the last run
+        self.state = None   # caches, tables and offsets of the last run
+
+    # -- model steps -----------------------------------------------------------
+
+    def _kv_len(self) -> int:
+        return self.logical_len if self.paged else self.max_len
+
+    def _dev(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _forward(self, ids, positions, past):
+        """Embed, run every layer with its cache form ``past(li)``, and return
+        the last hidden states (B, S, hidden); the caches are written in place."""
+        arch, cfg = self.arch, self.cfg
+        rope = arch.step_rope(cfg, positions, self.dtype)
+        x = arch.embed(self.params, cfg, ids).to(self.dtype)
+        for li, lp in enumerate(self.params["layers"]):
+            x, _, _ = arch.layer(cfg, lp, x, positions, None, past(li), rope=rope)
+        return x
+
+    def _decode_step(self, state, toks, live, max_live):
+        """toks (B, 1); live (B,) bool. One token for every slot: returns the
+        logits (B, V) and advances the live rows' device offsets."""
+        off, tables, k, v = state["off"], state["tables"], state["k"], state["v"]
+
+        def past(li):
+            # write-mask: the step decodes EVERY slot; non-live slots (retired,
+            # or mid-chunked-prefill) must not clobber their cache rows
+            if tables is None:
+                return (k[li], v[li], off, live, max_live)
+            return ("paged", k[li], v[li], tables, off, live, max_live)
+
+        x = self._forward(toks, off[:, None].long(), past)
+        state["off"] = off + live.to(off.dtype)
+        self.forwards["decode"] += 1
+        return self.arch.head(self.params, self.cfg, x)[:, -1]
+
+    def _sample_mode(self, state) -> Optional[str]:
+        """Sampling fast path for the next step, from the host-side params of
+        the slots whose tokens will be kept (the live ones): all-greedy
+        batches skip sample_logits' full-vocab sort."""
+        live = state["live"]
+        if not live.any() or (state["temps"][live] == 0).all():
+            return "greedy"
+        if (state["tops"][live] >= 1).all():
+            return "categorical"
+        return None
+
+    def _decode_span(self, state, span: int, mode) -> np.ndarray:
+        """``span`` decode+sample steps queued back to back, one host read at
+        the end: (B, span) tokens. Dead slots repeat their token."""
+        toks = self._dev(state["toks"][:, None], torch.long)
+        live = self._dev(state["live"])
+        temps, tops = self._dev(state["temps"]), self._dev(state["tops"])
+        top = int(state["host_off"].max()) + 1
+        out = []
+        for j in range(span):
+            logits = self._decode_step(state, toks, live, min(top + j, self._kv_len()))
+            nxt = sample_logits(logits, self._gen, temps, tops, mode=mode)
+            toks = torch.where(live, nxt, toks[:, 0])[:, None]
+            out.append(toks)
+        return torch.cat(out, dim=1).cpu().numpy()
+
+    def _prefill_slot(self, state, i: int, ids: np.ndarray, off0: int, last_idx: int, kind: str):
+        """One slot's (right-padded) prompt or prompt chunk ``ids`` (blen,) at
+        cache position ``off0``: writes the slot's cache and returns the
+        logits (1, V) of token ``last_idx``. The offset is a host int, so
+        attention goes to the blocked prefill kernel."""
+        blen = len(ids)
+        positions = torch.arange(off0, off0 + blen, device=self.device)[None, :]
+        tables, k, v = state["tables"], state["k"], state["v"]
+
+        def past(li):
+            if tables is None:
+                return (k[li][i:i + 1], v[li][i:i + 1], off0)
+            return ("paged", k[li], v[li], tables[i:i + 1], off0)
+
+        x = self._forward(self._dev(ids[None], torch.long), positions, past)
+        self.forwards[kind] += 1
+        return self.arch.head(self.params, self.cfg, x[:, last_idx:last_idx + 1])[:, 0]
+
+    def _chunk_decode_step(self, state, live, i: int, ids: np.ndarray, off0: int, last_idx: int):
+        """One forward: the next prompt chunk of slot ``i`` + one decode token
+        for all live slots, as ONE flat (1, B + C) token row, so every packed
+        weight is read once for both groups. The cache write / attention
+        split lives in the "grouped" / "grouped_paged" cache protocol. Returns
+        (decode logits (B, V), chunk-last logits (1, V))."""
+        b_dec, c = self.b, len(ids)
+        off, tables, k, v = state["off"], state["tables"], state["k"], state["v"]
+        max_live = min(int(state["host_off"].max()) + 1, self._kv_len())
+        ids_flat = torch.cat([self._dev(state["toks"], torch.long),
+                              self._dev(ids, torch.long)])[None]
+        positions = torch.cat([off.long(),
+                               torch.arange(off0, off0 + c, device=self.device)])[None]
+
+        def past(li):
+            if tables is None:
+                return ("grouped", k[li], v[li], off, live, i, off0, b_dec, max_live)
+            return ("grouped_paged", k[li], v[li], tables, off, live, i, off0, b_dec, max_live)
+
+        x = self._forward(ids_flat, positions, past)
+        rows = torch.cat([x[0, :b_dec], x[0, b_dec + last_idx][None]])
+        logits = self.arch.head(self.params, self.cfg, rows[None])[0]
+        state["off"] = off + live.to(off.dtype)
+        self.forwards["chunk+decode"] += 1
+        return logits[:b_dec], logits[b_dec:]
+
+    def _pick_pending(self):
+        """Next pending chunk: (i, slot, ids, off0, last_idx)."""
+        for i, slot in enumerate(self.slots):
+            if slot.pending is None:
+                continue
+            c = self.prefill_chunk
+            ids = slot.pending[slot.ppos:slot.ppos + c]
+            last_idx = max(0, min(slot.plen - 1 - slot.ppos, c - 1))
+            return i, slot, ids, slot.ppos, last_idx
+        return None
+
+    def _sample_one(self, req, logits) -> int:
+        return int(sample_logits(logits, self._gen, req.temperature, req.top_p,
+                                 mode=_req_mode(req))[0])
+
+    def _finish_chunk(self, state, i, slot, last):
+        """Book-keeping after a chunk ran (activates the slot when done)."""
+        slot.ppos += self.prefill_chunk
+        if slot.ppos >= len(slot.pending):  # prompt complete: activate
+            slot.pending = None
+            self._finish_admit(state, i, slot, slot.req, slot.plen,
+                               self._sample_one(slot.req, last))
+
+    def _prefill_tick(self, state) -> bool:
+        """Advance ONE pending slot by one chunk; True if a chunk ran."""
+        picked = self._pick_pending()
+        if picked is None:
+            return False
+        i, slot, ids, off0, last_idx = picked
+        last = self._prefill_slot(state, i, ids, off0, last_idx, "chunk")
+        self._finish_chunk(state, i, slot, last)
+        return True
+
+    # -- scheduler -------------------------------------------------------------
+
+    def _blocks_needed(self, plen: int, max_new: int) -> int:
+        """Blocks a paged request can touch: its (bucket- or chunk-padded)
+        prompt writes, or prompt + new tokens + span slack. Span slack: a
+        slot retiring mid-span keeps decoding on the card with the stale live
+        mask for up to span-1 steps; those overshoot writes must land in
+        blocks this slot OWNS (or the scratch block), never in filler-aliased
+        blocks of another slot."""
+        if self.prefill_chunk is not None:
+            blen = -(-plen // self.prefill_chunk) * self.prefill_chunk
+        else:
+            blen = _bucket(plen, self.buckets)
+        tokens = min(max(blen, plen + max_new + self.decode_span - 1), self.logical_len)
+        return -(-tokens // self.block_size)
+
+    def submit(self, req: GenRequest):
+        """Queue a request; rejects up front what could never be served
+        (instead of raising mid-run and losing in-flight sequences, or
+        spinning forever on an impossible paged allocation)."""
+        plen = len(np.asarray(req.prompt).reshape(-1))
+        cap = self.logical_len if self.paged else self.max_len
+        if plen + 1 > cap:
+            raise ValueError(f"prompt length {plen} leaves no room to generate in a "
+                             f"{cap}-row cache (max_seq_len={self.max_len})")
+        if self.paged:
+            need = self._blocks_needed(plen, req.max_new_tokens)
+            if need > self.num_blocks:
+                raise ValueError(f"request needs {need} KV blocks but the pool has "
+                                 f"{self.num_blocks}; raise num_blocks or lower "
+                                 f"max_new_tokens/decode_span")
+        self._meta[req.uid] = {"submit": time.perf_counter()}
+        self.queue.append(req)
+
+    def _activate(self, slot, req, tok: int) -> bool:
+        """Bookkeeping for the prefill-sampled FIRST token. Returns False
+        when the request is already complete (eos on the first token, or
+        max_new_tokens == 1): the slot retires without ever entering the
+        decode batch, matching runner.generate semantics."""
+        slot.generated = [tok]
+        m = self._meta.get(req.uid)
+        if m is not None and "first" not in m:
+            m["first"] = time.perf_counter()
+        ended = req.eos_token_id is not None and tok == req.eos_token_id
+        if ended or req.max_new_tokens <= 1:
+            self.results[req.uid] = np.asarray([tok], np.int32)
+            self._meta[req.uid]["done"] = time.perf_counter()
+            slot.done = True
+            return False
+        slot.done = False
+        return True
+
+    def stats(self) -> dict:
+        """Aggregate per-request wall-clock metrics over completed requests:
+        time-to-first-token and end-to-end latency (p50/p95, seconds)."""
+        done = [m for m in self._meta.values() if "done" in m]
+        if not done:
+            return {}
+        ttft = np.asarray([m["first"] - m["submit"] for m in done if "first" in m])
+        lat = np.asarray([m["done"] - m["submit"] for m in done])
+
+        def pct(a, p):
+            return round(float(np.percentile(a, p)), 4) if a.size else None
+
+        return {"completed": len(done),
+                "ttft_p50_s": pct(ttft, 50), "ttft_p95_s": pct(ttft, 95),
+                "latency_p50_s": pct(lat, 50), "latency_p95_s": pct(lat, 95)}
+
+    def _admit(self, state):
+        """Fill free slots from the queue. Admissions that share a prefill
+        bucket run as ONE batched forward (``_admit_batched``)."""
+        picks = []
+        for i, slot in enumerate(self.slots):
+            if not slot.done or not self.queue:
+                continue
+            # paged: allocate only the blocks this request can actually touch
+            if self.paged:
+                peek = self.queue[0]
+                need = self._blocks_needed(len(np.asarray(peek.prompt).reshape(-1)),
+                                           peek.max_new_tokens)
+                try:
+                    self._paged_alloc.release(i)
+                    self._paged_alloc.ensure_capacity(i, need * self.block_size,
+                                                      self.block_size)
+                except MemoryError:
+                    continue  # pool full: request waits for a retirement
+                owned = self._paged_alloc.owned[i]
+                self._tables_np[i, :] = 0
+                self._tables_np[i, :len(owned)] = owned
+                state["tables"] = self._dev(self._tables_np)
+            req = self.queue.pop(0)
+            prompt = np.asarray(req.prompt, np.int64).reshape(-1)
+            if self.prefill_chunk is not None:
+                # chunked mode: stage the prompt; one chunk is fed per engine
+                # iteration while other slots keep decoding
+                c = self.prefill_chunk
+                pending = np.zeros((-(-len(prompt) // c) * c,), np.int64)
+                pending[:len(prompt)] = prompt
+                slot.req = req
+                slot.pending = pending
+                slot.ppos = 0
+                slot.plen = len(prompt)
+                slot.generated = []
+                slot.done = False
+                continue
+            picks.append((i, req, prompt))
+        groups: dict[int, list] = {}
+        for pick in picks:
+            groups.setdefault(_bucket(len(pick[2]), self.buckets), []).append(pick)
+        for blen in sorted(groups):
+            group = groups[blen]
+            if len(group) > 1 and blen <= self.admit_batch_max:
+                self._admit_batched(state, blen, group)
+            else:
+                for pick in group:
+                    self._admit_one(state, blen, *pick)
+
+    def _finish_admit(self, state, i, slot, req, plen, tok):
+        slot.req = req
+        state["host_off"][i] = plen
+        state["temps"][i] = req.temperature
+        state["tops"][i] = req.top_p
+        state["off"][i] = plen
+        live = self._activate(slot, req, tok)
+        if live:
+            state["toks"][i] = tok
+        state["live"][i] = live
+
+    def _admit_one(self, state, blen, i, req, prompt):
+        padded = np.zeros((blen,), np.int64)
+        padded[:len(prompt)] = prompt
+        last = self._prefill_slot(state, i, padded, 0, len(prompt) - 1, "prefill")
+        self._finish_admit(state, i, self.slots[i], req, len(prompt),
+                           self._sample_one(req, last))
+
+    def _admit_batched(self, state, blen, group):
+        """Prefill every (slot, req, prompt) in ``group`` in ONE forward: all
+        prompts start at cache position 0 and attend only their own fresh
+        tokens (causal); non-member rows' caches are write-masked (dense) or
+        scratch-redirected (paged)."""
+        ids = np.zeros((self.b, blen), np.int64)
+        admit = np.zeros((self.b,), bool)
+        lens = np.ones((self.b,), np.int64)
+        temps = np.zeros((self.b,), np.float32)
+        tops = np.ones((self.b,), np.float32)
+        for i, req, prompt in group:
+            ids[i, :len(prompt)] = prompt
+            admit[i] = True
+            lens[i] = len(prompt)
+            temps[i], tops[i] = req.temperature, req.top_p
+        admit_t = self._dev(admit)
+        tables, k, v = state["tables"], state["k"], state["v"]
+
+        def past(li):
+            if tables is None:
+                return ("fresh", k[li], v[li], admit_t)
+            return ("fresh_paged", k[li], v[li], tables, admit_t)
+
+        positions = torch.arange(blen, device=self.device)[None, :]
+        x = self._forward(self._dev(ids), positions, past)
+        self.forwards["admit"] += 1
+        # head on the last REAL hidden state of each row only
+        x_last = x[torch.arange(self.b, device=self.device), self._dev(lens) - 1][:, None]
+        logits = self.arch.head(self.params, self.cfg, x_last)[:, 0]
+        reqs = [r for _, r, _ in group]
+        mode = ("greedy" if all(r.temperature == 0 for r in reqs)
+                else "categorical" if all(r.top_p >= 1 for r in reqs) else None)
+        toks = sample_logits(logits, self._gen, self._dev(temps), self._dev(tops),
+                             mode=mode).cpu().numpy()
+        for i, req, prompt in group:
+            self._finish_admit(state, i, self.slots[i], req, len(prompt), int(toks[i]))
+
+    def _new_cache(self, shape) -> list:
+        return [torch.zeros(shape, dtype=self.dtype, device=self.device)
+                for _ in range(self.num_layers)]
+
+    @torch.inference_mode()
+    def run(self, log=None) -> dict[int, np.ndarray]:
+        """Drain the queue; returns {uid: generated token array}. The final
+        caches stay in ``self.state`` until the next run."""
+        if self.paged:
+            from .paged import BlockAllocator
+            # +1 physical block: index 0 is a reserved scratch block (the
+            # table filler value), so unowned-entry writes never alias a
+            # slot's cache; the user-visible pool stays num_blocks usable
+            pool_blocks = self.num_blocks + 1
+            self._paged_alloc = BlockAllocator(pool_blocks, reserved=1)
+            self._tables_np = np.zeros((self.b, self.max_blocks), np.int32)
+            shape = (pool_blocks, self.block_size, self.cfg.num_kv_heads, self.cfg.head_dim)
+        else:
+            shape = (self.b, self.max_len, self.cfg.num_kv_heads, self.cfg.head_dim)
+        self.state = state = {
+            "k": self._new_cache(shape),
+            "v": self._new_cache(shape),
+            "tables": self._dev(self._tables_np) if self.paged else None,
+            "off": torch.zeros((self.b,), dtype=torch.int32, device=self.device),
+            "host_off": np.zeros((self.b,), np.int64),
+            "temps": np.zeros((self.b,), np.float32),
+            "tops": np.ones((self.b,), np.float32),
+            "toks": np.zeros((self.b,), np.int64),
+            "live": np.zeros((self.b,), bool),
+        }
+        steps = produced = 0
+        t0 = time.perf_counter()
+
+        while self.queue or any(not s.done for s in self.slots):
+            self._admit(state)
+            fused_chunk = None
+            if self.prefill_chunk is not None:
+                if self.fused_chunk_decode and state["live"].any():
+                    fused_chunk = self._pick_pending()
+                else:
+                    self._prefill_tick(state)  # one chunk per iteration
+                    if not state["live"].any():
+                        continue  # nothing decoding yet; keep prefilling
+            # a multi-step span only when the host has nothing to schedule and
+            # capacity cannot be hit mid-span: spans trade <= span-1 tokens of
+            # admission latency for throughput (a slot retiring mid-span is
+            # only backfilled at the next host iteration)
+            span = self.decode_span
+            if span > 1 and (any(s.pending is not None for s in self.slots)
+                             or not state["live"].any()
+                             or state["host_off"][state["live"]].max() + span
+                             >= self._kv_len()):
+                span = 1
+            mode = self._sample_mode(state)
+            fused_done = None
+            if fused_chunk is not None:
+                i, slot, ids, off0, last_idx = fused_chunk
+                logits, clast = self._chunk_decode_step(state, self._dev(state["live"]), i, ids,
+                                                        off0, last_idx)
+                # activation must wait until after the token loop below: the
+                # fused step decoded with the PRE-activation live mask, so
+                # this slot's decode logits are meaningless
+                fused_done = (i, slot, clast)
+                toks_np = sample_logits(logits, self._gen, self._dev(state["temps"]),
+                                        self._dev(state["tops"]),
+                                        mode=mode).cpu().numpy().reshape(-1, 1)
+            else:
+                toks_np = self._decode_span(state, span, mode)   # (B, span)
+            for j in range(toks_np.shape[1]):
+                for i, slot in enumerate(self.slots):
+                    if slot.done or not state["live"][i]:
+                        continue
+                    req = slot.req
+                    t = int(toks_np[i, j])
+                    state["host_off"][i] += 1
+                    slot.generated.append(t)
+                    produced += 1
+                    ended = req.eos_token_id is not None and t == req.eos_token_id
+                    full = state["host_off"][i] + 1 >= self.max_len
+                    if ended or full or len(slot.generated) >= req.max_new_tokens:
+                        self.results[req.uid] = np.asarray(slot.generated, np.int32)
+                        self._meta[req.uid]["done"] = time.perf_counter()
+                        slot.done = True
+                        state["live"][i] = False
+                        # paged blocks are NOT released here: a retired slot
+                        # still takes part in the batched decode step and
+                        # re-writes its frozen position, so its blocks stay
+                        # owned until the slot is re-admitted (released in
+                        # _admit). Tokens it produced later in the span (it
+                        # kept decoding on the card) are dropped by the
+                        # live[] check.
+                    else:
+                        state["toks"][i] = t
+            if fused_done is not None:
+                self._finish_chunk(state, *fused_done)
+            steps += 1
+            if log and steps % 32 == 0:
+                dt = time.perf_counter() - t0
+                log(f"  serve: {steps} steps, {produced} tokens, {produced / dt:.1f} tok/s")
+        self.steps = steps
+        return self.results

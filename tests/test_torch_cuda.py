@@ -11,12 +11,15 @@ import pytest
 import torch
 
 from gptq_for_llama_tpu_torch.ops import cuda as kernels
-from gptq_for_llama_tpu_torch.ops.cuda.attention import decode_attention, decode_attention_plain
+from gptq_for_llama_tpu_torch.ops.cuda.attention import (decode_attention, decode_attention_plain,
+                                                         pool_decode_attention,
+                                                         pool_decode_attention_plain)
 from gptq_for_llama_tpu_torch.models import common
 from gptq_for_llama_tpu_torch.ops.cuda.flash import (flash_prefill_blocked,
                                                      flash_prefill_blocked_plain)
 from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill, flash_prefill_plain
 from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp, fused_mlp_plain
+from gptq_for_llama_tpu_torch.ops.cuda.norm import rms_norm, rms_norm_plain
 from gptq_for_llama_tpu_torch.ops.linear import PackedLinear, quant_matmul_plain
 from gptq_for_llama_tpu_torch.ops.quant_matmul import quant_matmul
 from gptq_for_llama_tpu_torch.quant import packing
@@ -158,3 +161,217 @@ def test_causal_sdpa_goes_through_kernel_5(card):
     q64 = torch.randn(1, 8, 4, 64, device=card).bfloat16()
     with pytest.raises(ValueError):
         flash_prefill(q64, q64, q64, 0.1)
+
+
+def _bf16_ulps(got, want) -> int:
+    """Largest distance of two bf16 tensors in units of the last place."""
+    def line(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((line(got) - line(want)).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,h,wdtype", [(1, 4096, torch.bfloat16), (8, 4096, torch.bfloat16),
+                                        (100, 4096, torch.float32), (7, 100, torch.bfloat16),
+                                        (3, 33, torch.bfloat16), (2, 11008, torch.bfloat16),
+                                        (5, 16384, torch.bfloat16)])
+def test_rms_norm_matches_plain(card, m, h, wdtype):
+    """1 bf16 ulp: the kernel sums the squares in another order than the plain
+    version; the rest is the same fp32 arithmetic, rounded once. Odd H takes
+    the element-load path, H = 16384 the opt-in shared memory."""
+    x = (torch.randn(m, h, device=card) * 3).bfloat16()
+    w = (1 + 0.1 * torch.randn(h, device=card)).to(wdtype)
+    kernels.reset_launch_counts()
+    got = rms_norm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rms_norm"] == 1
+    assert _bf16_ulps(got, rms_norm_plain(x, w, 1e-6)) <= 1
+    # a view that is not contiguous is copied, leading dims are rows
+    x3 = x.reshape(m, 1, h).expand(m, 2, h)
+    assert _bf16_ulps(rms_norm(x3, w, 1e-6), rms_norm_plain(x3, w, 1e-6)) <= 1
+
+
+@pytest.mark.cuda
+def test_rms_norm_fp32_and_refusals(card):
+    x = torch.randn(6, 1000, device=card)
+    w = torch.randn(1000, device=card)
+    got, want = rms_norm(x, w, 1e-5), rms_norm_plain(x, w, 1e-5)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with pytest.raises(TypeError):
+        rms_norm(x.half(), w, 1e-5)
+    with pytest.raises(ValueError):
+        rms_norm(x, w[:999], 1e-5)
+
+
+def _paged_case(card, b, h, hkv, bs, mb, offs, poison=True):
+    """A pool whose tables are a random permutation (no two logical neighbours
+    are physical neighbours), with NaN in every block no row owns and in every
+    slot past a row's offset."""
+    nb = b * mb + 3
+    gen = torch.Generator(device=card)
+    gen.manual_seed(b * 1000 + bs)
+    kp = torch.randn(nb, bs, hkv, 128, generator=gen, device=card).bfloat16()
+    vp = torch.randn(nb, bs, hkv, 128, generator=gen, device=card).bfloat16()
+    q = torch.randn(b, 1, h, 128, generator=gen, device=card).bfloat16()
+    tables = torch.randperm(nb, generator=gen, device=card)[:b * mb].reshape(b, mb).int()
+    off = torch.tensor(offs, dtype=torch.int32, device=card)
+    if poison:
+        owned = torch.zeros(nb, dtype=torch.bool, device=card)
+        owned[tables.reshape(-1).long()] = True
+        dead = torch.arange(mb * bs, device=card)[None, :] > off[:, None]       # (B, MB * BS)
+        dead_pool = torch.zeros(nb, bs, dtype=torch.bool, device=card)
+        dead_pool[tables.long()] = dead.reshape(b, mb, bs)
+        dead_pool |= ~owned[:, None]
+        kp[dead_pool] = float("nan")
+        vp[dead_pool] = float("nan")
+    return q, kp, vp, tables, off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,bs,mb,offs", [
+    (3, 8, 8, 16, 24, (0, 37, 383)), (2, 8, 2, 8, 40, (5, 319)), (2, 12, 4, 24, 12, (100, 287)),
+    (4, 4, 4, 32, 70, (63, 64, 1500, 2239)), (8, 32, 32, 16, 128, (37, 127, 128, 500, 900, 1500,
+                                                                   2000, 2047))])
+def test_pool_decode_attention_matches_plain(card, b, h, hkv, bs, mb, offs):
+    """1e-2 of each row's norm, as kernel 3, over a POISONED pool: a kernel
+    that read one slot past an offset, or one block a row does not own, would
+    return NaN. The host-side bound on the live length changes the split over
+    chunks only: with no bound, the true one, or one far too small (the last
+    chunk runs to the row's own offset) the result is the same."""
+    q, kp, vp, tables, off = _paged_case(card, b, h, hkv, bs, mb, offs)
+    want = pool_decode_attention_plain(q, kp, vp, tables, off, 128 ** -0.5)
+    assert torch.isfinite(want.float()).all()
+    kernels.reset_launch_counts()
+    for max_live in (None, max(offs) + 1, max(1, (max(offs) + 1) // 3)):
+        got = pool_decode_attention(q, kp, vp, tables, off, 128 ** -0.5, max_live)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all(), f"max_live={max_live}: read a poisoned slot"
+        assert _rows_close(got, want, 1e-2), f"max_live={max_live}"
+    assert kernels.launch_counts()["pool_decode_attention"] == 3
+    assert kernels.launch_counts()["decode_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_pool_kernel_equals_dense_kernel_on_the_gathered_view(card):
+    """Kernel 7 is kernel 3 with the slot address routed through the table:
+    on the gathered logical view the dense kernel gives the same bits."""
+    q, kp, vp, tables, off = _paged_case(card, 3, 8, 2, 16, 64, (0, 300, 1023), poison=False)
+    kd = kp[tables.long()].reshape(3, -1, 2, 128).contiguous()
+    vd = vp[tables.long()].reshape(3, -1, 2, 128).contiguous()
+    for max_live in (None, 1024, 301):
+        assert torch.equal(pool_decode_attention(q, kp, vp, tables, off, 0.09, max_live),
+                           decode_attention(q, kd, vd, off, 0.09, max_live))
+    # per-row offsets with a bound plan like the host int they bound
+    one = torch.tensor([300] * 3, dtype=torch.int32, device=card)
+    assert torch.equal(decode_attention(q, kd, vd, one, 0.09, max_live=301),
+                       decode_attention(q, kd, vd, 300, 0.09))
+
+
+@pytest.mark.cuda
+def test_pool_kernel_refuses_what_it_does_not_take(card):
+    q, kp, vp, tables, off = _paged_case(card, 2, 8, 8, 16, 4, (3, 40), poison=False)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pool_decode_attention(q, kp[:, :12].contiguous(), vp[:, :12].contiguous(), tables, off, 0.1)
+    with pytest.raises(ValueError):
+        pool_decode_attention(q, kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn), tables,
+                              off, 0.1)
+    with pytest.raises(TypeError):
+        pool_decode_attention(q, kp, vp, tables, 3, 0.1)
+    with pytest.raises(ValueError):
+        pool_decode_attention(q, kp, vp, tables.long(), off, 0.1)
+    with pytest.raises(ValueError):   # a block pool is attended one token per row
+        common.sdpa(q.expand(2, 4, 8, 128), ("pool", kp, tables), ("pool", vp, tables),
+                    decode_offset=off)
+
+
+@pytest.mark.cuda
+def test_serving_protocol_goes_through_the_kernels(card):
+    """One slot's prefill with a host-int offset launches kernel 4; the same
+    offset as a (1,) tensor raises (no kernel takes an arbitrary mask); a
+    fresh batched admission launches kernel 5; the fused chunk+decode step
+    launches kernels 3 + 4 (dense) or 7 + 4 (paged)."""
+    b, c, s, bs = 3, 16, 64, 16
+    q = torch.randn(1, c, 8, 128, device=card).bfloat16()
+    k = torch.randn(1, s, 8, 128, device=card).bfloat16()
+    kernels.reset_launch_counts()
+    common.sdpa(q, k, k, decode_offset=16)
+    assert kernels.launch_counts()["flash_prefill_blocked"] == 1
+    with pytest.raises(NotImplementedError):
+        common.sdpa(q, k, k, decode_offset=torch.tensor([16], dtype=torch.int32, device=card))
+
+    ck = torch.zeros(b, s, 8, 128, device=card).bfloat16()
+    cv = torch.zeros_like(ck)
+    admit = torch.tensor([True, False, True], device=card)
+    qb = torch.randn(b, c, 8, 128, device=card).bfloat16()
+    kernels.reset_launch_counts()
+    out, _ = common.attention_block(("fresh", ck, cv, admit), qb, qb, qb, None)
+    assert kernels.launch_counts()["flash_prefill"] == 1
+    assert _rows_close(out, flash_prefill_plain(qb, qb, qb, 128 ** -0.5), 1e-2)
+    assert torch.equal(ck[0, :c], qb[0]) and not ck[1].any()
+
+    off = torch.tensor([c, 0, c], dtype=torch.int32, device=card)
+    live = torch.tensor([True, False, True], device=card)
+    qf = torch.randn(1, b + c, 8, 128, device=card).bfloat16()
+    nb = b * (s // bs) + 1
+    kp = torch.zeros(nb, bs, 8, 128, device=card).bfloat16()
+    vp = torch.zeros_like(kp)
+    tables = (torch.arange(b * (s // bs), device=card).reshape(b, -1) + 1).int()
+    kp[tables[0, 0]], kp[tables[2, 0]] = ck[0, :bs], ck[2, :bs]
+    vp[tables[0, 0]], vp[tables[2, 0]] = cv[0, :bs], cv[2, :bs]
+    kernels.reset_launch_counts()
+    dense, _ = common.attention_block(("grouped", ck, cv, off, live, 1, 0, b, c + 1),
+                                      qf, qf, qf, None)
+    paged, _ = common.attention_block(("grouped_paged", kp, vp, tables, off, live, 1, 0, b, c + 1),
+                                      qf, qf, qf, None)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["decode_attention"], counts["pool_decode_attention"],
+            counts["flash_prefill_blocked"]) == (1, 1, 2)
+    assert torch.equal(dense[:, [0, 2]], paged[:, [0, 2]]) and torch.equal(dense[:, b:], paged[:, b:])
+
+
+@pytest.mark.cuda
+def test_serving_engine_on_the_card(card):
+    """A narrow 2-layer LLaMA (head_dim 128, dense bf16 linears) served on the
+    card, paged and dense, spans and chunks: the launch counts are what the
+    forwards predict, and paged tokens equal dense ones (kernels 7 and 3 are
+    the same arithmetic)."""
+    from gptq_for_llama_tpu_torch.models import llama
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    from gptq_for_llama_tpu_torch.runtime import GenRequest, ServingEngine
+    cfg = ModelConfig(arch="llama", vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=2, num_kv_heads=2, head_dim=128, max_seq_len=256)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, dtype=torch.bfloat16, device=card)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 512, size=n) for n in (5, 20, 33, 70, 9, 130)]
+
+    def run(**kw):
+        eng = ServingEngine("llama", cfg, params, batch_slots=4, max_seq_len=256,
+                            prefill_buckets=(32, 128), **kw)
+        for uid, p in enumerate(prompts):
+            eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=12))
+        kernels.reset_launch_counts()
+        res = eng.run()
+        torch.cuda.synchronize()
+        return res, eng.forwards, kernels.launch_counts()
+
+    layers = cfg.num_layers
+    for kw in (dict(decode_span=4), dict(prefill_chunk=32)):
+        dense, fd, cd = run(**kw)
+        paged, fp, cp = run(paged=True, **kw)
+        assert fd == fp
+        total = sum(fd.values())
+        steps = fd["decode"] + fd["chunk+decode"]
+        chunks = fd["prefill"] + fd["chunk"] + fd["chunk+decode"]
+        assert cd["rms_norm"] == cp["rms_norm"] == (2 * layers + 1) * total
+        assert cd["decode_attention"] == cp["pool_decode_attention"] == layers * steps
+        assert cd["pool_decode_attention"] == cp["decode_attention"] == 0
+        assert cd["flash_prefill_blocked"] == cp["flash_prefill_blocked"] == layers * chunks
+        assert cd["flash_prefill"] == cp["flash_prefill"] == layers * fd["admit"]
+        for uid in range(len(prompts)):
+            assert len(dense[uid]) == 12
+            np.testing.assert_array_equal(paged[uid], dense[uid], err_msg=f"{kw} request {uid}")

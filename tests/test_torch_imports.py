@@ -40,15 +40,21 @@ def test_no_jax_or_tpu_package_import(path):
 
 
 def test_port_covers_the_four_kernels():
+    """Named for the first slice's four kernels; the port now has seven, one
+    CUDA source each, every one naming the TPU kernel it replaces."""
     from gptq_for_llama_tpu_torch.ops import cuda
     from gptq_for_llama_tpu_torch.ops.cuda import build
-    assert set(cuda.KERNELS) == set(build.SOURCES)
-    for name, (mod, wrapper) in cuda.KERNELS.items():
-        assert os.path.exists(os.path.join(ROOT, mod.SOURCE)), mod.SOURCE
-        path, line = mod.REPLACES.rsplit(":", 1)
+    assert len(cuda.KERNELS) == 7 and set(cuda.KERNELS) == set(build.SOURCES)
+    replaced = set()
+    for name, kernel in cuda.KERNELS.items():
+        assert kernel.source.endswith(f"csrc/{name}.cu"), kernel.source
+        assert os.path.exists(os.path.join(ROOT, kernel.source)), kernel.source
+        path, line = kernel.replaces.rsplit(":", 1)
         with open(os.path.join(ROOT, path)) as f:
-            assert "def _" in f.readlines()[int(line) - 1], mod.REPLACES
-        assert isinstance(wrapper.launches, int)
+            assert f.readlines()[int(line) - 1].startswith("def "), kernel.replaces
+        replaced.add(kernel.replaces)
+        assert isinstance(kernel.wrapper.launches, int)
+    assert len(replaced) == 7
     cuda.reset_launch_counts()
     assert set(cuda.launch_counts().values()) == {0}
 
