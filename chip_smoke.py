@@ -16,10 +16,11 @@ Phases, in order, on one card:
   e2e      a random wire-format LLaMA at 7B width and 2 layers: prefill and
            8 greedy steps on the card (bf16, kernels) against the same
            weights on the CPU (fp32, plain versions).
-  full     LLaMA-7B INT4-g128, 32 layers, batch 1: ``generate`` greedily for
-           three prompts of ragged lengths; every kernel of the decode path
-           must launch. Prints ms/token, tok/s, peak memory and the roofline
-           share.
+  full     LLaMA-7B INT4-g128, 32 layers (seeded zero-mean codes, every layer
+           its own draw, so the tokens depend on the prompt), batch 1:
+           ``generate`` greedily for three prompts of ragged lengths; every
+           kernel of the decode path must launch. Prints ms/token, tok/s, peak
+           memory and the roofline share.
   quantize the quantize -> pack -> save -> reload -> perplexity path through
            the CLI, in-process: a dense F16 LLaMA checkpoint at 7B width and
            2 layers written from a seed, then ``--wbits 4 --groupsize 128
@@ -35,10 +36,12 @@ Phases, in order, on one card:
            poisoned with NaN; and span 1), then a dense cache with chunked
            prefill (chunk 128), fused with the decode step and not. Tokens are
            held against the single-sequence runner where its top-2 margin is
-           clear, the k/v left in the caches against the runner's cache, paged
-           against dense, launch counts against the forwards the engine made. Then the serving CLI (``--demo``, paged) on the 2-layer
-           checkpoint the ``quantize`` phase saved. Prints tok/s, ttft and
-           latency percentiles, steps and peak memory.
+           clear, the k/v every request left in the cache at its retirement
+           against the runner's cache, paged against dense, launch counts
+           against the forwards the engine made. Then the serving CLI
+           (``--demo``, paged) on the 2-layer checkpoint the ``quantize`` phase
+           saved. Prints tok/s, ttft and latency percentiles, steps and peak
+           memory.
   profile  torch.profiler over eager decode steps of a 4-layer 7B-width
            model: device time per kernel and the device busy share.
 
@@ -94,13 +97,18 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def row_rel_err(got, want) -> float:
-    """Largest over output rows (all indices but the last) of
-    |got - want| / |want|. A causal row i averages i + 1 values, so its size
-    falls like 1/sqrt(i + 1); an error bound set from the largest value of
-    the whole output would let late rows be wrong by as much as they are."""
+def row_rel_errs(got, want):
+    """|got - want| / |want| of every output row (all indices but the last)."""
     g, w = got.float(), want.float()
-    return ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+    return (g - w).norm(dim=-1) / w.norm(dim=-1)
+
+
+def row_rel_err(got, want) -> float:
+    """Largest over output rows of ``row_rel_errs``. A causal row i averages
+    i + 1 values, so its size falls like 1/sqrt(i + 1); an error bound set
+    from the largest value of the whole output would let late rows be wrong by
+    as much as they are."""
+    return row_rel_errs(got, want).max().item()
 
 
 def bf16_ulps(torch, got, want) -> int:
@@ -205,6 +213,7 @@ class Smoke:
         self.launches = {}  # path -> {kernel name: launches on that path}
         self.report = {"kernels": {}}
         self.entries = {}   # kernel name -> JSON entry
+        self.serve_entries = {}   # kernel name -> the same at its serving shape
         self.tmp = None     # scratch directory of the quantize and serve phases
         self.model7b = None  # (cfg, params) of the full phase, served again
 
@@ -244,10 +253,13 @@ class Smoke:
 
     # -- phase 3 ---------------------------------------------------------------
     def _record(self, kernel, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops, main=False,
-                row_rel=None, ref_max=None, ulps=None):
+                row_rel=None, ref_max=None, ulps=None, serve=False):
         """One kernel row. The check is ``err <= tol``; where ``row_rel`` (the
         per-row relative error) is given, ``row_rel <= tol``; where ``ulps``
-        (the distance in bf16 units of the last place) is given, ``ulps <= tol``."""
+        (the distance in bf16 units of the last place) is given, ``ulps <= tol``.
+        ``main`` marks the kernel's row of the kernels line, ``serve`` the row
+        at the shape of the serving decode step (or, for the prefill kernels,
+        of a serving chunk or admission), printed beside it."""
         b_ms, b_by = bound(nbytes, flops)
         checked = ulps if ulps is not None else err if row_rel is None else row_rel
         ok = checked <= tol
@@ -267,10 +279,12 @@ class Smoke:
         if not ok:
             raise AssertionError(f"{kernel} {shape}: kernel disagrees with its plain version "
                                  f"({checked} > {tol})")
+        entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": lib_ms, "shape": shape}
         if main:
-            self.entries[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                                    "shape": shape}
+            self.entries[kernel] = entry
+        if serve:
+            self.serve_entries[kernel] = entry
 
     def _linears(self, torch, rng, k, n, count):
         from gptq_for_llama_tpu_torch.ops.linear import PackedLinear
@@ -303,42 +317,50 @@ class Smoke:
             return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(bf)
 
         # kernel 1: tolerance 2e-2 * max|plain|: the plain version rounds the
-        # dequantized weight to bf16 before its matmul, the kernel keeps it fp32
+        # dequantized weight to bf16 before its matmul, the kernel keeps it fp32.
+        # M: the batch-1 decode step and a prompt, then what serving gives the
+        # linears: 8 slots' decode step, a chunk (128), the fused chunk+decode
+        # row (8 + 128), the buckets (128, 512, 2048) and a batched admission
+        # (8 x 128 = 1024)
+        ms_of = (1, 8, 100, 128, 136, 512, 1024, 2048)
         for k, n, what in ((4096, 4096, "q_proj"), (11008, 4096, "down_proj")):
             lins = self._linears(torch, rng, k, n, copies_for(k * n // 2))
             lin = lins[0]
             wdq = [lin.dequantize(bf) for _ in range(copies_for(k * n * 2))]
-            for m in (1, 100):
+            for m in ms_of:
                 x = randn(m, k)
                 y = qmm_cuda(x, lin)
                 ref = quant_matmul_plain(x, lin, bf)
                 err = (y.float() - ref.float()).abs().max().item()
                 tol = 2e-2 * ref.float().abs().max().item()
-                ms = graph_ms(torch, [lambda l=l: qmm_cuda(x, l) for l in lins])
+                iters = 60 if m <= 136 else 6
+                ms = graph_ms(torch, [lambda l=l: qmm_cuda(x, l) for l in lins], iters=iters)
                 pms = graph_ms(torch, [lambda l=l: quant_matmul_plain(x, l, bf) for l in lins],
-                               iters=10)
-                lms = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wdq])
+                               iters=min(iters, 10))
+                lms = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wdq], iters=iters)
                 nbytes = m * k * 2 + self._lin_bytes(lin) + m * n * 2
                 self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
-                             2 * m * k * n, main=(what == "q_proj" and m == 1))
+                             2 * m * k * n, main=(what == "q_proj" and m == 1),
+                             serve=(what == "q_proj" and m == 8))
             del lins, wdq
         # kernel 2: same tolerance and reason, per branch before the epilogue
         k, n = 4096, 11008
         gates = self._linears(torch, rng, k, n, copies_for(k * n))
         ups = self._linears(torch, rng, k, n, len(gates))
-        for m in (1, 100):
+        for m in ms_of:
             x = randn(m, k)
             y = fused_mlp_cuda(x, gates[0], ups[0])
             ref = fused_mlp_plain(x, gates[0], ups[0])
             err = (y.float() - ref.float()).abs().max().item()
             tol = 2e-2 * ref.float().abs().max().item()
+            iters = 60 if m <= 136 else 6
             ms = graph_ms(torch, [lambda g=g, u=u: fused_mlp_cuda(x, g, u)
-                                  for g, u in zip(gates, ups)])
+                                  for g, u in zip(gates, ups)], iters=iters)
             pms = graph_ms(torch, [lambda g=g, u=u: fused_mlp_plain(x, g, u)
-                                   for g, u in zip(gates, ups)], iters=10)
+                                   for g, u in zip(gates, ups)], iters=min(iters, 10))
             nbytes = m * k * 2 + 2 * self._lin_bytes(gates[0]) + m * n * 2
             self._record("fused_mlp", f"gate+up {k}x{n} M={m}", err, tol, ms, pms, None,
-                         nbytes, 4 * m * k * n, main=(m == 1))
+                         nbytes, 4 * m * k * n, main=(m == 1), serve=(m == 8))
         del gates, ups
         # kernels 3-5: tolerance 1e-2 of each output row's norm: both sides
         # softmax in fp32, the output is rounded to bf16 (2^-9 relative);
@@ -379,35 +401,46 @@ class Smoke:
             self._record("decode_attention",
                          f"B={b} H={h} Hkv={hkv} S={s} offset={offs}", err, 1e-2, ms, pms, lms,
                          nbytes, 4 * live_slots * h * d,
-                         main=(h == hkv and offs == 127), row_rel=rel, ref_max=ref_max)
+                         main=(h == hkv and offs == 127), row_rel=rel, ref_max=ref_max,
+                         serve=(offs == serving))
             del caches
-        b, sq, h, hkv = 1, 100, 32, 32
-        for off in (0, 128):
-            ncopy = copies_for(2 * b * s * hkv * d * 2)
+        # kernel 4: a 100-token prompt of the runner over its 2048-slot cache,
+        # then what serving gives it. A chunk of 128 at offsets 0, 128 and 512
+        # over the off + 128 slots its queries see (the paged gather and the
+        # fused step's slice) and over the slot's whole dense cache (the
+        # unfused dense chunk); a bucket-512 prompt over its gathered 512 slots
+        # and over the dense cache; the implicit 2048 bucket
+        b, h, hkv = 1, 32, 32
+        for sq, off, skv in ((100, 0, s), (100, 128, s), (128, 0, 128), (128, 128, 256),
+                             (128, 512, 640), (128, 512, s), (512, 0, 512), (512, 0, s),
+                             (2048, 0, s)):
+            ncopy = copies_for(2 * b * skv * hkv * d * 2)
             q = randn(b, sq, h, d)
-            caches = [(randn(b, s, hkv, d), randn(b, s, hkv, d)) for _ in range(ncopy)]
+            caches = [(randn(b, skv, hkv, d), randn(b, skv, hkv, d)) for _ in range(ncopy)]
             kc, vc = caches[0]
             y = flash_prefill_blocked_cuda(q, kc, vc, off, d ** -0.5)
             ref = flash_prefill_blocked_plain(q, kc, vc, off, d ** -0.5)
             err = (y.float() - ref.float()).abs().max().item()
             rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
+            iters = 60 if sq <= 128 else 6
             ms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_cuda(q, c[0], c[1], off,
                                                                          d ** -0.5)
-                                  for c in caches])
+                                  for c in caches], iters=iters)
             pms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_plain(q, c[0], c[1], off,
                                                                            d ** -0.5)
-                                   for c in caches], iters=10)
-            allowed = (torch.arange(s, device="cuda")[None, :]
+                                   for c in caches], iters=min(iters, 10))
+            allowed = (torch.arange(skv, device="cuda")[None, :]
                        <= torch.arange(sq, device="cuda")[:, None] + off)
             qt = q.transpose(1, 2)
             lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
                 qt, c[0].transpose(1, 2), c[1].transpose(1, 2), attn_mask=allowed)
-                for c in caches])
+                for c in caches], iters=iters)
             pairs = sum(off + i + 1 for i in range(sq))
             nbytes = 2 * b * sq * h * d * 2 + b * (off + sq) * hkv * d * 2 * 2
             self._record("flash_prefill_blocked", f"B={b} SQ={sq} H={h} Hkv={hkv} "
-                         f"SKV={s} offset={off}", err, 1e-2, ms, pms, lms, nbytes,
-                         4 * b * h * pairs * d, main=(off == 0), row_rel=rel, ref_max=ref_max)
+                         f"SKV={skv} offset={off}", err, 1e-2, ms, pms, lms, nbytes,
+                         4 * b * h * pairs * d, main=(sq == 100 and off == 0), row_rel=rel,
+                         ref_max=ref_max, serve=(sq == 128 and skv == 256))
             del caches
         self._kernel5(torch, F, randn)
         self._kernel6(torch, F, randn)
@@ -418,15 +451,18 @@ class Smoke:
     def _kernel5(self, torch, F, randn):
         """Kernel 5 at the shapes of 7B quantization and eval: one window, the
         calibration forward (16 windows, the CLI's --chunk) and the eval batch
-        (8 windows), then GQA and a ragged S. Tolerance 1e-2 of each output
-        row's norm, as kernels 3-4."""
+        (8 windows), then GQA, a ragged S, and serving's batched admissions
+        (8 slots at buckets 32 and 128). Tolerance 1e-2 of each output row's
+        norm, as kernels 3-4."""
         from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import (flash_prefill_cuda,
                                                                      flash_prefill_plain)
         d = 128
         for b, s, h, hkv, what in ((1, 2048, 32, 32, "one window"),
                                    (16, 2048, 32, 32, "calibration chunk"),
                                    (8, 2048, 32, 32, "eval batch"), (1, 2048, 32, 8, "GQA"),
-                                   (1, 1000, 32, 32, "ragged")):
+                                   (1, 1000, 32, 32, "ragged"),
+                                   (8, 32, 32, 32, "admission, bucket 32"),
+                                   (8, 128, 32, 32, "admission, bucket 128")):
             ncopy = copies_for(b * s * (2 * h + 2 * hkv) * d * 2)
             ins = [(randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d))
                    for _ in range(ncopy)]
@@ -447,8 +483,8 @@ class Smoke:
             pairs = s * (s + 1) // 2   # the causal half, diagonal included
             nbytes = b * s * (2 * h + 2 * hkv) * d * 2
             self._record("flash_prefill", f"{what} B={b} S={s} H={h} Hkv={hkv}", err, 1e-2,
-                         ms, pms, lms, nbytes, 4 * b * h * pairs * d, main=(b == 8),
-                         row_rel=rel, ref_max=ref_max)
+                         ms, pms, lms, nbytes, 4 * b * h * pairs * d, main=(b == 8 and s == 2048),
+                         row_rel=rel, ref_max=ref_max, serve=(b == 8 and s == 128))
             del ins
             torch.cuda.empty_cache()
 
@@ -477,7 +513,8 @@ class Smoke:
             lms = None if lib is None else graph_ms(
                 torch, [lambda x=x: lib(x, (h,), w, eps) for x in xs], iters=iters)
             self._record("rms_norm", f"M={m} H={h}", err, 1, ms, pms, lms,
-                         2 * m * h * 2 + h * 2, 4 * m * h, main=(m == 8), ulps=ulps)
+                         2 * m * h * 2 + h * 2, 4 * m * h, main=(m == 8), ulps=ulps,
+                         serve=(m == 8))
             del xs
 
     def _kernel7(self, torch, F, gen):
@@ -487,8 +524,11 @@ class Smoke:
         in every block no row owns and in every slot past a row's offset, so a
         kernel that read one would return NaN. Tolerance 1e-2 of each output
         row's norm, as kernel 3. The library call is the gather through the
-        tables plus SDPA, both inside the timed region. Each launch of a timed
-        run reads another region of the pool (copies larger than the L2)."""
+        tables plus SDPA under the live mask, both inside the timed region, on
+        a copy of the pool taken before the poison (0 x NaN is NaN in SDPA's
+        weighted sum, and zeroing the dead slots would be timed work that the
+        library call does not need). Each launch of a timed run reads another
+        region of the pool (copies larger than the L2)."""
         from gptq_for_llama_tpu_torch.ops.cuda.attention import (pool_decode_attention_cuda,
                                                                  pool_decode_attention_plain)
         b, h, d, bs, mb = 8, 32, 128, 16, 128
@@ -514,6 +554,7 @@ class Smoke:
             dead_pool[0] = True
             for t in tables:
                 dead_pool[t.long()] = dead
+            kp_clean, vp_clean = kp.clone(), vp.clone()
             kp[dead_pool] = float("nan")
             vp[dead_pool] = float("nan")
             max_live = max(offs) + 1   # the engine's host-side bound
@@ -531,16 +572,11 @@ class Smoke:
             mask = (torch.arange(mb * bs, device="cuda")[None, :] <= off[:, None])[:, None, None, :]
             qt = q.transpose(1, 2)
             gqa = {"enable_gqa": True} if h != hkv else {}
-            zero = torch.zeros((), dtype=bf, device="cuda")
 
             def library(t):
                 idx = t.long()
-                # dead slots zeroed as in the plain version: SDPA multiplies
-                # them by zero weights, and 0 * NaN is NaN
-                kd = torch.where(mask[:, 0, 0, :, None, None], kp[idx].reshape(b, mb * bs, hkv, d),
-                                 zero)
-                vd = torch.where(mask[:, 0, 0, :, None, None], vp[idx].reshape(b, mb * bs, hkv, d),
-                                 zero)
+                kd = kp_clean[idx].reshape(b, mb * bs, hkv, d)
+                vd = vp_clean[idx].reshape(b, mb * bs, hkv, d)
                 return F.scaled_dot_product_attention(qt, kd.transpose(1, 2), vd.transpose(1, 2),
                                                       attn_mask=mask, **gqa)
 
@@ -553,8 +589,8 @@ class Smoke:
                          f"B={b} H={h} Hkv={hkv} BS={bs} MB={mb} {what}", err, 1e-2, ms, pms, lms,
                          2 * b * h * d * 2 + live_bytes + b * 4 + live_slots // bs * 4,
                          4 * live_slots * h * d, main=(hkv == 32 and offs == mixed),
-                         row_rel=rel, ref_max=ref_max)
-            del kp, vp, tables
+                         row_rel=rel, ref_max=ref_max, serve=(hkv == 32 and offs == mixed))
+            del kp, vp, kp_clean, vp_clean, tables
             torch.cuda.empty_cache()
 
     def _ppl_eval_linears(self, torch, rng, randn):
@@ -660,15 +696,17 @@ class Smoke:
         from gptq_for_llama_tpu_torch.models.config import ModelConfig
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
         from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
-        from gptq_for_llama_tpu_torch.runtime.random_model import (model_weight_bytes,
-                                                                   random_wire_llama)
+        from gptq_for_llama_tpu_torch.runtime.random_model import (gaussian_wire_llama,
+                                                                   model_weight_bytes)
 
         cfg = ModelConfig(**LLAMA_7B)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        params = random_wire_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        # zero-mean codes, every layer its own draw: the logits depend on the
+        # prompt, so the token checks of this phase and of ``serve`` are live
+        params = gaussian_wire_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
         torch.cuda.synchronize()
-        log(f"[full] 7B INT4-g128 random wire weights loaded in {time.perf_counter() - t0:.1f} s")
+        log(f"[full] 7B INT4-g128 random wire weights made in {time.perf_counter() - t0:.1f} s")
         self.model7b = (cfg, params)
         runner = ModelRunner("llama", cfg, params, dtype=torch.bfloat16, device="cuda")
         runner.warmup(prefill_buckets=(16,))
@@ -687,6 +725,11 @@ class Smoke:
         for p, o in zip(prompts, outs):
             if o.shape != (1, len(p) + new) or not ((o >= 0) & (o < cfg.vocab_size)).all():
                 raise AssertionError(f"full: bad generate output {o.shape}")
+        distinct = len(set(np.concatenate([np.asarray(o)[0, len(p):]
+                                           for p, o in zip(prompts, outs)]).tolist()))
+        log(f"[full] {distinct} distinct tokens among the {3 * new} generated")
+        if distinct < 8:
+            raise AssertionError("full: the model's tokens do not depend on the prompt")
         self.check_path("decode", counts)
 
         # decode speed: greedy loop after a prefill, host clock, synchronized
@@ -919,7 +962,7 @@ class Smoke:
     SERVE_LENS = (37, 50, 100, 120, 200, 300, 450, 600, 64, 90, 256, 512)
     SERVE_NEW = 48
 
-    def _forced_reference(self, torch, runner, prompts, results, eng=None):
+    def _forced_reference(self, torch, runner, prompts, results, snaps=None):
         """The single-sequence runner, teacher-forced with each request's served
         tokens (prefill, then one decode step per token, as ``generate`` runs
         them): per request the runner's argmax at every position and whether
@@ -927,14 +970,23 @@ class Smoke:
         must equal the runner's wherever the margin exceeds 2 * 2e-2 * max|logit|
         (batch-8 and batch-1 GEMMs round differently, so a near-tie may flip).
 
-        With ``eng`` (the engine after its run) the k/v the engine left for
-        the last request of each slot are also held against the runner's cache,
-        per (position, head) row at 2e-2 of the row's norm: every layer's k/v
-        at every position depends on all that came before it, so a wrong
-        cache, table or offset shows here even where the argmax does not move.
-        Returns (reference, worst cache row error or None)."""
-        rel_tol, out, worst = 2e-2, {}, None
-        slot_of = {} if eng is None else {s.req.uid: i for i, s in enumerate(eng.slots)}
+        With ``snaps`` (``_snapshotting``: the k/v each request's slot held when
+        the request retired) EVERY request's cache is also held against the
+        runner's, per (position, head) row relative to the row's norm: every
+        layer's k/v at every position depends on all that came before it, so a
+        wrong cache, table or offset shows here even where the argmax does not
+        move, in a slot that was backfilled later too. The limits: every row
+        within 1e-1 and the mean over all rows within 2e-2. A row that is
+        missing, stale or another request's is off by about 1.4 (independent
+        rows); two CORRECT bf16 runs of 32 layers that differ only in how the
+        prompt was cut up (bucket, chunks, batch) are 2e-2 to 3e-2 apart in
+        their worst row (the serve phase measures and prints it), since every
+        rounding of the residual stream turns a difference far below the last
+        place into a whole one.
+        Returns (reference, {"worst", "mean"} of the cache rows or None)."""
+        rel_tol, row_tol, out, worst, total, count = 2e-2, 1e-1, {}, 0.0, 0.0, 0
+        if snaps is not None and sorted(snaps) != list(range(len(prompts))):
+            raise AssertionError(f"caches were kept for requests {sorted(snaps)} only")
         for uid, p in enumerate(prompts):
             toks = torch.as_tensor(np.asarray(results[uid], np.int64), device="cuda")[None]
             logits, cache = runner.prefill(torch.as_tensor(p[None], device="cuda"),
@@ -947,23 +999,62 @@ class Smoke:
             top2 = ref.topk(2, dim=-1)
             clear = (top2.values[:, 0] - top2.values[:, 1]) > 2 * rel_tol * ref.abs().max()
             out[uid] = (top2.indices[:, 0].cpu().numpy(), clear.cpu().numpy())
-            if uid in slot_of:
-                i, n, st = slot_of[uid], cache.offset, eng.state
-                if n != int(st["host_off"][i]):
-                    raise AssertionError(f"slot {i}: the engine holds {st['host_off'][i]} "
-                                         f"positions of request {uid}, the runner {n}")
+            if snaps is not None:
+                i, held, ks, vs = snaps[uid]
+                n = cache.offset
+                if n != held:
+                    raise AssertionError(f"slot {i}: the engine held {held} positions of "
+                                         f"request {uid}, the runner {n}")
                 for li in range(len(cache.k)):
-                    for got, want in ((st["k"][li], cache.k[li]), (st["v"][li], cache.v[li])):
-                        if eng.paged:   # the slot's logical view, through its table row
-                            got = got[st["tables"][i].long()].reshape(-1, *got.shape[2:])
-                        else:
-                            got = got[i]
-                        err = row_rel_err(got[:n], want[0, :n])
-                        worst = err if worst is None else max(worst, err)
-                        if not err <= rel_tol:
+                    for got, want in ((ks[li], cache.k[li]), (vs[li], cache.v[li])):
+                        errs = row_rel_errs(got, want[0, :n])
+                        err = errs.max().item()
+                        worst = max(worst, err)
+                        total, count = total + errs.sum().item(), count + errs.numel()
+                        if not err <= row_tol:
                             raise AssertionError(f"slot {i} (request {uid}), layer {li}: the "
                                                  f"engine's cache is {err} off the runner's")
-        return out, worst
+        if snaps is None:
+            return out, None
+        if not total / count <= rel_tol:
+            raise AssertionError(f"the engine's caches are {total / count} off the runner's in "
+                                 f"the mean over {count} rows")
+        return out, {"worst": worst, "mean": total / count}
+
+    @staticmethod
+    def _snapshotting(engine_cls):
+        """``engine_cls`` that keeps in ``snaps`` {uid: (slot, positions, k, v)}
+        a copy of the k/v (per layer, the first ``positions`` rows of the
+        slot's logical view) that each request's slot held when the request
+        retired. A retired slot's rows stay as they were until the slot is
+        given to the next request, so the copy is taken at the head of
+        ``_admit``, and by the caller after the run for each slot's last one."""
+        class Snapshotting(engine_cls):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                self.snaps = {}
+
+            def snapshot_retired(self):
+                st = self.state
+                for i, slot in enumerate(self.slots):
+                    if slot.req is None or not slot.done or slot.req.uid in self.snaps:
+                        continue
+                    n = int(st["host_off"][i])
+
+                    def view(c):
+                        if not self.paged:
+                            return c[i, :n].clone()
+                        blocks = st["tables"][i, :-(-n // self.block_size)].long()
+                        return c[blocks].reshape(-1, *c.shape[2:])[:n].clone()
+
+                    self.snaps[slot.req.uid] = (i, n, [view(c) for c in st["k"]],
+                                                [view(c) for c in st["v"]])
+
+            def _admit(self, state):
+                self.snapshot_retired()
+                super()._admit(state)
+
+        return Snapshotting
 
     @staticmethod
     def _hold_to_reference(what, results, reference):
@@ -1006,8 +1097,9 @@ class Smoke:
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
         from gptq_for_llama_tpu_torch.runtime import GenRequest, ServingEngine
         cfg, params = self.model7b
-        eng = ServingEngine("llama", cfg, params, batch_slots=8, max_seq_len=2048,
-                            prefill_buckets=(32, 128, 512), **kw)
+        eng = self._snapshotting(ServingEngine)("llama", cfg, params, batch_slots=8,
+                                                max_seq_len=2048, prefill_buckets=(32, 128, 512),
+                                                **kw)
         if poison:   # every pool block starts as NaN: no block is owned yet
             eng._new_cache = lambda shape: [
                 torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
@@ -1023,6 +1115,7 @@ class Smoke:
         dt = time.perf_counter() - t0
         counts = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated()
+        eng.snapshot_retired()   # the last request of each slot
         self.check_path(path, counts)
 
         f, layers = eng.forwards, cfg.num_layers
@@ -1044,6 +1137,9 @@ class Smoke:
                 raise AssertionError(f"{label}: token out of the vocabulary")
         stats = eng.stats()
         distinct = len(set(np.concatenate(list(results.values())).tolist()))
+        if distinct < 8:
+            raise AssertionError(f"{label}: {distinct} distinct tokens: the model's tokens do not "
+                                 f"depend on the prompt, so the token checks are dead")
         log(f"[serve] {label}: {tokens} tokens ({distinct} distinct) in {dt:.2f} s = "
             f"{tokens / dt:.1f} tok/s aggregate; "
             f"ttft p50/p95 {stats['ttft_p50_s']}/{stats['ttft_p95_s']} s, latency p50/p95 "
@@ -1112,9 +1208,17 @@ class Smoke:
         d1, _ = r1.decode(tok, c1)
         diff = (d8[0].float() - d1[0].float()).abs().max().item()
         scale = d1.float().abs().max().item()
-        log(f"[serve] decode logits of one sequence at batch 8 vs batch 1: max abs diff "
-            f"{diff:.4f}, max |logit| {scale:.3f}, rel {diff / scale:.2e} (token rule allows 2e-2)")
+        n = ids.shape[1]
+        floor = torch.cat([row_rel_errs(a[0, :n], b[0, :n]).flatten()
+                           for ca, cb in ((c8.k, c1.k), (c8.v, c1.v)) for a, b in zip(ca, cb)])
+        log(f"[serve] two correct runs, one sequence prefilled at batch 8 and at batch 1: decode "
+            f"logits max abs diff {diff:.4f}, max |logit| {scale:.3f}, rel {diff / scale:.2e}; "
+            f"k/v cache rows worst {floor.max().item():.2e}, mean {floor.mean().item():.2e} of "
+            f"the row's norm (the cache check allows 1e-1 / 2e-2)")
         res["batch8_vs_batch1_rel"] = diff / scale
+        res["batch8_vs_batch1_cache_rows"] = {"worst": floor.max().item(),
+                                              "mean": floor.mean().item()}
+        del floor
         del r8, r1, c8, c1, l8, l1, d8, d1
 
         # paged, span 8, over a pool that starts as NaN everywhere
@@ -1134,44 +1238,47 @@ class Smoke:
 
         runner = ModelRunner("llama", cfg, params, batch_size=1, max_seq_len=2048, device="cuda")
         t0 = time.perf_counter()
-        ref, cache_err = self._forced_reference(torch, runner, prompts, paged, eng)
+        ref, cache_err = self._forced_reference(torch, runner, prompts, paged, eng.snaps)
         t_ref = time.perf_counter() - t0
         del eng, state
         torch.cuda.empty_cache()
         compared, total, same = self._hold_to_reference("paged", paged, ref)
         log(f"[serve] paged vs the single-sequence runner (teacher-forced, {t_ref:.1f} s): "
             f"{compared}/{total} positions clear the margin, all agree; {same}/{total} agree "
-            f"in all; the k/v left in the pool for each slot's last request are within "
-            f"{cache_err:.2e} of the runner's cache per row (tol 2e-2), all layers")
+            f"in all; the k/v each of the {len(prompts)} requests left in the pool at its "
+            f"retirement are within {cache_err['worst']:.2e} of the runner's cache per row (tol "
+            f"1e-1), {cache_err['mean']:.2e} in the mean (tol 2e-2), all layers")
         res["paged_vs_runner"] = {"compared": compared, "positions": total, "agree": same,
                                   "cache_row_rel_err": cache_err}
 
-        # the same without spans: what a span saves on this card; a clean pool
-        # must give the poisoned run's tokens exactly (same kernels, same order)
+        # the same without spans, over a clean pool: what a span saves on this
+        # card. The tokens may part only at a near-tie: a row's decode attention
+        # is split by the longest row's length, which a span knows less exactly
         span1, eng = self._serve_run(torch, "paged span 1", "serve:paged", prompts, paged=True,
                                      block_size=16, decode_span=1)
         self._serve_step_times(torch, eng)
         del eng
         torch.cuda.empty_cache()
-        for uid in paged:
-            if not np.array_equal(span1[uid], paged[uid]):
-                raise AssertionError(f"paged: request {uid} differs between span 8 over a poisoned "
-                                     f"pool and span 1 over a clean one")
+        equal = self._hold_to_run("span 8 (poisoned pool) vs span 1 (clean pool)", paged, span1,
+                                  ref)
         a, b = res["paged span 8 (poisoned pool)"], res["paged span 1"]
         log(f"[serve] span 8 vs span 1: {a['tok_s']:.1f} vs {b['tok_s']:.1f} tok/s "
             f"({a['seconds']:.2f} vs {b['seconds']:.2f} s, {a['steps']} vs {b['steps']} engine "
-            f"steps); tokens identical | {self.card}")
+            f"steps); {equal}/{len(prompts)} requests identical, the others first differ where "
+            f"the runner's margin is not clear | {self.card}")
 
         # dense cache, chunked prefill: fused with the decode step, and not
         fused, eng = self._serve_run(torch, "dense chunk 128 fused", "serve:dense", prompts,
                                      prefill_chunk=128, decode_span=8)
-        ref_d, cache_err = self._forced_reference(torch, runner, prompts, fused, eng)
+        ref_d, cache_err = self._forced_reference(torch, runner, prompts, fused, eng.snaps)
         del eng
         torch.cuda.empty_cache()
         compared, total, same = self._hold_to_reference("dense chunked", fused, ref_d)
         log(f"[serve] dense chunked vs the single-sequence runner: {compared}/{total} positions "
             f"clear the margin, all agree; {same}/{total} agree in all; the dense cache of "
-            f"each slot's last request is within {cache_err:.2e} of the runner's per row")
+            f"each of the {len(prompts)} requests at its retirement is within "
+            f"{cache_err['worst']:.2e} of the runner's per row, {cache_err['mean']:.2e} in the "
+            f"mean")
         res["dense_vs_runner"] = {"compared": compared, "positions": total, "agree": same,
                                   "cache_row_rel_err": cache_err}
         equal = self._hold_to_run("paged vs dense", paged, fused, ref)
@@ -1291,7 +1398,7 @@ class Smoke:
                          "max_abs_err": e.get("max_abs_err"), "ms": e.get("ms"),
                          "plain_ms": e.get("plain_ms"), "bound_ms": e.get("bound_ms"),
                          "bound_by": e.get("bound_by"), "library_ms": e.get("library_ms"),
-                         "shape": e.get("shape")})
+                         "shape": e.get("shape"), "serve": self.serve_entries.get(name)})
         return json.dumps({"kernels": rows})
 
 

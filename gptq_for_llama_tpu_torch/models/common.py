@@ -106,7 +106,10 @@ def apply_kv_cache(past_kv, k, v):
                                               int (rows aligned) or (B,)
       ("paged", kp, vp, tables, offset[, write_mask[, max_live]])
                                               one layer's block pool
-                                              (NB, BS, Hkv, D); runtime/paged.py
+                                              (NB, BS, Hkv, D); runtime/paged.py.
+                                              One decode token per row, or one
+                                              slot's chunk (one table row, a
+                                              host-int offset)
       ("fresh", ck, cv, write_mask)           batched admission: every masked
       ("fresh_paged", kp, vp, tables, write_mask)
                                               row's prompt starts at cache
@@ -175,9 +178,11 @@ def apply_kv_cache(past_kv, k, v):
                                               write_mask=write_mask, gather=False)
             return (gather_prefix(kp, tables[0], offset + s),
                     gather_prefix(vp, tables[0], offset + s), (kp, vp), offset)
-        kp, vp, k_eff, v_eff = paged_update_layer(kp, vp, k, v, tables, offset,
-                                                  write_mask=write_mask)
-        return k_eff, v_eff, (kp, vp), offset
+        # several rows' chunks over their full gathered views: no engine path
+        # sends this (prefills go one slot at a time, admissions are "fresh")
+        raise NotImplementedError(
+            "a paged prefill takes one slot (one table row) and a host-int offset; "
+            "batched admissions use the fresh_paged form")
     cache_k, cache_v, offset = past_kv[:3]
     write_mask = past_kv[3] if len(past_kv) > 3 else None
     max_live = past_kv[4] if len(past_kv) > 4 else None

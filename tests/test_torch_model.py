@@ -25,7 +25,8 @@ from gptq_for_llama_tpu_torch.models import common, llama, registry
 from gptq_for_llama_tpu_torch.models.config import ModelConfig
 from gptq_for_llama_tpu_torch.runtime import (ModelRunner, benchmark_decode, generate,
                                               sample_logits)
-from gptq_for_llama_tpu_torch.runtime.random_model import (model_weight_bytes,
+from gptq_for_llama_tpu_torch.runtime.random_model import (gaussian_wire_llama,
+                                                           model_weight_bytes,
                                                            random_wire_llama)
 
 CFG = dict(arch="llama", vocab_size=96, hidden_size=128, intermediate_size=256,
@@ -221,6 +222,39 @@ def test_benchmark_decode_on_cpu_reports_no_device_memory():
     res = benchmark_decode(r, np.arange(8)[None] % cfg.vocab_size, check=True, log=lambda s: 0)
     assert res["device"] == "cpu" and res["max_memory_bytes"] is None
     assert res["tokens"] == 8 and np.isfinite(res["ppl"]) and res["tokens_per_s"] > 0
+
+
+def test_gaussian_wire_model_has_zero_mean_layers_and_live_tokens():
+    """The model for checks that read tokens: weights like a quantized
+    Gaussian, no column mean, every layer its own draw, reproducible from
+    the seed; its greedy tokens depend on the prompt, while the uniform-code
+    model of the speed runs emits one token whatever it is given."""
+    cfg = ModelConfig(arch="llama", vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=8, num_heads=4, num_kv_heads=4, head_dim=64, max_seq_len=32)
+    kw = dict(groupsize=32, device="cpu", dtype=torch.float32)
+    params = gaussian_wire_llama(cfg, seed=0, **kw)
+    a, b = (params["layers"][i]["mlp"]["down_proj"] for i in (0, 1))
+    assert not torch.equal(a.qweight, b.qweight)
+    # the two linears that write to the residual stream are a tenth as large
+    for lin, k, std in ((params["layers"][0]["mlp"]["up_proj"], cfg.hidden_size, 0.02),
+                        (a, cfg.intermediate_size, 0.002)):
+        w = lin.dequantize(torch.float32)
+        assert abs(w.mean().item()) < 5e-3 * std and 0.9 * std < w.std().item() < 1.1 * std
+        assert w.mean(0).abs().max().item() < 5 * std / k ** 0.5
+    assert 0.95 < params["embed_tokens"].std().item() < 1.05
+    again = gaussian_wire_llama(cfg, seed=0, **kw)["layers"][1]["mlp"]["down_proj"]
+    np.testing.assert_array_equal(again.qweight.numpy(), b.qweight.numpy())
+    wire = a.to_wire()
+    assert wire["qweight"].shape == (512 * 4 // 32, 256) and wire["scales"].dtype == np.float16
+
+    def tokens(p):
+        r = ModelRunner("llama", cfg, p, max_seq_len=32, dtype=torch.float32, device="cpu")
+        return [generate(r, prompt, max_new_tokens=12, temperature=0.0)[0, len(prompt):].tolist()
+                for prompt in ([1, 2, 3], [7, 100, 45, 9], [400, 2])]
+
+    live, flat = tokens(params), tokens(random_wire_llama(cfg, seed=0, **kw))
+    assert len({t for row in live for t in row}) >= 6 and live[0] != live[1] != live[2]
+    assert len({t for row in flat for t in row}) == 1
 
 
 def test_entry_points_need_the_card_unless_asked_for_cpu():

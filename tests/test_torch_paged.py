@@ -204,7 +204,7 @@ def test_cache_protocol_matches_jax(form):
 
 def test_layer_paged_matches_dense():
     """llama.layer with the paged protocol == the dense cache: a block-aligned
-    prefill, then decode steps at per-row offsets."""
+    prefill of each slot, then decode steps at per-row offsets."""
     from gptq_for_llama_tpu_torch.models import llama
     from gptq_for_llama_tpu_torch.models.config import ModelConfig
     cfg = ModelConfig(arch="llama", vocab_size=64, hidden_size=32, intermediate_size=64,
@@ -226,8 +226,12 @@ def test_layer_paged_matches_dense():
     x0 = _t(rng.standard_normal((b, 8, 32)).astype(np.float32))
     pos = torch.arange(8)[None, :]
     yd, _, _ = llama.layer(cfg, lp, x0, pos, None, (dk, dv, 0))
-    yp, _, _ = llama.layer(cfg, lp, x0, pos, None, ("paged", kp, vp, tables, 0))
+    # one slot at a time, as the engine prefills; several rows at once raise
+    yp = torch.cat([llama.layer(cfg, lp, x0[i:i + 1], pos, None,
+                                ("paged", kp, vp, tables[i:i + 1], 0))[0] for i in range(b)])
     np.testing.assert_allclose(yp.numpy(), yd.numpy(), atol=1e-5, rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="one slot"):
+        llama.layer(cfg, lp, x0, pos, None, ("paged", kp, vp, tables, 0))
     for t in range(8, 11):
         x1 = _t(rng.standard_normal((b, 1, 32)).astype(np.float32))
         pos = torch.full((b, 1), t)
