@@ -21,6 +21,21 @@ Phases, in order, on one card:
            ``generate`` greedily for three prompts of ragged lengths; every
            kernel of the decode path must launch. Prints ms/token, tok/s, peak
            memory and the roofline share.
+  fold     the decode path with cache_impl="fold" on the same model: the same
+           prompts through the fold kernel (attention over the stale cache with
+           the current k/v folded in, then the row write), tokens held to the
+           classic runner where its top-2 margin is clear, 32 fold launches
+           and no classic decode launch per token, the device step as a CUDA
+           graph beside the classic one; then the serve phase's 12 requests on
+           the dense engine with cache_impl="fold", held like the serve runs.
+  lora     LoRA finetuning over the frozen packed 7B model: rank-8 adapters
+           on all seven linears of every layer, Adam steps on a fixed batch of
+           2 x 512 tokens through the grad-input kernel; loss per step, ms per
+           forward / backward, peak memory, launches per step against the
+           path's prediction; the loss falls, every b moves, the packed
+           buffers stay byte-identical. Then every adapter's gradient of a
+           2-layer 7B-width model on the card against the CPU fp32 plain path,
+           with all seven linears adapted and with gate/up frozen (fused).
   quantize the quantize -> pack -> save -> reload -> perplexity path through
            the CLI, in-process: a dense F16 LLaMA checkpoint at 7B width and
            2 layers written from a seed, then ``--wbits 4 --groupsize 128
@@ -68,7 +83,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 L2_BYTES = 50 * 2**20
-PHASES = ("build", "kernels", "e2e", "full", "quantize", "serve", "profile")
+PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve", "profile")
 # kernels each path must launch: the decode path (prefill at a cache offset,
 # then decode steps), the calibration forward, the perplexity eval, paged
 # serving (bucketed and batched admission, spans) and dense serving with
@@ -81,7 +96,15 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          "serve:dense": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
                          "rms_norm"},
          # the CLI's demo prompts all have one length: every admission is batched
-         "serve:cli": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill", "rms_norm"}}
+         "serve:cli": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill", "rms_norm"},
+         # the decode path with cache_impl="fold", in the runner and the dense engine
+         "fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked", "rms_norm"},
+         "serve:fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
+                        "rms_norm"},
+         # LoRA training steps (every linear adapted: gate/up unfused), and the
+         # gradient check with gate/up frozen (the fused MLP and its backward)
+         "lora": {"qmm", "rms_norm", "flash_prefill", "qmm_t"},
+         "lora:fused": {"qmm", "fused_mlp", "rms_norm", "flash_prefill", "qmm_t"}}
 LLAMA_7B = dict(arch="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                 num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128, max_seq_len=2048)
 
@@ -187,6 +210,26 @@ def write_dense_llama(torch, path: str, layers: int, seed: int) -> int:
                    "max_position_embeddings": 2048, "hidden_act": "silu",
                    "tie_word_embeddings": False}, f)
     return sum(t.numel() * t.element_size() for t in flat.values())
+
+
+def _tree_to_cpu(tree, dtype):
+    """A parameter tree on the CPU in ``dtype``: each packed linear rebuilt
+    from its own wire buffers, adapters and dense tensors copied."""
+    import dataclasses
+    from gptq_for_llama_tpu_torch.ops.linear import PackedLinear
+    from gptq_for_llama_tpu_torch.ops.lora import LoraLinear, map_leaves
+
+    def leaf(x):
+        if isinstance(x, LoraLinear):
+            return dataclasses.replace(x, base=map_leaves(leaf, x.base))
+        if isinstance(x, PackedLinear):
+            w = x.to_wire()
+            return PackedLinear.from_wire(w["qweight"], w["qzeros"], w["scales"], w["g_idx"],
+                                          bits=x.wire_bits or x.bits, bias=w.get("bias"),
+                                          dtype=dtype, device="cpu")
+        return None if x is None else x.to(device="cpu", dtype=dtype)
+
+    return map_leaves(leaf, tree)
 
 
 def solver_agreement(got, want) -> dict:
@@ -445,6 +488,8 @@ class Smoke:
         self._kernel5(torch, F, randn)
         self._kernel6(torch, F, randn)
         self._kernel7(torch, F, gen)
+        self._kernel8(torch, rng, randn)
+        self._kernel9(torch, F, randn)
         self._ppl_eval_linears(torch, rng, randn)
         torch.cuda.synchronize()
 
@@ -592,6 +637,157 @@ class Smoke:
                          row_rel=rel, ref_max=ref_max, serve=(hkv == 32 and offs == mixed))
             del kp, vp, kp_clean, vp_clean, tables
             torch.cuda.empty_cache()
+
+    def _kernel8(self, torch, rng, randn):
+        """Kernel 8, the grad-input of the packed linears, at the LoRA phase's
+        training batch (M = 1024 tokens) and at 2048: q_proj's 4096 x 4096,
+        down_proj's transpose (dx of width K = 11008 from g of width 4096) and
+        gate/up's (K = 4096 from N = 11008), plus one act-order linear
+        through the dispatch (the inverse permutation). Tolerance 2e-2 of
+        each output row's norm: both sides use the same bf16 weight (bit-equal
+        dequantization) and accumulate in fp32 in another order; the plain
+        matmul rounds to bf16 at the end, as the kernel does."""
+        from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import (qmm_t_cuda, quant_matmul_t,
+                                                                quant_matmul_t_plain)
+        from gptq_for_llama_tpu_torch.ops.linear import PackedLinear
+        from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_linear
+        bf = torch.bfloat16
+        for k, n, what in ((4096, 4096, "q_proj"), (11008, 4096, "down_proj^T"),
+                           (4096, 11008, "gate/up^T")):
+            lins = self._linears(torch, rng, k, n, copies_for(k * n // 2))
+            wdq = [lins[0].dequantize(bf) for _ in range(copies_for(k * n * 2))]
+            for m in (1024, 2048):
+                g = randn(m, n)
+                y = qmm_t_cuda(g, lins[0])
+                ref = quant_matmul_t_plain(g, lins[0])
+                err = (y.float() - ref.float()).abs().max().item()
+                rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
+                ms = graph_ms(torch, [lambda l=l: qmm_t_cuda(g, l) for l in lins], iters=6)
+                pms = graph_ms(torch, [lambda l=l: quant_matmul_t_plain(g, l) for l in lins],
+                               iters=6)
+                lms = graph_ms(torch, [lambda w=w: torch.matmul(g, w.T) for w in wdq], iters=6)
+                nbytes = m * n * 2 + self._lin_bytes(lins[0]) + m * k * 2
+                self._record("qmm_t", f"{what} dx = g @ W^T, K={k} N={n} M={m}", err, 2e-2, ms,
+                             pms, lms, nbytes, 2 * m * k * n, main=(what == "q_proj" and m == 1024),
+                             row_rel=rel, ref_max=ref_max)
+            del lins, wdq
+        # act-order: rows group-sorted on the device, the dispatch un-permutes
+        w = random_wire_linear(rng, 4096, 4096, 128, 4)
+        w["g_idx"] = w["g_idx"][rng.permutation(4096)]
+        lin = PackedLinear.from_wire(w["qweight"], w["qzeros"], w["scales"], w["g_idx"], bits=4,
+                                     dtype=bf, device="cuda")
+        g = randn(1024, 4096)
+        y = quant_matmul_t(g, lin)
+        ref = quant_matmul_t_plain(g, lin)[:, torch.argsort(lin.perm)]
+        err = (y.float() - ref.float()).abs().max().item()
+        rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
+        ms = graph_ms(torch, [lambda: quant_matmul_t(g, lin)], iters=6)
+        pms = graph_ms(torch, [lambda: quant_matmul_t_plain(g, lin)[:, torch.argsort(lin.perm)]],
+                       iters=6)
+        wd = lin.dequantize(bf)[torch.argsort(lin.perm)]
+        lms = graph_ms(torch, [lambda: torch.matmul(g, wd.T)], iters=6)
+        self._record("qmm_t", "q_proj act-order (dispatch, inverse perm) K=4096 N=4096 M=1024",
+                     err, 2e-2, ms, pms, lms, 1024 * 4096 * 4 + self._lin_bytes(lin),
+                     2 * 1024 * 4096 * 4096, row_rel=rel, ref_max=ref_max)
+        del lin, wd, g
+        torch.cuda.empty_cache()
+
+    def _kernel9(self, torch, F, randn):
+        """Kernel 9, fold decode attention, at 7B's heads: B = 1 at offsets 0,
+        127, 2047, GQA (Hkv = 8), and 8 serving slots at offsets 37..1500 with
+        the engine's host-side bound; then the row write under a mixed mask.
+        Every cache slot at and past a row's offset holds NaN, so a kernel that
+        read one would return NaN. Tolerance 1e-2 of each output row's norm,
+        as kernel 3; after the write both caches are byte-equal to the plain
+        version's. The library call is SDPA over the cache with the current
+        token written, under the live mask, on a poison-free copy."""
+        from gptq_for_llama_tpu_torch.ops.cuda.attention import (fused_decode_attention_cuda,
+                                                                 fused_decode_attention_plain)
+        d, s = 128, 2048
+        serving = (37, 150, 300, 511, 512, 900, 1200, 1500)
+        for b, h, hkv, offs in ((1, 32, 32, 0), (1, 32, 32, 127), (1, 32, 32, 2047),
+                                (2, 32, 8, (100, 1500)), (8, 32, 32, serving)):
+            ncopy = copies_for(2 * b * s * hkv * d * 2)
+            q, kn, vn = randn(b, 1, h, d), randn(b, 1, hkv, d), randn(b, 1, hkv, d)
+            off_t = torch.tensor(offs if isinstance(offs, tuple) else [offs] * b,
+                                 dtype=torch.int32, device="cuda")
+            off_arg = off_t if isinstance(offs, tuple) else offs
+            max_live = max(offs) + 1 if offs == serving else None
+            clean = [(randn(b, s, hkv, d), randn(b, s, hkv, d)) for _ in range(ncopy)]
+            dead = (torch.arange(s, device="cuda")[None, :] >= off_t[:, None])[:, :, None, None]
+            kc, vc = (c.masked_fill(dead, float("nan")) for c in clean[0])
+            y, _, _ = fused_decode_attention_cuda(q, kc, vc, kn, vn, off_arg, d ** -0.5,
+                                                  write=False, max_live=max_live)
+            ref, _, _ = fused_decode_attention_plain(q, kc, vc, kn, vn, off_t, d ** -0.5,
+                                                     write=False)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y.float()).all() and torch.isfinite(ref.float()).all()):
+                raise AssertionError(f"fused_decode_attention offsets {offs}: a slot at or past "
+                                     f"the offset was read")
+            err = (y.float() - ref.float()).abs().max().item()
+            rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
+            ms = graph_ms(torch, [lambda c=c: fused_decode_attention_cuda(
+                q, c[0], c[1], kn, vn, off_arg, d ** -0.5, write=False, max_live=max_live)
+                for c in clean])
+            pms = graph_ms(torch, [lambda c=c: fused_decode_attention_plain(
+                q, c[0], c[1], kn, vn, off_t, d ** -0.5, write=False) for c in clean], iters=10)
+            rows = torch.arange(b, device="cuda")
+            for kk, vv in clean:   # the library reads the cache with the row written
+                kk[rows, off_t.long()] = kn[:, 0]
+                vv[rows, off_t.long()] = vn[:, 0]
+            mask = (torch.arange(s, device="cuda")[None, :] <= off_t[:, None])[:, None, None, :]
+            qt = q.transpose(1, 2)
+            gqa = {"enable_gqa": True} if h != hkv else {}
+            lib_err = row_rel_err(F.scaled_dot_product_attention(
+                qt, clean[0][0].transpose(1, 2), clean[0][1].transpose(1, 2), attn_mask=mask,
+                **gqa).transpose(1, 2), ref)
+            if not lib_err <= 1e-2:
+                raise AssertionError(f"fused_decode_attention: the library yardstick computes "
+                                     f"another function ({lib_err})")
+            lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+                qt, c[0].transpose(1, 2), c[1].transpose(1, 2), attn_mask=mask, **gqa)
+                for c in clean])
+            stale = int(off_t.clamp(max=s - 1).sum().item())
+            nbytes = 2 * b * h * d * 2 + (stale + b) * hkv * d * 2 * 2
+            self._record("fused_decode_attention",
+                         f"B={b} H={h} Hkv={hkv} S={s} offset={offs} (no write)", err, 1e-2, ms,
+                         pms, lms, nbytes, 4 * (stale + b) * h * d,
+                         main=(h == hkv and offs == 127), row_rel=rel, ref_max=ref_max,
+                         serve=(offs == serving))
+            del clean, kc, vc
+        # the in-place row write under a mixed mask (serving slots; rows whose
+        # mask is false keep their cache and still attend their current k/v)
+        b, h = 8, 32
+        off_t = torch.tensor(serving, dtype=torch.int32, device="cuda")
+        q, kn, vn = randn(b, 1, h, d), randn(b, 1, h, d), randn(b, 1, h, d)
+        dead = (torch.arange(s, device="cuda")[None, :] >= off_t[:, None])[:, :, None, None]
+        kc, vc = (randn(b, s, h, d).masked_fill(dead, float("nan")) for _ in range(2))
+        wk, wv = kc.clone(), vc.clone()
+        wmask = torch.arange(b, device="cuda") % 3 != 1
+        y, _, _ = fused_decode_attention_cuda(q, kc, vc, kn, vn, off_t, d ** -0.5,
+                                              write_mask=wmask, max_live=max(serving) + 1)
+        ref, _, _ = fused_decode_attention_plain(q, wk, wv, kn, vn, off_t, d ** -0.5,
+                                                 write_mask=wmask)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int16), b_.view(torch.int16))
+                   for a, b_ in ((kc, wk), (vc, wv)))
+        if not same:
+            raise AssertionError("fused_decode_attention: the caches after the masked write "
+                                 "differ from the plain version's")
+        err = (y.float() - ref.float()).abs().max().item()
+        rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
+        ms = graph_ms(torch, [lambda: fused_decode_attention_cuda(
+            q, kc, vc, kn, vn, off_t, d ** -0.5, write_mask=wmask, max_live=max(serving) + 1)])
+        pms = graph_ms(torch, [lambda: fused_decode_attention_plain(
+            q, wk, wv, kn, vn, off_t, d ** -0.5, write_mask=wmask)], iters=10)
+        stale = sum(serving)
+        written = int(wmask.sum().item())
+        nbytes = 2 * b * h * d * 2 + (stale + b) * h * d * 2 * 2 + written * h * d * 2 * 2
+        self._record("fused_decode_attention", f"B={b} H={h} offsets 37..1500, write under the "
+                     f"mask {wmask.int().tolist()} (caches byte-equal)", err, 1e-2, ms, pms, None,
+                     nbytes, 4 * (stale + b) * h * d, row_rel=rel, ref_max=ref_max)
+        del kc, vc, wk, wv
+        torch.cuda.empty_cache()
 
     def _ppl_eval_linears(self, torch, rng, randn):
         """Kernels 1-2 at the perplexity-eval M (8 windows x 2048 tokens)."""
@@ -766,6 +962,242 @@ class Smoke:
                                "roofline_tok_s": roof_tok_s, "roofline_share": tok_s / roof_tok_s,
                                "peak_memory_bytes": peak, "weight_bytes": wbytes}
 
+    # -- phase 6 ---------------------------------------------------------------
+    def phase_fold(self, torch):
+        """The decode path with cache_impl="fold" on the full phase's 7B model:
+        the same three prompts, 64 greedy tokens each, through kernel 9 (32
+        launches per decode token, kernel 3 none), held to the classic runner
+        where its top-2 margin is clear; the device step as a CUDA graph beside
+        the classic one; then the serve phase's 12 requests on the dense engine
+        with cache_impl="fold" (chunked prefill, unfused, so every decode step
+        is a fold step), held like the other serving runs."""
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
+        cfg, params = self.model7b
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in (37, 100, 201)]   # full's
+        new = 64
+        fold = ModelRunner("llama", cfg, params, device="cuda", cache_impl="fold")
+        classic = ModelRunner("llama", cfg, params, device="cuda")
+        fold.warmup(prefill_buckets=(16,))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [generate(fold, p, max_new_tokens=new, temperature=0.0) for p in prompts]
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        self.check_path("fold", counts)
+        per_token = counts["fused_decode_attention"] / (len(prompts) * (new - 1))
+        if per_token != cfg.num_layers or counts["decode_attention"] != 0:
+            raise AssertionError(f"fold: {per_token} fold launches per decode token and "
+                                 f"{counts['decode_attention']} of kernel 3 (want "
+                                 f"{cfg.num_layers} and 0)")
+        results = {i: o[0, len(p):] for i, (p, o) in enumerate(zip(prompts, outs))}
+        ref, _ = self._forced_reference(torch, classic, prompts, results)
+        compared, total, same = self._hold_to_reference("fold runner", results, ref)
+        log(f"[fold] generate: 3 requests x {new} new tokens in {t_gen:.2f} s; kernel 9 "
+            f"{per_token:.0f} launches per decode token, kernel 3 none; {compared}/{total} "
+            f"positions clear the classic runner's margin, all agree ({same}/{total} agree in "
+            f"all); launches {counts}")
+        dev_ms = {}
+        for name, runner in (("classic", classic), ("fold", fold)):
+            cache = runner.init_cache()
+            logits, cache = runner.prefill(torch.as_tensor(prompts[1][None], device="cuda"),
+                                           cache)
+            toks, cache = runner.decode_greedy(logits[:, -1:].float().argmax(-1), cache, new)
+            step_ids = toks[:, -1:].clone()
+            dev_ms[name] = graph_ms(torch, [lambda r=runner, c=cache: r.decode(step_ids, c)],
+                                    iters=8)
+        log(f"[fold] decode device step as a CUDA graph: fold {dev_ms['fold']:.3f} ms/token, "
+            f"classic {dev_ms['classic']:.3f} ms/token (offset 164) | {self.card}")
+        del fold, classic
+        torch.cuda.empty_cache()
+
+        rng = np.random.RandomState(0)   # the serve phase's requests
+        sprompts = [rng.randint(1, cfg.vocab_size, size=n) for n in self.SERVE_LENS]
+        served, eng = self._serve_run(torch, "dense fold chunk 128 unfused", "serve:fold",
+                                      sprompts, prefill_chunk=128, decode_span=8,
+                                      fused_chunk_decode=False, cache_impl="fold")
+        runner = ModelRunner("llama", cfg, params, batch_size=1, max_seq_len=2048, device="cuda")
+        sref, cache_err = self._forced_reference(torch, runner, sprompts, served, eng.snaps)
+        scompared, stotal, ssame = self._hold_to_reference("dense fold", served, sref)
+        log(f"[fold] dense fold engine vs the single-sequence runner: {scompared}/{stotal} "
+            f"positions clear the margin, all agree; {ssame}/{stotal} agree in all; every "
+            f"request's cache at its retirement within {cache_err['worst']:.2e} of the "
+            f"runner's per row, {cache_err['mean']:.2e} in the mean; kernel 9 "
+            f"{eng.forwards['decode'] * cfg.num_layers} launches = {cfg.num_layers} x "
+            f"{eng.forwards['decode']} decode forwards")
+        self.report["fold"] = {
+            "generate_s": t_gen, "launches": counts, "compared": compared, "positions": total,
+            "agree": same, "graph_ms_per_token": dev_ms,
+            "serve": {"compared": scompared, "positions": stotal, "agree": ssame,
+                      "cache_row_rel_err": cache_err}}
+        del eng, runner
+        torch.cuda.empty_cache()
+
+    # -- phase 7 ---------------------------------------------------------------
+    LORA_STEPS = 6
+
+    def phase_lora(self, torch):
+        """LoRA finetuning over the frozen packed 7B model (the full phase's,
+        32 layers): rank-8 adapters (alpha 16) on all seven linears of every
+        layer, a fixed batch of 2 x 512 seeded token ids whose labels are the
+        ids shifted by one, ``LORA_STEPS`` Adam steps. Per step: the loss,
+        forward / backward / optimizer ms, and the launches, held against what
+        the path predicts: forward 7 x 32 of kernel 1 (gate/up adapted, so
+        unfused), 2 x 32 + 1 of kernel 6, 32 of kernel 5; backward one kernel 8
+        for every packed linear whose input needs a gradient, 7 x 32 - 3 (layer
+        0's q/k/v read the embedding, which needs none). Checks: the loss
+        falls, every b moved, every packed buffer is byte-identical after
+        training. Then the 2-layer gradient check (``_lora_grad_check``)."""
+        import torch.nn.functional as F
+        from gptq_for_llama_tpu_torch.engine import attach_lora, get_path, join_lora, split_lora
+        from gptq_for_llama_tpu_torch.models import llama
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        cfg, params = self.model7b
+        layers = cfg.num_layers
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        adapters, skeleton = split_lora(attach_lora("llama", params, rank=8, generator=gen,
+                                                    alpha=16.0))
+        leaves = [t.requires_grad_() for ab in adapters for t in (ab["a"], ab["b"])]
+        packed = [get_path(lp, n) for lp in params["layers"] for n in llama.LAYER_LINEARS]
+        frozen = [(lin.qweight.clone(), lin.scales.clone(), lin.zeros.clone()) for lin in packed]
+        ids = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 512)),
+                              device="cuda")
+        opt = torch.optim.Adam(leaves, lr=1e-4)
+        want_fwd = {k: 0 for k in kernels.KERNELS}
+        want_fwd.update(qmm=7 * layers, rms_norm=2 * layers + 1, flash_prefill=layers)
+        want_bwd = {k: 0 for k in kernels.KERNELS}
+        want_bwd.update(qmm_t=7 * layers - 3)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = llama.forward(join_lora(skeleton, adapters), cfg, ids)
+            loss = F.cross_entropy(logits[:, :-1].flatten(0, 1).float(), ids[:, 1:].flatten())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fwd = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            bwd = kernels.launch_counts()
+            opt.step()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            return float(loss.detach()), (t1 - t0, t2 - t1, t3 - t2), fwd, bwd
+
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(self.LORA_STEPS):
+            loss, dt, fwd, bwd = step()
+            losses.append(loss)
+            times.append(dt)
+            self.check_path("lora", {k: fwd[k] + bwd[k] for k in fwd})
+            if fwd != want_fwd or bwd != want_bwd:
+                raise AssertionError(f"lora step {i}: launches forward {fwd}, backward {bwd}; "
+                                     f"the path predicts {want_fwd}, {want_bwd}")
+            log(f"[lora] step {i}: loss {loss:.5f}, forward {dt[0] * 1e3:.1f} ms, backward "
+                f"{dt[1] * 1e3:.1f} ms, Adam {dt[2] * 1e3:.1f} ms")
+        peak = torch.cuda.max_memory_allocated()
+        if not losses[-1] < losses[0] - 0.02:
+            raise AssertionError(f"lora: the loss did not fall: {losses}")
+        still = sum(int(ab["b"].detach().abs().max().item() == 0) for ab in adapters)
+        if still:
+            raise AssertionError(f"lora: {still} of {len(adapters)} b never moved")
+        for lin, (qw, sc, zr) in zip(packed, frozen):
+            if not (torch.equal(lin.qweight, qw) and torch.equal(lin.scales, sc)
+                    and torch.equal(lin.zeros, zr)):
+                raise AssertionError("lora: a packed buffer changed during training")
+        med = [float(np.median([t[j] for t in times[1:]])) * 1e3 for j in range(3)]
+        log(f"[lora] 32-layer 7B-width INT4 g128, rank 8 on all 7 linears ({len(adapters)} "
+            f"adapters, {sum(t.numel() for t in leaves)} trainable values), batch 2 x 512: loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f} in {len(losses)} Adam steps; median step "
+            f"{sum(med):.1f} ms (forward {med[0]:.1f}, backward {med[1]:.1f}, Adam {med[2]:.1f}); "
+            f"peak memory {peak / 2**30:.2f} GiB; launches per step forward {want_fwd}, "
+            f"backward {want_bwd}; every b moved, all {len(packed)} packed linears "
+            f"byte-identical | {self.card}")
+        self.report["lora"] = {"losses": losses, "step_s": times, "median_ms": med,
+                               "peak_memory_bytes": peak, "launches_forward": want_fwd,
+                               "launches_backward": want_bwd}
+        self._profile_steps(torch, "lora-profile", "LoRA training step(s) of LLaMA-7B, 2 x 512 "
+                            "tokens", lambda: step(), 1)
+        del adapters, skeleton, leaves, frozen, opt
+        torch.cuda.empty_cache()
+        self._lora_grad_check(torch, None, "all seven linears", "lora")
+        self._lora_grad_check(torch, ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                                      "self_attn.o_proj", "mlp.down_proj"),
+                              "attention + down_proj (gate/up fused)", "lora:fused")
+
+    def _lora_grad_check(self, torch, targets, label, path):
+        """Every adapter's gradient on the card (bf16, kernels) against the
+        CPU plain path in fp32, for the same seeded 2-layer model at 7B width
+        with adapters whose b is nonzero, on one batch of 1 x 128 tokens:
+        ||g_card - g_cpu|| / ||g_cpu|| of each a and b. The limit is 3x what
+        two correct runs differ by, measured in this run: the same CPU plain
+        path in bf16 against fp32."""
+        import torch.nn.functional as F
+        from gptq_for_llama_tpu_torch.engine import attach_lora, join_lora, split_lora
+        from gptq_for_llama_tpu_torch.models import llama
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+        cfg = ModelConfig(**dict(LLAMA_7B, num_layers=2))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        params = gaussian_wire_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        adapters, skeleton = split_lora(attach_lora("llama", params, rank=8, generator=gen,
+                                                    targets=targets))
+        for ab in adapters:   # b nonzero: every a has a live gradient
+            ab["b"] = (torch.randn(ab["b"].shape, generator=gen, device="cuda") * 0.01
+                       ).to(ab["b"].dtype)
+        ids = torch.as_tensor(np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 128)))
+
+        def grads(skel, device, dtype):
+            ads = [{k: v.detach().to(device=device, dtype=dtype).requires_grad_()
+                    for k, v in ab.items()} for ab in adapters]
+            t0 = time.perf_counter()
+            x = ids.to(device)
+            logits = llama.forward(join_lora(skel, ads), cfg, x)
+            loss = F.cross_entropy(logits[:, :-1].flatten(0, 1).float(), x[:, 1:].flatten())
+            loss.backward()
+            out = [(ab["a"].grad.float().cpu(), ab["b"].grad.float().cpu()) for ab in ads]
+            return float(loss.detach()), out, time.perf_counter() - t0
+
+        kernels.reset_launch_counts()
+        card_loss, card, t_card = grads(skeleton, "cuda", torch.bfloat16)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        self.check_path(path, counts)
+        cpu32_loss, cpu32, t32 = grads(_tree_to_cpu(skeleton, torch.float32), "cpu",
+                                       torch.float32)
+        cpu16_loss, cpu16, t16 = grads(_tree_to_cpu(skeleton, torch.bfloat16), "cpu",
+                                       torch.bfloat16)
+
+        def worst(got):
+            return max(float((g - r).norm() / r.norm())
+                       for gg, rr in zip(got, cpu32) for g, r in zip(gg, rr))
+
+        floor, err = worst(cpu16), worst(card)
+        limit = 3 * floor
+        log(f"[lora] 2-layer 7B-width gradient check, adapters on {label} ({len(adapters)}): "
+            f"worst adapter ||g_card - g_cpu32|| / ||g_cpu32|| {err:.3e}; two correct runs (CPU "
+            f"bf16 vs fp32) {floor:.3e}; limit 3x that {limit:.3e}; loss card {card_loss:.5f}, "
+            f"CPU fp32 {cpu32_loss:.5f}, bf16 {cpu16_loss:.5f}; card {t_card:.2f} s, CPU "
+            f"{t32:.1f} / {t16:.1f} s; launches {counts}")
+        if not err <= limit:
+            raise AssertionError(f"lora gradients on the card ({label}) are {err} off the CPU "
+                                 f"fp32 path; two correct runs differ by {floor}")
+        self.report.setdefault("lora_grad_check", {})[label] = {
+            "worst_rel": err, "bf16_vs_fp32": floor, "limit": limit, "launches": counts,
+            "loss": {"card": card_loss, "cpu_fp32": cpu32_loss, "cpu_bf16": cpu16_loss}}
+        del params, adapters, skeleton
+        torch.cuda.empty_cache()
+
     def check_path(self, path, counts):
         """Record one run's launch counts under its path (runs of one path add
         up); fail if a kernel of the path never launched in this run."""
@@ -776,7 +1208,7 @@ class Smoke:
         if missing:
             raise AssertionError(f"{path} path: kernels never launched: {missing}")
 
-    # -- phase 6 ---------------------------------------------------------------
+    # -- phase 8 ---------------------------------------------------------------
     def phase_quantize(self, torch):
         from gptq_for_llama_tpu_torch.cli.main import main as cli
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
@@ -958,7 +1390,7 @@ class Smoke:
             raise AssertionError(f"window NLL card vs CPU: rel {nll_rel}")
         res["window_nll"] = {"card": nll_card, "cpu": nll_cpu, "rel": nll_rel}
 
-    # -- phase 7 ---------------------------------------------------------------
+    # -- phase 9 ---------------------------------------------------------------
     SERVE_LENS = (37, 50, 100, 120, 200, 300, 450, 600, 64, 90, 256, 512)
     SERVE_NEW = 48
 
@@ -1121,12 +1553,14 @@ class Smoke:
         f, layers = eng.forwards, cfg.num_layers
         total = sum(f.values())
         steps = f["decode"] + f["chunk+decode"]
+        fold = not eng.paged and eng.cache_impl == "fold"   # dense decode steps fold
         want = {"rms_norm": (2 * layers + 1) * total, "qmm": 5 * layers * total,
                 "fused_mlp": layers * total,
                 "pool_decode_attention": layers * steps if eng.paged else 0,
-                "decode_attention": 0 if eng.paged else layers * steps,
+                "decode_attention": 0 if eng.paged else layers * (steps - fold * f["decode"]),
                 "flash_prefill_blocked": layers * (f["prefill"] + f["chunk"] + f["chunk+decode"]),
-                "flash_prefill": layers * f["admit"]}
+                "flash_prefill": layers * f["admit"], "qmm_t": 0,
+                "fused_decode_attention": layers * f["decode"] if fold else 0}
         if counts != want:
             raise AssertionError(f"{label}: launches {counts} but the forwards {f} predict {want}")
         tokens = sum(len(r) for r in results.values())
@@ -1332,7 +1766,7 @@ class Smoke:
         self.report["serve"]["cli"] = {"seconds": dt, "stats": stats, "launches": counts,
                                        "compared": compared, "agree": same}
 
-    # -- phase 8 ---------------------------------------------------------------
+    # -- phase 10 --------------------------------------------------------------
     def phase_profile(self, torch):
         from gptq_for_llama_tpu_torch.models.config import ModelConfig
         from gptq_for_llama_tpu_torch.runtime import ModelRunner

@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of gptq_for_llama_tpu for NVIDIA Hopper (H100).
 
-Mirrors the TPU package's module names. Plain tensor code is PyTorch; the
-kernels of the prefill + decode path are hand-written CUDA C++ for sm_90a
-(``csrc/``), built with nvcc at first use (``ops/cuda/build.py``). The package
+Mirrors the TPU package's module names. Plain tensor code is PyTorch; each
+Pallas kernel of the TPU package has a hand-written CUDA C++ counterpart for
+sm_90a (``csrc/``), built with nvcc at first use (``ops/cuda/build.py``). The package
 imports torch and numpy, never jax and nothing of ``gptq_for_llama_tpu``.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -7,7 +7,9 @@ norms and embeddings as arrays, nested in dicts and lists as in
 ``models/llama.py``. Every packed linear is rebuilt through this package's
 own ``PackedLinear.from_wire``, so both packages compute from the same wire
 bytes; dense kernels (in, out) become tensors, so both packages quantize the
-same weights. ``records_from_jax`` / ``record_to_numpy`` carry per-linear
+same weights. A LoRA-adapted linear comes as ``{"base": <linear>, "a": (K, r),
+"b": (r, N), "alpha": float}`` and becomes an ``ops.lora.LoraLinear``, so both
+packages compute with the same adapters. ``records_from_jax`` / ``record_to_numpy`` carry per-linear
 quantization records across as plain numpy fields. The port never imports
 the TPU package.
 """
@@ -19,6 +21,7 @@ import torch
 
 from .engine.quantize import QuantRecord
 from .ops.linear import PackedLinear, dense
+from .ops.lora import LoraLinear
 
 
 def params_from_jax(tree, device, dtype=torch.bfloat16):
@@ -28,6 +31,10 @@ def params_from_jax(tree, device, dtype=torch.bfloat16):
             return PackedLinear.from_wire(tree["qweight"], tree["qzeros"], tree["scales"],
                                           tree["g_idx"], bits=int(tree["bits"]),
                                           bias=tree.get("bias"), dtype=dtype, device=device)
+        if "base" in tree:
+            return LoraLinear(params_from_jax(tree["base"], device, dtype),
+                              _tensor(tree["a"], device, dtype), _tensor(tree["b"], device, dtype),
+                              float(tree["alpha"]))
         if "kernel" in tree:
             bias = tree.get("bias")
             return dense(_tensor(tree["kernel"], device, dtype),

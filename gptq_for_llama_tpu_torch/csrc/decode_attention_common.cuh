@@ -37,6 +37,13 @@
 //    at a stride of Hkv * D * 2 bytes, loaded by 16 threads of 16 bytes as
 //    in the dense cache. Slots past offset[b] and blocks the row does not
 //    own are never loaded.
+//  - fold (fused_decode_attention.cu): query row b attends the STALE prefix,
+//    slots j < offset[b], plus the current token's k/v, which arrive as
+//    separate (B, Hkv, D) inputs and are folded into the online softmax as
+//    one more slot: in the single chunk after its last tile, else in the
+//    combine kernel. With a write requested, the first chunk's block of each
+//    (row, kv head) also stores k/v at slot offset[b] of the caches, in place,
+//    on rows whose write mask is set; no block of the launch reads that slot.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,14 +69,43 @@ struct Cache {
   int S, NB, BS, MB;
 };
 
-template <int G, bool PAGED>
+// The current token of the fold form: k/v (B, Hkv, D); with ``write`` they
+// are also stored at slot offset[b] of k_out / v_out (the dense caches) on
+// rows whose write_mask (B,) is non-zero (null: every row).
+struct Fold {
+  const __nv_bfloat16* k_new;
+  const __nv_bfloat16* v_new;
+  __nv_bfloat16* k_out;
+  __nv_bfloat16* v_out;
+  const uint8_t* write_mask;
+  int write;
+};
+
+// lc[g] = (scaled q of head g) . k_new for the block's G query heads; q in
+// shared memory as fp32 with the scale folded in, k_new the kv head's row.
+template <int G>
+__device__ __forceinline__ void fold_logits(const float* qs, const __nv_bfloat16* kn,
+                                            float* lc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < G; g += kThreads / 32) {
+    float s = 0.0f;
+#pragma unroll
+    for (int d = lane; d < kD; d += 32) s += qs[g * kD + d] * __bfloat162float(kn[d]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) lc[g] = s;
+  }
+  __syncthreads();
+}
+
+template <int G, bool PAGED, bool FOLD>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,    // (B, H, D)
                         const Cache c,
                         const int32_t* __restrict__ offs, int off_scalar,
                         __nv_bfloat16* __restrict__ out,        // (B, H, D)
                         float* __restrict__ part,  // chunk partials, null for one chunk
-                        int Hkv, float scale, int chunk) {
+                        int Hkv, float scale, int chunk, const Fold f) {
   __shared__ __align__(16) __nv_bfloat16 ks[kTile * kKStride];
   __shared__ __align__(16) __nv_bfloat16 vs[kTile * kD];
   __shared__ __align__(16) float qs[G * kD];
@@ -82,7 +118,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,    // (B, H, D)
   const int tid = threadIdx.x;
   int off = offs != nullptr ? offs[b] : off_scalar;
   off = min(max(off, 0), c.S - 1);
-  const int live = off + 1;
+  const int live = FOLD ? off : off + 1;   // fold: the current token is not in the cache
   const int t_begin = blockIdx.z * chunk;        // this block's slots
   const int t_end = blockIdx.z == gridDim.z - 1 ? live : min(live, t_begin + chunk);
 
@@ -97,6 +133,16 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,    // (B, H, D)
   float acc[G];   // output dim d = tid of each query head
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g] = 0.0f;
+
+  if constexpr (FOLD) {
+    // the row write: slot `off` is outside every chunk of this launch
+    if (f.write && blockIdx.z == 0 && (f.write_mask == nullptr || f.write_mask[b] != 0)) {
+      const size_t src = ((size_t)b * Hkv + kvh) * kD + tid;
+      const size_t dst = (((size_t)b * c.S + off) * Hkv + kvh) * kD + tid;
+      f.k_out[dst] = f.k_new[src];
+      f.v_out[dst] = f.v_new[src];
+    }
+  }
 
   const size_t row_stride = (size_t)Hkv * kD;   // elements between cache slots
   const size_t base = (PAGED ? (size_t)0 : (size_t)b * c.S * row_stride) + (size_t)kvh * kD;
@@ -191,6 +237,20 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,    // (B, H, D)
   }
 
   if (part == nullptr) {
+    if constexpr (FOLD) {   // the current token as the last slot
+      __shared__ float lc[G];
+      const size_t row = ((size_t)b * Hkv + kvh) * kD;
+      fold_logits<G>(qs, f.k_new + row, lc);
+      const float vn = __bfloat162float(f.v_new[row + tid]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float m_new = fmaxf(m_s[g], lc[g]);
+        const float corr = __expf(m_s[g] - m_new), p = __expf(lc[g] - m_new);
+        out[((size_t)b * H + (size_t)kvh * G + g) * kD + tid] =
+            __float2bfloat16_rn((acc[g] * corr + p * vn) / (l_s[g] * corr + p));
+      }
+      return;
+    }
 #pragma unroll
     for (int g = 0; g < G; ++g)
       out[((size_t)b * H + (size_t)kvh * G + g) * kD + tid] =
@@ -209,21 +269,38 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,    // (B, H, D)
   }
 }
 
-// Rescales each chunk to the common max and sums them in chunk order.
-template <int G>
+// Rescales each chunk to the common max and sums them in chunk order. The
+// fold form adds the current token (q, k_new, v_new) as one more slot.
+template <int G, bool FOLD>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
-                                int Hkv, int nsplit) {
+                                int Hkv, int nsplit, const __nv_bfloat16* __restrict__ q,
+                                float scale, const Fold f) {
   const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const size_t rows = (size_t)gridDim.y * Hkv * nsplit * G;
   const float* pm = part + rows * kD;
   const float* pl = pm + rows;
   const size_t base = ((size_t)b * Hkv + kvh) * nsplit * G;
+  __shared__ __align__(16) float qs[FOLD ? G * kD : 1];
+  __shared__ float lc[G];
+  float vn = 0.0f;
+  if constexpr (FOLD) {
+    for (int i = tid; i < G * kD; i += kThreads)
+      qs[i] = __bfloat162float(q[((size_t)b * Hkv * G + (size_t)kvh * G) * kD + i]) * scale;
+    __syncthreads();
+    const size_t row = ((size_t)b * Hkv + kvh) * kD;
+    fold_logits<G>(qs, f.k_new + row, lc);
+    vn = __bfloat162float(f.v_new[row + tid]);
+  }
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float mx = -INFINITY;
+    float mx = FOLD ? lc[g] : -INFINITY;
     for (int c = 0; c < nsplit; ++c) mx = fmaxf(mx, pm[base + (size_t)c * G + g]);
     float num = 0.0f, den = 0.0f;
+    if constexpr (FOLD) {
+      num = __expf(lc[g] - mx) * vn;
+      den = __expf(lc[g] - mx);
+    }
     for (int c = 0; c < nsplit; ++c) {
       const size_t r = base + (size_t)c * G + g;
       const float w = __expf(pm[r] - mx);   // 0 for an empty chunk
@@ -234,39 +311,43 @@ decode_attention_combine_kernel(const float* __restrict__ part, __nv_bfloat16* _
   }
 }
 
-template <int G, bool PAGED>
+template <int G, bool PAGED, bool FOLD>
 cudaError_t launch_g(const void* q, const Cache& c, const void* offs, int off_scalar, void* out,
                      void* part, int B, int Hkv, float scale, int nsplit, int chunk,
-                     cudaStream_t stream) {
+                     const Fold& f, cudaStream_t stream) {
   float* p = nsplit > 1 ? static_cast<float*>(part) : nullptr;
-  decode_attention_kernel<G, PAGED><<<dim3(Hkv, B, nsplit), kThreads, 0, stream>>>(
+  decode_attention_kernel<G, PAGED, FOLD><<<dim3(Hkv, B, nsplit), kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), c, static_cast<const int32_t*>(offs), off_scalar,
-      static_cast<__nv_bfloat16*>(out), p, Hkv, scale, nsplit > 1 ? chunk : c.S);
+      static_cast<__nv_bfloat16*>(out), p, Hkv, scale, nsplit > 1 ? chunk : c.S, f);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return e;
-  decode_attention_combine_kernel<G><<<dim3(Hkv, B), kThreads, 0, stream>>>(
-      p, static_cast<__nv_bfloat16*>(out), Hkv, nsplit);
+  decode_attention_combine_kernel<G, FOLD><<<dim3(Hkv, B), kThreads, 0, stream>>>(
+      p, static_cast<__nv_bfloat16*>(out), Hkv, nsplit, static_cast<const __nv_bfloat16*>(q),
+      scale, f);
   return cudaGetLastError();
 }
 
 // nsplit > 1 splits the slots into chunks of `chunk` (a multiple of 64) and
-// needs `part`: B * Hkv * nsplit * G * (D + 2) floats.
-template <bool PAGED>
+// needs `part`: B * Hkv * nsplit * G * (D + 2) floats. FOLD needs f.k_new and
+// f.v_new (and, with f.write, f.k_out and f.v_out).
+template <bool PAGED, bool FOLD = false>
 cudaError_t launch(const void* q, const Cache& c, const void* offs, int off_scalar, void* out,
                    void* part, int B, int Hkv, int G, int D, float scale, int nsplit, int chunk,
-                   cudaStream_t st) {
+                   cudaStream_t st, const Fold& f = Fold{}) {
   if (D != kD || B < 1 || c.S < 1 || Hkv < 1 || nsplit < 1 ||
-      (nsplit > 1 && (part == nullptr || chunk < 1 || chunk % kTile != 0)))
+      (nsplit > 1 && (part == nullptr || chunk < 1 || chunk % kTile != 0)) ||
+      (FOLD && (f.k_new == nullptr || f.v_new == nullptr ||
+                (f.write && (f.k_out == nullptr || f.v_out == nullptr)))))
     return cudaErrorInvalidValue;
   switch (G) {
-    case 1: return launch_g<1, PAGED>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, st);
-    case 2: return launch_g<2, PAGED>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, st);
-    case 3: return launch_g<3, PAGED>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, st);
-    case 4: return launch_g<4, PAGED>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, st);
-    case 5: return launch_g<5, PAGED>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, st);
-    case 6: return launch_g<6, PAGED>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, st);
-    case 7: return launch_g<7, PAGED>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, st);
-    case 8: return launch_g<8, PAGED>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, st);
+    case 1: return launch_g<1, PAGED, FOLD>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 2: return launch_g<2, PAGED, FOLD>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 3: return launch_g<3, PAGED, FOLD>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 4: return launch_g<4, PAGED, FOLD>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 5: return launch_g<5, PAGED, FOLD>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 6: return launch_g<6, PAGED, FOLD>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 7: return launch_g<7, PAGED, FOLD>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 8: return launch_g<8, PAGED, FOLD>(q, c, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
     default: return cudaErrorInvalidValue;
   }
 }

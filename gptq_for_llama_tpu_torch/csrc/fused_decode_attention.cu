@@ -1,0 +1,41 @@
+// Fold decode attention over a dense KV cache: the stale prefix plus the
+// current token's k/v, with an optional in-place write of that token's row.
+//
+// Replaces gptq_for_llama_tpu/ops/pallas/attention.py:_fused_attn_kernel
+// (entry fused_decode_attention). Query row b attends cache slots
+// j < offset[b] and the current token's k/v, softmax in fp32; at offset 0 the
+// output is v_new. With write set, k_new / v_new land at slot offset[b] of
+// the caches on rows whose write_mask is non-zero. The TPU kernel copies the
+// 8-row slab around that slot back over an aliased buffer (a DMA device of
+// the TPU); here one thread block stores the one row.
+//
+// What bounds it on the H100: the bytes of the live cache prefix, as for
+// decode_attention.cu (10 us at 2047 live slots of 7B's 32 heads at
+// 3.35 TB/s); the fold adds one logit and one v row per head. The body is
+// decode_attention_common.cuh's (chunks of 256 slots and a combine kernel,
+// planned from a host-side bound on the live length): the current token is
+// folded in after the single chunk's last tile, or in the combine kernel.
+#include "decode_attention_common.cuh"
+
+extern "C" const char* gptq_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}
+
+// q (B, H, D), k/v (B, S, Hkv, D), k_new/v_new (B, Hkv, D), bf16. offs:
+// device int32 (B,) per-row offsets, or null to use off_scalar for every row.
+// write_mask: device uint8 (B,) or null (every row is written).
+extern "C" int gptq_fused_decode_attention(const void* q, void* k, void* v, const void* k_new,
+                                           const void* v_new, const void* offs, int off_scalar,
+                                           const void* write_mask, int write, void* out,
+                                           void* part, int B, int S, int Hkv, int G, int D,
+                                           float scale, int nsplit, int chunk, void* stream) {
+  const gptq_attn::Cache c{static_cast<const __nv_bfloat16*>(k),
+                           static_cast<const __nv_bfloat16*>(v), nullptr, S, 0, 0, 0};
+  const gptq_attn::Fold f{static_cast<const __nv_bfloat16*>(k_new),
+                          static_cast<const __nv_bfloat16*>(v_new),
+                          static_cast<__nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(v),
+                          static_cast<const uint8_t*>(write_mask), write};
+  return static_cast<int>(gptq_attn::launch<false, true>(q, c, offs, off_scalar, out, part, B,
+                                                         Hkv, G, D, scale, nsplit, chunk,
+                                                         static_cast<cudaStream_t>(stream), f));
+}

@@ -6,10 +6,12 @@ batched admission, the token-fused chunk+decode step). fp32 is used for
 normalization statistics and softmax; everything else runs in the compute
 dtype. RoPE and the cache writes are plain torch, as the TPU package leaves
 them to XLA. RMSNorm and attention on a CUDA tensor always go to a kernel of
-``ops/cuda``: a decode row over a dense cache to the decode kernel, over a
-block pool to the pool kernel, a chunk of queries at a cache offset to the
-blocked prefill kernel, and causal self-attention without a cache to the
-causal prefill kernel.
+``ops/cuda``: a decode row over a dense cache to the decode kernel (or, in
+the fold form, to the fold kernel, which attends the stale prefix plus the
+current token's k/v), over a block pool to the pool kernel, a chunk of
+queries at a cache offset to the blocked prefill kernel, and causal
+self-attention without a cache to the causal prefill kernel, which is also
+the training forward (its gradient, and RMSNorm's, is the plain version's).
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda.attention import attention_plain, decode_attention, pool_decode_attention
+from ..ops.cuda.attention import (attention_plain, decode_attention, fused_decode_attention,
+                                  pool_decode_attention)
 from ..ops.cuda.flash import flash_prefill_blocked
 from ..ops.cuda.flash_prefill import flash_prefill
 from ..ops.cuda.norm import rms_norm  # noqa: F401  (kernel 6 on the card, plain on the CPU)
@@ -104,6 +107,16 @@ def apply_kv_cache(past_kv, k, v):
       (ck, cv, offset[, write_mask[, max_live]])
                                               dense static cache; offset an
                                               int (rows aligned) or (B,)
+      ("fold", ck, cv, offset[, write_mask[, max_live]])
+                                              the same cache, decoded in the
+                                              fold form by ``attention_block``
+                                              (one query token and one new k/v:
+                                              attention over the stale prefix
+                                              plus the current k/v, then the
+                                              row write under the mask; the TPU
+                                              package's GPTQ_TPU_CACHE_IMPL=pallas).
+                                              With more tokens, as the dense
+                                              form
       ("paged", kp, vp, tables, offset[, write_mask[, max_live]])
                                               one layer's block pool
                                               (NB, BS, Hkv, D); runtime/paged.py.
@@ -131,6 +144,8 @@ def apply_kv_cache(past_kv, k, v):
     and the offset declaration for ``sdpa`` (None: causal over k_eff)."""
     if past_kv is None:
         return k, v, (k, v), None
+    if _is_fold(past_kv):
+        past_kv = past_kv[1:]
     tag = past_kv[0] if isinstance(past_kv[0], str) else "dense"
     if tag in ("paged", "fresh_paged", "grouped_paged"):
         from ..runtime.paged import gather_prefix, paged_update_layer
@@ -195,10 +210,33 @@ def _rows(offset, max_live):
     return offset if max_live is None else ("rows", offset, max_live)
 
 
+def _is_fold(past_kv) -> bool:
+    # the type test comes first: a cache tensor compared with a string goes
+    # through the tensor's slow __eq__, on every layer of every decode step
+    return past_kv is not None and isinstance(past_kv[0], str) and past_kv[0] == "fold"
+
+
 def attention_block(past_kv, q, k, v, mask, scale=None):
     """Cache write, then attention over the cache (the classic form):
     returns (attn_out, present). Without a cache, and for a fresh batched
-    admission, the forward is causal over the new tokens."""
+    admission, the forward is causal over the new tokens.
+
+    The fold form ("fold", ck, cv, offset[, write_mask[, max_live]]) with one
+    query token and one new k/v runs the fold kernel over the STALE cache
+    (slots below the offset, the current k/v folded in from registers, no
+    write), then writes the row under the mask: the TPU package's sequence
+    (``models/common.py:247-265``). A row whose mask is false still attends
+    its own current k/v, which the classic form does not. Any other shape
+    takes the dense form."""
+    if _is_fold(past_kv) and q.shape[1] == 1 and k.shape[1] == 1:
+        ck, cv, offset = past_kv[1:4]
+        write_mask = past_kv[4] if len(past_kv) > 4 else None
+        max_live = past_kv[5] if len(past_kv) > 5 else None
+        sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+        out, _, _ = fused_decode_attention(q, ck, cv, k, v, offset, sc, write=False,
+                                           max_live=max_live)
+        ck, cv = update_kv_cache(ck, cv, k, v, offset, write_mask=write_mask)
+        return out, (ck, cv)
     k_eff, v_eff, present, off = apply_kv_cache(past_kv, k, v)
     out = sdpa(q, k_eff, v_eff, mask, scale, decode_offset=off, causal=off is None)
     return out, present

@@ -3,16 +3,18 @@
 Each kernel has a wrapper (``*_cuda``, with a plain-int launch count
 ``.launches`` that it raises by one per kernel launch), a plain PyTorch
 version (``*_plain``) and a dispatching function that takes the plain version
-only for a CPU tensor: a CUDA tensor launches the kernel or raises. Sources
-live in ``gptq_for_llama_tpu_torch/csrc`` and are built by ``build.py`` at
-first use.
+only for a CPU tensor: a CUDA tensor launches the kernel or raises. Where a
+gradient is wanted the dispatches of kernels 1, 2, 5 and 6 run them inside
+autograd Functions, and every wrapper refuses to run outside one
+(``grad.py``). Sources live in ``gptq_for_llama_tpu_torch/csrc`` and are
+built by ``build.py`` at first use.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from . import attention, flash, flash_prefill, matmul, mlp, norm
+from . import attention, flash, flash_prefill, matmul, matmul_t, mlp, norm
 
 
 class Kernel(NamedTuple):
@@ -21,9 +23,11 @@ class Kernel(NamedTuple):
     replaces: str       # file:line of the TPU kernel it replaces
 
 
-# the kernels of the decode path (prefill at a cache offset, then decode
+# every TPU kernel of the repository has its counterpart here: the kernels of
+# the decode path (prefill at a cache offset, then classic or fold decode
 # steps), of the cache-less causal forward (calibration, perplexity, batched
-# admission), of every norm, and of paged serving
+# admission, LoRA training), of every norm, of paged serving, and the
+# grad-input of the packed linears (LoRA backward)
 KERNELS = {
     "qmm": Kernel(matmul.qmm_cuda, matmul.SOURCE, matmul.REPLACES),
     "fused_mlp": Kernel(mlp.fused_mlp_cuda, mlp.SOURCE, mlp.REPLACES),
@@ -36,6 +40,9 @@ KERNELS = {
     "rms_norm": Kernel(norm.rms_norm_cuda, norm.SOURCE, norm.REPLACES),
     "pool_decode_attention": Kernel(attention.pool_decode_attention_cuda,
                                     attention.POOL_SOURCE, attention.POOL_REPLACES),
+    "qmm_t": Kernel(matmul_t.qmm_t_cuda, matmul_t.SOURCE, matmul_t.REPLACES),
+    "fused_decode_attention": Kernel(attention.fused_decode_attention_cuda,
+                                     attention.FOLD_SOURCE, attention.FOLD_REPLACES),
 }
 
 

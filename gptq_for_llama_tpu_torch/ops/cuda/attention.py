@@ -1,5 +1,6 @@
-"""Kernels 3 and 7, decode attention over a dense cache and over a paged block
-pool: dispatch, CUDA wrappers, launch counts and plain versions.
+"""Kernels 3, 7 and 9, decode attention over a dense cache, over a paged block
+pool, and in the fold form: dispatch, CUDA wrappers, launch counts and plain
+versions.
 
 Kernel 3 replaces ``gptq_for_llama_tpu/ops/pallas/attention.py:_attn_kernel``
 and ``:_attn_kernel_gqa`` (entry ``decode_attention``); kernel 7 replaces
@@ -11,6 +12,11 @@ query heads, reading only the live cache prefix (its bound on the H100: those
 bytes); the paged form addresses the pool through the table and builds no
 gathered view. The plain versions are the TPU package's
 ``_xla_decode_fallback``, for the pool after a gather through the tables.
+
+Kernel 9 replaces ``:_fused_attn_kernel`` (entry ``fused_decode_attention``):
+attention over the stale prefix (slots below the offset) plus the current
+token's k/v folded into the online softmax, with an optional in-place write
+of that token's row; the same body (``csrc/fused_decode_attention.cu``).
 """
 
 from __future__ import annotations
@@ -20,12 +26,15 @@ import ctypes
 import torch
 
 from . import build
+from .grad import refuse_grad
 from .matmul import _sm_count, check_tensor
 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "gptq_for_llama_tpu/ops/pallas/attention.py:66"
 POOL_SOURCE = "gptq_for_llama_tpu_torch/csrc/pool_decode_attention.cu"
 POOL_REPLACES = "gptq_for_llama_tpu/ops/pallas/attention.py:412"
+FOLD_SOURCE = "gptq_for_llama_tpu_torch/csrc/fused_decode_attention.cu"
+FOLD_REPLACES = "gptq_for_llama_tpu/ops/pallas/attention.py:191"
 MAX_GROUP = 8   # query heads per kv head the kernel is instantiated for
 TILE = 64       # cache slots per tile
 CHUNK = 256     # live slots one block takes before the slots are split
@@ -98,6 +107,7 @@ def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float,
     if sq != 1 or d != 128 or h % hkv or h // hkv > MAX_GROUP:
         raise ValueError(f"decode attention kernel takes q (B, 1, H, 128) with H/Hkv <= "
                          f"{MAX_GROUP}; got q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     check_tensor(q, "q", torch.bfloat16)
     check_tensor(k_cache, "k_cache", torch.bfloat16, (b, s, hkv, d))
     check_tensor(v_cache, "v_cache", torch.bfloat16, (b, s, hkv, d))
@@ -184,6 +194,7 @@ def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
         raise ValueError(f"pool decode attention kernel takes q (B, 1, H, 128), H/Hkv <= "
                          f"{MAX_GROUP} and bf16 pools whose block size is a multiple of 8; got "
                          f"q {tuple(q.shape)}, pool {tuple(k_pool.shape)} {k_pool.dtype}")
+    refuse_grad("pool_decode_attention", q, k_pool, v_pool)
     check_tensor(q, "q", torch.bfloat16)
     check_tensor(k_pool, "k_pool", torch.bfloat16, (nb, bs, hkv, d))
     check_tensor(v_pool, "v_pool", torch.bfloat16, (nb, bs, hkv, d))
@@ -220,3 +231,107 @@ def pool_decode_attention(q, k_pool, v_pool, tables, offset, scale: float,
     if q.is_cuda:
         return pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale, max_live)
     return pool_decode_attention_plain(q, k_pool, v_pool, tables, offset, scale)
+
+
+# ---------------------------------------------------------------------------
+# kernel 9: the fold form, the current token's k/v from registers
+# ---------------------------------------------------------------------------
+
+def fused_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, offset, scale: float,
+                                 write_mask=None, write: bool = True, max_live=None):
+    """q (B, 1, H, D) attends slots j < offset[b] of (B, S, Hkv, D) caches and
+    the current token's k_new / v_new (B, 1, Hkv, D), softmax in fp32; at
+    offset 0 the output is v_new. With ``write``, k_new / v_new are stored at
+    slot offset[b], in place, on rows whose ``write_mask`` (B,) bool is true
+    (None: every row). The cache at and past each row's offset is never read:
+    whatever it holds, a NaN included, does not reach the output. Returns
+    (out (B, 1, H, D), k_cache, v_cache). ``max_live`` plans the kernel only."""
+    b, s = q.shape[0], k_cache.shape[1]
+    offs = torch.as_tensor(offset, device=q.device).reshape(-1).expand(b).long()
+    kn, vn = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
+    stale = torch.arange(s, device=q.device)[None, :] < offs[:, None]      # (B, S)
+    zero = torch.zeros((), dtype=k_cache.dtype, device=q.device)
+    keep = stale[:, :, None, None]
+    k_all = torch.cat([torch.where(keep, k_cache, zero), kn], dim=1)
+    v_all = torch.cat([torch.where(keep, v_cache, zero), vn], dim=1)
+    live = torch.cat([stale, torch.ones(b, 1, dtype=torch.bool, device=q.device)], dim=1)
+    out = attention_plain(q, k_all, v_all, scale, live[:, None, None, :])
+    if write:   # fixed shapes (no boolean indexing), so a CUDA graph can hold it
+        rows = torch.arange(b, device=q.device)
+        for cache, new in ((k_cache, kn), (v_cache, vn)):
+            row = new[:, 0]
+            if write_mask is not None:
+                keep = ~write_mask.to(q.device).reshape(b, 1, 1)
+                row = torch.where(keep, cache[rows, offs], row)
+            cache[rows, offs] = row
+    return out, k_cache, v_cache
+
+
+def _fold_entry():
+    fn = build.library("fused_decode_attention").gptq_fused_decode_attention
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 6 + [i, p, i, p, p] + [i] * 5 + [ctypes.c_float, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, offset, scale: float,
+                                write_mask=None, write: bool = True,
+                                max_live: int | None = None):
+    """The kernel: q (B, 1, H, 128) bf16, caches (B, S, Hkv, 128) bf16, k_new /
+    v_new (B, 1, Hkv, 128) bf16, offset an int (every row) or an int32 CUDA
+    tensor () / (B,), write_mask None or a (B,) bool CUDA tensor. H / Hkv at
+    most 8; an fp8 cache raises (it comes with the fp8-KV slice). ``max_live``
+    as in ``decode_attention_cuda``: a host int >= max(offset) + 1 that shapes
+    the split plan only. Returns (out, k_cache, v_cache), the caches written
+    in place."""
+    b, sq, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    if sq != 1 or d != 128 or h % hkv or h // hkv > MAX_GROUP:
+        raise ValueError(f"fold decode attention kernel takes q (B, 1, H, 128) with H/Hkv <= "
+                         f"{MAX_GROUP}; got q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
+    refuse_grad("fused_decode_attention", q, k_cache, v_cache, k_new, v_new)
+    check_tensor(q, "q", torch.bfloat16)
+    check_tensor(k_cache, "k_cache", torch.bfloat16, (b, s, hkv, d))
+    check_tensor(v_cache, "v_cache", torch.bfloat16, (b, s, hkv, d))
+    check_tensor(k_new, "k_new", torch.bfloat16, (b, 1, hkv, d))
+    check_tensor(v_new, "v_new", torch.bfloat16, (b, 1, hkv, d))
+    wm = None
+    if write_mask is not None:
+        wm = write_mask.reshape(-1).to(torch.uint8).contiguous()
+        if not wm.is_cuda or wm.shape != (b,):
+            raise ValueError(f"write_mask: expected a (B={b},) CUDA tensor, got "
+                             f"{tuple(write_mask.shape)} on {write_mask.device}")
+    offs, off_scalar = None, 0
+    if isinstance(offset, torch.Tensor):
+        offs = offset.reshape(-1).expand(b).contiguous()
+        check_tensor(offs, "offset", torch.int32, (b,))
+        live = s if max_live is None else min(max(int(max_live), 1), s)
+    else:
+        off_scalar = int(offset)
+        live = max(min(off_scalar, s - 1), 1)   # the stale prefix: slots below the offset
+    nsplit, chunk, part = _plan(b, hkv, h // hkv, live, q)
+    out = torch.empty_like(q)
+    fn = _fold_entry()
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
+             v_new.data_ptr(), None if offs is None else offs.data_ptr(), off_scalar,
+             None if wm is None else wm.data_ptr(), int(bool(write)), out.data_ptr(),
+             None if part is None else part.data_ptr(), b, s, hkv, h // hkv, d, float(scale),
+             nsplit, chunk, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(build.library("fused_decode_attention"), err, "fused_decode_attention")
+    fused_decode_attention_cuda.launches += 1
+    return out, k_cache, v_cache
+
+
+fused_decode_attention_cuda.launches = 0
+
+
+def fused_decode_attention(q, k_cache, v_cache, k_new, v_new, offset, scale: float,
+                           write_mask=None, write: bool = True, max_live: int | None = None):
+    """Fold decode attention (and, with ``write``, the in-place row write):
+    the kernel for a CUDA tensor (a shape it does not take raises), the plain
+    version for a CPU tensor. Returns (out, k_cache, v_cache)."""
+    fn = fused_decode_attention_cuda if q.is_cuda else fused_decode_attention_plain
+    return fn(q, k_cache, v_cache, k_new, v_new, offset, scale, write_mask=write_mask,
+              write=write, max_live=max_live)

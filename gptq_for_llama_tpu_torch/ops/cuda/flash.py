@@ -17,6 +17,7 @@ import torch
 
 from . import build
 from .attention import attention_plain
+from .grad import refuse_grad
 from .matmul import check_tensor
 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/flash_prefill_blocked.cu"
@@ -50,6 +51,7 @@ def flash_prefill_blocked_cuda(q, k, v, q_offset: int, scale: float) -> torch.Te
         raise ValueError(f"blocked prefill kernel takes head_dim 128, H % Hkv == 0 and "
                          f"offset >= 0; got q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"offset {q_offset}")
+    refuse_grad("flash_prefill_blocked", q, k, v)
     check_tensor(q, "q", torch.bfloat16)
     check_tensor(k, "k", torch.bfloat16, (b, skv, hkv, d))
     check_tensor(v, "v", torch.bfloat16, (b, skv, hkv, d))

@@ -7,7 +7,11 @@ calibration forward and the perplexity eval. The kernel is
 ``csrc/flash_prefill.cu`` (bf16 tensor cores, K/V streamed through shared
 memory with an online softmax); it takes any S (the TPU kernel needs
 S % 256 == 0 and K+V of a head in VMEM). The plain version is the fp32 masked
-softmax of ``attention.attention_plain``.
+softmax of ``attention.attention_plain``. Where a gradient is wanted (LoRA
+training) the forward still launches the kernel, inside ``_CausalAttention``,
+whose backward is the plain version's gradient recomputed from the saved
+q/k/v (the TPU package differentiates its XLA softmax; ``flash_prefill`` has
+no VJP there).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from . import build
 from .attention import attention_plain
+from .grad import needs_grad, plain_grads, refuse_grad
 from .matmul import check_tensor
 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/flash_prefill.cu"
@@ -49,6 +54,7 @@ def flash_prefill_cuda(q, k, v, scale: float) -> torch.Tensor:
     if d != 128 or hkv < 1 or h % hkv:
         raise ValueError(f"causal prefill kernel takes head_dim 128 and H % Hkv == 0; "
                          f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    refuse_grad("flash_prefill", q, k, v)
     check_tensor(q, "q", torch.bfloat16)
     check_tensor(k, "k", torch.bfloat16, (b, s, hkv, d))
     check_tensor(v, "v", torch.bfloat16, (b, s, hkv, d))
@@ -66,9 +72,31 @@ def flash_prefill_cuda(q, k, v, scale: float) -> torch.Tensor:
 flash_prefill_cuda.launches = 0
 
 
-def flash_prefill(q, k, v, scale: float) -> torch.Tensor:
-    """Causal self-attention: the kernel for a CUDA tensor, the plain version
-    for a CPU tensor."""
+def _flash_prefill(q, k, v, scale):
     if q.is_cuda:
         return flash_prefill_cuda(q, k, v, scale)
     return flash_prefill_plain(q, k, v, scale)
+
+
+class _CausalAttention(torch.autograd.Function):
+    """Forward through the kernel (the plain version on the CPU); backward:
+    the plain version's gradient, recomputed from the saved q/k/v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _flash_prefill(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_grads(ctx, flash_prefill_plain, g, ctx.scale)
+
+
+def flash_prefill(q, k, v, scale: float) -> torch.Tensor:
+    """Causal self-attention: the kernel for a CUDA tensor, the plain version
+    for a CPU tensor; through ``_CausalAttention`` where a gradient is
+    wanted."""
+    if needs_grad(q, k, v):
+        return _CausalAttention.apply(q, k, v, scale)
+    return _flash_prefill(q, k, v, scale)

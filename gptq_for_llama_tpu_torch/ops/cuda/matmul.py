@@ -16,6 +16,7 @@ from functools import lru_cache
 import torch
 
 from . import build
+from .grad import refuse_grad
 from ..linear import PackedLinear, quant_matmul_plain  # noqa: F401  (the plain version)
 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/qmm.cu"
@@ -87,6 +88,7 @@ def _entry():
 def qmm_cuda(x2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
     """y = x2 @ dequant(lin) + bias on the card. x2: (M, K) bf16, already
     permuted (act-order); returns (M, N) bf16."""
+    refuse_grad("qmm", x2, lin.bias, lin.scales, lin.zeros)
     check_packed(lin, x2)
     if lin.bias is not None:
         check_tensor(lin.bias, "bias", torch.bfloat16, (lin.out_features,))

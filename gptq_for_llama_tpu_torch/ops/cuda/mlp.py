@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .grad import refuse_grad
 from .matmul import _sm_count, check_packed, plan
 from ..linear import PackedLinear, quant_matmul_plain
 
@@ -62,6 +63,7 @@ def fused_mlp_cuda(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> to
     if not supports_fused(gate, up):
         raise ValueError("fused gate/up kernel: gate and up differ in bits, groupsize, "
                          "shape, bias or input permutation")
+    refuse_grad("fused_mlp", x2, gate.scales, gate.zeros, up.scales, up.zeros)
     check_packed(gate, x2)
     check_packed(up, x2)
     m, k, n = x2.shape[0], gate.in_features, gate.out_features

@@ -4,7 +4,10 @@ Replaces ``gptq_for_llama_tpu/ops/pallas/norm.py:_rms_kernel`` (entry
 ``rms_norm_pallas``). The kernel is ``csrc/rms_norm.cu``: one block per row,
 fp32 statistics, ``(x_f32 * r) * w_f32`` rounded once to x's dtype; its bound
 on the H100 is the bytes of x and y. The plain version is the TPU package's
-``models/common.rms_norm``.
+``models/common.rms_norm``. Where a gradient is wanted the forward still
+launches the kernel, inside ``_RmsNorm``, whose backward is the plain
+version's gradient (the TPU package differentiates its XLA norm; there is no
+backward kernel to port).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import ctypes
 import torch
 
 from . import build
+from .grad import needs_grad, plain_grads, refuse_grad
 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/rms_norm.cu"
 REPLACES = "gptq_for_llama_tpu/ops/pallas/norm.py:20"
@@ -40,6 +44,7 @@ def rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Te
     """The kernel: x (..., H) bf16 or fp32, contiguous; weight (H,) bf16 or
     fp32. Any number of rows and any H up to 58,112 (the row is staged in
     shared memory as fp32)."""
+    refuse_grad("rms_norm", x, weight)
     h = x.shape[-1]
     if x.dtype not in _DTYPES or weight.dtype not in _DTYPES:
         raise TypeError(f"RMSNorm kernel takes bf16 or fp32, got x {x.dtype}, "
@@ -68,9 +73,31 @@ def rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Te
 rms_norm_cuda.launches = 0
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm: the kernel for a CUDA tensor, the plain version for a CPU
-    tensor."""
+def _rms_norm(x, weight, eps):
     if x.is_cuda:
         return rms_norm_cuda(x if x.is_contiguous() else x.contiguous(), weight, eps)
     return rms_norm_plain(x, weight, eps)
+
+
+class _RmsNorm(torch.autograd.Function):
+    """Forward through the kernel (the plain version on the CPU); backward:
+    the plain version's gradient, recomputed from the saved x and weight with
+    fp32 statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_norm(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_grads(ctx, rms_norm_plain, g, ctx.eps)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm: the kernel for a CUDA tensor, the plain version for a CPU
+    tensor; through ``_RmsNorm`` where a gradient is wanted."""
+    if needs_grad(x, weight):
+        return _RmsNorm.apply(x, weight, eps)
+    return _rms_norm(x, weight, eps)

@@ -25,6 +25,7 @@ import torch
 
 from .. import resolve_device
 from ..quant import packing
+from .lora import LoraLinear, lora_apply
 
 
 @dataclasses.dataclass
@@ -148,9 +149,12 @@ def quant_matmul_plain(x, lin: PackedLinear, dtype=torch.bfloat16):
 
 
 def linear_apply(lin, x, dtype=None):
-    """Apply a dense ({'kernel': (K, N), 'bias': ...}) or packed linear.
-    The compute dtype follows the activation unless overridden."""
+    """Apply a dense ({'kernel': (K, N), 'bias': ...}), packed, or
+    LoRA-adapted (``ops/lora.LoraLinear`` wrapping either) linear. The
+    compute dtype follows the activation unless overridden."""
     dtype = dtype or x.dtype
+    if isinstance(lin, LoraLinear):
+        return lora_apply(lin, x, dtype)
     if isinstance(lin, PackedLinear):
         from .quant_matmul import quant_matmul
         return quant_matmul(x, lin, dtype=dtype)

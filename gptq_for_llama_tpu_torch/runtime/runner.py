@@ -43,10 +43,18 @@ class ModelRunner:
 
     ``params`` must already live on ``device`` (see ``convert.params_from_jax``
     and ``runtime.random_model``). The cache passed to ``prefill``/``decode``
-    is updated in place: start every sequence from ``init_cache()``."""
+    is updated in place: start every sequence from ``init_cache()``.
+
+    ``cache_impl``: "classic" writes each step's k/v and then attends the
+    cache (the decode kernel); "fold" decodes every one-token step through the
+    fold kernel, over the stale cache with the current k/v folded in, and
+    then writes the row (the TPU package's GPTQ_TPU_CACHE_IMPL=pallas).
+    Prefills are the same in both."""
 
     def __init__(self, arch_name: str, cfg, params, batch_size: int = 1,
-                 max_seq_len: Optional[int] = None, dtype=torch.bfloat16, device=None):
+                 max_seq_len: Optional[int] = None, dtype=torch.bfloat16, device=None,
+                 cache_impl: str = "classic"):
+        self.cache_impl = check_cache_impl(cache_impl)
         self.device = resolve_device(device)
         self.arch = get_arch(arch_name)
         self.arch_name = arch_name
@@ -75,9 +83,10 @@ class ModelRunner:
         positions = torch.arange(off, off + s, device=self.device)[None, :]
         rope = arch.step_rope(cfg, positions, self.dtype)
         x = arch.embed(self.params, cfg, ids).to(self.dtype)
+        fold = ("fold",) if self.cache_impl == "fold" else ()
         for li, lp in enumerate(self.params["layers"]):
             x, _, _ = arch.layer(cfg, lp, x, positions, None,
-                                 (cache.k[li], cache.v[li], off), rope=rope)
+                                 (*fold, cache.k[li], cache.v[li], off), rope=rope)
         logits = arch.head(self.params, cfg, x)
         return logits, KVCache(cache.k, cache.v, off + s)
 
@@ -119,6 +128,13 @@ class ModelRunner:
         ids = torch.zeros((self.batch, 1), dtype=torch.long, device=self.device)
         self.decode(ids, self.init_cache())
         _sync(self.device)
+
+
+def check_cache_impl(cache_impl: str) -> str:
+    """The dense decode step's form: "classic" or "fold"."""
+    if cache_impl not in ("classic", "fold"):
+        raise ValueError(f"cache_impl must be 'classic' or 'fold', got {cache_impl!r}")
+    return cache_impl
 
 
 def _sync(device: torch.device) -> None:

@@ -38,7 +38,7 @@ import torch
 
 from .. import resolve_device
 from ..models.registry import get_arch
-from .runner import sample_logits
+from .runner import check_cache_impl, sample_logits
 
 
 @dataclasses.dataclass
@@ -81,7 +81,8 @@ class ServingEngine:
                  num_blocks: Optional[int] = None, prefill_chunk: Optional[int] = None,
                  decode_span: int = 1, fused_chunk_decode: bool = True,
                  admit_batch_max: int = 128, mesh=None, shard_map_tp: bool = False,
-                 fuse_qkv: bool = False, kv_dtype=None, device=None, seed: int = 0):
+                 fuse_qkv: bool = False, kv_dtype=None, device=None, seed: int = 0,
+                 cache_impl: str = "classic"):
         for given, what in ((mesh is not None or shard_map_tp, "tensor-parallel serving (A18)"),
                             (fuse_qkv, "fuse_qkv (A4)"),
                             (kv_dtype not in (None, dtype),
@@ -135,6 +136,11 @@ class ServingEngine:
         # up to this bucket size (beyond it the forward's B * bucket rows,
         # most of them padding or write-masked, outweigh the saved forwards)
         self.admit_batch_max = int(admit_batch_max)
+        # "fold": every dense decode step (single steps and spans) attends the
+        # stale cache with the current k/v folded in, then writes the live
+        # rows (ModelRunner's cache_impl); prefills, the fused chunk+decode
+        # step and paged mode keep their forms
+        self.cache_impl = check_cache_impl(cache_impl)
         self.slots = [_Slot() for _ in range(batch_slots)]
         self.queue: list[GenRequest] = []
         self.results: dict[int, np.ndarray] = {}
@@ -173,7 +179,8 @@ class ServingEngine:
             # write-mask: the step decodes EVERY slot; non-live slots (retired,
             # or mid-chunked-prefill) must not clobber their cache rows
             if tables is None:
-                return (k[li], v[li], off, live, max_live)
+                fold = ("fold",) if self.cache_impl == "fold" else ()
+                return (*fold, k[li], v[li], off, live, max_live)
             return ("paged", k[li], v[li], tables, off, live, max_live)
 
         x = self._forward(toks, off[:, None].long(), past)

@@ -375,3 +375,221 @@ def test_serving_engine_on_the_card(card):
         for uid in range(len(prompts)):
             assert len(dense[uid]) == 12
             np.testing.assert_array_equal(paged[uid], dense[uid], err_msg=f"{kw} request {uid}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,m,k,n,gs,actorder", [
+    (4, 1, 512, 256, 128, False), (4, 37, 1024, 264, 128, True), (2, 130, 512, 256, 64, False),
+    (8, 9, 512, 520, 128, False), (3, 200, 512, 256, 128, False), (4, 5, 520, 256, 40, False),
+    (4, 300, 1024, 128, 1024, False)])
+def test_qmm_t_matches_plain(card, bits, m, k, n, gs, actorder):
+    """Kernel 8 (through the dispatch, inverse perm included) against the
+    plain version on the card: every output row within 2e-2 of its norm. The
+    kernel's dequantized weight is bit-equal to the plain one; the products
+    accumulate in another order, and the plain matmul rounds to bf16."""
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import quant_matmul_t, quant_matmul_t_plain
+    lin = _linear(k, n, bits, gs, seed=m, device=card, actorder=actorder)
+    g = torch.randn(m, n, device=card).bfloat16()
+    kernels.reset_launch_counts()
+    got = quant_matmul_t(g, lin)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qmm_t"] == 1 and got.shape == (m, k)
+    want = quant_matmul_t_plain(g, lin)
+    if lin.perm is not None:
+        want = want[:, torch.argsort(lin.perm)]
+    assert _rows_close(got, want, 2e-2)
+
+
+def _fold_case(card, b, s, h, hkv, offs, seed=0):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=card).bfloat16()
+    q, kn, vn = r(b, 1, h, 128), r(b, 1, hkv, 128), r(b, 1, hkv, 128)
+    ck, cv = r(b, s, hkv, 128), r(b, s, hkv, 128)
+    off = torch.tensor(offs, dtype=torch.int32, device=card)
+    dead = (torch.arange(s, device=card)[None, :] >= off[:, None])[:, :, None, None]
+    ck, cv = ck.masked_fill(dead, float("nan")), cv.masked_fill(dead, float("nan"))
+    return q, ck, cv, kn, vn, off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,offs", [
+    (1, 64, 8, 8, (0,)), (2, 300, 8, 2, (5, 299)), (3, 2048, 12, 4, (0, 700, 2047)),
+    (8, 2048, 32, 32, (37, 150, 300, 511, 512, 900, 1200, 1500))])
+def test_fused_decode_attention_matches_plain(card, b, s, h, hkv, offs):
+    """Kernel 9 against its plain version over caches that hold NaN at and
+    past each row's offset: every output row within 1e-2 of its norm, no NaN,
+    and after the write under a mixed mask the caches byte-equal the plain
+    version's. A host int offset, per-row offsets with and without the
+    host-side bound, write and no write."""
+    from gptq_for_llama_tpu_torch.ops.cuda.attention import (fused_decode_attention,
+                                                             fused_decode_attention_plain)
+    q, ck, cv, kn, vn, off = _fold_case(card, b, s, h, hkv, offs)
+    mask = torch.arange(b, device=card) % 2 == 0
+    wk, wv = ck.clone(), cv.clone()
+    want, _, _ = fused_decode_attention_plain(q, wk, wv, kn, vn, off, 0.09, write_mask=mask)
+    assert torch.isfinite(want.float()).all()
+    kernels.reset_launch_counts()
+    for max_live in (None, max(offs) + 1):
+        got, _, _ = fused_decode_attention(q, ck, cv, kn, vn, off, 0.09, write=False,
+                                           max_live=max_live)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all() and _rows_close(got, want, 1e-2)
+    got, gk, gv = fused_decode_attention(q, ck, cv, kn, vn, off, 0.09, write_mask=mask)
+    torch.cuda.synchronize()
+    assert gk is ck and _rows_close(got, want, 1e-2)
+    assert torch.equal(ck.view(torch.int16), wk.view(torch.int16))
+    assert torch.equal(cv.view(torch.int16), wv.view(torch.int16))
+    if len(set(offs)) == 1:   # a host int, as the runner passes it
+        got, _, _ = fused_decode_attention(q, ck, cv, kn, vn, offs[0], 0.09, write=False)
+        assert _rows_close(got, want, 1e-2)
+    assert kernels.launch_counts()["fused_decode_attention"] == 3 + (len(set(offs)) == 1)
+    assert kernels.launch_counts()["decode_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_fold_runner_on_the_card(card):
+    """A fold runner, teacher-forced with the classic runner's greedy tokens
+    on a narrow model with head_dim 128: the same logits (every row within
+    2e-2 of its norm: the current token enters the softmax in another
+    order), kernel 9 launched on every decode step of every layer and kernel
+    3 never."""
+    from gptq_for_llama_tpu_torch.models import llama
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
+    cfg = ModelConfig(arch="llama", vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=2, num_kv_heads=2, head_dim=128, max_seq_len=128)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, dtype=torch.bfloat16, device=card)
+    prompt = np.random.RandomState(0).randint(1, 512, size=20)
+    classic = ModelRunner("llama", cfg, params, max_seq_len=128, device=card)
+    toks = torch.as_tensor(generate(classic, prompt, max_new_tokens=12, temperature=0.0),
+                           device=card)
+    logits = {}
+    for impl in ("classic", "fold"):
+        runner = ModelRunner("llama", cfg, params, max_seq_len=128, device=card, cache_impl=impl)
+        lg, cache = runner.prefill(toks[:, :20], runner.init_cache())
+        kernels.reset_launch_counts()
+        rows = []
+        for i in range(20, toks.shape[1]):
+            lg, cache = runner.decode(toks[:, i:i + 1], cache)
+            rows.append(lg[0, -1])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        steps = (toks.shape[1] - 20) * cfg.num_layers
+        assert counts["fused_decode_attention"] == (steps if impl == "fold" else 0)
+        assert counts["decode_attention"] == (0 if impl == "fold" else steps)
+        logits[impl] = torch.stack(rows)
+    assert _rows_close(logits["fold"], logits["classic"], 2e-2)
+
+
+def _grads(fn, *xs):
+    xs = [x.detach().requires_grad_() for x in xs]
+    y = fn(*xs)
+    gen = torch.Generator(device=y.device)
+    gen.manual_seed(0)
+    # a contiguous cotangent: randn_like would follow y's strides, which
+    # differ between the kernel's output and the plain version's
+    c = torch.randn(y.shape, generator=gen, device=y.device).to(y.dtype)
+    return torch.autograd.grad(y, xs, c)
+
+
+@pytest.mark.cuda
+def test_autograd_functions_match_plain_on_card(card):
+    """Each kernel's autograd Function (the forward launches the kernel, the
+    backward is kernel 8 or the plain gradient) against the plain versions'
+    own autograd on the same card tensors: every gradient within 2e-2 of the
+    largest value (bf16 operands, the products accumulate in another order)."""
+    from gptq_for_llama_tpu_torch.ops.quant_matmul import fused_gate_up
+    lin = _linear(512, 256, 4, 128, seed=1, device=card, actorder=True)
+    gate = _linear(256, 384, 4, 128, seed=2, device=card)
+    up = _linear(256, 384, 4, 128, seed=3, device=card)
+    x = torch.randn(2, 9, 512, device=card).bfloat16()
+    x2 = torch.randn(2, 9, 256, device=card).bfloat16()
+    w = (1 + 0.1 * torch.randn(256, device=card)).bfloat16()
+    q = torch.randn(1, 70, 4, 128, device=card).bfloat16()
+    kv = torch.randn(1, 70, 2, 128, device=card).bfloat16()
+    cases = [
+        (lambda t: quant_matmul(t, lin), lambda t: quant_matmul_plain(t, lin), (x,), "qmm_t", 1),
+        (lambda t: fused_gate_up(gate, up, t, "silu"),
+         lambda t: fused_mlp_plain(t, gate, up), (x2,), "qmm_t", 2),
+        (lambda t, ww: rms_norm(t, ww, 1e-6), lambda t, ww: rms_norm_plain(t, ww, 1e-6),
+         (x2, w), "rms_norm", 1),
+        (lambda a, b, c: flash_prefill(a, b, c, 0.09),
+         lambda a, b, c: flash_prefill_plain(a, b, c, 0.09), (q, kv, kv.flip(1)),
+         "flash_prefill", 1)]
+    for fn, plain, xs, kernel, launches in cases:
+        kernels.reset_launch_counts()
+        got = _grads(fn, *xs)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[kernel] == launches, kernel
+        for a, b in zip(got, _grads(plain, *xs)):
+            assert _close(a, b, 2e-2), kernel
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_to_drop_a_gradient(card):
+    """A wrapper fed a tensor that requires grad, outside its Function and
+    with grad mode on, raises; under no_grad it runs."""
+    from gptq_for_llama_tpu_torch.ops.cuda.attention import (decode_attention_cuda,
+                                                             fused_decode_attention_cuda)
+    from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill_cuda
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import qmm_t_cuda
+    from gptq_for_llama_tpu_torch.ops.cuda.norm import rms_norm_cuda
+    lin = _linear(256, 128, 4, 128, seed=0, device=card)
+    x = torch.randn(3, 256, device=card).bfloat16().requires_grad_()
+    g = torch.randn(3, 128, device=card).bfloat16().requires_grad_()
+    q = torch.randn(1, 1, 8, 128, device=card).bfloat16().requires_grad_()
+    c = torch.randn(1, 16, 8, 128, device=card).bfloat16()
+    calls = [lambda: qmm_cuda(x, lin), lambda: qmm_t_cuda(g, lin),
+             lambda: rms_norm_cuda(x, x[0].detach(), 1e-6),
+             lambda: flash_prefill_cuda(q, q, q, 0.1),
+             lambda: decode_attention_cuda(q, c, c, 3, 0.1),
+             lambda: fused_decode_attention_cuda(q, c, c, c[:, :1], c[:, :1], 3, 0.1)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="gradient"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+@pytest.mark.cuda
+def test_lora_gradient_check_fails_on_a_planted_kernel_8_fault(card, tmp_path):
+    """chip_smoke.py's 2-layer 7B-width LoRA gradient check has teeth: a copy
+    of the port whose kernel 8 reads the scale and zero of the next group
+    (built from scratch in a temporary directory) fails it. Prints the
+    check's reading (run with -s or -rA to see it)."""
+    import pathlib
+    import shutil
+    import subprocess
+    import sys
+    import textwrap
+    root = pathlib.Path(__file__).resolve().parents[1]
+    shutil.copytree(root / "gptq_for_llama_tpu_torch", tmp_path / "gptq_for_llama_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(root / "chip_smoke.py", tmp_path)
+    src = tmp_path / "gptq_for_llama_tpu_torch" / "csrc" / "qmm_t.cu"
+    text, good = src.read_text(), "int gi = min(r0 / groupsize, G - 1);"
+    assert text.count(good) == 1
+    src.write_text(text.replace(good, "int gi = min(r0 / groupsize + 1, G - 1);"))
+    code = textwrap.dedent("""
+        import torch
+        import chip_smoke
+        smoke = chip_smoke.Smoke()
+        smoke.phase_card(torch)
+        smoke.phase_build(torch)
+        try:
+            smoke._lora_grad_check(torch, None, "all seven linears, kernel 8 off by a group",
+                                   "lora")
+        except AssertionError as e:
+            print("planted fault caught:", e)
+            raise SystemExit(0)
+        raise SystemExit(1)
+    """)
+    run = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=900)
+    print(run.stdout[-4000:], run.stderr[-4000:])
+    assert run.returncode == 0 and "planted fault caught" in run.stdout

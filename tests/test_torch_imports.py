@@ -40,11 +40,12 @@ def test_no_jax_or_tpu_package_import(path):
 
 
 def test_port_covers_the_four_kernels():
-    """Named for the first slice's four kernels; the port now has seven, one
-    CUDA source each, every one naming the TPU kernel it replaces."""
+    """Named for the first slice's four kernels; the port now has all nine of
+    the TPU package's (every function that reaches pl.pallas_call), one CUDA
+    source each, every one naming the TPU kernel it replaces."""
     from gptq_for_llama_tpu_torch.ops import cuda
     from gptq_for_llama_tpu_torch.ops.cuda import build
-    assert len(cuda.KERNELS) == 7 and set(cuda.KERNELS) == set(build.SOURCES)
+    assert len(cuda.KERNELS) == 9 and set(cuda.KERNELS) == set(build.SOURCES)
     replaced = set()
     for name, kernel in cuda.KERNELS.items():
         assert kernel.source.endswith(f"csrc/{name}.cu"), kernel.source
@@ -54,9 +55,19 @@ def test_port_covers_the_four_kernels():
             assert f.readlines()[int(line) - 1].startswith("def "), kernel.replaces
         replaced.add(kernel.replaces)
         assert isinstance(kernel.wrapper.launches, int)
-    assert len(replaced) == 7
+    assert len(replaced) == 9
     cuda.reset_launch_counts()
     assert set(cuda.launch_counts().values()) == {0}
+
+
+def test_new_modules_import_without_a_card():
+    """The modules of the LoRA and fold paths import on a machine without a
+    card or nvcc (kernels are built at first launch, never at import)."""
+    import importlib
+    for name in ("ops.lora", "ops.cuda.matmul_t", "engine.lora", "ops.quant_matmul",
+                 "models.common", "runtime.runner", "runtime.serve"):
+        importlib.import_module(f"gptq_for_llama_tpu_torch.{name}")
+    from gptq_for_llama_tpu_torch.engine import attach_lora, join_lora, split_lora  # noqa: F401
 
 
 def test_build_raises_without_nvcc():
