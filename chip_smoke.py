@@ -257,6 +257,8 @@ class Smoke:
         self.report = {"kernels": {}}
         self.entries = {}   # kernel name -> JSON entry
         self.serve_entries = {}   # kernel name -> the same at its serving shape
+        self.paths = {}     # "kernel shape" -> kernel 1's path on that row
+        self.sq2048 = None  # kernel 4 and kernel 5 at SQ = SKV = 2048, offset 0
         self.tmp = None     # scratch directory of the quantize and serve phases
         self.model7b = None  # (cfg, params) of the full phase, served again
 
@@ -296,26 +298,29 @@ class Smoke:
 
     # -- phase 3 ---------------------------------------------------------------
     def _record(self, kernel, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops, main=False,
-                row_rel=None, ref_max=None, ulps=None, serve=False):
+                row_rel=None, ref_max=None, ulps=None, serve=False, path=None, extra=None):
         """One kernel row. The check is ``err <= tol``; where ``row_rel`` (the
         per-row relative error) is given, ``row_rel <= tol``; where ``ulps``
         (the distance in bf16 units of the last place) is given, ``ulps <= tol``.
         ``main`` marks the kernel's row of the kernels line, ``serve`` the row
         at the shape of the serving decode step (or, for the prefill kernels,
-        of a serving chunk or admission), printed beside it."""
+        of a serving chunk or admission), printed beside it. ``path`` names
+        kernel 1's path (``gemv`` or ``tile``); ``extra`` adds measured keys."""
         b_ms, b_by = bound(nbytes, flops)
         checked = ulps if ulps is not None else err if row_rel is None else row_rel
         ok = checked <= tol
         row = {"shape": shape, "max_abs_err": err, "row_rel_err": row_rel, "max_abs_ref": ref_max,
                "bf16_ulps": ulps, "tol": tol, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "flops": flops, "ok": ok}
+               "flops": flops, "ok": ok, "path": path, **(extra or {})}
         self.report["kernels"].setdefault(kernel, []).append(row)
+        if path is not None:
+            self.paths[f"{kernel} {shape}"] = path
         what = (f"max_abs_err {err:.3e}, {ulps} bf16 ulp (tol {tol})" if ulps is not None else
                 f"max_abs_err {err:.3e} (tol {tol:.3e})" if row_rel is None else
                 f"max_abs_err {err:.3e}, max|plain| {ref_max:.3e}, worst row rel {row_rel:.3e} "
                 f"(tol {tol:.3e})")
-        log(f"[kernel {kernel}] {shape}: {what} "
+        log(f"[kernel {kernel}] {shape}{'' if path is None else f' [{path}]'}: {what} "
             f"{'ok' if ok else 'FAIL'} | kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
             f"library {'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
             f"bound {b_ms * 1e3:.2f} us ({b_by}) | {self.card}")
@@ -323,7 +328,7 @@ class Smoke:
             raise AssertionError(f"{kernel} {shape}: kernel disagrees with its plain version "
                                  f"({checked} > {tol})")
         entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": lib_ms, "shape": shape}
+                 "bound_by": b_by, "library_ms": lib_ms, "shape": shape, "path": path}
         if main:
             self.entries[kernel] = entry
         if serve:
@@ -347,6 +352,7 @@ class Smoke:
             decode_attention_cuda, decode_attention_plain)
         from gptq_for_llama_tpu_torch.ops.cuda.flash import (
             flash_prefill_blocked_cuda, flash_prefill_blocked_plain)
+        from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill_cuda
         from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
         from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp_cuda, fused_mlp_plain
         from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
@@ -373,6 +379,7 @@ class Smoke:
             for m in ms_of:
                 x = randn(m, k)
                 y = qmm_cuda(x, lin)
+                path = qmm_cuda.last_path
                 ref = quant_matmul_plain(x, lin, bf)
                 err = (y.float() - ref.float()).abs().max().item()
                 tol = 2e-2 * ref.float().abs().max().item()
@@ -384,8 +391,23 @@ class Smoke:
                 nbytes = m * k * 2 + self._lin_bytes(lin) + m * n * 2
                 self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
                              2 * m * k * n, main=(what == "q_proj" and m == 1),
-                             serve=(what == "q_proj" and m == 8))
+                             serve=(what == "q_proj" and m == 8), path=path)
+            # both paths forced at the decode rows and just above: the crossover
+            for m in (2, 4, 8, 16):
+                x = randn(m, k)
+                ref = quant_matmul_plain(x, lin, bf)
+                tol = 2e-2 * ref.float().abs().max().item()
+                for path in ("gemv", "tile"):
+                    err = (qmm_cuda(x, lin, path=path).float() - ref.float()).abs().max().item()
+                    ms = graph_ms(torch, [lambda l=l, p=path: qmm_cuda(x, l, path=p)
+                                          for l in lins])
+                    pms = graph_ms(torch, [lambda: quant_matmul_plain(x, lin, bf)], iters=2)
+                    lms = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wdq])
+                    self._record("qmm", f"{what} {k}x{n} M={m} ({path} forced)", err, tol, ms, pms,
+                                 lms, m * k * 2 + self._lin_bytes(lin) + m * n * 2,
+                                 2 * m * k * n, path=path)
             del lins, wdq
+        self._qmm_tile_cases(torch, rng)
         # kernel 2: same tolerance and reason, per branch before the epilogue
         k, n = 4096, 11008
         gates = self._linears(torch, rng, k, n, copies_for(k * n))
@@ -480,10 +502,20 @@ class Smoke:
                 for c in caches], iters=iters)
             pairs = sum(off + i + 1 for i in range(sq))
             nbytes = 2 * b * sq * h * d * 2 + b * (off + sq) * hkv * d * 2 * 2
+            extra = None
+            if sq == skv and off == 0:   # kernel 5 computes the same function: same run, same inputs
+                k5 = graph_ms(torch, [lambda c=c: flash_prefill_cuda(q, c[0], c[1], d ** -0.5)
+                                      for c in caches], iters=iters)
+                extra = {"kernel5_ms": k5}
+                self.sq2048 = {"shape": f"B={b} SQ=SKV={sq} H={h} offset 0", "ms": ms,
+                               "kernel5_ms": k5, "library_ms": lms}
+                log(f"[kernel flash_prefill_blocked] SQ=SKV={sq} offset 0: kernel 4 "
+                    f"{ms * 1e3:.2f} us, kernel 5 {k5 * 1e3:.2f} us at the same shape "
+                    f"({ms / k5:.3f}x) | {self.card}")
             self._record("flash_prefill_blocked", f"B={b} SQ={sq} H={h} Hkv={hkv} "
                          f"SKV={skv} offset={off}", err, 1e-2, ms, pms, lms, nbytes,
                          4 * b * h * pairs * d, main=(sq == 100 and off == 0), row_rel=rel,
-                         ref_max=ref_max, serve=(sq == 128 and skv == 256))
+                         ref_max=ref_max, serve=(sq == 128 and skv == 256), extra=extra)
             del caches
         self._kernel5(torch, F, randn)
         self._kernel6(torch, F, randn)
@@ -492,6 +524,50 @@ class Smoke:
         self._kernel9(torch, F, randn)
         self._ppl_eval_linears(torch, rng, randn)
         torch.cuda.synchronize()
+
+    def _qmm_tile_cases(self, torch, rng):
+        """Kernel 1's tile path on ragged cases through the dispatch, held to
+        the plain version at 2e-2 * max|y| (no timing): 2, 4 and 8 bits and
+        wire INT3; groupsize 40 (at 2 bits a group boundary inside a packed
+        word), a ragged K slab (520, 560), G = 1, groupsize 6 (scales from
+        device memory); act-order, a bias, a ragged column tile and N = 11008;
+        row tiles of 64 (M = 40), 128 (M = 100, 512) and 256 (M = 130, 200,
+        256)."""
+        from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+        from gptq_for_llama_tpu_torch.ops.linear import PackedLinear, quant_matmul_plain
+        from gptq_for_llama_tpu_torch.ops.quant_matmul import quant_matmul
+        from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_linear
+        rows = []
+        for bits, m, k, n, gs, actorder, bias in (
+                (4, 100, 1024, 512, 128, False, False), (2, 130, 1024, 256, 64, False, False),
+                (8, 512, 512, 264, 128, False, False), (3, 130, 512, 256, 128, False, False),
+                (4, 100, 520, 256, 40, False, False), (2, 130, 560, 256, 40, False, False),
+                (4, 512, 1024, 256, 1024, False, False), (4, 130, 1024, 256, 128, True, False),
+                (4, 100, 1024, 256, 128, False, True), (4, 130, 4096, 11008, 128, False, False),
+                (4, 100, 512, 128, 6, False, False), (8, 512, 1024, 512, 32, True, True),
+                (4, 40, 520, 256, 40, False, True), (8, 200, 1024, 264, 128, True, False),
+                (2, 256, 560, 512, 40, True, True)):
+            w = random_wire_linear(rng, k, n, gs, bits)
+            if actorder:
+                w["g_idx"] = w["g_idx"][rng.permutation(k)]
+            lin = PackedLinear.from_wire(w["qweight"], w["qzeros"], w["scales"], w["g_idx"],
+                                         bits=bits, bias=rng.randn(n) if bias else None,
+                                         dtype=torch.bfloat16, device="cuda")
+            x = torch.as_tensor(rng.randn(m, k), dtype=torch.bfloat16, device="cuda")
+            y = quant_matmul(x, lin)
+            path = qmm_cuda.last_path
+            ref = quant_matmul_plain(x, lin)
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 2e-2 * ref.float().abs().max().item()
+            what = (f"bits {bits} M={m} K={k} N={n} groupsize {gs}"
+                    f"{' act-order' if actorder else ''}{' bias' if bias else ''}")
+            ok = path == "tile" and bool(torch.isfinite(y.float()).all()) and err <= tol
+            log(f"[kernel qmm] tile case {what} [{path}]: max_abs_err {err:.3e} (tol {tol:.3e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"qmm tile case {what}: path {path}, error {err} > {tol}")
+            rows.append({"case": what, "path": path, "max_abs_err": err, "tol": tol})
+        self.report["qmm_tile_cases"] = rows
 
     def _kernel5(self, torch, F, randn):
         """Kernel 5 at the shapes of 7B quantization and eval: one window, the
@@ -799,6 +875,7 @@ class Smoke:
             lin = self._linears(torch, rng, k, n, 1)[0]
             x = randn(m, k)
             y = qmm_cuda(x, lin)
+            path = qmm_cuda.last_path
             ref = quant_matmul_plain(x, lin, bf)
             err = (y.float() - ref.float()).abs().max().item()
             tol = 2e-2 * ref.float().abs().max().item()
@@ -808,7 +885,7 @@ class Smoke:
             lms = graph_ms(torch, [lambda: torch.matmul(x, wdq)], iters=2)
             nbytes = m * k * 2 + self._lin_bytes(lin) + m * n * 2
             self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
-                         2 * m * k * n)
+                         2 * m * k * n, path=path)
             del x, y, ref, wdq
         k, n = 4096, 11008
         gate, up = (self._linears(torch, rng, k, n, 1)[0] for _ in range(2))
@@ -1833,6 +1910,11 @@ class Smoke:
                          "plain_ms": e.get("plain_ms"), "bound_ms": e.get("bound_ms"),
                          "bound_by": e.get("bound_by"), "library_ms": e.get("library_ms"),
                          "shape": e.get("shape"), "serve": self.serve_entries.get(name)})
+            if name == "qmm":   # the path of every kernel-1 row
+                rows[-1]["paths"] = {k[len("qmm "):]: p for k, p in self.paths.items()
+                                     if k.startswith("qmm ")}
+            if name == "flash_prefill_blocked":
+                rows[-1]["sq2048"] = self.sq2048
         return json.dumps({"kernels": rows})
 
 

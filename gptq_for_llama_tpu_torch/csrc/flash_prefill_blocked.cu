@@ -1,167 +1,26 @@
-// Blocked-KV prefill attention with online softmax (cached prefill).
+// Blocked-KV prefill attention at a cache offset, on bf16 tensor cores.
 //
 // Replaces gptq_for_llama_tpu/ops/pallas/flash.py:_flash_blocked_kernel
 // (entry flash_prefill_blocked). SQ queries whose absolute positions start
-// at q_offset attend cache slots j <= q_offset + i; the cache already holds
-// the chunk's own k/v. GQA: query head h reads kv head h / (H / Hkv).
+// at q_offset attend cache slots j <= q_offset + i, j < SKV; the cache
+// already holds the chunk's own k/v. GQA: query head h reads kv head
+// h / (H / Hkv). Every bucketed and chunked serving prefill and the runner's
+// prompt go through it.
 //
 // What bounds it on the H100: for a 100-token 7B prompt, bytes (q, the live
 // K/V and the output: 3.3 MB, about 1 us at 3.35 TB/s); the operations
-// (4 * SQ * live * D per head, 0.17 us at the 989 TFLOP/s bf16 rate) take
-// over for prompts of several hundred tokens. This first kernel runs the dot
-// products on CUDA cores in fp32 (no mma), so it sits far above either
-// bound: it is written to be right for any SQ, SKV and offset (the ragged
-// edges are masked, unlike the TPU kernel's SQ % 128 requirement), not to be
-// fast.
-// Design:
-//  - one block per (query tile of 32, head, batch row); 4 threads per query
-//    row, each owning 8 key columns of the logits and 32 of the 128 output
-//    dims;
-//  - the block loops over 32-slot K/V tiles only up to the causal limit of
-//    its last query (q_offset + last row), skipping the blocks above it;
-//  - logits, running max / denominator and the accumulator stay in fp32;
-//    the finite large-negative mask value keeps fully masked rows NaN-free
-//    (as the TPU kernel's _NEG).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kD = 128;
-constexpr int kBQ = 32;
-constexpr int kBK = 32;
-constexpr int kThreads = 128;        // 4 per query row
-constexpr int kQStride = kD + 4;     // fp32 row stride, conflict-free float2 reads
-constexpr int kKVStride = kD + 8;    // bf16 row stride, conflict-free bf16x2 reads
-constexpr float kNeg = -0.7f * 3.402823466e38f;
-
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_blocked_kernel(const __nv_bfloat16* __restrict__ q,    // (B, SQ, H, D)
-                             const __nv_bfloat16* __restrict__ kc,   // (B, SKV, Hkv, D)
-                             const __nv_bfloat16* __restrict__ vc,   // (B, SKV, Hkv, D)
-                             __nv_bfloat16* __restrict__ out,        // (B, SQ, H, D)
-                             int SQ, int SKV, int H, int Hkv, int q_offset, float scale) {
-  __shared__ __align__(16) float qs[kBQ * kQStride];
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK * kKVStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBK * kKVStride];
-  __shared__ float ps[kBQ][kBK + 1];
-
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / Hkv);
-  const int tid = threadIdx.x, i = tid >> 2, qd = tid & 3;
-
-  // query tile, scaled, fp32; rows past SQ are zero and never written back
-  for (int idx = tid; idx < kBQ * (kD / 8); idx += kThreads) {
-    const int r = idx / (kD / 8), c8 = (idx % (kD / 8)) * 8;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < SQ) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          q + (((size_t)b * SQ + q0 + r) * H + h) * kD + c8);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 t = __bfloat1622float2(h2[e]);
-        f[2 * e] = t.x * scale;
-        f[2 * e + 1] = t.y * scale;
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) qs[r * kQStride + c8 + e] = f[e];
-  }
-
-  const int q_last = min(q0 + kBQ, SQ) - 1;                // last real query of the tile
-  const int kv_end = min(SKV, q_offset + q_last + 1);      // causal limit of the tile
-  const int qi_abs = q_offset + q0 + i;                    // this row's absolute position
-  const size_t row_stride = (size_t)Hkv * kD;
-  const __nv_bfloat16* kbase = kc + (size_t)b * SKV * row_stride + (size_t)kvh * kD;
-  const __nv_bfloat16* vbase = vc + (size_t)b * SKV * row_stride + (size_t)kvh * kD;
-
-  float m_run = kNeg, l_run = 0.0f;
-  float acc[32];   // dims 2*qd + 8*e + {0, 1}, e = 0..15
-#pragma unroll
-  for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
-
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();   // Q tile visible / previous K, V tile consumed
-    for (int idx = tid; idx < kBK * (kD / 8); idx += kThreads) {
-      const int r = idx / (kD / 8), c8 = (idx % (kD / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < kv_end) {
-        kv = *reinterpret_cast<const uint4*>(kbase + (size_t)(k0 + r) * row_stride + c8);
-        vv = *reinterpret_cast<const uint4*>(vbase + (size_t)(k0 + r) * row_stride + c8);
-      }
-      *reinterpret_cast<uint4*>(ks + r * kKVStride + c8) = kv;
-      *reinterpret_cast<uint4*>(vs + r * kKVStride + c8) = vv;
-    }
-    __syncthreads();
-
-    // logits of row i against keys j = qd + 4e
-    float s[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s[e] = 0.0f;
-    const float* qrow = qs + i * kQStride;
-#pragma unroll 4
-    for (int d = 0; d < kD; d += 2) {
-      const float2 qv = *reinterpret_cast<const float2*>(qrow + d);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float2 kf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(ks + (qd + 4 * e) * kKVStride + d));
-        s[e] += qv.x * kf.x + qv.y * kf.y;
-      }
-    }
-    float mx = kNeg;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int kj = k0 + qd + 4 * e;
-      if (!(kj <= qi_abs && kj < kv_end)) s[e] = kNeg;
-      mx = fmaxf(mx, s[e]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float p = __expf(s[e] - m_new);
-      ps[i][qd + 4 * e] = p;
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float alpha = __expf(m_run - m_new);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    __syncwarp();   // row i's probabilities come from the 4 lanes of this warp
-
-#pragma unroll
-    for (int e = 0; e < 32; ++e) acc[e] *= alpha;
-    const int n = min(kBK, kv_end - k0);
-    for (int j = 0; j < n; ++j) {
-      const float pj = ps[i][j];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const float2 vf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vs + j * kKVStride + 2 * qd + 8 * e));
-        acc[2 * e] += pj * vf.x;
-        acc[2 * e + 1] += pj * vf.y;
-      }
-    }
-  }
-
-  if (q0 + i < SQ) {
-    const float inv = 1.0f / l_run;
-    __nv_bfloat16* orow = out + (((size_t)b * SQ + q0 + i) * H + h) * kD;
-#pragma unroll
-    for (int e = 0; e < 16; ++e)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 2 * qd + 8 * e) =
-          __floats2bfloat162_rn(acc[2 * e] * inv, acc[2 * e + 1] * inv);
-  }
-}
-
-}  // namespace
+// (4 * SQ * live * D per head) take over for chunks of a few hundred
+// queries. The body is kernel 5's (flash_common.cuh: 64-query tiles of 4
+// warps, 64-key K/V tiles in a cp.async double buffer, q k^T and p v as
+// mma.sync bf16 with fp32 sums, the online softmax in fp32 with p turned
+// straight into bf16 A fragments, heaviest tiles first) with the offset
+// compiled in: row i sits at q_offset + i, key tiles above a tile's causal
+// limit are never loaded, rows past SQ and keys past SKV are zero-filled, so
+// any SQ, SKV and offset works (the TPU kernel needs SQ % 128 == 0).
+// A short chunk over a long cache gives only ceil(SQ / 64) x H blocks (64 for
+// the runner's 100-token prompt at 32 heads); each reads only its live keys,
+// so no split of the keys across blocks is needed there (PERF.md).
+#include "flash_common.cuh"
 
 extern "C" const char* gptq_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
@@ -170,12 +29,9 @@ extern "C" const char* gptq_error_string(int e) {
 extern "C" int gptq_flash_prefill_blocked(const void* q, const void* k, const void* v,
                                           void* out, int B, int SQ, int SKV, int H, int Hkv,
                                           int D, int q_offset, float scale, void* stream) {
-  if (D != kD || B < 1 || SQ < 1 || SKV < 1 || Hkv < 1 || H % Hkv != 0 || q_offset < 0)
+  if (D != gptq_flash::kD || B < 1 || SQ < 1 || SKV < 1 || Hkv < 1 || H % Hkv != 0 ||
+      q_offset < 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((SQ + kBQ - 1) / kBQ, H, B);
-  flash_prefill_blocked_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), SQ, SKV, H, Hkv,
-      q_offset, scale);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(gptq_flash::launch<true>(q, k, v, out, B, SQ, SKV, H, Hkv, q_offset,
+                                                   scale, static_cast<cudaStream_t>(stream)));
 }

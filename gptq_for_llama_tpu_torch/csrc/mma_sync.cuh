@@ -1,5 +1,5 @@
 // Warp-level tensor-core building blocks shared by the kernels that run
-// bf16 mma.sync products (flash_prefill.cu, qmm_t.cu): cp.async copies into
+// bf16 mma.sync products (flash_common.cuh, qmm_t.cu, qmm_tc.cuh): cp.async copies into
 // shared memory, ldmatrix fragment loads and the m16n8k16 product with fp32
 // accumulators.
 #pragma once
@@ -20,6 +20,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"

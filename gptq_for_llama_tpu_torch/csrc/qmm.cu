@@ -1,9 +1,13 @@
 // Dequant-GEMM over bit-packed weights: y = x @ dequant(W) (+ bias).
 //
-// Replaces gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. The kernel
-// body, its bound and its design are in qmm_common.cuh. Plain C entry point,
-// bound from Python with ctypes (gptq_for_llama_tpu_torch/ops/cuda/matmul.py).
+// Replaces gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. Two paths,
+// chosen by the wrapper's plan (gptq_for_llama_tpu_torch/ops/cuda/matmul.py)
+// from M: gptq_qmm, the split-K GEMV of qmm_common.cuh, for decode rows;
+// gptq_qmm_tile, the tensor-core tiles of qmm_tc.cuh, above them. Each
+// header describes its bound and design. Plain C entry points, bound from
+// Python with ctypes.
 #include "qmm_common.cuh"
+#include "qmm_tc.cuh"
 
 extern "C" int gptq_qmm(const void* x, const void* qweight, const void* scales,
                         const void* zeros, const void* bias, void* out, void* partial, int M,
@@ -17,5 +21,43 @@ extern "C" int gptq_qmm(const void* x, const void* qweight, const void* scales,
       static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(partial), M, K, N, G, groupsize, split, words_per_split,
       static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
+}
+
+// x (M, K) bf16 with K % 8 == 0; qweight (K * bits / 32, N) int32 with
+// N % 8 == 0; scales, zeros (G, N) bf16; partial (split, M, N) fp32 when
+// split > 1; bm: the row tile (64, 128, 256); smem_bytes: the plan's size of
+// the block's shared memory.
+extern "C" int gptq_qmm_tile(const void* x, const void* qweight, const void* scales,
+                             const void* zeros, const void* bias, void* out, void* partial,
+                             int M, int K, int N, int G, int groupsize, int bits, int bm,
+                             int split, int slabs_per_split, int smem_bytes, void* stream) {
+  const int n_slabs = (K + gptq_tc::kBK - 1) / gptq_tc::kBK;
+  if (M < 1 || K < 8 || K % 8 || N < 8 || N % 8 || G < 1 || groupsize < 1 || split < 1 ||
+      slabs_per_split < 1 || (long long)split * slabs_per_split < n_slabs || split > 65535 ||
+      (bm != 64 && bm != 128 && bm != 256) || (M + bm - 1) / bm > 65535 ||
+      (split > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const gptq::Stream s0{static_cast<const int32_t*>(qweight),
+                        static_cast<const __nv_bfloat16*>(scales),
+                        static_cast<const __nv_bfloat16*>(zeros)};
+  const auto xb = static_cast<const __nv_bfloat16*>(x);
+  const auto bb = static_cast<const __nv_bfloat16*>(bias);
+  const auto ob = static_cast<__nv_bfloat16*>(out);
+  const auto pb = static_cast<float*>(partial);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GPTQ_TILE(B, R)                                                                     \
+  gptq_tc::launch_tile<B, 1, R>(xb, s0, s0, bb, ob, pb, M, K, N, G, groupsize, split,       \
+                                slabs_per_split, smem_bytes, st)
+#define GPTQ_TILES(B) (bm == 64 ? GPTQ_TILE(B, 64) : bm == 128 ? GPTQ_TILE(B, 128) : GPTQ_TILE(B, 256))
+  cudaError_t e;
+  switch (bits) {
+    case 2: e = GPTQ_TILES(2); break;
+    case 4: e = GPTQ_TILES(4); break;
+    case 8: e = GPTQ_TILES(8); break;
+    default: e = cudaErrorInvalidValue;
+  }
+#undef GPTQ_TILES
+#undef GPTQ_TILE
   return static_cast<int>(e);
 }

@@ -12,7 +12,7 @@
 // packed row and a warp reads 512 contiguous bytes: every weight byte is read
 // once, coalesced.
 //
-// What bounds it on the H100: at decode (M <= 8) the packed weight stream,
+// What bounds it on the H100: at decode (a few rows) the packed weight stream,
 // i.e. device-memory bytes (a 4096x4096 INT4-g128 linear moves 8.9 MB with
 // its scales and zeros: 2.66 us at 3.35 TB/s). The design keeps the weight
 // bytes the only large traffic and spends few instructions per weight:
@@ -27,8 +27,10 @@
 //    the split, ops/cuda/matmul.py:plan); each block reduces its 8 warps in
 //    shared memory, and a second small kernel sums the K-splits in a fixed
 //    order (deterministic, no atomics).
-// Larger M (prefill) loops over 8-row tiles with CUDA-core FMAs: correct but
-// compute-bound far from the tensor-core peak; wgmma is later work.
+// Row tiles of 4 and 8 run CUDA-core FMAs: kernel 2 (fused gate/up) takes
+// them at every M > 2, where operations bound it far from the tensor-core
+// peak. Kernel 1 uses this body only for decode (M <= 4); above that it runs
+// the tensor-core tiles of qmm_tc.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

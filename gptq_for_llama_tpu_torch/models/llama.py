@@ -12,6 +12,7 @@ import torch
 
 from .common import apply_rope, attention_block, causal_mask, rms_norm, rope_cos_sin
 from .config import ModelConfig
+from .. import resolve_device
 from ..ops.linear import dense, linear_apply
 from ..ops.quant_matmul import fused_gate_up
 
@@ -32,9 +33,11 @@ def sequential_groups(true_sequential: bool):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.bfloat16,
-                device="cpu"):
+                device=None):
     """Random dense model for tests, drawn from ``generator`` (a CPU
-    torch.Generator; the tensors are then moved to ``device``)."""
+    torch.Generator; the tensors are then moved to ``device``, the card
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     h, kvh = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     hid, inter = cfg.hidden_size, cfg.intermediate_size
 

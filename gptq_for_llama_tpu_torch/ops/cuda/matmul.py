@@ -1,17 +1,21 @@
 """Kernel 1, the dequant-GEMM: CUDA wrapper, launch count and plain version.
 
 Replaces ``gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel``. The kernel is
-``csrc/qmm.cu``; its body, its bound on the H100 (the packed weight bytes at
-decode) and its design (coalesced 16-byte word loads, dot-then-scale per
-group, split-K with a deterministic second pass) are described in
-``csrc/qmm_common.cuh``. The plain version is ``ops.linear.quant_matmul_plain``
-(dequantize to the compute dtype, then matmul).
+``csrc/qmm.cu`` with two paths that ``plan`` picks from M: for decode rows
+(M <= ``GEMV_MAX_M``) the split-K GEMV of ``csrc/qmm_common.cuh``, bound by
+the packed weight bytes (coalesced 16-byte word loads, dot-then-scale per
+group, split-K with a deterministic second pass); above them the tensor-core
+tiles of ``csrc/qmm_tc.cuh``, bound by operations (the slab dequantized to
+bf16 in shared memory, ``mma.sync`` with fp32 sums, a ``cp.async`` ring). The
+plain version is ``ops.linear.quant_matmul_plain`` (dequantize to the compute
+dtype, then matmul).
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -22,8 +26,14 @@ from ..linear import PackedLinear, quant_matmul_plain  # noqa: F401  (the plain 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/qmm.cu"
 REPLACES = "gptq_for_llama_tpu/ops/pallas/matmul.py:68"
 
-TILE_N = 128          # columns per block (32 lanes x 4 columns)
-_X_SMEM_BYTES = 96 * 1024   # cap on the block's fp32 x slice in shared memory
+TILE_N = 128          # columns per block, both paths
+_X_SMEM_BYTES = 96 * 1024   # cap on the GEMV block's fp32 x slice in shared memory
+# The GEMV takes M <= 4; the tile path the rest: from M = 5 the tiles are
+# faster (the measured crossover, PERF.md section 6)
+GEMV_MAX_M = 4
+# the tile path's row tiles, slab depth and staged groups: csrc/qmm_tc.cuh's
+TC_ROW_TILES, TC_TILE_K, TC_MAX_GROUPS = (64, 128, 256), 64, 4
+SMEM_PER_SM = 233472      # the H100's shared memory of one SM (1 KB of it per block reserved)
 
 
 @lru_cache(maxsize=None)
@@ -31,21 +41,86 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan(m: int, k: int, n: int, bits: int, sms: int = 132, blocks_per_sm: int = 4):
-    """(row tile MT, K-splits, packed words per split) for one launch.
+class Plan(NamedTuple):
+    path: str        # "gemv" (csrc/qmm_common.cuh) or "tile" (csrc/qmm_tc.cuh)
+    mt: int          # rows per block: 1, 2, 4, 8 (gemv) or 64, 128, 256 (tile)
+    split: int       # blocks along K (partial sums reduced by a second kernel)
+    per_split: int   # packed words (gemv) or 64-row slabs (tile) per split
+    smem: int        # dynamic shared memory of one block, bytes
 
-    Enough blocks for ``blocks_per_sm`` per SM: a 4096-wide decode linear
-    has only 32 column tiles, so K is split across blocks (17 ways at
-    K = 4096 for 4 per SM). Kernel 1's decode blocks (48 registers) fit 5
-    per SM; kernel 2's (76) fit 3, so it plans for 2 (PERF.md, PR 1)."""
+
+def tile_smem_bytes(bits: int, streams: int = 1, bm: int = 128) -> int:
+    """Shared memory of one tile block (qmm_tc.cuh's ``Layout``): a ring of
+    stages (4 for BM = 256, else 3) of the x tile and, per stream, the slab's
+    words and its scale and zero rows; then two bf16 B tiles per stream. Rows
+    padded by 8 bf16."""
+    stride = TC_TILE_K + 8
+    words = TC_TILE_K * bits // 32 * TILE_N * 4
+    scale_zero = 2 * TC_MAX_GROUPS * TILE_N * 2
+    stage = bm * stride * 2 + streams * (words + scale_zero)
+    return (4 if bm == 256 else 3) * stage + 2 * streams * TILE_N * stride * 2
+
+
+def tile_blocks_per_sm(bits: int, streams: int, bm: int) -> int:
+    """Resident tile blocks per SM: one at BM = 256 (235 registers a thread),
+    else two (the 128-register cap of ``__launch_bounds__``) where their shared
+    memory fits."""
+    if bm == 256:
+        return 1
+    return max(1, min(2, SMEM_PER_SM // (tile_smem_bytes(bits, streams, bm) + 1024)))
+
+
+def _tile_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int) -> Plan:
+    """The row tile covers M in one tile up to 256 rows (the padded rows cost
+    less than a second row of tiles); above that, 256 where those tiles alone
+    give every SM a block, else 128. Fewer tiles than SMs split K: the split
+    that fills every SM and costs the fewest waves x (slabs per block + 2, a
+    block's start-up: the first two slabs' copies in flight), the smallest
+    such split, each split keeping at least 4 slabs."""
+    cols = -(-n // TILE_N)
+    if m <= 256:
+        bm = next(b for b in TC_ROW_TILES if m <= b)
+    else:
+        bm = 256 if cols * -(-m // 256) >= sms else 128
+    tiles = cols * -(-m // bm)
+    slabs = -(-k // TC_TILE_K)
+    split = 1
+    if tiles < sms:
+        slots = sms * tile_blocks_per_sm(bits, streams, bm)
+        hi = max(1, slabs // 4)
+        lo = min(-(-sms // tiles), hi)
+        split = min(range(lo, hi + 1),
+                    key=lambda s: (-(-tiles * s // slots) * (-(-slabs // s) + 2), s))
+    per = -(-slabs // split)
+    return Plan("tile", bm, -(-slabs // per), per, tile_smem_bytes(bits, streams, bm))
+
+
+def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
+         path: str | None = None) -> Plan:
+    """How one launch of kernel 1 (``streams=1``) or kernel 2 (``streams=2``)
+    covers (M, K) @ (K, N).
+
+    GEMV: enough blocks for 4 per SM (kernel 1's decode blocks, 48 registers,
+    fit 5) or 2 (kernel 2's, 76 registers, fit 3; PERF.md): a 4096-wide
+    decode linear has only 32 column tiles, so K is split across blocks (17
+    ways at K = 4096 for kernel 1). Tiles: kernel 1 above ``GEMV_MAX_M`` when
+    K and N are multiples of 8 (16-byte copies), planned by ``_tile_plan``.
+    Kernel 2 has no tile path yet. ``path`` forces one (for measurements)."""
+    if path is None:
+        tiles_ok = streams == 1 and m > GEMV_MAX_M and k % 8 == 0 and n % 8 == 0
+        path = "tile" if tiles_ok else "gemv"
+    if path == "tile":
+        return _tile_plan(m, k, n, bits, sms, streams)
     ipw = 32 // bits
     kw = k // ipw
     mt = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
+    blocks_per_sm = 4 if streams == 1 else 2
     tiles = -(-n // TILE_N) * -(-m // mt)
     split = max(1, min(-(-blocks_per_sm * sms // tiles), -(-kw // 8)))
     wps = -(-kw // split)
     wps = min(wps, max(1, _X_SMEM_BYTES // (mt * 4 * ipw)))
-    return mt, -(-kw // wps), wps
+    smem = max(mt * wps * ipw * 4, 8 * streams * mt * TILE_N * 4)   # qmm_smem_bytes
+    return Plan("gemv", mt, -(-kw // wps), wps, smem)
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
@@ -76,18 +151,21 @@ def check_packed(lin: PackedLinear, x2: torch.Tensor) -> None:
         raise ValueError(f"x on {x2.device}, weights on {lin.qweight.device}")
 
 
-def _entry():
-    fn = build.library("qmm").gptq_qmm
+def _entry(path: str):
+    lib = build.library("qmm")
+    fn = lib.gptq_qmm_tile if path == "tile" else lib.gptq_qmm
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 9 + [p]
+        fn.argtypes = [p] * 7 + [i] * (10 if path == "tile" else 9) + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def qmm_cuda(x2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
+def qmm_cuda(x2: torch.Tensor, lin: PackedLinear, path: str | None = None) -> torch.Tensor:
     """y = x2 @ dequant(lin) + bias on the card. x2: (M, K) bf16, already
-    permuted (act-order); returns (M, N) bf16."""
+    permuted (act-order); returns (M, N) bf16. The plan picks the path from M
+    (``path`` forces one, for measurements); ``qmm_cuda.last_path`` names the
+    path of the last launch."""
     refuse_grad("qmm", x2, lin.bias, lin.scales, lin.zeros)
     check_packed(lin, x2)
     if lin.bias is not None:
@@ -96,18 +174,22 @@ def qmm_cuda(x2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     if m == 0:
         return out
-    mt, split, wps = plan(m, k, n, lin.bits, _sm_count(x2.device.index or 0))
-    partial = (torch.empty((split, m, n), dtype=torch.float32, device=x2.device)
-               if split > 1 else None)
-    fn = _entry()
-    err = fn(x2.data_ptr(), lin.qweight.data_ptr(), lin.scales.data_ptr(),
-             lin.zeros.data_ptr(), None if lin.bias is None else lin.bias.data_ptr(),
-             out.data_ptr(), None if partial is None else partial.data_ptr(),
-             m, k, n, lin.scales.shape[0], lin.groupsize, lin.bits, mt, split, wps,
-             torch.cuda.current_stream(x2.device).cuda_stream)
-    build.check(build.library("qmm"), err, "qmm")
+    p = plan(m, k, n, lin.bits, _sm_count(x2.device.index or 0), path=path)
+    partial = (torch.empty((p.split, m, n), dtype=torch.float32, device=x2.device)
+               if p.split > 1 else None)
+    last = ((p.mt, p.split, p.per_split, p.smem) if p.path == "tile" else
+            (p.mt, p.split, p.per_split))
+    err = _entry(p.path)(
+        x2.data_ptr(), lin.qweight.data_ptr(), lin.scales.data_ptr(), lin.zeros.data_ptr(),
+        None if lin.bias is None else lin.bias.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        m, k, n, lin.scales.shape[0], lin.groupsize, lin.bits, *last,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    build.check(build.library("qmm"), err, f"qmm ({p.path})")
     qmm_cuda.launches += 1
+    qmm_cuda.last_path = p.path
     return out
 
 
 qmm_cuda.launches = 0
+qmm_cuda.last_path = None

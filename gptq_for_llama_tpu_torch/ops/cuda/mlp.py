@@ -70,16 +70,15 @@ def fused_mlp_cuda(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> to
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     if m == 0:
         return out
-    mt, split, wps = plan(m, k, n, gate.bits, _sm_count(x2.device.index or 0),
-                          blocks_per_sm=2)
-    partial = (torch.empty((2, split, m, n), dtype=torch.float32, device=x2.device)
-               if split > 1 else None)
+    p = plan(m, k, n, gate.bits, _sm_count(x2.device.index or 0), streams=2)   # the GEMV
+    partial = (torch.empty((2, p.split, m, n), dtype=torch.float32, device=x2.device)
+               if p.split > 1 else None)
     fn = _entry()
     err = fn(x2.data_ptr(), gate.qweight.data_ptr(), gate.scales.data_ptr(),
              gate.zeros.data_ptr(), up.qweight.data_ptr(), up.scales.data_ptr(),
              up.zeros.data_ptr(), out.data_ptr(),
              None if partial is None else partial.data_ptr(),
-             m, k, n, gate.scales.shape[0], gate.groupsize, gate.bits, mt, split, wps,
+             m, k, n, gate.scales.shape[0], gate.groupsize, gate.bits, p.mt, p.split, p.per_split,
              torch.cuda.current_stream(x2.device).cuda_stream)
     build.check(build.library("fused_mlp"), err, "fused_mlp")
     fused_mlp_cuda.launches += 1

@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..ops.cuda.attention import pool_decode_attention
 
 
@@ -61,7 +62,8 @@ class PagedKV:
     the most blocks a slot can hold."""
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int, num_kv_heads: int,
-                 head_dim: int, slots: int, max_len: int, dtype=torch.bfloat16, device="cpu"):
+                 head_dim: int, slots: int, max_len: int, dtype=torch.bfloat16, device=None):
+        device = resolve_device(device)   # the card unless the caller asks for the CPU
         self.block_size = block_size
         self.max_blocks = -(-max_len // block_size)
         shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)

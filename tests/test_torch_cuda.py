@@ -32,7 +32,7 @@ def card():
     return torch.device("cuda")
 
 
-def _linear(k, n, bits, gs, seed, device, actorder=False):
+def _linear(k, n, bits, gs, seed, device, actorder=False, bias=False):
     rng = np.random.RandomState(seed)
     g = -(-k // gs)
     codes = rng.randint(0, 2 ** bits, size=(k, n)).astype(np.uint32)
@@ -44,7 +44,8 @@ def _linear(k, n, bits, gs, seed, device, actorder=False):
     return PackedLinear.from_wire(packing.pack_rows(codes, bits),
                                   packing.pack_cols(zeros - 1, bits),
                                   (rng.rand(g, n) * 0.02 + 0.005).astype(np.float16), g_idx,
-                                  bits=bits, dtype=torch.bfloat16, device=device)
+                                  bits=bits, bias=rng.randn(n) if bias else None,
+                                  dtype=torch.bfloat16, device=device)
 
 
 def _close(got, want, rel):
@@ -72,6 +73,49 @@ def test_qmm_matches_plain(card, bits, m, k, gs, actorder):
     lin = _linear(k, 256, bits, gs, seed=m, device=card, actorder=actorder)
     x = torch.randn(m, k, device=card).bfloat16()
     assert _close(quant_matmul(x, lin), quant_matmul_plain(x, lin), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,m,k,n,gs,actorder,bias", [
+    (4, 100, 1024, 512, 128, False, False), (2, 130, 1024, 256, 64, False, False),
+    (8, 512, 512, 264, 128, False, False), (3, 130, 512, 256, 128, False, False),
+    (4, 100, 520, 256, 40, False, False), (2, 130, 560, 256, 40, False, False),
+    (4, 512, 1024, 256, 1024, False, False), (4, 130, 1024, 256, 128, True, False),
+    (4, 100, 1024, 256, 128, False, True), (4, 130, 512, 11008, 128, False, False),
+    (4, 100, 512, 128, 6, False, False), (8, 512, 1024, 512, 32, True, True),
+                (4, 40, 520, 256, 40, False, True), (8, 200, 1024, 264, 128, True, False),
+                (2, 256, 560, 512, 40, True, True)])
+def test_qmm_tile_path_matches_plain(card, bits, m, k, n, gs, actorder, bias):
+    """Kernel 1's tensor-core tile path (M > 4) through the dispatch: 2, 4
+    and 8 bits and wire INT3; groupsize 40 (at 2 bits a group boundary falls
+    inside a packed word), a ragged K slab (520, 560), G = 1, groupsize 6 (a
+    slab touches more groups than the stage holds: scales from device memory);
+    act-order, a bias, a ragged column tile (264) and N = 11008; row tiles of
+    64 (M = 40), 128 (M = 100, 512) and 256 (M = 130, 200, 256), K split
+    across blocks at these widths. 2e-2 * max|y| as the GEMV."""
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+    lin = _linear(k, n, bits, gs, seed=m + k, device=card, actorder=actorder, bias=bias)
+    x = torch.randn(m, k, device=card).bfloat16()
+    kernels.reset_launch_counts()
+    got = quant_matmul(x, lin)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qmm"] == 1 and qmm_cuda.last_path == "tile"
+    assert torch.isfinite(got.float()).all()
+    assert _close(got, quant_matmul_plain(x, lin), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 64])
+def test_qmm_paths_agree_where_both_run(card, m):
+    """Both of kernel 1's paths, forced, at M on either side of the
+    threshold: each within 2e-2 * max|y| of the plain version."""
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+    lin = _linear(1024, 512, 4, 128, seed=m, device=card, bias=True)
+    x = torch.randn(m, 1024, device=card).bfloat16()
+    want = quant_matmul_plain(x, lin)
+    for path in ("gemv", "tile"):
+        assert _close(qmm_cuda(x, lin, path=path), want, 2e-2), path
+        assert qmm_cuda.last_path == path
 
 
 @pytest.mark.cuda
@@ -123,6 +167,46 @@ def test_flash_prefill_blocked_matches_plain(card, sq, off, hkv):
     assert _rows_close(flash_prefill_blocked(q, k, v, off, 128 ** -0.5),
                        flash_prefill_blocked_plain(q, k, v, off, 128 ** -0.5), 1e-2)
     assert kernels.launch_counts()["flash_prefill_blocked"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,off,skv,h,hkv", [(512, 0, 512, 8, 2), (2048, 0, 2048, 4, 1),
+                                              (128, 512, 640, 8, 2), (128, 512, 2048, 8, 8),
+                                              (100, 0, 2048, 8, 2), (77, 1900, 2048, 4, 4)])
+def test_flash_prefill_blocked_serving_rows(card, sq, off, skv, h, hkv):
+    """Kernel 4 at the bucket (SQ = 512), the implicit bucket (2048), the
+    serving chunk (128 at offset 512) over the gathered 640 slots and over a
+    dense 2048-slot cache, the runner's prompt over its cache, and a ragged
+    chunk near the end of the cache; GQA. Every output row within 1e-2 of its
+    norm; the slots above a row's position hold NaN, which the kernel never
+    reads."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(sq + off)
+    q = torch.randn(1, sq, h, 128, generator=gen, device=card).bfloat16()
+    k = torch.randn(1, skv, hkv, 128, generator=gen, device=card).bfloat16()
+    v = torch.randn(1, skv, hkv, 128, generator=gen, device=card).bfloat16()
+    want = flash_prefill_blocked_plain(q, k, v, off, 128 ** -0.5)
+    k[:, off + sq:] = float("nan")
+    v[:, off + sq:] = float("nan")
+    kernels.reset_launch_counts()
+    got = flash_prefill_blocked(q, k, v, off, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_prefill_blocked"] == 1
+    assert torch.isfinite(got.float()).all() and _rows_close(got, want, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv", [(1, 1, 8, 8), (2, 300, 8, 2), (1, 2048, 4, 4)])
+def test_kernels_4_and_5_agree_without_an_offset(card, b, s, h, hkv):
+    """At offset 0 with SQ = SKV kernel 4 computes kernel 5's function with
+    the same body (csrc/flash_common.cuh): the outputs are bit-equal."""
+    q = torch.randn(b, s, h, 128, device=card).bfloat16()
+    k = torch.randn(b, s, hkv, 128, device=card).bfloat16()
+    v = torch.randn(b, s, hkv, 128, device=card).bfloat16()
+    got4 = flash_prefill_blocked(q, k, v, 0, 128 ** -0.5)
+    got5 = flash_prefill(q, k, v, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got4.view(torch.int16), got5.view(torch.int16))
 
 
 @pytest.mark.cuda

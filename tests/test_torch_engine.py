@@ -165,7 +165,7 @@ def test_perplexity_padded_last_batch_and_default_batch():
     cfg = ModelConfig(arch="llama", vocab_size=64, hidden_size=32, intermediate_size=64,
                       num_layers=1, num_heads=4, num_kv_heads=4, head_dim=8, max_seq_len=16)
     params = get_arch("llama").init_params(cfg, torch.Generator().manual_seed(0),
-                                           dtype=torch.float32)
+                                           dtype=torch.float32, device="cpu")
     ids = np.random.RandomState(0).randint(0, 64, size=7 * 16 + 5)
     a = perplexity("llama", cfg, params, ids, seqlen=16, batch=1)
     b = perplexity("llama", cfg, params, ids, seqlen=16, batch=3)

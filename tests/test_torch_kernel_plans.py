@@ -1,0 +1,134 @@
+"""The host-side launch plans of kernels 1 and 2 (``ops/cuda/matmul.plan``),
+at LLaMA-7B's widths. Pure arithmetic: no card, no nvcc.
+
+Kernel 1 keeps the split-K GEMV for decode rows and takes the tensor-core
+tiles above ``GEMV_MAX_M``; kernel 2 keeps its GEMV plan at every M (its tile
+form is later work)."""
+
+import pytest
+
+from gptq_for_llama_tpu_torch.ops.cuda import matmul
+from gptq_for_llama_tpu_torch.ops.cuda.matmul import (GEMV_MAX_M, SMEM_PER_SM, TC_ROW_TILES, Plan,
+                                                      plan, tile_blocks_per_sm, tile_smem_bytes)
+
+SMS = 132   # the H100 SXM's SMs
+SMEM_PER_BLOCK = 232448   # the most dynamic shared memory one block may have
+# every M the smoke gives the linears: decode, serving decode step, prompt,
+# chunk, fused chunk + decode row, buckets, admission, LoRA batch, eval
+SMOKE_MS = (1, 8, 100, 128, 136, 512, 1024, 2048, 16384)
+# (K, N): q/k/v/o_proj, down_proj, gate/up_proj unfused (LoRA)
+SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))
+
+
+@pytest.mark.parametrize("k,n,m,want", [
+    (4096, 4096, 1, (1, 17, 31)), (4096, 4096, 4, (4, 17, 31)),
+    (11008, 4096, 1, (1, 17, 81)), (11008, 4096, 4, (4, 17, 81))])
+def test_kernel_1_keeps_the_gemv_for_decode(k, n, m, want):
+    """The GEMV's plan at M = 1 and 4, as before the tile path: row tile,
+    K-splits, packed words per split (4 blocks per SM). From M = 5 (the GEMV's
+    8-row tile) the tiles are faster at both widths and take over; the GEMV
+    plan at M = 8 is still what a forced ``path="gemv"`` gets."""
+    p = plan(m, k, n, 4, SMS)
+    assert p.path == "gemv" and (p.mt, p.split, p.per_split) == want
+    eight = plan(8, k, n, 4, SMS, path="gemv")
+    assert (eight.mt, eight.split, eight.per_split) == (8, want[1], want[2])
+    assert plan(8, k, n, 4, SMS).path == "tile"
+
+
+@pytest.mark.parametrize("k,n", SHAPES)
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_kernel_1_takes_the_tiles_above_the_threshold(k, n, bits):
+    for m in range(1, 40):
+        assert plan(m, k, n, bits, SMS).path == ("gemv" if m <= GEMV_MAX_M else "tile")
+    for m in SMOKE_MS:
+        p = plan(m, k, n, bits, SMS)
+        assert p.path == ("gemv" if m <= GEMV_MAX_M else "tile")
+        if p.path == "tile":
+            slabs = -(-k // matmul.TC_TILE_K)
+            # the splits cover every 64-row slab, none is empty
+            assert p.mt in TC_ROW_TILES
+            assert p.split * p.per_split >= slabs > (p.split - 1) * p.per_split
+
+
+@pytest.mark.parametrize("k,n", SHAPES)
+def test_kernel_1_tiles_fill_the_card_at_the_serving_chunk(k, n):
+    """M = 100-136 at N = 4096 has one row of 32 tiles: K is split until
+    every SM has a block; each split keeps at least 4 slabs."""
+    for m in range(100, 137):
+        p = plan(m, k, n, 4, SMS)
+        tiles = -(-n // matmul.TILE_N) * -(-m // p.mt)
+        assert tiles * p.split >= SMS
+        assert p.per_split >= 4
+    assert plan(1024, 4096, 4096, 4, SMS).split == 1   # 256 tiles: no split
+
+
+@pytest.mark.parametrize("m,want", [(5, 64), (9, 64), (64, 64), (65, 128), (100, 128), (128, 128),
+                                    (129, 256), (136, 256), (256, 256), (512, 128),
+                                    (1024, 128), (2048, 256), (16384, 256)])
+def test_kernel_1_row_tile_covers_small_m_in_one_tile(m, want):
+    """Up to 256 rows one row tile covers M; above that 256-row tiles where
+    they alone give every SM a block (M >= 2048 at N = 4096), else 128."""
+    assert plan(m, 4096, 4096, 4, SMS).mt == want
+    assert plan(m, 11008, 4096, 4, SMS).mt == want
+
+
+@pytest.mark.parametrize("k,n,m,want", [
+    (4096, 4096, 100, (128, 8, 8)), (4096, 4096, 136, (256, 8, 8)),
+    (4096, 4096, 512, (128, 2, 32)), (4096, 4096, 1024, (128, 1, 64)),
+    (4096, 4096, 16384, (256, 1, 64)), (11008, 4096, 128, (128, 8, 22)),
+    (11008, 4096, 512, (128, 2, 86)), (11008, 4096, 2048, (256, 1, 172)),
+    (4096, 11008, 128, (128, 3, 22)), (4096, 11008, 1024, (256, 1, 64))])
+def test_kernel_1_tile_plans_at_the_smoke_shapes(k, n, m, want):
+    """Row tile, K-splits and slabs per split at the shapes the smoke times
+    (the fewest waves x (slabs per block + 2) among the splits that fill the
+    card: 8 ways at the serving chunk, 2 at M = 512, none above)."""
+    p = plan(m, k, n, 4, SMS)
+    assert p.path == "tile" and (p.mt, p.split, p.per_split) == want
+
+
+def test_tile_path_needs_whole_16_byte_copies():
+    """K or N not a multiple of 8 keeps the GEMV at any M (the tile path's
+    copies move 8 bf16 or 4 words at a time)."""
+    assert plan(512, 4100, 4096, 8, SMS).path == "gemv"
+    assert plan(512, 4096, 4100, 4, SMS).path == "gemv"
+    assert plan(512, 4096, 4104, 4, SMS).path == "tile"
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("streams,bm", [(1, 64), (1, 128), (1, 256), (2, 64), (2, 128)])
+def test_tile_shared_memory_fits(bits, streams, bm):
+    """The tile block asks for at most the 227 KB one block may have (two
+    weight streams, the later fused gate/up form, at 64 or 128 rows); at 2
+    and 4 bits and one stream two blocks of 64 or 128 rows fit on an SM (228
+    KB each SM, 1 KB of it reserved per block)."""
+    smem = tile_smem_bytes(bits, streams, bm)
+    assert smem <= SMEM_PER_BLOCK
+    two = 2 * (smem + 1024) <= SMEM_PER_SM
+    assert tile_blocks_per_sm(bits, streams, bm) == (2 if two and bm < 256 else 1)
+    if streams == 1 and bits < 8 and bm < 256:
+        assert two
+    # the layout of csrc/qmm_tc.cuh: a ring of stages of x (bm x 72 bf16),
+    # words, 4 scale and 4 zero rows per stream; two B tiles per stream
+    words = 64 * bits // 32 * 128 * 4
+    stages = 4 if bm == 256 else 3
+    assert smem == (stages * (bm * 72 * 2 + streams * (words + 2 * 4 * 128 * 2))
+                    + 2 * streams * 128 * 72 * 2)
+    for m in (bm // 2 + 1, bm):
+        if m > GEMV_MAX_M and streams == 1 and plan(m, 4096, 4096, bits, SMS).mt == bm:
+            assert plan(m, 4096, 4096, bits, SMS).smem == smem
+
+
+@pytest.mark.parametrize("m", SMOKE_MS)
+def test_kernel_2_keeps_its_gemv_plan(m):
+    """Kernel 2 (fused gate/up, 4096 x 11008, two streams, 2 blocks per SM)
+    keeps the last slice's plan at every M of the smoke."""
+    want = {1: (1, 4, 128), 8: (8, 4, 128)}.get(m, (8, 2, 384))
+    p = plan(m, 4096, 11008, 4, SMS, streams=2)
+    assert p == Plan("gemv", *want, p.smem) and p.smem <= 100 * 1024
+
+
+def test_a_path_can_be_forced_for_measurement():
+    assert plan(8, 4096, 4096, 4, SMS, path="tile").path == "tile"
+    assert plan(512, 4096, 4096, 4, SMS, path="gemv") == plan(512, 4096, 4096, 4, SMS,
+                                                              streams=1, path="gemv")
+    assert plan(512, 4096, 4096, 4, SMS, path="gemv").mt == 8

@@ -289,7 +289,8 @@ def test_registry_and_weight_bytes():
 
 def test_init_params_dense_forward_runs():
     cfg = ModelConfig(**CFG)
-    params = llama.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                               device="cpu")
     ids = torch.randint(0, cfg.vocab_size, (1, 6), generator=torch.Generator().manual_seed(1))
     logits = llama.forward(params, cfg, ids)
     assert logits.shape == (1, 6, cfg.vocab_size) and torch.isfinite(logits).all()

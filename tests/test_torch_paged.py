@@ -125,7 +125,8 @@ def test_paged_write_gather_and_kv_match_jax():
     np.testing.assert_array_equal(paged.gather_prefix(tk[0], _t(tables[1]), 11).numpy()[0],
                                   np.asarray(jpaged.paged_gather(jk[0], jnp.asarray(tables[1])))[:16])
 
-    kv = paged.PagedKV(layers, nb, bs, h, d, slots=b, max_len=20, dtype=torch.float32)
+    kv = paged.PagedKV(layers, nb, bs, h, d, slots=b, max_len=20, dtype=torch.float32,
+                       device="cpu")
     jkv = jpaged.PagedKV(layers, nb, bs, h, d, slots=b, max_len=20, dtype=jnp.float32)
     assert kv.k.shape == tuple(jkv.k.shape) and kv.max_blocks == jkv.max_blocks == 3
     assert kv.tables.shape == jkv.tables.shape and kv.tables_device().dtype == torch.int32
@@ -211,11 +212,11 @@ def test_layer_paged_matches_dense():
                       num_layers=1, num_heads=4, num_kv_heads=4, head_dim=8, max_seq_len=64)
     gen = torch.Generator()
     gen.manual_seed(0)
-    lp = llama.init_params(cfg, gen, dtype=torch.float32)["layers"][0]
+    lp = llama.init_params(cfg, gen, dtype=torch.float32, device="cpu")["layers"][0]
     rng = np.random.RandomState(1)
     b, bs, mb = 2, 8, 3
     kv = paged.PagedKV(1, 8, bs, cfg.num_kv_heads, cfg.head_dim, slots=b, max_len=mb * bs,
-                       dtype=torch.float32)
+                       dtype=torch.float32, device="cpu")
     for slot in range(b):
         blocks = kv.alloc.ensure_capacity(slot, mb * bs, bs)
         kv.tables[slot, :len(blocks)] = blocks
@@ -240,3 +241,21 @@ def test_layer_paged_matches_dense():
         yp, _, _ = llama.layer(cfg, lp, x1, pos, None, ("paged", kp, vp, tables, off))
         np.testing.assert_allclose(yp.numpy(), yd.numpy(), atol=1e-5, rtol=1e-5,
                                    err_msg=f"t={t}")
+
+
+def test_pool_and_random_model_default_to_the_card():
+    """``PagedKV`` and ``llama.init_params`` follow the port's rule: without
+    ``device=`` they go to the card; without a card that raises
+    ``resolve_device``'s error rather than running on the CPU."""
+    from gptq_for_llama_tpu_torch.models import llama
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    cfg = ModelConfig(arch="llama", vocab_size=64, hidden_size=32, intermediate_size=64,
+                      num_layers=1, num_heads=4, num_kv_heads=4, head_dim=8, max_seq_len=16)
+    make = (lambda: paged.PagedKV(1, 4, 8, 4, 8, slots=1, max_len=16).k,
+            lambda: llama.init_params(cfg, torch.Generator().manual_seed(0))["norm"])
+    for fn in make:
+        if torch.cuda.is_available():
+            assert fn().is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device is available"):
+                fn()
