@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gptq_for_llama_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--phases build,kernels,...]
 
 Phases, in order, on one card:
   card     the card is there; prints nvidia-smi's name and power limit.
   build    builds every kernel of csrc/ with nvcc (timed) and prints the
            ptxas register / spill lines.
   kernels  each kernel against its plain PyTorch version on the card at the
-           shapes LLaMA-7B prefill, decode, calibration, eval and serving give it:
+           shapes LLaMA-7B prefill, decode, calibration, eval, serving and LoRA
+           training give it:
            error vs the stated tolerance (attention: per output row, relative
            to the row's norm), kernel / plain / library-call time (CUDA events
            around a CUDA-graph replay of many launches, weights cycled
@@ -62,7 +63,10 @@ Phases, in order, on one card:
 
 Exits non-zero, with no result line, on any failure or when no CUDA device
 is present. Otherwise the line before last is the kernels JSON and the last
-line is {"ok": true, "device": {...}}. Needs no network; imports nothing of
+line is {"ok": true, "device": {...}}. ``--phases`` runs only the phases
+named (e.g. ``build,kernels`` to time the kernels alone; the card phase
+always runs) and then prints no result line: the launch checks need every
+phase. Needs no network; imports nothing of
 JAX or of the TPU package.
 """
 
@@ -353,7 +357,8 @@ class Smoke:
         from gptq_for_llama_tpu_torch.ops.cuda.flash import (
             flash_prefill_blocked_cuda, flash_prefill_blocked_plain)
         from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill_cuda
-        from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+        from gptq_for_llama_tpu_torch.ops.cuda import matmul
+        from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for, qmm_cuda
         from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp_cuda, fused_mlp_plain
         from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
 
@@ -366,20 +371,25 @@ class Smoke:
             return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(bf)
 
         # kernel 1: tolerance 2e-2 * max|plain|: the plain version rounds the
-        # dequantized weight to bf16 before its matmul, the kernel keeps it fp32.
+        # dequantized weight to bf16 before its matmul; the GEMV (M <= 4) keeps
+        # it fp32, the tiles round it as the plain version does and sum in
+        # another order (split K: in fp32 partials).
         # M: the batch-1 decode step and a prompt, then what serving gives the
         # linears: 8 slots' decode step, a chunk (128), the fused chunk+decode
         # row (8 + 128), the buckets (128, 512, 2048) and a batched admission
-        # (8 x 128 = 1024)
+        # (8 x 128 = 1024); the LoRA step's unfused gate/up (4096 x 11008) at
+        # its batch (2 x 512) and at the gradient check's (128)
         ms_of = (1, 8, 100, 128, 136, 512, 1024, 2048)
-        for k, n, what in ((4096, 4096, "q_proj"), (11008, 4096, "down_proj")):
+        sms = matmul._sm_count(0)
+        for k, n, what, rows in ((4096, 4096, "q_proj", ms_of), (11008, 4096, "down_proj", ms_of),
+                                 (4096, 11008, "gate_proj", (128, 1024))):
             lins = self._linears(torch, rng, k, n, copies_for(k * n // 2))
             lin = lins[0]
             wdq = [lin.dequantize(bf) for _ in range(copies_for(k * n * 2))]
-            for m in ms_of:
+            for m in rows:
                 x = randn(m, k)
                 y = qmm_cuda(x, lin)
-                path = qmm_cuda.last_path
+                path = plan_for(x, lin).path
                 ref = quant_matmul_plain(x, lin, bf)
                 err = (y.float() - ref.float()).abs().max().item()
                 tol = 2e-2 * ref.float().abs().max().item()
@@ -392,15 +402,15 @@ class Smoke:
                 self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
                              2 * m * k * n, main=(what == "q_proj" and m == 1),
                              serve=(what == "q_proj" and m == 8), path=path)
-            # both paths forced at the decode rows and just above: the crossover
-            for m in (2, 4, 8, 16):
+            # both paths forced on either side of the crossover (M = 4 | 5)
+            for m in (4, 8) if what != "gate_proj" else ():
                 x = randn(m, k)
                 ref = quant_matmul_plain(x, lin, bf)
                 tol = 2e-2 * ref.float().abs().max().item()
                 for path in ("gemv", "tile"):
-                    err = (qmm_cuda(x, lin, path=path).float() - ref.float()).abs().max().item()
-                    ms = graph_ms(torch, [lambda l=l, p=path: qmm_cuda(x, l, path=p)
-                                          for l in lins])
+                    p = matmul.plan(m, k, n, lin.bits, sms, path=path)
+                    err = (matmul._launch(x, lin, p).float() - ref.float()).abs().max().item()
+                    ms = graph_ms(torch, [lambda l=l, p=p: matmul._launch(x, l, p) for l in lins])
                     pms = graph_ms(torch, [lambda: quant_matmul_plain(x, lin, bf)], iters=2)
                     lms = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wdq])
                     self._record("qmm", f"{what} {k}x{n} M={m} ({path} forced)", err, tol, ms, pms,
@@ -503,7 +513,7 @@ class Smoke:
             pairs = sum(off + i + 1 for i in range(sq))
             nbytes = 2 * b * sq * h * d * 2 + b * (off + sq) * hkv * d * 2 * 2
             extra = None
-            if sq == skv and off == 0:   # kernel 5 computes the same function: same run, same inputs
+            if sq == skv == 2048:   # kernel 5 computes the same function: same run, same inputs
                 k5 = graph_ms(torch, [lambda c=c: flash_prefill_cuda(q, c[0], c[1], d ** -0.5)
                                       for c in caches], iters=iters)
                 extra = {"kernel5_ms": k5}
@@ -533,7 +543,7 @@ class Smoke:
         device memory); act-order, a bias, a ragged column tile and N = 11008;
         row tiles of 64 (M = 40), 128 (M = 100, 512) and 256 (M = 130, 200,
         256)."""
-        from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+        from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for, qmm_cuda
         from gptq_for_llama_tpu_torch.ops.linear import PackedLinear, quant_matmul_plain
         from gptq_for_llama_tpu_torch.ops.quant_matmul import quant_matmul
         from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_linear
@@ -554,8 +564,9 @@ class Smoke:
                                          bits=bits, bias=rng.randn(n) if bias else None,
                                          dtype=torch.bfloat16, device="cuda")
             x = torch.as_tensor(rng.randn(m, k), dtype=torch.bfloat16, device="cuda")
+            before = qmm_cuda.launches
             y = quant_matmul(x, lin)
-            path = qmm_cuda.last_path
+            path = plan_for(x, lin).path if qmm_cuda.launches == before + 1 else None
             ref = quant_matmul_plain(x, lin)
             err = (y.float() - ref.float()).abs().max().item()
             tol = 2e-2 * ref.float().abs().max().item()
@@ -867,7 +878,7 @@ class Smoke:
 
     def _ppl_eval_linears(self, torch, rng, randn):
         """Kernels 1-2 at the perplexity-eval M (8 windows x 2048 tokens)."""
-        from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+        from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for, qmm_cuda
         from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp_cuda, fused_mlp_plain
         from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
         bf, m = torch.bfloat16, 16384
@@ -875,7 +886,7 @@ class Smoke:
             lin = self._linears(torch, rng, k, n, 1)[0]
             x = randn(m, k)
             y = qmm_cuda(x, lin)
-            path = qmm_cuda.last_path
+            path = plan_for(x, lin).path
             ref = quant_matmul_plain(x, lin, bf)
             err = (y.float() - ref.float()).abs().max().item()
             tol = 2e-2 * ref.float().abs().max().item()
@@ -1921,7 +1932,12 @@ class Smoke:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="write the detailed report here")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the phases, in their order")
     args = ap.parse_args()
+    phases = [p for p in PHASES if p in args.phases.split(",")]
+    if len(phases) != len(args.phases.split(",")):
+        ap.error(f"--phases takes names among {','.join(PHASES)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -1933,7 +1949,7 @@ def main() -> int:
     smoke.phase_card(torch)
     smoke.tmp = tempfile.mkdtemp(prefix="gptq_smoke_")
     try:
-        for p in PHASES:
+        for p in phases:
             t0 = time.perf_counter()
             log(f"== phase {p}")
             getattr(smoke, f"phase_{p}")(torch)
@@ -1943,6 +1959,9 @@ def main() -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(smoke.report, f, indent=1)
+    if len(phases) < len(PHASES):
+        log(f"ran phases {','.join(phases)} only: no result line")
+        return 0
     print(smoke.kernels_line())
     print(smoke.card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

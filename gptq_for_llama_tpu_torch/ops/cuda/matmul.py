@@ -105,7 +105,8 @@ def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
     decode linear has only 32 column tiles, so K is split across blocks (17
     ways at K = 4096 for kernel 1). Tiles: kernel 1 above ``GEMV_MAX_M`` when
     K and N are multiples of 8 (16-byte copies), planned by ``_tile_plan``.
-    Kernel 2 has no tile path yet. ``path`` forces one (for measurements)."""
+    Kernel 2 has no tile path yet. ``path`` forces one (for measurements,
+    through ``_launch``)."""
     if path is None:
         tiles_ok = streams == 1 and m > GEMV_MAX_M and k % 8 == 0 and n % 8 == 0
         path = "tile" if tiles_ok else "gemv"
@@ -161,20 +162,30 @@ def _entry(path: str):
     return fn
 
 
-def qmm_cuda(x2: torch.Tensor, lin: PackedLinear, path: str | None = None) -> torch.Tensor:
+def plan_for(x2: torch.Tensor, lin: PackedLinear) -> Plan:
+    """The plan ``qmm_cuda`` launches for x2 (M, K) on the card."""
+    return plan(x2.shape[0], lin.in_features, lin.out_features, lin.bits,
+                _sm_count(x2.device.index or 0))
+
+
+def qmm_cuda(x2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
     """y = x2 @ dequant(lin) + bias on the card. x2: (M, K) bf16, already
-    permuted (act-order); returns (M, N) bf16. The plan picks the path from M
-    (``path`` forces one, for measurements); ``qmm_cuda.last_path`` names the
-    path of the last launch."""
+    permuted (act-order); returns (M, N) bf16. ``plan_for`` picks the path
+    from M."""
     refuse_grad("qmm", x2, lin.bias, lin.scales, lin.zeros)
     check_packed(lin, x2)
     if lin.bias is not None:
         check_tensor(lin.bias, "bias", torch.bfloat16, (lin.out_features,))
+    if x2.shape[0] == 0:
+        return torch.empty((0, lin.out_features), dtype=torch.bfloat16, device=x2.device)
+    return _launch(x2, lin, plan_for(x2, lin))
+
+
+def _launch(x2: torch.Tensor, lin: PackedLinear, p: Plan) -> torch.Tensor:
+    """One launch of kernel 1 on checked operands under plan ``p`` (a
+    measurement may pass a plan with its path forced)."""
     m, k, n = x2.shape[0], lin.in_features, lin.out_features
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    if m == 0:
-        return out
-    p = plan(m, k, n, lin.bits, _sm_count(x2.device.index or 0), path=path)
     partial = (torch.empty((p.split, m, n), dtype=torch.float32, device=x2.device)
                if p.split > 1 else None)
     last = ((p.mt, p.split, p.per_split, p.smem) if p.path == "tile" else
@@ -187,9 +198,7 @@ def qmm_cuda(x2: torch.Tensor, lin: PackedLinear, path: str | None = None) -> to
         torch.cuda.current_stream(x2.device).cuda_stream)
     build.check(build.library("qmm"), err, f"qmm ({p.path})")
     qmm_cuda.launches += 1
-    qmm_cuda.last_path = p.path
     return out
 
 
 qmm_cuda.launches = 0
-qmm_cuda.last_path = None

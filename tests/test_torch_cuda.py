@@ -69,7 +69,8 @@ def _rows_close(got, want, rel):
     (4, 100, 1024, 1024, False)])
 def test_qmm_matches_plain(card, bits, m, k, gs, actorder):
     """2e-2 * max|y|: the plain version rounds the dequantized weight to bf16
-    before its matmul; the kernel keeps it in fp32."""
+    before its matmul; the GEMV (M <= 4) keeps it in fp32, the tiles round it
+    as the plain version does and sum in another order."""
     lin = _linear(k, 256, bits, gs, seed=m, device=card, actorder=actorder)
     x = torch.randn(m, k, device=card).bfloat16()
     assert _close(quant_matmul(x, lin), quant_matmul_plain(x, lin), 2e-2)
@@ -83,8 +84,8 @@ def test_qmm_matches_plain(card, bits, m, k, gs, actorder):
     (4, 512, 1024, 256, 1024, False, False), (4, 130, 1024, 256, 128, True, False),
     (4, 100, 1024, 256, 128, False, True), (4, 130, 512, 11008, 128, False, False),
     (4, 100, 512, 128, 6, False, False), (8, 512, 1024, 512, 32, True, True),
-                (4, 40, 520, 256, 40, False, True), (8, 200, 1024, 264, 128, True, False),
-                (2, 256, 560, 512, 40, True, True)])
+    (4, 40, 520, 256, 40, False, True), (8, 200, 1024, 264, 128, True, False),
+    (2, 256, 560, 512, 40, True, True)])
 def test_qmm_tile_path_matches_plain(card, bits, m, k, n, gs, actorder, bias):
     """Kernel 1's tensor-core tile path (M > 4) through the dispatch: 2, 4
     and 8 bits and wire INT3; groupsize 40 (at 2 bits a group boundary falls
@@ -93,13 +94,13 @@ def test_qmm_tile_path_matches_plain(card, bits, m, k, n, gs, actorder, bias):
     act-order, a bias, a ragged column tile (264) and N = 11008; row tiles of
     64 (M = 40), 128 (M = 100, 512) and 256 (M = 130, 200, 256), K split
     across blocks at these widths. 2e-2 * max|y| as the GEMV."""
-    from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for
     lin = _linear(k, n, bits, gs, seed=m + k, device=card, actorder=actorder, bias=bias)
     x = torch.randn(m, k, device=card).bfloat16()
     kernels.reset_launch_counts()
     got = quant_matmul(x, lin)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["qmm"] == 1 and qmm_cuda.last_path == "tile"
+    assert kernels.launch_counts()["qmm"] == 1 and plan_for(x, lin).path == "tile"
     assert torch.isfinite(got.float()).all()
     assert _close(got, quant_matmul_plain(x, lin), 2e-2)
 
@@ -109,13 +110,15 @@ def test_qmm_tile_path_matches_plain(card, bits, m, k, n, gs, actorder, bias):
 def test_qmm_paths_agree_where_both_run(card, m):
     """Both of kernel 1's paths, forced, at M on either side of the
     threshold: each within 2e-2 * max|y| of the plain version."""
-    from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul
     lin = _linear(1024, 512, 4, 128, seed=m, device=card, bias=True)
     x = torch.randn(m, 1024, device=card).bfloat16()
     want = quant_matmul_plain(x, lin)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
     for path in ("gemv", "tile"):
-        assert _close(qmm_cuda(x, lin, path=path), want, 2e-2), path
-        assert qmm_cuda.last_path == path
+        p = matmul.plan(m, 1024, 512, 4, sms, path=path)
+        assert p.path == path
+        assert _close(matmul._launch(x, lin, p), want, 2e-2), path
 
 
 @pytest.mark.cuda
