@@ -296,9 +296,22 @@ class Smoke:
         log(f"[build] {len(built)} libraries built in {dt:.1f} s ({self.card})")
         for name, text in sorted(built.items()):
             for line in text.splitlines():
-                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                if any(w in line for w in ("registers", "spill", "Compiling entry", "arning")):
                     log(f"[ptxas {name}] {line.strip()}")
         self.report["build_s"] = dt
+        # ptxas reports static shared memory only; the tile kernels size theirs
+        # at launch
+        from gptq_for_llama_tpu_torch.ops.cuda import matmul, matmul_t
+        from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import PATH_IDS
+        fn = build.library("flash_prefill").gptq_flash_smem_bytes
+        smem = {f"flash {body}": fn(i) for body, i in PATH_IDS.items()}
+        for bits in (2, 4, 8):
+            for bm in matmul.TC_ROW_TILES:
+                smem[f"qmm tile {bits}-bit BM={bm}"] = matmul.tile_smem_bytes(bits, 1, bm)
+                smem[f"qmm_t {bits}-bit BM={bm}"] = matmul_t.tile_smem_bytes(bits, bm)
+        log("[build] dynamic shared memory per block (bytes): "
+            + ", ".join(f"{k} {v}" for k, v in smem.items()))
+        self.report["dynamic_smem_bytes"] = smem
 
     # -- phase 3 ---------------------------------------------------------------
     def _record(self, kernel, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops, main=False,
@@ -356,6 +369,8 @@ class Smoke:
             decode_attention_cuda, decode_attention_plain)
         from gptq_for_llama_tpu_torch.ops.cuda.flash import (
             flash_prefill_blocked_cuda, flash_prefill_blocked_plain)
+        from gptq_for_llama_tpu_torch.ops.cuda.flash import _launch as flash_launch
+        from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import plan as flash_plan
         from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill_cuda
         from gptq_for_llama_tpu_torch.ops.cuda import matmul
         from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for, qmm_cuda
@@ -370,10 +385,12 @@ class Smoke:
         def randn(*shape, scale=1.0):
             return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(bf)
 
-        # kernel 1: tolerance 2e-2 * max|plain|: the plain version rounds the
-        # dequantized weight to bf16 before its matmul; the GEMV (M <= 4) keeps
-        # it fp32, the tiles round it as the plain version does and sum in
-        # another order (split K: in fp32 partials).
+        # kernel 1: tolerance 2e-2 * max|plain| where the sums run in another
+        # order than the plain version's: the GEMV (M <= 4) keeps the
+        # dequantized weight in fp32 where the plain version rounds it to bf16,
+        # and tiles with K split sum fp32 partials. Tiles without a split round
+        # the weight as the plain version does and sum the k16 products in
+        # cuBLAS's order: held to 0 bf16 ulp (bit-equal).
         # M: the batch-1 decode step and a prompt, then what serving gives the
         # linears: 8 slots' decode step, a chunk (128), the fused chunk+decode
         # row (8 + 128), the buckets (128, 512, 2048) and a batched admission
@@ -389,10 +406,12 @@ class Smoke:
             for m in rows:
                 x = randn(m, k)
                 y = qmm_cuda(x, lin)
-                path = plan_for(x, lin).path
+                p = plan_for(x, lin)
+                path = p.path
                 ref = quant_matmul_plain(x, lin, bf)
                 err = (y.float() - ref.float()).abs().max().item()
-                tol = 2e-2 * ref.float().abs().max().item()
+                exact = path == "tile" and p.split == 1
+                tol = 0 if exact else 2e-2 * ref.float().abs().max().item()
                 iters = 60 if m <= 136 else 6
                 ms = graph_ms(torch, [lambda l=l: qmm_cuda(x, l) for l in lins], iters=iters)
                 pms = graph_ms(torch, [lambda l=l: quant_matmul_plain(x, l, bf) for l in lins],
@@ -401,7 +420,8 @@ class Smoke:
                 nbytes = m * k * 2 + self._lin_bytes(lin) + m * n * 2
                 self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
                              2 * m * k * n, main=(what == "q_proj" and m == 1),
-                             serve=(what == "q_proj" and m == 8), path=path)
+                             serve=(what == "q_proj" and m == 8), path=path,
+                             ulps=bf16_ulps(torch, y, ref) if exact else None)
             # both paths forced on either side of the crossover (M = 4 | 5)
             for m in (4, 8) if what != "gate_proj" else ():
                 x = randn(m, k)
@@ -512,11 +532,19 @@ class Smoke:
                 for c in caches], iters=iters)
             pairs = sum(off + i + 1 for i in range(sq))
             nbytes = 2 * b * sq * h * d * 2 + b * (off + sq) * hkv * d * 2 * 2
-            extra = None
+            extra = {"body": flash_plan(sq, off)}
+            if sq <= 512:
+                for body in ("sync", "wgmma"):
+                    extra[f"{body}_ms"] = graph_ms(torch, [
+                        lambda c=c, body=body: flash_launch(q, c[0], c[1], off, d ** -0.5, body)
+                        for c in caches], iters=iters)
+                log(f"[kernel flash_prefill_blocked] SQ={sq} offset={off} SKV={skv}: bodies "
+                    f"forced, mma.sync {extra['sync_ms'] * 1e3:.2f} us, wgmma "
+                    f"{extra['wgmma_ms'] * 1e3:.2f} us (plan: {extra['body']}) | {self.card}")
             if sq == skv == 2048:   # kernel 5 computes the same function: same run, same inputs
                 k5 = graph_ms(torch, [lambda c=c: flash_prefill_cuda(q, c[0], c[1], d ** -0.5)
                                       for c in caches], iters=iters)
-                extra = {"kernel5_ms": k5}
+                extra["kernel5_ms"] = k5
                 self.sq2048 = {"shape": f"B={b} SQ=SKV={sq} H={h} offset 0", "ms": ms,
                                "kernel5_ms": k5, "library_ms": lms}
                 log(f"[kernel flash_prefill_blocked] SQ=SKV={sq} offset 0: kernel 4 "
@@ -536,13 +564,17 @@ class Smoke:
         torch.cuda.synchronize()
 
     def _qmm_tile_cases(self, torch, rng):
-        """Kernel 1's tile path on ragged cases through the dispatch, held to
-        the plain version at 2e-2 * max|y| (no timing): 2, 4 and 8 bits and
-        wire INT3; groupsize 40 (at 2 bits a group boundary inside a packed
-        word), a ragged K slab (520, 560), G = 1, groupsize 6 (scales from
-        device memory); act-order, a bias, a ragged column tile and N = 11008;
-        row tiles of 64 (M = 40), 128 (M = 100, 512) and 256 (M = 130, 200,
-        256)."""
+        """Kernel 1's tile path on ragged cases through the dispatch (no
+        timing): 2, 4 and 8 bits and wire INT3; groupsize 40 (at 2 bits a
+        group boundary inside a packed word), a ragged K slab (520, 560), G =
+        1, groupsize 6 (scales from device memory); act-order, a bias, a ragged
+        column tile and N = 11008; row tiles of 64 (M = 40), 128 (M = 100,
+        512) and 256 (M = 130, 200, 256). Where the plan splits K, held to the
+        plain version at 2e-2 * max|y|; where it does not (the last five
+        cases, wide enough to fill the card), the product is bit-equal (with
+        a bias, on the same linear without it: the plain version rounds the
+        product to bf16 before adding the bias)."""
+        import dataclasses
         from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for, qmm_cuda
         from gptq_for_llama_tpu_torch.ops.linear import PackedLinear, quant_matmul_plain
         from gptq_for_llama_tpu_torch.ops.quant_matmul import quant_matmul
@@ -556,7 +588,10 @@ class Smoke:
                 (4, 100, 1024, 256, 128, False, True), (4, 130, 4096, 11008, 128, False, False),
                 (4, 100, 512, 128, 6, False, False), (8, 512, 1024, 512, 32, True, True),
                 (4, 40, 520, 256, 40, False, True), (8, 200, 1024, 264, 128, True, False),
-                (2, 256, 560, 512, 40, True, True)):
+                (2, 256, 560, 512, 40, True, True),
+                (4, 1024, 1024, 4096, 128, False, False), (2, 1024, 560, 4096, 40, False, False),
+                (8, 1024, 1024, 4104, 32, True, True), (4, 2048, 512, 4096, 1024, False, False),
+                (3, 300, 1024, 8192, 128, False, True)):
             w = random_wire_linear(rng, k, n, gs, bits)
             if actorder:
                 w["g_idx"] = w["g_idx"][rng.permutation(k)]
@@ -566,26 +601,38 @@ class Smoke:
             x = torch.as_tensor(rng.randn(m, k), dtype=torch.bfloat16, device="cuda")
             before = qmm_cuda.launches
             y = quant_matmul(x, lin)
-            path = plan_for(x, lin).path if qmm_cuda.launches == before + 1 else None
+            p = plan_for(x, lin)
+            path = p.path if qmm_cuda.launches == before + 1 else None
             ref = quant_matmul_plain(x, lin)
             err = (y.float() - ref.float()).abs().max().item()
             tol = 2e-2 * ref.float().abs().max().item()
+            ok = path == "tile" and bool(torch.isfinite(y.float()).all()) and err <= tol
+            ulps = None
+            if p.split == 1:
+                bare = dataclasses.replace(lin, bias=None)
+                ulps = bf16_ulps(torch, quant_matmul(x, bare), quant_matmul_plain(x, bare))
+                ok = ok and ulps == 0
             what = (f"bits {bits} M={m} K={k} N={n} groupsize {gs}"
                     f"{' act-order' if actorder else ''}{' bias' if bias else ''}")
-            ok = path == "tile" and bool(torch.isfinite(y.float()).all()) and err <= tol
-            log(f"[kernel qmm] tile case {what} [{path}]: max_abs_err {err:.3e} (tol {tol:.3e}) "
-                f"{'ok' if ok else 'FAIL'}")
+            held = "" if ulps is None else f", product {ulps} bf16 ulp (tol 0)"
+            log(f"[kernel qmm] tile case {what} [{path}, split {p.split}]: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e}){held} {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"qmm tile case {what}: path {path}, error {err} > {tol}")
-            rows.append({"case": what, "path": path, "max_abs_err": err, "tol": tol})
+                raise AssertionError(f"qmm tile case {what}: path {path}, error {err} > {tol} "
+                                     f"or {ulps} bf16 ulp")
+            rows.append({"case": what, "path": path, "split": p.split, "max_abs_err": err,
+                         "tol": tol, "product_bf16_ulps": ulps})
         self.report["qmm_tile_cases"] = rows
 
     def _kernel5(self, torch, F, randn):
         """Kernel 5 at the shapes of 7B quantization and eval: one window, the
         calibration forward (16 windows, the CLI's --chunk) and the eval batch
-        (8 windows), then GQA, a ragged S, and serving's batched admissions
-        (8 slots at buckets 32 and 128). Tolerance 1e-2 of each output row's
-        norm, as kernels 3-4."""
+        (8 windows), then GQA, a ragged S, serving's batched admissions (8
+        slots at buckets 32 and 128) and the LoRA step's forward (2 x 512).
+        Tolerance 1e-2 of each output row's norm, as kernels 3-4. Each row
+        names the body its plan takes; the rows of up to 512 queries also time
+        both bodies forced (the plan's threshold)."""
+        from gptq_for_llama_tpu_torch.ops.cuda import flash_prefill as fp
         from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import (flash_prefill_cuda,
                                                                      flash_prefill_plain)
         d = 128
@@ -594,7 +641,8 @@ class Smoke:
                                    (8, 2048, 32, 32, "eval batch"), (1, 2048, 32, 8, "GQA"),
                                    (1, 1000, 32, 32, "ragged"),
                                    (8, 32, 32, 32, "admission, bucket 32"),
-                                   (8, 128, 32, 32, "admission, bucket 128")):
+                                   (8, 128, 32, 32, "admission, bucket 128"),
+                                   (2, 512, 32, 32, "LoRA forward")):
             ncopy = copies_for(b * s * (2 * h + 2 * hkv) * d * 2)
             ins = [(randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d))
                    for _ in range(ncopy)]
@@ -614,9 +662,18 @@ class Smoke:
                 is_causal=True, **gqa) for t in ins], iters=20)
             pairs = s * (s + 1) // 2   # the causal half, diagonal included
             nbytes = b * s * (2 * h + 2 * hkv) * d * 2
+            extra = {"body": fp.plan(s)}
+            if s <= 512:
+                for body in ("sync", "wgmma"):
+                    extra[f"{body}_ms"] = graph_ms(torch, [
+                        lambda t=t, body=body: fp._launch(*t, d ** -0.5, body) for t in ins],
+                        iters=20)
+                log(f"[kernel flash_prefill] {what} B={b} S={s}: bodies forced, mma.sync "
+                    f"{extra['sync_ms'] * 1e3:.2f} us, wgmma {extra['wgmma_ms'] * 1e3:.2f} us "
+                    f"(plan: {extra['body']}) | {self.card}")
             self._record("flash_prefill", f"{what} B={b} S={s} H={h} Hkv={hkv}", err, 1e-2,
                          ms, pms, lms, nbytes, 4 * b * h * pairs * d, main=(b == 8 and s == 2048),
-                         row_rel=rel, ref_max=ref_max, serve=(b == 8 and s == 128))
+                         row_rel=rel, ref_max=ref_max, serve=(b == 8 and s == 128), extra=extra)
             del ins
             torch.cuda.empty_cache()
 
@@ -727,14 +784,18 @@ class Smoke:
 
     def _kernel8(self, torch, rng, randn):
         """Kernel 8, the grad-input of the packed linears, at the LoRA phase's
-        training batch (M = 1024 tokens) and at 2048: q_proj's 4096 x 4096,
-        down_proj's transpose (dx of width K = 11008 from g of width 4096) and
-        gate/up's (K = 4096 from N = 11008), plus one act-order linear
-        through the dispatch (the inverse permutation). Tolerance 2e-2 of
-        each output row's norm: both sides use the same bf16 weight (bit-equal
-        dequantization) and accumulate in fp32 in another order; the plain
-        matmul rounds to bf16 at the end, as the kernel does."""
-        from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import (qmm_t_cuda, quant_matmul_t,
+        training batch (M = 1024 tokens), at 2048 and at the gradient check's
+        128: q_proj's 4096 x 4096, down_proj's transpose (dx of width K =
+        11008 from g of width 4096) and gate/up's (K = 4096 from N = 11008),
+        plus one act-order linear through the dispatch (the inverse
+        permutation). Tolerance 2e-2 of each output row's norm: both sides use
+        the same bf16 weight (bit-equal dequantization) and accumulate in fp32
+        in another order; the plain matmul rounds to bf16 at the end, as the
+        kernel does. Then g = I on q_proj's linear: dx = W^T bit-exactly when
+        the kernel's dequantized slices are bit-equal to
+        PackedLinear.dequantize."""
+        from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import (plan_for, qmm_t_cuda,
+                                                                quant_matmul_t,
                                                                 quant_matmul_t_plain)
         from gptq_for_llama_tpu_torch.ops.linear import PackedLinear
         from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_linear
@@ -743,20 +804,31 @@ class Smoke:
                            (4096, 11008, "gate/up^T")):
             lins = self._linears(torch, rng, k, n, copies_for(k * n // 2))
             wdq = [lins[0].dequantize(bf) for _ in range(copies_for(k * n * 2))]
-            for m in (1024, 2048):
+            for m in (128, 1024, 2048):
                 g = randn(m, n)
                 y = qmm_t_cuda(g, lins[0])
                 ref = quant_matmul_t_plain(g, lins[0])
                 err = (y.float() - ref.float()).abs().max().item()
                 rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
-                ms = graph_ms(torch, [lambda l=l: qmm_t_cuda(g, l) for l in lins], iters=6)
+                iters = 20 if m <= 128 else 6
+                ms = graph_ms(torch, [lambda l=l: qmm_t_cuda(g, l) for l in lins], iters=iters)
                 pms = graph_ms(torch, [lambda l=l: quant_matmul_t_plain(g, l) for l in lins],
                                iters=6)
-                lms = graph_ms(torch, [lambda w=w: torch.matmul(g, w.T) for w in wdq], iters=6)
+                lms = graph_ms(torch, [lambda w=w: torch.matmul(g, w.T) for w in wdq],
+                               iters=iters)
+                p = plan_for(g, lins[0])
                 nbytes = m * n * 2 + self._lin_bytes(lins[0]) + m * k * 2
                 self._record("qmm_t", f"{what} dx = g @ W^T, K={k} N={n} M={m}", err, 2e-2, ms,
                              pms, lms, nbytes, 2 * m * k * n, main=(what == "q_proj" and m == 1024),
-                             row_rel=rel, ref_max=ref_max)
+                             row_rel=rel, ref_max=ref_max,
+                             extra={"row_tile": p.mt, "split": p.split,
+                                    "bit_equal": bool(torch.equal(y, ref))})
+            if what == "q_proj":
+                eye = torch.eye(n, device="cuda", dtype=bf)
+                if not torch.equal(qmm_t_cuda(eye, lins[0]), wdq[0].T.contiguous()):
+                    raise AssertionError("qmm_t: g = I does not give W^T: the dequantized "
+                                         "slices differ from PackedLinear.dequantize")
+                log(f"[kernel qmm_t] g = I, K={k} N={n}: dx == dequantize(W)^T bit-exactly ok")
             del lins, wdq
         # act-order: rows group-sorted on the device, the dispatch un-permutes
         w = random_wire_linear(rng, 4096, 4096, 128, 4)
@@ -886,17 +958,19 @@ class Smoke:
             lin = self._linears(torch, rng, k, n, 1)[0]
             x = randn(m, k)
             y = qmm_cuda(x, lin)
-            path = plan_for(x, lin).path
+            p = plan_for(x, lin)
             ref = quant_matmul_plain(x, lin, bf)
             err = (y.float() - ref.float()).abs().max().item()
-            tol = 2e-2 * ref.float().abs().max().item()
+            exact = p.path == "tile" and p.split == 1   # as phase_kernels' rows
+            tol = 0 if exact else 2e-2 * ref.float().abs().max().item()
+            ulps = bf16_ulps(torch, y, ref) if exact else None
             wdq = lin.dequantize(bf)
             ms = graph_ms(torch, [lambda: qmm_cuda(x, lin)], iters=2)
             pms = graph_ms(torch, [lambda: quant_matmul_plain(x, lin, bf)], iters=2)
             lms = graph_ms(torch, [lambda: torch.matmul(x, wdq)], iters=2)
             nbytes = m * k * 2 + self._lin_bytes(lin) + m * n * 2
             self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
-                         2 * m * k * n, path=path)
+                         2 * m * k * n, path=p.path, ulps=ulps)
             del x, y, ref, wdq
         k, n = 4096, 11008
         gate, up = (self._linears(torch, rng, k, n, 1)[0] for _ in range(2))

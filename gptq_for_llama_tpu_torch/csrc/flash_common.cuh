@@ -9,28 +9,53 @@
 // rounded to bf16 before p @ v, which accumulates in fp32: the TPU kernels'
 // operand types (gptq_for_llama_tpu/ops/pallas/flash.py:103-118). The TPU
 // kernels normalize p before the cast; here the online softmax divides the
-// fp32 accumulator at the end.
+// fp32 accumulator at the end. The wgmma body takes exp(x * scale - m) as
+// 2^(x * scale * log2(e) - m'), one FFMA and one ex2.
 //
 // What bounds it on the H100: operations, once a chunk holds a few hundred
 // queries (B = 8, S = 2048, H = 32 is 275 GFLOP of causal work per layer
 // against 134 MB, 0.28 ms at 989 TFLOP/s); for a short chunk over a short
-// live prefix, bytes.
-// Design (the TPU kernels keep a head's whole K/V in VMEM; an SM has no such
-// room: 512 KB at S = 2048):
+// live prefix, bytes. Two bodies, both hand-written; the wrapper's plan
+// (ops/cuda/flash_prefill.py:plan) picks one from offset + SQ, the same way
+// for both kernels, so kernel 4 at offset 0 stays bit-equal to kernel 5:
+//
+// flash_wgmma_kernel (the TPU kernels keep a head's whole K/V in VMEM; an SM
+// has no such room: 512 KB at S = 2048):
+//  - one block per (128-query tile, head, batch row): two consumer
+//    warpgroups of 64 query rows each and a producer warpgroup whose first
+//    warp issues every copy; setmaxnreg moves registers from the producer to
+//    the consumers (a lone producer warp frees too few: the consumers' request
+//    waits for ever); the heaviest (last) query tiles are launched first;
+//  - the producer keeps TMA loads of 128-key K and V tiles in flight through
+//    3-stage rings of mbarriers (full: bytes landed; empty: both consumer
+//    warpgroups done; K and V each their own), Q is loaded once; tensor maps
+//    are encoded on the host (4-D, so rows past SQ or SKV of a batch row read
+//    as zeros) with the 128-byte swizzle the wgmma descriptors expect;
+//  - S = Q K^T by wgmma.m64n128k16 from shared memory; the softmax runs on
+//    the accumulators in fp32 (running max and denominator per row); P goes
+//    from the accumulators straight to bf16 A fragments in registers, and
+//    O += P V by wgmma.m64n128k16 with V read from shared memory through the
+//    transpose bit; named barriers hand the tensor cores from one warpgroup
+//    to the other, so one's softmax runs while the other's products do, and
+//    each warpgroup issues P(t-1) V(t-1) with S(t), so its own softmax of
+//    tile t overlaps its previous tile's P V;
+//  - key tiles wholly above the tile's causal limit (q_offset + its last row,
+//    kv_end) are never loaded; slots past kv_end are masked, and where a
+//    cache tile reaches past kv_end its V rows there are zeroed in shared
+//    memory before P V (a cache may hold NaN there, and 0 * NaN is NaN).
+//
+// flash_sync_kernel (a causal prefix of at most one 128-key tile):
 //  - one block of 4 warps per (64-query tile, head, batch row); each warp
-//    owns 16 query rows; the heaviest (last) query tiles are launched first;
+//    owns 16 query rows; heaviest tiles first;
 //  - K/V stream through shared memory in 64-key tiles with cp.async: V(t) is
 //    fetched while S = Q K(t)^T is computed, K(t+1) while P V(t) is;
 //  - both products are mma.sync.m16n8k16 bf16 with fp32 accumulators; Q's
 //    fragments stay in registers; P goes from the S accumulators straight to
 //    A fragments (the m16n8 C layout is the m16k16 A layout);
-//  - running max and denominator in fp32 per row; key tiles wholly above the
-//    tile's causal limit (q_offset + its last row) are never loaded; the
-//    diagonal and the ragged last tile are masked, rows past SQ and slots
-//    past the causal limit are zero-filled (a cache may hold NaN there), so
-//    any SQ, SKV and offset works (the TPU kernels
-//    need SQ % 128 == 0 with an offset, S % 256 == 0 without).
-// OFFSET = false compiles the offset out (kernel 5: SQ == SKV, offset 0).
+//  - rows past SQ and slots past the causal limit are zero-filled.
+// Both take any SQ, SKV and offset (the TPU kernels need SQ % 128 == 0 with
+// an offset, S % 256 == 0 without). OFFSET = false compiles the offset out
+// (kernel 5: SQ == SKV, offset 0).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +63,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_sync.cuh"
 
 namespace gptq_flash {
@@ -69,7 +95,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 // grid: (ceil(SQ / kBQ), H, B); block: kThreads; dynamic smem: kSmemBytes
 template <bool OFFSET>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
+flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
              const __nv_bfloat16* __restrict__ k,   // (B, SKV, Hkv, D)
              const __nv_bfloat16* __restrict__ v,   // (B, SKV, Hkv, D)
              __nv_bfloat16* __restrict__ out,       // (B, SQ, H, D)
@@ -234,20 +260,380 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
   }
 }
 
+
+// -- flash_wgmma_kernel ------------------------------------------------------
+// 2^x, the MUFU's approximation (what __expf computes after its multiply)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr int kWBQ = 128;                 // query rows per block: two warpgroups of 64
+constexpr int kWBK = 128;                 // keys per K/V tile
+constexpr int kWThreads = 384;            // warps 0-7 consume, warps 8-11 produce
+constexpr int kWStages = 3;               // K and V tiles in flight
+constexpr int kWBox = 128 * 128 * 2;      // one 128-row x 128-dim tile: two 64-dim halves
+constexpr int kWHalf = kWBox / 2;         // 128 rows x 128 B, 128-byte swizzle
+// Q, the K stages, the V stages, then 1 + 4 kWStages mbarriers; 1 KB to align
+// the tiles (230,528 bytes of the 232,448 a block may have)
+constexpr int kWSmemBytes = (1 + 2 * kWStages) * kWBox + 128 + 1024;
+// registers a thread: 168 at launch (65536 / 384); the producer warpgroup
+// gives up 144 each, the consumers take 72 each (128 x 144 = 256 x 72)
+constexpr int kWConsumerRegs = 240, kWProducerRegs = 24;
+// named barriers: 1 orders the zeroing of V's rows past the causal limit;
+// 2 + w is warpgroup w's turn to issue its products
+constexpr int kBarZero = 1, kBarTurn = 2;
+
+// grid: (ceil(SQ / kWBQ), H, B); block: kWThreads; dynamic smem: kWSmemBytes.
+// tq / tk / tv: 4-D tensor maps (D, heads, rows, B) of q, k, v with a box of
+// (64, 1, 128, 1) and the 128-byte swizzle.
+//
+// Each consumer warpgroup runs, per key tile t: wait for its turn; issue S(t)
+// = Q K(t)^T and O += P(t-1) V(t-1); hand the turn to the other warpgroup;
+// wait for S(t) and release K(t); the softmax of S(t); wait for P V and
+// release V(t-1); rescale O; P(t) to bf16 A fragments. So one warpgroup's
+// softmax runs while the other's products do, and within a warpgroup the
+// softmax of tile t overlaps P(t-1) V(t-1). O sees the same operations in the
+// same order as O = O a(t) + P(t) V(t) tile after tile.
+template <bool OFFSET>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                   int SQ, int SKV, int H, int Hkv, int q_offset, float scale) {
+  using namespace gptq_hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  const uint32_t sq = base;                                  // Q: halves at +0, +kWHalf
+  auto sk = [&](int st) { return base + (1 + st) * kWBox; };
+  auto sv = [&](int st) { return base + (1 + kWStages + st) * kWBox; };
+  const uint32_t bars = base + (1 + 2 * kWStages) * kWBox;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int st) { return bars + 8 * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8 * (1 + kWStages + st); };
+  auto k_empty = [&](int st) { return bars + 8 * (1 + 2 * kWStages + st); };
+  auto v_empty = [&](int st) { return bars + 8 * (1 + 3 * kWStages + st); };
+  // key tile t sits in stage t % kWStages; its barriers complete their
+  // (t / kWStages)-th phase when it lands and when it is released
+  auto parity = [](int t) { return (uint32_t)((t / kWStages) & 1); };
+
+  const int off = OFFSET ? q_offset : 0;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWBQ;   // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  // keys up to the causal limit of the tile's last real row
+  const int kv_end = min(SKV, off + min(q0 + kWBQ, SQ));
+  const int n_kt = (kv_end - 1) / kWBK + 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int st = 0; st < kWStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 8);   // lane 0 of each consumer warp
+      mbar_init(v_empty(st), 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer warpgroup: one lane of its first warp issues every copy, in
+    // the order the consumers take them: K(t), then V(t - 1)
+    reg_dealloc<kWProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      tma_prefetch_desc(&tq);
+      tma_prefetch_desc(&tk);
+      tma_prefetch_desc(&tv);
+      mbar_expect_tx(q_full, kWBox);
+      tma_load_4d(sq, &tq, q_full, 0, h, q0, b);
+      tma_load_4d(sq + kWHalf, &tq, q_full, 64, h, q0, b);
+      for (int t = 0; t <= n_kt; ++t) {
+        if (t < n_kt) {
+          const int st = t % kWStages;
+          if (t >= kWStages) mbar_wait(k_empty(st), parity(t - kWStages));
+          mbar_expect_tx(k_full(st), kWBox);
+          tma_load_4d(sk(st), &tk, k_full(st), 0, kvh, t * kWBK, b);
+          tma_load_4d(sk(st) + kWHalf, &tk, k_full(st), 64, kvh, t * kWBK, b);
+        }
+        if (t >= 1) {
+          const int u = t - 1, st = u % kWStages;
+          if (u >= kWStages) mbar_wait(v_empty(st), parity(u - kWStages));
+          mbar_expect_tx(v_full(st), kWBox);
+          tma_load_4d(sv(st), &tv, v_full(st), 0, kvh, u * kWBK, b);
+          tma_load_4d(sv(st) + kWHalf, &tv, v_full(st), 64, kvh, u * kWBK, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    reg_alloc<kWConsumerRegs>();
+    const int wg = warp >> 2, wi = warp & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row_lo = q0 + wg * 64 + wi * 16 + g, row_hi = row_lo + 8;
+    const int pos_lo = off + row_lo, pos_hi = off + row_hi;
+    const int wg_first = off + q0 + wg * 64;   // absolute position of the warpgroup's first row
+
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+    float s[64];
+    uint32_t pf[kWBK / 16][4];
+    float m_lo = kNeg, m_hi = kNeg, l_lo = 0.0f, l_hi = 0.0f;
+
+    auto issue_s = [&](int st) {   // S = Q K^T: 64 rows x 128 keys
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t koff = (kk >> 2) * kWHalf + (kk & 3) * 32;
+        wgmma_m64n128k16_ss<0>(s, desc_sw128(sq + wg * 64 * 128 + koff, 16, 1024),
+                               desc_sw128(sk(st) + koff, 16, 1024), kk > 0);
+      }
+    };
+    auto issue_pv = [&](int st) {   // O += P V: V is [key][dim], MN-major for the product
+#pragma unroll
+      for (int j = 0; j < kWBK / 16; ++j)
+        wgmma_m64n128k16_rs<1>(o, pf[j], desc_sw128(sv(st) + j * 16 * 128, kWHalf, 1024), 1);
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    // causal / ragged mask and online softmax of key tile t: s becomes p
+    // (fp32); returns the factors that rescale O. The running max is kept in
+    // log2 units, m = max(s) * scale * log2(e), so p = 2^(s * c - m) is one
+    // FFMA and one ex2 (n8 chunk i: keys k0 + 8 i + 2 t4 + {0, 1}; elements
+    // 0-1 row_lo, 2-3 row_hi)
+    const float c = scale * 1.4426950408889634f;
+    auto softmax = [&](int t, float& a_lo, float& a_hi) {
+      const int k0 = t * kWBK;
+      if ((k0 + kWBK - 1 > wg_first) || (k0 + kWBK > kv_end)) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + i * 8 + t4 * 2 + (e & 1);
+            if (key > (e < 2 ? pos_lo : pos_hi) || key >= kv_end) s[4 * i + e] = -INFINITY;
+          }
+      }
+      float mx_lo = kNeg, mx_hi = kNeg;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[4 * i], s[4 * i + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+      }
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, sh));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, sh));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo * c), mn_hi = fmaxf(m_hi, mx_hi * c);
+      a_lo = ex2(m_lo - mn_lo);
+      a_hi = ex2(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        s[4 * i] = ex2(fmaf(s[4 * i], c, -mn_lo));
+        s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], c, -mn_lo));
+        s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], c, -mn_hi));
+        s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], c, -mn_hi));
+        sum_lo += s[4 * i] + s[4 * i + 1];
+        sum_hi += s[4 * i + 2] + s[4 * i + 3];
+      }
+      l_lo = l_lo * a_lo + sum_lo;
+      l_hi = l_hi * a_hi + sum_hi;
+    };
+    // O *= a, then p as bf16 A fragments: keys 16j..16j+15 are n8 chunks 2j
+    // and 2j+1
+    auto rescale_and_pack = [&](float a_lo, float a_hi) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        o[4 * i] *= a_lo;
+        o[4 * i + 1] *= a_lo;
+        o[4 * i + 2] *= a_hi;
+        o[4 * i + 3] *= a_hi;
+      }
+#pragma unroll
+      for (int j = 0; j < kWBK / 16; ++j) {
+        pf[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+        pf[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+        pf[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+        pf[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+      }
+    };
+    // hand the tensor cores to the other warpgroup (warpgroup 1's last
+    // hand-over would have no taker: warpgroup 0 has issued its last products)
+    auto hand_over = [&](int t) {
+      if (wg == 0 || t < n_kt - 1) named_barrier_arrive(kBarTurn + (wg ^ 1), 256);
+    };
+
+    if (wg == 1) named_barrier_arrive(kBarTurn, 256);   // warpgroup 0 issues first
+    mbar_wait(q_full, 0);
+    float a_lo, a_hi;
+    // key tile 0: S only
+    mbar_wait(k_full(0), 0);
+    named_barrier(kBarTurn + wg, 256);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    hand_over(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    release(k_empty(0));
+    softmax(0, a_lo, a_hi);
+    rescale_and_pack(a_lo, a_hi);
+    // key tiles 1 ..: S(t) and P(t-1) V(t-1) in flight together
+    for (int kt = 1; kt < n_kt; ++kt) {
+      const int st = kt % kWStages, pst = (kt - 1) % kWStages;
+      mbar_wait(k_full(st), parity(kt));
+      mbar_wait(v_full(pst), parity(kt - 1));
+      named_barrier(kBarTurn + wg, 256);
+      wgmma_fence();
+      issue_s(st);
+      wgmma_commit();
+      issue_pv(pst);
+      wgmma_commit();
+      hand_over(kt);
+      wgmma_wait<1>();
+      fence_regs(s);
+      release(k_empty(st));
+      softmax(kt, a_lo, a_hi);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pf);
+      release(v_empty(pst));
+      rescale_and_pack(a_lo, a_hi);
+    }
+
+    // the last tile's P V
+    const int lst = (n_kt - 1) % kWStages;
+    mbar_wait(v_full(lst), parity(n_kt - 1));
+    if (OFFSET && kv_end < min(SKV, (n_kt - 1) * kWBK + kWBK)) {
+      // the cache's slots from kv_end to the tile's edge may hold NaN: zero
+      // their V rows (both halves) before P V reads them
+      const int r0 = kv_end - (n_kt - 1) * kWBK;
+      const int chunks = (kWBK - r0) * 2 * 8;
+      for (int c = tid; c < chunks; c += 256) {
+        const int r = r0 + (c >> 4), half = (c >> 3) & 1, c16 = c & 7;
+        *reinterpret_cast<uint4*>(sbase + (sv(lst) - base) + half * kWHalf + r * 128 + c16 * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      fence_proxy_async();
+      named_barrier(kBarZero, 256);
+    }
+    wgmma_fence();
+    issue_pv(lst);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+
+#pragma unroll
+    for (int sh = 1; sh < 4; sh <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, sh);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, sh);
+    }
+    const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
+    const size_t q_stride = (size_t)H * kD;
+    if (row_lo < SQ) {
+      __nv_bfloat16* orow = out + ((size_t)b * SQ + row_lo) * q_stride + (size_t)h * kD;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        *reinterpret_cast<uint32_t*>(orow + i * 8 + t4 * 2) =
+            pack_bf16(o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo);
+    }
+    if (row_hi < SQ) {
+      __nv_bfloat16* orow = out + ((size_t)b * SQ + row_hi) * q_stride + (size_t)h * kD;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        *reinterpret_cast<uint32_t*>(orow + i * 8 + t4 * 2) =
+            pack_bf16(o[4 * i + 2] * inv_hi, o[4 * i + 3] * inv_hi);
+    }
+  }
+}
+
+// -- host --------------------------------------------------------------------
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
+// -lcuda link)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess || q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a (B, rows, heads, 128) bf16 tensor: a box of 64 dims x
+// 1 head x 128 rows x 1 batch row, 128-byte swizzle; rows past `rows` read as
+// zeros.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)heads, (cuuint64_t)rows,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2, (cuuint64_t)heads * kD * 2,
+                                 (cuuint64_t)rows * heads * kD * 2};
+  const cuuint32_t box[4] = {64, 1, 128, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The two bodies: the wrapper's plan names one
+enum Path { kSync = 0, kWgmma = 1 };
+
 // One launch; sets the dynamic shared memory attribute once per instantiation
 // (not per launch, so a CUDA-graph capture sees none).
 template <bool OFFSET>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int SQ,
-                   int SKV, int H, int Hkv, int q_offset, float scale, cudaStream_t stream) {
-  auto kern = flash_kernel<OFFSET>;
+                   int SKV, int H, int Hkv, int q_offset, float scale, int path,
+                   cudaStream_t stream) {
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (path == kWgmma) {
+    auto kern = flash_wgmma_kernel<OFFSET>;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
+    if (attr != cudaSuccess) return attr;
+    CUtensorMap tq, tk, tv;
+    if (!tensor_map(&tq, q, B, SQ, H) || !tensor_map(&tk, k, B, SKV, Hkv) ||
+        !tensor_map(&tv, v, B, SKV, Hkv))
+      return cudaErrorInvalidValue;
+    dim3 grid((SQ + kWBQ - 1) / kWBQ, H, B);
+    kern<<<grid, kWThreads, kWSmemBytes, stream>>>(tq, tk, tv, ob, SQ, SKV, H, Hkv, q_offset,
+                                                   scale);
+    return cudaGetLastError();
+  }
+  if (path != kSync) return cudaErrorInvalidValue;
+  auto kern = flash_sync_kernel<OFFSET>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (attr != cudaSuccess) return attr;
   dim3 grid((SQ + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), SQ, SKV, H, Hkv,
-      q_offset, scale);
+      static_cast<const __nv_bfloat16*>(v), ob, SQ, SKV, H, Hkv, q_offset, scale);
   return cudaGetLastError();
 }
 

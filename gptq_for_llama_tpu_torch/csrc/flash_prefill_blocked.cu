@@ -10,16 +10,16 @@
 // What bounds it on the H100: for a 100-token 7B prompt, bytes (q, the live
 // K/V and the output: 3.3 MB, about 1 us at 3.35 TB/s); the operations
 // (4 * SQ * live * D per head) take over for chunks of a few hundred
-// queries. The body is kernel 5's (flash_common.cuh: 64-query tiles of 4
-// warps, 64-key K/V tiles in a cp.async double buffer, q k^T and p v as
-// mma.sync bf16 with fp32 sums, the online softmax in fp32 with p turned
-// straight into bf16 A fragments, heaviest tiles first) with the offset
-// compiled in: row i sits at q_offset + i, key tiles above a tile's causal
-// limit are never loaded, rows past SQ and keys past SKV are zero-filled, so
-// any SQ, SKV and offset works (the TPU kernel needs SQ % 128 == 0).
-// A short chunk over a long cache gives only ceil(SQ / 64) x H blocks (64 for
-// the runner's 100-token prompt at 32 heads); each reads only its live keys,
-// so no split of the keys across blocks is needed there (PERF.md).
+// queries. The bodies are kernel 5's (flash_common.cuh: 128-query blocks of
+// two wgmma consumer warpgroups fed by a TMA producer warpgroup, or for short
+// chunks 64-query blocks on mma.sync; the wrapper's plan picks one from
+// offset + SQ)
+// with the offset compiled in: row i sits at q_offset + i, key tiles above a
+// tile's causal limit are never loaded, slots past the limit are masked and
+// never reach P V, so any SQ, SKV and offset works (the TPU kernel needs
+// SQ % 128 == 0). A short chunk over a long cache gives few blocks; each
+// reads only its live keys, so no split of the keys across blocks is needed
+// there (PERF.md).
 #include "flash_common.cuh"
 
 extern "C" const char* gptq_error_string(int e) {
@@ -28,10 +28,12 @@ extern "C" const char* gptq_error_string(int e) {
 
 extern "C" int gptq_flash_prefill_blocked(const void* q, const void* k, const void* v,
                                           void* out, int B, int SQ, int SKV, int H, int Hkv,
-                                          int D, int q_offset, float scale, void* stream) {
+                                          int D, int q_offset, float scale, int path,
+                                          void* stream) {
   if (D != gptq_flash::kD || B < 1 || SQ < 1 || SKV < 1 || Hkv < 1 || H % Hkv != 0 ||
       q_offset < 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(gptq_flash::launch<true>(q, k, v, out, B, SQ, SKV, H, Hkv, q_offset,
-                                                   scale, static_cast<cudaStream_t>(stream)));
+                                                   scale, path,
+                                                   static_cast<cudaStream_t>(stream)));
 }

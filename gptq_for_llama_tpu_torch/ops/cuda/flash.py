@@ -4,7 +4,8 @@ and plain version.
 Replaces ``gptq_for_llama_tpu/ops/pallas/flash.py:_flash_blocked_kernel``
 (entry ``flash_prefill_blocked``): SQ queries at absolute positions
 ``q_offset + i`` attend cache slots ``j <= q_offset + i``. The kernel is
-``csrc/flash_prefill_blocked.cu``; it takes any SQ, SKV and offset (the TPU
+``csrc/flash_prefill_blocked.cu`` on kernel 5's two bodies, picked by
+``flash_prefill.plan`` from offset + SQ; it takes any SQ, SKV and offset (the TPU
 kernel needs SQ % 128 == 0). The plain version is the masked softmax of
 ``attention.attention_plain`` in fp32.
 """
@@ -17,6 +18,7 @@ import torch
 
 from . import build
 from .attention import attention_plain
+from .flash_prefill import PATH_IDS, plan
 from .grad import refuse_grad
 from .matmul import check_tensor
 
@@ -37,7 +39,7 @@ def _entry():
     fn = build.library("flash_prefill_blocked").gptq_flash_prefill_blocked
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p] + [i] * 7 + [ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p] + [i] * 7 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -55,14 +57,20 @@ def flash_prefill_blocked_cuda(q, k, v, q_offset: int, scale: float) -> torch.Te
     check_tensor(q, "q", torch.bfloat16)
     check_tensor(k, "k", torch.bfloat16, (b, skv, hkv, d))
     check_tensor(v, "v", torch.bfloat16, (b, skv, hkv, d))
-    out = torch.empty_like(q)
     if sq == 0:
-        return out
-    fn = _entry()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, sq, skv, h, hkv, d, int(q_offset), float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(build.library("flash_prefill_blocked"), err, "flash_prefill_blocked")
+        return torch.empty_like(q)
+    return _launch(q, k, v, q_offset, scale, plan(sq, int(q_offset)))
+
+
+def _launch(q, k, v, q_offset: int, scale: float, path: str) -> torch.Tensor:
+    """One launch of kernel 4 on checked operands through body ``path`` (a
+    measurement may force one)."""
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   b, sq, k.shape[1], h, k.shape[2], d, int(q_offset), float(scale),
+                   PATH_IDS[path], torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(build.library("flash_prefill_blocked"), err, f"flash_prefill_blocked ({path})")
     flash_prefill_blocked_cuda.launches += 1
     return out
 

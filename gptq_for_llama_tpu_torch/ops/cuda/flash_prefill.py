@@ -4,14 +4,17 @@ and plain version.
 Replaces ``gptq_for_llama_tpu/ops/pallas/flash.py:_flash_kernel`` (entry
 ``flash_prefill``), which the cache-less causal forward reaches: the GPTQ
 calibration forward and the perplexity eval. The kernel is
-``csrc/flash_prefill.cu`` (bf16 tensor cores, K/V streamed through shared
-memory with an online softmax); it takes any S (the TPU kernel needs
-S % 256 == 0 and K+V of a head in VMEM). The plain version is the fp32 masked
-softmax of ``attention.attention_plain``. Where a gradient is wanted (LoRA
-training) the forward still launches the kernel, inside ``_CausalAttention``,
-whose backward is the plain version's gradient recomputed from the saved
-q/k/v (the TPU package differentiates its XLA softmax; ``flash_prefill`` has
-no VJP there).
+``csrc/flash_prefill.cu`` with two bodies in ``csrc/flash_common.cuh``:
+128-query blocks of two ``wgmma`` warpgroups fed by a TMA producer
+warpgroup, and for a causal prefix of at most one 128-key tile the 64-query
+``mma.sync`` blocks; ``plan`` picks one from offset + query count, the same
+way for kernel 4, so the two kernels stay bit-equal at offset 0. It takes
+any S (the TPU kernel needs S % 256 == 0 and K+V of a head in VMEM). The
+plain version is the fp32 masked softmax of ``attention.attention_plain``.
+Where a gradient is wanted (LoRA training) the forward still launches the
+kernel, inside ``_CausalAttention``, whose backward is the plain version's
+gradient recomputed from the saved q/k/v (the TPU package differentiates its
+XLA softmax; ``flash_prefill`` has no VJP there).
 """
 
 from __future__ import annotations
@@ -28,6 +31,20 @@ from .matmul import check_tensor
 SOURCE = "gptq_for_llama_tpu_torch/csrc/flash_prefill.cu"
 REPLACES = "gptq_for_llama_tpu/ops/pallas/flash.py:27"
 
+# Kernels 4 and 5 run the 64-query mma.sync body where the longest causal
+# prefix (offset + query rows) fits in one 128-key tile of the wgmma body,
+# and the warp-specialised wgmma body above: the measured crossover (PERF.md
+# section 6)
+SYNC_MAX_KEYS = 128
+PATH_IDS = {"sync": 0, "wgmma": 1}   # csrc/flash_common.cuh's Path
+
+
+def plan(sq: int, q_offset: int = 0) -> str:
+    """The body kernels 4 and 5 launch for ``sq`` query rows at
+    ``q_offset``. A function of offset + SQ alone, so kernel 4 at offset 0
+    takes kernel 5's body and stays bit-equal to it."""
+    return "sync" if q_offset + sq <= SYNC_MAX_KEYS else "wgmma"
+
 
 def flash_prefill_plain(q, k, v, scale: float) -> torch.Tensor:
     """q (B, S, H, D), k/v (B, S, Hkv, D): query i attends keys j <= i,
@@ -41,7 +58,7 @@ def _entry():
     fn = build.library("flash_prefill").gptq_flash_prefill
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p] + [i] * 5 + [ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p] + [i] * 5 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -58,13 +75,20 @@ def flash_prefill_cuda(q, k, v, scale: float) -> torch.Tensor:
     check_tensor(q, "q", torch.bfloat16)
     check_tensor(k, "k", torch.bfloat16, (b, s, hkv, d))
     check_tensor(v, "v", torch.bfloat16, (b, s, hkv, d))
-    out = torch.empty_like(q)
     if b * s == 0:
-        return out
-    fn = _entry()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, hkv, d,
-             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(build.library("flash_prefill"), err, "flash_prefill")
+        return torch.empty_like(q)
+    return _launch(q, k, v, scale, plan(s))
+
+
+def _launch(q, k, v, scale: float, path: str) -> torch.Tensor:
+    """One launch of kernel 5 on checked operands through body ``path`` (a
+    measurement may force one)."""
+    b, s, h, d = q.shape
+    out = torch.empty_like(q)
+    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+                   k.shape[2], d, float(scale), PATH_IDS[path],
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(build.library("flash_prefill"), err, f"flash_prefill ({path})")
     flash_prefill_cuda.launches += 1
     return out
 

@@ -70,29 +70,41 @@ def tile_blocks_per_sm(bits: int, streams: int, bm: int) -> int:
     return max(1, min(2, SMEM_PER_SM // (tile_smem_bytes(bits, streams, bm) + 1024)))
 
 
-def _tile_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int) -> Plan:
-    """The row tile covers M in one tile up to 256 rows (the padded rows cost
-    less than a second row of tiles); above that, 256 where those tiles alone
-    give every SM a block, else 128. Fewer tiles than SMs split K: the split
-    that fills every SM and costs the fewest waves x (slabs per block + 2, a
-    block's start-up: the first two slabs' copies in flight), the smallest
-    such split, each split keeping at least 4 slabs."""
-    cols = -(-n // TILE_N)
+def row_tile(m: int, cols: int, sms: int) -> int:
+    """The row tile of a tensor-core tile kernel (kernels 1 and 8): one tile
+    covers M up to 256 rows (the padded rows cost less than a second row of
+    tiles); above that, 256 where those tiles alone give every SM a block,
+    else 128. ``cols``: column tiles of the output."""
     if m <= 256:
-        bm = next(b for b in TC_ROW_TILES if m <= b)
-    else:
-        bm = 256 if cols * -(-m // 256) >= sms else 128
-    tiles = cols * -(-m // bm)
-    slabs = -(-k // TC_TILE_K)
+        return next(b for b in TC_ROW_TILES if m <= b)
+    return 256 if cols * -(-m // 256) >= sms else 128
+
+
+def reduction_split(tiles: int, slabs: int, slots: int, sms: int) -> tuple[int, int]:
+    """How many blocks share one output tile's reduction, and how many
+    64-deep slabs each takes. Fewer tiles than SMs split the reduction: the
+    split that fills every SM and costs the fewest waves x (slabs per block +
+    2, a block's start-up: the first two slabs' copies in flight), the
+    smallest such split, each split keeping at least 4 slabs. ``slots``:
+    resident blocks on the card."""
     split = 1
     if tiles < sms:
-        slots = sms * tile_blocks_per_sm(bits, streams, bm)
         hi = max(1, slabs // 4)
         lo = min(-(-sms // tiles), hi)
         split = min(range(lo, hi + 1),
                     key=lambda s: (-(-tiles * s // slots) * (-(-slabs // s) + 2), s))
     per = -(-slabs // split)
-    return Plan("tile", bm, -(-slabs // per), per, tile_smem_bytes(bits, streams, bm))
+    return -(-slabs // per), per
+
+
+def _tile_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int) -> Plan:
+    """``row_tile`` over N's column tiles, then ``reduction_split`` along K."""
+    cols = -(-n // TILE_N)
+    bm = row_tile(m, cols, sms)
+    tiles = cols * -(-m // bm)
+    slots = sms * tile_blocks_per_sm(bits, streams, bm)
+    split, per = reduction_split(tiles, -(-k // TC_TILE_K), slots, sms)
+    return Plan("tile", bm, split, per, tile_smem_bytes(bits, streams, bm))
 
 
 def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,

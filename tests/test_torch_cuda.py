@@ -85,24 +85,37 @@ def test_qmm_matches_plain(card, bits, m, k, gs, actorder):
     (4, 100, 1024, 256, 128, False, True), (4, 130, 512, 11008, 128, False, False),
     (4, 100, 512, 128, 6, False, False), (8, 512, 1024, 512, 32, True, True),
     (4, 40, 520, 256, 40, False, True), (8, 200, 1024, 264, 128, True, False),
-    (2, 256, 560, 512, 40, True, True)])
+    (2, 256, 560, 512, 40, True, True),
+    # wide enough that the plan does not split K
+    (4, 1024, 1024, 4096, 128, False, False), (2, 1024, 560, 4096, 40, False, False),
+    (8, 1024, 1024, 4104, 32, True, True), (4, 2048, 512, 4096, 1024, False, False),
+    (3, 300, 1024, 8192, 128, False, True)])
 def test_qmm_tile_path_matches_plain(card, bits, m, k, n, gs, actorder, bias):
     """Kernel 1's tensor-core tile path (M > 4) through the dispatch: 2, 4
     and 8 bits and wire INT3; groupsize 40 (at 2 bits a group boundary falls
     inside a packed word), a ragged K slab (520, 560), G = 1, groupsize 6 (a
     slab touches more groups than the stage holds: scales from device memory);
-    act-order, a bias, a ragged column tile (264) and N = 11008; row tiles of
-    64 (M = 40), 128 (M = 100, 512) and 256 (M = 130, 200, 256), K split
-    across blocks at these widths. 2e-2 * max|y| as the GEMV."""
+    act-order, a bias, a ragged column tile (264, 4104) and N = 11008; row
+    tiles of 64 (M = 40), 128 (M = 100, 512) and 256 (M = 130, 200, 256).
+    Where the plan splits K (fp32 partials summed by a second kernel) the
+    output is held to 2e-2 * max|y|, as the GEMV; where it does not, the tiles
+    sum the k16 products in cuBLAS's order and the product is bit-equal to the
+    plain version (with a bias, on the same linear without it: the plain
+    version rounds the product to bf16 before adding the bias)."""
+    import dataclasses
     from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for
     lin = _linear(k, n, bits, gs, seed=m + k, device=card, actorder=actorder, bias=bias)
     x = torch.randn(m, k, device=card).bfloat16()
     kernels.reset_launch_counts()
     got = quant_matmul(x, lin)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["qmm"] == 1 and plan_for(x, lin).path == "tile"
+    p = plan_for(x, lin)
+    assert kernels.launch_counts()["qmm"] == 1 and p.path == "tile"
     assert torch.isfinite(got.float()).all()
     assert _close(got, quant_matmul_plain(x, lin), 2e-2)
+    if p.split == 1:
+        bare = dataclasses.replace(lin, bias=None)
+        assert torch.equal(quant_matmul(x, bare), quant_matmul_plain(x, bare))
 
 
 @pytest.mark.cuda
@@ -215,10 +228,12 @@ def test_kernels_4_and_5_agree_without_an_offset(card, b, s, h, hkv):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,hkv", [(1, 1, 8, 8), (2, 63, 8, 2), (1, 64, 4, 4),
                                        (1, 65, 8, 8), (2, 300, 8, 2), (1, 1000, 4, 1),
-                                       (1, 2048, 4, 2)])
+                                       (1, 2048, 4, 2), (1, 127, 4, 1), (1, 128, 4, 4),
+                                       (2, 129, 8, 1)])
 def test_flash_prefill_matches_plain(card, b, s, h, hkv):
     """1e-2 of each row's norm: both softmax in fp32; the kernel rounds p and
-    its output to bf16 (about 2^-9 relative each)."""
+    its output to bf16 (about 2^-9 relative each). S = 127-129 straddle the
+    wgmma body's 128-query block and key tile (rows past S read as zeros)."""
     q = torch.randn(b, s, h, 128, device=card).bfloat16()
     k = torch.randn(b, s, hkv, 128, device=card).bfloat16()
     v = torch.randn(b, s, hkv, 128, device=card).bfloat16()
@@ -228,6 +243,54 @@ def test_flash_prefill_matches_plain(card, b, s, h, hkv):
     assert kernels.launch_counts()["flash_prefill"] == 1
     assert torch.isfinite(got.float()).all()
     assert _rows_close(got, flash_prefill_plain(q, k, v, 128 ** -0.5), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["sync", "wgmma"])
+@pytest.mark.parametrize("b,s,h,hkv", [(1, 1, 8, 8), (2, 63, 8, 2), (1, 127, 4, 1),
+                                       (1, 128, 4, 4), (2, 129, 8, 1), (1, 1000, 4, 1),
+                                       (2, 512, 8, 8)])
+def test_flash_bodies_match_plain(card, path, b, s, h, hkv):
+    """Both bodies of kernels 4 and 5, forced, whatever the plan would pick:
+    kernel 5 within 1e-2 of each row's norm of the plain version, and kernel
+    4 at offset 0 bit-equal to it."""
+    from gptq_for_llama_tpu_torch.ops.cuda import flash, flash_prefill as fp
+    gen = torch.Generator(device=card)
+    gen.manual_seed(s)
+    q = torch.randn(b, s, h, 128, generator=gen, device=card).bfloat16()
+    k = torch.randn(b, s, hkv, 128, generator=gen, device=card).bfloat16()
+    v = torch.randn(b, s, hkv, 128, generator=gen, device=card).bfloat16()
+    got5 = fp._launch(q, k, v, 128 ** -0.5, path)
+    got4 = flash._launch(q, k, v, 0, 128 ** -0.5, path)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got5.float()).all()
+    assert _rows_close(got5, flash_prefill_plain(q, k, v, 128 ** -0.5), 1e-2)
+    assert torch.equal(got4.view(torch.int16), got5.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["sync", "wgmma"])
+@pytest.mark.parametrize("sq,off,skv,hkv", [(45, 0, 256, 8), (100, 0, 2048, 2),
+                                            (130, 77, 1000, 8), (77, 1900, 2048, 1),
+                                            (300, 5, 512, 4)])
+def test_kernel_4_reads_nothing_past_the_causal_limit(card, path, sq, off, skv, hkv):
+    """Kernel 4's bodies over a cache that holds NaN in every slot past the
+    chunk's causal limit (off + SQ): a TMA tile copies whole slots, so the
+    wgmma body zeroes V's rows past the limit before P V (0 * NaN is NaN).
+    Finite, and every row within 1e-2 of its norm of the plain version on the
+    clean cache."""
+    from gptq_for_llama_tpu_torch.ops.cuda import flash
+    gen = torch.Generator(device=card)
+    gen.manual_seed(sq + off)
+    q = torch.randn(1, sq, 8, 128, generator=gen, device=card).bfloat16()
+    k = torch.randn(1, skv, hkv, 128, generator=gen, device=card).bfloat16()
+    v = torch.randn(1, skv, hkv, 128, generator=gen, device=card).bfloat16()
+    want = flash_prefill_blocked_plain(q, k, v, off, 128 ** -0.5)
+    k[:, off + sq:] = float("nan")
+    v[:, off + sq:] = float("nan")
+    got = flash._launch(q, k, v, off, 128 ** -0.5, path)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and _rows_close(got, want, 1e-2)
 
 
 @pytest.mark.cuda
@@ -485,6 +548,47 @@ def test_qmm_t_matches_plain(card, bits, m, k, n, gs, actorder):
     if lin.perm is not None:
         want = want[:, torch.argsort(lin.perm)]
     assert _rows_close(got, want, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,m", [(4096, 4096, 128), (11008, 4096, 128), (4096, 11008, 128),
+                                   (4096, 4096, 1024), (1024, 512, 300)])
+def test_qmm_t_plans_match_plain(card, k, n, m):
+    """Kernel 8 at the gradient check's M = 128 on the three LoRA widths (the
+    plan splits N 8, 3 and 8 ways: fp32 partials summed in a fixed order), at
+    the training batch and on a small split case: every row within 2e-2 of its
+    norm; where N is not split, bit-equal to the plain version; two launches
+    give the same bytes."""
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import (plan_for, qmm_t_cuda,
+                                                            quant_matmul_t_plain)
+    lin = _linear(k, n, 4, 128, seed=k + n + m, device=card)
+    g = torch.randn(m, n, device=card).bfloat16()
+    got, again = qmm_t_cuda(g, lin), qmm_t_cuda(g, lin)
+    want = quant_matmul_t_plain(g, lin)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rows_close(got, want, 2e-2)
+    if plan_for(g, lin).split == 1:
+        assert torch.equal(got, want)
+    else:
+        assert m < 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,k,gs,actorder", [(4, 512, 128, False), (2, 560, 40, False),
+                                                (8, 520, 40, True), (3, 512, 64, False),
+                                                (4, 1024, 1024, False), (4, 512, 6, False)])
+def test_qmm_t_dequantizes_bit_equal(card, bits, k, gs, actorder):
+    """g = I (M = N): each dx row is one column of W times 1.0, so dx = W^T
+    exactly when the kernel's dequantized slices are bit-equal to
+    PackedLinear.dequantize (a group boundary inside a word at 40 and 2 bits,
+    a ragged last group, G = 1, scales from device memory at groupsize 6)."""
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import qmm_t_cuda
+    n = 288   # a ragged last slice of 64; packs the zeros at 2 and 3 bits
+    lin = _linear(k, n, bits, gs, seed=k + gs, device=card, actorder=actorder)
+    got = qmm_t_cuda(torch.eye(n, device=card).bfloat16(), lin)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lin.dequantize(torch.bfloat16).T.contiguous())
 
 
 def _fold_case(card, b, s, h, hkv, offs, seed=0):

@@ -1,9 +1,11 @@
-"""The host-side launch plans of kernels 1 and 2 (``ops/cuda/matmul.plan``),
-at LLaMA-7B's widths. Pure arithmetic: no card, no nvcc.
+"""The host-side launch plans of kernels 1 and 2 (``ops/cuda/matmul.plan``)
+and of kernel 8 (``ops/cuda/matmul_t.plan``), at LLaMA-7B's widths. Pure
+arithmetic: no card, no nvcc.
 
 Kernel 1 keeps the split-K GEMV for decode rows and takes the tensor-core
 tiles above ``GEMV_MAX_M``; kernel 2 keeps its GEMV plan at every M (its tile
-form is later work)."""
+form is later work); kernel 8 takes kernel 1's row tile and splits N where
+its tiles do not fill the card."""
 
 import pytest
 
@@ -132,3 +134,84 @@ def test_a_path_can_be_forced_for_measurement():
     assert plan(512, 4096, 4096, 4, SMS, path="gemv") == plan(512, 4096, 4096, 4, SMS,
                                                               streams=1, path="gemv")
     assert plan(512, 4096, 4096, 4, SMS, path="gemv").mt == 8
+
+
+# -- kernel 8, the grad-input dx (M, K) = g (M, N) @ dequant(W)^T --------------
+from gptq_for_llama_tpu_torch.ops.cuda import matmul_t  # noqa: E402
+
+
+@pytest.mark.parametrize("k,n,m,want", [
+    (4096, 4096, 1, (64, 8, 8)), (4096, 4096, 128, (128, 8, 8)),
+    (4096, 4096, 1024, (128, 1, 64)), (4096, 4096, 2048, (256, 1, 64)),
+    (11008, 4096, 1, (64, 3, 22)), (11008, 4096, 128, (128, 3, 22)),
+    (11008, 4096, 1024, (256, 1, 64)), (11008, 4096, 2048, (256, 1, 64)),
+    (4096, 11008, 1, (64, 8, 22)), (4096, 11008, 128, (128, 8, 22)),
+    (4096, 11008, 1024, (128, 1, 172)), (4096, 11008, 2048, (256, 1, 172))])
+def test_kernel_8_plans_at_the_lora_widths(k, n, m, want):
+    """Row tile, N-splits and 64-wide slices per split of kernel 8 at the
+    three LoRA widths (q/k/v/o, down_proj's transpose: dx of width 11008,
+    gate/up's: a reduction of 11008): kernel 1's row tile over dx's 128-wide
+    column tiles; at the gradient check's M = 128 the 32 or 86 tiles alone do
+    not fill 132 SMs and N is split; from the training batch (M = 1024) up it
+    is not."""
+    p = matmul_t.plan(m, k, n, 4, SMS)
+    assert (p.mt, p.split, p.per_split) == want
+    assert p.smem == matmul_t.tile_smem_bytes(4, p.mt)
+
+
+@pytest.mark.parametrize("k,n", SHAPES)
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 5, 64, 100, 128, 136, 300, 512, 1024, 2048, 16384])
+def test_kernel_8_splits_cover_the_reduction_in_order(k, n, bits, m):
+    """The splits take consecutive runs of N's 64-wide slices, each run
+    nonempty and at least 4 slices long when N is split; with a split the
+    tiles x splits fill every SM. The partial of split z covers slices
+    [z * per, (z + 1) * per) and the second kernel sums z = 0, 1, ... in
+    that order, so the plan alone fixes the order of the sums: dx is the
+    same bytes on every launch."""
+    p = matmul_t.plan(m, k, n, bits, SMS)
+    slices = -(-n // matmul_t.SLICE_N)
+    assert p.split * p.per_split >= slices > (p.split - 1) * p.per_split
+    tiles = -(-k // matmul_t.TILE_K) * -(-m // p.mt)
+    if p.split > 1:
+        assert p.per_split >= 4 and tiles * p.split >= SMS and tiles < SMS
+    assert p == matmul_t.plan(m, k, n, bits, SMS)
+    if m <= 256:
+        assert p.mt == next(b for b in TC_ROW_TILES if m <= b)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("bm", TC_ROW_TILES)
+def test_kernel_8_shared_memory_fits(bits, bm):
+    """qmm_t.cu's Layout: a ring of stages (4 at BM = 256, else 3) of g's BM x
+    64 tile (rows padded to 72), the slice's words (128 * bits / 32 rows x 64)
+    and 4 scale and 4 zero rows of 64; then two 64 x 136 bf16 B tiles. One
+    block fits; two fit on an SM at 2 and 4 bits below BM = 256."""
+    smem = matmul_t.tile_smem_bytes(bits, bm)
+    stages = 4 if bm == 256 else 3
+    assert smem == stages * (bm * 72 * 2 + 128 * bits // 32 * 64 * 4 + 2 * 4 * 64 * 2) + \
+        2 * 64 * 136 * 2
+    assert smem <= SMEM_PER_BLOCK
+    two = bm < 256 and 2 * (smem + 1024) <= SMEM_PER_SM
+    assert matmul_t.blocks_per_sm(bits, bm) == (2 if two else 1)
+    if bits < 8 and bm < 256:
+        assert two
+
+
+
+# -- kernels 4 and 5, causal prefill attention: which body --------------------
+from gptq_for_llama_tpu_torch.ops.cuda import flash_prefill  # noqa: E402
+
+
+@pytest.mark.parametrize("sq,off,want", [
+    (1, 0, "sync"), (32, 0, "sync"), (100, 0, "sync"), (128, 0, "sync"), (129, 0, "wgmma"),
+    (512, 0, "wgmma"), (2048, 0, "wgmma"), (100, 28, "sync"), (100, 29, "wgmma"),
+    (100, 128, "wgmma"), (128, 512, "wgmma"), (1, 2047, "wgmma")])
+def test_flash_body_follows_the_causal_prefix(sq, off, want):
+    """The 64-query mma.sync body takes a chunk whose whole causal prefix
+    (offset + SQ) fits in one 128-key tile of the wgmma body: serving's
+    admissions at bucket 32 and 128 and the runner's 100-token prompt, where
+    it measured faster; everything longer takes the wgmma body."""
+    assert flash_prefill.SYNC_MAX_KEYS == 128
+    assert flash_prefill.plan(sq, off) == want
+
