@@ -309,6 +309,8 @@ class Smoke:
             for bm in matmul.TC_ROW_TILES:
                 smem[f"qmm tile {bits}-bit BM={bm}"] = matmul.tile_smem_bytes(bits, 1, bm)
                 smem[f"qmm_t {bits}-bit BM={bm}"] = matmul_t.tile_smem_bytes(bits, bm)
+        from gptq_for_llama_tpu_torch.ops.cuda import attention
+        smem["decode ring (kernels 3, 9)"] = attention.RING_SMEM_BYTES   # checked at load
         log("[build] dynamic shared memory per block (bytes): "
             + ", ".join(f"{k} {v}" for k, v in smem.items()))
         self.report["dynamic_smem_bytes"] = smem
@@ -337,10 +339,19 @@ class Smoke:
                 f"max_abs_err {err:.3e} (tol {tol:.3e})" if row_rel is None else
                 f"max_abs_err {err:.3e}, max|plain| {ref_max:.3e}, worst row rel {row_rel:.3e} "
                 f"(tol {tol:.3e})")
+        plan = (extra or {}).get("plan")
+        forced = (extra or {}).get("forced_chunk_ms")
         log(f"[kernel {kernel}] {shape}{'' if path is None else f' [{path}]'}: {what} "
             f"{'ok' if ok else 'FAIL'} | kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
             f"library {'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
-            f"bound {b_ms * 1e3:.2f} us ({b_by}) | {self.card}")
+            f"bound {b_ms * 1e3:.2f} us ({b_by})"
+            + ("" if plan is None else
+               f" | plan: {plan['chunks']} chunks of {plan['chunk']} slots, {plan['blocks']} "
+               f"blocks, {plan['blocks_with_work']} with work")
+            + ("" if forced is None else
+               " | forced chunks: " + ", ".join(f"{c} slots {t * 1e3:.2f} us"
+                                                for c, t in forced.items()))
+            + f" | {self.card}")
         if not ok:
             raise AssertionError(f"{kernel} {shape}: kernel disagrees with its plain version "
                                  f"({checked} > {tol})")
@@ -363,8 +374,19 @@ class Smoke:
     def _lin_bytes(lin):
         return (lin.qweight.numel() * 4 + lin.scales.numel() * 2 + lin.zeros.numel() * 2)
 
+    @staticmethod
+    def _plan_log(plan, hkv, lives):
+        """What a row of kernels 3 and 9 logs of the plan it took (from
+        ``attention.plan_for``, the wrapper's own): chunks, slots per chunk,
+        the grid's blocks and those with work. Chunk z of a row with L live
+        slots has work where z * chunk < L; the others exit at once."""
+        work = hkv * sum(min(plan.nsplit, -(-live // plan.chunk)) for live in lives)
+        return {"plan": {"chunks": plan.nsplit, "chunk": plan.chunk,
+                         "blocks": len(lives) * hkv * plan.nsplit, "blocks_with_work": work}}
+
     def phase_kernels(self, torch):
         import torch.nn.functional as F
+        from gptq_for_llama_tpu_torch.ops.cuda import attention
         from gptq_for_llama_tpu_torch.ops.cuda.attention import (
             decode_attention_cuda, decode_attention_plain)
         from gptq_for_llama_tpu_torch.ops.cuda.flash import (
@@ -459,7 +481,10 @@ class Smoke:
         del gates, ups
         # kernels 3-5: tolerance 1e-2 of each output row's norm: both sides
         # softmax in fp32, the output is rounded to bf16 (2^-9 relative);
-        # kernel 5 also rounds p to bf16
+        # kernel 5 also rounds p to bf16. Kernel 3 runs over caches holding NaN
+        # past each offset (the plain version, whose zero weights would carry a
+        # NaN, reads the clean copy); the offset-2047, GQA and serving rows also
+        # hold and time the plan forced to chunks of 64 to 512 slots
         d, s = 128, 2048
         serving = (37, 150, 300, 511, 512, 900, 1200, 1500)   # kernel 7's mixed row, dense
         for b, h, hkv, offs in ((1, 32, 32, 0), (1, 32, 32, 127), (1, 32, 32, 2047),
@@ -474,8 +499,28 @@ class Smoke:
             off_arg = off_t if isinstance(offs, tuple) else offs
             max_live = max(offs) + 1 if offs == serving else None
             kc, vc = caches[0]
-            y = decode_attention_cuda(q, kc, vc, off_arg, d ** -0.5, max_live)
+            dead = (torch.arange(s, device="cuda")[None, :] > off_t[:, None])[:, :, None, None]
+            pk, pv = kc.masked_fill(dead, float("nan")), vc.masked_fill(dead, float("nan"))
+            y = decode_attention_cuda(q, pk, pv, off_arg, d ** -0.5, max_live)
             ref = decode_attention_plain(q, kc, vc, off_t, d ** -0.5)
+            torch.cuda.synchronize()
+            if not torch.isfinite(y.float()).all():
+                raise AssertionError(f"decode_attention offsets {offs}: a slot past the offset "
+                                     f"was read")
+            plan = attention.plan_for(q, kc, off_arg, max_live)
+            extra = self._plan_log(plan, hkv, [min(o, s - 1) + 1 for o in off_t.tolist()])
+            forced = {}
+            if offs in (2047, (100, 1500), serving):
+                bound = s if max_live is None else max_live   # the live bound of these rows
+                for chunk in (64, 128, 192, 256, 512):
+                    forced[chunk] = attention.DecodePlan(-(-bound // chunk), chunk)
+                    yf = attention._decode_launch(q, pk, pv, off_arg, d ** -0.5, forced[chunk])
+                    torch.cuda.synchronize()
+                    if not (torch.isfinite(yf.float()).all() and row_rel_err(yf, ref) <= 1e-2):
+                        raise AssertionError(f"decode_attention offsets {offs}, plan forced to "
+                                             f"{chunk}-slot chunks: disagrees with the plain "
+                                             f"version ({row_rel_err(yf, ref)})")
+            del pk, pv
             err = (y.float() - ref.float()).abs().max().item()
             rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
             ms = graph_ms(torch, [lambda c=c: decode_attention_cuda(q, c[0], c[1], off_arg,
@@ -493,11 +538,16 @@ class Smoke:
                 for c in caches])
             live_slots = int((off_t.clamp(max=s - 1) + 1).sum().item())
             nbytes = 2 * b * h * d * 2 + live_slots * hkv * d * 2 * 2
+            if forced:
+                extra["forced_chunk_ms"] = {
+                    chunk: graph_ms(torch, [lambda c=c, p=p: attention._decode_launch(
+                        q, c[0], c[1], off_arg, d ** -0.5, p) for c in caches])
+                    for chunk, p in forced.items()}
             self._record("decode_attention",
-                         f"B={b} H={h} Hkv={hkv} S={s} offset={offs}", err, 1e-2, ms, pms, lms,
-                         nbytes, 4 * live_slots * h * d,
+                         f"B={b} H={h} Hkv={hkv} S={s} offset={offs} (NaN past each offset)",
+                         err, 1e-2, ms, pms, lms, nbytes, 4 * live_slots * h * d,
                          main=(h == hkv and offs == 127), row_rel=rel, ref_max=ref_max,
-                         serve=(offs == serving))
+                         serve=(offs == serving), extra=extra)
             del caches
         # kernel 4: a 100-token prompt of the runner over its 2048-slot cache,
         # then what serving gives it. A chunk of 128 at offsets 0, 128 and 512
@@ -860,6 +910,7 @@ class Smoke:
         as kernel 3; after the write both caches are byte-equal to the plain
         version's. The library call is SDPA over the cache with the current
         token written, under the live mask, on a poison-free copy."""
+        from gptq_for_llama_tpu_torch.ops.cuda import attention
         from gptq_for_llama_tpu_torch.ops.cuda.attention import (fused_decode_attention_cuda,
                                                                  fused_decode_attention_plain)
         d, s = 128, 2048
@@ -912,7 +963,9 @@ class Smoke:
                          f"B={b} H={h} Hkv={hkv} S={s} offset={offs} (no write)", err, 1e-2, ms,
                          pms, lms, nbytes, 4 * (stale + b) * h * d,
                          main=(h == hkv and offs == 127), row_rel=rel, ref_max=ref_max,
-                         serve=(offs == serving))
+                         serve=(offs == serving),
+                         extra=self._plan_log(attention.plan_for(q, kc, off_arg, max_live, True),
+                                              hkv, [min(o, s - 1) for o in off_t.tolist()]))
             del clean, kc, vc
         # the in-place row write under a mixed mask (serving slots; rows whose
         # mask is false keep their cache and still attend their current k/v)
@@ -944,7 +997,9 @@ class Smoke:
         nbytes = 2 * b * h * d * 2 + (stale + b) * h * d * 2 * 2 + written * h * d * 2 * 2
         self._record("fused_decode_attention", f"B={b} H={h} offsets 37..1500, write under the "
                      f"mask {wmask.int().tolist()} (caches byte-equal)", err, 1e-2, ms, pms, None,
-                     nbytes, 4 * (stale + b) * h * d, row_rel=rel, ref_max=ref_max)
+                     nbytes, 4 * (stale + b) * h * d, row_rel=rel, ref_max=ref_max,
+                     extra=self._plan_log(attention.plan_for(q, kc, off_t, max(serving) + 1,
+                                                             True), h, serving))
         del kc, vc, wk, wv
         torch.cuda.empty_cache()
 
@@ -1180,6 +1235,7 @@ class Smoke:
         served, eng = self._serve_run(torch, "dense fold chunk 128 unfused", "serve:fold",
                                       sprompts, prefill_chunk=128, decode_span=8,
                                       fused_chunk_decode=False, cache_impl="fold")
+        self._serve_step_times(torch, eng, "dense fold", profile=False)
         runner = ModelRunner("llama", cfg, params, batch_size=1, max_seq_len=2048, device="cuda")
         sref, cache_err = self._forced_reference(torch, runner, sprompts, served, eng.snaps)
         scompared, stotal, ssame = self._hold_to_reference("dense fold", served, sref)
@@ -1749,11 +1805,13 @@ class Smoke:
             "peak_memory_bytes": peak}
         return results, eng
 
-    def _serve_step_times(self, torch, eng):
+    def _serve_step_times(self, torch, eng, label="paged", profile=True):
         """Where a serving decode step's time goes: the engine's batched decode
-        step (8 slots over the pool the run left, every slot at its last
+        step (8 slots over the cache the run left, every slot at its last
         offset) timed on the host clock, replayed as a CUDA graph (device time),
-        and under torch.profiler (device time per kernel)."""
+        and, for the paged engine, under torch.profiler (device time per
+        kernel). ``label`` names the engine's cache: paged, dense or dense
+        fold (kernels 7, 3 and 9)."""
         state = eng.state
         off0 = state["off"].clone()
         toks = torch.zeros((eng.b, 1), dtype=torch.long, device="cuda")
@@ -1775,14 +1833,16 @@ class Smoke:
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) / n * 1e3
             dev_ms = graph_ms(torch, [step], iters=4)
-            log(f"[serve] one paged decode step, 8 slots at offsets {off0.tolist()}: "
+            log(f"[serve] one {label} decode step, 8 slots at offsets {off0.tolist()}: "
                 f"{host_ms:.3f} ms eager on the host clock, {dev_ms:.3f} ms of device time as a "
                 f"CUDA graph (host share {1 - dev_ms / host_ms:.3f}); "
                 f"{8e3 / host_ms:.1f} / {8e3 / dev_ms:.1f} tok/s | {self.card}")
-            self._profile_steps(torch, "serve-profile", "eager paged decode steps of LLaMA-7B, "
-                                "8 slots", step, 4)
-        self.report["serve"]["decode_step"] = {"host_ms": host_ms, "graph_ms": dev_ms,
-                                               "offsets": off0.tolist()}
+            if profile:
+                self._profile_steps(torch, "serve-profile", f"eager {label} decode steps of "
+                                    "LLaMA-7B, 8 slots", step, 4)
+        key = "decode_step" if label == "paged" else f"decode_step {label}"
+        self.report.setdefault("serve", {})[key] = {"host_ms": host_ms, "graph_ms": dev_ms,
+                                                    "offsets": off0.tolist()}
 
     def phase_serve(self, torch):
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
@@ -1866,6 +1926,7 @@ class Smoke:
         # dense cache, chunked prefill: fused with the decode step, and not
         fused, eng = self._serve_run(torch, "dense chunk 128 fused", "serve:dense", prompts,
                                      prefill_chunk=128, decode_span=8)
+        self._serve_step_times(torch, eng, "dense", profile=False)
         ref_d, cache_err = self._forced_reference(torch, runner, prompts, fused, eng.snaps)
         del eng
         torch.cuda.empty_cache()

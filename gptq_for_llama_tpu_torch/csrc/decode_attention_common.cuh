@@ -1,6 +1,6 @@
-// One-token (decode) attention over a KV cache: the device code shared by the
-// dense entry (decode_attention.cu) and the paged entry
-// (pool_decode_attention.cu).
+// One-token (decode) attention over a paged KV cache: the device code of
+// kernel 7 (pool_decode_attention.cu), its only user. Kernels 3 and 9 (the
+// dense cache) run decode_attention_dense.cuh.
 //
 // Replaces gptq_for_llama_tpu/ops/pallas/attention.py:_attn_kernel and
 // :_attn_kernel_gqa, reached through decode_attention (dense cache) and

@@ -1,0 +1,562 @@
+// One-token (decode) attention over a dense KV cache, for Hopper: the body of
+// kernel 3 (decode_attention.cu) and of kernel 9, its fold form
+// (fused_decode_attention.cu).
+//
+// Replaces gptq_for_llama_tpu/ops/pallas/attention.py:_attn_kernel and
+// :_attn_kernel_gqa (entry decode_attention) and :_fused_attn_kernel (entry
+// fused_decode_attention). Semantics: query row b attends cache slots
+// j < live[b], softmax in fp32; live[b] = offset[b] + 1 for kernel 3 (the
+// current token is already written at slot offset[b]) and offset[b] for the
+// fold form, which adds the current token's k/v (separate (B, Hkv, D) inputs)
+// as one more slot and, with a write requested, stores them at slot
+// offset[b] on rows whose write mask is set. The same functions as the plain
+// versions (ops/cuda/attention.py).
+//
+// What bounds it on the H100: device-memory bytes of the LIVE cache prefix,
+// 2 * live * Hkv * D * 2 B per row: 10.0 us at 2048 live slots of 7B's 32
+// heads at 3.35 TB/s, 1.97 us for the GQA row (B = 2, Hkv = 8, offsets 100
+// and 1500), 0.63 us at 128 slots. The arithmetic is 4 flops per byte. So the
+// design keeps bytes in flight on every SM and puts nothing in series with
+// the copies:
+//  - a block serves one (batch row, kv head, chunk of live slots) and that
+//    head's G query heads, so a GQA cache row is read once for all G heads.
+//    The host plan (ops/cuda/attention.py:decode_plan) fits the grid into one
+//    wave of resident blocks with chunks of 64-192 slots; a prefix of at most
+//    128 slots is one chunk and one pass with no combine. The last chunk runs
+//    to the row's own live bound, so a row past the bound the plan was made
+//    for is still read in full; a block whose chunk starts past its row's
+//    bound exits at once.
+//  - K and V stream through a 4-stage ring in dynamic shared memory (64 KB,
+//    three blocks per SM) with 16-byte cp.async.cg copies: a block issues four
+//    32-slot tiles before it computes the first, so a 128-slot chunk is in
+//    flight at once, and refills a stage as soon as it is read. Each warp
+//    copies and reads only its own 8 slots of every tile, so a tile needs no
+//    block barrier: cp.async.wait_group and __syncwarp. The block's only
+//    barrier is the merge at its end.
+//  - slots at or past the live bound are never read from device memory: the
+//    copy zero-fills their K and V rows (src-size 0) and their logits are
+//    -inf. So the output does not depend on what they hold (NaN, or the fold
+//    form's row write landing in the same launch).
+//  - per-warp online softmax in log2 units (scale * log2(e) folded into q,
+//    one ex2 per logit), merged once across the four warps at the end of the
+//    block, on CUDA cores: a lane holds 4 output dims for all G heads, and the
+//    8 logits of a warp's slice are reduced with a transposing butterfly (9
+//    shuffles a head for 8 slots, not 40).
+//  - chunk partials (unnormalized accumulator, max, denominator) go to a
+//    second kernel, not to a counter and a last block: it rescales and sums
+//    the chunks of each (row, kv head) in chunk order, so two runs are
+//    bit-equal. It is a programmatic dependent launch: its blocks start while
+//    the chunk grid runs, load what does not depend on it, and wait
+//    (griddepcontrol.wait) only to read the partials. The fold form adds its
+//    current token there, or after the single chunk's merge.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "mma_sync.cuh"
+
+namespace gptq_dense {
+
+using gptq_mma::cp_async16;
+using gptq_mma::cp_async_commit;
+using gptq_mma::cp_async_wait;
+using gptq_mma::cp_async_wait_all;
+
+constexpr int kD = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpSlots = 8;                     // slots of a tile one warp copies and reads
+constexpr int kTile = kWarps * kWarpSlots;        // 32 cache slots per ring stage
+constexpr int kStages = 4;
+constexpr int kSliceElems = kWarpSlots * kD;      // one warp's K (or V) rows of a stage
+constexpr int kSmemBytes = kStages * kWarps * 2 * kSliceElems * 2;   // 64 KB
+constexpr int kMaxSplit = 64;                     // chunks per row the combine stages
+constexpr int kBlocksPerSm = 3;                   // resident blocks the registers are sized for
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The current token of the fold form: k/v (B, Hkv, D); with ``write`` they
+// are also stored at slot offset[b] of k_out / v_out (the caches) on rows
+// whose write_mask (B,) is non-zero (null: every row).
+struct Fold {
+  const __nv_bfloat16* k_new;
+  const __nv_bfloat16* v_new;
+  __nv_bfloat16* k_out;
+  __nv_bfloat16* v_out;
+  const uint8_t* write_mask;
+  int write;
+};
+
+// 2^x, the MUFU's approximation; 2^-inf = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void bf16x4(uint2 u, float (&f)[4]) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
+}
+
+// Programmatic dependent launch (PTX griddepcontrol): the chunk kernel lets
+// the combine kernel be scheduled once every chunk block has started; the
+// combine waits for the whole chunk grid (and its memory) before it reads.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// A load through L2 that the compiler keeps after the wait above: the
+// partials are written by the chunk grid while the combine's blocks start, so
+// a read-only (non-coherent, hoistable) load of them would be wrong.
+__device__ __forceinline__ float ld_cg(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The row's live bound: slots j < live are attended from the cache.
+template <bool FOLD>
+__device__ __forceinline__ int live_of(const int32_t* offs, int off_scalar, int b, int S,
+                                       int* off_out) {
+  int off = offs != nullptr ? offs[b] : off_scalar;
+  off = min(max(off, 0), S - 1);
+  *off_out = off;
+  return FOLD ? off : off + 1;
+}
+
+// lc[g] = (q of head g, scaled to log2 units) . k_new, for the G heads of the
+// kv head; one warp, q and k_new in registers as each lane's 4 dims.
+template <int G>
+__device__ __forceinline__ void fold_logits(const float (&qr)[G][4], const float (&kn)[4],
+                                            float* lc) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float s = qr[g][0] * kn[0] + qr[g][1] * kn[1] + qr[g][2] * kn[2] + qr[g][3] * kn[3];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) lc[g] = s;
+  }
+}
+
+template <int G, bool FOLD>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
+                    const __nv_bfloat16* k, const __nv_bfloat16* v,   // (B, S, Hkv, D)
+                    int S, const int32_t* __restrict__ offs, int off_scalar,
+                    __nv_bfloat16* __restrict__ out,       // (B, H, D)
+                    float* __restrict__ part,  // chunk partials, null for one chunk
+                    int Hkv, float qscale, int chunk, const Fold f) {
+  extern __shared__ __align__(16) __nv_bfloat16 ring[];   // [stage][warp][K | V][slot][D]
+  __shared__ __align__(16) float pw[kWarps][G][kWarpSlots];   // each warp's probabilities
+  __shared__ float wm[kWarps][G], wl[kWarps][G], lc[G];
+
+  launch_dependents();
+  const int kvh = blockIdx.x, b = blockIdx.y, z = blockIdx.z, nsplit = gridDim.z;
+  const int H = Hkv * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int off;
+  const int live = live_of<FOLD>(offs, off_scalar, b, S, &off);
+  const int t_begin = z * chunk;
+  const int t_end = z == nsplit - 1 ? live : min(live, t_begin + chunk);
+
+  if constexpr (FOLD) {
+    // the row write: slot `off` is outside every chunk of this launch
+    if (f.write && z == 0 && (f.write_mask == nullptr || f.write_mask[b] != 0)) {
+      const size_t src = ((size_t)b * Hkv + kvh) * kD + tid;
+      const size_t dst = (((size_t)b * S + off) * Hkv + kvh) * kD + tid;
+      f.k_out[dst] = f.k_new[src];
+      f.v_out[dst] = f.v_new[src];
+    }
+  }
+  // a chunk past the row's bound has no work; the combine does not read it.
+  // One chunk (the fold form at offset 0) still writes v_new as the output.
+  if (t_begin >= t_end && part != nullptr) return;
+
+  const size_t row_stride = (size_t)Hkv * kD;   // elements between cache slots
+  const size_t base = (size_t)b * S * row_stride + (size_t)kvh * kD;
+  const __nv_bfloat16* kbase = k + base;
+  const __nv_bfloat16* vbase = v + base;
+  const int nt = t_end > t_begin ? (t_end - t_begin + kTile - 1) / kTile : 0;
+
+  // tile t of the chunk into stage t % kStages: this warp's 8 slots, K and V;
+  // slots at or past t_end are zero-filled without a read
+  auto issue = [&](int t) {
+    __nv_bfloat16* kd = ring + ((t % kStages) * kWarps + warp) * 2 * kSliceElems;
+    __nv_bfloat16* vd = kd + kSliceElems;
+    const int slot0 = t_begin + t * kTile + warp * kWarpSlots;
+#pragma unroll
+    for (int r = 0; r < kWarpSlots * (kD / 8) / 32; ++r) {
+      const int i = lane + 32 * r, row = i >> 4, c8 = (i & 15) * 8;
+      const bool ok = slot0 + row < t_end;
+      const size_t src = (size_t)(ok ? slot0 + row : 0) * row_stride + c8;
+      cp_async16(kd + row * kD + c8, kbase + src, ok);
+      cp_async16(vd + row * kD + c8, vbase + src, ok);
+    }
+  };
+
+  float m[G], l[G], acc[G][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[g][i] = 0.0f;
+  }
+  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
+  const int my_slot = lane >> 2;   // the slot whose full logit this lane ends up with
+
+  // the whole ring in flight before the first tile is computed
+#pragma unroll
+  for (int t = 0; t < kStages; ++t) {
+    if (t < nt) issue(t);
+    cp_async_commit();
+  }
+  // this kv head's G query heads are contiguous in (B, H, D); lane: dims 4l..4l+3
+  float qr[G][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float t[4];
+    bf16x4(*reinterpret_cast<const uint2*>(q + ((size_t)b * H + (size_t)kvh * G + g) * kD +
+                                           4 * lane), t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qr[g][i] = t[i] * qscale;
+  }
+  // one chunk of the fold form: the current token's k (this lane's 4 dims)
+  // and v (this thread's output dim), loaded with q, not after the loop
+  float kn[4] = {0.0f, 0.0f, 0.0f, 0.0f}, vn = 0.0f;
+  if constexpr (FOLD) {
+    if (part == nullptr) {
+      const size_t row = ((size_t)b * Hkv + kvh) * kD;
+      bf16x4(*reinterpret_cast<const uint2*>(f.k_new + row + 4 * lane), kn);
+      vn = __bfloat162float(f.v_new[row + tid]);
+    }
+  }
+
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<kStages - 1>();
+    __syncwarp();   // every lane's copies of tile t landed
+    const int slot0 = t_begin + t * kTile + warp * kWarpSlots;
+    if (slot0 < t_end) {   // warp-uniform: the slice holds a live slot
+      const __nv_bfloat16* kd = ring + ((t % kStages) * kWarps + warp) * 2 * kSliceElems;
+      const __nv_bfloat16* vd = kd + kSliceElems;
+
+      // partial logits of the 8 slots over this lane's 4 dims
+      float s[kWarpSlots][G];
+#pragma unroll
+      for (int j = 0; j < kWarpSlots; ++j) {
+        float kf[4];
+        bf16x4(*reinterpret_cast<const uint2*>(kd + j * kD + 4 * lane), kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          s[j][g] = qr[g][0] * kf[0] + qr[g][1] * kf[1] + qr[g][2] * kf[2] + qr[g][3] * kf[3];
+      }
+      // transposing butterfly: lane l ends with the full logit of slot l >> 2
+      float x[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float a4[4], a2[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float send = hi16 ? s[i][g] : s[i + 4][g];
+          a4[i] = (hi16 ? s[i + 4][g] : s[i][g]) + __shfl_xor_sync(0xffffffffu, send, 16);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float send = hi8 ? a4[i] : a4[i + 2];
+          a2[i] = (hi8 ? a4[i + 2] : a4[i]) + __shfl_xor_sync(0xffffffffu, send, 8);
+        }
+        const float send = hi4 ? a2[0] : a2[1];
+        float a1 = (hi4 ? a2[1] : a2[0]) + __shfl_xor_sync(0xffffffffu, send, 4);
+        a1 += __shfl_xor_sync(0xffffffffu, a1, 1);
+        a1 += __shfl_xor_sync(0xffffffffu, a1, 2);
+        x[g] = slot0 + my_slot < t_end ? a1 : -INFINITY;
+      }
+      // online softmax over the warp's slots; slot 0 of the slice is live, so
+      // the new max is finite
+      float alpha[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mx = x[g];
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m[g], mx);
+        alpha[g] = ex2(m[g] - m_new);
+        m[g] = m_new;
+        if ((lane & 3) == 0) pw[warp][g][my_slot] = ex2(x[g] - m_new);
+      }
+      __syncwarp();
+      float p[G][kWarpSlots];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 p0 = *reinterpret_cast<const float4*>(&pw[warp][g][0]);
+        const float4 p1 = *reinterpret_cast<const float4*>(&pw[warp][g][4]);
+        p[g][0] = p0.x; p[g][1] = p0.y; p[g][2] = p0.z; p[g][3] = p0.w;
+        p[g][4] = p1.x; p[g][5] = p1.y; p[g][6] = p1.z; p[g][7] = p1.w;
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kWarpSlots; ++j) sum += p[g][j];
+        l[g] = l[g] * alpha[g] + sum;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[g][i] *= alpha[g];
+      }
+      // P V: dead slots' V rows are zeros and their p is 0
+#pragma unroll
+      for (int j = 0; j < kWarpSlots; ++j) {
+        float vf[4];
+        bf16x4(*reinterpret_cast<const uint2*>(vd + j * kD + 4 * lane), vf);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[g][i] += p[g][j] * vf[i];
+      }
+    }
+    __syncwarp();   // every lane is done with tile t's stage and probabilities
+    if (t + kStages < nt) issue(t + kStages);
+    cp_async_commit();
+  }
+  cp_async_wait_all();
+  __syncwarp();
+
+  // merge the four warps: each writes its state into its own stage-0 slice
+  // (G * D floats fit the 4 KB of K and V for G <= 8)
+  float* wacc = reinterpret_cast<float*>(ring + warp * 2 * kSliceElems);
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    *reinterpret_cast<float4*>(wacc + g * kD + 4 * lane) =
+        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      wm[warp][g] = m[g];
+      wl[warp][g] = l[g];
+    }
+  }
+  if constexpr (FOLD) {
+    if (part == nullptr && warp == 0) fold_logits<G>(qr, kn, lc);
+  }
+  __syncthreads();
+
+  const int d = tid;   // one output dim per thread
+  const size_t rows = (size_t)gridDim.y * Hkv * nsplit * G;
+  const size_t row0 = (((size_t)b * Hkv + kvh) * nsplit + z) * G;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w][g]);
+    float L = 0.0f, O = 0.0f;
+    if (M != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float e = ex2(wm[w][g] - M);   // 0 for a warp with no live slot
+        L += e * wl[w][g];
+        O += e * reinterpret_cast<const float*>(ring + w * 2 * kSliceElems)[g * kD + d];
+      }
+    }
+    if (part != nullptr) {
+      part[(row0 + g) * kD + d] = O;
+      if (d == 0) {
+        part[rows * kD + row0 + g] = M;
+        part[rows * kD + rows + row0 + g] = L;
+      }
+      continue;
+    }
+    float o;
+    if constexpr (FOLD) {   // the current token as the last slot
+      const float m_new = fmaxf(M, lc[g]);
+      const float corr = ex2(M - m_new), pn = ex2(lc[g] - m_new);
+      o = (O * corr + pn * vn) / (L * corr + pn);
+    } else {
+      o = O / L;
+    }
+    out[((size_t)b * H + (size_t)kvh * G + g) * kD + d] = __float2bfloat16_rn(o);
+  }
+}
+
+// Rescales each chunk of a (row, kv head) to the common max and sums the
+// chunks in chunk order; only the chunks that start below the row's live
+// bound wrote partials. The fold form adds the current token as one more
+// slot. The chunks' maxima and denominators are staged in shared memory, one
+// warp per query head turns them into weights, and every thread then sums
+// its output dim with 8 chunks' loads in flight at a time.
+template <int G, bool FOLD>
+__global__ void __launch_bounds__(kThreads)
+dense_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
+                     int Hkv, int nsplit, int chunk, int S, const int32_t* __restrict__ offs,
+                     int off_scalar, const __nv_bfloat16* __restrict__ q, float qscale,
+                     const Fold f) {
+  __shared__ float sm[kMaxSplit * G], sl[kMaxSplit * G], sM[G], sL[G], lc[G];
+  const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const size_t rows = (size_t)gridDim.y * Hkv * nsplit * G;
+  const size_t base = ((size_t)b * Hkv + kvh) * nsplit * G;   // row of chunk 0, head 0
+  const float* pm = part + rows * kD + base;
+  const float* pl = part + rows * kD + rows + base;
+  int off;
+  const int live = live_of<FOLD>(offs, off_scalar, b, S, &off);
+  const int nz = live > 0 ? min(nsplit, (live + chunk - 1) / chunk) : 0;
+  float vn = 0.0f;
+  if constexpr (FOLD) {   // the current token: inputs of this launch, not partials
+    const size_t row = ((size_t)b * Hkv + kvh) * kD;
+    vn = __bfloat162float(f.v_new[row + tid]);
+    if (warp == 0) {
+      float qr[G][4], kn[4];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float t[4];
+        bf16x4(*reinterpret_cast<const uint2*>(
+                   q + ((size_t)b * Hkv * G + (size_t)kvh * G + g) * kD + 4 * lane), t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qr[g][i] = t[i] * qscale;
+      }
+      bf16x4(*reinterpret_cast<const uint2*>(f.k_new + row + 4 * lane), kn);
+      fold_logits<G>(qr, kn, lc);
+    }
+  }
+  grid_dependency_wait();   // every chunk's block has finished and its partials are visible
+  // one load round: the maxima and denominators, and this thread's dim of
+  // the first kBatch chunks' accumulators
+  constexpr int kBatch = 64 / G;
+  const float* pa = part + base * kD + tid;
+  float x[kBatch][G];
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+    for (int g = 0; g < G; ++g) x[j][g] = j < nz ? ld_cg(pa + ((size_t)j * G + g) * kD) : 0.0f;
+  for (int i = tid; i < nz * G; i += kThreads) {   // i = chunk * G + head
+    sm[i] = ld_cg(pm + i);
+    sl[i] = ld_cg(pl + i);
+  }
+  __syncthreads();
+  // weights: warp g takes head g; lane c, c + 32, ... its chunks
+  for (int g = warp; g < G; g += kWarps) {
+    float mx = FOLD ? lc[g] : -INFINITY;
+    for (int c = lane; c < nz; c += 32) mx = fmaxf(mx, sm[c * G + g]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float den = 0.0f;
+    for (int c = lane; c < nz; c += 32) {
+      const float w = ex2(sm[c * G + g] - mx);
+      sm[c * G + g] = w;
+      den += w * sl[c * G + g];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) den += __shfl_xor_sync(0xffffffffu, den, o);
+    if (lane == 0) {
+      sM[g] = mx;
+      sL[g] = den + (FOLD ? ex2(lc[g] - mx) : 0.0f);
+    }
+  }
+  __syncthreads();
+  float num[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) num[g] = FOLD ? ex2(lc[g] - sM[g]) * vn : 0.0f;
+  for (int c0 = 0; c0 < nz; c0 += kBatch) {
+    if (c0 > 0) {
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          x[j][g] = c0 + j < nz ? ld_cg(pa + ((size_t)(c0 + j) * G + g) * kD) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (c0 + j < nz) num[g] += sm[(c0 + j) * G + g] * x[j][g];
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    out[((size_t)b * Hkv * G + (size_t)kvh * G + g) * kD + tid] =
+        __float2bfloat16_rn(num[g] / sL[g]);
+}
+
+template <int G, bool FOLD>
+cudaError_t launch_g(const void* q, const void* k, const void* v, int S, const void* offs,
+                     int off_scalar, void* out, void* part, int B, int Hkv, float scale,
+                     int nsplit, int chunk, const Fold& f, cudaStream_t stream) {
+  static unsigned configured = 0;   // per device: the ring is above the 48 KB default
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (!(configured >> dev & 1u)) {
+    e = cudaFuncSetAttribute(dense_decode_kernel<G, FOLD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return e;
+    configured |= 1u << dev;
+  }
+  const float qscale = scale * kLog2e;
+  float* p = nsplit > 1 ? static_cast<float*>(part) : nullptr;
+  dense_decode_kernel<G, FOLD><<<dim3(Hkv, B, nsplit), kThreads, kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), S, static_cast<const int32_t*>(offs), off_scalar,
+      static_cast<__nv_bfloat16*>(out), p, Hkv, qscale, chunk, f);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || nsplit == 1) return e;
+  // programmatic dependent launch: the combine's blocks start while the
+  // chunks' last blocks run and wait (griddepcontrol.wait) for their partials
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Hkv, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, dense_combine_kernel<G, FOLD>, static_cast<const float*>(p),
+                            static_cast<__nv_bfloat16*>(out), Hkv, nsplit, chunk, S,
+                            static_cast<const int32_t*>(offs), off_scalar,
+                            static_cast<const __nv_bfloat16*>(q), qscale, f);
+}
+
+// Chunk c of a row covers slots [c * chunk, (c + 1) * chunk), the last one up
+// to the row's live bound; chunk is a multiple of the 32-slot tile and nsplit
+// at most kMaxSplit. nsplit > 1
+// needs `part`: B * Hkv * nsplit * G * (D + 2) floats. FOLD needs f.k_new and
+// f.v_new (and, with f.write, f.k_out and f.v_out).
+template <bool FOLD>
+cudaError_t launch(const void* q, const void* k, const void* v, int S, const void* offs,
+                   int off_scalar, void* out, void* part, int B, int Hkv, int G, int D,
+                   float scale, int nsplit, int chunk, cudaStream_t st, const Fold& f = Fold{}) {
+  if (D != kD || B < 1 || S < 1 || Hkv < 1 || nsplit < 1 || nsplit > kMaxSplit ||
+      chunk < kTile || chunk % kTile != 0 ||
+      (nsplit > 1 && part == nullptr) ||
+      (FOLD && (f.k_new == nullptr || f.v_new == nullptr ||
+                (f.write && (f.k_out == nullptr || f.v_out == nullptr)))))
+    return cudaErrorInvalidValue;
+  switch (G) {
+    case 1: return launch_g<1, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 2: return launch_g<2, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 3: return launch_g<3, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 4: return launch_g<4, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 5: return launch_g<5, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 6: return launch_g<6, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 7: return launch_g<7, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 8: return launch_g<8, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace gptq_dense
+
+// The layout the host plan (ops/cuda/attention.py) assumes, read once when a
+// library that includes this header is loaded: head dim, slots per tile, ring
+// stages, resident blocks per SM, chunks the combine stages, ring bytes.
+extern "C" void gptq_dense_decode_layout(int* out) {
+  const int v[] = {gptq_dense::kD, gptq_dense::kTile, gptq_dense::kStages,
+                   gptq_dense::kBlocksPerSm, gptq_dense::kMaxSplit, gptq_dense::kSmemBytes};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+}

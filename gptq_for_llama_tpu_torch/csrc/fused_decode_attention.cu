@@ -7,15 +7,18 @@
 // output is v_new. With write set, k_new / v_new land at slot offset[b] of
 // the caches on rows whose write_mask is non-zero. The TPU kernel copies the
 // 8-row slab around that slot back over an aliased buffer (a DMA device of
-// the TPU); here one thread block stores the one row.
+// the TPU); here the first chunk's block of each (row, kv head) stores the
+// one row.
 //
 // What bounds it on the H100: the bytes of the live cache prefix, as for
 // decode_attention.cu (10 us at 2047 live slots of 7B's 32 heads at
 // 3.35 TB/s); the fold adds one logit and one v row per head. The body is
-// decode_attention_common.cuh's (chunks of 256 slots and a combine kernel,
-// planned from a host-side bound on the live length): the current token is
-// folded in after the single chunk's last tile, or in the combine kernel.
-#include "decode_attention_common.cuh"
+// decode_attention_dense.cuh's (chunks of 64-192 slots, a 4-stage cp.async
+// ring, per-warp exp2 softmax, a combine kernel in chunk order): the current
+// token is folded in after the single chunk's merge, or in the combine
+// kernel. Slots at or past offset[b] are zero-filled in shared memory and
+// never read from the caches, so the row write cannot race a read.
+#include "decode_attention_dense.cuh"
 
 extern "C" const char* gptq_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
@@ -29,13 +32,11 @@ extern "C" int gptq_fused_decode_attention(const void* q, void* k, void* v, cons
                                            const void* write_mask, int write, void* out,
                                            void* part, int B, int S, int Hkv, int G, int D,
                                            float scale, int nsplit, int chunk, void* stream) {
-  const gptq_attn::Cache c{static_cast<const __nv_bfloat16*>(k),
-                           static_cast<const __nv_bfloat16*>(v), nullptr, S, 0, 0, 0};
-  const gptq_attn::Fold f{static_cast<const __nv_bfloat16*>(k_new),
-                          static_cast<const __nv_bfloat16*>(v_new),
-                          static_cast<__nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(v),
-                          static_cast<const uint8_t*>(write_mask), write};
-  return static_cast<int>(gptq_attn::launch<false, true>(q, c, offs, off_scalar, out, part, B,
-                                                         Hkv, G, D, scale, nsplit, chunk,
-                                                         static_cast<cudaStream_t>(stream), f));
+  const gptq_dense::Fold f{static_cast<const __nv_bfloat16*>(k_new),
+                           static_cast<const __nv_bfloat16*>(v_new),
+                           static_cast<__nv_bfloat16*>(k), static_cast<__nv_bfloat16*>(v),
+                           static_cast<const uint8_t*>(write_mask), write};
+  return static_cast<int>(gptq_dense::launch<true>(q, k, v, S, offs, off_scalar, out, part, B,
+                                                   Hkv, G, D, scale, nsplit, chunk,
+                                                   static_cast<cudaStream_t>(stream), f));
 }

@@ -1,27 +1,30 @@
 """Kernels 3, 7 and 9, decode attention over a dense cache, over a paged block
-pool, and in the fold form: dispatch, CUDA wrappers, launch counts and plain
-versions.
+pool, and in the fold form: dispatch, CUDA wrappers, launch counts, launch
+plans and plain versions.
 
 Kernel 3 replaces ``gptq_for_llama_tpu/ops/pallas/attention.py:_attn_kernel``
-and ``:_attn_kernel_gqa`` (entry ``decode_attention``); kernel 7 replaces
-``:pool_decode_attention`` (the same bodies with the block index routed
-through the slot's table row). Both are ``csrc/decode_attention_common.cuh``
-(entries ``csrc/decode_attention.cu`` and ``csrc/pool_decode_attention.cu``):
-one block per (batch row, kv head, chunk of live slots) serving the head's G
-query heads, reading only the live cache prefix (its bound on the H100: those
-bytes); the paged form addresses the pool through the table and builds no
-gathered view. The plain versions are the TPU package's
-``_xla_decode_fallback``, for the pool after a gather through the tables.
+and ``:_attn_kernel_gqa`` (entry ``decode_attention``), kernel 9
+``:_fused_attn_kernel`` (entry ``fused_decode_attention``): attention over the
+stale prefix (slots below the offset) plus the current token's k/v folded into
+the online softmax, with an optional in-place write of that token's row. Both
+run ``csrc/decode_attention_dense.cuh`` (entries ``csrc/decode_attention.cu``
+and ``csrc/fused_decode_attention.cu``): one block per (batch row, kv head,
+chunk of live slots) serving the head's G query heads, K/V streamed through a
+cp.async ring, reading only the live cache prefix (its bound on the H100:
+those bytes). ``decode_plan`` sizes the chunks.
 
-Kernel 9 replaces ``:_fused_attn_kernel`` (entry ``fused_decode_attention``):
-attention over the stale prefix (slots below the offset) plus the current
-token's k/v folded into the online softmax, with an optional in-place write
-of that token's row; the same body (``csrc/fused_decode_attention.cu``).
+Kernel 7 replaces ``:pool_decode_attention`` (the same bodies with the block
+index routed through the slot's table row): ``csrc/decode_attention_common.cuh``
+(entry ``csrc/pool_decode_attention.cu``), planned by ``pool_split_plan``; the
+paged form addresses the pool through the table and builds no gathered view.
+The plain versions are the TPU package's ``_xla_decode_fallback``, for the
+pool after a gather through the tables.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -35,9 +38,18 @@ POOL_SOURCE = "gptq_for_llama_tpu_torch/csrc/pool_decode_attention.cu"
 POOL_REPLACES = "gptq_for_llama_tpu/ops/pallas/attention.py:412"
 FOLD_SOURCE = "gptq_for_llama_tpu_torch/csrc/fused_decode_attention.cu"
 FOLD_REPLACES = "gptq_for_llama_tpu/ops/pallas/attention.py:191"
-MAX_GROUP = 8   # query heads per kv head the kernel is instantiated for
-TILE = 64       # cache slots per tile
-CHUNK = 256     # live slots one block takes before the slots are split
+MAX_GROUP = 8   # query heads per kv head the kernels are instantiated for
+HEAD_DIM = 128
+# kernels 3 and 9's layout (csrc/decode_attention_dense.cuh; checked against
+# the library's gptq_dense_decode_layout when it is loaded)
+TILE = 32       # cache slots per ring stage (4 warps x 8 slots)
+RING = 4        # ring stages: a block has up to RING * TILE slots in flight
+BLOCKS_PER_SM = 3   # resident blocks (RING_SMEM_BYTES of ring each)
+MAX_SPLIT = 64  # chunks per (row, kv head) the combine kernel takes
+RING_SMEM_BYTES = RING * TILE * 2 * HEAD_DIM * 2   # K and V, bf16
+MIN_CHUNK, MAX_CHUNK = 2 * TILE, 6 * TILE
+POOL_TILE = 64      # kernel 7: cache slots per tile
+POOL_CHUNK = 256    # kernel 7: live slots one block takes before the slots are split
 
 
 def attention_plain(q, k, v, scale: float, mask=None) -> torch.Tensor:
@@ -66,27 +78,81 @@ def decode_attention_plain(q, k_cache, v_cache, offset, scale: float) -> torch.T
     return attention_plain(q, k_cache, v_cache, scale, live[:, None, None, :])
 
 
+def _check_layout(lib: ctypes.CDLL, name: str) -> None:
+    """Refuse a library whose ring, tile or split differ from the constants
+    ``decode_plan`` plans with."""
+    got = (ctypes.c_int * 6)()
+    lib.gptq_dense_decode_layout(got)
+    want = (HEAD_DIM, TILE, RING, BLOCKS_PER_SM, MAX_SPLIT, RING_SMEM_BYTES)
+    if tuple(got) != want:
+        raise RuntimeError(f"{name}: the kernel's layout (head dim, tile, ring stages, blocks "
+                           f"per SM, max split, ring bytes) is {tuple(got)}, the plan's {want}")
+
+
 def _entry():
-    fn = build.library("decode_attention").gptq_decode_attention
+    lib = build.library("decode_attention")
+    fn = lib.gptq_decode_attention
     if fn.argtypes is None:
+        _check_layout(lib, "decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def split_plan(live: int, blocks: int, sms: int = 132):
-    """(chunks, slots per chunk): one block per kv head and row walks up to
-    CHUNK slots; longer prefixes are split into chunks of whole tiles, up to
-    about two blocks per SM in all."""
-    nsplit = max(1, min(-(-live // CHUNK), -(-2 * sms // blocks)))
-    chunk = -(-(-(-live // nsplit)) // TILE) * TILE
+class DecodePlan(NamedTuple):
+    """Launch plan of kernels 3 and 9: ``nsplit`` chunks per (row, kv head),
+    the grid's third dimension; chunk z covers slots [z * chunk, (z + 1) *
+    chunk), the last one up to the row's own live bound."""
+    nsplit: int
+    chunk: int
+
+
+def decode_plan(b: int, hkv: int, g: int, live: int, sms: int = 132) -> DecodePlan:
+    """A pure function of host ints: the batch, kv heads, query heads per kv
+    head (the plan does not depend on it yet), a bound on the live slots of
+    any row (the rows' own offsets still decide what each reads) and the
+    card's SM count.
+
+    A prefix of at most RING * TILE = 128 slots is one chunk: one pass, the
+    whole prefix in flight at once, no combine kernel. A longer one is split
+    so that the grid fits one wave of resident blocks (BLOCKS_PER_SM a SM,
+    the ring's 64 KB each): each block then streams its chunk through the
+    ring while every other block does the same, and no second wave runs on
+    a few SMs at the end. Chunks stay between MIN_CHUNK and MAX_CHUNK slots:
+    at least two tiles a block, and short enough that rows of ragged lengths
+    (serving) spread over many blocks."""
+    def tiles(n):   # n slots rounded up to whole tiles
+        return -(-n // TILE) * TILE
+
+    live = max(int(live), 1)
+    if live <= RING * TILE:
+        return DecodePlan(1, tiles(live))
+    nsplit = max(1, BLOCKS_PER_SM * sms // (b * hkv))
+    chunk = min(max(tiles(-(-live // nsplit)), MIN_CHUNK), MAX_CHUNK)
+    chunk = max(chunk, tiles(-(-live // MAX_SPLIT)))   # at most the chunks the combine stages
+    return DecodePlan(-(-live // chunk), chunk)
+
+
+def partial_floats(b: int, hkv: int, g: int, plan: DecodePlan) -> int:
+    """fp32 scratch the kernel writes for a split plan: per (row, kv head,
+    chunk, query head) the unnormalized accumulator (D), then every row's max,
+    then every row's denominator; none for one chunk."""
+    return 0 if plan.nsplit == 1 else b * hkv * plan.nsplit * g * (HEAD_DIM + 2)
+
+
+def pool_split_plan(live: int, blocks: int, sms: int = 132):
+    """Kernel 7's (chunks, slots per chunk): one block per kv head and row
+    walks up to POOL_CHUNK slots; longer prefixes are split into chunks of
+    whole tiles, up to about two blocks per SM in all."""
+    nsplit = max(1, min(-(-live // POOL_CHUNK), -(-2 * sms // blocks)))
+    chunk = -(-(-(-live // nsplit)) // POOL_TILE) * POOL_TILE
     return -(-live // chunk), chunk
 
 
-def _plan(b: int, hkv: int, g: int, live: int, q: torch.Tensor):
+def _pool_plan(b: int, hkv: int, g: int, live: int, q: torch.Tensor):
     """(chunks, slots per chunk, scratch for the chunk partials or None)."""
-    nsplit, chunk = split_plan(live, b * hkv, _sm_count(q.device.index or 0))
+    nsplit, chunk = pool_split_plan(live, b * hkv, _sm_count(q.device.index or 0))
     part = (torch.empty(b * hkv * nsplit * g * (q.shape[-1] + 2), dtype=torch.float32,
                         device=q.device) if nsplit > 1 else None)
     return nsplit, chunk, part
@@ -111,21 +177,50 @@ def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float,
     check_tensor(q, "q", torch.bfloat16)
     check_tensor(k_cache, "k_cache", torch.bfloat16, (b, s, hkv, d))
     check_tensor(v_cache, "v_cache", torch.bfloat16, (b, s, hkv, d))
-    offs, off_scalar = None, 0
+    return _decode_launch(q, k_cache, v_cache, offset, float(scale),
+                          plan_for(q, k_cache, offset, max_live))
+
+
+def plan_for(q, k_cache, offset, max_live: int | None = None, fold: bool = False) -> DecodePlan:
+    """The plan a launch of kernel 3 (``fold``: kernel 9) takes for these
+    inputs: ``decode_plan`` at the live bound they give. Kernel 3 attends
+    slots <= offset, the fold form slots below it (the plan then covers at
+    least one slot); per-row offsets on the card give the whole cache unless
+    ``max_live`` bounds it."""
+    b, _, h, _ = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    if isinstance(offset, torch.Tensor):
+        live = s if max_live is None else min(max(int(max_live), 1), s)
+    else:
+        off = min(max(int(offset), 0), s - 1)
+        live = max(off, 1) if fold else off + 1
+    return decode_plan(b, hkv, h // hkv, live, _sm_count(q.device.index or 0))
+
+
+def _offsets(offset, b: int):
+    """(per-row offsets on the card or None, the host offset for every row)."""
     if isinstance(offset, torch.Tensor):
         offs = offset.reshape(-1).expand(b).contiguous()
         check_tensor(offs, "offset", torch.int32, (b,))
-        live = s if max_live is None else min(max(int(max_live), 1), s)
-    else:
-        off_scalar = int(offset)
-        live = min(max(off_scalar, 0), s - 1) + 1
-    nsplit, chunk, part = _plan(b, hkv, h // hkv, live, q)
+        return offs, 0
+    return None, int(offset)
+
+
+def _decode_launch(q, k_cache, v_cache, offset, scale: float, plan: DecodePlan) -> torch.Tensor:
+    """One launch of kernel 3 (and its combine kernel where the plan splits)
+    on checked inputs under ``plan`` (a measurement may pass a plan with its
+    chunk forced)."""
+    b, _, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    offs, off_scalar = _offsets(offset, b)
+    n = partial_floats(b, hkv, h // hkv, plan)
+    part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     out = torch.empty_like(q)
     fn = _entry()
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              None if offs is None else offs.data_ptr(), off_scalar, out.data_ptr(),
              None if part is None else part.data_ptr(),
-             b, s, hkv, h // hkv, d, float(scale), nsplit, chunk,
+             b, s, hkv, h // hkv, d, scale, plan.nsplit, plan.chunk,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(build.library("decode_attention"), err, "decode_attention")
     decode_attention_cuda.launches += 1
@@ -209,7 +304,7 @@ def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
     check_tensor(offs, "offset", torch.int32, (b,))
     s = mb * bs
     live = s if max_live is None else min(max(int(max_live), 1), s)
-    nsplit, chunk, part = _plan(b, hkv, h // hkv, live, q)
+    nsplit, chunk, part = _pool_plan(b, hkv, h // hkv, live, q)
     out = torch.empty_like(q)
     fn = _pool_entry()
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
@@ -268,8 +363,10 @@ def fused_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, offset, scal
 
 
 def _fold_entry():
-    fn = build.library("fused_decode_attention").gptq_fused_decode_attention
+    lib = build.library("fused_decode_attention")
+    fn = lib.gptq_fused_decode_attention
     if fn.argtypes is None:
+        _check_layout(lib, "fused_decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 6 + [i, p, i, p, p] + [i] * 5 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
@@ -303,22 +400,17 @@ def fused_decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, offset, scale
         if not wm.is_cuda or wm.shape != (b,):
             raise ValueError(f"write_mask: expected a (B={b},) CUDA tensor, got "
                              f"{tuple(write_mask.shape)} on {write_mask.device}")
-    offs, off_scalar = None, 0
-    if isinstance(offset, torch.Tensor):
-        offs = offset.reshape(-1).expand(b).contiguous()
-        check_tensor(offs, "offset", torch.int32, (b,))
-        live = s if max_live is None else min(max(int(max_live), 1), s)
-    else:
-        off_scalar = int(offset)
-        live = max(min(off_scalar, s - 1), 1)   # the stale prefix: slots below the offset
-    nsplit, chunk, part = _plan(b, hkv, h // hkv, live, q)
+    offs, off_scalar = _offsets(offset, b)
+    plan = plan_for(q, k_cache, offset, max_live, fold=True)
+    n = partial_floats(b, hkv, h // hkv, plan)
+    part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     out = torch.empty_like(q)
     fn = _fold_entry()
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
              v_new.data_ptr(), None if offs is None else offs.data_ptr(), off_scalar,
              None if wm is None else wm.data_ptr(), int(bool(write)), out.data_ptr(),
              None if part is None else part.data_ptr(), b, s, hkv, h // hkv, d, float(scale),
-             nsplit, chunk, torch.cuda.current_stream(q.device).cuda_stream)
+             plan.nsplit, plan.chunk, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(build.library("fused_decode_attention"), err, "fused_decode_attention")
     fused_decode_attention_cuda.launches += 1
     return out, k_cache, v_cache

@@ -143,20 +143,65 @@ def test_fused_mlp_matches_plain(card, m):
     assert _close(fused_mlp(x, gate, up), fused_mlp_plain(x, gate, up), 2e-2)
 
 
+# offsets on the edges of kernels 3 and 9's 32-slot tiles and of their 64- and
+# 128-slot chunks, and the last slot of a 2048-slot cache
+EDGES = (0, 63, 64, 127, 128, 255, 256, 2047)
+SERVING = (37, 150, 300, 511, 512, 900, 1200, 1500)
+
+
+def _decode_case(card, b, s, h, hkv, offs, seed=0):
+    """Kernel 3's inputs, clean, and the caches again with NaN in every slot
+    PAST each row's offset (slot offset[b] is attended): a kernel that read
+    one would return NaN. The plain version multiplies a dead slot's V row by
+    a zero weight, so it takes the clean caches."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=card).bfloat16()
+    q, k, v = r(b, 1, h, 128), r(b, s, hkv, 128), r(b, s, hkv, 128)
+    off = torch.tensor(offs, dtype=torch.int32, device=card)
+    dead = (torch.arange(s, device=card)[None, :] > off[:, None])[:, :, None, None]
+    return q, k, v, k.masked_fill(dead, float("nan")), v.masked_fill(dead, float("nan")), off
+
+
+# kernels 3 and 9's cases: the first three (two chunks at offset 299 under
+# the plan for the 300-slot cache); every G from 1 to 8 (Hkv = 2) with 8 rows
+# at the edge offsets; LLaMA-7B's heads over a 2048-slot cache: the GQA row
+# (Hkv = 8), the last slot, the serving slots
+DECODE_CASES = [(2, 300, 8, 8, (5, 299)), (2, 300, 8, 2, (5, 299)), (2, 300, 12, 4, (5, 299)),
+                *[(8, 2048, 2 * g, 2, EDGES) for g in range(1, 9)],
+                (2, 2048, 32, 8, (100, 1500)), (1, 2048, 32, 32, (2047,)),
+                (8, 2048, 32, 32, SERVING)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,hkv", [(8, 8), (8, 2), (12, 4)])
-def test_decode_attention_matches_plain(card, h, hkv):
+@pytest.mark.parametrize("b,s,h,hkv,offs", DECODE_CASES)
+def test_decode_attention_matches_plain(card, b, s, h, hkv, offs):
     """1e-2 of each row's norm: both softmax in fp32; the kernel's output is
-    bf16."""
-    q = torch.randn(2, 1, h, 128, device=card).bfloat16()
-    k = torch.randn(2, 300, hkv, 128, device=card).bfloat16()
-    v = torch.randn(2, 300, hkv, 128, device=card).bfloat16()
-    off = torch.tensor([5, 299], dtype=torch.int32, device=card)
-    assert _rows_close(decode_attention(q, k, v, off, 128 ** -0.5),
-                       decode_attention_plain(q, k, v, off, 128 ** -0.5), 1e-2)
-    for o in (77, 299):   # one chunk; two chunks and the combine kernel
-        assert _rows_close(decode_attention(q, k, v, o, 128 ** -0.5),
-                           decode_attention_plain(q, k, v, o, 128 ** -0.5), 1e-2)
+    bf16. Per-row offsets over caches holding NaN past each offset, with the
+    plan made for the whole cache, for the true bound and for one below most
+    offsets (the last chunk then runs to each row's own offset): no NaN, and
+    two runs bit-equal (the chunks are summed in a fixed order). Then host
+    int offsets: each row alone at its own, and every row at 77 (one chunk)
+    and at the cache's last slot (chunks and the combine kernel)."""
+    scale = 128 ** -0.5
+    q, k, v, pk, pv, off = _decode_case(card, b, s, h, hkv, offs, seed=b * h + hkv)
+    want = decode_attention_plain(q, k, v, off, scale)
+    for max_live in (None, max(offs) + 1, 100):
+        got = decode_attention(q, pk, pv, off, scale, max_live)
+        again = decode_attention(q, pk, pv, off, scale, max_live)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all(), f"max_live={max_live}: read a poisoned slot"
+        assert _rows_close(got, want, 1e-2), f"max_live={max_live}"
+        assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    for i, o in enumerate(offs):
+        got = decode_attention(q[i:i + 1], pk[i:i + 1], pv[i:i + 1], o, scale)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all() and _rows_close(got, want[i:i + 1], 1e-2), o
+    for o in (77, s - 1):
+        assert _rows_close(decode_attention(q, k, v, o, scale),
+                           decode_attention_plain(q, k, v, o, scale), 1e-2), o
 
 
 @pytest.mark.cuda
@@ -607,13 +652,16 @@ def _fold_case(card, b, s, h, hkv, offs, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,hkv,offs", [
     (1, 64, 8, 8, (0,)), (2, 300, 8, 2, (5, 299)), (3, 2048, 12, 4, (0, 700, 2047)),
-    (8, 2048, 32, 32, (37, 150, 300, 511, 512, 900, 1200, 1500))])
+    *[(8, 2048, 2 * g, 2, EDGES) for g in range(1, 9)],
+    (2, 2048, 32, 8, (100, 1500)), (1, 2048, 32, 32, (2047,)), (8, 2048, 32, 32, SERVING)])
 def test_fused_decode_attention_matches_plain(card, b, s, h, hkv, offs):
     """Kernel 9 against its plain version over caches that hold NaN at and
     past each row's offset: every output row within 1e-2 of its norm, no NaN,
     and after the write under a mixed mask the caches byte-equal the plain
-    version's. A host int offset, per-row offsets with and without the
-    host-side bound, write and no write."""
+    version's. Per-row offsets with the plan made for the whole cache, the
+    true bound and one below most offsets (the last chunk runs to each row's
+    own offset), two runs bit-equal; a host int offset; write and no write.
+    Offset 0: the output is v_new; 2047: the write lands on the last slot."""
     from gptq_for_llama_tpu_torch.ops.cuda.attention import (fused_decode_attention,
                                                              fused_decode_attention_plain)
     q, ck, cv, kn, vn, off = _fold_case(card, b, s, h, hkv, offs)
@@ -622,11 +670,15 @@ def test_fused_decode_attention_matches_plain(card, b, s, h, hkv, offs):
     want, _, _ = fused_decode_attention_plain(q, wk, wv, kn, vn, off, 0.09, write_mask=mask)
     assert torch.isfinite(want.float()).all()
     kernels.reset_launch_counts()
-    for max_live in (None, max(offs) + 1):
+    for max_live in (None, max(offs) + 1, 100):
         got, _, _ = fused_decode_attention(q, ck, cv, kn, vn, off, 0.09, write=False,
                                            max_live=max_live)
+        again, _, _ = fused_decode_attention(q, ck, cv, kn, vn, off, 0.09, write=False,
+                                             max_live=max_live)
         torch.cuda.synchronize()
-        assert torch.isfinite(got.float()).all() and _rows_close(got, want, 1e-2)
+        assert torch.isfinite(got.float()).all(), f"max_live={max_live}: read a dead slot"
+        assert _rows_close(got, want, 1e-2), f"max_live={max_live}"
+        assert torch.equal(got.view(torch.int16), again.view(torch.int16))
     got, gk, gv = fused_decode_attention(q, ck, cv, kn, vn, off, 0.09, write_mask=mask)
     torch.cuda.synchronize()
     assert gk is ck and _rows_close(got, want, 1e-2)
@@ -635,8 +687,51 @@ def test_fused_decode_attention_matches_plain(card, b, s, h, hkv, offs):
     if len(set(offs)) == 1:   # a host int, as the runner passes it
         got, _, _ = fused_decode_attention(q, ck, cv, kn, vn, offs[0], 0.09, write=False)
         assert _rows_close(got, want, 1e-2)
-    assert kernels.launch_counts()["fused_decode_attention"] == 3 + (len(set(offs)) == 1)
+    assert kernels.launch_counts()["fused_decode_attention"] == 7 + (len(set(offs)) == 1)
     assert kernels.launch_counts()["decode_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", [False, True])
+def test_decode_graph_replays_as_offsets_grow(card, fold):
+    """A CUDA graph captured once, with per-row offsets on the card and the
+    plan made for the live bound at capture (64 slots), replays right as the
+    offsets grow far past that bound: the last chunk runs to each row's own
+    offset. The fold form writes its row under a mask on every replay."""
+    from gptq_for_llama_tpu_torch.ops.cuda.attention import (fused_decode_attention,
+                                                             fused_decode_attention_plain)
+    b, s, h, hkv = 3, 2048, 16, 4
+    q, k, v, _, _, off = _decode_case(card, b, s, h, hkv, (10, 40, 63), seed=7)
+    kn, vn = torch.randn(2, b, 1, hkv, 128, device=card).bfloat16()
+    mask = torch.tensor([True, False, True], device=card)
+
+    def step():
+        if fold:
+            return fused_decode_attention(q, k, v, kn, vn, off, 0.09, write_mask=mask,
+                                          max_live=64)[0]
+        return decode_attention(q, k, v, off, 0.09, max_live=64)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for offs in ((10, 40, 63), (100, 700, 64), (1500, 2047, 1024)):
+        off.copy_(torch.tensor(offs, dtype=torch.int32, device=card))
+        wk, wv = k.clone(), v.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        if fold:
+            want, _, _ = fused_decode_attention_plain(q, wk, wv, kn, vn, off, 0.09,
+                                                      write_mask=mask)
+            assert torch.equal(k.view(torch.int16), wk.view(torch.int16)), offs
+            assert torch.equal(v.view(torch.int16), wv.view(torch.int16)), offs
+        else:
+            want = decode_attention_plain(q, k, v, off, 0.09)
+        assert _rows_close(out, want, 1e-2), offs
 
 
 @pytest.mark.cuda

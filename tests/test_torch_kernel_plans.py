@@ -1,11 +1,15 @@
-"""The host-side launch plans of kernels 1 and 2 (``ops/cuda/matmul.plan``)
-and of kernel 8 (``ops/cuda/matmul_t.plan``), at LLaMA-7B's widths. Pure
-arithmetic: no card, no nvcc.
+"""The host-side launch plans of kernels 1 and 2 (``ops/cuda/matmul.plan``),
+of kernel 8 (``ops/cuda/matmul_t.plan``), of kernels 4 and 5 (which body) and
+of kernels 3 and 9 (``ops/cuda/attention.decode_plan``), at LLaMA-7B's widths.
+Pure arithmetic: no card, no nvcc.
 
 Kernel 1 keeps the split-K GEMV for decode rows and takes the tensor-core
 tiles above ``GEMV_MAX_M``; kernel 2 keeps its GEMV plan at every M (its tile
 form is later work); kernel 8 takes kernel 1's row tile and splits N where
-its tiles do not fill the card."""
+its tiles do not fill the card. Kernels 3 and 9 split the live slots into
+chunks of whole tiles; a CPU model of the split and its combine (the
+kernels' arithmetic in fp32 numpy) is held against the TPU package's
+decode attention in interpret mode."""
 
 import pytest
 
@@ -215,3 +219,230 @@ def test_flash_body_follows_the_causal_prefix(sq, off, want):
     assert flash_prefill.SYNC_MAX_KEYS == 128
     assert flash_prefill.plan(sq, off) == want
 
+
+
+# -- kernels 3 and 9, decode attention: the split plan -------------------------
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from gptq_for_llama_tpu.ops.pallas import attention as jattn  # noqa: E402
+from gptq_for_llama_tpu_torch.ops.cuda import attention  # noqa: E402
+from gptq_for_llama_tpu_torch.ops.cuda.attention import (DecodePlan, decode_plan,  # noqa: E402
+                                                         partial_floats)
+
+# every row the smoke gives kernels 3 and 9: batch, kv heads, live bound
+DECODE_B, DECODE_HKV = (1, 2, 8), (8, 32)
+DECODE_LIVE = (1, 64, 65, 128, 256, 1501, 2048)
+
+
+def chunk_bounds(plan: DecodePlan, live_row: int) -> list[tuple[int, int]]:
+    """The (first, end) slots of each chunk with work for a row whose live
+    bound is ``live_row``, in chunk order, as csrc/decode_attention_dense.cuh
+    computes them: chunk z starts at z * chunk and ends a chunk later, the
+    last one at the row's own bound; a chunk that starts at or past the bound
+    exits at once and writes nothing."""
+    out = []
+    for z in range(plan.nsplit):
+        first = z * plan.chunk
+        end = live_row if z == plan.nsplit - 1 else min(live_row, first + plan.chunk)
+        if first < end:
+            out.append((first, end))
+    return out
+
+
+def _contiguous(bounds, live):
+    assert bounds[0][0] == 0 and bounds[-1][1] == live
+    for (_, end), (first, _) in zip(bounds, bounds[1:]):
+        assert end == first
+
+
+@pytest.mark.parametrize("live", DECODE_LIVE)
+@pytest.mark.parametrize("hkv", DECODE_HKV)
+@pytest.mark.parametrize("b", DECODE_B)
+def test_decode_plan_covers_the_live_slots_in_whole_tiles(b, hkv, live):
+    """Chunks are whole 32-slot tiles and cover [0, live) in order; at the
+    bound every chunk has work and the last one reaches it; one pass (no
+    combine, no partials) up to the ring's 128 slots; the partials are one
+    accumulator row, max and denominator per (row, kv head, chunk, head)."""
+    p = decode_plan(b, hkv, 4, live, SMS)
+    assert p.chunk % attention.TILE == 0 and 1 <= p.nsplit <= attention.MAX_SPLIT
+    bounds = chunk_bounds(p, live)
+    assert len(bounds) == p.nsplit
+    _contiguous(bounds, live)
+    assert all(end - first == p.chunk for first, end in bounds[:-1])
+    assert 0 < bounds[-1][1] - bounds[-1][0] <= p.chunk
+    assert (p.nsplit == 1) == (live <= attention.RING * attention.TILE)
+    assert partial_floats(b, hkv, 4, p) == (0 if p.nsplit == 1 else
+                                            b * hkv * p.nsplit * 4 * (attention.HEAD_DIM + 2))
+
+
+@pytest.mark.parametrize("bound,row", [(1, 300), (64, 2048), (128, 129), (300, 2048),
+                                       (1501, 2048), (2048, 100)])
+def test_a_row_past_the_plans_bound_is_read_in_full(bound, row):
+    """A plan made for a smaller bound than a row's live length (a CUDA graph
+    replayed at a longer length) still covers the row: its last chunk runs to
+    the row's own bound. A row below the bound leaves the later chunks empty
+    (their blocks exit at once)."""
+    p = decode_plan(8, 32, 1, bound, SMS)
+    bounds = chunk_bounds(p, row)
+    _contiguous(bounds, row)
+    assert len(bounds) == min(p.nsplit, -(-row // p.chunk))
+
+
+@pytest.mark.parametrize("b,hkv,bound,lives", [
+    (1, 32, 2048, (2048,)),        # kernel 3 at offset 2047
+    (1, 32, 2047, (2047,)),        # kernel 9 there: the stale prefix
+    (2, 8, 2048, (101, 1501)),     # kernel 3, GQA, per-row offsets planned for the cache
+    (2, 8, 2048, (100, 1500))])    # kernel 9
+def test_decode_plan_fills_the_card(b, hkv, bound, lives):
+    """At the offset-2047 and GQA rows every SM gets a block with work, and
+    the grid fits one wave of resident blocks."""
+    p = decode_plan(b, hkv, 4, bound, SMS)
+    assert hkv * sum(len(chunk_bounds(p, live)) for live in lives) >= SMS
+    assert b * hkv * p.nsplit <= attention.BLOCKS_PER_SM * SMS
+
+
+@pytest.mark.parametrize("b,hkv,live,want", [
+    (1, 32, 1, (1, 32)), (1, 32, 128, (1, 128)), (1, 32, 129, (3, 64)), (1, 32, 266, (5, 64)),
+    (1, 32, 2048, (11, 192)), (2, 8, 2048, (22, 96)), (8, 32, 1501, (8, 192)),
+    (1, 32, 100000, (64, 1568))])
+def test_decode_plans_at_the_smoke_rows(b, hkv, live, want):
+    """The plans the smoke's rows take (batch-1 decode at offsets 0-265, the
+    offset-2047, GQA and serving rows); a cache longer than 64 chunks of
+    192 slots takes longer chunks (the combine stages 64)."""
+    assert tuple(decode_plan(b, hkv, 1, live, SMS)) == want
+
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _split_model(q, k, v, offs, scale, plan, fold=None):
+    """Kernels 3 and 9's arithmetic on the CPU, fp32: per (row, kv head, chunk)
+    each of the 4 warps runs an online softmax in log2 units over its 8 slots
+    of every 32-slot tile, the warps merge; one chunk writes the output, more
+    write partials (accumulator, max, denominator: the kernel's layout) that
+    the combine rescales and sums in chunk order, with the fold form's
+    current token as one more slot. Returns (out, times each partial float
+    was written)."""
+    b, _, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    rows = b * hkv * plan.nsplit * g
+    part = np.zeros(partial_floats(b, hkv, g, plan), np.float32)
+    written = np.zeros(part.size, np.int32)
+    out = np.zeros((b, 1, h, d), np.float32)
+    tile, warp_slots = attention.TILE, attention.TILE // 4
+    for bi in range(b):
+        off = min(max(int(offs[bi]), 0), s - 1)
+        live = off if fold is not None else off + 1
+        for kv in range(hkv):
+            qs = q[bi, 0, kv * g:(kv + 1) * g] * np.float32(scale) * LOG2E      # (G, D)
+            kr, vr = k[bi, :, kv], v[bi, :, kv]
+            lc = vn = None
+            if fold is not None:
+                lc = qs @ fold[0][bi, 0, kv]
+                vn = fold[1][bi, 0, kv]
+            chunks = []
+            for first, end in chunk_bounds(plan, live):
+                warps = []
+                for w in range(4):
+                    m = np.full(g, -np.inf, np.float32)
+                    l_ = np.zeros(g, np.float32)
+                    acc = np.zeros((g, d), np.float32)
+                    for t0 in range(first, end, tile):
+                        lo = t0 + w * warp_slots
+                        hi = min(lo + warp_slots, end)
+                        if lo >= hi:
+                            continue
+                        x = qs @ kr[lo:hi].T                                       # (G, n)
+                        m_new = np.maximum(m, x.max(axis=1))
+                        alpha = np.exp2(m - m_new)
+                        p = np.exp2(x - m_new[:, None])
+                        l_ = l_ * alpha + p.sum(axis=1)
+                        acc = acc * alpha[:, None] + p @ vr[lo:hi]
+                        m = m_new
+                    warps.append((m, l_, acc))
+                big = np.max([m for m, _, _ in warps], axis=0)
+                e = [np.where(m == -np.inf, 0, np.exp2(m - big)).astype(np.float32)
+                     for m, _, _ in warps]
+                chunks.append((big, sum(ew * l_ for ew, (_, l_, _) in zip(e, warps)),
+                               sum(ew[:, None] * acc for ew, (_, _, acc) in zip(e, warps))))
+            if plan.nsplit > 1:   # the partials, at the kernel's indices
+                for (big, l_, acc), (first, _) in zip(chunks, chunk_bounds(plan, live)):
+                    row0 = ((bi * hkv + kv) * plan.nsplit + first // plan.chunk) * g
+                    for gi in range(g):
+                        for idx, val in ((slice((row0 + gi) * d, (row0 + gi + 1) * d), acc[gi]),
+                                         (rows * d + row0 + gi, big[gi]),
+                                         (rows * d + rows + row0 + gi, l_[gi])):
+                            part[idx] = val
+                            written[idx] += 1
+            # the combine (or the single chunk's epilogue): chunk order
+            top = np.max([c[0] for c in chunks] + ([lc] if lc is not None else []), axis=0)
+            num = np.zeros((g, d), np.float32)
+            den = np.zeros(g, np.float32)
+            if lc is not None:
+                den = np.exp2(lc - top)
+                num = den[:, None] * vn[None, :]
+            for big, l_, acc in chunks:
+                wgt = np.exp2(big - top)
+                num = num + wgt[:, None] * acc
+                den = den + wgt * l_
+            out[bi, 0, kv * g:(kv + 1) * g] = num / den[:, None]
+    return out, written
+
+
+def _decode_inputs(b, s, h, hkv, offs, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.standard_normal(sh).astype(np.float32)
+               for sh in ((b, 1, h, 128), (b, s, hkv, 128), (b, s, hkv, 128)))
+    kn, vn = (rng.standard_normal((b, 1, hkv, 128)).astype(np.float32) for _ in range(2))
+    return q, k, v, kn, vn, np.asarray(offs, np.int32)
+
+
+# 64-slot chunks over the 300-slot cache (the combine runs), and a plan made
+# for 128 slots, below most offsets (the last chunk runs to the row's own)
+SPLIT_PLANS = {"whole cache": DecodePlan(5, 64), "bound below the offsets": DecodePlan(2, 64)}
+
+
+@pytest.mark.parametrize("plan", sorted(SPLIT_PLANS))
+@pytest.mark.parametrize("offs", [(5, 299), (0, 150)])
+@pytest.mark.parametrize("h,hkv", [(8, 2), (8, 8)])
+def test_split_model_matches_pallas_decode_attention(h, hkv, offs, plan):
+    """Kernel 3's split and combine against the TPU package's decode
+    attention in interpret mode, fp32: tests/test_torch_kernels.py's
+    tolerance. G = 4 and G = 1."""
+    q, k, v, _, _, off = _decode_inputs(2, 300, h, hkv, offs, seed=h + offs[0])
+    got, written = _split_model(q, k, v, off, 128 ** -0.5, SPLIT_PLANS[plan])
+    assert written.max() <= 1
+    want = np.asarray(jattn.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             jnp.asarray(off), 128 ** -0.5, interpret=True))
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("plan", sorted(SPLIT_PLANS))
+@pytest.mark.parametrize("offs", [(5, 299), (0, 150)])
+@pytest.mark.parametrize("h,hkv", [(8, 2), (8, 8)])
+def test_split_model_matches_pallas_fused_decode_attention(h, hkv, offs, plan):
+    """Kernel 9's split and combine, the current token folded in as one more
+    slot (offset 0: the output is v_new), against the TPU package's fused
+    decode attention in interpret mode (no write), fp32."""
+    q, k, v, kn, vn, off = _decode_inputs(2, 300, h, hkv, offs, seed=h + offs[0] + 1)
+    got, written = _split_model(q, k, v, off, 128 ** -0.5, SPLIT_PLANS[plan], fold=(kn, vn))
+    assert written.max() <= 1
+    want, _, _ = jattn.fused_decode_attention(
+        *(jnp.asarray(a) for a in (q, k, v, kn, vn, off)), 128 ** -0.5, interpret=True,
+        write=False)
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_split_model_fills_the_partial_buffer(fold):
+    """With every row at the plan's bound each chunk has work: the partials
+    the kernel writes cover its scratch (``partial_floats``) exactly once."""
+    plan = DecodePlan(5, 64)
+    q, k, v, kn, vn, off = _decode_inputs(2, 300, 8, 2, (299, 299), seed=3)
+    if fold:   # the stale prefix is slots below the offset: 299 live, 5 chunks
+        _, written = _split_model(q, k, v, off, 0.09, plan, fold=(kn, vn))
+    else:
+        _, written = _split_model(q, k, v, off, 0.09, plan)
+    assert written.size == partial_floats(2, 2, 4, plan) and (written == 1).all()
