@@ -13,7 +13,10 @@ Phases, in order, on one card:
            error vs the stated tolerance (attention: per output row, relative
            to the row's norm), kernel / plain / library-call time (CUDA events
            around a CUDA-graph replay of many launches, weights cycled
-           through copies larger than the 50 MB L2), and the bound.
+           through copies larger than the 50 MB L2), and the bound. Kernel
+           2's rows time every form forced beside kernel 1 run twice;
+           kernel 7's rows time kernel 3 over the gathered view and require
+           the two outputs bit-equal.
   e2e      a random wire-format LLaMA at 7B width and 2 layers: prefill and
            8 greedy steps on the card (bf16, kernels) against the same
            weights on the CPU (fp32, plain versions).
@@ -92,23 +95,28 @@ PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve"
 # then decode steps), the calibration forward, the perplexity eval, paged
 # serving (bucketed and batched admission, spans) and dense serving with
 # chunked prefill
-PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked", "rms_norm"},
+# ("fused_mlp:<form>": kernel 2 by form: the GEMV at batch-1 decode, the
+# fragment form at the 8-slot serving step, the tiles at prefill and eval)
+PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked", "rms_norm",
+                    "fused_mlp:gemv", "fused_mlp:tile"},
          "quantize": {"flash_prefill", "rms_norm"},
-         "eval": {"flash_prefill", "qmm", "fused_mlp", "rms_norm"},
+         "eval": {"flash_prefill", "qmm", "fused_mlp", "rms_norm", "fused_mlp:tile"},
          "serve:paged": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill_blocked",
-                         "flash_prefill", "rms_norm"},
+                         "flash_prefill", "rms_norm", "fused_mlp:frag", "fused_mlp:tile"},
          "serve:dense": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                         "rms_norm"},
+                         "rms_norm", "fused_mlp:frag", "fused_mlp:tile"},
          # the CLI's demo prompts all have one length: every admission is batched
          "serve:cli": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill", "rms_norm"},
          # the decode path with cache_impl="fold", in the runner and the dense engine
-         "fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked", "rms_norm"},
+         "fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked", "rms_norm",
+                  "fused_mlp:gemv", "fused_mlp:tile"},
          "serve:fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
-                        "rms_norm"},
+                        "rms_norm", "fused_mlp:frag", "fused_mlp:tile"},
          # LoRA training steps (every linear adapted: gate/up unfused), and the
          # gradient check with gate/up frozen (the fused MLP and its backward)
          "lora": {"qmm", "rms_norm", "flash_prefill", "qmm_t"},
-         "lora:fused": {"qmm", "fused_mlp", "rms_norm", "flash_prefill", "qmm_t"}}
+         "lora:fused": {"qmm", "fused_mlp", "rms_norm", "flash_prefill", "qmm_t",
+                        "fused_mlp:tile"}}
 LLAMA_7B = dict(arch="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                 num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128, max_seq_len=2048)
 
@@ -306,9 +314,11 @@ class Smoke:
         fn = build.library("flash_prefill").gptq_flash_smem_bytes
         smem = {f"flash {body}": fn(i) for body, i in PATH_IDS.items()}
         for bits in (2, 4, 8):
-            for bm in matmul.TC_ROW_TILES:
-                smem[f"qmm tile {bits}-bit BM={bm}"] = matmul.tile_smem_bytes(bits, 1, bm)
+            for bm in matmul.TC_ROW_TILES:   # kernels 1 and 2 alike
+                smem[f"qmm / fused_mlp tile {bits}-bit BM={bm}"] = matmul.tile_smem_bytes(bits, bm)
                 smem[f"qmm_t {bits}-bit BM={bm}"] = matmul_t.tile_smem_bytes(bits, bm)
+            for nt in (1, 2):
+                smem[f"fused_mlp frag {bits}-bit M<={8 * nt}"] = matmul.frag_smem_bytes(bits, nt)
         from gptq_for_llama_tpu_torch.ops.cuda import attention
         smem["decode ring (kernels 3, 9)"] = attention.RING_SMEM_BYTES   # checked at load
         log("[build] dynamic shared memory per block (bytes): "
@@ -324,7 +334,8 @@ class Smoke:
         ``main`` marks the kernel's row of the kernels line, ``serve`` the row
         at the shape of the serving decode step (or, for the prefill kernels,
         of a serving chunk or admission), printed beside it. ``path`` names
-        kernel 1's path (``gemv`` or ``tile``); ``extra`` adds measured keys."""
+        kernel 1's or 2's form (``gemv``, ``frag`` or ``tile``); ``extra``
+        adds measured keys."""
         b_ms, b_by = bound(nbytes, flops)
         checked = ulps if ulps is not None else err if row_rel is None else row_rel
         ok = checked <= tol
@@ -396,7 +407,6 @@ class Smoke:
         from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill_cuda
         from gptq_for_llama_tpu_torch.ops.cuda import matmul
         from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for, qmm_cuda
-        from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp_cuda, fused_mlp_plain
         from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
 
         rng = np.random.RandomState(1234)
@@ -460,24 +470,14 @@ class Smoke:
                                  2 * m * k * n, path=path)
             del lins, wdq
         self._qmm_tile_cases(torch, rng)
-        # kernel 2: same tolerance and reason, per branch before the epilogue
         k, n = 4096, 11008
         gates = self._linears(torch, rng, k, n, copies_for(k * n))
         ups = self._linears(torch, rng, k, n, len(gates))
         for m in ms_of:
-            x = randn(m, k)
-            y = fused_mlp_cuda(x, gates[0], ups[0])
-            ref = fused_mlp_plain(x, gates[0], ups[0])
-            err = (y.float() - ref.float()).abs().max().item()
-            tol = 2e-2 * ref.float().abs().max().item()
-            iters = 60 if m <= 136 else 6
-            ms = graph_ms(torch, [lambda g=g, u=u: fused_mlp_cuda(x, g, u)
-                                  for g, u in zip(gates, ups)], iters=iters)
-            pms = graph_ms(torch, [lambda g=g, u=u: fused_mlp_plain(x, g, u)
-                                   for g, u in zip(gates, ups)], iters=min(iters, 10))
-            nbytes = m * k * 2 + 2 * self._lin_bytes(gates[0]) + m * n * 2
-            self._record("fused_mlp", f"gate+up {k}x{n} M={m}", err, tol, ms, pms, None,
-                         nbytes, 4 * m * k * n, main=(m == 1), serve=(m == 8))
+            self._kernel2_row(torch, randn, gates, ups, m, 60 if m <= 136 else 6,
+                              main=(m == 1), serve=(m == 8))
+        for m in (2, 4, 5):   # the forms on either side of the GEMV's crossover
+            self._kernel2_row(torch, randn, gates, ups, m, 60)
         del gates, ups
         # kernels 3-5: tolerance 1e-2 of each output row's norm: both sides
         # softmax in fp32, the output is rounded to bf16 (2^-9 relative);
@@ -612,6 +612,63 @@ class Smoke:
         self._kernel9(torch, F, randn)
         self._ppl_eval_linears(torch, rng, randn)
         torch.cuda.synchronize()
+
+    def _kernel2_row(self, torch, randn, gates, ups, m, iters, main=False, serve=False):
+        """Kernel 2 at 4096 x 11008 and M rows through the dispatch (the plan's
+        form), then every form it has (GEMV, the fragment form up to 16 rows,
+        the tiles), forced, each held to the plain version and timed, and
+        kernel 1 run twice at the same shape (the unfused gate and up). The
+        tolerance is 2e-2 * max|plain| (kernel 1's: the GEMV keeps the weight
+        in fp32, the tensor-core forms sum in another order), and 1e-2 of each
+        row's norm; the worst row's gap between each tensor-core form and the
+        forced GEMV is logged (tests/test_torch_cuda.py's GEMV_GAP)."""
+        from gptq_for_llama_tpu_torch.ops.cuda import matmul, mlp
+        from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
+        from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp_cuda, fused_mlp_plain
+        k, n = gates[0].in_features, gates[0].out_features
+        x = randn(m, k)
+        pairs = list(zip(gates, ups))
+        y = fused_mlp_cuda(x, gates[0], ups[0])
+        p = mlp.plan_for(x, gates[0])
+        ref = fused_mlp_plain(x, gates[0], ups[0])
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = 2e-2 * ref.float().abs().max().item()
+        rel = row_rel_err(y, ref)
+        if rel > 1e-2:
+            raise AssertionError(f"fused_mlp M={m}: worst row {rel} of its norm off the plain "
+                                 f"version")
+        ms = graph_ms(torch, [lambda g=g, u=u: fused_mlp_cuda(x, g, u) for g, u in pairs],
+                      iters=iters)
+        pms = graph_ms(torch, [lambda g=g, u=u: fused_mlp_plain(x, g, u) for g, u in pairs],
+                       iters=min(iters, 10))
+        sms = matmul._sm_count(0)
+        forced, gap, outs = {}, {}, {}
+        for path in ("gemv", "frag", "tile"):
+            if path == "frag" and m > matmul.FRAG_MAX_M:
+                continue
+            fp = matmul.plan(m, k, n, 4, sms, streams=2, path=path)
+            outs[path] = mlp._launch(x, gates[0], ups[0], fp)
+            frel = row_rel_err(outs[path], ref)
+            if frel > 1e-2:
+                raise AssertionError(f"fused_mlp M={m} ({path} forced): worst row {frel}")
+            forced[path] = graph_ms(torch, [lambda g=g, u=u, fp=fp: mlp._launch(x, g, u, fp)
+                                            for g, u in pairs],
+                                    iters=iters if path != "gemv" or m <= 136 else 2)
+        for path in ("frag", "tile"):
+            if path in outs:
+                gap[path] = row_rel_err(outs[path], outs["gemv"])
+        k1 = 2 * graph_ms(torch, [lambda g=g: qmm_cuda(x, g) for g in gates], iters=iters)
+        extra = {"form": {"path": p.path, "rows": p.mt, "split": p.split},
+                 "forced_ms": forced, "gap_to_gemv": gap, "kernel1_x2_ms": k1}
+        log(f"[kernel fused_mlp] M={m}: forms forced "
+            + ", ".join(f"{a} {t * 1e3:.2f} us" for a, t in forced.items())
+            + f"; kernel 1 twice at {k}x{n} {k1 * 1e3:.2f} us; worst row vs the forced GEMV "
+            + ", ".join(f"{a} {g:.3e}" for a, g in gap.items()) + f" | {self.card}")
+        nbytes = m * k * 2 + 2 * self._lin_bytes(gates[0]) + m * n * 2
+        self._record("fused_mlp", f"gate+up {k}x{n} M={m}", err, tol, ms, pms, None, nbytes,
+                     4 * m * k * n, main=main, serve=serve, path=p.path, row_rel=None,
+                     extra=dict(extra, row_rel_plain=rel))
+        del x, y, ref, outs
 
     def _qmm_tile_cases(self, torch, rng):
         """Kernel 1's tile path on ragged cases through the dispatch (no
@@ -767,8 +824,12 @@ class Smoke:
         a copy of the pool taken before the poison (0 x NaN is NaN in SDPA's
         weighted sum, and zeroing the dead slots would be timed work that the
         library call does not need). Each launch of a timed run reads another
-        region of the pool (copies larger than the L2)."""
-        from gptq_for_llama_tpu_torch.ops.cuda.attention import (pool_decode_attention_cuda,
+        region of the pool (copies larger than the L2). Each row also runs
+        kernel 3 over the gathered dense view of the same pool, which kernel
+        7 must equal bit for bit (one body, one plan), and times it beside."""
+        from gptq_for_llama_tpu_torch.ops.cuda import attention
+        from gptq_for_llama_tpu_torch.ops.cuda.attention import (decode_attention_cuda,
+                                                                 pool_decode_attention_cuda,
                                                                  pool_decode_attention_plain)
         b, h, d, bs, mb = 8, 32, 128, 16, 128
         bf = torch.bfloat16
@@ -824,12 +885,28 @@ class Smoke:
                 raise AssertionError(f"pool_decode_attention {what}: the library yardstick "
                                      f"computes another function ({lib_err})")
             lms = graph_ms(torch, [lambda t=t: library(t) for t in tables], iters=10)
+            views = [(kp[t.long()].reshape(b, mb * bs, hkv, d),
+                      vp[t.long()].reshape(b, mb * bs, hkv, d)) for t in tables]
+            y3 = decode_attention_cuda(q, views[0][0], views[0][1], off, d ** -0.5, max_live)
+            torch.cuda.synchronize()
+            if not torch.equal(y, y3):
+                raise AssertionError(f"pool_decode_attention {what}: differs from kernel 3 over "
+                                     f"the gathered view ({row_rel_err(y, y3)})")
+            k3 = graph_ms(torch, [lambda c=c: decode_attention_cuda(q, c[0], c[1], off, d ** -0.5,
+                                                                    max_live) for c in views])
+            plan = attention.pool_plan_for(q, kp, tables[0], max_live)
+            extra = dict(self._plan_log(plan, hkv, [o + 1 for o in offs]),
+                         kernel3_gathered_ms=k3, equal_to_kernel3=True)
+            log(f"[kernel pool_decode_attention] {what}: kernel 7 {ms * 1e3:.2f} us, kernel 3 "
+                f"over the gathered view {k3 * 1e3:.2f} us ({ms / k3:.3f}x), outputs equal "
+                f"| {self.card}")
             self._record("pool_decode_attention",
                          f"B={b} H={h} Hkv={hkv} BS={bs} MB={mb} {what}", err, 1e-2, ms, pms, lms,
                          2 * b * h * d * 2 + live_bytes + b * 4 + live_slots // bs * 4,
                          4 * live_slots * h * d, main=(hkv == 32 and offs == mixed),
-                         row_rel=rel, ref_max=ref_max, serve=(hkv == 32 and offs == mixed))
-            del kp, vp, kp_clean, vp_clean, tables
+                         row_rel=rel, ref_max=ref_max, serve=(hkv == 32 and offs == mixed),
+                         extra=extra)
+            del kp, vp, kp_clean, vp_clean, tables, views
             torch.cuda.empty_cache()
 
     def _kernel8(self, torch, rng, randn):
@@ -1004,9 +1081,9 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def _ppl_eval_linears(self, torch, rng, randn):
-        """Kernels 1-2 at the perplexity-eval M (8 windows x 2048 tokens)."""
+        """Kernels 1-2 at the perplexity-eval M (8 windows x 2048 tokens);
+        kernel 2's row carries kernel 1 run twice at its shape."""
         from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for, qmm_cuda
-        from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp_cuda, fused_mlp_plain
         from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
         bf, m = torch.bfloat16, 16384
         for k, n, what in ((4096, 4096, "q_proj"), (11008, 4096, "down_proj")):
@@ -1029,17 +1106,7 @@ class Smoke:
             del x, y, ref, wdq
         k, n = 4096, 11008
         gate, up = (self._linears(torch, rng, k, n, 1)[0] for _ in range(2))
-        x = randn(m, k)
-        y = fused_mlp_cuda(x, gate, up)
-        ref = fused_mlp_plain(x, gate, up)
-        err = (y.float() - ref.float()).abs().max().item()
-        tol = 2e-2 * ref.float().abs().max().item()
-        ms = graph_ms(torch, [lambda: fused_mlp_cuda(x, gate, up)], iters=2)
-        pms = graph_ms(torch, [lambda: fused_mlp_plain(x, gate, up)], iters=2)
-        nbytes = m * k * 2 + 2 * self._lin_bytes(gate) + m * n * 2
-        self._record("fused_mlp", f"gate+up {k}x{n} M={m}", err, tol, ms, pms, None, nbytes,
-                     4 * m * k * n)
-        del x, y, ref
+        self._kernel2_row(torch, randn, [gate], [up], m, 2)
         torch.cuda.empty_cache()
 
     # -- phase 4 ---------------------------------------------------------------
@@ -1284,9 +1351,9 @@ class Smoke:
         ids = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 512)),
                               device="cuda")
         opt = torch.optim.Adam(leaves, lr=1e-4)
-        want_fwd = {k: 0 for k in kernels.KERNELS}
+        want_fwd = dict.fromkeys(kernels.launch_counts(), 0)   # kernel 2's forms included
         want_fwd.update(qmm=7 * layers, rms_norm=2 * layers + 1, flash_prefill=layers)
-        want_bwd = {k: 0 for k in kernels.KERNELS}
+        want_bwd = dict.fromkeys(want_fwd, 0)
         want_bwd.update(qmm_t=7 * layers - 3)
 
         def step():
@@ -1422,7 +1489,10 @@ class Smoke:
         acc = self.launches.setdefault(path, {})
         for k, v in counts.items():
             acc[k] = acc.get(k, 0) + v
-        missing = sorted(k for k in PATHS[path] if counts.get(k, 0) == 0)
+        # kernel 2's forms are counted by packages that have them (an A/B
+        # run drives an earlier package with this script)
+        missing = sorted(k for k in PATHS[path]
+                         if counts.get(k, 0) == 0 and (":" not in k or k in counts))
         if missing:
             raise AssertionError(f"{path} path: kernels never launched: {missing}")
 
@@ -1779,7 +1849,7 @@ class Smoke:
                 "flash_prefill_blocked": layers * (f["prefill"] + f["chunk"] + f["chunk+decode"]),
                 "flash_prefill": layers * f["admit"], "qmm_t": 0,
                 "fused_decode_attention": layers * f["decode"] if fold else 0}
-        if counts != want:
+        if {k: counts[k] for k in want} != want:   # kernel 2's forms are checked by path
             raise AssertionError(f"{label}: launches {counts} but the forwards {f} predict {want}")
         tokens = sum(len(r) for r in results.values())
         if sorted(results) != list(range(len(prompts))) or tokens != len(prompts) * self.SERVE_NEW:
@@ -2056,9 +2126,13 @@ class Smoke:
                          "plain_ms": e.get("plain_ms"), "bound_ms": e.get("bound_ms"),
                          "bound_by": e.get("bound_by"), "library_ms": e.get("library_ms"),
                          "shape": e.get("shape"), "serve": self.serve_entries.get(name)})
-            if name == "qmm":   # the path of every kernel-1 row
-                rows[-1]["paths"] = {k[len("qmm "):]: p for k, p in self.paths.items()
-                                     if k.startswith("qmm ")}
+            if name in ("qmm", "fused_mlp"):   # the form of every kernel-1 and -2 row
+                rows[-1]["paths"] = {k[len(name) + 1:]: p for k, p in self.paths.items()
+                                     if k.startswith(name + " ")}
+            if name == "fused_mlp":
+                rows[-1]["launches_by_form"] = {
+                    p: {f: c.get(f"fused_mlp:{f}", 0) for f in ("gemv", "frag", "tile")}
+                    for p, c in self.launches.items()}
             if name == "flash_prefill_blocked":
                 rows[-1]["sq2048"] = self.sq2048
         return json.dumps({"kernels": rows})

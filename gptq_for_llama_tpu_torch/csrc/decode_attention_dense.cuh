@@ -1,10 +1,11 @@
-// One-token (decode) attention over a dense KV cache, for Hopper: the body of
-// kernel 3 (decode_attention.cu) and of kernel 9, its fold form
-// (fused_decode_attention.cu).
+// One-token (decode) attention over a KV cache, for Hopper: the body of
+// kernel 3 (decode_attention.cu), of kernel 9, its fold form
+// (fused_decode_attention.cu), and of kernel 7, its paged form
+// (pool_decode_attention.cu).
 //
 // Replaces gptq_for_llama_tpu/ops/pallas/attention.py:_attn_kernel and
-// :_attn_kernel_gqa (entry decode_attention) and :_fused_attn_kernel (entry
-// fused_decode_attention). Semantics: query row b attends cache slots
+// :_attn_kernel_gqa (entries decode_attention and pool_decode_attention) and
+// :_fused_attn_kernel (entry fused_decode_attention). Semantics: query row b attends cache slots
 // j < live[b], softmax in fp32; live[b] = offset[b] + 1 for kernel 3 (the
 // current token is already written at slot offset[b]) and offset[b] for the
 // fold form, which adds the current token's k/v (separate (B, Hkv, D) inputs)
@@ -37,6 +38,15 @@
 //    copy zero-fills their K and V rows (src-size 0) and their logits are
 //    -inf. So the output does not depend on what they hold (NaN, or the fold
 //    form's row write landing in the same launch).
+//  - paged (kernel 7): slot j of row b lives at pool[tables[b, j / BS],
+//    j % BS], pools (NB, BS, Hkv, D) with BS % 8 == 0, so a warp's 8 slots of
+//    a tile lie in one physical block and one table entry routes the warp's
+//    copy. Each warp loads the entries of its next 32 tiles once (lane l the
+//    entry of tile l), before it issues the ring, and takes each from its
+//    lane with a shuffle; a slice wholly at or past the live bound never
+//    reads its entry (past offset[b] / BS an entry may hold anything). The
+//    arithmetic is kernel 3's, in the same order under the same plan, so
+//    kernel 7 over a pool equals kernel 3 over the gathered view bit for bit.
 //  - per-warp online softmax in log2 units (scale * log2(e) folded into q,
 //    one ex2 per logit), merged once across the four warps at the end of the
 //    block, on CUDA cores: a lane holds 4 output dims for all G heads, and the
@@ -86,6 +96,12 @@ struct Fold {
   __nv_bfloat16* v_out;
   const uint8_t* write_mask;
   int write;
+};
+
+// The block tables of the paged form: (B, MB) int32, BS slots per block.
+struct Pages {
+  const int32_t* tables;
+  int BS, MB;
 };
 
 // 2^x, the MUFU's approximation; 2^-inf = 0
@@ -148,14 +164,14 @@ __device__ __forceinline__ void fold_logits(const float (&qr)[G][4], const float
   }
 }
 
-template <int G, bool FOLD>
+template <int G, bool FOLD, bool PAGED>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
-                    const __nv_bfloat16* k, const __nv_bfloat16* v,   // (B, S, Hkv, D)
+                    const __nv_bfloat16* k, const __nv_bfloat16* v,   // (B, S, Hkv, D) or pools
                     int S, const int32_t* __restrict__ offs, int off_scalar,
                     __nv_bfloat16* __restrict__ out,       // (B, H, D)
                     float* __restrict__ part,  // chunk partials, null for one chunk
-                    int Hkv, float qscale, int chunk, const Fold f) {
+                    int Hkv, float qscale, int chunk, const Fold f, const Pages pg) {
   extern __shared__ __align__(16) __nv_bfloat16 ring[];   // [stage][warp][K | V][slot][D]
   __shared__ __align__(16) float pw[kWarps][G][kWarpSlots];   // each warp's probabilities
   __shared__ float wm[kWarps][G], wl[kWarps][G], lc[G];
@@ -183,10 +199,19 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
   if (t_begin >= t_end && part != nullptr) return;
 
   const size_t row_stride = (size_t)Hkv * kD;   // elements between cache slots
-  const size_t base = (size_t)b * S * row_stride + (size_t)kvh * kD;
+  const size_t base = (PAGED ? 0 : (size_t)b * S * row_stride) + (size_t)kvh * kD;
   const __nv_bfloat16* kbase = k + base;
   const __nv_bfloat16* vbase = v + base;
   const int nt = t_end > t_begin ? (t_end - t_begin + kTile - 1) / kTile : 0;
+
+  // paged: lane l holds the table entry of this warp's slice of tile e0 + l
+  // (0 for a slice wholly at or past t_end, whose entry is not read)
+  int e0 = 0, entry = 0;
+  auto load_entries = [&](int first) {
+    const int slot = t_begin + (first + lane) * kTile + warp * kWarpSlots;
+    entry = slot < t_end ? pg.tables[(size_t)b * pg.MB + slot / pg.BS] : 0;
+  };
+  if constexpr (PAGED) load_entries(0);
 
   // tile t of the chunk into stage t % kStages: this warp's 8 slots, K and V;
   // slots at or past t_end are zero-filled without a read
@@ -194,11 +219,25 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
     __nv_bfloat16* kd = ring + ((t % kStages) * kWarps + warp) * 2 * kSliceElems;
     __nv_bfloat16* vd = kd + kSliceElems;
     const int slot0 = t_begin + t * kTile + warp * kWarpSlots;
+    size_t first = 0;   // paged: the slice's first slot in the pool, in elements
+    if constexpr (PAGED) {
+      if (t >= e0 + 32) {   // warp-uniform
+        e0 += 32;
+        load_entries(e0);
+      }
+      const int phys = __shfl_sync(0xffffffffu, entry, t - e0);
+      first = ((size_t)phys * pg.BS + slot0 % pg.BS) * row_stride;
+    }
 #pragma unroll
     for (int r = 0; r < kWarpSlots * (kD / 8) / 32; ++r) {
       const int i = lane + 32 * r, row = i >> 4, c8 = (i & 15) * 8;
       const bool ok = slot0 + row < t_end;
-      const size_t src = (size_t)(ok ? slot0 + row : 0) * row_stride + c8;
+      size_t src;
+      if constexpr (PAGED) {
+        src = (ok ? first + row * row_stride : 0) + c8;
+      } else {
+        src = (size_t)(ok ? slot0 + row : 0) * row_stride + c8;
+      }
       cp_async16(kd + row * kD + c8, kbase + src, ok);
       cp_async16(vd + row * kD + c8, vbase + src, ok);
     }
@@ -482,26 +521,27 @@ dense_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
         __float2bfloat16_rn(num[g] / sL[g]);
 }
 
-template <int G, bool FOLD>
+template <int G, bool FOLD, bool PAGED>
 cudaError_t launch_g(const void* q, const void* k, const void* v, int S, const void* offs,
                      int off_scalar, void* out, void* part, int B, int Hkv, float scale,
-                     int nsplit, int chunk, const Fold& f, cudaStream_t stream) {
+                     int nsplit, int chunk, const Fold& f, const Pages& pg,
+                     cudaStream_t stream) {
   static unsigned configured = 0;   // per device: the ring is above the 48 KB default
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (!(configured >> dev & 1u)) {
-    e = cudaFuncSetAttribute(dense_decode_kernel<G, FOLD>,
+    e = cudaFuncSetAttribute(dense_decode_kernel<G, FOLD, PAGED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (e != cudaSuccess) return e;
     configured |= 1u << dev;
   }
   const float qscale = scale * kLog2e;
   float* p = nsplit > 1 ? static_cast<float*>(part) : nullptr;
-  dense_decode_kernel<G, FOLD><<<dim3(Hkv, B, nsplit), kThreads, kSmemBytes, stream>>>(
+  dense_decode_kernel<G, FOLD, PAGED><<<dim3(Hkv, B, nsplit), kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), S, static_cast<const int32_t*>(offs), off_scalar,
-      static_cast<__nv_bfloat16*>(out), p, Hkv, qscale, chunk, f);
+      static_cast<__nv_bfloat16*>(out), p, Hkv, qscale, chunk, f, pg);
   e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return e;
   // programmatic dependent launch: the combine's blocks start while the
@@ -526,28 +566,36 @@ cudaError_t launch_g(const void* q, const void* k, const void* v, int S, const v
 // to the row's live bound; chunk is a multiple of the 32-slot tile and nsplit
 // at most kMaxSplit. nsplit > 1
 // needs `part`: B * Hkv * nsplit * G * (D + 2) floats. FOLD needs f.k_new and
-// f.v_new (and, with f.write, f.k_out and f.v_out).
-template <bool FOLD>
+// f.v_new (and, with f.write, f.k_out and f.v_out). PAGED: k and v are the
+// pools, S the logical length MB * BS, pg the tables (BS % 8 == 0).
+template <bool FOLD, bool PAGED = false>
 cudaError_t launch(const void* q, const void* k, const void* v, int S, const void* offs,
                    int off_scalar, void* out, void* part, int B, int Hkv, int G, int D,
-                   float scale, int nsplit, int chunk, cudaStream_t st, const Fold& f = Fold{}) {
+                   float scale, int nsplit, int chunk, cudaStream_t st, const Fold& f = Fold{},
+                   const Pages& pg = Pages{}) {
   if (D != kD || B < 1 || S < 1 || Hkv < 1 || nsplit < 1 || nsplit > kMaxSplit ||
       chunk < kTile || chunk % kTile != 0 ||
       (nsplit > 1 && part == nullptr) ||
       (FOLD && (f.k_new == nullptr || f.v_new == nullptr ||
-                (f.write && (f.k_out == nullptr || f.v_out == nullptr)))))
+                (f.write && (f.k_out == nullptr || f.v_out == nullptr)))) ||
+      (PAGED && (FOLD || pg.tables == nullptr || pg.BS < kWarpSlots ||
+                 pg.BS % kWarpSlots != 0 || pg.MB < 1 || S != pg.MB * pg.BS)))
     return cudaErrorInvalidValue;
+#define GPTQ_G(N)                                                                          \
+  launch_g<N, FOLD, PAGED>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, \
+                           chunk, f, pg, st)
   switch (G) {
-    case 1: return launch_g<1, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
-    case 2: return launch_g<2, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
-    case 3: return launch_g<3, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
-    case 4: return launch_g<4, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
-    case 5: return launch_g<5, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
-    case 6: return launch_g<6, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
-    case 7: return launch_g<7, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
-    case 8: return launch_g<8, FOLD>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, chunk, f, st);
+    case 1: return GPTQ_G(1);
+    case 2: return GPTQ_G(2);
+    case 3: return GPTQ_G(3);
+    case 4: return GPTQ_G(4);
+    case 5: return GPTQ_G(5);
+    case 6: return GPTQ_G(6);
+    case 7: return GPTQ_G(7);
+    case 8: return GPTQ_G(8);
     default: return cudaErrorInvalidValue;
   }
+#undef GPTQ_G
 }
 
 }  // namespace gptq_dense

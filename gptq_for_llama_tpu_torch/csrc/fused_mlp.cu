@@ -2,23 +2,116 @@
 //
 // Replaces gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel. x is read
 // once for both weight streams and neither intermediate reaches device
-// memory as bf16: the two fp32 sums meet in the epilogue. Bound on the H100:
-// the two packed weight streams with their scales and zeros (2 x 23.9 MB at
-// 4096x11008 INT4-g128: 14.3 us at 3.35 TB/s). Kernel body and design:
-// qmm_common.cuh (NW = 2).
+// memory as bf16: the two fp32 sums meet in the epilogue. Three forms, chosen
+// by the wrapper's plan (gptq_for_llama_tpu_torch/ops/cuda/matmul.py:plan,
+// streams=2) from M:
+//  - gptq_fused_mlp: the CUDA-core GEMV of qmm_common.cuh (NW = 2) for the
+//    batch-1 decode row, bound by the two packed weight streams with their
+//    scales and zeros (2 x 23.9 MB at 4096x11008 INT4-g128: 14.3 us at
+//    3.35 TB/s);
+//  - gptq_fused_mlp_frag: M <= 16, the weight dequantized straight into
+//    mma.sync A fragments (qmm_frag.cuh);
+//  - gptq_fused_mlp_tile: above that, kernel 1's tensor-core tiles with the
+//    two streams interleaved in one B tile (qmm_tc.cuh, NW = 2), bound by
+//    operations at large M (4 M K N flops: 2.99 ms at M = 16384).
+// Each header describes its design. Plain C entry points, bound from Python
+// with ctypes.
 #include "qmm_common.cuh"
+#include "qmm_frag.cuh"
+#include "qmm_tc.cuh"
+
+namespace {
+
+struct Streams {
+  gptq::Stream gate, up;
+};
+
+Streams streams(const void* qg, const void* sg, const void* zg, const void* qu, const void* su,
+                const void* zu) {
+  return {{static_cast<const int32_t*>(qg), static_cast<const __nv_bfloat16*>(sg),
+           static_cast<const __nv_bfloat16*>(zg)},
+          {static_cast<const int32_t*>(qu), static_cast<const __nv_bfloat16*>(su),
+           static_cast<const __nv_bfloat16*>(zu)}};
+}
+
+}  // namespace
 
 extern "C" int gptq_fused_mlp(const void* x, const void* qg, const void* sg, const void* zg,
                               const void* qu, const void* su, const void* zu, void* out,
                               void* partial, int M, int K, int N, int G, int groupsize,
                               int bits, int mt, int split, int words_per_split, void* stream) {
-  gptq::Stream gate{static_cast<const int32_t*>(qg), static_cast<const __nv_bfloat16*>(sg),
-                    static_cast<const __nv_bfloat16*>(zg)};
-  gptq::Stream up{static_cast<const int32_t*>(qu), static_cast<const __nv_bfloat16*>(su),
-                  static_cast<const __nv_bfloat16*>(zu)};
+  const Streams s = streams(qg, sg, zg, qu, su, zu);
   const cudaError_t e = gptq::launch<2>(
-      bits, mt, static_cast<const __nv_bfloat16*>(x), gate, up, nullptr,
+      bits, mt, static_cast<const __nv_bfloat16*>(x), s.gate, s.up, nullptr,
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(partial), M, K, N, G, groupsize,
       split, words_per_split, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
+}
+
+// x (M, K) bf16, M <= 8 * nt, K % 8 == 0; qweights (K * bits / 32, N) int32
+// with N % 8 == 0; scales, zeros (G, N) bf16 with groupsize a multiple of
+// 128 / bits; partial (2, split, M, N) fp32 when split > 1; nt: n8 tiles of
+// rows (1 or 2); kb_per_split: K-blocks of 128 / bits rows per split.
+extern "C" int gptq_fused_mlp_frag(const void* x, const void* qg, const void* sg, const void* zg,
+                                   const void* qu, const void* su, const void* zu, void* out,
+                                   void* partial, int M, int K, int N, int G, int groupsize,
+                                   int bits, int nt, int split, int kb_per_split, int smem_bytes,
+                                   void* stream) {
+  if (M < 1 || M > 8 * nt || K < 8 || K % 8 || N < 8 || N % 8 || G < 1 || groupsize < 1 ||
+      split < 1 || split > 65535 || kb_per_split < 1 || (nt != 1 && nt != 2) ||
+      (split > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Streams s = streams(qg, sg, zg, qu, su, zu);
+  const auto xb = static_cast<const __nv_bfloat16*>(x);
+  const auto ob = static_cast<__nv_bfloat16*>(out);
+  const auto pb = static_cast<float*>(partial);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GPTQ_FRAG(B, T)                                                                     \
+  gptq_frag::launch<B, T>(xb, s.gate, s.up, ob, pb, M, K, N, G, groupsize, split,           \
+                          kb_per_split, smem_bytes, st)
+  cudaError_t e;
+  switch (bits) {
+    case 2: e = nt == 1 ? GPTQ_FRAG(2, 1) : GPTQ_FRAG(2, 2); break;
+    case 4: e = nt == 1 ? GPTQ_FRAG(4, 1) : GPTQ_FRAG(4, 2); break;
+    case 8: e = nt == 1 ? GPTQ_FRAG(8, 1) : GPTQ_FRAG(8, 2); break;
+    default: e = cudaErrorInvalidValue;
+  }
+#undef GPTQ_FRAG
+  return static_cast<int>(e);
+}
+
+// x (M, K) bf16 with K % 8 == 0; qweights (K * bits / 32, N) int32 with
+// N % 8 == 0; scales, zeros (G, N) bf16; partial (2, split, M, N) fp32 when
+// split > 1; bm: the row tile (64, 128, 256); smem_bytes: the plan's size of
+// the block's shared memory. A block covers 64 columns of y.
+extern "C" int gptq_fused_mlp_tile(const void* x, const void* qg, const void* sg, const void* zg,
+                                   const void* qu, const void* su, const void* zu, void* out,
+                                   void* partial, int M, int K, int N, int G, int groupsize,
+                                   int bits, int bm, int split, int slabs_per_split,
+                                   int smem_bytes, void* stream) {
+  const int n_slabs = (K + gptq_tc::kBK - 1) / gptq_tc::kBK;
+  if (M < 1 || K < 8 || K % 8 || N < 8 || N % 8 || G < 1 || groupsize < 1 || split < 1 ||
+      slabs_per_split < 1 || (long long)split * slabs_per_split < n_slabs || split > 65535 ||
+      (bm != 64 && bm != 128 && bm != 256) || (M + bm - 1) / bm > 65535 ||
+      (split > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Streams s = streams(qg, sg, zg, qu, su, zu);
+  const auto xb = static_cast<const __nv_bfloat16*>(x);
+  const auto ob = static_cast<__nv_bfloat16*>(out);
+  const auto pb = static_cast<float*>(partial);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GPTQ_TILE(B, R)                                                                     \
+  gptq_tc::launch_tile<B, 2, R>(xb, s.gate, s.up, nullptr, ob, pb, M, K, N, G, groupsize,   \
+                                split, slabs_per_split, smem_bytes, st)
+#define GPTQ_TILES(B) (bm == 64 ? GPTQ_TILE(B, 64) : bm == 128 ? GPTQ_TILE(B, 128) : GPTQ_TILE(B, 256))
+  cudaError_t e;
+  switch (bits) {
+    case 2: e = GPTQ_TILES(2); break;
+    case 4: e = GPTQ_TILES(4); break;
+    case 8: e = GPTQ_TILES(8); break;
+    default: e = cudaErrorInvalidValue;
+  }
+#undef GPTQ_TILES
+#undef GPTQ_TILE
   return static_cast<int>(e);
 }

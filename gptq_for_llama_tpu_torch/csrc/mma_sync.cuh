@@ -18,6 +18,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
 }
+// 8-byte async copy (through L1); src_bytes = 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 // wait until at most N of this thread's committed groups are still in flight

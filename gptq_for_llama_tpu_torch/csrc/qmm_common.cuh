@@ -27,10 +27,9 @@
 //    the split, ops/cuda/matmul.py:plan); each block reduces its 8 warps in
 //    shared memory, and a second small kernel sums the K-splits in a fixed
 //    order (deterministic, no atomics).
-// Row tiles of 4 and 8 run CUDA-core FMAs: kernel 2 (fused gate/up) takes
-// them at every M > 2, where operations bound it far from the tensor-core
-// peak. Kernel 1 uses this body only for decode (M <= 4); above that it runs
-// the tensor-core tiles of qmm_tc.cuh.
+// Kernel 1 uses this body only for decode (M <= 4); kernel 2 at M = 1, and
+// up to 16 rows where its group size does not suit qmm_frag.cuh (a group
+// boundary inside a K-block). Above that both run tensor cores (qmm_tc.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,7 +73,7 @@ __device__ __forceinline__ float epilogue(const float v[NW], const __nv_bfloat16
     return bias != nullptr ? v[0] + __bfloat162float(bias[n]) : v[0];
   } else {
     const float g = v[0];
-    return g / (1.0f + __expf(-g)) * v[1];   // silu(gate) * up, fp32
+    return __fdividef(g, 1.0f + __expf(-g)) * v[1];   // silu(gate) * up, fp32
   }
 }
 

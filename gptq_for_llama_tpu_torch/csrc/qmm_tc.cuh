@@ -1,5 +1,6 @@
 // Tensor-core tile path of the dequant-GEMM (kernel 1 above the decode rows):
-// y = x @ dequant(W) (+ bias) for M > 4, on bf16 mma.sync with fp32 sums.
+// y = x @ dequant(W) (+ bias) for M > 4, on bf16 mma.sync with fp32 sums;
+// with two weight streams, kernel 2's fused gate/up above M = 16 (NW below).
 //
 // Replaces, with the split-K GEMV of qmm_common.cuh, the TPU kernel
 // gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. The GEMV stays for
@@ -31,8 +32,15 @@
 //  - epilogue: the bias, then a bf16 store; or, when the plan splits K
 //    across blocks (too few tiles to fill the card, e.g. M = 100-136 at
 //    N = 4096), fp32 partials that qmm_reduce_kernel sums in a fixed order.
-// NW weight streams share x (NW = 2 is the fused gate/up form with
-// epilogue<2>); only NW = 1 is instantiated so far (kernel 2 keeps the GEMV).
+// NW weight streams share x. NW = 2 is kernel 2's fused gate/up form
+// (fused_mlp.cu): the block's 128 B-tile columns are 64 gate and 64 up
+// columns, interleaved by n8 fragment (fragment 2p of a warp is gate columns
+// c..c+7, fragment 2p + 1 up columns c..c+7), so every thread holds gate and
+// up of the same outputs for the SiLU-mul epilogue (gptq::epilogue<2>), and
+// the block has kernel 1's shared memory, accumulators and registers. The
+// copies route each 16-byte chunk of words, scales and zeros to the stream
+// and column its B-tile columns stand for; the dequantization and the
+// products do not know there are two streams.
 // Not yet: wgmma and TMA (Hopper's full tensor-core rate).
 #pragma once
 
@@ -45,7 +53,7 @@ namespace gptq_tc {
 
 using namespace gptq_mma;
 
-constexpr int kBN = 128;                 // columns of y per block
+constexpr int kBN = 128;                 // B-tile columns per block (of y: kBN / NW)
 constexpr int kBK = 64;                  // rows of W per slab
 constexpr int kThreads = 256;
 constexpr int kMaxGroups = 4;            // scale / zero rows of one stage
@@ -66,27 +74,38 @@ struct Shape {
   static constexpr int kMinBlocks = BM == 256 ? 1 : 2;
 };
 
-// Shared memory of one block, in bytes: kStages stages of (x tile, then per
-// stream the words, the scale rows and the zero rows), then two B tiles per
-// stream.
-template <int BITS, int NW, int BM>
+// Shared memory of one block, in bytes: kStages stages of (x tile, the words,
+// the scale rows and the zero rows of the block's kBN B-tile columns), then
+// two B tiles. The same for one and two weight streams.
+template <int BITS, int BM>
 struct Layout {
   static constexpr int kWordRows = kBK * BITS / 32;
   static constexpr int kX = BM * kStride * 2;
   static constexpr int kW = kWordRows * kBN * 4;
   static constexpr int kSZ = kMaxGroups * kBN * 2;
   static constexpr int kStream = kW + 2 * kSZ;
-  static constexpr int kStage = kX + NW * kStream;
+  static constexpr int kStage = kX + kStream;
   static constexpr int kB = kBN * kStride * 2;
-  static constexpr int kBytes = Shape<BM>::kStages * kStage + 2 * NW * kB;
+  static constexpr int kBytes = Shape<BM>::kStages * kStage + 2 * kB;
 };
 
 __device__ __forceinline__ int group_of(int r, int groupsize, int G) {
   return min(r / groupsize, G - 1);
 }
 
-// grid: (ceil(N / kBN), ceil(M / BM), split); block: kThreads;
-// dynamic shared memory: Layout<BITS, NW, BM>::kBytes. Split z takes slabs
+// B-tile column bc of an NW-stream block: its stream and its column of y
+// within the block (n8 fragments alternate between the streams)
+template <int NW>
+__device__ __forceinline__ int stream_of(int bc) {
+  return NW == 1 ? 0 : (bc >> 3) & 1;
+}
+template <int NW>
+__device__ __forceinline__ int out_col(int bc) {
+  return NW == 1 ? bc : ((bc >> 4) << 3) | (bc & 7);
+}
+
+// grid: (ceil(N / (kBN / NW)), ceil(M / BM), split); block: kThreads;
+// dynamic shared memory: Layout<BITS, BM>::kBytes. Split z takes slabs
 // [z * slabs_per_split, (z + 1) * slabs_per_split); with split > 1 it writes
 // partial[((w * split + z) * M + m) * N + n] (qmm_reduce_kernel's layout).
 template <int BITS, int NW, int BM>
@@ -96,7 +115,7 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
                 float* __restrict__ partial, int M, int K, int N, int G, int groupsize,
                 int slabs_per_split) {
   using Sh = Shape<BM>;
-  using L = Layout<BITS, NW, BM>;
+  using L = Layout<BITS, BM>;
   constexpr int S = Sh::kStages;
   constexpr int kIpw = 32 / BITS;                            // rows of W per word
   constexpr int kWords = L::kWordRows * kBN / kThreads;      // words a thread dequantizes
@@ -104,7 +123,7 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
   static_assert(kWords >= 1 && kIpw % 2 == 0, "tile shape");
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * (kBN / NW), m0 = blockIdx.y * BM;   // first column of y, first row
   const int split = gridDim.z;
   const int n_slabs = (K + kBK - 1) / kBK;
   const int t_begin = blockIdx.z * slabs_per_split;
@@ -113,21 +132,26 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
   const int wm = (warp / Sh::kWarpsN) * Sh::kWM;   // this warp's rows of the tile
   const int wn = (warp % Sh::kWarpsN) * Sh::kWN;   // and columns
   const int kw = K / kIpw;
-  const int nl = tid % kBN, col = n0 + nl;         // the column this thread dequantizes
+  const int nl = tid % kBN;                        // the B-tile column this thread dequantizes
+  const int col = n0 + out_col<NW>(nl);            // its column of W (and of y)
 
-  auto stream = [&](int w) -> const gptq::Stream& { return w == 0 ? s0 : s1; };
+  // stream w's pointers, selected by value (a reference to a parameter would
+  // put both streams in local memory)
+  auto qweight_of = [&](int w) { return w == 0 ? s0.qweight : s1.qweight; };
+  auto scales_of = [&](int w) { return w == 0 ? s0.scales : s1.scales; };
+  auto zeros_of = [&](int w) { return w == 0 ? s0.zeros : s1.zeros; };
+  const int my = stream_of<NW>(nl);                // the stream of this thread's column
   auto x_tile = [&](int st) {
     return reinterpret_cast<__nv_bfloat16*>(smem + st * L::kStage);
   };
-  auto words = [&](int st, int w) {
-    return reinterpret_cast<uint32_t*>(smem + st * L::kStage + L::kX + w * L::kStream);
+  auto words = [&](int st) {
+    return reinterpret_cast<uint32_t*>(smem + st * L::kStage + L::kX);
   };
-  auto scale_rows = [&](int st, int w) {   // kMaxGroups scale rows, then kMaxGroups zero rows
-    return reinterpret_cast<__nv_bfloat16*>(smem + st * L::kStage + L::kX + w * L::kStream +
-                                            L::kW);
+  auto scale_rows = [&](int st) {   // kMaxGroups scale rows, then kMaxGroups zero rows
+    return reinterpret_cast<__nv_bfloat16*>(smem + st * L::kStage + L::kX + L::kW);
   };
-  auto b_tile = [&](int buf, int w) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + S * L::kStage + (buf * NW + w) * L::kB);
+  auto b_tile = [&](int buf) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + S * L::kStage + buf * L::kB);
   };
 
   // slab t into stage st (every thread issues its share of the copies)
@@ -142,26 +166,28 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
     const int wr0 = k0 / kIpw;
     const int g_lo = group_of(k0, groupsize, G);
     const int g_hi = group_of(min(K, k0 + kBK) - 1, groupsize, G);
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const gptq::Stream& s = stream(w);
-      uint32_t* wd = words(st, w);
-      for (int c = tid; c < L::kWordRows * (kBN / 4); c += kThreads) {
-        const int r = c / (kBN / 4), c4 = (c % (kBN / 4)) * 4;
-        const bool ok = wr0 + r < kw && n0 + c4 < N;
-        cp_async16(wd + r * kBN + c4, s.qweight + (ok ? (size_t)(wr0 + r) * N + n0 + c4 : 0), ok);
-      }
-      if (g_hi - g_lo < kMaxGroups) {
-        __nv_bfloat16* sd = scale_rows(st, w);
-        for (int c = tid; c < 2 * kMaxGroups * (kBN / 8); c += kThreads) {
-          const int which = c / (kMaxGroups * (kBN / 8));
-          const int rem = c % (kMaxGroups * (kBN / 8));
-          const int gr = rem / (kBN / 8), c8 = (rem % (kBN / 8)) * 8;
-          const bool ok = g_lo + gr <= g_hi && n0 + c8 < N;
-          const __nv_bfloat16* src = which ? s.zeros : s.scales;
-          cp_async16(sd + (which * kMaxGroups + gr) * kBN + c8,
-                     src + (ok ? (size_t)(g_lo + gr) * N + n0 + c8 : 0), ok);
-        }
+    // a 16-byte chunk of 4 words or 8 scales lies inside one n8 fragment:
+    // one stream, consecutive columns of W
+    uint32_t* wd = words(st);
+    for (int c = tid; c < L::kWordRows * (kBN / 4); c += kThreads) {
+      const int r = c / (kBN / 4), c4 = (c % (kBN / 4)) * 4;
+      const int wc = n0 + out_col<NW>(c4);
+      const bool ok = wr0 + r < kw && wc < N;
+      cp_async16(wd + r * kBN + c4,
+                 qweight_of(stream_of<NW>(c4)) + (ok ? (size_t)(wr0 + r) * N + wc : 0), ok);
+    }
+    if (g_hi - g_lo < kMaxGroups) {
+      __nv_bfloat16* sd = scale_rows(st);
+      for (int c = tid; c < 2 * kMaxGroups * (kBN / 8); c += kThreads) {
+        const int which = c / (kMaxGroups * (kBN / 8));
+        const int rem = c % (kMaxGroups * (kBN / 8));
+        const int gr = rem / (kBN / 8), c8 = (rem % (kBN / 8)) * 8;
+        const int wc = n0 + out_col<NW>(c8);
+        const bool ok = g_lo + gr <= g_hi && wc < N;
+        const int w = stream_of<NW>(c8);
+        const __nv_bfloat16* src = which ? zeros_of(w) : scales_of(w);
+        cp_async16(sd + (which * kMaxGroups + gr) * kBN + c8,
+                   src + (ok ? (size_t)(g_lo + gr) * N + wc : 0), ok);
       }
     }
   };
@@ -183,17 +209,17 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
   struct OneGroup {
     float sc, zs;
   };
-  auto one_group = [&](int st, int w) -> OneGroup {
-    const __nv_bfloat16* sp = scale_rows(st, w) + nl;
+  auto one_group = [&](int st) -> OneGroup {
+    const __nv_bfloat16* sp = scale_rows(st) + nl;
     const float sc = __bfloat162float(sp[0]);
     return {sc, __bfloat162float(sp[kMaxGroups * kBN]) * sc};
   };
   // word u of this thread in stage st, one group: code * s - z * s
-  auto dequant_word = [&](int t, int st, int buf, int w, int u, OneGroup gz) {
+  auto dequant_word = [&](int t, int st, int buf, int u, OneGroup gz) {
     const int wr = tid / kBN + u * (kThreads / kBN);
     uint32_t v[kIpw / 2];
     if (t * kBK + wr * kIpw < K && col < N) {
-      const uint32_t q = words(st, w)[wr * kBN + nl];
+      const uint32_t q = words(st)[wr * kBN + nl];
 #pragma unroll
       for (int j = 0; j < kIpw; j += 2)
         v[j / 2] = pack_bf16(gptq::code_f<BITS>(q, j) * gz.sc - gz.zs,
@@ -202,7 +228,7 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
 #pragma unroll
       for (int j = 0; j < kIpw / 2; ++j) v[j] = 0u;
     }
-    store_word(b_tile(buf, w), wr, v);
+    store_word(b_tile(buf), wr, v);
   };
   // the whole of slab t, any groups: every word looks up its rows' groups
   auto dequant_any = [&](int t, int st, int buf) {
@@ -210,15 +236,13 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
     const int g_lo = group_of(k0, groupsize, G);
     const int g_hi = group_of(min(K, k0 + kBK) - 1, groupsize, G);
     const bool staged = g_hi - g_lo < kMaxGroups;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const gptq::Stream& s = stream(w);
+    {
       // scale and zero of group g: the stage's copy, or device memory
-      const __nv_bfloat16* sp = staged ? scale_rows(st, w) + nl : s.scales + col;
-      const __nv_bfloat16* zp = staged ? scale_rows(st, w) + kMaxGroups * kBN + nl : s.zeros + col;
+      const __nv_bfloat16* sp = staged ? scale_rows(st) + nl : scales_of(my) + col;
+      const __nv_bfloat16* zp = staged ? scale_rows(st) + kMaxGroups * kBN + nl : zeros_of(my) + col;
       const int gbase = staged ? g_lo : 0;
       const size_t gstride = staged ? kBN : (size_t)N;
-      const uint32_t* wd = words(st, w);
+      const uint32_t* wd = words(st);
 #pragma unroll
       for (int u = 0; u < kWords; ++u) {
         const int wr = tid / kBN + u * (kThreads / kBN);
@@ -247,7 +271,7 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
 #pragma unroll
           for (int j = 0; j < kIpw / 2; ++j) v[j] = 0u;
         }
-        store_word(b_tile(buf, w), wr, v);
+        store_word(b_tile(buf), wr, v);
       }
     }
   };
@@ -256,14 +280,14 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
     return group_of(k0, groupsize, G) == group_of(min(K, k0 + kBK) - 1, groupsize, G);
   };
 
-  float acc[NW][Sh::kMI][2 * Sh::kNP][4];
+  // fragment nt of a warp: B-tile columns wn + 8 nt ..; with NW = 2 even
+  // fragments are gate columns, odd ones up columns
+  float acc[Sh::kMI][2 * Sh::kNP][4];
 #pragma unroll
-  for (int w = 0; w < NW; ++w)
+  for (int i = 0; i < Sh::kMI; ++i)
 #pragma unroll
-    for (int i = 0; i < Sh::kMI; ++i)
-#pragma unroll
-      for (int j = 0; j < 2 * Sh::kNP; ++j)
-        acc[w][i][j][0] = acc[w][i][j][1] = acc[w][i][j][2] = acc[w][i][j][3] = 0.0f;
+    for (int j = 0; j < 2 * Sh::kNP; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
 
   // one k16 step of the products on x stage st and B tiles buf
   auto mma_step = [&](int st, int buf, int kk) {
@@ -273,19 +297,16 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
     for (int mi = 0; mi < Sh::kMI; ++mi)
       ldsm_x4(af[mi], xs + (wm + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
                           kk * 16 + (lane >> 4) * 8);
+    const __nv_bfloat16* bt = b_tile(buf);
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const __nv_bfloat16* bt = b_tile(buf, w);
+    for (int np = 0; np < Sh::kNP; ++np) {
+      uint32_t bf[4];
+      ldsm_x4(bf, bt + (wn + np * 16 + (lane & 7) + (lane >> 4) * 8) * kStride + kk * 16 +
+                      ((lane >> 3) & 1) * 8);
 #pragma unroll
-      for (int np = 0; np < Sh::kNP; ++np) {
-        uint32_t bf[4];
-        ldsm_x4(bf, bt + (wn + np * 16 + (lane & 7) + (lane >> 4) * 8) * kStride + kk * 16 +
-                        ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < Sh::kMI; ++mi) {
-          mma16816(acc[w][mi][2 * np], af[mi], bf[0], bf[1]);
-          mma16816(acc[w][mi][2 * np + 1], af[mi], bf[2], bf[3]);
-        }
+      for (int mi = 0; mi < Sh::kMI; ++mi) {
+        mma16816(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+        mma16816(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
       }
     }
   };
@@ -315,18 +336,13 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
     const int nst = (i + 1) % S, nbuf = buf ^ 1;
     if (next && in_one_group(t_begin + i + 1)) {
       // dequantize slab i + 1 between the k16 steps of slab i's products
-      OneGroup gz[NW];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) gz[w] = one_group(nst, w);
+      const OneGroup gz = one_group(nst);
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk) {
         mma_step(st, buf, kk);
 #pragma unroll
         for (int u = 0; u < kWords; ++u)
-          if (u * kSteps / kWords == kk) {
-#pragma unroll
-            for (int w = 0; w < NW; ++w) dequant_word(t_begin + i + 1, nst, nbuf, w, u, gz[w]);
-          }
+          if (u * kSteps / kWords == kk) dequant_word(t_begin + i + 1, nst, nbuf, u, gz);
       }
     } else {
       if (next) dequant_any(t_begin + i + 1, nst, nbuf);
@@ -344,8 +360,9 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
       const int row = m0 + wm + mi * 16 + gq + half * 8;
       if (row >= M) continue;
 #pragma unroll
-      for (int nt = 0; nt < 2 * Sh::kNP; ++nt) {
-        const int c = n0 + wn + nt * 8 + t4 * 2;   // N % 8 == 0: the pair stays inside a row
+      for (int nt = 0; nt < 2 * Sh::kNP; nt += NW) {   // fragments nt .. nt + NW - 1: one y column pair
+        // N % 8 == 0: the pair stays inside a row
+        const int c = n0 + out_col<NW>(wn + nt * 8 + t4 * 2);
         if (c >= N) continue;
         if (split == 1) {
           float y[2];
@@ -353,7 +370,7 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
           for (int e = 0; e < 2; ++e) {
             float v[NW];
 #pragma unroll
-            for (int w = 0; w < NW; ++w) v[w] = acc[w][mi][nt][half * 2 + e];
+            for (int w = 0; w < NW; ++w) v[w] = acc[mi][nt + w][half * 2 + e];
             y[e] = gptq::epilogue<NW>(v, bias, c + e);
           }
           *reinterpret_cast<uint32_t*>(out + (size_t)row * N + c) = pack_bf16(y[0], y[1]);
@@ -362,7 +379,7 @@ qmm_tile_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream s0, gptq::Stre
           for (int w = 0; w < NW; ++w)
             *reinterpret_cast<float2*>(
                 partial + ((size_t)(w * split + blockIdx.z) * M + row) * N + c) =
-                make_float2(acc[w][mi][nt][half * 2], acc[w][mi][nt][half * 2 + 1]);
+                make_float2(acc[mi][nt + w][half * 2], acc[mi][nt + w][half * 2 + 1]);
         }
       }
     }
@@ -374,7 +391,7 @@ cudaError_t launch_tile(const __nv_bfloat16* x, gptq::Stream s0, gptq::Stream s1
                         const __nv_bfloat16* bias, __nv_bfloat16* out, float* partial, int M,
                         int K, int N, int G, int groupsize, int split, int slabs_per_split,
                         int smem_bytes, cudaStream_t stream) {
-  using L = Layout<BITS, NW, BM>;
+  using L = Layout<BITS, BM>;
   // the wrapper's plan computes the same size; a disagreement is a fault
   if (smem_bytes != L::kBytes) return cudaErrorInvalidValue;
   auto kern = qmm_tile_kernel<BITS, NW, BM>;
@@ -382,7 +399,8 @@ cudaError_t launch_tile(const __nv_bfloat16* x, gptq::Stream s0, gptq::Stream s1
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, split);
+  constexpr int kCols = kBN / NW;   // columns of y per block
+  dim3 grid((N + kCols - 1) / kCols, (M + BM - 1) / BM, split);
   kern<<<grid, kThreads, L::kBytes, stream>>>(x, s0, s1, bias, out, partial, M, K, N, G,
                                               groupsize, slabs_per_split);
   cudaError_t e = cudaGetLastError();

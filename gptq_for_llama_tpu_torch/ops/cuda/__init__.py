@@ -49,7 +49,11 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for kernel in KERNELS.values():
         kernel.wrapper.launches = 0
+    mlp.fused_mlp_cuda.forms = dict.fromkeys(mlp.fused_mlp_cuda.forms, 0)
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: kernel.wrapper.launches for name, kernel in KERNELS.items()}
+    """Launches per kernel, then kernel 2's by form ("fused_mlp:tile", ...)."""
+    counts = {name: kernel.wrapper.launches for name, kernel in KERNELS.items()}
+    counts.update({f"fused_mlp:{form}": n for form, n in mlp.fused_mlp_cuda.forms.items()})
+    return counts

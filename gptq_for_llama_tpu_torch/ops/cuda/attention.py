@@ -14,10 +14,11 @@ cp.async ring, reading only the live cache prefix (its bound on the H100:
 those bytes). ``decode_plan`` sizes the chunks.
 
 Kernel 7 replaces ``:pool_decode_attention`` (the same bodies with the block
-index routed through the slot's table row): ``csrc/decode_attention_common.cuh``
-(entry ``csrc/pool_decode_attention.cu``), planned by ``pool_split_plan``; the
-paged form addresses the pool through the table and builds no gathered view.
-The plain versions are the TPU package's ``_xla_decode_fallback``, for the
+index routed through the slot's table row): kernel 3's body with each warp's
+copy of a tile routed through one table entry (entry
+``csrc/pool_decode_attention.cu``), planned by ``decode_plan`` as kernel 3 over
+the logical length; it builds no gathered view and equals kernel 3 over that
+view bit for bit. The plain versions are the TPU package's ``_xla_decode_fallback``, for the
 pool after a gather through the tables.
 """
 
@@ -48,8 +49,6 @@ BLOCKS_PER_SM = 3   # resident blocks (RING_SMEM_BYTES of ring each)
 MAX_SPLIT = 64  # chunks per (row, kv head) the combine kernel takes
 RING_SMEM_BYTES = RING * TILE * 2 * HEAD_DIM * 2   # K and V, bf16
 MIN_CHUNK, MAX_CHUNK = 2 * TILE, 6 * TILE
-POOL_TILE = 64      # kernel 7: cache slots per tile
-POOL_CHUNK = 256    # kernel 7: live slots one block takes before the slots are split
 
 
 def attention_plain(q, k, v, scale: float, mask=None) -> torch.Tensor:
@@ -139,23 +138,6 @@ def partial_floats(b: int, hkv: int, g: int, plan: DecodePlan) -> int:
     chunk, query head) the unnormalized accumulator (D), then every row's max,
     then every row's denominator; none for one chunk."""
     return 0 if plan.nsplit == 1 else b * hkv * plan.nsplit * g * (HEAD_DIM + 2)
-
-
-def pool_split_plan(live: int, blocks: int, sms: int = 132):
-    """Kernel 7's (chunks, slots per chunk): one block per kv head and row
-    walks up to POOL_CHUNK slots; longer prefixes are split into chunks of
-    whole tiles, up to about two blocks per SM in all."""
-    nsplit = max(1, min(-(-live // POOL_CHUNK), -(-2 * sms // blocks)))
-    chunk = -(-(-(-live // nsplit)) // POOL_TILE) * POOL_TILE
-    return -(-live // chunk), chunk
-
-
-def _pool_plan(b: int, hkv: int, g: int, live: int, q: torch.Tensor):
-    """(chunks, slots per chunk, scratch for the chunk partials or None)."""
-    nsplit, chunk = pool_split_plan(live, b * hkv, _sm_count(q.device.index or 0))
-    part = (torch.empty(b * hkv * nsplit * g * (q.shape[-1] + 2), dtype=torch.float32,
-                        device=q.device) if nsplit > 1 else None)
-    return nsplit, chunk, part
 
 
 def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float,
@@ -269,12 +251,27 @@ def pool_decode_attention_plain(q, k_pool, v_pool, tables, offset, scale: float)
 
 
 def _pool_entry():
-    fn = build.library("pool_decode_attention").gptq_pool_decode_attention
+    lib = build.library("pool_decode_attention")
+    fn = lib.gptq_pool_decode_attention
     if fn.argtypes is None:
+        _check_layout(lib, "pool_decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def pool_plan_for(q, k_pool, tables, max_live: int | None = None,
+                  sms: int | None = None) -> DecodePlan:
+    """The plan a launch of kernel 7 takes: kernel 3's (``decode_plan``) at
+    the live bound ``max_live`` gives, else the logical length MB * BS.
+    ``sms``: the card's SM count (default: read from q's card)."""
+    b, _, h, _ = q.shape
+    hkv = k_pool.shape[2]
+    s = tables.shape[1] * k_pool.shape[1]
+    live = s if max_live is None else min(max(int(max_live), 1), s)
+    return decode_plan(b, hkv, h // hkv, live,
+                       _sm_count(q.device.index or 0) if sms is None else sms)
 
 
 def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
@@ -282,7 +279,8 @@ def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
     """The kernel: q (B, 1, H, 128) bf16; pools (NB, BS, Hkv, 128) bf16 with BS
     a multiple of 8; tables (B, MB) int32; offset (B,) int32, all on the card.
     ``max_live`` as in ``decode_attention_cuda`` (default: the logical length
-    MB * BS). Reads only logical blocks <= offset[b] // BS of each row."""
+    MB * BS). Reads only logical blocks <= offset[b] // BS of each row, and
+    only their table entries."""
     b, sq, h, d = q.shape
     nb, bs, hkv = k_pool.shape[:3]
     if sq != 1 or h % hkv or not supports_paged_decode(bs, h, hkv, d, k_pool.element_size()):
@@ -302,14 +300,14 @@ def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
         raise TypeError("offset: the pool kernel takes per-row offsets, an int32 CUDA tensor")
     offs = offset.reshape(-1).expand(b).contiguous()
     check_tensor(offs, "offset", torch.int32, (b,))
-    s = mb * bs
-    live = s if max_live is None else min(max(int(max_live), 1), s)
-    nsplit, chunk, part = _pool_plan(b, hkv, h // hkv, live, q)
+    plan = pool_plan_for(q, k_pool, tables, max_live)
+    n = partial_floats(b, hkv, h // hkv, plan)
+    part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     out = torch.empty_like(q)
     fn = _pool_entry()
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
              offs.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
-             b, nb, bs, mb, hkv, h // hkv, d, float(scale), nsplit, chunk,
+             b, nb, bs, mb, hkv, h // hkv, d, float(scale), plan.nsplit, plan.chunk,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(build.library("pool_decode_attention"), err, "pool_decode_attention")
     pool_decode_attention_cuda.launches += 1

@@ -1,4 +1,5 @@
-"""Kernel 1, the dequant-GEMM: CUDA wrapper, launch count and plain version.
+"""Kernel 1, the dequant-GEMM: CUDA wrapper, launch count and plain version;
+and the launch plans of kernels 1 and 2 (``plan``).
 
 Replaces ``gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel``. The kernel is
 ``csrc/qmm.cu`` with two paths that ``plan`` picks from M: for decode rows
@@ -8,7 +9,8 @@ group, split-K with a deterministic second pass); above them the tensor-core
 tiles of ``csrc/qmm_tc.cuh``, bound by operations (the slab dequantized to
 bf16 in shared memory, ``mma.sync`` with fp32 sums, a ``cp.async`` ring). The
 plain version is ``ops.linear.quant_matmul_plain`` (dequantize to the compute
-dtype, then matmul).
+dtype, then matmul). Kernel 2 (``mlp.py``, two weight streams) takes its plan
+from ``plan`` too, with a third form for M <= 16 (``csrc/qmm_frag.cuh``).
 """
 
 from __future__ import annotations
@@ -26,11 +28,16 @@ from ..linear import PackedLinear, quant_matmul_plain  # noqa: F401  (the plain 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/qmm.cu"
 REPLACES = "gptq_for_llama_tpu/ops/pallas/matmul.py:68"
 
-TILE_N = 128          # columns per block, both paths
+TILE_N = 128          # columns per block, both paths (tiles: B-tile columns; of y, 128 / streams)
 _X_SMEM_BYTES = 96 * 1024   # cap on the GEMV block's fp32 x slice in shared memory
 # The GEMV takes M <= 4; the tile path the rest: from M = 5 the tiles are
 # faster (the measured crossover, PERF.md section 6)
 GEMV_MAX_M = 4
+# kernel 2: the GEMV for M <= FUSED_GEMV_MAX_M, the register-fragment form
+# (csrc/qmm_frag.cuh) up to FRAG_MAX_M, the tiles above (PERF.md section 6)
+FUSED_GEMV_MAX_M = 1
+FRAG_MAX_M = 16
+FRAG_COLS, FRAG_WARPS, FRAG_STAGES = 32, 8, 4   # csrc/qmm_frag.cuh's block and ring
 # the tile path's row tiles, slab depth and staged groups: csrc/qmm_tc.cuh's
 TC_ROW_TILES, TC_TILE_K, TC_MAX_GROUPS = (64, 128, 256), 64, 4
 SMEM_PER_SM = 233472      # the H100's shared memory of one SM (1 KB of it per block reserved)
@@ -42,32 +49,53 @@ def _sm_count(index: int) -> int:
 
 
 class Plan(NamedTuple):
-    path: str        # "gemv" (csrc/qmm_common.cuh) or "tile" (csrc/qmm_tc.cuh)
-    mt: int          # rows per block: 1, 2, 4, 8 (gemv) or 64, 128, 256 (tile)
+    path: str        # "gemv" (csrc/qmm_common.cuh), "tile" (csrc/qmm_tc.cuh) or
+                     # "frag" (kernel 2 only, csrc/qmm_frag.cuh)
+    mt: int          # rows per block: 1, 2, 4, 8 (gemv), 64, 128, 256 (tile), 8, 16 (frag)
     split: int       # blocks along K (partial sums reduced by a second kernel)
-    per_split: int   # packed words (gemv) or 64-row slabs (tile) per split
+    per_split: int   # packed words (gemv), 64-row slabs (tile) or K-blocks (frag) per split
     smem: int        # dynamic shared memory of one block, bytes
 
 
-def tile_smem_bytes(bits: int, streams: int = 1, bm: int = 128) -> int:
-    """Shared memory of one tile block (qmm_tc.cuh's ``Layout``): a ring of
-    stages (4 for BM = 256, else 3) of the x tile and, per stream, the slab's
-    words and its scale and zero rows; then two bf16 B tiles per stream. Rows
-    padded by 8 bf16."""
+def tile_smem_bytes(bits: int, bm: int = 128) -> int:
+    """Shared memory of one tile block (qmm_tc.cuh's ``Layout``), one or two
+    weight streams alike: a ring of stages (4 for BM = 256, else 3) of the x
+    tile, the slab's words of the block's 128 B-tile columns and their scale
+    and zero rows; then two bf16 B tiles. Rows padded by 8 bf16."""
     stride = TC_TILE_K + 8
     words = TC_TILE_K * bits // 32 * TILE_N * 4
     scale_zero = 2 * TC_MAX_GROUPS * TILE_N * 2
-    stage = bm * stride * 2 + streams * (words + scale_zero)
-    return (4 if bm == 256 else 3) * stage + 2 * streams * TILE_N * stride * 2
+    stage = bm * stride * 2 + words + scale_zero
+    return (4 if bm == 256 else 3) * stage + 2 * TILE_N * stride * 2
 
 
-def tile_blocks_per_sm(bits: int, streams: int, bm: int) -> int:
+def tile_blocks_per_sm(bits: int, bm: int) -> int:
     """Resident tile blocks per SM: one at BM = 256 (235 registers a thread),
     else two (the 128-register cap of ``__launch_bounds__``) where their shared
     memory fits."""
     if bm == 256:
         return 1
-    return max(1, min(2, SMEM_PER_SM // (tile_smem_bytes(bits, streams, bm) + 1024)))
+    return max(1, min(2, SMEM_PER_SM // (tile_smem_bytes(bits, bm) + 1024)))
+
+
+def frag_rows_per_block(bits: int) -> int:
+    """Rows of K in one K-block of the fragment form: 4 packed word-rows."""
+    return 4 * (32 // bits)
+
+
+def frag_smem_bytes(bits: int, nt: int) -> int:
+    """Shared memory of one fragment-form block (qmm_frag.cuh's ``Layout``):
+    per warp a ring of FRAG_STAGES stages, each of every lane's gate and up
+    words (32 B), its ``nt`` slices of x (32 / bits rows, bf16) and 256 B of
+    scales and zeros."""
+    stage = 32 * 32 + nt * 32 * 2 * (32 // bits) + 256
+    return FRAG_WARPS * FRAG_STAGES * stage
+
+
+def frag_ok(k: int, n: int, bits: int, groupsize: int) -> bool:
+    """The fragment form's shapes: whole 16-byte copies and every K-block
+    inside one group."""
+    return k % 8 == 0 and n % 8 == 0 and groupsize % frag_rows_per_block(bits) == 0
 
 
 def row_tile(m: int, cols: int, sms: int) -> int:
@@ -80,17 +108,21 @@ def row_tile(m: int, cols: int, sms: int) -> int:
     return 256 if cols * -(-m // 256) >= sms else 128
 
 
-def reduction_split(tiles: int, slabs: int, slots: int, sms: int) -> tuple[int, int]:
+def reduction_split(tiles: int, slabs: int, slots: int, sms: int,
+                    balance: bool = False) -> tuple[int, int]:
     """How many blocks share one output tile's reduction, and how many
     64-deep slabs each takes. Fewer tiles than SMs split the reduction: the
     split that fills every SM and costs the fewest waves x (slabs per block +
     2, a block's start-up: the first two slabs' copies in flight), the
     smallest such split, each split keeping at least 4 slabs. ``slots``:
-    resident blocks on the card."""
+    resident blocks on the card. ``balance`` (kernel 2, whose 64-column
+    tiles at M <= 256 are 1-2 waves of long blocks): below two waves of
+    tiles, the split of that cost from 1 up, so that a wave and a third
+    becomes two even waves of shorter blocks."""
     split = 1
-    if tiles < sms:
+    if tiles < sms or (balance and tiles < 2 * slots):
         hi = max(1, slabs // 4)
-        lo = min(-(-sms // tiles), hi)
+        lo = 1 if balance else min(-(-sms // tiles), hi)
         split = min(range(lo, hi + 1),
                     key=lambda s: (-(-tiles * s // slots) * (-(-slabs // s) + 2), s))
     per = -(-slabs // split)
@@ -98,32 +130,61 @@ def reduction_split(tiles: int, slabs: int, slots: int, sms: int) -> tuple[int, 
 
 
 def _tile_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int) -> Plan:
-    """``row_tile`` over N's column tiles, then ``reduction_split`` along K."""
-    cols = -(-n // TILE_N)
+    """``row_tile`` over N's column tiles (128 / streams columns of y each),
+    then ``reduction_split`` along K."""
+    cols = -(-n // (TILE_N // streams))
     bm = row_tile(m, cols, sms)
     tiles = cols * -(-m // bm)
-    slots = sms * tile_blocks_per_sm(bits, streams, bm)
-    split, per = reduction_split(tiles, -(-k // TC_TILE_K), slots, sms)
-    return Plan("tile", bm, split, per, tile_smem_bytes(bits, streams, bm))
+    slots = sms * tile_blocks_per_sm(bits, bm)
+    split, per = reduction_split(tiles, -(-k // TC_TILE_K), slots, sms, balance=streams == 2)
+    return Plan("tile", bm, split, per, tile_smem_bytes(bits, bm))
+
+
+def _frag_plan(m: int, k: int, n: int, bits: int, sms: int) -> Plan:
+    """Kernel 2's fragment form: one block per 32 columns of y, its 8 warps
+    on consecutive runs of K; where the column blocks do not give every SM
+    two, K is split across blocks too, each split keeping at least two
+    K-blocks a warp."""
+    nt = 1 if m <= 8 else 2
+    cols = -(-n // FRAG_COLS)
+    kbs = -(-k // frag_rows_per_block(bits))
+    split = 1
+    if cols < 2 * sms:
+        split = max(1, min(-(-2 * sms // cols), kbs // (2 * FRAG_WARPS)))
+    per = -(-kbs // split)
+    return Plan("frag", 8 * nt, -(-kbs // per), per, frag_smem_bytes(bits, nt))
 
 
 def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
-         path: str | None = None) -> Plan:
+         path: str | None = None, groupsize: int = 128) -> Plan:
     """How one launch of kernel 1 (``streams=1``) or kernel 2 (``streams=2``)
     covers (M, K) @ (K, N).
 
     GEMV: enough blocks for 4 per SM (kernel 1's decode blocks, 48 registers,
     fit 5) or 2 (kernel 2's, 76 registers, fit 3; PERF.md): a 4096-wide
     decode linear has only 32 column tiles, so K is split across blocks (17
-    ways at K = 4096 for kernel 1). Tiles: kernel 1 above ``GEMV_MAX_M`` when
-    K and N are multiples of 8 (16-byte copies), planned by ``_tile_plan``.
-    Kernel 2 has no tile path yet. ``path`` forces one (for measurements,
-    through ``_launch``)."""
+    ways at K = 4096 for kernel 1). Tiles (``_tile_plan``) when K and N are
+    multiples of 8 (16-byte copies): kernel 1 above ``GEMV_MAX_M``, kernel 2
+    above ``FRAG_MAX_M``. Kernel 2 between ``FUSED_GEMV_MAX_M`` and
+    ``FRAG_MAX_M`` takes the fragment form (``_frag_plan``) where its
+    ``groupsize`` puts every K-block in one group, else the GEMV. ``path``
+    forces one (for measurements, through ``_launch``)."""
     if path is None:
-        tiles_ok = streams == 1 and m > GEMV_MAX_M and k % 8 == 0 and n % 8 == 0
-        path = "tile" if tiles_ok else "gemv"
+        wide = k % 8 == 0 and n % 8 == 0
+        if streams == 1:
+            path = "tile" if m > GEMV_MAX_M and wide else "gemv"
+        elif m <= FUSED_GEMV_MAX_M:
+            path = "gemv"
+        elif m <= FRAG_MAX_M:
+            path = "frag" if frag_ok(k, n, bits, groupsize) else "gemv"
+        else:
+            path = "tile" if wide else "gemv"
     if path == "tile":
         return _tile_plan(m, k, n, bits, sms, streams)
+    if path == "frag":
+        if streams != 2 or m > FRAG_MAX_M:
+            raise ValueError("the fragment form is kernel 2's, for M <= 16")
+        return _frag_plan(m, k, n, bits, sms)
     ipw = 32 // bits
     kw = k // ipw
     mt = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8

@@ -3,9 +3,12 @@ and plain version.
 
 Replaces ``gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel``: computes
 ``silu(x @ dequant(Wg)) * (x @ dequant(Wu))`` with x read once and both sums
-kept in fp32 until the epilogue. The kernel is ``csrc/fused_mlp.cu`` (body
-shared with kernel 1 in ``csrc/qmm_common.cuh``); it is bound by the two
-packed weight streams and splits K across blocks as kernel 1 does.
+kept in fp32 until the epilogue. The kernel is ``csrc/fused_mlp.cu`` with
+three forms that ``matmul.plan(..., streams=2)`` picks from M: the split-K
+GEMV of ``csrc/qmm_common.cuh`` for the batch-1 decode row; up to 16 rows the
+weight dequantized straight into ``mma.sync`` fragments
+(``csrc/qmm_frag.cuh``); above that kernel 1's tensor-core tiles with the
+gate and up columns interleaved in one B tile (``csrc/qmm_tc.cuh``, NW = 2).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch.nn.functional as F
 
 from . import build
 from .grad import refuse_grad
-from .matmul import _sm_count, check_packed, plan
+from .matmul import Plan, _sm_count, check_packed, plan
 from ..linear import PackedLinear, quant_matmul_plain
 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/fused_mlp.cu"
@@ -48,13 +51,23 @@ def fused_mlp_plain(x: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> to
     return F.silu(g) * u
 
 
-def _entry():
-    fn = build.library("fused_mlp").gptq_fused_mlp
+_ENTRIES = {"gemv": "gptq_fused_mlp", "frag": "gptq_fused_mlp_frag",
+            "tile": "gptq_fused_mlp_tile"}
+
+
+def _entry(path: str):
+    fn = getattr(build.library("fused_mlp"), _ENTRIES[path])
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 9 + [p]
+        fn.argtypes = [p] * 9 + [i] * (9 if path == "gemv" else 10) + [p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def plan_for(x2: torch.Tensor, gate: PackedLinear) -> Plan:
+    """The plan ``fused_mlp_cuda`` launches for x2 (M, K) on the card."""
+    return plan(x2.shape[0], gate.in_features, gate.out_features, gate.bits,
+                _sm_count(x2.device.index or 0), streams=2, groupsize=gate.groupsize)
 
 
 def fused_mlp_cuda(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> torch.Tensor:
@@ -66,26 +79,35 @@ def fused_mlp_cuda(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> to
     refuse_grad("fused_mlp", x2, gate.scales, gate.zeros, up.scales, up.zeros)
     check_packed(gate, x2)
     check_packed(up, x2)
+    if x2.shape[0] == 0:
+        return torch.empty((0, gate.out_features), dtype=torch.bfloat16, device=x2.device)
+    return _launch(x2, gate, up, plan_for(x2, gate))
+
+
+def _launch(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear, p: Plan) -> torch.Tensor:
+    """One launch of kernel 2 on checked operands under plan ``p`` (a
+    measurement may pass a plan with its path forced)."""
     m, k, n = x2.shape[0], gate.in_features, gate.out_features
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    if m == 0:
-        return out
-    p = plan(m, k, n, gate.bits, _sm_count(x2.device.index or 0), streams=2)   # the GEMV
     partial = (torch.empty((2, p.split, m, n), dtype=torch.float32, device=x2.device)
                if p.split > 1 else None)
-    fn = _entry()
-    err = fn(x2.data_ptr(), gate.qweight.data_ptr(), gate.scales.data_ptr(),
-             gate.zeros.data_ptr(), up.qweight.data_ptr(), up.scales.data_ptr(),
-             up.zeros.data_ptr(), out.data_ptr(),
-             None if partial is None else partial.data_ptr(),
-             m, k, n, gate.scales.shape[0], gate.groupsize, gate.bits, p.mt, p.split, p.per_split,
-             torch.cuda.current_stream(x2.device).cuda_stream)
-    build.check(build.library("fused_mlp"), err, "fused_mlp")
+    last = {"gemv": (p.mt, p.split, p.per_split),
+            "frag": (p.mt // 8, p.split, p.per_split, p.smem),
+            "tile": (p.mt, p.split, p.per_split, p.smem)}[p.path]
+    err = _entry(p.path)(
+        x2.data_ptr(), gate.qweight.data_ptr(), gate.scales.data_ptr(), gate.zeros.data_ptr(),
+        up.qweight.data_ptr(), up.scales.data_ptr(), up.zeros.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        m, k, n, gate.scales.shape[0], gate.groupsize, gate.bits, *last,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    build.check(build.library("fused_mlp"), err, f"fused_mlp ({p.path})")
     fused_mlp_cuda.launches += 1
+    fused_mlp_cuda.forms[p.path] += 1
     return out
 
 
 fused_mlp_cuda.launches = 0
+fused_mlp_cuda.forms = {"gemv": 0, "frag": 0, "tile": 0}   # launches by form
 
 
 def fused_mlp(x: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> torch.Tensor:

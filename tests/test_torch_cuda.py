@@ -53,6 +53,12 @@ def _close(got, want, rel):
     return float((got - want).abs().max()) <= rel * float(want.abs().max())
 
 
+def _row_rel(got, want):
+    """Largest over output rows of |got - want| / |want|."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max()
+
+
 def _rows_close(got, want, rel):
     """Every output row (all indices but the last) within ``rel`` of its own
     norm: a causal row i averages i + 1 values, so its size falls like
@@ -141,6 +147,90 @@ def test_fused_mlp_matches_plain(card, m):
     up = _linear(512, 384, 4, 128, seed=2, device=card)
     x = torch.randn(m, 512, device=card).bfloat16()
     assert _close(fused_mlp(x, gate, up), fused_mlp_plain(x, gate, up), 2e-2)
+
+
+def _gate_up(card, k, n, bits, gs, actorder):
+    """Gate and up linears sharing one act-order permutation (as a GPTQ
+    checkpoint's two MLP inputs do: the same Hessian order), else none."""
+    gate = _linear(k, n, bits, gs, seed=k + bits, device=card, actorder=actorder)
+    if not actorder:
+        return gate, _linear(k, n, bits, gs, seed=k + bits + 1, device=card)
+    rng = np.random.RandomState(k + bits + 1)
+    codes = rng.randint(0, 2 ** bits, size=(k, n)).astype(np.uint32)
+    zeros = rng.randint(1, 2 ** bits, size=(gate.scales.shape[0], n)).astype(np.uint32)
+    up = PackedLinear.from_wire(packing.pack_rows(codes, bits), packing.pack_cols(zeros - 1, bits),
+                                (rng.rand(*zeros.shape) * 0.02 + 0.005).astype(np.float16),
+                                gate.g_idx, bits=bits, dtype=torch.bfloat16, device=card)
+    return gate, up
+
+
+# (bits, K, N, groupsize, act-order): 2, 4 and 8 bits, wire INT3, ragged
+# last groups (K = 1144: 9 groups of 128, the last 120 rows, and a last
+# K-block half past K; K = 1056: groups of 118 as the wire derives them),
+# groupsize 40 (a boundary inside a packed word at 2 bits; the fragment form
+# does not take it), act-order with gate and up sharing one permutation
+KERNEL_2_CASES = [(4, 1024, 512, 128, False), (2, 1024, 256, 64, False), (8, 512, 264, 32, False),
+                  (3, 512, 256, 128, False), (4, 1144, 256, 128, False), (4, 1056, 256, 128, False),
+                  (2, 560, 256, 40, False), (4, 1024, 512, 128, True), (8, 1024, 264, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,k,n,gs,actorder", KERNEL_2_CASES)
+@pytest.mark.parametrize("m", [5, 8, 100, 128, 136, 1024])
+def test_fused_mlp_forms_match_plain(card, bits, k, n, gs, actorder, m):
+    """Kernel 2's tile form (NW = 2, gate and up interleaved in one B tile)
+    and, up to 16 rows, its fragment form, forced, and the dispatch (the
+    plan's form), against fused_mlp_plain: 1e-2 of each output row's norm
+    (both sides sum in fp32 and round once to bf16; the plain version rounds
+    g and u to bf16 before silu(g) * u). The readings are printed."""
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul, mlp
+    gate, up = _gate_up(card, k, n, bits, gs, actorder)
+    assert mlp.supports_fused(gate, up)
+    x = torch.randn(m, k, device=card).bfloat16()
+    want = fused_mlp_plain(x, gate, up)
+    xp = x if gate.perm is None else x.index_select(-1, gate.perm).contiguous()
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    forms = ["tile"] + (["frag"] if m <= matmul.FRAG_MAX_M and
+                        matmul.frag_ok(k, n, gate.bits, gate.groupsize) else [])
+    kernels.reset_launch_counts()
+    for path in forms:
+        p = matmul.plan(m, k, n, gate.bits, sms, streams=2, path=path, groupsize=gate.groupsize)
+        got = mlp._launch(xp, gate, up, p)
+        torch.cuda.synchronize()
+        rel = float(_row_rel(got, want))
+        print(f"kernel 2 {path} bits={bits} K={k} N={n} gs={gs} act={actorder} M={m}: "
+              f"worst row rel {rel:.3e}")
+        assert torch.isfinite(got.float()).all() and rel <= 1e-2, path
+    got = fused_mlp(x, gate, up)
+    assert float(_row_rel(got, want)) <= 1e-2
+    assert kernels.launch_counts()["fused_mlp"] == len(forms) + 1
+
+
+# twice the largest worst-row gap measured on the card between kernel 2's
+# tensor-core forms and its GEMV, both forced (3.744e-3, 4096 x 11008 at
+# M = 16384; 3.0e-3 to 3.7e-3 at every M of chip_smoke.py; PERF.md section 6,
+# PR 8): both keep fp32 sums to the epilogue; the tensor-core forms round the
+# weight to bf16 as the plain version does, the GEMV keeps it in fp32
+GEMV_GAP = 7.5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 5, 8, 16, 100, 136])
+def test_fused_mlp_tensor_core_forms_agree_with_the_gemv(card, m):
+    """Kernel 2's tile and fragment forms against its GEMV forced through a
+    plan, at 4096 x 11008 INT4-g128 (the 7B shape): within GEMV_GAP of each
+    output row's norm. The reading is printed."""
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul, mlp
+    gate = _linear(4096, 11008, 4, 128, seed=5, device=card)
+    up = _linear(4096, 11008, 4, 128, seed=6, device=card)
+    x = torch.randn(m, 4096, device=card).bfloat16()
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    gemv = mlp._launch(x, gate, up, matmul.plan(m, 4096, 11008, 4, sms, streams=2, path="gemv"))
+    for path in ("tile", "frag") if m <= matmul.FRAG_MAX_M else ("tile",):
+        got = mlp._launch(x, gate, up, matmul.plan(m, 4096, 11008, 4, sms, streams=2, path=path))
+        rel = float(_row_rel(got, gemv))
+        print(f"kernel 2 {path} vs gemv M={m}: worst row rel {rel:.3e}")
+        assert rel <= GEMV_GAP, path
 
 
 # offsets on the edges of kernels 3 and 9's 32-slot tiles and of their 64- and

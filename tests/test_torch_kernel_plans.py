@@ -1,20 +1,23 @@
 """The host-side launch plans of kernels 1 and 2 (``ops/cuda/matmul.plan``),
 of kernel 8 (``ops/cuda/matmul_t.plan``), of kernels 4 and 5 (which body) and
-of kernels 3 and 9 (``ops/cuda/attention.decode_plan``), at LLaMA-7B's widths.
-Pure arithmetic: no card, no nvcc.
+of kernels 3, 7 and 9 (``ops/cuda/attention.decode_plan``), at LLaMA-7B's
+widths. Pure arithmetic: no card, no nvcc.
 
 Kernel 1 keeps the split-K GEMV for decode rows and takes the tensor-core
-tiles above ``GEMV_MAX_M``; kernel 2 keeps its GEMV plan at every M (its tile
-form is later work); kernel 8 takes kernel 1's row tile and splits N where
-its tiles do not fill the card. Kernels 3 and 9 split the live slots into
-chunks of whole tiles; a CPU model of the split and its combine (the
-kernels' arithmetic in fp32 numpy) is held against the TPU package's
-decode attention in interpret mode."""
+tiles above ``GEMV_MAX_M``; kernel 2 keeps its GEMV at M = 1, takes the
+register-fragment form up to ``FRAG_MAX_M`` and kernel 1's tiles with two
+interleaved streams above; kernel 8 takes kernel 1's row tile and splits N
+where its tiles do not fill the card. Kernels 3, 7 and 9 split the live
+slots into chunks of whole tiles; a CPU model of the split and its combine
+(the kernels' arithmetic in fp32 numpy), dense and routed through block
+tables, is held against the TPU package's decode attention in interpret
+mode."""
 
 import pytest
 
 from gptq_for_llama_tpu_torch.ops.cuda import matmul
-from gptq_for_llama_tpu_torch.ops.cuda.matmul import (GEMV_MAX_M, SMEM_PER_SM, TC_ROW_TILES, Plan,
+from gptq_for_llama_tpu_torch.ops.cuda.matmul import (FRAG_MAX_M, FUSED_GEMV_MAX_M, GEMV_MAX_M,
+                                                      SMEM_PER_SM, TC_ROW_TILES, Plan, frag_ok,
                                                       plan, tile_blocks_per_sm, tile_smem_bytes)
 
 SMS = 132   # the H100 SXM's SMs
@@ -103,34 +106,101 @@ def test_tile_path_needs_whole_16_byte_copies():
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("streams,bm", [(1, 64), (1, 128), (1, 256), (2, 64), (2, 128)])
 def test_tile_shared_memory_fits(bits, streams, bm):
-    """The tile block asks for at most the 227 KB one block may have (two
-    weight streams, the later fused gate/up form, at 64 or 128 rows); at 2
-    and 4 bits and one stream two blocks of 64 or 128 rows fit on an SM (228
-    KB each SM, 1 KB of it reserved per block)."""
-    smem = tile_smem_bytes(bits, streams, bm)
+    """The tile block asks for at most the 227 KB one block may have; at 2
+    and 4 bits two blocks of 64 or 128 rows fit on an SM (228 KB each SM, 1
+    KB of it reserved per block). Kernel 2's two streams share the block's
+    128 B-tile columns (64 gate and 64 up columns of y), so its block has
+    kernel 1's layout and fits the same: 110,592 B at 128 rows, two per SM."""
+    smem = tile_smem_bytes(bits, bm)
     assert smem <= SMEM_PER_BLOCK
     two = 2 * (smem + 1024) <= SMEM_PER_SM
-    assert tile_blocks_per_sm(bits, streams, bm) == (2 if two and bm < 256 else 1)
-    if streams == 1 and bits < 8 and bm < 256:
+    assert tile_blocks_per_sm(bits, bm) == (2 if two and bm < 256 else 1)
+    if bits < 8 and bm < 256:
         assert two
+    if (bits, bm) == (4, 128):
+        assert smem == 110592
     # the layout of csrc/qmm_tc.cuh: a ring of stages of x (bm x 72 bf16),
-    # words, 4 scale and 4 zero rows per stream; two B tiles per stream
+    # the words, 4 scale and 4 zero rows of 128 B-tile columns; two B tiles
     words = 64 * bits // 32 * 128 * 4
     stages = 4 if bm == 256 else 3
-    assert smem == (stages * (bm * 72 * 2 + streams * (words + 2 * 4 * 128 * 2))
-                    + 2 * streams * 128 * 72 * 2)
+    assert smem == stages * (bm * 72 * 2 + words + 2 * 4 * 128 * 2) + 2 * 128 * 72 * 2
     for m in (bm // 2 + 1, bm):
-        if m > GEMV_MAX_M and streams == 1 and plan(m, 4096, 4096, bits, SMS).mt == bm:
-            assert plan(m, 4096, 4096, bits, SMS).smem == smem
+        k, n = (4096, 4096) if streams == 1 else (4096, 11008)
+        p = plan(m, k, n, bits, SMS, streams=streams)
+        if p.path == "tile" and p.mt == bm:
+            assert p.smem == smem
+
+
+# kernel 2 (fused gate/up, 4096 x 11008) at every M of the smoke: path, row
+# tile, K splits, slabs (tile) or K-blocks (frag) per split
+KERNEL_2_PLANS = {1: ("gemv", 1, 4, 128), 8: ("frag", 8, 1, 128), 100: ("tile", 128, 3, 22),
+                  128: ("tile", 128, 3, 22), 136: ("tile", 256, 3, 22), 512: ("tile", 256, 1, 64),
+                  1024: ("tile", 256, 1, 64), 2048: ("tile", 256, 1, 64),
+                  16384: ("tile", 256, 1, 64)}
 
 
 @pytest.mark.parametrize("m", SMOKE_MS)
 def test_kernel_2_keeps_its_gemv_plan(m):
-    """Kernel 2 (fused gate/up, 4096 x 11008, two streams, 2 blocks per SM)
-    keeps the last slice's plan at every M of the smoke."""
-    want = {1: (1, 4, 128), 8: (8, 4, 128)}.get(m, (8, 2, 384))
+    """Kernel 2 keeps its GEMV at the batch-1 decode row, at and below the
+    measured crossover (M = 1: the GEMV 32.17 us, the fragment form 38.55;
+    at M = 2 the fragment form wins, 38.76 against 42.28; PERF.md), takes
+    the register-fragment form at the serving decode step (M = 8, the
+    fastest of the three forms there) and the tensor-core tiles above, with
+    kernel 1's row tile over its 64-column tiles and a K split that turns
+    the 172 tiles of one row into two even waves at M = 100-136."""
     p = plan(m, 4096, 11008, 4, SMS, streams=2)
-    assert p == Plan("gemv", *want, p.smem) and p.smem <= 100 * 1024
+    assert p == Plan(*KERNEL_2_PLANS[m], p.smem)
+    assert (p.path == "gemv") == (m <= FUSED_GEMV_MAX_M)
+    if p.path == "tile":
+        assert p.smem == tile_smem_bytes(4, p.mt)
+        # the same plan as kernel 1 at the same columns of y (86 tiles of 128)
+        assert p == plan(m, 4096, 11008, 4, SMS) or m >= 512
+
+
+@pytest.mark.parametrize("k,n", [(4096, 11008), (512, 384), (1024, 256)])
+@pytest.mark.parametrize("bits,gs", [(2, 64), (4, 128), (4, 32), (8, 32), (8, 16)])
+def test_kernel_2_takes_the_fragment_form_up_to_16_rows(k, n, bits, gs):
+    """From M = 2 to 16 kernel 2 takes the fragment form where every K-block
+    (4 packed word-rows, 128 / bits rows) lies in one group; its splits cover
+    every K-block and each warp keeps at least two; one n8 tile of x's rows
+    up to M = 8, two up to 16; tiles from M = 17."""
+    kb = 4 * (32 // bits)
+    assert frag_ok(k, n, bits, gs) == (gs % kb == 0)
+    for m in range(1, 40):
+        p = plan(m, k, n, bits, SMS, streams=2, groupsize=gs)
+        want = ("gemv" if m <= FUSED_GEMV_MAX_M else "frag" if m <= FRAG_MAX_M else "tile")
+        assert p.path == want
+        if p.path == "frag":
+            kbs = -(-k // kb)
+            assert p.mt == (8 if m <= 8 else 16)
+            assert p.split * p.per_split >= kbs > (p.split - 1) * p.per_split
+            assert p.split == 1 or p.per_split >= 2 * matmul.FRAG_WARPS
+            assert p.smem == matmul.frag_smem_bytes(bits, p.mt // 8) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("gs", [40, 24, 6])
+def test_kernel_2_group_sizes_the_fragment_form_does_not_take(gs):
+    """A group size that puts a group boundary inside a K-block (groupsize
+    40 at 4 bits: 32-row K-blocks) keeps the GEMV up to 16 rows; the tiles
+    take such sizes above."""
+    assert not frag_ok(520, 256, 4, gs)
+    assert plan(8, 520, 256, 4, SMS, streams=2, groupsize=gs).path == "gemv"
+    assert plan(100, 520, 256, 4, SMS, streams=2, groupsize=gs).path == "tile"
+    with pytest.raises(ValueError):
+        plan(17, 4096, 11008, 4, SMS, streams=2, path="frag")
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("nt", [1, 2])
+def test_fragment_form_shared_memory(bits, nt):
+    """qmm_frag.cuh's Layout: per warp 4 stages of the lanes' gate and up
+    words (32 B each), their x slices (32 / bits bf16 per n8 tile) and 256 B
+    of scales and zeros; 8 warps. The blocks ``__launch_bounds__`` sizes
+    the registers for fit an SM: three for one n8 tile of rows (the 7B
+    serving step), two for two."""
+    smem = matmul.frag_smem_bytes(bits, nt)
+    assert smem == 8 * 4 * (32 * 32 + nt * 32 * 2 * (32 // bits) + 256)
+    assert (3 if nt == 1 else 2) * (smem + 1024) <= SMEM_PER_SM
 
 
 def test_a_path_can_be_forced_for_measurement():
@@ -316,16 +386,24 @@ def test_decode_plans_at_the_smoke_rows(b, hkv, live, want):
 LOG2E = np.float32(1.4426950408889634)
 
 
-def _split_model(q, k, v, offs, scale, plan, fold=None):
+def _split_model(q, k, v, offs, scale, plan, fold=None, pool=None):
     """Kernels 3 and 9's arithmetic on the CPU, fp32: per (row, kv head, chunk)
     each of the 4 warps runs an online softmax in log2 units over its 8 slots
     of every 32-slot tile, the warps merge; one chunk writes the output, more
     write partials (accumulator, max, denominator: the kernel's layout) that
     the combine rescales and sums in chunk order, with the fold form's
-    current token as one more slot. Returns (out, times each partial float
-    was written)."""
+    current token as one more slot. ``pool`` = (k_pool, v_pool, tables):
+    kernel 7, the same arithmetic with each warp's 8 slots of a tile read
+    through the one table entry of their block (k, v unused); a slice wholly
+    past the live bound reads no entry. Returns (out, times each partial
+    float was written)."""
     b, _, h, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
+    if pool is None:
+        s, hkv = k.shape[1], k.shape[2]
+    else:
+        kp, vp, tables = pool
+        bs, hkv = kp.shape[1], kp.shape[2]
+        s = tables.shape[1] * bs
     g = h // hkv
     rows = b * hkv * plan.nsplit * g
     part = np.zeros(partial_floats(b, hkv, g, plan), np.float32)
@@ -337,7 +415,14 @@ def _split_model(q, k, v, offs, scale, plan, fold=None):
         live = off if fold is not None else off + 1
         for kv in range(hkv):
             qs = q[bi, 0, kv * g:(kv + 1) * g] * np.float32(scale) * LOG2E      # (G, D)
-            kr, vr = k[bi, :, kv], v[bi, :, kv]
+            if pool is None:
+                def fetch(lo, hi, bi=bi, kv=kv):
+                    return k[bi, lo:hi, kv], v[bi, lo:hi, kv]
+            else:
+                def fetch(lo, hi, bi=bi, kv=kv):   # one warp's slots: one block
+                    assert lo % 8 == 0 and hi - lo <= 8 and lo // bs == (hi - 1) // bs
+                    blk = tables[bi, lo // bs]
+                    return kp[blk, lo % bs:lo % bs + hi - lo, kv], vp[blk, lo % bs:lo % bs + hi - lo, kv]
             lc = vn = None
             if fold is not None:
                 lc = qs @ fold[0][bi, 0, kv]
@@ -354,12 +439,13 @@ def _split_model(q, k, v, offs, scale, plan, fold=None):
                         hi = min(lo + warp_slots, end)
                         if lo >= hi:
                             continue
-                        x = qs @ kr[lo:hi].T                                       # (G, n)
+                        kr, vr = fetch(lo, hi)
+                        x = qs @ kr.T                                              # (G, n)
                         m_new = np.maximum(m, x.max(axis=1))
                         alpha = np.exp2(m - m_new)
                         p = np.exp2(x - m_new[:, None])
                         l_ = l_ * alpha + p.sum(axis=1)
-                        acc = acc * alpha[:, None] + p @ vr[lo:hi]
+                        acc = acc * alpha[:, None] + p @ vr
                         m = m_new
                     warps.append((m, l_, acc))
                 big = np.max([m for m, _, _ in warps], axis=0)
@@ -446,3 +532,76 @@ def test_split_model_fills_the_partial_buffer(fold):
     else:
         _, written = _split_model(q, k, v, off, 0.09, plan)
     assert written.size == partial_floats(2, 2, 4, plan) and (written == 1).all()
+
+
+# -- kernel 7: kernel 3's body and plan, routed through the block tables -------
+POOL_ROWS = [(8, 32, 1, 128, 16, 128), (8, 32, 1, 2048, 16, 128), (8, 32, 1, 1501, 16, 128),
+             (8, 8, 4, 1501, 16, 128)]
+
+
+@pytest.mark.parametrize("b,hkv,g,live,bs,mb", POOL_ROWS)
+def test_kernel_7_takes_kernel_3s_plan(b, hkv, g, live, bs, mb):
+    """At the smoke's pool rows (offsets 127, 2047, the serving offsets
+    37..1500 with the engine's bound 1501, and their GQA form) kernel 7's
+    plan is ``decode_plan`` at the same live bound, as kernel 3 over the
+    gathered view; with no bound, the logical length MB * BS."""
+    import torch
+    q = torch.zeros(b, 1, hkv * g, 128)
+    kp = torch.zeros(4, bs, hkv, 128)
+    tables = torch.zeros(b, mb, dtype=torch.int32)
+    assert attention.pool_plan_for(q, kp, tables, live, sms=SMS) == decode_plan(b, hkv, g, live, SMS)
+    assert attention.pool_plan_for(q, kp, tables, None, sms=SMS) == decode_plan(b, hkv, g, mb * bs,
+                                                                               SMS)
+    assert not hasattr(attention, "pool_split_plan") and not hasattr(attention, "POOL_TILE")
+
+
+def _pool_inputs(b, h, hkv, bs, mb, offs, seed):
+    """A pool whose tables are a random permutation; the model's copy of the
+    tables holds an out-of-range entry in every logical block past a row's
+    live bound, so that reading one raises."""
+    rng = np.random.RandomState(seed)
+    nb = b * mb + 2
+    kp, vp = (rng.standard_normal((nb, bs, hkv, 128)).astype(np.float32) for _ in range(2))
+    q = rng.standard_normal((b, 1, h, 128)).astype(np.float32)
+    tables = rng.permutation(nb)[:b * mb].reshape(b, mb).astype(np.int32)
+    off = np.asarray(offs, np.int32)
+    guarded = tables.copy()
+    for bi, o in enumerate(off):
+        guarded[bi, o // bs + 1:] = 10 ** 6
+    return q, kp, vp, tables, guarded, off
+
+
+@pytest.mark.parametrize("plan", sorted(SPLIT_PLANS))
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("h,hkv", [(8, 2), (4, 4)])
+def test_pool_split_model_matches_pallas_pool_decode_attention(h, hkv, bs, plan):
+    """Kernel 7's table-routed split and combine against the TPU package's
+    pool_decode_attention in interpret mode, fp32, at tests/test_torch_kernels.py's
+    tolerance: tables a random permutation, block sizes 8, 16 and 32, G = 4
+    and G = 1, and a plan made for a bound below the rows' offsets (the last
+    chunk runs to the row's own). JAX gets the clean tables: entries past a
+    row's live bound are never read by the model."""
+    mb = -(-320 // bs)
+    q, kp, vp, tables, guarded, off = _pool_inputs(2, h, hkv, bs, mb, (5, 299), seed=bs + h)
+    got, written = _split_model(q, None, None, off, 128 ** -0.5, SPLIT_PLANS[plan],
+                                pool=(kp, vp, guarded))
+    assert written.max() <= 1
+    want = np.asarray(jattn.pool_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables), jnp.asarray(off),
+        128 ** -0.5, interpret=True))
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_pool_split_model_equals_dense_model_on_the_gathered_view(bs):
+    """Routing through the tables changes where each slot is read, not the
+    order of the sums: on the gathered view the dense model gives the same
+    bits (the card's kernels 7 and 3 likewise, tests/test_torch_cuda.py)."""
+    mb = -(-320 // bs)
+    q, kp, vp, tables, guarded, off = _pool_inputs(2, 8, 2, bs, mb, (100, 319), seed=bs)
+    kd = kp[tables].reshape(2, mb * bs, 2, 128)
+    vd = vp[tables].reshape(2, mb * bs, 2, 128)
+    for plan in SPLIT_PLANS.values():
+        dense, _ = _split_model(q, kd, vd, off, 0.09, plan)
+        paged, _ = _split_model(q, None, None, off, 0.09, plan, pool=(kp, vp, guarded))
+        assert np.array_equal(dense, paged)
