@@ -16,7 +16,9 @@ Phases, in order, on one card:
            through copies larger than the 50 MB L2), and the bound. Kernel
            2's rows time every form forced beside kernel 1 run twice;
            kernel 7's rows time kernel 3 over the gathered view and require
-           the two outputs bit-equal.
+           the two outputs bit-equal; kernel 6's rows time it alone and with
+           the residual add folded in, beside ``x + r`` then the norm alone,
+           and an empty kernel's launch (the launch floor).
   e2e      a random wire-format LLaMA at 7B width and 2 layers: prefill and
            8 greedy steps on the card (bf16, kernels) against the same
            weights on the CPU (fp32, plain versions).
@@ -62,7 +64,9 @@ Phases, in order, on one card:
            saved. Prints tok/s, ttft and latency percentiles, steps and peak
            memory.
   profile  torch.profiler over eager decode steps of a 4-layer 7B-width
-           model: device time per kernel and the device busy share.
+           model: device time per kernel, the device busy share and the
+           elementwise add launches per step (the ``full`` phase prints the
+           same for its 32-layer decode step).
 
 Exits non-zero, with no result line, on any failure or when no CUDA device
 is present. Otherwise the line before last is the kernels JSON and the last
@@ -96,27 +100,29 @@ PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve"
 # serving (bucketed and batched admission, spans) and dense serving with
 # chunked prefill
 # ("fused_mlp:<form>": kernel 2 by form: the GEMV at batch-1 decode, the
-# fragment form at the 8-slot serving step, the tiles at prefill and eval)
-PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked", "rms_norm",
-                    "fused_mlp:gemv", "fused_mlp:tile"},
-         "quantize": {"flash_prefill", "rms_norm"},
-         "eval": {"flash_prefill", "qmm", "fused_mlp", "rms_norm", "fused_mlp:tile"},
+# fragment form at the 8-slot serving step, the tiles at prefill and eval;
+# "rms_norm:<form>": kernel 6 alone, at layer 0's input norm, and with the
+# residual add folded in, at every other norm: every path runs both)
+NORMS = {"rms_norm", "rms_norm:alone", "rms_norm:add"}
+PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
+                    "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
+         "quantize": {"flash_prefill"} | NORMS,
+         "eval": {"flash_prefill", "qmm", "fused_mlp", "fused_mlp:tile"} | NORMS,
          "serve:paged": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill_blocked",
-                         "flash_prefill", "rms_norm", "fused_mlp:frag", "fused_mlp:tile"},
+                         "flash_prefill", "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
          "serve:dense": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                         "rms_norm", "fused_mlp:frag", "fused_mlp:tile"},
+                         "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
          # the CLI's demo prompts all have one length: every admission is batched
-         "serve:cli": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill", "rms_norm"},
+         "serve:cli": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill"} | NORMS,
          # the decode path with cache_impl="fold", in the runner and the dense engine
-         "fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked", "rms_norm",
-                  "fused_mlp:gemv", "fused_mlp:tile"},
+         "fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
+                  "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
          "serve:fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
-                        "rms_norm", "fused_mlp:frag", "fused_mlp:tile"},
+                        "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
          # LoRA training steps (every linear adapted: gate/up unfused), and the
          # gradient check with gate/up frozen (the fused MLP and its backward)
-         "lora": {"qmm", "rms_norm", "flash_prefill", "qmm_t"},
-         "lora:fused": {"qmm", "fused_mlp", "rms_norm", "flash_prefill", "qmm_t",
-                        "fused_mlp:tile"}}
+         "lora": {"qmm", "flash_prefill", "qmm_t"} | NORMS,
+         "lora:fused": {"qmm", "fused_mlp", "flash_prefill", "qmm_t", "fused_mlp:tile"} | NORMS}
 LLAMA_7B = dict(arch="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                 num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128, max_seq_len=2048)
 
@@ -334,8 +340,8 @@ class Smoke:
         ``main`` marks the kernel's row of the kernels line, ``serve`` the row
         at the shape of the serving decode step (or, for the prefill kernels,
         of a serving chunk or admission), printed beside it. ``path`` names
-        kernel 1's or 2's form (``gemv``, ``frag`` or ``tile``); ``extra``
-        adds measured keys."""
+        kernel 1's or 2's form (``gemv``, ``frag`` or ``tile``) or kernel 6's
+        (``alone`` or ``add``); ``extra`` adds measured keys."""
         b_ms, b_by = bound(nbytes, flops)
         checked = ulps if ulps is not None else err if row_rel is None else row_rel
         ok = checked <= tol
@@ -786,32 +792,67 @@ class Smoke:
 
     def _kernel6(self, torch, F, randn):
         """Kernel 6 at 7B's width: the decode step (M = 1), the serving decode
-        step (8 slots), a prompt (100) and the eval batch (16384 rows). Held to
-        1 bf16 ulp of its plain version: the sum of squares is taken in another
-        order; the rest is the same fp32 arithmetic, rounded once. Inputs cycle
-        through at most 8 copies: a norm's input was written by the kernel
-        before it, so the caller finds it in the L2 unless it is larger."""
+        step (8 slots), a prompt (100) and the eval batch (16384 rows), alone
+        and in the residual form (h = x + r, y = RMSNorm(h), one launch: every
+        norm of the stack but layer 0's input norm). y is held to 1 bf16 ulp
+        of its plain version (the sum of squares is taken in another order;
+        the rest is the same fp32 arithmetic, rounded once), h bit-equal to
+        torch's add. The residual form's library call is ``x + r`` followed by
+        ``F.rms_norm``, both timed. Inputs cycle through at most 8 copies: a
+        norm's input was written by the kernel before it, so the caller finds
+        it in the L2 unless it is larger. Then the launch floor: an empty
+        kernel timed the same way."""
+        from gptq_for_llama_tpu_torch.ops.cuda import norm
         from gptq_for_llama_tpu_torch.ops.cuda.norm import rms_norm_cuda, rms_norm_plain
         h, eps = 4096, 1e-6
         w = (1 + 0.1 * randn(h).float()).bfloat16()
         lib = getattr(F, "rms_norm", None)
         for m in (1, 8, 100, 16384):
+            iters = 60 if m <= 100 else 6
             xs = [randn(m, h, scale=3.0) for _ in range(min(8, copies_for(2 * m * h * 2)))]
             y = rms_norm_cuda(xs[0], w, eps)
             ref = rms_norm_plain(xs[0], w, eps)
             torch.cuda.synchronize()
             ulps = bf16_ulps(torch, y, ref)
             err = (y.float() - ref.float()).abs().max().item()
-            iters = 60 if m <= 100 else 6
             ms = graph_ms(torch, [lambda x=x: rms_norm_cuda(x, w, eps) for x in xs], iters=iters)
             pms = graph_ms(torch, [lambda x=x: rms_norm_plain(x, w, eps) for x in xs],
                            iters=iters)
             lms = None if lib is None else graph_ms(
                 torch, [lambda x=x: lib(x, (h,), w, eps) for x in xs], iters=iters)
             self._record("rms_norm", f"M={m} H={h}", err, 1, ms, pms, lms,
-                         2 * m * h * 2 + h * 2, 4 * m * h, main=(m == 8), ulps=ulps,
-                         serve=(m == 8))
+                         2 * m * h * 2 + h * 2, 4 * m * h, ulps=ulps, path="alone")
             del xs
+            xrs = [(randn(m, h, scale=3.0), randn(m, h))
+                   for _ in range(min(8, copies_for(4 * m * h * 2)))]
+            hs, y = norm.add_rms_norm_cuda(*xrs[0], w, eps)
+            ref_h, ref = norm.add_rms_norm_plain(*xrs[0], w, eps)
+            torch.cuda.synchronize()
+            h_ulps, ulps = bf16_ulps(torch, hs, ref_h), bf16_ulps(torch, y, ref)
+            if h_ulps != 0:
+                raise AssertionError(f"rms_norm add M={m}: h is {h_ulps} bf16 ulp off x + r")
+            err = (y.float() - ref.float()).abs().max().item()
+            ms = graph_ms(torch, [lambda a=a, b=b: norm.add_rms_norm_cuda(a, b, w, eps)
+                                  for a, b in xrs], iters=iters)
+            pms = graph_ms(torch, [lambda a=a, b=b: norm.add_rms_norm_plain(a, b, w, eps)
+                                   for a, b in xrs], iters=iters)
+            lms = None if lib is None else graph_ms(
+                torch, [lambda a=a, b=b: lib(a + b, (h,), w, eps) for a, b in xrs], iters=iters)
+            # what the path ran before the add moved into the norm: torch's
+            # add, then the kernel alone
+            before = graph_ms(torch, [lambda a=a, b=b: rms_norm_cuda(a + b, w, eps)
+                                      for a, b in xrs], iters=iters)
+            log(f"[kernel rms_norm] M={m}: x + r then the kernel alone {before * 1e3:.2f} us")
+            self._record("rms_norm", f"M={m} H={h} + residual", err, 1, ms, pms, lms,
+                         4 * m * h * 2 + h * 2, 5 * m * h, main=(m == 8), ulps=ulps,
+                         serve=(m == 8), path="add",
+                         extra={"h_bf16_ulps": h_ulps, "add_then_alone_ms": before})
+            del xrs
+        dev = torch.device("cuda")
+        floor = graph_ms(torch, [lambda: norm.launch_floor(dev)], iters=60)
+        log(f"[kernel rms_norm] launch floor (an empty kernel, one block of one warp, timed "
+            f"as the rows above): {floor * 1e3:.2f} us | {self.card}")
+        self.report["launch_floor_ms"] = floor
 
     def _kernel7(self, torch, F, gen):
         """Kernel 7 at the serving shapes: 8 slots, block 16, 128 blocks per
@@ -1211,6 +1252,7 @@ class Smoke:
         if distinct < 8:
             raise AssertionError("full: the model's tokens do not depend on the prompt")
         self.check_path("decode", counts)
+        self.check_norms("full generate", counts, len(prompts) * new, cfg.num_layers)
 
         # decode speed: greedy loop after a prefill, host clock, synchronized
         cache = runner.init_cache()
@@ -1233,6 +1275,10 @@ class Smoke:
         step_ids = toks[:, -1:].clone()
         dev_ms = graph_ms(torch, [lambda: runner.decode(step_ids, cache)], iters=8)
         peak = torch.cuda.max_memory_allocated()
+        # the eager step's kernels, elementwise adds counted (a residual add
+        # outside the norms would be 2 per layer)
+        self._profile_steps(torch, "full-profile", "eager decode steps of LLaMA-7B, 32 layers, "
+                            "batch 1", lambda: runner.decode(step_ids, cache), 2)
         wbytes = model_weight_bytes(cfg)
         roof_tok_s = PEAK_BYTES_PER_S / wbytes
         tok_s = 1e3 / ms_tok
@@ -1271,6 +1317,7 @@ class Smoke:
         t_gen = time.perf_counter() - t0
         counts = kernels.launch_counts()
         self.check_path("fold", counts)
+        self.check_norms("fold generate", counts, len(prompts) * new, cfg.num_layers)
         per_token = counts["fused_decode_attention"] / (len(prompts) * (new - 1))
         if per_token != cfg.num_layers or counts["decode_attention"] != 0:
             raise AssertionError(f"fold: {per_token} fold launches per decode token and "
@@ -1330,7 +1377,8 @@ class Smoke:
         ids shifted by one, ``LORA_STEPS`` Adam steps. Per step: the loss,
         forward / backward / optimizer ms, and the launches, held against what
         the path predicts: forward 7 x 32 of kernel 1 (gate/up adapted, so
-        unfused), 2 x 32 + 1 of kernel 6, 32 of kernel 5; backward one kernel 8
+        unfused), 2 x 32 + 1 of kernel 6 (2 x 32 with the residual add folded
+        in), 32 of kernel 5; backward one kernel 8
         for every packed linear whose input needs a gradient, 7 x 32 - 3 (layer
         0's q/k/v read the embedding, which needs none). Checks: the loss
         falls, every b moved, every packed buffer is byte-identical after
@@ -1351,8 +1399,10 @@ class Smoke:
         ids = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 512)),
                               device="cuda")
         opt = torch.optim.Adam(leaves, lr=1e-4)
-        want_fwd = dict.fromkeys(kernels.launch_counts(), 0)   # kernel 2's forms included
+        want_fwd = dict.fromkeys(kernels.launch_counts(), 0)   # kernels 2's, 6's forms included
         want_fwd.update(qmm=7 * layers, rms_norm=2 * layers + 1, flash_prefill=layers)
+        if "rms_norm:add" in want_fwd:
+            want_fwd.update({"rms_norm:add": 2 * layers, "rms_norm:alone": 1})
         want_bwd = dict.fromkeys(want_fwd, 0)
         want_bwd.update(qmm_t=7 * layers - 3)
 
@@ -1489,12 +1539,27 @@ class Smoke:
         acc = self.launches.setdefault(path, {})
         for k, v in counts.items():
             acc[k] = acc.get(k, 0) + v
-        # kernel 2's forms are counted by packages that have them (an A/B
-        # run drives an earlier package with this script)
+        # kernels 2's and 6's forms are counted by packages that have them
+        # (an A/B run drives an earlier package with this script)
         missing = sorted(k for k in PATHS[path]
                          if counts.get(k, 0) == 0 and (":" not in k or k in counts))
         if missing:
             raise AssertionError(f"{path} path: kernels never launched: {missing}")
+
+    @staticmethod
+    def check_norms(label, counts, forwards, layers):
+        """Kernel 6 on a path of whole forwards through the stack: 2L + 1
+        launches per forward, 2L of them with the residual add folded in and
+        one alone (layer 0's input norm). Checked where the package counts
+        the forms (an A/B run drives an earlier package with this script)."""
+        if "rms_norm:add" not in counts:
+            return
+        want = {"rms_norm": (2 * layers + 1) * forwards,
+                "rms_norm:add": 2 * layers * forwards, "rms_norm:alone": forwards}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{label}: kernel 6 launched {got} in {forwards} forwards of "
+                                 f"{layers} layers; the stack predicts {want}")
 
     # -- phase 8 ---------------------------------------------------------------
     def phase_quantize(self, torch):
@@ -1521,8 +1586,16 @@ class Smoke:
         self.check_path("quantize", rep1["launches"]["quantize"])
         self.check_path("eval", rep2["launches"]["eval:synthetic"])
         for rep in (rep1, rep2):
-            if rep["launches"]["eval:synthetic"].get("flash_prefill", 0) == 0:
+            ev = rep["launches"]["eval:synthetic"]
+            if ev.get("flash_prefill", 0) == 0:
                 raise AssertionError("eval: the causal prefill kernel never launched")
+            self.check_norms("eval", ev, ev["flash_prefill"] // layers, layers)
+        q = rep1["launches"]["quantize"]
+        if "rms_norm:add" in q and not q["rms_norm:alone"] >= q["rms_norm:add"] == q[
+                "flash_prefill"]:
+            # the engine calls one layer at a time: one norm of each form per call
+            raise AssertionError(f"quantize: kernel 6 {q}: want one residual-form launch per "
+                                 f"layer call (one causal attention each) and as many alone")
         ppl1, ppl2 = rep1["ppl"]["synthetic"], rep2["ppl"]["synthetic"]
         ppl_rel = abs(ppl1 - ppl2) / ppl2
         if not (math.isfinite(ppl1) and math.isfinite(ppl2)) or ppl_rel > 1e-4:
@@ -1851,6 +1924,7 @@ class Smoke:
                 "fused_decode_attention": layers * f["decode"] if fold else 0}
         if {k: counts[k] for k in want} != want:   # kernel 2's forms are checked by path
             raise AssertionError(f"{label}: launches {counts} but the forwards {f} predict {want}")
+        self.check_norms(label, counts, total, layers)
         tokens = sum(len(r) for r in results.values())
         if sorted(results) != list(range(len(prompts))) or tokens != len(prompts) * self.SERVE_NEW:
             raise AssertionError(f"{label}: {len(results)} results, {tokens} tokens")
@@ -2104,12 +2178,17 @@ class Smoke:
                 rows.append((dev, e.count, e.key))
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows) / 1e6
+        # torch's elementwise add (CUDAFunctor_add; AddFunctor in older builds):
+        # each residual add outside a norm is one
+        adds = sum(c for _, c, k in rows if "Functor_add" in k or "AddFunctor" in k) / steps
         log(f"[{key}] {steps} {what}: wall {wall * 1e3:.3f} ms, device busy "
-            f"{busy * 1e3:.3f} ms (busy share {busy / wall:.4f}) | {self.card}")
+            f"{busy * 1e3:.3f} ms (busy share {busy / wall:.4f}); {adds:g} elementwise add "
+            f"launches per step | {self.card}")
         for dev, count, name in rows[:25]:
             log(f"[{key}]   {dev / steps:10.1f} us/step  {count // steps:4d} calls/step  "
                 f"{name[:110]}")
         self.report[key] = {"wall_s": wall, "busy_s": busy, "steps": steps,
+                            "elementwise_adds_per_step": adds,
                             "kernels": [{"us_per_step": d / steps, "calls": c, "name": k}
                                         for d, c, k in rows]}
 
@@ -2126,13 +2205,16 @@ class Smoke:
                          "plain_ms": e.get("plain_ms"), "bound_ms": e.get("bound_ms"),
                          "bound_by": e.get("bound_by"), "library_ms": e.get("library_ms"),
                          "shape": e.get("shape"), "serve": self.serve_entries.get(name)})
-            if name in ("qmm", "fused_mlp"):   # the form of every kernel-1 and -2 row
+            if name in ("qmm", "fused_mlp", "rms_norm"):   # the form of every row
                 rows[-1]["paths"] = {k[len(name) + 1:]: p for k, p in self.paths.items()
                                      if k.startswith(name + " ")}
-            if name == "fused_mlp":
+            forms = {"fused_mlp": ("gemv", "frag", "tile"), "rms_norm": ("alone", "add")}
+            if name in forms:
                 rows[-1]["launches_by_form"] = {
-                    p: {f: c.get(f"fused_mlp:{f}", 0) for f in ("gemv", "frag", "tile")}
+                    p: {f: c.get(f"{name}:{f}", 0) for f in forms[name]}
                     for p, c in self.launches.items()}
+            if name == "rms_norm":
+                rows[-1]["launch_floor_ms"] = self.report.get("launch_floor_ms")
             if name == "flash_prefill_blocked":
                 rows[-1]["sq2048"] = self.sq2048
         return json.dumps({"kernels": rows})

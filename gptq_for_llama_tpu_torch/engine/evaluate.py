@@ -24,13 +24,12 @@ def window_nll(arch, cfg, params, ids: torch.Tensor, head_chunk: int = 512) -> t
     b, s = ids.shape
     positions = torch.arange(s, device=ids.device)[None, :]
     x = arch.embed(params, cfg, ids, positions)
-    mask = causal_mask(s, s, device=ids.device)
-    for lp in params["layers"]:
-        x, _, _ = arch.layer(cfg, lp, x, positions, mask)
-    xs, labels = x[:, :-1], ids[:, 1:]
+    x, delta = arch.stack(params, cfg, x, positions, causal_mask(s, s, device=ids.device))
+    # the final norm once over every row (the last layer's add in its launch)
+    xs, labels = arch.head_input(params, cfg, x, delta)[:, :-1], ids[:, 1:]
     acc = torch.zeros(b, dtype=torch.float32, device=ids.device)
     for c0 in range(0, s - 1, min(head_chunk, s - 1)):
-        logits = arch.head(params, cfg, xs[:, c0:c0 + head_chunk]).float()
+        logits = arch.logits(params, cfg, xs[:, c0:c0 + head_chunk]).float()
         gold = logits.gather(-1, labels[:, c0:c0 + head_chunk, None])[..., 0]
         acc += (torch.logsumexp(logits, dim=-1) - gold).sum(-1)
     return acc / (s - 1) * s

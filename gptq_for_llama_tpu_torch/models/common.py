@@ -12,6 +12,7 @@ current token's k/v), over a block pool to the pool kernel, a chunk of
 queries at a cache offset to the blocked prefill kernel, and causal
 self-attention without a cache to the causal prefill kernel, which is also
 the training forward (its gradient, and RMSNorm's, is the plain version's).
+A residual add that feeds a norm is folded into the norm's launch.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ from ..ops.cuda.attention import (attention_plain, decode_attention, fused_decod
                                   pool_decode_attention)
 from ..ops.cuda.flash import flash_prefill_blocked
 from ..ops.cuda.flash_prefill import flash_prefill
-from ..ops.cuda.norm import rms_norm  # noqa: F401  (kernel 6 on the card, plain on the CPU)
+# kernel 6 on the card, plain on the CPU; add_rms_norm is the TPU package's
+# pair ``x = x + o; rms_norm(x)`` in one launch, returning (x + o, the norm)
+from ..ops.cuda.norm import add_rms_norm, rms_norm  # noqa: F401
 
 
 def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float, dtype=torch.float32):

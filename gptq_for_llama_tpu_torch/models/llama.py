@@ -3,14 +3,18 @@
 Counterpart of ``gptq_for_llama_tpu/models/llama.py``: RMSNorm -> q/k/v ->
 RoPE -> cache write + attention -> o_proj -> RMSNorm -> fused gate/up SiLU ->
 down_proj, pre-norm residuals. Linear kernels are stored (in, out) for
-``x @ w``; packed linears are ``ops.linear.PackedLinear``.
+``x @ w``; packed linears are ``ops.linear.PackedLinear``. Every residual add
+that feeds a norm runs in the norm's launch (``add_rms_norm``): o_proj's
+output in the post-attention norm, and, in ``stack``, each layer's down_proj
+output in the next layer's input norm or in the final norm.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import apply_rope, attention_block, causal_mask, rms_norm, rope_cos_sin
+from .common import (add_rms_norm, apply_rope, attention_block, causal_mask, rms_norm,
+                     rope_cos_sin)
 from .config import ModelConfig
 from .. import resolve_device
 from ..ops.linear import dense, linear_apply
@@ -77,14 +81,21 @@ def step_rope(cfg: ModelConfig, positions: torch.Tensor, dtype):
     return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, dtype=dtype)
 
 
-def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None):
+def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None, delta=None,
+          defer=False):
     """One decoder layer. x: (B, S, H). Returns (y, taps, present_kv).
 
     past_kv: None (plain causal forward, ``mask`` applies) or
     (cache_k, cache_v, offset[, write_mask]); the caches are written in place
     and attention reads them through the kernels. taps maps each linear's
-    dotted name to the activation feeding it."""
-    h_attn_in = rms_norm(x, lp["input_layernorm"], cfg.norm_eps)
+    dotted name to the activation feeding it. delta: a residual add still
+    pending from the layer before (its down_proj output): the layer's input
+    is x + delta, added in the input norm's launch. defer: y is (x, down),
+    the residual and this layer's pending add, in place of their sum."""
+    if delta is None:
+        h_attn_in = rms_norm(x, lp["input_layernorm"], cfg.norm_eps)
+    else:
+        x, h_attn_in = add_rms_norm(x, delta, lp["input_layernorm"], cfg.norm_eps)
     att = lp["self_attn"]
     q = linear_apply(att["q_proj"], h_attn_in)
     k = linear_apply(att["k_proj"], h_attn_in)
@@ -98,12 +109,13 @@ def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None):
     q, k = apply_rope(q, k, cos, sin)
     attn_out, present = attention_block(past_kv, q, k, v, mask)
     attn_out = attn_out.reshape(b, s, -1)
-    x = x + linear_apply(att["o_proj"], attn_out)
+    x, h_mlp_in = add_rms_norm(x, linear_apply(att["o_proj"], attn_out),
+                               lp["post_attention_layernorm"], cfg.norm_eps)
 
-    h_mlp_in = rms_norm(x, lp["post_attention_layernorm"], cfg.norm_eps)
     mlp = lp["mlp"]
     h_down_in = fused_gate_up(mlp["gate_proj"], mlp["up_proj"], h_mlp_in, cfg.act)
-    y = x + linear_apply(mlp["down_proj"], h_down_in)
+    down = linear_apply(mlp["down_proj"], h_down_in)
+    y = (x, down) if defer else x + down
 
     taps = {
         "self_attn.q_proj": h_attn_in, "self_attn.k_proj": h_attn_in,
@@ -114,14 +126,35 @@ def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None):
     return y, taps, present
 
 
-def head_input(params, cfg: ModelConfig, x):
-    """The activation feeding lm_head (final norm output)."""
-    return rms_norm(x, params["norm"], cfg.norm_eps)
+def stack(params, cfg: ModelConfig, x, positions, mask, past=None, rope=None):
+    """Every layer over x, each layer's down_proj output carried to the next
+    one's input norm. past(li): layer li's cache form (None: no cache).
+    Returns (x, delta): the residual stream and the last layer's pending add,
+    for ``head`` / ``head_input``; the hidden state is x + delta."""
+    delta = None
+    for li, lp in enumerate(params["layers"]):
+        (x, delta), _, _ = layer(cfg, lp, x, positions, mask,
+                                 None if past is None else past(li), rope=rope, delta=delta,
+                                 defer=True)
+    return x, delta
 
 
-def head(params, cfg: ModelConfig, x):
+def head_input(params, cfg: ModelConfig, x, delta=None):
+    """The activation feeding lm_head: the final norm of x (+ delta, added in
+    the norm's launch)."""
+    if delta is None:
+        return rms_norm(x, params["norm"], cfg.norm_eps)
+    return add_rms_norm(x, delta, params["norm"], cfg.norm_eps)[1]
+
+
+def logits(params, cfg: ModelConfig, h):
+    """lm_head over the final norm's output ``h``."""
+    return linear_apply(params["lm_head"], h)
+
+
+def head(params, cfg: ModelConfig, x, delta=None):
     """Final norm + lm_head."""
-    return linear_apply(params["lm_head"], head_input(params, cfg, x))
+    return logits(params, cfg, head_input(params, cfg, x, delta))
 
 
 def forward(params, cfg: ModelConfig, input_ids: torch.Tensor, positions=None):
@@ -130,8 +163,6 @@ def forward(params, cfg: ModelConfig, input_ids: torch.Tensor, positions=None):
     dev = input_ids.device
     if positions is None:
         positions = torch.arange(s, device=dev)[None, :]
-    x = embed(params, cfg, input_ids)
-    mask = causal_mask(s, s, device=dev)
-    for lp in params["layers"]:
-        x, _, _ = layer(cfg, lp, x, positions, mask)
-    return head(params, cfg, x)
+    x, delta = stack(params, cfg, embed(params, cfg, input_ids), positions,
+                     causal_mask(s, s, device=dev))
+    return head(params, cfg, x, delta)

@@ -46,14 +46,22 @@ KERNELS = {
 }
 
 
+# kernels counted by form as well: kernel 2's GEMV, fragments and tiles, and
+# kernel 6 alone or with the residual add folded in
+_BY_FORM = {"fused_mlp": mlp.fused_mlp_cuda, "rms_norm": norm.rms_norm_cuda}
+
+
 def reset_launch_counts() -> None:
     for kernel in KERNELS.values():
         kernel.wrapper.launches = 0
-    mlp.fused_mlp_cuda.forms = dict.fromkeys(mlp.fused_mlp_cuda.forms, 0)
+    for wrapper in _BY_FORM.values():
+        wrapper.forms = dict.fromkeys(wrapper.forms, 0)
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches per kernel, then kernel 2's by form ("fused_mlp:tile", ...)."""
+    """Launches per kernel, then kernels 2's and 6's by form
+    ("fused_mlp:tile", "rms_norm:add", ...)."""
     counts = {name: kernel.wrapper.launches for name, kernel in KERNELS.items()}
-    counts.update({f"fused_mlp:{form}": n for form, n in mlp.fused_mlp_cuda.forms.items()})
+    for name, wrapper in _BY_FORM.items():
+        counts.update({f"{name}:{form}": n for form, n in wrapper.forms.items()})
     return counts

@@ -25,14 +25,20 @@ def refuse_grad(what: str, *tensors) -> None:
                            f"its dispatch (which differentiates it) or under torch.no_grad()")
 
 
-def plain_grads(ctx, plain, g, *extra):
+def plain_grads(ctx, plain, g, *extra, need=None):
     """Backward of a Function whose forward ran a kernel and which has no
     backward kernel (the TPU package has none either): the gradient of the
     plain version ``plain(*saved, *extra)``, recomputed from the saved inputs.
-    Returns one gradient (or None) per saved input, then None per extra."""
-    need = ctx.needs_input_grad[:len(ctx.saved_tensors)]
+    ``g`` is the output's gradient, or a tuple of gradients where ``plain``
+    returns a tuple of outputs. ``need`` says which saved tensors want a
+    gradient (by default the Function's inputs, in the order saved).
+    Returns one gradient (or None) per saved tensor, then None per extra."""
+    if need is None:
+        need = ctx.needs_input_grad[:len(ctx.saved_tensors)]
     with torch.enable_grad():
         xs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-        y = plain(*xs, *extra)
-    grads = iter(torch.autograd.grad(y, [t for t, n in zip(xs, need) if n], g))
+        ys = plain(*xs, *extra)
+    if isinstance(ys, tuple):   # outputs that depend on no wanted input carry none
+        ys, g = zip(*((y, gy) for y, gy in zip(ys, g) if y.requires_grad))
+    grads = iter(torch.autograd.grad(ys, [t for t, n in zip(xs, need) if n], g))
     return (*(next(grads) if n else None for n in need), *(None for _ in extra))

@@ -84,10 +84,9 @@ class ModelRunner:
         rope = arch.step_rope(cfg, positions, self.dtype)
         x = arch.embed(self.params, cfg, ids).to(self.dtype)
         fold = ("fold",) if self.cache_impl == "fold" else ()
-        for li, lp in enumerate(self.params["layers"]):
-            x, _, _ = arch.layer(cfg, lp, x, positions, None,
-                                 (*fold, cache.k[li], cache.v[li], off), rope=rope)
-        logits = arch.head(self.params, cfg, x)
+        x, delta = arch.stack(self.params, cfg, x, positions, None,
+                              lambda li: (*fold, cache.k[li], cache.v[li], off), rope=rope)
+        logits = arch.head(self.params, cfg, x, delta)
         return logits, KVCache(cache.k, cache.v, off + s)
 
     def prefill(self, ids: torch.Tensor, cache: KVCache):

@@ -162,13 +162,13 @@ class ServingEngine:
 
     def _forward(self, ids, positions, past):
         """Embed, run every layer with its cache form ``past(li)``, and return
-        the last hidden states (B, S, hidden); the caches are written in place."""
+        the last layer's (x, delta), each (B, S, hidden): the hidden states are
+        x + delta, added in the final norm's launch (``arch.head``); the
+        caches are written in place."""
         arch, cfg = self.arch, self.cfg
         rope = arch.step_rope(cfg, positions, self.dtype)
         x = arch.embed(self.params, cfg, ids).to(self.dtype)
-        for li, lp in enumerate(self.params["layers"]):
-            x, _, _ = arch.layer(cfg, lp, x, positions, None, past(li), rope=rope)
-        return x
+        return arch.stack(self.params, cfg, x, positions, None, past, rope=rope)
 
     def _decode_step(self, state, toks, live, max_live):
         """toks (B, 1); live (B,) bool. One token for every slot: returns the
@@ -183,10 +183,10 @@ class ServingEngine:
                 return (*fold, k[li], v[li], off, live, max_live)
             return ("paged", k[li], v[li], tables, off, live, max_live)
 
-        x = self._forward(toks, off[:, None].long(), past)
+        x, delta = self._forward(toks, off[:, None].long(), past)
         state["off"] = off + live.to(off.dtype)
         self.forwards["decode"] += 1
-        return self.arch.head(self.params, self.cfg, x)[:, -1]
+        return self.arch.head(self.params, self.cfg, x, delta)[:, -1]
 
     def _sample_mode(self, state) -> Optional[str]:
         """Sampling fast path for the next step, from the host-side params of
@@ -228,9 +228,10 @@ class ServingEngine:
                 return (k[li][i:i + 1], v[li][i:i + 1], off0)
             return ("paged", k[li], v[li], tables[i:i + 1], off0)
 
-        x = self._forward(self._dev(ids[None], torch.long), positions, past)
+        x, delta = self._forward(self._dev(ids[None], torch.long), positions, past)
         self.forwards[kind] += 1
-        return self.arch.head(self.params, self.cfg, x[:, last_idx:last_idx + 1])[:, 0]
+        last = slice(last_idx, last_idx + 1)
+        return self.arch.head(self.params, self.cfg, x[:, last], delta[:, last])[:, 0]
 
     def _chunk_decode_step(self, state, live, i: int, ids: np.ndarray, off0: int, last_idx: int):
         """One forward: the next prompt chunk of slot ``i`` + one decode token
@@ -251,9 +252,12 @@ class ServingEngine:
                 return ("grouped", k[li], v[li], off, live, i, off0, b_dec, max_live)
             return ("grouped_paged", k[li], v[li], tables, off, live, i, off0, b_dec, max_live)
 
-        x = self._forward(ids_flat, positions, past)
-        rows = torch.cat([x[0, :b_dec], x[0, b_dec + last_idx][None]])
-        logits = self.arch.head(self.params, self.cfg, rows[None])[0]
+        x, delta = self._forward(ids_flat, positions, past)
+
+        def rows(t):   # the decode rows and the chunk's last row
+            return torch.cat([t[0, :b_dec], t[0, b_dec + last_idx][None]])[None]
+
+        logits = self.arch.head(self.params, self.cfg, rows(x), rows(delta))[0]
         state["off"] = off + live.to(off.dtype)
         self.forwards["chunk+decode"] += 1
         return logits[:b_dec], logits[b_dec:]
@@ -450,11 +454,12 @@ class ServingEngine:
             return ("fresh_paged", k[li], v[li], tables, admit_t)
 
         positions = torch.arange(blen, device=self.device)[None, :]
-        x = self._forward(self._dev(ids), positions, past)
+        x, delta = self._forward(self._dev(ids), positions, past)
         self.forwards["admit"] += 1
         # head on the last REAL hidden state of each row only
-        x_last = x[torch.arange(self.b, device=self.device), self._dev(lens) - 1][:, None]
-        logits = self.arch.head(self.params, self.cfg, x_last)[:, 0]
+        last = (torch.arange(self.b, device=self.device), self._dev(lens) - 1)
+        logits = self.arch.head(self.params, self.cfg, x[last][:, None],
+                                delta[last][:, None])[:, 0]
         reqs = [r for _, r, _ in group]
         mode = ("greedy" if all(r.temperature == 0 for r in reqs)
                 else "categorical" if all(r.top_p >= 1 for r in reqs) else None)

@@ -2,7 +2,7 @@
 
 The grad-input of a packed linear (kernel 8's plain version) against JAX's
 ``quant_matmul_t_pallas`` in interpret mode, and ``torch.autograd.grad``
-through ``quant_matmul``, ``fused_gate_up``, ``rms_norm`` and the cache-less
+through ``quant_matmul``, ``fused_gate_up``, ``rms_norm``, ``add_rms_norm`` and the cache-less
 causal attention (their autograd Functions, whose forward is the plain
 version on the CPU) against ``jax.grad`` of the same loss on the TPU
 package's XLA path, fp32. Inputs come from numpy with a seed.
@@ -21,7 +21,7 @@ from gptq_for_llama_tpu.ops.pallas import matmul as pmm
 from gptq_for_llama_tpu.quant import packing as jpack
 from gptq_for_llama_tpu_torch.models import common
 from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import quant_matmul_t
-from gptq_for_llama_tpu_torch.ops.cuda.norm import rms_norm
+from gptq_for_llama_tpu_torch.ops.cuda.norm import add_rms_norm, rms_norm
 from gptq_for_llama_tpu_torch.ops.linear import PackedLinear
 from gptq_for_llama_tpu_torch.ops.quant_matmul import fused_gate_up, quant_matmul
 
@@ -145,6 +145,39 @@ def test_rms_norm_grad_matches_jax():
     assert abs(loss - jloss) <= 1e-4 * abs(jloss)
     for g, jg in zip(grads, jgrads):
         assert _rel(g, jg) <= 1e-4
+
+
+@pytest.mark.parametrize("outputs", ["sum and norm", "norm"])
+def test_add_rms_norm_grad_matches_jax(outputs):
+    """d/dx, d/dr and d/dweight through ``_AddRmsNorm`` (h = x + r and the
+    norm of h in one call; its backward recomputes the plain version's
+    gradient from the saved h) against jax.grad of the TPU package's pair
+    ``h = x + o; rms_norm(h)``, with the loss reading both outputs or the
+    norm alone: 1e-4 of the largest value, fp32, as the norm's own test."""
+    rng = np.random.RandomState(5)
+    x = (rng.standard_normal((3, 7, 48)) * 2).astype(np.float32)
+    r = rng.standard_normal((3, 7, 48)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(48)).astype(np.float32)
+    c = rng.standard_normal((3, 7, 48)).astype(np.float32)
+    d = rng.standard_normal((3, 7, 48)).astype(np.float32) * (outputs != "norm")
+
+    def port(a, b, ww):
+        hs, y = add_rms_norm(a, b, ww, 1e-6)
+        return (y * torch.tensor(c)).sum() + (hs * torch.tensor(d)).sum()
+
+    def ref(a, b, ww):
+        hs = a + b
+        return jnp.sum(jcommon.rms_norm(hs, ww, 1e-6) * c) + jnp.sum(hs * d)
+
+    loss, grads = _torch_grads(port, x, r, w)
+    jloss, jgrads = _jax_grads(ref, x, r, w)
+    assert abs(loss - jloss) <= 1e-4 * abs(jloss)
+    for g, jg in zip(grads, jgrads):
+        assert _rel(g, jg) <= 1e-4
+    # the weight alone wants a gradient: the sum's output carries none
+    tw = torch.tensor(w, requires_grad=True)
+    port(torch.tensor(x), torch.tensor(r), tw).backward()
+    assert _rel(tw.grad.numpy(), jgrads[2]) <= 1e-4
 
 
 @pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)])

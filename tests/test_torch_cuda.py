@@ -19,7 +19,8 @@ from gptq_for_llama_tpu_torch.ops.cuda.flash import (flash_prefill_blocked,
                                                      flash_prefill_blocked_plain)
 from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill, flash_prefill_plain
 from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp, fused_mlp_plain
-from gptq_for_llama_tpu_torch.ops.cuda.norm import rms_norm, rms_norm_plain
+from gptq_for_llama_tpu_torch.ops.cuda.norm import (add_rms_norm, add_rms_norm_plain, rms_norm,
+                                                    rms_norm_plain)
 from gptq_for_llama_tpu_torch.ops.linear import PackedLinear, quant_matmul_plain
 from gptq_for_llama_tpu_torch.ops.quant_matmul import quant_matmul
 from gptq_for_llama_tpu_torch.quant import packing
@@ -490,6 +491,57 @@ def test_rms_norm_fp32_and_refusals(card):
         rms_norm(x, w[:999], 1e-5)
 
 
+def _within_one_bf16_ulp(got, want):
+    """Every element within one bf16 unit in the last place of ``want``'s
+    element (2^(e - 7) for |want| in [2^e, 2^(e+1))), in any dtype."""
+    got, want = got.double(), want.double()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs())) - 7)
+    return bool(((got - want).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,h,dtype", [(1, 4096, torch.bfloat16), (8, 4096, torch.bfloat16),
+                                       (100, 4096, torch.bfloat16),
+                                       (16384, 4096, torch.bfloat16), (7, 200, torch.bfloat16),
+                                       (8, 4096, torch.float32)])
+def test_add_rms_norm_matches_plain(card, m, h, dtype):
+    """Kernel 6's residual form against add_rms_norm_plain: h = x + r
+    bit-equal (one fp32 add rounded once, as torch's add), y within 1 bf16
+    ulp (the sum of squares is taken in another order; the rest is the same
+    fp32 arithmetic, rounded once). One launch, counted as the add form."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(m + h)
+    x = (torch.randn(m, h, generator=gen, device=card) * 3).to(dtype)
+    r = torch.randn(m, h, generator=gen, device=card).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device=card)).bfloat16()
+    kernels.reset_launch_counts()
+    hs, y = add_rms_norm(x, r, w, 1e-6)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["rms_norm"], counts["rms_norm:add"], counts["rms_norm:alone"]) == (1, 1, 0)
+    want_h, want_y = add_rms_norm_plain(x, r, w, 1e-6)
+    assert hs.dtype == y.dtype == dtype
+    assert torch.equal(hs, want_h)
+    assert _within_one_bf16_ulp(y, want_y)
+    assert hs.data_ptr() not in (x.data_ptr(), r.data_ptr())   # out of place
+
+
+@pytest.mark.cuda
+def test_add_rms_norm_refusals_and_launch_floor(card):
+    """A residual of another shape, dtype or device is refused before any
+    launch; the launch floor's empty kernel runs and is counted nowhere."""
+    from gptq_for_llama_tpu_torch.ops.cuda import norm
+    x = torch.randn(4, 256, device=card).bfloat16()
+    w = torch.ones(256, device=card).bfloat16()
+    kernels.reset_launch_counts()
+    for r in (x[:, :128].contiguous(), x.float(), x.cpu()):
+        with pytest.raises(ValueError, match="residual"):
+            norm.add_rms_norm_cuda(x, r, w, 1e-6)
+    norm.launch_floor(card)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rms_norm"] == 0
+
+
 def _paged_case(card, b, h, hkv, bs, mb, offs, poison=True):
     """A pool whose tables are a random permutation (no two logical neighbours
     are physical neighbours), with NaN in every block no row owns and in every
@@ -653,6 +705,7 @@ def test_serving_engine_on_the_card(card):
         steps = fd["decode"] + fd["chunk+decode"]
         chunks = fd["prefill"] + fd["chunk"] + fd["chunk+decode"]
         assert cd["rms_norm"] == cp["rms_norm"] == (2 * layers + 1) * total
+        assert cd["rms_norm:add"] == cp["rms_norm:add"] == 2 * layers * total
         assert cd["decode_attention"] == cp["pool_decode_attention"] == layers * steps
         assert cd["pool_decode_attention"] == cp["decode_attention"] == 0
         assert cd["flash_prefill_blocked"] == cp["flash_prefill_blocked"] == layers * chunks
@@ -861,6 +914,12 @@ def test_fold_runner_on_the_card(card):
     assert _rows_close(logits["fold"], logits["classic"], 2e-2)
 
 
+def _sum_and_norm(hy):
+    """Both outputs of the residual form in one tensor, so that one cotangent
+    reaches both."""
+    return hy[0] * 0.5 + hy[1]
+
+
 def _grads(fn, *xs):
     xs = [x.detach().requires_grad_() for x in xs]
     y = fn(*xs)
@@ -893,6 +952,9 @@ def test_autograd_functions_match_plain_on_card(card):
          lambda t: fused_mlp_plain(t, gate, up), (x2,), "qmm_t", 2),
         (lambda t, ww: rms_norm(t, ww, 1e-6), lambda t, ww: rms_norm_plain(t, ww, 1e-6),
          (x2, w), "rms_norm", 1),
+        (lambda t, rr, ww: _sum_and_norm(add_rms_norm(t, rr, ww, 1e-6)),
+         lambda t, rr, ww: _sum_and_norm(add_rms_norm_plain(t, rr, ww, 1e-6)),
+         (x2, x2.flip(1), w), "rms_norm:add", 1),
         (lambda a, b, c: flash_prefill(a, b, c, 0.09),
          lambda a, b, c: flash_prefill_plain(a, b, c, 0.09), (q, kv, kv.flip(1)),
          "flash_prefill", 1)]
@@ -914,7 +976,7 @@ def test_kernel_wrappers_refuse_to_drop_a_gradient(card):
     from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill_cuda
     from gptq_for_llama_tpu_torch.ops.cuda.matmul import qmm_cuda
     from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import qmm_t_cuda
-    from gptq_for_llama_tpu_torch.ops.cuda.norm import rms_norm_cuda
+    from gptq_for_llama_tpu_torch.ops.cuda.norm import add_rms_norm_cuda, rms_norm_cuda
     lin = _linear(256, 128, 4, 128, seed=0, device=card)
     x = torch.randn(3, 256, device=card).bfloat16().requires_grad_()
     g = torch.randn(3, 128, device=card).bfloat16().requires_grad_()
@@ -922,6 +984,7 @@ def test_kernel_wrappers_refuse_to_drop_a_gradient(card):
     c = torch.randn(1, 16, 8, 128, device=card).bfloat16()
     calls = [lambda: qmm_cuda(x, lin), lambda: qmm_t_cuda(g, lin),
              lambda: rms_norm_cuda(x, x[0].detach(), 1e-6),
+             lambda: add_rms_norm_cuda(x, x.detach(), x[0].detach(), 1e-6),
              lambda: flash_prefill_cuda(q, q, q, 0.1),
              lambda: decode_attention_cuda(q, c, c, 3, 0.1),
              lambda: fused_decode_attention_cuda(q, c, c, c[:, :1], c[:, :1], 3, 0.1)]
