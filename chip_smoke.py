@@ -24,16 +24,26 @@ Phases, in order, on one card:
            weights on the CPU (fp32, plain versions).
   full     LLaMA-7B INT4-g128, 32 layers (seeded zero-mean codes, every layer
            its own draw, so the tokens depend on the prompt), batch 1:
-           ``generate`` greedily for three prompts of ragged lengths; every
-           kernel of the decode path must launch. Prints ms/token, tok/s, peak
-           memory and the roofline share.
+           ``generate`` (spans of 32, CUDA graphs) greedily for three prompts
+           of ragged lengths, 64 tokens each; every kernel of the decode path
+           must launch. The same tokens, bit for bit, through the eager
+           ``_step`` loop, ``decode_greedy_scan``'s graphs and
+           ``generate(span=1)``, with the same launches per decode forward,
+           and ``forced_decode_scan`` over them ends on the loop's logits.
+           Prints the host loop's ms/token (eager, graphs, span 1), the decode
+           graph's device time, the decode step's two plans (each offset's
+           bucket, the whole cache) at offsets 37, 1000 and 2047, capture
+           seconds, the graph pool's memory, tok/s, peak memory and the
+           roofline share.
   fold     the decode path with cache_impl="fold" on the same model: the same
            prompts through the fold kernel (attention over the stale cache with
            the current k/v folded in, then the row write), tokens held to the
-           classic runner where its top-2 margin is clear, 32 fold launches
-           and no classic decode launch per token, the device step as a CUDA
+           classic runner where its top-2 margin is clear and to the fold
+           runner's eager step loop bit for bit, 32 fold launches and no
+           classic decode launch per decode forward, the device step as a CUDA
            graph beside the classic one; then the serve phase's 12 requests on
-           the dense engine with cache_impl="fold", held like the serve runs.
+           the dense engine with cache_impl="fold", held like the serve runs
+           and to the same engine with its spans run eagerly.
   lora     LoRA finetuning over the frozen packed 7B model: rank-8 adapters
            on all seven linears of every layer, Adam steps on a fixed batch of
            2 x 512 tokens through the grad-input kernel; loss per step, ms per
@@ -59,10 +69,14 @@ Phases, in order, on one card:
            held against the single-sequence runner where its top-2 margin is
            clear, the k/v every request left in the cache at its retirement
            against the runner's cache, paged against dense, launch counts
-           against the forwards the engine made. Then the serving CLI
-           (``--demo``, paged) on the 2-layer checkpoint the ``quantize`` phase
-           saved. Prints tok/s, ttft and latency percentiles, steps and peak
-           memory.
+           against the forwards the engine made, and the graphs' tokens against
+           the same engine with its decode spans run eagerly (paged span 8
+           and span 1, dense fused). Then the serving CLI (``--demo``,
+           paged) on the 2-layer checkpoint the ``quantize`` phase saved.
+           Prints tok/s, ttft and latency percentiles, steps, peak memory,
+           graphs, capture seconds and pool memory; a decode step's host time
+           through the graph, its device time and the eager body's time at
+           span 1 and span 8 (the host share).
   profile  torch.profiler over eager decode steps of a 4-layer 7B-width
            model: device time per kernel, the device busy share and the
            elementwise add launches per step (the ``full`` phase prints the
@@ -186,6 +200,27 @@ def graph_ms(torch, fns, iters: int = 60) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / iters)
     del g
+    return best
+
+
+def replay_ms(torch, graphs, key, reset, iters: int = 8) -> float:
+    """Device time of one replay of the port's own graph ``key`` of
+    ``graphs`` (``runtime/graphs.Graphs``): ``reset()`` (an offset fill, a
+    microsecond-sized launch) then the replay, ``iters`` times between CUDA
+    events, best of three."""
+    reset()
+    graphs.replay(key)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            reset()
+            graphs.replay(key)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
     return best
 
 
@@ -1217,6 +1252,7 @@ class Smoke:
         from gptq_for_llama_tpu_torch.models.config import ModelConfig
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
         from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
+        from gptq_for_llama_tpu_torch.runtime.graphs import bucket_for
         from gptq_for_llama_tpu_torch.runtime.random_model import (gaussian_wire_llama,
                                                                    model_weight_bytes)
 
@@ -1230,19 +1266,36 @@ class Smoke:
         log(f"[full] 7B INT4-g128 random wire weights made in {time.perf_counter() - t0:.1f} s")
         self.model7b = (cfg, params)
         runner = ModelRunner("llama", cfg, params, dtype=torch.bfloat16, device="cuda")
+        t0 = time.perf_counter()
         runner.warmup(prefill_buckets=(16,))
+        log(f"[full] warmup (a 16-token prefill, the one-step decode graph of each bucket "
+            f"{runner.decode_buckets}) in {time.perf_counter() - t0:.1f} s, of it "
+            f"{runner.graphs.capture_s:.1f} s capturing")
         rng = np.random.RandomState(0)
         prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in (37, 100, 201)]
         new = 64
 
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        outs = [generate(runner, p, max_new_tokens=new, temperature=0.0) for p in prompts]
-        torch.cuda.synchronize()
-        t_gen = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        log(f"[full] generate: 3 requests x {new} new tokens in {t_gen:.2f} s; "
-            f"launches {counts}")
+        # generate (spans of 32 through decode_sample_scan's graphs): the first
+        # pass captures what warmup did not, the second only replays
+        for rep in range(2):
+            kernels.reset_launch_counts()
+            f0 = sum(runner.forwards.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = [generate(runner, p, max_new_tokens=new, temperature=0.0) for p in prompts]
+            torch.cuda.synchronize()
+            t_gen = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            forwards = sum(runner.forwards.values()) - f0
+            self.check_path("decode", counts)
+            self.check_norms("full generate", counts, forwards, cfg.num_layers)
+            if rep == 0:
+                outs, t_first = got, t_gen
+            elif any(not np.array_equal(a, b) for a, b in zip(outs, got)):
+                raise AssertionError("full: two generate runs of the same prompts differ")
+        log(f"[full] generate(span=32): 3 requests x {new} new tokens in {t_first:.2f} s with "
+            f"the captures, {t_gen:.2f} s replaying ({t_gen / (3 * new) * 1e3:.3f} ms/token, "
+            f"prefills included); launches {counts}")
         for p, o in zip(prompts, outs):
             if o.shape != (1, len(p) + new) or not ((o >= 0) & (o < cfg.vocab_size)).all():
                 raise AssertionError(f"full: bad generate output {o.shape}")
@@ -1251,56 +1304,141 @@ class Smoke:
         log(f"[full] {distinct} distinct tokens among the {3 * new} generated")
         if distinct < 8:
             raise AssertionError("full: the model's tokens do not depend on the prompt")
-        self.check_path("decode", counts)
-        self.check_norms("full generate", counts, len(prompts) * new, cfg.num_layers)
+        loop = self._graphs_vs_eager(torch, "full", runner, prompts, outs, new)
 
-        # decode speed: greedy loop after a prefill, host clock, synchronized
+        # prefill logits, then the device time of one decode step: the bucket's
+        # graph replayed at offset 164, the offsets reset before each replay
         cache = runner.init_cache()
         logits, cache = runner.prefill(torch.as_tensor(prompts[1][None], device="cuda"), cache)
         if not torch.isfinite(logits.float()).all() or logits.shape != (1, 100, cfg.vocab_size):
             raise AssertionError("full: prefill logits not finite / wrong shape")
-        tok = logits[:, -1:].float().argmax(-1)
-        runner.decode_greedy(tok, cache, 4)
-        cache = runner.init_cache()
-        _, cache = runner.prefill(torch.as_tensor(prompts[1][None], device="cuda"), cache)
-        torch.cuda.synchronize()
-        steps = 64
-        t0 = time.perf_counter()
-        toks, cache = runner.decode_greedy(tok, cache, steps)
-        torch.cuda.synchronize()
-        ms_tok = (time.perf_counter() - t0) / steps * 1e3
+        step_ids = logits[:, -1:].float().argmax(-1)
+        offs = runner._store.offs
 
-        # device time of one decode step: the step replayed as a CUDA graph
-        # (offset fixed at the end of the greedy run, same slot rewritten)
-        step_ids = toks[:, -1:].clone()
-        dev_ms = graph_ms(torch, [lambda: runner.decode(step_ids, cache)], iters=8)
+        def at(o):
+            return lambda: offs.fill_(o)
+
+        dev_ms = replay_ms(torch, runner.graphs, ("decode", 256), at(164))
+        # the two plans: each offset's bucket, and the whole cache (bucket 2048)
+        plans = {o: {"bucket": replay_ms(torch, runner.graphs,
+                                         ("decode", bucket_for(o + 1, runner.decode_buckets)),
+                                         at(o)),
+                     "whole": replay_ms(torch, runner.graphs, ("decode", 2048), at(o))}
+                 for o in (37, 1000, 2047)}
+        cache = runner.init_cache()   # the offsets are the handle's again
+        _, cache = runner.prefill(torch.as_tensor(prompts[1][None], device="cuda"), cache)
         peak = torch.cuda.max_memory_allocated()
         # the eager step's kernels, elementwise adds counted (a residual add
-        # outside the norms would be 2 per layer)
+        # outside the norms would be 2 per layer), then the graph's replays
         self._profile_steps(torch, "full-profile", "eager decode steps of LLaMA-7B, 32 layers, "
-                            "batch 1", lambda: runner.decode(step_ids, cache), 2)
+                            "batch 1", lambda: runner._step(step_ids, cache), 2)
+        self._profile_steps(torch, "full-graph-profile", "decode graph replays of LLaMA-7B, "
+                            "32 layers, batch 1", lambda: runner.decode(step_ids, cache), 4)
         wbytes = model_weight_bytes(cfg)
         roof_tok_s = PEAK_BYTES_PER_S / wbytes
-        tok_s = 1e3 / ms_tok
-        log(f"[full] decode: {ms_tok:.3f} ms/token host loop ({tok_s:.1f} tok/s), device "
-            f"{dev_ms:.3f} ms/token as a graph ({1e3 / dev_ms:.1f} tok/s); roofline "
-            f"{roof_tok_s:.1f} tok/s ({wbytes} B/token at 3.35 TB/s): share "
-            f"{tok_s / roof_tok_s:.4f} (graph {1e3 / dev_ms / roof_tok_s:.4f}); "
-            f"peak memory {peak / 2**30:.2f} GiB | {self.card}")
-        self.report["full"] = {"generate_s": t_gen, "launches": counts, "ms_per_token": ms_tok,
-                               "tok_s": tok_s, "graph_ms_per_token": dev_ms,
-                               "roofline_tok_s": roof_tok_s, "roofline_share": tok_s / roof_tok_s,
+        graphs = {"count": len(runner.graphs), "capture_s": runner.graphs.capture_s,
+                  "pool_bytes": runner.graphs.pool_bytes()}
+        log(f"[full] decode: host loop {loop['eager_ms']:.3f} ms/token eager (the _step loop), "
+            f"{loop['graph_ms']:.3f} ms/token through decode_greedy_scan's graphs, "
+            f"{loop['span1_ms']:.3f} through generate(span=1) (one decode graph a token); the "
+            f"device step as a graph {dev_ms:.3f} ms/token at offset 164 ({1e3 / dev_ms:.1f} "
+            f"tok/s); roofline {roof_tok_s:.1f} tok/s ({wbytes} B/token at 3.35 TB/s): share "
+            f"{1e3 / loop['graph_ms'] / roof_tok_s:.4f} (graph device step "
+            f"{1e3 / dev_ms / roof_tok_s:.4f}); peak memory {peak / 2**30:.2f} GiB | {self.card}")
+        bucket_ms = " / ".join(f"{plans[o]['bucket']:.3f}" for o in plans)
+        whole_ms = " / ".join(f"{plans[o]['whole']:.3f}" for o in plans)
+        log(f"[full] the decode step's two plans, ms at offsets 37 / 1000 / 2047: each offset's "
+            f"bucket {bucket_ms}; the whole cache {whole_ms} | {self.card}")
+        log(f"[full] graphs: {graphs['count']} captured, {graphs['capture_s']:.1f} s capturing "
+            f"(warm calls included), pool {graphs['pool_bytes'] / 2**20:.1f} MiB")
+        self.report["full"] = {"generate_s": t_gen, "generate_first_s": t_first,
+                               "launches": counts, "ms_per_token": loop["graph_ms"],
+                               "eager_ms_per_token": loop["eager_ms"],
+                               "span1_ms_per_token": loop["span1_ms"],
+                               "generate_ms_per_token": t_gen / (3 * new) * 1e3,
+                               "tok_s": 1e3 / loop["graph_ms"], "graph_ms_per_token": dev_ms,
+                               "plans_ms": plans, "graphs": graphs,
+                               "launches_per_decode_forward": loop["per_forward"],
+                               "roofline_tok_s": roof_tok_s,
+                               "roofline_share": 1e3 / loop["graph_ms"] / roof_tok_s,
                                "peak_memory_bytes": peak, "weight_bytes": wbytes}
+
+    def _graphs_vs_eager(self, torch, label, runner, prompts, outs, new):
+        """Every prompt's greedy tokens through the eager ``_step`` loop (the
+        decode body, not captured), through ``decode_greedy_scan``'s graphs
+        and through ``generate(span=1)`` (one decode graph a token): all equal
+        to ``outs`` (generate with spans of 32), bit for bit, and kernel
+        launches per decode forward equal between the eager loop and the
+        graphs; ``forced_decode_scan`` over the same tokens ends on the eager
+        loop's logits, bit for bit. Host ms/token of each, the scans' second
+        pass (no capture)."""
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime import generate
+        per, ms, last = {}, {}, {}
+        for rep in range(2):
+            for how in ("eager", "graph"):
+                launched, forwards, elapsed = {}, 0, 0.0
+                for p, o in zip(prompts, outs):
+                    lg, cache = runner.prefill(torch.as_tensor(p[None], device="cuda"),
+                                               runner.init_cache())
+                    tok = lg[:, -1:].float().argmax(-1)
+                    torch.cuda.synchronize()
+                    kernels.reset_launch_counts()
+                    f0 = runner.forwards["decode"]
+                    t0 = time.perf_counter()
+                    if how == "eager":
+                        toks = [tok]
+                        for _ in range(new - 1):
+                            lg, cache = runner._step(toks[-1], cache)
+                            toks.append(lg[:, -1:].float().argmax(-1))
+                        got = torch.cat(toks, 1).cpu().numpy()
+                        last[len(p)] = lg   # teacher-forced by the first new - 1 tokens
+                    else:
+                        rest, cache = runner.decode_greedy_scan(tok, cache, new - 1)
+                        got = torch.cat([tok, rest], 1).cpu().numpy()
+                    elapsed += time.perf_counter() - t0
+                    forwards += runner.forwards["decode"] - f0
+                    for k, n in kernels.launch_counts().items():
+                        launched[k] = launched.get(k, 0) + n
+                    if not np.array_equal(got[0], o[0, len(p):]):
+                        raise AssertionError(f"{label}: {how} tokens differ from generate's "
+                                             f"for the {len(p)}-token prompt")
+                per[how] = {k: n / forwards for k, n in launched.items() if n}
+                ms[how] = elapsed / (len(prompts) * (new - 1)) * 1e3
+        for p, o in zip(prompts, outs):   # forced_decode_scan's graphs end where the loop did
+            _, cache = runner.prefill(torch.as_tensor(p[None], device="cuda"), runner.init_cache())
+            ids = torch.as_tensor(o[:, len(p):len(p) + new - 1], device="cuda")
+            lg, cache = runner.forced_decode_scan(ids, cache)
+            if not torch.equal(lg.view(torch.int16), last[len(p)].view(torch.int16)):
+                raise AssertionError(f"{label}: forced_decode_scan's last logits differ from the "
+                                     f"eager loop's for the {len(p)}-token prompt")
+        if per["eager"] != per["graph"]:
+            raise AssertionError(f"{label}: launches per decode forward {per['graph']} through "
+                                 f"the graphs, {per['eager']} eager")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, o in zip(prompts, outs):
+            if not np.array_equal(generate(runner, p, max_new_tokens=new, temperature=0.0,
+                                           span=1), o):
+                raise AssertionError(f"{label}: generate(span=1) differs from span 32")
+        span1 = (time.perf_counter() - t0) / (len(prompts) * new) * 1e3
+        log(f"[{label}] graphs vs eager: the 3 prompts x {new} greedy tokens equal bit for bit "
+            f"through the eager _step loop, decode_greedy_scan's graphs, generate(span=1) and "
+            f"generate(span=32), forced_decode_scan's last logits the loop's; launches per "
+            f"decode forward equal ({per['graph']})")
+        return {"eager_ms": ms["eager"], "graph_ms": ms["graph"], "span1_ms": span1,
+                "per_forward": per["graph"]}
 
     # -- phase 6 ---------------------------------------------------------------
     def phase_fold(self, torch):
         """The decode path with cache_impl="fold" on the full phase's 7B model:
         the same three prompts, 64 greedy tokens each, through kernel 9 (32
-        launches per decode token, kernel 3 none), held to the classic runner
-        where its top-2 margin is clear; the device step as a CUDA graph beside
-        the classic one; then the serve phase's 12 requests on the dense engine
-        with cache_impl="fold" (chunked prefill, unfused, so every decode step
-        is a fold step), held like the other serving runs."""
+        launches per decode forward, kernel 3 none), held to the classic
+        runner where its top-2 margin is clear and bit for bit to the fold
+        runner's own eager step loop; the device step as a graph beside the
+        classic one; then the serve phase's 12 requests on the dense engine
+        with cache_impl="fold", held like the other serving runs and to the
+        same engine's eager spans."""
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
         from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
         cfg, params = self.model7b
@@ -1310,46 +1448,53 @@ class Smoke:
         fold = ModelRunner("llama", cfg, params, device="cuda", cache_impl="fold")
         classic = ModelRunner("llama", cfg, params, device="cuda")
         fold.warmup(prefill_buckets=(16,))
+        classic.warmup(prefill_buckets=())
         kernels.reset_launch_counts()
+        f0 = dict(fold.forwards)
         t0 = time.perf_counter()
         outs = [generate(fold, p, max_new_tokens=new, temperature=0.0) for p in prompts]
         torch.cuda.synchronize()
         t_gen = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        decodes = fold.forwards["decode"] - f0["decode"]
         self.check_path("fold", counts)
-        self.check_norms("fold generate", counts, len(prompts) * new, cfg.num_layers)
-        per_token = counts["fused_decode_attention"] / (len(prompts) * (new - 1))
+        self.check_norms("fold generate", counts,
+                         decodes + fold.forwards["prefill"] - f0["prefill"], cfg.num_layers)
+        per_token = counts["fused_decode_attention"] / decodes
         if per_token != cfg.num_layers or counts["decode_attention"] != 0:
-            raise AssertionError(f"fold: {per_token} fold launches per decode token and "
+            raise AssertionError(f"fold: {per_token} fold launches per decode forward and "
                                  f"{counts['decode_attention']} of kernel 3 (want "
                                  f"{cfg.num_layers} and 0)")
         results = {i: o[0, len(p):] for i, (p, o) in enumerate(zip(prompts, outs))}
         ref, _ = self._forced_reference(torch, classic, prompts, results)
         compared, total, same = self._hold_to_reference("fold runner", results, ref)
         log(f"[fold] generate: 3 requests x {new} new tokens in {t_gen:.2f} s; kernel 9 "
-            f"{per_token:.0f} launches per decode token, kernel 3 none; {compared}/{total} "
+            f"{per_token:.0f} launches per decode forward, kernel 3 none; {compared}/{total} "
             f"positions clear the classic runner's margin, all agree ({same}/{total} agree in "
             f"all); launches {counts}")
+        loop = self._graphs_vs_eager(torch, "fold", fold, prompts, outs, new)
         dev_ms = {}
         for name, runner in (("classic", classic), ("fold", fold)):
-            cache = runner.init_cache()
-            logits, cache = runner.prefill(torch.as_tensor(prompts[1][None], device="cuda"),
-                                           cache)
-            toks, cache = runner.decode_greedy(logits[:, -1:].float().argmax(-1), cache, new)
-            step_ids = toks[:, -1:].clone()
-            dev_ms[name] = graph_ms(torch, [lambda r=runner, c=cache: r.decode(step_ids, c)],
-                                    iters=8)
+            runner.init_cache()
+            offs = runner._store.offs
+            dev_ms[name] = replay_ms(torch, runner.graphs, ("decode", 256),
+                                     lambda o=offs: o.fill_(164))
+            runner.init_cache()
         log(f"[fold] decode device step as a CUDA graph: fold {dev_ms['fold']:.3f} ms/token, "
-            f"classic {dev_ms['classic']:.3f} ms/token (offset 164) | {self.card}")
+            f"classic {dev_ms['classic']:.3f} ms/token (offset 164); fold host loop "
+            f"{loop['eager_ms']:.3f} ms/token eager, {loop['graph_ms']:.3f} through the graphs "
+            f"| {self.card}")
         del fold, classic
         torch.cuda.empty_cache()
 
         rng = np.random.RandomState(0)   # the serve phase's requests
         sprompts = [rng.randint(1, cfg.vocab_size, size=n) for n in self.SERVE_LENS]
+        kw = dict(prefill_chunk=128, decode_span=8, fused_chunk_decode=False, cache_impl="fold")
         served, eng = self._serve_run(torch, "dense fold chunk 128 unfused", "serve:fold",
-                                      sprompts, prefill_chunk=128, decode_span=8,
-                                      fused_chunk_decode=False, cache_impl="fold")
+                                      sprompts, **kw)
         self._serve_step_times(torch, eng, "dense fold", profile=False)
+        eager, _ = self._serve_run(torch, "dense fold eager", None, sprompts, eager=True, **kw)
+        self._hold_equal("dense fold engine, graphs vs eager", served, eager)
         runner = ModelRunner("llama", cfg, params, batch_size=1, max_seq_len=2048, device="cuda")
         sref, cache_err = self._forced_reference(torch, runner, sprompts, served, eng.snaps)
         scompared, stotal, ssame = self._hold_to_reference("dense fold", served, sref)
@@ -1361,7 +1506,7 @@ class Smoke:
             f"{eng.forwards['decode']} decode forwards")
         self.report["fold"] = {
             "generate_s": t_gen, "launches": counts, "compared": compared, "positions": total,
-            "agree": same, "graph_ms_per_token": dev_ms,
+            "agree": same, "graph_ms_per_token": dev_ms, "host_loop": loop,
             "serve": {"compared": scompared, "positions": stotal, "agree": ssame,
                       "cache_row_rel_err": cache_err}}
         del eng, runner
@@ -1883,16 +2028,20 @@ class Smoke:
             equal += int(not diff.size)
         return equal
 
-    def _serve_run(self, torch, label, path, prompts, poison=False, **kw):
+    def _serve_run(self, torch, label, path, prompts, poison=False, eager=False, **kw):
         """One ``ServingEngine.run`` over the 12 requests on the 7B model: the
         tokens, the engine's stats, and the launch counts held against the
-        forwards the engine made."""
+        forwards the engine made. ``eager``: the engine's decode spans run
+        their bodies eagerly, not captured (a reference for the graphs' tokens;
+        no check of its own)."""
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
         from gptq_for_llama_tpu_torch.runtime import GenRequest, ServingEngine
         cfg, params = self.model7b
         eng = self._snapshotting(ServingEngine)("llama", cfg, params, batch_slots=8,
                                                 max_seq_len=2048, prefill_buckets=(32, 128, 512),
                                                 **kw)
+        if eager:
+            eng.graphs.run = lambda key, body, restore=(), generators=(): body()
         if poison:   # every pool block starts as NaN: no block is owned yet
             eng._new_cache = lambda shape: [
                 torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
@@ -1908,6 +2057,13 @@ class Smoke:
         dt = time.perf_counter() - t0
         counts = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated()
+        if eager:
+            tokens = sum(len(r) for r in results.values())
+            log(f"[serve] {label}: {tokens} tokens in {dt:.2f} s = {tokens / dt:.1f} tok/s "
+                f"aggregate; {eng.steps} engine steps, forwards {eng.forwards} | {self.card}")
+            self.report.setdefault("serve", {})[label] = {"seconds": dt, "tokens": tokens,
+                                                          "tok_s": tokens / dt}
+            return results, eng
         eng.snapshot_retired()   # the last request of each slot
         self.check_path(path, counts)
 
@@ -1941,52 +2097,88 @@ class Smoke:
             f"ttft p50/p95 {stats['ttft_p50_s']}/{stats['ttft_p95_s']} s, latency p50/p95 "
             f"{stats['latency_p50_s']}/{stats['latency_p95_s']} s; {eng.steps} engine steps, "
             f"forwards {f}; peak memory {peak / 2**30:.2f} GiB | {self.card}")
-        log(f"[serve] {label}: launches {counts}")
+        log(f"[serve] {label}: launches {counts}; {len(eng.graphs)} decode graphs captured in "
+            f"{eng.graphs.capture_s:.1f} s (warm calls included), pool "
+            f"{(eng.graphs.pool_bytes() or 0) / 2**20:.1f} MiB")
         self.report.setdefault("serve", {})[label] = {
             "seconds": dt, "tokens": tokens, "distinct_tokens": distinct, "tok_s": tokens / dt,
             "stats": stats,
             "steps": eng.steps, "forwards": dict(f), "launches": counts,
-            "peak_memory_bytes": peak}
+            "peak_memory_bytes": peak,
+            "graphs": {"count": len(eng.graphs), "capture_s": eng.graphs.capture_s,
+                       "pool_bytes": eng.graphs.pool_bytes()}}
         return results, eng
 
+    @staticmethod
+    def _hold_equal(what, results, other):
+        """Two runs that must agree token for token (the same bodies, captured
+        or not)."""
+        if sorted(results) != sorted(other):
+            raise AssertionError(f"{what}: requests {sorted(results)} against {sorted(other)}")
+        for uid in results:
+            if not np.array_equal(results[uid], other[uid]):
+                raise AssertionError(f"{what}: request {uid} differs: {results[uid][:12]} ... "
+                                     f"against {other[uid][:12]} ...")
+        log(f"[serve] {what}: all {len(results)} requests equal token for token")
+
     def _serve_step_times(self, torch, eng, label="paged", profile=True):
-        """Where a serving decode step's time goes: the engine's batched decode
-        step (8 slots over the cache the run left, every slot at its last
-        offset) timed on the host clock, replayed as a CUDA graph (device time),
-        and, for the paged engine, under torch.profiler (device time per
-        kernel). ``label`` names the engine's cache: paged, dense or dense
-        fold (kernels 7, 3 and 9)."""
+        """Where a serving decode step's time goes, at span 1 and span 8 (8
+        slots over the cache the run left, every slot live at its last
+        offset): the host time per step through the graph
+        (``_decode_span``: the loads, the replay, the host read), the graph's
+        device time (CUDA events around replays), and the same body run
+        eagerly on the host clock; for the paged engine the eager step under
+        torch.profiler (device time per kernel). ``label`` names the engine's
+        cache: paged, dense or dense fold (kernels 7, 3 and 9)."""
         state = eng.state
-        off0 = state["off"].clone()
-        toks = torch.zeros((eng.b, 1), dtype=torch.long, device="cuda")
-        live = torch.ones(eng.b, dtype=torch.bool, device="cuda")
-        max_live = int(state["host_off"].max()) + 1
-
-        def step():
-            state["off"] = off0   # every replay decodes at the same offsets
-            eng._decode_step(state, toks, live, max_live)
-
+        live0 = state["live"].copy()
+        state["live"][:] = True
+        offsets = state["host_off"].tolist()
+        rows = {}
         with torch.inference_mode():
-            for _ in range(3):
-                step()
-            torch.cuda.synchronize()
-            n = 16
-            t0 = time.perf_counter()
-            for _ in range(n):
-                step()
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) / n * 1e3
-            dev_ms = graph_ms(torch, [step], iters=4)
-            log(f"[serve] one {label} decode step, 8 slots at offsets {off0.tolist()}: "
-                f"{host_ms:.3f} ms eager on the host clock, {dev_ms:.3f} ms of device time as a "
-                f"CUDA graph (host share {1 - dev_ms / host_ms:.3f}); "
-                f"{8e3 / host_ms:.1f} / {8e3 / dev_ms:.1f} tok/s | {self.card}")
+            for span in (1, 8):
+                bucket = eng._span_bucket(state, span)
+                key = (span, "greedy", bucket)
+                eng._decode_span(state, span, "greedy")   # captures the graph if new
+                torch.cuda.synchronize()
+                n = 8
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    eng._decode_span(state, span, "greedy")
+                host_ms = (time.perf_counter() - t0) / n / span * 1e3
+                off0 = state["off"].clone()
+                off0.copy_(torch.from_numpy(state["host_off"]).to(torch.int32))
+                dev_ms = replay_ms(torch, eng.graphs, key,
+                                   lambda: state["off"].copy_(off0), iters=4) / span
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    eng._load(state)
+                    eng._decode_body(state, span, "greedy", bucket)
+                torch.cuda.synchronize()
+                eager_ms = (time.perf_counter() - t0) / n / span * 1e3
+                rows[span] = {"host_ms": host_ms, "graph_ms": dev_ms, "eager_ms": eager_ms,
+                              "host_share": 1 - dev_ms / host_ms, "bucket": bucket}
+                log(f"[serve] {label} decode, 8 slots at offsets {offsets}, span {span} "
+                    f"(bucket {bucket}): {host_ms:.3f} ms a step through the graph on the host "
+                    f"clock, {dev_ms:.3f} ms of device time (host share "
+                    f"{1 - dev_ms / host_ms:.3f}); the body eager {eager_ms:.3f} ms a step; "
+                    f"{8e3 / host_ms:.1f} / {8e3 / dev_ms:.1f} / {8e3 / eager_ms:.1f} tok/s | "
+                    f"{self.card}")
             if profile:
+                bucket = eng._span_bucket(state, 1)
+
+                def step():
+                    eng._load(state)
+                    eng._decode_step(state, state["toks_t"], state["live_t"], bucket)
+
                 self._profile_steps(torch, "serve-profile", f"eager {label} decode steps of "
                                     "LLaMA-7B, 8 slots", step, 4)
+        state["live"][:] = live0
         key = "decode_step" if label == "paged" else f"decode_step {label}"
-        self.report.setdefault("serve", {})[key] = {"host_ms": host_ms, "graph_ms": dev_ms,
-                                                    "offsets": off0.tolist()}
+        self.report.setdefault("serve", {})[key] = {"spans": rows, "offsets": offsets,
+                                                    "host_ms": rows[1]["eager_ms"],
+                                                    "graph_ms": rows[1]["graph_ms"]}
 
     def phase_serve(self, torch):
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
@@ -2021,10 +2213,15 @@ class Smoke:
         del floor
         del r8, r1, c8, c1, l8, l1, d8, d1
 
-        # paged, span 8, over a pool that starts as NaN everywhere
+        # paged, span 8, over a pool that starts as NaN everywhere; the same
+        # with the spans' bodies run eagerly first (the graphs' reference)
+        eager, _ = self._serve_run(torch, "paged span 8 (poisoned pool) eager", None, prompts,
+                                   poison=True, eager=True, paged=True, block_size=16,
+                                   decode_span=8)
         paged, eng = self._serve_run(torch, "paged span 8 (poisoned pool)", "serve:paged",
                                      prompts, poison=True, paged=True, block_size=16,
                                      decode_span=8)
+        self._hold_equal("paged span 8, graphs vs eager", paged, eager)
         state, host_off = eng.state, eng.state["host_off"]
         for i in range(eng.b):   # what each slot's last request wrote holds no NaN
             blocks = state["tables"][i].long()
@@ -2057,6 +2254,9 @@ class Smoke:
         span1, eng = self._serve_run(torch, "paged span 1", "serve:paged", prompts, paged=True,
                                      block_size=16, decode_span=1)
         self._serve_step_times(torch, eng)
+        eager, _ = self._serve_run(torch, "paged span 1 eager", None, prompts, eager=True,
+                                   paged=True, block_size=16, decode_span=1)
+        self._hold_equal("paged span 1, graphs vs eager", span1, eager)
         del eng
         torch.cuda.empty_cache()
         equal = self._hold_to_run("span 8 (poisoned pool) vs span 1 (clean pool)", paged, span1,
@@ -2071,6 +2271,9 @@ class Smoke:
         fused, eng = self._serve_run(torch, "dense chunk 128 fused", "serve:dense", prompts,
                                      prefill_chunk=128, decode_span=8)
         self._serve_step_times(torch, eng, "dense", profile=False)
+        eager, _ = self._serve_run(torch, "dense chunk 128 fused eager", None, prompts,
+                                   eager=True, prefill_chunk=128, decode_span=8)
+        self._hold_equal("dense chunk 128 fused, graphs vs eager", fused, eager)
         ref_d, cache_err = self._forced_reference(torch, runner, prompts, fused, eng.snaps)
         del eng
         torch.cuda.empty_cache()
@@ -2099,7 +2302,8 @@ class Smoke:
 
     def _serve_cli(self, torch, kernels):
         """The serving CLI on the 2-layer 7B-width checkpoint the quantize phase
-        packed: load, 12 demo requests of 100 tokens on 8 slots, paged, span 8."""
+        packed: load, 12 demo requests of 100 tokens on 8 slots, paged, the
+        CLI's default span (1)."""
         from gptq_for_llama_tpu_torch.cli.serve import main as serve_cli
         from gptq_for_llama_tpu_torch.models import hf_loader
         from gptq_for_llama_tpu_torch.runtime import ModelRunner
@@ -2148,10 +2352,10 @@ class Smoke:
         logits, cache = runner.prefill(ids, runner.init_cache())
         tok = logits[:, -1:].float().argmax(-1)
         for _ in range(2):
-            logits, cache = runner.decode(tok, cache)
+            logits, cache = runner._step(tok, cache)
 
         def step():
-            runner.decode(tok, cache)   # the same slot rewritten: the offset stays
+            runner._step(tok, cache)   # eager; the same slot rewritten: the offset stays
 
         self._profile_steps(torch, "profile", "eager decode steps of a 4-layer 7B-width model",
                             step, 4)

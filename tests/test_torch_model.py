@@ -128,10 +128,10 @@ def test_runner_prefill_decode_and_greedy_match_jax(kv_heads):
     np.testing.assert_array_equal(got_tok, want_tok)
     # the on-device greedy loop gives the same tokens
     lg, cache = r.prefill(torch.as_tensor(prompt[None]), r.init_cache())
-    toks, _ = r.decode_greedy(lg[:, -1:].argmax(-1), cache, 9)
+    toks, _ = r.decode_greedy_scan(lg[:, -1:].argmax(-1), cache, 9)
     np.testing.assert_array_equal(toks.numpy()[0], got_tok[0, 7:])
     # teacher-forced decode reproduces the prefill's last logits
-    fl, _ = r.forced_decode(torch.as_tensor(prompt[None]), r.init_cache())
+    fl, _ = r.forced_decode_scan(torch.as_tensor(prompt[None]), r.init_cache())
     pl, _ = r.prefill(torch.as_tensor(prompt[None]), r.init_cache())
     np.testing.assert_allclose(fl.numpy()[:, -1], pl.numpy()[:, -1], atol=1e-4, rtol=1e-4)
 
