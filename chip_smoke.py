@@ -113,30 +113,36 @@ PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve"
 # then decode steps), the calibration forward, the perplexity eval, paged
 # serving (bucketed and batched admission, spans) and dense serving with
 # chunked prefill
-# ("fused_mlp:<form>": kernel 2 by form: the GEMV at batch-1 decode, the
-# fragment form at the 8-slot serving step, the tiles at prefill and eval;
+# ("qmm:<form>", "fused_mlp:<form>": kernels 1 and 2 by form: kernel 1's
+# fragment form and kernel 2's GEMV at batch-1 decode, the fragment forms at
+# the 8-slot serving step, the tiles at prefill, eval and LoRA;
 # "rms_norm:<form>": kernel 6 alone, at layer 0's input norm, and with the
 # residual add folded in, at every other norm: every path runs both)
 NORMS = {"rms_norm", "rms_norm:alone", "rms_norm:add"}
 PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                    "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
+                    "qmm:frag", "qmm:tile", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
          "quantize": {"flash_prefill"} | NORMS,
-         "eval": {"flash_prefill", "qmm", "fused_mlp", "fused_mlp:tile"} | NORMS,
+         "eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:tile", "fused_mlp:tile"} | NORMS,
          "serve:paged": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill_blocked",
-                         "flash_prefill", "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
+                         "flash_prefill", "qmm:frag", "qmm:tile", "fused_mlp:frag",
+                         "fused_mlp:tile"} | NORMS,
          "serve:dense": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                         "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
+                         "qmm:frag", "qmm:tile", "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
          # the CLI's demo prompts all have one length: every admission is batched
          "serve:cli": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill"} | NORMS,
          # the decode path with cache_impl="fold", in the runner and the dense engine
          "fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
-                  "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
+                  "qmm:frag", "qmm:tile", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
          "serve:fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
-                        "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
+                        "qmm:frag", "qmm:tile", "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
          # LoRA training steps (every linear adapted: gate/up unfused), and the
          # gradient check with gate/up frozen (the fused MLP and its backward)
-         "lora": {"qmm", "flash_prefill", "qmm_t"} | NORMS,
-         "lora:fused": {"qmm", "fused_mlp", "flash_prefill", "qmm_t", "fused_mlp:tile"} | NORMS}
+         "lora": {"qmm", "flash_prefill", "qmm_t", "qmm:tile"} | NORMS,
+         "lora:fused": {"qmm", "fused_mlp", "flash_prefill", "qmm_t", "qmm:tile",
+                        "fused_mlp:tile"} | NORMS}
+# the rows at which kernel 1's rows also time every form forced (the decode
+# widths around the forms' crossovers), as kernel 2's rows do
+FORCED_MS = (1, 2, 4, 5, 8, 16)
 LLAMA_7B = dict(arch="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                 num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128, max_seq_len=2048)
 
@@ -358,8 +364,13 @@ class Smoke:
             for bm in matmul.TC_ROW_TILES:   # kernels 1 and 2 alike
                 smem[f"qmm / fused_mlp tile {bits}-bit BM={bm}"] = matmul.tile_smem_bytes(bits, bm)
                 smem[f"qmm_t {bits}-bit BM={bm}"] = matmul_t.tile_smem_bytes(bits, bm)
-            for nt in (1, 2):
-                smem[f"fused_mlp frag {bits}-bit M<={8 * nt}"] = matmul.frag_smem_bytes(bits, nt)
+            for nt in (1, 2):   # kernels 1 and 2 alike
+                smem[f"qmm / fused_mlp frag {bits}-bit M<={8 * nt}"] = matmul.frag_smem_bytes(bits,
+                                                                                          nt)
+            for mt in (1, 2, 4, 8) if hasattr(matmul, "gemv_smem_bytes") else ():
+                for streams, name in ((1, "qmm"), (2, "fused_mlp")):
+                    smem[f"{name} gemv {bits}-bit MT={mt}"] = matmul.gemv_smem_bytes(bits, mt,
+                                                                                     streams)
         from gptq_for_llama_tpu_torch.ops.cuda import attention
         smem["decode ring (kernels 3, 9)"] = attention.RING_SMEM_BYTES   # checked at load
         log("[build] dynamic shared memory per block (bytes): "
@@ -446,7 +457,6 @@ class Smoke:
         from gptq_for_llama_tpu_torch.ops.cuda.flash import _launch as flash_launch
         from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import plan as flash_plan
         from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill_cuda
-        from gptq_for_llama_tpu_torch.ops.cuda import matmul
         from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for, qmm_cuda
         from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
 
@@ -459,18 +469,20 @@ class Smoke:
             return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(bf)
 
         # kernel 1: tolerance 2e-2 * max|plain| where the sums run in another
-        # order than the plain version's: the GEMV (M <= 4) keeps the
+        # order than the plain version's: the GEMV (the batch-1 row) keeps the
         # dequantized weight in fp32 where the plain version rounds it to bf16,
-        # and tiles with K split sum fp32 partials. Tiles without a split round
-        # the weight as the plain version does and sum the k16 products in
-        # cuBLAS's order: held to 0 bf16 ulp (bit-equal).
-        # M: the batch-1 decode step and a prompt, then what serving gives the
-        # linears: 8 slots' decode step, a chunk (128), the fused chunk+decode
-        # row (8 + 128), the buckets (128, 512, 2048) and a batched admission
-        # (8 x 128 = 1024); the LoRA step's unfused gate/up (4096 x 11008) at
-        # its batch (2 x 512) and at the gradient check's (128)
-        ms_of = (1, 8, 100, 128, 136, 512, 1024, 2048)
-        sms = matmul._sm_count(0)
+        # the fragment form (M <= 16) and tiles with K split sum fp32 partials.
+        # Tiles without a split round the weight as the plain version does and
+        # sum the k16 products in cuBLAS's order: held to 0 bf16 ulp
+        # (bit-equal).
+        # M: the batch-1 decode step, the decode widths on either side of the
+        # forms' crossovers (2, 4, 5, 16) and a prompt, then what serving gives
+        # the linears: 8 slots' decode step, a chunk (128), the fused
+        # chunk+decode row (8 + 128), the buckets (128, 512, 2048) and a
+        # batched admission (8 x 128 = 1024); the LoRA step's unfused gate/up
+        # (4096 x 11008) at its batch (2 x 512) and at the gradient check's
+        # (128). At M <= 16 every form is forced too (FORCED_MS)
+        ms_of = (1, 2, 4, 5, 8, 16, 100, 128, 136, 512, 1024, 2048)
         for k, n, what, rows in ((4096, 4096, "q_proj", ms_of), (11008, 4096, "down_proj", ms_of),
                                  (4096, 11008, "gate_proj", (128, 1024))):
             lins = self._linears(torch, rng, k, n, copies_for(k * n // 2))
@@ -491,24 +503,13 @@ class Smoke:
                                iters=min(iters, 10))
                 lms = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wdq], iters=iters)
                 nbytes = m * k * 2 + self._lin_bytes(lin) + m * n * 2
+                extra = {"form": {"path": p.path, "rows": p.mt, "split": p.split}}
+                if m in FORCED_MS and what != "gate_proj":
+                    extra["forced_ms"] = self._kernel1_forms(torch, x, lins, ref, tol, what)
                 self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
                              2 * m * k * n, main=(what == "q_proj" and m == 1),
                              serve=(what == "q_proj" and m == 8), path=path,
-                             ulps=bf16_ulps(torch, y, ref) if exact else None)
-            # both paths forced on either side of the crossover (M = 4 | 5)
-            for m in (4, 8) if what != "gate_proj" else ():
-                x = randn(m, k)
-                ref = quant_matmul_plain(x, lin, bf)
-                tol = 2e-2 * ref.float().abs().max().item()
-                for path in ("gemv", "tile"):
-                    p = matmul.plan(m, k, n, lin.bits, sms, path=path)
-                    err = (matmul._launch(x, lin, p).float() - ref.float()).abs().max().item()
-                    ms = graph_ms(torch, [lambda l=l, p=p: matmul._launch(x, l, p) for l in lins])
-                    pms = graph_ms(torch, [lambda: quant_matmul_plain(x, lin, bf)], iters=2)
-                    lms = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wdq])
-                    self._record("qmm", f"{what} {k}x{n} M={m} ({path} forced)", err, tol, ms, pms,
-                                 lms, m * k * 2 + self._lin_bytes(lin) + m * n * 2,
-                                 2 * m * k * n, path=path)
+                             ulps=bf16_ulps(torch, y, ref) if exact else None, extra=extra)
             del lins, wdq
         self._qmm_tile_cases(torch, rng)
         k, n = 4096, 11008
@@ -517,8 +518,6 @@ class Smoke:
         for m in ms_of:
             self._kernel2_row(torch, randn, gates, ups, m, 60 if m <= 136 else 6,
                               main=(m == 1), serve=(m == 8))
-        for m in (2, 4, 5):   # the forms on either side of the GEMV's crossover
-            self._kernel2_row(torch, randn, gates, ups, m, 60)
         del gates, ups
         # kernels 3-5: tolerance 1e-2 of each output row's norm: both sides
         # softmax in fp32, the output is rounded to bf16 (2^-9 relative);
@@ -653,6 +652,29 @@ class Smoke:
         self._kernel9(torch, F, randn)
         self._ppl_eval_linears(torch, rng, randn)
         torch.cuda.synchronize()
+
+    def _kernel1_forms(self, torch, x, lins, ref, tol, what):
+        """Kernel 1 with every form it has forced (the GEMV, the fragment form
+        up to 16 rows where the package has it, the tiles) at x's rows: each
+        held to the plain version within ``tol`` (2e-2 * max|plain|), timed
+        over the weight copies; the forms' times are logged and returned."""
+        from gptq_for_llama_tpu_torch.ops.cuda import matmul
+        lin = lins[0]
+        m, k, n = x.shape[0], lin.in_features, lin.out_features
+        sms = matmul._sm_count(0)
+        tol = max(tol, 2e-2 * ref.float().abs().max().item())
+        forms = ("gemv", "frag", "tile") if hasattr(matmul, "frag_cols") else ("gemv", "tile")
+        forced = {}
+        for path in forms:
+            fp = matmul.plan(m, k, n, lin.bits, sms, path=path)
+            err = (matmul._launch(x, lin, fp).float() - ref.float()).abs().max().item()
+            if err > tol:
+                raise AssertionError(f"qmm {what} M={m} ({path} forced): error {err} > {tol}")
+            forced[path] = graph_ms(torch, [lambda l=l, fp=fp: matmul._launch(x, l, fp)
+                                            for l in lins])
+        log(f"[kernel qmm] {what} {k}x{n} M={m}: forms forced "
+            + ", ".join(f"{a} {t * 1e3:.2f} us" for a, t in forced.items()) + f" | {self.card}")
+        return forced
 
     def _kernel2_row(self, torch, randn, gates, ups, m, iters, main=False, serve=False):
         """Kernel 2 at 4096 x 11008 and M rows through the dispatch (the plan's
@@ -1544,10 +1566,12 @@ class Smoke:
         ids = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 512)),
                               device="cuda")
         opt = torch.optim.Adam(leaves, lr=1e-4)
-        want_fwd = dict.fromkeys(kernels.launch_counts(), 0)   # kernels 2's, 6's forms included
+        want_fwd = dict.fromkeys(kernels.launch_counts(), 0)   # kernels 1's, 2's, 6's forms
         want_fwd.update(qmm=7 * layers, rms_norm=2 * layers + 1, flash_prefill=layers)
         if "rms_norm:add" in want_fwd:
             want_fwd.update({"rms_norm:add": 2 * layers, "rms_norm:alone": 1})
+        if "qmm:tile" in want_fwd:   # 2 x 512 rows: every linear on the tiles
+            want_fwd["qmm:tile"] = 7 * layers
         want_bwd = dict.fromkeys(want_fwd, 0)
         want_bwd.update(qmm_t=7 * layers - 3)
 
@@ -1684,7 +1708,7 @@ class Smoke:
         acc = self.launches.setdefault(path, {})
         for k, v in counts.items():
             acc[k] = acc.get(k, 0) + v
-        # kernels 2's and 6's forms are counted by packages that have them
+        # kernels 1's, 2's and 6's forms are counted by packages that have them
         # (an A/B run drives an earlier package with this script)
         missing = sorted(k for k in PATHS[path]
                          if counts.get(k, 0) == 0 and (":" not in k or k in counts))
@@ -2385,14 +2409,21 @@ class Smoke:
         # torch's elementwise add (CUDAFunctor_add; AddFunctor in older builds):
         # each residual add outside a norm is one
         adds = sum(c for _, c, k in rows if "Functor_add" in k or "AddFunctor" in k) / steps
+        # device kernels a step (copies and fills apart), and those of them that
+        # sum K-splits in a second launch (qmm_reduce_kernel)
+        launched = sum(c for _, c, k in rows if not k.startswith(("Memcpy", "Memset"))) / steps
+        reduces = sum(c for _, c, k in rows if "qmm_reduce_kernel" in k) / steps
         log(f"[{key}] {steps} {what}: wall {wall * 1e3:.3f} ms, device busy "
             f"{busy * 1e3:.3f} ms (busy share {busy / wall:.4f}); {adds:g} elementwise add "
-            f"launches per step | {self.card}")
+            f"launches per step; {launched:g} device kernels per step, {reduces:g} of them "
+            f"K-split reduce kernels | {self.card}")
         for dev, count, name in rows[:25]:
             log(f"[{key}]   {dev / steps:10.1f} us/step  {count // steps:4d} calls/step  "
                 f"{name[:110]}")
         self.report[key] = {"wall_s": wall, "busy_s": busy, "steps": steps,
                             "elementwise_adds_per_step": adds,
+                            "device_kernels_per_step": launched,
+                            "reduce_kernels_per_step": reduces,
                             "kernels": [{"us_per_step": d / steps, "calls": c, "name": k}
                                         for d, c, k in rows]}
 
@@ -2412,7 +2443,8 @@ class Smoke:
             if name in ("qmm", "fused_mlp", "rms_norm"):   # the form of every row
                 rows[-1]["paths"] = {k[len(name) + 1:]: p for k, p in self.paths.items()
                                      if k.startswith(name + " ")}
-            forms = {"fused_mlp": ("gemv", "frag", "tile"), "rms_norm": ("alone", "add")}
+            forms = {"qmm": ("gemv", "frag", "tile"), "fused_mlp": ("gemv", "frag", "tile"),
+                     "rms_norm": ("alone", "add")}
             if name in forms:
                 rows[-1]["launches_by_form"] = {
                     p: {f: c.get(f"{name}:{f}", 0) for f in forms[name]}

@@ -5,12 +5,12 @@
 // memory as bf16: the two fp32 sums meet in the epilogue. Three forms, chosen
 // by the wrapper's plan (gptq_for_llama_tpu_torch/ops/cuda/matmul.py:plan,
 // streams=2) from M:
-//  - gptq_fused_mlp: the CUDA-core GEMV of qmm_common.cuh (NW = 2) for the
+//  - gptq_fused_mlp: the one-launch GEMV of qmm_gemv.cuh (NW = 2) for the
 //    batch-1 decode row, bound by the two packed weight streams with their
 //    scales and zeros (2 x 23.9 MB at 4096x11008 INT4-g128: 14.3 us at
 //    3.35 TB/s);
 //  - gptq_fused_mlp_frag: M <= 16, the weight dequantized straight into
-//    mma.sync A fragments (qmm_frag.cuh);
+//    mma.sync A fragments (qmm_frag.cuh, NW = 2);
 //  - gptq_fused_mlp_tile: above that, kernel 1's tensor-core tiles with the
 //    two streams interleaved in one B tile (qmm_tc.cuh, NW = 2), bound by
 //    operations at large M (4 M K N flops: 2.99 ms at M = 16384).
@@ -18,6 +18,7 @@
 // with ctypes.
 #include "qmm_common.cuh"
 #include "qmm_frag.cuh"
+#include "qmm_gemv.cuh"
 #include "qmm_tc.cuh"
 
 namespace {
@@ -36,48 +37,33 @@ Streams streams(const void* qg, const void* sg, const void* zg, const void* qu, 
 
 }  // namespace
 
+// x (M, K) bf16; qweights (K * bits / 32, N) int32 with N % 4 == 0; scales,
+// zeros (G, N) bf16; mt, split, words_per_split, smem_bytes: kernel 1's
+// gptq_qmm.
 extern "C" int gptq_fused_mlp(const void* x, const void* qg, const void* sg, const void* zg,
-                              const void* qu, const void* su, const void* zu, void* out,
-                              void* partial, int M, int K, int N, int G, int groupsize,
-                              int bits, int mt, int split, int words_per_split, void* stream) {
+                              const void* qu, const void* su, const void* zu, void* out, int M,
+                              int K, int N, int G, int groupsize, int bits, int mt, int split,
+                              int words_per_split, int smem_bytes, void* stream) {
   const Streams s = streams(qg, sg, zg, qu, su, zu);
-  const cudaError_t e = gptq::launch<2>(
+  return static_cast<int>(gptq_gemv::launch<2>(
       bits, mt, static_cast<const __nv_bfloat16*>(x), s.gate, s.up, nullptr,
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(partial), M, K, N, G, groupsize,
-      split, words_per_split, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(e);
+      static_cast<__nv_bfloat16*>(out), M, K, N, G, groupsize, split, words_per_split,
+      smem_bytes, static_cast<cudaStream_t>(stream)));
 }
 
 // x (M, K) bf16, M <= 8 * nt, K % 8 == 0; qweights (K * bits / 32, N) int32
 // with N % 8 == 0; scales, zeros (G, N) bf16 with groupsize a multiple of
-// 128 / bits; partial (2, split, M, N) fp32 when split > 1; nt: n8 tiles of
-// rows (1 or 2); kb_per_split: K-blocks of 128 / bits rows per split.
+// 128 / bits; nt: n8 tiles of rows (1 or 2); split: blocks along K, one
+// cluster; kb_per_split: K-blocks of 128 / bits rows per split.
 extern "C" int gptq_fused_mlp_frag(const void* x, const void* qg, const void* sg, const void* zg,
                                    const void* qu, const void* su, const void* zu, void* out,
-                                   void* partial, int M, int K, int N, int G, int groupsize,
-                                   int bits, int nt, int split, int kb_per_split, int smem_bytes,
-                                   void* stream) {
-  if (M < 1 || M > 8 * nt || K < 8 || K % 8 || N < 8 || N % 8 || G < 1 || groupsize < 1 ||
-      split < 1 || split > 65535 || kb_per_split < 1 || (nt != 1 && nt != 2) ||
-      (split > 1 && partial == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+                                   int M, int K, int N, int G, int groupsize, int bits, int nt,
+                                   int split, int kb_per_split, int smem_bytes, void* stream) {
   const Streams s = streams(qg, sg, zg, qu, su, zu);
-  const auto xb = static_cast<const __nv_bfloat16*>(x);
-  const auto ob = static_cast<__nv_bfloat16*>(out);
-  const auto pb = static_cast<float*>(partial);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GPTQ_FRAG(B, T)                                                                     \
-  gptq_frag::launch<B, T>(xb, s.gate, s.up, ob, pb, M, K, N, G, groupsize, split,           \
-                          kb_per_split, smem_bytes, st)
-  cudaError_t e;
-  switch (bits) {
-    case 2: e = nt == 1 ? GPTQ_FRAG(2, 1) : GPTQ_FRAG(2, 2); break;
-    case 4: e = nt == 1 ? GPTQ_FRAG(4, 1) : GPTQ_FRAG(4, 2); break;
-    case 8: e = nt == 1 ? GPTQ_FRAG(8, 1) : GPTQ_FRAG(8, 2); break;
-    default: e = cudaErrorInvalidValue;
-  }
-#undef GPTQ_FRAG
-  return static_cast<int>(e);
+  return static_cast<int>(gptq_frag::launch_bits<2>(
+      bits, nt, static_cast<const __nv_bfloat16*>(x), s.gate, s.up, nullptr,
+      static_cast<__nv_bfloat16*>(out), M, K, N, G, groupsize, split, kb_per_split, smem_bytes,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // x (M, K) bf16 with K % 8 == 0; qweights (K * bits / 32, N) int32 with

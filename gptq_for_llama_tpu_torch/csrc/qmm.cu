@@ -1,27 +1,55 @@
 // Dequant-GEMM over bit-packed weights: y = x @ dequant(W) (+ bias).
 //
-// Replaces gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. Two paths,
+// Replaces gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. Three forms,
 // chosen by the wrapper's plan (gptq_for_llama_tpu_torch/ops/cuda/matmul.py)
-// from M: gptq_qmm, the split-K GEMV of qmm_common.cuh, for decode rows;
-// gptq_qmm_tile, the tensor-core tiles of qmm_tc.cuh, above them. Each
-// header describes its bound and design. Plain C entry points, bound from
-// Python with ctypes.
+// from M and the group size: gptq_qmm_frag, the register-fragment form of
+// qmm_frag.cuh with one stream, for 1-16 rows; gptq_qmm, the one-launch GEMV
+// of qmm_gemv.cuh, where the group size does not suit the fragments (and any
+// M whose shape the tiles do not take); gptq_qmm_tile, the tensor-core tiles
+// of qmm_tc.cuh, above 16 rows. Each header describes its bound and design. Plain C entry points,
+// bound from Python with ctypes.
 #include "qmm_common.cuh"
+#include "qmm_frag.cuh"
+#include "qmm_gemv.cuh"
 #include "qmm_tc.cuh"
 
+namespace {
+
+gptq::Stream stream_of(const void* qweight, const void* scales, const void* zeros) {
+  return {static_cast<const int32_t*>(qweight), static_cast<const __nv_bfloat16*>(scales),
+          static_cast<const __nv_bfloat16*>(zeros)};
+}
+
+}  // namespace
+
+// x (M, K) bf16; qweight (K * bits / 32, N) int32 with N % 4 == 0; scales,
+// zeros (G, N) bf16; mt: rows per block (1, 2, 4, 8); split: blocks along K,
+// one cluster (a power of two up to 16); smem_bytes: the plan's size of the
+// block's shared memory.
 extern "C" int gptq_qmm(const void* x, const void* qweight, const void* scales,
-                        const void* zeros, const void* bias, void* out, void* partial, int M,
-                        int K, int N, int G, int groupsize, int bits, int mt, int split,
-                        int words_per_split, void* stream) {
-  gptq::Stream s0{static_cast<const int32_t*>(qweight),
-                  static_cast<const __nv_bfloat16*>(scales),
-                  static_cast<const __nv_bfloat16*>(zeros)};
-  const cudaError_t e = gptq::launch<1>(
+                        const void* zeros, const void* bias, void* out, int M, int K, int N,
+                        int G, int groupsize, int bits, int mt, int split, int words_per_split,
+                        int smem_bytes, void* stream) {
+  const gptq::Stream s0 = stream_of(qweight, scales, zeros);
+  return static_cast<int>(gptq_gemv::launch<1>(
       bits, mt, static_cast<const __nv_bfloat16*>(x), s0, s0,
-      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(partial), M, K, N, G, groupsize, split, words_per_split,
-      static_cast<cudaStream_t>(stream));
-  return static_cast<int>(e);
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), M, K, N, G,
+      groupsize, split, words_per_split, smem_bytes, static_cast<cudaStream_t>(stream)));
+}
+
+// x (M, K) bf16, M <= 8 * nt, K % 8 == 0; qweight (K * bits / 32, N) int32
+// with N % 8 == 0; scales, zeros (G, N) bf16 with groupsize a multiple of
+// 128 / bits; nt: n8 tiles of rows (1 or 2); split: blocks along K, one
+// cluster; kb_per_split: K-blocks of 128 / bits rows per split.
+extern "C" int gptq_qmm_frag(const void* x, const void* qweight, const void* scales,
+                             const void* zeros, const void* bias, void* out, int M, int K, int N,
+                             int G, int groupsize, int bits, int nt, int split, int kb_per_split,
+                             int smem_bytes, void* stream) {
+  const gptq::Stream s0 = stream_of(qweight, scales, zeros);
+  return static_cast<int>(gptq_frag::launch_bits<1>(
+      bits, nt, static_cast<const __nv_bfloat16*>(x), s0, s0,
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), M, K, N, G,
+      groupsize, split, kb_per_split, smem_bytes, static_cast<cudaStream_t>(stream)));
 }
 
 // x (M, K) bf16 with K % 8 == 0; qweight (K * bits / 32, N) int32 with
@@ -38,9 +66,7 @@ extern "C" int gptq_qmm_tile(const void* x, const void* qweight, const void* sca
       (bm != 64 && bm != 128 && bm != 256) || (M + bm - 1) / bm > 65535 ||
       (split > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const gptq::Stream s0{static_cast<const int32_t*>(qweight),
-                        static_cast<const __nv_bfloat16*>(scales),
-                        static_cast<const __nv_bfloat16*>(zeros)};
+  const gptq::Stream s0 = stream_of(qweight, scales, zeros);
   const auto xb = static_cast<const __nv_bfloat16*>(x);
   const auto bb = static_cast<const __nv_bfloat16*>(bias);
   const auto ob = static_cast<__nv_bfloat16*>(out);

@@ -1,8 +1,12 @@
-// Shared body of the dequant-GEMM kernels (qmm.cu: one packed weight stream;
-// fused_mlp.cu: two streams with the SiLU-mul epilogue).
+// Pieces shared by the dequant-GEMM kernels: kernel 1 (qmm.cu: one packed
+// weight stream, optional bias) and kernel 2 (fused_mlp.cu: the gate and up
+// streams with the SiLU-mul epilogue), in their three forms (the GEMV of
+// qmm_gemv.cuh, the register fragments of qmm_frag.cuh and the tensor-core
+// tiles of qmm_tc.cuh), and kernel 8 (qmm_t.cu).
 //
-// Replaces the TPU kernels gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel
-// and gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel.
+// Replaces, with those forms, the TPU kernels
+// gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel and
+// gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel.
 //
 // y[m, n] = sum_k x[m, k] * (code[k, n] - zero[g(k), n]) * scale[g(k), n]
 //
@@ -12,37 +16,20 @@
 // packed row and a warp reads 512 contiguous bytes: every weight byte is read
 // once, coalesced.
 //
-// What bounds it on the H100: at decode (a few rows) the packed weight stream,
-// i.e. device-memory bytes (a 4096x4096 INT4-g128 linear moves 8.9 MB with
-// its scales and zeros: 2.66 us at 3.35 TB/s). The design keeps the weight
-// bytes the only large traffic and spends few instructions per weight:
-//  - dot-then-scale (the TPU kernel's trick): codes are converted to float
-//    and dotted with x per group; the affine correction
-//    s_g * (x_g . c_g - z_g * sum(x_g)) is applied once per group and column;
-//  - codes become floats with one OR and one FADD (2^23 magic number) instead
-//    of the quarter-rate integer-to-float conversion;
-//  - x lives in shared memory as fp32 and is read as broadcast float4s;
-//  - the grid splits K across blocks so that N = 4096 still fills 132 SMs
-//    (32 column tiles x 17 K-splits at M = 1, K = 4096; the wrapper plans
-//    the split, ops/cuda/matmul.py:plan); each block reduces its 8 warps in
-//    shared memory, and a second small kernel sums the K-splits in a fixed
-//    order (deterministic, no atomics).
-// Kernel 1 uses this body only for decode (M <= 4); kernel 2 at M = 1, and
-// up to 16 rows where its group size does not suit qmm_frag.cuh (a group
-// boundary inside a K-block). Above that both run tensor cores (qmm_tc.cuh).
+// Two ways to sum K-splits: the decode-width forms (GEMV and fragments) keep
+// every split of an output tile in one thread block cluster and sum the
+// blocks' partials over distributed shared memory in rank order
+// (cluster_reduce: one launch, no atomics, the same bytes on every launch);
+// the tiles and kernel 8 write fp32 partials that qmm_reduce_kernel sums in
+// split order.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace gptq {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 4;                 // columns per thread (one int4 load)
-constexpr int kTileN = 32 * kCols;       // columns per block
-constexpr size_t kMaxSmem = 100 * 1024;  // dynamic shared memory cap (wrapper plans below it)
 
 // 2^23 + c has c in its mantissa: exact for c < 2^23.
 template <int BITS>
@@ -51,13 +38,15 @@ __device__ __forceinline__ float code_f(uint32_t w, int j) {
   return __uint_as_float(((w >> (BITS * j)) & kMask) | 0x4B000000u) - 8388608.0f;
 }
 
-__device__ __forceinline__ void load_bf16x4(const __nv_bfloat16* p, float out[4]) {
-  uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 a = *reinterpret_cast<__nv_bfloat162*>(&u.x);
-  __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&u.y);
-  float2 fa = __bfloat1622float2(a);
-  float2 fb = __bfloat1622float2(b);
+// four bf16 (8 bytes) as floats
+__device__ __forceinline__ void bf16x4_f(uint2 u, float out[4]) {
+  const float2 fa = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.x));
+  const float2 fb = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.y));
   out[0] = fa.x; out[1] = fa.y; out[2] = fb.x; out[3] = fb.y;
+}
+
+__device__ __forceinline__ void load_bf16x4(const __nv_bfloat16* p, float out[4]) {
+  bf16x4_f(*reinterpret_cast<const uint2*>(p), out);
 }
 
 struct Stream {
@@ -77,213 +66,82 @@ __device__ __forceinline__ float epilogue(const float v[NW], const __nv_bfloat16
   }
 }
 
-// grid: (ceil(N / kTileN), split, ceil(M / MT)); block: kThreads.
-// Dynamic shared memory: max(MT * rows_per_split, kWarps * NW * MT * kTileN) floats.
-// split == gridDim.y; with split > 1 the block writes fp32 partials
-// partial[((nw * split + y) * M + m) * N + n], else the finished output.
-template <int BITS, int MT, int NW>
-__global__ void __launch_bounds__(kThreads)
-qmm_kernel(const __nv_bfloat16* __restrict__ x, Stream s0, Stream s1,
-           const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-           float* __restrict__ partial, int M, int K, int N, int G, int groupsize,
-           int words_per_split) {
-  constexpr int kIpw = 32 / BITS;   // codes per word
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+// Whether unit u starts a run of `per` units: a mask where `per` is a power
+// of two (the common group sizes), else a division.
+__device__ __forceinline__ bool run_start(int u, int per) {
+  return (per & (per - 1)) == 0 ? (u & (per - 1)) == 0 : u % per == 0;
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int split = gridDim.y;
-  const int kw = K / kIpw;
-  const int w_begin = blockIdx.y * words_per_split;
-  const int w_end = min(kw, w_begin + words_per_split);
-  const int r_begin = w_begin * kIpw;
-  const int rows = max(0, (w_end - w_begin) * kIpw);
-  const int rows_pad = words_per_split * kIpw;   // smem row stride (multiple of 4)
-  const int m0 = blockIdx.z * MT;
-  const int col = blockIdx.x * kTileN + lane * kCols;
-  const bool valid = col < N;
+constexpr int kMaxCluster = 16;   // blocks of one cluster (8 portable, 16 with the attribute)
 
-  // x rows [m0, m0+MT) x [r_begin, r_begin+rows) -> fp32 shared memory
-  for (int i = tid; i < MT * rows; i += kThreads) {
-    const int m = i / rows, r = i - m * rows;
-    smem[m * rows_pad + r] =
-        (m0 + m < M) ? __bfloat162float(x[(size_t)(m0 + m) * K + r_begin + r]) : 0.0f;
+// Floats of the receive buffer of cluster_reduce for `outs` outputs of NW
+// floats: every rank's share of every block's sums.
+__host__ __device__ constexpr int cluster_recv_floats(int nw, int outs) {
+  return nw * (outs + kMaxCluster);
+}
+
+// The one-launch sum of K-splits. The block's `outs` outputs of NW floats
+// each are finished by the cluster's C blocks in shares of per = ceil(outs /
+// C): rank q finishes outputs [q * per, (q + 1) * per). sum(w, o) gives this
+// block's sum of stream w at output o; each block pushes its sums to the
+// owning rank's receive buffer over distributed shared memory (recv[(r * NW
+// + w) * per + o - q * per], cluster_recv_floats(NW, outs) floats), one
+// cluster barrier publishes them, and each block adds its share's partials
+// in rank order from its own shared memory and hands them to store(o, v).
+// No block touches another's shared memory after the barrier, so one
+// barrier suffices. Every thread of every block must call it.
+template <int NW, class Sum, class Store>
+__device__ __forceinline__ void cluster_reduce(float* recv, int outs, Sum&& sum, Store&& store) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int n = (int)cl.num_blocks(), r = (int)cl.block_rank();
+  const int per = (outs + n - 1) / n;
+  for (int i = (int)threadIdx.x; i < NW * outs; i += (int)blockDim.x) {
+    const int w = i / outs, o = i - w * outs, q = o / per;
+    cl.map_shared_rank(recv, q)[(r * NW + w) * per + o - q * per] = sum(w, o);
   }
-  __syncthreads();
-
-  float acc[NW][MT][kCols];
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[w][m][c] = 0.0f;
-
-  const int wpw = (w_end - w_begin + kWarps - 1) / kWarps;   // words per warp
-  const int wa = w_begin + warp * wpw;
-  const int wb = min(w_end, wa + wpw);
-
-  float p[NW][MT][kCols];   // x . codes over the current group segment
-  float sx[MT];             // sum of x over the current group segment
-  int cur_g = -1;
-  int next_b = 0;           // first row of the group after cur_g
-
-  auto flush = [&]() {
-    if (cur_g < 0) return;
-    float sc[NW][kCols], zz[NW][kCols];
-    if (valid) {
-      load_bf16x4(s0.scales + (size_t)cur_g * N + col, sc[0]);
-      load_bf16x4(s0.zeros + (size_t)cur_g * N + col, zz[0]);
-      if constexpr (NW == 2) {
-        load_bf16x4(s1.scales + (size_t)cur_g * N + col, sc[NW - 1]);
-        load_bf16x4(s1.zeros + (size_t)cur_g * N + col, zz[NW - 1]);
-      }
-    } else {
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) { sc[w][c] = 0.0f; zz[w][c] = 0.0f; }
-    }
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          acc[w][m][c] += sc[w][c] * (p[w][m][c] - zz[w][c] * sx[m]);
-  };
-  auto start_group = [&](int g) {
-    cur_g = g;
-    next_b = (g >= G - 1) ? 0x7fffffff : (g + 1) * groupsize;
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) p[w][m][c] = 0.0f;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) sx[m] = 0.0f;
-  };
-
-  // one packed word (kCols columns per stream) into the group partials
-  auto word = [&](int wd, const uint32_t (&q)[NW][kCols]) {
-    const int r0 = wd * kIpw;
-    const float* xr = smem + (r0 - r_begin);
-    if (cur_g < 0 || r0 + kIpw > next_b) {
-      const int g0 = min(r0 / groupsize, G - 1);
-      const int end0 = (g0 >= G - 1) ? 0x7fffffff : (g0 + 1) * groupsize;
-      if (r0 + kIpw > end0) {
-        // a group boundary falls inside this word (groupsize not a multiple
-        // of 32/BITS): accumulate row by row, flushing at each boundary
-#pragma unroll
-        for (int j = 0; j < kIpw; ++j) {
-          const int r = r0 + j;
-          if (cur_g < 0 || r >= next_b) {
-            flush();
-            start_group(min(r / groupsize, G - 1));
-          }
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const float xv = xr[m * rows_pad + j];
-            sx[m] += xv;
-#pragma unroll
-            for (int w = 0; w < NW; ++w)
-#pragma unroll
-              for (int c = 0; c < kCols; ++c) p[w][m][c] += xv * code_f<BITS>(q[w][c], j);
-          }
-        }
-        return;
-      }
-      if (g0 != cur_g) {
-        flush();
-        start_group(g0);
-      }
-    }
-#pragma unroll
-    for (int j4 = 0; j4 < kIpw; j4 += 4) {
-      float xv[MT][4];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float4 v = *reinterpret_cast<const float4*>(xr + m * rows_pad + j4);
-        xv[m][0] = v.x; xv[m][1] = v.y; xv[m][2] = v.z; xv[m][3] = v.w;
-        sx[m] += (v.x + v.y) + (v.z + v.w);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int w = 0; w < NW; ++w)
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const float cf = code_f<BITS>(q[w][c], j4 + jj);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) p[w][m][c] += xv[m][jj] * cf;
-          }
-      }
-    }
-  };
-
-  // Row tiles of 4-8 (prefill) issue two words' loads before using either;
-  // at decode (MT <= 2) a deeper batch costs registers and occupancy for no
-  // gain (PERF.md, PR 1 findings).
-  constexpr int kBatch = MT >= 4 ? 2 : 1;
-  for (int wd0 = wa; wd0 < wb; wd0 += kBatch) {
-    uint32_t q[kBatch][NW][kCols];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int wd = wd0 + u;
-      if (valid && wd < wb) {
-        const int4 a = *reinterpret_cast<const int4*>(s0.qweight + (size_t)wd * N + col);
-        q[u][0][0] = a.x; q[u][0][1] = a.y; q[u][0][2] = a.z; q[u][0][3] = a.w;
-        if constexpr (NW == 2) {
-          const int4 b = *reinterpret_cast<const int4*>(s1.qweight + (size_t)wd * N + col);
-          q[u][NW - 1][0] = b.x; q[u][NW - 1][1] = b.y;
-          q[u][NW - 1][2] = b.z; q[u][NW - 1][3] = b.w;
-        }
-      } else {
-#pragma unroll
-        for (int w = 0; w < NW; ++w)
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) q[u][w][c] = 0u;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      if (wd0 + u < wb) word(wd0 + u, q[u]);
-  }
-  flush();
-
-  // reduce the 8 warps' partial sums through shared memory (x is dead now)
-  __syncthreads();
-  float* red = smem;   // [kWarps][NW][MT][kTileN]
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-      *reinterpret_cast<float4*>(red + ((warp * NW + w) * MT + m) * kTileN + lane * kCols) =
-          make_float4(acc[w][m][0], acc[w][m][1], acc[w][m][2], acc[w][m][3]);
-  __syncthreads();
-
-  for (int i = tid; i < MT * kTileN; i += kThreads) {
-    const int m = i / kTileN, cc = i - m * kTileN;
-    const int n = blockIdx.x * kTileN + cc;
-    if (m0 + m >= M || n >= N) continue;
+  cl.sync();
+  const int first = r * per;
+  for (int j = (int)threadIdx.x; j < per && first + j < outs; j += (int)blockDim.x) {
     float v[NW];
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      float t = 0.0f;
-      for (int k = 0; k < kWarps; ++k) t += red[((k * NW + w) * MT + m) * kTileN + cc];
-      v[w] = t;
-    }
-    if (split == 1) {
-      out[(size_t)(m0 + m) * N + n] = __float2bfloat16_rn(epilogue<NW>(v, bias, n));
-    } else {
+    for (int w = 0; w < NW; ++w) v[w] = 0.0f;
+    for (int s = 0; s < n; ++s) {
 #pragma unroll
-      for (int w = 0; w < NW; ++w)
-        partial[((size_t)(w * split + blockIdx.y) * M + m0 + m) * N + n] = v[w];
+      for (int w = 0; w < NW; ++w) v[w] += recv[(s * NW + w) * per + j];
     }
+    store(first + j, v);
   }
+}
+
+// Launches `kern` on grid (x, cluster, z) with clusters of 1 x cluster x 1
+// blocks of `threads` threads.
+template <class... Exp, class... Act>
+cudaError_t launch_cluster(void (*kern)(Exp...), dim3 grid, int threads, int cluster,
+                           size_t smem, cudaStream_t stream, Act&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, static_cast<Act&&>(args)...);
+}
+
+// Once per kernel instantiation (not per launch, so a CUDA-graph capture sees
+// none): its dynamic shared memory, and clusters of up to 16 blocks.
+template <class Kern>
+cudaError_t cluster_attributes(Kern kern, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
 }
 
 // Sums the K-splits in order (deterministic) and applies the epilogue.
@@ -302,62 +160,6 @@ __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
     v[w] = t;
   }
   out[i] = __float2bfloat16_rn(epilogue<NW>(v, bias, n));
-}
-
-inline size_t qmm_smem_bytes(int mt, int nw, int rows_per_split) {
-  const size_t xb = (size_t)mt * rows_per_split * sizeof(float);
-  const size_t rb = (size_t)kWarps * nw * mt * kTileN * sizeof(float);
-  return xb > rb ? xb : rb;
-}
-
-template <int BITS, int MT, int NW>
-cudaError_t launch_mt(const __nv_bfloat16* x, Stream s0, Stream s1, const __nv_bfloat16* bias,
-                      __nv_bfloat16* out, float* partial, int M, int K, int N, int G,
-                      int groupsize, int split, int words_per_split, cudaStream_t stream) {
-  constexpr int kIpw = 32 / BITS;
-  const size_t smem = qmm_smem_bytes(MT, NW, words_per_split * kIpw);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = qmm_kernel<BITS, MT, NW>;
-  // once per instantiation (not per launch, so a CUDA-graph capture sees none)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((N + kTileN - 1) / kTileN, split, (M + MT - 1) / MT);
-  kern<<<grid, kThreads, smem, stream>>>(x, s0, s1, bias, out, partial, M, K, N, G, groupsize,
-                                         words_per_split);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || split == 1) return e;
-  const size_t total = (size_t)M * N;
-  qmm_reduce_kernel<NW><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(partial, bias, out,
-                                                                             M, N, split);
-  return cudaGetLastError();
-}
-
-template <int BITS, int NW>
-cudaError_t launch_bits(int mt, const __nv_bfloat16* x, Stream s0, Stream s1,
-                        const __nv_bfloat16* bias, __nv_bfloat16* out, float* partial, int M,
-                        int K, int N, int G, int groupsize, int split, int words_per_split,
-                        cudaStream_t stream) {
-  switch (mt) {
-    case 1: return launch_mt<BITS, 1, NW>(x, s0, s1, bias, out, partial, M, K, N, G, groupsize, split, words_per_split, stream);
-    case 2: return launch_mt<BITS, 2, NW>(x, s0, s1, bias, out, partial, M, K, N, G, groupsize, split, words_per_split, stream);
-    case 4: return launch_mt<BITS, 4, NW>(x, s0, s1, bias, out, partial, M, K, N, G, groupsize, split, words_per_split, stream);
-    case 8: return launch_mt<BITS, 8, NW>(x, s0, s1, bias, out, partial, M, K, N, G, groupsize, split, words_per_split, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <int NW>
-cudaError_t launch(int bits, int mt, const __nv_bfloat16* x, Stream s0, Stream s1,
-                   const __nv_bfloat16* bias, __nv_bfloat16* out, float* partial, int M, int K,
-                   int N, int G, int groupsize, int split, int words_per_split,
-                   cudaStream_t stream) {
-  switch (bits) {
-    case 2: return launch_bits<2, NW>(mt, x, s0, s1, bias, out, partial, M, K, N, G, groupsize, split, words_per_split, stream);
-    case 4: return launch_bits<4, NW>(mt, x, s0, s1, bias, out, partial, M, K, N, G, groupsize, split, words_per_split, stream);
-    case 8: return launch_bits<8, NW>(mt, x, s0, s1, bias, out, partial, M, K, N, G, groupsize, split, words_per_split, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace gptq

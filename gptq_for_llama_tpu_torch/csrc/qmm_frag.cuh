@@ -1,20 +1,25 @@
-// Small-M form of kernel 2, the fused gate/up MLP:
-// y = silu(x @ dequant(Wg)) * (x @ dequant(Wu)) for M <= 16 (the serving
-// decode step's 8 slots), on bf16 mma.sync with fp32 sums.
+// Small-M form of the dequant-GEMM on bf16 mma.sync with fp32 sums, for
+// M <= 16 (kernel 1's batch-1 decode row, both kernels' serving decode step
+// of 8 slots): kernel 2, the fused gate/up MLP
+// y = silu(x @ dequant(Wg)) * (x @ dequant(Wu)) (NW = 2, fused_mlp.cu), and
+// kernel 1, y = x @ dequant(W) (+ bias) (NW = 1, qmm.cu).
 //
-// Replaces, with the GEMV of qmm_common.cuh and the tiles of qmm_tc.cuh, the
-// TPU kernel gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel.
+// Replaces, with the GEMV of qmm_gemv.cuh and the tiles of qmm_tc.cuh, the
+// TPU kernels gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel and
+// gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel.
 //
-// What bounds it on the H100: the two packed weight streams (45 MB at
-// 4096 x 11008 INT4-g128: 13.4 us at 3.35 TB/s), and next to them the
-// dequantization, one weight per multiply-add of each of the M rows. The
-// tiles of qmm_tc.cuh stage a 64-row slab as bf16 in shared memory, which
+// What bounds it on the H100: the packed weight streams (45 MB at
+// 4096 x 11008 INT4-g128 for kernel 2: 13.4 us at 3.35 TB/s), and next to
+// them the dequantization, one weight per multiply-add of each of the M rows.
+// The tiles of qmm_tc.cuh stage a 64-row slab as bf16 in shared memory, which
 // costs a store, a barrier and an ldmatrix per weight that 8 rows of x do not
 // pay back. So this form never writes a weight to shared memory:
 //  - the product is taken transposed, y^T = W^T x^T: the weight is the A
-//    operand of mma.m16n8k16 (16 rows = 8 gate and 8 up columns) and x the B
-//    operand (8 columns = 8 rows of x; two n8 tiles for M <= 16), so no
-//    tensor-core row is padding at M = 8;
+//    operand of mma.m16n8k16 and x the B operand (8 columns = 8 rows of x;
+//    two n8 tiles for M <= 16), so no tensor-core row is padding at M = 8.
+//    The 16 A rows are 8 gate and 8 up columns (NW = 2), or 16 columns of
+//    the one weight (NW = 1: a lane's two 16-byte words are columns c..c+3
+//    and c+4..c+7, the second "stream" is the first shifted by 4 columns);
 //  - each lane dequantizes its own A fragments in registers from the packed
 //    words it copied: lane (g, t) owns word-row t of every K-block of 4
 //    word-rows (128 / BITS rows of K) for 4 columns of each stream. The
@@ -29,14 +34,17 @@
 //    fp32, as in PackedLinear.dequantize); 8 bits do the same in fp32 through
 //    the 2^23 magic number and round the pair once;
 //  - no block barrier in the main loop: each warp streams its own run of
-//    K-blocks through a 4-stage cp.async ring of its own (the packed words,
-//    x's rows and, at a group's first K-block, its scales and zeros), and
-//    every lane reads back what it copied itself (the scales after a
-//    __syncwarp); a block's 8 warps take consecutive runs of K for the same
-//    32 columns and meet once, in a shared-memory sum in warp order, before
-//    the SiLU-mul epilogue;
+//    K-blocks through a 3-stage cp.async ring of its own (the packed words,
+//    x's rows and, at a group's first K-block, its scales and zeros; the
+//    first stages' words go out before any x). Every lane reads back what it
+//    copied itself (the scales after a __syncwarp); a block's 8 warps take
+//    consecutive runs of K for the same columns and meet once, in a
+//    shared-memory sum in warp order;
 //  - where the columns alone do not fill the card the plan splits K across
-//    blocks too: fp32 partials that qmm_reduce_kernel<2> sums in order.
+//    the blocks of a thread block cluster: their partials meet over
+//    distributed shared memory in rank order (gptq::cluster_reduce), each
+//    block finishing a share of the columns with the epilogue (the SiLU-mul,
+//    or the bias), in the same launch.
 // It needs every K-block inside one group (groupsize % (128 / BITS) == 0);
 // the wrapper's plan sends other group sizes to the GEMV.
 #pragma once
@@ -52,12 +60,14 @@ using namespace gptq_mma;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kCols = 32;        // columns of y (of each stream) per block: 4 per lane group
-constexpr int kStages = 4;
+constexpr int kCols = 32;        // lane-group columns per block: 4 per lane group and stream
+constexpr int kStages = 3;
 constexpr int kSZBytes = 8 * 4 * 8;   // per lane group: gate s, gate z, up s, up z (4 bf16 each)
 
-// One warp's ring stage: each lane's gate and up words (16 B each), then NT
-// slices of x (this lane's row g + 8 nt, its R rows of K), then the scales.
+// One warp's ring stage: each lane's two words (16 B each), then NT slices
+// of x (this lane's row g + 8 nt, its R rows of K), then the scales. After
+// the main loop the ring holds the warps' sums (red); the buffer that
+// receives the cluster's partials of this block's share (recv) follows it.
 template <int BITS, int NT>
 struct Layout {
   static constexpr int kR = 32 / BITS;        // rows of K per word
@@ -66,7 +76,11 @@ struct Layout {
   static constexpr int kW = 32 * 32;
   static constexpr int kX = NT * 32 * kXB;
   static constexpr int kStage = kW + kX + kSZBytes;
-  static constexpr int kBytes = kWarps * kStages * kStage;
+  static constexpr int kRing = kWarps * kStages * kStage;
+  static constexpr int kOuts = 8 * NT * kCols;                  // rows of x x lane-group columns
+  static constexpr int kRed = kWarps * 2 * kOuts * 4;
+  static constexpr int kRecv = gptq::cluster_recv_floats(2, kOuts) * 4;
+  static constexpr int kBytes = (kRing > kRed ? kRing : kRed) + kRecv;
 };
 
 __device__ __forceinline__ uint32_t bf2_u32(__nv_bfloat162 v) {
@@ -129,23 +143,29 @@ __device__ __forceinline__ void x_frag(const uint32_t* xw, int s, uint32_t& b0, 
   }
 }
 
-// grid: (ceil(N / kCols), split); block: kThreads; dynamic shared memory
-// Layout<BITS, NT>::kBytes. Split z takes K-blocks [z * kb_per_split, ...);
-// with split > 1 it writes partial[((w * split + z) * M + m) * N + n].
-template <int BITS, int NT>
+// grid: (ceil(N / (kCols * (3 - NW))), split), clusters of 1 x split x 1;
+// block: kThreads; dynamic shared memory Layout<BITS, NT>::kBytes. Block
+// (x, y) of cluster rank y takes K-blocks [y * kb_per_split, ...). NW = 2:
+// streams sa (gate) and sb (up), 32 columns of y a block, out = silu(a) * b;
+// NW = 1: sa = sb, 64 columns of y a block, out = a (+ bias).
+template <int BITS, int NT, int NW>
 __global__ void __launch_bounds__(kThreads, NT == 1 ? 3 : 2)
-fused_frag_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream gate, gptq::Stream up,
-                  __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int M, int K,
-                  int N, int G, int groupsize, int kb_per_split) {
+frag_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream sa, gptq::Stream sb,
+            const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int K,
+            int N, int G, int groupsize, int kb_per_split) {
   using L = Layout<BITS, NT>;
   constexpr int kR = L::kR, kSteps = kR / 4;
+  constexpr int kBlockCols = NW == 2 ? kCols : 2 * kCols;   // columns of y per block
   static_assert(kSteps >= 1, "bits");
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * kCols, col = n0 + 4 * g;   // this lane's 4 columns
-  const bool col_ok = col < N;                           // N % 8 == 0: all 4 or none
+  const int n0 = blockIdx.x * kBlockCols;
+  // this lane's 4 columns of each stream (A rows g and g + 8)
+  const int col_a = n0 + (NW == 2 ? 4 * g : 8 * g);
+  const int col_b = NW == 2 ? col_a : col_a + 4;
+  const bool col_ok = col_a < N;                         // N % 8 == 0: all or none
   const int kw = K / kR;
   const int nkb = (K + L::kKB - 1) / L::kKB;
   const int b_begin = blockIdx.y * kb_per_split;
@@ -157,16 +177,30 @@ fused_frag_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream gate, gptq::
   unsigned char* ring = smem + warp * kStages * L::kStage;
   auto stage_of = [&](int i) { return ring + (i % kStages) * L::kStage; };
   // a K-block whose scales the stage carries: the warp's first, or a group's first
-  auto new_group = [&](int i) { return i == 0 || ((w_begin + i) * L::kKB) % groupsize == 0; };
+  const int kb_per_group = groupsize / L::kKB;
+  auto new_group = [&](int i) { return i == 0 || gptq::run_start(w_begin + i, kb_per_group); };
 
-  auto issue = [&](int i) {
+  // K-block i's weights and scales
+  auto issue_w = [&](int i) {
     unsigned char* st = stage_of(i);
     const int k0 = (w_begin + i) * L::kKB;
     const int wr = k0 / kR + t;
     const bool ok = wr < kw && col_ok;
-    const size_t wo = ok ? (size_t)wr * N + col : 0;
-    cp_async16(st + lane * 32, gate.qweight + wo, ok);
-    cp_async16(st + lane * 32 + 16, up.qweight + wo, ok);
+    const size_t wo = ok ? (size_t)wr * N : 0;
+    cp_async16(st + lane * 32, sa.qweight + wo + (ok ? col_a : 0), ok);
+    cp_async16(st + lane * 32 + 16, sb.qweight + wo + (ok ? col_b : 0), ok);
+    if (new_group(i)) {   // lane t of a group copies item t of its 4 columns
+      const int gi = min(k0 / groupsize, G - 1);
+      const __nv_bfloat16* src = t == 0 ? sa.scales : t == 1 ? sa.zeros
+                                 : t == 2 ? sb.scales : sb.zeros;
+      cp_async8(st + L::kW + L::kX + (g * 4 + t) * 8,
+                src + (col_ok ? (size_t)gi * N + (t < 2 ? col_a : col_b) : 0), col_ok);
+    }
+  };
+  // K-block i's rows of x
+  auto issue_x = [&](int i) {
+    unsigned char* st = stage_of(i);
+    const int wr = (w_begin + i) * L::kKB / kR + t;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int m = g + 8 * nt;
@@ -180,17 +214,11 @@ fused_frag_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream gate, gptq::
         for (int c = 0; c < L::kXB; c += 16) cp_async16(dst + c, src + c / 2, xok);
       }
     }
-    if (new_group(i)) {   // lane t of a group copies item t of its 4 columns
-      const int gi = min(k0 / groupsize, G - 1);
-      const __nv_bfloat16* src = t == 0 ? gate.scales : t == 1 ? gate.zeros
-                                 : t == 2 ? up.scales : up.zeros;
-      cp_async8(st + L::kW + L::kX + (g * 4 + t) * 8,
-                src + (col_ok ? (size_t)gi * N + col : 0), col_ok);
-    }
   };
 
-  // acc[j][nt]: the m16n8 tile of column pair j (row g: gate column col + j,
-  // row g + 8: up column col + j) by rows 8 nt .. 8 nt + 7 of x
+  // acc[j][nt]: the m16n8 tile of column pair j (row g: stream sa's column
+  // col_a + j, row g + 8: stream sb's column col_b + j) by rows 8 nt .. 8 nt + 7
+  // of x
   float acc[4][NT][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
@@ -198,9 +226,17 @@ fused_frag_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream gate, gptq::
     for (int nt = 0; nt < NT; ++nt) acc[j][nt][0] = acc[j][nt][1] = acc[j][nt][2] = acc[j][nt][3] = 0.0f;
   Affine<BITS> ag[4], au[4];
 
+  // the ring's first stages: every stage's weights, then (one group a stage)
+  // x; stage i is complete once at most kStages - 1 newer groups are
+  // pending, in the prologue as in the loop
 #pragma unroll
   for (int i = 0; i < kStages; ++i) {
-    if (i < n_kb) issue(i);
+    if (i < n_kb) issue_w(i);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_kb) issue_x(i);
     cp_async_commit();
   }
   for (int i = 0; i < n_kb; ++i) {
@@ -247,14 +283,19 @@ fused_frag_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream gate, gptq::
       }
     }
     __syncwarp();   // every lane is done with stage i
-    if (i + kStages < n_kb) issue(i + kStages);
+    if (i + kStages < n_kb) {
+      issue_w(i + kStages);
+      issue_x(i + kStages);
+    }
     cp_async_commit();
   }
   cp_async_wait_all();
   __syncthreads();   // every warp is done with its ring
 
-  // red[warp][stream][row of x][column]: the warps' sums, added in warp order
+  // red[warp][stream][row of x][lane-group column]: the warps' sums, added
+  // in warp order, then across the cluster
   float* red = reinterpret_cast<float*>(smem);
+  float* recv = reinterpret_cast<float*>(smem + (L::kRing > L::kRed ? L::kRing : L::kRed));
   constexpr int kRows = 8 * NT;
 #pragma unroll
   for (int j = 0; j < 4; ++j)
@@ -266,51 +307,77 @@ fused_frag_kernel(const __nv_bfloat16* __restrict__ x, gptq::Stream gate, gptq::
         red[((warp * 2 + w) * kRows + m) * kCols + 4 * g + j] = acc[j][nt][e];
       }
   __syncthreads();
-  const int split = gridDim.y;
-  for (int i = tid; i < kRows * kCols; i += kThreads) {
-    const int m = i / kCols, c = i % kCols, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    float v[2];
+  // i = (stream, row, lane-group column): the block's sum of the 8 warps
+  auto warp_sum = [&](int i) {
+    float sum = 0.0f;
 #pragma unroll
-    for (int w = 0; w < 2; ++w) {
-      float sum = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kWarps; ++k) sum += red[((k * 2 + w) * kRows + m) * kCols + c];
-      v[w] = sum;
-    }
-    if (split == 1) {
-      out[(size_t)m * N + n] = __float2bfloat16_rn(gptq::epilogue<2>(v, nullptr, n));
-    } else {
-#pragma unroll
-      for (int w = 0; w < 2; ++w)
-        partial[((size_t)(w * split + blockIdx.y) * M + m) * N + n] = v[w];
-    }
+    for (int k = 0; k < kWarps; ++k) sum += red[k * 2 * L::kOuts + i];
+    return sum;
+  };
+  if constexpr (NW == 2) {   // output o = (row, column): gate and up sums
+    gptq::cluster_reduce<2>(
+        recv, L::kOuts, [&](int w, int o) { return warp_sum(w * L::kOuts + o); },
+        [&](int o, const float (&v)[2]) {
+          const int m = o / kCols, n = n0 + o % kCols;
+          if (m < M && n < N)
+            out[(size_t)m * N + n] = __float2bfloat16_rn(gptq::epilogue<2>(v, nullptr, n));
+        });
+  } else {   // output o = (half w, row, lane-group column c): column n0 + 8 (c / 4) + 4 w + c % 4
+    gptq::cluster_reduce<1>(
+        recv, 2 * L::kOuts, [&](int, int o) { return warp_sum(o); },
+        [&](int o, const float (&v)[1]) {
+          const int w = o / L::kOuts, m = (o % L::kOuts) / kCols, c = o % kCols;
+          const int n = n0 + 8 * (c >> 2) + 4 * w + (c & 3);
+          if (m < M && n < N)
+            out[(size_t)m * N + n] = __float2bfloat16_rn(gptq::epilogue<1>(v, bias, n));
+        });
   }
 }
 
-template <int BITS, int NT>
-cudaError_t launch(const __nv_bfloat16* x, gptq::Stream gate, gptq::Stream up,
-                   __nv_bfloat16* out, float* partial, int M, int K, int N, int G, int groupsize,
-                   int split, int kb_per_split, int smem_bytes, cudaStream_t stream) {
+template <int BITS, int NT, int NW>
+cudaError_t launch(const __nv_bfloat16* x, gptq::Stream a, gptq::Stream b,
+                   const __nv_bfloat16* bias, __nv_bfloat16* out, int M, int K, int N, int G,
+                   int groupsize, int split, int kb_per_split, int smem_bytes,
+                   cudaStream_t stream) {
   using L = Layout<BITS, NT>;
   // the wrapper's plan computes the same size; a disagreement is a fault
-  if (smem_bytes != L::kBytes || groupsize % L::kKB != 0 ||
-      (long long)split * kb_per_split < (K + L::kKB - 1) / L::kKB)
+  if (smem_bytes != L::kBytes || groupsize % L::kKB != 0 || (split & (split - 1)) ||
+      split > 16 || (long long)split * kb_per_split < (K + L::kKB - 1) / L::kKB)
     return cudaErrorInvalidValue;
-  auto kern = fused_frag_kernel<BITS, NT>;
-  // once per instantiation (not per launch, so a CUDA-graph capture sees none)
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  auto kern = frag_kernel<BITS, NT, NW>;
+  static const cudaError_t attr = gptq::cluster_attributes(kern, L::kBytes);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((N + kCols - 1) / kCols, split);
-  kern<<<grid, kThreads, L::kBytes, stream>>>(x, gate, up, out, partial, M, K, N, G, groupsize,
-                                              kb_per_split);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || split == 1) return e;
-  const size_t total = (size_t)M * N;
-  gptq::qmm_reduce_kernel<2><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, nullptr, out, M, N, split);
-  return cudaGetLastError();
+  constexpr int kBlockCols = NW == 2 ? kCols : 2 * kCols;
+  dim3 grid((N + kBlockCols - 1) / kBlockCols, split);
+  return gptq::launch_cluster(kern, grid, kThreads, split, L::kBytes, stream, x, a, b, bias, out,
+                              M, K, N, G, groupsize, kb_per_split);
+}
+
+// x (M, K) bf16, M <= 8 * nt, K % 8 == 0; qweights (K * bits / 32, N) int32
+// with N % 8 == 0; scales, zeros (G, N) bf16 with groupsize a multiple of
+// 128 / bits; nt: n8 tiles of rows (1 or 2); split: blocks along K, one
+// cluster (1, 2, 4, 8 or 16); kb_per_split: K-blocks of 128 / bits rows per
+// split; smem_bytes: the plan's size.
+template <int NW>
+cudaError_t launch_bits(int bits, int nt, const __nv_bfloat16* x, gptq::Stream a, gptq::Stream b,
+                        const __nv_bfloat16* bias, __nv_bfloat16* out, int M, int K, int N, int G,
+                        int groupsize, int split, int kb_per_split, int smem_bytes,
+                        cudaStream_t stream) {
+  if (M < 1 || M > 8 * nt || K < 8 || K % 8 || N < 8 || N % 8 || G < 1 || groupsize < 1 ||
+      split < 1 || kb_per_split < 1 || (nt != 1 && nt != 2))
+    return cudaErrorInvalidValue;
+#define GPTQ_FRAG(B, T)                                                                     \
+  launch<B, T, NW>(x, a, b, bias, out, M, K, N, G, groupsize, split, kb_per_split, smem_bytes, \
+                   stream)
+  cudaError_t e;
+  switch (bits) {
+    case 2: e = nt == 1 ? GPTQ_FRAG(2, 1) : GPTQ_FRAG(2, 2); break;
+    case 4: e = nt == 1 ? GPTQ_FRAG(4, 1) : GPTQ_FRAG(4, 2); break;
+    case 8: e = nt == 1 ? GPTQ_FRAG(8, 1) : GPTQ_FRAG(8, 2); break;
+    default: e = cudaErrorInvalidValue;
+  }
+#undef GPTQ_FRAG
+  return e;
 }
 
 }  // namespace gptq_frag

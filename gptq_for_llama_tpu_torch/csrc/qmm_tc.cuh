@@ -1,12 +1,13 @@
 // Tensor-core tile path of the dequant-GEMM (kernel 1 above the decode rows):
-// y = x @ dequant(W) (+ bias) for M > 4, on bf16 mma.sync with fp32 sums;
+// y = x @ dequant(W) (+ bias) for M > 16, on bf16 mma.sync with fp32 sums;
 // with two weight streams, kernel 2's fused gate/up above M = 16 (NW below).
 //
-// Replaces, with the split-K GEMV of qmm_common.cuh, the TPU kernel
-// gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. The GEMV stays for
-// decode rows (M <= 4), where the packed weight bytes bound the work; this
-// path takes every M above, up to where operations bound it: at M = 1024 a 4096 x 4096
-// linear is 34.4 GFLOP (34.7 us at 989 TFLOP/s) against 7.5 us of bytes.
+// Replaces, with the GEMV of qmm_gemv.cuh and the fragments of qmm_frag.cuh,
+// the TPU kernel gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. Those
+// take the decode rows (M <= 16), where the packed weight bytes bound the
+// work; this path takes every M above, up to where operations bound it: at
+// M = 1024 a 4096 x 4096 linear is 34.4 GFLOP (34.7 us at 989 TFLOP/s)
+// against 7.5 us of bytes.
 //
 // Design:
 //  - one block of 8 warps per BM x 128 tile of y (BM = 64, 128 or 256, the

@@ -46,9 +46,9 @@ KERNELS = {
 }
 
 
-# kernels counted by form as well: kernel 2's GEMV, fragments and tiles, and
-# kernel 6 alone or with the residual add folded in
-_BY_FORM = {"fused_mlp": mlp.fused_mlp_cuda, "rms_norm": norm.rms_norm_cuda}
+# kernels counted by form as well: kernels 1 and 2's GEMV, fragments and
+# tiles, and kernel 6 alone or with the residual add folded in
+_BY_FORM = {"qmm": matmul.qmm_cuda, "fused_mlp": mlp.fused_mlp_cuda, "rms_norm": norm.rms_norm_cuda}
 
 
 def reset_launch_counts() -> None:
@@ -59,8 +59,8 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches per kernel, then kernels 2's and 6's by form
-    ("fused_mlp:tile", "rms_norm:add", ...)."""
+    """Launches per kernel, then kernels 1's, 2's and 6's by form
+    ("qmm:gemv", "fused_mlp:tile", "rms_norm:add", ...)."""
     counts = {name: kernel.wrapper.launches for name, kernel in KERNELS.items()}
     for name, wrapper in _BY_FORM.items():
         counts.update({f"{name}:{form}": n for form, n in wrapper.forms.items()})

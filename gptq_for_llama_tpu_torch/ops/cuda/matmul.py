@@ -2,15 +2,19 @@
 and the launch plans of kernels 1 and 2 (``plan``).
 
 Replaces ``gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel``. The kernel is
-``csrc/qmm.cu`` with two paths that ``plan`` picks from M: for decode rows
-(M <= ``GEMV_MAX_M``) the split-K GEMV of ``csrc/qmm_common.cuh``, bound by
-the packed weight bytes (coalesced 16-byte word loads, dot-then-scale per
-group, split-K with a deterministic second pass); above them the tensor-core
+``csrc/qmm.cu`` with three forms that ``plan`` picks from M and the group
+size: up to ``FRAG_MAX_M`` rows, the batch-1 decode row included, the weight
+dequantized straight into ``mma.sync`` fragments (``csrc/qmm_frag.cuh``, one
+stream), bound by the packed weight bytes; where the group size does not
+suit them, the one-launch GEMV of ``csrc/qmm_gemv.cuh`` (a per-warp
+``cp.async`` ring of the words, their scales and x; dot-then-scale per
+group); both split K across the blocks of a thread block cluster, whose
+partials meet in rank order in the same launch. Above that the tensor-core
 tiles of ``csrc/qmm_tc.cuh``, bound by operations (the slab dequantized to
 bf16 in shared memory, ``mma.sync`` with fp32 sums, a ``cp.async`` ring). The
 plain version is ``ops.linear.quant_matmul_plain`` (dequantize to the compute
 dtype, then matmul). Kernel 2 (``mlp.py``, two weight streams) takes its plan
-from ``plan`` too, with a third form for M <= 16 (``csrc/qmm_frag.cuh``).
+from ``plan`` too, with the same three forms.
 """
 
 from __future__ import annotations
@@ -28,16 +32,23 @@ from ..linear import PackedLinear, quant_matmul_plain  # noqa: F401  (the plain 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/qmm.cu"
 REPLACES = "gptq_for_llama_tpu/ops/pallas/matmul.py:68"
 
-TILE_N = 128          # columns per block, both paths (tiles: B-tile columns; of y, 128 / streams)
-_X_SMEM_BYTES = 96 * 1024   # cap on the GEMV block's fp32 x slice in shared memory
-# The GEMV takes M <= 4; the tile path the rest: from M = 5 the tiles are
-# faster (the measured crossover, PERF.md section 6)
-GEMV_MAX_M = 4
-# kernel 2: the GEMV for M <= FUSED_GEMV_MAX_M, the register-fragment form
-# (csrc/qmm_frag.cuh) up to FRAG_MAX_M, the tiles above (PERF.md section 6)
+TILE_N = 128          # columns per block: the GEMV's (4 a lane); the tiles' B-tile columns
+# The forms by M (measured crossovers, PERF.md section 6, NVIDIA H100 80GB
+# HBM3, 700 W): kernel 1 takes the GEMV for M <= GEMV_MAX_M, kernel 2 for
+# M <= FUSED_GEMV_MAX_M; both take the register-fragment form
+# (csrc/qmm_frag.cuh) up to FRAG_MAX_M where the group size suits it (else
+# the GEMV), the tiles above. Kernel 1's fragments beat its GEMV from M = 1
+# (9.42 against 10.68 us at 4096 x 4096, 17.56 against 25.55 at 11008 x
+# 4096); kernel 2's GEMV beats its fragments at M = 1 only (33.40 against
+# 35.49 us, M = 2: 38.69 against 35.80)
+GEMV_MAX_M = 0
 FUSED_GEMV_MAX_M = 1
 FRAG_MAX_M = 16
-FRAG_COLS, FRAG_WARPS, FRAG_STAGES = 32, 8, 4   # csrc/qmm_frag.cuh's block and ring
+CLUSTER_MAX = 8       # blocks of one cluster the plans take
+CLUSTER_LIMIT = 16    # the most the kernels take (above 8: the non-portable attribute)
+GEMV_WARPS = 8
+GEMV_STAGES = {1: 8, 2: 4}   # csrc/qmm_gemv.cuh's ring depth by streams
+FRAG_COLS, FRAG_WARPS, FRAG_STAGES = 32, 8, 3   # csrc/qmm_frag.cuh's block and ring
 # the tile path's row tiles, slab depth and staged groups: csrc/qmm_tc.cuh's
 TC_ROW_TILES, TC_TILE_K, TC_MAX_GROUPS = (64, 128, 256), 64, 4
 SMEM_PER_SM = 233472      # the H100's shared memory of one SM (1 KB of it per block reserved)
@@ -49,11 +60,12 @@ def _sm_count(index: int) -> int:
 
 
 class Plan(NamedTuple):
-    path: str        # "gemv" (csrc/qmm_common.cuh), "tile" (csrc/qmm_tc.cuh) or
-                     # "frag" (kernel 2 only, csrc/qmm_frag.cuh)
-    mt: int          # rows per block: 1, 2, 4, 8 (gemv), 64, 128, 256 (tile), 8, 16 (frag)
-    split: int       # blocks along K (partial sums reduced by a second kernel)
-    per_split: int   # packed words (gemv), 64-row slabs (tile) or K-blocks (frag) per split
+    path: str        # "gemv" (csrc/qmm_gemv.cuh), "frag" (csrc/qmm_frag.cuh) or
+                     # "tile" (csrc/qmm_tc.cuh)
+    mt: int          # rows per block: 1, 2, 4, 8 (gemv), 8, 16 (frag), 64, 128, 256 (tile)
+    split: int       # blocks along K: one cluster (gemv, frag: partial sums added in
+                     # rank order in the launch), or partials summed by a second kernel (tile)
+    per_split: int   # packed words (gemv), K-blocks (frag) or 64-row slabs (tile) per split
     smem: int        # dynamic shared memory of one block, bytes
 
 
@@ -78,18 +90,49 @@ def tile_blocks_per_sm(bits: int, bm: int) -> int:
     return max(1, min(2, SMEM_PER_SM // (tile_smem_bytes(bits, bm) + 1024)))
 
 
+def cluster_recv_bytes(streams: int, outs: int) -> int:
+    """The receive buffer of the one-launch K-split sum
+    (``gptq::cluster_recv_floats``): every rank's share of ``outs`` outputs of
+    ``streams`` fp32 sums, padded by the largest cluster."""
+    return 4 * streams * (outs + CLUSTER_LIMIT)
+
+
+def gemv_smem_bytes(bits: int, mt: int, streams: int) -> int:
+    """Shared memory of one GEMV block (qmm_gemv.cuh's ``Layout``): per warp
+    a ring of ``GEMV_STAGES`` stages, each of every lane's words and scales
+    and zeros (16 + 16 B a stream) and ``mt`` rows of x over one word's rows
+    (2 * 32 / bits B each, padded to 16 B); the ring then holds the 8 warps'
+    fp32 sums; then the buffer that receives the cluster's partials of the
+    block's share of the outputs."""
+    stage = streams * 32 * 32 + -(-mt * 2 * (32 // bits) // 16) * 16
+    ring = GEMV_WARPS * GEMV_STAGES[streams] * stage
+    red = GEMV_WARPS * streams * mt * TILE_N * 4
+    return max(ring, red) + cluster_recv_bytes(streams, mt * TILE_N)
+
+
 def frag_rows_per_block(bits: int) -> int:
     """Rows of K in one K-block of the fragment form: 4 packed word-rows."""
     return 4 * (32 // bits)
 
 
+def frag_cols(streams: int) -> int:
+    """Columns of y one fragment-form block covers: 8 lane groups of 4
+    columns of each stream (kernel 2), or of 8 columns of the one weight
+    (kernel 1)."""
+    return FRAG_COLS if streams == 2 else 2 * FRAG_COLS
+
+
 def frag_smem_bytes(bits: int, nt: int) -> int:
-    """Shared memory of one fragment-form block (qmm_frag.cuh's ``Layout``):
-    per warp a ring of FRAG_STAGES stages, each of every lane's gate and up
-    words (32 B), its ``nt`` slices of x (32 / bits rows, bf16) and 256 B of
-    scales and zeros."""
+    """Shared memory of one fragment-form block (qmm_frag.cuh's ``Layout``),
+    one or two streams alike: per warp a ring of FRAG_STAGES stages, each of
+    every lane's two words (32 B), its ``nt`` slices of x (32 / bits rows,
+    bf16) and 256 B of scales and zeros; the ring then holds the 8 warps'
+    fp32 sums; then the buffer that receives the cluster's partials of the
+    block's share of the outputs."""
     stage = 32 * 32 + nt * 32 * 2 * (32 // bits) + 256
-    return FRAG_WARPS * FRAG_STAGES * stage
+    outs = 8 * nt * FRAG_COLS
+    return (max(FRAG_WARPS * FRAG_STAGES * stage, FRAG_WARPS * 2 * outs * 4)
+            + cluster_recv_bytes(2, outs))
 
 
 def frag_ok(k: int, n: int, bits: int, groupsize: int) -> bool:
@@ -140,19 +183,49 @@ def _tile_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int) -> Pla
     return Plan("tile", bm, split, per, tile_smem_bytes(bits, bm))
 
 
-def _frag_plan(m: int, k: int, n: int, bits: int, sms: int) -> Plan:
-    """Kernel 2's fragment form: one block per 32 columns of y, its 8 warps
-    on consecutive runs of K; where the column blocks do not give every SM
-    two, K is split across blocks too, each split keeping at least two
+def cluster_split(tiles: int, units: int, blocks: int, least: int,
+                  cap: int = CLUSTER_MAX) -> tuple[int, int]:
+    """The K split of the decode-width forms, one thread block cluster a
+    tile: the smallest power of two (at most ``cap``) that brings ``tiles``
+    x split to ``blocks``, each split keeping at least ``least`` of the
+    ``units`` along K; then halved while its last split would be empty.
+    Returns (split, units per split)."""
+    split = 1
+    while split < cap and tiles * split < blocks and units // (2 * split) >= least:
+        split *= 2
+    per = -(-units // split)
+    while split > 1 and (split - 1) * per >= units:
+        split //= 2
+        per = -(-units // split)
+    return split, per
+
+
+def _gemv_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int,
+               cap: int = CLUSTER_MAX) -> Plan:
+    """The GEMV: rows per block from M, then K split until two blocks sit on
+    every SM (17 K-splits and a second kernel before; now a cluster: 8 at
+    4096 x 4096 and 11008 x 4096, 4 for kernel 2's 86 column tiles; 2 and 16
+    ways measured slower, PERF.md), each warp keeping at least one packed
+    word."""
+    mt = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
+    tiles = -(-n // TILE_N) * -(-m // mt)
+    split, per = cluster_split(tiles, k // (32 // bits), 2 * sms, GEMV_WARPS, cap)
+    return Plan("gemv", mt, split, per, gemv_smem_bytes(bits, mt, streams))
+
+
+def _frag_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int,
+               cap: int = CLUSTER_MAX) -> Plan:
+    """The fragment form: one block per ``frag_cols(streams)`` columns of y,
+    its 8 warps on consecutive runs of K; where the column blocks leave more
+    than a sixteenth of the SMs without one, K is split across a cluster too
+    (2 ways at 4096 x 4096 and 11008 x 4096: 128 blocks, one an SM, measured
+    faster than 4 or 8 ways, PERF.md), each split keeping at least two
     K-blocks a warp."""
     nt = 1 if m <= 8 else 2
-    cols = -(-n // FRAG_COLS)
     kbs = -(-k // frag_rows_per_block(bits))
-    split = 1
-    if cols < 2 * sms:
-        split = max(1, min(-(-2 * sms // cols), kbs // (2 * FRAG_WARPS)))
-    per = -(-kbs // split)
-    return Plan("frag", 8 * nt, -(-kbs // per), per, frag_smem_bytes(bits, nt))
+    split, per = cluster_split(-(-n // frag_cols(streams)), kbs, sms - sms // 16,
+                               2 * FRAG_WARPS, cap)
+    return Plan("frag", 8 * nt, split, per, frag_smem_bytes(bits, nt))
 
 
 def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
@@ -160,20 +233,15 @@ def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
     """How one launch of kernel 1 (``streams=1``) or kernel 2 (``streams=2``)
     covers (M, K) @ (K, N).
 
-    GEMV: enough blocks for 4 per SM (kernel 1's decode blocks, 48 registers,
-    fit 5) or 2 (kernel 2's, 76 registers, fit 3; PERF.md): a 4096-wide
-    decode linear has only 32 column tiles, so K is split across blocks (17
-    ways at K = 4096 for kernel 1). Tiles (``_tile_plan``) when K and N are
-    multiples of 8 (16-byte copies): kernel 1 above ``GEMV_MAX_M``, kernel 2
-    above ``FRAG_MAX_M``. Kernel 2 between ``FUSED_GEMV_MAX_M`` and
-    ``FRAG_MAX_M`` takes the fragment form (``_frag_plan``) where its
-    ``groupsize`` puts every K-block in one group, else the GEMV. ``path``
+    The GEMV (``_gemv_plan``) up to ``GEMV_MAX_M`` (kernel 1) or
+    ``FUSED_GEMV_MAX_M`` (kernel 2) rows; the fragment form (``_frag_plan``)
+    up to ``FRAG_MAX_M`` where ``groupsize`` puts every K-block in one group
+    (``frag_ok``), else the GEMV; above that the tiles (``_tile_plan``) when
+    K and N are multiples of 8 (16-byte copies), else the GEMV. ``path``
     forces one (for measurements, through ``_launch``)."""
     if path is None:
         wide = k % 8 == 0 and n % 8 == 0
-        if streams == 1:
-            path = "tile" if m > GEMV_MAX_M and wide else "gemv"
-        elif m <= FUSED_GEMV_MAX_M:
+        if m <= (GEMV_MAX_M if streams == 1 else FUSED_GEMV_MAX_M):
             path = "gemv"
         elif m <= FRAG_MAX_M:
             path = "frag" if frag_ok(k, n, bits, groupsize) else "gemv"
@@ -182,19 +250,10 @@ def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
     if path == "tile":
         return _tile_plan(m, k, n, bits, sms, streams)
     if path == "frag":
-        if streams != 2 or m > FRAG_MAX_M:
-            raise ValueError("the fragment form is kernel 2's, for M <= 16")
-        return _frag_plan(m, k, n, bits, sms)
-    ipw = 32 // bits
-    kw = k // ipw
-    mt = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
-    blocks_per_sm = 4 if streams == 1 else 2
-    tiles = -(-n // TILE_N) * -(-m // mt)
-    split = max(1, min(-(-blocks_per_sm * sms // tiles), -(-kw // 8)))
-    wps = -(-kw // split)
-    wps = min(wps, max(1, _X_SMEM_BYTES // (mt * 4 * ipw)))
-    smem = max(mt * wps * ipw * 4, 8 * streams * mt * TILE_N * 4)   # qmm_smem_bytes
-    return Plan("gemv", mt, -(-kw // wps), wps, smem)
+        if m > FRAG_MAX_M:
+            raise ValueError("the fragment form takes M <= 16")
+        return _frag_plan(m, k, n, bits, sms, streams)
+    return _gemv_plan(m, k, n, bits, sms, streams)
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
@@ -225,12 +284,14 @@ def check_packed(lin: PackedLinear, x2: torch.Tensor) -> None:
         raise ValueError(f"x on {x2.device}, weights on {lin.qweight.device}")
 
 
+_ENTRIES = {"gemv": "gptq_qmm", "frag": "gptq_qmm_frag", "tile": "gptq_qmm_tile"}
+
+
 def _entry(path: str):
-    lib = build.library("qmm")
-    fn = lib.gptq_qmm_tile if path == "tile" else lib.gptq_qmm
+    fn = getattr(build.library("qmm"), _ENTRIES[path])
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * (10 if path == "tile" else 9) + [p]
+        fn.argtypes = [p] * (7 if path == "tile" else 6) + [i] * 10 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -238,13 +299,13 @@ def _entry(path: str):
 def plan_for(x2: torch.Tensor, lin: PackedLinear) -> Plan:
     """The plan ``qmm_cuda`` launches for x2 (M, K) on the card."""
     return plan(x2.shape[0], lin.in_features, lin.out_features, lin.bits,
-                _sm_count(x2.device.index or 0))
+                _sm_count(x2.device.index or 0), groupsize=lin.groupsize)
 
 
 def qmm_cuda(x2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
     """y = x2 @ dequant(lin) + bias on the card. x2: (M, K) bf16, already
-    permuted (act-order); returns (M, N) bf16. ``plan_for`` picks the path
-    from M."""
+    permuted (act-order); returns (M, N) bf16. ``plan_for`` picks the form
+    from M and the group size."""
     refuse_grad("qmm", x2, lin.bias, lin.scales, lin.zeros)
     check_packed(lin, x2)
     if lin.bias is not None:
@@ -260,18 +321,21 @@ def _launch(x2: torch.Tensor, lin: PackedLinear, p: Plan) -> torch.Tensor:
     m, k, n = x2.shape[0], lin.in_features, lin.out_features
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     partial = (torch.empty((p.split, m, n), dtype=torch.float32, device=x2.device)
-               if p.split > 1 else None)
-    last = ((p.mt, p.split, p.per_split, p.smem) if p.path == "tile" else
-            (p.mt, p.split, p.per_split))
+               if p.path == "tile" and p.split > 1 else None)
+    # the tiles' split sums fp32 partials in a second kernel
+    scratch = (() if p.path != "tile" else
+               (None if partial is None else partial.data_ptr(),))
+    rows = p.mt // 8 if p.path == "frag" else p.mt
     err = _entry(p.path)(
         x2.data_ptr(), lin.qweight.data_ptr(), lin.scales.data_ptr(), lin.zeros.data_ptr(),
-        None if lin.bias is None else lin.bias.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        m, k, n, lin.scales.shape[0], lin.groupsize, lin.bits, *last,
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        None if lin.bias is None else lin.bias.data_ptr(), out.data_ptr(), *scratch,
+        m, k, n, lin.scales.shape[0], lin.groupsize, lin.bits, rows, p.split, p.per_split,
+        p.smem, torch.cuda.current_stream(x2.device).cuda_stream)
     build.check(build.library("qmm"), err, f"qmm ({p.path})")
     qmm_cuda.launches += 1
+    qmm_cuda.forms[p.path] += 1
     return out
 
 
 qmm_cuda.launches = 0
+qmm_cuda.forms = {"gemv": 0, "frag": 0, "tile": 0}   # launches by form

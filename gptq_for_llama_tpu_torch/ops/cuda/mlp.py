@@ -4,8 +4,8 @@ and plain version.
 Replaces ``gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel``: computes
 ``silu(x @ dequant(Wg)) * (x @ dequant(Wu))`` with x read once and both sums
 kept in fp32 until the epilogue. The kernel is ``csrc/fused_mlp.cu`` with
-three forms that ``matmul.plan(..., streams=2)`` picks from M: the split-K
-GEMV of ``csrc/qmm_common.cuh`` for the batch-1 decode row; up to 16 rows the
+three forms that ``matmul.plan(..., streams=2)`` picks from M: the one-launch
+GEMV of ``csrc/qmm_gemv.cuh`` for the batch-1 decode row; up to 16 rows the
 weight dequantized straight into ``mma.sync`` fragments
 (``csrc/qmm_frag.cuh``); above that kernel 1's tensor-core tiles with the
 gate and up columns interleaved in one B tile (``csrc/qmm_tc.cuh``, NW = 2).
@@ -59,7 +59,7 @@ def _entry(path: str):
     fn = getattr(build.library("fused_mlp"), _ENTRIES[path])
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * (9 if path == "gemv" else 10) + [p]
+        fn.argtypes = [p] * (9 if path == "tile" else 8) + [i] * 10 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -90,16 +90,16 @@ def _launch(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear, p: Plan) -> 
     m, k, n = x2.shape[0], gate.in_features, gate.out_features
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     partial = (torch.empty((2, p.split, m, n), dtype=torch.float32, device=x2.device)
-               if p.split > 1 else None)
-    last = {"gemv": (p.mt, p.split, p.per_split),
-            "frag": (p.mt // 8, p.split, p.per_split, p.smem),
-            "tile": (p.mt, p.split, p.per_split, p.smem)}[p.path]
+               if p.path == "tile" and p.split > 1 else None)
+    # the tiles' split sums fp32 partials in a second kernel
+    scratch = (() if p.path != "tile" else
+               (None if partial is None else partial.data_ptr(),))
+    rows = p.mt // 8 if p.path == "frag" else p.mt
     err = _entry(p.path)(
         x2.data_ptr(), gate.qweight.data_ptr(), gate.scales.data_ptr(), gate.zeros.data_ptr(),
         up.qweight.data_ptr(), up.scales.data_ptr(), up.zeros.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        m, k, n, gate.scales.shape[0], gate.groupsize, gate.bits, *last,
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        *scratch, m, k, n, gate.scales.shape[0], gate.groupsize, gate.bits, rows, p.split,
+        p.per_split, p.smem, torch.cuda.current_stream(x2.device).cuda_stream)
     build.check(build.library("fused_mlp"), err, f"fused_mlp ({p.path})")
     fused_mlp_cuda.launches += 1
     fused_mlp_cuda.forms[p.path] += 1

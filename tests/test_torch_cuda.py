@@ -76,8 +76,9 @@ def _rows_close(got, want, rel):
     (4, 100, 1024, 1024, False)])
 def test_qmm_matches_plain(card, bits, m, k, gs, actorder):
     """2e-2 * max|y|: the plain version rounds the dequantized weight to bf16
-    before its matmul; the GEMV (M <= 4) keeps it in fp32, the tiles round it
-    as the plain version does and sum in another order."""
+    before its matmul; the GEMV keeps it in fp32, the fragment form (M <= 16)
+    and the tiles round it as the plain version does and sum in another
+    order."""
     lin = _linear(k, 256, bits, gs, seed=m, device=card, actorder=actorder)
     x = torch.randn(m, k, device=card).bfloat16()
     assert _close(quant_matmul(x, lin), quant_matmul_plain(x, lin), 2e-2)
@@ -128,14 +129,15 @@ def test_qmm_tile_path_matches_plain(card, bits, m, k, n, gs, actorder, bias):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 4, 5, 8, 64])
 def test_qmm_paths_agree_where_both_run(card, m):
-    """Both of kernel 1's paths, forced, at M on either side of the
-    threshold: each within 2e-2 * max|y| of the plain version."""
+    """Kernel 1's forms, forced, at M on either side of the thresholds (the
+    fragment form up to 16 rows): each within 2e-2 * max|y| of the plain
+    version."""
     from gptq_for_llama_tpu_torch.ops.cuda import matmul
     lin = _linear(1024, 512, 4, 128, seed=m, device=card, bias=True)
     x = torch.randn(m, 1024, device=card).bfloat16()
     want = quant_matmul_plain(x, lin)
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    for path in ("gemv", "tile"):
+    for path in ("gemv", "tile") + (("frag",) if m <= matmul.FRAG_MAX_M else ()):
         p = matmul.plan(m, 1024, 512, 4, sms, path=path)
         assert p.path == path
         assert _close(matmul._launch(x, lin, p), want, 2e-2), path
@@ -232,6 +234,125 @@ def test_fused_mlp_tensor_core_forms_agree_with_the_gemv(card, m):
         rel = float(_row_rel(got, gemv))
         print(f"kernel 2 {path} vs gemv M={m}: worst row rel {rel:.3e}")
         assert rel <= GEMV_GAP, path
+
+
+# (bits, K, N, groupsize, act-order, bias) of the decode-width forms: 2, 4
+# and 8 bits; a ragged last group (K = 1144: 9 groups of 128, the last 120
+# rows); group sizes the fragment form refuses, whose boundaries cut packed
+# words (40; K = 576 in groups of 128, which the wire derives as 5 groups of
+# 116); act-order; a bias; N = 264 (a ragged column block) and 4096 x 4096
+DECODE_CASES_K1 = [(4, 1024, 512, 128, False, True), (2, 1024, 256, 64, False, False),
+                   (8, 512, 264, 32, True, True), (4, 1144, 256, 128, False, False),
+                   (4, 576, 256, 128, False, True), (4, 520, 256, 40, True, False),
+                   (2, 560, 256, 40, False, True), (4, 4096, 4096, 128, False, False)]
+
+
+def _decode_forms(matmul, k, n, bits, gs):
+    """The decode-width forms that take the shape: the GEMV always, the
+    fragment form where its group size suits it."""
+    return ("gemv",) + (("frag",) if matmul.frag_ok(k, n, bits, gs) else ())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,k,n,gs,actorder,bias", DECODE_CASES_K1)
+def test_qmm_decode_forms_match_plain(card, bits, k, n, gs, actorder, bias):
+    """Kernel 1's decode-width forms (the one-launch GEMV of qmm_gemv.cuh, the
+    one-stream fragment form of qmm_frag.cuh), forced at M = 1-16 and at
+    every cluster split the plans take (1 to 16 blocks along K), and the
+    dispatch: within 2e-2 * max|y| of the plain version, finite, and two
+    launches on the same inputs bit-identical (the split sums run in a fixed
+    order)."""
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul
+    lin = _linear(k, n, bits, gs, seed=k + bits, device=card, actorder=actorder, bias=bias)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for m in (1, 2, 3, 4, 5, 8, 9, 16):
+        x = torch.randn(m, k, device=card).bfloat16()
+        xp = x if lin.perm is None else x.index_select(-1, lin.perm).contiguous()
+        want = quant_matmul_plain(x, lin)
+        for path in _decode_forms(matmul, k, n, lin.bits, lin.groupsize):
+            make = matmul._gemv_plan if path == "gemv" else matmul._frag_plan
+            for cap in (1, 2, 4, 8, 16):
+                p = make(m, k, n, lin.bits, sms, 1, cap=cap)
+                got = matmul._launch(xp, lin, p)
+                again = matmul._launch(xp, lin, p)
+                torch.cuda.synchronize()
+                what = f"{path} M={m} split {p.split}"
+                assert torch.isfinite(got.float()).all() and _close(got, want, 2e-2), what
+                assert torch.equal(got, again), what
+        kernels.reset_launch_counts()
+        assert _close(quant_matmul(x, lin), want, 2e-2)
+        form = matmul.plan_for(xp, lin).path
+        assert kernels.launch_counts()[f"qmm:{form}"] == 1 and form != "tile"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,k,n,gs,actorder", [(4, 1024, 512, 128, False),
+                                                  (2, 1024, 256, 64, False),
+                                                  (4, 1024, 264, 64, False),
+                                                  (8, 512, 256, 32, True),
+                                                  (4, 1144, 256, 128, False),
+                                                  (4, 520, 256, 40, True)])
+def test_fused_mlp_decode_forms_match_plain(card, bits, k, n, gs, actorder):
+    """Kernel 2's GEMV (two streams, one launch) and its fragment form,
+    forced at M = 1-16 and every cluster split, and the dispatch: within 1e-2
+    of each output row's norm of the plain version (as the other forms of
+    kernel 2), and two launches bit-identical."""
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul, mlp
+    gate, up = _gate_up(card, k, n, bits, gs, actorder)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for m in (1, 2, 5, 8, 16):
+        x = torch.randn(m, k, device=card).bfloat16()
+        xp = x if gate.perm is None else x.index_select(-1, gate.perm).contiguous()
+        want = fused_mlp_plain(x, gate, up)
+        for path in _decode_forms(matmul, k, n, gate.bits, gate.groupsize):
+            make = matmul._gemv_plan if path == "gemv" else matmul._frag_plan
+            for cap in (1, 2, 4, 8, 16):
+                p = make(m, k, n, gate.bits, sms, 2, cap=cap)
+                got = mlp._launch(xp, gate, up, p)
+                again = mlp._launch(xp, gate, up, p)
+                torch.cuda.synchronize()
+                what = f"{path} M={m} split {p.split}"
+                assert torch.isfinite(got.float()).all() and _row_rel(got, want) <= 1e-2, what
+                assert torch.equal(got, again), what
+        assert _row_rel(fused_mlp(x, gate, up), want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("path", ["gemv", "frag"])
+def test_decode_forms_replay_bit_equal_in_a_graph(card, streams, path):
+    """A CUDA-graph replay of each decode-width form (kernel 1 and kernel 2,
+    the GEMV and the fragment form, every split from 1 to 16, M = 1 and 8)
+    equals its eager launch bit for bit, replayed twice and after the input
+    changed in place (the graph reads x, and writes y, at the captured
+    addresses)."""
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul, mlp
+    k, n = 1024, 512
+    gate, up = _gate_up(card, k, n, 4, 128, False)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    make = matmul._gemv_plan if path == "gemv" else matmul._frag_plan
+    for m in (1, 8):
+        x = torch.randn(m, k, device=card).bfloat16()
+        for cap in (1, 2, 4, 8, 16):
+            p = make(m, k, n, 4, sms, streams, cap=cap)
+            run = ((lambda: matmul._launch(x, gate, p)) if streams == 1 else
+                   (lambda: mlp._launch(x, gate, up, p)))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                y = run()
+            for _ in range(2):
+                g.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(y, run()), f"M={m} split {p.split}"
+            x.copy_(torch.randn_like(x))
+            g.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y, run()), f"M={m} split {p.split}, new x"
 
 
 # offsets on the edges of kernels 3 and 9's 32-slot tiles and of their 64- and

@@ -3,10 +3,12 @@ of kernel 8 (``ops/cuda/matmul_t.plan``), of kernels 4 and 5 (which body) and
 of kernels 3, 7 and 9 (``ops/cuda/attention.decode_plan``), at LLaMA-7B's
 widths. Pure arithmetic: no card, no nvcc.
 
-Kernel 1 keeps the split-K GEMV for decode rows and takes the tensor-core
-tiles above ``GEMV_MAX_M``; kernel 2 keeps its GEMV at M = 1, takes the
-register-fragment form up to ``FRAG_MAX_M`` and kernel 1's tiles with two
-interleaved streams above; kernel 8 takes kernel 1's row tile and splits N
+Kernel 1 takes the one-stream register-fragment form up to ``FRAG_MAX_M``
+rows (the one-launch GEMV where the group size does not suit it, or at M <=
+``GEMV_MAX_M``) and the tensor-core tiles above; kernel 2 takes its GEMV at
+M = 1, the fragment form up to ``FRAG_MAX_M`` and kernel 1's tiles with two
+interleaved streams above; the decode-width forms split K across the blocks
+of one thread block cluster; kernel 8 takes kernel 1's row tile and splits N
 where its tiles do not fill the card. Kernels 3, 7 and 9 split the live
 slots into chunks of whole tiles; a CPU model of the split and its combine
 (the kernels' arithmetic in fp32 numpy), dense and routed through block
@@ -16,9 +18,10 @@ mode."""
 import pytest
 
 from gptq_for_llama_tpu_torch.ops.cuda import matmul
-from gptq_for_llama_tpu_torch.ops.cuda.matmul import (FRAG_MAX_M, FUSED_GEMV_MAX_M, GEMV_MAX_M,
-                                                      SMEM_PER_SM, TC_ROW_TILES, Plan, frag_ok,
-                                                      plan, tile_blocks_per_sm, tile_smem_bytes)
+from gptq_for_llama_tpu_torch.ops.cuda.matmul import (CLUSTER_LIMIT, CLUSTER_MAX, FRAG_MAX_M,
+                                                      FUSED_GEMV_MAX_M, GEMV_MAX_M, SMEM_PER_SM,
+                                                      TC_ROW_TILES, Plan, frag_ok, plan,
+                                                      tile_blocks_per_sm, tile_smem_bytes)
 
 SMS = 132   # the H100 SXM's SMs
 SMEM_PER_BLOCK = 232448   # the most dynamic shared memory one block may have
@@ -30,28 +33,38 @@ SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))
 
 
 @pytest.mark.parametrize("k,n,m,want", [
-    (4096, 4096, 1, (1, 17, 31)), (4096, 4096, 4, (4, 17, 31)),
-    (11008, 4096, 1, (1, 17, 81)), (11008, 4096, 4, (4, 17, 81))])
+    (4096, 4096, 1, ("frag", 8, 2, 64)), (4096, 4096, 4, ("frag", 8, 2, 64)),
+    (11008, 4096, 1, ("frag", 8, 2, 172)), (11008, 4096, 4, ("frag", 8, 2, 172))])
 def test_kernel_1_keeps_the_gemv_for_decode(k, n, m, want):
-    """The GEMV's plan at M = 1 and 4, as before the tile path: row tile,
-    K-splits, packed words per split (4 blocks per SM). From M = 5 (the GEMV's
-    8-row tile) the tiles are faster at both widths and take over; the GEMV
-    plan at M = 8 is still what a forced ``path="gemv"`` gets."""
+    """Kernel 1's decode plans at M = 1 and 4: the one-stream fragment form,
+    measured faster than the new GEMV from M = 1, one block per 64 columns
+    and K split 2 ways across a cluster (128 blocks, one an SM), K-blocks of
+    32 rows per split; the GEMV (forced, or where the group size does not
+    suit the fragments) takes 8 cluster splits of 64 or 172 packed words,
+    one row per block at M = 1 and 8 at M = 8, and the tiles take over from
+    M = 17."""
     p = plan(m, k, n, 4, SMS)
-    assert p.path == "gemv" and (p.mt, p.split, p.per_split) == want
+    assert (p.path, p.mt, p.split, p.per_split) == want
+    gemv = plan(1, k, n, 4, SMS, path="gemv")
+    assert (gemv.mt, gemv.split, gemv.per_split) == (1, 8, k // 64)
     eight = plan(8, k, n, 4, SMS, path="gemv")
-    assert (eight.mt, eight.split, eight.per_split) == (8, want[1], want[2])
-    assert plan(8, k, n, 4, SMS).path == "tile"
+    assert (eight.mt, eight.split, eight.per_split) == (8, 8, k // 64)
+    assert plan(8, k, n, 4, SMS).path == "frag" and plan(17, k, n, 4, SMS).path == "tile"
+    assert plan(m, k, n, 4, SMS, groupsize=40).path == "gemv"
 
 
 @pytest.mark.parametrize("k,n", SHAPES)
 @pytest.mark.parametrize("bits", [2, 4, 8])
 def test_kernel_1_takes_the_tiles_above_the_threshold(k, n, bits):
+    """The fragment form up to FRAG_MAX_M rows (groupsize 128 suits it at
+    every width), the tiles above."""
+    def want(m):
+        return "gemv" if m <= GEMV_MAX_M else "frag" if m <= FRAG_MAX_M else "tile"
     for m in range(1, 40):
-        assert plan(m, k, n, bits, SMS).path == ("gemv" if m <= GEMV_MAX_M else "tile")
+        assert plan(m, k, n, bits, SMS).path == want(m)
     for m in SMOKE_MS:
         p = plan(m, k, n, bits, SMS)
-        assert p.path == ("gemv" if m <= GEMV_MAX_M else "tile")
+        assert p.path == want(m)
         if p.path == "tile":
             slabs = -(-k // matmul.TC_TILE_K)
             # the splits cover every 64-row slab, none is empty
@@ -76,9 +89,10 @@ def test_kernel_1_tiles_fill_the_card_at_the_serving_chunk(k, n):
                                     (1024, 128), (2048, 256), (16384, 256)])
 def test_kernel_1_row_tile_covers_small_m_in_one_tile(m, want):
     """Up to 256 rows one row tile covers M; above that 256-row tiles where
-    they alone give every SM a block (M >= 2048 at N = 4096), else 128."""
-    assert plan(m, 4096, 4096, 4, SMS).mt == want
-    assert plan(m, 11008, 4096, 4, SMS).mt == want
+    they alone give every SM a block (M >= 2048 at N = 4096), else 128. At
+    M <= 16, where the dispatch takes the fragment form, the tiles forced."""
+    assert plan(m, 4096, 4096, 4, SMS, path="tile").mt == want
+    assert plan(m, 11008, 4096, 4, SMS, path="tile").mt == want
 
 
 @pytest.mark.parametrize("k,n,m,want", [
@@ -193,18 +207,115 @@ def test_kernel_2_group_sizes_the_fragment_form_does_not_take(gs):
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("nt", [1, 2])
 def test_fragment_form_shared_memory(bits, nt):
-    """qmm_frag.cuh's Layout: per warp 4 stages of the lanes' gate and up
-    words (32 B each), their x slices (32 / bits bf16 per n8 tile) and 256 B
-    of scales and zeros; 8 warps. The blocks ``__launch_bounds__`` sizes
-    the registers for fit an SM: three for one n8 tile of rows (the 7B
-    serving step), two for two."""
+    """qmm_frag.cuh's Layout: per warp 3 stages of the lanes' two words
+    (32 B), their x slices (32 / bits bf16 per n8 tile) and 256 B of scales
+    and zeros; 8 warps; then the buffer that receives the cluster's partials
+    (2 streams x (8 nt rows x 32 columns + 16) fp32), kernels 1 and 2 alike.
+    The blocks ``__launch_bounds__`` sizes the registers for fit an SM:
+    three for one n8 tile of rows (the 7B serving step), two for two."""
     smem = matmul.frag_smem_bytes(bits, nt)
-    assert smem == 8 * 4 * (32 * 32 + nt * 32 * 2 * (32 // bits) + 256)
+    ring = 8 * 3 * (32 * 32 + nt * 32 * 2 * (32 // bits) + 256)
+    assert ring >= 8 * 2 * 8 * nt * 32 * 4   # the warps' sums fit the ring
+    assert smem == ring + 4 * 2 * (8 * nt * 32 + CLUSTER_LIMIT)
     assert (3 if nt == 1 else 2) * (smem + 1024) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11008, 4096), (4096, 11008), (512, 384),
+                                 (1024, 256)])
+@pytest.mark.parametrize("bits,gs", [(2, 64), (4, 128), (4, 32), (8, 32), (8, 16)])
+def test_kernel_1_takes_the_fragment_form_up_to_16_rows(k, n, bits, gs):
+    """Kernel 1 (one stream) takes the fragment form from M = 1 to 16 where
+    every K-block (4 packed word-rows, 128 / bits rows) lies in one group: a
+    block covers 64 columns of y, one n8 tile of x's rows up to M = 8 and
+    two up to 16; its splits cover every K-block, each warp keeps at least
+    two, the cluster has at most CLUSTER_MAX blocks; tiles from M = 17."""
+    kb = 4 * (32 // bits)
+    assert frag_ok(k, n, bits, gs) == (gs % kb == 0)
+    for m in range(1, 40):
+        p = plan(m, k, n, bits, SMS, groupsize=gs)
+        want = ("gemv" if m <= GEMV_MAX_M or (m <= FRAG_MAX_M and gs % kb) else
+                "frag" if m <= FRAG_MAX_M else "tile")
+        assert p.path == want
+        if p.path == "frag":
+            kbs = -(-k // kb)
+            assert p.mt == (8 if m <= 8 else 16)
+            assert p.split * p.per_split >= kbs > (p.split - 1) * p.per_split
+            assert p.split == 1 or p.per_split >= 2 * matmul.FRAG_WARPS
+            assert p.split & (p.split - 1) == 0 and p.split <= CLUSTER_MAX
+            assert p.smem == matmul.frag_smem_bytes(bits, p.mt // 8) <= SMEM_PER_BLOCK
+            # a split only where the column blocks alone leave SMs idle
+            assert p.split == 1 or -(-n // 64) * p.split // 2 < SMS - SMS // 16
+
+
+@pytest.mark.parametrize("gs", [40, 24, 6])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_kernel_1_group_sizes_the_fragment_form_does_not_take(gs, bits):
+    """A group size that puts a group boundary inside a K-block (40, 24 or 6
+    rows against K-blocks of 64, 32 or 16) keeps kernel 1 on the GEMV up to
+    16 rows; the tiles take such sizes above."""
+    k = 2 * 3 * 5 * 7 * 32   # whole packed words and K-blocks at every width
+    assert not frag_ok(k, 256, bits, gs)
+    for m in (1, 2, 8, 16):
+        assert plan(m, k, 256, bits, SMS, groupsize=gs).path == "gemv"
+    assert plan(17, k, 256, bits, SMS, groupsize=gs).path == "tile"
+
+
+# the decode-width forms' K split at every width the smoke times, every bits,
+# M = 1-16 and both kernels
+DECODE_MS = (1, 2, 3, 4, 5, 8, 9, 16)
+
+
+@pytest.mark.parametrize("k,n", SHAPES + ((512, 384), (1024, 256), (560, 256), (13824, 5120)))
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("path", ["gemv", "frag"])
+def test_decode_width_splits_cover_k_in_order(k, n, bits, streams, path):
+    """One launch sums the K splits of the decode-width forms: the blocks of
+    one cluster (a power of two, at most CLUSTER_MAX; at most CLUSTER_LIMIT
+    when a measurement forces it) take consecutive runs of the packed words
+    (GEMV) or K-blocks (fragments) in rank order, every run nonempty, and
+    together they cover every one; each GEMV warp keeps at least one packed
+    word and each fragment warp two K-blocks where K is split."""
+    kw, kbs = k * bits // 32, -(-k // matmul.frag_rows_per_block(bits))
+    make = matmul._gemv_plan if path == "gemv" else matmul._frag_plan
+    for m in DECODE_MS:
+        for cap in (CLUSTER_MAX, CLUSTER_LIMIT):
+            p = make(m, k, n, bits, SMS, streams, cap=cap)
+            units = kw if path == "gemv" else kbs
+            assert p.path == path and p.split <= cap and p.split & (p.split - 1) == 0
+            assert p.split * p.per_split >= units > (p.split - 1) * p.per_split
+            runs = [(z * p.per_split, min(units, (z + 1) * p.per_split)) for z in range(p.split)]
+            assert all(a < b for a, b in runs) and runs[-1][1] == units
+            assert all(runs[i][1] == runs[i + 1][0] for i in range(p.split - 1))
+            if p.split > 1:
+                assert p.per_split >= (matmul.GEMV_WARPS if path == "gemv" else
+                                       2 * matmul.FRAG_WARPS)
+        assert make(m, k, n, bits, SMS, streams) == plan(m, k, n, bits, SMS, streams, path=path,
+                                                          groupsize=128)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("mt", [1, 2, 4, 8])
+@pytest.mark.parametrize("streams", [1, 2])
+def test_gemv_shared_memory(bits, mt, streams):
+    """qmm_gemv.cuh's Layout: per warp a ring of 8 stages (4 with two
+    streams), each of every lane's words and scales and zeros (16 + 16 B a
+    stream) and mt rows of x over one word (2 * 32 / bits B each, padded to
+    16 B); the warps' fp32 sums reuse the ring where they fit; then the
+    cluster's receive buffer. Two blocks fit an SM."""
+    stage = streams * 1024 + -(-mt * 64 // bits // 16) * 16
+    ring = 8 * (8 if streams == 1 else 4) * stage
+    red = 8 * streams * mt * 128 * 4
+    smem = matmul.gemv_smem_bytes(bits, mt, streams)
+    assert smem == max(ring, red) + 4 * streams * (mt * 128 + CLUSTER_LIMIT)
+    assert 2 * (smem + 1024) <= SMEM_PER_SM
+    assert plan(mt, 4096, 4096, bits, SMS, streams, path="gemv").smem == smem
 
 
 def test_a_path_can_be_forced_for_measurement():
     assert plan(8, 4096, 4096, 4, SMS, path="tile").path == "tile"
+    assert plan(512, 4096, 4096, 4, SMS).path == "tile"
+    assert plan(8, 4096, 4096, 4, SMS, path="frag") == plan(8, 4096, 4096, 4, SMS)
     assert plan(512, 4096, 4096, 4, SMS, path="gemv") == plan(512, 4096, 4096, 4, SMS,
                                                               streams=1, path="gemv")
     assert plan(512, 4096, 4096, 4, SMS, path="gemv").mt == 8
