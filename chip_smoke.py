@@ -18,7 +18,11 @@ Phases, in order, on one card:
            kernel 7's rows time kernel 3 over the gathered view and require
            the two outputs bit-equal; kernel 6's rows time it alone and with
            the residual add folded in, beside ``x + r`` then the norm alone,
-           and an empty kernel's launch (the launch floor).
+           and an empty kernel's launch (the launch floor). Kernel 4's rows
+           run its device-offset form (the offset, and for the dense serving
+           chunk the cache row, read from the card) and replay a graph
+           captured at offset 0 and slot 0 at the row's own, bit-equal to
+           the eager launch.
   e2e      a random wire-format LLaMA at 7B width and 2 layers: prefill and
            8 greedy steps on the card (bf16, kernels) against the same
            weights on the CPU (fp32, plain versions).
@@ -30,6 +34,11 @@ Phases, in order, on one card:
            ``_step`` loop, ``decode_greedy_scan``'s graphs and
            ``generate(span=1)``, with the same launches per decode forward,
            and ``forced_decode_scan`` over them ends on the loop's logits.
+           Each prompt's prefill graph (the prompt right-padded to S_pad),
+           and a second prefill at an offset replaying the graph captured at
+           offset 0, bit-equal to the body run eagerly (logits, caches below
+           the offset), with host and device ms of both; every prefill of
+           the second generate pass a replay.
            Prints the host loop's ms/token (eager, graphs, span 1), the decode
            graph's device time, the decode step's two plans (each offset's
            bucket, the whole cache) at offsets 37, 1000 and 2047, capture
@@ -69,12 +78,18 @@ Phases, in order, on one card:
            held against the single-sequence runner where its top-2 margin is
            clear, the k/v every request left in the cache at its retirement
            against the runner's cache, paged against dense, launch counts
-           against the forwards the engine made, and the graphs' tokens against
-           the same engine with its decode spans run eagerly (paged span 8
-           and span 1, dense fused). Then the serving CLI (``--demo``,
-           paged) on the 2-layer checkpoint the ``quantize`` phase saved.
-           Prints tok/s, ttft and latency percentiles, steps, peak memory,
-           graphs, capture seconds and pool memory; a decode step's host time
+           against the forwards the engine made, and the graphs' tokens and
+           retired caches, bit for bit, against the same engine with every
+           step run eagerly (paged span 8 and span 1, dense fused). Each
+           graph engine runs the requests a second time with every graph
+           captured: the same tokens, replays of each prefill, admission,
+           chunk and chunk+decode key equal to those forwards, at most 16
+           such keys. Then the serving CLI (``--demo``, paged) on the
+           2-layer checkpoint the ``quantize`` phase saved. Prints tok/s,
+           ttft and latency percentiles of both runs, steps, peak memory,
+           graphs, capture seconds per kind of key, the replays at another
+           slot or offset than their capture's, and pool memory; a decode
+           step's host time
            through the graph, its device time and the eager body's time at
            span 1 and span 8 (the host share).
   profile  torch.profiler over eager decode steps of a 4-layer 7B-width
@@ -102,6 +117,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 
@@ -228,6 +244,32 @@ def replay_ms(torch, graphs, key, reset, iters: int = 8) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / iters)
     return best
+
+
+def graph_replay(torch, fn, move):
+    """``fn()`` captured in a CUDA graph (one warm call first), then
+    ``move()`` (device buffers set to other values than at capture) and one
+    replay: returns the replay's output."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    move()
+    g.replay()
+    torch.cuda.synchronize()
+    del g
+    return out
+
+
+def bits_equal(a, b) -> bool:
+    """Two 2-byte tensors equal bit for bit (NaN where NaN)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int16),
+                                              b.contiguous().view(torch.int16))
 
 
 def copies_for(nbytes: int) -> int:
@@ -589,48 +631,75 @@ class Smoke:
                          main=(h == hkv and offs == 127), row_rel=rel, ref_max=ref_max,
                          serve=(offs == serving), extra=extra)
             del caches
-        # kernel 4: a 100-token prompt of the runner over its 2048-slot cache,
-        # then what serving gives it. A chunk of 128 at offsets 0, 128 and 512
-        # over the off + 128 slots its queries see (the paged gather and the
-        # fused step's slice) and over the slot's whole dense cache (the
-        # unfused dense chunk); a bucket-512 prompt over its gathered 512 slots
-        # and over the dense cache; the implicit 2048 bucket
+        # kernel 4, its offset a 1-element int32 tensor on the card (the form
+        # every step's graph captures) and its plan bound offset + SQ (PR 11's
+        # rows ran the same plans from a host offset): a 100-token prompt of
+        # the runner over its 2048-slot cache, then what serving gives it. A
+        # chunk of 128 at offsets 0, 128 and 512 over the off + 128 slots its
+        # queries see (the paged gather) and over a whole cache; a bucket-512
+        # prompt over its gathered 512 slots and over the dense cache; the
+        # implicit 2048 bucket. Then the dense serving chunk as its graph runs
+        # it: slot 5's row of a whole 8-slot cache through ``rows``, planned
+        # for the bucket 1024. Every row also replays a graph captured at
+        # offset 0 (and slot 0) at its own offset and slot, bit-equal to the
+        # eager launch.
         b, h, hkv = 1, 32, 32
-        for sq, off, skv in ((100, 0, s), (100, 128, s), (128, 0, 128), (128, 128, 256),
-                             (128, 512, 640), (128, 512, s), (512, 0, 512), (512, 0, s),
-                             (2048, 0, s)):
-            ncopy = copies_for(2 * b * skv * hkv * d * 2)
+        for sq, off, skv, slots, bnd in ((100, 0, s, 1, None), (100, 128, s, 1, None),
+                                         (128, 0, 128, 1, None), (128, 128, 256, 1, None),
+                                         (128, 512, 640, 1, None), (128, 512, s, 1, None),
+                                         (512, 0, 512, 1, None), (512, 0, s, 1, None),
+                                         (2048, 0, s, 1, None), (100, 512, s, 8, 1024),
+                                         (128, 512, s, 8, 1024)):
+            bnd = off + sq if bnd is None else bnd
+            ncopy = copies_for(2 * slots * skv * hkv * d * 2)
             q = randn(b, sq, h, d)
-            caches = [(randn(b, skv, hkv, d), randn(b, skv, hkv, d)) for _ in range(ncopy)]
+            caches = [(randn(slots, skv, hkv, d), randn(slots, skv, hkv, d))
+                      for _ in range(ncopy)]
             kc, vc = caches[0]
-            y = flash_prefill_blocked_cuda(q, kc, vc, off, d ** -0.5)
-            ref = flash_prefill_blocked_plain(q, kc, vc, off, d ** -0.5)
+            slot = slots - 3 if slots > 1 else 0
+            rows = torch.tensor([slot], dtype=torch.int32, device="cuda") if slots > 1 else None
+            off_t = torch.tensor([off], dtype=torch.int32, device="cuda")
+            y = flash_prefill_blocked_cuda(q, kc, vc, off_t, d ** -0.5, bnd, rows)
+            ref = flash_prefill_blocked_plain(q, kc[slot:slot + 1], vc[slot:slot + 1], off,
+                                              d ** -0.5)
             err = (y.float() - ref.float()).abs().max().item()
             rel, ref_max = row_rel_err(y, ref), ref.float().abs().max().item()
+            # a graph captured at offset 0 and slot 0, replayed at this row's
+            g_off = torch.zeros(1, dtype=torch.int32, device="cuda")
+            g_rows = None if rows is None else torch.zeros(1, dtype=torch.int32, device="cuda")
+            replayed = graph_replay(torch, lambda: flash_prefill_blocked_cuda(
+                q, kc, vc, g_off, d ** -0.5, bnd, g_rows),
+                lambda: (g_off.fill_(off), g_rows is None or g_rows.fill_(slot)))
+            if not torch.equal(replayed, y):
+                raise AssertionError(f"kernel 4 SQ={sq} offset={off}: a graph replay at the "
+                                     f"offset differs from the eager launch")
             iters = 60 if sq <= 128 else 6
-            ms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_cuda(q, c[0], c[1], off,
-                                                                         d ** -0.5)
+            ms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_cuda(q, c[0], c[1], off_t,
+                                                                         d ** -0.5, bnd, rows)
                                   for c in caches], iters=iters)
-            pms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_plain(q, c[0], c[1], off,
-                                                                           d ** -0.5)
-                                   for c in caches], iters=min(iters, 10))
+            pms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_plain(
+                q, c[0], c[1], off_t, d ** -0.5, bnd, rows) for c in caches],
+                iters=min(iters, 10))
             allowed = (torch.arange(skv, device="cuda")[None, :]
                        <= torch.arange(sq, device="cuda")[:, None] + off)
             qt = q.transpose(1, 2)
             lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
-                qt, c[0].transpose(1, 2), c[1].transpose(1, 2), attn_mask=allowed)
-                for c in caches], iters=iters)
+                qt, c[0][slot:slot + 1].transpose(1, 2), c[1][slot:slot + 1].transpose(1, 2),
+                attn_mask=allowed) for c in caches], iters=iters)
             pairs = sum(off + i + 1 for i in range(sq))
             nbytes = 2 * b * sq * h * d * 2 + b * (off + sq) * hkv * d * 2 * 2
-            extra = {"body": flash_plan(sq, off)}
+            extra = {"body": flash_plan(sq, bnd - sq), "bound_keys": bnd,
+                     "replay_bit_equal": True, "cache_rows": slots}
             if sq <= 512:
                 for body in ("sync", "wgmma"):
                     extra[f"{body}_ms"] = graph_ms(torch, [
-                        lambda c=c, body=body: flash_launch(q, c[0], c[1], off, d ** -0.5, body)
+                        lambda c=c, body=body: flash_launch(q, c[0], c[1], off_t, d ** -0.5, body,
+                                                            rows)
                         for c in caches], iters=iters)
-                log(f"[kernel flash_prefill_blocked] SQ={sq} offset={off} SKV={skv}: bodies "
-                    f"forced, mma.sync {extra['sync_ms'] * 1e3:.2f} us, wgmma "
-                    f"{extra['wgmma_ms'] * 1e3:.2f} us (plan: {extra['body']}) | {self.card}")
+                log(f"[kernel flash_prefill_blocked] SQ={sq} offset={off} SKV={skv} rows={slots} "
+                    f"bound={bnd}: bodies forced, mma.sync {extra['sync_ms'] * 1e3:.2f} us, "
+                    f"wgmma {extra['wgmma_ms'] * 1e3:.2f} us (plan: {extra['body']}) | "
+                    f"{self.card}")
             if sq == skv == 2048:   # kernel 5 computes the same function: same run, same inputs
                 k5 = graph_ms(torch, [lambda c=c: flash_prefill_cuda(q, c[0], c[1], d ** -0.5)
                                       for c in caches], iters=iters)
@@ -640,10 +709,12 @@ class Smoke:
                 log(f"[kernel flash_prefill_blocked] SQ=SKV={sq} offset 0: kernel 4 "
                     f"{ms * 1e3:.2f} us, kernel 5 {k5 * 1e3:.2f} us at the same shape "
                     f"({ms / k5:.3f}x) | {self.card}")
+            where = "" if slots == 1 else f" slot {slot} of {slots} bound={bnd}"
             self._record("flash_prefill_blocked", f"B={b} SQ={sq} H={h} Hkv={hkv} "
-                         f"SKV={skv} offset={off}", err, 1e-2, ms, pms, lms, nbytes,
-                         4 * b * h * pairs * d, main=(sq == 100 and off == 0), row_rel=rel,
-                         ref_max=ref_max, serve=(sq == 128 and skv == 256), extra=extra)
+                         f"SKV={skv} offset={off}{where} (device offset)", err, 1e-2, ms, pms,
+                         lms, nbytes, 4 * b * h * pairs * d, main=(sq == 100 and off == 0),
+                         row_rel=rel, ref_max=ref_max, serve=(sq == 128 and slots > 1),
+                         extra=extra)
             del caches
         self._kernel5(torch, F, randn)
         self._kernel6(torch, F, randn)
@@ -1288,20 +1359,23 @@ class Smoke:
         log(f"[full] 7B INT4-g128 random wire weights made in {time.perf_counter() - t0:.1f} s")
         self.model7b = (cfg, params)
         runner = ModelRunner("llama", cfg, params, dtype=torch.bfloat16, device="cuda")
-        t0 = time.perf_counter()
-        runner.warmup(prefill_buckets=(16,))
-        log(f"[full] warmup (a 16-token prefill, the one-step decode graph of each bucket "
-            f"{runner.decode_buckets}) in {time.perf_counter() - t0:.1f} s, of it "
-            f"{runner.graphs.capture_s:.1f} s capturing")
         rng = np.random.RandomState(0)
         prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in (37, 100, 201)]
         new = 64
+        t0 = time.perf_counter()
+        runner.warmup(prefill_buckets=tuple(len(p) for p in prompts))
+        log(f"[full] warmup (the prefill graphs of the prompts' lengths, keys "
+            f"{sorted(k for k in runner.graphs.keys() if k[0] == 'prefill')}; the one-step "
+            f"decode graph of each bucket {runner.decode_buckets}) in "
+            f"{time.perf_counter() - t0:.1f} s, of it {runner.graphs.capture_s:.1f} s capturing")
+        prefills = self._prefill_graphs_vs_eager(torch, runner, prompts)
 
         # generate (spans of 32 through decode_sample_scan's graphs): the first
         # pass captures what warmup did not, the second only replays
         for rep in range(2):
             kernels.reset_launch_counts()
-            f0 = sum(runner.forwards.values())
+            f0, p0 = sum(runner.forwards.values()), runner.forwards["prefill"]
+            r0 = dict(runner.graphs.replays)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = [generate(runner, p, max_new_tokens=new, temperature=0.0) for p in prompts]
@@ -1311,13 +1385,18 @@ class Smoke:
             forwards = sum(runner.forwards.values()) - f0
             self.check_path("decode", counts)
             self.check_norms("full generate", counts, forwards, cfg.num_layers)
+            replayed = sum(n - r0.get(k, 0) for k, n in runner.graphs.replays.items()
+                           if k[0] == "prefill")
+            if replayed != runner.forwards["prefill"] - p0:
+                raise AssertionError(f"full: {runner.forwards['prefill'] - p0} prefill forwards, "
+                                     f"{replayed} of them graph replays")
             if rep == 0:
                 outs, t_first = got, t_gen
             elif any(not np.array_equal(a, b) for a, b in zip(outs, got)):
                 raise AssertionError("full: two generate runs of the same prompts differ")
         log(f"[full] generate(span=32): 3 requests x {new} new tokens in {t_first:.2f} s with "
             f"the captures, {t_gen:.2f} s replaying ({t_gen / (3 * new) * 1e3:.3f} ms/token, "
-            f"prefills included); launches {counts}")
+            f"prefills included; each prefill a graph replay); launches {counts}")
         for p, o in zip(prompts, outs):
             if o.shape != (1, len(p) + new) or not ((o >= 0) & (o < cfg.vocab_size)).all():
                 raise AssertionError(f"full: bad generate output {o.shape}")
@@ -1372,8 +1451,12 @@ class Smoke:
         log(f"[full] the decode step's two plans, ms at offsets 37 / 1000 / 2047: each offset's "
             f"bucket {bucket_ms}; the whole cache {whole_ms} | {self.card}")
         log(f"[full] graphs: {graphs['count']} captured, {graphs['capture_s']:.1f} s capturing "
-            f"(warm calls included), pool {graphs['pool_bytes'] / 2**20:.1f} MiB")
+            f"(warm calls included), pool {graphs['pool_bytes'] / 2**20:.1f} MiB; by kind "
+            f"{runner.graphs.by_kind()} | {self.card}")
+        log(f"[full] generate(span=32) {t_gen / (3 * new) * 1e3:.3f} ms/token (its prefills as "
+            f"graphs) beside the scan's {loop['graph_ms']:.3f} ms/token | {self.card}")
         self.report["full"] = {"generate_s": t_gen, "generate_first_s": t_first,
+                               "prefill": prefills, "graphs_by_kind": runner.graphs.by_kind(),
                                "launches": counts, "ms_per_token": loop["graph_ms"],
                                "eager_ms_per_token": loop["eager_ms"],
                                "span1_ms_per_token": loop["span1_ms"],
@@ -1384,6 +1467,57 @@ class Smoke:
                                "roofline_tok_s": roof_tok_s,
                                "roofline_share": 1e3 / loop["graph_ms"] / roof_tok_s,
                                "peak_memory_bytes": peak, "weight_bytes": wbytes}
+
+    def _prefill_graphs_vs_eager(self, torch, runner, prompts):
+        """Each prompt's prefill through its graph (captured by ``warmup``) and
+        through the same body run eagerly (``_step``), then a second prefill
+        of the first prompt at its own length's offset, which replays the
+        graph captured at offset 0: the logits and every layer's cache below
+        the offset bit-equal. Per prefill the host ms (a synchronized call)
+        of both, the graph's device ms (CUDA events around replays at the
+        same offset) and the eager call's ms on CUDA events."""
+        from gptq_for_llama_tpu_torch.runtime.graphs import bucket_for
+        from gptq_for_llama_tpu_torch.runtime.runner import prefill_len
+        rows = {}
+        offs = runner._store.offs
+        cases = [(p, None) for p in prompts] + [(prompts[0], prompts[0])]
+        for p, first in cases:
+            ids = torch.as_tensor(p[None], device="cuda")
+            times, seen = {}, {}
+            for how in ("graph", "eager", "graph", "eager"):   # the second pass is timed
+                cache = runner.init_cache()
+                if first is not None:
+                    _, cache = runner.prefill(torch.as_tensor(first[None], device="cuda"), cache)
+                off = cache.offset
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                lg, cache = (runner.prefill if how == "graph" else runner._step)(ids, cache)
+                end.record()
+                torch.cuda.synchronize()
+                times[how] = ((time.perf_counter() - t0) * 1e3, start.elapsed_time(end))
+                seen[how] = (lg.clone(), [c[:, :cache.offset].clone()
+                                          for c in cache.k + cache.v])
+            lg, cs = seen["graph"]
+            le, ce = seen["eager"]
+            if not torch.equal(lg, le) or not all(torch.equal(a, b) for a, b in zip(cs, ce)):
+                raise AssertionError(f"full: the prefill graph of {len(p)} tokens at offset "
+                                     f"{off} differs from its body run eagerly")
+            s_pad = prefill_len(len(p), runner.max_len - off)
+            key = ("prefill", s_pad, bucket_for(off + s_pad, runner.decode_buckets))
+            dev = replay_ms(torch, runner.graphs, key, lambda o=off: offs.fill_(o), iters=4)
+            name = f"{len(p)} at offset {off}"
+            rows[name] = {"key": list(key), "graph_host_ms": times["graph"][0],
+                          "graph_device_ms": dev, "eager_host_ms": times["eager"][0],
+                          "eager_events_ms": times["eager"][1]}
+            log(f"[full] prefill of {len(p)} tokens at offset {off} (graph {key}): graph "
+                f"{times['graph'][0]:.3f} ms host, {dev:.3f} ms device; eager body "
+                f"{times['eager'][0]:.3f} ms host ({times['eager'][1]:.3f} ms on events); "
+                f"logits and cache below the offset bit-equal | {self.card}")
+            del seen, lg, le, cs, ce
+        return rows
 
     def _graphs_vs_eager(self, torch, label, runner, prompts, outs, new):
         """Every prompt's greedy tokens through the eager ``_step`` loop (the
@@ -1515,8 +1649,11 @@ class Smoke:
         served, eng = self._serve_run(torch, "dense fold chunk 128 unfused", "serve:fold",
                                       sprompts, **kw)
         self._serve_step_times(torch, eng, "dense fold", profile=False)
-        eager, _ = self._serve_run(torch, "dense fold eager", None, sprompts, eager=True, **kw)
+        eager, eng_e = self._serve_run(torch, "dense fold eager", None, sprompts, eager=True,
+                                       **kw)
         self._hold_equal("dense fold engine, graphs vs eager", served, eager)
+        self._hold_caches("dense fold engine, graphs vs eager", eng, eng_e)
+        del eng_e
         runner = ModelRunner("llama", cfg, params, batch_size=1, max_seq_len=2048, device="cuda")
         sref, cache_err = self._forced_reference(torch, runner, sprompts, served, eng.snaps)
         scompared, stotal, ssame = self._hold_to_reference("dense fold", served, sref)
@@ -1995,6 +2132,24 @@ class Smoke:
             def __init__(self, *args, **kw):
                 super().__init__(*args, **kw)
                 self.snaps = {}
+                # (key, captured already, slot, chunk offset) of every one-slot
+                # step: which replays ran at another slot or offset than the
+                # capture of their graph. Weak references: a cycle through
+                # the engine would keep its caches alive past ``del``
+                self.slot_calls, self._slot_at = [], None
+                me, graphs = weakref.proxy(self), weakref.proxy(self.graphs)
+                run = type(self.graphs).run
+
+                def recording(key, body, restore=(), generators=()):
+                    if key[0] in ("prefill", "chunk", "chunk+decode"):
+                        me.slot_calls.append((key, key in graphs, *me._slot_at))
+                    return run(graphs, key, body, restore, generators)
+
+                self.graphs.run = recording
+
+            def _load_slot(self, state, i, ids, off0, last_idx):
+                self._slot_at = (i, off0)
+                super()._load_slot(state, i, ids, off0, last_idx)
 
             def snapshot_retired(self):
                 st = self.state
@@ -2055,11 +2210,14 @@ class Smoke:
     def _serve_run(self, torch, label, path, prompts, poison=False, eager=False, **kw):
         """One ``ServingEngine.run`` over the 12 requests on the 7B model: the
         tokens, the engine's stats, and the launch counts held against the
-        forwards the engine made. ``eager``: the engine's decode spans run
-        their bodies eagerly, not captured (a reference for the graphs' tokens;
-        no check of its own)."""
-        from gptq_for_llama_tpu_torch.ops import cuda as kernels
-        from gptq_for_llama_tpu_torch.runtime import GenRequest, ServingEngine
+        forwards the engine made; then a second run of the same requests with
+        every graph captured: the same tokens, no capture, every prefill,
+        admission, chunk and chunk+decode forward a replay, and its tok/s and
+        ttft beside the first run's. ``eager``: every step of the engine runs
+        its body eagerly, not captured (a reference for the graphs' tokens and
+        caches; no check of its own)."""
+        from gptq_for_llama_tpu_torch.runtime import ServingEngine
+        from gptq_for_llama_tpu_torch.runtime.graphs import kind
         cfg, params = self.model7b
         eng = self._snapshotting(ServingEngine)("llama", cfg, params, batch_slots=8,
                                                 max_seq_len=2048, prefill_buckets=(32, 128, 512),
@@ -2070,6 +2228,92 @@ class Smoke:
             eng._new_cache = lambda shape: [
                 torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
                 for _ in range(cfg.num_layers)]
+        results, dt, counts, peak = self._serve_once(torch, eng, prompts)
+        eng.snapshot_retired()   # the last request of each slot
+        if eager:
+            tokens = sum(len(r) for r in results.values())
+            log(f"[serve] {label}: {tokens} tokens in {dt:.2f} s = {tokens / dt:.1f} tok/s "
+                f"aggregate; {eng.steps} engine steps, forwards {eng.forwards} | {self.card}")
+            self.report.setdefault("serve", {})[label] = {"seconds": dt, "tokens": tokens,
+                                                          "tok_s": tokens / dt}
+            return results, eng
+        self.check_path(path, counts)
+        self._hold_launches(label, counts, eng.forwards, eng)
+        tokens = sum(len(r) for r in results.values())
+        if sorted(results) != list(range(len(prompts))) or tokens != len(prompts) * self.SERVE_NEW:
+            raise AssertionError(f"{label}: {len(results)} results, {tokens} tokens")
+        for r in results.values():
+            if not ((r >= 0) & (r < cfg.vocab_size)).all():
+                raise AssertionError(f"{label}: token out of the vocabulary")
+        stats = eng.stats()
+        distinct = len(set(np.concatenate(list(results.values())).tolist()))
+        if distinct < 8:
+            raise AssertionError(f"{label}: {distinct} distinct tokens: the model's tokens do not "
+                                 f"depend on the prompt, so the token checks are dead")
+        f = dict(eng.forwards)
+        log(f"[serve] {label}: {tokens} tokens ({distinct} distinct) in {dt:.2f} s = "
+            f"{tokens / dt:.1f} tok/s aggregate; "
+            f"ttft p50/p95 {stats['ttft_p50_s']}/{stats['ttft_p95_s']} s, latency p50/p95 "
+            f"{stats['latency_p50_s']}/{stats['latency_p95_s']} s; {eng.steps} engine steps, "
+            f"forwards {f}; peak memory {peak / 2**30:.2f} GiB | {self.card}")
+        by_kind = eng.graphs.by_kind()
+        keys = sorted(eng.graphs.keys(), key=str)
+        log(f"[serve] {label}: launches {counts}; {len(keys)} graphs captured in "
+            f"{eng.graphs.capture_s:.1f} s (warm calls included), pool "
+            f"{(eng.graphs.pool_bytes() or 0) / 2**20:.1f} MiB; by kind {by_kind}; keys {keys} "
+            f"| {self.card}")
+        # the prefill, admission and chunk keys of an engine at max_len 2048:
+        # at most 4 + 2 + 5 + 5, whatever the requests
+        if sum(kind(k) != "decode" for k in keys) > 16:
+            raise AssertionError(f"{label}: more than 16 prefill, admission and chunk graphs")
+        # the one-slot steps replayed at another slot or offset than their capture's
+        first = {}
+        for key, captured, slot, off0 in eng.slot_calls:
+            first.setdefault(key, (slot, off0))
+        moved = {"slot": sum(c and s != first[k][0] for k, c, s, _ in eng.slot_calls),
+                 "offset": sum(c and o != first[k][1] for k, c, _, o in eng.slot_calls)}
+        if eng.slot_calls and not moved["slot"]:
+            raise AssertionError(f"{label}: no prefill or chunk graph replayed at another slot")
+        if eng.prefill_chunk and not moved["offset"]:
+            raise AssertionError(f"{label}: no chunk graph replayed at another offset")
+        # the second run: every graph captured, every step a replay
+        r0 = dict(eng.graphs.replays)
+        again, dt2, counts2, _ = self._serve_once(torch, eng, prompts)
+        self._hold_equal(f"{label}, the second run", again, results)
+        if sorted(eng.graphs.keys(), key=str) != keys:
+            raise AssertionError(f"{label}: the second run captured a new graph")
+        f2 = {k: n - f[k] for k, n in eng.forwards.items()}
+        self._hold_launches(f"{label} (second run)", counts2, f2, eng)
+        replays = {}
+        for key, n in eng.graphs.replays.items():
+            replays[kind(key)] = replays.get(kind(key), 0) + n - r0.get(key, 0)
+        for kd in ("prefill", "admit", "chunk", "chunk+decode"):
+            if replays.get(kd, 0) != f2[kd]:
+                raise AssertionError(f"{label}: {f2[kd]} {kd} forwards in the second run, "
+                                     f"{replays.get(kd, 0)} graph replays")
+        stats2 = eng.stats()
+        log(f"[serve] {label}, second run (every graph captured, every step a replay: "
+            f"{replays}): {tokens / dt2:.1f} tok/s aggregate (first run {tokens / dt:.1f}); "
+            f"ttft p50/p95 {stats2['ttft_p50_s']}/{stats2['ttft_p95_s']} s (first run "
+            f"{stats['ttft_p50_s']}/{stats['ttft_p95_s']}); latency p50/p95 "
+            f"{stats2['latency_p50_s']}/{stats2['latency_p95_s']} s; one-slot replays at another "
+            f"slot / offset than the capture's: {moved['slot']} / {moved['offset']} | {self.card}")
+        self.report.setdefault("serve", {})[label] = {
+            "seconds": dt, "tokens": tokens, "distinct_tokens": distinct, "tok_s": tokens / dt,
+            "stats": stats, "second_run": {"seconds": dt2, "tok_s": tokens / dt2,
+                                           "stats": stats2, "replays": replays},
+            "steps": eng.steps, "forwards": f, "launches": counts,
+            "peak_memory_bytes": peak, "replays_moved": moved,
+            "graphs": {"count": len(keys), "capture_s": eng.graphs.capture_s,
+                       "pool_bytes": eng.graphs.pool_bytes(), "by_kind": by_kind,
+                       "keys": [str(k) for k in keys]}}
+        return results, eng
+
+    def _serve_once(self, torch, eng, prompts):
+        """Submit the requests and run the engine: (results, seconds, launch
+        counts, peak memory)."""
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime import GenRequest
         for uid, p in enumerate(prompts):
             eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=self.SERVE_NEW))
         torch.cuda.synchronize()
@@ -2079,19 +2323,11 @@ class Smoke:
         results = eng.run()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        if eager:
-            tokens = sum(len(r) for r in results.values())
-            log(f"[serve] {label}: {tokens} tokens in {dt:.2f} s = {tokens / dt:.1f} tok/s "
-                f"aggregate; {eng.steps} engine steps, forwards {eng.forwards} | {self.card}")
-            self.report.setdefault("serve", {})[label] = {"seconds": dt, "tokens": tokens,
-                                                          "tok_s": tokens / dt}
-            return results, eng
-        eng.snapshot_retired()   # the last request of each slot
-        self.check_path(path, counts)
+        return results, dt, kernels.launch_counts(), torch.cuda.max_memory_allocated()
 
-        f, layers = eng.forwards, cfg.num_layers
+    def _hold_launches(self, label, counts, f, eng):
+        """The launches of a run against what its forwards ``f`` predict."""
+        layers = self.model7b[0].num_layers
         total = sum(f.values())
         steps = f["decode"] + f["chunk+decode"]
         fold = not eng.paged and eng.cache_impl == "fold"   # dense decode steps fold
@@ -2105,33 +2341,20 @@ class Smoke:
         if {k: counts[k] for k in want} != want:   # kernel 2's forms are checked by path
             raise AssertionError(f"{label}: launches {counts} but the forwards {f} predict {want}")
         self.check_norms(label, counts, total, layers)
-        tokens = sum(len(r) for r in results.values())
-        if sorted(results) != list(range(len(prompts))) or tokens != len(prompts) * self.SERVE_NEW:
-            raise AssertionError(f"{label}: {len(results)} results, {tokens} tokens")
-        for r in results.values():
-            if not ((r >= 0) & (r < cfg.vocab_size)).all():
-                raise AssertionError(f"{label}: token out of the vocabulary")
-        stats = eng.stats()
-        distinct = len(set(np.concatenate(list(results.values())).tolist()))
-        if distinct < 8:
-            raise AssertionError(f"{label}: {distinct} distinct tokens: the model's tokens do not "
-                                 f"depend on the prompt, so the token checks are dead")
-        log(f"[serve] {label}: {tokens} tokens ({distinct} distinct) in {dt:.2f} s = "
-            f"{tokens / dt:.1f} tok/s aggregate; "
-            f"ttft p50/p95 {stats['ttft_p50_s']}/{stats['ttft_p95_s']} s, latency p50/p95 "
-            f"{stats['latency_p50_s']}/{stats['latency_p95_s']} s; {eng.steps} engine steps, "
-            f"forwards {f}; peak memory {peak / 2**30:.2f} GiB | {self.card}")
-        log(f"[serve] {label}: launches {counts}; {len(eng.graphs)} decode graphs captured in "
-            f"{eng.graphs.capture_s:.1f} s (warm calls included), pool "
-            f"{(eng.graphs.pool_bytes() or 0) / 2**20:.1f} MiB")
-        self.report.setdefault("serve", {})[label] = {
-            "seconds": dt, "tokens": tokens, "distinct_tokens": distinct, "tok_s": tokens / dt,
-            "stats": stats,
-            "steps": eng.steps, "forwards": dict(f), "launches": counts,
-            "peak_memory_bytes": peak,
-            "graphs": {"count": len(eng.graphs), "capture_s": eng.graphs.capture_s,
-                       "pool_bytes": eng.graphs.pool_bytes()}}
-        return results, eng
+
+    @staticmethod
+    def _hold_caches(what, eng, ref):
+        """The k/v every request left at its retirement (``snaps``), bit-equal
+        between two engines that ran the same requests."""
+        if sorted(eng.snaps) != sorted(ref.snaps):
+            raise AssertionError(f"{what}: caches of requests {sorted(eng.snaps)} against "
+                                 f"{sorted(ref.snaps)}")
+        for uid, (_, n, ks, vs) in eng.snaps.items():
+            _, m, kr, vr = ref.snaps[uid]
+            if n != m or not all(bits_equal(a, b) for a, b in zip(ks + vs, kr + vr)):
+                raise AssertionError(f"{what}: request {uid}'s cache at its retirement differs")
+        log(f"[serve] {what}: the caches of all {len(eng.snaps)} requests at their retirement "
+            f"equal bit for bit")
 
     @staticmethod
     def _hold_equal(what, results, other):
@@ -2238,14 +2461,16 @@ class Smoke:
         del r8, r1, c8, c1, l8, l1, d8, d1
 
         # paged, span 8, over a pool that starts as NaN everywhere; the same
-        # with the spans' bodies run eagerly first (the graphs' reference)
-        eager, _ = self._serve_run(torch, "paged span 8 (poisoned pool) eager", None, prompts,
-                                   poison=True, eager=True, paged=True, block_size=16,
-                                   decode_span=8)
+        # with every step's body run eagerly first (the graphs' reference)
+        eager, eng_e = self._serve_run(torch, "paged span 8 (poisoned pool) eager", None,
+                                       prompts, poison=True, eager=True, paged=True,
+                                       block_size=16, decode_span=8)
         paged, eng = self._serve_run(torch, "paged span 8 (poisoned pool)", "serve:paged",
                                      prompts, poison=True, paged=True, block_size=16,
                                      decode_span=8)
         self._hold_equal("paged span 8, graphs vs eager", paged, eager)
+        self._hold_caches("paged span 8, graphs vs eager", eng, eng_e)
+        del eng_e
         state, host_off = eng.state, eng.state["host_off"]
         for i in range(eng.b):   # what each slot's last request wrote holds no NaN
             blocks = state["tables"][i].long()
@@ -2278,9 +2503,11 @@ class Smoke:
         span1, eng = self._serve_run(torch, "paged span 1", "serve:paged", prompts, paged=True,
                                      block_size=16, decode_span=1)
         self._serve_step_times(torch, eng)
-        eager, _ = self._serve_run(torch, "paged span 1 eager", None, prompts, eager=True,
-                                   paged=True, block_size=16, decode_span=1)
+        eager, eng_e = self._serve_run(torch, "paged span 1 eager", None, prompts, eager=True,
+                                       paged=True, block_size=16, decode_span=1)
         self._hold_equal("paged span 1, graphs vs eager", span1, eager)
+        self._hold_caches("paged span 1, graphs vs eager", eng, eng_e)
+        del eng_e
         del eng
         torch.cuda.empty_cache()
         equal = self._hold_to_run("span 8 (poisoned pool) vs span 1 (clean pool)", paged, span1,
@@ -2295,9 +2522,11 @@ class Smoke:
         fused, eng = self._serve_run(torch, "dense chunk 128 fused", "serve:dense", prompts,
                                      prefill_chunk=128, decode_span=8)
         self._serve_step_times(torch, eng, "dense", profile=False)
-        eager, _ = self._serve_run(torch, "dense chunk 128 fused eager", None, prompts,
-                                   eager=True, prefill_chunk=128, decode_span=8)
+        eager, eng_e = self._serve_run(torch, "dense chunk 128 fused eager", None, prompts,
+                                       eager=True, prefill_chunk=128, decode_span=8)
         self._hold_equal("dense chunk 128 fused, graphs vs eager", fused, eager)
+        self._hold_caches("dense chunk 128 fused, graphs vs eager", eng, eng_e)
+        del eng_e
         ref_d, cache_err = self._forced_reference(torch, runner, prompts, fused, eng.snaps)
         del eng
         torch.cuda.empty_cache()

@@ -55,7 +55,10 @@
 //  - rows past SQ and slots past the causal limit are zero-filled.
 // Both take any SQ, SKV and offset (the TPU kernels need SQ % 128 == 0 with
 // an offset, S % 256 == 0 without). OFFSET = false compiles the offset out
-// (kernel 5: SQ == SKV, offset 0).
+// (kernel 5: SQ == SKV, offset 0). With OFFSET the block reads the offset
+// from device memory, as the TPU kernel takes its q_offset by scalar
+// prefetch, and optionally the cache row of its batch row: the grid depends
+// on SQ alone, so one captured launch serves every offset and slot.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,6 +95,19 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// The chunk's first absolute position, read from device memory (kernel 4: a
+// CUDA graph replays one launch at whatever offset the buffer holds), and the
+// cache row batch row b attends (the identity without ``rows``; a row out of
+// range is clamped, so a bad index reads a wrong row, never outside the cache).
+template <bool OFFSET>
+__device__ __forceinline__ int chunk_offset(const int* q_offset) {
+  return OFFSET ? __ldg(q_offset) : 0;
+}
+template <bool OFFSET>
+__device__ __forceinline__ int cache_row(const int* rows, int b, int Bkv) {
+  return (OFFSET && rows != nullptr) ? min(max(__ldg(rows + b), 0), Bkv - 1) : b;
+}
+
 // grid: (ceil(SQ / kBQ), H, B); block: kThreads; dynamic smem: kSmemBytes
 template <bool OFFSET>
 __global__ void __launch_bounds__(kThreads)
@@ -99,23 +115,27 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
              const __nv_bfloat16* __restrict__ k,   // (B, SKV, Hkv, D)
              const __nv_bfloat16* __restrict__ v,   // (B, SKV, Hkv, D)
              __nv_bfloat16* __restrict__ out,       // (B, SQ, H, D)
-             int SQ, int SKV, int H, int Hkv, int q_offset, float scale) {
+             int SQ, int Bkv, int SKV, int H, int Hkv,
+             const int* __restrict__ q_offset,      // (1,): the chunk's first position
+             const int* __restrict__ rows,          // (B,) cache row per batch row, or null
+             float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ks = qs + kTile;
   __nv_bfloat16* vs = ks + kTile;
 
-  const int off = OFFSET ? q_offset : 0;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
+  const int off = chunk_offset<OFFSET>(q_offset);
+  const int kb = cache_row<OFFSET>(rows, b, Bkv);
   const int kvh = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
 
   const size_t q_stride = (size_t)H * kD, kv_stride = (size_t)Hkv * kD;
   const __nv_bfloat16* qbase = q + ((size_t)b * SQ * H + h) * kD;
-  const __nv_bfloat16* kbase = k + ((size_t)b * SKV * Hkv + kvh) * kD;
-  const __nv_bfloat16* vbase = v + ((size_t)b * SKV * Hkv + kvh) * kD;
+  const __nv_bfloat16* kbase = k + ((size_t)kb * SKV * Hkv + kvh) * kD;
+  const __nv_bfloat16* vbase = v + ((size_t)kb * SKV * Hkv + kvh) * kD;
 
   // keys up to the causal limit of the tile's last real row; slots past it
   // are never read (zero-filled), so a cache may hold anything there
@@ -285,8 +305,8 @@ constexpr int kWConsumerRegs = 240, kWProducerRegs = 24;
 constexpr int kBarZero = 1, kBarTurn = 2;
 
 // grid: (ceil(SQ / kWBQ), H, B); block: kWThreads; dynamic smem: kWSmemBytes.
-// tq / tk / tv: 4-D tensor maps (D, heads, rows, B) of q, k, v with a box of
-// (64, 1, 128, 1) and the 128-byte swizzle.
+// tq / tk / tv: 4-D tensor maps (D, heads, rows, B) of q and (D, heads, rows,
+// Bkv) of k, v with a box of (64, 1, 128, 1) and the 128-byte swizzle.
 //
 // Each consumer warpgroup runs, per key tile t: wait for its turn; issue S(t)
 // = Q K(t)^T and O += P(t-1) V(t-1); hand the turn to the other warpgroup;
@@ -299,7 +319,8 @@ template <bool OFFSET>
 __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                   int SQ, int SKV, int H, int Hkv, int q_offset, float scale) {
+                   int SQ, int Bkv, int SKV, int H, int Hkv, const int* __restrict__ q_offset,
+                   const int* __restrict__ rows, float scale) {
   using namespace gptq_hopper;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -318,9 +339,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   // (t / kWStages)-th phase when it lands and when it is released
   auto parity = [](int t) { return (uint32_t)((t / kWStages) & 1); };
 
-  const int off = OFFSET ? q_offset : 0;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kWBQ;   // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
+  const int off = chunk_offset<OFFSET>(q_offset);
+  const int kb = cache_row<OFFSET>(rows, b, Bkv);
   const int kvh = h / (H / Hkv);
   // keys up to the causal limit of the tile's last real row
   const int kv_end = min(SKV, off + min(q0 + kWBQ, SQ));
@@ -356,15 +378,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
           const int st = t % kWStages;
           if (t >= kWStages) mbar_wait(k_empty(st), parity(t - kWStages));
           mbar_expect_tx(k_full(st), kWBox);
-          tma_load_4d(sk(st), &tk, k_full(st), 0, kvh, t * kWBK, b);
-          tma_load_4d(sk(st) + kWHalf, &tk, k_full(st), 64, kvh, t * kWBK, b);
+          tma_load_4d(sk(st), &tk, k_full(st), 0, kvh, t * kWBK, kb);
+          tma_load_4d(sk(st) + kWHalf, &tk, k_full(st), 64, kvh, t * kWBK, kb);
         }
         if (t >= 1) {
           const int u = t - 1, st = u % kWStages;
           if (u >= kWStages) mbar_wait(v_empty(st), parity(u - kWStages));
           mbar_expect_tx(v_full(st), kWBox);
-          tma_load_4d(sv(st), &tv, v_full(st), 0, kvh, u * kWBK, b);
-          tma_load_4d(sv(st) + kWHalf, &tv, v_full(st), 64, kvh, u * kWBK, b);
+          tma_load_4d(sv(st), &tv, v_full(st), 0, kvh, u * kWBK, kb);
+          tma_load_4d(sv(st) + kWHalf, &tv, v_full(st), 64, kvh, u * kWBK, kb);
         }
       }
     }
@@ -606,10 +628,14 @@ enum Path { kSync = 0, kWgmma = 1 };
 
 // One launch; sets the dynamic shared memory attribute once per instantiation
 // (not per launch, so a CUDA-graph capture sees none).
+// k/v are (Bkv, SKV, Hkv, D): the tensor maps cover the whole cache, so a
+// launch captured in a CUDA graph replays over the same tensors whatever
+// offset and rows the device buffers hold (kernel 4). Kernel 5 passes null
+// offset and rows and Bkv = B.
 template <bool OFFSET>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int SQ,
-                   int SKV, int H, int Hkv, int q_offset, float scale, int path,
-                   cudaStream_t stream) {
+                   int Bkv, int SKV, int H, int Hkv, const int* q_offset, const int* rows,
+                   float scale, int path, cudaStream_t stream) {
   auto* ob = static_cast<__nv_bfloat16*>(out);
   if (path == kWgmma) {
     auto kern = flash_wgmma_kernel<OFFSET>;
@@ -617,12 +643,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
     if (attr != cudaSuccess) return attr;
     CUtensorMap tq, tk, tv;
-    if (!tensor_map(&tq, q, B, SQ, H) || !tensor_map(&tk, k, B, SKV, Hkv) ||
-        !tensor_map(&tv, v, B, SKV, Hkv))
+    if (!tensor_map(&tq, q, B, SQ, H) || !tensor_map(&tk, k, Bkv, SKV, Hkv) ||
+        !tensor_map(&tv, v, Bkv, SKV, Hkv))
       return cudaErrorInvalidValue;
     dim3 grid((SQ + kWBQ - 1) / kWBQ, H, B);
-    kern<<<grid, kWThreads, kWSmemBytes, stream>>>(tq, tk, tv, ob, SQ, SKV, H, Hkv, q_offset,
-                                                   scale);
+    kern<<<grid, kWThreads, kWSmemBytes, stream>>>(tq, tk, tv, ob, SQ, Bkv, SKV, H, Hkv,
+                                                   q_offset, rows, scale);
     return cudaGetLastError();
   }
   if (path != kSync) return cudaErrorInvalidValue;
@@ -633,7 +659,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   dim3 grid((SQ + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), ob, SQ, SKV, H, Hkv, q_offset, scale);
+      static_cast<const __nv_bfloat16*>(v), ob, SQ, Bkv, SKV, H, Hkv, q_offset, rows, scale);
   return cudaGetLastError();
 }
 

@@ -25,6 +25,7 @@ extern "C" int gptq_flash_prefill(const void* q, const void* k, const void* v, v
   if (D != gptq_flash::kD || B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(gptq_flash::launch<false>(q, k, v, out, B, S, S, H, Hkv, 0, scale, path,
+  return static_cast<int>(gptq_flash::launch<false>(q, k, v, out, B, S, B, S, H, Hkv, nullptr,
+                                                    nullptr, scale, path,
                                                     static_cast<cudaStream_t>(stream)));
 }

@@ -55,22 +55,25 @@ def apply_rope(q, k, cos, sin):
 def update_kv_cache(cache_k, cache_v, k_new, v_new, offset, write_mask=None):
     """Write k/v at [offset, offset + s) of static-size caches, IN PLACE.
 
-    cache_k/v: (B, max_len, Hkv, D); k_new/v_new: (B, s, Hkv, D); offset: an
-    int (all rows aligned) or a (B,) tensor (every row at its own position).
-    write_mask: optional (B,) bool with vector offsets; False rows keep their
-    existing contents. Unlike the functional TPU version the caches are
-    updated in place (no copy of the whole cache per token) and returned."""
+    cache_k/v: (B, max_len, Hkv, D); k_new/v_new: (B, s, Hkv, D); offset: a
+    host int (all rows aligned), a (B,) tensor (every row at its own
+    position) or a 1-element tensor (all rows at it; read on the device, as
+    a CUDA graph needs). The caller keeps offset + s within the cache: a
+    device offset is not checked on the host. write_mask: optional (B,) bool
+    with tensor offsets; False rows keep their existing contents. Unlike the
+    functional TPU version the caches are updated in place (no copy of the
+    whole cache per token) and returned."""
     k_new = k_new.to(cache_k.dtype)
     v_new = v_new.to(cache_v.dtype)
     s = k_new.shape[1]
-    if not isinstance(offset, torch.Tensor) or offset.ndim == 0:
+    if not isinstance(offset, torch.Tensor):
         off = int(offset)
         cache_k[:, off:off + s] = k_new
         cache_v[:, off:off + s] = v_new
         return cache_k, cache_v
     # a scatter along the slots: 3 launches a layer in a decode graph where an
     # indexed write takes 6
-    cols = offset.to(cache_k.device).long()[:, None]
+    cols = offset.to(cache_k.device).reshape(-1).long()[:, None]
     if s > 1:
         cols = cols + torch.arange(s, device=cache_k.device)
     idx = cols[:, :, None, None].expand(k_new.shape)
@@ -127,8 +130,9 @@ def apply_kv_cache(past_kv, k, v):
                                               one layer's block pool
                                               (NB, BS, Hkv, D); runtime/paged.py.
                                               One decode token per row, or one
-                                              slot's chunk (one table row, a
-                                              host-int offset)
+                                              slot's chunk (one table row; a
+                                              host-int offset, or a device one
+                                              with its bound max_live)
       ("fresh", ck, cv, write_mask)           batched admission: every masked
       ("fresh_paged", kp, vp, tables, write_mask)
                                               row's prompt starts at cache
@@ -143,11 +147,22 @@ def apply_kv_cache(past_kv, k, v):
                                               flat (1, B + C) token row: rows
                                               0..B-1 are one decode token per
                                               slot, rows B.. a prompt chunk of
-                                              slot ``slot`` (host int) starting
-                                              at ``off0`` (host int)
-    Returns (k_eff, v_eff, present, offset): what attention reads (tensors,
-    or ("pool", pool, tables) markers), what the layer returns as its cache,
-    and the offset declaration for ``sdpa`` (None: causal over k_eff)."""
+                                              slot ``slot`` starting at
+                                              ``off0``; b_dec = 0 (offsets and
+                                              live None) is one slot's prompt
+                                              or chunk alone. slot and off0 are
+                                              host ints or 1-element int32
+                                              tensors on the device (then
+                                              max_live, the one bound of the
+                                              decode rows' offset + 1 and of
+                                              off0 + C, is required)
+    An offset on the device is never read on the host (no ``int()``,
+    ``.item()`` or host-sized slice of it), so a CUDA graph captured over a
+    form replays at any offset and slot; ``max_live`` is the host-side bound
+    the kernels plan from. Returns (k_eff, v_eff, present, offset): what
+    attention reads (tensors, or ("pool", pool, tables) markers), what the
+    layer returns as its cache, and the offset declaration for ``sdpa``
+    (None: causal over k_eff)."""
     if past_kv is None:
         return k, v, (k, v), None
     if _is_fold(past_kv):
@@ -167,18 +182,19 @@ def apply_kv_cache(past_kv, k, v):
         return k, v, (kp, vp), None
     if tag == "grouped":
         _, ck, cv, offsets, live, slot, off0, b_dec = past_kv[:8]
-        c = k.shape[1] - b_dec
-        ck[slot, off0:off0 + c] = k[0, b_dec:].to(ck.dtype)
-        cv[slot, off0:off0 + c] = v[0, b_dec:].to(cv.dtype)
-        ck, cv = update_kv_cache(ck, cv, k[0, :b_dec, None], v[0, :b_dec, None], offsets,
-                                 write_mask=live)
+        _slot_write(ck, k[0, b_dec:], slot, off0)
+        _slot_write(cv, v[0, b_dec:], slot, off0)
+        if b_dec:
+            update_kv_cache(ck, cv, k[0, :b_dec, None], v[0, :b_dec, None], offsets,
+                            write_mask=live)
         return ck, cv, (ck, cv), ("grouped", offsets, slot, off0, b_dec, *past_kv[8:])
     if tag == "grouped_paged":
         _, kp, vp, tables, offsets, live, slot, off0, b_dec = past_kv[:9]
-        kp, vp, _, _ = paged_update_layer(kp, vp, k[:, b_dec:], v[:, b_dec:],
-                                          tables[slot:slot + 1], off0, gather=False)
-        kp, vp, _, _ = paged_update_layer(kp, vp, k[0, :b_dec, None], v[0, :b_dec, None],
-                                          tables, offsets, write_mask=live, gather=False)
+        paged_update_layer(kp, vp, k[:, b_dec:], v[:, b_dec:], _table_row(tables, slot), off0,
+                           gather=False)
+        if b_dec:
+            paged_update_layer(kp, vp, k[0, :b_dec, None], v[0, :b_dec, None], tables, offsets,
+                               write_mask=live, gather=False)
         return (("pool", kp, tables), ("pool", vp, tables), (kp, vp),
                 ("grouped", offsets, slot, off0, b_dec, *past_kv[9:]))
     if tag == "paged":
@@ -192,18 +208,19 @@ def apply_kv_cache(past_kv, k, v):
                                               write_mask=write_mask, gather=False)
             return (("pool", kp, tables), ("pool", vp, tables), (kp, vp),
                     _rows(offset, max_live))
-        if not isinstance(offset, torch.Tensor) and tables.shape[0] == 1:
-            # one slot's prefill chunk at a host offset: gather only the
-            # blocks its queries can see
+        if tables.shape[0] == 1:
+            # one slot's prefill chunk: gather only the blocks its queries can
+            # see (up to the host bound, a device offset's max_live)
+            seen = _chunk_bound(offset, s, max_live)
             kp, vp, _, _ = paged_update_layer(kp, vp, k, v, tables, offset,
                                               write_mask=write_mask, gather=False)
-            return (gather_prefix(kp, tables[0], offset + s),
-                    gather_prefix(vp, tables[0], offset + s), (kp, vp), offset)
+            return (gather_prefix(kp, tables[0], seen), gather_prefix(vp, tables[0], seen),
+                    (kp, vp), _rows(offset, seen))
         # several rows' chunks over their full gathered views: no engine path
         # sends this (prefills go one slot at a time, admissions are "fresh")
         raise NotImplementedError(
-            "a paged prefill takes one slot (one table row) and a host-int offset; "
-            "batched admissions use the fresh_paged form")
+            "a paged prefill takes one slot (one table row); batched admissions use the "
+            "fresh_paged form")
     cache_k, cache_v, offset = past_kv[:3]
     write_mask = past_kv[3] if len(past_kv) > 3 else None
     max_live = past_kv[4] if len(past_kv) > 4 else None
@@ -214,6 +231,39 @@ def apply_kv_cache(past_kv, k, v):
 def _rows(offset, max_live):
     """Per-row offsets with their host-side bound, for ``sdpa``."""
     return offset if max_live is None else ("rows", offset, max_live)
+
+
+def _chunk_bound(off0, c: int, max_live) -> int:
+    """The host-side bound on off0 + c that a chunk's kernels plan from:
+    ``max_live`` (required for a device offset), never below off0 + c for a
+    host one."""
+    if isinstance(off0, torch.Tensor):
+        if max_live is None:
+            raise ValueError("a chunk at a device offset needs its host-side bound (max_live)")
+        return int(max_live)
+    return max(int(off0) + c, int(max_live or 0))
+
+
+def _slot_write(cache, new, slot, off0) -> None:
+    """new (C, Hkv, D) into cache[slot, off0:off0 + C], in place; slot and
+    off0 host ints, or 1-element tensors on the device (an indexed write: no
+    host read). The caller keeps off0 + C within the cache."""
+    new = new.to(cache.dtype)
+    if not isinstance(slot, torch.Tensor) and not isinstance(off0, torch.Tensor):
+        cache[slot, off0:off0 + new.shape[0]] = new
+        return
+    dev = cache.device
+    pos = torch.as_tensor(off0, device=dev).reshape(-1).long() + torch.arange(new.shape[0],
+                                                                             device=dev)
+    cache.index_put_((torch.as_tensor(slot, device=dev).reshape(-1).long(), pos), new)
+
+
+def _table_row(tables, slot):
+    """Slot ``slot``'s block-table row, (1, MB): a host int slices, a device
+    slot selects on the device."""
+    if isinstance(slot, torch.Tensor):
+        return tables.index_select(0, slot.reshape(-1))
+    return tables[slot:slot + 1]
 
 
 def _is_fold(past_kv) -> bool:
@@ -251,21 +301,32 @@ def attention_block(past_kv, q, k, v, mask, scale=None):
 def _grouped_attention(q, k, v, sc, offsets, slot, off0, b_dec, max_live=None):
     """The token-fused serving step (see apply_kv_cache "grouped"): the flat
     token rows split into the per-slot decode group and the one-slot chunk
-    group, each attending its own view of the updated cache. k/v are dense
-    (B, S, Hkv, D) caches or ("pool", pool, tables) markers."""
-    q_dec = q[0, :b_dec, None]                       # (B, 1, H, D)
+    group, each attending its own view of the updated cache (b_dec = 0: the
+    chunk alone). k/v are dense (B, S, Hkv, D) caches or ("pool", pool,
+    tables) markers. The chunk runs kernel 4 at ``off0`` under the bound
+    ``max_live``: over a dense cache on the slot's row of the whole cache (no
+    copy), over a pool on the blocks of the bound gathered through the
+    slot's table row."""
     q_chunk = q[:, b_dec:]                           # (1, C, H, D)
-    seen = off0 + q_chunk.shape[1]                   # slots the chunk's queries can see
+    bound = _chunk_bound(off0, q_chunk.shape[1], max_live)
+    rows = slot.reshape(1) if isinstance(slot, torch.Tensor) else None
     if isinstance(k, tuple):
         from ..runtime.paged import gather_prefix
         (_, kp, tables), (_, vp, _) = k, v
-        out_dec = pool_decode_attention(q_dec, kp, vp, tables, offsets, sc, max_live)
-        kc = gather_prefix(kp, tables[slot], seen).to(q.dtype)
-        vc = gather_prefix(vp, tables[slot], seen).to(q.dtype)
+        row = _table_row(tables, slot)[0]
+        out_chunk = flash_prefill_blocked(q_chunk, gather_prefix(kp, row, bound).to(q.dtype),
+                                          gather_prefix(vp, row, bound).to(q.dtype), off0, sc,
+                                          bound)
+        if b_dec:
+            out_dec = pool_decode_attention(q[0, :b_dec, None], kp, vp, tables, offsets, sc,
+                                            max_live)
     else:
-        out_dec = decode_attention(q_dec, k, v, offsets, sc, max_live)
-        kc, vc = k[slot:slot + 1, :seen], v[slot:slot + 1, :seen]
-    out_chunk = flash_prefill_blocked(q_chunk, kc.contiguous(), vc.contiguous(), off0, sc)
+        kc, vc = (k, v) if rows is not None else (k[slot:slot + 1], v[slot:slot + 1])
+        out_chunk = flash_prefill_blocked(q_chunk, kc, vc, off0, sc, bound, rows)
+        if b_dec:
+            out_dec = decode_attention(q[0, :b_dec, None], k, v, offsets, sc, max_live)
+    if not b_dec:
+        return out_chunk
     return torch.cat([out_dec[:, 0][None], out_chunk], dim=1)
 
 
@@ -278,16 +339,18 @@ def sdpa(q, k, v, mask=None, scale: float | None = None, decode_offset=None,
     step. mask: additive (Sq, Skv) or (B, 1, Sq, Skv). decode_offset DECLARES
     that the mask is exactly the causal-at-offset predicate: with Sq == 1 it
     goes to the decode-attention kernel (over a pool: the pool kernel), with
-    Sq > 1 and a host-int or 0-d offset to the blocked prefill kernel
-    (gptq_for_llama_tpu/models/common.py:341-447). It is an int, a tensor,
-    ("rows", offsets, max_live) (per-row offsets with a host-side bound on the
-    live length) or the ("grouped", ...) marker of the token-fused serving
-    step. causal DECLARES that the mask is plain causal self-attention: the
-    causal prefill kernel takes every Sq (the TPU package's Sq > 256 and VMEM
-    gates exist only for its kernel). The kernels ignore ``mask``. On a CPU
-    tensor each path takes its plain version; a CUDA tensor with any other
-    mask raises, since no kernel applies an arbitrary mask (so a per-row
-    prefill passes its offset as a host int, not as a (1,) tensor)."""
+    Sq > 1 and one offset for every row to the blocked prefill kernel
+    (gptq_for_llama_tpu/models/common.py:341-447): a host int, or a
+    1-element tensor read on the device with its host-side bound on
+    offset + Sq. It is an int, a tensor, ("rows", offsets, max_live) (offsets
+    with a host-side bound on the live length) or the ("grouped", ...) marker
+    of the token-fused serving step. causal DECLARES that the mask is plain
+    causal self-attention: the causal prefill kernel takes every Sq (the TPU
+    package's Sq > 256 and VMEM gates exist only for its kernel). The kernels
+    ignore ``mask``. On a CPU tensor each path takes its plain version; a
+    CUDA tensor with any other mask raises, since no kernel applies an
+    arbitrary mask (so does a device offset for a chunk of queries without
+    its bound, or with one offset per row)."""
     sq, d = q.shape[1], q.shape[3]
     sc = scale if scale is not None else 1.0 / (d ** 0.5)
     max_live = None
@@ -301,11 +364,12 @@ def sdpa(q, k, v, mask=None, scale: float | None = None, decode_offset=None,
             raise ValueError("a block pool is attended one decode token per row at its offset")
         return pool_decode_attention(q, kp, vp, tables, decode_offset, sc, max_live)
     if decode_offset is not None:
-        scalar = not isinstance(decode_offset, torch.Tensor) or decode_offset.ndim == 0
         if sq == 1:
             return decode_attention(q, k, v, decode_offset, sc, max_live)
-        if scalar:
-            return flash_prefill_blocked(q, k, v, int(decode_offset), sc)
+        if not isinstance(decode_offset, torch.Tensor):
+            return flash_prefill_blocked(q, k, v, decode_offset, sc, max_live)
+        if decode_offset.numel() == 1 and (max_live is not None or not q.is_cuda):
+            return flash_prefill_blocked(q, k, v, decode_offset, sc, max_live)
         if mask is None:
             mask = decode_mask(sq, k.shape[1], decode_offset)
     elif causal:

@@ -22,9 +22,14 @@ graph records the change of ``launch_counts()``, and of its owner's own
 counters (the engine's ``forwards``), across its capture, takes it back (the
 capture launched nothing) and adds it again on every replay.
 
-Graphs are keyed by a bucket of the live length: the decode kernels plan
-their split from a host-side bound on the live slots, which a capture
-freezes (``live_buckets``, ``bucket_for``).
+Graphs are keyed by a bucket of the live length: the decode kernels and the
+blocked prefill kernel plan from a host-side bound on the live slots, which a
+capture freezes (``live_buckets``, ``bucket_for``); the offsets, slots and
+token ids they run at are device buffers the owner loads before a replay.
+The keys, by kind (``kind``): the runner's ("decode", bucket),
+("greedy" | "forced", n, bucket), ("sample", ...) and ("prefill", S_pad,
+bucket); the engine's decode spans (span, mode, bucket), ("prefill", blen),
+("admit", blen), ("chunk", bucket) and ("chunk+decode", bucket).
 """
 
 from __future__ import annotations
@@ -57,11 +62,18 @@ def bucket_for(live: int, buckets) -> int:
     return buckets[-1]
 
 
+def kind(key) -> str:
+    """The kind of a graph key: its first word, "decode" for the engine's
+    decode spans (keyed (span, mode, bucket))."""
+    return key[0] if isinstance(key[0], str) else "decode"
+
+
 class _Captured(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     out: object          # the body's return value at capture: tensors a replay rewrites
     launches: dict       # launch_counts() added by one replay
     counts: tuple        # one dict per owner counter, added by one replay
+    seconds: float       # host seconds of its warm call and capture
 
 
 def _diff(after: dict, before: dict) -> dict:
@@ -79,6 +91,7 @@ class Graphs:
         self._graphs: dict[Hashable, _Captured] = {}
         self._pool = None
         self.capture_s = 0.0     # host seconds spent capturing, warm calls included
+        self.replays: dict[Hashable, int] = {}   # replays of each key
 
     @property
     def on_card(self) -> bool:
@@ -108,7 +121,19 @@ class Graphs:
         captured = self._graphs[key]
         captured.graph.replay()
         self._add(captured.launches, captured.counts)
+        self.replays[key] = self.replays.get(key, 0) + 1
         return captured.out
+
+    def by_kind(self) -> dict[str, dict]:
+        """Per kind of key: graphs captured, their capture seconds (warm
+        calls included) and replays."""
+        out: dict[str, dict] = {}
+        for key, captured in self._graphs.items():
+            row = out.setdefault(kind(key), {"graphs": 0, "capture_s": 0.0, "replays": 0})
+            row["graphs"] += 1
+            row["capture_s"] += captured.seconds
+            row["replays"] += self.replays.get(key, 0)
+        return out
 
     def capture(self, key: Hashable, body: Callable, restore=(), generators=()) -> None:
         """Warm call, then capture. ``restore``: tensors the body changes in
@@ -145,8 +170,9 @@ class Graphs:
             counts = tuple(_diff(a, b) for a, b in zip(after[1], before[1]))
             self._add({k: -n for k, n in launches.items()},
                       tuple({k: -n for k, n in c.items()} for c in counts))
-        self._graphs[key] = _Captured(graph, out, launches, counts)
-        self.capture_s += time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        self._graphs[key] = _Captured(graph, out, launches, counts, seconds)
+        self.capture_s += seconds
 
     def pool_bytes(self) -> int | None:
         """Bytes the caching allocator holds for this pool's graphs (None on

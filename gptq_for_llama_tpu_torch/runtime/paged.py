@@ -108,11 +108,16 @@ def paged_update_layer(kp, vp, k_new, v_new, tables, offset, write_mask=None, ga
     """One layer's paged-cache update (in place) + logical gather.
 
     kp/vp: (NB, BS, Hkv, D), this layer's pool; k_new/v_new (B, s, H, D);
-    tables (B, MB); offset an int or a (B,) tensor: the first position being
-    written. s == 1 is the decode write; s > 1 is a prefill write and needs
-    block-aligned offsets (it writes whole blocks, zero-padded past s: those
-    positions are masked until the real token overwrites them before its
-    first read). Returns (kp, vp, k_eff, v_eff): the gathered logical
+    tables (B, MB); offset an int or a (B,) or 1-element tensor: the first
+    position being written. s == 1 is the decode write; s > 1 is a prefill
+    write and needs block-aligned offsets (it writes whole blocks, zero-padded
+    past s: those positions are masked until the real token overwrites them
+    before its first read). A host offset whose blocks run past the table
+    raises; a device offset is not read on the host (a CUDA graph replays
+    this write at any offset), so its block columns are clamped to the last
+    one and the CALLER checks on the host that the write fits: the serving
+    engine does before every chunk (``ServingEngine._check_fits``).
+    Returns (kp, vp, k_eff, v_eff): the gathered logical
     (B, MB * BS, H, D) views, or (None, None) with gather=False.
     write_mask: optional (B,) bool. With s == 1 rows with False keep their
     pool contents; with s > 1 they are redirected to the reserved scratch
@@ -165,8 +170,10 @@ def paged_update_layer(kp, vp, k_new, v_new, tables, offset, write_mask=None, ga
 
 def gather_prefix(pool_layer, table_row, tokens: int):
     """The first ``tokens`` logical slots of one slot, rounded up to whole
-    blocks: (1, ceil(tokens / BS) * BS, H, D). What a prefill chunk attends;
-    nothing past its last query's position is copied."""
+    blocks: (1, ceil(tokens / BS) * BS, H, D). ``table_row`` (MB,) is the
+    slot's table row on the device (selected there for a device slot), and
+    ``tokens`` the host bound of the chunk's last query position (offset + C
+    or above): what a prefill chunk attends, no block past the bound copied."""
     bs = pool_layer.shape[1]
     blocks = pool_layer[table_row[:-(-tokens // bs)].long()]
     return blocks.reshape(1, -1, *blocks.shape[2:])

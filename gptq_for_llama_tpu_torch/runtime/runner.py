@@ -7,14 +7,16 @@ replays the one-step graph of the live-length bucket; ``decode_greedy_scan``,
 ``decode_sample_scan`` and ``forced_decode_scan`` replay graphs of up to
 ``SCAN_PIECE`` steps each, back to back with no host read between them (the
 argmax, the sampling and the teacher-forced token are inside the graph);
-``generate(span=)`` decodes its spans through ``decode_sample_scan``. On the
-CPU the same step bodies run eagerly. Prefills stay eager: they take the
-offset as a host int, for the blocked prefill kernel.
+``generate(span=)`` decodes its spans through ``decode_sample_scan``;
+``prefill`` replays the graph of ("prefill", S_pad, bucket): the prompt
+right-padded to S_pad (``prefill_len``), at the device offset. On the CPU the
+same step bodies run eagerly.
 
-The decode bodies read the offset from a (B,) int32 tensor on the device
-(every row aligned) and advance it in place, so a graph holds no host
-value but the plan bound of its bucket. Layers are a Python loop; the cache
-is the runner's own storage, written in place (see ``ModelRunner``).
+The bodies read the offset from a (B,) int32 tensor on the device (every row
+aligned; a decode body advances it in place), so a graph holds no host value
+but the plan bound of its bucket: the decode kernels' split and the blocked
+prefill kernel's body. Layers are a Python loop; the cache is the runner's
+own storage, written in place (see ``ModelRunner``).
 
 Entry points run on the card unless the caller asks for the CPU: a
 ``ModelRunner`` without ``device=`` needs CUDA and raises without it.
@@ -36,6 +38,22 @@ from .graphs import Graphs, bucket_for, live_buckets
 # most decode steps one graph of a token scan holds (a power of two): a scan
 # replays graphs of at most this many steps (``ModelRunner._pieces``)
 SCAN_PIECE = 32
+# the smallest prompt bucket of the prefill graphs: prompts are right-padded
+# to a power of two from here (``prefill_len``)
+PREFILL_MIN = 16
+
+
+def prefill_len(s: int, room: int) -> int:
+    """S_pad, the rows of the prefill graph a prompt of ``s`` tokens runs
+    in: the smallest power of two from PREFILL_MIN that holds it and fits the
+    ``room`` left in the cache (max_len - offset); ``s`` itself where none
+    fits. The TPU package compiles one program per exact length; a capture
+    costs more than the eager prefill it replaces, so the port pads to few
+    lengths (ROADMAP, C)."""
+    p = PREFILL_MIN
+    while p < s:
+        p *= 2
+    return p if p <= room else s
 
 
 @dataclasses.dataclass
@@ -76,10 +94,13 @@ class ModelRunner:
     Prefills are the same in both.
 
     ``decode_buckets`` (``graphs.live_buckets``): the decode kernels plan
-    their split from a host-side bound on the live slots, which a capture
-    freezes, so every decode step runs under the plan of its live length's
-    bucket and the graphs are keyed by it; ``warmup`` captures every bucket's
-    one-step graph.
+    their split, and the blocked prefill kernel its body, from a host-side
+    bound on the live slots, which a capture freezes, so every step runs
+    under the plan of its live length's bucket and the graphs are keyed by
+    it; ``warmup`` captures every bucket's one-step graph and the prefill
+    graphs it is asked for. A prefill writes the pad rows' k/v past the
+    prompt (S_pad - S slots past the new offset); they are masked until a
+    later step overwrites them, as a decode step's are.
     ``forwards`` counts the forwards made, prefill and decode (a replay counts
     the forwards its graph holds); ``graphs.capture_s`` the capture time."""
 
@@ -159,28 +180,52 @@ class ModelRunner:
 
     @torch.inference_mode()
     def _step(self, ids: torch.Tensor, cache: KVCache):
-        """The eager step: ids (B, S) at the handle's offset. A prefill (S > 1)
-        passes the offset down as a host int, so attention goes to the
-        blocked prefill kernel; one token runs the decode graphs' body
-        (``_one_step``) eagerly, under the same plan."""
+        """The eager step: ids (B, S) at the handle's offset, through the
+        graphs' bodies run eagerly under the same plan: a prefill (S > 1)
+        through ``_prefill_body``, one token through ``_one_step``."""
+        if ids.shape[1] > 1:
+            return self._prefill(ids, cache, _call)
+        self._use(cache, *ids.shape)
+        ids = ids.to(self.device)
+        self._at(cache)
+        logits = self._one_step(ids, bucket_for(cache.offset + 1, self.decode_buckets))
+        self._dev_off = cache.offset + 1
+        return logits, dataclasses.replace(cache, offset=cache.offset + 1)
+
+    def _prefill(self, ids: torch.Tensor, cache: KVCache, run):
+        """ids (B, S) right-padded to S_pad (``prefill_len``) into the static
+        id buffer, then ``run`` (the graphs' ``run``, or a plain call) of the
+        prefill body keyed ("prefill", S_pad, bucket of offset + S_pad).
+        Returns the logits of the S real rows and the handle advanced by S."""
         b, s = ids.shape
         self._use(cache, b, s)
-        ids = ids.to(self.device)
-        if s == 1:
-            self._at(cache)
-            logits = self._one_step(ids, bucket_for(cache.offset + 1, self.decode_buckets))
-            self._dev_off = cache.offset + 1
-            return logits, dataclasses.replace(cache, offset=cache.offset + 1)
-        arch, cfg, off = self.arch, self.cfg, cache.offset
-        positions = torch.arange(off, off + s, device=self.device)[None, :]
+        s_pad = prefill_len(s, self.max_len - cache.offset)
+        bound = bucket_for(cache.offset + s_pad, self.decode_buckets)
+        buf = self._buf("prefill", (b, s_pad), torch.long)
+        buf[:, :s].copy_(ids)
+        buf[:, s:].zero_()
+        self._at(cache)
+        logits = run(("prefill", s_pad, bound), lambda: self._prefill_body(buf, bound),
+                     restore=[self._store.offs, *self._bufs.values()])
+        # the body leaves the device offsets; the next step's ``_at`` moves them
+        return logits[:, :s].clone(), dataclasses.replace(cache, offset=cache.offset + s)
+
+    def _prefill_body(self, ids: torch.Tensor, bound: int) -> torch.Tensor:
+        """The prefill graphs' body: ids (B, S_pad) at the device offsets
+        (every row aligned), the cache written through ``update_kv_cache``'s
+        tensor-offset path and attended by the blocked prefill kernel at the
+        device offset, planned for ``bound`` (>= offset + S_pad). Returns the
+        logits (B, S_pad, V)."""
+        arch, cfg, store = self.arch, self.cfg, self._store
+        off = store.offs[:1]
+        positions = store.offs[:, None].long() + torch.arange(ids.shape[1], device=self.device)
         rope = arch.step_rope(cfg, positions, self.dtype)
         x = arch.embed(self.params, cfg, ids).to(self.dtype)
-        fold = ("fold",) if self.cache_impl == "fold" else ()
         x, delta = arch.stack(self.params, cfg, x, positions, None,
-                              lambda li: (*fold, cache.k[li], cache.v[li], off), rope=rope)
+                              lambda li: (store.k[li], store.v[li], off, None, bound), rope=rope)
         logits = arch.head(self.params, cfg, x, delta)
         self.forwards["prefill"] += 1
-        return logits, dataclasses.replace(cache, offset=off + s)
+        return logits
 
     def _one_step(self, ids: torch.Tensor, max_live: int) -> torch.Tensor:
         """One decode step at the device offsets, the unit of every graph
@@ -231,9 +276,11 @@ class ModelRunner:
         self._dev_off = cache.offset + steps
         return out, dataclasses.replace(cache, offset=cache.offset + steps)
 
+    @torch.inference_mode()
     def prefill(self, ids: torch.Tensor, cache: KVCache):
-        """ids: (B, S) prompt tokens. Returns (logits (B, S, V), cache)."""
-        return self._step(ids, cache)
+        """ids: (B, S) prompt tokens. Returns (logits (B, S, V), cache). On
+        the card it replays the graph of ("prefill", S_pad, bucket)."""
+        return self._prefill(ids, cache, self.graphs.run)
 
     @torch.inference_mode()
     def decode(self, ids: torch.Tensor, cache: KVCache):
@@ -353,10 +400,10 @@ class ModelRunner:
         return logits
 
     def warmup(self, prefill_buckets=(16,)) -> None:
-        """Build the kernels (a prefill of each given length, on a scratch
-        cache) and make every live-length bucket's one-step decode graph, so
-        that no capture falls inside a timed decode loop. Every cache handle
-        is stale after it: call ``init_cache()``."""
+        """Make the prefill graph of each given prompt length at offset 0 (a
+        prefill on a scratch cache) and every live-length bucket's one-step
+        decode graph, so that no capture falls inside a timed loop. Every
+        cache handle is stale after it: call ``init_cache()``."""
         for s in prefill_buckets:
             ids = torch.zeros((self.batch, s), dtype=torch.long, device=self.device)
             self.prefill(ids, self.init_cache())
@@ -374,6 +421,11 @@ class ModelRunner:
                                         lambda b=bucket: self._one_step(tok, b),
                                         restore=[self._store.offs, *self._bufs.values()])
         _sync(self.device)
+
+
+def _call(key, body, restore=(), generators=()):
+    """``Graphs.run``'s signature, calling the body: a step run eagerly."""
+    return body()
 
 
 def check_cache_impl(cache_impl: str) -> str:

@@ -17,21 +17,26 @@ sequences:
 - finished sequences (eos / max_new) free their slot at once and the scheduler
   backfills from the queue.
 
-The TPU package compiles its steps; here a decode span (``decode_span``
-decode+sample steps, ONE host read at the end; a single decode step is a
-span of 1) is a CUDA graph (``runtime/graphs.py``) keyed by (span, sampling
-mode, live-length bucket), and replays on the card; the CPU runs the same
-body eagerly. Prefills, batched admissions and the chunk and chunk+decode
-steps stay eager: each is a Python loop over the layers, whose caches are
-written in place. Everything a graph reads or writes is allocated once per
-engine (``state``: the caches, the block tables, the per-row offsets and the
-span's tokens, live mask and sampling parameters), and the host loads its
-own copies into it before each decode forward: ``host_off`` (the offsets),
-``live``, ``toks``, ``temps``, ``tops``. The host copy of the offsets also
-schedules, bounds the decode kernels' split plan (the graph's bucket) and
-passes one slot's prefill offset as a host int (so the blocked prefill
-kernel takes it). ``forwards`` counts the forwards of each kind that ``run``
-has made (a replay counts those its graph holds).
+The TPU package compiles its steps; here every step is a CUDA graph
+(``runtime/graphs.py``), replayed on the card, keyed as the TPU package's
+programs are: a decode span (``decode_span`` decode+sample steps, ONE host
+read at the end; a single decode step is a span of 1) by (span, sampling
+mode, live-length bucket), a slot's bucketed prefill by ("prefill", blen), a
+batched admission by ("admit", blen), a prompt chunk by ("chunk", bucket) and
+the fused chunk+decode step by ("chunk+decode", bucket), one bucket holding
+the chunk's end and every decode row's offset + 1. The CPU runs the same
+bodies eagerly. Everything a graph reads or writes is allocated once per
+engine (``state``: the caches, the block tables, the per-row offsets, the
+span's tokens, live mask and sampling parameters, and the prefill inputs:
+token ids, the slot, its chunk offset and last-token index, the admit mask
+and the prompt lengths), and the host loads its own copies into it before
+each replay (``_load``, ``_load_slot``): a graph holds no host value but its
+key. The host copy of the offsets schedules, bounds the kernels' plans (the
+graph's bucket) and checks that a chunk fits its slot before the replay
+(``_check_fits``: on the card a write past the slot cannot be seen). After
+a prefill the first token is sampled outside the graph. ``forwards`` counts
+the forwards of each kind that ``run`` has made (a replay counts those its
+graph holds).
 """
 
 from __future__ import annotations
@@ -232,54 +237,109 @@ class ServingEngine:
             out.append(toks)
         return torch.cat(out, dim=1)
 
+    def _load_slot(self, state, i: int, ids: np.ndarray, off0: int, last_idx: int) -> None:
+        """One slot's prompt (chunk) into the device buffers a prefill, chunk
+        or chunk+decode forward reads: the ids into row 0 of ``ids_t``, then
+        slot, chunk offset and last-token index in one copy."""
+        state["ids_t"][0, :len(ids)].copy_(torch.from_numpy(np.asarray(ids, np.int64)))
+        state["slot_meta"].copy_(torch.tensor([i, off0, last_idx], dtype=torch.int32))
+
+    def _check_fits(self, i: int, off0: int, n: int) -> None:
+        """Refuse, on the host and before any replay, a write of ``n`` tokens at
+        ``off0`` that would run past slot ``i``'s cache row or its owned
+        blocks: on the card the write's columns are device values and a
+        paged write past the table would be clamped to its last block."""
+        if self.paged:
+            need = -(-(off0 + n) // self.block_size)
+            have = len(self._paged_alloc.owned.get(i, ()))
+            if need > have:
+                raise ValueError(f"slot {i}: {n} tokens at {off0} need {need} blocks, the slot "
+                                 f"owns {have}")
+        elif off0 + n > self.max_len:
+            raise ValueError(f"slot {i}: {n} tokens at {off0} run past the {self.max_len}-row "
+                             f"cache")
+
+    def _slot_meta(self, state):
+        meta = state["slot_meta"]
+        return meta[0:1], meta[1:2], meta[2:3]   # slot, chunk offset, last-token index
+
     def _prefill_slot(self, state, i: int, ids: np.ndarray, off0: int, last_idx: int, kind: str):
         """One slot's (right-padded) prompt or prompt chunk ``ids`` (blen,) at
         cache position ``off0``: writes the slot's cache and returns the
-        logits (1, V) of token ``last_idx``. The offset is a host int, so
-        attention goes to the blocked prefill kernel."""
+        logits (1, V) of token ``last_idx``. On the card the graph of
+        ("prefill", blen) (a bucketed prompt at offset 0) or ("chunk",
+        bucket of off0 + blen) replays."""
         blen = len(ids)
-        positions = torch.arange(off0, off0 + blen, device=self.device)[None, :]
+        self._check_fits(i, off0, blen)
+        self._load_slot(state, i, ids, off0, last_idx)
+        bound = bucket_for(off0 + blen, self.decode_buckets)
+        key = ("prefill", blen) if kind == "prefill" else ("chunk", bound)
+        logits = self.graphs.run(key, lambda: self._slot_body(state, blen, bound, kind))
+        return logits.clone()
+
+    def _slot_body(self, state, blen: int, bound: int, kind: str) -> torch.Tensor:
+        """The prefill and chunk graphs' body: row 0 of ``ids_t`` (blen
+        tokens) of the loaded slot at its loaded chunk offset, as the
+        "grouped" cache forms without decode rows (kernel 4 at the device
+        offset under ``bound``); returns the logits (1, V) of the loaded
+        last-token index."""
+        slot, off0, last = self._slot_meta(state)
         tables, k, v = state["tables"], state["k"], state["v"]
+        positions = (off0.long() + torch.arange(blen, device=self.device))[None]
 
         def past(li):
             if tables is None:
-                return (k[li][i:i + 1], v[li][i:i + 1], off0)
-            return ("paged", k[li], v[li], tables[i:i + 1], off0)
+                return ("grouped", k[li], v[li], None, None, slot, off0, 0, bound)
+            return ("grouped_paged", k[li], v[li], tables, None, None, slot, off0, 0, bound)
 
-        x, delta = self._forward(self._dev(ids[None], torch.long), positions, past)
+        x, delta = self._forward(state["ids_t"][:1, :blen], positions, past)
         self.forwards[kind] += 1
-        last = slice(last_idx, last_idx + 1)
-        return self.arch.head(self.params, self.cfg, x[:, last], delta[:, last])[:, 0]
+        return self.arch.head(self.params, self.cfg, x.index_select(1, last),
+                              delta.index_select(1, last))[:, 0]
 
     def _chunk_decode_step(self, state, i: int, ids: np.ndarray, off0: int, last_idx: int):
         """One forward: the next prompt chunk of slot ``i`` + one decode token
         for all live slots, as ONE flat (1, B + C) token row, so every packed
-        weight is read once for both groups. The cache write / attention
-        split lives in the "grouped" / "grouped_paged" cache protocol. Returns
-        (decode logits (B, V), chunk-last logits (1, V))."""
-        b_dec, c = self.b, len(ids)
+        weight is read once for both groups. On the card the graph of
+        ("chunk+decode", bucket) replays, the bucket holding off0 + C and
+        every row's offset + 1. Returns (decode logits (B, V), chunk-last
+        logits (1, V))."""
+        c = len(ids)
+        self._check_fits(i, off0, c)
         self._load(state)
+        self._load_slot(state, i, ids, off0, last_idx)
+        bound = bucket_for(max(off0 + c, int(state["host_off"].max()) + 1), self.decode_buckets)
+        logits = self.graphs.run(("chunk+decode", bound),
+                                 lambda: self._chunk_decode_body(state, c, bound),
+                                 restore=[state["off"]])
+        return logits[:self.b], logits[self.b:].clone()
+
+    def _chunk_decode_body(self, state, c: int, bound: int) -> torch.Tensor:
+        """The chunk+decode graphs' body over the loaded buffers: the
+        "grouped" cache forms under the one bound, the decode rows' offsets
+        advanced in place; returns the logits (B + 1, V) of the decode rows
+        and the chunk's last token."""
+        b_dec = self.b
+        slot, off0, last = self._slot_meta(state)
         off, live, tables = state["off"], state["live_t"], state["tables"]
         k, v = state["k"], state["v"]
-        max_live = min(int(state["host_off"].max()) + 1, self._kv_len())
-        ids_flat = torch.cat([state["toks_t"][:, 0], self._dev(ids, torch.long)])[None]
+        ids_flat = torch.cat([state["toks_t"][:, 0], state["ids_t"][0, :c]])[None]
         positions = torch.cat([off.long(),
-                               torch.arange(off0, off0 + c, device=self.device)])[None]
+                               off0.long() + torch.arange(c, device=self.device)])[None]
 
         def past(li):
             if tables is None:
-                return ("grouped", k[li], v[li], off, live, i, off0, b_dec, max_live)
-            return ("grouped_paged", k[li], v[li], tables, off, live, i, off0, b_dec, max_live)
+                return ("grouped", k[li], v[li], off, live, slot, off0, b_dec, bound)
+            return ("grouped_paged", k[li], v[li], tables, off, live, slot, off0, b_dec, bound)
 
         x, delta = self._forward(ids_flat, positions, past)
-
-        def rows(t):   # the decode rows and the chunk's last row
-            return torch.cat([t[0, :b_dec], t[0, b_dec + last_idx][None]])[None]
-
-        logits = self.arch.head(self.params, self.cfg, rows(x), rows(delta))[0]
+        # the decode rows and the chunk's last row
+        rows = torch.cat([torch.arange(b_dec, device=self.device), b_dec + last.long()])
+        logits = self.arch.head(self.params, self.cfg, x.index_select(1, rows),
+                                delta.index_select(1, rows))[0]
         off.add_(live.to(off.dtype))
         self.forwards["chunk+decode"] += 1
-        return logits[:b_dec], logits[b_dec:]
+        return logits
 
     def _pick_pending(self):
         """Next pending chunk: (i, slot, ids, off0, last_idx)."""
@@ -452,38 +512,48 @@ class ServingEngine:
         """Prefill every (slot, req, prompt) in ``group`` in ONE forward: all
         prompts start at cache position 0 and attend only their own fresh
         tokens (causal); non-member rows' caches are write-masked (dense) or
-        scratch-redirected (paged)."""
+        scratch-redirected (paged). On the card the graph of ("admit", blen)
+        replays over the loaded ids, admit mask and prompt lengths."""
         ids = np.zeros((self.b, blen), np.int64)
         admit = np.zeros((self.b,), bool)
         lens = np.ones((self.b,), np.int64)
         temps = np.zeros((self.b,), np.float32)
         tops = np.ones((self.b,), np.float32)
         for i, req, prompt in group:
+            self._check_fits(i, 0, blen)
             ids[i, :len(prompt)] = prompt
             admit[i] = True
             lens[i] = len(prompt)
             temps[i], tops[i] = req.temperature, req.top_p
-        admit_t = self._dev(admit)
-        tables, k, v = state["tables"], state["k"], state["v"]
-
-        def past(li):
-            if tables is None:
-                return ("fresh", k[li], v[li], admit_t)
-            return ("fresh_paged", k[li], v[li], tables, admit_t)
-
-        positions = torch.arange(blen, device=self.device)[None, :]
-        x, delta = self._forward(self._dev(ids), positions, past)
-        self.forwards["admit"] += 1
-        # head on the last REAL hidden state of each row only
-        last = (torch.arange(self.b, device=self.device), self._dev(lens) - 1)
-        logits = self.arch.head(self.params, self.cfg, x[last][:, None],
-                                delta[last][:, None])[:, 0]
+        state["ids_t"][:, :blen].copy_(torch.from_numpy(ids))
+        state["admit_t"].copy_(torch.from_numpy(admit))
+        state["lens_t"].copy_(torch.from_numpy(lens))
+        logits = self.graphs.run(("admit", blen), lambda: self._admit_body(state, blen))
         reqs = [r for _, r, _ in group]
         mode = sample_mode([r.temperature for r in reqs], [r.top_p for r in reqs])
         toks = sample_logits(logits, self._gen, self._dev(temps), self._dev(tops),
                              mode=mode).cpu().numpy()
         for i, req, prompt in group:
             self._finish_admit(state, i, self.slots[i], req, len(prompt), int(toks[i]))
+
+    def _admit_body(self, state, blen: int) -> torch.Tensor:
+        """The admission graphs' body: the "fresh" cache forms over the first
+        blen columns of ``ids_t`` under ``admit_t``; returns the logits (B, V)
+        of each row's last real token (``lens_t``)."""
+        admit, tables, k, v = state["admit_t"], state["tables"], state["k"], state["v"]
+
+        def past(li):
+            if tables is None:
+                return ("fresh", k[li], v[li], admit)
+            return ("fresh_paged", k[li], v[li], tables, admit)
+
+        positions = torch.arange(blen, device=self.device)[None, :]
+        x, delta = self._forward(state["ids_t"][:, :blen], positions, past)
+        self.forwards["admit"] += 1
+        # head on the last REAL hidden state of each row only
+        last = (torch.arange(self.b, device=self.device), state["lens_t"] - 1)
+        return self.arch.head(self.params, self.cfg, x[last][:, None],
+                              delta[last][:, None])[:, 0]
 
     def _new_cache(self, shape) -> list:
         return [torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -517,6 +587,12 @@ class ServingEngine:
                     "toks_t": torch.zeros((b, 1), dtype=torch.long, device=self.device),
                     "temps_t": torch.zeros((b,), dtype=torch.float32, device=self.device),
                     "tops_t": torch.ones((b,), dtype=torch.float32, device=self.device),
+                    # the prefill, admission and chunk graphs' inputs
+                    "ids_t": torch.zeros((b, max(self.buckets[-1], self.prefill_chunk or 1)),
+                                         dtype=torch.long, device=self.device),
+                    "slot_meta": torch.zeros((3,), dtype=torch.int32, device=self.device),
+                    "admit_t": torch.zeros((b,), dtype=torch.bool, device=self.device),
+                    "lens_t": torch.ones((b,), dtype=torch.long, device=self.device),
                 }
         state = self.state
         if self.paged:

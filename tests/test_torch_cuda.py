@@ -1143,9 +1143,168 @@ def test_engine_graph_spans_equal_eager_spans(card, mode):
               "fold": "fused_decode_attention"}[mode]
     assert counts[kernel] == layers * f["decode"] > 0
     assert counts["rms_norm"] == (2 * layers + 1) * sum(f.values())
-    keys = set(eng.graphs.keys())   # prompts of 5-130 tokens + 40: buckets 128 and 256
+    from gptq_for_llama_tpu_torch.runtime.graphs import kind
+    # the decode spans' keys (the prefills have theirs): prompts of 5-130
+    # tokens + 40, buckets 128 and 256
+    keys = {k for k in eng.graphs.keys() if kind(k) == "decode"}
     assert 4 in {span for span, _, _ in keys} <= {1, 4}
     assert {m for _, m, _ in keys} == {"greedy"} and {b for _, _, b in keys} == {128, 256}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bound", [128, 512])
+def test_kernel_4_device_offset_replays_at_any_offset_and_slot(card, bound):
+    """Kernel 4 captured once over a whole 4-row cache with its offset and
+    cache row in device buffers (offset 0, row 0), then replayed at other
+    offsets and rows under the same bound (the plan: the mma.sync body at
+    128, wgmma at 512): every replay bit-equal to an eager launch on that
+    row at the same offset and plan, and within 1e-2 of each row's norm of
+    the plain version; the cache holds NaN past every chunk's end."""
+    from gptq_for_llama_tpu_torch.ops.cuda import flash
+    sq, rows_, skv, h, hkv = 64, 4, 1024, 8, 2
+    gen = torch.Generator(device=card)
+    gen.manual_seed(bound)
+    q = torch.randn(1, sq, h, 128, generator=gen, device=card).bfloat16()
+    k = torch.randn(rows_, skv, hkv, 128, generator=gen, device=card).bfloat16()
+    v = torch.randn(rows_, skv, hkv, 128, generator=gen, device=card).bfloat16()
+    off = torch.zeros(1, dtype=torch.int32, device=card)
+    slot = torch.zeros(1, dtype=torch.int32, device=card)
+
+    def step():
+        return flash_prefill_blocked(q, k, v, off, 128 ** -0.5, bound, slot)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for o, r in ((0, 0), (bound - sq, 3), (bound // 2 - 7, 1), (17, 2)):
+        want = flash_prefill_blocked_plain(q, k[r:r + 1], v[r:r + 1], o, 128 ** -0.5)
+        kc, vc = k.clone(), v.clone()
+        kc[:, o + sq:], vc[:, o + sq:] = float("nan"), float("nan")
+        k.copy_(kc)
+        v.copy_(vc)
+        off.fill_(o)
+        slot.fill_(r)
+        kernels.reset_launch_counts()
+        graph.replay()
+        eager = flash._launch(q, k[r:r + 1].contiguous(), v[r:r + 1].contiguous(), o,
+                              128 ** -0.5, flash.plan(sq, bound - sq))
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["flash_prefill_blocked"] == 1   # the eager launch
+        assert torch.equal(out.view(torch.int16), eager.view(torch.int16)), (o, r)
+        assert torch.isfinite(out.float()).all() and _rows_close(out, want, 1e-2), (o, r)
+        k.copy_(torch.nan_to_num(k, nan=0.5))
+        v.copy_(torch.nan_to_num(v, nan=0.5))
+
+
+@pytest.mark.cuda
+def test_runner_prefill_graphs_equal_the_eager_body(card):
+    """The runner's prefill graphs against the same body run eagerly
+    (``_step``): prompts of 37 and 100 tokens, then a second prefill of 40
+    at offset 37 that replays the ("prefill", 64, 128) graph captured at
+    offset 0, and a prefill of 60 at 140 (bucket 256): the logits and every
+    layer's cache below the offset bit-equal, and the launches of a replay
+    those of the eager body."""
+    from gptq_for_llama_tpu_torch.runtime import ModelRunner
+    cfg, params = _graph_model(card)
+    rng = np.random.RandomState(4)
+    graph = ModelRunner("llama", cfg, params, max_seq_len=300, device=card)
+    eager = ModelRunner("llama", cfg, params, max_seq_len=300, device=card)
+    graph.warmup(prefill_buckets=(37, 100))
+    keys = set(graph.graphs.keys())
+    for parts in ((37,), (100,), (37, 40), (100, 40, 60)):
+        cg, ce = graph.init_cache(), eager.init_cache()
+        for n in parts:
+            ids = torch.as_tensor(rng.randint(1, 512, size=(1, n)), device=card)
+            kernels.reset_launch_counts()
+            lg, cg = graph.prefill(ids, cg)
+            torch.cuda.synchronize()
+            got = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            le, ce = eager._step(ids, ce)
+            torch.cuda.synchronize()
+            if set(graph.graphs.keys()) == keys:   # a replay (a capture adds its warm call)
+                assert got == kernels.launch_counts(), parts
+            keys = set(graph.graphs.keys())
+            assert torch.equal(lg.view(torch.int16), le.view(torch.int16)), parts
+            m = cg.offset
+            for a, b in zip(cg.k + cg.v, ce.k + ce.v):
+                assert torch.equal(a[:, :m].view(torch.int16), b[:, :m].view(torch.int16))
+    assert {("prefill", 64, 128), ("prefill", 128, 128), ("prefill", 64, 256)} <= \
+        set(graph.graphs.keys())
+    assert graph.graphs.replays[("prefill", 64, 128)] >= 3   # offsets 0 and 37
+
+
+def _engine_cache_rows(eng):
+    """Each slot's live cache rows (dense: its row to its offset; paged: the
+    blocks of its table to its offset), per layer, k then v."""
+    st, out = eng.state, []
+    for i in range(eng.b):
+        n = int(st["host_off"][i])
+        for c in st["k"] + st["v"]:
+            if eng.paged:
+                blocks = st["tables"][i, :-(-n // eng.block_size)].long()
+                out.append(c[blocks].reshape(-1, *c.shape[2:])[:n])
+            else:
+                out.append(c[i, :n])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(paged=True, block_size=16),
+                                dict(prefill_chunk=32), dict(prefill_chunk=32, paged=True,
+                                                             block_size=16,
+                                                             fused_chunk_decode=False)],
+                         ids=["dense", "paged", "chunk-fused", "paged-chunk-unfused"])
+def test_engine_prefill_and_chunk_graphs_equal_eager_bodies(card, kw):
+    """The engine's prefill, admission, chunk and chunk+decode graphs against
+    the same bodies run eagerly: tokens, and every slot's cache rows at the
+    end, bit-equal; every key of those kinds replayed at slots and offsets
+    other than its capture's (more replays than keys); a second run with
+    every graph captured makes the eager run's launches, and as many replays
+    of each kind as forwards."""
+    from gptq_for_llama_tpu_torch.runtime import GenRequest, ServingEngine
+    from gptq_for_llama_tpu_torch.runtime.graphs import kind
+    cfg, params = _graph_model(card)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, 512, size=n) for n in (5, 20, 33, 70, 9, 130, 31, 100)]
+    kinds = ("prefill", "admit", "chunk", "chunk+decode")
+
+    def run(eng):
+        for uid, p in enumerate(prompts):
+            eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=10))
+        kernels.reset_launch_counts()
+        res = eng.run()
+        torch.cuda.synchronize()
+        return res, kernels.launch_counts()
+
+    def engine():
+        return ServingEngine("llama", cfg, params, batch_slots=3, max_seq_len=300,
+                             prefill_buckets=(32, 128), **kw)
+
+    eng_e = _eager(engine())
+    want, counts_e = run(eng_e)
+    eng = engine()
+    got, _ = run(eng)
+    for uid in range(len(prompts)):
+        np.testing.assert_array_equal(got[uid], want[uid], err_msg=f"request {uid}")
+    for a, b in zip(_engine_cache_rows(eng), _engine_cache_rows(eng_e)):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    new = [k for k in eng.graphs.keys() if kind(k) in kinds]
+    assert new and sum(eng.graphs.replays[k] for k in new) > len(new)
+    before, f0 = dict(eng.graphs.replays), dict(eng.forwards)
+    again, counts = run(eng)
+    for uid in range(len(prompts)):
+        np.testing.assert_array_equal(again[uid], want[uid], err_msg=f"request {uid}")
+    assert counts == counts_e
+    for kd in kinds:
+        replays = sum(n - before.get(k, 0) for k, n in eng.graphs.replays.items()
+                      if kind(k) == kd)
+        assert replays == eng.forwards[kd] - f0[kd], kd
 
 
 @pytest.mark.cuda
@@ -1175,9 +1334,9 @@ def test_two_caches_of_one_runner_one_after_the_other(card):
 @pytest.mark.cuda
 def test_a_capture_that_must_fail_raises(card, tmp_path):
     """A decode body that reads a value to the host cannot be captured: the
-    entry point raises, no graph is kept and nothing runs eagerly in its
-    place. In a subprocess, so that the failed capture touches no other
-    test's process."""
+    entry point raises, no graph is kept for it (the prompt's prefill graph
+    stays) and nothing runs eagerly in its place. In a subprocess, so that
+    the failed capture touches no other test's process."""
     import pathlib
     import subprocess
     import sys
@@ -1199,7 +1358,7 @@ def test_a_capture_that_must_fail_raises(card, tmp_path):
         try:
             r.decode(torch.ones(1, 1, dtype=torch.long, device="cuda"), cache)
         except Exception as e:
-            assert len(r.graphs) == 0, r.graphs.keys()
+            assert list(r.graphs.keys()) == [("prefill", 16, 64)], r.graphs.keys()
             print("capture refused:", type(e).__name__)
             raise SystemExit(0)
         raise SystemExit(1)

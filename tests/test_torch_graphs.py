@@ -269,7 +269,8 @@ def test_graph_keys():
     _, last, cache = r.decode_sample_scan(lg[:, -1], cache, 3, torch.Generator(), 0.7, 0.9,
                                           top_k=5, eos_id=2, min_left=1)
     _, cache = r.forced_decode_scan(torch.arange(90)[None] % 96, cache)
-    assert keys == [("decode", 128), ("greedy", 32, 128), ("greedy", 8, 128),
+    assert keys == [("prefill", 16, 128), ("decode", 128), ("greedy", 32, 128),
+                    ("greedy", 8, 128),
                     ("sample", 2, 5, True, None, 128, torch.float32),
                     ("sample", 1, 5, True, None, 128, torch.float32),
                     ("forced", 32, 128), ("forced", 32, 128), ("forced", 16, 128),
@@ -283,8 +284,11 @@ def test_graph_keys():
         eng.submit(GenRequest(uid=uid, prompt=np.arange(1, n + 1), max_new_tokens=6))
     eng.submit(GenRequest(uid=2, prompt=np.arange(1, 4), max_new_tokens=3, temperature=0.5))
     eng.run()
-    assert keys[0] == (4, "greedy", 128) and {k[1] for k in keys} == {"greedy", "categorical"}
-    assert all(span in (1, 4) and bucket == 128 for span, _, bucket in keys)
+    spans = [k for k in keys if graphs.kind(k) == "decode"]
+    assert keys[0] == ("admit", 8) and ("prefill", 8) in keys   # two arrivals, then one
+    assert set(keys) - set(spans) == {("admit", 8), ("prefill", 8)}
+    assert spans[0] == (4, "greedy", 128) and {k[1] for k in spans} == {"greedy", "categorical"}
+    assert all(span in (1, 4) and bucket == 128 for span, _, bucket in spans)
 
 
 def test_a_stale_cache_handle_raises():

@@ -151,7 +151,8 @@ def test_paged_decode_attention_matches_jax():
 def test_cache_protocol_matches_jax(form):
     """attention_block with each serving form of the cache protocol: the same
     attention output and the same caches / pools as the TPU package (fp32;
-    the port's one-slot prefills pass their offset as a host int)."""
+    host-int slots and offsets here, the device forms the graphs capture in
+    tests/test_torch_prefill_graphs.py)."""
     rng = np.random.RandomState(len(form))
     b, mb, nb, bs, h, hkv, d, c = 3, 4, 16, 8, 4, 2, 16, 8
     s_len = mb * bs

@@ -217,15 +217,18 @@ def test_chunked_prefill_concurrent_decode_write_mask():
 
 def test_per_slot_prefills_pass_host_offsets(monkeypatch):
     """Every per-slot prefill and every chunk (fused or not, dense or paged)
-    reaches the blocked prefill dispatcher with a host-int offset: the form
-    its kernel takes on the card. A (1,) tensor offset would raise there."""
+    reaches the blocked prefill dispatcher with its offset as a 1-element
+    int32 tensor and a host-int bound no smaller than offset + C: the form
+    its kernel reads on the card, which a graph replays at any offset. Dense:
+    the slot's row of the whole cache through ``rows``; paged: the blocks of
+    the bound, gathered."""
     cfg, params, _, _ = _setup()
     seen = []
     orig = common.flash_prefill_blocked
 
-    def spy(q, k, v, q_offset, scale):
-        seen.append((q.shape[1], k.shape[1], q_offset))
-        return orig(q, k, v, q_offset, scale)
+    def spy(q, k, v, q_offset, scale, bound=None, rows=None):
+        seen.append((q.shape[1], k.shape[1], q_offset, bound, rows))
+        return orig(q, k, v, q_offset, scale, bound, rows)
 
     monkeypatch.setattr(common, "flash_prefill_blocked", spy)
     prompts = [np.arange(1, 6), np.arange(3, 20)]
@@ -235,10 +238,13 @@ def test_per_slot_prefills_pass_host_offsets(monkeypatch):
         _, eng = _run(cfg, params, prompts, 3, buckets=(8, 32), **kw)
         per_layer = eng.forwards["prefill"] + eng.forwards["chunk"] + eng.forwards["chunk+decode"]
         assert len(seen) == per_layer * cfg.num_layers and per_layer > 0
-        assert all(type(off) is int for _, _, off in seen)
-        assert all(skv >= off + sq for sq, skv, off in seen)
-        if kw.get("paged"):   # a paged chunk gathers its own prefix only: off0 + C slots
-            assert all(sq == 8 and skv == off + 8 for sq, skv, off in seen)
+        for sq, skv, off, bound, rows in seen:
+            assert isinstance(off, torch.Tensor) and off.dtype == torch.int32 and off.numel() == 1
+            assert type(bound) is int and bound >= int(off) + sq
+            if kw.get("paged"):   # a paged chunk gathers the blocks of its bound only
+                assert rows is None and sq == 8 and skv == -(-bound // 8) * 8
+            else:                 # a dense one attends its slot's row of the whole cache
+                assert rows.dtype == torch.int32 and rows.numel() == 1 and skv == eng.max_len
 
 
 def test_engine_refuses_unported_options_and_devices():
