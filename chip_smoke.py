@@ -92,6 +92,26 @@ Phases, in order, on one card:
            step's host time
            through the graph, its device time and the eager body's time at
            span 1 and span 8 (the host share).
+  kvdtype  KV caches stored in fp8-e4m3, fp8-e5m2 and f32 (``ops/kv_dtype.py``):
+           kernels 3, 9, 7 and 4 over each at the ``kernels`` phase's shapes
+           (3, 9: B = 1 at offsets 0 / 127 / 2047, GQA, 8 serving slots; 9's
+           masked row write with values past e4m3's range, caches byte-equal;
+           7: the four serving rows, bit-equal to kernel 3 on the gathered
+           view; 4: SQ = 100 / 128 / 512), each against its plain version at
+           the bf16 rows' tolerance, over caches holding the dtype's NaN code
+           past each offset; timed beside the plain version and the library's
+           upcast of the live cache to bf16 plus SDPA; bound at the cache's
+           own bytes. All 256 e4m3 codes read bit-equal by 3, 7, 9 and 4.
+           LLaMA-7B over an fp8-e4m3 cache: the full phase's prompts through
+           generate(span=32) twice, the prefill graphs and the decode loops
+           bit-equal to their eager bodies, ms/token host and device, the
+           cache's bytes half a bf16 cache's; the serve phase's 12 requests on
+           8 slots paged (span 8), dense chunk 128 and dense fold, each run
+           twice, the paged tokens and caches held to the fp8 runner, the KV
+           bytes half a bf16 engine's. The 2-layer 7B-width model over each
+           dtype against the fp32 CPU path over the same dtype (2e-2), graphs
+           bit-equal to the eager loop; the CLIs ``--benchmark 128 --check``
+           and ``serve --demo 12 --paged`` with ``--kv-dtype`` each dtype.
   profile  torch.profiler over eager decode steps of a 4-layer 7B-width
            model: device time per kernel, the device busy share and the
            elementwise add launches per step (the ``full`` phase prints the
@@ -124,7 +144,8 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 L2_BYTES = 50 * 2**20
-PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve", "profile")
+PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve", "kvdtype",
+          "profile")
 # kernels each path must launch: the decode path (prefill at a cache offset,
 # then decode steps), the calibration forward, the perplexity eval, paged
 # serving (bucketed and batched admission, spans) and dense serving with
@@ -155,7 +176,20 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          # gradient check with gate/up frozen (the fused MLP and its backward)
          "lora": {"qmm", "flash_prefill", "qmm_t", "qmm:tile"} | NORMS,
          "lora:fused": {"qmm", "fused_mlp", "flash_prefill", "qmm_t", "qmm:tile",
-                        "fused_mlp:tile"} | NORMS}
+                        "fused_mlp:tile"} | NORMS,
+         # kernels 3, 4, 7 and 9 by the cache dtype they read: the 7B decode
+         # path and serving over fp8-e4m3 caches, the CLIs with --kv-dtype fp8
+         # (a paged chunk attends its gathered prefix cast to bf16, as the TPU
+         # package's astype does)
+         "kvdtype:decode": {"qmm", "fused_mlp", "decode_attention:fp8",
+                            "flash_prefill_blocked:fp8"} | NORMS,
+         "kvdtype:serve:paged": {"qmm", "fused_mlp", "pool_decode_attention:fp8"} | NORMS,
+         "kvdtype:serve:dense": {"qmm", "fused_mlp", "decode_attention:fp8",
+                                 "flash_prefill_blocked:fp8"} | NORMS,
+         "kvdtype:serve:fold": {"qmm", "fused_mlp", "fused_decode_attention:fp8",
+                                "flash_prefill_blocked:fp8"} | NORMS,
+         "kvdtype:cli": {"qmm", "fused_mlp", "decode_attention:fp8"} | NORMS,
+         "kvdtype:serve:cli": {"qmm", "fused_mlp", "pool_decode_attention:fp8"} | NORMS}
 # the rows at which kernel 1's rows also time every form forced (the decode
 # widths around the forms' crossovers), as kernel 2's rows do
 FORCED_MS = (1, 2, 4, 5, 8, 16)
@@ -362,6 +396,7 @@ class Smoke:
         self.sq2048 = None  # kernel 4 and kernel 5 at SQ = SKV = 2048, offset 0
         self.tmp = None     # scratch directory of the quantize and serve phases
         self.model7b = None  # (cfg, params) of the full phase, served again
+        self.kv_entries = {}  # kernel -> {cache dtype: its row of the kernels line}
 
     # -- phase 1 ---------------------------------------------------------------
     def phase_card(self, torch):
@@ -414,7 +449,8 @@ class Smoke:
                     smem[f"{name} gemv {bits}-bit MT={mt}"] = matmul.gemv_smem_bytes(bits, mt,
                                                                                      streams)
         from gptq_for_llama_tpu_torch.ops.cuda import attention
-        smem["decode ring (kernels 3, 9)"] = attention.RING_SMEM_BYTES   # checked at load
+        for name, itemsize in (("fp8", 1), ("bf16", 2), ("f32", 4)):   # layout checked at load
+            smem[f"decode ring (kernels 3, 7, 9), {name} cache"] = attention.ring_smem_bytes(itemsize)
         log("[build] dynamic shared memory per block (bytes): "
             + ", ".join(f"{k} {v}" for k, v in smem.items()))
         self.report["dynamic_smem_bytes"] = smem
@@ -1498,8 +1534,8 @@ class Smoke:
                 end.record()
                 torch.cuda.synchronize()
                 times[how] = ((time.perf_counter() - t0) * 1e3, start.elapsed_time(end))
-                seen[how] = (lg.clone(), [c[:, :cache.offset].clone()
-                                          for c in cache.k + cache.v])
+                seen[how] = (lg.clone(), [c[:, :cache.offset].contiguous().view(torch.uint8)
+                                          for c in cache.k + cache.v])   # any cache dtype
             lg, cs = seen["graph"]
             le, ce = seen["eager"]
             if not torch.equal(lg, le) or not all(torch.equal(a, b) for a, b in zip(cs, ce)):
@@ -2590,7 +2626,585 @@ class Smoke:
         self.report["serve"]["cli"] = {"seconds": dt, "stats": stats, "launches": counts,
                                        "compared": compared, "agree": same}
 
-    # -- phase 10 --------------------------------------------------------------
+    # -- phase 10: KV caches stored in fp8 (e4m3, e5m2) and f32 ----------------
+    KV_NAMES = ("fp8", "fp8_e5m2", "f32")
+
+    def phase_kvdtype(self, torch):
+        """Kernels 3, 4, 7 and 9 over caches stored in fp8-e4m3, fp8-e5m2 and
+        f32 at their bf16 rows' shapes, then LLaMA-7B decode and serving over
+        fp8-e4m3 caches at full width, the e5m2 and f32 legs at 2 layers, and
+        the CLIs with --kv-dtype."""
+        self.kv_entries = {}
+        for name in self.KV_NAMES:
+            self._kv_kernel_rows(torch, name)
+        self._kv_upcast_codes(torch)
+        self._kv_full(torch)
+        self._kv_serve(torch)
+        self._kv_two_layers(torch)
+        self._kv_clis(torch)
+
+    def _kv_record(self, kernel, name, shape, y, ref, ms, pms, lms, nbytes, flops, main=False,
+                   extra=None):
+        """A kernel row over a ``name`` cache: 1e-2 of each output row's norm,
+        as the bf16 rows; ``main`` keeps it as the dtype's row of the kernels
+        line."""
+        err = (y.float() - ref.float()).abs().max().item()
+        self._record(kernel, f"{name} cache, {shape}", err, 1e-2, ms, pms, lms, nbytes, flops,
+                     row_rel=row_rel_err(y, ref), ref_max=ref.float().abs().max().item(),
+                     extra=dict(extra or {}, kv_dtype=name))
+        if main:
+            row = self.report["kernels"][kernel][-1]
+            self.kv_entries.setdefault(kernel, {})[name] = {
+                k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}
+
+    @staticmethod
+    def _kv_poison(torch, cache, dead):
+        """A copy of ``cache`` holding the dtype's NaN code in every slot that
+        ``dead`` (a bool mask of its two leading dims) marks. e4m3's (0x7F)
+        reads as 480 in the kernels, which moves any row that attends it far
+        past the tolerance; e5m2's and f32's are NaN."""
+        from gptq_for_llama_tpu_torch.ops import kv_dtype
+        out = cache.clone()
+        nan = kv_dtype.encode(torch.tensor([float("nan")], device="cuda"), cache.dtype)
+        view = kv_dtype.stored(out)
+        view[dead] = nan.to(view.dtype)
+        return out
+
+    @staticmethod
+    def _kv_equal(torch, a, b):
+        """Two caches equal byte for byte (NaN where NaN)."""
+        return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+    def _kv_kernel_rows(self, torch, name):
+        """Kernels 3, 9, 7 and 4 over a ``name`` cache at the bf16 rows' shapes
+        (phase ``kernels``), each against its plain version on the same cache
+        (``kv_dtype.decode``), with the cache poisoned past each offset. The
+        library call upcasts the live cache to bf16 and runs SDPA, both
+        timed; the bound counts the cache at its own bytes. Kernel 9's row
+        write, with values past e4m3's range, is held byte-equal to the plain
+        write."""
+        import torch.nn.functional as F
+        from gptq_for_llama_tpu_torch.ops import kv_dtype
+        from gptq_for_llama_tpu_torch.ops.cuda.attention import (
+            decode_attention_cuda, decode_attention_plain, fused_decode_attention_cuda,
+            fused_decode_attention_plain, pool_decode_attention_cuda, pool_decode_attention_plain)
+        from gptq_for_llama_tpu_torch.ops.cuda.flash import (flash_prefill_blocked_cuda,
+                                                             flash_prefill_blocked_plain)
+        dt = kv_dtype.KV_DTYPES[name]
+        isz = torch.empty((), dtype=dt).element_size()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(4321)
+        bf = torch.bfloat16
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+
+        def cache(*shape):   # seeded N(0, 1) values stored in dt, encoded in pieces
+            out = torch.empty(shape, dtype=dt, device="cuda")
+            flat = kv_dtype.stored(out).view(-1)
+            for i in range(0, flat.numel(), 1 << 26):
+                n = min(1 << 26, flat.numel() - i)
+                flat[i:i + n] = kv_dtype.encode(torch.randn(n, generator=gen, device="cuda"), dt)
+            return out
+
+        def up(c, n):   # the library's upcast of the live prefix
+            return c[:, :n].to(bf).transpose(1, 2)
+
+        d, s = 128, 2048
+        serving = (37, 150, 300, 511, 512, 900, 1200, 1500)
+        for fold in (False, True):
+            kernel = "fused_decode_attention" if fold else "decode_attention"
+            for b, h, hkv, offs in ((1, 32, 32, 0), (1, 32, 32, 127), (1, 32, 32, 2047),
+                                    (2, 32, 8, (100, 1500)), (8, 32, 32, serving)):
+                ncopy = copies_for(2 * b * s * hkv * d * isz)
+                q = randn(b, 1, h, d)
+                kn, vn = randn(b, 1, hkv, d), randn(b, 1, hkv, d)
+                caches = [(cache(b, s, hkv, d), cache(b, s, hkv, d)) for _ in range(ncopy)]
+                off_t = torch.tensor(offs if isinstance(offs, tuple) else [offs] * b,
+                                     dtype=torch.int32, device="cuda")
+                off_arg = off_t if isinstance(offs, tuple) else offs
+                max_live = max(offs) + 1 if offs == serving else None
+                kc, vc = caches[0]
+                pos = torch.arange(s, device="cuda")[None, :]
+                dead = (pos >= off_t[:, None]) if fold else (pos > off_t[:, None])
+                pk, pv = self._kv_poison(torch, kc, dead), self._kv_poison(torch, vc, dead)
+                if fold:
+                    y, _, _ = fused_decode_attention_cuda(q, pk, pv, kn, vn, off_arg, d ** -0.5,
+                                                          write=False, max_live=max_live)
+                    ref, _, _ = fused_decode_attention_plain(q, kc, vc, kn, vn, off_t, d ** -0.5,
+                                                             write=False)
+
+                    def run(c):
+                        return fused_decode_attention_cuda(q, c[0], c[1], kn, vn, off_arg,
+                                                           d ** -0.5, write=False,
+                                                           max_live=max_live)
+
+                    def plain(c):
+                        return fused_decode_attention_plain(q, c[0], c[1], kn, vn, off_t,
+                                                            d ** -0.5, write=False)
+                else:
+                    y = decode_attention_cuda(q, pk, pv, off_arg, d ** -0.5, max_live)
+                    ref = decode_attention_plain(q, kc, vc, off_t, d ** -0.5)
+
+                    def run(c):
+                        return decode_attention_cuda(q, c[0], c[1], off_arg, d ** -0.5, max_live)
+
+                    def plain(c):
+                        return decode_attention_plain(q, c[0], c[1], off_t, d ** -0.5)
+                torch.cuda.synchronize()
+                if not torch.isfinite(y.float()).all():
+                    raise AssertionError(f"{kernel} {name} offsets {offs}: a dead slot was read")
+                del pk, pv
+                live = int((off_t.clamp(max=s - 1) + (0 if fold else 1)).sum().item())
+                n = int(off_t.max().item()) + 1
+                mask = (pos[:, :n] <= off_t[:, None])[:, None, None, :]
+                qt = q.transpose(1, 2)
+                gqa = {"enable_gqa": True} if h != hkv else {}
+                if fold:   # the library reads the cache with the current row written
+                    rows_ = torch.arange(b, device="cuda")
+                    for kk, vv in caches:
+                        kv_dtype.stored(kk)[rows_, off_t.long()] = kv_dtype.encode(kn[:, 0], dt)
+                        kv_dtype.stored(vv)[rows_, off_t.long()] = kv_dtype.encode(vn[:, 0], dt)
+                lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+                    qt, up(c[0], n), up(c[1], n), attn_mask=mask, **gqa) for c in caches])
+                ms = graph_ms(torch, [lambda c=c: run(c) for c in caches])
+                pms = graph_ms(torch, [lambda c=c: plain(c) for c in caches], iters=10)
+                nbytes = 2 * b * h * d * 2 + (live + (b if fold else 0)) * hkv * d * isz * 2
+                self._kv_record(kernel, name, f"B={b} H={h} Hkv={hkv} S={s} offset={offs} "
+                                f"(dead slots poisoned{', no write' if fold else ''})", y, ref,
+                                ms, pms, lms, nbytes, 4 * (live + (b if fold else 0)) * h * d,
+                                main=(h == hkv and offs == 127))
+                del caches, kc, vc
+        # kernel 9's row write under a mixed mask, values past e4m3's range in
+        # the current k (its NaN code, written as JAX's astype writes it)
+        b, h = 8, 32
+        off_t = torch.tensor(serving, dtype=torch.int32, device="cuda")
+        q, kn, vn = randn(b, 1, h, d), randn(b, 1, h, d), randn(b, 1, h, d)
+        kn[:, 0, 0, :4] = torch.tensor([600.0, -600.0, 464.0, 465.0], device="cuda").to(bf)
+        dead = torch.arange(s, device="cuda")[None, :] >= off_t[:, None]
+        kc, vc = (self._kv_poison(torch, cache(b, s, h, d), dead) for _ in range(2))
+        wk, wv = kc.clone(), vc.clone()
+        wmask = torch.arange(b, device="cuda") % 3 != 1
+        y, _, _ = fused_decode_attention_cuda(q, kc, vc, kn, vn, off_t, d ** -0.5,
+                                              write_mask=wmask, max_live=max(serving) + 1)
+        ref, _, _ = fused_decode_attention_plain(q, wk, wv, kn, vn, off_t, d ** -0.5,
+                                                 write_mask=wmask)
+        torch.cuda.synchronize()
+        if not all(self._kv_equal(torch, a, b_) for a, b_ in ((kc, wk), (vc, wv))):
+            raise AssertionError(f"fused_decode_attention {name}: the caches after the masked "
+                                 f"write differ from the plain version's")
+        ms = graph_ms(torch, [lambda: fused_decode_attention_cuda(
+            q, kc, vc, kn, vn, off_t, d ** -0.5, write_mask=wmask, max_live=max(serving) + 1)])
+        pms = graph_ms(torch, [lambda: fused_decode_attention_plain(
+            q, wk, wv, kn, vn, off_t, d ** -0.5, write_mask=wmask)], iters=10)
+        written = int(wmask.sum().item())
+        nbytes = 2 * b * h * d * 2 + (sum(serving) + b) * h * d * isz * 2 + \
+            written * h * d * isz * 2
+        self._kv_record("fused_decode_attention", name,
+                        f"B={b} H={h} offsets 37..1500, write under the mask "
+                        f"{wmask.int().tolist()}, k_new up to 600 (caches byte-equal)", y, ref,
+                        ms, pms, None, nbytes, 4 * (sum(serving) + b) * h * d)
+        del kc, vc, wk, wv
+        torch.cuda.empty_cache()
+        # kernel 7 at the serving shapes over a poisoned pool; bit-equal to
+        # kernel 3 over the gathered view
+        b, h, bs, mb = 8, 32, 16, 128
+        mixed = serving
+        for hkv, offs, what in ((32, (127,) * b, "offsets 127"),
+                                (32, (2047,) * b, "offsets 2047"), (32, mixed, "offsets 37..1500"),
+                                (8, mixed, "GQA, offsets 37..1500")):
+            off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            live = int((off + 1).sum().item())
+            ncopy = copies_for(live * hkv * d * isz * 2)
+            nb = ncopy * b * mb + 1
+            kp, vp = cache(nb, bs, hkv, d), cache(nb, bs, hkv, d)
+            q = randn(b, 1, h, d)
+            perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
+            tables = [perm[i * b * mb:(i + 1) * b * mb].reshape(b, mb).int().contiguous()
+                      for i in range(ncopy)]
+            dead = (torch.arange(mb * bs, device="cuda")[None, :] > off[:, None]).reshape(b, mb,
+                                                                                          bs)
+            dead_pool = torch.zeros(nb, bs, dtype=torch.bool, device="cuda")
+            dead_pool[0] = True
+            for t in tables:
+                dead_pool[t.long()] = dead
+            kp_clean, vp_clean = kp.clone(), vp.clone()
+            kp = self._kv_poison(torch, kp, dead_pool)
+            vp = self._kv_poison(torch, vp, dead_pool)
+            max_live = max(offs) + 1
+            y = pool_decode_attention_cuda(q, kp, vp, tables[0], off, d ** -0.5, max_live)
+            ref = pool_decode_attention_plain(q, kp, vp, tables[0], off, d ** -0.5)
+            view_k = kp[tables[0].long()].reshape(b, mb * bs, hkv, d)
+            view_v = vp[tables[0].long()].reshape(b, mb * bs, hkv, d)
+            y3 = decode_attention_cuda(q, view_k, view_v, off, d ** -0.5, max_live)
+            torch.cuda.synchronize()
+            if not torch.isfinite(y.float()).all() or not torch.equal(y, y3):
+                raise AssertionError(f"pool_decode_attention {name} {what}: a poisoned slot was "
+                                     f"read, or kernel 3 over the gathered view differs")
+            del view_k, view_v
+            mask = (torch.arange(max_live, device="cuda")[None, :] <= off[:, None])[:, None, None]
+            qt = q.transpose(1, 2)
+            gqa = {"enable_gqa": True} if h != hkv else {}
+            nlb = -(-max_live // bs)   # the logical blocks the library gathers
+
+            def library(t):
+                idx = t[:, :nlb].long()
+                kd = kp_clean[idx].reshape(b, nlb * bs, hkv, d)[:, :max_live]
+                vd = vp_clean[idx].reshape(b, nlb * bs, hkv, d)[:, :max_live]
+                return F.scaled_dot_product_attention(qt, kd.to(bf).transpose(1, 2),
+                                                      vd.to(bf).transpose(1, 2),
+                                                      attn_mask=mask, **gqa)
+
+            ms = graph_ms(torch, [lambda t=t: pool_decode_attention_cuda(
+                q, kp, vp, t, off, d ** -0.5, max_live) for t in tables])
+            pms = graph_ms(torch, [lambda t=t: pool_decode_attention_plain(
+                q, kp, vp, t, off, d ** -0.5) for t in tables], iters=10)
+            lms = graph_ms(torch, [lambda t=t: library(t) for t in tables], iters=10)
+            self._kv_record("pool_decode_attention", name,
+                            f"B={b} H={h} Hkv={hkv} BS={bs} MB={mb} {what} (poisoned pool, "
+                            f"equal to kernel 3 on the gathered view)", y, ref, ms, pms, lms,
+                            2 * b * h * d * 2 + live * hkv * d * isz * 2 + b * 4 + live // bs * 4,
+                            4 * live * h * d, main=(hkv == 32 and offs == mixed))
+            del kp, vp, kp_clean, vp_clean, tables
+            torch.cuda.empty_cache()
+        # kernel 4 (its mma.sync body for every cache but bf16) at a prompt, a
+        # serving chunk and a bucket, the cache poisoned past the causal limit
+        b, h, hkv = 1, 32, 32
+        for sq, off, skv in ((100, 0, s), (128, 128, 256), (512, 0, 512)):
+            ncopy = copies_for(2 * skv * hkv * d * isz)
+            q = randn(b, sq, h, d)
+            caches = [(cache(b, skv, hkv, d), cache(b, skv, hkv, d)) for _ in range(ncopy)]
+            kc, vc = caches[0]
+            dead = (torch.arange(skv, device="cuda") >= off + sq)[None, :]
+            pk, pv = self._kv_poison(torch, kc, dead), self._kv_poison(torch, vc, dead)
+            off_t = torch.tensor([off], dtype=torch.int32, device="cuda")
+            y = flash_prefill_blocked_cuda(q, pk, pv, off_t, d ** -0.5, off + sq)
+            ref = flash_prefill_blocked_plain(q, kc, vc, off, d ** -0.5)
+            torch.cuda.synchronize()
+            if not torch.isfinite(y.float()).all():
+                raise AssertionError(f"flash_prefill_blocked {name} SQ={sq}: a dead slot was read")
+            del pk, pv
+            n = off + sq
+            allowed = (torch.arange(n, device="cuda")[None, :]
+                       <= torch.arange(sq, device="cuda")[:, None] + off)
+            qt = q.transpose(1, 2)
+            iters = 60 if sq <= 128 else 6
+            ms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_cuda(
+                q, c[0], c[1], off_t, d ** -0.5, off + sq) for c in caches], iters=iters)
+            pms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_plain(
+                q, c[0], c[1], off_t, d ** -0.5) for c in caches], iters=min(iters, 10))
+            lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+                qt, up(c[0], n), up(c[1], n), attn_mask=allowed) for c in caches], iters=iters)
+            pairs = sum(off + i + 1 for i in range(sq))
+            self._kv_record("flash_prefill_blocked", name,
+                            f"B={b} SQ={sq} H={h} Hkv={hkv} SKV={skv} offset={off} (device "
+                            f"offset, dead slots poisoned) [sync]", y, ref, ms, pms, lms,
+                            2 * b * sq * h * d * 2 + b * n * hkv * d * isz * 2,
+                            4 * b * h * pairs * d, main=(sq == 100))
+            del caches, kc, vc
+        torch.cuda.empty_cache()
+
+    def _kv_upcast_codes(self, torch):
+        """Every e4m3 code (0x7F and 0xFF included) as the one live slot's V
+        row: kernels 3, 7 and 4 return it as bf16 as ``kv_dtype.decode``
+        gives it (+-480 for the two NaN codes); kernel 9, with the current
+        token's k/v zero, half of it. Equal bit for bit but for code 0x80
+        (-0), which a sum started at +0 returns as +0: values are compared."""
+        from gptq_for_llama_tpu_torch.ops import kv_dtype
+        from gptq_for_llama_tpu_torch.ops.cuda.attention import (decode_attention_cuda,
+                                                                 fused_decode_attention_cuda,
+                                                                 pool_decode_attention_cuda)
+        from gptq_for_llama_tpu_torch.ops.cuda.flash import flash_prefill_blocked_cuda
+        codes = torch.arange(256, dtype=torch.int32, device="cuda").to(torch.uint8)
+        v = torch.zeros(1, 64, 2, 128, dtype=torch.uint8, device="cuda")
+        v[0, 0] = codes.reshape(2, 128)
+        v = v.view(torch.float8_e4m3fn)
+        k = torch.zeros_like(v)
+        q = torch.randn(1, 1, 2, 128, device="cuda").bfloat16()
+        want = kv_dtype.decode(v[:, :1], torch.bfloat16)
+        zero = torch.zeros(1, 1, 2, 128, device="cuda").bfloat16()
+        off = torch.zeros(1, dtype=torch.int32, device="cuda")
+        tables = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+        got = {"decode_attention": decode_attention_cuda(q, k, v, 0, 0.09),
+               "pool_decode_attention": pool_decode_attention_cuda(
+                   q, k.reshape(4, 16, 2, 128), v.reshape(4, 16, 2, 128), tables, off, 0.09),
+               "flash_prefill_blocked": flash_prefill_blocked_cuda(q, k, v, off, 0.09, 1)}
+        fold, _, _ = fused_decode_attention_cuda(q, k, v, zero, zero, 1, 0.09, write=False)
+        torch.cuda.synchronize()
+        bad = [n for n, y in got.items() if not torch.equal(y, want)]
+        if not torch.equal(fold, (want.float() / 2).bfloat16()):
+            bad.append("fused_decode_attention")
+        if bad or want[0, 0, 0, 0x7F].item() != 480.0 or want[0, 0, 1, 0x7F].item() != -480.0:
+            raise AssertionError(f"e4m3 upcast: kernels {bad} differ from the decoder on the 256 "
+                                 f"codes")
+        # the encoder on the card against the CPU's (held to JAX's astype by the
+        # CPU tests) and kernel 9's row write, on every bf16 bit pattern but NaN
+        x = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+        keep = ~torch.isnan(x.float())
+        for dt in (torch.float8_e4m3fn, torch.float8_e5m2):
+            cpu = kv_dtype.encode(x, dt)
+            kn = x.reshape(8, 1, 64, 128).to("cuda")
+            ck = torch.zeros(8, 16, 64, 128, dtype=dt, device="cuda")
+            fused_decode_attention_cuda(torch.zeros_like(kn), ck, ck.clone(), kn, kn, 3, 0.1)
+            card = kv_dtype.encode(kn, dt).reshape(-1).cpu()
+            written = kv_dtype.stored(ck)[:, 3].reshape(-1).cpu()
+            if not (torch.equal(card[keep], cpu[keep]) and torch.equal(written[keep], cpu[keep])):
+                raise AssertionError(f"{dt}: the encoder on the card or kernel 9's row write "
+                                     f"differs from the CPU encoder")
+        log("[kvdtype] the encoder on the card and kernel 9's row write equal the CPU encoder "
+            "(JAX's astype) on all 65536 bf16 bit patterns but NaN, in e4m3 and e5m2")
+        log("[kvdtype] e4m3 upcast: kernels 3, 7, 9 and 4 read all 256 codes equal to "
+            "kv_dtype.decode (the TPU kernels' _load_f32 / _load_bf16; bit for bit but -0): 0x7F "
+            "and 0xFF as +-480")
+        self.report.setdefault("kvdtype", {})["e4m3_all_codes_bit_equal"] = True
+
+    def _kv_full(self, torch):
+        """LLaMA-7B INT4-g128, 32 layers, batch 1, over an fp8-e4m3 cache: the
+        full phase's prompts (37, 100, 201 tokens), 64 greedy tokens each
+        through generate(span=32) twice, the prefill graphs and the decode
+        loops held bit for bit against their bodies run eagerly (the helpers
+        of the full phase); host and device ms per token, the prefill graphs'
+        ms, the cache's bytes beside a bf16 cache's."""
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.ops import kv_dtype
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
+        from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+        cfg = ModelConfig(**LLAMA_7B)
+        params = gaussian_wire_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        self.model7b = (cfg, params)
+        runner = ModelRunner("llama", cfg, params, device="cuda", kv_dtype=torch.float8_e4m3fn)
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in (37, 100, 201)]
+        new = 64
+        torch.cuda.reset_peak_memory_stats()
+        runner.warmup(prefill_buckets=tuple(len(p) for p in prompts))
+        cache = runner.init_cache()
+        kv_bytes = kv_dtype.cache_bytes((*cache.k, *cache.v))
+        bf16_bytes = 2 * cfg.num_layers * 2048 * cfg.num_kv_heads * cfg.head_dim * 2
+        if kv_bytes * 2 != bf16_bytes:
+            raise AssertionError(f"kvdtype: the fp8 cache holds {kv_bytes} B, a bf16 one "
+                                 f"{bf16_bytes}")
+        prefills = self._prefill_graphs_vs_eager(torch, runner, prompts)
+        for rep in range(2):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [generate(runner, p, max_new_tokens=new, temperature=0.0) for p in prompts]
+            torch.cuda.synchronize()
+            t_gen = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            self.check_path("kvdtype:decode", counts)
+            if rep == 0:
+                first = outs
+            elif any(not np.array_equal(a, b) for a, b in zip(first, outs)):
+                raise AssertionError("kvdtype: two generate runs of the same prompts differ")
+        distinct = len(set(np.concatenate([o[0, len(p):] for p, o in zip(prompts, outs)]).tolist()))
+        if distinct < 8:
+            raise AssertionError("kvdtype: the model's tokens do not depend on the prompt")
+        loop = self._graphs_vs_eager(torch, "kvdtype", runner, prompts, outs, new)
+        runner.init_cache()
+        offs = runner._store.offs
+        dev_ms = replay_ms(torch, runner.graphs, ("decode", 256), lambda: offs.fill_(164))
+        runner.init_cache()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[kvdtype] LLaMA-7B over an fp8-e4m3 cache ({kv_bytes} B, bf16 {bf16_bytes} B): "
+            f"generate(span=32) {t_gen / (3 * new) * 1e3:.3f} ms/token (prefills included); "
+            f"host loop {loop['graph_ms']:.3f} ms/token through decode_greedy_scan's graphs, "
+            f"{loop['span1_ms']:.3f} through generate(span=1), {loop['eager_ms']:.3f} eager; "
+            f"the decode graph {dev_ms:.3f} ms device at offset 164; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches {counts} | {self.card}")
+        self.report.setdefault("kvdtype", {})["full"] = {
+            "kv_bytes": kv_bytes, "bf16_kv_bytes": bf16_bytes, "prefill": prefills,
+            "generate_ms_per_token": t_gen / (3 * new) * 1e3, "host_loop": loop,
+            "graph_ms_per_token": dev_ms, "peak_memory_bytes": peak, "launches": counts}
+        del runner
+        torch.cuda.empty_cache()
+
+    def _kv_serve(self, torch):
+        """The serve phase's 12 requests on 8 slots of the 7B model over
+        fp8-e4m3 pools: paged (block 16, span 8), dense chunk 128 fused, dense
+        fold; each run twice (``_serve_run``: the second with every graph
+        captured), the paged run's tokens held to the fp8 single-sequence
+        runner where its margin is clear, the KV bytes beside a bf16
+        engine's."""
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner, ServingEngine
+        cfg, params = self.model7b
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(1, cfg.vocab_size, size=n) for n in self.SERVE_LENS]
+        fp8 = torch.float8_e4m3fn
+        res = self.report.setdefault("kvdtype", {}).setdefault("serve", {})
+        runs = (("fp8 paged span 8", "kvdtype:serve:paged",
+                 dict(paged=True, block_size=16, decode_span=8)),
+                ("fp8 dense chunk 128 fused", "kvdtype:serve:dense",
+                 dict(prefill_chunk=128, decode_span=8)),
+                ("fp8 dense fold chunk 128", "kvdtype:serve:fold",
+                 dict(prefill_chunk=128, decode_span=8, fused_chunk_decode=False,
+                      cache_impl="fold")))
+        runner = ModelRunner("llama", cfg, params, batch_size=1, max_seq_len=2048, device="cuda",
+                             kv_dtype=fp8)
+        for label, path, kw in runs:
+            served, eng = self._serve_run(torch, label, path, prompts, kv_dtype=fp8, **kw)
+            bf16 = ServingEngine("llama", cfg, params, batch_slots=8, max_seq_len=2048,
+                                 prefill_buckets=(32, 128, 512), **kw)
+            bf16._start()
+            kv_bytes, bf16_bytes = eng.kv_bytes(), bf16.kv_bytes()
+            del bf16
+            torch.cuda.empty_cache()
+            if kv_bytes * 2 != bf16_bytes:
+                raise AssertionError(f"{label}: the fp8 KV holds {kv_bytes} B, bf16's "
+                                     f"{bf16_bytes}")
+            line = {"kv_bytes": kv_bytes, "bf16_kv_bytes": bf16_bytes}
+            if "paged" in kw:
+                # tokens only: two correct fp8 caches of one sequence differ by
+                # whole fp8 steps wherever their bf16 inputs straddle a rounding
+                # boundary (2.7e-2 of a row's norm in the mean at 7B, 8 slots),
+                # past the bf16 cache check's limits
+                ref, _ = self._forced_reference(torch, runner, prompts, served)
+                compared, total, same = self._hold_to_reference(label, served, ref)
+                line.update(compared=compared, positions=total, agree=same)
+                log(f"[kvdtype] {label} vs the fp8 single-sequence runner: {compared}/{total} "
+                    f"positions clear the margin, all agree; {same}/{total} agree in all")
+            log(f"[kvdtype] {label}: KV {kv_bytes} B, a bf16 engine's {bf16_bytes} B | "
+                f"{self.card}")
+            res[label] = line
+            del eng
+            torch.cuda.empty_cache()
+        del runner
+        self.model7b = None
+        del params
+        torch.cuda.empty_cache()
+
+    def _kv_two_layers(self, torch):
+        """A 2-layer 7B-width model (the e2e phase's weights) over caches in
+        each dtype: the card's logits (prefill, then steps teacher-forced by
+        the plain path's tokens; fp8: the e2e phase's 37-token prompt and 8
+        steps, e5m2 and f32: 16 and 4) within 2e-2 of the fp32 CPU path over
+        the same cache dtype, tokens equal where the plain top-2 margin
+        exceeds twice that; 24 greedy tokens through decode_greedy_scan's
+        graphs equal the eager step loop's bit for bit (the e5m2 and f32
+        end-to-end legs)."""
+        from gptq_for_llama_tpu_torch.convert import params_from_jax
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.ops import kv_dtype
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner
+        from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_tree
+        cfg = ModelConfig(arch="llama", vocab_size=32000, hidden_size=4096,
+                          intermediate_size=11008, num_layers=2, num_heads=32,
+                          num_kv_heads=32, head_dim=128, max_seq_len=64)
+        tree = random_wire_tree(cfg, seed=7)
+        gparams = params_from_jax(tree, "cuda", torch.bfloat16)
+        cparams = params_from_jax(tree, "cpu", torch.float32)
+        rel_tol = 2e-2
+        out = self.report.setdefault("kvdtype", {}).setdefault("two_layers", {})
+        for name in self.KV_NAMES:
+            # the e2e phase's prompt and steps for fp8; the CPU path is the
+            # cost, so the e5m2 and f32 legs run a shorter prompt
+            plen, steps = (37, 8) if name == "fp8" else (16, 4)
+            prompt = torch.as_tensor(np.random.RandomState(7).randint(0, cfg.vocab_size,
+                                                                      (1, plen)))
+            dt = kv_dtype.KV_DTYPES[name]
+            gpu = ModelRunner("llama", cfg, gparams, device="cuda", kv_dtype=dt)
+            cpu = ModelRunner("llama", cfg, cparams, dtype=torch.float32, device="cpu",
+                              kv_dtype=dt)
+            lc, cc = cpu.prefill(prompt, cpu.init_cache())
+            ref, toks = [lc[0].float()], []
+            tok = lc[:, -1:].argmax(-1)
+            for _ in range(steps):
+                toks.append(tok)
+                lc, cc = cpu.decode(tok, cc)
+                ref.append(lc[0].float())
+                tok = lc[:, -1:].argmax(-1)
+            lg, cg = gpu.prefill(prompt.cuda(), gpu.init_cache())
+            got = [lg[0].float().cpu()]
+            for tok in toks:
+                lg, cg = gpu.decode(tok.cuda(), cg)
+                got.append(lg[0].float().cpu())
+            ref_all, got_all = torch.cat(ref), torch.cat(got)
+            scale = ref_all.abs().max().item()
+            err = (got_all - ref_all).abs().max().item()
+            if not torch.isfinite(got_all).all() or err > rel_tol * scale:
+                raise AssertionError(f"kvdtype {name}: 2-layer logits {err / scale} off the "
+                                     f"CPU path (tol {rel_tol})")
+            compared = agreed = 0
+            for r, g in zip(ref, got):
+                top2 = r.topk(2, dim=-1)
+                sel = (top2.values[:, 0] - top2.values[:, 1]) > 2 * rel_tol * scale
+                compared += int(sel.sum())
+                agreed += int((g.argmax(-1) == top2.indices[:, 0])[sel].sum())
+            if compared == 0 or agreed != compared:
+                raise AssertionError(f"kvdtype {name}: 2-layer tokens disagree with the CPU "
+                                     f"path ({agreed}/{compared})")
+            # graphs against the eager bodies, 24 greedy tokens
+            lg, cg = gpu.prefill(prompt.cuda(), gpu.init_cache())
+            first = lg[:, -1:].float().argmax(-1)
+            scan, _ = gpu.decode_greedy_scan(first, cg, 24)
+            lg, ce = gpu._step(prompt.cuda(), gpu.init_cache())
+            t, eager = lg[:, -1:].float().argmax(-1), []
+            for _ in range(24):
+                lg, ce = gpu._step(t, ce)
+                t = lg[:, -1:].float().argmax(-1)
+                eager.append(t)
+            torch.cuda.synchronize()
+            if not torch.equal(scan, torch.cat(eager, 1)):
+                raise AssertionError(f"kvdtype {name}: the 2-layer graphs' tokens differ from "
+                                     f"the eager loop's")
+            log(f"[kvdtype] {name} cache, 2-layer 7B width, a {plen}-token prompt and {steps} "
+                f"steps: logits max abs err {err:.4f}, "
+                f"max |ref| {scale:.3f}, rel {err / scale:.4f} (tol {rel_tol}) against the fp32 "
+                f"CPU path over the same cache dtype; tokens {agreed}/{compared} agree where the "
+                f"margin is clear; 24 greedy tokens through the graphs equal the eager loop's")
+            out[name] = {"max_abs_err": err, "max_abs_ref": scale, "tokens_compared": compared,
+                         "tokens_agreed": agreed}
+            del gpu, cpu
+        del gparams, cparams
+        torch.cuda.empty_cache()
+
+    def _kv_clis(self, torch):
+        """The CLIs with --kv-dtype on the 2-layer checkpoint the quantize
+        phase packed: ``--load OUT --benchmark 128 --check`` and ``serve
+        --demo N --paged`` for each dtype (N = 12 for fp8, 4 for the others);
+        the cache and the pool in it, the kernels of the path launched on it."""
+        from gptq_for_llama_tpu_torch.cli.main import main as cli
+        from gptq_for_llama_tpu_torch.cli.serve import main as serve_cli
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.ops import kv_dtype
+        model, packed = os.path.join(self.tmp, "model"), os.path.join(self.tmp, "packed")
+        out = self.report.setdefault("kvdtype", {}).setdefault("cli", {})
+        for name in self.KV_NAMES:
+            kernels.reset_launch_counts()
+            rep = cli([model, "synthetic", "--load", packed, "--benchmark", "128", "--check",
+                       "--kv-dtype", name])
+            counts = kernels.launch_counts()
+            bench = rep["benchmark"]
+            if (bench["kv_dtype"] != str(kv_dtype.KV_DTYPES[name]).replace("torch.", "")
+                    or not np.isfinite(bench["ppl"]) or counts[f"decode_attention:{name}"] == 0):
+                raise AssertionError(f"kvdtype CLI --benchmark --kv-dtype {name}: {bench}, "
+                                     f"launches {counts}")
+            if name == "fp8":
+                self.check_path("kvdtype:cli", counts)
+            kernels.reset_launch_counts()
+            n = 12 if name == "fp8" else 4
+            srep = serve_cli([model, "--load", packed, "--demo", str(n), "--demo-prompt-len",
+                              "100", "--max-new-tokens", "32", "--paged", "--quiet",
+                              "--kv-dtype", name])
+            scounts = kernels.launch_counts()
+            stats = srep["stats"]
+            if (stats["requests"] != n or stats["tokens"] != n * 32
+                    or stats["kv_dtype"] != bench["kv_dtype"]
+                    or scounts[f"pool_decode_attention:{name}"] == 0):
+                raise AssertionError(f"kvdtype serve CLI --kv-dtype {name}: {stats}, launches "
+                                     f"{scounts}")
+            if name == "fp8":
+                self.check_path("kvdtype:serve:cli", scounts)
+            log(f"[kvdtype] CLIs --kv-dtype {name}: --benchmark 128 --check ppl "
+                f"{bench['ppl']:.3f}, {bench['tokens_per_s']:.1f} tok/s, KV {bench['kv_bytes']} B; "
+                f"serve --demo {n} --paged {stats['tok_s']} tok/s, ttft p50 {stats['ttft_p50_s']} "
+                f"s, KV {stats['kv_bytes']} B | {self.card}")
+            out[name] = {"benchmark": bench, "serve": stats}
+
+    # -- phase 11 --------------------------------------------------------------
     def phase_profile(self, torch):
         from gptq_for_llama_tpu_torch.models.config import ModelConfig
         from gptq_for_llama_tpu_torch.runtime import ModelRunner
@@ -2672,8 +3286,11 @@ class Smoke:
             if name in ("qmm", "fused_mlp", "rms_norm"):   # the form of every row
                 rows[-1]["paths"] = {k[len(name) + 1:]: p for k, p in self.paths.items()
                                      if k.startswith(name + " ")}
+            by_dtype = ("bf16", "f32", "fp8", "fp8_e5m2")   # the cache dtype read
             forms = {"qmm": ("gemv", "frag", "tile"), "fused_mlp": ("gemv", "frag", "tile"),
-                     "rms_norm": ("alone", "add")}
+                     "rms_norm": ("alone", "add"), "decode_attention": by_dtype,
+                     "flash_prefill_blocked": by_dtype, "pool_decode_attention": by_dtype,
+                     "fused_decode_attention": by_dtype}
             if name in forms:
                 rows[-1]["launches_by_form"] = {
                     p: {f: c.get(f"{name}:{f}", 0) for f in forms[name]}
@@ -2682,6 +3299,8 @@ class Smoke:
                 rows[-1]["launch_floor_ms"] = self.report.get("launch_floor_ms")
             if name == "flash_prefill_blocked":
                 rows[-1]["sq2048"] = self.sq2048
+            if name in self.kv_entries:   # the same kernel over fp8-e4m3, fp8-e5m2, f32 caches
+                rows[-1]["kv_dtypes"] = self.kv_entries[name]
         return json.dumps({"kernels": rows})
 
 

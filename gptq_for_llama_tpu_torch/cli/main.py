@@ -78,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pre-layer", type=int, default=None, dest="pre_layer",
                    help="keep only the first N layers device-resident (CPU offload)")
     p.add_argument("--kv-dtype", type=str, default=None, dest="kv_dtype",
-                   choices=["bf16", "f32", "fp8", "fp8_e5m2"], help="KV-cache storage dtype")
+                   choices=["bf16", "f32", "fp8", "fp8_e5m2"],
+                   help="KV-cache STORAGE dtype (fp8 = float8_e4m3fn: half the cache memory "
+                        "and decode-attention traffic; compute stays bf16)")
     p.add_argument("--profile-dir", type=str, default=None,
                    help="write a torch.profiler trace of the eval/benchmark here")
     p.add_argument("--device", type=str, default=None,
@@ -93,7 +95,6 @@ _UNPORTED = {
     "--distributed": (lambda a: a.distributed, "A18"),
     "--fuse-attn": (lambda a: a.fuse_attn, "A4 (concat_outputs / fuse_attention)"),
     "--pre-layer": (lambda a: a.pre_layer is not None, "A15"),
-    "--kv-dtype": (lambda a: a.kv_dtype not in (None, "bf16"), "A14"),
 }
 
 
@@ -114,6 +115,7 @@ def main(argv=None) -> dict:
                           quantize_model, save_packed)
     from ..models import hf_loader
     from ..ops import cuda as kernels
+    from ..ops.kv_dtype import kv_dtype
     from ..utils.profiling import PhaseTimer, device_trace
 
     device = resolve_device(args.device)
@@ -212,7 +214,7 @@ def main(argv=None) -> dict:
         n = min(args.benchmark, len(stream))
         with phase("benchmark"), trace():
             runner = ModelRunner(cfg.arch, cfg, params, batch_size=1, max_seq_len=max(n, 32),
-                                 device=device)
+                                 device=device, kv_dtype=kv_dtype(args.kv_dtype))
             res = benchmark_decode(runner, stream[:n][None], check=args.check)
         print(json.dumps(res))
         report["benchmark"] = res
@@ -223,7 +225,8 @@ def main(argv=None) -> dict:
         tokenizer = AutoTokenizer.from_pretrained(args.model)
         ids = np.asarray(tokenizer(args.text)["input_ids"], np.int64)
         runner = ModelRunner(cfg.arch, cfg, params, batch_size=1,
-                             max_seq_len=len(ids) + args.max_new_tokens, device=device)
+                             max_seq_len=len(ids) + args.max_new_tokens, device=device,
+                             kv_dtype=kv_dtype(args.kv_dtype))
         out = generate(runner, ids, args.max_new_tokens, temperature=args.temperature,
                        top_p=args.top_p, min_new_tokens=args.min_new_tokens,
                        eos_token_id=tokenizer.eos_token_id,

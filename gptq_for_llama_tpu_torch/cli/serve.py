@@ -72,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distributed", action="store_true", help="multi-host initialization")
     p.add_argument("--quiet", action="store_true", help="suppress progress lines on stderr")
     p.add_argument("--kv-dtype", type=str, default=None, dest="kv_dtype",
-                   choices=["bf16", "f32", "fp8", "fp8_e5m2"], help="KV storage dtype")
+                   choices=["bf16", "f32", "fp8", "fp8_e5m2"],
+                   help="KV storage dtype (fp8: half the KV pool's bytes, 2x tokens per pool)")
     p.add_argument("--fuse-attn", action="store_true", dest="fuse_attn",
                    help="fuse q/k/v into one packed projection at load")
     p.add_argument("--device", type=str, default=None,
@@ -85,7 +86,6 @@ _UNPORTED = {
     "--tp": (lambda a: bool(a.tp and a.tp > 1), "A18"),
     "--distributed": (lambda a: a.distributed, "A18"),
     "--fuse-attn": (lambda a: a.fuse_attn, "A4 (concat_outputs / fuse_attention)"),
-    "--kv-dtype": (lambda a: a.kv_dtype not in (None, "bf16"), "A14"),
 }
 
 
@@ -114,6 +114,7 @@ def main(argv=None) -> dict:
             parser.error(f"--prompts {args.prompts}: no non-empty lines")
     from .. import resolve_device
     from ..models import hf_loader
+    from ..ops.kv_dtype import kv_dtype
     from ..runtime.serve import GenRequest, ServingEngine
 
     device = resolve_device(args.device)
@@ -144,7 +145,7 @@ def main(argv=None) -> dict:
         cfg.arch, cfg, params, batch_slots=args.slots, max_seq_len=max_len, paged=args.paged,
         block_size=args.block_size, num_blocks=args.num_blocks,
         prefill_chunk=args.prefill_chunk, decode_span=args.span, prefill_buckets=buckets,
-        device=device, seed=args.seed)
+        device=device, seed=args.seed, kv_dtype=kv_dtype(args.kv_dtype))
     for uid, prompt in enumerate(prompts):
         engine.submit(GenRequest(uid=uid, prompt=prompt, max_new_tokens=args.max_new_tokens,
                                  temperature=args.temperature, top_p=args.top_p,

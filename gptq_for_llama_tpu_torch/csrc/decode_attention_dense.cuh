@@ -13,12 +13,21 @@
 // offset[b] on rows whose write mask is set. The same functions as the plain
 // versions (ops/cuda/attention.py).
 //
+// The cache is stored in bf16, f32, fp8-e4m3 or fp8-e5m2 (the template
+// parameter T, kv_dtype.cuh) and read in that type: the ring holds the stored
+// bytes and each K/V element upcasts to fp32 as the TPU kernels' _load_f32
+// does (e4m3 by integer bit math, codes 0x7F / 0xFF read as +-480). q and the
+// fold form's current k/v stay bf16; the fold form rounds its current k/v to
+// the cache type before it attends them, as the TPU wrapper passes
+// k_new.astype(cache dtype) (ops/pallas/attention.py:378), and writes that
+// value as JAX's astype would (kv_dtype.cuh: an e4m3 overflow is NaN).
+//
 // What bounds it on the H100: device-memory bytes of the LIVE cache prefix,
-// 2 * live * Hkv * D * 2 B per row: 10.0 us at 2048 live slots of 7B's 32
-// heads at 3.35 TB/s, 1.97 us for the GQA row (B = 2, Hkv = 8, offsets 100
-// and 1500), 0.63 us at 128 slots. The arithmetic is 4 flops per byte. So the
-// design keeps bytes in flight on every SM and puts nothing in series with
-// the copies:
+// 2 * live * Hkv * D * itemsize B per row: in bf16 10.0 us at 2048 live slots
+// of 7B's 32 heads at 3.35 TB/s (5.0 in fp8, 20.0 in f32), 1.97 us for the GQA
+// row (B = 2, Hkv = 8, offsets 100 and 1500), 0.63 us at 128 slots. The
+// arithmetic is 4 flops per bf16 byte. So the design keeps bytes in flight on
+// every SM and puts nothing in series with the copies:
 //  - a block serves one (batch row, kv head, chunk of live slots) and that
 //    head's G query heads, so a GQA cache row is read once for all G heads.
 //    The host plan (ops/cuda/attention.py:decode_plan) fits the grid into one
@@ -27,8 +36,10 @@
 //    to the row's own live bound, so a row past the bound the plan was made
 //    for is still read in full; a block whose chunk starts past its row's
 //    bound exits at once.
-//  - K and V stream through a 4-stage ring in dynamic shared memory (64 KB,
-//    three blocks per SM) with 16-byte cp.async.cg copies: a block issues four
+//  - K and V stream through a 4-stage ring in dynamic shared memory (64 KB in
+//    bf16 and three blocks per SM; 32 KB in fp8; 128 KB in f32, one block per
+//    SM) with 16-byte cp.async.cg copies (8 bf16, 16 fp8 or 4 f32 elements
+//    each): a block issues four
 //    32-slot tiles before it computes the first, so a 128-slot chunk is in
 //    flight at once, and refills a stage as soon as it is read. Each warp
 //    copies and reads only its own 8 slots of every tile, so a tile needs no
@@ -65,6 +76,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kv_dtype.cuh"
 #include "mma_sync.cuh"
 
 namespace gptq_dense {
@@ -81,22 +93,43 @@ constexpr int kWarpSlots = 8;                     // slots of a tile one warp co
 constexpr int kTile = kWarps * kWarpSlots;        // 32 cache slots per ring stage
 constexpr int kStages = 4;
 constexpr int kSliceElems = kWarpSlots * kD;      // one warp's K (or V) rows of a stage
-constexpr int kSmemBytes = kStages * kWarps * 2 * kSliceElems * 2;   // 64 KB
+// elements of the ring: [warp][stage][K | V][slot][D], a warp's own region
+// contiguous; bytes = kRingElems * sizeof(cache element): 64 KB in bf16
+constexpr int kRingElems = kWarps * kStages * 2 * kSliceElems;
+template <typename T>
+constexpr int smem_bytes() {
+  return kRingElems * (int)sizeof(T);
+}
 constexpr int kMaxSplit = 64;                     // chunks per row the combine stages
 constexpr int kBlocksPerSm = 3;                   // resident blocks the registers are sized for
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The current token of the fold form: k/v (B, Hkv, D); with ``write`` they
-// are also stored at slot offset[b] of k_out / v_out (the caches) on rows
-// whose write_mask (B,) is non-zero (null: every row).
+// The current token of the fold form: k/v (B, Hkv, D) bf16; with ``write``
+// they are also stored, encoded in the cache type T, at slot offset[b] of
+// k_out / v_out (the caches) on rows whose write_mask (B,) is non-zero (null:
+// every row).
+template <typename T>
 struct Fold {
   const __nv_bfloat16* k_new;
   const __nv_bfloat16* v_new;
-  __nv_bfloat16* k_out;
-  __nv_bfloat16* v_out;
+  T* k_out;
+  T* v_out;
   const uint8_t* write_mask;
   int write;
 };
+
+// The fold form's current k/v element as it attends it: rounded to the cache
+// type and read back (exact for bf16 and f32)
+template <typename T>
+__device__ __forceinline__ float fold_value(__nv_bfloat16 x) {
+  using KV = gptq_kv::Kv<T>;
+  return KV::to_float(KV::encode(x));
+}
+template <typename T>
+__device__ __forceinline__ void fold_load4(const __nv_bfloat16* p, float (&f)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = fold_value<T>(p[i]);
+}
 
 // The block tables of the paged form: (B, MB) int32, BS slots per block.
 struct Pages {
@@ -164,15 +197,17 @@ __device__ __forceinline__ void fold_logits(const float (&qr)[G][4], const float
   }
 }
 
-template <int G, bool FOLD, bool PAGED>
+template <int G, bool FOLD, bool PAGED, typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
-                    const __nv_bfloat16* k, const __nv_bfloat16* v,   // (B, S, Hkv, D) or pools
+                    const T* k, const T* v,   // (B, S, Hkv, D) or pools
                     int S, const int32_t* __restrict__ offs, int off_scalar,
                     __nv_bfloat16* __restrict__ out,       // (B, H, D)
                     float* __restrict__ part,  // chunk partials, null for one chunk
-                    int Hkv, float qscale, int chunk, const Fold f, const Pages pg) {
-  extern __shared__ __align__(16) __nv_bfloat16 ring[];   // [stage][warp][K | V][slot][D]
+                    int Hkv, float qscale, int chunk, const Fold<T> f, const Pages pg) {
+  using KV = gptq_kv::Kv<T>;
+  extern __shared__ __align__(16) unsigned char ring_raw[];
+  T* ring = reinterpret_cast<T*>(ring_raw);   // [warp][stage][K | V][slot][D]
   __shared__ __align__(16) float pw[kWarps][G][kWarpSlots];   // each warp's probabilities
   __shared__ float wm[kWarps][G], wl[kWarps][G], lc[G];
 
@@ -190,8 +225,8 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
     if (f.write && z == 0 && (f.write_mask == nullptr || f.write_mask[b] != 0)) {
       const size_t src = ((size_t)b * Hkv + kvh) * kD + tid;
       const size_t dst = (((size_t)b * S + off) * Hkv + kvh) * kD + tid;
-      f.k_out[dst] = f.k_new[src];
-      f.v_out[dst] = f.v_new[src];
+      f.k_out[dst] = KV::encode(f.k_new[src]);
+      f.v_out[dst] = KV::encode(f.v_new[src]);
     }
   }
   // a chunk past the row's bound has no work; the combine does not read it.
@@ -200,8 +235,8 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
 
   const size_t row_stride = (size_t)Hkv * kD;   // elements between cache slots
   const size_t base = (PAGED ? 0 : (size_t)b * S * row_stride) + (size_t)kvh * kD;
-  const __nv_bfloat16* kbase = k + base;
-  const __nv_bfloat16* vbase = v + base;
+  const T* kbase = k + base;
+  const T* vbase = v + base;
   const int nt = t_end > t_begin ? (t_end - t_begin + kTile - 1) / kTile : 0;
 
   // paged: lane l holds the table entry of this warp's slice of tile e0 + l
@@ -213,11 +248,16 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
   };
   if constexpr (PAGED) load_entries(0);
 
-  // tile t of the chunk into stage t % kStages: this warp's 8 slots, K and V;
-  // slots at or past t_end are zero-filled without a read
+  // this warp's K slice of stage st (V follows it)
+  auto slice = [&](int st) { return ring + (warp * kStages + st) * 2 * kSliceElems; };
+  // tile t of the chunk into stage t % kStages: this warp's 8 slots, K and V,
+  // in 16-byte copies of kE elements; slots at or past t_end are zero-filled
+  // without a read
+  constexpr int kE = 16 / (int)sizeof(T);
+  constexpr int kRowCopies = kD / kE;   // 16-byte copies a cache row
   auto issue = [&](int t) {
-    __nv_bfloat16* kd = ring + ((t % kStages) * kWarps + warp) * 2 * kSliceElems;
-    __nv_bfloat16* vd = kd + kSliceElems;
+    T* kd = slice(t % kStages);
+    T* vd = kd + kSliceElems;
     const int slot0 = t_begin + t * kTile + warp * kWarpSlots;
     size_t first = 0;   // paged: the slice's first slot in the pool, in elements
     if constexpr (PAGED) {
@@ -229,8 +269,8 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
       first = ((size_t)phys * pg.BS + slot0 % pg.BS) * row_stride;
     }
 #pragma unroll
-    for (int r = 0; r < kWarpSlots * (kD / 8) / 32; ++r) {
-      const int i = lane + 32 * r, row = i >> 4, c8 = (i & 15) * 8;
+    for (int r = 0; r < kWarpSlots * kRowCopies / 32; ++r) {
+      const int i = lane + 32 * r, row = i / kRowCopies, c8 = (i % kRowCopies) * kE;
       const bool ok = slot0 + row < t_end;
       size_t src;
       if constexpr (PAGED) {
@@ -276,8 +316,8 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
   if constexpr (FOLD) {
     if (part == nullptr) {
       const size_t row = ((size_t)b * Hkv + kvh) * kD;
-      bf16x4(*reinterpret_cast<const uint2*>(f.k_new + row + 4 * lane), kn);
-      vn = __bfloat162float(f.v_new[row + tid]);
+      fold_load4<T>(f.k_new + row + 4 * lane, kn);
+      vn = fold_value<T>(f.v_new[row + tid]);
     }
   }
 
@@ -286,15 +326,15 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
     __syncwarp();   // every lane's copies of tile t landed
     const int slot0 = t_begin + t * kTile + warp * kWarpSlots;
     if (slot0 < t_end) {   // warp-uniform: the slice holds a live slot
-      const __nv_bfloat16* kd = ring + ((t % kStages) * kWarps + warp) * 2 * kSliceElems;
-      const __nv_bfloat16* vd = kd + kSliceElems;
+      const T* kd = slice(t % kStages);
+      const T* vd = kd + kSliceElems;
 
       // partial logits of the 8 slots over this lane's 4 dims
       float s[kWarpSlots][G];
 #pragma unroll
       for (int j = 0; j < kWarpSlots; ++j) {
         float kf[4];
-        bf16x4(*reinterpret_cast<const uint2*>(kd + j * kD + 4 * lane), kf);
+        KV::load4(kd + j * kD + 4 * lane, kf);
 #pragma unroll
         for (int g = 0; g < G; ++g)
           s[j][g] = qr[g][0] * kf[0] + qr[g][1] * kf[1] + qr[g][2] * kf[2] + qr[g][3] * kf[3];
@@ -353,7 +393,7 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
 #pragma unroll
       for (int j = 0; j < kWarpSlots; ++j) {
         float vf[4];
-        bf16x4(*reinterpret_cast<const uint2*>(vd + j * kD + 4 * lane), vf);
+        KV::load4(vd + j * kD + 4 * lane, vf);
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -367,9 +407,11 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
   cp_async_wait_all();
   __syncwarp();
 
-  // merge the four warps: each writes its state into its own stage-0 slice
-  // (G * D floats fit the 4 KB of K and V for G <= 8)
-  float* wacc = reinterpret_cast<float*>(ring + warp * 2 * kSliceElems);
+  // merge the four warps: each writes its state into its own ring region
+  // (G * D floats, 4 KB for G = 8, fit its kStages K and V slices: 8 KB in fp8)
+  constexpr int kWarpRegionBytes = kStages * 2 * kSliceElems * (int)sizeof(T);
+  static_assert(G * kD * 4 <= kWarpRegionBytes, "a warp's merge state must fit its ring region");
+  float* wacc = reinterpret_cast<float*>(ring_raw + warp * kWarpRegionBytes);
 #pragma unroll
   for (int g = 0; g < G; ++g)
     *reinterpret_cast<float4*>(wacc + g * kD + 4 * lane) =
@@ -400,7 +442,7 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
       for (int w = 0; w < kWarps; ++w) {
         const float e = ex2(wm[w][g] - M);   // 0 for a warp with no live slot
         L += e * wl[w][g];
-        O += e * reinterpret_cast<const float*>(ring + w * 2 * kSliceElems)[g * kD + d];
+        O += e * reinterpret_cast<const float*>(ring_raw + w * kWarpRegionBytes)[g * kD + d];
       }
     }
     if (part != nullptr) {
@@ -429,12 +471,12 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
 // slot. The chunks' maxima and denominators are staged in shared memory, one
 // warp per query head turns them into weights, and every thread then sums
 // its output dim with 8 chunks' loads in flight at a time.
-template <int G, bool FOLD>
+template <int G, bool FOLD, typename T>
 __global__ void __launch_bounds__(kThreads)
 dense_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
                      int Hkv, int nsplit, int chunk, int S, const int32_t* __restrict__ offs,
                      int off_scalar, const __nv_bfloat16* __restrict__ q, float qscale,
-                     const Fold f) {
+                     const Fold<T> f) {
   __shared__ float sm[kMaxSplit * G], sl[kMaxSplit * G], sM[G], sL[G], lc[G];
   const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -448,7 +490,7 @@ dense_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
   float vn = 0.0f;
   if constexpr (FOLD) {   // the current token: inputs of this launch, not partials
     const size_t row = ((size_t)b * Hkv + kvh) * kD;
-    vn = __bfloat162float(f.v_new[row + tid]);
+    vn = fold_value<T>(f.v_new[row + tid]);
     if (warp == 0) {
       float qr[G][4], kn[4];
 #pragma unroll
@@ -459,7 +501,7 @@ dense_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
 #pragma unroll
         for (int i = 0; i < 4; ++i) qr[g][i] = t[i] * qscale;
       }
-      bf16x4(*reinterpret_cast<const uint2*>(f.k_new + row + 4 * lane), kn);
+      fold_load4<T>(f.k_new + row + 4 * lane, kn);
       fold_logits<G>(qr, kn, lc);
     }
   }
@@ -521,26 +563,27 @@ dense_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
         __float2bfloat16_rn(num[g] / sL[g]);
 }
 
-template <int G, bool FOLD, bool PAGED>
+template <int G, bool FOLD, bool PAGED, typename T>
 cudaError_t launch_g(const void* q, const void* k, const void* v, int S, const void* offs,
                      int off_scalar, void* out, void* part, int B, int Hkv, float scale,
-                     int nsplit, int chunk, const Fold& f, const Pages& pg,
+                     int nsplit, int chunk, const Fold<T>& f, const Pages& pg,
                      cudaStream_t stream) {
-  static unsigned configured = 0;   // per device: the ring is above the 48 KB default
+  constexpr int kSmemBytes = smem_bytes<T>();
+  static unsigned configured = 0;   // per device: the ring may be above the 48 KB default
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (!(configured >> dev & 1u)) {
-    e = cudaFuncSetAttribute(dense_decode_kernel<G, FOLD, PAGED>,
+    e = cudaFuncSetAttribute(dense_decode_kernel<G, FOLD, PAGED, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (e != cudaSuccess) return e;
     configured |= 1u << dev;
   }
   const float qscale = scale * kLog2e;
   float* p = nsplit > 1 ? static_cast<float*>(part) : nullptr;
-  dense_decode_kernel<G, FOLD, PAGED><<<dim3(Hkv, B, nsplit), kThreads, kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), S, static_cast<const int32_t*>(offs), off_scalar,
+  dense_decode_kernel<G, FOLD, PAGED, T><<<dim3(Hkv, B, nsplit), kThreads, kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), S, static_cast<const int32_t*>(offs), off_scalar,
       static_cast<__nv_bfloat16*>(out), p, Hkv, qscale, chunk, f, pg);
   e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return e;
@@ -556,7 +599,7 @@ cudaError_t launch_g(const void* q, const void* k, const void* v, int S, const v
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, dense_combine_kernel<G, FOLD>, static_cast<const float*>(p),
+  return cudaLaunchKernelEx(&cfg, dense_combine_kernel<G, FOLD, T>, static_cast<const float*>(p),
                             static_cast<__nv_bfloat16*>(out), Hkv, nsplit, chunk, S,
                             static_cast<const int32_t*>(offs), off_scalar,
                             static_cast<const __nv_bfloat16*>(q), qscale, f);
@@ -567,12 +610,13 @@ cudaError_t launch_g(const void* q, const void* k, const void* v, int S, const v
 // at most kMaxSplit. nsplit > 1
 // needs `part`: B * Hkv * nsplit * G * (D + 2) floats. FOLD needs f.k_new and
 // f.v_new (and, with f.write, f.k_out and f.v_out). PAGED: k and v are the
-// pools, S the logical length MB * BS, pg the tables (BS % 8 == 0).
-template <bool FOLD, bool PAGED = false>
+// pools, S the logical length MB * BS, pg the tables (BS % 8 == 0). T: the
+// cache element type.
+template <typename T, bool FOLD, bool PAGED = false>
 cudaError_t launch(const void* q, const void* k, const void* v, int S, const void* offs,
                    int off_scalar, void* out, void* part, int B, int Hkv, int G, int D,
-                   float scale, int nsplit, int chunk, cudaStream_t st, const Fold& f = Fold{},
-                   const Pages& pg = Pages{}) {
+                   float scale, int nsplit, int chunk, cudaStream_t st,
+                   const Fold<T>& f = Fold<T>{}, const Pages& pg = Pages{}) {
   if (D != kD || B < 1 || S < 1 || Hkv < 1 || nsplit < 1 || nsplit > kMaxSplit ||
       chunk < kTile || chunk % kTile != 0 ||
       (nsplit > 1 && part == nullptr) ||
@@ -582,7 +626,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, int S, const voi
                  pg.BS % kWarpSlots != 0 || pg.MB < 1 || S != pg.MB * pg.BS)))
     return cudaErrorInvalidValue;
 #define GPTQ_G(N)                                                                          \
-  launch_g<N, FOLD, PAGED>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, \
+  launch_g<N, FOLD, PAGED, T>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, \
                            chunk, f, pg, st)
   switch (G) {
     case 1: return GPTQ_G(1);
@@ -602,9 +646,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, int S, const voi
 
 // The layout the host plan (ops/cuda/attention.py) assumes, read once when a
 // library that includes this header is loaded: head dim, slots per tile, ring
-// stages, resident blocks per SM, chunks the combine stages, ring bytes.
+// stages, resident blocks per SM (at most), chunks the combine stages, ring
+// elements (the ring's bytes are these times the cache's itemsize).
 extern "C" void gptq_dense_decode_layout(int* out) {
   const int v[] = {gptq_dense::kD, gptq_dense::kTile, gptq_dense::kStages,
-                   gptq_dense::kBlocksPerSm, gptq_dense::kMaxSplit, gptq_dense::kSmemBytes};
+                   gptq_dense::kBlocksPerSm, gptq_dense::kMaxSplit, gptq_dense::kRingElems};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
 }

@@ -59,6 +59,15 @@
 // from device memory, as the TPU kernel takes its q_offset by scalar
 // prefetch, and optionally the cache row of its batch row: the grid depends
 // on SQ alone, so one captured launch serves every offset and slot.
+// Kernel 4's cache may be stored in f32, fp8-e4m3 or fp8-e5m2 as well as bf16
+// (kv_dtype.cuh). Such a cache runs the mma.sync body at every length: its K
+// and V tiles are loaded in the stored type into registers where the bf16
+// body issues its cp.async (V(t) before S(t) is computed, K(t+1) before
+// P V(t)), then rounded to bf16 as the TPU kernel's _load_bf16 does (exact
+// for fp8, nearest even from f32) and stored in the bf16 tile layout. The
+// wgmma body takes bf16 only: its TMA tiles land in the 128-byte swizzle the
+// bf16 descriptors read, and a conversion stage would need shared memory the
+// block does not have.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,7 +75,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
+#include "kv_dtype.cuh"
 #include "mma_sync.cuh"
 
 namespace gptq_flash {
@@ -83,16 +95,66 @@ constexpr int kTile = kBQ * kStride;     // elements of one 64 x 128 tile
 constexpr int kSmemBytes = 3 * kTile * 2;  // Q, K, V: 52,224 B
 constexpr float kNeg = -1e30f;           // running-max start: finite, so exp never sees inf - inf
 
-// rows [row0, row0 + 64) of a (.., S, heads, D) tensor into a padded smem tile;
-// rows >= S are zero-filled
+// rows [row0, row0 + 64) of a (.., S, heads, D) tensor into a padded bf16
+// smem tile in two steps; rows >= S are zero-filled. ``fetch`` starts the
+// copy: for bf16, cp.async into ``dst`` (``put`` then does nothing); for a
+// cache of another type T, plain loads of the thread's 8 chunks of 8
+// elements into ``Staged<T>`` registers, which ``put`` reads as the decode
+// kernels do (gptq_kv::Kv<T>::load4), rounds to bf16 and stores. The loads are in flight while the
+// caller computes between the two.
+constexpr int kChunks = kBQ * (kD / 8) / kThreads;   // 8-element chunks a thread copies
+template <typename T>
+struct Staged {
+  alignas(16) T x[kChunks][8];
+};
+template <>
+struct Staged<__nv_bfloat16> {};
+
+template <typename T>
+__device__ __forceinline__ void fetch(__nv_bfloat16* dst, Staged<T>& st, const T* base,
+                                      size_t row_stride, int row0, int S, int tid) {
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = tid + i * kThreads, r = c >> 4, c8 = (c & 15) * 8;
+    const bool ok = row0 + r < S;
+    const T* src = base + (size_t)(ok ? row0 + r : 0) * row_stride + c8;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      cp_async16(dst + r * kStride + c8, src, ok);
+    } else if constexpr (sizeof(T) == 1) {
+      *reinterpret_cast<uint2*>(st.x[i]) =
+          ok ? *reinterpret_cast<const uint2*>(src) : make_uint2(0u, 0u);
+    } else {
+      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *reinterpret_cast<float4*>(st.x[i]) = ok ? *reinterpret_cast<const float4*>(src) : z;
+      *reinterpret_cast<float4*>(st.x[i] + 4) = ok ? *reinterpret_cast<const float4*>(src + 4) : z;
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void put(__nv_bfloat16* dst, const Staged<T>& st, int tid) {
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int c = tid + i * kThreads, r = c >> 4, c8 = (c & 15) * 8;
+      float f[2][4];
+      gptq_kv::Kv<T>::load4(st.x[i], f[0]);
+      gptq_kv::Kv<T>::load4(st.x[i] + 4, f[1]);
+      uint4 o;   // rounded to nearest even: exact for fp8; zeros stay zeros
+      o.x = pack_bf16(f[0][0], f[0][1]);
+      o.y = pack_bf16(f[0][2], f[0][3]);
+      o.z = pack_bf16(f[1][0], f[1][1]);
+      o.w = pack_bf16(f[1][2], f[1][3]);
+      *reinterpret_cast<uint4*>(dst + r * kStride + c8) = o;
+    }
+  }
+}
+
+// a bf16 tile, cp.async only (q, and kernel 5's k/v)
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
                                           size_t row_stride, int row0, int S, int tid) {
-#pragma unroll
-  for (int c = tid; c < kBQ * (kD / 8); c += kThreads) {
-    const int r = c >> 4, c8 = (c & 15) * 8;
-    const bool ok = row0 + r < S;
-    cp_async16(dst + r * kStride + c8, base + (size_t)(ok ? row0 + r : 0) * row_stride + c8, ok);
-  }
+  Staged<__nv_bfloat16> none;
+  fetch(dst, none, base, row_stride, row0, S, tid);
 }
 
 // The chunk's first absolute position, read from device memory (kernel 4: a
@@ -108,12 +170,13 @@ __device__ __forceinline__ int cache_row(const int* rows, int b, int Bkv) {
   return (OFFSET && rows != nullptr) ? min(max(__ldg(rows + b), 0), Bkv - 1) : b;
 }
 
-// grid: (ceil(SQ / kBQ), H, B); block: kThreads; dynamic smem: kSmemBytes
-template <bool OFFSET>
+// grid: (ceil(SQ / kBQ), H, B); block: kThreads; dynamic smem: kSmemBytes.
+// T: the cache element type (bf16 for kernel 5).
+template <bool OFFSET, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
-             const __nv_bfloat16* __restrict__ k,   // (B, SKV, Hkv, D)
-             const __nv_bfloat16* __restrict__ v,   // (B, SKV, Hkv, D)
+             const T* __restrict__ k,               // (B, SKV, Hkv, D)
+             const T* __restrict__ v,               // (B, SKV, Hkv, D)
              __nv_bfloat16* __restrict__ out,       // (B, SQ, H, D)
              int SQ, int Bkv, int SKV, int H, int Hkv,
              const int* __restrict__ q_offset,      // (1,): the chunk's first position
@@ -134,15 +197,17 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
 
   const size_t q_stride = (size_t)H * kD, kv_stride = (size_t)Hkv * kD;
   const __nv_bfloat16* qbase = q + ((size_t)b * SQ * H + h) * kD;
-  const __nv_bfloat16* kbase = k + ((size_t)kb * SKV * Hkv + kvh) * kD;
-  const __nv_bfloat16* vbase = v + ((size_t)kb * SKV * Hkv + kvh) * kD;
+  const T* kbase = k + ((size_t)kb * SKV * Hkv + kvh) * kD;
+  const T* vbase = v + ((size_t)kb * SKV * Hkv + kvh) * kD;
 
   // keys up to the causal limit of the tile's last real row; slots past it
   // are never read (zero-filled), so a cache may hold anything there
   const int kv_end = min(SKV, off + min(q0 + kBQ, SQ));
   const int n_kt = (kv_end - 1) / kBK + 1;
+  Staged<T> st;   // a K or V tile of another type than bf16, on its way in
   load_tile(qs, qbase, q_stride, q0, SQ, tid);
-  load_tile(ks, kbase, kv_stride, 0, kv_end, tid);
+  fetch(ks, st, kbase, kv_stride, 0, kv_end, tid);
+  put(ks, st, tid);
   cp_async_commit();
   const int row_lo = q0 + warp * 16 + g;               // this thread's two rows
   const int row_hi = row_lo + 8;
@@ -158,7 +223,7 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
     const int k0 = kt * kBK;
     cp_async_wait_all();
     __syncthreads();   // K(kt) (and Q) landed; every warp is done with V(kt-1)
-    load_tile(vs, vbase, kv_stride, k0, kv_end, tid);
+    fetch(vs, st, vbase, kv_stride, k0, kv_end, tid);
     cp_async_commit();
     if (kt == 0) {
 #pragma unroll
@@ -237,10 +302,11 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
       pf[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
     }
 
+    put(vs, st, tid);   // V(kt), fetched before S was computed
     cp_async_wait_all();
     __syncthreads();   // V(kt) landed; every warp is done with K(kt)
     if (kt + 1 < n_kt) {
-      load_tile(ks, kbase, kv_stride, k0 + kBK, kv_end, tid);
+      fetch(ks, st, kbase, kv_stride, k0 + kBK, kv_end, tid);
       cp_async_commit();
     }
 
@@ -256,6 +322,7 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
         mma16816(o[2 * dp + 1], pf[j], bf[2], bf[3]);
       }
     }
+    if (kt + 1 < n_kt) put(ks, st, tid);   // K(kt + 1), fetched before P V
   }
 
 #pragma unroll
@@ -628,16 +695,19 @@ enum Path { kSync = 0, kWgmma = 1 };
 
 // One launch; sets the dynamic shared memory attribute once per instantiation
 // (not per launch, so a CUDA-graph capture sees none).
-// k/v are (Bkv, SKV, Hkv, D): the tensor maps cover the whole cache, so a
-// launch captured in a CUDA graph replays over the same tensors whatever
-// offset and rows the device buffers hold (kernel 4). Kernel 5 passes null
-// offset and rows and Bkv = B.
-template <bool OFFSET>
+// k/v are (Bkv, SKV, Hkv, D) of element type T: the tensor maps cover the
+// whole cache, so a launch captured in a CUDA graph replays over the same
+// tensors whatever offset and rows the device buffers hold (kernel 4).
+// Kernel 5 passes null offset and rows, Bkv = B and bf16. A cache of another
+// type than bf16 takes the mma.sync body only.
+template <bool OFFSET, typename T = __nv_bfloat16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int SQ,
                    int Bkv, int SKV, int H, int Hkv, const int* q_offset, const int* rows,
                    float scale, int path, cudaStream_t stream) {
   auto* ob = static_cast<__nv_bfloat16*>(out);
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   if (path == kWgmma) {
+    if (!kBf16) return cudaErrorInvalidValue;
     auto kern = flash_wgmma_kernel<OFFSET>;
     static const cudaError_t attr =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
@@ -652,14 +722,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
     return cudaGetLastError();
   }
   if (path != kSync) return cudaErrorInvalidValue;
-  auto kern = flash_sync_kernel<OFFSET>;
+  auto kern = flash_sync_kernel<OFFSET, T>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (attr != cudaSuccess) return attr;
   dim3 grid((SQ + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), ob, SQ, Bkv, SKV, H, Hkv, q_offset, rows, scale);
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      ob, SQ, Bkv, SKV, H, Hkv, q_offset, rows, scale);
   return cudaGetLastError();
 }
 

@@ -28,24 +28,34 @@
 // works (the TPU kernel needs SQ % 128 == 0). A short chunk over a long cache
 // gives few blocks; each reads only its live keys, so no split of the keys
 // across blocks is needed there (PERF.md).
+//
+// The cache may be stored in bf16, f32, fp8-e4m3 or fp8-e5m2 and is read in
+// that type: a cache other than bf16 runs the mma.sync body at every length,
+// its tiles rounded to bf16 on their way into shared memory as the TPU
+// kernel's _load_bf16 reads them (an f32 cache is rounded before q k^T; e4m3
+// codes 0x7F / 0xFF read as +-480); the bytes it reads shrink with the
+// cache's itemsize.
 #include "flash_common.cuh"
 
 extern "C" const char* gptq_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// q (B, SQ, H, D); k/v (Bkv, SKV, Hkv, D); q_offset: device pointer to one
+// q (B, SQ, H, D) bf16; k/v (Bkv, SKV, Hkv, D) in the cache dtype ``kv``
+// (gptq_kv::Code: bf16, f32, e4m3, e5m2); q_offset: device pointer to one
 // int32; rows: device pointer to B int32, or null (batch row b attends cache
-// row b; then Bkv == B). path: gptq_flash::kSync or kWgmma.
+// row b; then Bkv == B). path: gptq_flash::kSync or kWgmma (bf16 only).
 extern "C" int gptq_flash_prefill_blocked(const void* q, const void* k, const void* v,
                                           void* out, int B, int SQ, int Bkv, int SKV, int H,
                                           int Hkv, int D, const int* q_offset, const int* rows,
-                                          float scale, int path, void* stream) {
+                                          float scale, int path, int kv, void* stream) {
   if (D != gptq_flash::kD || B < 1 || SQ < 1 || Bkv < 1 || SKV < 1 || Hkv < 1 ||
       H % Hkv != 0 || q_offset == nullptr || (rows == nullptr && Bkv != B) || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(gptq_flash::launch<true>(q, k, v, out, B, SQ, Bkv, SKV, H, Hkv,
-                                                   q_offset, rows, scale, path,
-                                                   static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(gptq_kv::dispatch(kv, [&](auto t) {
+    return gptq_flash::launch<true, decltype(t)>(q, k, v, out, B, SQ, Bkv, SKV, H, Hkv, q_offset,
+                                                 rows, scale, path,
+                                                 static_cast<cudaStream_t>(stream));
+  }));
 }

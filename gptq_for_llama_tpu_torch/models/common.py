@@ -5,8 +5,11 @@ the serving engine's cache protocol (per-slot offsets, paged block pools,
 batched admission, the token-fused chunk+decode step). fp32 is used for
 normalization statistics and softmax; everything else runs in the compute
 dtype. RoPE and the cache writes are plain torch, as the TPU package leaves
-them to XLA. RMSNorm and attention on a CUDA tensor always go to a kernel of
-``ops/cuda``: a decode row over a dense cache to the decode kernel (or, in
+them to XLA; a cache may be stored in bf16, f32 or fp8 (``ops/kv_dtype.py``)
+and every write goes through its encoder (JAX's ``astype``) and the cache's
+stored view (fp8 bytes as uint8). RMSNorm and attention on a CUDA tensor
+always go to a kernel of ``ops/cuda``, which reads the cache in its stored
+dtype: a decode row over a dense cache to the decode kernel (or, in
 the fold form, to the fold kernel, which attends the stale prefix plus the
 current token's k/v), over a block pool to the pool kernel, a chunk of
 queries at a cache offset to the blocked prefill kernel, and causal
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops import kv_dtype
 from ..ops.cuda.attention import (attention_plain, decode_attention, fused_decode_attention,
                                   pool_decode_attention)
 from ..ops.cuda.flash import flash_prefill_blocked
@@ -62,14 +66,17 @@ def update_kv_cache(cache_k, cache_v, k_new, v_new, offset, write_mask=None):
     device offset is not checked on the host. write_mask: optional (B,) bool
     with tensor offsets; False rows keep their existing contents. Unlike the
     functional TPU version the caches are updated in place (no copy of the
-    whole cache per token) and returned."""
-    k_new = k_new.to(cache_k.dtype)
-    v_new = v_new.to(cache_v.dtype)
+    whole cache per token) and returned. The new k/v are encoded in the
+    cache's dtype (``kv_dtype.encode``) and written through its stored view
+    (an fp8 cache as bytes: torch has no CPU scatter for float8)."""
+    ck, cv = kv_dtype.stored(cache_k), kv_dtype.stored(cache_v)
+    k_new = kv_dtype.encode(k_new, cache_k.dtype)
+    v_new = kv_dtype.encode(v_new, cache_v.dtype)
     s = k_new.shape[1]
     if not isinstance(offset, torch.Tensor):
         off = int(offset)
-        cache_k[:, off:off + s] = k_new
-        cache_v[:, off:off + s] = v_new
+        ck[:, off:off + s] = k_new
+        cv[:, off:off + s] = v_new
         return cache_k, cache_v
     # a scatter along the slots: 3 launches a layer in a decode graph where an
     # indexed write takes 6
@@ -79,10 +86,10 @@ def update_kv_cache(cache_k, cache_v, k_new, v_new, offset, write_mask=None):
     idx = cols[:, :, None, None].expand(k_new.shape)
     if write_mask is not None:
         m = write_mask.to(cache_k.device)[:, None, None, None]
-        k_new = torch.where(m, k_new, cache_k.gather(1, idx))
-        v_new = torch.where(m, v_new, cache_v.gather(1, idx))
-    cache_k.scatter_(1, idx, k_new)
-    cache_v.scatter_(1, idx, v_new)
+        k_new = torch.where(m, k_new, ck.gather(1, idx))
+        v_new = torch.where(m, v_new, cv.gather(1, idx))
+    ck.scatter_(1, idx, k_new)
+    cv.scatter_(1, idx, v_new)
     return cache_k, cache_v
 
 
@@ -245,17 +252,19 @@ def _chunk_bound(off0, c: int, max_live) -> int:
 
 
 def _slot_write(cache, new, slot, off0) -> None:
-    """new (C, Hkv, D) into cache[slot, off0:off0 + C], in place; slot and
-    off0 host ints, or 1-element tensors on the device (an indexed write: no
-    host read). The caller keeps off0 + C within the cache."""
-    new = new.to(cache.dtype)
+    """new (C, Hkv, D) into cache[slot, off0:off0 + C], in place, encoded in
+    the cache's dtype through its stored view; slot and off0 host ints, or
+    1-element tensors on the device (an indexed write: no host read). The
+    caller keeps off0 + C within the cache."""
+    new = kv_dtype.encode(new, cache.dtype)
+    view = kv_dtype.stored(cache)
     if not isinstance(slot, torch.Tensor) and not isinstance(off0, torch.Tensor):
-        cache[slot, off0:off0 + new.shape[0]] = new
+        view[slot, off0:off0 + new.shape[0]] = new
         return
     dev = cache.device
     pos = torch.as_tensor(off0, device=dev).reshape(-1).long() + torch.arange(new.shape[0],
                                                                              device=dev)
-    cache.index_put_((torch.as_tensor(slot, device=dev).reshape(-1).long(), pos), new)
+    view.index_put_((torch.as_tensor(slot, device=dev).reshape(-1).long(), pos), new)
 
 
 def _table_row(tables, slot):
@@ -305,8 +314,9 @@ def _grouped_attention(q, k, v, sc, offsets, slot, off0, b_dec, max_live=None):
     chunk alone). k/v are dense (B, S, Hkv, D) caches or ("pool", pool,
     tables) markers. The chunk runs kernel 4 at ``off0`` under the bound
     ``max_live``: over a dense cache on the slot's row of the whole cache (no
-    copy), over a pool on the blocks of the bound gathered through the
-    slot's table row."""
+    copy, read in its stored dtype), over a pool on the blocks of the bound
+    gathered through the slot's table row and cast to q's dtype (the TPU
+    package's astype of that view, ``models/common.py:355-359``)."""
     q_chunk = q[:, b_dec:]                           # (1, C, H, D)
     bound = _chunk_bound(off0, q_chunk.shape[1], max_live)
     rows = slot.reshape(1) if isinstance(slot, torch.Tensor) else None

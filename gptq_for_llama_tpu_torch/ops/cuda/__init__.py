@@ -47,8 +47,13 @@ KERNELS = {
 
 
 # kernels counted by form as well: kernels 1 and 2's GEMV, fragments and
-# tiles, and kernel 6 alone or with the residual add folded in
-_BY_FORM = {"qmm": matmul.qmm_cuda, "fused_mlp": mlp.fused_mlp_cuda, "rms_norm": norm.rms_norm_cuda}
+# tiles, kernel 6 alone or with the residual add folded in, and kernels 3, 4,
+# 7 and 9 by the cache dtype they read (bf16, f32, fp8, fp8_e5m2)
+_BY_FORM = {"qmm": matmul.qmm_cuda, "fused_mlp": mlp.fused_mlp_cuda, "rms_norm": norm.rms_norm_cuda,
+            "decode_attention": attention.decode_attention_cuda,
+            "flash_prefill_blocked": flash.flash_prefill_blocked_cuda,
+            "pool_decode_attention": attention.pool_decode_attention_cuda,
+            "fused_decode_attention": attention.fused_decode_attention_cuda}
 
 
 def reset_launch_counts() -> None:
@@ -60,7 +65,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """Launches per kernel, then kernels 1's, 2's and 6's by form
-    ("qmm:gemv", "fused_mlp:tile", "rms_norm:add", ...)."""
+    ("qmm:gemv", "fused_mlp:tile", "rms_norm:add", ...) and kernels 3, 4, 7
+    and 9's by cache dtype ("decode_attention:fp8", ...)."""
     counts = {name: kernel.wrapper.launches for name, kernel in KERNELS.items()}
     for name, wrapper in _BY_FORM.items():
         counts.update({f"{name}:{form}": n for form, n in wrapper.forms.items()})

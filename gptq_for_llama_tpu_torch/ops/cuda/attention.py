@@ -20,6 +20,15 @@ copy of a tile routed through one table entry (entry
 the logical length; it builds no gathered view and equals kernel 3 over that
 view bit for bit. The plain versions are the TPU package's ``_xla_decode_fallback``, for the
 pool after a gather through the tables.
+
+The caches and pools may be stored in bf16, f32, fp8-e4m3 or fp8-e5m2
+(``ops/kv_dtype.py``); the kernels read them in that type (16-byte copies of
+16 fp8, 8 bf16 or 4 f32 elements into a ring of the stored bytes) and upcast
+each element as the TPU kernels' ``_load_f32`` does, and the plain versions
+read through ``kv_dtype.decode``, the same rule. q and the fold form's
+current k/v stay bf16; the fold form rounds the current k/v to the cache dtype
+(``kv_dtype.round_to``) before it attends and writes them, as the TPU
+wrapper passes ``k_new.astype(cache dtype)``. Another cache dtype raises.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kv_dtype
 from . import build
 from .grad import refuse_grad
 from .matmul import _sm_count, check_tensor
@@ -45,19 +55,47 @@ HEAD_DIM = 128
 # the library's gptq_dense_decode_layout when it is loaded)
 TILE = 32       # cache slots per ring stage (4 warps x 8 slots)
 RING = 4        # ring stages: a block has up to RING * TILE slots in flight
-BLOCKS_PER_SM = 3   # resident blocks (RING_SMEM_BYTES of ring each)
+BLOCKS_PER_SM = 3   # resident blocks at most (the registers are sized for it)
 MAX_SPLIT = 64  # chunks per (row, kv head) the combine kernel takes
-RING_SMEM_BYTES = RING * TILE * 2 * HEAD_DIM * 2   # K and V, bf16
+RING_ELEMS = RING * TILE * 2 * HEAD_DIM   # K and V elements of the ring
+SMEM_PER_SM = 233472                      # the H100's 228 KB
+BLOCK_SMEM_EXTRA = 3072                   # a block's static arrays and reserved KB, above its ring
 MIN_CHUNK, MAX_CHUNK = 2 * TILE, 6 * TILE
+
+
+def ring_smem_bytes(itemsize: int = 2) -> int:
+    """Dynamic shared memory of one block of kernels 3, 7 and 9 over a cache
+    of ``itemsize`` bytes an element: 32 KB fp8, 64 KB bf16, 128 KB f32."""
+    return RING_ELEMS * itemsize
+
+
+def blocks_per_sm(itemsize: int = 2) -> int:
+    """Resident blocks of kernels 3, 7 and 9 an SM holds at this itemsize:
+    BLOCKS_PER_SM, or what the rings leave room for (f32: one)."""
+    return max(1, min(BLOCKS_PER_SM,
+                      SMEM_PER_SM // (ring_smem_bytes(itemsize) + BLOCK_SMEM_EXTRA)))
+
+
+def check_caches(k, v, shape) -> int:
+    """``check_tensor`` for a K/V pair of caches: one of the four cache
+    dtypes, the same for both; returns its code for the C entry points."""
+    if k.dtype not in kv_dtype.KV_CODES or v.dtype != k.dtype:
+        raise TypeError(f"the kernel takes k and v caches of one dtype among "
+                        f"{tuple(kv_dtype.KV_CODES)}, got {k.dtype} and {v.dtype}")
+    check_tensor(k, "k_cache", k.dtype, shape)
+    check_tensor(v, "v_cache", v.dtype, shape)
+    return kv_dtype.KV_CODES[k.dtype]
 
 
 def attention_plain(q, k, v, scale: float, mask=None) -> torch.Tensor:
     """Softmax attention in fp32, the plain version of kernels 3 and 4.
-    q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D), H a multiple of Hkv. mask:
+    q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) in any cache dtype, read through
+    ``kv_dtype.decode`` (the TPU kernels' ``_load_f32``), H a multiple of
+    Hkv. mask:
     None, a bool tensor (True = attend) or an additive float mask, either
     broadcastable to (B, H, Sq, Skv). Returns (B, Sq, H, D) in q's dtype."""
     h, hkv = q.shape[2], k.shape[2]
-    kf, vf = k.float(), v.float()
+    kf, vf = kv_dtype.decode(k), kv_dtype.decode(v)
     if h != hkv:
         kf = kf.repeat_interleave(h // hkv, dim=2)
         vf = vf.repeat_interleave(h // hkv, dim=2)
@@ -82,10 +120,11 @@ def _check_layout(lib: ctypes.CDLL, name: str) -> None:
     ``decode_plan`` plans with."""
     got = (ctypes.c_int * 6)()
     lib.gptq_dense_decode_layout(got)
-    want = (HEAD_DIM, TILE, RING, BLOCKS_PER_SM, MAX_SPLIT, RING_SMEM_BYTES)
+    want = (HEAD_DIM, TILE, RING, BLOCKS_PER_SM, MAX_SPLIT, RING_ELEMS)
     if tuple(got) != want:
         raise RuntimeError(f"{name}: the kernel's layout (head dim, tile, ring stages, blocks "
-                           f"per SM, max split, ring bytes) is {tuple(got)}, the plan's {want}")
+                           f"per SM, max split, ring elements) is {tuple(got)}, the plan's "
+                           f"{want}")
 
 
 def _entry():
@@ -94,7 +133,7 @@ def _entry():
     if fn.argtypes is None:
         _check_layout(lib, "decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -107,16 +146,18 @@ class DecodePlan(NamedTuple):
     chunk: int
 
 
-def decode_plan(b: int, hkv: int, g: int, live: int, sms: int = 132) -> DecodePlan:
+def decode_plan(b: int, hkv: int, g: int, live: int, sms: int = 132,
+                itemsize: int = 2) -> DecodePlan:
     """A pure function of host ints: the batch, kv heads, query heads per kv
     head (the plan does not depend on it yet), a bound on the live slots of
-    any row (the rows' own offsets still decide what each reads) and the
-    card's SM count.
+    any row (the rows' own offsets still decide what each reads), the card's
+    SM count and the cache's bytes an element.
 
     A prefix of at most RING * TILE = 128 slots is one chunk: one pass, the
     whole prefix in flight at once, no combine kernel. A longer one is split
-    so that the grid fits one wave of resident blocks (BLOCKS_PER_SM a SM,
-    the ring's 64 KB each): each block then streams its chunk through the
+    so that the grid fits one wave of resident blocks (``blocks_per_sm``:
+    three a SM with the 64 KB ring of a bf16 cache or the 32 KB of fp8, one
+    with the 128 KB of f32): each block then streams its chunk through the
     ring while every other block does the same, and no second wave runs on
     a few SMs at the end. Chunks stay between MIN_CHUNK and MAX_CHUNK slots:
     at least two tiles a block, and short enough that rows of ragged lengths
@@ -127,7 +168,7 @@ def decode_plan(b: int, hkv: int, g: int, live: int, sms: int = 132) -> DecodePl
     live = max(int(live), 1)
     if live <= RING * TILE:
         return DecodePlan(1, tiles(live))
-    nsplit = max(1, BLOCKS_PER_SM * sms // (b * hkv))
+    nsplit = max(1, blocks_per_sm(itemsize) * sms // (b * hkv))
     chunk = min(max(tiles(-(-live // nsplit)), MIN_CHUNK), MAX_CHUNK)
     chunk = max(chunk, tiles(-(-live // MAX_SPLIT)))   # at most the chunks the combine stages
     return DecodePlan(-(-live // chunk), chunk)
@@ -142,9 +183,9 @@ def partial_floats(b: int, hkv: int, g: int, plan: DecodePlan) -> int:
 
 def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float,
                           max_live: int | None = None) -> torch.Tensor:
-    """The kernel: q (B, 1, H, D) bf16, caches (B, S, Hkv, D) bf16, offset an
-    int (every row) or an int32 CUDA tensor () / (B,). D must be 128 and
-    H / Hkv at most 8; an fp8 cache raises (it comes with the fp8-KV slice).
+    """The kernel: q (B, 1, H, D) bf16, caches (B, S, Hkv, D) in one of the
+    four cache dtypes (read in it), offset an int (every row) or an int32
+    CUDA tensor () / (B,). D must be 128 and H / Hkv at most 8.
 
     Per-row offsets stay on the device, so the split over chunks is planned
     for the whole cache unless the caller knows a bound on the live length
@@ -157,8 +198,7 @@ def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float,
                          f"{MAX_GROUP}; got q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
     refuse_grad("decode_attention", q, k_cache, v_cache)
     check_tensor(q, "q", torch.bfloat16)
-    check_tensor(k_cache, "k_cache", torch.bfloat16, (b, s, hkv, d))
-    check_tensor(v_cache, "v_cache", torch.bfloat16, (b, s, hkv, d))
+    check_caches(k_cache, v_cache, (b, s, hkv, d))
     return _decode_launch(q, k_cache, v_cache, offset, float(scale),
                           plan_for(q, k_cache, offset, max_live))
 
@@ -176,7 +216,8 @@ def plan_for(q, k_cache, offset, max_live: int | None = None, fold: bool = False
     else:
         off = min(max(int(offset), 0), s - 1)
         live = max(off, 1) if fold else off + 1
-    return decode_plan(b, hkv, h // hkv, live, _sm_count(q.device.index or 0))
+    return decode_plan(b, hkv, h // hkv, live, _sm_count(q.device.index or 0),
+                       k_cache.element_size())
 
 
 def _offsets(offset, b: int):
@@ -203,13 +244,15 @@ def _decode_launch(q, k_cache, v_cache, offset, scale: float, plan: DecodePlan) 
              None if offs is None else offs.data_ptr(), off_scalar, out.data_ptr(),
              None if part is None else part.data_ptr(),
              b, s, hkv, h // hkv, d, scale, plan.nsplit, plan.chunk,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             kv_dtype.KV_CODES[k_cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check(build.library("decode_attention"), err, "decode_attention")
     decode_attention_cuda.launches += 1
+    decode_attention_cuda.forms[kv_dtype.KV_NAMES[k_cache.dtype]] += 1
     return out
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.forms = dict.fromkeys(kv_dtype.KV_DTYPES, 0)   # launches by cache dtype
 
 
 def decode_attention(q, k_cache, v_cache, offset, scale: float,
@@ -228,8 +271,10 @@ def decode_attention(q, k_cache, v_cache, offset, scale: float,
 def supports_paged_decode(block_size: int, num_heads: int, num_kv_heads: int, head_dim: int,
                           itemsize: int = 2) -> bool:
     """What the pool kernel takes: blocks of a multiple of 8 slots, head_dim
-    128, at most 8 query heads per kv head, a bf16 pool."""
-    return (block_size >= 8 and block_size % 8 == 0 and head_dim == 128 and itemsize == 2
+    128, at most 8 query heads per kv head, a pool of 1, 2 or 4 bytes an
+    element (fp8, bf16, f32)."""
+    return (block_size >= 8 and block_size % 8 == 0 and head_dim == 128
+            and itemsize in (1, 2, 4)
             and num_heads % num_kv_heads == 0 and num_heads // num_kv_heads <= MAX_GROUP)
 
 
@@ -241,12 +286,11 @@ def pool_decode_attention_plain(q, k_pool, v_pool, tables, offset, scale: float)
     first: whatever they hold, a NaN included, must not reach the output."""
     b, (bs, hkv, d) = q.shape[0], k_pool.shape[1:]
     idx = tables.long()
-    kd = k_pool[idx].reshape(b, -1, hkv, d)
-    vd = v_pool[idx].reshape(b, -1, hkv, d)
+    kd = kv_dtype.decode(k_pool[idx].reshape(b, -1, hkv, d))
+    vd = kv_dtype.decode(v_pool[idx].reshape(b, -1, hkv, d))
     offs = torch.as_tensor(offset, device=q.device).reshape(-1).expand(b)
     live = (torch.arange(kd.shape[1], device=q.device)[None, :] <= offs[:, None])[:, :, None, None]
-    zero = torch.zeros((), dtype=kd.dtype, device=q.device)
-    return decode_attention_plain(q, torch.where(live, kd, zero), torch.where(live, vd, zero),
+    return decode_attention_plain(q, torch.where(live, kd, 0.0), torch.where(live, vd, 0.0),
                                   offs, scale)
 
 
@@ -256,7 +300,7 @@ def _pool_entry():
     if fn.argtypes is None:
         _check_layout(lib, "pool_decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -271,13 +315,15 @@ def pool_plan_for(q, k_pool, tables, max_live: int | None = None,
     s = tables.shape[1] * k_pool.shape[1]
     live = s if max_live is None else min(max(int(max_live), 1), s)
     return decode_plan(b, hkv, h // hkv, live,
-                       _sm_count(q.device.index or 0) if sms is None else sms)
+                       _sm_count(q.device.index or 0) if sms is None else sms,
+                       k_pool.element_size())
 
 
 def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
                                max_live: int | None = None) -> torch.Tensor:
-    """The kernel: q (B, 1, H, 128) bf16; pools (NB, BS, Hkv, 128) bf16 with BS
-    a multiple of 8; tables (B, MB) int32; offset (B,) int32, all on the card.
+    """The kernel: q (B, 1, H, 128) bf16; pools (NB, BS, Hkv, 128) in one of
+    the four cache dtypes with BS a multiple of 8; tables (B, MB) int32;
+    offset (B,) int32, all on the card.
     ``max_live`` as in ``decode_attention_cuda`` (default: the logical length
     MB * BS). Reads only logical blocks <= offset[b] // BS of each row, and
     only their table entries."""
@@ -285,12 +331,11 @@ def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
     nb, bs, hkv = k_pool.shape[:3]
     if sq != 1 or h % hkv or not supports_paged_decode(bs, h, hkv, d, k_pool.element_size()):
         raise ValueError(f"pool decode attention kernel takes q (B, 1, H, 128), H/Hkv <= "
-                         f"{MAX_GROUP} and bf16 pools whose block size is a multiple of 8; got "
+                         f"{MAX_GROUP} and pools whose block size is a multiple of 8; got "
                          f"q {tuple(q.shape)}, pool {tuple(k_pool.shape)} {k_pool.dtype}")
     refuse_grad("pool_decode_attention", q, k_pool, v_pool)
     check_tensor(q, "q", torch.bfloat16)
-    check_tensor(k_pool, "k_pool", torch.bfloat16, (nb, bs, hkv, d))
-    check_tensor(v_pool, "v_pool", torch.bfloat16, (nb, bs, hkv, d))
+    code = check_caches(k_pool, v_pool, (nb, bs, hkv, d))
     if tables.ndim != 2 or tables.shape[0] != b:
         raise ValueError(f"tables: expected (B={b}, MB), got {tuple(tables.shape)}")
     mb = tables.shape[1]
@@ -307,14 +352,16 @@ def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
     fn = _pool_entry()
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
              offs.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
-             b, nb, bs, mb, hkv, h // hkv, d, float(scale), plan.nsplit, plan.chunk,
+             b, nb, bs, mb, hkv, h // hkv, d, float(scale), plan.nsplit, plan.chunk, code,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(build.library("pool_decode_attention"), err, "pool_decode_attention")
     pool_decode_attention_cuda.launches += 1
+    pool_decode_attention_cuda.forms[kv_dtype.KV_NAMES[k_pool.dtype]] += 1
     return out
 
 
 pool_decode_attention_cuda.launches = 0
+pool_decode_attention_cuda.forms = dict.fromkeys(kv_dtype.KV_DTYPES, 0)
 
 
 def pool_decode_attention(q, k_pool, v_pool, tables, offset, scale: float,
@@ -334,25 +381,27 @@ def fused_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, offset, scal
                                  write_mask=None, write: bool = True, max_live=None):
     """q (B, 1, H, D) attends slots j < offset[b] of (B, S, Hkv, D) caches and
     the current token's k_new / v_new (B, 1, Hkv, D), softmax in fp32; at
-    offset 0 the output is v_new. With ``write``, k_new / v_new are stored at
-    slot offset[b], in place, on rows whose ``write_mask`` (B,) bool is true
-    (None: every row). The cache at and past each row's offset is never read:
-    whatever it holds, a NaN included, does not reach the output. Returns
-    (out (B, 1, H, D), k_cache, v_cache). ``max_live`` plans the kernel only."""
+    offset 0 the output is v_new. The current k/v are first rounded to the
+    cache dtype (``kv_dtype.round_to``, the TPU wrapper's astype). With
+    ``write``, they are stored at slot offset[b], in place, on rows whose
+    ``write_mask`` (B,) bool is true (None: every row), through the cache's
+    stored view (``kv_dtype.stored``). The cache at and past each row's offset
+    is never read: whatever it holds, a NaN included, does not reach the
+    output. Returns (out (B, 1, H, D), k_cache, v_cache). ``max_live`` plans
+    the kernel only."""
     b, s = q.shape[0], k_cache.shape[1]
     offs = torch.as_tensor(offset, device=q.device).reshape(-1).expand(b).long()
-    kn, vn = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
     stale = torch.arange(s, device=q.device)[None, :] < offs[:, None]      # (B, S)
-    zero = torch.zeros((), dtype=k_cache.dtype, device=q.device)
     keep = stale[:, :, None, None]
-    k_all = torch.cat([torch.where(keep, k_cache, zero), kn], dim=1)
-    v_all = torch.cat([torch.where(keep, v_cache, zero), vn], dim=1)
+    kn, vn = kv_dtype.round_to(k_new, k_cache.dtype), kv_dtype.round_to(v_new, v_cache.dtype)
+    k_all, v_all = (torch.cat([torch.where(keep, kv_dtype.decode(c), 0.0), kv_dtype.decode(n)],
+                              dim=1) for c, n in ((k_cache, kn), (v_cache, vn)))
     live = torch.cat([stale, torch.ones(b, 1, dtype=torch.bool, device=q.device)], dim=1)
     out = attention_plain(q, k_all, v_all, scale, live[:, None, None, :])
     if write:   # fixed shapes (no boolean indexing), so a CUDA graph can hold it
         rows = torch.arange(b, device=q.device)
         for cache, new in ((k_cache, kn), (v_cache, vn)):
-            row = new[:, 0]
+            cache, row = kv_dtype.stored(cache), kv_dtype.stored(new)[:, 0]
             if write_mask is not None:
                 keep = ~write_mask.to(q.device).reshape(b, 1, 1)
                 row = torch.where(keep, cache[rows, offs], row)
@@ -366,7 +415,7 @@ def _fold_entry():
     if fn.argtypes is None:
         _check_layout(lib, "fused_decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i, p, i, p, p] + [i] * 5 + [ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * 6 + [i, p, i, p, p] + [i] * 5 + [ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -374,10 +423,10 @@ def _fold_entry():
 def fused_decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, offset, scale: float,
                                 write_mask=None, write: bool = True,
                                 max_live: int | None = None):
-    """The kernel: q (B, 1, H, 128) bf16, caches (B, S, Hkv, 128) bf16, k_new /
-    v_new (B, 1, Hkv, 128) bf16, offset an int (every row) or an int32 CUDA
-    tensor () / (B,), write_mask None or a (B,) bool CUDA tensor. H / Hkv at
-    most 8; an fp8 cache raises (it comes with the fp8-KV slice). ``max_live``
+    """The kernel: q (B, 1, H, 128) bf16, caches (B, S, Hkv, 128) in one of
+    the four cache dtypes, k_new / v_new (B, 1, Hkv, 128) bf16, offset an int
+    (every row) or an int32 CUDA tensor () / (B,), write_mask None or a (B,)
+    bool CUDA tensor. H / Hkv at most 8. ``max_live``
     as in ``decode_attention_cuda``: a host int >= max(offset) + 1 that shapes
     the split plan only. Returns (out, k_cache, v_cache), the caches written
     in place."""
@@ -388,8 +437,7 @@ def fused_decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, offset, scale
                          f"{MAX_GROUP}; got q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
     refuse_grad("fused_decode_attention", q, k_cache, v_cache, k_new, v_new)
     check_tensor(q, "q", torch.bfloat16)
-    check_tensor(k_cache, "k_cache", torch.bfloat16, (b, s, hkv, d))
-    check_tensor(v_cache, "v_cache", torch.bfloat16, (b, s, hkv, d))
+    code = check_caches(k_cache, v_cache, (b, s, hkv, d))
     check_tensor(k_new, "k_new", torch.bfloat16, (b, 1, hkv, d))
     check_tensor(v_new, "v_new", torch.bfloat16, (b, 1, hkv, d))
     wm = None
@@ -408,13 +456,15 @@ def fused_decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, offset, scale
              v_new.data_ptr(), None if offs is None else offs.data_ptr(), off_scalar,
              None if wm is None else wm.data_ptr(), int(bool(write)), out.data_ptr(),
              None if part is None else part.data_ptr(), b, s, hkv, h // hkv, d, float(scale),
-             plan.nsplit, plan.chunk, torch.cuda.current_stream(q.device).cuda_stream)
+             plan.nsplit, plan.chunk, code, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(build.library("fused_decode_attention"), err, "fused_decode_attention")
     fused_decode_attention_cuda.launches += 1
+    fused_decode_attention_cuda.forms[kv_dtype.KV_NAMES[k_cache.dtype]] += 1
     return out, k_cache, v_cache
 
 
 fused_decode_attention_cuda.launches = 0
+fused_decode_attention_cuda.forms = dict.fromkeys(kv_dtype.KV_DTYPES, 0)
 
 
 def fused_decode_attention(q, k_cache, v_cache, k_new, v_new, offset, scale: float,

@@ -15,6 +15,14 @@ attends its slot of the whole cache, with no copy. It takes any SQ, SKV and
 offset (the TPU kernel needs SQ % 128 == 0). The plain version is the masked
 softmax of ``attention.attention_plain`` in fp32 and takes the same
 arguments.
+
+The cache may be stored in bf16, f32, fp8-e4m3 or fp8-e5m2
+(``ops/kv_dtype.py``). The kernel reads it in that type and rounds K and V to
+bf16, its operand type, as the TPU kernel's ``_load_bf16`` does: an f32 cache
+is rounded before q k^T (kernels 3, 7 and 9 keep it in f32), an fp8 code is
+exact in bf16 (e4m3 codes 0x7F / 0xFF read as +-480). A cache other than bf16
+runs the ``mma.sync`` body at every length (``plan_kv``); the plain version
+reads the cache through ``kv_dtype.decode`` into q's dtype, the same rule.
 """
 
 from __future__ import annotations
@@ -23,8 +31,9 @@ import ctypes
 
 import torch
 
+from .. import kv_dtype
 from . import build
-from .attention import attention_plain
+from .attention import attention_plain, check_caches
 from .flash_prefill import PATH_IDS, plan
 from .grad import refuse_grad
 from .matmul import check_tensor
@@ -37,11 +46,15 @@ def flash_prefill_blocked_plain(q, k, v, q_offset, scale: float, bound=None,
                                 rows=None) -> torch.Tensor:
     """q (B, SQ, H, D), k/v (Bkv, SKV, Hkv, D): query i attends slots
     j <= q_offset + i of cache row ``rows[b]`` (row b without ``rows``),
-    softmax in fp32. ``q_offset``: a host int or a 1-element tensor (read
-    where it lies: no host copy); ``bound`` is the kernel's plan bound, which
-    changes nothing here. Returns (B, SQ, H, D) in q's dtype."""
+    softmax in fp32. A cache of another dtype than q's is read into q's dtype
+    through ``kv_dtype.decode`` (the kernel's bf16 operands: ``_load_bf16``).
+    ``q_offset``: a host int or a 1-element tensor (read where it lies: no
+    host copy); ``bound`` is the kernel's plan bound, which changes nothing
+    here. Returns (B, SQ, H, D) in q's dtype."""
     if rows is not None:
         k, v = k.index_select(0, rows.long()), v.index_select(0, rows.long())
+    if k.dtype != q.dtype:
+        k, v = kv_dtype.decode(k, q.dtype), kv_dtype.decode(v, q.dtype)
     sq, skv = q.shape[1], k.shape[1]
     off = q_offset.reshape(()).long() if isinstance(q_offset, torch.Tensor) else int(q_offset)
     allowed = (torch.arange(skv, device=q.device)[None, :]
@@ -53,7 +66,7 @@ def _entry():
     fn = build.library("flash_prefill_blocked").gptq_flash_prefill_blocked
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p] + [i] * 7 + [p, p, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p] + [i] * 7 + [p, p, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -81,12 +94,19 @@ def _device_offset(q_offset, bound, sq: int, device) -> tuple[torch.Tensor, int]
     return off_t, int(bound)
 
 
+def plan_kv(sq: int, q_offset: int, dtype: torch.dtype) -> str:
+    """The body kernel 4 launches over a cache of ``dtype``: kernel 5's plan
+    (``flash_prefill.plan``) for bf16, the ``mma.sync`` body for any other
+    dtype (the ``wgmma`` body's TMA tiles take bf16 only)."""
+    return plan(sq, q_offset) if dtype == torch.bfloat16 else "sync"
+
+
 def flash_prefill_blocked_cuda(q, k, v, q_offset, scale: float, bound=None,
                                rows=None) -> torch.Tensor:
-    """The kernel: q (B, SQ, H, 128) bf16, k/v (Bkv, SKV, Hkv, 128) bf16
-    (Bkv = B without ``rows``), the offset a host int or a 1-element int32
-    tensor on the card (then with its host ``bound``), ``rows`` a (B,) int32
-    tensor on the card. An fp8 cache raises."""
+    """The kernel: q (B, SQ, H, 128) bf16, k/v (Bkv, SKV, Hkv, 128) in one
+    of the four cache dtypes (Bkv = B without ``rows``), the offset a host int
+    or a 1-element int32 tensor on the card (then with its host ``bound``),
+    ``rows`` a (B,) int32 tensor on the card."""
     b, sq, h, d = q.shape
     bkv, skv, hkv = k.shape[0], k.shape[1], k.shape[2]
     if d != 128 or h % hkv:
@@ -95,8 +115,7 @@ def flash_prefill_blocked_cuda(q, k, v, q_offset, scale: float, bound=None,
     off_t, bound = _device_offset(q_offset, bound, sq, q.device)
     refuse_grad("flash_prefill_blocked", q, k, v)
     check_tensor(q, "q", torch.bfloat16)
-    check_tensor(k, "k", torch.bfloat16, (bkv, skv, hkv, d))
-    check_tensor(v, "v", torch.bfloat16, (bkv, skv, hkv, d))
+    check_caches(k, v, (bkv, skv, hkv, d))
     if rows is None:
         if bkv != b:
             raise ValueError(f"{b} query rows over a cache of {bkv} rows need ``rows``")
@@ -104,12 +123,13 @@ def flash_prefill_blocked_cuda(q, k, v, q_offset, scale: float, bound=None,
         check_tensor(rows, "rows", torch.int32, (b,))
     if sq == 0:
         return torch.empty_like(q)
-    return _launch(q, k, v, off_t, scale, plan(sq, bound - sq), rows)
+    return _launch(q, k, v, off_t, scale, plan_kv(sq, bound - sq, k.dtype), rows)
 
 
 def _launch(q, k, v, q_offset, scale: float, path: str, rows=None) -> torch.Tensor:
     """One launch of kernel 4 on checked operands through body ``path`` (a
-    measurement may force one); ``q_offset`` a host int or the offset tensor."""
+    measurement may force one; the ``wgmma`` body takes a bf16 cache only);
+    ``q_offset`` a host int or the offset tensor."""
     b, sq, h, d = q.shape
     if not isinstance(q_offset, torch.Tensor):
         q_offset = torch.full((1,), int(q_offset), dtype=torch.int32, device=q.device)
@@ -117,13 +137,15 @@ def _launch(q, k, v, q_offset, scale: float, path: str, rows=None) -> torch.Tens
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    b, sq, k.shape[0], k.shape[1], h, k.shape[2], d, q_offset.data_ptr(),
                    None if rows is None else rows.data_ptr(), float(scale), PATH_IDS[path],
-                   torch.cuda.current_stream(q.device).cuda_stream)
+                   kv_dtype.KV_CODES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check(build.library("flash_prefill_blocked"), err, f"flash_prefill_blocked ({path})")
     flash_prefill_blocked_cuda.launches += 1
+    flash_prefill_blocked_cuda.forms[kv_dtype.KV_NAMES[k.dtype]] += 1
     return out
 
 
 flash_prefill_blocked_cuda.launches = 0
+flash_prefill_blocked_cuda.forms = dict.fromkeys(kv_dtype.KV_DTYPES, 0)   # launches by cache dtype
 
 
 def flash_prefill_blocked(q, k, v, q_offset, scale: float, bound=None,

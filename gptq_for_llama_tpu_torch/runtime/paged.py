@@ -6,7 +6,9 @@ owns a block table mapping logical block -> physical block, so memory scales
 with the tokens actually held, not with slots * max_len. The allocator is
 host code. Unlike the functional TPU version the pools are updated IN PLACE
 and returned (as ``models.common.update_kv_cache`` does): every write is one
-``index_put`` per pool, with no per-row Python loop. Decode attention reads
+``index_put`` per pool, with no per-row Python loop. A pool is stored in the
+KV dtype (bf16, f32 or fp8: ``ops/kv_dtype.py``) and written through its
+encoder and stored view, as the dense cache is. Decode attention reads
 the pool through the table inside its kernel
 (``ops.cuda.attention.pool_decode_attention``); only a prefill chunk gathers
 its one slot's logical view.
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops import kv_dtype
 from ..ops.cuda.attention import pool_decode_attention
 
 
@@ -91,8 +94,8 @@ def paged_write(k_pool, v_pool, k_new, v_new, tables, offsets):
     bs = k_pool.shape[2]
     offs = _row_offsets(offsets, tables.shape[0], k_pool.device)
     phys = tables.long().gather(1, (offs // bs)[:, None])[:, 0]
-    k_pool[:, phys, offs % bs] = k_new[:, :, 0].to(k_pool.dtype)
-    v_pool[:, phys, offs % bs] = v_new[:, :, 0].to(v_pool.dtype)
+    kv_dtype.stored(k_pool)[:, phys, offs % bs] = kv_dtype.encode(k_new[:, :, 0], k_pool.dtype)
+    kv_dtype.stored(v_pool)[:, phys, offs % bs] = kv_dtype.encode(v_new[:, :, 0], v_pool.dtype)
     return k_pool, v_pool
 
 
@@ -124,8 +127,10 @@ def paged_update_layer(kp, vp, k_new, v_new, tables, offset, write_mask=None, ga
     block 0 (batched admission; the pool must carry that block)."""
     b, s, h, d = k_new.shape
     bs, mb = kp.shape[1], tables.shape[1]
-    k_new = k_new.to(kp.dtype)
-    v_new = v_new.to(vp.dtype)
+    pools = kp, vp
+    kp, vp = kv_dtype.stored(kp), kv_dtype.stored(vp)   # written as stored
+    k_new = kv_dtype.encode(k_new, pools[0].dtype)
+    v_new = kv_dtype.encode(v_new, pools[1].dtype)
     host = not isinstance(offset, torch.Tensor)   # one host int for every row: no device math
     tab = tables.long()
 
@@ -163,6 +168,7 @@ def paged_update_layer(kp, vp, k_new, v_new, tables, offset, write_mask=None, ga
         kp[phys] = k_new.reshape(b, nblk, bs, h, d)
         vp[phys] = v_new.reshape(b, nblk, bs, h, d)
 
+    kp, vp = pools
     if not gather:
         return kp, vp, None, None
     return kp, vp, kp[tab].reshape(b, mb * bs, h, d), vp[tab].reshape(b, mb * bs, h, d)

@@ -33,6 +33,7 @@ import torch
 
 from .. import resolve_device
 from ..models.registry import get_arch
+from ..ops import kv_dtype as kv
 from .graphs import Graphs, bucket_for, live_buckets
 
 # most decode steps one graph of a token scan holds (a power of two): a scan
@@ -93,6 +94,11 @@ class ModelRunner:
     then writes the row (the TPU package's GPTQ_TPU_CACHE_IMPL=pallas).
     Prefills are the same in both.
 
+    ``kv_dtype``: the cache's storage dtype (None: ``dtype``): bf16, f32,
+    fp8-e4m3 or fp8-e5m2 (``ops/kv_dtype.py``), as the TPU package's
+    ``kv_dtype``; compute stays in ``dtype`` and the kernels read the cache in
+    its stored dtype. The graphs' keys do not name it: it is fixed per runner.
+
     ``decode_buckets`` (``graphs.live_buckets``): the decode kernels plan
     their split, and the blocked prefill kernel its body, from a host-side
     bound on the live slots, which a capture freezes, so every step runs
@@ -106,8 +112,9 @@ class ModelRunner:
 
     def __init__(self, arch_name: str, cfg, params, batch_size: int = 1,
                  max_seq_len: Optional[int] = None, dtype=torch.bfloat16, device=None,
-                 cache_impl: str = "classic"):
+                 cache_impl: str = "classic", kv_dtype=None):
         self.cache_impl = check_cache_impl(cache_impl)
+        self.kv_dtype = kv.check_kv_dtype(kv_dtype or dtype)
         self.device = resolve_device(device)
         self.arch = get_arch(arch_name)
         self.arch_name = arch_name
@@ -140,8 +147,8 @@ class ModelRunner:
                 shape = (self.batch, self.max_len, self.cfg.num_kv_heads, self.cfg.head_dim)
                 layers = range(len(self.params["layers"]))
                 self._store = KVCache(
-                    [torch.zeros(shape, dtype=self.dtype, device=self.device) for _ in layers],
-                    [torch.zeros(shape, dtype=self.dtype, device=self.device) for _ in layers],
+                    [torch.zeros(shape, dtype=self.kv_dtype, device=self.device) for _ in layers],
+                    [torch.zeros(shape, dtype=self.kv_dtype, device=self.device) for _ in layers],
                     0, torch.zeros(self.batch, dtype=torch.int32, device=self.device))
         else:
             for t in (*self._store.k, *self._store.v):
@@ -578,7 +585,8 @@ def benchmark_decode(runner: ModelRunner, input_ids, check: bool = False, log=pr
     the TPU package compiles its step first); report the median per-token
     latency (host clock around a synchronized step),
     tokens/s, peak device memory (``torch.cuda.max_memory_allocated``; None
-    on the CPU) and, with ``check``, the next-token perplexity."""
+    on the CPU), the cache's storage dtype and bytes and, with ``check``, the
+    next-token perplexity."""
     ids = np.atleast_2d(np.asarray(input_ids, dtype=np.int64))
     b, n = ids.shape
     runner.warmup(prefill_buckets=())
@@ -606,6 +614,8 @@ def benchmark_decode(runner: ModelRunner, input_ids, check: bool = False, log=pr
         "median_latency_s": med,
         "tokens_per_s": b / med,
         "max_memory_bytes": torch.cuda.max_memory_allocated(runner.device) if cuda else None,
+        "kv_dtype": str(runner.kv_dtype).replace("torch.", ""),
+        "kv_bytes": kv.cache_bytes((*cache.k, *cache.v)),
     }
     if check and n > 1:
         result["ppl"] = float(np.exp(nll / (n - 1)))

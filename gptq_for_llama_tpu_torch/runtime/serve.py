@@ -50,6 +50,7 @@ import torch
 
 from .. import resolve_device
 from ..models.registry import get_arch
+from ..ops import kv_dtype as kv
 from .graphs import Graphs, bucket_for, live_buckets
 from .runner import check_cache_impl, sample_logits, sample_mode
 
@@ -92,9 +93,7 @@ class ServingEngine:
                  fuse_qkv: bool = False, kv_dtype=None, device=None, seed: int = 0,
                  cache_impl: str = "classic"):
         for given, what in ((mesh is not None or shard_map_tp, "tensor-parallel serving (A18)"),
-                            (fuse_qkv, "fuse_qkv (A4)"),
-                            (kv_dtype not in (None, dtype),
-                             "a KV storage dtype other than the compute dtype (A14)")):
+                            (fuse_qkv, "fuse_qkv (A4)")):
             if given:
                 raise NotImplementedError(f"{what} is not yet ported to "
                                           f"gptq_for_llama_tpu_torch (see ROADMAP)")
@@ -108,6 +107,9 @@ class ServingEngine:
         self.params = params
         self.num_layers = len(params["layers"])
         self.dtype = dtype
+        # the caches' and pools' storage dtype (ops/kv_dtype.py); compute stays
+        # in ``dtype``
+        self.kv_dtype = kv.check_kv_dtype(kv_dtype or dtype)
         self.b = batch_slots
         self.max_len = max_seq_len or cfg.max_seq_len
         self.buckets = tuple(b for b in prefill_buckets if b <= self.max_len)
@@ -426,9 +428,15 @@ class ServingEngine:
         slot.done = False
         return True
 
+    def kv_bytes(self) -> int:
+        """Bytes of the engine's caches or pools (0 before its first run)."""
+        return 0 if self.state is None else kv.cache_bytes((*self.state["k"],
+                                                            *self.state["v"]))
+
     def stats(self) -> dict:
         """Aggregate per-request wall-clock metrics over completed requests:
-        time-to-first-token and end-to-end latency (p50/p95, seconds)."""
+        time-to-first-token and end-to-end latency (p50/p95, seconds), and the
+        KV storage dtype and bytes."""
         done = [m for m in self._meta.values() if "done" in m]
         if not done:
             return {}
@@ -440,7 +448,9 @@ class ServingEngine:
 
         return {"completed": len(done),
                 "ttft_p50_s": pct(ttft, 50), "ttft_p95_s": pct(ttft, 95),
-                "latency_p50_s": pct(lat, 50), "latency_p95_s": pct(lat, 95)}
+                "latency_p50_s": pct(lat, 50), "latency_p95_s": pct(lat, 95),
+                "kv_dtype": str(self.kv_dtype).replace("torch.", ""),
+                "kv_bytes": self.kv_bytes()}
 
     def _admit(self, state):
         """Fill free slots from the queue. Admissions that share a prefill
@@ -556,7 +566,7 @@ class ServingEngine:
                               delta[last][:, None])[:, 0]
 
     def _new_cache(self, shape) -> list:
-        return [torch.zeros(shape, dtype=self.dtype, device=self.device)
+        return [torch.zeros(shape, dtype=self.kv_dtype, device=self.device)
                 for _ in range(self.num_layers)]
 
     def _start(self) -> dict:

@@ -60,7 +60,7 @@ def test_cli_needs_the_card_unless_told_cpu(model_dir):
 
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"], ["--distributed"],
                                    ["--fuse-attn"], ["--pre-layer", "1"],
-                                   ["--kv-dtype", "fp8"]])
+                                   ["--pre-layer", "1", "--kv-dtype", "fp8"]])
 def test_cli_unported_flags_raise(model_dir, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main([model_dir, "synthetic", "--device", "cpu", *flags])

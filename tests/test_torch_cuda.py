@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from gptq_for_llama_tpu_torch.ops import cuda as kernels
+from gptq_for_llama_tpu_torch.ops import kv_dtype
 from gptq_for_llama_tpu_torch.ops.cuda.attention import (decode_attention, decode_attention_plain,
                                                          pool_decode_attention,
                                                          pool_decode_attention_plain)
@@ -418,13 +419,17 @@ def test_decode_attention_matches_plain(card, b, s, h, hkv, offs):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(card):
-    """No plain fallback for a CUDA tensor: fp8 caches, fp32 inputs raise."""
+    """No plain fallback for a CUDA tensor: a cache dtype no kernel takes
+    (fp16), k and v of two dtypes, fp32 inputs raise."""
     q = torch.randn(1, 1, 8, 128, device=card).bfloat16()
-    k8 = torch.randn(1, 64, 8, 128, device=card).to(torch.float8_e4m3fn)
+    k16 = torch.randn(1, 64, 8, 128, device=card).half()
     with pytest.raises(TypeError):
-        decode_attention(q, k8, k8, 3, 0.1)
+        decode_attention(q, k16, k16, 3, 0.1)
     with pytest.raises(TypeError):
-        flash_prefill_blocked(q, k8, k8, 0, 0.1)
+        flash_prefill_blocked(q, k16, k16, 0, 0.1)
+    k8 = k16.to(torch.float8_e4m3fn)
+    with pytest.raises(TypeError, match="one dtype"):
+        decode_attention(q, k8, k8.to(torch.float8_e5m2), 3, 0.1)
     lin = _linear(256, 128, 4, 128, seed=0, device=card)
     with pytest.raises(TypeError):
         quant_matmul(torch.randn(2, 256, device=card), lin, dtype=torch.float32)
@@ -732,9 +737,8 @@ def test_pool_kernel_refuses_what_it_does_not_take(card):
     q, kp, vp, tables, off = _paged_case(card, 2, 8, 8, 16, 4, (3, 40), poison=False)
     with pytest.raises(ValueError, match="multiple of 8"):
         pool_decode_attention(q, kp[:, :12].contiguous(), vp[:, :12].contiguous(), tables, off, 0.1)
-    with pytest.raises(ValueError):
-        pool_decode_attention(q, kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn), tables,
-                              off, 0.1)
+    with pytest.raises(ValueError):   # 8-byte elements: no cache dtype
+        pool_decode_attention(q, kp.double(), vp.double(), tables, off, 0.1)
     with pytest.raises(TypeError):
         pool_decode_attention(q, kp, vp, tables, 3, 0.1)
     with pytest.raises(ValueError):
@@ -1523,3 +1527,230 @@ def test_lora_gradient_check_fails_on_a_planted_kernel_8_fault(card, tmp_path):
                          text=True, timeout=900)
     print(run.stdout[-4000:], run.stderr[-4000:])
     assert run.returncode == 0 and "planted fault caught" in run.stdout
+
+
+# ---------------------------------------------------------------------------
+# caches stored in fp8 (e4m3, e5m2) and f32: kernels 3, 4, 7 and 9 read them
+# ---------------------------------------------------------------------------
+
+KV_DTYPES = {"fp8": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2, "f32": torch.float32}
+
+
+def _poisoned(cache, dead):
+    """A copy of ``cache`` whose ``dead`` slots hold the dtype's NaN (e4m3 has
+    none that the kernels read as NaN: its NaN code reads as 480, which
+    moves any output row that attends it far past the tolerance)."""
+    out = cache.clone()
+    nan = kv_dtype.encode(torch.tensor([float("nan")], device=cache.device), cache.dtype)
+    view = kv_dtype.stored(out)
+    view[dead.expand(out.shape)] = nan.to(view.dtype)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+def test_kernels_3_7_9_read_each_cache_dtype(card, name):
+    """Kernels 3, 7 and 9 over a cache stored in ``name``, poisoned past each
+    offset, against their plain versions (``kv_dtype.decode``): 1e-2 of each
+    row's norm, as the bf16 cases; kernel 7 equals kernel 3 over the gathered
+    view bit for bit; kernel 9's masked write leaves the caches byte-equal to
+    the plain write's, an e4m3 overflow stored as the NaN code."""
+    from gptq_for_llama_tpu_torch.ops.cuda.attention import (fused_decode_attention,
+                                                             fused_decode_attention_plain)
+    dt = KV_DTYPES[name]
+    b, s, h, hkv = 3, 640, 8, 2
+    offs = (0, 300, 639)
+    q, k, v, _, _, off = _decode_case(card, b, s, h, hkv, offs, seed=7)
+    k, v = kv_dtype.round_to(k, dt), kv_dtype.round_to(v, dt)
+    dead = (torch.arange(s, device=card)[None, :] > off[:, None])[:, :, None, None]
+    pk, pv = _poisoned(k, dead), _poisoned(v, dead)
+    want = decode_attention_plain(q, k, v, off, 0.09)
+    kernels.reset_launch_counts()
+    for max_live in (None, 640, 100):
+        got = decode_attention(q, pk, pv, off, 0.09, max_live)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all() and _rows_close(got, want, 1e-2), max_live
+    # kernel 7 over the same values in a permuted pool of 16-slot blocks
+    bs, mb = 16, s // 16
+    perm = torch.randperm(b * mb, device=card)
+    tables = perm.reshape(b, mb).int()
+    kp = torch.empty((b * mb, bs, hkv, 128), dtype=dt, device=card)
+    vp = torch.empty_like(kp)
+    kv_dtype.stored(kp)[perm] = kv_dtype.stored(pk).reshape(b * mb, bs, hkv, 128)
+    kv_dtype.stored(vp)[perm] = kv_dtype.stored(pv).reshape(b * mb, bs, hkv, 128)
+    got7 = pool_decode_attention(q, kp, vp, tables, off, 0.09, 640)
+    got3 = decode_attention(q, pk, pv, off, 0.09, 640)
+    torch.cuda.synchronize()
+    assert torch.equal(got7, got3)
+    assert _rows_close(pool_decode_attention_plain(q, kp, vp, tables, off, 0.09), want, 1e-5)
+    # kernel 9: the stale prefix plus the current k/v, then the masked write
+    kn = torch.randn(b, 1, hkv, 128, device=card).bfloat16()
+    vn = torch.randn(b, 1, hkv, 128, device=card).bfloat16()
+    kn[0, 0, 0, :4] = torch.tensor([600.0, -600.0, 464.0, 465.0])   # e4m3: NaN, NaN, 448, NaN
+    fdead = (torch.arange(s, device=card)[None, :] >= off[:, None])[:, :, None, None]
+    ck, cv = _poisoned(k, fdead), _poisoned(v, fdead)
+    wk, wv = ck.clone(), cv.clone()
+    mask = torch.tensor([True, False, True], device=card)
+    fwant, _, _ = fused_decode_attention_plain(q, wk, wv, kn, vn, off, 0.09, write_mask=mask)
+    fgot, _, _ = fused_decode_attention(q, ck, cv, kn, vn, off, 0.09, write_mask=mask,
+                                        max_live=640)
+    torch.cuda.synchronize()
+    for a, b_ in ((ck, wk), (cv, wv)):   # bytes: NaN where NaN
+        assert torch.equal(a.view(torch.uint8), b_.view(torch.uint8))
+    live = torch.isfinite(fwant.float()).reshape(b, -1).all(1)
+    assert live[1:].all() and _rows_close(fgot[live], fwant[live], 1e-2)
+    counts = kernels.launch_counts()
+    assert counts["decode_attention"] == 4 and counts["pool_decode_attention"] == 1
+    assert counts["fused_decode_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+@pytest.mark.parametrize("sq,off", [(100, 0), (128, 128), (512, 0)])
+def test_kernel_4_reads_each_cache_dtype(card, name, sq, off):
+    """Kernel 4 over a cache stored in ``name`` (its mma.sync body at every
+    length), NaN past the causal limit where the dtype has one: 1e-2 of each
+    row's norm against the plain version (the cache read through
+    ``_load_bf16``'s rule); a graph captured at offset 0 replays at ``off``
+    bit-equal to the eager launch."""
+    dt = KV_DTYPES[name]
+    q = torch.randn(1, sq, 8, 128, device=card).bfloat16()
+    k, v = (kv_dtype.round_to(torch.randn(1, 1024, 2, 128, device=card), dt) for _ in range(2))
+    dead = (torch.arange(1024, device=card) >= off + sq)[None, :, None, None]
+    pk, pv = _poisoned(k, dead), _poisoned(v, dead)
+    want = flash_prefill_blocked_plain(q, k, v, off, 128 ** -0.5)
+    got = flash_prefill_blocked(q, pk, pv, off, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and _rows_close(got, want, 1e-2)
+    dev_off = torch.zeros(1, dtype=torch.int32, device=card)
+    g = torch.cuda.CUDAGraph()
+    flash_prefill_blocked(q, pk, pv, dev_off, 128 ** -0.5, off + sq)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(g):
+        y = flash_prefill_blocked(q, pk, pv, dev_off, 128 ** -0.5, off + sq)
+    dev_off.fill_(off)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, got)
+
+
+@pytest.mark.cuda
+def test_e4m3_upcast_is_bit_equal_on_every_code(card):
+    """Every e4m3 code (0x7F and 0xFF included) as the one live slot's V row:
+    kernels 3, 7, 9 and 4 return it as bf16 bit for bit, the value
+    ``kv_dtype.decode`` gives (+-480 for the two NaN codes), but for code
+    0x80 (-0): a sum that starts at +0 gives +0, so values are compared."""
+    from gptq_for_llama_tpu_torch.ops.cuda.attention import fused_decode_attention
+    codes = torch.arange(256, dtype=torch.int32, device=card).to(torch.uint8)
+    v = torch.zeros(1, 64, 2, 128, dtype=torch.uint8, device=card)
+    v[0, 0] = codes.reshape(2, 128)
+    v = v.view(torch.float8_e4m3fn)
+    k = torch.zeros_like(v)
+    q = torch.randn(1, 1, 2, 128, device=card).bfloat16()
+    want = kv_dtype.decode(v[:, :1], torch.bfloat16)
+    assert want[0, 0, 0, 0x7F].item() == 480.0 and want[0, 0, 1, 0x7F].item() == -480.0
+    got3 = decode_attention(q, k, v, 0, 0.09)
+    tables = torch.arange(4, dtype=torch.int32, device=card)[None]
+    got7 = pool_decode_attention(q, k.reshape(4, 16, 2, 128), v.reshape(4, 16, 2, 128), tables,
+                                 torch.zeros(1, dtype=torch.int32, device=card), 0.09)
+    # kernel 9 at offset 1: slot 0 and the current token, whose k/v are zero
+    # and whose logit equals slot 0's: the output is half of slot 0's V row
+    got9, _, _ = fused_decode_attention(q, k, v, torch.zeros(1, 1, 2, 128, device=card).bfloat16(),
+                                        torch.zeros(1, 1, 2, 128, device=card).bfloat16(), 1,
+                                        0.09, write=False)
+    got4 = flash_prefill_blocked(q, k, v, 0, 0.09)
+    torch.cuda.synchronize()
+    for got in (got3, got7, got4):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert torch.equal(got9, (want.float() / 2).bfloat16())
+
+
+def _fp8_pair(card, **kw):
+    """Two runners of the narrow model over fp8-e4m3 caches."""
+    from gptq_for_llama_tpu_torch.runtime import ModelRunner
+    cfg, params = _graph_model(card)
+    return cfg, [ModelRunner("llama", cfg, params, max_seq_len=300, device=card,
+                             kv_dtype=torch.float8_e4m3fn, **kw) for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_impl", ["classic", "fold"])
+def test_fp8_runner_graphs_equal_the_eager_step_loop(card, cache_impl):
+    """Over fp8-e4m3 caches: the prefill graph's logits and caches, and 60
+    greedy tokens through decode_greedy_scan's graphs (across the bucket of
+    128), equal the eager bodies' bit for bit; the caches are fp8 and hold
+    half a bf16 cache's bytes."""
+    cfg, (graph, eager) = _fp8_pair(card, cache_impl=cache_impl)
+    prompt = torch.as_tensor(np.random.RandomState(1).randint(1, 512, size=(1, 100)),
+                             device=card)
+    lg, cache = graph.prefill(prompt, graph.init_cache())
+    lge, cache_e = _eager(eager).prefill(prompt, eager.init_cache())
+    torch.cuda.synchronize()
+    assert torch.equal(lg.view(torch.int16), lge.view(torch.int16))
+    assert all(t.dtype == torch.float8_e4m3fn for t in (*cache.k, *cache.v))
+    assert kv_dtype.cache_bytes(cache.k) == 2 * 300 * 2 * 128   # layers x slots x heads x dim
+    tok = lg[:, -1:].argmax(-1)
+    toks, cache = graph.decode_greedy_scan(tok, cache, 60)
+    want, t = [], tok
+    for _ in range(60):
+        lge, cache_e = eager._step(t, cache_e)
+        t = lge[:, -1:].float().argmax(-1)
+        want.append(t)
+    torch.cuda.synchronize()
+    assert torch.equal(toks, torch.cat(want, 1)) and cache.offset == 160
+    for a, b in zip((*cache.k, *cache.v), (*cache_e.k, *cache_e.v)):
+        assert torch.equal(kv_dtype.stored(a)[:, :160], kv_dtype.stored(b)[:, :160])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged", "dense_chunked"])
+def test_fp8_engine_graphs_equal_eager(card, mode):
+    """A paged (block 16, spans of 4) and a dense chunked engine over fp8-e4m3
+    pools: the graphs' tokens equal the same bodies run eagerly, and every
+    request's cache row is fp8."""
+    from gptq_for_llama_tpu_torch.runtime import GenRequest, ServingEngine
+    cfg, params = _graph_model(card)
+    kw = {"paged": dict(paged=True, block_size=16, decode_span=4),
+          "dense_chunked": dict(prefill_chunk=32)}[mode]
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, 512, size=n) for n in (5, 20, 33, 70, 9, 130)]
+
+    def run(eager):
+        eng = ServingEngine("llama", cfg, params, batch_slots=4, max_seq_len=300,
+                            prefill_buckets=(32, 128), kv_dtype=torch.float8_e4m3fn, **kw)
+        if eager:
+            _eager(eng)
+        for uid, p in enumerate(prompts):
+            eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=40))
+        res = eng.run()
+        torch.cuda.synchronize()
+        return res, eng
+
+    want, _ = run(True)
+    got, eng = run(False)
+    for uid in range(len(prompts)):
+        np.testing.assert_array_equal(got[uid], want[uid], err_msg=f"request {uid}")
+    assert all(t.dtype == torch.float8_e4m3fn for t in (*eng.state["k"], *eng.state["v"]))
+    assert eng.stats()["kv_dtype"] == "float8_e4m3fn"
+
+
+@pytest.mark.cuda
+def test_kv_encoder_on_the_card_equals_the_cpu_and_kernel_9(card):
+    """``kv_dtype.encode`` on the card gives the CPU's bytes (held to JAX's
+    ``astype`` by tests/test_torch_kv_dtype.py) for every bf16 bit pattern, in
+    both fp8 formats, and kernel 9's in-kernel row write stores the same
+    bytes; NaN inputs apart, whose sign and payload are each encoder's own."""
+    from gptq_for_llama_tpu_torch.ops.cuda.attention import fused_decode_attention
+    x = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    keep = ~torch.isnan(x.float())
+    for dt in (torch.float8_e4m3fn, torch.float8_e5m2):
+        cpu = kv_dtype.encode(x, dt)
+        assert torch.equal(kv_dtype.encode(x.to(card), dt).cpu()[keep], cpu[keep])
+        kn = x.reshape(8, 1, 64, 128).to(card)
+        ck = torch.zeros(8, 16, 64, 128, dtype=dt, device=card)
+        cv = torch.zeros_like(ck)
+        q = torch.zeros(8, 1, 64, 128, device=card).bfloat16()
+        fused_decode_attention(q, ck, cv, kn, kn, 3, 0.1)
+        torch.cuda.synchronize()
+        for c in (ck, cv):
+            assert torch.equal(kv_dtype.stored(c)[:, 3].reshape(-1).cpu()[keep], cpu[keep])

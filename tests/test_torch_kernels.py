@@ -147,7 +147,9 @@ def test_decode_attention_matches_pallas_interpret(b, h, hkv, offs):
 
 
 def test_decode_attention_wrapper_refuses_cpu_and_fp8():
-    """The kernel wrapper never takes the plain path: CPU or fp8 inputs raise."""
+    """The kernel wrapper never takes the plain path: CPU tensors raise, over
+    a bf16 or an fp8 cache alike (the card reads fp8 caches, tests/
+    test_torch_cuda.py)."""
     q = torch.zeros(1, 1, 4, 128)
     k = torch.zeros(1, 8, 4, 128)
     with pytest.raises(ValueError):
@@ -361,7 +363,9 @@ def test_pool_decode_attention_wrapper_refusals_and_supports():
     assert not supports_paged_decode(12, 32, 32, 128)       # block size % 8
     assert not supports_paged_decode(16, 32, 32, 64)        # head_dim
     assert not supports_paged_decode(16, 32, 2, 128)        # 16 query heads per kv head
-    assert not supports_paged_decode(16, 32, 32, 128, 1)    # fp8 pools: a later slice
+    # fp8, bf16 and f32 pools are read in their stored dtype; 8-byte elements are not
+    assert all(supports_paged_decode(16, 32, 32, 128, n) for n in (1, 2, 4))
+    assert not supports_paged_decode(16, 32, 32, 128, 8)
     # a dense decode takes the host-side bound on the live length and ignores it on the CPU
     k = torch.randn(2, 48, 4, 128)
     np.testing.assert_array_equal(decode_attention(q.float(), k, k, off, 0.1, max_live=1).numpy(),

@@ -249,10 +249,16 @@ def test_per_slot_prefills_pass_host_offsets(monkeypatch):
 
 def test_engine_refuses_unported_options_and_devices():
     cfg, params, _, _ = _setup()
-    for kw in (dict(mesh=object()), dict(shard_map_tp=True), dict(fuse_qkv=True),
-               dict(kv_dtype=torch.float8_e4m3fn)):
+    for kw in (dict(mesh=object()), dict(shard_map_tp=True), dict(fuse_qkv=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine("llama", cfg, params, dtype=torch.float32, device="cpu", **kw)
+    # a KV storage dtype is ported: the caches are made in it; another dtype raises
+    eng = ServingEngine("llama", cfg, params, dtype=torch.float32, device="cpu",
+                        kv_dtype=torch.float8_e4m3fn)
+    assert eng.kv_dtype == torch.float8_e4m3fn and eng.kv_bytes() == 0
+    with pytest.raises(TypeError, match="KV cache"):
+        ServingEngine("llama", cfg, params, dtype=torch.float32, device="cpu",
+                      kv_dtype=torch.float16)
     with pytest.raises(ValueError, match="multiple of block_size"):
         ServingEngine("llama", cfg, params, paged=True, block_size=8, prefill_chunk=12,
                       device="cpu")
@@ -322,7 +328,7 @@ def test_serve_cli_needs_the_card_and_refuses_unported_flags(packed_dir):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_cli.main([model, "--load", packed, "--demo", "1", "--quiet"])
-    for flags in (["--tp", "2"], ["--distributed"], ["--fuse-attn"], ["--kv-dtype", "fp8"]):
+    for flags in (["--tp", "2"], ["--distributed"], ["--fuse-attn"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve_cli.main([model, "--demo", "1", "--device", "cpu", *flags])
     with pytest.raises(SystemExit):
