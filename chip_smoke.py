@@ -112,6 +112,30 @@ Phases, in order, on one card:
            dtype against the fp32 CPU path over the same dtype (2e-2), graphs
            bit-equal to the eager loop; the CLIs ``--benchmark 128 --check``
            and ``serve --demo 12 --paged`` with ``--kv-dtype`` each dtype.
+  archs    OPT, GPT-NeoX and GPT-2 at their published widths, and head dims
+           other than 128 (ARCH_CONFIGS: GPT-NeoX-20B, D = 96, 44 layers;
+           OPT-2.7B, D = 80, 32 layers; GPT-2 medium, D = 64, 24 layers; INT4
+           g128 ``gaussian_wire_<arch>`` weights). Kernels 3, 9, 7, 4 and 5
+           at D = 64, 80, 96 and 256 over every cache dtype (kernel 5: bf16)
+           against their plain versions (1e-2 of each row's norm) over caches
+           holding the dtype's NaN code past each offset, two launches
+           bit-equal, kernel 7 bit-equal to kernel 3 on the gathered view,
+           kernel 4 at offset 0 bit-equal to kernel 5, each timed beside the
+           library's upcast plus SDPA and its bound. Kernel 1 at LLaMA-7B's
+           fused q/k/v (4096 x 12288, its columns against the three unfused
+           launches) and at NeoX-20B's linears with their biases. Each
+           family at 2 layers on the card against the CPU (logits 2e-2,
+           greedy tokens where clear). Each at full depth: ``generate``
+           through the graphs (ms/token, the decode graph's device time,
+           launches by head dim) and 8-slot serving (NeoX: paged span 8,
+           dense chunk 128, dense fold, and the fold runner; OPT: paged;
+           GPT-2: dense chunked), each run twice (tok/s, ttft). NeoX
+           quantize -> save -> reload -> eval -> benchmark through the CLI on
+           a 2-layer dense F16 checkpoint it writes (calibration on kernel 5
+           at D = 96, reloaded wire bytes equal). LLaMA-7B with
+           ``fuse_qkv=True``: kernel-1 launches per decode token (96 against
+           160) and ms/token beside the unfused runner, and the fused 2-layer
+           7B-width model on the card against the unfused CPU path.
   profile  torch.profiler over eager decode steps of a 4-layer 7B-width
            model: device time per kernel, the device busy share and the
            elementwise add launches per step (the ``full`` phase prints the
@@ -145,7 +169,7 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 L2_BYTES = 50 * 2**20
 PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve", "kvdtype",
-          "profile")
+          "archs", "profile")
 # kernels each path must launch: the decode path (prefill at a cache offset,
 # then decode steps), the calibration forward, the perplexity eval, paged
 # serving (bucketed and batched admission, spans) and dense serving with
@@ -189,12 +213,48 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          "kvdtype:serve:fold": {"qmm", "fused_mlp", "fused_decode_attention:fp8",
                                 "flash_prefill_blocked:fp8"} | NORMS,
          "kvdtype:cli": {"qmm", "fused_mlp", "decode_attention:fp8"} | NORMS,
-         "kvdtype:serve:cli": {"qmm", "fused_mlp", "pool_decode_attention:fp8"} | NORMS}
+         "kvdtype:serve:cli": {"qmm", "fused_mlp", "pool_decode_attention:fp8"} | NORMS,
+         # OPT, GPT-NeoX and GPT-2 (phase archs): the attention kernels counted
+         # by head dim (NeoX-20B 96, OPT-2.7B 80, GPT-2 64); no kernel 2 or 6
+         # (no gated MLP, LayerNorm in plain torch as the TPU package's XLA)
+         "arch:neox:decode": {"qmm", "qmm:tile", "decode_attention", "decode_attention:d96",
+                              "flash_prefill_blocked", "flash_prefill_blocked:d96"},
+         "arch:neox:serve:paged": {"qmm", "pool_decode_attention", "pool_decode_attention:d96",
+                                   "flash_prefill:d96"},
+         "arch:neox:serve:dense": {"qmm", "decode_attention:d96", "flash_prefill_blocked:d96"},
+         "arch:neox:fold": {"qmm", "fused_decode_attention", "fused_decode_attention:d96"},
+         "arch:neox:quantize": {"flash_prefill", "flash_prefill:d96"},
+         "arch:opt:decode": {"qmm", "qmm:tile", "decode_attention:d80",
+                             "flash_prefill_blocked:d80"},
+         "arch:opt:serve:paged": {"qmm", "pool_decode_attention:d80", "flash_prefill:d80"},
+         "arch:gpt2:decode": {"qmm", "qmm:tile", "decode_attention:d64",
+                              "flash_prefill_blocked:d64"},
+         "arch:gpt2:serve:dense": {"qmm", "decode_attention:d64", "flash_prefill_blocked:d64"},
+         # LLaMA-7B decode steps with q/k/v fused (one kernel-1 launch a layer for them)
+         "fuse_qkv:decode": {"qmm", "fused_mlp", "decode_attention"} | NORMS}
 # the rows at which kernel 1's rows also time every form forced (the decode
 # widths around the forms' crossovers), as kernel 2's rows do
 FORCED_MS = (1, 2, 4, 5, 8, 16)
 LLAMA_7B = dict(arch="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                 num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128, max_seq_len=2048)
+# the published configurations (HF config.json) of phase archs, full depth
+ARCH_CONFIGS = {
+    # EleutherAI/gpt-neox-20b
+    "neox": dict(arch="neox", vocab_size=50432, hidden_size=6144, intermediate_size=24576,
+                 num_layers=44, num_heads=64, num_kv_heads=64, head_dim=96, max_seq_len=2048,
+                 norm_eps=1e-5, rotary_pct=0.25, act="gelu_fast", parallel_residual=True,
+                 attn_bias=True, mlp_bias=True),
+    # facebook/opt-2.7b
+    "opt": dict(arch="opt", vocab_size=50272, hidden_size=2560, intermediate_size=10240,
+                num_layers=32, num_heads=32, num_kv_heads=32, head_dim=80, max_seq_len=2048,
+                norm_eps=1e-5, act="relu", pos_embedding="learned", attn_bias=True,
+                mlp_bias=True, tie_word_embeddings=True),
+    # openai-community/gpt2-medium
+    "gpt2": dict(arch="gpt2", vocab_size=50257, hidden_size=1024, intermediate_size=4096,
+                 num_layers=24, num_heads=16, num_kv_heads=16, head_dim=64, max_seq_len=1024,
+                 norm_eps=1e-5, act="gelu_new", pos_embedding="learned", attn_bias=True,
+                 mlp_bias=True, tie_word_embeddings=True),
+}
 
 
 def log(msg: str) -> None:
@@ -347,6 +407,31 @@ def write_dense_llama(torch, path: str, layers: int, seed: int) -> int:
     return sum(t.numel() * t.element_size() for t in flat.values())
 
 
+def write_dense_arch(torch, name: str, path: str, layers: int, seed: int) -> int:
+    """A dense F16 HF checkpoint of ``name`` (ARCH_CONFIGS) at its published
+    width and ``layers`` layers: the arch's ``init_params`` from ``seed``,
+    saved in the HF layout through ``engine.checkpoint.flatten_to_hf`` with
+    its config.json. Returns the bytes written."""
+    from gptq_for_llama_tpu_torch.engine.checkpoint import _hf_config_dict, flatten_to_hf
+    from gptq_for_llama_tpu_torch.engine.safetensors_io import save_file
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    from gptq_for_llama_tpu_torch.models.registry import get_arch
+    cfg = ModelConfig(**dict(ARCH_CONFIGS[name], num_layers=layers))
+    params = get_arch(name).init_params(cfg, torch.Generator().manual_seed(seed),
+                                        dtype=torch.float16, device="cpu")
+    flat = flatten_to_hf(name, cfg, params)
+    os.makedirs(path, exist_ok=True)
+    save_file(flat, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(_hf_config_dict(name, cfg), f)
+    return sum(t.numel() * t.element_size() for t in flat.values())
+
+
+def _nonzero(counts: dict) -> str:
+    """Launch counts without the kernels and forms that did not launch."""
+    return json.dumps({k: v for k, v in counts.items() if v})
+
+
 def _tree_to_cpu(tree, dtype):
     """A parameter tree on the CPU in ``dtype``: each packed linear rebuilt
     from its own wire buffers, adapters and dense tensors copied."""
@@ -397,6 +482,8 @@ class Smoke:
         self.tmp = None     # scratch directory of the quantize and serve phases
         self.model7b = None  # (cfg, params) of the full phase, served again
         self.kv_entries = {}  # kernel -> {cache dtype: its row of the kernels line}
+        self.dim_entries = {}  # kernel -> {"d<D>": {cache dtype: its row}} (phase archs)
+        self._classic_tokens = None   # an arch's classic generate tokens (phase archs)
 
     # -- phase 1 ---------------------------------------------------------------
     def phase_card(self, torch):
@@ -1318,63 +1405,20 @@ class Smoke:
     def phase_e2e(self, torch):
         from gptq_for_llama_tpu_torch.convert import params_from_jax
         from gptq_for_llama_tpu_torch.models.config import ModelConfig
-        from gptq_for_llama_tpu_torch.runtime import ModelRunner
         from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_tree
 
         cfg = ModelConfig(arch="llama", vocab_size=32000, hidden_size=4096,
                           intermediate_size=11008, num_layers=2, num_heads=32,
                           num_kv_heads=32, head_dim=128, max_seq_len=64)
         tree = random_wire_tree(cfg, seed=7)
-        gpu = ModelRunner("llama", cfg, params_from_jax(tree, "cuda", torch.bfloat16),
-                          dtype=torch.bfloat16, device="cuda")
-        cpu = ModelRunner("llama", cfg, params_from_jax(tree, "cpu", torch.float32),
-                          dtype=torch.float32, device="cpu")
-        prompt = torch.as_tensor(np.random.RandomState(7).randint(0, cfg.vocab_size, (1, 37)))
-        steps = 8
+        prompt = np.random.RandomState(7).randint(0, cfg.vocab_size, 37)
         t0 = time.perf_counter()
-        lc, cc = cpu.prefill(prompt, cpu.init_cache())
-        ref = [lc[0].float()]
-        toks = []
-        tok = lc[:, -1:].argmax(-1)
-        for _ in range(steps):
-            toks.append(tok)
-            lc, cc = cpu.decode(tok, cc)
-            ref.append(lc[0].float())
-            tok = lc[:, -1:].argmax(-1)
-        t_cpu = time.perf_counter() - t0
-        lg, cg = gpu.prefill(prompt.cuda(), gpu.init_cache())
-        got = [lg[0].float().cpu()]
-        for tok in toks:   # teacher-forced with the plain path's tokens
-            lg, cg = gpu.decode(tok.cuda(), cg)
-            got.append(lg[0].float().cpu())
-        torch.cuda.synchronize()
-        ref_all, got_all = torch.cat(ref), torch.cat(got)
-        if not torch.isfinite(got_all).all():
-            raise AssertionError("e2e: non-finite logits on the card")
-        # 2e-2 relative: bf16 activations and weights rounded at every op
-        # boundary of two full-width layers and the lm_head, against fp32
-        # (measured 4.8e-3 on an H100; the margin keeps the token check live)
-        rel_tol = 2e-2
-        scale = ref_all.abs().max().item()
-        err = (got_all - ref_all).abs().max().item()
-        log(f"[e2e] 2-layer 7B-width logits: max abs err {err:.4f}, max |ref| {scale:.3f}, "
-            f"rel {err / scale:.4f} (tol {rel_tol}) | cpu plain fp32 {t_cpu:.1f} s")
-        if err > rel_tol * scale:
-            raise AssertionError(f"e2e: logits disagree (rel {err / scale} > {rel_tol})")
-        compared = agreed = 0
-        for r, g in zip(ref, got):   # every position of prefill and decode
-            top2 = r.topk(2, dim=-1)
-            margin = top2.values[:, 0] - top2.values[:, 1]
-            sel = margin > 2 * rel_tol * scale
-            compared += int(sel.sum())
-            agreed += int((g.argmax(-1) == top2.indices[:, 0])[sel].sum())
-        log(f"[e2e] greedy tokens: {agreed}/{compared} agree where the plain top-2 margin "
-            f"exceeds {2 * rel_tol * scale:.3f}")
-        if compared == 0 or agreed != compared:
-            raise AssertionError("e2e: tokens disagree (or none cleared the margin)")
-        self.report["e2e"] = {"max_abs_err": err, "max_abs_ref": scale, "rel_tol": rel_tol,
-                              "tokens_compared": compared, "tokens_agreed": agreed}
-        del gpu, cpu
+        err, scale, agreed, compared = self._hold_to_cpu(
+            torch, "e2e", "llama", cfg, params_from_jax(tree, "cuda", torch.bfloat16),
+            params_from_jax(tree, "cpu", torch.float32), prompt, 8)
+        self.report["e2e"] = {"max_abs_err": err, "max_abs_ref": scale, "rel_tol": 2e-2,
+                              "tokens_compared": compared, "tokens_agreed": agreed,
+                              "seconds": time.perf_counter() - t0}
 
     # -- phase 5 ---------------------------------------------------------------
     def phase_full(self, torch):
@@ -1745,6 +1789,8 @@ class Smoke:
             want_fwd.update({"rms_norm:add": 2 * layers, "rms_norm:alone": 1})
         if "qmm:tile" in want_fwd:   # 2 x 512 rows: every linear on the tiles
             want_fwd["qmm:tile"] = 7 * layers
+        if "flash_prefill:d128" in want_fwd:   # kernel 5 counted by head dim
+            want_fwd["flash_prefill:d128"] = layers
         want_bwd = dict.fromkeys(want_fwd, 0)
         want_bwd.update(qmm_t=7 * layers - 3)
 
@@ -3205,6 +3251,692 @@ class Smoke:
             out[name] = {"benchmark": bench, "serve": stats}
 
     # -- phase 11 --------------------------------------------------------------
+    def phase_archs(self, torch):
+        """OPT, GPT-NeoX and GPT-2 at their published widths, kernels 3, 4, 5,
+        7 and 9 at head dims 64, 80, 96 and 256, kernel 1 at the fused q/k/v
+        and NeoX shapes, and LLaMA-7B with fused q/k/v."""
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        self.dim_entries = {}
+        seconds = {}
+
+        def step(what, fn, *args):
+            t0 = time.perf_counter()
+            fn(torch, *args)
+            torch.cuda.empty_cache()
+            seconds[what] = time.perf_counter() - t0
+            log(f"[archs] {what} in {seconds[what]:.1f} s")
+
+        for d in (64, 80, 96, 256):
+            step(f"kernel rows at D = {d}", self._dim_kernel_rows, d)
+        step("kernel 1 at the fused q/k/v and NeoX-20B shapes", self._qmm_arch_rows)
+        for name in ("neox", "opt", "gpt2"):
+            step(f"{name} 2 layers against the CPU", self._arch_two_layers, name)
+        runs = {"neox": ("paged", "dense", "fold"), "opt": ("paged",), "gpt2": ("dense",)}
+        for name, modes in runs.items():
+            step(f"{name} at full depth: generate, serving {'/'.join(modes)}", self._arch_full,
+                 name, modes)
+        step("neox quantize -> save -> reload -> eval", self._arch_quantize, "neox")
+        step("LLaMA-7B with fused q/k/v", self._fuse_qkv)
+        self.report.setdefault("archs", {})["seconds"] = seconds
+        kernels.reset_launch_counts()
+
+    def _dim_kernel_rows(self, torch, d):
+        """Kernels 3, 9, 7, 4 and 5 at head dim ``d`` over every cache dtype
+        (kernel 5: bf16), at the head counts of the model that has it (64:
+        GPT-2 medium's 16, 80: OPT-2.7B's 32, 96: GPT-NeoX-20B's 64; 256: 16
+        query heads over 2 kv heads, G = 8), each against its plain version
+        (1e-2 of each output row's norm, as at D = 128) over caches holding
+        the dtype's NaN code past each offset, two launches bit-equal, kernel
+        7 bit-equal to kernel 3 over the gathered view, kernel 4 at offset 0
+        bit-equal to kernel 5; timed beside the library's upcast of the live
+        cache to bf16 plus SDPA and beside the bound at the cache's bytes."""
+        import torch.nn.functional as F
+        from gptq_for_llama_tpu_torch.ops import kv_dtype
+        from gptq_for_llama_tpu_torch.ops.cuda.attention import (
+            decode_attention_cuda, decode_attention_plain, fused_decode_attention_cuda,
+            fused_decode_attention_plain, pool_decode_attention_cuda, pool_decode_attention_plain)
+        from gptq_for_llama_tpu_torch.ops.cuda.flash import (flash_prefill_blocked_cuda,
+                                                             flash_prefill_blocked_plain)
+        from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import (flash_prefill_cuda,
+                                                                     flash_prefill_plain)
+        bf = torch.bfloat16
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(d)
+        h, hkv_mha = {64: (16, 16), 80: (32, 32), 96: (64, 64), 256: (16, 2)}[d]
+        g_row = 8 if d == 256 else 4   # the GQA row's query heads per kv head
+        s, sc = 2048, d ** -0.5
+        serving = (37, 150, 300, 511, 512, 900, 1200, 1500)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+
+        def rec(kernel, name, shape, y, ref, ms, pms, lms, nbytes, flops, main=False):
+            err = (y.float() - ref.float()).abs().max().item()
+            self._record(kernel, f"D={d} {name} cache, {shape}", err, 1e-2, ms, pms, lms,
+                         nbytes, flops, row_rel=row_rel_err(y, ref),
+                         ref_max=ref.float().abs().max().item(),
+                         extra={"head_dim": d, "kv_dtype": name})
+            if main:
+                row = self.report["kernels"][kernel][-1]
+                self.dim_entries.setdefault(kernel, {}).setdefault(f"d{d}", {})[name] = {
+                    k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+
+        for name, dt in kv_dtype.KV_DTYPES.items():
+            isz = torch.empty((), dtype=dt).element_size()
+
+            def cache(*shape):
+                out = torch.empty(shape, dtype=dt, device="cuda")
+                flat = kv_dtype.stored(out).view(-1)
+                for i in range(0, flat.numel(), 1 << 26):
+                    n = min(1 << 26, flat.numel() - i)
+                    flat[i:i + n] = kv_dtype.encode(torch.randn(n, generator=gen, device="cuda"),
+                                                    dt)
+                return out
+
+            def up(c, n):
+                return c[:, :n].to(bf).transpose(1, 2)
+
+            bf16 = name == "bf16"
+            # kernels 3 and 9: batch 1 at offset 2047 (MHA), and kernel 3's GQA row
+            rows = [("decode_attention", 1, hkv_mha, (2047,)),
+                    ("fused_decode_attention", 1, hkv_mha, (2047,))]
+            if bf16 or d == 256:
+                rows.append(("decode_attention", 2, h // g_row, (100, 1500)))
+            for kernel, b, hkv, offs in rows:
+                fold = kernel == "fused_decode_attention"
+                ncopy = copies_for(2 * b * s * hkv * d * isz)
+                q = randn(b, 1, h, d)
+                kn, vn = randn(b, 1, hkv, d), randn(b, 1, hkv, d)
+                caches = [(cache(b, s, hkv, d), cache(b, s, hkv, d)) for _ in range(ncopy)]
+                off_t = torch.tensor(offs, dtype=torch.int32, device="cuda")
+                kc, vc = caches[0]
+                pos = torch.arange(s, device="cuda")[None, :]
+                dead = (pos >= off_t[:, None]) if fold else (pos > off_t[:, None])
+                pk, pv = self._kv_poison(torch, kc, dead), self._kv_poison(torch, vc, dead)
+                if fold:
+                    def run(c):
+                        return fused_decode_attention_cuda(q, c[0], c[1], kn, vn, off_t, sc,
+                                                           write=False)[0]
+
+                    def plain(c):
+                        return fused_decode_attention_plain(q, c[0], c[1], kn, vn, off_t, sc,
+                                                            write=False)[0]
+                else:
+                    def run(c):
+                        return decode_attention_cuda(q, c[0], c[1], off_t, sc)
+
+                    def plain(c):
+                        return decode_attention_plain(q, c[0], c[1], off_t, sc)
+                y, y2 = run((pk, pv)), run((pk, pv))
+                ref = plain((kc, vc))
+                torch.cuda.synchronize()
+                if not torch.isfinite(y.float()).all() or not torch.equal(y, y2):
+                    raise AssertionError(f"{kernel} D={d} {name} offsets {offs}: a dead slot was "
+                                         f"read, or two launches differ")
+                del pk, pv
+                live = int((off_t + (0 if fold else 1)).sum().item())
+                n = int(off_t.max().item()) + 1
+                mask = (pos[:, :n] <= off_t[:, None])[:, None, None, :]
+                qt = q.transpose(1, 2)
+                gqa = {"enable_gqa": True} if h != hkv else {}
+                lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+                    qt, up(c[0], n), up(c[1], n), attn_mask=mask, **gqa) for c in caches])
+                ms = graph_ms(torch, [lambda c=c: run(c) for c in caches])
+                pms = graph_ms(torch, [lambda c=c: plain(c) for c in caches], iters=6)
+                extra_slots = b if fold else 0
+                rec(kernel, name, f"B={b} H={h} Hkv={hkv} S={s} offsets={offs} (dead slots "
+                    f"poisoned, two launches bit-equal{', no write' if fold else ''})", y, ref,
+                    ms, pms, lms, 2 * b * h * d * 2 + (live + extra_slots) * hkv * d * isz * 2,
+                    4 * (live + extra_slots) * h * d, main=(b == 1))
+                del caches, kc, vc
+            # kernel 7: the eight serving slots over a poisoned pool, bit-equal
+            # to kernel 3 over the gathered view
+            b, bs, mb, hkv = 8, 16, 128, hkv_mha
+            off = torch.tensor(serving, dtype=torch.int32, device="cuda")
+            live = int((off + 1).sum().item())
+            nb = b * mb + 1
+            kp, vp = cache(nb, bs, hkv, d), cache(nb, bs, hkv, d)
+            q = randn(b, 1, h, d)
+            perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
+            tables = perm.reshape(b, mb).int().contiguous()
+            dead = (torch.arange(mb * bs, device="cuda")[None, :] > off[:, None]).reshape(b, mb,
+                                                                                          bs)
+            dead_pool = torch.zeros(nb, bs, dtype=torch.bool, device="cuda")
+            dead_pool[0] = True
+            dead_pool[tables.long()] = dead
+            kp_clean, vp_clean = kp.clone(), vp.clone()
+            kp, vp = self._kv_poison(torch, kp, dead_pool), self._kv_poison(torch, vp, dead_pool)
+            max_live = max(serving) + 1
+            y = pool_decode_attention_cuda(q, kp, vp, tables, off, sc, max_live)
+            ref = pool_decode_attention_plain(q, kp, vp, tables, off, sc)
+            y3 = decode_attention_cuda(q, kp[tables.long()].reshape(b, mb * bs, hkv, d),
+                                       vp[tables.long()].reshape(b, mb * bs, hkv, d), off, sc,
+                                       max_live)
+            torch.cuda.synchronize()
+            if not torch.isfinite(y.float()).all() or not torch.equal(y, y3):
+                raise AssertionError(f"pool_decode_attention D={d} {name}: a poisoned slot was "
+                                     f"read, or kernel 3 over the gathered view differs")
+            del y3
+            nlb = -(-max_live // bs)
+            mask = (torch.arange(max_live, device="cuda")[None, :] <= off[:, None])[:, None, None]
+            qt = q.transpose(1, 2)
+            gqa = {"enable_gqa": True} if h != hkv else {}
+
+            def library():
+                idx = tables[:, :nlb].long()
+                kd = kp_clean[idx].reshape(b, nlb * bs, hkv, d)[:, :max_live]
+                vd = vp_clean[idx].reshape(b, nlb * bs, hkv, d)[:, :max_live]
+                return F.scaled_dot_product_attention(qt, kd.to(bf).transpose(1, 2),
+                                                      vd.to(bf).transpose(1, 2), attn_mask=mask,
+                                                      **gqa)
+
+            ms = graph_ms(torch, [lambda: pool_decode_attention_cuda(q, kp, vp, tables, off, sc,
+                                                                     max_live)])
+            pms = graph_ms(torch, [lambda: pool_decode_attention_plain(q, kp, vp, tables, off,
+                                                                       sc)], iters=6)
+            lms = graph_ms(torch, [library], iters=10)
+            rec("pool_decode_attention", name, f"B={b} H={h} BS={bs} MB={mb} offsets 37..1500 "
+                f"(poisoned pool, equal to kernel 3 on the gathered view)", y, ref, ms, pms, lms,
+                2 * b * h * d * 2 + live * hkv * d * isz * 2 + b * 4 + live // bs * 4,
+                4 * live * h * d, main=True)
+            del kp, vp, kp_clean, vp_clean
+            # kernel 4: a prompt (SQ = 100, offset 0) and a serving chunk (SQ =
+            # 128 at offset 128), the cache poisoned past the causal limit;
+            # at offset 0 over bf16 bit-equal to kernel 5 on the same rows
+            for sq, off0, skv in ((100, 0, s), (128, 128, 256))[:2 if bf16 else 1]:
+                hkv = hkv_mha
+                ncopy = copies_for(2 * skv * hkv * d * isz)
+                q = randn(1, sq, h, d)
+                caches = [(cache(1, skv, hkv, d), cache(1, skv, hkv, d)) for _ in range(ncopy)]
+                kc, vc = caches[0]
+                dead = (torch.arange(skv, device="cuda") >= off0 + sq)[None, :]
+                pk, pv = self._kv_poison(torch, kc, dead), self._kv_poison(torch, vc, dead)
+                off_t = torch.tensor([off0], dtype=torch.int32, device="cuda")
+                y = flash_prefill_blocked_cuda(q, pk, pv, off_t, sc, off0 + sq)
+                ref = flash_prefill_blocked_plain(q, kc, vc, off0, sc)
+                same5 = None
+                if bf16 and off0 == 0:
+                    k5, v5 = kc[:, :sq].contiguous(), vc[:, :sq].contiguous()
+                    same5 = torch.equal(flash_prefill_blocked_cuda(q, k5, v5, 0, sc),
+                                        flash_prefill_cuda(q, k5, v5, sc))
+                torch.cuda.synchronize()
+                if not torch.isfinite(y.float()).all() or same5 is False:
+                    raise AssertionError(f"flash_prefill_blocked D={d} {name} SQ={sq}: a dead "
+                                         f"slot was read, or kernel 4 at offset 0 differs from "
+                                         f"kernel 5")
+                del pk, pv
+                n = off0 + sq
+                allowed = (torch.arange(n, device="cuda")[None, :]
+                           <= torch.arange(sq, device="cuda")[:, None] + off0)
+                qt = q.transpose(1, 2)
+                ms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_cuda(
+                    q, c[0], c[1], off_t, sc, off0 + sq) for c in caches])
+                pms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_plain(
+                    q, c[0], c[1], off_t, sc) for c in caches], iters=6)
+                gqa = {"enable_gqa": True} if h != hkv else {}
+                lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+                    qt, up(c[0], n), up(c[1], n), attn_mask=allowed, **gqa) for c in caches])
+                pairs = sum(off0 + i + 1 for i in range(sq))
+                rec("flash_prefill_blocked", name, f"B=1 SQ={sq} H={h} SKV={skv} offset={off0} "
+                    f"(device offset, dead slots poisoned){'' if same5 is None else ', bit-equal to kernel 5 at offset 0'} [sync]",
+                    y, ref, ms, pms, lms, 2 * sq * h * d * 2 + n * hkv * d * isz * 2,
+                    4 * h * pairs * d, main=(sq == 100))
+                del caches, kc, vc
+        # kernel 5: causal, no cache, S = 2048 (the calibration and eval window)
+        b, s5, hkv = 1, 2048, h if d != 256 else 2
+        q, k, v = randn(b, s5, h, d), randn(b, s5, hkv, d), randn(b, s5, hkv, d)
+        y, y2 = flash_prefill_cuda(q, k, v, sc), flash_prefill_cuda(q, k, v, sc)
+        ref = flash_prefill_plain(q, k, v, sc)
+        torch.cuda.synchronize()
+        if not torch.equal(y, y2):
+            raise AssertionError(f"flash_prefill D={d}: two launches differ")
+        gqa = {"enable_gqa": True} if h != hkv else {}
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = graph_ms(torch, [lambda: flash_prefill_cuda(q, k, v, sc)], iters=6)
+        pms = graph_ms(torch, [lambda: flash_prefill_plain(q, k, v, sc)], iters=2)
+        lms = graph_ms(torch, [lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                      **gqa)], iters=6)
+        rec("flash_prefill", "bf16", f"B={b} S={s5} H={h} Hkv={hkv} causal [sync], two launches "
+            f"bit-equal", y, ref, ms, pms, lms, 2 * b * s5 * h * d * 2 + 2 * b * s5 * hkv * d * 2,
+            2 * b * h * s5 * (s5 + 1) * d, main=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    def _qmm_arch_rows(self, torch):
+        """Kernel 1 at the fused q/k/v of LLaMA-7B (4096 x 12288, M = 1 and 8;
+        its columns against the three unfused launches) and at GPT-NeoX-20B's
+        linears with their biases (query_key_value 6144 x 18432, dense, the
+        MLP), M = 1 and 8; tolerance as the kernels phase's rows."""
+        from gptq_for_llama_tpu_torch.ops.cuda.matmul import _launch, plan_for, qmm_cuda
+        from gptq_for_llama_tpu_torch.ops.linear import PackedLinear, quant_matmul_plain
+        bf = torch.bfloat16
+        rng = np.random.RandomState(77)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(77)
+        fused = {}
+        for k, n, what, bias in ((4096, 12288, "fused qkv_proj (LLaMA-7B)", False),
+                                 (6144, 18432, "query_key_value (NeoX-20B)", True),
+                                 (6144, 6144, "attention.dense (NeoX-20B)", True),
+                                 (6144, 24576, "dense_h_to_4h (NeoX-20B)", True),
+                                 (24576, 6144, "dense_4h_to_h (NeoX-20B)", True)):
+            if n == 12288:   # concat_outputs of three 4096 x 4096 linears, as fuse_attention
+                parts = [self._linears(torch, rng, k, 4096, copies_for(k * n // 2))
+                         for _ in range(3)]
+                lins = [PackedLinear.concat_outputs([p[i] for p in parts])
+                        for i in range(len(parts[0]))]
+            else:
+                lins = self._linears(torch, rng, k, n, copies_for(k * n // 2))
+            if bias:
+                b_ = (torch.randn(n, generator=gen, device="cuda") * 0.02).to(bf)
+                for lin in lins:
+                    lin.bias = b_
+            wdq = [lins[0].dequantize(bf) for _ in range(copies_for(k * n * 2))]
+            for m in (1, 8):
+                x = (torch.randn(m, k, generator=gen, device="cuda")).to(bf)
+                y = qmm_cuda(x, lins[0])
+                p = plan_for(x, lins[0])
+                ref = quant_matmul_plain(x, lins[0], bf)
+                err = (y.float() - ref.float()).abs().max().item()
+                tol = 2e-2 * ref.float().abs().max().item()
+                ms = graph_ms(torch, [lambda l=l: qmm_cuda(x, l) for l in lins])
+                pms = graph_ms(torch, [lambda l=l: quant_matmul_plain(x, l, bf) for l in lins],
+                               iters=10)
+                lms = graph_ms(torch, [lambda w=w: torch.matmul(x, w) + (lins[0].bias if bias
+                                                                         else 0) for w in wdq])
+                extra = {"form": {"path": p.path, "rows": p.mt, "split": p.split}}
+                if n == 12288:
+                    unf = torch.cat([qmm_cuda(x, part[0]) for part in parts], dim=-1)
+                    # the three launches under the fused launch's plan: the same
+                    # K split, so the same sums in the same order
+                    forced = torch.cat([_launch(x, part[0], p) for part in parts], dim=-1)
+                    torch.cuda.synchronize()
+                    diff = (y.float() - unf.float()).abs().max().item()
+                    same, same_forced = torch.equal(y, unf), torch.equal(y, forced)
+                    plans = [plan_for(x, part[0]) for part in parts]
+                    extra["vs_unfused"] = {"bit_equal": same, "max_abs_diff": diff,
+                                           "bit_equal_under_fused_plan": same_forced,
+                                           "unfused_form": {"path": plans[0].path,
+                                                            "split": plans[0].split}}
+                    fused[m] = extra["vs_unfused"]
+                    if diff > tol or not same_forced:
+                        raise AssertionError(f"fused qkv M={m}: the fused columns differ from "
+                                             f"the three unfused launches by {diff} (tol "
+                                             f"{tol}), bit-equal under the fused plan: "
+                                             f"{same_forced}")
+                    log(f"[archs] fused qkv M={m}: columns vs three unfused launches "
+                        f"{'bit-equal' if same else f'max abs diff {diff:.3e} (tol {tol:.3e})'};"
+                        f" fused plan {p.path} split {p.split}, unfused {plans[0].path} split "
+                        f"{plans[0].split}; under the fused plan bit-equal")
+                self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms,
+                             m * k * 2 + self._lin_bytes(lins[0]) + m * n * 2 + (n * 2 if bias
+                                                                                  else 0),
+                             2 * m * k * n, path=p.path, extra=extra)
+            del lins, wdq
+        self.report["fused_qkv_columns"] = fused
+        torch.cuda.empty_cache()
+
+    def _arch_model(self, torch, name, layers=None, device="cuda", seed=0):
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.runtime.random_model import GAUSSIAN_WIRE
+        spec = dict(ARCH_CONFIGS[name])
+        if layers is not None:
+            spec["num_layers"] = layers
+        cfg = ModelConfig(**spec)
+        return cfg, GAUSSIAN_WIRE[name](cfg, seed=seed, device=device, dtype=torch.bfloat16)
+
+    def _hold_to_cpu(self, torch, label, name, cfg, gpu_params, cpu_params, prompt, steps,
+                     **runner_kw):
+        """Prefill and ``steps`` decode steps teacher-forced with the CPU's
+        greedy tokens, card (bf16, kernels) against CPU (fp32, plain
+        versions): logits within 2e-2 of their largest (bf16 activations and
+        weights rounded at every op boundary of two full-width layers and
+        the head, against fp32; measured 4.8e-3 on an H100, the margin keeps
+        the token check live), greedy tokens equal where the CPU's top-2
+        margin exceeds twice that. Returns (err, scale, agreed, compared)."""
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner
+        gpu = ModelRunner(name, cfg, gpu_params, dtype=torch.bfloat16, device="cuda",
+                          **runner_kw)
+        cpu = ModelRunner(name, cfg, cpu_params, dtype=torch.float32, device="cpu")
+        prompt = torch.as_tensor(prompt[None])
+        lc, cc = cpu.prefill(prompt, cpu.init_cache())
+        ref, toks = [lc[0].float()], []
+        tok = lc[:, -1:].argmax(-1)
+        for _ in range(steps):
+            toks.append(tok)
+            lc, cc = cpu.decode(tok, cc)
+            ref.append(lc[0].float())
+            tok = lc[:, -1:].argmax(-1)
+        lg, cg = gpu.prefill(prompt.cuda(), gpu.init_cache())
+        got = [lg[0].float().cpu()]
+        for tok in toks:
+            lg, cg = gpu.decode(tok.cuda(), cg)
+            got.append(lg[0].float().cpu())
+        torch.cuda.synchronize()
+        ref_all, got_all = torch.cat(ref), torch.cat(got)
+        if not torch.isfinite(got_all).all():
+            raise AssertionError(f"{label}: non-finite logits on the card")
+        rel_tol = 2e-2
+        scale = ref_all.abs().max().item()
+        err = (got_all - ref_all).abs().max().item()
+        compared = agreed = 0
+        for r, g in zip(ref, got):
+            top2 = r.topk(2, dim=-1)
+            sel = (top2.values[:, 0] - top2.values[:, 1]) > 2 * rel_tol * scale
+            compared += int(sel.sum())
+            agreed += int((g.argmax(-1) == top2.indices[:, 0])[sel].sum())
+        log(f"[{label}] logits card vs CPU: max abs err {err:.4f}, max |ref| {scale:.3f}, rel "
+            f"{err / scale:.4f} (tol {rel_tol}); greedy tokens {agreed}/{compared} agree where "
+            f"the CPU's top-2 margin exceeds {2 * rel_tol * scale:.3f}")
+        if err > rel_tol * scale or compared == 0 or agreed != compared:
+            raise AssertionError(f"{label}: the card disagrees with the CPU")
+        del gpu, cpu
+        return err, scale, agreed, compared
+
+    def _arch_two_layers(self, torch, name):
+        """A 2-layer model of ``name`` at its published width on the card
+        against the same weights on the CPU (fp32, plain versions)."""
+        cfg, params = self._arch_model(torch, name, layers=2, seed=5)
+        cpu_params = _tree_to_cpu(params, torch.float32)
+        prompt = np.random.RandomState(5).randint(0, cfg.vocab_size, size=29)
+        t0 = time.perf_counter()
+        err, scale, agreed, compared = self._hold_to_cpu(torch, f"archs {name} 2-layer", name,
+                                                         cfg, params, cpu_params, prompt, 6)
+        self.report.setdefault("archs", {}).setdefault(name, {})["two_layers"] = {
+            "max_abs_err": err, "max_abs_ref": scale, "tokens_agreed": agreed,
+            "tokens_compared": compared, "seconds": time.perf_counter() - t0}
+        del params, cpu_params
+
+    def _arch_full(self, torch, name, modes):
+        """``name`` at its published width and depth, batch 1: ``generate``
+        through the graphs twice (the same tokens; ms/token), the decode
+        graph's device time, launches by kernel and head dim; then 8-slot
+        serving in ``modes`` (paged span 8, dense chunk 128, dense fold),
+        each run twice (the second with every graph captured): tok/s, ttft,
+        the same tokens both runs."""
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime import GenRequest, ModelRunner, ServingEngine
+        from gptq_for_llama_tpu_torch.runtime import generate
+        from gptq_for_llama_tpu_torch.runtime.graphs import bucket_for
+        t0 = time.perf_counter()
+        cfg, params = self._arch_model(torch, name)
+        torch.cuda.synchronize()
+        wbytes = torch.cuda.memory_allocated()
+        log(f"[archs] {name} ({cfg.num_layers} layers, hidden {cfg.hidden_size}, D "
+            f"{cfg.head_dim}) INT4-g128 weights made in {time.perf_counter() - t0:.1f} s, "
+            f"{wbytes / 2**30:.2f} GiB on the card")
+        out = self.report.setdefault("archs", {}).setdefault(name, {})
+        d = cfg.head_dim
+        rng = np.random.RandomState(len(name))
+        max_len = cfg.max_seq_len   # the published context: NeoX and OPT 2048, GPT-2 1024
+        prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in (37, 100)]
+        new = 32
+        runs = {}
+        for impl in ("classic", "fold") if "fold" in modes else ("classic",):
+            runner = ModelRunner(name, cfg, params, device="cuda", max_seq_len=max_len,
+                                 cache_impl=impl)
+            runner.warmup(prefill_buckets=tuple(len(p) for p in prompts))
+            for rep in range(2):
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got = [generate(runner, p, max_new_tokens=new, temperature=0.0) for p in prompts]
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t1
+                if rep == 0:
+                    first = got
+            if any(not np.array_equal(a, b) for a, b in zip(first, got)):
+                raise AssertionError(f"{name} {impl}: two generate runs differ")
+            counts = kernels.launch_counts()
+            self.check_path(f"arch:{name}:{'decode' if impl == 'classic' else 'fold'}", counts)
+            distinct = len(set(np.concatenate([o[0, len(p):] for p, o in zip(prompts, got)])
+                               .tolist()))
+            if distinct < 8:
+                raise AssertionError(f"{name}: the tokens do not depend on the prompt")
+            cache = runner.init_cache()
+            logits, cache = runner.prefill(torch.as_tensor(prompts[1][None], device="cuda"),
+                                           cache)
+            tok = logits[:, -1:].float().argmax(-1)
+            runner.decode(tok, cache)
+            offs = runner._store.offs
+            key = ("decode", bucket_for(101, runner.decode_buckets))
+            dev_ms = replay_ms(torch, runner.graphs, key, lambda: offs.fill_(101))
+            by_d = {k: v for k, v in counts.items() if k.endswith(f":d{d}") and v}
+            ms_tok = dt / (len(prompts) * new) * 1e3
+            log(f"[archs] {name} generate(span=32) {impl}: {len(prompts)} prompts x {new} "
+                f"tokens, {ms_tok:.3f} ms/token (prefills included, graphs replayed); decode "
+                f"graph at offset 101 {dev_ms:.3f} ms device; {distinct} distinct tokens; "
+                f"launches {_nonzero(counts)} | {self.card}")
+            runs[impl] = {"ms_per_token": ms_tok, "decode_graph_ms": dev_ms,
+                          "launches": counts, "launches_by_head_dim": by_d,
+                          "distinct_tokens": distinct}
+            if impl == "fold" and any(not np.array_equal(a, b)
+                                      for a, b in zip(first, self._classic_tokens)):
+                agree = np.mean([np.mean(a == b) for a, b in zip(first, self._classic_tokens)])
+                log(f"[archs] {name} fold vs classic tokens: {agree:.3f} of positions equal "
+                    f"(bf16 rounds the current k/v differently after a near tie)")
+            self._classic_tokens = first
+            del runner
+            torch.cuda.empty_cache()
+        out["decode"] = runs
+        # serving: 8 slots, 12 requests
+        srng = np.random.RandomState(9)
+        sprompts = [srng.randint(0, cfg.vocab_size, size=n)
+                    for n in (37, 60, 99, 150, 201, 256, 300, 41, 77, 120, 180, 230)]
+        snew = 24
+        kw_of = {"paged": dict(paged=True, block_size=16, decode_span=8),
+                 "dense": dict(prefill_chunk=128),
+                 "fold": dict(cache_impl="fold", decode_span=8)}
+        serve = {}
+        for mode in modes:
+            eng = ServingEngine(name, cfg, params, batch_slots=8, max_seq_len=max_len,
+                                device="cuda", **kw_of[mode])
+            results = []
+            for rep in range(2):
+                kernels.reset_launch_counts()
+                for uid, p in enumerate(sprompts):
+                    eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=snew))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                res = eng.run()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t1
+                results.append((res, dt, eng.stats()))
+            (r1, dt1, st1), (r2, dt2, st2) = results
+            if set(r1) != set(range(len(sprompts))) or any(
+                    not np.array_equal(r1[u], r2[u]) or len(r1[u]) != snew for u in r1):
+                raise AssertionError(f"{name} serve {mode}: incomplete, or the two runs differ")
+            counts = kernels.launch_counts()
+            self.check_path(f"arch:{name}:serve:{mode}" if mode != "fold"
+                            else f"arch:{name}:fold", counts)
+            tokens = len(sprompts) * snew
+            log(f"[archs] {name} serve {mode} (8 slots, {len(sprompts)} requests x {snew}): "
+                f"{tokens / dt2:.1f} tok/s, ttft p50/p95 {st2['ttft_p50_s']}/{st2['ttft_p95_s']} "
+                f"s, latency p50 {st2['latency_p50_s']} s (first run, captures included, "
+                f"{tokens / dt1:.1f} tok/s); KV {st2['kv_bytes'] / 2**30:.2f} GiB; launches "
+                f"{_nonzero(counts)} | {self.card}")
+            serve[mode] = {"tok_s": tokens / dt2, "tok_s_first_run": tokens / dt1,
+                           "stats": st2, "launches": counts}
+            del eng
+            torch.cuda.empty_cache()
+        out["serve"] = serve
+        out["weight_bytes_on_card"] = wbytes
+        del params
+        torch.cuda.empty_cache()
+
+    def _arch_quantize(self, torch, name):
+        """quantize -> save -> reload -> perplexity through the port's CLI
+        (``python -m gptq_for_llama_tpu_torch``, two processes, each writing
+        its report with its launches by phase) on a 2-layer dense F16
+        checkpoint of ``name`` at its published width in HF layout, written
+        from a seed: the calibration forward on kernel 5 at the arch's head
+        dim, the reloaded wire bytes equal to the saved file, a finite
+        perplexity equal after the reload."""
+        from gptq_for_llama_tpu_torch.engine.checkpoint import _HF_LAYOUT
+        from gptq_for_llama_tpu_torch.engine.quantize import get_path
+        from gptq_for_llama_tpu_torch.models import hf_loader
+        from gptq_for_llama_tpu_torch.models.registry import get_arch
+        layers = 2
+        model, out = (os.path.join(self.tmp, f"{name}_model"),
+                      os.path.join(self.tmp, f"{name}_packed"))
+        t0 = time.perf_counter()
+        nbytes = write_dense_arch(torch, name, model, layers, seed=13)
+        log(f"[archs] dense F16 {name} at published width, {layers} layers: "
+            f"{nbytes / 2**30:.2f} GiB written in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+        def cli(args, tag):
+            path = os.path.join(self.tmp, f"{name}_{tag}.json")
+            proc = subprocess.run([sys.executable, "-m", "gptq_for_llama_tpu_torch", *args,
+                                   "--report", path], cwd=os.path.dirname(
+                                       os.path.abspath(__file__)), capture_output=True,
+                                  text=True, timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"{name} CLI {tag} exited {proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            with open(path) as f:
+                return json.load(f)
+
+        rep1 = cli([model, "synthetic", "--wbits", "4", "--groupsize", "128", "--nsamples", "32",
+                    "--save", out, "--eval"], "quantize")
+        rep2 = cli([model, "synthetic", "--load", out, "--eval", "--benchmark", "64", "--check"],
+                   "reload")
+        dt = time.perf_counter() - t0
+        self.check_path(f"arch:{name}:quantize", rep1["launches"]["quantize"])
+        ppl1, ppl2 = rep1["ppl"]["synthetic"], rep2["ppl"]["synthetic"]
+        if not (math.isfinite(ppl1) and math.isfinite(ppl2)) or abs(ppl1 - ppl2) > 1e-4 * ppl2:
+            raise AssertionError(f"{name} quantize: ppl {ppl1} after quantizing vs {ppl2} "
+                                 f"reloaded")
+        flat = hf_loader.read_flat_state(out)
+        cfg, packed = hf_loader.load_params(out, device="cuda")
+        prefix = _HF_LAYOUT[name][0]
+        nbuf = 0
+        for li, lp in enumerate(packed["layers"]):
+            for lin in get_arch(name).LAYER_LINEARS:
+                for k, v in get_path(lp, lin).to_wire().items():
+                    ref = flat[f"{prefix}.{li}.{lin}.{k}"]
+                    if v.dtype != ref.dtype or v.tobytes() != ref.tobytes():
+                        raise AssertionError(f"{name} reload: layers.{li}.{lin}.{k} differs")
+                    nbuf += 1
+        split = {k: v / layers for k, v in rep1["quantize_split"].items()}
+        log(f"[archs] {name} CLI quantize+save+eval and reload+eval+benchmark in {dt:.1f} s; "
+            f"s/layer {json.dumps({k: round(v, 3) for k, v in split.items()})}; ppl "
+            f"{ppl1:.4f} / {ppl2:.4f} reloaded; {nbuf} wire buffers byte-equal to the saved "
+            f"file; decode benchmark {rep2['benchmark']['tokens_per_s']:.1f} tok/s; launches "
+            f"quantize {_nonzero(rep1['launches']['quantize'])}, eval "
+            f"{_nonzero(rep2['launches']['eval:synthetic'])} | {self.card}")
+        self.report.setdefault("archs", {}).setdefault(name, {})["quantize"] = {
+            "layers": layers, "s_per_layer": split, "ppl": [ppl1, ppl2], "buffers": nbuf,
+            "benchmark": rep2["benchmark"], "launches": [rep1["launches"], rep2["launches"]]}
+        del packed, flat
+
+    def _fuse_qkv(self, torch):
+        """LLaMA-7B (the ``full`` phase's model) with ``fuse_qkv=True``:
+        kernel-1 launches per decode token (96 against 160), ms per token of
+        both through ``decode_greedy_scan``'s graphs; the unfused model under
+        the fused launch's plans bit-equal to the fused one (prompt logits and
+        greedy tokens); and the 2-layer 7B-width model fused on the card
+        against the unfused CPU path."""
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner
+        from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+        if self.model7b is None:
+            cfg = ModelConfig(**LLAMA_7B)
+            self.model7b = (cfg, gaussian_wire_llama(cfg, seed=0, device="cuda"))
+        cfg, params = self.model7b
+        prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, size=100)
+        steps = 64
+        res = {}
+        for fuse in (False, True):
+            runner = ModelRunner("llama", cfg, params, device="cuda", max_seq_len=512,
+                                 fuse_qkv=fuse)
+            for rep in range(2):
+                logits, cache = runner.prefill(torch.as_tensor(prompt[None], device="cuda"),
+                                               runner.init_cache())
+                prompt_logits = logits[0].float()
+                tok = logits[:, -1:].float().argmax(-1)
+                kernels.reset_launch_counts()
+                f0 = runner.forwards["decode"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks, cache = runner.decode_greedy_scan(tok, cache, steps)
+                toks = toks.cpu().numpy()
+                dt = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            fwd = runner.forwards["decode"] - f0
+            if fuse:
+                self.check_path("fuse_qkv:decode", counts)
+            res[fuse] = {"ms_per_token": dt / steps * 1e3, "qmm_per_token": counts["qmm"] / fwd,
+                         "tokens": toks, "logits": prompt_logits}
+            del runner
+        per = {k: v["qmm_per_token"] for k, v in res.items()}
+        if per != {False: 5 * cfg.num_layers, True: 3 * cfg.num_layers}:
+            raise AssertionError(f"fuse_qkv: kernel-1 launches per decode token {per}, want "
+                                 f"{5 * cfg.num_layers} unfused and {3 * cfg.num_layers} fused")
+        same = res[False]["tokens"][0] == res[True]["tokens"][0]
+        first = int(np.argmin(same)) if not same.all() else steps
+        # kernel 1's plan splits K in two for each 4096-wide q/k/v and not at
+        # all at N = 12288, so the fused model rounds otherwise. The unfused
+        # model under the fused launch's plans (``plan_for`` patched for the
+        # q/k/v linears only: the same K split, so the same sums in the same
+        # order) must give the fused model's prompt logits and greedy tokens
+        # bit for bit
+        from gptq_for_llama_tpu_torch.ops.cuda import matmul as qmm_mod
+        qkv = {id(lp["self_attn"][n].qweight) for lp in params["layers"]
+               for n in ("q_proj", "k_proj", "v_proj")}
+        n_fused = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+        natural = qmm_mod.plan_for
+
+        def fused_plan(x2, lin):
+            if id(lin.qweight) not in qkv:
+                return natural(x2, lin)
+            return qmm_mod.plan(x2.shape[0], lin.in_features, n_fused, lin.bits,
+                                qmm_mod._sm_count(x2.device.index or 0),
+                                groupsize=lin.groupsize)
+
+        qmm_mod.plan_for = fused_plan
+        try:
+            r = ModelRunner("llama", cfg, params, device="cuda", max_seq_len=512)
+            logits, cache = r.prefill(torch.as_tensor(prompt[None], device="cuda"),
+                                      r.init_cache())
+            forced_logits = logits[0].float()
+            forced_toks = r.decode_greedy_scan(logits[:, -1:].float().argmax(-1), cache,
+                                               steps)[0].cpu().numpy()
+        finally:
+            qmm_mod.plan_for = natural
+        del r
+        exact = (torch.equal(forced_logits, res[True]["logits"])
+                 and np.array_equal(forced_toks, res[True]["tokens"]))
+        scale = res[False]["logits"].abs().max().item()
+        err = (res[True]["logits"] - res[False]["logits"]).abs().max().item()
+        log(f"[archs] LLaMA-7B decode_greedy_scan, {steps} tokens after a 100-token prompt: "
+            f"kernel-1 launches per token {per[False]:g} unfused / {per[True]:g} fused; "
+            f"{res[False]['ms_per_token']:.3f} / {res[True]['ms_per_token']:.3f} ms/token; "
+            f"under each its own plans the greedy tokens equal up to step {first} and the "
+            f"prompt logits differ by {err:.4f} of max {scale:.3f}; the unfused model under the "
+            f"fused plans: prompt logits and {steps} greedy tokens "
+            f"{'bit-equal to' if exact else 'DIFFER from'} the fused model's | {self.card}")
+        if not exact:
+            raise AssertionError("fuse_qkv: under the fused launch's plans the unfused 7B "
+                                 "model's logits or tokens differ from the fused model's")
+        self.report["fuse_qkv"] = {
+            "qmm_per_token": {"unfused": per[False], "fused": per[True]},
+            "ms_per_token": {"unfused": res[False]["ms_per_token"],
+                             "fused": res[True]["ms_per_token"]},
+            "tokens_equal_until": first, "prompt_logits_max_abs_diff": err,
+            "prompt_logits_max_abs": scale, "bit_equal_under_fused_plans": exact}
+        # the 2-layer 7B-width model fused on the card against the unfused CPU path
+        cfg2 = ModelConfig(**dict(LLAMA_7B, num_layers=2, max_seq_len=64))
+        p2 = gaussian_wire_llama(cfg2, seed=7, device="cuda")
+        self._hold_to_cpu(torch, "archs fuse_qkv 2-layer", "llama", cfg2, p2,
+                          _tree_to_cpu(p2, torch.float32),
+                          np.random.RandomState(7).randint(0, cfg2.vocab_size, size=37), 6,
+                          fuse_qkv=True)
+        del p2
+        torch.cuda.empty_cache()
+
+    # -- phase 12 --------------------------------------------------------------
     def phase_profile(self, torch):
         from gptq_for_llama_tpu_torch.models.config import ModelConfig
         from gptq_for_llama_tpu_torch.runtime import ModelRunner
@@ -3286,11 +4018,12 @@ class Smoke:
             if name in ("qmm", "fused_mlp", "rms_norm"):   # the form of every row
                 rows[-1]["paths"] = {k[len(name) + 1:]: p for k, p in self.paths.items()
                                      if k.startswith(name + " ")}
-            by_dtype = ("bf16", "f32", "fp8", "fp8_e5m2")   # the cache dtype read
+            # the cache dtype read, and the head dim
+            by_dtype = ("bf16", "f32", "fp8", "fp8_e5m2", "d64", "d80", "d96", "d128", "d256")
             forms = {"qmm": ("gemv", "frag", "tile"), "fused_mlp": ("gemv", "frag", "tile"),
                      "rms_norm": ("alone", "add"), "decode_attention": by_dtype,
                      "flash_prefill_blocked": by_dtype, "pool_decode_attention": by_dtype,
-                     "fused_decode_attention": by_dtype}
+                     "fused_decode_attention": by_dtype, "flash_prefill": by_dtype[4:]}
             if name in forms:
                 rows[-1]["launches_by_form"] = {
                     p: {f: c.get(f"{name}:{f}", 0) for f in forms[name]}
@@ -3301,6 +4034,8 @@ class Smoke:
                 rows[-1]["sq2048"] = self.sq2048
             if name in self.kv_entries:   # the same kernel over fp8-e4m3, fp8-e5m2, f32 caches
                 rows[-1]["kv_dtypes"] = self.kv_entries[name]
+            if name in self.dim_entries:   # at head dims 64, 80, 96, 256, by cache dtype
+                rows[-1]["head_dims"] = self.dim_entries[name]
         return json.dumps({"kernels": rows})
 
 

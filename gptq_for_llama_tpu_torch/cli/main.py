@@ -83,6 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "and decode-attention traffic; compute stays bf16)")
     p.add_argument("--profile-dir", type=str, default=None,
                    help="write a torch.profiler trace of the eval/benchmark here")
+    p.add_argument("--report", type=str, default=None,
+                   help="also write the returned report (ppl, benchmark, phase seconds, "
+                        "kernel launches by phase) to this JSON file")
     p.add_argument("--device", type=str, default=None,
                    help="'cpu' runs the plain PyTorch versions on the CPU; default: the card")
     return p
@@ -93,7 +96,6 @@ _UNPORTED = {
     "--tp": (lambda a: bool(a.tp and a.tp > 1), "A18"),
     "--dp": (lambda a: bool(a.dp and a.dp > 1), "A18"),
     "--distributed": (lambda a: a.distributed, "A18"),
-    "--fuse-attn": (lambda a: a.fuse_attn, "A4 (concat_outputs / fuse_attention)"),
     "--pre-layer": (lambda a: a.pre_layer is not None, "A15"),
 }
 
@@ -104,7 +106,16 @@ def main(argv=None) -> dict:
     calibration forwards, Hessians and the solver), "phases" (seconds per
     phase), "launches" ({phase: {kernel: launches}}, which CUDA kernels each
     phase went through) and, on the card, "peak_memory" ({phase: bytes})."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    # the TPU package's refusals (gptq_for_llama_tpu/cli/main.py:120-125)
+    tp_on = bool(args.tp and args.tp > 1)
+    if args.fuse_attn and tp_on:
+        parser.error("--fuse-attn is incompatible with --tp: shard_map TP "
+                     "shards q/k/v separately (TP_RULES)")
+    if args.pre_layer is not None and (tp_on or args.fuse_attn):
+        parser.error("--pre-layer (offloaded generation) supports neither "
+                     "--tp nor --fuse-attn")
     for flag, (is_set, item) in _UNPORTED.items():
         if is_set(args):
             raise NotImplementedError(f"{flag} is not yet ported to gptq_for_llama_tpu_torch "
@@ -214,7 +225,8 @@ def main(argv=None) -> dict:
         n = min(args.benchmark, len(stream))
         with phase("benchmark"), trace():
             runner = ModelRunner(cfg.arch, cfg, params, batch_size=1, max_seq_len=max(n, 32),
-                                 device=device, kv_dtype=kv_dtype(args.kv_dtype))
+                                 device=device, kv_dtype=kv_dtype(args.kv_dtype),
+                                 fuse_qkv=args.fuse_attn)
             res = benchmark_decode(runner, stream[:n][None], check=args.check)
         print(json.dumps(res))
         report["benchmark"] = res
@@ -226,7 +238,7 @@ def main(argv=None) -> dict:
         ids = np.asarray(tokenizer(args.text)["input_ids"], np.int64)
         runner = ModelRunner(cfg.arch, cfg, params, batch_size=1,
                              max_seq_len=len(ids) + args.max_new_tokens, device=device,
-                             kv_dtype=kv_dtype(args.kv_dtype))
+                             kv_dtype=kv_dtype(args.kv_dtype), fuse_qkv=args.fuse_attn)
         out = generate(runner, ids, args.max_new_tokens, temperature=args.temperature,
                        top_p=args.top_p, min_new_tokens=args.min_new_tokens,
                        eos_token_id=tokenizer.eos_token_id,
@@ -239,6 +251,9 @@ def main(argv=None) -> dict:
         if args.profile_dir:
             print(f"device trace written to {args.profile_dir}")
     report["phases"] = dict(timer.totals)
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump(report, f)
     return report
 
 

@@ -85,7 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
 _UNPORTED = {
     "--tp": (lambda a: bool(a.tp and a.tp > 1), "A18"),
     "--distributed": (lambda a: a.distributed, "A18"),
-    "--fuse-attn": (lambda a: a.fuse_attn, "A4 (concat_outputs / fuse_attention)"),
 }
 
 
@@ -94,6 +93,9 @@ def main(argv=None) -> dict:
     per-request records) and "stats" (the final line)."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.fuse_attn and args.tp and args.tp > 1:
+        parser.error("--fuse-attn is incompatible with --tp: shard_map TP "
+                     "shards q/k/v separately (TP_RULES)")
     for flag, (is_set, item) in _UNPORTED.items():
         if is_set(args):
             raise NotImplementedError(f"{flag} is not yet ported to gptq_for_llama_tpu_torch "
@@ -145,7 +147,8 @@ def main(argv=None) -> dict:
         cfg.arch, cfg, params, batch_slots=args.slots, max_seq_len=max_len, paged=args.paged,
         block_size=args.block_size, num_blocks=args.num_blocks,
         prefill_chunk=args.prefill_chunk, decode_span=args.span, prefill_buckets=buckets,
-        device=device, seed=args.seed, kv_dtype=kv_dtype(args.kv_dtype))
+        device=device, seed=args.seed, kv_dtype=kv_dtype(args.kv_dtype),
+        fuse_qkv=args.fuse_attn)
     for uid, prompt in enumerate(prompts):
         engine.submit(GenRequest(uid=uid, prompt=prompt, max_new_tokens=args.max_new_tokens,
                                  temperature=args.temperature, top_p=args.top_p,

@@ -60,9 +60,18 @@
 //    kernel 7 over a pool equals kernel 3 over the gathered view bit for bit.
 //  - per-warp online softmax in log2 units (scale * log2(e) folded into q,
 //    one ex2 per logit), merged once across the four warps at the end of the
-//    block, on CUDA cores: a lane holds 4 output dims for all G heads, and the
-//    8 logits of a warp's slice are reduced with a transposing butterfly (9
-//    shuffles a head for 8 slots, not 40).
+//    block, on CUDA cores: a lane holds 4 output dims of each 128-dim group
+//    for all G heads, and the 8 logits of a warp's slice are reduced with a
+//    transposing butterfly (9 shuffles a head for 8 slots, not 40).
+//  - the head dim D is a template parameter (64, 80, 96, 128, 256; one
+//    library per D, built with -DGPTQ_HEAD_DIM). Lane l holds dims
+//    128 v + 4 l .. + 3 of group v < ceil(D / 128); at D = 64, 80 and 96
+//    lanes 16, 20 and 24 on hold none (their q is zero and they read no
+//    K or V), at D = 256 each lane holds two groups. Every row is a whole
+//    number of 16-byte copies (80 bf16 is 10, 80 fp8 is 5). The ring keeps
+//    4 stages up to 128 KB and fewer above (an f32 cache at D = 256: 2);
+//    D = 256 sizes its registers for 2 blocks an SM. At D = 128 the
+//    arithmetic is the same, in the same order, as with D fixed at 128.
 //  - chunk partials (unnormalized accumulator, max, denominator) go to a
 //    second kernel, not to a counter and a last block: it rescales and sums
 //    the chunks of each (row, kv head) in chunk order, so two runs are
@@ -79,30 +88,58 @@
 #include "kv_dtype.cuh"
 #include "mma_sync.cuh"
 
+#ifndef GPTQ_HEAD_DIM
+#define GPTQ_HEAD_DIM 128
+#endif
+#define GPTQ_HD_NS2(d) hd##d
+#define GPTQ_HD_NS(d) GPTQ_HD_NS2(d)
+
+// Every name of this header is in an inline namespace of the head dim (see
+// flash_common.cuh): libraries of two head dims share no symbol.
 namespace gptq_dense {
+inline namespace GPTQ_HD_NS(GPTQ_HEAD_DIM) {
 
 using gptq_mma::cp_async16;
 using gptq_mma::cp_async_commit;
 using gptq_mma::cp_async_wait;
 using gptq_mma::cp_async_wait_all;
 
-constexpr int kD = 128;
+constexpr int kHeadDim = GPTQ_HEAD_DIM;   // the head dim this library is built for
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kWarpSlots = 8;                     // slots of a tile one warp copies and reads
 constexpr int kTile = kWarps * kWarpSlots;        // 32 cache slots per ring stage
-constexpr int kStages = 4;
-constexpr int kSliceElems = kWarpSlots * kD;      // one warp's K (or V) rows of a stage
-// elements of the ring: [warp][stage][K | V][slot][D], a warp's own region
-// contiguous; bytes = kRingElems * sizeof(cache element): 64 KB in bf16
-constexpr int kRingElems = kWarps * kStages * 2 * kSliceElems;
-template <typename T>
-constexpr int smem_bytes() {
-  return kRingElems * (int)sizeof(T);
-}
+constexpr int kMaxStages = 4;
+constexpr int kRingBudget = 128 * 1024;           // ring bytes the stages are fitted under
 constexpr int kMaxSplit = 64;                     // chunks per row the combine stages
-constexpr int kBlocksPerSm = 3;                   // resident blocks the registers are sized for
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The layout of one head dim D over a cache of element type T
+template <int D, typename T>
+struct Dims {
+  static_assert(D % 16 == 0 && D >= 64 && D <= 256, "head dim: a multiple of 16 in 64..256");
+  static constexpr int kGroups = (D + 127) / 128;        // 4-dim groups a lane holds
+  static constexpr int kPasses = (D + kThreads - 1) / kThreads;   // output dims a thread
+  static constexpr int kSliceElems = kWarpSlots * D;     // one warp's K (or V) rows of a stage
+  static constexpr int kStageBytes = kWarps * 2 * kSliceElems * (int)sizeof(T);
+  static constexpr int kStages = kRingBudget / kStageBytes < kMaxStages
+                                     ? kRingBudget / kStageBytes : kMaxStages;
+  // bytes of the ring: [warp][stage][K | V][slot][D]: 64 KB in bf16 at D = 128
+  static constexpr int kSmemBytes = kStages * kStageBytes;
+  static constexpr int kE = 16 / (int)sizeof(T);         // elements a 16-byte copy
+  static constexpr int kRowCopies = D / kE;              // 16-byte copies a cache row
+  static constexpr int kCopies = kWarpSlots * kRowCopies;   // a warp's copies of K per tile
+  static_assert(D % kE == 0, "a cache row must be whole 16-byte copies");
+  static_assert(kStages >= 2, "the ring needs two stages");
+};
+// resident blocks the registers are sized for
+template <int D>
+constexpr int kBlocksPerSm = D <= 128 ? 3 : 2;
+// lane's dims of group v: 128 v + 4 lane .. + 3, all inside D or none
+template <int D>
+__device__ __forceinline__ bool group_live(int v, int lane) {
+  return 128 * v + 4 * lane < D;
+}
 
 // The current token of the fold form: k/v (B, Hkv, D) bf16; with ``write``
 // they are also stored, encoded in the cache type T, at slot offset[b] of
@@ -153,6 +190,27 @@ __device__ __forceinline__ void bf16x4(uint2 u, float (&f)[4]) {
   f[3] = b.y;
 }
 
+__device__ __forceinline__ float dot4(const float (&a)[4], const float (&b)[4]) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2] + a[3] * b[3];
+}
+
+// q of the G heads of kv head kvh, row b, scaled, as this lane's groups
+template <int D, int G>
+__device__ __forceinline__ void load_q(const __nv_bfloat16* q, size_t head0, float qscale,
+                                       int lane, float (&qr)[G][Dims<D, float>::kGroups][4]) {
+  constexpr int kGroups = Dims<D, float>::kGroups;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int v = 0; v < kGroups; ++v) {
+      float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (group_live<D>(v, lane))
+        bf16x4(*reinterpret_cast<const uint2*>(q + (head0 + g) * D + 128 * v + 4 * lane), t);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qr[g][v][i] = t[i] * qscale;
+    }
+}
+
 // Programmatic dependent launch (PTX griddepcontrol): the chunk kernel lets
 // the combine kernel be scheduled once every chunk block has started; the
 // combine waits for the whole chunk grid (and its memory) before it reads.
@@ -183,22 +241,24 @@ __device__ __forceinline__ int live_of(const int32_t* offs, int off_scalar, int 
 }
 
 // lc[g] = (q of head g, scaled to log2 units) . k_new, for the G heads of the
-// kv head; one warp, q and k_new in registers as each lane's 4 dims.
-template <int G>
-__device__ __forceinline__ void fold_logits(const float (&qr)[G][4], const float (&kn)[4],
+// kv head; one warp, q and k_new in registers as each lane's groups of 4 dims.
+template <int G, int NG>
+__device__ __forceinline__ void fold_logits(const float (&qr)[G][NG][4], const float (&kn)[NG][4],
                                             float* lc) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float s = qr[g][0] * kn[0] + qr[g][1] * kn[1] + qr[g][2] * kn[2] + qr[g][3] * kn[3];
+    float s = dot4(qr[g][0], kn[0]);
+#pragma unroll
+    for (int v = 1; v < NG; ++v) s += dot4(qr[g][v], kn[v]);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) lc[g] = s;
   }
 }
 
-template <int G, bool FOLD, bool PAGED, typename T>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+template <int D, int G, bool FOLD, bool PAGED, typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm<D>)
 dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
                     const T* k, const T* v,   // (B, S, Hkv, D) or pools
                     int S, const int32_t* __restrict__ offs, int off_scalar,
@@ -206,6 +266,8 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
                     float* __restrict__ part,  // chunk partials, null for one chunk
                     int Hkv, float qscale, int chunk, const Fold<T> f, const Pages pg) {
   using KV = gptq_kv::Kv<T>;
+  using L = Dims<D, T>;
+  constexpr int kStages = L::kStages, kSliceElems = L::kSliceElems, NG = L::kGroups;
   extern __shared__ __align__(16) unsigned char ring_raw[];
   T* ring = reinterpret_cast<T*>(ring_raw);   // [warp][stage][K | V][slot][D]
   __shared__ __align__(16) float pw[kWarps][G][kWarpSlots];   // each warp's probabilities
@@ -223,18 +285,20 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
   if constexpr (FOLD) {
     // the row write: slot `off` is outside every chunk of this launch
     if (f.write && z == 0 && (f.write_mask == nullptr || f.write_mask[b] != 0)) {
-      const size_t src = ((size_t)b * Hkv + kvh) * kD + tid;
-      const size_t dst = (((size_t)b * S + off) * Hkv + kvh) * kD + tid;
-      f.k_out[dst] = KV::encode(f.k_new[src]);
-      f.v_out[dst] = KV::encode(f.v_new[src]);
+      for (int d = tid; d < D; d += kThreads) {
+        const size_t src = ((size_t)b * Hkv + kvh) * D + d;
+        const size_t dst = (((size_t)b * S + off) * Hkv + kvh) * D + d;
+        f.k_out[dst] = KV::encode(f.k_new[src]);
+        f.v_out[dst] = KV::encode(f.v_new[src]);
+      }
     }
   }
   // a chunk past the row's bound has no work; the combine does not read it.
   // One chunk (the fold form at offset 0) still writes v_new as the output.
   if (t_begin >= t_end && part != nullptr) return;
 
-  const size_t row_stride = (size_t)Hkv * kD;   // elements between cache slots
-  const size_t base = (PAGED ? 0 : (size_t)b * S * row_stride) + (size_t)kvh * kD;
+  const size_t row_stride = (size_t)Hkv * D;   // elements between cache slots
+  const size_t base = (PAGED ? 0 : (size_t)b * S * row_stride) + (size_t)kvh * D;
   const T* kbase = k + base;
   const T* vbase = v + base;
   const int nt = t_end > t_begin ? (t_end - t_begin + kTile - 1) / kTile : 0;
@@ -253,8 +317,7 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
   // tile t of the chunk into stage t % kStages: this warp's 8 slots, K and V,
   // in 16-byte copies of kE elements; slots at or past t_end are zero-filled
   // without a read
-  constexpr int kE = 16 / (int)sizeof(T);
-  constexpr int kRowCopies = kD / kE;   // 16-byte copies a cache row
+  constexpr int kE = L::kE, kRowCopies = L::kRowCopies, kCopies = L::kCopies;
   auto issue = [&](int t) {
     T* kd = slice(t % kStages);
     T* vd = kd + kSliceElems;
@@ -269,8 +332,9 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
       first = ((size_t)phys * pg.BS + slot0 % pg.BS) * row_stride;
     }
 #pragma unroll
-    for (int r = 0; r < kWarpSlots * kRowCopies / 32; ++r) {
+    for (int r = 0; r < (kCopies + 31) / 32; ++r) {
       const int i = lane + 32 * r, row = i / kRowCopies, c8 = (i % kRowCopies) * kE;
+      if (kCopies % 32 != 0 && i >= kCopies) break;
       const bool ok = slot0 + row < t_end;
       size_t src;
       if constexpr (PAGED) {
@@ -278,18 +342,20 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
       } else {
         src = (size_t)(ok ? slot0 + row : 0) * row_stride + c8;
       }
-      cp_async16(kd + row * kD + c8, kbase + src, ok);
-      cp_async16(vd + row * kD + c8, vbase + src, ok);
+      cp_async16(kd + row * D + c8, kbase + src, ok);
+      cp_async16(vd + row * D + c8, vbase + src, ok);
     }
   };
 
-  float m[G], l[G], acc[G][4];
+  float m[G], l[G], acc[G][NG][4];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[g][i] = 0.0f;
+    for (int u = 0; u < NG; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[g][u][i] = 0.0f;
   }
   const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
   const int my_slot = lane >> 2;   // the slot whose full logit this lane ends up with
@@ -300,24 +366,25 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
     if (t < nt) issue(t);
     cp_async_commit();
   }
-  // this kv head's G query heads are contiguous in (B, H, D); lane: dims 4l..4l+3
-  float qr[G][4];
+  // this kv head's G query heads are contiguous in (B, H, D)
+  float qr[G][NG][4];
+  load_q<D, G>(q, (size_t)b * H + (size_t)kvh * G, qscale, lane, qr);
+  // one chunk of the fold form: the current token's k (this lane's groups)
+  // and v (this thread's output dims), loaded with q, not after the loop
+  float kn[NG][4], vn[L::kPasses];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float t[4];
-    bf16x4(*reinterpret_cast<const uint2*>(q + ((size_t)b * H + (size_t)kvh * G + g) * kD +
-                                           4 * lane), t);
+  for (int u = 0; u < NG; ++u) kn[u][0] = kn[u][1] = kn[u][2] = kn[u][3] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qr[g][i] = t[i] * qscale;
-  }
-  // one chunk of the fold form: the current token's k (this lane's 4 dims)
-  // and v (this thread's output dim), loaded with q, not after the loop
-  float kn[4] = {0.0f, 0.0f, 0.0f, 0.0f}, vn = 0.0f;
+  for (int p = 0; p < L::kPasses; ++p) vn[p] = 0.0f;
   if constexpr (FOLD) {
     if (part == nullptr) {
-      const size_t row = ((size_t)b * Hkv + kvh) * kD;
-      fold_load4<T>(f.k_new + row + 4 * lane, kn);
-      vn = fold_value<T>(f.v_new[row + tid]);
+      const size_t row = ((size_t)b * Hkv + kvh) * D;
+#pragma unroll
+      for (int u = 0; u < NG; ++u)
+        if (group_live<D>(u, lane)) fold_load4<T>(f.k_new + row + 128 * u + 4 * lane, kn[u]);
+#pragma unroll
+      for (int p = 0; p < L::kPasses; ++p)
+        if (tid + kThreads * p < D) vn[p] = fold_value<T>(f.v_new[row + tid + kThreads * p]);
     }
   }
 
@@ -329,15 +396,25 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
       const T* kd = slice(t % kStages);
       const T* vd = kd + kSliceElems;
 
-      // partial logits of the 8 slots over this lane's 4 dims
+      // partial logits of the 8 slots over this lane's dims
       float s[kWarpSlots][G];
 #pragma unroll
       for (int j = 0; j < kWarpSlots; ++j) {
-        float kf[4];
-        KV::load4(kd + j * kD + 4 * lane, kf);
+        float kf[NG][4];
 #pragma unroll
-        for (int g = 0; g < G; ++g)
-          s[j][g] = qr[g][0] * kf[0] + qr[g][1] * kf[1] + qr[g][2] * kf[2] + qr[g][3] * kf[3];
+        for (int u = 0; u < NG; ++u) {
+          if (group_live<D>(u, lane)) {
+            KV::load4(kd + j * D + 128 * u + 4 * lane, kf[u]);
+          } else {
+            kf[u][0] = kf[u][1] = kf[u][2] = kf[u][3] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          s[j][g] = dot4(qr[g][0], kf[0]);
+#pragma unroll
+          for (int u = 1; u < NG; ++u) s[j][g] += dot4(qr[g][u], kf[u]);
+        }
       }
       // transposing butterfly: lane l ends with the full logit of slot l >> 2
       float x[G];
@@ -387,17 +464,23 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
         for (int j = 0; j < kWarpSlots; ++j) sum += p[g][j];
         l[g] = l[g] * alpha[g] + sum;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[g][i] *= alpha[g];
+        for (int u = 0; u < NG; ++u)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[g][u][i] *= alpha[g];
       }
       // P V: dead slots' V rows are zeros and their p is 0
 #pragma unroll
       for (int j = 0; j < kWarpSlots; ++j) {
-        float vf[4];
-        KV::load4(vd + j * kD + 4 * lane, vf);
 #pragma unroll
-        for (int g = 0; g < G; ++g)
+        for (int u = 0; u < NG; ++u) {
+          if (!group_live<D>(u, lane)) continue;
+          float vf[4];
+          KV::load4(vd + j * D + 128 * u + 4 * lane, vf);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[g][i] += p[g][j] * vf[i];
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[g][u][i] += p[g][j] * vf[i];
+        }
       }
     }
     __syncwarp();   // every lane is done with tile t's stage and probabilities
@@ -408,14 +491,18 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
   __syncwarp();
 
   // merge the four warps: each writes its state into its own ring region
-  // (G * D floats, 4 KB for G = 8, fit its kStages K and V slices: 8 KB in fp8)
+  // (G * D floats, 4 KB for G = 8 at D = 128, fit its kStages K and V
+  // slices: 8 KB in fp8)
   constexpr int kWarpRegionBytes = kStages * 2 * kSliceElems * (int)sizeof(T);
-  static_assert(G * kD * 4 <= kWarpRegionBytes, "a warp's merge state must fit its ring region");
+  static_assert(G * D * 4 <= kWarpRegionBytes, "a warp's merge state must fit its ring region");
   float* wacc = reinterpret_cast<float*>(ring_raw + warp * kWarpRegionBytes);
 #pragma unroll
   for (int g = 0; g < G; ++g)
-    *reinterpret_cast<float4*>(wacc + g * kD + 4 * lane) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+#pragma unroll
+    for (int u = 0; u < NG; ++u)
+      if (group_live<D>(u, lane))
+        *reinterpret_cast<float4*>(wacc + g * D + 128 * u + 4 * lane) =
+            make_float4(acc[g][u][0], acc[g][u][1], acc[g][u][2], acc[g][u][3]);
   if (lane == 0) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -424,44 +511,48 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
     }
   }
   if constexpr (FOLD) {
-    if (part == nullptr && warp == 0) fold_logits<G>(qr, kn, lc);
+    if (part == nullptr && warp == 0) fold_logits<G, NG>(qr, kn, lc);
   }
   __syncthreads();
 
-  const int d = tid;   // one output dim per thread
   const size_t rows = (size_t)gridDim.y * Hkv * nsplit * G;
   const size_t row0 = (((size_t)b * Hkv + kvh) * nsplit + z) * G;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float M = -INFINITY;
+  for (int pass = 0; pass < L::kPasses; ++pass) {
+    const int d = tid + kThreads * pass;   // one output dim per thread a pass
+    if (d >= D) break;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w][g]);
-    float L = 0.0f, O = 0.0f;
-    if (M != -INFINITY) {
+    for (int g = 0; g < G; ++g) {
+      float M = -INFINITY;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float e = ex2(wm[w][g] - M);   // 0 for a warp with no live slot
-        L += e * wl[w][g];
-        O += e * reinterpret_cast<const float*>(ring_raw + w * kWarpRegionBytes)[g * kD + d];
+      for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w][g]);
+      float L_ = 0.0f, O = 0.0f;
+      if (M != -INFINITY) {
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          const float e = ex2(wm[w][g] - M);   // 0 for a warp with no live slot
+          L_ += e * wl[w][g];
+          O += e * reinterpret_cast<const float*>(ring_raw + w * kWarpRegionBytes)[g * D + d];
+        }
       }
-    }
-    if (part != nullptr) {
-      part[(row0 + g) * kD + d] = O;
-      if (d == 0) {
-        part[rows * kD + row0 + g] = M;
-        part[rows * kD + rows + row0 + g] = L;
+      if (part != nullptr) {
+        part[(row0 + g) * D + d] = O;
+        if (d == 0) {
+          part[rows * D + row0 + g] = M;
+          part[rows * D + rows + row0 + g] = L_;
+        }
+        continue;
       }
-      continue;
+      float o;
+      if constexpr (FOLD) {   // the current token as the last slot
+        const float m_new = fmaxf(M, lc[g]);
+        const float corr = ex2(M - m_new), pn = ex2(lc[g] - m_new);
+        o = (O * corr + pn * vn[pass]) / (L_ * corr + pn);
+      } else {
+        o = O / L_;
+      }
+      out[((size_t)b * H + (size_t)kvh * G + g) * D + d] = __float2bfloat16_rn(o);
     }
-    float o;
-    if constexpr (FOLD) {   // the current token as the last slot
-      const float m_new = fmaxf(M, lc[g]);
-      const float corr = ex2(M - m_new), pn = ex2(lc[g] - m_new);
-      o = (O * corr + pn * vn) / (L * corr + pn);
-    } else {
-      o = O / L;
-    }
-    out[((size_t)b * H + (size_t)kvh * G + g) * kD + d] = __float2bfloat16_rn(o);
   }
 }
 
@@ -470,51 +561,59 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
 // bound wrote partials. The fold form adds the current token as one more
 // slot. The chunks' maxima and denominators are staged in shared memory, one
 // warp per query head turns them into weights, and every thread then sums
-// its output dim with 8 chunks' loads in flight at a time.
-template <int G, bool FOLD, typename T>
+// its output dims (one a pass of 128) with 8 chunks' loads in flight at a
+// time.
+template <int D, int G, bool FOLD, typename T>
 __global__ void __launch_bounds__(kThreads)
 dense_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
                      int Hkv, int nsplit, int chunk, int S, const int32_t* __restrict__ offs,
                      int off_scalar, const __nv_bfloat16* __restrict__ q, float qscale,
                      const Fold<T> f) {
+  using L = Dims<D, T>;
+  constexpr int NG = L::kGroups;
   __shared__ float sm[kMaxSplit * G], sl[kMaxSplit * G], sM[G], sL[G], lc[G];
   const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const size_t rows = (size_t)gridDim.y * Hkv * nsplit * G;
   const size_t base = ((size_t)b * Hkv + kvh) * nsplit * G;   // row of chunk 0, head 0
-  const float* pm = part + rows * kD + base;
-  const float* pl = part + rows * kD + rows + base;
+  const float* pm = part + rows * D + base;
+  const float* pl = part + rows * D + rows + base;
   int off;
   const int live = live_of<FOLD>(offs, off_scalar, b, S, &off);
   const int nz = live > 0 ? min(nsplit, (live + chunk - 1) / chunk) : 0;
-  float vn = 0.0f;
+  float vn[L::kPasses];
+#pragma unroll
+  for (int p = 0; p < L::kPasses; ++p) vn[p] = 0.0f;
   if constexpr (FOLD) {   // the current token: inputs of this launch, not partials
-    const size_t row = ((size_t)b * Hkv + kvh) * kD;
-    vn = fold_value<T>(f.v_new[row + tid]);
+    const size_t row = ((size_t)b * Hkv + kvh) * D;
+#pragma unroll
+    for (int p = 0; p < L::kPasses; ++p)
+      if (tid + kThreads * p < D) vn[p] = fold_value<T>(f.v_new[row + tid + kThreads * p]);
     if (warp == 0) {
-      float qr[G][4], kn[4];
+      float qr[G][NG][4], kn[NG][4];
+      load_q<D, G>(q, (size_t)b * Hkv * G + (size_t)kvh * G, qscale, lane, qr);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float t[4];
-        bf16x4(*reinterpret_cast<const uint2*>(
-                   q + ((size_t)b * Hkv * G + (size_t)kvh * G + g) * kD + 4 * lane), t);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qr[g][i] = t[i] * qscale;
+      for (int u = 0; u < NG; ++u) {
+        kn[u][0] = kn[u][1] = kn[u][2] = kn[u][3] = 0.0f;
+        if (group_live<D>(u, lane)) fold_load4<T>(f.k_new + row + 128 * u + 4 * lane, kn[u]);
       }
-      fold_load4<T>(f.k_new + row + 4 * lane, kn);
-      fold_logits<G>(qr, kn, lc);
+      fold_logits<G, NG>(qr, kn, lc);
     }
   }
   grid_dependency_wait();   // every chunk's block has finished and its partials are visible
-  // one load round: the maxima and denominators, and this thread's dim of
-  // the first kBatch chunks' accumulators
+  // one load round: the maxima and denominators, and this thread's first dim
+  // of the first kBatch chunks' accumulators
   constexpr int kBatch = 64 / G;
-  const float* pa = part + base * kD + tid;
   float x[kBatch][G];
+  auto load_batch = [&](int c0, int d) {
+    const float* pa = part + base * D + d;
 #pragma unroll
-  for (int j = 0; j < kBatch; ++j)
+    for (int j = 0; j < kBatch; ++j)
 #pragma unroll
-    for (int g = 0; g < G; ++g) x[j][g] = j < nz ? ld_cg(pa + ((size_t)j * G + g) * kD) : 0.0f;
+      for (int g = 0; g < G; ++g)
+        x[j][g] = c0 + j < nz ? ld_cg(pa + ((size_t)(c0 + j) * G + g) * D) : 0.0f;
+  };
+  if (tid < D) load_batch(0, tid);
   for (int i = tid; i < nz * G; i += kThreads) {   // i = chunk * G + head
     sm[i] = ld_cg(pm + i);
     sl[i] = ld_cg(pl + i);
@@ -540,48 +639,46 @@ dense_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
     }
   }
   __syncthreads();
-  float num[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) num[g] = FOLD ? ex2(lc[g] - sM[g]) * vn : 0.0f;
-  for (int c0 = 0; c0 < nz; c0 += kBatch) {
-    if (c0 > 0) {
+  for (int pass = 0; pass < L::kPasses; ++pass) {
+    const int d = tid + kThreads * pass;
+    if (d >= D) break;
+    float num[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) num[g] = FOLD ? ex2(lc[g] - sM[g]) * vn[pass] : 0.0f;
+    for (int c0 = 0; c0 < nz; c0 += kBatch) {
+      if (c0 > 0 || pass > 0) load_batch(c0, d);
 #pragma unroll
       for (int j = 0; j < kBatch; ++j)
 #pragma unroll
         for (int g = 0; g < G; ++g)
-          x[j][g] = c0 + j < nz ? ld_cg(pa + ((size_t)(c0 + j) * G + g) * kD) : 0.0f;
+          if (c0 + j < nz) num[g] += sm[(c0 + j) * G + g] * x[j][g];
     }
 #pragma unroll
-    for (int j = 0; j < kBatch; ++j)
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        if (c0 + j < nz) num[g] += sm[(c0 + j) * G + g] * x[j][g];
+    for (int g = 0; g < G; ++g)
+      out[((size_t)b * Hkv * G + (size_t)kvh * G + g) * D + d] = __float2bfloat16_rn(num[g] / sL[g]);
   }
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-    out[((size_t)b * Hkv * G + (size_t)kvh * G + g) * kD + tid] =
-        __float2bfloat16_rn(num[g] / sL[g]);
 }
 
-template <int G, bool FOLD, bool PAGED, typename T>
+template <int D, int G, bool FOLD, bool PAGED, typename T>
 cudaError_t launch_g(const void* q, const void* k, const void* v, int S, const void* offs,
                      int off_scalar, void* out, void* part, int B, int Hkv, float scale,
                      int nsplit, int chunk, const Fold<T>& f, const Pages& pg,
                      cudaStream_t stream) {
-  constexpr int kSmemBytes = smem_bytes<T>();
+  constexpr int kSmemBytes = Dims<D, T>::kSmemBytes;
   static unsigned configured = 0;   // per device: the ring may be above the 48 KB default
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (!(configured >> dev & 1u)) {
-    e = cudaFuncSetAttribute(dense_decode_kernel<G, FOLD, PAGED, T>,
+    e = cudaFuncSetAttribute(dense_decode_kernel<D, G, FOLD, PAGED, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (e != cudaSuccess) return e;
     configured |= 1u << dev;
   }
   const float qscale = scale * kLog2e;
   float* p = nsplit > 1 ? static_cast<float*>(part) : nullptr;
-  dense_decode_kernel<G, FOLD, PAGED, T><<<dim3(Hkv, B, nsplit), kThreads, kSmemBytes, stream>>>(
+  dense_decode_kernel<D, G, FOLD, PAGED, T><<<dim3(Hkv, B, nsplit), kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), S, static_cast<const int32_t*>(offs), off_scalar,
       static_cast<__nv_bfloat16*>(out), p, Hkv, qscale, chunk, f, pg);
@@ -599,9 +696,9 @@ cudaError_t launch_g(const void* q, const void* k, const void* v, int S, const v
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, dense_combine_kernel<G, FOLD, T>, static_cast<const float*>(p),
-                            static_cast<__nv_bfloat16*>(out), Hkv, nsplit, chunk, S,
-                            static_cast<const int32_t*>(offs), off_scalar,
+  return cudaLaunchKernelEx(&cfg, dense_combine_kernel<D, G, FOLD, T>,
+                            static_cast<const float*>(p), static_cast<__nv_bfloat16*>(out), Hkv,
+                            nsplit, chunk, S, static_cast<const int32_t*>(offs), off_scalar,
                             static_cast<const __nv_bfloat16*>(q), qscale, f);
 }
 
@@ -611,13 +708,13 @@ cudaError_t launch_g(const void* q, const void* k, const void* v, int S, const v
 // needs `part`: B * Hkv * nsplit * G * (D + 2) floats. FOLD needs f.k_new and
 // f.v_new (and, with f.write, f.k_out and f.v_out). PAGED: k and v are the
 // pools, S the logical length MB * BS, pg the tables (BS % 8 == 0). T: the
-// cache element type.
+// cache element type. D must be the library's head dim (kHeadDim).
 template <typename T, bool FOLD, bool PAGED = false>
 cudaError_t launch(const void* q, const void* k, const void* v, int S, const void* offs,
                    int off_scalar, void* out, void* part, int B, int Hkv, int G, int D,
                    float scale, int nsplit, int chunk, cudaStream_t st,
                    const Fold<T>& f = Fold<T>{}, const Pages& pg = Pages{}) {
-  if (D != kD || B < 1 || S < 1 || Hkv < 1 || nsplit < 1 || nsplit > kMaxSplit ||
+  if (D != kHeadDim || B < 1 || S < 1 || Hkv < 1 || nsplit < 1 || nsplit > kMaxSplit ||
       chunk < kTile || chunk % kTile != 0 ||
       (nsplit > 1 && part == nullptr) ||
       (FOLD && (f.k_new == nullptr || f.v_new == nullptr ||
@@ -626,8 +723,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, int S, const voi
                  pg.BS % kWarpSlots != 0 || pg.MB < 1 || S != pg.MB * pg.BS)))
     return cudaErrorInvalidValue;
 #define GPTQ_G(N)                                                                          \
-  launch_g<N, FOLD, PAGED, T>(q, k, v, S, offs, off_scalar, out, part, B, Hkv, scale, nsplit, \
-                           chunk, f, pg, st)
+  launch_g<kHeadDim, N, FOLD, PAGED, T>(q, k, v, S, offs, off_scalar, out, part, B, Hkv,     \
+                                        scale, nsplit, chunk, f, pg, st)
   switch (G) {
     case 1: return GPTQ_G(1);
     case 2: return GPTQ_G(2);
@@ -642,14 +739,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, int S, const voi
 #undef GPTQ_G
 }
 
+}  // inline namespace of the head dim
 }  // namespace gptq_dense
 
 // The layout the host plan (ops/cuda/attention.py) assumes, read once when a
-// library that includes this header is loaded: head dim, slots per tile, ring
-// stages, resident blocks per SM (at most), chunks the combine stages, ring
-// elements (the ring's bytes are these times the cache's itemsize).
+// library that includes this header is loaded: head dim, slots per tile,
+// resident blocks per SM (at most), chunks the combine stages, and the
+// ring's bytes over an fp8, a bf16 and an f32 cache.
 extern "C" void gptq_dense_decode_layout(int* out) {
-  const int v[] = {gptq_dense::kD, gptq_dense::kTile, gptq_dense::kStages,
-                   gptq_dense::kBlocksPerSm, gptq_dense::kMaxSplit, gptq_dense::kRingElems};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  using namespace gptq_dense;
+  const int v[] = {kHeadDim, kTile, kBlocksPerSm<kHeadDim>, kMaxSplit,
+                   Dims<kHeadDim, gptq_kv::e4m3>::kSmemBytes,
+                   Dims<kHeadDim, __nv_bfloat16>::kSmemBytes, Dims<kHeadDim, float>::kSmemBytes};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
 }

@@ -2,7 +2,7 @@
 // (flash_prefill.cu: no cache, SQ == SKV, offset 0) and kernel 4
 // (flash_prefill_blocked.cu: a chunk of SQ queries at a cache offset).
 //
-// q (B, SQ, H, D), k/v (B, SKV, Hkv, D), bf16, D = 128. Query row i sits at
+// q (B, SQ, H, D), k/v (B, SKV, Hkv, D), bf16. Query row i sits at
 // absolute position q_offset + i and attends cache slots j <= q_offset + i,
 // j < SKV; query head h reads kv head h / (H / Hkv). Logits are fp32 (bf16
 // q and k, fp32 accumulation) times scale, the softmax is fp32, and p is
@@ -68,6 +68,17 @@
 // wgmma body takes bf16 only: its TMA tiles land in the 128-byte swizzle the
 // bf16 descriptors read, and a conversion stage would need shared memory the
 // block does not have.
+//
+// The head dim: one library per D (64, 80, 96, 128, 256), built with
+// -DGPTQ_HEAD_DIM. The mma.sync body is a template on D (any multiple of 16:
+// the m16n8k16 products and the 16-byte copies divide every row); at D = 256
+// Q's fragments are read from shared memory for each product, not kept in
+// registers, and a tile of another type than bf16 is converted as it is
+// loaded, so the 16 x 256 fp32 accumulator fits a thread's registers. The
+// wgmma body takes D = 128 only (its TMA boxes and its m64n128 P V product);
+// every other D runs the mma.sync body at every length (ops/cuda/
+// flash_prefill.py:plan). At D = 128 the mma.sync body's arithmetic is the
+// same, in the same order, as with D fixed at 128.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,80 +92,125 @@
 #include "kv_dtype.cuh"
 #include "mma_sync.cuh"
 
+#ifndef GPTQ_HEAD_DIM
+#define GPTQ_HEAD_DIM 128
+#endif
+#define GPTQ_HD_NS2(d) hd##d
+#define GPTQ_HD_NS(d) GPTQ_HD_NS2(d)
+
+// Every name of this header is in an inline namespace of the head dim, so
+// the libraries of two head dims loaded in one process share no symbol: a
+// function-local static of a template (a GNU unique symbol) would otherwise
+// be one object for all of them, and a kernel's attribute set in one
+// library would count as set in the other.
 namespace gptq_flash {
+inline namespace GPTQ_HD_NS(GPTQ_HEAD_DIM) {
 
 using namespace gptq_mma;
 
-constexpr int kD = 128;
+constexpr int kHeadDim = GPTQ_HEAD_DIM;   // the head dim this library is built for
 constexpr int kBQ = 64;                  // query rows per block
 constexpr int kBK = 64;                  // keys per K/V tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kStride = kD + 8;          // bf16 per smem row: 272 B, conflict-free ldmatrix
-constexpr int kTile = kBQ * kStride;     // elements of one 64 x 128 tile
-constexpr int kSmemBytes = 3 * kTile * 2;  // Q, K, V: 52,224 B
 constexpr float kNeg = -1e30f;           // running-max start: finite, so exp never sees inf - inf
+
+// The mma.sync body's layout at head dim D (a multiple of 16)
+template <int D>
+struct SyncDims {
+  static_assert(D % 16 == 0 && D >= 64 && D <= 256, "head dim: a multiple of 16 in 64..256");
+  static constexpr int kStride = D + 8;        // bf16 per smem row: conflict-free ldmatrix
+  static constexpr int kTile = kBQ * kStride;  // elements of one 64 x D tile
+  static constexpr int kSmemBytes = 3 * kTile * 2;   // Q, K, V: 52,224 B at D = 128
+  static constexpr int kRowChunks = D / 8;     // 8-element chunks a row
+  static constexpr int kChunks = kBQ * kRowChunks / kThreads;   // chunks a thread copies
+  // up to D = 128 Q's fragments stay in registers and a tile of another type
+  // than bf16 is staged in registers across the compute; above, Q is read
+  // from shared memory for each product and such a tile is converted as it
+  // is loaded (the registers go to the 16 x D accumulator)
+  static constexpr bool kKeep = D <= 128;
+};
 
 // rows [row0, row0 + 64) of a (.., S, heads, D) tensor into a padded bf16
 // smem tile in two steps; rows >= S are zero-filled. ``fetch`` starts the
 // copy: for bf16, cp.async into ``dst`` (``put`` then does nothing); for a
-// cache of another type T, plain loads of the thread's 8 chunks of 8
+// cache of another type T, plain loads of the thread's chunks of 8
 // elements into ``Staged<T>`` registers, which ``put`` reads as the decode
 // kernels do (gptq_kv::Kv<T>::load4), rounds to bf16 and stores. The loads are in flight while the
 // caller computes between the two.
-constexpr int kChunks = kBQ * (kD / 8) / kThreads;   // 8-element chunks a thread copies
-template <typename T>
+template <typename T, int D, bool STAGE = !std::is_same<T, __nv_bfloat16>::value && SyncDims<D>::kKeep>
 struct Staged {
-  alignas(16) T x[kChunks][8];
+  alignas(16) T x[SyncDims<D>::kChunks][8];
 };
-template <>
-struct Staged<__nv_bfloat16> {};
+template <typename T, int D>
+struct Staged<T, D, false> {};
 
+// 8 elements of type T from registers, rounded to nearest even bf16 (exact
+// for fp8; zeros stay zeros), into dst
 template <typename T>
-__device__ __forceinline__ void fetch(__nv_bfloat16* dst, Staged<T>& st, const T* base,
+__device__ __forceinline__ void put8(__nv_bfloat16* dst, const T* x) {
+  float f[2][4];
+  gptq_kv::Kv<T>::load4(x, f[0]);
+  gptq_kv::Kv<T>::load4(x + 4, f[1]);
+  uint4 o;
+  o.x = pack_bf16(f[0][0], f[0][1]);
+  o.y = pack_bf16(f[0][2], f[0][3]);
+  o.z = pack_bf16(f[1][0], f[1][1]);
+  o.w = pack_bf16(f[1][2], f[1][3]);
+  *reinterpret_cast<uint4*>(dst) = o;
+}
+
+// 8 elements of type T (one or two 16-byte loads) into x; zeros when !ok
+template <typename T>
+__device__ __forceinline__ void load8(T* x, const T* src, bool ok) {
+  if constexpr (sizeof(T) == 1) {
+    *reinterpret_cast<uint2*>(x) = ok ? *reinterpret_cast<const uint2*>(src) : make_uint2(0u, 0u);
+  } else {
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *reinterpret_cast<float4*>(x) = ok ? *reinterpret_cast<const float4*>(src) : z;
+    *reinterpret_cast<float4*>(x + 4) = ok ? *reinterpret_cast<const float4*>(src + 4) : z;
+  }
+}
+
+template <int D, typename T>
+__device__ __forceinline__ void fetch(__nv_bfloat16* dst, Staged<T, D>& st, const T* base,
                                       size_t row_stride, int row0, int S, int tid) {
+  using FD = SyncDims<D>;
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = tid + i * kThreads, r = c >> 4, c8 = (c & 15) * 8;
+  for (int i = 0; i < FD::kChunks; ++i) {
+    const int c = tid + i * kThreads, r = c / FD::kRowChunks, c8 = (c % FD::kRowChunks) * 8;
     const bool ok = row0 + r < S;
     const T* src = base + (size_t)(ok ? row0 + r : 0) * row_stride + c8;
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      cp_async16(dst + r * kStride + c8, src, ok);
-    } else if constexpr (sizeof(T) == 1) {
-      *reinterpret_cast<uint2*>(st.x[i]) =
-          ok ? *reinterpret_cast<const uint2*>(src) : make_uint2(0u, 0u);
+      cp_async16(dst + r * FD::kStride + c8, src, ok);
+    } else if constexpr (FD::kKeep) {
+      load8(st.x[i], src, ok);
     } else {
-      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      *reinterpret_cast<float4*>(st.x[i]) = ok ? *reinterpret_cast<const float4*>(src) : z;
-      *reinterpret_cast<float4*>(st.x[i] + 4) = ok ? *reinterpret_cast<const float4*>(src + 4) : z;
+      alignas(16) T x[8];
+      load8(x, src, ok);
+      put8(dst + r * FD::kStride + c8, x);
     }
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void put(__nv_bfloat16* dst, const Staged<T>& st, int tid) {
-  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+template <int D, typename T>
+__device__ __forceinline__ void put(__nv_bfloat16* dst, const Staged<T, D>& st, int tid) {
+  using FD = SyncDims<D>;
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value && FD::kKeep) {
 #pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int c = tid + i * kThreads, r = c >> 4, c8 = (c & 15) * 8;
-      float f[2][4];
-      gptq_kv::Kv<T>::load4(st.x[i], f[0]);
-      gptq_kv::Kv<T>::load4(st.x[i] + 4, f[1]);
-      uint4 o;   // rounded to nearest even: exact for fp8; zeros stay zeros
-      o.x = pack_bf16(f[0][0], f[0][1]);
-      o.y = pack_bf16(f[0][2], f[0][3]);
-      o.z = pack_bf16(f[1][0], f[1][1]);
-      o.w = pack_bf16(f[1][2], f[1][3]);
-      *reinterpret_cast<uint4*>(dst + r * kStride + c8) = o;
+    for (int i = 0; i < FD::kChunks; ++i) {
+      const int c = tid + i * kThreads, r = c / FD::kRowChunks, c8 = (c % FD::kRowChunks) * 8;
+      put8(dst + r * FD::kStride + c8, st.x[i]);
     }
   }
 }
 
 // a bf16 tile, cp.async only (q, and kernel 5's k/v)
+template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
                                           size_t row_stride, int row0, int S, int tid) {
-  Staged<__nv_bfloat16> none;
-  fetch(dst, none, base, row_stride, row0, S, tid);
+  Staged<__nv_bfloat16, D> none;
+  fetch<D>(dst, none, base, row_stride, row0, S, tid);
 }
 
 // The chunk's first absolute position, read from device memory (kernel 4: a
@@ -170,9 +226,9 @@ __device__ __forceinline__ int cache_row(const int* rows, int b, int Bkv) {
   return (OFFSET && rows != nullptr) ? min(max(__ldg(rows + b), 0), Bkv - 1) : b;
 }
 
-// grid: (ceil(SQ / kBQ), H, B); block: kThreads; dynamic smem: kSmemBytes.
-// T: the cache element type (bf16 for kernel 5).
-template <bool OFFSET, typename T>
+// grid: (ceil(SQ / kBQ), H, B); block: kThreads; dynamic smem:
+// SyncDims<D>::kSmemBytes. T: the cache element type (bf16 for kernel 5).
+template <int D, bool OFFSET, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
              const T* __restrict__ k,               // (B, SKV, Hkv, D)
@@ -182,10 +238,12 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
              const int* __restrict__ q_offset,      // (1,): the chunk's first position
              const int* __restrict__ rows,          // (B,) cache row per batch row, or null
              float scale) {
+  using FD = SyncDims<D>;
+  constexpr int kStride = FD::kStride;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + kTile;
-  __nv_bfloat16* vs = ks + kTile;
+  __nv_bfloat16* ks = qs + FD::kTile;
+  __nv_bfloat16* vs = ks + FD::kTile;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -195,41 +253,46 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
 
-  const size_t q_stride = (size_t)H * kD, kv_stride = (size_t)Hkv * kD;
-  const __nv_bfloat16* qbase = q + ((size_t)b * SQ * H + h) * kD;
-  const T* kbase = k + ((size_t)kb * SKV * Hkv + kvh) * kD;
-  const T* vbase = v + ((size_t)kb * SKV * Hkv + kvh) * kD;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)Hkv * D;
+  const __nv_bfloat16* qbase = q + ((size_t)b * SQ * H + h) * D;
+  const T* kbase = k + ((size_t)kb * SKV * Hkv + kvh) * D;
+  const T* vbase = v + ((size_t)kb * SKV * Hkv + kvh) * D;
 
   // keys up to the causal limit of the tile's last real row; slots past it
   // are never read (zero-filled), so a cache may hold anything there
   const int kv_end = min(SKV, off + min(q0 + kBQ, SQ));
   const int n_kt = (kv_end - 1) / kBK + 1;
-  Staged<T> st;   // a K or V tile of another type than bf16, on its way in
-  load_tile(qs, qbase, q_stride, q0, SQ, tid);
-  fetch(ks, st, kbase, kv_stride, 0, kv_end, tid);
-  put(ks, st, tid);
+  Staged<T, D> st;   // a K or V tile of another type than bf16, on its way in
+  load_tile<D>(qs, qbase, q_stride, q0, SQ, tid);
+  fetch<D>(ks, st, kbase, kv_stride, 0, kv_end, tid);
+  put<D>(ks, st, tid);
   cp_async_commit();
   const int row_lo = q0 + warp * 16 + g;               // this thread's two rows
   const int row_hi = row_lo + 8;
   const int pos_lo = off + row_lo, pos_hi = off + row_hi;   // their absolute positions
 
-  uint32_t qf[kD / 16][4];
-  float o[kD / 8][4];
+  uint32_t qf[FD::kKeep ? D / 16 : 1][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
   float m_lo = kNeg, m_hi = kNeg, l_lo = 0.0f, l_hi = 0.0f;   // l: this thread's partial sums
+  // the A fragment of Q's dims 16 kk .. 16 kk + 15 for this warp's rows
+  auto q_frag = [&](uint32_t (&a)[4], int kk) {
+    ldsm_x4(a, qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + kk * 16 +
+                   (lane >> 4) * 8);
+  };
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     cp_async_wait_all();
     __syncthreads();   // K(kt) (and Q) landed; every warp is done with V(kt-1)
-    fetch(vs, st, vbase, kv_stride, k0, kv_end, tid);
+    fetch<D>(vs, st, vbase, kv_stride, k0, kv_end, tid);
     cp_async_commit();
-    if (kt == 0) {
+    if constexpr (FD::kKeep) {
+      if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
-                            kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < D / 16; ++kk) q_frag(qf[kk], kk);
+      }
     }
 
     // s = q k^T: 16 rows x 64 keys per warp
@@ -237,14 +300,23 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
 #pragma unroll
     for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (FD::kKeep) {
+        a[0] = qf[kk][0];
+        a[1] = qf[kk][1];
+        a[2] = qf[kk][2];
+        a[3] = qf[kk][3];
+      } else {
+        q_frag(a, kk);
+      }
 #pragma unroll
       for (int np = 0; np < kBK / 16; ++np) {
         uint32_t bf[4];
         ldsm_x4(bf, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kStride + kk * 16 +
                         ((lane >> 3) & 1) * 8);
-        mma16816(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma16816(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+        mma16816(s[2 * np], a, bf[0], bf[1]);
+        mma16816(s[2 * np + 1], a, bf[2], bf[3]);
       }
     }
 
@@ -286,7 +358,7 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
     l_lo = l_lo * a_lo + sum_lo;
     l_hi = l_hi * a_hi + sum_hi;
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       o[n][0] *= a_lo;
       o[n][1] *= a_lo;
       o[n][2] *= a_hi;
@@ -302,19 +374,19 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
       pf[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
     }
 
-    put(vs, st, tid);   // V(kt), fetched before S was computed
+    put<D>(vs, st, tid);   // V(kt), fetched before S was computed
     cp_async_wait_all();
     __syncthreads();   // V(kt) landed; every warp is done with K(kt)
     if (kt + 1 < n_kt) {
-      fetch(ks, st, kbase, kv_stride, k0 + kBK, kv_end, tid);
+      fetch<D>(ks, st, kbase, kv_stride, k0 + kBK, kv_end, tid);
       cp_async_commit();
     }
 
-    // o += p v: 16 rows x 128 dims per warp
+    // o += p v: 16 rows x D dims per warp
 #pragma unroll
     for (int j = 0; j < kBK / 16; ++j) {
 #pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
+      for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t bf[4];
         ldsm_x4_trans(bf, vs + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
                               dp * 16 + (lane >> 4) * 8);
@@ -322,7 +394,7 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
         mma16816(o[2 * dp + 1], pf[j], bf[2], bf[3]);
       }
     }
-    if (kt + 1 < n_kt) put(ks, st, tid);   // K(kt + 1), fetched before P V
+    if (kt + 1 < n_kt) put<D>(ks, st, tid);   // K(kt + 1), fetched before P V
   }
 
 #pragma unroll
@@ -332,16 +404,16 @@ flash_sync_kernel(const __nv_bfloat16* __restrict__ q,   // (B, SQ, H, D)
   }
   const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
   if (row_lo < SQ) {
-    __nv_bfloat16* orow = out + ((size_t)b * SQ + row_lo) * q_stride + (size_t)h * kD;
+    __nv_bfloat16* orow = out + ((size_t)b * SQ + row_lo) * q_stride + (size_t)h * D;
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8 + t4 * 2) =
           pack_bf16(o[n][0] * inv_lo, o[n][1] * inv_lo);
   }
   if (row_hi < SQ) {
-    __nv_bfloat16* orow = out + ((size_t)b * SQ + row_hi) * q_stride + (size_t)h * kD;
+    __nv_bfloat16* orow = out + ((size_t)b * SQ + row_hi) * q_stride + (size_t)h * D;
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8 + t4 * 2) =
           pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
   }
@@ -355,6 +427,7 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+constexpr int kWD = 128;                  // the head dim the wgmma body takes
 constexpr int kWBQ = 128;                 // query rows per block: two warpgroups of 64
 constexpr int kWBK = 128;                 // keys per K/V tile
 constexpr int kWThreads = 384;            // warps 0-7 consume, warps 8-11 produce
@@ -475,7 +548,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
     auto issue_s = [&](int st) {   // S = Q K^T: 64 rows x 128 keys
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
+      for (int kk = 0; kk < kWD / 16; ++kk) {
         const uint32_t koff = (kk >> 2) * kWHalf + (kk & 3) * 32;
         wgmma_m64n128k16_ss<0>(s, desc_sw128(sq + wg * 64 * 128 + koff, 16, 1024),
                                desc_sw128(sk(st) + koff, 16, 1024), kk > 0);
@@ -628,16 +701,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       l_hi += __shfl_xor_sync(0xffffffffu, l_hi, sh);
     }
     const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
-    const size_t q_stride = (size_t)H * kD;
+    const size_t q_stride = (size_t)H * kWD;
     if (row_lo < SQ) {
-      __nv_bfloat16* orow = out + ((size_t)b * SQ + row_lo) * q_stride + (size_t)h * kD;
+      __nv_bfloat16* orow = out + ((size_t)b * SQ + row_lo) * q_stride + (size_t)h * kWD;
 #pragma unroll
       for (int i = 0; i < 16; ++i)
         *reinterpret_cast<uint32_t*>(orow + i * 8 + t4 * 2) =
             pack_bf16(o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo);
     }
     if (row_hi < SQ) {
-      __nv_bfloat16* orow = out + ((size_t)b * SQ + row_hi) * q_stride + (size_t)h * kD;
+      __nv_bfloat16* orow = out + ((size_t)b * SQ + row_hi) * q_stride + (size_t)h * kWD;
 #pragma unroll
       for (int i = 0; i < 16; ++i)
         *reinterpret_cast<uint32_t*>(orow + i * 8 + t4 * 2) =
@@ -678,10 +751,10 @@ inline EncodeTiled encode_tiled() {
 inline bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)heads, (cuuint64_t)rows,
+  const cuuint64_t dims[4] = {(cuuint64_t)kWD, (cuuint64_t)heads, (cuuint64_t)rows,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2, (cuuint64_t)heads * kD * 2,
-                                 (cuuint64_t)rows * heads * kD * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)kWD * 2, (cuuint64_t)heads * kWD * 2,
+                                 (cuuint64_t)rows * heads * kWD * 2};
   const cuuint32_t box[4] = {64, 1, 128, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
@@ -699,7 +772,7 @@ enum Path { kSync = 0, kWgmma = 1 };
 // whole cache, so a launch captured in a CUDA graph replays over the same
 // tensors whatever offset and rows the device buffers hold (kernel 4).
 // Kernel 5 passes null offset and rows, Bkv = B and bf16. A cache of another
-// type than bf16 takes the mma.sync body only.
+// type than bf16, and a head dim other than 128, take the mma.sync body only.
 template <bool OFFSET, typename T = __nv_bfloat16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int SQ,
                    int Bkv, int SKV, int H, int Hkv, const int* q_offset, const int* rows,
@@ -707,22 +780,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   auto* ob = static_cast<__nv_bfloat16*>(out);
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   if (path == kWgmma) {
-    if (!kBf16) return cudaErrorInvalidValue;
-    auto kern = flash_wgmma_kernel<OFFSET>;
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
-    if (attr != cudaSuccess) return attr;
-    CUtensorMap tq, tk, tv;
-    if (!tensor_map(&tq, q, B, SQ, H) || !tensor_map(&tk, k, Bkv, SKV, Hkv) ||
-        !tensor_map(&tv, v, Bkv, SKV, Hkv))
+    if constexpr (kBf16 && kHeadDim == kWD) {
+      auto kern = flash_wgmma_kernel<OFFSET>;
+      static const cudaError_t attr =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
+      if (attr != cudaSuccess) return attr;
+      CUtensorMap tq, tk, tv;
+      if (!tensor_map(&tq, q, B, SQ, H) || !tensor_map(&tk, k, Bkv, SKV, Hkv) ||
+          !tensor_map(&tv, v, Bkv, SKV, Hkv))
+        return cudaErrorInvalidValue;
+      dim3 grid((SQ + kWBQ - 1) / kWBQ, H, B);
+      kern<<<grid, kWThreads, kWSmemBytes, stream>>>(tq, tk, tv, ob, SQ, Bkv, SKV, H, Hkv,
+                                                     q_offset, rows, scale);
+      return cudaGetLastError();
+    } else {
       return cudaErrorInvalidValue;
-    dim3 grid((SQ + kWBQ - 1) / kWBQ, H, B);
-    kern<<<grid, kWThreads, kWSmemBytes, stream>>>(tq, tk, tv, ob, SQ, Bkv, SKV, H, Hkv,
-                                                   q_offset, rows, scale);
-    return cudaGetLastError();
+    }
   }
   if (path != kSync) return cudaErrorInvalidValue;
-  auto kern = flash_sync_kernel<OFFSET, T>;
+  constexpr int kSmemBytes = SyncDims<kHeadDim>::kSmemBytes;
+  auto kern = flash_sync_kernel<kHeadDim, OFFSET, T>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (attr != cudaSuccess) return attr;
@@ -733,4 +810,5 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   return cudaGetLastError();
 }
 
+}  // inline namespace of the head dim
 }  // namespace gptq_flash

@@ -1,7 +1,8 @@
 // Causal self-attention with no cache, on bf16 tensor cores.
 //
 // Replaces gptq_for_llama_tpu/ops/pallas/flash.py:_flash_kernel (entry
-// flash_prefill): q (B, S, H, D), k/v (B, S, Hkv, D), bf16, D = 128; query i
+// flash_prefill): q (B, S, H, D), k/v (B, S, Hkv, D), bf16, D the library's head
+// dim (GPTQ_HEAD_DIM); query i
 // attends keys j <= i; query head h reads kv head h / (H / Hkv). The two
 // bodies (warp-specialised wgmma with TMA, and mma.sync for short S), their
 // numerics, bound and design are in flash_common.cuh, shared with kernel 4
@@ -14,7 +15,8 @@ extern "C" const char* gptq_error_string(int e) {
 
 // dynamic shared memory of one block of body `path`, in bytes
 extern "C" int gptq_flash_smem_bytes(int path) {
-  return path == gptq_flash::kWgmma ? gptq_flash::kWSmemBytes : gptq_flash::kSmemBytes;
+  return path == gptq_flash::kWgmma ? gptq_flash::kWSmemBytes
+                                   : gptq_flash::SyncDims<gptq_flash::kHeadDim>::kSmemBytes;
 }
 
 // path: gptq_flash::kSync (64-query mma.sync blocks) or kWgmma (128-query
@@ -22,7 +24,7 @@ extern "C" int gptq_flash_smem_bytes(int path) {
 extern "C" int gptq_flash_prefill(const void* q, const void* k, const void* v, void* out, int B,
                                   int S, int H, int Hkv, int D, float scale, int path,
                                   void* stream) {
-  if (D != gptq_flash::kD || B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B > 65535 ||
+  if (D != gptq_flash::kHeadDim || B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(gptq_flash::launch<false>(q, k, v, out, B, S, B, S, H, Hkv, nullptr,

@@ -49,7 +49,7 @@ extern "C" int gptq_flash_prefill_blocked(const void* q, const void* k, const vo
                                           void* out, int B, int SQ, int Bkv, int SKV, int H,
                                           int Hkv, int D, const int* q_offset, const int* rows,
                                           float scale, int path, int kv, void* stream) {
-  if (D != gptq_flash::kD || B < 1 || SQ < 1 || Bkv < 1 || SKV < 1 || Hkv < 1 ||
+  if (D != gptq_flash::kHeadDim || B < 1 || SQ < 1 || Bkv < 1 || SKV < 1 || Hkv < 1 ||
       H % Hkv != 0 || q_offset == nullptr || (rows == nullptr && Bkv != B) || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);

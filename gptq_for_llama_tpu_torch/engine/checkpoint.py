@@ -1,6 +1,7 @@
 """Packed-checkpoint I/O: pack, save, and quant-table export.
 
-Counterpart of ``gptq_for_llama_tpu/engine/checkpoint.py``, LLaMA layout:
+Counterpart of ``gptq_for_llama_tpu/engine/checkpoint.py``, with the HF
+layouts of LLaMA, OPT, GPT-NeoX and GPT-2:
 
 - ``pack_model``: fake-quantized dense kernels + QuantRecords -> PackedLinear
   leaves (the reference's make_quant_linear + QuantLinear.pack). The codes
@@ -49,40 +50,90 @@ def pack_model(arch_name: str, cfg, params, quantizers: dict[str, QuantRecord],
             lin = get_path(lp, name)
             if rec is not None and not isinstance(lin, PackedLinear):
                 set_path(lp, name, _pack_linear(lin, rec, dtype))
-    rec, lin = quantizers.get("lm_head"), params.get("lm_head")
-    if rec is not None and isinstance(lin, dict):   # optional quantized output head
-        params["lm_head"] = _pack_linear(lin, rec, dtype)
+    for key in ("lm_head", "embed_out"):   # an optional quantized output head
+        rec, lin = quantizers.get(key), params.get(key)
+        if rec is not None and isinstance(lin, dict):
+            params[key] = _pack_linear(lin, rec, dtype)
     return params
 
 
-def _flat_linear(flat: dict, key: str, lin):
+# Per-arch HF naming: (layer key prefix, {tree key: HF key} of the params
+# outside the layers), the load side's mapping in models/hf_loader.py
+_HF_LAYOUT = {
+    "llama": ("model.layers", {"embed_tokens": "model.embed_tokens.weight",
+                               "norm": "model.norm.weight", "lm_head": "lm_head"}),
+    "opt": ("model.decoder.layers", {
+        "embed_tokens": "model.decoder.embed_tokens.weight",
+        "embed_positions": "model.decoder.embed_positions.weight",
+        "final_layer_norm": "model.decoder.final_layer_norm",
+        "project_in": "model.decoder.project_in", "project_out": "model.decoder.project_out",
+        "lm_head": "lm_head"}),
+    "neox": ("gpt_neox.layers", {"embed_in": "gpt_neox.embed_in.weight",
+                                 "final_layer_norm": "gpt_neox.final_layer_norm",
+                                 "embed_out": "embed_out"}),
+    "gpt2": ("transformer.h", {"wte": "transformer.wte.weight",
+                               "wpe": "transformer.wpe.weight", "ln_f": "transformer.ln_f",
+                               "lm_head": "lm_head"}),
+}
+_LINEAR_KEYS = ("lm_head", "embed_out", "project_in", "project_out")
+
+
+def _flat_norm(flat: dict, key: str, node):
+    if isinstance(node, dict):   # a LayerNorm's {w, b}
+        flat[f"{key}.weight"], flat[f"{key}.bias"] = node["w"], node["b"]
+    else:
+        flat[f"{key}.weight"] = node
+
+
+def _flat_linear(flat: dict, key: str, lin, conv1d: bool = False):
     if isinstance(lin, PackedLinear):
         for k, v in lin.to_wire().items():
             flat[f"{key}.{k}"] = v
         return
-    flat[f"{key}.weight"] = lin["kernel"].T   # HF Linear stores (out, in)
+    # HF Linear stores (out, in); transformers Conv1D (GPT-2's layers) stores
+    # (in, out), this layout's kernel, so it is saved as it is
+    flat[f"{key}.weight"] = lin["kernel"] if conv1d else lin["kernel"].T
     if lin.get("bias") is not None:
         flat[f"{key}.bias"] = lin["bias"]
+
+
+def _walk_layer(lp, prefix=""):
+    """(dotted name, leaf) of every linear and norm of one layer's params."""
+    for k, v in lp.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, PackedLinear) or not isinstance(v, dict) or "kernel" in v or "w" in v:
+            yield name, v
+        else:
+            yield from _walk_layer(v, prefix=f"{name}.")
 
 
 def flatten_to_hf(arch_name: str, cfg, params) -> dict:
     """Params -> flat {HF key: CPU tensor or numpy array} state dict (the
     reference's state_dict). Wire buffers stay numpy, float tensors keep
-    their dtype (bf16 included)."""
-    if arch_name != "llama":
-        raise NotImplementedError(f"arch {arch_name!r} is not yet ported "
-                                  "to gptq_for_llama_tpu_torch (ROADMAP A11)")
-    flat = {"model.embed_tokens.weight": params["embed_tokens"],
-            "model.norm.weight": params["norm"]}
-    if not cfg.tie_word_embeddings:   # a tied head is rebuilt from the embedding at load
-        _flat_linear(flat, "lm_head", params["lm_head"])
-    arch = get_arch(arch_name)
+    their dtype (bf16 included). A tied lm_head is not saved: the loader
+    rebuilds it from the embedding."""
+    get_arch(arch_name)
+    layer_prefix, statics = _HF_LAYOUT[arch_name]
+    flat: dict = {}
+    for tree_key, hf_key in statics.items():
+        if tree_key not in params:
+            continue
+        node = params[tree_key]
+        if tree_key in _LINEAR_KEYS:
+            if tree_key == "lm_head" and cfg.tie_word_embeddings:
+                continue
+            _flat_linear(flat, hf_key, node)
+        elif hf_key.endswith(".weight"):
+            flat[hf_key] = node
+        else:
+            _flat_norm(flat, hf_key, node)
     for li, lp in enumerate(params["layers"]):
-        p = f"model.layers.{li}"
-        for norm in ("input_layernorm", "post_attention_layernorm"):
-            flat[f"{p}.{norm}.weight"] = lp[norm]
-        for name in arch.LAYER_LINEARS:
-            _flat_linear(flat, f"{p}.{name}", get_path(lp, name))
+        for name, node in _walk_layer(lp):
+            key = f"{layer_prefix}.{li}.{name}"
+            if isinstance(node, PackedLinear) or (isinstance(node, dict) and "kernel" in node):
+                _flat_linear(flat, key, node, conv1d=arch_name == "gpt2")
+            else:
+                _flat_norm(flat, key, node)
     return {k: v.detach().cpu().contiguous() if isinstance(v, torch.Tensor) else v
             for k, v in flat.items()}
 
@@ -123,17 +174,40 @@ def save_packed(path: str, arch_name: str, cfg, params,
 
 
 def _hf_config_dict(arch_name: str, cfg) -> dict:
-    """Minimal HF-style config.json so a saved dir reloads via config_from_hf."""
-    if arch_name != "llama":
-        raise NotImplementedError(f"arch {arch_name!r} is not yet ported "
-                                  "to gptq_for_llama_tpu_torch (ROADMAP A11)")
-    return {"model_type": "llama", "vocab_size": cfg.vocab_size,
-            "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
-            "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
-            "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
-            "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
-            "hidden_act": cfg.act, "max_position_embeddings": cfg.max_seq_len,
-            "tie_word_embeddings": cfg.tie_word_embeddings}
+    """Minimal HF-style config.json so a saved dir reloads via config_from_hf
+    (``gptq_for_llama_tpu/engine/checkpoint.py:_hf_config_dict``)."""
+    if arch_name == "llama":
+        return {"model_type": "llama", "vocab_size": cfg.vocab_size,
+                "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+                "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+                "hidden_act": cfg.act, "max_position_embeddings": cfg.max_seq_len,
+                "tie_word_embeddings": cfg.tie_word_embeddings}
+    if arch_name == "opt":
+        return {"model_type": "opt", "vocab_size": cfg.vocab_size,
+                "hidden_size": cfg.hidden_size, "ffn_dim": cfg.intermediate_size,
+                "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                "max_position_embeddings": cfg.max_seq_len,
+                "do_layer_norm_before": cfg.do_layer_norm_before,
+                "activation_function": cfg.act,
+                "word_embed_proj_dim": cfg.word_embed_proj_dim or cfg.hidden_size,
+                "tie_word_embeddings": cfg.tie_word_embeddings}
+    if arch_name == "neox":
+        return {"model_type": "gpt_neox", "vocab_size": cfg.vocab_size,
+                "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                "rotary_pct": cfg.rotary_pct, "rotary_emb_base": cfg.rope_theta,
+                "layer_norm_eps": cfg.norm_eps, "hidden_act": cfg.act,
+                "use_parallel_residual": cfg.parallel_residual,
+                "max_position_embeddings": cfg.max_seq_len}
+    if arch_name == "gpt2":
+        return {"model_type": "gpt2", "vocab_size": cfg.vocab_size,
+                "n_embd": cfg.hidden_size, "n_inner": cfg.intermediate_size,
+                "n_layer": cfg.num_layers, "n_head": cfg.num_heads,
+                "n_positions": cfg.max_seq_len, "layer_norm_epsilon": cfg.norm_eps,
+                "activation_function": cfg.act}
+    raise ValueError(arch_name)
 
 
 def export_quant_table(quantizers: dict[str, QuantRecord], quant_dir: str, fmt: str = "toml"):

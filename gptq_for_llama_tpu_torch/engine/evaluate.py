@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..models.common import causal_mask
-from ..models.registry import get_arch
+from ..models.registry import embed_weight, get_arch
 
 
 @torch.inference_mode()
@@ -51,7 +51,7 @@ def perplexity(arch_name: str, cfg, params, test_ids, seqlen: int | None = None,
     and its padded rows dropped, as the TPU package keeps one shape)."""
     arch = get_arch(arch_name)
     seqlen = seqlen or cfg.max_seq_len
-    device = params["embed_tokens"].device
+    device = embed_weight(params).device
     if batch is None:
         batch = default_batch(seqlen, device)
     test_ids = np.asarray(test_ids).reshape(-1)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..models.common import causal_mask
-from ..models.registry import get_arch
+from ..models.registry import embed_weight, get_arch
 from ..ops.linear import PackedLinear
 from ..quant.gptq import batch_hessian, gptq_quantize, gram
 from ..quant.quantizer import QuantConfig, fake_quantize, find_params_weight
@@ -187,14 +187,14 @@ def quantize_model(arch_name: str, cfg, params, train_windows, spec: QuantizeSpe
             "Hessian, so the auto-upgrade pass would silently exclude them from its ranking")
     arch = get_arch(arch_name)
     t_start = time.time()
-    dev = params["embed_tokens"].device
+    dev = embed_weight(params).device
     windows = torch.as_tensor(np.asarray(train_windows), dtype=torch.long, device=dev)
     ns, seqlen = windows.shape
     chunk = min(spec.chunk, ns)
     assert ns % chunk == 0, f"nsamples {ns} must divide by chunk {chunk}"
     positions = torch.arange(seqlen, device=dev)[None, :]
     mask = causal_mask(seqlen, seqlen, device=dev)
-    dtype = params["embed_tokens"].dtype
+    dtype = embed_weight(params).dtype
     split = timings if timings is not None else {}
 
     def clock(key, t0):
@@ -260,13 +260,15 @@ def quantize_model(arch_name: str, cfg, params, train_windows, spec: QuantizeSpe
 
 def _quantize_lm_head(arch, cfg, params, x, spec, ns, chunk, quantizers, verbose, log):
     """GPTQ the output head on the final-norm activations (opt-in; the
-    reference never quantizes lm_head). A tied head is skipped."""
-    lin = params.get("lm_head")
+    reference never quantizes lm_head). A tied head is skipped. GPT-NeoX's
+    head is ``embed_out``."""
+    key = "embed_out" if "embed_out" in params else "lm_head"
+    lin = params.get(key)
     if not isinstance(lin, dict) or "kernel" not in lin:
         return
     if getattr(cfg, "tie_word_embeddings", False):
         if verbose:
-            log("| lm_head: tied to embeddings — not quantized |")
+            log(f"| {key}: tied to embeddings — not quantized |")
         return
     t0 = time.time()
     kdim = lin["kernel"].shape[0]
@@ -276,9 +278,9 @@ def _quantize_lm_head(arch, cfg, params, x, spec, ns, chunk, quantizers, verbose
         h = h + batch_hessian(arch.head_input(params, cfg, x[i:i + chunk])) * (chunk / ns)
     q, rec = _quantize_one(lin["kernel"].T.float(), h, spec, spec.wbits, spec.groupsize)
     lin["kernel"] = q.T.to(lin["kernel"].dtype).contiguous()
-    quantizers["lm_head"] = rec
+    quantizers[key] = rec
     if verbose:
-        log(f"| head      | {'lm_head':28s} | error {rec.error:12.4f} "
+        log(f"| head      | {key:28s} | error {rec.error:12.4f} "
             f"| {time.time() - t0:6.2f}s |")
 
 

@@ -31,6 +31,17 @@ from ..ops.cuda.flash_prefill import flash_prefill
 # kernel 6 on the card, plain on the CPU; add_rms_norm is the TPU package's
 # pair ``x = x + o; rms_norm(x)`` in one launch, returning (x + o, the norm)
 from ..ops.cuda.norm import add_rms_norm, rms_norm  # noqa: F401
+from ..ops.linear import dense
+
+
+def layer_norm(x, weight, bias, eps: float):
+    """LayerNorm with fp32 statistics, cast back to x's dtype
+    (``gptq_for_llama_tpu/models/common.py:22-30``). The TPU package leaves it
+    to XLA (no Pallas kernel), so ``F.layer_norm`` in fp32 is the port's form
+    on both devices."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(),
+                     None if bias is None else bias.float(), eps)
+    return y.to(x.dtype)
 
 
 def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float, dtype=torch.float32):
@@ -47,13 +58,22 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x2, x1], dim=-1)
 
 
-def apply_rope(q, k, cos, sin):
+def apply_rope(q, k, cos, sin, rotary_dim: int | None = None):
     """Rotary embedding on q, k of shape (..., seq, heads, head_dim);
-    cos/sin (..., seq, head_dim)."""
+    cos/sin (..., seq, rotary_dim). A ``rotary_dim`` below head_dim rotates
+    only the first rotary_dim dims of each head, in HF's half layout, and
+    passes the rest (GPT-NeoX's rotary_pct; ``models/common.py:52-69`` of
+    the TPU package)."""
     cos = cos[..., :, None, :]
     sin = sin[..., :, None, :]
-    return ((q * cos + rotate_half(q) * sin).to(q.dtype),
-            (k * cos + rotate_half(k) * sin).to(k.dtype))
+    if rotary_dim is None or rotary_dim == q.shape[-1]:
+        return ((q * cos + rotate_half(q) * sin).to(q.dtype),
+                (k * cos + rotate_half(k) * sin).to(k.dtype))
+    out = []
+    for t in (q, k):
+        rot, rest = t[..., :rotary_dim], t[..., rotary_dim:]
+        out.append(torch.cat([rot * cos + rotate_half(rot) * sin, rest], dim=-1).to(t.dtype))
+    return tuple(out)
 
 
 def update_kv_cache(cache_k, cache_v, k_new, v_new, offset, write_mask=None):
@@ -393,4 +413,85 @@ def sdpa(q, k, v, mask=None, scale: float | None = None, decode_offset=None,
 
 
 def activation(name: str):
-    return {"silu": F.silu}[name]
+    """The MLP activation of a config's ``act`` (HF ACT2FN names): "gelu" is
+    the exact erf GELU, "gelu_new" / "gelu_fast" the tanh form (up to 4e-4
+    apart; ``gptq_for_llama_tpu/models/common.py:503-508``)."""
+    return {"silu": F.silu, "relu": F.relu,
+            "gelu": lambda x: F.gelu(x, approximate="none"),
+            "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+            "gelu_fast": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+def layer_norm_of(p, x, eps: float):
+    """``layer_norm`` of x with a {"w", "b"} parameter dict (OPT, GPT-NeoX, GPT-2)."""
+    return layer_norm(x, p["w"], p["b"], eps)
+
+
+class DenseDraws:
+    """The draws of a LayerNorm family's ``init_params``: drawn in fp32 from
+    ``generator`` (a CPU torch.Generator), then moved to ``device`` in
+    ``dtype``; (in, out) kernels at in ** -0.5 with zero biases, unit
+    LayerNorms of width ``hidden``."""
+
+    def __init__(self, generator: torch.Generator, dtype, device, hidden: int):
+        self.gen, self.dtype, self.device, self.hidden = generator, dtype, device, hidden
+
+    def randn(self, *shape, std=1.0):
+        return self.to(torch.randn(*shape, generator=self.gen, dtype=torch.float32) * std)
+
+    def to(self, t):
+        return t.to(device=self.device, dtype=self.dtype)
+
+    def lin(self, i: int, o: int, bias: bool = True):
+        return dense(self.randn(i, o, std=i ** -0.5),
+                     self.to(torch.zeros(o)) if bias else None)
+
+    def ln(self):
+        return {"w": self.to(torch.ones(self.hidden)), "b": self.to(torch.zeros(self.hidden))}
+
+
+def head_of(head_input, logits, params, cfg, x, delta=None):
+    """An arch's ``head``: its ``logits`` over its ``head_input``."""
+    return logits(params, cfg, head_input(params, cfg, x, delta))
+
+
+def causal_forward(embed, stack, head, params, cfg, input_ids: torch.Tensor, positions=None):
+    """An arch's full-model causal forward without a cache, through its
+    ``embed``, ``stack`` and ``head``: (B, S) -> (B, S, V) logits."""
+    s, dev = input_ids.shape[1], input_ids.device
+    if positions is None:
+        positions = torch.arange(s, device=dev)[None, :]
+    x, delta = stack(params, cfg, embed(params, cfg, input_ids, positions), positions,
+                     causal_mask(s, s, device=dev))
+    return head(params, cfg, x, delta)
+
+
+def stack_layers(layer, params, cfg, x, positions, mask, past=None, rope=None):
+    """Every layer over x through the arch's ``layer``; past(li): layer li's
+    cache form (None: no cache). Returns (x, None): the stack of OPT,
+    GPT-NeoX and GPT-2 leaves no residual add pending (LLaMA's folds its
+    adds into the next RMSNorm launch, ``llama.stack``)."""
+    for li, lp in enumerate(params["layers"]):
+        x, _, _ = layer(cfg, lp, x, positions, mask, None if past is None else past(li),
+                        rope=rope)
+    return x, None
+
+
+def check_max_len(name: str, limit: int, n: int) -> None:
+    """Refuse ``n`` positions past a learned table of ``limit`` (OPT, GPT-2):
+    a real token there would read a clamped row and decode a wrong but
+    plausible answer (the TPU package gives NaN; ROADMAP C)."""
+    if n > limit:
+        raise ValueError(f"{n} positions do not fit the {name} model's learned position "
+                         f"table of {limit}")
+
+
+def learned_positions(table, positions):
+    """Rows of a learned position table at ``positions`` (a device tensor),
+    clamped into the table: a pad row of a right-padded prefill or of a
+    serving bucket may sit past it. JAX's ``jnp.take`` returns NaN there
+    (its "fill" mode) and a torch gather on the card would raise a device
+    assert, so the port reads the last row instead. Real rows never sit past
+    the table: the runner, the engine and ``embed`` refuse a length past it
+    (``check_max_len``), and a pad row's output is never read (ROADMAP C)."""
+    return table[positions.clamp(0, table.shape[0] - 1)]

@@ -1,6 +1,7 @@
 """HuggingFace checkpoint loading: safetensors / torch .bin -> parameter dict.
 
-Counterpart of ``gptq_for_llama_tpu/models/hf_loader.py``, LLaMA branch.
+Counterpart of ``gptq_for_llama_tpu/models/hf_loader.py``: the LLaMA, OPT,
+GPT-NeoX and GPT-2 branches.
 Tensors are read from disk into numpy (``engine/safetensors_io``, no
 ``safetensors`` package) and mapped to the functional layout: linear kernels
 (in, out), norms and embeddings as tensors in the compute dtype (fp16 ->
@@ -77,6 +78,24 @@ class _Mapper:
         b = self.tensor(f"{prefix}.bias") if f"{prefix}.bias" in self.flat else None
         return dense(w, b)
 
+    def norm(self, prefix):
+        """A norm's weight, or {w, b} where it has a bias (LayerNorm)."""
+        w = self.tensor(f"{prefix}.weight")
+        if f"{prefix}.bias" in self.flat:
+            return {"w": w, "b": self.tensor(f"{prefix}.bias")}
+        return w
+
+    def conv1d(self, prefix):
+        """A transformers Conv1D (GPT-2): its weight is stored (in, out), this
+        layout's kernel already, so no transpose; a packed one is a packed
+        linear like any other (``gptq_for_llama_tpu/models/hf_loader.py:
+        101-112``)."""
+        if f"{prefix}.qweight" in self.flat:
+            return self.linear(prefix)
+        w = self.tensor(f"{prefix}.weight").contiguous()
+        b = self.tensor(f"{prefix}.bias") if f"{prefix}.bias" in self.flat else None
+        return dense(w, b)
+
 
 def _infer_bits_from_shapes(flat: dict) -> int | None:
     for k in flat:
@@ -94,9 +113,10 @@ def load_params(model_path: str, cfg: ModelConfig | None = None, dtype=torch.bfl
     device = resolve_device(device)
     if cfg is None:
         cfg = config_from_hf(model_path, seqlen=seqlen)
-    if cfg.arch != "llama":
-        raise NotImplementedError(f"arch {cfg.arch!r} is not yet ported to "
-                                  "gptq_for_llama_tpu_torch (ROADMAP A11)")
+    loaders = {"llama": _load_llama, "opt": _load_opt, "neox": _load_neox,
+               "gpt2": _load_gpt2}
+    if cfg.arch not in loaders:
+        raise ValueError(f"no loader for arch {cfg.arch!r}")
     flat = read_flat_state(model_path)
     m = _Mapper(flat, dtype, device, default_bits=wbits or _infer_bits_from_shapes(flat) or 4)
     meta_path = os.path.join(model_path, "quantize_config.json")
@@ -111,7 +131,7 @@ def load_params(model_path: str, cfg: ModelConfig | None = None, dtype=torch.bfl
             for k in flat:
                 if k == f"{name}.g_idx" or k.endswith(f".{name}.g_idx"):
                     m.meta_bits[k[:-len(".g_idx")]] = int(over["bits"])
-    return cfg, _load_llama(m, cfg)
+    return cfg, loaders[cfg.arch](m, cfg)
 
 
 def _load_llama(m: _Mapper, cfg: ModelConfig):
@@ -131,3 +151,74 @@ def _load_llama(m: _Mapper, cfg: ModelConfig):
                else dense(embed.T))
     return {"embed_tokens": embed, "layers": layers,
             "norm": m.tensor("model.norm.weight"), "lm_head": lm_head}
+
+
+def _head(m: _Mapper, name: str, embed):
+    """The output head: its own (dense or packed) linear where the checkpoint
+    has one, else tied to the token embedding."""
+    if m.has(f"{name}.weight") or m.has(f"{name}.qweight"):
+        return m.linear(name)
+    return dense(embed.T)
+
+
+def _load_opt(m: _Mapper, cfg: ModelConfig):
+    d = "model.decoder"
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"{d}.layers.{i}"
+        layers.append({
+            "self_attn_layer_norm": m.norm(f"{p}.self_attn_layer_norm"),
+            "final_layer_norm": m.norm(f"{p}.final_layer_norm"),
+            "self_attn": {n: m.linear(f"{p}.self_attn.{n}")
+                          for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "fc1": m.linear(f"{p}.fc1"),
+            "fc2": m.linear(f"{p}.fc2"),
+        })
+    embed = m.tensor(f"{d}.embed_tokens.weight")
+    params = {"embed_tokens": embed,
+              "embed_positions": m.tensor(f"{d}.embed_positions.weight"),
+              "layers": layers}
+    if m.has(f"{d}.final_layer_norm.weight"):
+        params["final_layer_norm"] = m.norm(f"{d}.final_layer_norm")
+    for name in ("project_in", "project_out"):
+        if m.has(f"{d}.{name}.weight") or m.has(f"{d}.{name}.qweight"):
+            params[name] = m.linear(f"{d}.{name}")
+    params["lm_head"] = _head(m, "lm_head", embed)
+    return params
+
+
+def _load_neox(m: _Mapper, cfg: ModelConfig):
+    g = "gpt_neox"
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"{g}.layers.{i}"
+        layers.append({
+            "input_layernorm": m.norm(f"{p}.input_layernorm"),
+            "post_attention_layernorm": m.norm(f"{p}.post_attention_layernorm"),
+            "attention": {"query_key_value": m.linear(f"{p}.attention.query_key_value"),
+                          "dense": m.linear(f"{p}.attention.dense")},
+            "mlp": {"dense_h_to_4h": m.linear(f"{p}.mlp.dense_h_to_4h"),
+                    "dense_4h_to_h": m.linear(f"{p}.mlp.dense_4h_to_h")},
+        })
+    embed = m.tensor(f"{g}.embed_in.weight")
+    return {"embed_in": embed, "layers": layers,
+            "final_layer_norm": m.norm(f"{g}.final_layer_norm"),
+            "embed_out": _head(m, "embed_out", embed)}
+
+
+def _load_gpt2(m: _Mapper, cfg: ModelConfig):
+    t = "transformer"
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"{t}.h.{i}"
+        layers.append({
+            "ln_1": m.norm(f"{p}.ln_1"),
+            "ln_2": m.norm(f"{p}.ln_2"),
+            "attn": {"c_attn": m.conv1d(f"{p}.attn.c_attn"),
+                     "c_proj": m.conv1d(f"{p}.attn.c_proj")},
+            "mlp": {"c_fc": m.conv1d(f"{p}.mlp.c_fc"),
+                    "c_proj": m.conv1d(f"{p}.mlp.c_proj")},
+        })
+    wte = m.tensor(f"{t}.wte.weight")
+    return {"wte": wte, "wpe": m.tensor(f"{t}.wpe.weight"), "layers": layers,
+            "ln_f": m.norm(f"{t}.ln_f"), "lm_head": _head(m, "lm_head", wte)}

@@ -11,10 +11,12 @@ output in the next layer's input norm or in the final norm.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
-from .common import (add_rms_norm, apply_rope, attention_block, causal_mask, rms_norm,
-                     rope_cos_sin)
+from .common import (add_rms_norm, apply_rope, attention_block, causal_forward, head_of,
+                     rms_norm, rope_cos_sin)
 from .config import ModelConfig
 from .. import resolve_device
 from ..ops.linear import dense, linear_apply
@@ -97,9 +99,16 @@ def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None, del
     else:
         x, h_attn_in = add_rms_norm(x, delta, lp["input_layernorm"], cfg.norm_eps)
     att = lp["self_attn"]
-    q = linear_apply(att["q_proj"], h_attn_in)
-    k = linear_apply(att["k_proj"], h_attn_in)
-    v = linear_apply(att["v_proj"], h_attn_in)
+    if "qkv_proj" in att:   # the load-time fused projection (``fuse_attention``)
+        qh, kvh = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        qkv = linear_apply(att["qkv_proj"], h_attn_in)
+        # q and k leave RoPE as new tensors; v is copied out of the columns,
+        # since the attention kernels take contiguous operands
+        q, k, v = qkv[..., :qh], qkv[..., qh:qh + kvh], qkv[..., qh + kvh:].contiguous()
+    else:
+        q = linear_apply(att["q_proj"], h_attn_in)
+        k = linear_apply(att["k_proj"], h_attn_in)
+        v = linear_apply(att["v_proj"], h_attn_in)
     b, s, _ = x.shape
     q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -124,6 +133,44 @@ def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None, del
         "mlp.down_proj": h_down_in,
     }
     return y, taps, present
+
+
+def fuse_attention(params):
+    """Fuse each layer's packed q/k/v into one ``self_attn.qkv_proj``
+    (``PackedLinear.concat_outputs``): one kernel-1 launch a layer in place
+    of three, split into q, k and v at H * D and H * D + Hkv * D. The
+    counterpart of ``gptq_for_llama_tpu/models/llama.py:fuse_attention``.
+    Returns a copy of the tree whose edited dicts are new; the caller's
+    params keep their q/k/v and every other tensor is shared. A layer whose
+    q/k/v are dense or cannot concat (act-order: different input
+    permutations) stays unfused, and the count is printed to stderr as the
+    TPU package does. Quantization reads unfused params only."""
+    from ..ops.linear import PackedLinear
+    out = dict(params)
+    out["layers"] = []
+    for lp in params["layers"]:
+        att = lp["self_attn"]
+        lins = [att.get(n) for n in ("q_proj", "k_proj", "v_proj")]
+        fused = None
+        if all(isinstance(lin, PackedLinear) for lin in lins):
+            try:
+                fused = PackedLinear.concat_outputs(lins)
+            except ValueError:
+                fused = None
+        if fused is None:
+            out["layers"].append(lp)
+            continue
+        att = {k: v for k, v in att.items() if k not in ("q_proj", "k_proj", "v_proj")}
+        att["qkv_proj"] = fused
+        lp = dict(lp)
+        lp["self_attn"] = att
+        out["layers"].append(lp)
+    n_fused = sum(1 for lp in out["layers"] if "qkv_proj" in lp["self_attn"])
+    if n_fused < len(out["layers"]):
+        import sys
+        print(f"fuse_attention: fused {n_fused}/{len(out['layers'])} layers "
+              "(rest have dense or layout-incompatible q/k/v)", file=sys.stderr)
+    return out
 
 
 def stack(params, cfg: ModelConfig, x, positions, mask, past=None, rope=None):
@@ -152,17 +199,5 @@ def logits(params, cfg: ModelConfig, h):
     return linear_apply(params["lm_head"], h)
 
 
-def head(params, cfg: ModelConfig, x, delta=None):
-    """Final norm + lm_head."""
-    return logits(params, cfg, head_input(params, cfg, x, delta))
-
-
-def forward(params, cfg: ModelConfig, input_ids: torch.Tensor, positions=None):
-    """Full-model causal forward without a cache: (B, S) -> (B, S, V) logits."""
-    s = input_ids.shape[1]
-    dev = input_ids.device
-    if positions is None:
-        positions = torch.arange(s, device=dev)[None, :]
-    x, delta = stack(params, cfg, embed(params, cfg, input_ids), positions,
-                     causal_mask(s, s, device=dev))
-    return head(params, cfg, x, delta)
+head = partial(head_of, head_input, logits)   # final norm + lm_head
+forward = partial(causal_forward, embed, stack, head)

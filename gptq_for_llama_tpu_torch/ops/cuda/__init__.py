@@ -48,10 +48,12 @@ KERNELS = {
 
 # kernels counted by form as well: kernels 1 and 2's GEMV, fragments and
 # tiles, kernel 6 alone or with the residual add folded in, and kernels 3, 4,
-# 7 and 9 by the cache dtype they read (bf16, f32, fp8, fp8_e5m2)
+# 5, 7 and 9 by the cache dtype they read (bf16, f32, fp8, fp8_e5m2) and by
+# head dim (d64, d80, d96, d128, d256)
 _BY_FORM = {"qmm": matmul.qmm_cuda, "fused_mlp": mlp.fused_mlp_cuda, "rms_norm": norm.rms_norm_cuda,
             "decode_attention": attention.decode_attention_cuda,
             "flash_prefill_blocked": flash.flash_prefill_blocked_cuda,
+            "flash_prefill": flash_prefill.flash_prefill_cuda,
             "pool_decode_attention": attention.pool_decode_attention_cuda,
             "fused_decode_attention": attention.fused_decode_attention_cuda}
 
@@ -65,8 +67,9 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """Launches per kernel, then kernels 1's, 2's and 6's by form
-    ("qmm:gemv", "fused_mlp:tile", "rms_norm:add", ...) and kernels 3, 4, 7
-    and 9's by cache dtype ("decode_attention:fp8", ...)."""
+    ("qmm:gemv", "fused_mlp:tile", "rms_norm:add", ...) and kernels 3, 4, 5,
+    7 and 9's by cache dtype ("decode_attention:fp8", ...) and by head dim
+    ("decode_attention:d96", ...)."""
     counts = {name: kernel.wrapper.launches for name, kernel in KERNELS.items()}
     for name, wrapper in _BY_FORM.items():
         counts.update({f"{name}:{form}": n for form, n in wrapper.forms.items()})

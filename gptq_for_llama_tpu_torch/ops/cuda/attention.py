@@ -29,6 +29,15 @@ read through ``kv_dtype.decode``, the same rule. q and the fold form's
 current k/v stay bf16; the fold form rounds the current k/v to the cache dtype
 (``kv_dtype.round_to``) before it attends and writes them, as the TPU
 wrapper passes ``k_new.astype(cache dtype)``. Another cache dtype raises.
+
+Head dims: the kernels take D in ``HEAD_DIMS`` (64, 80, 96, 128, 256), one
+library each (``build.PER_HEAD_DIM``), at every G <= 8 and cache dtype; the
+plan (``decode_plan``) and the scratch (``partial_floats``) follow D, and
+another D raises naming ROADMAP B6. At D = 64, 80 and 96 the TPU package runs
+its XLA path (``_xla_decode_fallback``: its kernels need D % 128 == 0), which
+the plain versions here compute; at 128 and 256 its Pallas kernels. The
+kernels count their launches by cache dtype and by head dim
+(``launch_counts()["decode_attention:d96"]``).
 """
 
 from __future__ import annotations
@@ -50,30 +59,53 @@ POOL_REPLACES = "gptq_for_llama_tpu/ops/pallas/attention.py:412"
 FOLD_SOURCE = "gptq_for_llama_tpu_torch/csrc/fused_decode_attention.cu"
 FOLD_REPLACES = "gptq_for_llama_tpu/ops/pallas/attention.py:191"
 MAX_GROUP = 8   # query heads per kv head the kernels are instantiated for
-HEAD_DIM = 128
+HEAD_DIMS = build.HEAD_DIMS   # head dims the kernels take, one library each
+HEAD_DIM = 128  # the head dim the plan functions default to
 # kernels 3 and 9's layout (csrc/decode_attention_dense.cuh; checked against
 # the library's gptq_dense_decode_layout when it is loaded)
 TILE = 32       # cache slots per ring stage (4 warps x 8 slots)
-RING = 4        # ring stages: a block has up to RING * TILE slots in flight
-BLOCKS_PER_SM = 3   # resident blocks at most (the registers are sized for it)
+RING = 4        # ring stages at most: a block has up to RING * TILE slots in flight
+RING_BUDGET = 128 * 1024   # ring bytes the stages are fitted under
+BLOCKS_PER_SM = 3   # resident blocks at most up to D = 128 (the registers are sized for it)
 MAX_SPLIT = 64  # chunks per (row, kv head) the combine kernel takes
-RING_ELEMS = RING * TILE * 2 * HEAD_DIM   # K and V elements of the ring
 SMEM_PER_SM = 233472                      # the H100's 228 KB
 BLOCK_SMEM_EXTRA = 3072                   # a block's static arrays and reserved KB, above its ring
 MIN_CHUNK, MAX_CHUNK = 2 * TILE, 6 * TILE
 
 
-def ring_smem_bytes(itemsize: int = 2) -> int:
+def check_head_dim(what: str, d: int) -> None:
+    """Raise for a head dim no library of the kernel takes."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: no kernel at head dim {d}; the kernels take {HEAD_DIMS} "
+                         f"(ROADMAP B6)")
+
+
+def max_blocks_per_sm(d: int = 128) -> int:
+    """Resident blocks the kernels' registers are sized for: 3 up to D = 128,
+    2 at D = 256."""
+    return BLOCKS_PER_SM if d <= 128 else 2
+
+
+def ring_stages(itemsize: int = 2, d: int = 128) -> int:
+    """Ring stages of kernels 3, 7 and 9: RING while the ring fits RING_BUDGET
+    (every cache dtype up to D = 128, bf16 and fp8 at 256), else what fits
+    (f32 at D = 256: 2)."""
+    return min(RING, RING_BUDGET // (4 * 2 * 8 * d * itemsize))
+
+
+def ring_smem_bytes(itemsize: int = 2, d: int = 128) -> int:
     """Dynamic shared memory of one block of kernels 3, 7 and 9 over a cache
-    of ``itemsize`` bytes an element: 32 KB fp8, 64 KB bf16, 128 KB f32."""
-    return RING_ELEMS * itemsize
+    of ``itemsize`` bytes an element at head dim ``d``: at D = 128 32 KB fp8,
+    64 KB bf16, 128 KB f32."""
+    return ring_stages(itemsize, d) * 4 * 2 * 8 * d * itemsize
 
 
-def blocks_per_sm(itemsize: int = 2) -> int:
-    """Resident blocks of kernels 3, 7 and 9 an SM holds at this itemsize:
-    BLOCKS_PER_SM, or what the rings leave room for (f32: one)."""
-    return max(1, min(BLOCKS_PER_SM,
-                      SMEM_PER_SM // (ring_smem_bytes(itemsize) + BLOCK_SMEM_EXTRA)))
+def blocks_per_sm(itemsize: int = 2, d: int = 128) -> int:
+    """Resident blocks of kernels 3, 7 and 9 an SM holds at this itemsize and
+    head dim: ``max_blocks_per_sm``, or what the rings leave room for (f32 at
+    D = 128: one)."""
+    return max(1, min(max_blocks_per_sm(d),
+                      SMEM_PER_SM // (ring_smem_bytes(itemsize, d) + BLOCK_SMEM_EXTRA)))
 
 
 def check_caches(k, v, shape) -> int:
@@ -115,23 +147,24 @@ def decode_attention_plain(q, k_cache, v_cache, offset, scale: float) -> torch.T
     return attention_plain(q, k_cache, v_cache, scale, live[:, None, None, :])
 
 
-def _check_layout(lib: ctypes.CDLL, name: str) -> None:
-    """Refuse a library whose ring, tile or split differ from the constants
-    ``decode_plan`` plans with."""
-    got = (ctypes.c_int * 6)()
+def _check_layout(lib: ctypes.CDLL, name: str, d: int) -> None:
+    """Refuse a library whose head dim, tile, blocks, split or ring differ
+    from the constants ``decode_plan`` plans with."""
+    got = (ctypes.c_int * 7)()
     lib.gptq_dense_decode_layout(got)
-    want = (HEAD_DIM, TILE, RING, BLOCKS_PER_SM, MAX_SPLIT, RING_ELEMS)
+    want = (d, TILE, max_blocks_per_sm(d), MAX_SPLIT,
+            *(ring_smem_bytes(i, d) for i in (1, 2, 4)))
     if tuple(got) != want:
-        raise RuntimeError(f"{name}: the kernel's layout (head dim, tile, ring stages, blocks "
-                           f"per SM, max split, ring elements) is {tuple(got)}, the plan's "
-                           f"{want}")
+        raise RuntimeError(f"{name}: the kernel's layout (head dim, tile, blocks per SM, max "
+                           f"split, ring bytes over fp8, bf16, f32) is {tuple(got)}, the "
+                           f"plan's {want}")
 
 
-def _entry():
-    lib = build.library("decode_attention")
+def _entry(d: int):
+    lib = build.library("decode_attention", d)
     fn = lib.gptq_decode_attention
     if fn.argtypes is None:
-        _check_layout(lib, "decode_attention")
+        _check_layout(lib, "decode_attention", d)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
@@ -147,11 +180,11 @@ class DecodePlan(NamedTuple):
 
 
 def decode_plan(b: int, hkv: int, g: int, live: int, sms: int = 132,
-                itemsize: int = 2) -> DecodePlan:
+                itemsize: int = 2, d: int = 128) -> DecodePlan:
     """A pure function of host ints: the batch, kv heads, query heads per kv
     head (the plan does not depend on it yet), a bound on the live slots of
     any row (the rows' own offsets still decide what each reads), the card's
-    SM count and the cache's bytes an element.
+    SM count, the cache's bytes an element and the head dim.
 
     A prefix of at most RING * TILE = 128 slots is one chunk: one pass, the
     whole prefix in flight at once, no combine kernel. A longer one is split
@@ -168,24 +201,24 @@ def decode_plan(b: int, hkv: int, g: int, live: int, sms: int = 132,
     live = max(int(live), 1)
     if live <= RING * TILE:
         return DecodePlan(1, tiles(live))
-    nsplit = max(1, blocks_per_sm(itemsize) * sms // (b * hkv))
+    nsplit = max(1, blocks_per_sm(itemsize, d) * sms // (b * hkv))
     chunk = min(max(tiles(-(-live // nsplit)), MIN_CHUNK), MAX_CHUNK)
     chunk = max(chunk, tiles(-(-live // MAX_SPLIT)))   # at most the chunks the combine stages
     return DecodePlan(-(-live // chunk), chunk)
 
 
-def partial_floats(b: int, hkv: int, g: int, plan: DecodePlan) -> int:
+def partial_floats(b: int, hkv: int, g: int, plan: DecodePlan, d: int = 128) -> int:
     """fp32 scratch the kernel writes for a split plan: per (row, kv head,
     chunk, query head) the unnormalized accumulator (D), then every row's max,
     then every row's denominator; none for one chunk."""
-    return 0 if plan.nsplit == 1 else b * hkv * plan.nsplit * g * (HEAD_DIM + 2)
+    return 0 if plan.nsplit == 1 else b * hkv * plan.nsplit * g * (d + 2)
 
 
 def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float,
                           max_live: int | None = None) -> torch.Tensor:
     """The kernel: q (B, 1, H, D) bf16, caches (B, S, Hkv, D) in one of the
     four cache dtypes (read in it), offset an int (every row) or an int32
-    CUDA tensor () / (B,). D must be 128 and H / Hkv at most 8.
+    CUDA tensor () / (B,). D one of ``HEAD_DIMS`` and H / Hkv at most 8.
 
     Per-row offsets stay on the device, so the split over chunks is planned
     for the whole cache unless the caller knows a bound on the live length
@@ -193,9 +226,10 @@ def decode_attention_cuda(q, k_cache, v_cache, offset, scale: float,
     only: the offsets still decide what each row reads."""
     b, sq, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    if sq != 1 or d != 128 or h % hkv or h // hkv > MAX_GROUP:
-        raise ValueError(f"decode attention kernel takes q (B, 1, H, 128) with H/Hkv <= "
+    if sq != 1 or h % hkv or h // hkv > MAX_GROUP:
+        raise ValueError(f"decode attention kernel takes q (B, 1, H, D) with H/Hkv <= "
                          f"{MAX_GROUP}; got q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
+    check_head_dim("decode attention kernel", d)
     refuse_grad("decode_attention", q, k_cache, v_cache)
     check_tensor(q, "q", torch.bfloat16)
     check_caches(k_cache, v_cache, (b, s, hkv, d))
@@ -209,7 +243,7 @@ def plan_for(q, k_cache, offset, max_live: int | None = None, fold: bool = False
     slots <= offset, the fold form slots below it (the plan then covers at
     least one slot); per-row offsets on the card give the whole cache unless
     ``max_live`` bounds it."""
-    b, _, h, _ = q.shape
+    b, _, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     if isinstance(offset, torch.Tensor):
         live = s if max_live is None else min(max(int(max_live), 1), s)
@@ -217,7 +251,7 @@ def plan_for(q, k_cache, offset, max_live: int | None = None, fold: bool = False
         off = min(max(int(offset), 0), s - 1)
         live = max(off, 1) if fold else off + 1
     return decode_plan(b, hkv, h // hkv, live, _sm_count(q.device.index or 0),
-                       k_cache.element_size())
+                       k_cache.element_size(), d)
 
 
 def _offsets(offset, b: int):
@@ -236,23 +270,39 @@ def _decode_launch(q, k_cache, v_cache, offset, scale: float, plan: DecodePlan) 
     b, _, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     offs, off_scalar = _offsets(offset, b)
-    n = partial_floats(b, hkv, h // hkv, plan)
+    n = partial_floats(b, hkv, h // hkv, plan, d)
     part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     out = torch.empty_like(q)
-    fn = _entry()
+    fn = _entry(d)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              None if offs is None else offs.data_ptr(), off_scalar, out.data_ptr(),
              None if part is None else part.data_ptr(),
              b, s, hkv, h // hkv, d, scale, plan.nsplit, plan.chunk,
              kv_dtype.KV_CODES[k_cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(build.library("decode_attention"), err, "decode_attention")
+    build.check(build.library("decode_attention", d), err, "decode_attention")
     decode_attention_cuda.launches += 1
-    decode_attention_cuda.forms[kv_dtype.KV_NAMES[k_cache.dtype]] += 1
+    count_forms(decode_attention_cuda, k_cache.dtype, d)
     return out
 
 
+def new_forms(by_dtype: bool = True) -> dict:
+    """Launch counts by cache dtype (``by_dtype``) and by head dim (``d64``
+    ... ``d256``)."""
+    return dict.fromkeys((*(kv_dtype.KV_DTYPES if by_dtype else ()),
+                          *(f"d{d}" for d in HEAD_DIMS)), 0)
+
+
+def count_forms(wrapper, dtype, d: int) -> None:
+    """One launch of ``wrapper`` over a cache of ``dtype`` (where it counts
+    by dtype) at head dim ``d``."""
+    name = kv_dtype.KV_NAMES[dtype]
+    if name in wrapper.forms:
+        wrapper.forms[name] += 1
+    wrapper.forms[f"d{d}"] += 1
+
+
 decode_attention_cuda.launches = 0
-decode_attention_cuda.forms = dict.fromkeys(kv_dtype.KV_DTYPES, 0)   # launches by cache dtype
+decode_attention_cuda.forms = new_forms()   # launches by cache dtype and by head dim
 
 
 def decode_attention(q, k_cache, v_cache, offset, scale: float,
@@ -270,10 +320,10 @@ def decode_attention(q, k_cache, v_cache, offset, scale: float,
 
 def supports_paged_decode(block_size: int, num_heads: int, num_kv_heads: int, head_dim: int,
                           itemsize: int = 2) -> bool:
-    """What the pool kernel takes: blocks of a multiple of 8 slots, head_dim
-    128, at most 8 query heads per kv head, a pool of 1, 2 or 4 bytes an
-    element (fp8, bf16, f32)."""
-    return (block_size >= 8 and block_size % 8 == 0 and head_dim == 128
+    """What the pool kernel takes: blocks of a multiple of 8 slots, a head dim
+    of ``HEAD_DIMS``, at most 8 query heads per kv head, a pool of 1, 2 or 4
+    bytes an element (fp8, bf16, f32)."""
+    return (block_size >= 8 and block_size % 8 == 0 and head_dim in HEAD_DIMS
             and itemsize in (1, 2, 4)
             and num_heads % num_kv_heads == 0 and num_heads // num_kv_heads <= MAX_GROUP)
 
@@ -294,11 +344,11 @@ def pool_decode_attention_plain(q, k_pool, v_pool, tables, offset, scale: float)
                                   offs, scale)
 
 
-def _pool_entry():
-    lib = build.library("pool_decode_attention")
+def _pool_entry(d: int):
+    lib = build.library("pool_decode_attention", d)
     fn = lib.gptq_pool_decode_attention
     if fn.argtypes is None:
-        _check_layout(lib, "pool_decode_attention")
+        _check_layout(lib, "pool_decode_attention", d)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
@@ -310,27 +360,29 @@ def pool_plan_for(q, k_pool, tables, max_live: int | None = None,
     """The plan a launch of kernel 7 takes: kernel 3's (``decode_plan``) at
     the live bound ``max_live`` gives, else the logical length MB * BS.
     ``sms``: the card's SM count (default: read from q's card)."""
-    b, _, h, _ = q.shape
+    b, _, h, d = q.shape
     hkv = k_pool.shape[2]
     s = tables.shape[1] * k_pool.shape[1]
     live = s if max_live is None else min(max(int(max_live), 1), s)
     return decode_plan(b, hkv, h // hkv, live,
                        _sm_count(q.device.index or 0) if sms is None else sms,
-                       k_pool.element_size())
+                       k_pool.element_size(), d)
 
 
 def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
                                max_live: int | None = None) -> torch.Tensor:
-    """The kernel: q (B, 1, H, 128) bf16; pools (NB, BS, Hkv, 128) in one of
-    the four cache dtypes with BS a multiple of 8; tables (B, MB) int32;
+    """The kernel: q (B, 1, H, D) bf16; pools (NB, BS, Hkv, D) in one of
+    the four cache dtypes with BS a multiple of 8, D one of ``HEAD_DIMS``;
+    tables (B, MB) int32;
     offset (B,) int32, all on the card.
     ``max_live`` as in ``decode_attention_cuda`` (default: the logical length
     MB * BS). Reads only logical blocks <= offset[b] // BS of each row, and
     only their table entries."""
     b, sq, h, d = q.shape
     nb, bs, hkv = k_pool.shape[:3]
+    check_head_dim("pool decode attention kernel", d)
     if sq != 1 or h % hkv or not supports_paged_decode(bs, h, hkv, d, k_pool.element_size()):
-        raise ValueError(f"pool decode attention kernel takes q (B, 1, H, 128), H/Hkv <= "
+        raise ValueError(f"pool decode attention kernel takes q (B, 1, H, D), H/Hkv <= "
                          f"{MAX_GROUP} and pools whose block size is a multiple of 8; got "
                          f"q {tuple(q.shape)}, pool {tuple(k_pool.shape)} {k_pool.dtype}")
     refuse_grad("pool_decode_attention", q, k_pool, v_pool)
@@ -346,22 +398,22 @@ def pool_decode_attention_cuda(q, k_pool, v_pool, tables, offset, scale: float,
     offs = offset.reshape(-1).expand(b).contiguous()
     check_tensor(offs, "offset", torch.int32, (b,))
     plan = pool_plan_for(q, k_pool, tables, max_live)
-    n = partial_floats(b, hkv, h // hkv, plan)
+    n = partial_floats(b, hkv, h // hkv, plan, d)
     part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     out = torch.empty_like(q)
-    fn = _pool_entry()
+    fn = _pool_entry(d)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
              offs.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
              b, nb, bs, mb, hkv, h // hkv, d, float(scale), plan.nsplit, plan.chunk, code,
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(build.library("pool_decode_attention"), err, "pool_decode_attention")
+    build.check(build.library("pool_decode_attention", d), err, "pool_decode_attention")
     pool_decode_attention_cuda.launches += 1
-    pool_decode_attention_cuda.forms[kv_dtype.KV_NAMES[k_pool.dtype]] += 1
+    count_forms(pool_decode_attention_cuda, k_pool.dtype, d)
     return out
 
 
 pool_decode_attention_cuda.launches = 0
-pool_decode_attention_cuda.forms = dict.fromkeys(kv_dtype.KV_DTYPES, 0)
+pool_decode_attention_cuda.forms = new_forms()
 
 
 def pool_decode_attention(q, k_pool, v_pool, tables, offset, scale: float,
@@ -409,11 +461,11 @@ def fused_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, offset, scal
     return out, k_cache, v_cache
 
 
-def _fold_entry():
-    lib = build.library("fused_decode_attention")
+def _fold_entry(d: int):
+    lib = build.library("fused_decode_attention", d)
     fn = lib.gptq_fused_decode_attention
     if fn.argtypes is None:
-        _check_layout(lib, "fused_decode_attention")
+        _check_layout(lib, "fused_decode_attention", d)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 6 + [i, p, i, p, p] + [i] * 5 + [ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
@@ -423,8 +475,9 @@ def _fold_entry():
 def fused_decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, offset, scale: float,
                                 write_mask=None, write: bool = True,
                                 max_live: int | None = None):
-    """The kernel: q (B, 1, H, 128) bf16, caches (B, S, Hkv, 128) in one of
-    the four cache dtypes, k_new / v_new (B, 1, Hkv, 128) bf16, offset an int
+    """The kernel: q (B, 1, H, D) bf16, caches (B, S, Hkv, D) in one of
+    the four cache dtypes, k_new / v_new (B, 1, Hkv, D) bf16, D one of
+    ``HEAD_DIMS``, offset an int
     (every row) or an int32 CUDA tensor () / (B,), write_mask None or a (B,)
     bool CUDA tensor. H / Hkv at most 8. ``max_live``
     as in ``decode_attention_cuda``: a host int >= max(offset) + 1 that shapes
@@ -432,9 +485,10 @@ def fused_decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, offset, scale
     in place."""
     b, sq, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    if sq != 1 or d != 128 or h % hkv or h // hkv > MAX_GROUP:
-        raise ValueError(f"fold decode attention kernel takes q (B, 1, H, 128) with H/Hkv <= "
+    if sq != 1 or h % hkv or h // hkv > MAX_GROUP:
+        raise ValueError(f"fold decode attention kernel takes q (B, 1, H, D) with H/Hkv <= "
                          f"{MAX_GROUP}; got q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
+    check_head_dim("fold decode attention kernel", d)
     refuse_grad("fused_decode_attention", q, k_cache, v_cache, k_new, v_new)
     check_tensor(q, "q", torch.bfloat16)
     code = check_caches(k_cache, v_cache, (b, s, hkv, d))
@@ -448,23 +502,23 @@ def fused_decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, offset, scale
                              f"{tuple(write_mask.shape)} on {write_mask.device}")
     offs, off_scalar = _offsets(offset, b)
     plan = plan_for(q, k_cache, offset, max_live, fold=True)
-    n = partial_floats(b, hkv, h // hkv, plan)
+    n = partial_floats(b, hkv, h // hkv, plan, d)
     part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     out = torch.empty_like(q)
-    fn = _fold_entry()
+    fn = _fold_entry(d)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
              v_new.data_ptr(), None if offs is None else offs.data_ptr(), off_scalar,
              None if wm is None else wm.data_ptr(), int(bool(write)), out.data_ptr(),
              None if part is None else part.data_ptr(), b, s, hkv, h // hkv, d, float(scale),
              plan.nsplit, plan.chunk, code, torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(build.library("fused_decode_attention"), err, "fused_decode_attention")
+    build.check(build.library("fused_decode_attention", d), err, "fused_decode_attention")
     fused_decode_attention_cuda.launches += 1
-    fused_decode_attention_cuda.forms[kv_dtype.KV_NAMES[k_cache.dtype]] += 1
+    count_forms(fused_decode_attention_cuda, k_cache.dtype, d)
     return out, k_cache, v_cache
 
 
 fused_decode_attention_cuda.launches = 0
-fused_decode_attention_cuda.forms = dict.fromkeys(kv_dtype.KV_DTYPES, 0)
+fused_decode_attention_cuda.forms = new_forms()
 
 
 def fused_decode_attention(q, k_cache, v_cache, k_new, v_new, offset, scale: float,

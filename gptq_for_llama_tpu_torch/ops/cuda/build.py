@@ -1,9 +1,12 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds, not minutes). The first call to
-``library`` compiles every source that is not built yet, one nvcc process per
-source, all started together, into ``gptq_for_llama_tpu_torch/_build/``
+(no PyTorch headers, so a build takes seconds, not minutes); the attention
+sources (``PER_HEAD_DIM``) become one library per head dim of ``HEAD_DIMS``,
+built with ``-DGPTQ_HEAD_DIM=<D>``, so each translation unit instantiates
+one head dim and the builds spread over the cores. The first call to
+``library`` compiles every library that is not built yet, one nvcc process
+per library, all started together, into ``gptq_for_llama_tpu_torch/_build/``
 (listed in .gitignore). A library's file name carries a digest of all
 sources and flags, so a changed source is rebuilt and a built one is reused.
 
@@ -24,6 +27,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked", "flash_prefill",
            "rms_norm", "pool_decode_attention", "qmm_t", "fused_decode_attention")
+# the attention kernels' head dims (kernels 3, 4, 5, 7, 9), one library each
+HEAD_DIMS = (64, 80, 96, 128, 256)
+PER_HEAD_DIM = ("decode_attention", "flash_prefill_blocked", "flash_prefill",
+                "pool_decode_attention", "fused_decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,48 +54,72 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def lib_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}-{_digest()}.so")
+def _key(name: str, head_dim: int | None) -> str:
+    """The library's name: ``name``, or ``name:d<D>`` for a per-head-dim one."""
+    if name not in SOURCES:
+        raise KeyError(f"no CUDA source {name!r}; have {SOURCES}")
+    if name not in PER_HEAD_DIM:
+        return name
+    d = 128 if head_dim is None else int(head_dim)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: no kernel at head dim {d}; built for {HEAD_DIMS} "
+                         f"(ROADMAP B6)")
+    return f"{name}:d{d}"
+
+
+def targets() -> list[str]:
+    """Every library: one per source, one per head dim of the attention ones."""
+    return [f"{n}:d{d}" if n in PER_HEAD_DIM else n
+            for n in SOURCES for d in (HEAD_DIMS if n in PER_HEAD_DIM else (None,))]
+
+
+def lib_path(name: str, head_dim: int | None = None) -> str:
+    key = _key(name, head_dim)
+    return os.path.join(BUILD_DIR, f"lib{key.replace(':', '-')}-{_digest()}.so")
 
 
 def build_all() -> dict[str, str]:
-    """Compile every source not built yet, in parallel; raise on any failure.
-    Returns {name: ptxas report} for the libraries this call built."""
+    """Compile every library not built yet, in parallel; raise on any failure.
+    Returns {library: ptxas report} for the libraries this call built."""
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
-    for name in SOURCES:
-        out = lib_path(name)
+    for key in targets():
+        name, _, d = key.partition(":d")
+        out = lib_path(name, int(d) if d else None)
         if os.path.exists(out):
             continue
         tmp = f"{out}.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+        defs = [f"-DGPTQ_HEAD_DIM={d}"] if d else []
+        cmd = [nvcc, *NVCC_FLAGS, *defs, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), tmp, out)
     built, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
+    for key, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n{log}")
+            failed.append(f"--- nvcc {key} (exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, out)
-        built[name] = log
+        built[key] = log
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return built
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of csrc/<name>.cu, built at first use."""
+def library(name: str, head_dim: int | None = None) -> ctypes.CDLL:
+    """The loaded shared library of csrc/<name>.cu (an attention source: at
+    ``head_dim``, default 128), built at first use. A head dim with no
+    library raises."""
+    key = _key(name, head_dim)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            if name not in SOURCES:
-                raise KeyError(f"no CUDA source {name!r}; have {SOURCES}")
-            if not os.path.exists(lib_path(name)):
+            path = lib_path(name, head_dim)
+            if not os.path.exists(path):
                 build_all()
-            lib = ctypes.CDLL(lib_path(name))
-            _libs[name] = lib
+            lib = ctypes.CDLL(path)
+            _libs[key] = lib
         return lib
 
 

@@ -23,6 +23,9 @@ is rounded before q k^T (kernels 3, 7 and 9 keep it in f32), an fp8 code is
 exact in bf16 (e4m3 codes 0x7F / 0xFF read as +-480). A cache other than bf16
 runs the ``mma.sync`` body at every length (``plan_kv``); the plain version
 reads the cache through ``kv_dtype.decode`` into q's dtype, the same rule.
+So does a head dim other than 128 (``flash_prefill.plan``): the kernel takes
+the head dims of ``attention.HEAD_DIMS``, one library each, and counts its
+launches by cache dtype and by head dim.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from .. import kv_dtype
 from . import build
-from .attention import attention_plain, check_caches
+from .attention import attention_plain, check_caches, check_head_dim, count_forms, new_forms
 from .flash_prefill import PATH_IDS, plan
 from .grad import refuse_grad
 from .matmul import check_tensor
@@ -62,8 +65,8 @@ def flash_prefill_blocked_plain(q, k, v, q_offset, scale: float, bound=None,
     return attention_plain(q, k, v, scale, allowed)
 
 
-def _entry():
-    fn = build.library("flash_prefill_blocked").gptq_flash_prefill_blocked
+def _entry(d: int):
+    fn = build.library("flash_prefill_blocked", d).gptq_flash_prefill_blocked
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p] + [i] * 7 + [p, p, ctypes.c_float, i, i, p]
@@ -94,24 +97,27 @@ def _device_offset(q_offset, bound, sq: int, device) -> tuple[torch.Tensor, int]
     return off_t, int(bound)
 
 
-def plan_kv(sq: int, q_offset: int, dtype: torch.dtype) -> str:
-    """The body kernel 4 launches over a cache of ``dtype``: kernel 5's plan
-    (``flash_prefill.plan``) for bf16, the ``mma.sync`` body for any other
-    dtype (the ``wgmma`` body's TMA tiles take bf16 only)."""
-    return plan(sq, q_offset) if dtype == torch.bfloat16 else "sync"
+def plan_kv(sq: int, q_offset: int, dtype: torch.dtype, d: int = 128) -> str:
+    """The body kernel 4 launches over a cache of ``dtype`` at head dim
+    ``d``: kernel 5's plan (``flash_prefill.plan``: the ``mma.sync`` body at
+    any D but 128) for bf16, the ``mma.sync`` body for any other dtype (the
+    ``wgmma`` body's TMA tiles take bf16 only)."""
+    return plan(sq, q_offset, d) if dtype == torch.bfloat16 else "sync"
 
 
 def flash_prefill_blocked_cuda(q, k, v, q_offset, scale: float, bound=None,
                                rows=None) -> torch.Tensor:
-    """The kernel: q (B, SQ, H, 128) bf16, k/v (Bkv, SKV, Hkv, 128) in one
-    of the four cache dtypes (Bkv = B without ``rows``), the offset a host int
+    """The kernel: q (B, SQ, H, D) bf16, k/v (Bkv, SKV, Hkv, D) in one
+    of the four cache dtypes (Bkv = B without ``rows``), D one of
+    ``attention.HEAD_DIMS``, the offset a host int
     or a 1-element int32 tensor on the card (then with its host ``bound``),
     ``rows`` a (B,) int32 tensor on the card."""
     b, sq, h, d = q.shape
     bkv, skv, hkv = k.shape[0], k.shape[1], k.shape[2]
-    if d != 128 or h % hkv:
-        raise ValueError(f"blocked prefill kernel takes head_dim 128 and H % Hkv == 0; got "
+    if h % hkv:
+        raise ValueError(f"blocked prefill kernel takes H % Hkv == 0; got "
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}")
+    check_head_dim("blocked prefill kernel", d)
     off_t, bound = _device_offset(q_offset, bound, sq, q.device)
     refuse_grad("flash_prefill_blocked", q, k, v)
     check_tensor(q, "q", torch.bfloat16)
@@ -123,7 +129,7 @@ def flash_prefill_blocked_cuda(q, k, v, q_offset, scale: float, bound=None,
         check_tensor(rows, "rows", torch.int32, (b,))
     if sq == 0:
         return torch.empty_like(q)
-    return _launch(q, k, v, off_t, scale, plan_kv(sq, bound - sq, k.dtype), rows)
+    return _launch(q, k, v, off_t, scale, plan_kv(sq, bound - sq, k.dtype, d), rows)
 
 
 def _launch(q, k, v, q_offset, scale: float, path: str, rows=None) -> torch.Tensor:
@@ -134,18 +140,19 @@ def _launch(q, k, v, q_offset, scale: float, path: str, rows=None) -> torch.Tens
     if not isinstance(q_offset, torch.Tensor):
         q_offset = torch.full((1,), int(q_offset), dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)
-    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    err = _entry(d)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    b, sq, k.shape[0], k.shape[1], h, k.shape[2], d, q_offset.data_ptr(),
                    None if rows is None else rows.data_ptr(), float(scale), PATH_IDS[path],
                    kv_dtype.KV_CODES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(build.library("flash_prefill_blocked"), err, f"flash_prefill_blocked ({path})")
+    build.check(build.library("flash_prefill_blocked", d), err,
+                f"flash_prefill_blocked ({path})")
     flash_prefill_blocked_cuda.launches += 1
-    flash_prefill_blocked_cuda.forms[kv_dtype.KV_NAMES[k.dtype]] += 1
+    count_forms(flash_prefill_blocked_cuda, k.dtype, d)
     return out
 
 
 flash_prefill_blocked_cuda.launches = 0
-flash_prefill_blocked_cuda.forms = dict.fromkeys(kv_dtype.KV_DTYPES, 0)   # launches by cache dtype
+flash_prefill_blocked_cuda.forms = new_forms()   # launches by cache dtype and by head dim
 
 
 def flash_prefill_blocked(q, k, v, q_offset, scale: float, bound=None,

@@ -11,6 +11,11 @@ warpgroup, and for a causal prefix of at most one 128-key tile the 64-query
 way for kernel 4, so the two kernels stay bit-equal at offset 0. It takes
 any S (the TPU kernel needs S % 256 == 0 and K+V of a head in VMEM). The
 plain version is the fp32 masked softmax of ``attention.attention_plain``.
+The kernels take the head dims of ``attention.HEAD_DIMS`` (one library
+each); the ``wgmma`` body takes D = 128 only, so ``plan`` sends every other D
+to the ``mma.sync`` body at every length (a ``wgmma`` form at other D is a
+later ROADMAP B item). At D = 64, 80 and 96 the TPU package runs XLA (its
+kernels need D % 128 == 0), which the plain version computes.
 Where a gradient is wanted (LoRA training) the forward still launches the
 kernel, inside ``_CausalAttention``, whose backward is the plain version's
 gradient recomputed from the saved q/k/v (the TPU package differentiates its
@@ -24,7 +29,7 @@ import ctypes
 import torch
 
 from . import build
-from .attention import attention_plain
+from .attention import attention_plain, check_head_dim, count_forms, new_forms
 from .grad import needs_grad, plain_grads, refuse_grad
 from .matmul import check_tensor
 
@@ -39,10 +44,16 @@ SYNC_MAX_KEYS = 128
 PATH_IDS = {"sync": 0, "wgmma": 1}   # csrc/flash_common.cuh's Path
 
 
-def plan(sq: int, q_offset: int = 0) -> str:
+WGMMA_HEAD_DIM = 128   # the one head dim the wgmma body takes
+
+
+def plan(sq: int, q_offset: int = 0, d: int = 128) -> str:
     """The body kernels 4 and 5 launch for ``sq`` query rows at
-    ``q_offset``. A function of offset + SQ alone, so kernel 4 at offset 0
-    takes kernel 5's body and stays bit-equal to it."""
+    ``q_offset`` and head dim ``d``. A function of offset + SQ and D alone,
+    so kernel 4 at offset 0 takes kernel 5's body and stays bit-equal to it.
+    A head dim other than 128 takes the ``mma.sync`` body at every length."""
+    if d != WGMMA_HEAD_DIM:
+        return "sync"
     return "sync" if q_offset + sq <= SYNC_MAX_KEYS else "wgmma"
 
 
@@ -54,8 +65,8 @@ def flash_prefill_plain(q, k, v, scale: float) -> torch.Tensor:
     return attention_plain(q, k, v, scale, pos[None, :] <= pos[:, None])
 
 
-def _entry():
-    fn = build.library("flash_prefill").gptq_flash_prefill
+def _entry(d: int):
+    fn = build.library("flash_prefill", d).gptq_flash_prefill
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p] + [i] * 5 + [ctypes.c_float, i, p]
@@ -64,20 +75,22 @@ def _entry():
 
 
 def flash_prefill_cuda(q, k, v, scale: float) -> torch.Tensor:
-    """The kernel: q (B, S, H, 128) bf16, k/v (B, S, Hkv, 128) bf16 with
-    H % Hkv == 0, all contiguous on the card. Anything else raises."""
+    """The kernel: q (B, S, H, D) bf16, k/v (B, S, Hkv, D) bf16 with
+    H % Hkv == 0 and D one of ``attention.HEAD_DIMS``, all contiguous on the
+    card. Anything else raises."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
-    if d != 128 or hkv < 1 or h % hkv:
-        raise ValueError(f"causal prefill kernel takes head_dim 128 and H % Hkv == 0; "
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"causal prefill kernel takes H % Hkv == 0; "
                          f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    check_head_dim("causal prefill kernel", d)
     refuse_grad("flash_prefill", q, k, v)
     check_tensor(q, "q", torch.bfloat16)
     check_tensor(k, "k", torch.bfloat16, (b, s, hkv, d))
     check_tensor(v, "v", torch.bfloat16, (b, s, hkv, d))
     if b * s == 0:
         return torch.empty_like(q)
-    return _launch(q, k, v, scale, plan(s))
+    return _launch(q, k, v, scale, plan(s, 0, d))
 
 
 def _launch(q, k, v, scale: float, path: str) -> torch.Tensor:
@@ -85,15 +98,17 @@ def _launch(q, k, v, scale: float, path: str) -> torch.Tensor:
     measurement may force one)."""
     b, s, h, d = q.shape
     out = torch.empty_like(q)
-    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-                   k.shape[2], d, float(scale), PATH_IDS[path],
-                   torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(build.library("flash_prefill"), err, f"flash_prefill ({path})")
+    err = _entry(d)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+                    k.shape[2], d, float(scale), PATH_IDS[path],
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(build.library("flash_prefill", d), err, f"flash_prefill ({path})")
     flash_prefill_cuda.launches += 1
+    count_forms(flash_prefill_cuda, k.dtype, d)
     return out
 
 
 flash_prefill_cuda.launches = 0
+flash_prefill_cuda.forms = new_forms(by_dtype=False)   # launches by head dim
 
 
 def _flash_prefill(q, k, v, scale):

@@ -123,6 +123,44 @@ class PackedLinear:
             out["bias"] = self.bias.float().cpu().numpy().astype(np.float16)
         return out
 
+    @staticmethod
+    def concat_outputs(linears: list["PackedLinear"]) -> "PackedLinear":
+        """Fuse linears that read the same input into one, their output
+        features side by side (the TPU package's ``concat_outputs``,
+        ``gptq_for_llama_tpu/ops/linear.py:237-283``): one kernel launch
+        in place of several, over one packed weight stream. Requires the
+        same bits, group size, K, wire bits and input permutation (an
+        act-order checkpoint's q/k/v usually differ there); anything else
+        raises ValueError. A linear without a bias gets zeros in the fused
+        one. The host wire buffers are concatenated too, so ``to_wire`` of
+        the result is the linears' wire buffers side by side. The device
+        tensors are new (a concatenation); the inputs are not changed."""
+        a = linears[0]
+        for b in linears[1:]:
+            if (b.bits != a.bits or b.groupsize != a.groupsize
+                    or b.in_features != a.in_features or b.wire_bits != a.wire_bits
+                    or b.scales.shape[0] != a.scales.shape[0]):
+                raise ValueError("fuse: incompatible quantization layouts")
+            if (b.perm is None) != (a.perm is None) or (
+                    a.perm is not None and not torch.equal(a.perm, b.perm)):
+                raise ValueError("fuse: differing input permutations")
+        bias = None
+        if any(lin.bias is not None for lin in linears):
+            bias = torch.cat([lin.bias if lin.bias is not None else
+                              torch.zeros(lin.out_features, dtype=a.scales.dtype,
+                                          device=a.scales.device) for lin in linears])
+        return PackedLinear(
+            qweight=torch.cat([lin.qweight for lin in linears], dim=1),
+            scales=torch.cat([lin.scales for lin in linears], dim=1),
+            zeros=torch.cat([lin.zeros for lin in linears], dim=1),
+            perm=a.perm, bias=bias, bits=a.bits, groupsize=a.groupsize,
+            in_features=a.in_features,
+            out_features=int(sum(lin.out_features for lin in linears)),
+            qzeros=np.concatenate([lin.qzeros for lin in linears], axis=1),
+            g_idx=a.g_idx,
+            scales_wire=np.concatenate([lin.scales_wire for lin in linears], axis=1),
+            wire_bits=a.wire_bits, perm_sig=a.perm_sig)
+
     def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
         """Dense (K_sorted, N) weight in device row order (after perm)."""
         k, n = self.in_features, self.out_features

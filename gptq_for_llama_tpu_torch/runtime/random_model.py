@@ -1,4 +1,5 @@
-"""Seeded random LLaMA weights in the packed wire format.
+"""Seeded random weights in the packed wire format: LLaMA, and the
+``gaussian_wire_<arch>`` models of OPT, GPT-NeoX and GPT-2.
 
 The logic of the TPU package's ``bench.random_wire_llama``: random wire
 buffers (qweight, qzeros, scales, g_idx) loaded through
@@ -102,7 +103,7 @@ def gaussian_wire_llama(cfg, seed: int = 0, groupsize: int = 128, bits: int = 4,
     depend on the prompt: every linear of every layer is its own
     ``gaussian_wire_linear`` draw, made on the device from ``seed``. The
     embedding has unit variance and the two linears that write to the residual
-    stream (o_proj, down_proj) are drawn at ``branch_gain`` x 0.02, so a layer
+    stream (o_proj, down_proj) are drawn at a tenth of 0.02, so a layer
     adds a fraction of the stream, as in a trained network: with every branch
     at full size a deep random network amplifies a rounding difference layer
     over layer, and two correct runs of it part. Same shapes and bytes per
@@ -131,6 +132,107 @@ def gaussian_wire_llama(cfg, seed: int = 0, groupsize: int = 128, bits: int = 4,
     head = torch.randn(h, v, generator=gen, device=device) * (2.0 / h ** 0.5)
     return {"embed_tokens": emb.to(dtype), "layers": layers, "norm": ones.clone(),
             "lm_head": {"kernel": head.to(dtype)}}
+
+
+class _GaussianDraws:
+    """The draws of one ``gaussian_wire_<arch>`` model, made on the device
+    from ``seed``: INT4 g128 packed linears (``gaussian_wire_linear``, with a
+    small Gaussian bias where asked), the residual writers at a tenth of the
+    others' 0.02 (``out_std``), LayerNorms and embeddings."""
+
+    GROUPSIZE, BITS = 128, 4
+    out_std = 0.02 * 0.1
+
+    def __init__(self, cfg, seed, device, dtype):
+        self.device = resolve_device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+        self.cfg, self.dtype = cfg, dtype
+
+    def randn(self, *shape, std=1.0):
+        return (torch.randn(*shape, generator=self.gen, device=self.device) * std).to(self.dtype)
+
+    def packed(self, k, n, std=0.02, bias=True):
+        tree = gaussian_wire_linear(self.gen, k, n, self.GROUPSIZE, self.BITS, std)
+        if bias:
+            tree["bias"] = self.randn(n, std=0.02).float().cpu().numpy()
+        return params_from_jax(tree, self.device, self.dtype)
+
+    def ln(self):
+        h = self.cfg.hidden_size
+        return {"w": torch.ones(h, dtype=self.dtype, device=self.device),
+                "b": torch.zeros(h, dtype=self.dtype, device=self.device)}
+
+    def head(self, k, n):
+        """A dense output head whose logits spread over a few units."""
+        return {"kernel": self.randn(k, n, std=2.0 / k ** 0.5)}
+
+
+def gaussian_wire_opt(cfg, seed: int = 0, device=None, dtype=torch.bfloat16) -> dict:
+    """Packed OPT parameters on ``device`` (``None``: the card), drawn as
+    ``gaussian_wire_llama`` draws LLaMA's: every linear its own
+    ``gaussian_wire_linear`` with a Gaussian bias, out_proj and fc2 (the
+    residual writers) at a tenth of 0.02, unit LayerNorms, unit
+    Gaussian token embeddings and position rows at half that scale (so the
+    tokens, not the positions, lead the stream). The head is a draw of its
+    own in the tied head's place (``lm_head``), where a trained OPT ties it
+    to the embedding: tied to a random embedding, a token's own row wins
+    every logit by sqrt(width) and the model copies its input token, which
+    would hide attention from the token checks."""
+    d = _GaussianDraws(cfg, seed, device, dtype)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    proj = cfg.word_embed_proj_dim or h
+    layers = [{"self_attn_layer_norm": d.ln(), "final_layer_norm": d.ln(),
+               "self_attn": {"q_proj": d.packed(h, h), "k_proj": d.packed(h, h),
+                             "v_proj": d.packed(h, h), "out_proj": d.packed(h, h, d.out_std)},
+               "fc1": d.packed(h, inter), "fc2": d.packed(inter, h, d.out_std)}
+              for _ in range(cfg.num_layers)]
+    emb = d.randn(cfg.vocab_size, proj)
+    params = {"embed_tokens": emb, "embed_positions": d.randn(cfg.max_seq_len + 2, h, std=0.5),
+              "layers": layers, "final_layer_norm": d.ln()}
+    if cfg.word_embed_proj_dim:
+        params["project_in"] = d.packed(proj, h, bias=False)
+        params["project_out"] = d.packed(h, proj, bias=False)
+    params["lm_head"] = d.head(proj, cfg.vocab_size)
+    return params
+
+
+def gaussian_wire_neox(cfg, seed: int = 0, device=None, dtype=torch.bfloat16) -> dict:
+    """Packed GPT-NeoX parameters on ``device`` (``None``: the card), drawn
+    as ``gaussian_wire_opt`` draws OPT's: the fused query_key_value (K = hidden,
+    N = 3 hidden), dense and the MLP packed with Gaussian biases, dense and
+    dense_4h_to_h at a tenth of 0.02, a unit-variance embed_in and a
+    dense embed_out."""
+    d = _GaussianDraws(cfg, seed, device, dtype)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    layers = [{"input_layernorm": d.ln(), "post_attention_layernorm": d.ln(),
+               "attention": {"query_key_value": d.packed(h, 3 * h),
+                             "dense": d.packed(h, h, d.out_std)},
+               "mlp": {"dense_h_to_4h": d.packed(h, inter),
+                       "dense_4h_to_h": d.packed(inter, h, d.out_std)}}
+              for _ in range(cfg.num_layers)]
+    return {"embed_in": d.randn(cfg.vocab_size, h), "layers": layers,
+            "final_layer_norm": d.ln(), "embed_out": d.head(h, cfg.vocab_size)}
+
+
+def gaussian_wire_gpt2(cfg, seed: int = 0, device=None, dtype=torch.bfloat16) -> dict:
+    """Packed GPT-2 parameters on ``device`` (``None``: the card), drawn as
+    ``gaussian_wire_opt`` draws OPT's: c_attn in the [Q | K | V] block layout,
+    the two c_proj at a tenth of 0.02, Gaussian biases, Gaussian wte
+    and wpe, and the head a draw of its own in the tied head's place (see
+    ``gaussian_wire_opt``)."""
+    d = _GaussianDraws(cfg, seed, device, dtype)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    layers = [{"ln_1": d.ln(), "ln_2": d.ln(),
+               "attn": {"c_attn": d.packed(h, 3 * h), "c_proj": d.packed(h, h, d.out_std)},
+               "mlp": {"c_fc": d.packed(h, inter), "c_proj": d.packed(inter, h, d.out_std)}}
+              for _ in range(cfg.num_layers)]
+    return {"wte": d.randn(cfg.vocab_size, h), "wpe": d.randn(cfg.max_seq_len, h, std=0.5),
+            "layers": layers, "ln_f": d.ln(), "lm_head": d.head(h, cfg.vocab_size)}
+
+
+GAUSSIAN_WIRE = {"llama": gaussian_wire_llama, "opt": gaussian_wire_opt,
+                 "neox": gaussian_wire_neox, "gpt2": gaussian_wire_gpt2}
 
 
 def model_weight_bytes(cfg, groupsize: int = 128, bits: int = 4) -> int:

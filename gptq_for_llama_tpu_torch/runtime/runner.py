@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.registry import get_arch
+from ..models.registry import check_positions, embed_weight, get_arch
 from ..ops import kv_dtype as kv
 from .graphs import Graphs, bucket_for, live_buckets
 
@@ -112,7 +112,7 @@ class ModelRunner:
 
     def __init__(self, arch_name: str, cfg, params, batch_size: int = 1,
                  max_seq_len: Optional[int] = None, dtype=torch.bfloat16, device=None,
-                 cache_impl: str = "classic", kv_dtype=None):
+                 cache_impl: str = "classic", kv_dtype=None, fuse_qkv: bool = False):
         self.cache_impl = check_cache_impl(cache_impl)
         self.kv_dtype = kv.check_kv_dtype(kv_dtype or dtype)
         self.device = resolve_device(device)
@@ -122,10 +122,15 @@ class ModelRunner:
         self.params = params
         self.batch = batch_size
         self.max_len = max_seq_len or cfg.max_seq_len
+        check_positions(self.arch, params, self.max_len)
         self.dtype = dtype
-        emb_dev = params["embed_tokens"].device
+        emb_dev = embed_weight(params).device
         if emb_dev.type != self.device.type:
             raise ValueError(f"params live on {emb_dev}, the runner on {self.device}")
+        if fuse_qkv and hasattr(self.arch, "fuse_attention"):
+            # load-time q/k/v concat: one packed weight stream and one kernel
+            # launch a layer in place of three (the caller's params unchanged)
+            self.params = params = self.arch.fuse_attention(params)
         self.decode_buckets = live_buckets(self.max_len)
         self.forwards = {"prefill": 0, "decode": 0}
         self.graphs = Graphs(self.device, counters=(self.forwards,))
@@ -227,7 +232,7 @@ class ModelRunner:
         off = store.offs[:1]
         positions = store.offs[:, None].long() + torch.arange(ids.shape[1], device=self.device)
         rope = arch.step_rope(cfg, positions, self.dtype)
-        x = arch.embed(self.params, cfg, ids).to(self.dtype)
+        x = arch.embed(self.params, cfg, ids, positions).to(self.dtype)
         x, delta = arch.stack(self.params, cfg, x, positions, None,
                               lambda li: (store.k[li], store.v[li], off, None, bound), rope=rope)
         logits = arch.head(self.params, cfg, x, delta)
@@ -244,7 +249,7 @@ class ModelRunner:
         offs = store.offs
         positions = offs[:, None].long()
         rope = arch.step_rope(cfg, positions, self.dtype)
-        x = arch.embed(self.params, cfg, ids).to(self.dtype)
+        x = arch.embed(self.params, cfg, ids, positions).to(self.dtype)
         fold = ("fold",) if self.cache_impl == "fold" else ()
         x, delta = arch.stack(
             self.params, cfg, x, positions, None,

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.registry import get_arch
+from ..models.registry import check_positions, embed_weight, get_arch
 from ..ops import kv_dtype as kv
 from .graphs import Graphs, bucket_for, live_buckets
 from .runner import check_cache_impl, sample_logits, sample_mode
@@ -92,16 +92,17 @@ class ServingEngine:
                  admit_batch_max: int = 128, mesh=None, shard_map_tp: bool = False,
                  fuse_qkv: bool = False, kv_dtype=None, device=None, seed: int = 0,
                  cache_impl: str = "classic"):
-        for given, what in ((mesh is not None or shard_map_tp, "tensor-parallel serving (A18)"),
-                            (fuse_qkv, "fuse_qkv (A4)")):
-            if given:
-                raise NotImplementedError(f"{what} is not yet ported to "
-                                          f"gptq_for_llama_tpu_torch (see ROADMAP)")
+        if mesh is not None or shard_map_tp:
+            raise NotImplementedError("tensor-parallel serving (A18) is not yet ported to "
+                                      "gptq_for_llama_tpu_torch (see ROADMAP)")
         self.device = resolve_device(device)
-        if params["embed_tokens"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed_tokens'].device}, "
-                             f"the engine on {self.device}")
+        emb_dev = embed_weight(params).device
+        if emb_dev.type != self.device.type:
+            raise ValueError(f"params live on {emb_dev}, the engine on {self.device}")
         self.arch = get_arch(arch_name)
+        if fuse_qkv and hasattr(self.arch, "fuse_attention"):
+            # load-time q/k/v concat (the caller's params unchanged)
+            params = self.arch.fuse_attention(params)
         self.arch_name = arch_name
         self.cfg = cfg
         self.params = params
@@ -112,6 +113,7 @@ class ServingEngine:
         self.kv_dtype = kv.check_kv_dtype(kv_dtype or dtype)
         self.b = batch_slots
         self.max_len = max_seq_len or cfg.max_seq_len
+        check_positions(self.arch, params, self.max_len)
         self.buckets = tuple(b for b in prefill_buckets if b <= self.max_len)
         # implicit final bucket: a prompt longer than every configured bucket
         # but within the cache must still be servable
@@ -181,7 +183,7 @@ class ServingEngine:
         caches are written in place."""
         arch, cfg = self.arch, self.cfg
         rope = arch.step_rope(cfg, positions, self.dtype)
-        x = arch.embed(self.params, cfg, ids).to(self.dtype)
+        x = arch.embed(self.params, cfg, ids, positions).to(self.dtype)
         return arch.stack(self.params, cfg, x, positions, None, past, rope=rope)
 
     def _load(self, state) -> None:
@@ -297,7 +299,7 @@ class ServingEngine:
         x, delta = self._forward(state["ids_t"][:1, :blen], positions, past)
         self.forwards[kind] += 1
         return self.arch.head(self.params, self.cfg, x.index_select(1, last),
-                              delta.index_select(1, last))[:, 0]
+                              None if delta is None else delta.index_select(1, last))[:, 0]
 
     def _chunk_decode_step(self, state, i: int, ids: np.ndarray, off0: int, last_idx: int):
         """One forward: the next prompt chunk of slot ``i`` + one decode token
@@ -338,7 +340,7 @@ class ServingEngine:
         # the decode rows and the chunk's last row
         rows = torch.cat([torch.arange(b_dec, device=self.device), b_dec + last.long()])
         logits = self.arch.head(self.params, self.cfg, x.index_select(1, rows),
-                                delta.index_select(1, rows))[0]
+                                None if delta is None else delta.index_select(1, rows))[0]
         off.add_(live.to(off.dtype))
         self.forwards["chunk+decode"] += 1
         return logits
@@ -563,7 +565,7 @@ class ServingEngine:
         # head on the last REAL hidden state of each row only
         last = (torch.arange(self.b, device=self.device), state["lens_t"] - 1)
         return self.arch.head(self.params, self.cfg, x[last][:, None],
-                              delta[last][:, None])[:, 0]
+                              None if delta is None else delta[last][:, None])[:, 0]
 
     def _new_cache(self, shape) -> list:
         return [torch.zeros(shape, dtype=self.kv_dtype, device=self.device)

@@ -4,6 +4,7 @@ model with ``--device cpu``. What the CLI reports equals the API calls on
 the same checkpoint; without ``--device`` and without a card it raises, and
 flags of slices not ported yet raise."""
 
+import json
 import os
 
 import numpy as np
@@ -59,8 +60,39 @@ def test_cli_needs_the_card_unless_told_cpu(model_dir):
 
 
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"], ["--distributed"],
-                                   ["--fuse-attn"], ["--pre-layer", "1"],
+                                   ["--pre-layer", "1"],
                                    ["--pre-layer", "1", "--kv-dtype", "fp8"]])
 def test_cli_unported_flags_raise(model_dir, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main([model_dir, "synthetic", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--fuse-attn", "--tp", "2"],
+                                   ["--fuse-attn", "--pre-layer", "1"]])
+def test_cli_fuse_attn_keeps_the_tpu_packages_refusals(model_dir, flags):
+    """--fuse-attn is ported (A4); with --tp or --pre-layer it is a parser
+    error, as in gptq_for_llama_tpu/cli/main.py:120-125."""
+    with pytest.raises(SystemExit):
+        main([model_dir, "synthetic", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--eval", "--seqlen", "65"],
+                                   ["--benchmark", "80", "--seqlen", "80"]])
+def test_cli_refuses_lengths_past_the_position_table(tmp_path, flags):
+    """A GPT-2 of 64 learned positions: an eval window or a benchmark cache
+    longer than its table raises (a real token past it would read a clamped
+    row)."""
+    d, _ = hf_tiny.tiny_gpt2_dir(tmp_path / "gpt2")
+    with pytest.raises(ValueError, match="position table"):
+        main([d, "synthetic", "--device", "cpu", *flags])
+
+
+def test_cli_writes_its_report(model_dir, tmp_path):
+    """--report writes the dict the CLI returns as JSON (how a caller in
+    another process reads the launches and the ppl)."""
+    path = str(tmp_path / "report.json")
+    rep = main([model_dir, "synthetic", "--benchmark", "16", "--check", "--device", "cpu",
+                "--report", path])
+    with open(path) as f:
+        assert json.load(f) == json.loads(json.dumps(rep))
+    assert rep["benchmark"]["tokens"] == 16 and "benchmark" in rep["launches"]

@@ -362,17 +362,17 @@ EDGES = (0, 63, 64, 127, 128, 255, 256, 2047)
 SERVING = (37, 150, 300, 511, 512, 900, 1200, 1500)
 
 
-def _decode_case(card, b, s, h, hkv, offs, seed=0):
-    """Kernel 3's inputs, clean, and the caches again with NaN in every slot
-    PAST each row's offset (slot offset[b] is attended): a kernel that read
-    one would return NaN. The plain version multiplies a dead slot's V row by
-    a zero weight, so it takes the clean caches."""
+def _decode_case(card, b, s, h, hkv, offs, seed=0, d=128):
+    """Kernel 3's inputs at head dim ``d``, clean, and the caches again with
+    NaN in every slot PAST each row's offset (slot offset[b] is attended): a
+    kernel that read one would return NaN. The plain version multiplies a
+    dead slot's V row by a zero weight, so it takes the clean caches."""
     gen = torch.Generator(device=card)
     gen.manual_seed(seed)
 
     def r(*shape):
         return torch.randn(*shape, generator=gen, device=card).bfloat16()
-    q, k, v = r(b, 1, h, 128), r(b, s, hkv, 128), r(b, s, hkv, 128)
+    q, k, v = r(b, 1, h, d), r(b, s, hkv, d), r(b, s, hkv, d)
     off = torch.tensor(offs, dtype=torch.int32, device=card)
     dead = (torch.arange(s, device=card)[None, :] > off[:, None])[:, :, None, None]
     return q, k, v, k.masked_fill(dead, float("nan")), v.masked_fill(dead, float("nan")), off
@@ -386,20 +386,28 @@ DECODE_CASES = [(2, 300, 8, 8, (5, 299)), (2, 300, 8, 2, (5, 299)), (2, 300, 12,
                 *[(8, 2048, 2 * g, 2, EDGES) for g in range(1, 9)],
                 (2, 2048, 32, 8, (100, 1500)), (1, 2048, 32, 32, (2047,)),
                 (8, 2048, 32, 32, SERVING)]
+# the head dims other than 128 (ROADMAP B6): every G from 1 to 8 at the edge
+# offsets, and each model's heads at the last slot (GPT-2 16 at D = 64,
+# OPT-2.7B 32 at 80, NeoX-20B 64 at 96; 16 over 2 at 256)
+NEW_DIMS = (64, 80, 96, 256)
+DIM_HEADS = {64: (16, 16), 80: (32, 32), 96: (64, 64), 256: (16, 2)}
+DIM_CASES = [*[(8, 2048, 2 * g, 2, EDGES, d) for d in NEW_DIMS for g in range(1, 9)],
+             *[(1, 2048, *DIM_HEADS[d], (2047,), d) for d in NEW_DIMS]]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,hkv,offs", DECODE_CASES)
-def test_decode_attention_matches_plain(card, b, s, h, hkv, offs):
+@pytest.mark.parametrize("b,s,h,hkv,offs,d", [(*c, 128) for c in DECODE_CASES] + DIM_CASES)
+def test_decode_attention_matches_plain(card, b, s, h, hkv, offs, d):
     """1e-2 of each row's norm: both softmax in fp32; the kernel's output is
     bf16. Per-row offsets over caches holding NaN past each offset, with the
     plan made for the whole cache, for the true bound and for one below most
     offsets (the last chunk then runs to each row's own offset): no NaN, and
     two runs bit-equal (the chunks are summed in a fixed order). Then host
     int offsets: each row alone at its own, and every row at 77 (one chunk)
-    and at the cache's last slot (chunks and the combine kernel)."""
-    scale = 128 ** -0.5
-    q, k, v, pk, pv, off = _decode_case(card, b, s, h, hkv, offs, seed=b * h + hkv)
+    and at the cache's last slot (chunks and the combine kernel). Head dims
+    64, 80, 96, 128 and 256, each its own library."""
+    scale = d ** -0.5
+    q, k, v, pk, pv, off = _decode_case(card, b, s, h, hkv, offs, seed=b * h + hkv, d=d)
     want = decode_attention_plain(q, k, v, off, scale)
     for max_live in (None, max(offs) + 1, 100):
         got = decode_attention(q, pk, pv, off, scale, max_live)
@@ -436,15 +444,20 @@ def test_kernels_refuse_what_they_do_not_take(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,off,hkv", [(45, 0, 8), (45, 77, 2), (130, 3, 8)])
-def test_flash_prefill_blocked_matches_plain(card, sq, off, hkv):
-    q = torch.randn(1, sq, 8, 128, device=card).bfloat16()
-    k = torch.randn(1, 256, hkv, 128, device=card).bfloat16()
-    v = torch.randn(1, 256, hkv, 128, device=card).bfloat16()
+@pytest.mark.parametrize("sq,off,hkv,d", [(45, 0, 8, 128), (45, 77, 2, 128), (130, 3, 8, 128),
+                                          *[(c, o, 2, d) for d in NEW_DIMS
+                                            for c, o in ((45, 77), (130, 3))]])
+def test_flash_prefill_blocked_matches_plain(card, sq, off, hkv, d):
+    """Head dims other than 128 take the mma.sync body at every length; the
+    launch is counted under its head dim."""
+    q = torch.randn(1, sq, 8, d, device=card).bfloat16()
+    k = torch.randn(1, 256, hkv, d, device=card).bfloat16()
+    v = torch.randn(1, 256, hkv, d, device=card).bfloat16()
     kernels.reset_launch_counts()
-    assert _rows_close(flash_prefill_blocked(q, k, v, off, 128 ** -0.5),
-                       flash_prefill_blocked_plain(q, k, v, off, 128 ** -0.5), 1e-2)
-    assert kernels.launch_counts()["flash_prefill_blocked"] == 1
+    assert _rows_close(flash_prefill_blocked(q, k, v, off, d ** -0.5),
+                       flash_prefill_blocked_plain(q, k, v, off, d ** -0.5), 1e-2)
+    counts = kernels.launch_counts()
+    assert counts["flash_prefill_blocked"] == counts[f"flash_prefill_blocked:d{d}"] == 1
 
 
 @pytest.mark.cuda
@@ -474,37 +487,42 @@ def test_flash_prefill_blocked_serving_rows(card, sq, off, skv, h, hkv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,hkv", [(1, 1, 8, 8), (2, 300, 8, 2), (1, 2048, 4, 4)])
-def test_kernels_4_and_5_agree_without_an_offset(card, b, s, h, hkv):
+@pytest.mark.parametrize("b,s,h,hkv,d", [(1, 1, 8, 8, 128), (2, 300, 8, 2, 128),
+                                         (1, 2048, 4, 4, 128),
+                                         *[(2, 300, 8, 2, d) for d in NEW_DIMS]])
+def test_kernels_4_and_5_agree_without_an_offset(card, b, s, h, hkv, d):
     """At offset 0 with SQ = SKV kernel 4 computes kernel 5's function with
     the same body (csrc/flash_common.cuh): the outputs are bit-equal."""
-    q = torch.randn(b, s, h, 128, device=card).bfloat16()
-    k = torch.randn(b, s, hkv, 128, device=card).bfloat16()
-    v = torch.randn(b, s, hkv, 128, device=card).bfloat16()
-    got4 = flash_prefill_blocked(q, k, v, 0, 128 ** -0.5)
-    got5 = flash_prefill(q, k, v, 128 ** -0.5)
+    q = torch.randn(b, s, h, d, device=card).bfloat16()
+    k = torch.randn(b, s, hkv, d, device=card).bfloat16()
+    v = torch.randn(b, s, hkv, d, device=card).bfloat16()
+    got4 = flash_prefill_blocked(q, k, v, 0, d ** -0.5)
+    got5 = flash_prefill(q, k, v, d ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(got4.view(torch.int16), got5.view(torch.int16))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,hkv", [(1, 1, 8, 8), (2, 63, 8, 2), (1, 64, 4, 4),
-                                       (1, 65, 8, 8), (2, 300, 8, 2), (1, 1000, 4, 1),
-                                       (1, 2048, 4, 2), (1, 127, 4, 1), (1, 128, 4, 4),
-                                       (2, 129, 8, 1)])
-def test_flash_prefill_matches_plain(card, b, s, h, hkv):
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    *[(*c, 128) for c in ((1, 1, 8, 8), (2, 63, 8, 2), (1, 64, 4, 4), (1, 65, 8, 8),
+                          (2, 300, 8, 2), (1, 1000, 4, 1), (1, 2048, 4, 2), (1, 127, 4, 1),
+                          (1, 128, 4, 4), (2, 129, 8, 1))],
+    *[(*c, d) for d in NEW_DIMS for c in ((2, 63, 8, 2), (1, 1000, 8, 1))]])
+def test_flash_prefill_matches_plain(card, b, s, h, hkv, d):
     """1e-2 of each row's norm: both softmax in fp32; the kernel rounds p and
     its output to bf16 (about 2^-9 relative each). S = 127-129 straddle the
-    wgmma body's 128-query block and key tile (rows past S read as zeros)."""
-    q = torch.randn(b, s, h, 128, device=card).bfloat16()
-    k = torch.randn(b, s, hkv, 128, device=card).bfloat16()
-    v = torch.randn(b, s, hkv, 128, device=card).bfloat16()
+    wgmma body's 128-query block and key tile (rows past S read as zeros).
+    Head dims other than 128: the mma.sync body."""
+    q = torch.randn(b, s, h, d, device=card).bfloat16()
+    k = torch.randn(b, s, hkv, d, device=card).bfloat16()
+    v = torch.randn(b, s, hkv, d, device=card).bfloat16()
     kernels.reset_launch_counts()
-    got = flash_prefill(q, k, v, 128 ** -0.5)
+    got = flash_prefill(q, k, v, d ** -0.5)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_prefill"] == 1
+    assert kernels.launch_counts()[f"flash_prefill:d{d}"] == 1
     assert torch.isfinite(got.float()).all()
-    assert _rows_close(got, flash_prefill_plain(q, k, v, 128 ** -0.5), 1e-2)
+    assert _rows_close(got, flash_prefill_plain(q, k, v, d ** -0.5), 1e-2)
 
 
 @pytest.mark.cuda
@@ -558,7 +576,9 @@ def test_kernel_4_reads_nothing_past_the_causal_limit(card, path, sq, off, skv, 
 @pytest.mark.cuda
 def test_causal_sdpa_goes_through_kernel_5(card):
     """A cache-less causal sdpa on the card launches kernel 5 for any S; a
-    cache-less call with another mask raises instead of running plain."""
+    cache-less call with another mask raises instead of running plain, and
+    so does a head dim no library is built for (72; 64, 80, 96, 128 and 256
+    are)."""
     q = torch.randn(1, 37, 8, 128, device=card).bfloat16()
     kernels.reset_launch_counts()
     common.sdpa(q, q, q, None, causal=True)
@@ -570,9 +590,9 @@ def test_causal_sdpa_goes_through_kernel_5(card):
     k8 = q.to(torch.float8_e4m3fn)
     with pytest.raises(TypeError):
         flash_prefill(q, k8, k8, 0.1)
-    q64 = torch.randn(1, 8, 4, 64, device=card).bfloat16()
-    with pytest.raises(ValueError):
-        flash_prefill(q64, q64, q64, 0.1)
+    q72 = torch.randn(1, 8, 4, 72, device=card).bfloat16()
+    with pytest.raises(ValueError, match="B6"):
+        flash_prefill(q72, q72, q72, 0.1)
 
 
 def _bf16_ulps(got, want) -> int:
@@ -668,16 +688,16 @@ def test_add_rms_norm_refusals_and_launch_floor(card):
     assert kernels.launch_counts()["rms_norm"] == 0
 
 
-def _paged_case(card, b, h, hkv, bs, mb, offs, poison=True):
+def _paged_case(card, b, h, hkv, bs, mb, offs, poison=True, d=128):
     """A pool whose tables are a random permutation (no two logical neighbours
     are physical neighbours), with NaN in every block no row owns and in every
-    slot past a row's offset."""
+    slot past a row's offset; head dim ``d``."""
     nb = b * mb + 3
     gen = torch.Generator(device=card)
     gen.manual_seed(b * 1000 + bs)
-    kp = torch.randn(nb, bs, hkv, 128, generator=gen, device=card).bfloat16()
-    vp = torch.randn(nb, bs, hkv, 128, generator=gen, device=card).bfloat16()
-    q = torch.randn(b, 1, h, 128, generator=gen, device=card).bfloat16()
+    kp = torch.randn(nb, bs, hkv, d, generator=gen, device=card).bfloat16()
+    vp = torch.randn(nb, bs, hkv, d, generator=gen, device=card).bfloat16()
+    q = torch.randn(b, 1, h, d, generator=gen, device=card).bfloat16()
     tables = torch.randperm(nb, generator=gen, device=card)[:b * mb].reshape(b, mb).int()
     off = torch.tensor(offs, dtype=torch.int32, device=card)
     if poison:
@@ -693,36 +713,42 @@ def _paged_case(card, b, h, hkv, bs, mb, offs, poison=True):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,hkv,bs,mb,offs", [
-    (3, 8, 8, 16, 24, (0, 37, 383)), (2, 8, 2, 8, 40, (5, 319)), (2, 12, 4, 24, 12, (100, 287)),
-    (4, 4, 4, 32, 70, (63, 64, 1500, 2239)), (8, 32, 32, 16, 128, (37, 127, 128, 500, 900, 1500,
-                                                                   2000, 2047))])
-def test_pool_decode_attention_matches_plain(card, b, h, hkv, bs, mb, offs):
+@pytest.mark.parametrize("b,h,hkv,bs,mb,offs,d", [
+    *[(*c, 128) for c in (
+        (3, 8, 8, 16, 24, (0, 37, 383)), (2, 8, 2, 8, 40, (5, 319)),
+        (2, 12, 4, 24, 12, (100, 287)), (4, 4, 4, 32, 70, (63, 64, 1500, 2239)),
+        (8, 32, 32, 16, 128, (37, 127, 128, 500, 900, 1500, 2000, 2047)))],
+    *[(8, *DIM_HEADS[d], 16, 128, SERVING, d) for d in NEW_DIMS],
+    *[(2, 16, 2, 8, 40, (5, 319), d) for d in NEW_DIMS]])
+def test_pool_decode_attention_matches_plain(card, b, h, hkv, bs, mb, offs, d):
     """1e-2 of each row's norm, as kernel 3, over a POISONED pool: a kernel
     that read one slot past an offset, or one block a row does not own, would
     return NaN. The host-side bound on the live length changes the split over
     chunks only: with no bound, the true one, or one far too small (the last
     chunk runs to the row's own offset) the result is the same."""
-    q, kp, vp, tables, off = _paged_case(card, b, h, hkv, bs, mb, offs)
-    want = pool_decode_attention_plain(q, kp, vp, tables, off, 128 ** -0.5)
+    q, kp, vp, tables, off = _paged_case(card, b, h, hkv, bs, mb, offs, d=d)
+    want = pool_decode_attention_plain(q, kp, vp, tables, off, d ** -0.5)
     assert torch.isfinite(want.float()).all()
     kernels.reset_launch_counts()
     for max_live in (None, max(offs) + 1, max(1, (max(offs) + 1) // 3)):
-        got = pool_decode_attention(q, kp, vp, tables, off, 128 ** -0.5, max_live)
+        got = pool_decode_attention(q, kp, vp, tables, off, d ** -0.5, max_live)
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all(), f"max_live={max_live}: read a poisoned slot"
         assert _rows_close(got, want, 1e-2), f"max_live={max_live}"
     assert kernels.launch_counts()["pool_decode_attention"] == 3
+    assert kernels.launch_counts()[f"pool_decode_attention:d{d}"] == 3
     assert kernels.launch_counts()["decode_attention"] == 0
 
 
 @pytest.mark.cuda
-def test_pool_kernel_equals_dense_kernel_on_the_gathered_view(card):
+@pytest.mark.parametrize("d", [128, *NEW_DIMS])
+def test_pool_kernel_equals_dense_kernel_on_the_gathered_view(card, d):
     """Kernel 7 is kernel 3 with the slot address routed through the table:
     on the gathered logical view the dense kernel gives the same bits."""
-    q, kp, vp, tables, off = _paged_case(card, 3, 8, 2, 16, 64, (0, 300, 1023), poison=False)
-    kd = kp[tables.long()].reshape(3, -1, 2, 128).contiguous()
-    vd = vp[tables.long()].reshape(3, -1, 2, 128).contiguous()
+    q, kp, vp, tables, off = _paged_case(card, 3, 8, 2, 16, 64, (0, 300, 1023), poison=False,
+                                         d=d)
+    kd = kp[tables.long()].reshape(3, -1, 2, d).contiguous()
+    vd = vp[tables.long()].reshape(3, -1, 2, d).contiguous()
     for max_live in (None, 1024, 301):
         assert torch.equal(pool_decode_attention(q, kp, vp, tables, off, 0.09, max_live),
                            decode_attention(q, kd, vd, off, 0.09, max_live))
@@ -904,13 +930,13 @@ def test_qmm_t_dequantizes_bit_equal(card, bits, k, gs, actorder):
     assert torch.equal(got, lin.dequantize(torch.bfloat16).T.contiguous())
 
 
-def _fold_case(card, b, s, h, hkv, offs, seed=0):
+def _fold_case(card, b, s, h, hkv, offs, seed=0, d=128):
     gen = torch.Generator(device=card)
     gen.manual_seed(seed)
     def r(*shape):
         return torch.randn(*shape, generator=gen, device=card).bfloat16()
-    q, kn, vn = r(b, 1, h, 128), r(b, 1, hkv, 128), r(b, 1, hkv, 128)
-    ck, cv = r(b, s, hkv, 128), r(b, s, hkv, 128)
+    q, kn, vn = r(b, 1, h, d), r(b, 1, hkv, d), r(b, 1, hkv, d)
+    ck, cv = r(b, s, hkv, d), r(b, s, hkv, d)
     off = torch.tensor(offs, dtype=torch.int32, device=card)
     dead = (torch.arange(s, device=card)[None, :] >= off[:, None])[:, :, None, None]
     ck, cv = ck.masked_fill(dead, float("nan")), cv.masked_fill(dead, float("nan"))
@@ -918,11 +944,13 @@ def _fold_case(card, b, s, h, hkv, offs, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,hkv,offs", [
-    (1, 64, 8, 8, (0,)), (2, 300, 8, 2, (5, 299)), (3, 2048, 12, 4, (0, 700, 2047)),
-    *[(8, 2048, 2 * g, 2, EDGES) for g in range(1, 9)],
-    (2, 2048, 32, 8, (100, 1500)), (1, 2048, 32, 32, (2047,)), (8, 2048, 32, 32, SERVING)])
-def test_fused_decode_attention_matches_plain(card, b, s, h, hkv, offs):
+@pytest.mark.parametrize("b,s,h,hkv,offs,d", [
+    *[(*c, 128) for c in (
+        (1, 64, 8, 8, (0,)), (2, 300, 8, 2, (5, 299)), (3, 2048, 12, 4, (0, 700, 2047)),
+        *[(8, 2048, 2 * g, 2, EDGES) for g in range(1, 9)],
+        (2, 2048, 32, 8, (100, 1500)), (1, 2048, 32, 32, (2047,)), (8, 2048, 32, 32, SERVING))],
+    *DIM_CASES, *[(1, 64, 8, 8, (0,), d) for d in NEW_DIMS]])
+def test_fused_decode_attention_matches_plain(card, b, s, h, hkv, offs, d):
     """Kernel 9 against its plain version over caches that hold NaN at and
     past each row's offset: every output row within 1e-2 of its norm, no NaN,
     and after the write under a mixed mask the caches byte-equal the plain
@@ -932,7 +960,7 @@ def test_fused_decode_attention_matches_plain(card, b, s, h, hkv, offs):
     Offset 0: the output is v_new; 2047: the write lands on the last slot."""
     from gptq_for_llama_tpu_torch.ops.cuda.attention import (fused_decode_attention,
                                                              fused_decode_attention_plain)
-    q, ck, cv, kn, vn, off = _fold_case(card, b, s, h, hkv, offs)
+    q, ck, cv, kn, vn, off = _fold_case(card, b, s, h, hkv, offs, d=d)
     mask = torch.arange(b, device=card) % 2 == 0
     wk, wv = ck.clone(), cv.clone()
     want, _, _ = fused_decode_attention_plain(q, wk, wv, kn, vn, off, 0.09, write_mask=mask)
@@ -1548,8 +1576,9 @@ def _poisoned(cache, dead):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, *NEW_DIMS])
 @pytest.mark.parametrize("name", list(KV_DTYPES))
-def test_kernels_3_7_9_read_each_cache_dtype(card, name):
+def test_kernels_3_7_9_read_each_cache_dtype(card, name, d):
     """Kernels 3, 7 and 9 over a cache stored in ``name``, poisoned past each
     offset, against their plain versions (``kv_dtype.decode``): 1e-2 of each
     row's norm, as the bf16 cases; kernel 7 equals kernel 3 over the gathered
@@ -1560,7 +1589,7 @@ def test_kernels_3_7_9_read_each_cache_dtype(card, name):
     dt = KV_DTYPES[name]
     b, s, h, hkv = 3, 640, 8, 2
     offs = (0, 300, 639)
-    q, k, v, _, _, off = _decode_case(card, b, s, h, hkv, offs, seed=7)
+    q, k, v, _, _, off = _decode_case(card, b, s, h, hkv, offs, seed=7, d=d)
     k, v = kv_dtype.round_to(k, dt), kv_dtype.round_to(v, dt)
     dead = (torch.arange(s, device=card)[None, :] > off[:, None])[:, :, None, None]
     pk, pv = _poisoned(k, dead), _poisoned(v, dead)
@@ -1574,18 +1603,18 @@ def test_kernels_3_7_9_read_each_cache_dtype(card, name):
     bs, mb = 16, s // 16
     perm = torch.randperm(b * mb, device=card)
     tables = perm.reshape(b, mb).int()
-    kp = torch.empty((b * mb, bs, hkv, 128), dtype=dt, device=card)
+    kp = torch.empty((b * mb, bs, hkv, d), dtype=dt, device=card)
     vp = torch.empty_like(kp)
-    kv_dtype.stored(kp)[perm] = kv_dtype.stored(pk).reshape(b * mb, bs, hkv, 128)
-    kv_dtype.stored(vp)[perm] = kv_dtype.stored(pv).reshape(b * mb, bs, hkv, 128)
+    kv_dtype.stored(kp)[perm] = kv_dtype.stored(pk).reshape(b * mb, bs, hkv, d)
+    kv_dtype.stored(vp)[perm] = kv_dtype.stored(pv).reshape(b * mb, bs, hkv, d)
     got7 = pool_decode_attention(q, kp, vp, tables, off, 0.09, 640)
     got3 = decode_attention(q, pk, pv, off, 0.09, 640)
     torch.cuda.synchronize()
     assert torch.equal(got7, got3)
     assert _rows_close(pool_decode_attention_plain(q, kp, vp, tables, off, 0.09), want, 1e-5)
     # kernel 9: the stale prefix plus the current k/v, then the masked write
-    kn = torch.randn(b, 1, hkv, 128, device=card).bfloat16()
-    vn = torch.randn(b, 1, hkv, 128, device=card).bfloat16()
+    kn = torch.randn(b, 1, hkv, d, device=card).bfloat16()
+    vn = torch.randn(b, 1, hkv, d, device=card).bfloat16()
     kn[0, 0, 0, :4] = torch.tensor([600.0, -600.0, 464.0, 465.0])   # e4m3: NaN, NaN, 448, NaN
     fdead = (torch.arange(s, device=card)[None, :] >= off[:, None])[:, :, None, None]
     ck, cv = _poisoned(k, fdead), _poisoned(v, fdead)
@@ -1605,29 +1634,30 @@ def test_kernels_3_7_9_read_each_cache_dtype(card, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, *NEW_DIMS])
 @pytest.mark.parametrize("name", list(KV_DTYPES))
 @pytest.mark.parametrize("sq,off", [(100, 0), (128, 128), (512, 0)])
-def test_kernel_4_reads_each_cache_dtype(card, name, sq, off):
+def test_kernel_4_reads_each_cache_dtype(card, name, sq, off, d):
     """Kernel 4 over a cache stored in ``name`` (its mma.sync body at every
     length), NaN past the causal limit where the dtype has one: 1e-2 of each
     row's norm against the plain version (the cache read through
     ``_load_bf16``'s rule); a graph captured at offset 0 replays at ``off``
     bit-equal to the eager launch."""
     dt = KV_DTYPES[name]
-    q = torch.randn(1, sq, 8, 128, device=card).bfloat16()
-    k, v = (kv_dtype.round_to(torch.randn(1, 1024, 2, 128, device=card), dt) for _ in range(2))
+    q = torch.randn(1, sq, 8, d, device=card).bfloat16()
+    k, v = (kv_dtype.round_to(torch.randn(1, 1024, 2, d, device=card), dt) for _ in range(2))
     dead = (torch.arange(1024, device=card) >= off + sq)[None, :, None, None]
     pk, pv = _poisoned(k, dead), _poisoned(v, dead)
-    want = flash_prefill_blocked_plain(q, k, v, off, 128 ** -0.5)
-    got = flash_prefill_blocked(q, pk, pv, off, 128 ** -0.5)
+    want = flash_prefill_blocked_plain(q, k, v, off, d ** -0.5)
+    got = flash_prefill_blocked(q, pk, pv, off, d ** -0.5)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all() and _rows_close(got, want, 1e-2)
     dev_off = torch.zeros(1, dtype=torch.int32, device=card)
     g = torch.cuda.CUDAGraph()
-    flash_prefill_blocked(q, pk, pv, dev_off, 128 ** -0.5, off + sq)
+    flash_prefill_blocked(q, pk, pv, dev_off, d ** -0.5, off + sq)
     torch.cuda.synchronize()
     with torch.cuda.graph(g):
-        y = flash_prefill_blocked(q, pk, pv, dev_off, 128 ** -0.5, off + sq)
+        y = flash_prefill_blocked(q, pk, pv, dev_off, d ** -0.5, off + sq)
     dev_off.fill_(off)
     g.replay()
     torch.cuda.synchronize()
@@ -1754,3 +1784,127 @@ def test_kv_encoder_on_the_card_equals_the_cpu_and_kernel_9(card):
         torch.cuda.synchronize()
         for c in (ck, cv):
             assert torch.equal(kv_dtype.stored(c)[:, 3].reshape(-1).cpu()[keep], cpu[keep])
+
+
+# -- OPT, GPT-NeoX, GPT-2 (A11) and fused q/k/v (A4) --------------------------
+
+def _arch_model(card, name, seed=0):
+    """A 2-layer packed model of ``name`` at a small width whose head dim is
+    the family's own (NeoX-20B 96, OPT-2.7B 80, GPT-2 64)."""
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    from gptq_for_llama_tpu_torch.runtime.random_model import GAUSSIAN_WIRE
+    d = {"neox": 96, "opt": 80, "gpt2": 64}[name]
+    spec = {"neox": dict(rotary_pct=0.25, act="gelu_fast", parallel_residual=True),
+            "opt": dict(act="relu", pos_embedding="learned", tie_word_embeddings=True),
+            "gpt2": dict(act="gelu_new", pos_embedding="learned", tie_word_embeddings=True)}
+    heads = 8 if name == "opt" else 4   # hidden a multiple of the group size, 128
+    cfg = ModelConfig(arch=name, vocab_size=512, hidden_size=heads * d, intermediate_size=1024,
+                      num_layers=2, num_heads=heads, num_kv_heads=heads, head_dim=d,
+                      max_seq_len=512,
+                      norm_eps=1e-5, attn_bias=True, mlp_bias=True, **spec[name])
+    return cfg, GAUSSIAN_WIRE[name](cfg, seed=seed, device=card, dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["neox", "opt", "gpt2"])
+def test_arch_runner_graphs_equal_the_eager_step_loop(card, name):
+    """A new family's decode_greedy_scan graphs give the eager ``_step``
+    loop's tokens, and its prefill and decode graphs its logits, bit for bit;
+    the attention kernels launch under the family's head dim; learned
+    positions come from the device offsets inside the graphs."""
+    from gptq_for_llama_tpu_torch.runtime import ModelRunner
+    cfg, params = _arch_model(card, name)
+    d = cfg.head_dim
+    prompt = torch.as_tensor(np.random.RandomState(2).randint(1, 512, size=(1, 50)),
+                             device=card)
+    graph = ModelRunner(name, cfg, params, max_seq_len=300, device=card)
+    eager = _eager(ModelRunner(name, cfg, params, max_seq_len=300, device=card))
+    lg, cache = eager._step(prompt, eager.init_cache())
+    tok, want = lg[:, -1:].argmax(-1), []
+    for _ in range(40):
+        lg, cache = eager._step(tok, cache)
+        tok = lg[:, -1:].float().argmax(-1)
+        want.append(tok)
+    lgg, cache = graph.prefill(prompt, graph.init_cache())
+    lge, _ = eager._step(prompt, eager.init_cache())
+    assert torch.equal(lgg.view(torch.int16), lge.view(torch.int16))
+    kernels.reset_launch_counts()
+    toks, cache = graph.decode_greedy_scan(lgg[:, -1:].argmax(-1), cache, 40)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert torch.equal(toks, torch.cat(want, 1)) and cache.offset == 90
+    assert counts["decode_attention"] == counts[f"decode_attention:d{d}"] > 0
+    assert counts["fused_mlp"] == counts["rms_norm"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "paged", "fold"])
+def test_neox_engine_graphs_equal_eager(card, mode):
+    """The serving engine over a NeoX-family model (D = 96): the graphs'
+    tokens equal the same engine's with every body run eagerly, and the
+    attention kernels launch under D = 96."""
+    from gptq_for_llama_tpu_torch.runtime import GenRequest, ServingEngine
+    cfg, params = _arch_model(card, "neox", seed=3)
+    kw = {"dense": dict(prefill_chunk=64), "paged": dict(paged=True, block_size=16),
+          "fold": dict(cache_impl="fold")}[mode]
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, 512, size=n) for n in (30, 90, 7, 150, 61)]
+    out = []
+    for eager in (False, True):
+        eng = ServingEngine("neox", cfg, params, batch_slots=4, max_seq_len=256, device=card,
+                            decode_span=4, **kw)
+        if eager:
+            _eager(eng)
+        kernels.reset_launch_counts()
+        for uid, p in enumerate(prompts):
+            eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=12))
+        out.append(eng.run())
+        counts = kernels.launch_counts()
+        attn = {"dense": "decode_attention", "paged": "pool_decode_attention",
+                "fold": "fused_decode_attention"}[mode]
+        assert counts[attn] == counts[f"{attn}:d96"] > 0
+    for uid in out[0]:
+        np.testing.assert_array_equal(out[0][uid], out[1][uid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 100])
+def test_fused_qkv_columns_match_the_unfused_launches(card, m):
+    """Kernel 1 over ``concat_outputs`` of q/k/v (4096 x 12288): its columns
+    within kernel 1's tolerance of the three unfused launches (2e-2 of the
+    largest; the plans may split K otherwise) and of the plain version, and
+    bit-equal to the three launches under the fused launch's plan (the same
+    K split); one launch in place of three."""
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul import _launch, plan_for
+    lins = [_linear(4096, 4096, 4, 128, seed=s, device=card) for s in range(3)]
+    fused = PackedLinear.concat_outputs(lins)
+    x = torch.randn(m, 4096, device=card).bfloat16()
+    kernels.reset_launch_counts()
+    y = quant_matmul(x, fused)
+    assert kernels.launch_counts()["qmm"] == 1
+    unf = torch.cat([quant_matmul(x, lin) for lin in lins], dim=-1)
+    forced = torch.cat([_launch(x, lin, plan_for(x, fused)) for lin in lins], dim=-1)
+    torch.cuda.synchronize()
+    assert _close(y, unf, 2e-2) and _close(y, quant_matmul_plain(x, fused), 2e-2)
+    assert torch.equal(y, forced)
+
+
+@pytest.mark.cuda
+def test_runner_fuse_qkv_on_the_card(card):
+    """ModelRunner(fuse_qkv=True) over a packed LLaMA: 3 kernel-1 launches a
+    layer for a decode token in place of 5, and the greedy tokens of the
+    fused and unfused runners agree where both are clear (the fused product
+    may sum in another order)."""
+    from gptq_for_llama_tpu_torch.runtime import ModelRunner
+    cfg, params = _graph_model(card)
+    prompt = torch.as_tensor(np.random.RandomState(3).randint(1, 512, size=(1, 40)),
+                             device=card)
+    per = {}
+    for fuse in (False, True):
+        r = ModelRunner("llama", cfg, params, max_seq_len=128, device=card, fuse_qkv=fuse)
+        lg, cache = r.prefill(prompt, r.init_cache())
+        kernels.reset_launch_counts()
+        f0 = r.forwards["decode"]
+        toks, _ = r.decode_greedy_scan(lg[:, -1:].argmax(-1), cache, 16)
+        per[fuse] = kernels.launch_counts()["qmm"] / (r.forwards["decode"] - f0)
+    assert per == {False: 5.0 * cfg.num_layers, True: 3.0 * cfg.num_layers}

@@ -237,14 +237,15 @@ def test_sdpa_causal_matches_jax_sdpa(monkeypatch, s, impl):
 
 
 def test_flash_prefill_wrapper_refuses_cpu_and_bad_shapes():
-    """The kernel wrapper never takes the plain path: CPU tensors, D != 128
-    and H % Hkv != 0 raise before any launch."""
+    """The kernel wrapper never takes the plain path: CPU tensors, a head dim
+    no library is built for (D = 72; 64, 80, 96, 128 and 256 are) and
+    H % Hkv != 0 raise before any launch."""
     q = torch.zeros(1, 8, 4, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_prefill_cuda(q, q, q, 0.1)
-    q64 = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        flash_prefill_cuda(q64, q64, q64, 0.1)
+    q72 = torch.zeros(1, 8, 4, 72, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="B6"):
+        flash_prefill_cuda(q72, q72, q72, 0.1)
     k3 = torch.zeros(1, 8, 3, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_prefill_cuda(q, k3, k3, 0.1)
@@ -361,7 +362,8 @@ def test_pool_decode_attention_wrapper_refusals_and_supports():
         pool_decode_attention_cuda(q, pool[:, :12], pool[:, :12], tables, off, 0.1)
     assert supports_paged_decode(16, 32, 32, 128) and supports_paged_decode(8, 32, 4, 128)
     assert not supports_paged_decode(12, 32, 32, 128)       # block size % 8
-    assert not supports_paged_decode(16, 32, 32, 64)        # head_dim
+    assert supports_paged_decode(16, 32, 32, 64)            # every built head dim (B6)
+    assert not supports_paged_decode(16, 32, 32, 72)        # head_dim
     assert not supports_paged_decode(16, 32, 2, 128)        # 16 query heads per kv head
     # fp8, bf16 and f32 pools are read in their stored dtype; 8-byte elements are not
     assert all(supports_paged_decode(16, 32, 32, 128, n) for n in (1, 2, 4))

@@ -249,9 +249,13 @@ def test_per_slot_prefills_pass_host_offsets(monkeypatch):
 
 def test_engine_refuses_unported_options_and_devices():
     cfg, params, _, _ = _setup()
-    for kw in (dict(mesh=object()), dict(shard_map_tp=True), dict(fuse_qkv=True)):
+    for kw in (dict(mesh=object()), dict(shard_map_tp=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine("llama", cfg, params, dtype=torch.float32, device="cpu", **kw)
+    # fuse_qkv is ported (A4; tests/test_torch_fuse_qkv.py): dense q/k/v, as
+    # here, stay unfused, as in the TPU package
+    eng = ServingEngine("llama", cfg, params, dtype=torch.float32, device="cpu", fuse_qkv=True)
+    assert all("q_proj" in lp["self_attn"] for lp in eng.params["layers"])
     # a KV storage dtype is ported: the caches are made in it; another dtype raises
     eng = ServingEngine("llama", cfg, params, dtype=torch.float32, device="cpu",
                         kv_dtype=torch.float8_e4m3fn)
@@ -328,8 +332,10 @@ def test_serve_cli_needs_the_card_and_refuses_unported_flags(packed_dir):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_cli.main([model, "--load", packed, "--demo", "1", "--quiet"])
-    for flags in (["--tp", "2"], ["--distributed"], ["--fuse-attn"]):
+    for flags in (["--tp", "2"], ["--distributed"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve_cli.main([model, "--demo", "1", "--device", "cpu", *flags])
+    with pytest.raises(SystemExit):   # --fuse-attn is ported; with --tp a parser error
+        serve_cli.main([model, "--demo", "1", "--device", "cpu", "--fuse-attn", "--tp", "2"])
     with pytest.raises(SystemExit):
         serve_cli.main([model, "--device", "cpu"])   # neither --prompts nor --demo
