@@ -136,6 +136,26 @@ Phases, in order, on one card:
            ``fuse_qkv=True``: kernel-1 launches per decode token (96 against
            160) and ms/token beside the unfused runner, and the fused 2-layer
            7B-width model on the card against the unfused CPU path.
+  offload  LLaMA-7B with layers 8-31 streamed from pinned host memory
+           (``runtime/offload.OffloadRunner``, cache 512): a 37-token prompt
+           and 32 greedy tokens through ``generate``, tokens and prompt
+           logits bit-equal to the resident runner's ``generate(span=1)``;
+           ms/token beside the H2D bound (the streamed bytes over a plain
+           pinned copy's rate, measured here), the share of the copy time
+           hidden under compute, peak memory beside the resident runner's
+           (at least 20 streamed layers' bytes less). Then the CLI with
+           ``--pre-layer 1 --eval --benchmark 32 --check`` on the quantize
+           phase's checkpoint, its ppl equal to the resident CLI run's.
+  autotune the measured race of kernels 1, 2 and 8 (``ops/cuda/autotune.py``)
+           into a fresh cache file at LLaMA-7B's shapes (kernel 1 at 4096 x
+           4096 and 11008 x 4096, M 1, 8, 1024; kernel 2 at 4096 x 11008, M
+           1 and 8; kernel 8 at 4096 x 4096, M 1024), each candidate's time
+           over a graph of the model's own linears of the shape, the winner
+           against its plain version; the 7B decode graph at offsets 164 and
+           2047 and an 8-slot serving decode step, tuned against heuristic,
+           in turns; a fresh process's ``ModelRunner.warmup`` on the same
+           file makes no measurement. Every other phase runs with
+           GPTQ_TORCH_AUTOTUNE=0 (the heuristic plans).
   profile  torch.profiler over eager decode steps of a 4-layer 7B-width
            model: device time per kernel, the device busy share and the
            elementwise add launches per step (the ``full`` phase prints the
@@ -169,7 +189,7 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 L2_BYTES = 50 * 2**20
 PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve", "kvdtype",
-          "archs", "profile")
+          "archs", "offload", "autotune", "profile")
 # kernels each path must launch: the decode path (prefill at a cache offset,
 # then decode steps), the calibration forward, the perplexity eval, paged
 # serving (bucketed and batched admission, spans) and dense serving with
@@ -231,7 +251,20 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
                               "flash_prefill_blocked:d64"},
          "arch:gpt2:serve:dense": {"qmm", "decode_attention:d64", "flash_prefill_blocked:d64"},
          # LLaMA-7B decode steps with q/k/v fused (one kernel-1 launch a layer for them)
-         "fuse_qkv:decode": {"qmm", "fused_mlp", "decode_attention"} | NORMS}
+         "fuse_qkv:decode": {"qmm", "fused_mlp", "decode_attention"} | NORMS,
+         # the offloaded LLaMA-7B's generate (24 of 32 layers streamed), the
+         # offloaded CLI's eval and decode benchmark (phase offload)
+         "offload": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
+                     "qmm:frag", "qmm:tile", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
+         "offload:eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:tile",
+                          "fused_mlp:tile"} | NORMS,
+         "offload:benchmark": {"qmm", "fused_mlp", "decode_attention"} | NORMS,
+         # LLaMA-7B's generate under the raced plans and under the heuristic
+         # ones (phase autotune; the forms the race picks are its own)
+         "autotune:tuned": {"qmm", "fused_mlp", "decode_attention",
+                            "flash_prefill_blocked"} | NORMS,
+         "autotune:heuristic": {"qmm", "fused_mlp", "decode_attention",
+                                "flash_prefill_blocked"} | NORMS}
 # the rows at which kernel 1's rows also time every form forced (the decode
 # widths around the forms' crossovers), as kernel 2's rows do
 FORCED_MS = (1, 2, 4, 5, 8, 16)
@@ -3937,6 +3970,364 @@ class Smoke:
         torch.cuda.empty_cache()
 
     # -- phase 12 --------------------------------------------------------------
+    def phase_offload(self, torch):
+        """LLaMA-7B (the ``full`` phase's model) with 24 of its 32 layers
+        streamed from pinned host memory (``OffloadRunner``, pre_layer 8,
+        cache 512): a 37-token prompt and 32 greedy tokens through
+        ``generate``, the tokens and the prompt logits bit-equal to the
+        resident runner's ``generate(span=1)``; ms/token of the decode loop
+        beside the H2D bound (streamed bytes over a plain pinned copy's rate
+        in this run), the copy time hidden under compute, and peak device
+        memory beside the resident runner's. Then the CLI with ``--pre-layer
+        1`` on the quantize phase's 2-layer checkpoint, its ppl equal to the
+        resident CLI run's."""
+        import gc
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
+        from gptq_for_llama_tpu_torch.runtime.offload import OffloadRunner, map_tensors, tensors
+        from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+        cfg = ModelConfig(**LLAMA_7B)
+        params = (self.model7b or (None, gaussian_wire_llama(cfg, seed=0, device="cuda")))[1]
+        self.model7b = None
+        pre, new, max_len = 8, 32, 512
+        prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, size=37)
+        ids = torch.as_tensor(prompt[None], device="cuda")
+
+        def decode_ms(runner, step, toks):
+            """Host ms a token of ``new`` decode steps teacher-forced by
+            ``toks`` after the prompt's prefill, synchronized at the end."""
+            _, cache = runner.prefill(ids, runner.init_cache())
+            feed = torch.as_tensor(toks[:, len(prompt):], device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for j in range(new):
+                _, cache = step(feed[:, j:j + 1], cache)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / new * 1e3
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = ModelRunner("llama", cfg, params, max_seq_len=max_len, device="cuda")
+        want = generate(res, prompt, max_new_tokens=new, temperature=0.0, span=1)
+        want_logits = res.prefill(ids, res.init_cache())[0]
+        resident_ms = decode_ms(res, res._step, want)
+        peak_res = torch.cuda.max_memory_allocated()
+
+        # the offloaded run starts from host parameters: the card keeps none
+        # of the streamed layers
+        host = map_tensors(params, lambda t: t.cpu())
+        del res, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        off = OffloadRunner("llama", cfg, host, pre, max_seq_len=max_len, device="cuda")
+        t_build = time.perf_counter() - t0
+        del host
+        kernels.reset_launch_counts()
+        got = off.generate(prompt, max_new_tokens=new)
+        counts = kernels.launch_counts()
+        self.check_path("offload", counts)
+        self.check_norms("offload generate", counts, sum(off.forwards.values()), cfg.num_layers)
+        got_logits = off.prefill(ids, off.init_cache())[0]
+        if not np.array_equal(got, want) or not torch.equal(got_logits, want_logits):
+            raise AssertionError("offload: tokens or prompt logits differ from the resident "
+                                 "runner's")
+        off_ms = decode_ms(off, off.decode, got)
+        peak_off = torch.cuda.max_memory_allocated()
+
+        # the copies alone: every streamed layer staged once (the runner's own
+        # copies into its slots), and one plain pinned copy of a layer's bytes
+        layers = off.layers
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(len(off.host_layers)):
+            layers._stage(i)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        src = torch.empty(layers.layer_bytes, dtype=torch.uint8, pin_memory=True)
+        dst = torch.empty(layers.layer_bytes, dtype=torch.uint8, device="cuda")
+        times = []
+        for _ in range(6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        bw = layers.layer_bytes / (float(np.median(times[1:])) * 1e-3)
+        del src, dst
+        bound_ms = off.streamed_bytes / bw * 1e3
+        # the time copies and compute overlap: of the copies (at most
+        # compute / copies) and of the compute
+        overlap = resident_ms + copy_ms - off_ms
+        hidden, covered = overlap / copy_ms, overlap / resident_ms
+        saved = peak_res - peak_off
+        log(f"[offload] LLaMA-7B, layers 0-{pre - 1} resident, {len(off.host_layers)} streamed "
+            f"({off.streamed_bytes / 2**30:.3f} GiB a token, {layers.layer_bytes / 2**20:.1f} "
+            f"MiB a layer, pinned in {t_build:.1f} s): {new} greedy tokens and the prompt "
+            f"logits bit-equal to the resident runner's generate(span=1); launches "
+            f"{_nonzero(counts)}")
+        log(f"[offload] decode {off_ms:.3f} ms/token ({1e3 / off_ms:.2f} tok/s) against the "
+            f"H2D bound {bound_ms:.3f} ms/token (a plain pinned copy of one layer: "
+            f"{bw / 1e9:.2f} GB/s); the streamed layers' copies alone {copy_ms:.3f} ms, the "
+            f"resident runner's eager step {resident_ms:.3f} ms/token: they overlap "
+            f"{overlap:.3f} ms (step + copies - offloaded step), {hidden:.3f} of the copy time "
+            f"hidden under compute, {covered:.3f} of the compute under the copies; "
+            f"{bound_ms / off_ms:.3f} of the bound | {self.card}")
+        log(f"[offload] peak device memory {peak_off / 2**30:.3f} GiB against the resident "
+            f"runner's {peak_res / 2**30:.3f} GiB: {saved / layers.layer_bytes:.2f} layers' "
+            f"bytes less | {self.card}")
+        if saved < 20 * layers.layer_bytes:
+            raise AssertionError(f"offload: peak memory only {saved} B below the resident "
+                                 f"runner's; 20 streamed layers are {20 * layers.layer_bytes} B")
+        self.report["offload"] = {
+            "pre_layer": pre, "streamed_layers": len(off.host_layers),
+            "streamed_bytes_per_token": off.streamed_bytes, "layer_bytes": layers.layer_bytes,
+            "ms_per_token": off_ms, "bound_ms_per_token": bound_ms, "h2d_bytes_per_s": bw,
+            "copies_alone_ms": copy_ms, "resident_eager_ms_per_token": resident_ms,
+            "overlap_ms": overlap, "hidden_share": hidden, "compute_covered_share": covered,
+            "peak_memory_bytes": peak_off,
+            "resident_peak_memory_bytes": peak_res, "launches": counts}
+        del off
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._offload_cli(torch)
+
+    def _offload_cli(self, torch):
+        """The CLI on the quantize phase's 2-layer checkpoint: ``--load --eval
+        --benchmark 32 --check`` in this process, then with ``--pre-layer 1``
+        through ``python -m gptq_for_llama_tpu_torch``; the ppl of both
+        equal."""
+        model, out = os.path.join(self.tmp, "model"), os.path.join(self.tmp, "packed")
+        if not os.path.isdir(out):
+            raise RuntimeError("offload: the CLI run needs the quantize phase's checkpoint "
+                               "(--phases build,quantize,offload)")
+        from gptq_for_llama_tpu_torch.cli.main import main as cli
+        args = [model, "synthetic", "--load", out, "--eval", "--benchmark", "32", "--check"]
+        reps = {"resident": json.loads(json.dumps(cli(args)))}   # in this process
+        path = os.path.join(self.tmp, "offload_cli.json")
+        proc = subprocess.run([sys.executable, "-m", "gptq_for_llama_tpu_torch", *args,
+                               "--pre-layer", "1", "--report", path],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"offload CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        with open(path) as f:
+            reps["offload"] = json.load(f)
+        res, off = reps["resident"], reps["offload"]
+        self.check_path("offload:eval", off["launches"]["eval:synthetic"])
+        self.check_path("offload:benchmark", off["launches"]["benchmark"])
+        ppl = {t: (r["ppl"]["synthetic"], r["benchmark"]["ppl"]) for t, r in reps.items()}
+        log(f"[offload] CLI --pre-layer 1 on the 2-layer checkpoint: ppl {ppl['offload'][0]:.6f}, "
+            f"benchmark check ppl {ppl['offload'][1]:.6f}; resident {ppl['resident'][0]:.6f} / "
+            f"{ppl['resident'][1]:.6f}; eval {off['phases']['eval:synthetic']:.2f} s against "
+            f"{res['phases']['eval:synthetic']:.2f} s, benchmark "
+            f"{off['benchmark']['tokens_per_s']:.1f} against "
+            f"{res['benchmark']['tokens_per_s']:.1f} tok/s; peak memory by phase "
+            f"{json.dumps(off['peak_memory'])} against {json.dumps(res['peak_memory'])} | "
+            f"{self.card}")
+        if ppl["offload"] != ppl["resident"] or not all(map(math.isfinite, ppl["offload"])):
+            raise AssertionError(f"offload CLI: ppl {ppl['offload']} against the resident "
+                                 f"run's {ppl['resident']}")
+        self.report["offload"]["cli"] = {t: {"ppl": r["ppl"], "benchmark": r["benchmark"],
+                                             "phases": r["phases"],
+                                             "peak_memory": r["peak_memory"]}
+                                         for t, r in reps.items()}
+
+    # -- phase 13 --------------------------------------------------------------
+    def phase_autotune(self, torch):
+        """The measured race of kernels 1, 2 and 8 (``ops/cuda/autotune.py``)
+        into a fresh cache file, on LLaMA-7B's own linears: kernel 1 at (K, N)
+        = (4096, 4096) and (11008, 4096), M buckets 1, 8 and 1024; kernel 2 at
+        (4096, 11008), M 1 and 8; kernel 8 at (4096, 4096), M 1024. Each
+        winner against its plain version (2e-2 of the largest output); the 7B
+        decode graph's device ms at offsets 164 and 2047 and one 8-slot
+        serving decode step, tuned against heuristic, in turns; then
+        ``ModelRunner.warmup`` in a fresh process on the same cache file,
+        which must measure nothing."""
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.ops.cuda import autotune as at
+        from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+        cfg = ModelConfig(**LLAMA_7B)
+        if self.model7b is None:
+            self.model7b = (cfg, gaussian_wire_llama(cfg, seed=0, device="cuda"))
+        params = self.model7b[1]
+        path = os.path.join(self.tmp, "autotune.json")
+        saved = {k: os.environ.get(k) for k in (at.MODE_ENV, at.PATH_ENV)}
+        os.environ[at.MODE_ENV], os.environ[at.PATH_ENV] = "1", path
+        try:
+            at.configure()
+            races = self._autotune_race(torch, at, params)
+            steps = self._autotune_steps(torch, at, cfg, params)
+            again = self._autotune_second_process(path)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            at.configure()
+        with open(path) as f:
+            keys = sorted(json.load(f)["entries"])
+        log(f"[autotune] cache {len(keys)} entries, keys {keys} | {self.card}")
+        if again != 0:
+            raise AssertionError(f"autotune: a second process's warmup made {again} "
+                                 "measurements on a cache that holds its shapes")
+        log(f"[autotune] a fresh process's ModelRunner.warmup on the same cache file: "
+            f"{again} measurements")
+        self.report["autotune"] = {"races": races, "steps": steps, "keys": keys,
+                                   "second_process_measurements": again}
+
+    def _autotune_race(self, torch, at, params):
+        from gptq_for_llama_tpu_torch.ops.cuda import matmul, matmul_t, mlp
+        from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
+        linears, pairs = at.collect(params)
+        by_shape = {}
+        for lin in linears:
+            by_shape.setdefault((lin.in_features, lin.out_features), []).append(lin)
+        plan = [("fwd", (4096, 4096), 1), ("fwd", (4096, 4096), 8), ("fwd", (4096, 4096), 1024),
+                ("fwd", (11008, 4096), 1), ("fwd", (11008, 4096), 8),
+                ("fwd", (11008, 4096), 1024), ("mlp", (4096, 11008), 1),
+                ("mlp", (4096, 11008), 8), ("bwd", (4096, 4096), 1024)]
+        rows = []
+        for kind, (k, n), m in plan:
+            timed = []
+
+            def record(msg, timed=timed):
+                log(f"[autotune]{msg}")
+                timed.append(msg.strip())
+
+            n0 = at.measurements
+            t0 = time.perf_counter()
+            if kind == "mlp":
+                won = at.tune_mlp(pairs, m, log=record)
+                units = len(pairs)
+            else:
+                won = at.tune_qmm(by_shape[(k, n)], m, kind, log=record)
+                units = len(by_shape[(k, n)])
+            race_s = time.perf_counter() - t0
+            gen = torch.Generator(device="cuda").manual_seed(m)
+            x = torch.randn((m, n if kind == "bwd" else k), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            lin = pairs[0][0] if kind == "mlp" else by_shape[(k, n)][0]
+            heur = at.candidates(kind, k, n, lin.bits, lin.groupsize, m, matmul._sm_count(0))[0]
+            if kind == "fwd":
+                taken = matmul.plan_for(x, lin)
+                got, want = matmul.qmm_cuda(x, lin), quant_matmul_plain(x, lin)
+            elif kind == "mlp":
+                taken = mlp.plan_for(x, lin)
+                got, want = mlp.fused_mlp_cuda(x, *pairs[0]), mlp.fused_mlp_plain(x, *pairs[0])
+            else:
+                taken = matmul_t.plan_for(x, lin)
+                got, want = matmul_t.qmm_t_cuda(x, lin), matmul_t.quant_matmul_t_plain(x, lin)
+            err = float((got.float() - want.float()).abs().max())
+            tol = 2e-2 * float(want.float().abs().max())
+            ok = taken == won and err <= tol and torch.isfinite(got.float()).all()
+            log(f"[autotune] {kind} K={k} N={n} M={m}: {at.measurements - n0} candidates, each "
+                f"over a chain of the first {at.CHAIN_BYTES >> 20} MiB of the model's {units} "
+                f"of the shape, in {race_s:.1f} s; winner {won.path} mt={won.mt} "
+                f"split={won.split} (the heuristic's {heur.path} mt={heur.mt} "
+                f"split={heur.split}); "
+                f"the wrapper's plan {'is' if taken == won else 'IS NOT'} the winner; max_abs_err "
+                f"{err:.3e} against the plain version (tol {tol:.3e}) "
+                f"{'ok' if ok else 'FAIL'} | {self.card}")
+            if not ok:
+                raise AssertionError(f"autotune {kind} K={k} N={n} M={m}: the winner's output "
+                                     f"or plan is wrong ({err} > {tol} or {taken} != {won})")
+            rows.append({"kind": kind, "k": k, "n": n, "m": m, "race_s": race_s,
+                         "candidates": at.measurements - n0, "units": units,
+                         "winner": list(won[:3]), "heuristic": list(heur[:3]),
+                         "max_abs_err": err, "tol": tol,
+                         "log": timed})
+        return rows
+
+    def _autotune_steps(self, torch, at, cfg, params):
+        """The decode graph's device ms (offsets 164 and 2047) and an 8-slot
+        dense serving decode step's, under the tuned plans and the heuristic
+        ones: each runner and engine captures its graphs while its mode is
+        the configured one, and the four are timed in turns (tuned,
+        heuristic, heuristic, tuned)."""
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime import (GenRequest, ModelRunner, ServingEngine,
+                                                      generate)
+        prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, size=37)
+        owners = {}
+        for mode in ("tuned", "heuristic"):
+            os.environ[at.MODE_ENV] = "1" if mode == "tuned" else "0"
+            n0 = at.measurements
+            runner = ModelRunner("llama", cfg, params, device="cuda")
+            runner.warmup(prefill_buckets=(len(prompt),))
+            kernels.reset_launch_counts()
+            toks = generate(runner, prompt, max_new_tokens=32, temperature=0.0)
+            self.check_path(f"autotune:{mode}", kernels.launch_counts())
+            eng = ServingEngine("llama", cfg, params, batch_slots=8, max_seq_len=512,
+                                device="cuda")
+            for uid in range(8):
+                eng.submit(GenRequest(uid=uid, prompt=prompt[:20 + uid], max_new_tokens=8))
+            eng.run()
+            state = eng.state
+            state["live"][:] = True
+            with torch.inference_mode():
+                bucket = eng._span_bucket(state, 1)
+                eng._decode_span(state, 1, "greedy")   # captured under this mode's plans
+            off0 = state["off"].clone()
+            off0.copy_(torch.from_numpy(state["host_off"]).to(torch.int32))
+            owners[mode] = (runner, eng, state, (1, "greedy", bucket), off0, toks)
+            log(f"[autotune] {mode} runner and engine built and captured "
+                f"({at.measurements - n0} measurements)")
+        times = {m: {"164": [], "2047": [], "serve": []} for m in owners}
+        for mode in ("tuned", "heuristic", "heuristic", "tuned"):
+            runner, eng, state, key, off0, _ = owners[mode]
+            offs = runner._store.offs
+            for o in (164, 2047):
+                times[mode][str(o)].append(replay_ms(
+                    torch, runner.graphs, ("decode", 256 if o == 164 else 2048),
+                    lambda o=o: offs.fill_(o)))
+            times[mode]["serve"].append(replay_ms(torch, eng.graphs, key,
+                                                  lambda s=state, o=off0: s["off"].copy_(o),
+                                                  iters=4))
+        out = {m: {k: float(np.mean(v)) for k, v in t.items()} for m, t in times.items()}
+        same = np.array_equal(owners["tuned"][5], owners["heuristic"][5])
+        log(f"[autotune] LLaMA-7B decode graph, device ms at offset 164 / 2047: tuned "
+            f"{out['tuned']['164']:.4f} / {out['tuned']['2047']:.4f}, heuristic "
+            f"{out['heuristic']['164']:.4f} / {out['heuristic']['2047']:.4f}; 8-slot dense "
+            f"serving decode step: tuned {out['tuned']['serve']:.4f}, heuristic "
+            f"{out['heuristic']['serve']:.4f} ms (each the mean of two turns, tuned, heuristic, "
+            f"heuristic, tuned: {json.dumps(times)}); greedy tokens of the two runners "
+            f"{'equal' if same else 'differ'} | {self.card}")
+        del owners
+        torch.cuda.empty_cache()
+        return {"ms": out, "turns": times, "tokens_equal": bool(same)}
+
+    def _autotune_second_process(self, path):
+        """``ModelRunner.warmup`` of a 2-layer 7B-width LLaMA (the shapes of
+        the races above, the decode rows of batch 1) in a fresh python
+        process on the cache file: its count of measurements."""
+        script = ("import json, sys\n"
+                  "from gptq_for_llama_tpu_torch.models.config import ModelConfig\n"
+                  "from gptq_for_llama_tpu_torch.ops.cuda import autotune as at\n"
+                  "from gptq_for_llama_tpu_torch.runtime import ModelRunner\n"
+                  "from gptq_for_llama_tpu_torch.runtime.random_model import "
+                  "gaussian_wire_llama\n"
+                  "cfg = ModelConfig(**json.loads(sys.argv[1]))\n"
+                  "r = ModelRunner('llama', cfg, gaussian_wire_llama(cfg, seed=1), "
+                  "device='cuda')\n"
+                  "r.warmup(prefill_buckets=(37,))\n"
+                  "print(json.dumps({'measurements': at.measurements}))\n")
+        env = dict(os.environ, **{"GPTQ_TORCH_AUTOTUNE": "1", "GPTQ_TORCH_AUTOTUNE_CACHE": path})
+        proc = subprocess.run([sys.executable, "-c", script,
+                               json.dumps(dict(LLAMA_7B, num_layers=2))],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"autotune second process exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])["measurements"]
+
+    # -- phase 14 --------------------------------------------------------------
     def phase_profile(self, torch):
         from gptq_for_llama_tpu_torch.models.config import ModelConfig
         from gptq_for_llama_tpu_torch.runtime import ModelRunner
@@ -4053,6 +4444,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # every phase but ``autotune`` runs kernels 1, 2 and 8 on their heuristic
+    # plans, comparable with earlier runs and exact where a check is bit for
+    # bit; ``autotune`` sets its own knobs and puts these back
+    os.environ["GPTQ_TORCH_AUTOTUNE"] = "0"
     import gptq_for_llama_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     smoke = Smoke()

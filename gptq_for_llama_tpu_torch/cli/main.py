@@ -4,7 +4,9 @@ Counterpart of ``gptq_for_llama_tpu/cli/main.py``, with the same flag surface
 and one addition, ``--device``: the CLI runs on the card unless it is given
 ``--device cpu`` (the plain PyTorch versions), and without a card and without
 that flag it raises. Flags of slices not ported yet raise NotImplementedError
-naming their ROADMAP item.
+naming their ROADMAP item. ``--pre-layer N`` runs eval, the benchmark and
+generation through ``runtime/offload.OffloadRunner``: the first N layers on
+the card, the rest streamed from pinned host memory.
 
 Usage:
   python -m gptq_for_llama_tpu_torch MODEL_DIR DATASET --wbits 4 --groupsize 128 \\
@@ -96,7 +98,6 @@ _UNPORTED = {
     "--tp": (lambda a: bool(a.tp and a.tp > 1), "A18"),
     "--dp": (lambda a: bool(a.dp and a.dp > 1), "A18"),
     "--distributed": (lambda a: a.distributed, "A18"),
-    "--pre-layer": (lambda a: a.pre_layer is not None, "A15"),
 }
 
 
@@ -152,9 +153,16 @@ def main(argv=None) -> dict:
 
     t0 = time.time()
     model_dir = args.load or args.model
+    quantizing = not args.load and (args.wbits < 16 or args.nearest)
+    # --pre-layer is for a model that does not fit the card: a checkpoint that
+    # is only run is loaded on the CPU, and the offload runner moves the
+    # resident part to the card (a quantization runs on the card first)
+    offloaded = args.pre_layer is not None and (args.eval or args.benchmark
+                                                 or args.test_generation)
     with phase("load"):
-        cfg, params = hf_loader.load_params(model_dir, seqlen=args.seqlen, dtype=torch.bfloat16,
-                                            device=device)
+        cfg, params = hf_loader.load_params(
+            model_dir, seqlen=args.seqlen, dtype=torch.bfloat16,
+            device="cpu" if offloaded and not quantizing else device)
     seqlen = args.seqlen or cfg.max_seq_len
     print(f"loaded {cfg.arch} from {model_dir} on {device} ({time.time() - t0:.1f}s)")
 
@@ -169,7 +177,7 @@ def main(argv=None) -> dict:
         true_sequential=args.true_sequential, nearest=args.nearest, observe=args.observe,
         chunk=args.chunk, quantize_lm_head=args.quantize_lm_head)
 
-    if not args.load and (args.wbits < 16 or args.nearest):
+    if quantizing:
         train, _ = loaders(args.dataset, nsamples=args.nsamples)
         tq = time.time()
         with phase("quantize"):
@@ -205,6 +213,27 @@ def main(argv=None) -> dict:
             print("WARNING: --save ignored — nothing was quantized "
                   "(use --wbits < 16, --nearest, or --load)")
 
+    bench_ids = None
+    if args.benchmark:
+        # the reference benchmarks the first seeded calibration window, so the
+        # --check ppl is comparable run to run
+        train, _ = loaders(args.dataset, nsamples=1)
+        stream = np.asarray(train).reshape(-1)
+        bench_ids = stream[:min(args.benchmark, len(stream))][None]
+
+    # --pre-layer with --eval / --benchmark: one OffloadRunner serves both, with
+    # the resident benchmark's cache length (the same decode plans)
+    offload = None
+    if args.pre_layer is not None and (args.eval or args.benchmark):
+        from ..runtime.offload import OffloadRunner
+        with phase("offload"):
+            offload = OffloadRunner(
+                cfg.arch, cfg, params, args.pre_layer, device=device,
+                max_seq_len=seqlen if bench_ids is None else max(bench_ids.shape[1], 32),
+                kv_dtype=kv_dtype(args.kv_dtype))
+        print(f"offload: layers {args.pre_layer}/{cfg.num_layers} on {device}, the rest "
+              f"streamed, {offload.streamed_bytes / 2**20:.1f} MiB a forward")
+
     if args.eval:
         datasets = ["wikitext2", "ptb", "c4"] if args.dataset != "synthetic" else ["synthetic"]
         if args.new_eval and args.dataset != "synthetic":
@@ -212,33 +241,37 @@ def main(argv=None) -> dict:
         for ds in datasets:
             _, test = loaders(ds)
             with phase(f"eval:{ds}"), trace():
-                ppl = perplexity(cfg.arch, cfg, params, test, seqlen=seqlen, verbose=True)
+                if offload is not None:
+                    ppl = offload.perplexity(test, seqlen=seqlen)
+                else:
+                    ppl = perplexity(cfg.arch, cfg, params, test, seqlen=seqlen, verbose=True)
             print(f"{ds} perplexity: {ppl:.4f}")
             report["ppl"][ds] = ppl
 
     if args.benchmark:
         from ..runtime import ModelRunner, benchmark_decode
-        # the reference benchmarks the first seeded calibration window, so the
-        # --check ppl is comparable run to run
-        train, _ = loaders(args.dataset, nsamples=1)
-        stream = np.asarray(train).reshape(-1)
-        n = min(args.benchmark, len(stream))
         with phase("benchmark"), trace():
-            runner = ModelRunner(cfg.arch, cfg, params, batch_size=1, max_seq_len=max(n, 32),
-                                 device=device, kv_dtype=kv_dtype(args.kv_dtype),
-                                 fuse_qkv=args.fuse_attn)
-            res = benchmark_decode(runner, stream[:n][None], check=args.check)
+            runner = offload or ModelRunner(
+                cfg.arch, cfg, params, batch_size=1, max_seq_len=max(bench_ids.shape[1], 32),
+                device=device, kv_dtype=kv_dtype(args.kv_dtype), fuse_qkv=args.fuse_attn)
+            res = benchmark_decode(runner, bench_ids, check=args.check)
         print(json.dumps(res))
         report["benchmark"] = res
 
     if args.test_generation:
         from transformers import AutoTokenizer
         from ..runtime import ModelRunner, generate
+        from ..runtime.offload import OffloadRunner
         tokenizer = AutoTokenizer.from_pretrained(args.model)
         ids = np.asarray(tokenizer(args.text)["input_ids"], np.int64)
-        runner = ModelRunner(cfg.arch, cfg, params, batch_size=1,
-                             max_seq_len=len(ids) + args.max_new_tokens, device=device,
-                             kv_dtype=kv_dtype(args.kv_dtype), fuse_qkv=args.fuse_attn)
+        max_len = len(ids) + args.max_new_tokens
+        if args.pre_layer is not None:
+            runner = OffloadRunner(cfg.arch, cfg, params, args.pre_layer, max_seq_len=max_len,
+                                   device=device, kv_dtype=kv_dtype(args.kv_dtype))
+        else:
+            runner = ModelRunner(cfg.arch, cfg, params, batch_size=1, max_seq_len=max_len,
+                                 device=device, kv_dtype=kv_dtype(args.kv_dtype),
+                                 fuse_qkv=args.fuse_attn)
         out = generate(runner, ids, args.max_new_tokens, temperature=args.temperature,
                        top_p=args.top_p, min_new_tokens=args.min_new_tokens,
                        eos_token_id=tokenizer.eos_token_id,

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
+from . import autotune, build
 from .grad import refuse_grad
 from ..linear import PackedLinear, quant_matmul_plain  # noqa: F401  (the plain version)
 
@@ -172,6 +172,26 @@ def reduction_split(tiles: int, slabs: int, slots: int, sms: int,
     return -(-slabs // per), per
 
 
+def plan_of(path: str, mt: int, split: int, k: int, bits: int, streams: int = 1) -> Plan:
+    """The plan of kernel 1 (``streams=1``) or 2 (``streams=2``) with the
+    free choices ``path``, ``mt`` (rows per block) and ``split`` (blocks
+    along K): each split's share of K (packed words, K-blocks or 64-row
+    slabs), the tiles' split recounted so that none is empty, and the
+    block's shared memory. Every plan of ``plan`` ends here, and so does a
+    tuned one (``autotune``)."""
+    if path == "gemv":
+        per = -(-(k // (32 // bits)) // split)
+        return Plan("gemv", mt, split, per, gemv_smem_bytes(bits, mt, streams))
+    if path == "frag":
+        per = -(-(-(-k // frag_rows_per_block(bits))) // split)
+        return Plan("frag", mt, split, per, frag_smem_bytes(bits, mt // 8))
+    if path != "tile":
+        raise ValueError(f"kernel 1's forms are gemv, frag and tile, got {path!r}")
+    slabs = -(-k // TC_TILE_K)
+    per = -(-slabs // split)
+    return Plan("tile", mt, -(-slabs // per), per, tile_smem_bytes(bits, mt))
+
+
 def _tile_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int) -> Plan:
     """``row_tile`` over N's column tiles (128 / streams columns of y each),
     then ``reduction_split`` along K."""
@@ -179,8 +199,8 @@ def _tile_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int) -> Pla
     bm = row_tile(m, cols, sms)
     tiles = cols * -(-m // bm)
     slots = sms * tile_blocks_per_sm(bits, bm)
-    split, per = reduction_split(tiles, -(-k // TC_TILE_K), slots, sms, balance=streams == 2)
-    return Plan("tile", bm, split, per, tile_smem_bytes(bits, bm))
+    split, _ = reduction_split(tiles, -(-k // TC_TILE_K), slots, sms, balance=streams == 2)
+    return plan_of("tile", bm, split, k, bits, streams)
 
 
 def cluster_split(tiles: int, units: int, blocks: int, least: int,
@@ -209,8 +229,8 @@ def _gemv_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int,
     word."""
     mt = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
     tiles = -(-n // TILE_N) * -(-m // mt)
-    split, per = cluster_split(tiles, k // (32 // bits), 2 * sms, GEMV_WARPS, cap)
-    return Plan("gemv", mt, split, per, gemv_smem_bytes(bits, mt, streams))
+    split, _ = cluster_split(tiles, k // (32 // bits), 2 * sms, GEMV_WARPS, cap)
+    return plan_of("gemv", mt, split, k, bits, streams)
 
 
 def _frag_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int,
@@ -223,9 +243,9 @@ def _frag_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int,
     K-blocks a warp."""
     nt = 1 if m <= 8 else 2
     kbs = -(-k // frag_rows_per_block(bits))
-    split, per = cluster_split(-(-n // frag_cols(streams)), kbs, sms - sms // 16,
-                               2 * FRAG_WARPS, cap)
-    return Plan("frag", 8 * nt, split, per, frag_smem_bytes(bits, nt))
+    split, _ = cluster_split(-(-n // frag_cols(streams)), kbs, sms - sms // 16,
+                             2 * FRAG_WARPS, cap)
+    return plan_of("frag", 8 * nt, split, k, bits, streams)
 
 
 def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
@@ -297,9 +317,13 @@ def _entry(path: str):
 
 
 def plan_for(x2: torch.Tensor, lin: PackedLinear) -> Plan:
-    """The plan ``qmm_cuda`` launches for x2 (M, K) on the card."""
-    return plan(x2.shape[0], lin.in_features, lin.out_features, lin.bits,
-                _sm_count(x2.device.index or 0), groupsize=lin.groupsize)
+    """The plan ``qmm_cuda`` launches for x2 (M, K) on the card: the tuned
+    one (``autotune.lookup``, kind "fwd"), else ``plan``'s."""
+    m, sms = x2.shape[0], _sm_count(x2.device.index or 0)
+    tuned = autotune.lookup("fwd", lin.in_features, lin.out_features, lin.bits, lin.groupsize,
+                            m, sms, x2.device)
+    return tuned or plan(m, lin.in_features, lin.out_features, lin.bits, sms,
+                         groupsize=lin.groupsize)
 
 
 def qmm_cuda(x2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import autotune, build
 from .grad import refuse_grad
 from .matmul import (TC_MAX_GROUPS, Plan, SMEM_PER_SM, _sm_count, check_tensor, reduction_split,
                      row_tile)
@@ -59,8 +59,18 @@ def plan(m: int, k: int, n: int, bits: int, sms: int = 132) -> Plan:
     cols = -(-k // TILE_K)
     bm = row_tile(m, cols, sms)
     tiles = cols * -(-m // bm)
-    split, per = reduction_split(tiles, -(-n // SLICE_N), sms * blocks_per_sm(bits, bm), sms)
-    return Plan("tile", bm, split, per, tile_smem_bytes(bits, bm))
+    split, _ = reduction_split(tiles, -(-n // SLICE_N), sms * blocks_per_sm(bits, bm), sms)
+    return plan_of(bm, split, n, bits)
+
+
+def plan_of(bm: int, split: int, n: int, bits: int) -> Plan:
+    """The plan of kernel 8 with the free choices ``bm`` (the row tile) and
+    ``split`` (blocks along N): each split's 64-wide slices, the split
+    recounted so that none is empty, and the block's shared memory. Every
+    plan of ``plan`` ends here, and so does a tuned one (``autotune``)."""
+    slices = -(-n // SLICE_N)
+    per = -(-slices // split)
+    return Plan("tile", bm, -(-slices // per), per, tile_smem_bytes(bits, bm))
 
 
 def quant_matmul_t_plain(g2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
@@ -78,15 +88,17 @@ def _entry():
 
 
 def plan_for(g2: torch.Tensor, lin: PackedLinear) -> Plan:
-    """The plan ``qmm_t_cuda`` launches for g2 (M, N) on the card."""
-    return plan(g2.shape[0], lin.in_features, lin.out_features, lin.bits,
-                _sm_count(g2.device.index or 0))
+    """The plan ``qmm_t_cuda`` launches for g2 (M, N) on the card: the tuned
+    one (``autotune.lookup``, kind "bwd"), else ``plan``'s."""
+    m, sms = g2.shape[0], _sm_count(g2.device.index or 0)
+    tuned = autotune.lookup("bwd", lin.in_features, lin.out_features, lin.bits, lin.groupsize,
+                            m, sms, g2.device)
+    return tuned or plan(m, lin.in_features, lin.out_features, lin.bits, sms)
 
 
-def qmm_t_cuda(g2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
-    """dx = g2 @ dequant(lin)^T on the card. g2: (M, N) bf16 with N % 8 == 0;
-    device bits 2/4/8. Returns (M, K) bf16 in device row order."""
-    refuse_grad("qmm_t", g2, lin.scales, lin.zeros)
+def check_operands(g2: torch.Tensor, lin: PackedLinear) -> None:
+    """What kernel 8 demands of g2 (M, N) and the packed weight; raises
+    otherwise."""
     k, n = lin.in_features, lin.out_features
     if lin.bits not in (2, 4, 8) or n % 8 or k % (32 // lin.bits):
         raise ValueError(f"grad-input kernel takes device bits 2/4/8, out_features % 8 == 0 "
@@ -98,11 +110,23 @@ def qmm_t_cuda(g2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
     check_tensor(lin.zeros, "zeros", torch.bfloat16, (groups, n))
     if g2.device != lin.qweight.device:
         raise ValueError(f"g on {g2.device}, weights on {lin.qweight.device}")
-    m = g2.shape[0]
+
+
+def qmm_t_cuda(g2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
+    """dx = g2 @ dequant(lin)^T on the card. g2: (M, N) bf16 with N % 8 == 0;
+    device bits 2/4/8. Returns (M, K) bf16 in device row order."""
+    refuse_grad("qmm_t", g2, lin.scales, lin.zeros)
+    check_operands(g2, lin)
+    if g2.shape[0] == 0:
+        return torch.empty((0, lin.in_features), dtype=torch.bfloat16, device=g2.device)
+    return _launch(g2, lin, plan_for(g2, lin))
+
+
+def _launch(g2: torch.Tensor, lin: PackedLinear, p: Plan) -> torch.Tensor:
+    """One launch of kernel 8 on checked operands under plan ``p`` (a
+    measurement may pass another plan)."""
+    m, k, n, groups = g2.shape[0], lin.in_features, lin.out_features, lin.scales.shape[0]
     out = torch.empty((m, k), dtype=torch.bfloat16, device=g2.device)
-    if m == 0:
-        return out
-    p = plan_for(g2, lin)
     partial = (torch.empty((p.split, m, k), dtype=torch.float32, device=g2.device)
                if p.split > 1 else None)
     err = _entry()(g2.data_ptr(), lin.qweight.data_ptr(), lin.scales.data_ptr(),

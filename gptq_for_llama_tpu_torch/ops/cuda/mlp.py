@@ -18,7 +18,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import autotune, build
 from .grad import refuse_grad
 from .matmul import Plan, _sm_count, check_packed, plan
 from ..linear import PackedLinear, quant_matmul_plain
@@ -65,9 +65,13 @@ def _entry(path: str):
 
 
 def plan_for(x2: torch.Tensor, gate: PackedLinear) -> Plan:
-    """The plan ``fused_mlp_cuda`` launches for x2 (M, K) on the card."""
-    return plan(x2.shape[0], gate.in_features, gate.out_features, gate.bits,
-                _sm_count(x2.device.index or 0), streams=2, groupsize=gate.groupsize)
+    """The plan ``fused_mlp_cuda`` launches for x2 (M, K) on the card: the
+    tuned one (``autotune.lookup``, kind "mlp"), else ``plan``'s."""
+    m, sms = x2.shape[0], _sm_count(x2.device.index or 0)
+    tuned = autotune.lookup("mlp", gate.in_features, gate.out_features, gate.bits,
+                            gate.groupsize, m, sms, x2.device)
+    return tuned or plan(m, gate.in_features, gate.out_features, gate.bits, sms, streams=2,
+                         groupsize=gate.groupsize)
 
 
 def fused_mlp_cuda(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> torch.Tensor:

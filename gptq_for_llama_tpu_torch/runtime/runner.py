@@ -34,6 +34,7 @@ import torch
 from .. import resolve_device
 from ..models.registry import check_positions, embed_weight, get_arch
 from ..ops import kv_dtype as kv
+from ..ops.cuda import autotune as at
 from .graphs import Graphs, bucket_for, live_buckets
 
 # most decode steps one graph of a token scan holds (a power of two): a scan
@@ -116,6 +117,7 @@ class ModelRunner:
         self.cache_impl = check_cache_impl(cache_impl)
         self.kv_dtype = kv.check_kv_dtype(kv_dtype or dtype)
         self.device = resolve_device(device)
+        at.configure()   # the tuner's knobs, read once per runner
         self.arch = get_arch(arch_name)
         self.arch_name = arch_name
         self.cfg = cfg
@@ -411,11 +413,22 @@ class ModelRunner:
             logits = self._one_step(buf[:, j:j + 1], bucket)
         return logits
 
-    def warmup(self, prefill_buckets=(16,)) -> None:
+    def warmup(self, prefill_buckets=(16,), autotune: bool = True) -> None:
         """Make the prefill graph of each given prompt length at offset 0 (a
         prefill on a scratch cache) and every live-length bucket's one-step
         decode graph, so that no capture falls inside a timed loop. Every
-        cache handle is stale after it: call ``init_cache()``."""
+        cache handle is stale after it: call ``init_cache()``.
+
+        ``autotune``: first race the plans of kernels 1 and 2 for every
+        distinct packed shape (``ops/cuda/autotune.py``) at the batch's rows
+        and at each prefill's padded rows, before any capture freezes a plan
+        (the TPU package's ``warmup(autotune=True)``; its floor of 8 rows is
+        a TPU tiling and is not kept). Nothing on the CPU, and nothing for a
+        shape the cache holds."""
+        if autotune:
+            at.ensure(self.params, self.cfg.act,
+                      [self.batch, *(self.batch * prefill_len(s, self.max_len)
+                                     for s in prefill_buckets)])
         for s in prefill_buckets:
             ids = torch.zeros((self.batch, s), dtype=torch.long, device=self.device)
             self.prefill(ids, self.init_cache())
@@ -433,6 +446,7 @@ class ModelRunner:
                                         lambda b=bucket: self._one_step(tok, b),
                                         restore=[self._store.offs, *self._bufs.values()])
         _sync(self.device)
+
 
 
 def _call(key, body, restore=(), generators=()):
@@ -517,12 +531,15 @@ def generate(runner: ModelRunner, prompt_ids, max_new_tokens: int, temperature: 
     """Autoregressive generation. prompt_ids: (B, S) or (S,) ints. Returns
     (B, S + new) token ids as numpy.
 
-    With ``span`` > 1 the tokens are decoded in spans of up to ``span``
-    through ``decode_sample_scan`` (sampling inside the graphs, one host read
-    a span); EOS is handled on the host between spans, the span truncated
-    where every row is done, so the result is token-identical to ``span=1``,
-    the per-token loop (one ``decode`` graph a token; the host waits on the
-    device per token only for EOS bookkeeping or a ``stream`` callback)."""
+    With ``span`` > 1 a runner that has ``decode_sample_scan`` decodes in
+    spans of up to ``span`` through it (sampling inside the graphs, one host
+    read a span); EOS is handled on the host between spans, the span
+    truncated where every row is done, so the result is token-identical to
+    ``span=1``, the per-token loop (one ``decode`` graph a token; the host
+    waits on the device per token only for EOS bookkeeping or a ``stream``
+    callback). A runner without it (``runtime/offload.OffloadRunner``, whose
+    layer streaming the host drives) takes the per-token loop whatever
+    ``span`` says, as in the TPU package."""
     ids = np.atleast_2d(np.asarray(prompt_ids, dtype=np.int64))
     b, s = ids.shape
     if b != runner.batch or s + max_new_tokens > runner.max_len:
@@ -535,7 +552,7 @@ def generate(runner: ModelRunner, prompt_ids, max_new_tokens: int, temperature: 
     last = logits[:, -1]
     mode = sample_mode(temperature, top_p, top_k)
     out = [ids]
-    if span > 1:
+    if span > 1 and hasattr(runner, "decode_sample_scan"):
         done = np.zeros(b, bool)
         produced = 0
         while produced < max_new_tokens and not done.all():

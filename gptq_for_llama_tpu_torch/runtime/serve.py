@@ -51,6 +51,7 @@ import torch
 from .. import resolve_device
 from ..models.registry import check_positions, embed_weight, get_arch
 from ..ops import kv_dtype as kv
+from ..ops.cuda import autotune as at
 from .graphs import Graphs, bucket_for, live_buckets
 from .runner import check_cache_impl, sample_logits, sample_mode
 
@@ -167,6 +168,14 @@ class ServingEngine:
         # holding every row's offset + 1 at the span's end
         self.decode_buckets = live_buckets(self._kv_len())
         self.graphs = Graphs(self.device, counters=(self.forwards,))
+        # the measured race of kernels 1 and 2 at the decode step's rows, and
+        # at the fused chunk+decode step's, before any capture freezes a plan
+        # (the TPU package's engine does the same at serve.py:154-166; nothing
+        # on the CPU or for a shape the cache holds)
+        at.configure()
+        at.ensure(self.params, cfg.act,
+                  [self.b] + ([self.b + prefill_chunk]
+                              if prefill_chunk is not None and self.fused_chunk_decode else []))
 
     # -- model steps -----------------------------------------------------------
 

@@ -6,6 +6,8 @@ installed: ``python -m pytest tests/test_torch_cuda.py --noconftest`` (the
 repository's conftest.py configures JAX).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +34,18 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def heuristic_plans(monkeypatch):
+    """Kernels 1, 2 and 8 on their heuristic plans (GPTQ_TORCH_AUTOTUNE=0 for
+    every runner and engine built here); a test of the race sets its own
+    knobs. The tuner's state is reset before and after each test."""
+    from gptq_for_llama_tpu_torch.ops.cuda import autotune
+    monkeypatch.setenv(autotune.MODE_ENV, "0")
+    autotune.reset_cache_for_tests()
+    yield
+    autotune.reset_cache_for_tests()
 
 
 def _linear(k, n, bits, gs, seed, device, actorder=False, bias=False):
@@ -1908,3 +1922,117 @@ def test_runner_fuse_qkv_on_the_card(card):
         toks, _ = r.decode_greedy_scan(lg[:, -1:].argmax(-1), cache, 16)
         per[fuse] = kernels.launch_counts()["qmm"] / (r.forwards["decode"] - f0)
     assert per == {False: 5.0 * cfg.num_layers, True: 3.0 * cfg.num_layers}
+
+
+def _offload_model(card, layers=4):
+    """``_graph_model``'s LLaMA at ``layers`` layers, its parameters on the CPU
+    (as the CLI loads them for --pre-layer) and on the card."""
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    from gptq_for_llama_tpu_torch.runtime.offload import map_tensors
+    from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+    cfg = ModelConfig(arch="llama", vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=layers, num_heads=2, num_kv_heads=2, head_dim=128,
+                      max_seq_len=300)
+    params = gaussian_wire_llama(cfg, seed=0, device=card)
+    return cfg, params, map_tensors(params, lambda t: t.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre_layer", [0, 1, 3])
+def test_offload_is_bit_equal_to_the_resident_runner(card, pre_layer):
+    """OffloadRunner from host parameters, the streamed layers pinned: the
+    prompt logits and 40 greedy tokens equal the resident runner's
+    generate(span=1) bit for bit (the same step bodies: the prefill graph's,
+    the decode graph's, here run eagerly), the cache-less forward equals
+    ``llama.forward`` and the perplexity the resident eval's; every forward
+    stages each streamed layer once; kernels 1, 2, 3, 4, 5 and 6 launch."""
+    from gptq_for_llama_tpu_torch.engine import perplexity
+    from gptq_for_llama_tpu_torch.models import llama
+    from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
+    from gptq_for_llama_tpu_torch.runtime.offload import OffloadRunner, tensors
+    cfg, params, host = _offload_model(card)
+    off = OffloadRunner("llama", cfg, host, pre_layer, max_seq_len=300, device=card)
+    assert all(t.is_pinned() for h in off.host_layers for t in tensors(h))
+    assert all(t.is_cuda for s in off.layers.slots for t in tensors(s))
+    res = ModelRunner("llama", cfg, params, max_seq_len=300, device=card)
+    prompt = np.random.RandomState(5).randint(1, 512, size=37)
+    kernels.reset_launch_counts()
+    got = off.generate(prompt, max_new_tokens=40)
+    counts = kernels.launch_counts()
+    assert np.array_equal(got, generate(res, prompt, max_new_tokens=40, temperature=0.0, span=1))
+    assert off.layers.staged_bytes == off.streamed_bytes * sum(off.forwards.values())
+    assert all(counts[k] > 0 for k in ("qmm", "fused_mlp", "decode_attention",
+                                       "flash_prefill_blocked", "rms_norm"))
+    ids = torch.as_tensor(prompt[None], device=card)
+    lo, _ = off.prefill(ids, off.init_cache())
+    lr, _ = res.prefill(ids, res.init_cache())
+    assert torch.equal(lo, lr)
+    assert torch.equal(off.forward(ids), llama.forward(params, cfg, ids))
+    stream = np.random.RandomState(6).randint(1, 512, size=4 * 64)
+    assert off.perplexity(stream, 64) == perplexity("llama", cfg, params, stream, seqlen=64)
+
+
+@pytest.mark.cuda
+def test_offload_staging_waits_for_the_slot(card, monkeypatch):
+    """Each layer held 2 ms on the compute stream before its kernels, so the
+    copies run far ahead: with the side stream's wait for the slot's last
+    reader the logits are the resident model's bit for bit; without it
+    (``_after`` a no-op) layer i + 2's bytes land under layer i and the
+    logits differ."""
+    from gptq_for_llama_tpu_torch.models import llama
+    from gptq_for_llama_tpu_torch.runtime.offload import OffloadRunner
+    cfg, params, host = _offload_model(card)
+    real = llama.layer
+
+    def held(*args, **kw):
+        torch.cuda._sleep(4_000_000)   # about 2 ms of the H100's 1.98 GHz clock
+        return real(*args, **kw)
+
+    monkeypatch.setattr(llama, "layer", held)
+    ids = torch.as_tensor(np.random.RandomState(7).randint(1, 512, size=(1, 64)), device=card)
+    want = llama.forward(params, cfg, ids)
+    off = OffloadRunner("llama", cfg, host, 0, max_seq_len=300, device=card)
+    assert torch.equal(off.forward(ids), want)
+    monkeypatch.setattr(off.layers, "_after", lambda slot: None)
+    assert not torch.equal(off.forward(ids), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m", [("fwd", 8), ("mlp", 1), ("bwd", 256)])
+def test_autotune_race_picks_a_valid_plan(card, tmp_path, monkeypatch, kind, m):
+    """A race over four linears (pairs) of one shape on the card: every
+    candidate timed once, the winner among them, written to the cache file
+    under the card's name; the kernel's ``plan_for`` then takes it, and its
+    output matches the plain version (kernel 1's tolerance); a second race is
+    a cache hit."""
+    from gptq_for_llama_tpu_torch.ops.cuda import autotune, matmul, matmul_t, mlp
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import quant_matmul_t_plain, qmm_t_cuda
+    monkeypatch.setenv(autotune.MODE_ENV, "1")
+    monkeypatch.setenv(autotune.PATH_ENV, str(tmp_path / "tune.json"))
+    autotune.configure()
+    lins = [_linear(1024, 2048, 4, 128, seed, card) for seed in range(4)]
+    sms = matmul._sm_count(0)
+    cands = autotune.candidates(kind, 1024, 2048, 4, 128, m, sms)
+    if kind == "mlp":
+        won = autotune.tune_mlp([(lins[0], lins[1]), (lins[2], lins[3])], m)
+    else:
+        won = autotune.tune_qmm(lins, m, kind)
+    assert won in cands and autotune.measurements == len(cands)
+    with open(tmp_path / "tune.json") as f:
+        (name,) = json.load(f)["entries"]
+    assert name.endswith(autotune.device_name(card))
+    x = torch.randn(m, 2048 if kind == "bwd" else 1024, device=card).bfloat16()
+    if kind == "fwd":
+        assert matmul.plan_for(x, lins[0]) == won
+        got, want = quant_matmul(x, lins[0]), quant_matmul_plain(x, lins[0])
+    elif kind == "mlp":
+        assert mlp.plan_for(x, lins[0]) == won
+        got, want = fused_mlp(x, lins[0], lins[1]), fused_mlp_plain(x, lins[0], lins[1])
+    else:
+        assert matmul_t.plan_for(x, lins[0]) == won
+        got, want = qmm_t_cuda(x, lins[0]), quant_matmul_t_plain(x, lins[0])
+    torch.cuda.synchronize()
+    assert _close(got, want, 2e-2)
+    again = (autotune.tune_mlp([(lins[0], lins[1])], m) if kind == "mlp" else
+             autotune.tune_qmm(lins, m, kind))
+    assert again == won and autotune.measurements == len(cands)
