@@ -156,6 +156,24 @@ Phases, in order, on one card:
            in turns; a fresh process's ``ModelRunner.warmup`` on the same
            file makes no measurement. Every other phase runs with
            GPTQ_TORCH_AUTOTUNE=0 (the heuristic plans).
+  tp       tensor and data parallelism (``parallel/``) as 4 gloo processes
+           on this one card (``parallel.distributed.spawn``; NCCL needs a card
+           a rank): LLaMA-7B INT4-g128 at tp 2, all 32 layers, a 128-token
+           prompt and 32 greedy tokens, against the unsharded runner (both
+           eager: each row of the prompt's logits and of each teacher-forced
+           step's within TP_LOGITS_LIMIT, what two correct bf16 7B runs part
+           by, and within 3x this run's own floor, the first greedy token
+           where they part reported); 7B widths at tp 4, 4 layers, act-order
+           weights (MLP shards of 2752 padded to 2816, the K-padded down_proj
+           under its row map), MHA and 8 kv heads, the same checks; the
+           serving engine at tp 2 (4 layers, 8 requests; dense, paged, fold;
+           bf16 and fp8-e4m3 caches) against the unsharded engine by the serve
+           phase's rule; calibration at dp 2 against dp 1 (2 layers, the
+           quantize phase's solver fractions, both ranks' trees equal); an
+           all-reduce's and an all-gather's time on the CUDA tensors;
+           then every kernel of the path at its shard shapes against its
+           plain version, timed. Prints ms/token TP eager and unsharded eager,
+           all-reduces a token and their time, peak memory per rank.
   profile  torch.profiler over eager decode steps of a 4-layer 7B-width
            model: device time per kernel, the device busy share and the
            elementwise add launches per step (the ``full`` phase prints the
@@ -189,7 +207,7 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 L2_BYTES = 50 * 2**20
 PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve", "kvdtype",
-          "archs", "offload", "autotune", "profile")
+          "archs", "offload", "autotune", "tp", "profile")
 # kernels each path must launch: the decode path (prefill at a cache offset,
 # then decode steps), the calibration forward, the perplexity eval, paged
 # serving (bucketed and batched admission, spans) and dense serving with
@@ -264,10 +282,28 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          "autotune:tuned": {"qmm", "fused_mlp", "decode_attention",
                             "flash_prefill_blocked"} | NORMS,
          "autotune:heuristic": {"qmm", "fused_mlp", "decode_attention",
-                                "flash_prefill_blocked"} | NORMS}
+                                "flash_prefill_blocked"} | NORMS,
+         # tensor and data parallelism (phase tp, gloo ranks on the card):
+         # LLaMA-7B at tp 2, 7B widths at tp 4 (MHA, GQA), each a prefill,
+         # a greedy scan and teacher-forced steps; the engine at tp 2 (dense,
+         # paged, fold; bf16 and fp8 caches; admissions batched or not); the
+         # calibration forward at dp 2
+         **{f"tp:{name}": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
+                           "qmm:frag", "qmm:tile", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS
+            for name in ("7b_tp2", "7b4_tp4", "7b4_tp4_gqa")},
+         **{f"tp:serve:{mode}{kv}": {"qmm", "fused_mlp", f"{kernel}{kv}"} | NORMS
+            for mode, kernel in (("dense", "decode_attention"),
+                                 ("paged", "pool_decode_attention"),
+                                 ("fold", "fused_decode_attention"))
+            for kv in ("", ":fp8")},
+         "tp:calibrate": {"flash_prefill"} | NORMS}
 # the rows at which kernel 1's rows also time every form forced (the decode
 # widths around the forms' crossovers), as kernel 2's rows do
 FORCED_MS = (1, 2, 4, 5, 8, 16)
+# the most a row of logits may part from the unsharded run's, relative to
+# its norm: what two correct bf16 LLaMA-7B runs part by (PERF.md, the worst
+# row of two correct runs of the serve phase's 7B model)
+TP_LOGITS_LIMIT = 2.9e-2
 LLAMA_7B = dict(arch="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                 num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128, max_seq_len=2048)
 # the published configurations (HF config.json) of phase archs, full depth
@@ -503,6 +539,252 @@ def solver_agreement(got, want) -> dict:
             "error_rel": float(abs(float(ge) - float(we)) / abs(float(we)))}
 
 
+# ---------------------------------------------------------------------------
+# phase tp: what each rank runs (``parallel.distributed.spawn`` imports this
+# file by name in every rank's process)
+# ---------------------------------------------------------------------------
+
+# the tp phase's serving modes (the engine's kwargs; kv_dtype by torch name)
+TP_SERVE_MODES = {"dense": {}, "paged": dict(paged=True), "fold": dict(cache_impl="fold"),
+                  "dense:fp8": dict(kv_dtype="float8_e4m3fn"),
+                  "paged:fp8": dict(paged=True, kv_dtype="float8_e4m3fn"),
+                  "fold:fp8": dict(cache_impl="fold", kv_dtype="float8_e4m3fn")}
+
+
+def _tp_drive(torch, runner, prompt, new, forced):
+    """Prefill ``prompt`` (1, S), then ``new`` greedy tokens through
+    ``decode_greedy_scan`` (host ms a token), then a fresh prefill and each
+    token of ``forced`` (default: these greedy tokens) teacher-forced through
+    ``forced_decode_scan``, one a call. Returns the prompt's logits (S, V),
+    the tokens (1, new + 1: the prefill's argmax first) and each forced
+    step's logits (new, V), as float32 numpy."""
+    ids = torch.as_tensor(prompt, device="cuda")
+    logits, cache = runner.prefill(ids, runner.init_cache())
+    prompt_logits = logits[0].float().cpu().numpy()
+    tok = logits[:, -1:].float().argmax(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = runner.decode_greedy_scan(tok, cache, new)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / new * 1e3
+    toks = torch.cat([tok, toks], dim=1).cpu().numpy()
+    feed = torch.as_tensor(toks if forced is None else forced, device="cuda")
+    _, cache = runner.prefill(ids, runner.init_cache())
+    rows = []
+    for j in range(new):
+        logits, cache = runner.forced_decode_scan(feed[:, j:j + 1], cache)
+        rows.append(logits[0, -1].float().cpu().numpy())
+    return {"prompt": prompt_logits, "toks": toks, "ms": ms, "forced": np.stack(rows)}
+
+
+def _tp_serve(torch, cfg, params, prompts, kw, mesh):
+    """8 greedy requests of 16 new tokens on 8 slots of ``ServingEngine``
+    (eager: under TP it is; unsharded, its graphs are switched off), over
+    ``mesh`` when given. Returns ({uid: tokens}, the engine)."""
+    from gptq_for_llama_tpu_torch.runtime import GenRequest, ServingEngine
+    kw = dict(kw)
+    if "kv_dtype" in kw:
+        kw["kv_dtype"] = getattr(torch, kw["kv_dtype"])
+    eng = ServingEngine("llama", cfg, params, batch_slots=8, max_seq_len=512, device="cuda",
+                        mesh=mesh, **kw)
+    eng.graphs.eager = True
+    for uid, p in enumerate(prompts):
+        eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=16))
+    res = eng.run()
+    return {uid: [int(t) for t in toks] for uid, toks in res.items()}, eng
+
+
+def _dense_llama(torch, cfg, seed):
+    """A dense bf16 LLaMA of ``cfg`` drawn on the card from ``seed``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    h, inter, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+
+    def w(i, o):
+        return {"kernel": (torch.randn(i, o, generator=gen, device="cuda") * i ** -0.5)
+                .to(torch.bfloat16)}
+
+    def ones():
+        return torch.ones(h, dtype=torch.bfloat16, device="cuda")
+
+    return {"embed_tokens": torch.randn(v, h, generator=gen, device="cuda").to(torch.bfloat16),
+            "layers": [{"input_layernorm": ones(), "post_attention_layernorm": ones(),
+                        "self_attn": {n: w(h, h) for n in ("q_proj", "k_proj", "v_proj",
+                                                           "o_proj")},
+                        "mlp": {"gate_proj": w(h, inter), "up_proj": w(h, inter),
+                                "down_proj": w(inter, h)}} for _ in range(cfg.num_layers)],
+            "norm": ones(), "lm_head": w(h, v)}
+
+
+def _tp_calibrate(torch, cfg, windows, mesh, chunk):
+    """GPTQ of the seeded dense model (4-bit g128, act-order, true
+    sequential) over ``windows`` in forwards of ``chunk`` windows,
+    calibration split over ``mesh``'s dp axis when given. Returns ({name:
+    (q (out, in), scale, zero, g_idx, error)} as numpy, seconds,
+    launches)."""
+    from gptq_for_llama_tpu_torch.engine import QuantizeSpec, get_path, quantize_model
+    from gptq_for_llama_tpu_torch.ops import cuda as kernels
+    params = _dense_llama(torch, cfg, seed=6)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, recs, _ = quantize_model("llama", cfg, params, windows,
+                                     QuantizeSpec(wbits=4, groupsize=128, act_order=True,
+                                                  true_sequential=True, chunk=chunk),
+                                     verbose=False, mesh=mesh)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = {}
+    for key, rec in recs.items():
+        lp = params["layers"][int(key.split(".")[1])]
+        q = get_path(lp, key.split(".", 2)[2])["kernel"].T.float().cpu().numpy()
+        out[key] = (q, rec.scale, rec.zero, rec.g_idx, rec.error)
+    return out, dt, kernels.launch_counts()
+
+
+def _tp_job_runner(torch, job, mesh_of):
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    from gptq_for_llama_tpu_torch.ops import cuda as kernels
+    from gptq_for_llama_tpu_torch.runtime import ModelRunner
+    from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+    mesh = mesh_of(tp=job["tp"])
+    if not mesh.member:
+        return None
+    cfg = ModelConfig(**job["cfg"])
+    params = gaussian_wire_llama(cfg, seed=job["seed"], device="cuda",
+                                 act_order=job["act_order"])
+    runner = ModelRunner("llama", cfg, params, max_seq_len=512, mesh=mesh)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    mesh.collectives.clear()
+    out = _tp_drive(torch, runner, job["prompt"], job["new"], job["forced"])
+    out.update(launches=kernels.launch_counts(), collectives=dict(mesh.collectives),
+               forwards=sum(runner.forwards.values()), layers=cfg.num_layers, tp=mesh.tp,
+               peak=torch.cuda.max_memory_allocated())
+    if mesh.tp_rank:   # the other ranks' logits are rank 0's (the vocab gather)
+        del out["prompt"], out["forced"]
+    return out
+
+
+def _tp_job_serve(torch, job, mesh_of):
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    from gptq_for_llama_tpu_torch.ops import cuda as kernels
+    from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+    mesh = mesh_of(tp=job["tp"])
+    if not mesh.member:
+        return None
+    cfg = ModelConfig(**job["cfg"])
+    params = gaussian_wire_llama(cfg, seed=job["seed"], device="cuda")
+    out = {}
+    for mode, kw in job["modes"].items():
+        kernels.reset_launch_counts()
+        res, eng = _tp_serve(torch, cfg, params, job["prompts"], kw, mesh)
+        out[mode] = (res, kernels.launch_counts(), dict(eng.forwards))
+        del eng
+    return out
+
+
+def _tp_job_calibrate(torch, job, mesh_of):
+    """dp 2 on ranks 0 and 1, chunks of 8 windows (4 a rank), while rank 2
+    runs dp 1 in chunks of 4, so that every forward sees the same 4 windows
+    as a dp 2 rank's and the Gram sums differ only in their fp64 order
+    (cuBLAS rounds a batch of 8 otherwise than one of 4, and act-order's
+    permutation follows the Hessian's diagonal); rank 0 then sends its tree
+    to rank 2, which compares (the trees are too large to hand back)."""
+    import hashlib
+    import torch.distributed as dist
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    mesh = mesh_of(tp=1, dp=2)
+    cfg, rank = ModelConfig(**job["cfg"]), dist.get_rank()
+    if mesh.member:
+        got, dt, counts = _tp_calibrate(torch, cfg, job["windows"], mesh, 8)
+        digest = hashlib.sha256()
+        for key in sorted(got):
+            for a in got[key][:4]:
+                digest.update(np.ascontiguousarray(a).tobytes())
+            if rank == 0:
+                for a in (*got[key][:4], np.float64(got[key][4])):
+                    dist.send(torch.from_numpy(np.ascontiguousarray(a).reshape(-1)), dst=2)
+        return {"digest": digest.hexdigest(), "seconds_dp2": dt, "launches": counts}
+    if rank != 2:
+        return None
+    want, dt, _ = _tp_calibrate(torch, cfg, job["windows"], None, 4)
+    stats = {}
+    for key in sorted(want):
+        got = []
+        for a in (*want[key][:4], np.float64(want[key][4])):
+            buf = torch.from_numpy(np.empty_like(np.asarray(a)).reshape(-1))
+            dist.recv(buf, src=0)
+            got.append(buf.numpy().reshape(np.shape(a)))
+        got[4] = float(got[4])
+        stats[key] = solver_agreement(tuple(got), want[key])
+    return {"seconds_dp1": dt, "stats": stats}
+
+
+def _tp_job_allreduce(torch, job, mesh_of):
+    """Microseconds a collective of a decode step over two ranks: an
+    all-reduce of a (1, 1, 4096) bf16 tensor (o_proj's, down_proj's output)
+    and an all-gather of a (1, 1, 16000) one (half the vocabulary's logits),
+    gloo on the CUDA tensors, 200 back to back."""
+    mesh = mesh_of(tp=2)
+    if not mesh.member:
+        return None
+    out = {}
+    for name, op, shape in (("all_reduce_us", mesh.all_reduce, (1, 1, 4096)),
+                            ("all_gather_us", mesh.all_gather, (1, 1, 16000))):
+        x = torch.randn(*shape, device="cuda").to(torch.bfloat16)
+        for _ in range(10):
+            op(x.clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            op(x.clone())
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / 200 * 1e6
+    return out
+
+
+_TP_JOBS = {"runner": _tp_job_runner, "serve": _tp_job_serve, "calibrate": _tp_job_calibrate,
+            "allreduce": _tp_job_allreduce}
+
+
+def _tp_rank(jobs):
+    """One rank of the tp phase's group: every job in order, each on a mesh
+    of its own over this card (every rank makes every mesh; ranks outside
+    one skip its job)."""
+    import torch
+    import torch.distributed as dist
+    from gptq_for_llama_tpu_torch.parallel.sharding import make_mesh
+    torch.cuda.set_device(0)
+    out = {}
+    for job in jobs:
+        t0 = time.perf_counter()
+        res = _TP_JOBS[job["kind"]](torch, job, lambda **kw: make_mesh(device="cuda:0", **kw))
+        dist.barrier()
+        if isinstance(res, dict):
+            res["seconds"] = time.perf_counter() - t0
+        out[job["name"]] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_shard(torch, lin, mode, tp):
+    """Rank 0's shard of a prepared linear as the TP runner's kernels see it
+    (``parallel/tp_model``: sliced, its dims localized; a row shard without
+    its row map, which ``row_parallel_apply`` applies to the activation)."""
+    import dataclasses
+    from gptq_for_llama_tpu_torch.parallel import tp_model
+    from gptq_for_llama_tpu_torch.parallel.sharding import Mesh
+    mesh = Mesh(tp=tp, dp=1, rank=0, tp_rank=0, dp_rank=0, device=torch.device("cuda"))
+    local = tp_model._slice_linear(lin, mode, mesh)
+    if mode == "col":
+        return dataclasses.replace(local, out_features=lin.out_features // tp)
+    return dataclasses.replace(local, perm=None, perm_sig=None,
+                               in_features=local.qweight.shape[0] * 32 // local.bits)
+
+
 class Smoke:
     def __init__(self):
         self.card = ""
@@ -517,6 +799,7 @@ class Smoke:
         self.kv_entries = {}  # kernel -> {cache dtype: its row of the kernels line}
         self.dim_entries = {}  # kernel -> {"d<D>": {cache dtype: its row}} (phase archs)
         self._classic_tokens = None   # an arch's classic generate tokens (phase archs)
+        self.tp_entries = {}   # kernel -> its rows at the tp phase's shard shapes
 
     # -- phase 1 ---------------------------------------------------------------
     def phase_card(self, torch):
@@ -4393,6 +4676,404 @@ class Smoke:
                             "kernels": [{"us_per_step": d / steps, "calls": c, "name": k}
                                         for d, c, k in rows]}
 
+    # -- phase tp --------------------------------------------------------------
+    def phase_tp(self, torch):
+        """Tensor and data parallelism (``parallel/``) as gloo ranks on this one
+        card: one group of 4 processes (``parallel.distributed.spawn``, a
+        ``file://`` rendezvous) runs every job, each on a mesh of its own
+        (ranks outside a mesh wait). The references run here first, eagerly:
+        LLaMA-7B at tp 2 (32 layers), 7B widths at tp 4 (4 layers, act-order,
+        MHA and 8 kv heads), the serving engine at tp 2 (4 layers; dense,
+        paged, fold; bf16 and fp8-e4m3), calibration at dp 2 against dp 1
+        (2 layers); then every kernel of the path at its shard shapes."""
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.parallel import distributed
+        from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+
+        rng = np.random.RandomState(16)
+        prompt = rng.randint(1, 32000, size=(1, 128))
+        new = 32
+        jobs, refs = [], {}
+        # A: LLaMA-7B at full width and depth, tp 2
+        cfg = ModelConfig(**LLAMA_7B)
+        params = (self.model7b[1] if self.model7b is not None and self.model7b[0] == cfg
+                  else gaussian_wire_llama(cfg, seed=0, device="cuda"))
+        self.model7b = None
+        refs["7b_tp2"] = self._tp_runner_reference(torch, cfg, params, prompt, new)
+        del params
+        torch.cuda.empty_cache()
+        jobs.append(dict(kind="runner", name="7b_tp2", cfg=LLAMA_7B, seed=0, act_order=False,
+                         tp=2, prompt=prompt, new=new, forced=refs["7b_tp2"]["toks"]))
+        # B: 7B widths, 4 layers, tp 4: MLP shards of 2752 columns padded to
+        # 2816, down_proj K-padded to 11264 (22 groups a shard) with its row
+        # map, act-order weights; MHA and GQA (8 kv heads)
+        for name, kv in (("7b4_tp4", 32), ("7b4_tp4_gqa", 8)):
+            c4 = dict(LLAMA_7B, num_layers=4, num_kv_heads=kv)
+            cfg = ModelConfig(**c4)
+            params = gaussian_wire_llama(cfg, seed=4, device="cuda", act_order=True)
+            refs[name] = self._tp_runner_reference(torch, cfg, params, prompt, new)
+            del params
+            jobs.append(dict(kind="runner", name=name, cfg=c4, seed=4, act_order=True, tp=4,
+                             prompt=prompt, new=new, forced=refs[name]["toks"]))
+        torch.cuda.empty_cache()
+        # C: the serving engine at tp 2, 7B widths, 4 layers
+        serve_cfg = dict(LLAMA_7B, num_layers=4)
+        sprompts = [rng.randint(1, 32000, size=n) for n in (37, 64, 100, 150, 23, 77, 200, 5)]
+        jobs.append(dict(kind="serve", name="serve", cfg=serve_cfg, seed=5, tp=2,
+                         prompts=sprompts, modes=TP_SERVE_MODES))
+        # D: calibration at dp 2 against dp 1, a 2-layer 7B-wide dense model
+        cal_cfg = dict(LLAMA_7B, num_layers=2)
+        windows = rng.randint(0, 32000, size=(16, 512))
+        jobs.append(dict(kind="calibrate", name="calibrate", cfg=cal_cfg, windows=windows))
+        jobs.append(dict(kind="allreduce", name="allreduce"))
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = distributed.spawn(_tp_rank, 4, args=(jobs,), backend="gloo", threads=1)
+        dt = time.perf_counter() - t0
+        log(f"[tp] 4 gloo ranks on one card ran every job in {dt:.1f} s: "
+            + ", ".join(f"{j['name']} {ranks[0][j['name']]['seconds']:.1f} s" for j in jobs)
+            + f" | {self.card}")
+        report = self.report.setdefault("tp", {"ranks_s": dt})
+        ar = ranks[0]["allreduce"]
+        log(f"[tp] over 2 gloo ranks on the card: an all-reduce of a (1, 1, 4096) bf16 tensor "
+            f"{ar['all_reduce_us']:.1f} us, an all-gather of (1, 1, 16000) "
+            f"{ar['all_gather_us']:.1f} us | {self.card}")
+        report["collective_us"] = ar
+        for name in ("7b_tp2", "7b4_tp4", "7b4_tp4_gqa"):
+            report[name] = self._tp_hold_runner(name, refs[name], [r[name] for r in ranks], ar)
+        report["serve"] = self._tp_hold_serve(torch, serve_cfg, sprompts, ranks)
+        report["calibrate"] = self._tp_hold_calibrate(ranks)
+        self._tp_kernel_rows(torch)
+
+    def _tp_runner_reference(self, torch, cfg, params, prompt, new):
+        """The unsharded runner, eager (its bodies called, no graphs), as the
+        TP runner runs: prompt logits, ``new`` greedy tokens (ms/token), and
+        each teacher-forced step's logits over those tokens. Then the floor:
+        how far two correct unsharded bf16 runs part, the teacher-forced
+        steps (kernels 1 and 2 at M = 1) against one prefill of the prompt and
+        the same tokens (their tiles at M = 160), row by row."""
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner
+        r = ModelRunner("llama", cfg, params, max_seq_len=512, device="cuda")
+        r.graphs.eager = True
+        out = _tp_drive(torch, r, prompt, new, None)
+        ids = torch.as_tensor(np.concatenate([prompt, out["toks"][:, :new]], axis=1),
+                              device="cuda")
+        logits, _ = r.prefill(ids, r.init_cache())
+        alt = logits[0, prompt.shape[1]:].double().cpu().numpy()
+        w = out["forced"].astype(np.float64)
+        rel = np.linalg.norm(alt - w, axis=-1) / np.linalg.norm(w, axis=-1)
+        out["floor"] = {"row_rel_worst": float(rel.max()), "row_rel_mean": float(rel.mean())}
+        del r
+        torch.cuda.empty_cache()
+        return out
+
+    def _tp_hold_runner(self, name, ref, ranks, coll):
+        """The TP run against the unsharded one: the prompt's logits and every
+        teacher-forced step's, each row's relative error, worst and mean,
+        within TP_LOGITS_LIMIT (two correct bf16 7B runs) and within 3x the
+        floor two correct unsharded bf16 runs part by in this run
+        (``_tp_runner_reference``; the tighter of the two at 4 layers, where
+        the floor is a fifth of the limit); the largest difference over the
+        largest |logit| printed beside them (the serve phase's margin unit); the first greedy
+        token where the runs part (reported); every rank alike."""
+        got = ranks[0]
+        for r in ranks[1:]:
+            if r is not None and not np.array_equal(r["toks"], got["toks"]):
+                raise AssertionError(f"tp {name}: the ranks decoded different tokens")
+        rows, bad = {}, []
+        for what in ("prompt", "forced"):
+            g, w = got[what].astype(np.float64), ref[what].astype(np.float64)
+            scale = np.abs(w).max()
+            worst_abs = np.abs(g - w).max(axis=-1) / scale
+            rel = np.linalg.norm(g - w, axis=-1) / np.linalg.norm(w, axis=-1)
+            rows[what] = {"abs_over_max": float(worst_abs.max()), "rows": len(rel),
+                          "row_rel_worst": float(rel.max()), "row_rel_mean": float(rel.mean())}
+            if not all(rows[what][k] <= min(TP_LOGITS_LIMIT, 3 * ref["floor"][k])
+                       for k in ("row_rel_worst", "row_rel_mean")):
+                bad.append(f"{what} logits {rows[what]}, limit {TP_LOGITS_LIMIT} or 3x the "
+                           f"floor {ref['floor']}")
+        diff = np.nonzero(got["toks"][0] != ref["toks"][0])[0]
+        first = None if not diff.size else int(diff[0])
+        layers, fw = got["layers"], got["forwards"]
+        per_tok = {k: v / fw for k, v in got["collectives"].items()}
+        coll_ms = (per_tok.get("all_reduce:tp", 0) * coll["all_reduce_us"]
+                   + per_tok.get("all_gather:tp", 0) * coll["all_gather_us"]) / 1e3
+        log(f"[tp] {name}: two correct unsharded bf16 runs part by rows rel worst "
+            f"{ref['floor']['row_rel_worst']:.2e}, mean {ref['floor']['row_rel_mean']:.2e} "
+            f"(decode steps against one prefill); limit min({TP_LOGITS_LIMIT}, 3x that) | "
+            f"{self.card}")
+        log(f"[tp] {name}: tp {got['tp']}, {layers} layers; prompt logits max |diff| "
+            f"{rows['prompt']['abs_over_max']:.2e} of max |logit| (rows rel worst "
+            f"{rows['prompt']['row_rel_worst']:.2e}, mean {rows['prompt']['row_rel_mean']:.2e}); "
+            f"{rows['forced']['rows']} teacher-forced steps {rows['forced']['abs_over_max']:.2e} "
+            f"(rel worst {rows['forced']['row_rel_worst']:.2e}, mean "
+            f"{rows['forced']['row_rel_mean']:.2e}); greedy tokens "
+            f"{'equal' if first is None else f'part at token {first}'}; TP eager "
+            f"{got['ms']:.2f} ms/token against unsharded eager {ref['ms']:.2f}; a forward "
+            f"{per_tok.get('all_reduce:tp', 0):.0f} all-reduces and "
+            f"{per_tok.get('all_gather:tp', 0):.0f} all-gathers (about {coll_ms:.1f} ms at the "
+            f"measured rates); peak memory a rank "
+            f"{', '.join(f'{r["peak"] / 2**30:.3f}' for r in ranks if r)} GiB | {self.card}")
+        if bad:
+            raise AssertionError(f"tp {name}: off the unsharded run: {'; '.join(bad)}")
+        self.check_path(f"tp:{name}", got["launches"])
+        self.check_norms(f"tp {name}", got["launches"], fw, layers)
+        return {"tp": got["tp"], "layers": layers, "logits": rows, "floor": ref["floor"],
+                "first_parting": first, "seconds": got["seconds"],
+                "ms_per_token": got["ms"], "unsharded_ms_per_token": ref["ms"],
+                "collectives_per_forward": per_tok, "collective_ms_per_forward": coll_ms,
+                "forwards": fw, "peak_bytes": [r["peak"] for r in ranks if r],
+                "launches": got["launches"]}
+
+    def _tp_hold_serve(self, torch, cfg, prompts, ranks):
+        """Each mode's TP tokens against the unsharded engine's (eager, the
+        same mode) by the serve phase's rules, with the single-sequence
+        runner teacher-forced along the TP tokens as the reference: a TP
+        token must equal the runner's argmax where its top-2 margin is clear
+        (``_hold_to_reference``), and the two engines must agree up to a
+        first difference where that margin is not clear (``_hold_to_run``);
+        every rank alike; the launches of the path."""
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner
+        from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+        cfg = ModelConfig(**cfg)
+        params = gaussian_wire_llama(cfg, seed=5, device="cuda")
+        got, out = ranks[0]["serve"], {}
+        for mode, kw in TP_SERVE_MODES.items():
+            tokens, counts, forwards = got[mode]
+            if ranks[1]["serve"][mode][0] != tokens:
+                raise AssertionError(f"tp serve {mode}: the ranks served different tokens")
+            res, _ = _tp_serve(torch, cfg, params, prompts, kw, None)
+            runner = ModelRunner("llama", cfg, params, max_seq_len=512, device="cuda",
+                                 kv_dtype=getattr(torch, kw.get("kv_dtype", "bfloat16")))
+            runner.graphs.eager = True
+            ref, _ = self._forced_reference(torch, runner, prompts, tokens)
+            del runner
+            compared, total, same = self._hold_to_reference(f"tp serve {mode}", tokens, ref)
+            equal = self._hold_to_run(f"tp serve {mode} vs unsharded", tokens, res, ref)
+            self.check_path(f"tp:serve:{mode}", counts)
+            log(f"[tp] serve {mode} at tp 2: {compared}/{total} tokens clear the unsharded "
+                f"runner's margin, all agree ({same}/{total} agree in all); {equal}/{len(res)} "
+                f"requests equal to the unsharded engine's, the rest part where the margin is "
+                f"not clear; forwards {forwards} | {self.card}")
+            out[mode] = {"equal": equal, "compared": compared, "total": total, "same": same,
+                         "forwards": forwards, "launches": counts}
+        del params
+        torch.cuda.empty_cache()
+        return out
+
+    def _tp_hold_calibrate(self, ranks):
+        """dp 2 against dp 1 (compared on rank 2, which ran dp 1): every
+        linear's scales, zeros and codes by the quantize phase's rule for the
+        card's solver against the CPU's (its fractions); both ranks' dp 2
+        trees bit-equal (their digests)."""
+        a, b, ref = ranks[0]["calibrate"], ranks[1]["calibrate"], ranks[2]["calibrate"]
+        if a["digest"] != b["digest"]:
+            raise AssertionError("tp calibrate: ranks 0 and 1 ended with different trees")
+        worst = {"scales_close": 1.0, "zeros_equal": 1.0, "codes_equal": 1.0, "error_rel": 0.0}
+        for key, stats in ref["stats"].items():
+            for f in ("scales_close", "zeros_equal", "codes_equal"):
+                worst[f] = min(worst[f], stats[f])
+            worst["error_rel"] = max(worst["error_rel"], stats["error_rel"])
+            if not (stats["scales_close"] >= 0.999 and stats["zeros_equal"] >= 0.999
+                    and stats["codes_equal"] >= 0.999 and stats["error_rel"] <= 1e-4):
+                raise AssertionError(f"tp calibrate {key}: dp 2 against dp 1 {stats}")
+        self.check_path("tp:calibrate", a["launches"])
+        log(f"[tp] calibration at dp 2 (2 layers, 7B widths, 16 x 512 tokens, chunk 8, 4 a "
+            f"rank; dp 1 in chunks of 4): "
+            f"{len(ref['stats'])} linears against dp 1, worst {worst}; both ranks' trees equal; "
+            f"{a['seconds_dp2']:.1f} s against {ref['seconds_dp1']:.1f} s at dp 1 (the two runs "
+            f"side by side on the card) | {self.card}")
+        return {"worst": worst, "seconds_dp2": a["seconds_dp2"],
+                "seconds_dp1": ref["seconds_dp1"], "launches": a["launches"]}
+
+    def _tp_kernel_rows(self, torch):
+        """Every kernel of the TP path at its shard shapes against its plain
+        version, timed (``graph_ms``) beside the plain version, the library
+        call and the bound: kernel 1 at tp 2's column (q/k/v 4096 x 2048) and
+        row shards (o 2048 x 4096, the K-padded down_proj 5632 x 4096) and tp
+        4's (down 2816 x 4096), M = 1, 8 and 128; kernel 2 at 4096 x 5504 (tp
+        2) and 4096 x 2816 padded (tp 4); kernels 3, 9 at 16 heads (tp 2) and
+        8 (tp 4; GQA 8 over 2); 7 at 16 heads on 8 serving slots; 4 at 16
+        heads, SQ 128; 5 at dp 2's calibration chunk (B 4, S 512); 6 at the
+        replicated hidden 4096."""
+        import torch.nn.functional as F
+        from gptq_for_llama_tpu_torch.ops.cuda.attention import (
+            decode_attention_cuda, decode_attention_plain, fused_decode_attention_cuda,
+            fused_decode_attention_plain, pool_decode_attention_cuda,
+            pool_decode_attention_plain)
+        from gptq_for_llama_tpu_torch.ops.cuda.flash import (flash_prefill_blocked_cuda,
+                                                             flash_prefill_blocked_plain)
+        from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import (flash_prefill_cuda,
+                                                                     flash_prefill_plain)
+        from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for, qmm_cuda
+        from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp_cuda, fused_mlp_plain
+        from gptq_for_llama_tpu_torch.ops.cuda.norm import add_rms_norm_cuda, add_rms_norm_plain
+        from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
+        from gptq_for_llama_tpu_torch.parallel import tp_model
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(17)
+        bf = torch.bfloat16
+        rng = np.random.RandomState(17)
+        rows = self.tp_entries
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(bf)
+
+        def record(kernel, shape, err, tol, ms, pms, lms, nbytes, flops, **kw):
+            self._record(kernel, shape, err, tol, ms, pms, lms, nbytes, flops, **kw)
+            rows.setdefault(kernel, []).append(self.report["kernels"][kernel][-1])
+
+        # kernel 1: the shards as prepare_tp_params and shard_params make them
+        for k, n, what, mode, tp, ms_of in ((4096, 4096, "q_proj", "col", 2, (1, 8, 128)),
+                                            (4096, 4096, "o_proj", "row", 2, (1, 8)),
+                                            (11008, 4096, "down_proj", "row", 2, (1, 8)),
+                                            (11008, 4096, "down_proj", "row", 4, (1,))):
+            full = self._linears(torch, rng, k, n, 1)[0]
+            if mode == "row":
+                full = tp_model._prepare_row_linear(full, tp)
+            lin = _tp_shard(torch, full, mode, tp)
+            lins = [lin] + [_tp_shard(torch, f, mode, tp) for f in
+                            ([tp_model._prepare_row_linear(x, tp) if mode == "row" else x
+                              for x in self._linears(torch, rng, k, n,
+                                                     copies_for(k * n // 2 // tp) - 1)])]
+            wdq = [lin.dequantize(bf) for _ in range(copies_for(lin.in_features
+                                                                 * lin.out_features * 2))]
+            kl, nl = lin.in_features, lin.out_features
+            for m in ms_of:
+                x = randn(m, kl)
+                y = qmm_cuda(x, lin)
+                ref = quant_matmul_plain(x, lin, bf)
+                err = (y.float() - ref.float()).abs().max().item()
+                tol = 2e-2 * ref.float().abs().max().item()
+                ms = graph_ms(torch, [lambda l=l: qmm_cuda(x, l) for l in lins])
+                pms = graph_ms(torch, [lambda l=l: quant_matmul_plain(x, l, bf) for l in lins],
+                               iters=10)
+                lms = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wdq])
+                record("qmm", f"{what} tp{tp} {mode} {kl}x{nl} M={m}", err, tol, ms, pms, lms,
+                       m * kl * 2 + self._lin_bytes(lin) + m * nl * 2, 2 * m * kl * nl,
+                       path=plan_for(x, lin).path)
+            del lins, wdq
+        # kernel 2: gate/up column shards, tp 4's padded to 2816 (zero columns)
+        for tp, pad in ((2, 0), (4, 64)):
+            pairs = []
+            for _ in range(copies_for(4096 * 11008 // tp)):
+                g, u = self._linears(torch, rng, 4096, 11008, 2)
+                if pad:
+                    g, u = (tp_model._pad_col_shards(x, tp, pad) for x in (g, u))
+                pairs.append((_tp_shard(torch, g, "col", tp), _tp_shard(torch, u, "col", tp)))
+            g, u = pairs[0]
+            for m in (1, 8):
+                x = randn(m, 4096)
+                y = fused_mlp_cuda(x, g, u)
+                ref = fused_mlp_plain(x, g, u)
+                err = (y.float() - ref.float()).abs().max().item()
+                if pad and y[:, -pad:].abs().max().item() != 0:
+                    raise AssertionError("fused_mlp: a padded column is not exactly 0")
+                ms = graph_ms(torch, [lambda p=p: fused_mlp_cuda(x, *p) for p in pairs])
+                pms = graph_ms(torch, [lambda p=p: fused_mlp_plain(x, *p) for p in pairs], iters=10)
+                n = g.out_features
+                record("fused_mlp", f"gate/up tp{tp} 4096x{n} M={m}", err,
+                       2e-2 * ref.float().abs().max().item(), ms, pms, None,
+                       m * 4096 * 2 + 2 * self._lin_bytes(g) + m * n * 2, 4 * m * 4096 * n)
+            del pairs
+        # attention at the local heads: tp 2 (16 of 32), tp 4 (8), GQA tp 4 (8 over 2)
+        d, s = 128, 512
+        for h, hkv, what in ((16, 16, "tp2"), (8, 8, "tp4"), (8, 2, "tp4 gqa")):
+            b = 1
+            q = randn(b, 1, h, d)
+            ncopy = copies_for(2 * b * s * hkv * d * 2)
+            caches = [(randn(b, s, hkv, d), randn(b, s, hkv, d)) for _ in range(ncopy)]
+            kc, vc = caches[0]
+            off = 160
+            off_t = torch.tensor([off], dtype=torch.int32, device="cuda")   # made outside graphs
+            y = decode_attention_cuda(q, kc, vc, off, d ** -0.5)
+            ref = decode_attention_plain(q, kc, vc, off_t, d ** -0.5)
+            ms = graph_ms(torch, [lambda c=c: decode_attention_cuda(q, *c, off, d ** -0.5)
+                                  for c in caches])
+            pms = graph_ms(torch, [lambda c=c: decode_attention_plain(q, *c, off_t, d ** -0.5)
+                                   for c in caches[:2]], iters=10)
+            live = 2 * b * (off + 1) * hkv * d * 2
+            lms = None if h != hkv else graph_ms(torch, [
+                lambda c=c: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), c[0][:, :off + 1].transpose(1, 2),
+                    c[1][:, :off + 1].transpose(1, 2)) for c in caches])
+            record("decode_attention", f"{what} B=1 H={h} Hkv={hkv} offset {off}",
+                   row_rel_err(y, ref), 1e-2, ms, pms, lms, live + 2 * b * h * d * 2,
+                   4 * b * h * (off + 1) * d)
+            kn, vn = randn(b, 1, hkv, d), randn(b, 1, hkv, d)
+            y, _, _ = fused_decode_attention_cuda(q, kc, vc, kn, vn, off, d ** -0.5, write=False)
+            ref, _, _ = fused_decode_attention_plain(q, kc, vc, kn, vn, off_t, d ** -0.5,
+                                                     write=False)
+            ms = graph_ms(torch, [lambda c=c: fused_decode_attention_cuda(
+                q, *c, kn, vn, off, d ** -0.5, write=False) for c in caches])
+            pms = graph_ms(torch, [lambda c=c: fused_decode_attention_plain(
+                q, *c, kn, vn, off_t, d ** -0.5, write=False) for c in caches[:2]], iters=10)
+            record("fused_decode_attention", f"{what} B=1 H={h} Hkv={hkv} offset {off}",
+                   row_rel_err(y, ref), 1e-2, ms, pms, None, live + 2 * b * h * d * 2,
+                   4 * b * h * (off + 1) * d)
+            del caches
+        # kernel 7: 8 serving slots, 16 local heads, block 16
+        b, h, bs = 8, 16, 16
+        offs = torch.tensor([37, 100, 150, 200, 23, 77, 300, 5], dtype=torch.int32, device="cuda")
+        nb = b * (s // bs) + 1
+        pools = [(randn(nb, bs, h, d), randn(nb, bs, h, d)) for _ in range(copies_for(nb * bs * h * d * 4))]
+        tables = torch.arange(1, nb, dtype=torch.int32, device="cuda").reshape(b, s // bs)
+        q = randn(b, 1, h, d)
+        y = pool_decode_attention_cuda(q, *pools[0], tables, offs, d ** -0.5, 301)
+        ref = pool_decode_attention_plain(q, *pools[0], tables, offs, d ** -0.5)
+        ms = graph_ms(torch, [lambda p=p: pool_decode_attention_cuda(q, *p, tables, offs,
+                                                                     d ** -0.5, 301) for p in pools])
+        pms = graph_ms(torch, [lambda p=p: pool_decode_attention_plain(q, *p, tables, offs,
+                                                                       d ** -0.5) for p in pools[:2]],
+                       iters=10)
+        live = int((offs + 1).sum()) * h * d * 2 * 2
+        record("pool_decode_attention", f"tp2 serving B=8 H={h} BS={bs}", row_rel_err(y, ref),
+               1e-2, ms, pms, None, live + 2 * b * h * d * 2, 4 * h * d * int((offs + 1).sum()))
+        del pools
+        # kernel 4: a 128-token chunk at offset 128 over 16 local heads
+        sq, off = 128, 128
+        q = randn(1, sq, 16, d)
+        kvs = [(randn(1, s, 16, d), randn(1, s, 16, d)) for _ in range(copies_for(s * 16 * d * 4))]
+        y = flash_prefill_blocked_cuda(q, *kvs[0], off, d ** -0.5)
+        ref = flash_prefill_blocked_plain(q, *kvs[0], off, d ** -0.5)
+        ms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_cuda(q, *c, off, d ** -0.5)
+                              for c in kvs])
+        pms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_plain(q, *c, off, d ** -0.5)
+                               for c in kvs[:2]], iters=10)
+        seen = (torch.arange(off + sq, device="cuda")[None, :]
+                <= off + torch.arange(sq, device="cuda")[:, None])   # causal at the offset
+        lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+            q.transpose(1, 2), c[0][:, :off + sq].transpose(1, 2),
+            c[1][:, :off + sq].transpose(1, 2), attn_mask=seen) for c in kvs])
+        kvb = (off + sq) * 16 * d * 2 * 2
+        record("flash_prefill_blocked", f"tp2 SQ={sq} offset {off} H=16", row_rel_err(y, ref),
+               1e-2, ms, pms, lms, kvb + 2 * sq * 16 * d * 2,
+               4 * 16 * d * sq * (off + sq / 2))
+        del kvs
+        # kernel 5: dp 2's calibration forward (B = 8 / 2, S = 512, 32 heads)
+        b, s5, h = 4, 512, 32
+        qs = [randn(b, s5, h, d) for _ in range(3)]
+        y = flash_prefill_cuda(*qs, d ** -0.5)
+        ref = flash_prefill_plain(*qs, d ** -0.5)
+        ms = graph_ms(torch, [lambda: flash_prefill_cuda(*qs, d ** -0.5)], iters=20)
+        pms = graph_ms(torch, [lambda: flash_prefill_plain(*qs, d ** -0.5)], iters=5)
+        lms = graph_ms(torch, [lambda: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in qs), is_causal=True)], iters=20)
+        record("flash_prefill", f"dp2 calibration B={b} S={s5} H={h}", row_rel_err(y, ref), 1e-2,
+               ms, pms, lms, 4 * b * s5 * h * d * 2, 4 * b * h * d * s5 * s5 / 2)
+        # kernel 6: the replicated norm with the all-reduced residual
+        x, r, w = randn(1, 4096), randn(1, 4096), randn(4096, scale=0.1) + 1
+        hcuda, ycuda = add_rms_norm_cuda(x, r, w, 1e-6)
+        href, yref = add_rms_norm_plain(x, r, w, 1e-6)
+        ms = graph_ms(torch, [lambda: add_rms_norm_cuda(x, r, w, 1e-6)])
+        pms = graph_ms(torch, [lambda: add_rms_norm_plain(x, r, w, 1e-6)], iters=20)
+        lms = graph_ms(torch, [lambda: F.rms_norm(x + r, (4096,), w, 1e-6)])
+        record("rms_norm", "tp replicated + residual H=4096 M=1",
+               (ycuda.float() - yref.float()).abs().max().item(), 1, ms, pms, lms,
+               4 * 4096 * 2, 6 * 4096, ulps=bf16_ulps(torch, ycuda, yref))
+
     def kernels_line(self) -> str:
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
         rows = []
@@ -4427,6 +5108,10 @@ class Smoke:
                 rows[-1]["kv_dtypes"] = self.kv_entries[name]
             if name in self.dim_entries:   # at head dims 64, 80, 96, 256, by cache dtype
                 rows[-1]["head_dims"] = self.dim_entries[name]
+            if name in self.tp_entries:   # at the tp phase's shard shapes
+                rows[-1]["tp"] = [{k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                     "library_ms", "bound_ms", "bound_by")}
+                                  for r in self.tp_entries[name]]
         return json.dumps({"kernels": rows})
 
 
@@ -4453,14 +5138,19 @@ def main() -> int:
     smoke = Smoke()
     smoke.phase_card(torch)
     smoke.tmp = tempfile.mkdtemp(prefix="gptq_smoke_")
+    seconds = {}
     try:
         for p in phases:
             t0 = time.perf_counter()
             log(f"== phase {p}")
-            getattr(smoke, f"phase_{p}")(torch)
-            log(f"== phase {p} done in {time.perf_counter() - t0:.1f} s")
+            try:
+                getattr(smoke, f"phase_{p}")(torch)
+            finally:
+                seconds[p] = round(time.perf_counter() - t0, 1)
+            log(f"== phase {p} done in {seconds[p]:.1f} s")
     finally:
         shutil.rmtree(smoke.tmp, ignore_errors=True)
+        log(f"[smoke] seconds by phase {seconds}, {sum(seconds.values()):.1f} in all")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(smoke.report, f, indent=1)

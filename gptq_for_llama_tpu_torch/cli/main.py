@@ -3,10 +3,20 @@
 Counterpart of ``gptq_for_llama_tpu/cli/main.py``, with the same flag surface
 and one addition, ``--device``: the CLI runs on the card unless it is given
 ``--device cpu`` (the plain PyTorch versions), and without a card and without
-that flag it raises. Flags of slices not ported yet raise NotImplementedError
-naming their ROADMAP item. ``--pre-layer N`` runs eval, the benchmark and
+that flag it raises. ``--pre-layer N`` runs eval, the benchmark and
 generation through ``runtime/offload.OffloadRunner``: the first N layers on
 the card, the rest streamed from pinned host memory.
+
+``--tp N`` / ``--dp N`` run one process per rank (``parallel/``): without a
+launcher the CLI starts max(tp, dp) ranks itself (``parallel.distributed.
+spawn``; a card each over NCCL, or ``--device cpu`` over gloo; fewer cards
+than ranks raise); with ``--distributed`` this process joins the group that
+the environment names (``parallel.distributed.initialize``). Calibration is
+split over dp (every rank ends with the same tree; rank 0 saves it), the
+decode benchmark and generation run the tensor-parallel runner over the
+first tp ranks, and the eval runs the whole model on rank 0, as the TPU
+package's jit-sharded eval computes the unsharded function. Rank 0 prints
+and reports.
 
 Usage:
   python -m gptq_for_llama_tpu_torch MODEL_DIR DATASET --wbits 4 --groupsize 128 \\
@@ -22,6 +32,7 @@ import contextlib
 import json
 import os
 import shutil
+import sys
 import time
 
 import numpy as np
@@ -93,12 +104,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# flag -> (is it set, ROADMAP item of the slice that ports it)
-_UNPORTED = {
-    "--tp": (lambda a: bool(a.tp and a.tp > 1), "A18"),
-    "--dp": (lambda a: bool(a.dp and a.dp > 1), "A18"),
-    "--distributed": (lambda a: a.distributed, "A18"),
-}
+def _rank_main(argv):
+    """One rank of a spawned group: the CLI, printing on rank 0 only."""
+    import torch.distributed as dist
+    if dist.get_rank() != 0:
+        sys.stdout = open(os.devnull, "w")
+    return _run(build_parser().parse_args(argv))
 
 
 def main(argv=None) -> dict:
@@ -117,10 +128,27 @@ def main(argv=None) -> dict:
     if args.pre_layer is not None and (tp_on or args.fuse_attn):
         parser.error("--pre-layer (offloaded generation) supports neither "
                      "--tp nor --fuse-attn")
-    for flag, (is_set, item) in _UNPORTED.items():
-        if is_set(args):
-            raise NotImplementedError(f"{flag} is not yet ported to gptq_for_llama_tpu_torch "
-                                      f"(ROADMAP {item})")
+    # the ranks this invocation runs on: max(tp, dp), dp counting only when it
+    # quantizes (the TPU package's meshes take the first dp * tp devices)
+    dp = (args.dp or 1) if not args.load and (args.wbits < 16 or args.nearest) else 1
+    world = max(args.tp or 1, dp)
+    if world % dp:
+        parser.error(f"--dp {dp} must divide the {world} ranks of --tp {args.tp}")
+    if args.distributed:
+        from ..parallel.distributed import initialize
+        initialize(device_type="cpu" if args.device == "cpu" else "cuda", auto=True)
+    elif world > 1:
+        from ..parallel import distributed
+        backend = distributed.backend_for("cpu" if args.device == "cpu" else "cuda", world)
+        return distributed.spawn(_rank_main, world, args=(list(argv if argv is not None
+                                                              else sys.argv[1:]),),
+                                 backend=backend)[0]
+    return _run(args)
+
+
+def _run(args) -> dict:
+    """The CLI's work in this process (one rank of a group, or alone)."""
+    import torch.distributed as dist
     from .. import resolve_device
     from ..data import get_loaders
     from ..engine import (QuantizeSpec, export_quant_table, pack_model, perplexity,
@@ -130,7 +158,14 @@ def main(argv=None) -> dict:
     from ..ops.kv_dtype import kv_dtype
     from ..utils.profiling import PhaseTimer, device_trace
 
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    tp, dp = args.tp or 1, args.dp or 1
     device = resolve_device(args.device)
+    if world > 1 and device.type == "cuda":   # a card per rank
+        from ..parallel.sharding import device_for_rank
+        device = device_for_rank(rank, None)
+        torch.cuda.set_device(device)
     timer = PhaseTimer()
     trace = ((lambda: device_trace(args.profile_dir)) if args.profile_dir
              else contextlib.nullcontext)
@@ -177,16 +212,32 @@ def main(argv=None) -> dict:
         true_sequential=args.true_sequential, nearest=args.nearest, observe=args.observe,
         chunk=args.chunk, quantize_lm_head=args.quantize_lm_head)
 
+    # the meshes every rank makes in the same order: calibration over dp (the
+    # tp axis of that mesh idle), the tensor-parallel runner over the first tp
+    # ranks (the TPU package's make_mesh(tp=1, dp) and make_mesh(tp, dp=1))
+    qmesh = mesh = None
+    if quantizing and dp > 1:
+        from ..parallel.sharding import make_mesh
+        if world % dp:
+            raise ValueError(f"--dp {dp} must divide the {world} ranks of the group")
+        qmesh = make_mesh(tp=world // dp, dp=dp, device=device)
+        print(f"dp-calibration over mesh {qmesh.shape}")
+    if tp > 1:
+        from ..parallel.sharding import make_mesh
+        mesh = make_mesh(tp=tp, dp=1, device=device)
+        print(f"tensor-parallel over mesh {mesh.shape}")
+    runs = mesh is None or mesh.member   # this rank takes part in the runner's steps
+
     if quantizing:
         train, _ = loaders(args.dataset, nsamples=args.nsamples)
         tq = time.time()
         with phase("quantize"):
             params, quantizers, _ = quantize_model(cfg.arch, cfg, params, train, spec,
-                                                   resume_dir=args.resume_dir,
+                                                   resume_dir=args.resume_dir, mesh=qmesh,
                                                    timings=report["quantize_split"])
         print(f"quantized in {time.time() - tq:.1f}s")
 
-    if args.quant_directory:
+    if args.quant_directory and rank == 0:
         if quantizers:
             export_quant_table(quantizers, args.quant_directory)
             print(f"quant table exported to {args.quant_directory}")
@@ -198,9 +249,10 @@ def main(argv=None) -> dict:
         if quantizers:
             with phase("pack+save"):
                 params = pack_model(cfg.arch, cfg, params, quantizers)
-                save_packed(args.save, cfg.arch, cfg, params, quantizers, spec)
+                if rank == 0:   # every rank holds the same tree
+                    save_packed(args.save, cfg.arch, cfg, params, quantizers, spec)
             print(f"packed checkpoint saved to {args.save}")
-        elif args.load:
+        elif args.load and rank == 0:
             # re-export a loaded packed checkpoint: to_wire is byte-exact; the
             # original quantize_config describes the buffers
             with phase("pack+save"):
@@ -234,7 +286,7 @@ def main(argv=None) -> dict:
         print(f"offload: layers {args.pre_layer}/{cfg.num_layers} on {device}, the rest "
               f"streamed, {offload.streamed_bytes / 2**20:.1f} MiB a forward")
 
-    if args.eval:
+    if args.eval and rank == 0:
         datasets = ["wikitext2", "ptb", "c4"] if args.dataset != "synthetic" else ["synthetic"]
         if args.new_eval and args.dataset != "synthetic":
             datasets = ["wikitext2", "ptb-new", "c4-new"]
@@ -248,17 +300,18 @@ def main(argv=None) -> dict:
             print(f"{ds} perplexity: {ppl:.4f}")
             report["ppl"][ds] = ppl
 
-    if args.benchmark:
+    if args.benchmark and runs:
         from ..runtime import ModelRunner, benchmark_decode
         with phase("benchmark"), trace():
             runner = offload or ModelRunner(
                 cfg.arch, cfg, params, batch_size=1, max_seq_len=max(bench_ids.shape[1], 32),
-                device=device, kv_dtype=kv_dtype(args.kv_dtype), fuse_qkv=args.fuse_attn)
+                device=device, kv_dtype=kv_dtype(args.kv_dtype), fuse_qkv=args.fuse_attn,
+                mesh=mesh)
             res = benchmark_decode(runner, bench_ids, check=args.check)
         print(json.dumps(res))
         report["benchmark"] = res
 
-    if args.test_generation:
+    if args.test_generation and runs:
         from transformers import AutoTokenizer
         from ..runtime import ModelRunner, generate
         from ..runtime.offload import OffloadRunner
@@ -271,7 +324,7 @@ def main(argv=None) -> dict:
         else:
             runner = ModelRunner(cfg.arch, cfg, params, batch_size=1, max_seq_len=max_len,
                                  device=device, kv_dtype=kv_dtype(args.kv_dtype),
-                                 fuse_qkv=args.fuse_attn)
+                                 fuse_qkv=args.fuse_attn, mesh=mesh)
         out = generate(runner, ids, args.max_new_tokens, temperature=args.temperature,
                        top_p=args.top_p, min_new_tokens=args.min_new_tokens,
                        eos_token_id=tokenizer.eos_token_id,

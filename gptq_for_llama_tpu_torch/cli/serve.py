@@ -7,8 +7,8 @@ Counterpart of ``gptq_for_llama_tpu/cli/serve.py``, with the same flag surface
 that flag it raises. It stands up ``runtime.serve.ServingEngine`` (slots,
 decode spans, optional paged KV pool, chunked prefill) over a packed
 checkpoint, feeds it a batch of prompts, and reports aggregate throughput.
-Flags of slices not ported yet raise NotImplementedError naming their
-ROADMAP item.
+``--tp N`` serves through the tensor-parallel engine in N processes, one
+rank each (started here, or joined with ``--distributed``; rank 0 prints).
 
 Usage:
   # real prompts (one per line; tokenizer read from MODEL_DIR)
@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -81,11 +82,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# flag -> (is it set, ROADMAP item of the slice that ports it)
-_UNPORTED = {
-    "--tp": (lambda a: bool(a.tp and a.tp > 1), "A18"),
-    "--distributed": (lambda a: a.distributed, "A18"),
-}
+def _rank_main(argv):
+    """One rank of a spawned group: the serving CLI, printing on rank 0."""
+    import torch.distributed as dist
+    if dist.get_rank() != 0:
+        sys.stdout = open(os.devnull, "w")
+    return _serve(build_parser().parse_args(argv))
 
 
 def main(argv=None) -> dict:
@@ -96,30 +98,65 @@ def main(argv=None) -> dict:
     if args.fuse_attn and args.tp and args.tp > 1:
         parser.error("--fuse-attn is incompatible with --tp: shard_map TP "
                      "shards q/k/v separately (TP_RULES)")
-    for flag, (is_set, item) in _UNPORTED.items():
-        if is_set(args):
-            raise NotImplementedError(f"{flag} is not yet ported to gptq_for_llama_tpu_torch "
-                                      f"(ROADMAP {item})")
     if not args.prompts and not args.demo:
         parser.error("need --prompts FILE or --demo N")
+    _buckets(parser, args)
+    if args.prompts:  # validate BEFORE any checkpoint load
+        _prompt_lines(parser, args)
+    if args.distributed:
+        from ..parallel.distributed import initialize
+        initialize(device_type="cpu" if args.device == "cpu" else "cuda", auto=True)
+    elif args.tp and args.tp > 1:
+        # one process per rank: a card each over NCCL, or the CPU over gloo
+        from ..parallel import distributed
+        backend = distributed.backend_for("cpu" if args.device == "cpu" else "cuda", args.tp)
+        return distributed.spawn(_rank_main, args.tp,
+                                 args=(list(argv if argv is not None else sys.argv[1:]),),
+                                 backend=backend)[0]
+    return _serve(args, parser)
+
+
+def _buckets(parser, args) -> tuple:
     try:
         buckets = tuple(sorted(int(b) for b in args.buckets.split(",") if b.strip()))
     except ValueError:
         parser.error(f"--buckets must be comma-separated ints, got {args.buckets!r}")
     if not buckets:
         parser.error("--buckets is empty")
-    prompt_lines = None
-    if args.prompts:  # validate BEFORE the checkpoint load
-        with open(args.prompts) as f:
-            prompt_lines = [line.rstrip("\n") for line in f if line.strip()]
-        if not prompt_lines:
-            parser.error(f"--prompts {args.prompts}: no non-empty lines")
+    return buckets
+
+
+def _prompt_lines(parser, args) -> list:
+    with open(args.prompts) as f:
+        prompt_lines = [line.rstrip("\n") for line in f if line.strip()]
+    if not prompt_lines:
+        parser.error(f"--prompts {args.prompts}: no non-empty lines")
+    return prompt_lines
+
+
+def _serve(args, parser=None) -> dict:
+    """The serving CLI's work in this process (one rank of a group under
+    --tp: the tensor-parallel engine over the group's ranks, rank 0
+    printing; or alone)."""
+    parser = parser or build_parser()
+    buckets = _buckets(parser, args)
+    prompt_lines = _prompt_lines(parser, args) if args.prompts else None
+    import torch.distributed as dist
     from .. import resolve_device
     from ..models import hf_loader
     from ..ops.kv_dtype import kv_dtype
     from ..runtime.serve import GenRequest, ServingEngine
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.tp and args.tp > 1:
+        from ..parallel.sharding import make_mesh
+        mesh = make_mesh(tp=args.tp, dp=1, device="cpu" if device.type == "cpu" else None)
+        device = mesh.device
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        if not mesh.member:
+            return {}
     t0 = time.time()
     model_dir = args.load or args.model
     cfg, params = hf_loader.load_params(model_dir, seqlen=args.max_seq_len, dtype=torch.bfloat16,
@@ -148,7 +185,7 @@ def main(argv=None) -> dict:
         block_size=args.block_size, num_blocks=args.num_blocks,
         prefill_chunk=args.prefill_chunk, decode_span=args.span, prefill_buckets=buckets,
         device=device, seed=args.seed, kv_dtype=kv_dtype(args.kv_dtype),
-        fuse_qkv=args.fuse_attn)
+        fuse_qkv=args.fuse_attn, mesh=mesh)
     for uid, prompt in enumerate(prompts):
         engine.submit(GenRequest(uid=uid, prompt=prompt, max_new_tokens=args.max_new_tokens,
                                  temperature=args.temperature, top_p=args.top_p,

@@ -177,10 +177,15 @@ def quantize_model(arch_name: str, cfg, params, train_windows, spec: QuantizeSpe
     re-run with the same directory skips the completed layers. timings: if a
     dict is given, the seconds spent in forwards, Hessians and the solver are
     added to its "forward", "hessian" and "solver" keys (each phase ends in a
-    device synchronize, so the split is exact on the card)."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel calibration (--dp) is not yet ported "
-                                  "(ROADMAP A18)")
+    device synchronize, so the split is exact on the card).
+
+    mesh: this rank's ``parallel.Mesh`` with a dp axis: data-parallel
+    calibration (``gptq_for_llama_tpu/engine/quantize.py:191-235``). Each dp
+    rank runs its share of each chunk (chunk / dp windows; the chunk must
+    divide by dp, as the TPU package asserts), every fp64 Gram sum is
+    all-reduced over the dp group before the solver runs, and every rank
+    runs the same solver on the same sums, so every rank ends with the same
+    quantized tree. ``params`` live on the mesh's device."""
     if resume_dir is not None and spec.observe:
         raise ValueError(
             "--observe with --resume-dir is unsupported: resumed layers carry no retained "
@@ -192,6 +197,15 @@ def quantize_model(arch_name: str, cfg, params, train_windows, spec: QuantizeSpe
     ns, seqlen = windows.shape
     chunk = min(spec.chunk, ns)
     assert ns % chunk == 0, f"nsamples {ns} must divide by chunk {chunk}"
+    dp = 1 if mesh is None else mesh.dp
+    if dp > 1:
+        assert chunk % dp == 0, f"chunk {chunk} must divide by dp {dp}"
+        # this rank's share of every chunk: windows [i + r * c, i + (r + 1) * c)
+        # of chunk i, c = chunk / dp
+        windows = windows.reshape(ns // chunk, dp, chunk // dp, seqlen)[:, mesh.dp_rank]
+        windows = windows.reshape(-1, seqlen)
+    n_local, chunk = windows.shape[0], chunk // dp
+    lead = mesh is None or mesh.rank == 0   # the rank that writes resume checkpoints
     positions = torch.arange(seqlen, device=dev)[None, :]
     mask = causal_mask(seqlen, seqlen, device=dev)
     dtype = embed_weight(params).dtype
@@ -205,11 +219,12 @@ def quantize_model(arch_name: str, cfg, params, train_windows, spec: QuantizeSpe
     def propagate(lp, x):
         t0 = time.perf_counter()
         x = torch.cat([arch.layer(cfg, lp, x[i:i + chunk], positions, mask)[0]
-                       for i in range(0, ns, chunk)])
+                       for i in range(0, n_local, chunk)])
         clock("forward", t0)
         return x
 
-    x = torch.cat([arch.embed(params, cfg, windows[i:i + chunk]) for i in range(0, ns, chunk)])
+    x = torch.cat([arch.embed(params, cfg, windows[i:i + chunk])
+                   for i in range(0, n_local, chunk)])
     quantizers: dict[str, QuantRecord] = {}
     observer = Observer()
     if verbose:
@@ -227,6 +242,10 @@ def quantize_model(arch_name: str, cfg, params, train_windows, spec: QuantizeSpe
         for group in [g for g in groups if g]:
             sums, last_taps = _group_hessian_sums(arch, cfg, lp, x, positions, mask, group,
                                                   chunk, spec.observe, clock)
+            if dp > 1:   # the Gram sums over every rank's windows, before the solver
+                t0 = time.perf_counter()
+                sums = _all_reduce_sums(sums, mesh)
+                clock("hessian", t0)
             for name in group:
                 t0 = time.perf_counter()
                 kernel = get_path(lp, name)["kernel"]
@@ -245,12 +264,12 @@ def quantize_model(arch_name: str, cfg, params, train_windows, spec: QuantizeSpe
                         snr_txt = f" fp_inp_SNR {fp_snr:10.4f} | q_inp_SNR {q_snr:10.4f} |"
                     log(f"| layer {li:3d} | {name:28s} | error {rec.error:12.4f} "
                         f"|{snr_txt} {time.perf_counter() - t0:6.2f}s |")
-        if resume_dir is not None:
+        if resume_dir is not None and lead:
             _save_layer_ckpt(resume_dir, li, lp, names_present, quantizers)
         x = propagate(lp, x)   # quantized activations feed the next layer
 
     if spec.quantize_lm_head:
-        _quantize_lm_head(arch, cfg, params, x, spec, ns, chunk, quantizers, verbose, log)
+        _quantize_lm_head(arch, cfg, params, x, spec, ns, chunk, quantizers, verbose, log, mesh)
     if spec.observe:
         _auto_upgrade(params, quantizers, observer, spec, verbose, log)
     if verbose:
@@ -258,7 +277,18 @@ def quantize_model(arch_name: str, cfg, params, train_windows, spec: QuantizeSpe
     return params, quantizers, observer
 
 
-def _quantize_lm_head(arch, cfg, params, x, spec, ns, chunk, quantizers, verbose, log):
+def _all_reduce_sums(sums: dict, mesh) -> dict:
+    """{name: fp64 Gram sum} summed over the dp group (linears that share
+    an activation share their sum tensor: it is reduced once)."""
+    done = {}
+    for t in sums.values():
+        if id(t) not in done:
+            done[id(t)] = mesh.all_reduce(t, axis="dp")
+    return {n: done[id(t)] for n, t in sums.items()}
+
+
+def _quantize_lm_head(arch, cfg, params, x, spec, ns, chunk, quantizers, verbose, log,
+                      mesh=None):
     """GPTQ the output head on the final-norm activations (opt-in; the
     reference never quantizes lm_head). A tied head is skipped. GPT-NeoX's
     head is ``embed_out``."""
@@ -273,9 +303,12 @@ def _quantize_lm_head(arch, cfg, params, x, spec, ns, chunk, quantizers, verbose
     t0 = time.time()
     kdim = lin["kernel"].shape[0]
     h = torch.zeros((kdim, kdim), dtype=torch.float32, device=x.device)
-    for i in range(0, ns, chunk):
+    for i in range(0, x.shape[0], chunk):
         # each chunk's (2/chunk)-normalized Hessian weighted by chunk/ns
-        h = h + batch_hessian(arch.head_input(params, cfg, x[i:i + chunk])) * (chunk / ns)
+        xc = x[i:i + chunk]
+        h = h + batch_hessian(arch.head_input(params, cfg, xc)) * (xc.shape[0] / ns)
+    if mesh is not None and mesh.dp > 1:   # every rank's windows
+        h = mesh.all_reduce(h, axis="dp")
     q, rec = _quantize_one(lin["kernel"].T.float(), h, spec, spec.wbits, spec.groupsize)
     lin["kernel"] = q.T.to(lin["kernel"].dtype).contiguous()
     quantizers[key] = rec

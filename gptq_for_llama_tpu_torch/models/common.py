@@ -20,6 +20,8 @@ A residual add that feeds a norm is folded into the norm's launch.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -31,7 +33,7 @@ from ..ops.cuda.flash_prefill import flash_prefill
 # kernel 6 on the card, plain on the CPU; add_rms_norm is the TPU package's
 # pair ``x = x + o; rms_norm(x)`` in one launch, returning (x + o, the norm)
 from ..ops.cuda.norm import add_rms_norm, rms_norm  # noqa: F401
-from ..ops.linear import dense
+from ..ops.linear import PackedLinear, dense, linear_apply
 
 
 def layer_norm(x, weight, bias, eps: float):
@@ -412,6 +414,43 @@ def sdpa(q, k, v, mask=None, scale: float | None = None, decode_offset=None,
     return attention_plain(q, k, v, sc, mask)
 
 
+def row_parallel_apply(lin, x, tp_ctx):
+    """Apply a row-parallel (input-split) linear under tensor parallelism
+    (``gptq_for_llama_tpu/models/common.py:466-500``).
+
+    tp_ctx: None (no TP: a plain apply) or this rank's ``parallel.Mesh``.
+    The activation x arrives split on its last dim (attention heads, ffn
+    width) and ``lin`` holds this rank's rows of a weight split on
+    in-features; the partial products are all-reduced over the tp group and
+    the (replicated) bias is added once afterwards.
+
+    Act-order / K-padded packed weights carry a device-row index map in
+    ``perm`` (``parallel/tp_model.prepare_tp_params``): the activation is
+    all-gathered and each rank takes its own device rows."""
+    if tp_ctx is None:
+        return linear_apply(lin, x)
+    if isinstance(lin, PackedLinear):
+        local = lin
+        if lin.perm is not None:
+            x = tp_ctx.all_gather(x, dim=-1).index_select(-1, lin.perm)
+            local = dataclasses.replace(lin, perm=None, perm_sig=None)
+        bias = lin.bias
+        if bias is not None:
+            local = dataclasses.replace(local, bias=None)
+        y = tp_ctx.all_reduce(linear_apply(local, x))
+        return y if bias is None else y + bias
+    bias = lin.get("bias")
+    y = tp_ctx.all_reduce(torch.matmul(x, lin["kernel"].to(x.dtype)))
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def gather_vocab(logits, tp_ctx):
+    """The full-vocabulary logits of a vocab-split head: this rank's columns
+    all-gathered over the tp group (the TPU package's out_specs over the tp
+    axis). Without tp_ctx the logits as they are."""
+    return logits if tp_ctx is None else tp_ctx.all_gather(logits, dim=-1)
+
+
 def activation(name: str):
     """The MLP activation of a config's ``act`` (HF ACT2FN names): "gelu" is
     the exact erf GELU, "gelu_new" / "gelu_fast" the tanh form (up to 4e-4
@@ -455,25 +494,30 @@ def head_of(head_input, logits, params, cfg, x, delta=None):
     return logits(params, cfg, head_input(params, cfg, x, delta))
 
 
-def causal_forward(embed, stack, head, params, cfg, input_ids: torch.Tensor, positions=None):
+def causal_forward(embed, stack, head, params, cfg, input_ids: torch.Tensor, positions=None,
+                   tp_ctx=None):
     """An arch's full-model causal forward without a cache, through its
-    ``embed``, ``stack`` and ``head``: (B, S) -> (B, S, V) logits."""
+    ``embed``, ``stack`` and ``head``: (B, S) -> (B, S, V) logits. Under
+    tensor parallelism (``tp_ctx``, with this rank's shards and local cfg)
+    the vocab-split logits are gathered."""
     s, dev = input_ids.shape[1], input_ids.device
     if positions is None:
         positions = torch.arange(s, device=dev)[None, :]
     x, delta = stack(params, cfg, embed(params, cfg, input_ids, positions), positions,
-                     causal_mask(s, s, device=dev))
-    return head(params, cfg, x, delta)
+                     causal_mask(s, s, device=dev),
+                     **({} if tp_ctx is None else {"tp_ctx": tp_ctx}))
+    return gather_vocab(head(params, cfg, x, delta), tp_ctx)
 
 
-def stack_layers(layer, params, cfg, x, positions, mask, past=None, rope=None):
+def stack_layers(layer, params, cfg, x, positions, mask, past=None, rope=None, tp_ctx=None):
     """Every layer over x through the arch's ``layer``; past(li): layer li's
-    cache form (None: no cache). Returns (x, None): the stack of OPT,
-    GPT-NeoX and GPT-2 leaves no residual add pending (LLaMA's folds its
-    adds into the next RMSNorm launch, ``llama.stack``)."""
+    cache form (None: no cache); tp_ctx: this rank's mesh under tensor
+    parallelism. Returns (x, None): the stack of OPT, GPT-NeoX and GPT-2
+    leaves no residual add pending (LLaMA's folds its adds into the next
+    RMSNorm launch, ``llama.stack``)."""
     for li, lp in enumerate(params["layers"]):
         x, _, _ = layer(cfg, lp, x, positions, mask, None if past is None else past(li),
-                        rope=rope)
+                        rope=rope, tp_ctx=tp_ctx)
     return x, None
 
 

@@ -18,7 +18,7 @@ from functools import partial
 
 from .common import (DenseDraws, activation, attention_block, causal_forward, head_of,
                      check_max_len, layer_norm_of, learned_positions,
-                     stack_layers)
+                     row_parallel_apply, stack_layers)
 from .config import ModelConfig
 from .. import resolve_device
 from ..ops.linear import dense, linear_apply
@@ -71,9 +71,11 @@ def step_rope(cfg: ModelConfig, positions: torch.Tensor, dtype):
     return None  # learned position embeddings (no rotary)
 
 
-def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None):
+def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None, tp_ctx=None):
     """One decoder layer. x: (B, S, H). Returns (y, taps, present_kv); the
-    cache forms are ``common.apply_kv_cache``'s."""
+    cache forms are ``common.apply_kv_cache``'s. tp_ctx: this rank's mesh
+    under tensor parallelism (both c_proj all-reduce; c_attn regrouped per
+    shard by ``parallel/tp_model``)."""
     b, s, _ = x.shape
     h = cfg.num_heads * cfg.head_dim
     ln1 = layer_norm_of(lp["ln_1"], x, cfg.norm_eps)
@@ -84,10 +86,10 @@ def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None):
                .contiguous() for i in range(3))
     attn_out, present = attention_block(past_kv, q, k, v, mask)
     attn_out = attn_out.reshape(b, s, -1)
-    x = x + linear_apply(lp["attn"]["c_proj"], attn_out)
+    x = x + row_parallel_apply(lp["attn"]["c_proj"], attn_out, tp_ctx)
     ln2 = layer_norm_of(lp["ln_2"], x, cfg.norm_eps)
     act_out = activation(cfg.act)(linear_apply(lp["mlp"]["c_fc"], ln2))
-    y = x + linear_apply(lp["mlp"]["c_proj"], act_out)
+    y = x + row_parallel_apply(lp["mlp"]["c_proj"], act_out, tp_ctx)
     taps = {"attn.c_attn": ln1, "attn.c_proj": attn_out, "mlp.c_fc": ln2,
             "mlp.c_proj": act_out}
     return y, taps, present

@@ -16,7 +16,7 @@ from functools import partial
 import torch
 
 from .common import (add_rms_norm, apply_rope, attention_block, causal_forward, head_of,
-                     rms_norm, rope_cos_sin)
+                     rms_norm, rope_cos_sin, row_parallel_apply)
 from .config import ModelConfig
 from .. import resolve_device
 from ..ops.linear import dense, linear_apply
@@ -84,7 +84,7 @@ def step_rope(cfg: ModelConfig, positions: torch.Tensor, dtype):
 
 
 def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None, delta=None,
-          defer=False):
+          defer=False, tp_ctx=None):
     """One decoder layer. x: (B, S, H). Returns (y, taps, present_kv).
 
     past_kv: None (plain causal forward, ``mask`` applies) or
@@ -93,7 +93,10 @@ def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None, del
     dotted name to the activation feeding it. delta: a residual add still
     pending from the layer before (its down_proj output): the layer's input
     is x + delta, added in the input norm's launch. defer: y is (x, down),
-    the residual and this layer's pending add, in place of their sum."""
+    the residual and this layer's pending add, in place of their sum.
+    tp_ctx: this rank's ``parallel.Mesh`` under tensor parallelism (cfg is
+    then the LOCAL per-shard config; o_proj and down_proj all-reduce over
+    the tp group, ``row_parallel_apply``)."""
     if delta is None:
         h_attn_in = rms_norm(x, lp["input_layernorm"], cfg.norm_eps)
     else:
@@ -118,12 +121,12 @@ def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None, del
     q, k = apply_rope(q, k, cos, sin)
     attn_out, present = attention_block(past_kv, q, k, v, mask)
     attn_out = attn_out.reshape(b, s, -1)
-    x, h_mlp_in = add_rms_norm(x, linear_apply(att["o_proj"], attn_out),
+    x, h_mlp_in = add_rms_norm(x, row_parallel_apply(att["o_proj"], attn_out, tp_ctx),
                                lp["post_attention_layernorm"], cfg.norm_eps)
 
     mlp = lp["mlp"]
     h_down_in = fused_gate_up(mlp["gate_proj"], mlp["up_proj"], h_mlp_in, cfg.act)
-    down = linear_apply(mlp["down_proj"], h_down_in)
+    down = row_parallel_apply(mlp["down_proj"], h_down_in, tp_ctx)
     y = (x, down) if defer else x + down
 
     taps = {
@@ -173,16 +176,17 @@ def fuse_attention(params):
     return out
 
 
-def stack(params, cfg: ModelConfig, x, positions, mask, past=None, rope=None):
+def stack(params, cfg: ModelConfig, x, positions, mask, past=None, rope=None, tp_ctx=None):
     """Every layer over x, each layer's down_proj output carried to the next
-    one's input norm. past(li): layer li's cache form (None: no cache).
+    one's input norm. past(li): layer li's cache form (None: no cache);
+    tp_ctx: this rank's mesh under tensor parallelism.
     Returns (x, delta): the residual stream and the last layer's pending add,
     for ``head`` / ``head_input``; the hidden state is x + delta."""
     delta = None
     for li, lp in enumerate(params["layers"]):
         (x, delta), _, _ = layer(cfg, lp, x, positions, mask,
                                  None if past is None else past(li), rope=rope, delta=delta,
-                                 defer=True)
+                                 defer=True, tp_ctx=tp_ctx)
     return x, delta
 
 

@@ -17,7 +17,8 @@ import torch
 from functools import partial
 
 from .common import (DenseDraws, activation, apply_rope, attention_block, causal_forward,
-                     head_of, layer_norm_of, rope_cos_sin, stack_layers)
+                     head_of, layer_norm_of, rope_cos_sin, row_parallel_apply,
+                     stack_layers)
 from .config import ModelConfig
 from .. import resolve_device
 from ..ops.linear import linear_apply
@@ -61,9 +62,10 @@ def step_rope(cfg: ModelConfig, positions: torch.Tensor, dtype):
     return rope_cos_sin(positions, rotary_dim(cfg), cfg.rope_theta, dtype=dtype)
 
 
-def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None):
+def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None, tp_ctx=None):
     """One decoder layer. x: (B, S, H). Returns (y, taps, present_kv); the
-    cache forms are ``common.apply_kv_cache``'s."""
+    cache forms are ``common.apply_kv_cache``'s. tp_ctx: this rank's mesh
+    under tensor parallelism (dense and dense_4h_to_h all-reduce)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     ln1 = layer_norm_of(lp["input_layernorm"], x, cfg.norm_eps)
@@ -77,16 +79,16 @@ def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None):
     q, k = apply_rope(q, k, cos, sin, rotary_dim=rd)
     attn_out, present = attention_block(past_kv, q, k.contiguous(), v.contiguous(), mask)
     attn_out = attn_out.reshape(b, s, -1)
-    attn_proj = linear_apply(lp["attention"]["dense"], attn_out)
+    attn_proj = row_parallel_apply(lp["attention"]["dense"], attn_out, tp_ctx)
     if cfg.parallel_residual:
         ln2 = layer_norm_of(lp["post_attention_layernorm"], x, cfg.norm_eps)
         act_out = activation(cfg.act)(linear_apply(lp["mlp"]["dense_h_to_4h"], ln2))
-        y = x + attn_proj + linear_apply(lp["mlp"]["dense_4h_to_h"], act_out)
+        y = x + attn_proj + row_parallel_apply(lp["mlp"]["dense_4h_to_h"], act_out, tp_ctx)
     else:
         attn_res = x + attn_proj
         ln2 = layer_norm_of(lp["post_attention_layernorm"], attn_res, cfg.norm_eps)
         act_out = activation(cfg.act)(linear_apply(lp["mlp"]["dense_h_to_4h"], ln2))
-        y = attn_res + linear_apply(lp["mlp"]["dense_4h_to_h"], act_out)
+        y = attn_res + row_parallel_apply(lp["mlp"]["dense_4h_to_h"], act_out, tp_ctx)
     taps = {"attention.query_key_value": ln1, "attention.dense": attn_out,
             "mlp.dense_h_to_4h": ln2, "mlp.dense_4h_to_h": act_out}
     return y, taps, present

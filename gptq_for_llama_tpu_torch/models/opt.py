@@ -17,7 +17,7 @@ from functools import partial
 
 from .common import (DenseDraws, activation, attention_block, causal_forward, head_of,
                      check_max_len, layer_norm_of, learned_positions,
-                     stack_layers)
+                     row_parallel_apply, stack_layers)
 from .config import ModelConfig
 from .. import resolve_device
 from ..ops.linear import dense, linear_apply
@@ -82,9 +82,10 @@ def step_rope(cfg: ModelConfig, positions: torch.Tensor, dtype):
     return None  # learned position embeddings (no rotary)
 
 
-def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None):
+def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None, tp_ctx=None):
     """One decoder layer. x: (B, S, H). Returns (y, taps, present_kv); the
-    cache forms are ``common.apply_kv_cache``'s."""
+    cache forms are ``common.apply_kv_cache``'s. tp_ctx: this rank's mesh
+    under tensor parallelism (out_proj and fc2 all-reduce)."""
     b, s, _ = x.shape
     residual = x
     h = layer_norm_of(lp["self_attn_layer_norm"], x, cfg.norm_eps) if cfg.do_layer_norm_before else x
@@ -94,14 +95,14 @@ def layer(cfg: ModelConfig, lp, x, positions, mask, past_kv=None, rope=None):
     v = linear_apply(att["v_proj"], h).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     attn_out, present = attention_block(past_kv, q, k, v, mask)
     attn_out = attn_out.reshape(b, s, -1)
-    x = residual + linear_apply(att["out_proj"], attn_out)
+    x = residual + row_parallel_apply(att["out_proj"], attn_out, tp_ctx)
     if not cfg.do_layer_norm_before:
         x = layer_norm_of(lp["self_attn_layer_norm"], x, cfg.norm_eps)
 
     residual = x
     h2 = layer_norm_of(lp["final_layer_norm"], x, cfg.norm_eps) if cfg.do_layer_norm_before else x
     act_out = activation(cfg.act)(linear_apply(lp["fc1"], h2))
-    y = residual + linear_apply(lp["fc2"], act_out)
+    y = residual + row_parallel_apply(lp["fc2"], act_out, tp_ctx)
     if not cfg.do_layer_norm_before:
         y = layer_norm_of(lp["final_layer_norm"], y, cfg.norm_eps)
 

@@ -83,11 +83,14 @@ def _diff(after: dict, before: dict) -> dict:
 class Graphs:
     """Graphs of one runner or engine, keyed by a hashable key, in one memory
     pool. ``counters``: the owner's dicts of ints that its bodies raise (they
-    are accounted like the launch counts)."""
+    are accounted like the launch counts). ``eager``: never capture, call
+    every body, on the card too (the tensor-parallel steps, whose
+    collectives a graph cannot hold under gloo)."""
 
-    def __init__(self, device, counters=()):
+    def __init__(self, device, counters=(), eager: bool = False):
         self.device = torch.device(device)
         self.counters = tuple(counters)
+        self.eager = eager
         self._graphs: dict[Hashable, _Captured] = {}
         self._pool = None
         self.capture_s = 0.0     # host seconds spent capturing, warm calls included
@@ -95,7 +98,9 @@ class Graphs:
 
     @property
     def on_card(self) -> bool:
-        return self.device.type == "cuda"
+        """Whether the bodies are captured and replayed: on the card, unless
+        ``eager``."""
+        return self.device.type == "cuda" and not self.eager
 
     def __contains__(self, key) -> bool:
         return key in self._graphs
@@ -110,7 +115,7 @@ class Graphs:
         """On the card: replay the graph of ``key``, captured from ``body``
         first if it is new; return what the body returned at capture, now
         rewritten by the replay (copy out what must outlive the next replay
-        of any graph of this pool). On the CPU: ``body()``."""
+        of any graph of this pool). On the CPU, or ``eager``: ``body()``."""
         if not self.on_card:
             return body()
         if key not in self._graphs:

@@ -7,8 +7,9 @@ device; the other layers live in pinned host memory and stream to the card
 one layer ahead of their use, so that the copy of layer i + 1 runs while
 layer i computes (the TPU package's asynchronous ``device_put``).
 
-On the card the streamed layers share two device slots, each a layer tree of
-their shapes, allocated once. A side stream copies layer i + 1 into the
+On the card the streamed layers share two device slots: raw byte buffers,
+each the size of the largest streamed layer, allocated once; every streamed
+layer is a tree of views at its own shapes into its slot. A side stream copies layer i + 1 into the
 other slot; the compute stream waits on that copy's event before layer i + 1;
 and the side stream waits, before it writes layer i + 2 over layer i's slot,
 on an event the compute stream recorded after layer i's last kernel. With
@@ -78,24 +79,31 @@ class StreamedLayers:
     """The ``"layers"`` of an offloaded model as ``stack`` reads them: the
     resident layers, then each streamed layer in its slot, staged one layer
     ahead. Each iteration is one pass over the model. ``staged_bytes``
-    counts the bytes copied to the device."""
+    counts the bytes copied to the device.
+
+    The two slots are raw device byte buffers, each the size of the largest
+    streamed layer, and every streamed layer is a tree of views at its own
+    shapes and dtypes into the slot it is staged in (layer i into slot
+    i % 2): layers of different shapes (an ``--observe`` model's upgraded
+    group sizes and bits, a layer without an act-order permutation) stream
+    through the same two buffers, as the TPU package stages each layer at
+    its own shapes."""
 
     def __init__(self, resident: list, host: list, device: torch.device):
         self.resident, self.host, self.device = resident, host, device
         self.staged_bytes = 0
-        layout = [_layout(h) for h in host]
-        if any(lo != layout[0] for lo in layout):
-            raise ValueError("offload: the streamed layers differ in layout (tree, shapes or "
-                             "dtypes); they share two device slots")
+        self._src = [tensors(h) for h in host]
+        self.bytes_of = [sum(_nbytes(t) for t in src) for src in self._src]
+        # the largest streamed layer's bytes
+        self.layer_bytes = max(self.bytes_of, default=0)
+        slot_bytes = max((_carved(src) for src in self._src), default=0)
         with torch.inference_mode(False):   # written in place under inference mode
-            self.slots = [map_tensors(host[0], lambda t: torch.empty_like(t, device=device))
+            self.slots = [torch.empty(slot_bytes, dtype=torch.uint8, device=device)
                           for _ in range(min(2, len(host)))]
         # each streamed layer as the model reads it: its own metadata (the
-        # permutation digests, the wire buffers) over its slot's tensors
-        self.views = [_rebind(h, self.slots[i % 2]) for i, h in enumerate(host)]
-        self._src = [tensors(h) for h in host]
-        self._dst = [tensors(s) for s in self.slots]
-        self.layer_bytes = sum(t.numel() * t.element_size() for t in self._src[0]) if host else 0
+        # permutation digests, the wire buffers) over views into its slot
+        self.views = [_carve(h, self.slots[i % 2]) for i, h in enumerate(host)]
+        self._dst = [tensors(v) for v in self.views]
         if device.type == "cuda":
             self._stream = torch.cuda.Stream(device)
             self._copied = [torch.cuda.Event() for _ in self.slots]
@@ -124,20 +132,20 @@ class StreamedLayers:
                 self._freed[i % 2].record(torch.cuda.current_stream(self.device))
 
     def _stage(self, i: int) -> None:
-        """Copy streamed layer i into slot i % 2: on the side stream, after
-        the compute stream is done with layer i - 2 in that slot."""
+        """Copy streamed layer i into its views in slot i % 2: on the side
+        stream, after the compute stream is done with layer i - 2 there."""
         slot = i % 2
         if self.device.type != "cuda":
-            for dst, src in zip(self._dst[slot], self._src[i]):
+            for dst, src in zip(self._dst[i], self._src[i]):
                 dst.copy_(src)
         else:
             with torch.cuda.stream(self._stream):
                 if i >= 2:
                     self._after(slot)
-                for dst, src in zip(self._dst[slot], self._src[i]):
+                for dst, src in zip(self._dst[i], self._src[i]):
                     dst.copy_(src, non_blocking=True)
                 self._copied[slot].record(self._stream)
-        self.staged_bytes += self.layer_bytes
+        self.staged_bytes += self.bytes_of[i]
 
     def _after(self, slot: int) -> None:
         """The side stream waits until the compute stream is done with the
@@ -145,23 +153,34 @@ class StreamedLayers:
         self._stream.wait_event(self._freed[slot])
 
 
-def _layout(tree) -> list:
-    return [(tuple(t.shape), t.dtype) for t in tensors(tree)] + [_structure(tree)]
+# each view in a slot starts on a multiple of this many bytes (every dtype's
+# alignment, and the kernels' vector loads)
+_ALIGN = 256
 
 
-def _structure(tree):
-    if isinstance(tree, dict):
-        return tuple((k, _structure(v)) for k, v in tree.items())
-    if isinstance(tree, (list, tuple)):
-        return tuple(_structure(v) for v in tree)
-    if isinstance(tree, PackedLinear):
-        return ("packed",) + tuple(getattr(tree, f) is None for f in _PACKED_FIELDS)
-    return type(tree).__name__
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
-def _rebind(tree, slot):
-    it = iter(tensors(slot))
-    return map_tensors(tree, lambda _: next(it))
+def _carved(src: list) -> int:
+    """The slot bytes ``_carve`` takes for these tensors."""
+    return sum(-(-_nbytes(t) // _ALIGN) * _ALIGN for t in src)
+
+
+def _carve(tree, slot: torch.Tensor):
+    """``tree`` with each tensor replaced by a view of its shape and dtype
+    into the byte buffer ``slot``, laid out in tree order, each view on an
+    ``_ALIGN`` boundary."""
+    at = 0
+
+    def view(t):
+        nonlocal at
+        n = _nbytes(t)
+        out = slot[at:at + n].view(t.dtype).view(t.shape)
+        at += -(-n // _ALIGN) * _ALIGN
+        return out
+
+    return map_tensors(tree, view)
 
 
 class OffloadRunner:
@@ -202,7 +221,7 @@ class OffloadRunner:
                                    lambda t: t.to(self.device))
         self.layers = StreamedLayers(self.resident, self.host_layers, self.device)
         # the bytes one forward streams to the device
-        self.streamed_bytes = self.layers.layer_bytes * len(self.host_layers)
+        self.streamed_bytes = sum(self.layers.bytes_of)
         # the resident runner's step bodies, run eagerly over the streamed view
         self._steps = ModelRunner(arch_name, cfg, {**self.statics, "layers": self.layers},
                                   batch_size=batch_size, max_seq_len=max_seq_len, dtype=dtype,

@@ -76,12 +76,13 @@ def random_wire_llama(cfg, seed: int = 0, groupsize: int = 128, bits: int = 4,
 
 
 def gaussian_wire_linear(gen: torch.Generator, k: int, n: int, groupsize: int = 128,
-                         bits: int = 4, std: float = 0.02) -> dict:
+                         bits: int = 4, std: float = 0.02, g_idx=None) -> dict:
     """Wire buffers of one (k -> n) linear whose weight looks like a
     round-to-nearest quantized N(0, std): codes rint(mid + N(0, 1) * maxq / 6)
     clipped to the code range (3 sigma each side), the zero at mid in every
     group, group scales within 10 % of std * 6 / maxq. Drawn on ``gen``'s
-    device; 2, 4 or 8 bits."""
+    device; 2, 4 or 8 bits. ``g_idx``: the rows' groups (None: the natural
+    order; ``act_order_g_idx`` for an act-order checkpoint's)."""
     g = -(-k // groupsize)
     maxq, mid = 2 ** bits - 1, 2 ** (bits - 1)
     dev = gen.device
@@ -92,13 +93,22 @@ def gaussian_wire_linear(gen: torch.Generator, k: int, n: int, groupsize: int = 
         "qweight": packing.pack_rows_torch(codes, bits).cpu().numpy(),
         "qzeros": packing.pack_cols(np.full((g, n), mid - 1, np.uint32), bits),
         "scales": scales.cpu().numpy().astype(np.float16),
-        "g_idx": (np.arange(k) // groupsize).astype(np.int32),
+        "g_idx": (np.arange(k) // groupsize).astype(np.int32) if g_idx is None else g_idx,
         "bits": bits,
     }
 
 
+def act_order_g_idx(gen: torch.Generator, k: int, groupsize: int) -> np.ndarray:
+    """An act-order checkpoint's groups of k rows: the natural g_idx under a
+    random permutation drawn from ``gen`` (GPTQ sorts the rows by the
+    Hessian's diagonal, so the linears that read one activation share it)."""
+    g_idx = (np.arange(k) // groupsize).astype(np.int32)
+    return g_idx[torch.randperm(k, generator=gen, device=gen.device).cpu().numpy()]
+
+
 def gaussian_wire_llama(cfg, seed: int = 0, groupsize: int = 128, bits: int = 4,
-                        device=None, dtype=torch.bfloat16, branch_gain: float = 0.1) -> dict:
+                        device=None, dtype=torch.bfloat16, branch_gain: float = 0.1,
+                        act_order: bool = False) -> dict:
     """Packed LLaMA parameters on ``device`` (``None``: the card) whose logits
     depend on the prompt: every linear of every layer is its own
     ``gaussian_wire_linear`` draw, made on the device from ``seed``. The
@@ -107,27 +117,39 @@ def gaussian_wire_llama(cfg, seed: int = 0, groupsize: int = 128, bits: int = 4,
     adds a fraction of the stream, as in a trained network: with every branch
     at full size a deep random network amplifies a rounding difference layer
     over layer, and two correct runs of it part. Same shapes and bytes per
-    token as ``random_wire_llama``."""
+    token as ``random_wire_llama``. ``act_order``: an act-order checkpoint's
+    rows, one permutation per activation a layer (q/k/v share theirs, gate/up
+    theirs; o_proj and down_proj their own), as GPTQ leaves them."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     h, inter, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     qh, kvh = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
 
-    def packed(k, n, std=0.02):
-        return params_from_jax(gaussian_wire_linear(gen, k, n, groupsize, bits, std), device,
-                               dtype)
+    def packed(k, n, std=0.02, g_idx=None):
+        if act_order and g_idx is None:
+            g_idx = act_order_g_idx(gen, k, groupsize)
+        return params_from_jax(gaussian_wire_linear(gen, k, n, groupsize, bits, std, g_idx),
+                               device, dtype)
+
+    def layer():
+        attn_in, mlp_in = ((act_order_g_idx(gen, h, groupsize) for _ in range(2)) if act_order
+                           else (None, None))
+        return {
+            "input_layernorm": ones.clone(),
+            "post_attention_layernorm": ones.clone(),
+            "self_attn": {"q_proj": packed(h, qh, g_idx=attn_in),
+                          "k_proj": packed(h, kvh, g_idx=attn_in),
+                          "v_proj": packed(h, kvh, g_idx=attn_in),
+                          "o_proj": packed(qh, h, out_std)},
+            "mlp": {"gate_proj": packed(h, inter, g_idx=mlp_in),
+                    "up_proj": packed(h, inter, g_idx=mlp_in),
+                    "down_proj": packed(inter, h, out_std)},
+        }
 
     out_std = 0.02 * branch_gain
     ones = torch.ones(h, dtype=dtype, device=device)
-    layers = [{
-        "input_layernorm": ones.clone(),
-        "post_attention_layernorm": ones.clone(),
-        "self_attn": {"q_proj": packed(h, qh), "k_proj": packed(h, kvh),
-                      "v_proj": packed(h, kvh), "o_proj": packed(qh, h, out_std)},
-        "mlp": {"gate_proj": packed(h, inter), "up_proj": packed(h, inter),
-                "down_proj": packed(inter, h, out_std)},
-    } for _ in range(cfg.num_layers)]
+    layers = [layer() for _ in range(cfg.num_layers)]
     emb = torch.randn(v, h, generator=gen, device=device)
     head = torch.randn(h, v, generator=gen, device=device) * (2.0 / h ** 0.5)
     return {"embed_tokens": emb.to(dtype), "layers": layers, "norm": ones.clone(),

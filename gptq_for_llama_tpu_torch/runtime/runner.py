@@ -20,6 +20,8 @@ own storage, written in place (see ``ModelRunner``).
 
 Entry points run on the card unless the caller asks for the CPU: a
 ``ModelRunner`` without ``device=`` needs CUDA and raises without it.
+Under tensor parallelism (``mesh``) every rank's
+process runs the same bodies on its shards, eagerly (``ModelRunner``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models.common import gather_vocab
 from ..models.registry import check_positions, embed_weight, get_arch
 from ..ops import kv_dtype as kv
 from ..ops.cuda import autotune as at
@@ -109,33 +112,66 @@ class ModelRunner:
     prompt (S_pad - S slots past the new offset); they are masked until a
     later step overwrites them, as a decode step's are.
     ``forwards`` counts the forwards made, prefill and decode (a replay counts
-    the forwards its graph holds); ``graphs.capture_s`` the capture time."""
+    the forwards its graph holds); ``graphs.capture_s`` the capture time.
+
+    ``mesh`` (``parallel.make_mesh``, in every rank's process of a
+    ``torch.distributed`` group): tensor parallelism, the TPU package's
+    shard_map runner (``gptq_for_llama_tpu/runtime/runner.py:
+    156-219, 297-333``). ``params`` are the full model on any device; the
+    runner keeps this rank's shards (``parallel/tp_model``) on the mesh's
+    device and runs every step on them with the local config: kernels at the
+    shard's widths, an all-reduce over the tp group after each row-parallel
+    projection, the KV cache split over kv heads, the vocab-split logits
+    all-gathered; the batch is split over the dp axis (each dp rank runs its
+    rows; inputs and outputs of the public methods are the whole batch's, the
+    rows gathered over dp). Under TP the steps run eagerly, on the card too:
+    a CUDA graph cannot hold gloo's collectives, and one card cannot host
+    NCCL's two ranks (ROADMAP: TP steps as graphs under NCCL). Fused q/k/v is
+    refused, as in the TPU package."""
 
     def __init__(self, arch_name: str, cfg, params, batch_size: int = 1,
                  max_seq_len: Optional[int] = None, dtype=torch.bfloat16, device=None,
-                 cache_impl: str = "classic", kv_dtype=None, fuse_qkv: bool = False):
+                 cache_impl: str = "classic", kv_dtype=None, fuse_qkv: bool = False,
+                 mesh=None):
         self.cache_impl = check_cache_impl(cache_impl)
         self.kv_dtype = kv.check_kv_dtype(kv_dtype or dtype)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None or device is not None
+                                     else mesh.device)
         at.configure()   # the tuner's knobs, read once per runner
         self.arch = get_arch(arch_name)
         self.arch_name = arch_name
         self.cfg = cfg
-        self.params = params
         self.batch = batch_size
         self.max_len = max_seq_len or cfg.max_seq_len
         check_positions(self.arch, params, self.max_len)
         self.dtype = dtype
+        if fuse_qkv and hasattr(self.arch, "fuse_attention"):
+            if mesh is not None:
+                raise ValueError(
+                    "fuse_qkv is incompatible with shard_map TP: TP_RULES "
+                    "shard q/k/v separately — load unfused for TP")
+            # load-time q/k/v concat: one packed weight stream and one kernel
+            # launch a layer in place of three (the caller's params unchanged)
+            params = self.arch.fuse_attention(params)
+        # the model the steps compute: this rank's shards and the local config
+        # under TP (``_tp`` its mesh), else the whole model
+        self._tp, self._cfg_l, self._b = mesh, cfg, batch_size
+        self._tp_kw = {} if mesh is None else {"tp_ctx": mesh}   # the stack's TP argument
+        if mesh is not None:
+            from ..parallel import tp_model
+            if batch_size % mesh.dp:
+                raise ValueError(f"batch {batch_size} must divide dp={mesh.dp}")
+            self._cfg_l = tp_model.local_config(cfg, mesh.tp)
+            self._b = batch_size // mesh.dp
+            params = tp_model.shard_params(
+                arch_name, tp_model.prepare_tp_params(arch_name, params, mesh.tp), mesh)
+        self.params = params
         emb_dev = embed_weight(params).device
         if emb_dev.type != self.device.type:
             raise ValueError(f"params live on {emb_dev}, the runner on {self.device}")
-        if fuse_qkv and hasattr(self.arch, "fuse_attention"):
-            # load-time q/k/v concat: one packed weight stream and one kernel
-            # launch a layer in place of three (the caller's params unchanged)
-            self.params = params = self.arch.fuse_attention(params)
         self.decode_buckets = live_buckets(self.max_len)
         self.forwards = {"prefill": 0, "decode": 0}
-        self.graphs = Graphs(self.device, counters=(self.forwards,))
+        self.graphs = Graphs(self.device, counters=(self.forwards,), eager=mesh is not None)
         self._store: Optional[KVCache] = None   # the cache storage
         self._epoch = 0
         self._dev_off: Optional[int] = None      # the offset the device tensor holds
@@ -151,12 +187,12 @@ class ModelRunner:
         if self._store is None:
             # normal tensors (not inference tensors): updated in place anywhere
             with torch.inference_mode(False):
-                shape = (self.batch, self.max_len, self.cfg.num_kv_heads, self.cfg.head_dim)
+                shape = (self._b, self.max_len, self._cfg_l.num_kv_heads, self.cfg.head_dim)
                 layers = range(len(self.params["layers"]))
                 self._store = KVCache(
                     [torch.zeros(shape, dtype=self.kv_dtype, device=self.device) for _ in layers],
                     [torch.zeros(shape, dtype=self.kv_dtype, device=self.device) for _ in layers],
-                    0, torch.zeros(self.batch, dtype=torch.int32, device=self.device))
+                    0, torch.zeros(self._b, dtype=torch.int32, device=self.device))
         else:
             for t in (*self._store.k, *self._store.v):
                 t.zero_()
@@ -184,6 +220,22 @@ class ModelRunner:
                 t = self._bufs[key] = torch.zeros(shape, dtype=dtype, device=self.device)
         return t
 
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole-batch input (its dp slice)."""
+        if self._tp is None or self._tp.dp == 1:
+            return t
+        return t[self._tp.dp_rank * self._b:(self._tp.dp_rank + 1) * self._b]
+
+    def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch's rows of a per-rank output (gathered over dp)."""
+        if self._tp is None or self._tp.dp == 1:
+            return t
+        return self._tp.all_gather(t, dim=0, axis="dp")
+
+    def _head(self, x, delta) -> torch.Tensor:
+        """The head's logits over the whole vocabulary (gathered under TP)."""
+        return gather_vocab(self.arch.head(self.params, self._cfg_l, x, delta), self._tp)
+
     def _at(self, cache: KVCache) -> None:
         """Set the device offsets to the handle's."""
         if self._dev_off != cache.offset:
@@ -200,11 +252,11 @@ class ModelRunner:
         if ids.shape[1] > 1:
             return self._prefill(ids, cache, _call)
         self._use(cache, *ids.shape)
-        ids = ids.to(self.device)
+        ids = self._rows(ids.to(self.device))
         self._at(cache)
         logits = self._one_step(ids, bucket_for(cache.offset + 1, self.decode_buckets))
         self._dev_off = cache.offset + 1
-        return logits, dataclasses.replace(cache, offset=cache.offset + 1)
+        return self._all_rows(logits), dataclasses.replace(cache, offset=cache.offset + 1)
 
     def _prefill(self, ids: torch.Tensor, cache: KVCache, run):
         """ids (B, S) right-padded to S_pad (``prefill_len``) into the static
@@ -215,14 +267,15 @@ class ModelRunner:
         self._use(cache, b, s)
         s_pad = prefill_len(s, self.max_len - cache.offset)
         bound = bucket_for(cache.offset + s_pad, self.decode_buckets)
-        buf = self._buf("prefill", (b, s_pad), torch.long)
-        buf[:, :s].copy_(ids)
+        buf = self._buf("prefill", (self._b, s_pad), torch.long)
+        buf[:, :s].copy_(self._rows(ids))
         buf[:, s:].zero_()
         self._at(cache)
         logits = run(("prefill", s_pad, bound), lambda: self._prefill_body(buf, bound),
                      restore=[self._store.offs, *self._bufs.values()])
         # the body leaves the device offsets; the next step's ``_at`` moves them
-        return logits[:, :s].clone(), dataclasses.replace(cache, offset=cache.offset + s)
+        return (self._all_rows(logits[:, :s].clone()),
+                dataclasses.replace(cache, offset=cache.offset + s))
 
     def _prefill_body(self, ids: torch.Tensor, bound: int) -> torch.Tensor:
         """The prefill graphs' body: ids (B, S_pad) at the device offsets
@@ -230,14 +283,15 @@ class ModelRunner:
         tensor-offset path and attended by the blocked prefill kernel at the
         device offset, planned for ``bound`` (>= offset + S_pad). Returns the
         logits (B, S_pad, V)."""
-        arch, cfg, store = self.arch, self.cfg, self._store
+        arch, cfg, store = self.arch, self._cfg_l, self._store
         off = store.offs[:1]
         positions = store.offs[:, None].long() + torch.arange(ids.shape[1], device=self.device)
         rope = arch.step_rope(cfg, positions, self.dtype)
         x = arch.embed(self.params, cfg, ids, positions).to(self.dtype)
         x, delta = arch.stack(self.params, cfg, x, positions, None,
-                              lambda li: (store.k[li], store.v[li], off, None, bound), rope=rope)
-        logits = arch.head(self.params, cfg, x, delta)
+                              lambda li: (store.k[li], store.v[li], off, None, bound), rope=rope,
+                              **self._tp_kw)
+        logits = self._head(x, delta)
         self.forwards["prefill"] += 1
         return logits
 
@@ -247,7 +301,7 @@ class ModelRunner:
         path of ``update_kv_cache`` and attention the ("rows", offsets,
         max_live) form, planned for ``max_live`` slots. Advances the offsets
         in place; returns the logits (B, 1, V)."""
-        arch, cfg, store = self.arch, self.cfg, self._store
+        arch, cfg, store = self.arch, self._cfg_l, self._store
         offs = store.offs
         positions = offs[:, None].long()
         rope = arch.step_rope(cfg, positions, self.dtype)
@@ -255,8 +309,9 @@ class ModelRunner:
         fold = ("fold",) if self.cache_impl == "fold" else ()
         x, delta = arch.stack(
             self.params, cfg, x, positions, None,
-            lambda li: (*fold, store.k[li], store.v[li], offs, None, max_live), rope=rope)
-        logits = arch.head(self.params, cfg, x, delta)
+            lambda li: (*fold, store.k[li], store.v[li], offs, None, max_live), rope=rope,
+            **self._tp_kw)
+        logits = self._head(x, delta)
         offs.add_(1)
         self.forwards["decode"] += 1
         return logits
@@ -302,27 +357,27 @@ class ModelRunner:
         it replays the one-step graph of the live length's bucket."""
         if tuple(ids.shape) != (self.batch, 1):
             raise ValueError(f"decode takes one token per row, got {tuple(ids.shape)}")
-        tok = self._buf("tok", (self.batch, 1), torch.long)
-        tok.copy_(ids)
+        tok = self._buf("tok", (self._b, 1), torch.long)
+        tok.copy_(self._rows(ids))
         bucket = bucket_for(cache.offset + 1, self.decode_buckets)
         logits, cache = self._replay(("decode", bucket),
                                      lambda: self._one_step(tok, bucket), cache, 1)
-        return logits.clone(), cache
+        return self._all_rows(logits.clone()), cache
 
     @torch.inference_mode()
     def decode_greedy_scan(self, ids: torch.Tensor, cache: KVCache, steps: int):
         """``steps`` greedy iterations from the first tokens ids (B, 1), the
         argmax inside the graphs: no host read until the caller's. Returns
         (tokens (B, steps) on the device, cache)."""
-        tok = self._buf("tok", (self.batch, 1), torch.long)
-        tok.copy_(ids)
-        out = [torch.zeros((self.batch, 0), dtype=torch.long, device=self.device)]
+        tok = self._buf("tok", (self._b, 1), torch.long)
+        tok.copy_(self._rows(torch.as_tensor(ids, device=self.device)))
+        out = [torch.zeros((self._b, 0), dtype=torch.long, device=self.device)]
         for n, bucket in self._pieces(cache.offset, steps):
             toks, cache = self._replay(("greedy", n, bucket),
                                        lambda n=n, b=bucket: self._greedy_body(tok, n, b),
                                        cache, n)
             out.append(toks.clone())
-        return torch.cat(out, dim=1), cache
+        return self._all_rows(torch.cat(out, dim=1)), cache
 
     def _greedy_body(self, tok, n: int, bucket: int) -> torch.Tensor:
         cur, out = tok, []
@@ -352,18 +407,19 @@ class ModelRunner:
         V), cache)."""
         b, vocab = last_logits.shape
         mode = sample_mode(temperature, top_p, top_k)
-        last = self._buf("last", (b, vocab), last_logits.dtype)
-        last.copy_(last_logits)
-        temp = self._buf("temperature", (b,), torch.float32)
-        temp.copy_(torch.as_tensor(temperature, dtype=torch.float32).reshape(-1).expand(b))
-        top = self._buf("top_p", (b,), torch.float32)
-        top.copy_(torch.as_tensor(top_p, dtype=torch.float32).reshape(-1).expand(b))
+        last = self._buf("last", (self._b, vocab), last_logits.dtype)
+        last.copy_(self._rows(last_logits))
+        temp = self._buf("temperature", (self._b,), torch.float32)
+        temp.copy_(self._rows(torch.as_tensor(temperature, dtype=torch.float32)
+                              .reshape(-1).expand(b)))
+        top = self._buf("top_p", (self._b,), torch.float32)
+        top.copy_(self._rows(torch.as_tensor(top_p, dtype=torch.float32).reshape(-1).expand(b)))
         left = self._buf("min_left", (), torch.long)
         left.fill_(min_left)
         eos = self._buf("eos", (), torch.long)
         eos.fill_(-1 if eos_id is None else eos_id)
         self._gen.set_state(generator.get_state())
-        out = [torch.zeros((b, 0), dtype=torch.long, device=self.device)]
+        out = [torch.zeros((self._b, 0), dtype=torch.long, device=self.device)]
         for n, bucket in self._pieces(cache.offset, steps):
             key = ("sample", n, int(top_k), eos_id is not None, mode, bucket, last.dtype)
 
@@ -375,7 +431,7 @@ class ModelRunner:
             out.append(toks.clone())
             left.sub_(n)
         generator.set_state(self._gen.get_state())
-        return torch.cat(out, dim=1), last.clone(), cache
+        return self._all_rows(torch.cat(out, dim=1)), self._all_rows(last.clone()), cache
 
     def _sample_body(self, last, n, bucket, top_k, has_eos, mode, temp, top, left, eos):
         cur, out = last, []
@@ -400,13 +456,13 @@ class ModelRunner:
             raise ValueError("forced_decode_scan takes at least one token per row")
         logits, start = None, 0
         for n, bucket in self._pieces(cache.offset, s):
-            buf = self._buf("forced", (b, n), torch.long)
-            buf.copy_(ids[:, start:start + n])
+            buf = self._buf("forced", (self._b, n), torch.long)
+            buf.copy_(self._rows(ids[:, start:start + n]))
             logits, cache = self._replay(("forced", n, bucket),
                                          lambda buf=buf, n=n, b=bucket: self._forced_body(buf, n, b),
                                          cache, n)
             start += n
-        return logits.clone(), cache
+        return self._all_rows(logits.clone()), cache
 
     def _forced_body(self, buf, n: int, bucket: int) -> torch.Tensor:
         for j in range(n):
@@ -427,8 +483,8 @@ class ModelRunner:
         shape the cache holds."""
         if autotune:
             at.ensure(self.params, self.cfg.act,
-                      [self.batch, *(self.batch * prefill_len(s, self.max_len)
-                                     for s in prefill_buckets)])
+                      [self._b, *(self._b * prefill_len(s, self.max_len)
+                                  for s in prefill_buckets)])
         for s in prefill_buckets:
             ids = torch.zeros((self.batch, s), dtype=torch.long, device=self.device)
             self.prefill(ids, self.init_cache())
@@ -437,7 +493,7 @@ class ModelRunner:
         if not self.graphs.on_card:
             self.decode(ids, cache)
             return
-        tok = self._buf("tok", (self.batch, 1), torch.long)
+        tok = self._buf("tok", (self._b, 1), torch.long)
         tok.copy_(ids)
         with torch.inference_mode():
             for bucket in self.decode_buckets:

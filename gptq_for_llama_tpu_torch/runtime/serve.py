@@ -37,6 +37,10 @@ graph's bucket) and checks that a chunk fits its slot before the replay
 a prefill the first token is sampled outside the graph. ``forwards`` counts
 the forwards of each kind that ``run`` has made (a replay counts those its
 graph holds).
+
+Under tensor parallelism (``mesh``; one engine in
+every rank's process) the same bodies run on the rank's shards, eagerly:
+``runtime/runner.ModelRunner`` says why.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models.common import gather_vocab
 from ..models.registry import check_positions, embed_weight, get_arch
 from ..ops import kv_dtype as kv
 from ..ops.cuda import autotune as at
@@ -90,20 +95,35 @@ class ServingEngine:
                  prefill_buckets=(32, 128, 512), paged: bool = False, block_size: int = 16,
                  num_blocks: Optional[int] = None, prefill_chunk: Optional[int] = None,
                  decode_span: int = 1, fused_chunk_decode: bool = True,
-                 admit_batch_max: int = 128, mesh=None, shard_map_tp: bool = False,
+                 admit_batch_max: int = 128, mesh=None,
                  fuse_qkv: bool = False, kv_dtype=None, device=None, seed: int = 0,
                  cache_impl: str = "classic"):
-        if mesh is not None or shard_map_tp:
-            raise NotImplementedError("tensor-parallel serving (A18) is not yet ported to "
-                                      "gptq_for_llama_tpu_torch (see ROADMAP)")
-        self.device = resolve_device(device)
+        # shard_map tensor parallelism (the TPU package's serve.py:89-177):
+        # every step runs on this rank's shards (parallel/tp_model) with the
+        # local config, its caches or pools split over kv heads and its logits
+        # gathered over the vocabulary before sampling (every rank draws the
+        # same token from the same generator). TP only: the slots are not
+        # split over dp. Block tables and allocation are the same on every
+        # rank. The steps run eagerly (no CUDA graphs under TP; ModelRunner)
+        self.device = resolve_device(device if mesh is None or device is not None
+                                     else mesh.device)
+        self.arch = get_arch(arch_name)
+        if fuse_qkv and hasattr(self.arch, "fuse_attention"):
+            if mesh is not None:
+                raise ValueError(
+                    "fuse_qkv is incompatible with shard_map TP: TP_RULES "
+                    "shard q/k/v separately — load unfused for TP")
+            # load-time q/k/v concat (the caller's params unchanged)
+            params = self.arch.fuse_attention(params)
+        self._tp, self._cfg_l = mesh, cfg
+        if mesh is not None:
+            from ..parallel import tp_model
+            self._cfg_l = tp_model.local_config(cfg, mesh.tp)
+            params = tp_model.shard_params(
+                arch_name, tp_model.prepare_tp_params(arch_name, params, mesh.tp), mesh)
         emb_dev = embed_weight(params).device
         if emb_dev.type != self.device.type:
             raise ValueError(f"params live on {emb_dev}, the engine on {self.device}")
-        self.arch = get_arch(arch_name)
-        if fuse_qkv and hasattr(self.arch, "fuse_attention"):
-            # load-time q/k/v concat (the caller's params unchanged)
-            params = self.arch.fuse_attention(params)
         self.arch_name = arch_name
         self.cfg = cfg
         self.params = params
@@ -167,7 +187,7 @@ class ServingEngine:
         # the decode spans' graphs, keyed by (span, mode, bucket), the bucket
         # holding every row's offset + 1 at the span's end
         self.decode_buckets = live_buckets(self._kv_len())
-        self.graphs = Graphs(self.device, counters=(self.forwards,))
+        self.graphs = Graphs(self.device, counters=(self.forwards,), eager=mesh is not None)
         # the measured race of kernels 1 and 2 at the decode step's rows, and
         # at the fused chunk+decode step's, before any capture freezes a plan
         # (the TPU package's engine does the same at serve.py:154-166; nothing
@@ -190,10 +210,15 @@ class ServingEngine:
         the last layer's (x, delta), each (B, S, hidden): the hidden states are
         x + delta, added in the final norm's launch (``arch.head``); the
         caches are written in place."""
-        arch, cfg = self.arch, self.cfg
+        arch, cfg = self.arch, self._cfg_l
         rope = arch.step_rope(cfg, positions, self.dtype)
         x = arch.embed(self.params, cfg, ids, positions).to(self.dtype)
-        return arch.stack(self.params, cfg, x, positions, None, past, rope=rope)
+        return arch.stack(self.params, cfg, x, positions, None, past, rope=rope,
+                          **({} if self._tp is None else {"tp_ctx": self._tp}))
+
+    def _head(self, x, delta) -> torch.Tensor:
+        """The head's logits over the whole vocabulary (gathered under TP)."""
+        return gather_vocab(self.arch.head(self.params, self._cfg_l, x, delta), self._tp)
 
     def _load(self, state) -> None:
         """The host's offsets, live mask, tokens and sampling parameters into
@@ -221,7 +246,7 @@ class ServingEngine:
         x, delta = self._forward(toks, off[:, None].long(), past)
         off.add_(live.to(off.dtype))
         self.forwards["decode"] += 1
-        return self.arch.head(self.params, self.cfg, x, delta)[:, -1]
+        return self._head(x, delta)[:, -1]
 
     def _decode_span(self, state, span: int, mode) -> np.ndarray:
         """``span`` decode+sample steps, one host read at the end: (B, span)
@@ -307,8 +332,8 @@ class ServingEngine:
 
         x, delta = self._forward(state["ids_t"][:1, :blen], positions, past)
         self.forwards[kind] += 1
-        return self.arch.head(self.params, self.cfg, x.index_select(1, last),
-                              None if delta is None else delta.index_select(1, last))[:, 0]
+        return self._head(x.index_select(1, last),
+                          None if delta is None else delta.index_select(1, last))[:, 0]
 
     def _chunk_decode_step(self, state, i: int, ids: np.ndarray, off0: int, last_idx: int):
         """One forward: the next prompt chunk of slot ``i`` + one decode token
@@ -348,8 +373,8 @@ class ServingEngine:
         x, delta = self._forward(ids_flat, positions, past)
         # the decode rows and the chunk's last row
         rows = torch.cat([torch.arange(b_dec, device=self.device), b_dec + last.long()])
-        logits = self.arch.head(self.params, self.cfg, x.index_select(1, rows),
-                                None if delta is None else delta.index_select(1, rows))[0]
+        logits = self._head(x.index_select(1, rows),
+                            None if delta is None else delta.index_select(1, rows))[0]
         off.add_(live.to(off.dtype))
         self.forwards["chunk+decode"] += 1
         return logits
@@ -573,8 +598,7 @@ class ServingEngine:
         self.forwards["admit"] += 1
         # head on the last REAL hidden state of each row only
         last = (torch.arange(self.b, device=self.device), state["lens_t"] - 1)
-        return self.arch.head(self.params, self.cfg, x[last][:, None],
-                              None if delta is None else delta[last][:, None])[:, 0]
+        return self._head(x[last][:, None], None if delta is None else delta[last][:, None])[:, 0]
 
     def _new_cache(self, shape) -> list:
         return [torch.zeros(shape, dtype=self.kv_dtype, device=self.device)
@@ -593,9 +617,9 @@ class ServingEngine:
             pool_blocks = self.num_blocks + 1
             self._paged_alloc = BlockAllocator(pool_blocks, reserved=1)
             self._tables_np = np.zeros((b, self.max_blocks), np.int32)
-            shape = (pool_blocks, self.block_size, self.cfg.num_kv_heads, self.cfg.head_dim)
+            shape = (pool_blocks, self.block_size, self._cfg_l.num_kv_heads, self.cfg.head_dim)
         else:
-            shape = (b, self.max_len, self.cfg.num_kv_heads, self.cfg.head_dim)
+            shape = (b, self.max_len, self._cfg_l.num_kv_heads, self.cfg.head_dim)
         if self.state is None:
             # normal tensors (not inference tensors): updated in place anywhere
             with torch.inference_mode(False):

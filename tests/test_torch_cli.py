@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from gptq_for_llama_tpu_torch.cli.main import _UNPORTED, main
+from gptq_for_llama_tpu_torch.cli.main import main
 from gptq_for_llama_tpu_torch.data import get_loaders
 from gptq_for_llama_tpu_torch.engine import perplexity
 from gptq_for_llama_tpu_torch.models import hf_loader
@@ -63,13 +63,22 @@ def test_cli_needs_the_card_unless_told_cpu(model_dir):
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"], ["--distributed"],
                                    ["--distributed", "--pre-layer", "1"],
                                    ["--dp", "2", "--kv-dtype", "fp8"]])
-def test_cli_unported_flags_raise(model_dir, flags):
-    """The flags of A18 raise, also beside ported flags; A18 is all that is
-    left unported (--pre-layer is A15's, ported)."""
-    assert {item for _, item in _UNPORTED.values()} == {"A18"}
-    assert set(_UNPORTED) == {"--tp", "--dp", "--distributed"}
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        main([model_dir, "synthetic", "--device", "cpu", *flags])
+def test_cli_unported_flags_raise(model_dir, flags, monkeypatch):
+    """The flags of A18 are ported, also beside others: --tp 2 runs two
+    ranks and returns rank 0's report; --dp 2 without a quantization runs
+    in this process (only calibration splits over dp); --distributed joins
+    the group the environment names, and without one raises (no silent
+    single-process run)."""
+    for var in ("GPTQ_TPU_COORDINATOR", "GPTQ_TPU_DISTRIBUTED", "MASTER_ADDR", "MASTER_PORT",
+                "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    argv = [model_dir, "synthetic", "--device", "cpu", *flags]
+    if "--distributed" in flags:
+        with pytest.raises(ValueError, match="environment variable"):
+            main(argv)
+        return
+    rep = main(argv)
+    assert set(rep["phases"]) == {"load"} and rep["ppl"] == {}
 
 
 @pytest.fixture(scope="module")
@@ -128,3 +137,81 @@ def test_cli_writes_its_report(model_dir, tmp_path):
     with open(path) as f:
         assert json.load(f) == json.loads(json.dumps(rep))
     assert rep["benchmark"]["tokens"] == 16 and "benchmark" in rep["launches"]
+
+
+@pytest.fixture(scope="module")
+def dp_checkpoints(model_dir, tmp_path_factory):
+    """The tiny LLaMA quantized (GPTQ 4-bit g16, act-order) and saved with
+    calibration on one rank and split over two (--dp 2: two gloo ranks)."""
+    d, outs = tmp_path_factory.mktemp("dp"), {}
+    for dp in ("1", "2"):
+        outs[dp] = str(d / f"dp{dp}")
+        rep = main([model_dir, "synthetic", "--wbits", "4", "--groupsize", "16", "--nsamples",
+                    "8", "--chunk", "4", "--act-order", "--true-sequential", "--seqlen", "32",
+                    "--save", outs[dp], "--device", "cpu", "--dp", dp])
+        assert set(rep["quantize_split"]) == {"forward", "hessian", "solver"}
+    return outs
+
+
+def test_cli_dp_calibration_matches_one_rank(dp_checkpoints):
+    """--dp 2 --device cpu: calibration split over two ranks, the Gram sums
+    all-reduced; rank 0 saves a checkpoint whose g_idx equals a one-rank
+    run's and whose dequantized weights match it on at least 99.9 % of
+    entries (the solver rule of tests/test_torch_quant.py)."""
+    _, a = hf_loader.load_params(dp_checkpoints["1"], seqlen=32, device="cpu",
+                                 dtype=torch.float32)
+    _, b = hf_loader.load_params(dp_checkpoints["2"], seqlen=32, device="cpu",
+                                 dtype=torch.float32)
+    for la, lb in zip(a["layers"], b["layers"]):
+        for part in ("self_attn", "mlp"):
+            for name, lin in la[part].items():
+                other = lb[part][name]
+                np.testing.assert_array_equal(lin.g_idx, other.g_idx)
+                same = np.isclose(lin.dequantize(torch.float32).numpy(),
+                                  other.dequantize(torch.float32).numpy(), rtol=1e-3, atol=0)
+                assert same.mean() >= 0.999, (part, name, same.mean())
+
+
+def test_cli_tp_benchmark_matches_the_unsharded_run(model_dir, dp_checkpoints):
+    """--tp 2 --device cpu on the act-order g16 checkpoint: two gloo ranks;
+    the decode benchmark runs the tensor-parallel runner (its check ppl
+    within bf16 rounding of the unsharded run's: the row-parallel sums round
+    per shard), the eval the whole model on rank 0 (equal), and rank 0's
+    report comes back."""
+    flags = [model_dir, "synthetic", "--load", dp_checkpoints["1"], "--eval", "--seqlen", "64",
+             "--benchmark", "16", "--check", "--device", "cpu"]
+    one, two = main(flags), main(flags + ["--tp", "2"])
+    assert two["ppl"] == one["ppl"] and np.isfinite(one["ppl"]["synthetic"])
+    assert two["benchmark"]["tokens"] == 16
+    np.testing.assert_allclose(two["benchmark"]["ppl"], one["benchmark"]["ppl"], rtol=2e-2)
+
+
+def test_cli_tp_keeps_the_tpu_packages_refusals(model_dir):
+    """--tp with --pre-layer is a parser error (gptq_for_llama_tpu/cli/
+    main.py:123-125); --tp above the machine's cards raises before any rank
+    starts (a card a rank, as the TPU package's make_mesh needs a device a
+    shard)."""
+    with pytest.raises(SystemExit):
+        main([model_dir, "synthetic", "--device", "cpu", "--tp", "2", "--pre-layer", "1"])
+    cards = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match="need a card each"):
+        main([model_dir, "synthetic", "--tp", str(max(2, cards + 1))])
+
+
+@pytest.mark.cuda
+def test_cli_tp_on_the_card(model_dir, dp_checkpoints):
+    """On the card a rank takes a card of its own (NCCL): with fewer cards
+    than --tp the CLI raises before any rank starts; with enough, --tp 2's
+    benchmark check ppl is the unsharded run's within bf16 rounding. The
+    kernels at the shards' shapes: tests/test_torch_cuda.py
+    ``test_kernels_at_tp_shard_shapes_match_their_plain_versions``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    flags = [model_dir, "synthetic", "--load", dp_checkpoints["1"], "--seqlen", "64",
+             "--benchmark", "16", "--check"]
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="need a card each"):
+            main(flags + ["--tp", "2"])
+        return
+    one, two = main(flags), main(flags + ["--tp", "2"])
+    np.testing.assert_allclose(two["benchmark"]["ppl"], one["benchmark"]["ppl"], rtol=2e-2)

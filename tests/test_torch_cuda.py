@@ -2036,3 +2036,86 @@ def test_autotune_race_picks_a_valid_plan(card, tmp_path, monkeypatch, kind, m):
     again = (autotune.tune_mlp([(lins[0], lins[1])], m) if kind == "mlp" else
              autotune.tune_qmm(lins, m, kind))
     assert again == won and autotune.measurements == len(cands)
+
+
+@pytest.mark.cuda
+def test_offload_streams_mixed_shapes_bit_equal_to_the_resident_runner(card):
+    """Streamed layers of different shapes (INT4 g128, INT4 g64 act-order,
+    INT8 g128 down_proj): each staged at its own shapes into views of the
+    two byte slots, sized for the largest; the prompt logits and 24 greedy
+    tokens equal the resident runner's generate(span=1) bit for bit."""
+    from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
+    from gptq_for_llama_tpu_torch.runtime.offload import OffloadRunner, map_tensors, tensors
+    from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+    cfg, params, _ = _offload_model(card)
+    other = gaussian_wire_llama(cfg, seed=1, groupsize=64, device=card, act_order=True)
+    wide = gaussian_wire_llama(cfg, seed=2, bits=8, device=card)
+    params["layers"][2] = other["layers"][2]
+    params["layers"][3] = dict(params["layers"][3],
+                               mlp=dict(params["layers"][3]["mlp"],
+                                        down_proj=wide["layers"][3]["mlp"]["down_proj"]))
+    host = map_tensors(params, lambda t: t.cpu())
+    off = OffloadRunner("llama", cfg, host, 1, max_seq_len=300, device=card)
+    assert len({tuple(t.shape for t in tensors(h)) for h in off.host_layers}) == 3
+    res = ModelRunner("llama", cfg, params, max_seq_len=300, device=card)
+    prompt = np.random.RandomState(7).randint(1, 512, size=29)
+    got = off.generate(prompt, max_new_tokens=24)
+    assert np.array_equal(got, generate(res, prompt, max_new_tokens=24, temperature=0.0, span=1))
+    ids = torch.as_tensor(prompt[None], device=card)
+    lo, _ = off.prefill(ids, off.init_cache())
+    lr, _ = res.prefill(ids, res.init_cache())
+    assert torch.equal(lo, lr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_kernels_at_tp_shard_shapes_match_their_plain_versions(card, tp):
+    """One LLaMA-7B-width layer, act-order, prepared for tp and cut into each
+    rank's shards (``parallel/tp_model``): kernel 1 on every column shard
+    (q/k/v) and row shard (o_proj; down_proj K-padded to 11264, its row map
+    applied to the activation first, as ``row_parallel_apply`` does), kernel
+    2 on the gate/up shards (tp 4: 2752 columns padded to 2816, the padded
+    columns exactly 0), each against its plain version at M = 1 and 8; the
+    rank's partial sums add up to the unsharded layer's output."""
+    import dataclasses
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    from gptq_for_llama_tpu_torch.parallel import tp_model
+    from gptq_for_llama_tpu_torch.parallel.sharding import Mesh
+    from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+    cfg = ModelConfig(arch="llama", vocab_size=256, hidden_size=4096, intermediate_size=11008,
+                      num_layers=1, num_heads=32, num_kv_heads=32, head_dim=128, max_seq_len=64)
+    params = gaussian_wire_llama(cfg, seed=3, device=card, act_order=True)
+    prepared = tp_model.prepare_tp_params("llama", params, tp)
+    gen = torch.Generator(device=card).manual_seed(tp)
+    for m in (1, 8):
+        x = torch.randn(m, 4096, generator=gen, device=card).bfloat16()
+        h = torch.randn(m, 11008, generator=gen, device=card).bfloat16()
+        down_sum = 0
+        for r in range(tp):
+            mesh = Mesh(tp=tp, dp=1, rank=r, tp_rank=r, dp_rank=0, device=card)
+            lp = tp_model.shard_params("llama", prepared, mesh)["layers"][0]
+            att, mlp = lp["self_attn"], lp["mlp"]
+            for lin in (att["q_proj"], att["v_proj"]):
+                assert lin.out_features == 4096 // tp
+                assert _close(quant_matmul(x, lin), quant_matmul_plain(x, lin), 2e-2)
+            o = dataclasses.replace(att["o_proj"], perm=None, perm_sig=None)
+            xo = x[:, r * 4096 // tp:(r + 1) * 4096 // tp]
+            assert _close(quant_matmul(xo, o), quant_matmul_plain(xo, o), 2e-2)
+            y = fused_mlp(x, mlp["gate_proj"], mlp["up_proj"])
+            assert _close(y, fused_mlp_plain(x, mlp["gate_proj"], mlp["up_proj"]), 2e-2)
+            n_local = 11008 // tp
+            assert y.shape[-1] == -(-n_local // 128) * 128
+            assert torch.count_nonzero(y[:, n_local:]) == 0
+            down = mlp["down_proj"]
+            assert down.perm is not None and down.in_features == 11264 // tp
+            # the gathered activation with the shards' zero pad columns
+            pad = y.shape[-1] - n_local
+            hg = torch.cat([torch.nn.functional.pad(c, (0, pad)) for c in h.split(n_local, -1)],
+                           -1)
+            xd = hg.index_select(-1, down.perm)
+            local = dataclasses.replace(down, perm=None, perm_sig=None)
+            got = quant_matmul(xd, local)
+            assert _close(got, quant_matmul_plain(xd, local), 2e-2)
+            down_sum = down_sum + got.float()
+        full = params["layers"][0]["mlp"]["down_proj"]
+        assert _close(down_sum.bfloat16(), quant_matmul_plain(h, full), 2e-2)

@@ -189,7 +189,11 @@ def test_synthetic_loader_matches_jax(nsamples, seed, seqlen):
 
 
 def test_mesh_raises_until_parallel_slice(tiny):
+    """Data-parallel calibration is ported (tests/test_torch_distributed.py);
+    a dp that does not divide the chunk raises, as the TPU package asserts."""
+    from gptq_for_llama_tpu_torch.parallel.sharding import Mesh
     _, _, train, _ = tiny
     cfg, params, _, _ = _both(tiny)
-    with pytest.raises(NotImplementedError, match="A18"):
-        quantize_model("llama", cfg, params, train, QuantizeSpec(), mesh=object())
+    mesh = Mesh(tp=1, dp=3, rank=0, tp_rank=0, dp_rank=0, device=torch.device("cpu"))
+    with pytest.raises(AssertionError, match="must divide by dp 3"):
+        quantize_model("llama", cfg, params, train, QuantizeSpec(chunk=4), mesh=mesh)

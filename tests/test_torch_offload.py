@@ -134,7 +134,8 @@ def test_offload_packed_int4_over_an_fp8_cache_matches_jax():
     for i, view in enumerate(off.layers.views):
         host = off.host_layers[i]["mlp"]["down_proj"]
         lin = view["mlp"]["down_proj"]
-        assert lin.qweight is off.layers.slots[i % 2]["mlp"]["down_proj"].qweight
+        slot = off.layers.slots[i % 2]
+        assert lin.qweight.untyped_storage().data_ptr() == slot.untyped_storage().data_ptr()
         assert lin.perm_sig == host.perm_sig and lin.g_idx is host.g_idx
     assert all(torch.equal(a, b) for a, b in zip(before, tensors(params)))
 
@@ -151,3 +152,45 @@ def test_offload_other_families_match_jax(arch):
     got = off.generate(PROMPT, max_new_tokens=8)
     np.testing.assert_array_equal(got, np.asarray(jr.generate(PROMPT, max_new_tokens=8)))
     np.testing.assert_array_equal(got, torch_archs.runner_tokens(cfg, params, PROMPT, 8))
+
+
+def _mixed_layouts():
+    """A 4-layer packed LLaMA whose layers differ in shape: layers 0-1 INT4
+    g32 act-order, layer 2 the same but its down_proj INT8 g16 with no
+    permutation, layer 3 INT2 g16 with no permutation (what ``--observe``'s
+    upgrades, or a checkpoint without act-order in some layers, leave)."""
+    kw = dict(hidden_size=64, intermediate_size=128, head_dim=16)
+    jcfg, cfg = JaxModelConfig(**dict(CFG, **kw)), ModelConfig(**dict(CFG, **kw))
+    a = _jax_packed_llama(jcfg, seed=7, actorder=True)
+    b = _jax_packed_llama(jcfg, seed=8, bits=8, gs=16)
+    c = _jax_packed_llama(jcfg, seed=9, bits=2, gs=16)
+    layers = [a["layers"][0], a["layers"][1], dict(a["layers"][2]), c["layers"][3]]
+    layers[2]["mlp"] = dict(layers[2]["mlp"], down_proj=b["layers"][2]["mlp"]["down_proj"])
+    jparams = dict(a, layers=layers)
+    return jcfg, jparams, cfg, params_from_jax(_to_wire_tree(jparams), "cpu", torch.float32)
+
+
+def test_offload_streams_layers_of_mixed_shapes():
+    """The streamed layers differ in group size, bits and permutation: each
+    is staged at its own shapes into a slot sized for the largest, and the
+    forward, perplexity and greedy tokens match the TPU package's
+    OffloadRunner (which stages each layer at its own shapes) and the port's
+    resident runner."""
+    jcfg, jparams, cfg, params = _mixed_layouts()
+    off = _offload(cfg, params, pre_layer=1)
+    assert len({tuple(t.shape for t in tensors(h)) for h in off.host_layers}) == 3
+    assert all(s.numel() >= off.layers.layer_bytes for s in off.layers.slots)
+    assert off.layers.layer_bytes == max(off.layers.bytes_of) > min(off.layers.bytes_of)
+    jr = JaxOffloadRunner("llama", jcfg, jparams, pre_layer=1, dtype=jnp.float32,
+                          max_seq_len=32)
+    ids = np.arange(10, dtype=np.int32)[None] % cfg.vocab_size
+    np.testing.assert_allclose(off.forward(ids).numpy(), np.asarray(jr.forward(ids)),
+                               atol=2e-4, rtol=1e-3)
+    assert off.layers.staged_bytes == off.streamed_bytes == sum(off.layers.bytes_of)
+    stream = np.arange(64, dtype=np.int32) % cfg.vocab_size
+    ppl, want = off.perplexity(stream, 16), jr.perplexity(stream, 16)
+    assert np.isfinite(ppl) and abs(ppl - want) <= 1e-4 * want
+    got = off.generate(PROMPT, max_new_tokens=8)
+    np.testing.assert_array_equal(got, np.asarray(jr.generate(PROMPT, max_new_tokens=8)))
+    np.testing.assert_array_equal(got, generate(_resident(cfg, params), PROMPT,
+                                                max_new_tokens=8, temperature=0.0))

@@ -249,9 +249,16 @@ def test_per_slot_prefills_pass_host_offsets(monkeypatch):
 
 def test_engine_refuses_unported_options_and_devices():
     cfg, params, _, _ = _setup()
-    for kw in (dict(mesh=object()), dict(shard_map_tp=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine("llama", cfg, params, dtype=torch.float32, device="cpu", **kw)
+    # tensor-parallel serving is ported (tests/test_torch_tp_serve.py): fused
+    # q/k/v under it, and a tp that does not divide the heads, raise as in the
+    # TPU package
+    from gptq_for_llama_tpu_torch.parallel.sharding import Mesh
+    for tp, kw, msg in ((2, dict(fuse_qkv=True), "fuse_qkv is incompatible"),
+                        (3, dict(), "must divide num_heads")):
+        mesh = Mesh(tp=tp, dp=1, rank=0, tp_rank=0, dp_rank=0, device=torch.device("cpu"))
+        with pytest.raises(ValueError, match=msg):
+            ServingEngine("llama", cfg, params, dtype=torch.float32, device="cpu", mesh=mesh,
+                          **kw)
     # fuse_qkv is ported (A4; tests/test_torch_fuse_qkv.py): dense q/k/v, as
     # here, stay unfused, as in the TPU package
     eng = ServingEngine("llama", cfg, params, dtype=torch.float32, device="cpu", fuse_qkv=True)
@@ -332,9 +339,13 @@ def test_serve_cli_needs_the_card_and_refuses_unported_flags(packed_dir):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_cli.main([model, "--load", packed, "--demo", "1", "--quiet"])
-    for flags in (["--tp", "2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve_cli.main([model, "--demo", "1", "--device", "cpu", *flags])
+    # --tp and --distributed are ported: --tp 2 wants a card a rank, and
+    # --distributed a group in the environment; each raises without them
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="need a card each"):
+            serve_cli.main([model, "--demo", "1", "--tp", "2"])
+    with pytest.raises(ValueError, match="environment variable"):
+        serve_cli.main([model, "--demo", "1", "--device", "cpu", "--distributed"])
     with pytest.raises(SystemExit):   # --fuse-attn is ported; with --tp a parser error
         serve_cli.main([model, "--demo", "1", "--device", "cpu", "--fuse-attn", "--tp", "2"])
     with pytest.raises(SystemExit):
