@@ -5,8 +5,12 @@
 
 Phases, in order, on one card:
   card     the card is there; prints nvidia-smi's name and power limit.
-  build    builds every kernel of csrc/ with nvcc (timed) and prints the
-           ptxas register / spill lines.
+  build    builds every kernel of csrc/ with nvcc, one process a library,
+           and prints the ptxas register / spill lines: the libraries the
+           phases before ``archs`` use, all started together and timed;
+           then those of the attention kernels at head dims other than 128,
+           all together at low priority beside the next phases, and
+           ``archs`` waits for them (``build.start`` / ``build.wait``).
   kernels  each kernel against its plain PyTorch version on the card at the
            shapes LLaMA-7B prefill, decode, calibration, eval, serving and LoRA
            training give it:
@@ -121,13 +125,18 @@ Phases, in order, on one card:
            holding the dtype's NaN code past each offset, two launches
            bit-equal, kernel 7 bit-equal to kernel 3 on the gathered view,
            kernel 4 at offset 0 bit-equal to kernel 5, each timed beside the
-           library's upcast plus SDPA and its bound. Kernel 1 at LLaMA-7B's
+           library's upcast plus SDPA and its bound; kernels 4 (bf16) and 5
+           name the body their plan takes, and at D = 64, 80, 96 each body
+           is forced as well (held, twice bit-equal, timed; kernel 4 at
+           offset 0 over the poisoned cache bit-equal to kernel 5 on the
+           same body). Kernel 1 at LLaMA-7B's
            fused q/k/v (4096 x 12288, its columns against the three unfused
            launches) and at NeoX-20B's linears with their biases. Each
            family at 2 layers on the card against the CPU (logits 2e-2,
            greedy tokens where clear). Each at full depth: ``generate``
            through the graphs (ms/token, the decode graph's device time,
-           launches by head dim) and 8-slot serving (NeoX: paged span 8,
+           launches by head dim, kernels 4 and 5 by body and head dim) and
+           8-slot serving (NeoX: paged span 8,
            dense chunk 128, dense fold, and the fold runner; OPT: paged;
            GPT-2: dense chunked), each run twice (tok/s, ttft). NeoX
            quantize -> save -> reload -> eval -> benchmark through the CLI on
@@ -253,21 +262,31 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          "kvdtype:cli": {"qmm", "fused_mlp", "decode_attention:fp8"} | NORMS,
          "kvdtype:serve:cli": {"qmm", "fused_mlp", "pool_decode_attention:fp8"} | NORMS,
          # OPT, GPT-NeoX and GPT-2 (phase archs): the attention kernels counted
-         # by head dim (NeoX-20B 96, OPT-2.7B 80, GPT-2 64); no kernel 2 or 6
-         # (no gated MLP, LayerNorm in plain torch as the TPU package's XLA)
+         # by head dim (NeoX-20B 96, OPT-2.7B 80, GPT-2 64), kernels 4 and 5
+         # also by body: the prompts (37 and 100 tokens, padded to 64 and 128)
+         # and the batched admissions (buckets 32 and 128) on mma.sync, a
+         # single admission of a longer prompt (bucket 512), a chunk past
+         # offset 0 and the 2048-token calibration forward on wgmma; no
+         # kernel 2 or 6 (no gated MLP, LayerNorm in plain torch as the TPU
+         # package's XLA)
          "arch:neox:decode": {"qmm", "qmm:tile", "decode_attention", "decode_attention:d96",
-                              "flash_prefill_blocked", "flash_prefill_blocked:d96"},
+                              "flash_prefill_blocked", "flash_prefill_blocked:d96",
+                              "flash_prefill_blocked:sync:d96"},
          "arch:neox:serve:paged": {"qmm", "pool_decode_attention", "pool_decode_attention:d96",
-                                   "flash_prefill:d96"},
-         "arch:neox:serve:dense": {"qmm", "decode_attention:d96", "flash_prefill_blocked:d96"},
+                                   "flash_prefill:d96", "flash_prefill:sync:d96",
+                                   "flash_prefill_blocked:wgmma:d96"},
+         "arch:neox:serve:dense": {"qmm", "decode_attention:d96", "flash_prefill_blocked:d96",
+                                   "flash_prefill_blocked:wgmma:d96"},
          "arch:neox:fold": {"qmm", "fused_decode_attention", "fused_decode_attention:d96"},
-         "arch:neox:quantize": {"flash_prefill", "flash_prefill:d96"},
+         "arch:neox:quantize": {"flash_prefill", "flash_prefill:d96", "flash_prefill:wgmma:d96"},
          "arch:opt:decode": {"qmm", "qmm:tile", "decode_attention:d80",
-                             "flash_prefill_blocked:d80"},
-         "arch:opt:serve:paged": {"qmm", "pool_decode_attention:d80", "flash_prefill:d80"},
+                             "flash_prefill_blocked:d80", "flash_prefill_blocked:sync:d80"},
+         "arch:opt:serve:paged": {"qmm", "pool_decode_attention:d80", "flash_prefill:d80",
+                                  "flash_prefill_blocked:wgmma:d80"},
          "arch:gpt2:decode": {"qmm", "qmm:tile", "decode_attention:d64",
-                              "flash_prefill_blocked:d64"},
-         "arch:gpt2:serve:dense": {"qmm", "decode_attention:d64", "flash_prefill_blocked:d64"},
+                              "flash_prefill_blocked:d64", "flash_prefill_blocked:sync:d64"},
+         "arch:gpt2:serve:dense": {"qmm", "decode_attention:d64", "flash_prefill_blocked:d64",
+                                   "flash_prefill_blocked:wgmma:d64"},
          # LLaMA-7B decode steps with q/k/v fused (one kernel-1 launch a layer for them)
          "fuse_qkv:decode": {"qmm", "fused_mlp", "decode_attention"} | NORMS,
          # the offloaded LLaMA-7B's generate (24 of 32 layers streamed), the
@@ -521,22 +540,52 @@ def _tree_to_cpu(tree, dtype):
     return map_leaves(leaf, tree)
 
 
-def solver_agreement(got, want) -> dict:
-    """How closely two GPTQResults (CPU tensors) agree: the fraction of group
-    scales within 1e-5 relative, of zeros equal, of integer codes equal, the
-    largest code difference and the relative difference of the error."""
-    gq, gs, gz, gg, ge = (t.double().numpy() if hasattr(t, "numpy") else t for t in got)
-    wq, ws, wz, wg, we = (t.double().numpy() if hasattr(t, "numpy") else t for t in want)
-    gi, wi = gg.astype(np.int64), wg.astype(np.int64)
-    if not np.array_equal(gi, wi):
+def _plain_dense(tree, dtype):
+    """A CPU parameter tree for the plain path in ``dtype`` with each packed
+    linear that has no permutation made dense: {"kernel": its dequantized
+    weight in ``dtype``, "bias"}. That is the product the plain path forms
+    at every call (``quant_matmul_plain``: dequantize, then matmul), formed
+    once; the logits and gradients are the same bit for bit, without a
+    dequantization per linear per step. Adapters keep theirs."""
+    import dataclasses
+    from gptq_for_llama_tpu_torch.ops.linear import PackedLinear, dense
+    from gptq_for_llama_tpu_torch.ops.lora import LoraLinear, map_leaves
+
+    def leaf(x):
+        if isinstance(x, LoraLinear):
+            return dataclasses.replace(x, base=map_leaves(leaf, x.base))
+        if isinstance(x, PackedLinear) and x.perm is None:
+            return dense(x.dequantize(dtype), None if x.bias is None else x.bias.to(dtype))
+        return x
+
+    return map_leaves(leaf, tree)
+
+
+def solver_agreement(got, want, device="cpu") -> dict:
+    """How closely two GPTQResults (CPU tensors or numpy arrays) agree: the
+    fraction of group scales within 1e-5 relative, of zeros equal, of
+    integer codes equal, the largest code difference and the relative
+    difference of the error. Tensors are compared in float64, arrays in
+    their own dtypes, on ``device`` (the same arithmetic on either)."""
+    import torch
+
+    def arrays(res):
+        return [t.double().to(device) if isinstance(t, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(t)).to(device) for t in res[:4]]
+
+    gq, gs, gz, gg = arrays(got)
+    wq, ws, wz, wg = arrays(want)
+    gi, wi = gg.long(), wg.long()
+    if not torch.equal(gi, wi):
         raise AssertionError("solver: group indices differ")
-    gc = np.rint(gq / gs[:, gi] + gz[:, gi])
-    wc = np.rint(wq / ws[:, wi] + wz[:, wi])
-    return {"scales_close": float((np.abs(gs - ws) <= 1e-5 * np.abs(ws)).mean()),
-            "zeros_equal": float((gz == wz).mean()),
-            "codes_equal": float((gc == wc).mean()),
-            "codes_max_diff": int(np.abs(gc - wc).max()),
-            "error_rel": float(abs(float(ge) - float(we)) / abs(float(we)))}
+    gc = torch.round(gq / gs[:, gi] + gz[:, gi])   # round half to even, as np.rint
+    wc = torch.round(wq / ws[:, wi] + wz[:, wi])
+    ge, we = float(got[4]), float(want[4])
+    return {"scales_close": float((torch.abs(gs - ws) <= 1e-5 * torch.abs(ws)).double().mean()),
+            "zeros_equal": float((gz == wz).double().mean()),
+            "codes_equal": float((gc == wc).double().mean()),
+            "codes_max_diff": int(torch.abs(gc - wc).max()),
+            "error_rel": float(abs(ge - we) / abs(we))}
 
 
 # ---------------------------------------------------------------------------
@@ -719,7 +768,7 @@ def _tp_job_calibrate(torch, job, mesh_of):
             dist.recv(buf, src=0)
             got.append(buf.numpy().reshape(np.shape(a)))
         got[4] = float(got[4])
-        stats[key] = solver_agreement(tuple(got), want[key])
+        stats[key] = solver_agreement(tuple(got), want[key], device="cuda")
     return {"seconds_dp1": dt, "stats": stats}
 
 
@@ -800,6 +849,8 @@ class Smoke:
         self.dim_entries = {}  # kernel -> {"d<D>": {cache dtype: its row}} (phase archs)
         self._classic_tokens = None   # an arch's classic generate tokens (phase archs)
         self.tp_entries = {}   # kernel -> its rows at the tp phase's shard shapes
+        self.e2e_tree = None   # the e2e phase's wire tree, read again by phase kvdtype
+        self.writer = None   # (process, directory, layers, start) of phase archs' writer
 
     # -- phase 1 ---------------------------------------------------------------
     def phase_card(self, torch):
@@ -826,13 +877,18 @@ class Smoke:
     def phase_build(self, torch):
         from gptq_for_llama_tpu_torch.ops.cuda import build
         t0 = time.perf_counter()
-        built = build.build_all()
+        later = [k for k in build.targets() if ":d" in k and not k.endswith(":d128")]
+        now = [k for k in build.targets() if k not in later]
+        build.start(now)
+        built = build.wait(now)
         dt = time.perf_counter() - t0
-        log(f"[build] {len(built)} libraries built in {dt:.1f} s ({self.card})")
-        for name, text in sorted(built.items()):
-            for line in text.splitlines():
-                if any(w in line for w in ("registers", "spill", "Compiling entry", "arning")):
-                    log(f"[ptxas {name}] {line.strip()}")
+        # the rest at low priority beside the phases before archs: started
+        # with the others they took half the cores the first ones waited for
+        build.start(later, nice=19)
+        log(f"[build] {len(built)} libraries built in {dt:.1f} s; {len(later)} more (the "
+            f"attention kernels at head dims other than 128) building at low priority, "
+            f"waited for in phase archs ({self.card})")
+        self._ptxas_log(built)
         self.report["build_s"] = dt
         # ptxas reports static shared memory only; the tile kernels size theirs
         # at launch
@@ -857,6 +913,25 @@ class Smoke:
         log("[build] dynamic shared memory per block (bytes): "
             + ", ".join(f"{k} {v}" for k, v in smem.items()))
         self.report["dynamic_smem_bytes"] = smem
+
+    @staticmethod
+    def _ptxas_log(built):
+        for name, text in sorted(built.items()):
+            for line in text.splitlines():
+                if any(w in line for w in ("registers", "spill", "Compiling entry", "arning")):
+                    log(f"[ptxas {name}] {line.strip()}")
+
+    def _build_rest(self):
+        """Wait for the libraries phase build left building; log their
+        ptxas lines and the seconds waited here."""
+        from gptq_for_llama_tpu_torch.ops.cuda import build
+        t0 = time.perf_counter()
+        built = build.wait()
+        dt = time.perf_counter() - t0
+        if built:
+            log(f"[build] the other {len(built)} libraries built, {dt:.1f} s waited for here")
+            self._ptxas_log(built)
+            self.report["build_rest_wait_s"] = dt
 
     # -- phase 3 ---------------------------------------------------------------
     def _record(self, kernel, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops, main=False,
@@ -1726,7 +1801,7 @@ class Smoke:
         cfg = ModelConfig(arch="llama", vocab_size=32000, hidden_size=4096,
                           intermediate_size=11008, num_layers=2, num_heads=32,
                           num_kv_heads=32, head_dim=128, max_seq_len=64)
-        tree = random_wire_tree(cfg, seed=7)
+        tree = self.e2e_tree = random_wire_tree(cfg, seed=7)
         prompt = np.random.RandomState(7).randint(0, cfg.vocab_size, 37)
         t0 = time.perf_counter()
         err, scale, agreed, compared = self._hold_to_cpu(
@@ -1922,13 +1997,13 @@ class Smoke:
         to ``outs`` (generate with spans of 32), bit for bit, and kernel
         launches per decode forward equal between the eager loop and the
         graphs; ``forced_decode_scan`` over the same tokens ends on the eager
-        loop's logits, bit for bit. Host ms/token of each, the scans' second
-        pass (no capture)."""
+        loop's logits, bit for bit. Host ms/token of each: the eager loop's
+        one pass, the scans' second (no capture)."""
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
         from gptq_for_llama_tpu_torch.runtime import generate
         per, ms, last = {}, {}, {}
         for rep in range(2):
-            for how in ("eager", "graph"):
+            for how in ("eager", "graph") if rep == 0 else ("graph",):
                 launched, forwards, elapsed = {}, 0, 0.0
                 for p, o in zip(prompts, outs):
                     lg, cache = runner.prefill(torch.as_tensor(p[None], device="cuda"),
@@ -2107,6 +2182,9 @@ class Smoke:
             want_fwd["qmm:tile"] = 7 * layers
         if "flash_prefill:d128" in want_fwd:   # kernel 5 counted by head dim
             want_fwd["flash_prefill:d128"] = layers
+        if "flash_prefill:wgmma:d128" in want_fwd:   # and by body: 512 rows take wgmma
+            from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import plan
+            want_fwd[f"flash_prefill:{plan(ids.shape[1], 0, 128)}:d128"] = layers
         want_bwd = dict.fromkeys(want_fwd, 0)
         want_bwd.update(qmm_t=7 * layers - 3)
 
@@ -2212,10 +2290,12 @@ class Smoke:
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         self.check_path(path, counts)
-        cpu32_loss, cpu32, t32 = grads(_tree_to_cpu(skeleton, torch.float32), "cpu",
-                                       torch.float32)
-        cpu16_loss, cpu16, t16 = grads(_tree_to_cpu(skeleton, torch.bfloat16), "cpu",
-                                       torch.bfloat16)
+        cpu32_loss, cpu32, t32 = grads(
+            _plain_dense(_tree_to_cpu(skeleton, torch.float32), torch.float32), "cpu",
+            torch.float32)
+        cpu16_loss, cpu16, t16 = grads(
+            _plain_dense(_tree_to_cpu(skeleton, torch.bfloat16), torch.bfloat16), "cpu",
+            torch.bfloat16)
 
         def worst(got):
             return max(float((g - r).norm() / r.norm())
@@ -3455,9 +3535,10 @@ class Smoke:
         cfg = ModelConfig(arch="llama", vocab_size=32000, hidden_size=4096,
                           intermediate_size=11008, num_layers=2, num_heads=32,
                           num_kv_heads=32, head_dim=128, max_seq_len=64)
-        tree = random_wire_tree(cfg, seed=7)
+        tree = self.e2e_tree if self.e2e_tree is not None else random_wire_tree(cfg, seed=7)
+        self.e2e_tree = None
         gparams = params_from_jax(tree, "cuda", torch.bfloat16)
-        cparams = params_from_jax(tree, "cpu", torch.float32)
+        cparams = _plain_dense(params_from_jax(tree, "cpu", torch.float32), torch.float32)
         rel_tol = 2e-2
         out = self.report.setdefault("kvdtype", {}).setdefault("two_layers", {})
         for name in self.KV_NAMES:
@@ -3574,6 +3655,10 @@ class Smoke:
         from gptq_for_llama_tpu_torch.ops import cuda as kernels
         self.dim_entries = {}
         seconds = {}
+        self._build_rest()
+        # NeoX's dense checkpoint (drawn on the CPU, about 20 s) is written by
+        # a process of its own beside the steps before its quantize step
+        self._start_writer("neox")
 
         def step(what, fn, *args):
             t0 = time.perf_counter()
@@ -3605,9 +3690,14 @@ class Smoke:
         the dtype's NaN code past each offset, two launches bit-equal, kernel
         7 bit-equal to kernel 3 over the gathered view, kernel 4 at offset 0
         bit-equal to kernel 5; timed beside the library's upcast of the live
-        cache to bf16 plus SDPA and beside the bound at the cache's bytes."""
+        cache to bf16 plus SDPA and beside the bound at the cache's bytes.
+        Kernels 4 (bf16) and 5 name the body their plan takes, and where D
+        has both (64, 80, 96) each body is forced too: held to the plain
+        version, launched twice bit-equal, timed, and kernel 4 at offset 0
+        over the poisoned cache bit-equal to kernel 5 on the same body."""
         import torch.nn.functional as F
         from gptq_for_llama_tpu_torch.ops import kv_dtype
+        from gptq_for_llama_tpu_torch.ops.cuda import flash, flash_prefill as fp
         from gptq_for_llama_tpu_torch.ops.cuda.attention import (
             decode_attention_cuda, decode_attention_plain, fused_decode_attention_cuda,
             fused_decode_attention_plain, pool_decode_attention_cuda, pool_decode_attention_plain)
@@ -3626,17 +3716,47 @@ class Smoke:
         def randn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(bf)
 
-        def rec(kernel, name, shape, y, ref, ms, pms, lms, nbytes, flops, main=False):
+        def rec(kernel, name, shape, y, ref, ms, pms, lms, nbytes, flops, main=False,
+                extra=None, key=None):
             err = (y.float() - ref.float()).abs().max().item()
             self._record(kernel, f"D={d} {name} cache, {shape}", err, 1e-2, ms, pms, lms,
                          nbytes, flops, row_rel=row_rel_err(y, ref),
                          ref_max=ref.float().abs().max().item(),
-                         extra={"head_dim": d, "kv_dtype": name})
+                         extra={"head_dim": d, "kv_dtype": name, **(extra or {})})
             if main:
                 row = self.report["kernels"][kernel][-1]
-                self.dim_entries.setdefault(kernel, {}).setdefault(f"d{d}", {})[name] = {
+                self.dim_entries.setdefault(kernel, {}).setdefault(f"d{d}", {})[key or name] = {
                     k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}
+                                        "bound_by", "library_ms", "body", "bodies") if k in row}
+
+        def forced_bodies(what, run, ref, copies, same_as=None):
+            """Both bodies of kernel 4 or 5 forced, where D has both: each held
+            to the plain version (1e-2 of each row's norm), launched twice
+            bit-equal and, given ``same_as`` (kernel 5 on the same body),
+            bit-equal to it; then each timed over its ``copies`` inputs
+            (``run(body, copy)``)."""
+            if d not in fp.WGMMA_HEAD_DIMS:
+                return None
+            t0, out = time.perf_counter(), {}
+            for body in fp.PATH_IDS:
+                y1, y2 = run(body, 0), run(body, 0)
+                same = None if same_as is None else bits_equal(y1, same_as(body))
+                torch.cuda.synchronize()
+                worst = row_rel_err(y1, ref)
+                if not (torch.isfinite(y1.float()).all() and worst <= 1e-2
+                        and bits_equal(y1, y2) and same is not False):
+                    raise AssertionError(f"{what} D={d}, {body} body forced: worst row {worst} "
+                                         f"(tol 1e-2), two launches bit-equal "
+                                         f"{bits_equal(y1, y2)}, equal to kernel 5 {same}")
+                out[body] = {"worst_row_rel": worst, "bit_equal_to_kernel5": same}
+            for body in fp.PATH_IDS:
+                out[body]["ms"] = graph_ms(torch, [lambda i=i, body=body: run(body, i)
+                                                   for i in range(copies)])
+            log(f"[archs] {what} D={d}: bodies forced, mma.sync {out['sync']['ms'] * 1e3:.2f} "
+                f"us, wgmma {out['wgmma']['ms'] * 1e3:.2f} us, each held to the plain version "
+                f"and twice bit-equal{'' if same_as is None else ', equal to kernel 5'} "
+                f"({time.perf_counter() - t0:.2f} s) | {self.card}")
+            return out
 
         for name, dt in kv_dtype.KV_DTYPES.items():
             isz = torch.empty((), dtype=dt).element_size()
@@ -3699,7 +3819,7 @@ class Smoke:
                 lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
                     qt, up(c[0], n), up(c[1], n), attn_mask=mask, **gqa) for c in caches])
                 ms = graph_ms(torch, [lambda c=c: run(c) for c in caches])
-                pms = graph_ms(torch, [lambda c=c: plain(c) for c in caches], iters=6)
+                pms = graph_ms(torch, [lambda c=c: plain(c) for c in caches], iters=3)
                 extra_slots = b if fold else 0
                 rec(kernel, name, f"B={b} H={h} Hkv={hkv} S={s} offsets={offs} (dead slots "
                     f"poisoned, two launches bit-equal{', no write' if fold else ''})", y, ref,
@@ -3750,7 +3870,7 @@ class Smoke:
             ms = graph_ms(torch, [lambda: pool_decode_attention_cuda(q, kp, vp, tables, off, sc,
                                                                      max_live)])
             pms = graph_ms(torch, [lambda: pool_decode_attention_plain(q, kp, vp, tables, off,
-                                                                       sc)], iters=6)
+                                                                       sc)], iters=3)
             lms = graph_ms(torch, [library], iters=10)
             rec("pool_decode_attention", name, f"B={b} H={h} BS={bs} MB={mb} offsets 37..1500 "
                 f"(poisoned pool, equal to kernel 3 on the gathered view)", y, ref, ms, pms, lms,
@@ -3771,7 +3891,7 @@ class Smoke:
                 off_t = torch.tensor([off0], dtype=torch.int32, device="cuda")
                 y = flash_prefill_blocked_cuda(q, pk, pv, off_t, sc, off0 + sq)
                 ref = flash_prefill_blocked_plain(q, kc, vc, off0, sc)
-                same5 = None
+                same5, bodies, k5 = None, None, None
                 if bf16 and off0 == 0:
                     k5, v5 = kc[:, :sq].contiguous(), vc[:, :sq].contiguous()
                     same5 = torch.equal(flash_prefill_blocked_cuda(q, k5, v5, 0, sc),
@@ -3781,7 +3901,14 @@ class Smoke:
                     raise AssertionError(f"flash_prefill_blocked D={d} {name} SQ={sq}: a dead "
                                          f"slot was read, or kernel 4 at offset 0 differs from "
                                          f"kernel 5")
-                del pk, pv
+                body = flash.plan_kv(sq, off0, dt, d)
+                if bf16:   # the first launches over the poisoned cache, then over the copies
+                    kv = [(pk, pv)] + caches[1:]
+                    bodies = forced_bodies(
+                        f"kernel 4 SQ={sq} offset={off0}",
+                        lambda b_, i: flash._launch(q, kv[i][0], kv[i][1], off_t, sc, b_), ref,
+                        len(kv), None if k5 is None else lambda b_: fp._launch(q, k5, v5, sc, b_))
+                del pk, pv, k5
                 n = off0 + sq
                 allowed = (torch.arange(n, device="cuda")[None, :]
                            <= torch.arange(sq, device="cuda")[:, None] + off0)
@@ -3789,15 +3916,17 @@ class Smoke:
                 ms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_cuda(
                     q, c[0], c[1], off_t, sc, off0 + sq) for c in caches])
                 pms = graph_ms(torch, [lambda c=c: flash_prefill_blocked_plain(
-                    q, c[0], c[1], off_t, sc) for c in caches], iters=6)
+                    q, c[0], c[1], off_t, sc) for c in caches], iters=3)
                 gqa = {"enable_gqa": True} if h != hkv else {}
                 lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
                     qt, up(c[0], n), up(c[1], n), attn_mask=allowed, **gqa) for c in caches])
                 pairs = sum(off0 + i + 1 for i in range(sq))
                 rec("flash_prefill_blocked", name, f"B=1 SQ={sq} H={h} SKV={skv} offset={off0} "
-                    f"(device offset, dead slots poisoned){'' if same5 is None else ', bit-equal to kernel 5 at offset 0'} [sync]",
+                    f"(device offset, dead slots poisoned){'' if same5 is None else ', bit-equal to kernel 5 at offset 0'} [{body}]",
                     y, ref, ms, pms, lms, 2 * sq * h * d * 2 + n * hkv * d * isz * 2,
-                    4 * h * pairs * d, main=(sq == 100))
+                    4 * h * pairs * d, main=(sq == 100 or bf16),
+                    extra={"body": body, "bodies": bodies},
+                    key="bf16 chunk" if off0 > 0 else None)   # beside the prompt row
                 del caches, kc, vc
         # kernel 5: causal, no cache, S = 2048 (the calibration and eval window)
         b, s5, hkv = 1, 2048, h if d != 256 else 2
@@ -3807,15 +3936,19 @@ class Smoke:
         torch.cuda.synchronize()
         if not torch.equal(y, y2):
             raise AssertionError(f"flash_prefill D={d}: two launches differ")
+        body = fp.plan(s5, 0, d)
+        bodies = forced_bodies(f"kernel 5 B={b} S={s5}",
+                               lambda b_, i: fp._launch(q, k, v, sc, b_), ref, 1)
         gqa = {"enable_gqa": True} if h != hkv else {}
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = graph_ms(torch, [lambda: flash_prefill_cuda(q, k, v, sc)], iters=6)
-        pms = graph_ms(torch, [lambda: flash_prefill_plain(q, k, v, sc)], iters=2)
+        pms = graph_ms(torch, [lambda: flash_prefill_plain(q, k, v, sc)], iters=1)
         lms = graph_ms(torch, [lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                                       **gqa)], iters=6)
-        rec("flash_prefill", "bf16", f"B={b} S={s5} H={h} Hkv={hkv} causal [sync], two launches "
-            f"bit-equal", y, ref, ms, pms, lms, 2 * b * s5 * h * d * 2 + 2 * b * s5 * hkv * d * 2,
-            2 * b * h * s5 * (s5 + 1) * d, main=True)
+        rec("flash_prefill", "bf16", f"B={b} S={s5} H={h} Hkv={hkv} causal [{body}], two "
+            f"launches bit-equal", y, ref, ms, pms, lms,
+            2 * b * s5 * h * d * 2 + 2 * b * s5 * hkv * d * 2, 2 * b * h * s5 * (s5 + 1) * d,
+            main=True, extra={"body": body, "bodies": bodies})
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -3913,7 +4046,8 @@ class Smoke:
         from gptq_for_llama_tpu_torch.runtime import ModelRunner
         gpu = ModelRunner(name, cfg, gpu_params, dtype=torch.bfloat16, device="cuda",
                           **runner_kw)
-        cpu = ModelRunner(name, cfg, cpu_params, dtype=torch.float32, device="cpu")
+        cpu = ModelRunner(name, cfg, _plain_dense(cpu_params, torch.float32),
+                          dtype=torch.float32, device="cpu")
         prompt = torch.as_tensor(prompt[None])
         lc, cc = cpu.prefill(prompt, cpu.init_cache())
         ref, toks = [lc[0].float()], []
@@ -4080,6 +4214,23 @@ class Smoke:
         del params
         torch.cuda.empty_cache()
 
+    def _start_writer(self, name, layers=2):
+        """Start a process (no CUDA) writing ``_arch_quantize``'s dense F16
+        checkpoint of ``name`` with ``write_dense_arch``."""
+        model = os.path.join(self.tmp, f"{name}_model")
+        code = ("import sys, torch, chip_smoke; print(chip_smoke.write_dense_arch("
+                "torch, sys.argv[1], sys.argv[2], int(sys.argv[3]), seed=13))")
+        self.writer = (subprocess.Popen([sys.executable, "-c", code, name, model, str(layers)],
+                                        cwd=os.path.dirname(os.path.abspath(__file__)),
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True), model, layers, time.perf_counter())
+
+    def stop_writer(self):
+        """Stop the checkpoint writer if it still runs (after a failure)."""
+        if self.writer is not None and self.writer[0].poll() is None:
+            self.writer[0].kill()
+            self.writer[0].wait()
+
     def _arch_quantize(self, torch, name):
         """quantize -> save -> reload -> perplexity through the port's CLI
         (``python -m gptq_for_llama_tpu_torch``, two processes, each writing
@@ -4087,18 +4238,25 @@ class Smoke:
         checkpoint of ``name`` at its published width in HF layout, written
         from a seed: the calibration forward on kernel 5 at the arch's head
         dim, the reloaded wire bytes equal to the saved file, a finite
-        perplexity equal after the reload."""
+        perplexity equal after the reload. Phase archs starts the process
+        that writes the checkpoint (``_start_writer``) before its first
+        step."""
         from gptq_for_llama_tpu_torch.engine.checkpoint import _HF_LAYOUT
         from gptq_for_llama_tpu_torch.engine.quantize import get_path
         from gptq_for_llama_tpu_torch.models import hf_loader
         from gptq_for_llama_tpu_torch.models.registry import get_arch
-        layers = 2
-        model, out = (os.path.join(self.tmp, f"{name}_model"),
-                      os.path.join(self.tmp, f"{name}_packed"))
         t0 = time.perf_counter()
-        nbytes = write_dense_arch(torch, name, model, layers, seed=13)
+        proc, model, layers, started = self.writer
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"{name}: writing the dense checkpoint exited "
+                                 f"{proc.returncode}: {stderr[-2000:]}")
+        nbytes = int(stdout.split()[-1])
+        out = os.path.join(self.tmp, f"{name}_packed")
         log(f"[archs] dense F16 {name} at published width, {layers} layers: "
-            f"{nbytes / 2**30:.2f} GiB written in {time.perf_counter() - t0:.1f} s")
+            f"{nbytes / 2**30:.2f} GiB written by a process beside the steps before, "
+            f"{t0 - started:.1f} s after its start, {time.perf_counter() - t0:.1f} s waited "
+            f"for here")
         t0 = time.perf_counter()
 
         def cli(args, tag):
@@ -4995,10 +5153,10 @@ class Smoke:
             pms = graph_ms(torch, [lambda c=c: decode_attention_plain(q, *c, off_t, d ** -0.5)
                                    for c in caches[:2]], iters=10)
             live = 2 * b * (off + 1) * hkv * d * 2
-            lms = None if h != hkv else graph_ms(torch, [
-                lambda c=c: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), c[0][:, :off + 1].transpose(1, 2),
-                    c[1][:, :off + 1].transpose(1, 2)) for c in caches])
+            gqa = {"enable_gqa": True} if h != hkv else {}
+            lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+                q.transpose(1, 2), c[0][:, :off + 1].transpose(1, 2),
+                c[1][:, :off + 1].transpose(1, 2), **gqa) for c in caches])
             record("decode_attention", f"{what} B=1 H={h} Hkv={hkv} offset {off}",
                    row_rel_err(y, ref), 1e-2, ms, pms, lms, live + 2 * b * h * d * 2,
                    4 * b * h * (off + 1) * d)
@@ -5010,9 +5168,22 @@ class Smoke:
                 q, *c, kn, vn, off, d ** -0.5, write=False) for c in caches])
             pms = graph_ms(torch, [lambda c=c: fused_decode_attention_plain(
                 q, *c, kn, vn, off_t, d ** -0.5, write=False) for c in caches[:2]], iters=10)
+            # the library reads the live slots with the current row written
+            written = [(torch.cat([c[0][:, :off], kn], 1), torch.cat([c[1][:, :off], vn], 1))
+                       for c in caches]
+            lib_err = row_rel_err(F.scaled_dot_product_attention(
+                q.transpose(1, 2), written[0][0].transpose(1, 2), written[0][1].transpose(1, 2),
+                **gqa).transpose(1, 2), ref)
+            if not lib_err <= 1e-2:
+                raise AssertionError(f"fused_decode_attention {what}: the library yardstick "
+                                     f"computes another function ({lib_err})")
+            lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+                q.transpose(1, 2), c[0].transpose(1, 2), c[1].transpose(1, 2), **gqa)
+                for c in written])
             record("fused_decode_attention", f"{what} B=1 H={h} Hkv={hkv} offset {off}",
-                   row_rel_err(y, ref), 1e-2, ms, pms, None, live + 2 * b * h * d * 2,
+                   row_rel_err(y, ref), 1e-2, ms, pms, lms, live + 2 * b * h * d * 2,
                    4 * b * h * (off + 1) * d)
+            del written
             del caches
         # kernel 7: 8 serving slots, 16 local heads, block 16
         b, h, bs = 8, 16, 16
@@ -5028,9 +5199,25 @@ class Smoke:
         pms = graph_ms(torch, [lambda p=p: pool_decode_attention_plain(q, *p, tables, offs,
                                                                        d ** -0.5) for p in pools[:2]],
                        iters=10)
+        # the library: the live blocks gathered through the tables, then SDPA
+        nlb, mask = -(-301 // bs), (torch.arange(301, device="cuda")[None, :]
+                                    <= offs[:, None])[:, None, None]
+
+        def library(p):
+            idx = tables[:, :nlb].long()
+            kd = p[0][idx].reshape(b, nlb * bs, h, d)[:, :301]
+            vd = p[1][idx].reshape(b, nlb * bs, h, d)[:, :301]
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kd.transpose(1, 2),
+                                                  vd.transpose(1, 2), attn_mask=mask)
+
+        lib_err = row_rel_err(library(pools[0]).transpose(1, 2), ref)
+        if not lib_err <= 1e-2:
+            raise AssertionError(f"pool_decode_attention tp2: the library yardstick computes "
+                                 f"another function ({lib_err})")
+        lms = graph_ms(torch, [lambda p=p: library(p) for p in pools], iters=10)
         live = int((offs + 1).sum()) * h * d * 2 * 2
         record("pool_decode_attention", f"tp2 serving B=8 H={h} BS={bs}", row_rel_err(y, ref),
-               1e-2, ms, pms, None, live + 2 * b * h * d * 2, 4 * h * d * int((offs + 1).sum()))
+               1e-2, ms, pms, lms, live + 2 * b * h * d * 2, 4 * h * d * int((offs + 1).sum()))
         del pools
         # kernel 4: a 128-token chunk at offset 128 over 16 local heads
         sq, off = 128, 128
@@ -5090,12 +5277,15 @@ class Smoke:
             if name in ("qmm", "fused_mlp", "rms_norm"):   # the form of every row
                 rows[-1]["paths"] = {k[len(name) + 1:]: p for k, p in self.paths.items()
                                      if k.startswith(name + " ")}
-            # the cache dtype read, and the head dim
+            # the cache dtype read, and the head dim; kernels 4 and 5 by body
+            # and head dim too
             by_dtype = ("bf16", "f32", "fp8", "fp8_e5m2", "d64", "d80", "d96", "d128", "d256")
+            by_body = tuple(f"{b}:{d}" for b in ("sync", "wgmma") for d in by_dtype[4:])
             forms = {"qmm": ("gemv", "frag", "tile"), "fused_mlp": ("gemv", "frag", "tile"),
                      "rms_norm": ("alone", "add"), "decode_attention": by_dtype,
-                     "flash_prefill_blocked": by_dtype, "pool_decode_attention": by_dtype,
-                     "fused_decode_attention": by_dtype, "flash_prefill": by_dtype[4:]}
+                     "flash_prefill_blocked": by_dtype + by_body,
+                     "pool_decode_attention": by_dtype, "fused_decode_attention": by_dtype,
+                     "flash_prefill": by_dtype[4:] + by_body}
             if name in forms:
                 rows[-1]["launches_by_form"] = {
                     p: {f: c.get(f"{name}:{f}", 0) for f in forms[name]}
@@ -5135,6 +5325,7 @@ def main() -> int:
     os.environ["GPTQ_TORCH_AUTOTUNE"] = "0"
     import gptq_for_llama_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    from gptq_for_llama_tpu_torch.ops.cuda import build
     smoke = Smoke()
     smoke.phase_card(torch)
     smoke.tmp = tempfile.mkdtemp(prefix="gptq_smoke_")
@@ -5148,7 +5339,10 @@ def main() -> int:
             finally:
                 seconds[p] = round(time.perf_counter() - t0, 1)
             log(f"== phase {p} done in {seconds[p]:.1f} s")
+        smoke._build_rest()   # a run without phase archs
     finally:
+        build.cancel()   # builds still in flight after a failure
+        smoke.stop_writer()
         shutil.rmtree(smoke.tmp, ignore_errors=True)
         log(f"[smoke] seconds by phase {seconds}, {sum(seconds.values()):.1f} in all")
     if args.json:

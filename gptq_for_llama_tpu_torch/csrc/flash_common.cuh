@@ -16,35 +16,42 @@
 // queries (B = 8, S = 2048, H = 32 is 275 GFLOP of causal work per layer
 // against 134 MB, 0.28 ms at 989 TFLOP/s); for a short chunk over a short
 // live prefix, bytes. Two bodies, both hand-written; the wrapper's plan
-// (ops/cuda/flash_prefill.py:plan) picks one from offset + SQ, the same way
-// for both kernels, so kernel 4 at offset 0 stays bit-equal to kernel 5:
+// (ops/cuda/flash_prefill.py:plan) picks one from offset + SQ and D, the
+// same way for both kernels, so kernel 4 at offset 0 stays bit-equal to
+// kernel 5:
 //
 // flash_wgmma_kernel (the TPU kernels keep a head's whole K/V in VMEM; an SM
 // has no such room: 512 KB at S = 2048):
-//  - one block per (128-query tile, head, batch row): two consumer
+//  - one block per (head, 128-query tile, batch row): two consumer
 //    warpgroups of 64 query rows each and a producer warpgroup whose first
 //    warp issues every copy; setmaxnreg moves registers from the producer to
 //    the consumers (a lone producer warp frees too few: the consumers' request
-//    waits for ever); the heaviest (last) query tiles are launched first;
+//    waits for ever); blocks launch by group of heads (the fewest whose tiles
+//    fill the SMs; one head past 16 waves), heaviest (last) query tile first
+//    within a group: with the tile the fastest index at a few waves, the
+//    heavy tiles of the last heads started a wave late, and with every head
+//    in one group, the K/V of all heads did not stay in L2;
 //  - the producer keeps TMA loads of 128-key K and V tiles in flight through
 //    3-stage rings of mbarriers (full: bytes landed; empty: both consumer
 //    warpgroups done; K and V each their own), Q is loaded once; tensor maps
 //    are encoded on the host (4-D, so rows past SQ or SKV of a batch row read
-//    as zeros) with the 128-byte swizzle the wgmma descriptors expect;
-//  - S = Q K^T by wgmma.m64n128k16 from shared memory; the softmax runs on
-//    the accumulators in fp32 (running max and denominator per row); P goes
-//    from the accumulators straight to bf16 A fragments in registers, and
-//    O += P V by wgmma.m64n128k16 with V read from shared memory through the
-//    transpose bit; named barriers hand the tensor cores from one warpgroup
-//    to the other, so one's softmax runs while the other's products do, and
-//    each warpgroup issues P(t-1) V(t-1) with S(t), so its own softmax of
-//    tile t overlaps its previous tile's P V;
+//    as zeros), a tile in sub-tiles of 64, 32 or 16 dims (WgmmaDims) whose
+//    rows take the 128-, 64- or 32-byte swizzle the wgmma descriptors expect;
+//  - S = Q K^T by wgmma.m64n128k16 from shared memory (D / 16 k-steps); the
+//    softmax runs on the accumulators in fp32 (running max and denominator
+//    per row); P goes from the accumulators straight to bf16 A fragments in
+//    registers, and O += P V by wgmma.m64nDk16 with V read from shared
+//    memory through the transpose bit; named barriers hand the tensor cores
+//    from one warpgroup to the other, so one's softmax runs while the other's
+//    products do, and each warpgroup issues P(t-1) V(t-1) with S(t), so its
+//    own softmax of tile t overlaps its previous tile's P V;
 //  - key tiles wholly above the tile's causal limit (q_offset + its last row,
 //    kv_end) are never loaded; slots past kv_end are masked, and where a
 //    cache tile reaches past kv_end its V rows there are zeroed in shared
 //    memory before P V (a cache may hold NaN there, and 0 * NaN is NaN).
 //
-// flash_sync_kernel (a causal prefix of at most one 128-key tile):
+// flash_sync_kernel (a short causal prefix: at most 128 keys at D = 128,
+// 160 at 80 and 96, 192 at 64, and every length at 256):
 //  - one block of 4 warps per (64-query tile, head, batch row); each warp
 //    owns 16 query rows; heaviest tiles first;
 //  - K/V stream through shared memory in 64-key tiles with cp.async: V(t) is
@@ -75,10 +82,14 @@
 // Q's fragments are read from shared memory for each product, not kept in
 // registers, and a tile of another type than bf16 is converted as it is
 // loaded, so the 16 x 256 fp32 accumulator fits a thread's registers. The
-// wgmma body takes D = 128 only (its TMA boxes and its m64n128 P V product);
-// every other D runs the mma.sync body at every length (ops/cuda/
-// flash_prefill.py:plan). At D = 128 the mma.sync body's arithmetic is the
-// same, in the same order, as with D fixed at 128.
+// wgmma body is a template on D too and takes D = 64, 80, 96 and 128: a row
+// of 2 D bytes is cut into sub-tiles of the widest swizzle that divides it
+// (64 dims at 128 and 64, 32 at 96, 16 at 80), one TMA box and one
+// descriptor mode each, and P V is one m64nDk16 product; at D = 256 its O
+// accumulator (128 fp32 a thread) and a 64 KB Q tile leave no room, so 256
+// runs the mma.sync body at every length (ops/cuda/flash_prefill.py:plan).
+// At D = 128 both bodies' arithmetic is the same, in the same order, as with
+// D fixed at 128.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -427,16 +438,12 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
-constexpr int kWD = 128;                  // the head dim the wgmma body takes
 constexpr int kWBQ = 128;                 // query rows per block: two warpgroups of 64
 constexpr int kWBK = 128;                 // keys per K/V tile
 constexpr int kWThreads = 384;            // warps 0-7 consume, warps 8-11 produce
-constexpr int kWStages = 3;               // K and V tiles in flight
-constexpr int kWBox = 128 * 128 * 2;      // one 128-row x 128-dim tile: two 64-dim halves
-constexpr int kWHalf = kWBox / 2;         // 128 rows x 128 B, 128-byte swizzle
-// Q, the K stages, the V stages, then 1 + 4 kWStages mbarriers; 1 KB to align
-// the tiles (230,528 bytes of the 232,448 a block may have)
-constexpr int kWSmemBytes = (1 + 2 * kWStages) * kWBox + 128 + 1024;
+// K and V tiles in flight: rings as deep as shared memory allows (6 stages at
+// D = 64, 5 at 80, 4 at 96) measured no faster (scripts/torch_flash_bodies.py)
+constexpr int kWStages = 3;
 // registers a thread: 168 at launch (65536 / 384); the producer warpgroup
 // gives up 144 each, the consumers take 72 each (128 x 144 = 256 x 72)
 constexpr int kWConsumerRegs = 240, kWProducerRegs = 24;
@@ -444,9 +451,43 @@ constexpr int kWConsumerRegs = 240, kWProducerRegs = 24;
 // 2 + w is warpgroup w's turn to issue its products
 constexpr int kBarZero = 1, kBarTurn = 2;
 
-// grid: (ceil(SQ / kWBQ), H, B); block: kWThreads; dynamic smem: kWSmemBytes.
-// tq / tk / tv: 4-D tensor maps (D, heads, rows, B) of q and (D, heads, rows,
-// Bkv) of k, v with a box of (64, 1, 128, 1) and the 128-byte swizzle.
+// The head dims the wgmma body takes: each a whole number of 16-dim k-steps
+// and an m64nDk16 product; at 256 the O accumulator (128 fp32 a thread) and
+// a 64 KB Q tile leave no room for the ring.
+constexpr bool wgmma_dim(int d) { return d == 64 || d == 80 || d == 96 || d == 128; }
+
+// The wgmma body's layout at head dim D. A 128-row tile (Q, or a K or V tile
+// of 128 keys) is stored as D / kBoxDims sub-tiles, one TMA box each, of 128
+// rows x kBoxDims dims: rows of kRowBytes in the swizzle of that width (the
+// widest of 128, 64, 32 bytes that divides a row of 2 D bytes, so the
+// sub-tiles are alike and one descriptor mode reads them all: D = 128 and 64
+// in 64-dim sub-tiles with the 128-byte swizzle, 96 in 32-dim ones with the
+// 64-byte swizzle, 80 in 16-dim ones with the 32-byte swizzle). S = Q K^T
+// takes D / 16 k-steps, each inside one sub-tile; O += P V is one
+// m64nDk16 product a 16-key step, its N spread over the sub-tiles (the
+// descriptor's lbo).
+template <int D>
+struct WgmmaDims {
+  static_assert(wgmma_dim(D), "the wgmma body takes D = 64, 80, 96 or 128");
+  static constexpr int kBoxDims = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int kBoxes = D / kBoxDims;
+  static constexpr int kRowBytes = 2 * kBoxDims;
+  static constexpr int kSub = kWBK * kRowBytes;    // one sub-tile
+  static constexpr int kTile = kBoxes * kSub;      // 128 rows x D dims, bf16
+  static constexpr int kAtom = 8 * kRowBytes;      // 8 rows: the swizzle atom
+  // Q, the K stages, the V stages, then 1 + 4 kWStages mbarriers (in 128 B
+  // steps); 1 KB to align the tiles: 230,528 bytes of the 232,448 a block may
+  // have at D = 128, 173,184 at 96, 144,512 at 80, 115,840 at 64
+  static constexpr int kBarBytes = ((1 + 4 * kWStages) * 8 + 127) / 128 * 128;
+  static constexpr int kSmemBytes = (1 + 2 * kWStages) * kTile + kBarBytes + 1024;
+  static_assert(kSmemBytes <= 232448, "the ring fits a block");
+};
+
+// grid: (G, ceil(SQ / kWBQ), B * H / G), G heads a group; block: kWThreads;
+// dynamic smem:
+// WgmmaDims<D>::kSmemBytes. tq / tk / tv: 4-D tensor maps (D, heads, rows, B)
+// of q and (D, heads, rows, Bkv) of k, v with a box of one sub-tile
+// (kBoxDims, 1, 128, 1) in the swizzle of its row width.
 //
 // Each consumer warpgroup runs, per key tile t: wait for its turn; issue S(t)
 // = Q K(t)^T and O += P(t-1) V(t-1); hand the turn to the other warpgroup;
@@ -455,21 +496,24 @@ constexpr int kBarZero = 1, kBarTurn = 2;
 // softmax runs while the other's products do, and within a warpgroup the
 // softmax of tile t overlaps P(t-1) V(t-1). O sees the same operations in the
 // same order as O = O a(t) + P(t) V(t) tile after tile.
-template <bool OFFSET>
+template <int D, bool OFFSET>
 __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                    int SQ, int Bkv, int SKV, int H, int Hkv, const int* __restrict__ q_offset,
                    const int* __restrict__ rows, float scale) {
   using namespace gptq_hopper;
+  using WD = WgmmaDims<D>;
+  constexpr int kTile = WD::kTile, kSub = WD::kSub;
+  constexpr int kRow = WD::kRowBytes, kAtom = WD::kAtom;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   unsigned char* sbase = smem_raw + (base - raw);
-  const uint32_t sq = base;                                  // Q: halves at +0, +kWHalf
-  auto sk = [&](int st) { return base + (1 + st) * kWBox; };
-  auto sv = [&](int st) { return base + (1 + kWStages + st) * kWBox; };
-  const uint32_t bars = base + (1 + 2 * kWStages) * kWBox;
+  const uint32_t sq = base;                                  // Q: sub-tiles kSub apart
+  auto sk = [&](int st) { return base + (1 + st) * kTile; };
+  auto sv = [&](int st) { return base + (1 + kWStages + st) * kTile; };
+  const uint32_t bars = base + (1 + 2 * kWStages) * kTile;
   const uint32_t q_full = bars;
   auto k_full = [&](int st) { return bars + 8 * (1 + st); };
   auto v_full = [&](int st) { return bars + 8 * (1 + kWStages + st); };
@@ -478,9 +522,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   // key tile t sits in stage t % kWStages; its barriers complete their
   // (t / kWStages)-th phase when it lands and when it is released
   auto parity = [](int t) { return (uint32_t)((t / kWStages) & 1); };
+  // a 128-row tile at dst: one TMA box a sub-tile, counted on bar
+  auto tma_tile = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar, int head, int row,
+                      int batch) {
+#pragma unroll
+    for (int i = 0; i < WD::kBoxes; ++i)
+      tma_load_4d(dst + i * kSub, map, bar, i * WD::kBoxDims, head, row, batch);
+  };
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWBQ;   // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  // blocks start in linear order: a group of gridDim.x heads fastest, then
+  // the query tile, heaviest (last) first, then the head group and the batch
+  // row; so a group's heavy tiles start before any lighter one, and only a
+  // group's K/V is read at a time (it stays in L2)
+  const int groups = H / gridDim.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWBQ;
+  const int h = blockIdx.z % groups * gridDim.x + blockIdx.x, b = blockIdx.z / groups;
   const int off = chunk_offset<OFFSET>(q_offset);
   const int kb = cache_row<OFFSET>(rows, b, Bkv);
   const int kvh = h / (H / Hkv);
@@ -510,23 +566,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       tma_prefetch_desc(&tq);
       tma_prefetch_desc(&tk);
       tma_prefetch_desc(&tv);
-      mbar_expect_tx(q_full, kWBox);
-      tma_load_4d(sq, &tq, q_full, 0, h, q0, b);
-      tma_load_4d(sq + kWHalf, &tq, q_full, 64, h, q0, b);
+      mbar_expect_tx(q_full, kTile);
+      tma_tile(sq, &tq, q_full, h, q0, b);
       for (int t = 0; t <= n_kt; ++t) {
         if (t < n_kt) {
           const int st = t % kWStages;
           if (t >= kWStages) mbar_wait(k_empty(st), parity(t - kWStages));
-          mbar_expect_tx(k_full(st), kWBox);
-          tma_load_4d(sk(st), &tk, k_full(st), 0, kvh, t * kWBK, kb);
-          tma_load_4d(sk(st) + kWHalf, &tk, k_full(st), 64, kvh, t * kWBK, kb);
+          mbar_expect_tx(k_full(st), kTile);
+          tma_tile(sk(st), &tk, k_full(st), kvh, t * kWBK, kb);
         }
         if (t >= 1) {
           const int u = t - 1, st = u % kWStages;
           if (u >= kWStages) mbar_wait(v_empty(st), parity(u - kWStages));
-          mbar_expect_tx(v_full(st), kWBox);
-          tma_load_4d(sv(st), &tv, v_full(st), 0, kvh, u * kWBK, kb);
-          tma_load_4d(sv(st) + kWHalf, &tv, v_full(st), 64, kvh, u * kWBK, kb);
+          mbar_expect_tx(v_full(st), kTile);
+          tma_tile(sv(st), &tv, v_full(st), kvh, u * kWBK, kb);
         }
       }
     }
@@ -539,25 +592,25 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     const int pos_lo = off + row_lo, pos_hi = off + row_hi;
     const int wg_first = off + q0 + wg * 64;   // absolute position of the warpgroup's first row
 
-    float o[64];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
     float s[64];
     uint32_t pf[kWBK / 16][4];
     float m_lo = kNeg, m_hi = kNeg, l_lo = 0.0f, l_hi = 0.0f;
 
     auto issue_s = [&](int st) {   // S = Q K^T: 64 rows x 128 keys
 #pragma unroll
-      for (int kk = 0; kk < kWD / 16; ++kk) {
-        const uint32_t koff = (kk >> 2) * kWHalf + (kk & 3) * 32;
-        wgmma_m64n128k16_ss<0>(s, desc_sw128(sq + wg * 64 * 128 + koff, 16, 1024),
-                               desc_sw128(sk(st) + koff, 16, 1024), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {   // dims 16 kk ..: a sub-tile, 32 B steps in a row
+        const uint32_t koff = (kk * 16 / WD::kBoxDims) * kSub + (kk * 16 % WD::kBoxDims) * 2;
+        wgmma_m64n128k16_ss<0>(s, desc_sw<kRow>(sq + wg * 64 * kRow + koff, 16, kAtom),
+                               desc_sw<kRow>(sk(st) + koff, 16, kAtom), kk > 0);
       }
     };
     auto issue_pv = [&](int st) {   // O += P V: V is [key][dim], MN-major for the product
 #pragma unroll
       for (int j = 0; j < kWBK / 16; ++j)
-        wgmma_m64n128k16_rs<1>(o, pf[j], desc_sw128(sv(st) + j * 16 * 128, kWHalf, 1024), 1);
+        wgmma_rs<1>(o, pf[j], desc_sw<kRow>(sv(st) + j * 16 * kRow, kSub, kAtom), 1);
     };
     auto release = [&](uint32_t bar) {
       __syncwarp();
@@ -614,7 +667,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // and 2j+1
     auto rescale_and_pack = [&](float a_lo, float a_hi) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < D / 8; ++i) {
         o[4 * i] *= a_lo;
         o[4 * i + 1] *= a_lo;
         o[4 * i + 2] *= a_hi;
@@ -677,12 +730,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     mbar_wait(v_full(lst), parity(n_kt - 1));
     if (OFFSET && kv_end < min(SKV, (n_kt - 1) * kWBK + kWBK)) {
       // the cache's slots from kv_end to the tile's edge may hold NaN: zero
-      // their V rows (both halves) before P V reads them
+      // their V rows (in every sub-tile; a swizzle moves 16-byte chunks
+      // within a row only) before P V reads them
+      constexpr int kRowChunks = kRow / 16, kChunks = WD::kBoxes * kRowChunks;
       const int r0 = kv_end - (n_kt - 1) * kWBK;
-      const int chunks = (kWBK - r0) * 2 * 8;
+      const int chunks = (kWBK - r0) * kChunks;
       for (int c = tid; c < chunks; c += 256) {
-        const int r = r0 + (c >> 4), half = (c >> 3) & 1, c16 = c & 7;
-        *reinterpret_cast<uint4*>(sbase + (sv(lst) - base) + half * kWHalf + r * 128 + c16 * 16) =
+        const int r = r0 + c / kChunks, box = c % kChunks / kRowChunks, c16 = c % kRowChunks;
+        *reinterpret_cast<uint4*>(sbase + (sv(lst) - base) + box * kSub + r * kRow + c16 * 16) =
             make_uint4(0u, 0u, 0u, 0u);
       }
       fence_proxy_async();
@@ -701,18 +756,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       l_hi += __shfl_xor_sync(0xffffffffu, l_hi, sh);
     }
     const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
-    const size_t q_stride = (size_t)H * kWD;
+    const size_t q_stride = (size_t)H * D;
     if (row_lo < SQ) {
-      __nv_bfloat16* orow = out + ((size_t)b * SQ + row_lo) * q_stride + (size_t)h * kWD;
+      __nv_bfloat16* orow = out + ((size_t)b * SQ + row_lo) * q_stride + (size_t)h * D;
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
+      for (int i = 0; i < D / 8; ++i)
         *reinterpret_cast<uint32_t*>(orow + i * 8 + t4 * 2) =
             pack_bf16(o[4 * i] * inv_lo, o[4 * i + 1] * inv_lo);
     }
     if (row_hi < SQ) {
-      __nv_bfloat16* orow = out + ((size_t)b * SQ + row_hi) * q_stride + (size_t)h * kWD;
+      __nv_bfloat16* orow = out + ((size_t)b * SQ + row_hi) * q_stride + (size_t)h * D;
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
+      for (int i = 0; i < D / 8; ++i)
         *reinterpret_cast<uint32_t*>(orow + i * 8 + t4 * 2) =
             pack_bf16(o[4 * i + 2] * inv_hi, o[4 * i + 3] * inv_hi);
     }
@@ -745,26 +800,79 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a (B, rows, heads, 128) bf16 tensor: a box of 64 dims x
-// 1 head x 128 rows x 1 batch row, 128-byte swizzle; rows past `rows` read as
-// zeros.
-inline bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads) {
+// The tensor map of a (B, rows, heads, D) bf16 tensor: a box of one sub-tile
+// (WgmmaDims<D>::kBoxDims dims) x 1 head x 128 rows x 1 batch row, in the
+// swizzle of its row width; rows past `rows` read as zeros. The strides (2 D,
+// 2 D heads, 2 D heads rows bytes) are multiples of 16 at every D it takes.
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads) {
+  using WD = WgmmaDims<D>;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kWD, (cuuint64_t)heads, (cuuint64_t)rows,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)kWD * 2, (cuuint64_t)heads * kWD * 2,
-                                 (cuuint64_t)rows * heads * kWD * 2};
-  const cuuint32_t box[4] = {64, 1, 128, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)WD::kBoxDims, 1, (cuuint32_t)kWBK, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = WD::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : WD::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                           : CU_TENSOR_MAP_SWIZZLE_32B;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The two bodies: the wrapper's plan names one
 enum Path { kSync = 0, kWgmma = 1 };
+
+// Dynamic shared memory of one block of body `path` at this library's D (0
+// where the body does not run).
+template <int D = kHeadDim>
+int smem_bytes(int path) {
+  if (path == kWgmma) {
+    if constexpr (wgmma_dim(D)) return WgmmaDims<D>::kSmemBytes;
+    return 0;
+  }
+  return SyncDims<D>::kSmemBytes;
+}
+
+// One launch of the wgmma body at head dim D (bf16 q, k, v); sets the dynamic
+// shared memory attribute once, as launch below.
+template <int D, bool OFFSET>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, __nv_bfloat16* out,
+                         int B, int SQ, int Bkv, int SKV, int H, int Hkv, const int* q_offset,
+                         const int* rows, float scale, cudaStream_t stream) {
+  constexpr int kSmem = WgmmaDims<D>::kSmemBytes;
+  auto kern = flash_wgmma_kernel<D, OFFSET>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map<D>(&tq, q, B, SQ, H) || !tensor_map<D>(&tk, k, Bkv, SKV, Hkv) ||
+      !tensor_map<D>(&tv, v, Bkv, SKV, Hkv))
+    return cudaErrorInvalidValue;
+  // heads a group, a divisor of H: the fewest whose query tiles fill the
+  // SMs once; past 16 waves of blocks one (the query tile fastest: a head's
+  // tiles run side by side on its K/V, and the last wave's tail is short)
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const int nq = (SQ + kWBQ - 1) / kWBQ;
+  const bool many = (long long)B * H * nq >= 16LL * sms;
+  int g = H;
+  for (int d = 1; d < H; ++d)
+    if (H % d == 0 && (many || d * nq >= sms) && (long long)B * (H / d) <= 65535) {
+      g = d;
+      break;
+    }
+  dim3 grid(g, nq, B * (H / g));
+  kern<<<grid, kWThreads, kSmem, stream>>>(tq, tk, tv, out, SQ, Bkv, SKV, H, Hkv, q_offset, rows,
+                                           scale);
+  return cudaGetLastError();
+}
 
 // One launch; sets the dynamic shared memory attribute once per instantiation
 // (not per launch, so a CUDA-graph capture sees none).
@@ -772,7 +880,9 @@ enum Path { kSync = 0, kWgmma = 1 };
 // whole cache, so a launch captured in a CUDA graph replays over the same
 // tensors whatever offset and rows the device buffers hold (kernel 4).
 // Kernel 5 passes null offset and rows, Bkv = B and bf16. A cache of another
-// type than bf16, and a head dim other than 128, take the mma.sync body only.
+// type than bf16, and a head dim the wgmma body does not take (256), take the
+// mma.sync body only: asked for the wgmma body, they return
+// cudaErrorInvalidValue.
 template <bool OFFSET, typename T = __nv_bfloat16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int SQ,
                    int Bkv, int SKV, int H, int Hkv, const int* q_offset, const int* rows,
@@ -780,19 +890,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   auto* ob = static_cast<__nv_bfloat16*>(out);
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   if (path == kWgmma) {
-    if constexpr (kBf16 && kHeadDim == kWD) {
-      auto kern = flash_wgmma_kernel<OFFSET>;
-      static const cudaError_t attr =
-          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
-      if (attr != cudaSuccess) return attr;
-      CUtensorMap tq, tk, tv;
-      if (!tensor_map(&tq, q, B, SQ, H) || !tensor_map(&tk, k, Bkv, SKV, Hkv) ||
-          !tensor_map(&tv, v, Bkv, SKV, Hkv))
-        return cudaErrorInvalidValue;
-      dim3 grid((SQ + kWBQ - 1) / kWBQ, H, B);
-      kern<<<grid, kWThreads, kWSmemBytes, stream>>>(tq, tk, tv, ob, SQ, Bkv, SKV, H, Hkv,
-                                                     q_offset, rows, scale);
-      return cudaGetLastError();
+    if constexpr (kBf16 && wgmma_dim(kHeadDim)) {
+      return launch_wgmma<kHeadDim, OFFSET>(q, k, v, ob, B, SQ, Bkv, SKV, H, Hkv, q_offset, rows,
+                                            scale, stream);
     } else {
       return cudaErrorInvalidValue;
     }

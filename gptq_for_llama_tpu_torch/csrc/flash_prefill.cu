@@ -13,14 +13,13 @@ extern "C" const char* gptq_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// dynamic shared memory of one block of body `path`, in bytes
-extern "C" int gptq_flash_smem_bytes(int path) {
-  return path == gptq_flash::kWgmma ? gptq_flash::kWSmemBytes
-                                   : gptq_flash::SyncDims<gptq_flash::kHeadDim>::kSmemBytes;
-}
+// dynamic shared memory of one block of body `path`, in bytes (0: the wgmma
+// body does not run at this head dim)
+extern "C" int gptq_flash_smem_bytes(int path) { return gptq_flash::smem_bytes(path); }
 
 // path: gptq_flash::kSync (64-query mma.sync blocks) or kWgmma (128-query
-// warp-specialised blocks); the wrapper's plan picks it from S.
+// warp-specialised blocks, D = 64, 80, 96, 128); the wrapper's plan picks it
+// from S and D.
 extern "C" int gptq_flash_prefill(const void* q, const void* k, const void* v, void* out, int B,
                                   int S, int H, int Hkv, int D, float scale, int path,
                                   void* stream) {

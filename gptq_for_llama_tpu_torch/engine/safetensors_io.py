@@ -43,7 +43,7 @@ def load_file(path: str) -> dict[str, np.ndarray]:
         if name == "__metadata__":
             continue
         begin, end = info["data_offsets"]
-        raw = buf[begin:end]
+        raw = memoryview(buf)[begin:end]   # no copy: each tensor is copied once, below
         shape = tuple(info["shape"])
         dt = info["dtype"]
         if dt == "BF16":

@@ -285,20 +285,24 @@ def _decode_launch(q, k_cache, v_cache, offset, scale: float, plan: DecodePlan) 
     return out
 
 
-def new_forms(by_dtype: bool = True) -> dict:
-    """Launch counts by cache dtype (``by_dtype``) and by head dim (``d64``
-    ... ``d256``)."""
+def new_forms(by_dtype: bool = True, bodies: tuple = ()) -> dict:
+    """Launch counts by cache dtype (``by_dtype``), by head dim (``d64`` ...
+    ``d256``) and, for kernels of several bodies, by body and head dim
+    (``wgmma:d96``)."""
     return dict.fromkeys((*(kv_dtype.KV_DTYPES if by_dtype else ()),
-                          *(f"d{d}" for d in HEAD_DIMS)), 0)
+                          *(f"d{d}" for d in HEAD_DIMS),
+                          *(f"{body}:d{d}" for body in bodies for d in HEAD_DIMS)), 0)
 
 
-def count_forms(wrapper, dtype, d: int) -> None:
+def count_forms(wrapper, dtype, d: int, body: str | None = None) -> None:
     """One launch of ``wrapper`` over a cache of ``dtype`` (where it counts
-    by dtype) at head dim ``d``."""
+    by dtype) at head dim ``d``, through ``body`` where it has several."""
     name = kv_dtype.KV_NAMES[dtype]
     if name in wrapper.forms:
         wrapper.forms[name] += 1
     wrapper.forms[f"d{d}"] += 1
+    if body is not None:
+        wrapper.forms[f"{body}:d{d}"] += 1
 
 
 decode_attention_cuda.launches = 0

@@ -9,6 +9,9 @@ one head dim and the builds spread over the cores. The first call to
 per library, all started together, into ``gptq_for_llama_tpu_torch/_build/``
 (listed in .gitignore). A library's file name carries a digest of all
 sources and flags, so a changed source is rebuilt and a built one is reused.
+``start`` and ``wait`` split a build in two: a caller can start some
+libraries at a lower priority, use the others at once, and wait for the
+rest where it needs them (``library`` waits for a build in flight).
 
 There is no fallback: a missing nvcc or a failed build raises.
 """
@@ -19,6 +22,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import threading
 
@@ -36,6 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# builds started and not yet waited for: key -> (nvcc process, temporary
+# output, output, log file)
+_inflight: dict[str, tuple] = {}
 
 
 def _nvcc() -> str:
@@ -78,33 +85,77 @@ def lib_path(name: str, head_dim: int | None = None) -> str:
     return os.path.join(BUILD_DIR, f"lib{key.replace(':', '-')}-{_digest()}.so")
 
 
-def build_all() -> dict[str, str]:
-    """Compile every library not built yet, in parallel; raise on any failure.
-    Returns {library: ptxas report} for the libraries this call built."""
+def start(keys=None, nice: int = 0) -> None:
+    """Start nvcc for every library of ``keys`` (default: all of
+    ``targets()``) that is neither built nor building, and return at once.
+    ``nice`` > 0 runs those processes at that lower priority."""
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for key in targets():
+    for key in targets() if keys is None else keys:
         name, _, d = key.partition(":d")
         out = lib_path(name, int(d) if d else None)
-        if os.path.exists(out):
+        if key in _inflight or os.path.exists(out):
             continue
         tmp = f"{out}.tmp{os.getpid()}"
         defs = [f"-DGPTQ_HEAD_DIM={d}"] if d else []
         cmd = [nvcc, *NVCC_FLAGS, *defs, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True), tmp, out)
+        # the report goes to a file: a pipe nobody reads would stall the build
+        log = open(f"{tmp}.log", "w+")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True,   # cancel stops cicc and ptxas too
+                                preexec_fn=(lambda: os.nice(nice)) if nice > 0 else None)
+        _inflight[key] = (proc, tmp, out, log)
+
+
+def wait(keys=None) -> dict[str, str]:
+    """Wait for the builds of ``keys`` in flight (default: every one); raise
+    on any failure. Returns {library: ptxas report} of those waited for."""
     built, failed = {}, []
-    for key, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for key in list(_inflight) if keys is None else keys:
+        if key not in _inflight:
+            continue
+        proc, tmp, out, log = _inflight[key]
+        try:
+            proc.wait()
+        except BaseException:   # an interrupt stops every build in flight
+            cancel()
+            raise
+        del _inflight[key]
+        log.seek(0)
+        text = log.read()
+        log.close()
+        os.remove(log.name)
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {key} (exit {proc.returncode})\n{log}")
+            failed.append(f"--- nvcc {key} (exit {proc.returncode})\n{text}")
             continue
         os.replace(tmp, out)
-        built[key] = log
+        built[key] = text
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return built
+
+
+def cancel() -> None:
+    """Stop every build in flight and remove what it wrote."""
+    while _inflight:
+        proc, tmp, _, log = _inflight.popitem()[1]
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+        log.close()
+        for path in (tmp, log.name):
+            if os.path.exists(path):
+                os.remove(path)
+
+
+def build_all() -> dict[str, str]:
+    """Compile every library not built yet, in parallel, and wait for every
+    build in flight; raise on any failure. Returns {library: ptxas report}
+    for the libraries this call waited for."""
+    start()
+    return wait()
 
 
 def library(name: str, head_dim: int | None = None) -> ctypes.CDLL:

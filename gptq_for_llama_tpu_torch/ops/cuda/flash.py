@@ -23,9 +23,10 @@ is rounded before q k^T (kernels 3, 7 and 9 keep it in f32), an fp8 code is
 exact in bf16 (e4m3 codes 0x7F / 0xFF read as +-480). A cache other than bf16
 runs the ``mma.sync`` body at every length (``plan_kv``); the plain version
 reads the cache through ``kv_dtype.decode`` into q's dtype, the same rule.
-So does a head dim other than 128 (``flash_prefill.plan``): the kernel takes
-the head dims of ``attention.HEAD_DIMS``, one library each, and counts its
-launches by cache dtype and by head dim.
+So does head dim 256 (``flash_prefill.plan``: the ``wgmma`` body takes D =
+64, 80, 96 and 128): the kernel takes the head dims of
+``attention.HEAD_DIMS``, one library each, and counts its launches by cache
+dtype, by head dim, and by body and head dim (``wgmma:d96``).
 """
 
 from __future__ import annotations
@@ -100,8 +101,8 @@ def _device_offset(q_offset, bound, sq: int, device) -> tuple[torch.Tensor, int]
 def plan_kv(sq: int, q_offset: int, dtype: torch.dtype, d: int = 128) -> str:
     """The body kernel 4 launches over a cache of ``dtype`` at head dim
     ``d``: kernel 5's plan (``flash_prefill.plan``: the ``mma.sync`` body at
-    any D but 128) for bf16, the ``mma.sync`` body for any other dtype (the
-    ``wgmma`` body's TMA tiles take bf16 only)."""
+    D = 256 and for short prefixes) for bf16, the ``mma.sync`` body for any
+    other dtype (the ``wgmma`` body's TMA tiles take bf16 only)."""
     return plan(sq, q_offset, d) if dtype == torch.bfloat16 else "sync"
 
 
@@ -147,12 +148,13 @@ def _launch(q, k, v, q_offset, scale: float, path: str, rows=None) -> torch.Tens
     build.check(build.library("flash_prefill_blocked", d), err,
                 f"flash_prefill_blocked ({path})")
     flash_prefill_blocked_cuda.launches += 1
-    count_forms(flash_prefill_blocked_cuda, k.dtype, d)
+    count_forms(flash_prefill_blocked_cuda, k.dtype, d, path)
     return out
 
 
 flash_prefill_blocked_cuda.launches = 0
-flash_prefill_blocked_cuda.forms = new_forms()   # launches by cache dtype and by head dim
+# launches by cache dtype, by head dim, and by body and head dim
+flash_prefill_blocked_cuda.forms = new_forms(bodies=tuple(PATH_IDS))
 
 
 def flash_prefill_blocked(q, k, v, q_offset, scale: float, bound=None,

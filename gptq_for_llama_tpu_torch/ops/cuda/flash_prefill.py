@@ -6,16 +6,16 @@ Replaces ``gptq_for_llama_tpu/ops/pallas/flash.py:_flash_kernel`` (entry
 calibration forward and the perplexity eval. The kernel is
 ``csrc/flash_prefill.cu`` with two bodies in ``csrc/flash_common.cuh``:
 128-query blocks of two ``wgmma`` warpgroups fed by a TMA producer
-warpgroup, and for a causal prefix of at most one 128-key tile the 64-query
-``mma.sync`` blocks; ``plan`` picks one from offset + query count, the same
-way for kernel 4, so the two kernels stay bit-equal at offset 0. It takes
-any S (the TPU kernel needs S % 256 == 0 and K+V of a head in VMEM). The
-plain version is the fp32 masked softmax of ``attention.attention_plain``.
-The kernels take the head dims of ``attention.HEAD_DIMS`` (one library
-each); the ``wgmma`` body takes D = 128 only, so ``plan`` sends every other D
-to the ``mma.sync`` body at every length (a ``wgmma`` form at other D is a
-later ROADMAP B item). At D = 64, 80 and 96 the TPU package runs XLA (its
-kernels need D % 128 == 0), which the plain version computes.
+warpgroup, and for a short causal prefix the 64-query ``mma.sync`` blocks;
+``plan`` picks one from offset + query count and the head dim, the same way
+for kernel 4, so the two kernels stay bit-equal at offset 0. It takes any S
+(the TPU kernel needs S % 256 == 0 and K+V of a head in VMEM). The plain
+version is the fp32 masked softmax of ``attention.attention_plain``. The
+kernels take the head dims of ``attention.HEAD_DIMS`` (one library each);
+the ``wgmma`` body takes D = 64, 80, 96 and 128 (``WGMMA_HEAD_DIMS``: its
+tiles in sub-tiles of 64, 16, 32 and 64 dims), so ``plan`` sends D = 256 to
+the ``mma.sync`` body at every length. At D = 64, 80 and 96 the TPU package
+runs XLA (its kernels need D % 128 == 0), which the plain version computes.
 Where a gradient is wanted (LoRA training) the forward still launches the
 kernel, inside ``_CausalAttention``, whose backward is the plain version's
 gradient recomputed from the saved q/k/v (the TPU package differentiates its
@@ -37,24 +37,25 @@ SOURCE = "gptq_for_llama_tpu_torch/csrc/flash_prefill.cu"
 REPLACES = "gptq_for_llama_tpu/ops/pallas/flash.py:27"
 
 # Kernels 4 and 5 run the 64-query mma.sync body where the longest causal
-# prefix (offset + query rows) fits in one 128-key tile of the wgmma body,
-# and the warp-specialised wgmma body above: the measured crossover (PERF.md
-# section 6)
-SYNC_MAX_KEYS = 128
+# prefix (offset + query rows) is at most SYNC_MAX_KEYS[D] keys, and the
+# warp-specialised wgmma body above: the crossover measured on the card for
+# each head dim the wgmma body takes (scripts/torch_flash_bodies.py, PERF.md
+# section 6; at D = 128 one 128-key tile). D = 256 has no entry: the
+# mma.sync body at every length.
+SYNC_MAX_KEYS = {64: 192, 80: 160, 96: 160, 128: 128}
+WGMMA_HEAD_DIMS = tuple(SYNC_MAX_KEYS)   # csrc/flash_common.cuh's wgmma_dim
 PATH_IDS = {"sync": 0, "wgmma": 1}   # csrc/flash_common.cuh's Path
-
-
-WGMMA_HEAD_DIM = 128   # the one head dim the wgmma body takes
 
 
 def plan(sq: int, q_offset: int = 0, d: int = 128) -> str:
     """The body kernels 4 and 5 launch for ``sq`` query rows at
     ``q_offset`` and head dim ``d``. A function of offset + SQ and D alone,
     so kernel 4 at offset 0 takes kernel 5's body and stays bit-equal to it.
-    A head dim other than 128 takes the ``mma.sync`` body at every length."""
-    if d != WGMMA_HEAD_DIM:
+    A head dim the ``wgmma`` body does not take (256) runs ``mma.sync`` at
+    every length."""
+    if d not in SYNC_MAX_KEYS:
         return "sync"
-    return "sync" if q_offset + sq <= SYNC_MAX_KEYS else "wgmma"
+    return "sync" if q_offset + sq <= SYNC_MAX_KEYS[d] else "wgmma"
 
 
 def flash_prefill_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -103,12 +104,13 @@ def _launch(q, k, v, scale: float, path: str) -> torch.Tensor:
                     torch.cuda.current_stream(q.device).cuda_stream)
     build.check(build.library("flash_prefill", d), err, f"flash_prefill ({path})")
     flash_prefill_cuda.launches += 1
-    count_forms(flash_prefill_cuda, k.dtype, d)
+    count_forms(flash_prefill_cuda, k.dtype, d, path)
     return out
 
 
 flash_prefill_cuda.launches = 0
-flash_prefill_cuda.forms = new_forms(by_dtype=False)   # launches by head dim
+# launches by head dim, and by body and head dim
+flash_prefill_cuda.forms = new_forms(by_dtype=False, bodies=tuple(PATH_IDS))
 
 
 def _flash_prefill(q, k, v, scale):

@@ -21,6 +21,7 @@ from gptq_for_llama_tpu_torch.models import common
 from gptq_for_llama_tpu_torch.ops.cuda.flash import (flash_prefill_blocked,
                                                      flash_prefill_blocked_plain)
 from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import flash_prefill, flash_prefill_plain
+from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import plan as flash_plan
 from gptq_for_llama_tpu_torch.ops.cuda.mlp import fused_mlp, fused_mlp_plain
 from gptq_for_llama_tpu_torch.ops.cuda.norm import (add_rms_norm, add_rms_norm_plain, rms_norm,
                                                     rms_norm_plain)
@@ -462,8 +463,8 @@ def test_kernels_refuse_what_they_do_not_take(card):
                                           *[(c, o, 2, d) for d in NEW_DIMS
                                             for c, o in ((45, 77), (130, 3))]])
 def test_flash_prefill_blocked_matches_plain(card, sq, off, hkv, d):
-    """Head dims other than 128 take the mma.sync body at every length; the
-    launch is counted under its head dim."""
+    """Every head dim; the launch is counted under its head dim and under its
+    body and head dim."""
     q = torch.randn(1, sq, 8, d, device=card).bfloat16()
     k = torch.randn(1, 256, hkv, d, device=card).bfloat16()
     v = torch.randn(1, 256, hkv, d, device=card).bfloat16()
@@ -472,6 +473,8 @@ def test_flash_prefill_blocked_matches_plain(card, sq, off, hkv, d):
                        flash_prefill_blocked_plain(q, k, v, off, d ** -0.5), 1e-2)
     counts = kernels.launch_counts()
     assert counts["flash_prefill_blocked"] == counts[f"flash_prefill_blocked:d{d}"] == 1
+    body = flash_plan(sq, off, d)
+    assert counts[f"flash_prefill_blocked:{body}:d{d}"] == 1
 
 
 @pytest.mark.cuda
@@ -526,7 +529,8 @@ def test_flash_prefill_matches_plain(card, b, s, h, hkv, d):
     """1e-2 of each row's norm: both softmax in fp32; the kernel rounds p and
     its output to bf16 (about 2^-9 relative each). S = 127-129 straddle the
     wgmma body's 128-query block and key tile (rows past S read as zeros).
-    Head dims other than 128: the mma.sync body."""
+    At D = 64, 80 and 96 S = 63 runs the mma.sync body and S = 1000 the wgmma
+    body; D = 256 the mma.sync body at every length."""
     q = torch.randn(b, s, h, d, device=card).bfloat16()
     k = torch.randn(b, s, hkv, d, device=card).bfloat16()
     v = torch.randn(b, s, hkv, d, device=card).bfloat16()
@@ -535,54 +539,68 @@ def test_flash_prefill_matches_plain(card, b, s, h, hkv, d):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_prefill"] == 1
     assert kernels.launch_counts()[f"flash_prefill:d{d}"] == 1
+    assert kernels.launch_counts()[f"flash_prefill:{flash_plan(s, 0, d)}:d{d}"] == 1
     assert torch.isfinite(got.float()).all()
     assert _rows_close(got, flash_prefill_plain(q, k, v, d ** -0.5), 1e-2)
 
 
+# the head dims of both bodies besides 128 (GPT-2, OPT, GPT-NeoX)
+WGMMA_DIMS = (64, 80, 96)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["sync", "wgmma"])
-@pytest.mark.parametrize("b,s,h,hkv", [(1, 1, 8, 8), (2, 63, 8, 2), (1, 127, 4, 1),
-                                       (1, 128, 4, 4), (2, 129, 8, 1), (1, 1000, 4, 1),
-                                       (2, 512, 8, 8)])
-def test_flash_bodies_match_plain(card, path, b, s, h, hkv):
-    """Both bodies of kernels 4 and 5, forced, whatever the plan would pick:
-    kernel 5 within 1e-2 of each row's norm of the plain version, and kernel
-    4 at offset 0 bit-equal to it."""
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    *[(*c, 128) for c in ((1, 1, 8, 8), (2, 63, 8, 2), (1, 127, 4, 1), (1, 128, 4, 4),
+                          (2, 129, 8, 1), (1, 1000, 4, 1), (2, 512, 8, 8))],
+    *[(*c, d) for d in WGMMA_DIMS for c in ((1, 127, 4, 1), (2, 129, 8, 1), (1, 1000, 8, 2),
+                                            (2, 512, 8, 8))]])
+def test_flash_bodies_match_plain(card, path, b, s, h, hkv, d):
+    """Both bodies of kernels 4 and 5, forced, whatever the plan would pick,
+    at D = 128 and at the head dims whose sub-tiles take the 128-, 32- and
+    64-byte swizzles (64, 80, 96), with GQA and ragged S (TMA's rows past S
+    read as zeros): kernel 5 within 1e-2 of each row's norm of the plain
+    version, two launches bit-equal, and kernel 4 at offset 0 bit-equal to
+    it."""
     from gptq_for_llama_tpu_torch.ops.cuda import flash, flash_prefill as fp
     gen = torch.Generator(device=card)
-    gen.manual_seed(s)
-    q = torch.randn(b, s, h, 128, generator=gen, device=card).bfloat16()
-    k = torch.randn(b, s, hkv, 128, generator=gen, device=card).bfloat16()
-    v = torch.randn(b, s, hkv, 128, generator=gen, device=card).bfloat16()
-    got5 = fp._launch(q, k, v, 128 ** -0.5, path)
-    got4 = flash._launch(q, k, v, 0, 128 ** -0.5, path)
+    gen.manual_seed(s + d)
+    q = torch.randn(b, s, h, d, generator=gen, device=card).bfloat16()
+    k = torch.randn(b, s, hkv, d, generator=gen, device=card).bfloat16()
+    v = torch.randn(b, s, hkv, d, generator=gen, device=card).bfloat16()
+    got5 = fp._launch(q, k, v, d ** -0.5, path)
+    again = fp._launch(q, k, v, d ** -0.5, path)
+    got4 = flash._launch(q, k, v, 0, d ** -0.5, path)
     torch.cuda.synchronize()
     assert torch.isfinite(got5.float()).all()
-    assert _rows_close(got5, flash_prefill_plain(q, k, v, 128 ** -0.5), 1e-2)
+    assert _rows_close(got5, flash_prefill_plain(q, k, v, d ** -0.5), 1e-2)
+    assert torch.equal(again.view(torch.int16), got5.view(torch.int16))
     assert torch.equal(got4.view(torch.int16), got5.view(torch.int16))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["sync", "wgmma"])
-@pytest.mark.parametrize("sq,off,skv,hkv", [(45, 0, 256, 8), (100, 0, 2048, 2),
-                                            (130, 77, 1000, 8), (77, 1900, 2048, 1),
-                                            (300, 5, 512, 4)])
-def test_kernel_4_reads_nothing_past_the_causal_limit(card, path, sq, off, skv, hkv):
+@pytest.mark.parametrize("sq,off,skv,hkv,d", [
+    *[(*c, 128) for c in ((45, 0, 256, 8), (100, 0, 2048, 2), (130, 77, 1000, 8),
+                          (77, 1900, 2048, 1), (300, 5, 512, 4))],
+    *[(*c, d) for d in WGMMA_DIMS for c in ((100, 0, 2048, 2), (130, 77, 1000, 8),
+                                            (77, 1900, 2048, 1), (300, 5, 512, 4))]])
+def test_kernel_4_reads_nothing_past_the_causal_limit(card, path, sq, off, skv, hkv, d):
     """Kernel 4's bodies over a cache that holds NaN in every slot past the
     chunk's causal limit (off + SQ): a TMA tile copies whole slots, so the
-    wgmma body zeroes V's rows past the limit before P V (0 * NaN is NaN).
-    Finite, and every row within 1e-2 of its norm of the plain version on the
-    clean cache."""
+    wgmma body zeroes V's rows past the limit (in every sub-tile) before P V
+    (0 * NaN is NaN). Finite, and every row within 1e-2 of its norm of the
+    plain version on the clean cache."""
     from gptq_for_llama_tpu_torch.ops.cuda import flash
     gen = torch.Generator(device=card)
-    gen.manual_seed(sq + off)
-    q = torch.randn(1, sq, 8, 128, generator=gen, device=card).bfloat16()
-    k = torch.randn(1, skv, hkv, 128, generator=gen, device=card).bfloat16()
-    v = torch.randn(1, skv, hkv, 128, generator=gen, device=card).bfloat16()
-    want = flash_prefill_blocked_plain(q, k, v, off, 128 ** -0.5)
+    gen.manual_seed(sq + off + d)
+    q = torch.randn(1, sq, 8, d, generator=gen, device=card).bfloat16()
+    k = torch.randn(1, skv, hkv, d, generator=gen, device=card).bfloat16()
+    v = torch.randn(1, skv, hkv, d, generator=gen, device=card).bfloat16()
+    want = flash_prefill_blocked_plain(q, k, v, off, d ** -0.5)
     k[:, off + sq:] = float("nan")
     v[:, off + sq:] = float("nan")
-    got = flash._launch(q, k, v, off, 128 ** -0.5, path)
+    got = flash._launch(q, k, v, off, d ** -0.5, path)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all() and _rows_close(got, want, 1e-2)
 
@@ -1530,6 +1548,55 @@ def test_kernel_wrappers_refuse_to_drop_a_gradient(card):
             call()
         with torch.no_grad():
             call()
+
+
+@pytest.mark.cuda
+def test_lora_step_on_neox_at_head_dim_96(card):
+    """A LoRA step of a 2-layer GPT-NeoX-shaped model at head dim 96 (4
+    heads, hidden 384, NeoX-20B's rotary share, activation and parallel
+    residual) over 1 x 256 tokens, so the forward runs kernel 5's wgmma body
+    at D = 96 (the backward is the plain version's gradient): every adapter's
+    gradient on the card (bf16, kernels) against the CPU plain path in fp32,
+    ||g_card - g_cpu|| / ||g_cpu|| within 3x what two correct runs differ by
+    (the CPU plain path in bf16 against fp32), chip_smoke.py's LoRA rule."""
+    import torch.nn.functional as F
+    from chip_smoke import _tree_to_cpu
+    from gptq_for_llama_tpu_torch.engine import attach_lora, join_lora, split_lora
+    from gptq_for_llama_tpu_torch.models import neox
+    from gptq_for_llama_tpu_torch.models.config import ModelConfig
+    from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_neox
+    cfg = ModelConfig(arch="neox", vocab_size=512, hidden_size=384, intermediate_size=1536,
+                      num_layers=2, num_heads=4, num_kv_heads=4, head_dim=96, max_seq_len=512,
+                      norm_eps=1e-5, rotary_pct=0.25, act="gelu_fast", parallel_residual=True,
+                      attn_bias=True, mlp_bias=True)
+    params = gaussian_wire_neox(cfg, seed=0, device=card, dtype=torch.bfloat16)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(1)
+    adapters, skeleton = split_lora(attach_lora("neox", params, rank=8, generator=gen))
+    for ab in adapters:   # b nonzero: every a has a live gradient
+        ab["b"] = (torch.randn(ab["b"].shape, generator=gen, device=card) * 0.01).to(ab["b"].dtype)
+    ids = torch.as_tensor(np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 256)))
+
+    def grads(skel, device, dtype):
+        ads = [{k: v.detach().to(device=device, dtype=dtype).requires_grad_()
+                for k, v in ab.items()} for ab in adapters]
+        x = ids.to(device)
+        logits = neox.forward(join_lora(skel, ads), cfg, x)
+        F.cross_entropy(logits[:, :-1].flatten(0, 1).float(), x[:, 1:].flatten()).backward()
+        return [(ab["a"].grad.float().cpu(), ab["b"].grad.float().cpu()) for ab in ads]
+
+    kernels.reset_launch_counts()
+    got = grads(skeleton, card, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_prefill:wgmma:d96"] == cfg.num_layers
+    want = grads(_tree_to_cpu(skeleton, torch.float32), "cpu", torch.float32)
+    cpu16 = grads(_tree_to_cpu(skeleton, torch.bfloat16), "cpu", torch.bfloat16)
+
+    def worst(g):
+        return max(float((x - r).norm() / r.norm())
+                   for xx, rr in zip(g, want) for x, r in zip(xx, rr))
+
+    assert worst(got) <= 3 * worst(cpu16), (worst(got), worst(cpu16))
 
 
 @pytest.mark.cuda

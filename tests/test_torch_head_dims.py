@@ -140,14 +140,21 @@ def test_prefill_plains_match_jax_at_head_dim(d):
 @pytest.mark.parametrize("d", (*DIMS, 128))
 def test_plans_at_head_dim(d):
     """The host plans at every built head dim: kernels 4 and 5 take the
-    mma.sync body at any D but 128 (whatever the length), kernels 3, 7 and 9
-    plan their ring and scratch from D, and the layout each library reports
-    is what the plan uses (csrc/decode_attention_dense.cuh: 4 stages under
-    128 KB, f32 at D = 256 two; two resident blocks at D = 256)."""
+    mma.sync body up to the crossover measured for D (offset + SQ <= 192 keys
+    at D = 64, 160 at 80 and 96, 128 at 128; at D = 256 whatever the length)
+    and the wgmma body above, over a bf16 cache only; kernels 3, 7 and 9 plan
+    their ring and scratch from D, and the layout each library reports is
+    what the plan uses (csrc/decode_attention_dense.cuh: 4 stages under 128
+    KB, f32 at D = 256 two; two resident blocks at D = 256)."""
     assert d in build.HEAD_DIMS and f"decode_attention:d{d}" in build.targets()
-    for sq, off in ((16, 0), (300, 700), (2048, 0)):
+    limit = {64: 192, 80: 160, 96: 160, 128: 128}.get(d)
+    assert flash_prefill.SYNC_MAX_KEYS.get(d) == limit
+    edges = () if limit is None else ((limit, 0), (limit - 100, 100), (limit + 1, 0),
+                                      (1, limit))
+    for sq, off in ((16, 0), (300, 700), (2048, 0), *edges):
         body = flash_prefill.plan(sq, off, d)
-        assert body == ("sync" if d != 128 or off + sq <= 128 else "wgmma")
+        assert body == ("sync" if limit is None or off + sq <= limit else "wgmma")
+        assert flash.plan_kv(sq, off, torch.bfloat16, d) == body
         assert flash.plan_kv(sq, off, torch.float8_e4m3fn, d) == "sync"
     for itemsize in (1, 2, 4):
         stages = attention.ring_stages(itemsize, d)

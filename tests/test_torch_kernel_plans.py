@@ -393,11 +393,12 @@ from gptq_for_llama_tpu_torch.ops.cuda import flash_prefill  # noqa: E402
     (512, 0, "wgmma"), (2048, 0, "wgmma"), (100, 28, "sync"), (100, 29, "wgmma"),
     (100, 128, "wgmma"), (128, 512, "wgmma"), (1, 2047, "wgmma")])
 def test_flash_body_follows_the_causal_prefix(sq, off, want):
-    """The 64-query mma.sync body takes a chunk whose whole causal prefix
-    (offset + SQ) fits in one 128-key tile of the wgmma body: serving's
+    """At D = 128 the 64-query mma.sync body takes a chunk whose whole causal
+    prefix (offset + SQ) fits in one 128-key tile of the wgmma body: serving's
     admissions at bucket 32 and 128 and the runner's 100-token prompt, where
-    it measured faster; everything longer takes the wgmma body."""
-    assert flash_prefill.SYNC_MAX_KEYS == 128
+    it measured faster; everything longer takes the wgmma body. (The other
+    head dims' crossovers: test_torch_head_dims.py.)"""
+    assert flash_prefill.SYNC_MAX_KEYS[128] == 128
     assert flash_prefill.plan(sq, off) == want
 
 
