@@ -17,7 +17,12 @@ Phases, in order, on one card:
            error vs the stated tolerance (attention: per output row, relative
            to the row's norm), kernel / plain / library-call time (CUDA events
            around a CUDA-graph replay of many launches, weights cycled
-           through copies larger than the 50 MB L2), and the bound. Kernel
+           through copies larger than the 50 MB L2), and the bound. Above 16
+           rows kernels 1 and 8 time both tensor-core bodies forced (the
+           mma.sync tiles and the wgmma body, each at its own plan), and the
+           wgmma body holds a ragged set (every bits value, group sizes 16 to
+           G = 1, act-order, bias, ragged M and columns, with and without a
+           split) twice bit-equal and as a graph replay. Kernel
            2's rows time every form forced beside kernel 1 run twice;
            kernel 7's rows time kernel 3 over the gathered view and require
            the two outputs bit-equal; kernel 6's rows time it alone and with
@@ -221,32 +226,34 @@ PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve"
 # then decode steps), the calibration forward, the perplexity eval, paged
 # serving (bucketed and batched admission, spans) and dense serving with
 # chunked prefill
-# ("qmm:<form>", "fused_mlp:<form>": kernels 1 and 2 by form: kernel 1's
-# fragment form and kernel 2's GEMV at batch-1 decode, the fragment forms at
-# the 8-slot serving step, the tiles at prefill, eval and LoRA;
+# ("qmm:<form>", "fused_mlp:<form>", "qmm_t:<body>": kernels 1, 2 and 8 by
+# form: kernel 1's fragment form and kernel 2's GEMV at batch-1 decode, the
+# fragment forms at the 8-slot serving step, above 16 rows kernel 1's and
+# kernel 8's wgmma body (prefill, serving chunks, eval, LoRA, TP) and kernel
+# 2's tiles;
 # "rms_norm:<form>": kernel 6 alone, at layer 0's input norm, and with the
 # residual add folded in, at every other norm: every path runs both)
 NORMS = {"rms_norm", "rms_norm:alone", "rms_norm:add"}
 PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                    "qmm:frag", "qmm:tile", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
+                    "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
          "quantize": {"flash_prefill"} | NORMS,
-         "eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:tile", "fused_mlp:tile"} | NORMS,
+         "eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:wgmma", "fused_mlp:tile"} | NORMS,
          "serve:paged": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill_blocked",
-                         "flash_prefill", "qmm:frag", "qmm:tile", "fused_mlp:frag",
+                         "flash_prefill", "qmm:frag", "qmm:wgmma", "fused_mlp:frag",
                          "fused_mlp:tile"} | NORMS,
          "serve:dense": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                         "qmm:frag", "qmm:tile", "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
+                         "qmm:frag", "qmm:wgmma", "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
          # the CLI's demo prompts all have one length: every admission is batched
          "serve:cli": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill"} | NORMS,
          # the decode path with cache_impl="fold", in the runner and the dense engine
          "fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
-                  "qmm:frag", "qmm:tile", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
+                  "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
          "serve:fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
-                        "qmm:frag", "qmm:tile", "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
+                        "qmm:frag", "qmm:wgmma", "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
          # LoRA training steps (every linear adapted: gate/up unfused), and the
          # gradient check with gate/up frozen (the fused MLP and its backward)
-         "lora": {"qmm", "flash_prefill", "qmm_t", "qmm:tile"} | NORMS,
-         "lora:fused": {"qmm", "fused_mlp", "flash_prefill", "qmm_t", "qmm:tile",
+         "lora": {"qmm", "flash_prefill", "qmm_t", "qmm:wgmma", "qmm_t:wgmma"} | NORMS,
+         "lora:fused": {"qmm", "fused_mlp", "flash_prefill", "qmm_t", "qmm:wgmma", "qmm_t:wgmma",
                         "fused_mlp:tile"} | NORMS,
          # kernels 3, 4, 7 and 9 by the cache dtype they read: the 7B decode
          # path and serving over fp8-e4m3 caches, the CLIs with --kv-dtype fp8
@@ -269,7 +276,7 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          # offset 0 and the 2048-token calibration forward on wgmma; no
          # kernel 2 or 6 (no gated MLP, LayerNorm in plain torch as the TPU
          # package's XLA)
-         "arch:neox:decode": {"qmm", "qmm:tile", "decode_attention", "decode_attention:d96",
+         "arch:neox:decode": {"qmm", "qmm:wgmma", "decode_attention", "decode_attention:d96",
                               "flash_prefill_blocked", "flash_prefill_blocked:d96",
                               "flash_prefill_blocked:sync:d96"},
          "arch:neox:serve:paged": {"qmm", "pool_decode_attention", "pool_decode_attention:d96",
@@ -279,11 +286,11 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
                                    "flash_prefill_blocked:wgmma:d96"},
          "arch:neox:fold": {"qmm", "fused_decode_attention", "fused_decode_attention:d96"},
          "arch:neox:quantize": {"flash_prefill", "flash_prefill:d96", "flash_prefill:wgmma:d96"},
-         "arch:opt:decode": {"qmm", "qmm:tile", "decode_attention:d80",
+         "arch:opt:decode": {"qmm", "qmm:wgmma", "decode_attention:d80",
                              "flash_prefill_blocked:d80", "flash_prefill_blocked:sync:d80"},
          "arch:opt:serve:paged": {"qmm", "pool_decode_attention:d80", "flash_prefill:d80",
                                   "flash_prefill_blocked:wgmma:d80"},
-         "arch:gpt2:decode": {"qmm", "qmm:tile", "decode_attention:d64",
+         "arch:gpt2:decode": {"qmm", "qmm:wgmma", "decode_attention:d64",
                               "flash_prefill_blocked:d64", "flash_prefill_blocked:sync:d64"},
          "arch:gpt2:serve:dense": {"qmm", "decode_attention:d64", "flash_prefill_blocked:d64",
                                    "flash_prefill_blocked:wgmma:d64"},
@@ -292,8 +299,8 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          # the offloaded LLaMA-7B's generate (24 of 32 layers streamed), the
          # offloaded CLI's eval and decode benchmark (phase offload)
          "offload": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                     "qmm:frag", "qmm:tile", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
-         "offload:eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:tile",
+                     "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
+         "offload:eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:wgmma",
                           "fused_mlp:tile"} | NORMS,
          "offload:benchmark": {"qmm", "fused_mlp", "decode_attention"} | NORMS,
          # LLaMA-7B's generate under the raced plans and under the heuristic
@@ -308,7 +315,7 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          # paged, fold; bf16 and fp8 caches; admissions batched or not); the
          # calibration forward at dp 2
          **{f"tp:{name}": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                           "qmm:frag", "qmm:tile", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS
+                           "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS
             for name in ("7b_tp2", "7b4_tp4", "7b4_tp4_gqa")},
          **{f"tp:serve:{mode}{kv}": {"qmm", "fused_mlp", f"{kernel}{kv}"} | NORMS
             for mode, kernel in (("dense", "decode_attention"),
@@ -319,6 +326,8 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
 # the rows at which kernel 1's rows also time every form forced (the decode
 # widths around the forms' crossovers), as kernel 2's rows do
 FORCED_MS = (1, 2, 4, 5, 8, 16)
+# kernels 1 and 8's tensor-core bodies: the mma.sync tiles and the wgmma body
+TC_BODIES = ("tile", "wgmma")
 # the most a row of logits may part from the unsharded run's, relative to
 # its norm: what two correct bf16 LLaMA-7B runs part by (PERF.md, the worst
 # row of two correct runs of the serve phase's 7B model)
@@ -456,6 +465,114 @@ def bits_equal(a, b) -> bool:
 
 def copies_for(nbytes: int) -> int:
     return max(2, math.ceil(3 * L2_BYTES / max(nbytes, 1)))
+
+
+# the ragged set of kernels 1 and 8's tensor-core bodies: kernel 1 (bits, M,
+# K, N, groupsize, act-order, bias), kernel 8 the same without a bias (dx of
+# width K from g of width N); every device bits value (and wire INT3), g128,
+# g64, g32, g16 and G = 1, act-order, ragged M, a ragged last column tile
+# (264, 4104), a ragged last group (K = 1032, g32), N = 11008, with and
+# without a split of the reduction
+TC_CASES_FWD = (
+    (4, 17, 4096, 4096, 128, False, False), (4, 40, 1024, 4096, 32, False, True),
+    (4, 100, 1024, 256, 128, False, True), (4, 128, 4096, 4096, 128, False, False),
+    (2, 130, 1024, 256, 64, False, False), (3, 130, 512, 256, 128, False, False),
+    (4, 136, 4096, 4096, 128, True, False), (8, 200, 1024, 264, 128, True, False),
+    (4, 256, 1024, 4104, 16, False, False), (4, 512, 1024, 256, 1024, False, False),
+    (8, 512, 1024, 512, 32, True, True), (4, 130, 4096, 11008, 128, False, False),
+    (2, 1024, 4096, 4096, 128, False, False), (4, 1024, 4096, 4096, 128, False, False),
+    (8, 1024, 1024, 4104, 32, True, True), (4, 2048, 512, 4096, 1024, False, False),
+    (4, 1024, 1032, 4096, 32, False, True), (3, 300, 1024, 8192, 128, False, True))
+TC_CASES_BWD = (
+    (4, 17, 4096, 4096, 128, False), (4, 128, 4096, 4096, 128, False),
+    (2, 130, 1024, 256, 64, False), (8, 200, 1024, 264, 128, True),
+    (4, 256, 1032, 512, 32, False), (4, 512, 1024, 4096, 1024, False),
+    (3, 300, 1024, 1024, 128, True), (8, 1024, 4096, 4096, 16, False),
+    (4, 1024, 4096, 4096, 128, False), (4, 1024, 11008, 4096, 128, False),
+    (2, 2048, 4096, 11008, 128, True))
+
+
+def wire_linear(torch, rng, k, n, gs, bits, actorder=False, bias=False):
+    """A seeded random packed linear on the card (``random_wire_linear``),
+    its rows in a random act-order if asked, with a bias if asked."""
+    from gptq_for_llama_tpu_torch.ops.linear import PackedLinear
+    from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_linear
+    w = random_wire_linear(rng, k, n, gs, bits)
+    if actorder:
+        w["g_idx"] = w["g_idx"][rng.permutation(k)]
+    return PackedLinear.from_wire(w["qweight"], w["qzeros"], w["scales"], w["g_idx"], bits=bits,
+                                  bias=rng.randn(n) if bias else None, dtype=torch.bfloat16,
+                                  device="cuda")
+
+
+def body_plan(kind, path, m, lin, sms):
+    """Kernel 1's ("fwd") or kernel 8's ("bwd") plan at M rows with its
+    tensor-core body forced to ``path`` ("tile" or "wgmma")."""
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul, matmul_t
+    k, n, g = lin.in_features, lin.out_features, lin.scales.shape[0]
+    if kind == "fwd":
+        return matmul.plan(m, k, n, lin.bits, sms, path=path, groupsize=lin.groupsize, groups=g)
+    return matmul_t.plan(m, k, n, lin.bits, sms, path=path, groupsize=lin.groupsize, groups=g)
+
+
+def hold_tc_cases(torch, bodies=("wgmma",)):
+    """Each body of ``bodies`` forced on the ragged set (TC_CASES_FWD,
+    TC_CASES_BWD), in device row order (the act-order permutation is the
+    dispatch's): held to the plain version at 2e-2 * max|plain|; without a
+    split the product (on the same linear without its bias: the plain
+    version rounds the product to bf16 before the bias) in bf16 ulps, 0 for
+    the tiles and reported for the wgmma body; two launches bit-equal, and a
+    CUDA-graph replay bit-equal to the eager launch. Returns the rows; raises
+    on any failure."""
+    import dataclasses
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul, matmul_t
+    from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import quant_matmul_t_plain
+    from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
+    rng = np.random.RandomState(7)
+    sms = matmul._sm_count(0)
+    rows = []
+    for kind, cases in (("fwd", TC_CASES_FWD), ("bwd", TC_CASES_BWD)):
+        launch = matmul._launch if kind == "fwd" else matmul_t._launch
+        for case in cases:
+            bits, m, k, n, gs, act = case[:6]
+            bias = kind == "fwd" and case[6]
+            lin = wire_linear(torch, rng, k, n, gs, bits, act, bias)
+            bare = dataclasses.replace(lin, bias=None)
+            x = torch.as_tensor(rng.randn(m, k if kind == "fwd" else n), dtype=torch.bfloat16,
+                                device="cuda")
+            if kind == "fwd":
+                ref = quant_matmul_plain(x, dataclasses.replace(lin, perm=None))
+                ref_bare = quant_matmul_plain(x, dataclasses.replace(bare, perm=None))
+            else:
+                ref = ref_bare = quant_matmul_t_plain(x, lin)
+            tol = 2e-2 * ref.float().abs().max().item()
+            for path in bodies:
+                p = body_plan(kind, path, m, lin, sms)
+                y = launch(x, lin, p)
+                y2 = launch(x, lin, p)
+                torch.cuda.synchronize()
+                err = (y.float() - ref.float()).abs().max().item()
+                ulps = bf16_ulps(torch, launch(x, bare, p), ref_bare) if p.split == 1 else None
+                twice = bits_equal(y, y2)
+                graph_eq = bits_equal(graph_replay(torch, lambda: launch(x, lin, p), lambda: None),
+                                      y)
+                ok = (p.path == path and err <= tol and twice and graph_eq
+                      and bool(torch.isfinite(y.float()).all())
+                      and (ulps is None or path == "wgmma" or ulps == 0))
+                what = (f"{'kernel 1' if kind == 'fwd' else 'kernel 8'} bits {bits} M={m} K={k} "
+                        f"N={n} g{gs}{' act-order' if act else ''}{' bias' if bias else ''}")
+                log(f"[kernel {'qmm' if kind == 'fwd' else 'qmm_t'}] {path} case {what} [row tile "
+                    f"{p.mt}, split {p.split}]: max_abs_err {err:.3e} (tol {tol:.3e}), product "
+                    f"{ulps} bf16 ulp, two launches equal {twice}, graph replay equal "
+                    f"{graph_eq}: {'ok' if ok else 'FAIL'}")
+                rows.append({"case": what, "path": path, "row_tile": p.mt, "split": p.split,
+                             "max_abs_err": err, "tol": tol, "product_bf16_ulps": ulps,
+                             "twice_equal": twice, "graph_equal": graph_eq, "ok": ok})
+                if not ok:
+                    raise AssertionError(f"{path} case {what}: error {err} > {tol}, {ulps} bf16 "
+                                         f"ulp, twice equal {twice}, graph equal {graph_eq}")
+            del lin, bare, x, ref, ref_bare
+    return rows
 
 
 def write_dense_llama(torch, path: str, layers: int, seed: int) -> int:
@@ -900,6 +1017,8 @@ class Smoke:
             for bm in matmul.TC_ROW_TILES:   # kernels 1 and 2 alike
                 smem[f"qmm / fused_mlp tile {bits}-bit BM={bm}"] = matmul.tile_smem_bytes(bits, bm)
                 smem[f"qmm_t {bits}-bit BM={bm}"] = matmul_t.tile_smem_bytes(bits, bm)
+            for bm in getattr(matmul, "WG_ROW_TILES", ()):   # kernels 1 and 8 alike
+                smem[f"qmm / qmm_t wgmma {bits}-bit BM={bm}"] = matmul.wgmma_smem_bytes(bits, bm)
             for nt in (1, 2):   # kernels 1 and 2 alike
                 smem[f"qmm / fused_mlp frag {bits}-bit M<={8 * nt}"] = matmul.frag_smem_bytes(bits,
                                                                                           nt)
@@ -918,7 +1037,8 @@ class Smoke:
     def _ptxas_log(built):
         for name, text in sorted(built.items()):
             for line in text.splitlines():
-                if any(w in line for w in ("registers", "spill", "Compiling entry", "arning")):
+                if any(w in line for w in ("registers", "spill", "Compiling entry", "arning",
+                                           "Performance Loss")):
                     log(f"[ptxas {name}] {line.strip()}")
 
     def _build_rest(self):
@@ -1027,10 +1147,11 @@ class Smoke:
         # kernel 1: tolerance 2e-2 * max|plain| where the sums run in another
         # order than the plain version's: the GEMV (the batch-1 row) keeps the
         # dequantized weight in fp32 where the plain version rounds it to bf16,
-        # the fragment form (M <= 16) and tiles with K split sum fp32 partials.
-        # Tiles without a split round the weight as the plain version does and
-        # sum the k16 products in cuBLAS's order: held to 0 bf16 ulp
-        # (bit-equal).
+        # the fragment form (M <= 16) and the tensor-core bodies with K split
+        # sum fp32 partials. The mma.sync tiles and the wgmma body without a
+        # split round the weight as the plain version does and sum the k16
+        # products in cuBLAS's order: held to 0 bf16 ulp (bit-equal). Above 16
+        # rows both bodies are forced and timed too (``_tc_bodies``).
         # M: the batch-1 decode step, the decode widths on either side of the
         # forms' crossovers (2, 4, 5, 16) and a prompt, then what serving gives
         # the linears: 8 slots' decode step, a chunk (128), the fused
@@ -1051,7 +1172,7 @@ class Smoke:
                 path = p.path
                 ref = quant_matmul_plain(x, lin, bf)
                 err = (y.float() - ref.float()).abs().max().item()
-                exact = path == "tile" and p.split == 1
+                exact = path in TC_BODIES and p.split == 1
                 tol = 0 if exact else 2e-2 * ref.float().abs().max().item()
                 iters = 60 if m <= 136 else 6
                 ms = graph_ms(torch, [lambda l=l: qmm_cuda(x, l) for l in lins], iters=iters)
@@ -1062,12 +1183,15 @@ class Smoke:
                 extra = {"form": {"path": p.path, "rows": p.mt, "split": p.split}}
                 if m in FORCED_MS and what != "gate_proj":
                     extra["forced_ms"] = self._kernel1_forms(torch, x, lins, ref, tol, what)
+                if m > FORCED_MS[-1]:   # both tensor-core bodies forced
+                    extra["bodies_ms"] = self._tc_bodies(torch, "fwd", x, lins, ref, what, iters)
                 self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
                              2 * m * k * n, main=(what == "q_proj" and m == 1),
                              serve=(what == "q_proj" and m == 8), path=path,
                              ulps=bf16_ulps(torch, y, ref) if exact else None, extra=extra)
             del lins, wdq
         self._qmm_tile_cases(torch, rng)
+        self._wgmma_cases(torch)
         k, n = 4096, 11008
         gates = self._linears(torch, rng, k, n, copies_for(k * n))
         ups = self._linears(torch, rng, k, n, len(gates))
@@ -1261,6 +1385,49 @@ class Smoke:
             + ", ".join(f"{a} {t * 1e3:.2f} us" for a, t in forced.items()) + f" | {self.card}")
         return forced
 
+    def _tc_bodies(self, torch, kind, x, lins, ref, what, iters=60):
+        """Kernel 1 ("fwd") or 8 ("bwd") at x's rows with each tensor-core
+        body forced at its own plan (the mma.sync tiles, and the wgmma body
+        where the package has it and the shape suits it): held to the plain
+        version (kernel 1: 2e-2 * max|plain|, kernel 8: 2e-2 of each row's
+        norm), timed over the weight copies; the times are logged and
+        returned with each plan."""
+        from gptq_for_llama_tpu_torch.ops.cuda import matmul, matmul_t
+        lin = lins[0]
+        m, k, n = x.shape[0], lin.in_features, lin.out_features
+        sms = matmul._sm_count(0)
+        launch = matmul._launch if kind == "fwd" else matmul_t._launch
+        out = {}
+        for path in TC_BODIES:
+            if path == "wgmma" and not (hasattr(matmul, "wgmma_ok") and matmul.wgmma_ok(
+                    k, n, lin.bits, lin.groupsize, lin.scales.shape[0])):
+                continue
+            p = (body_plan(kind, path, m, lin, sms) if hasattr(matmul, "wgmma_ok") else
+                 matmul.plan(m, k, n, lin.bits, sms, path=path) if kind == "fwd" else
+                 matmul_t.plan(m, k, n, lin.bits, sms))
+            y = launch(x, lin, p)
+            err = ((y.float() - ref.float()).abs().max().item() if kind == "fwd"
+                   else row_rel_err(y, ref))
+            tol = 2e-2 * ref.float().abs().max().item() if kind == "fwd" else 2e-2
+            if err > tol:
+                raise AssertionError(f"{'qmm' if kind == 'fwd' else 'qmm_t'} {what} M={m} "
+                                     f"({path} forced): error {err} > {tol}")
+            out[path] = {"ms": graph_ms(torch, [lambda l=l, p=p: launch(x, l, p) for l in lins],
+                                        iters=iters),
+                         "rows": p.mt, "split": p.split}
+        log(f"[kernel {'qmm' if kind == 'fwd' else 'qmm_t'}] {what} {k}x{n} M={m}: bodies forced "
+            + ", ".join(f"{a} {b['ms'] * 1e3:.2f} us (rows {b['rows']}, split {b['split']})"
+                        for a, b in out.items()) + f" | {self.card}")
+        return out
+
+    def _wgmma_cases(self, torch):
+        """The wgmma body of kernels 1 and 8 forced on the ragged set
+        (``hold_tc_cases``: held, twice bit-equal, a graph replay bit-equal);
+        a package without it (an A/B run of an earlier tree) skips this."""
+        from gptq_for_llama_tpu_torch.ops.cuda import matmul
+        if hasattr(matmul, "wgmma_ok"):
+            self.report["wgmma_cases"] = hold_tc_cases(torch, ("wgmma",))
+
     def _kernel2_row(self, torch, randn, gates, ups, m, iters, main=False, serve=False):
         """Kernel 2 at 4096 x 11008 and M rows through the dispatch (the plan's
         form), then every form it has (GEMV, the fragment form up to 16 rows,
@@ -1319,16 +1486,17 @@ class Smoke:
         del x, y, ref, outs
 
     def _qmm_tile_cases(self, torch, rng):
-        """Kernel 1's tile path on ragged cases through the dispatch (no
-        timing): 2, 4 and 8 bits and wire INT3; groupsize 40 (at 2 bits a
+        """Kernel 1's tensor-core bodies on ragged cases through the dispatch
+        (no timing): 2, 4 and 8 bits and wire INT3; groupsize 40 (at 2 bits a
         group boundary inside a packed word), a ragged K slab (520, 560), G =
-        1, groupsize 6 (scales from device memory); act-order, a bias, a ragged
-        column tile and N = 11008; row tiles of 64 (M = 40), 128 (M = 100,
-        512) and 256 (M = 130, 200, 256). Where the plan splits K, held to the
-        plain version at 2e-2 * max|y|; where it does not (the last five
-        cases, wide enough to fill the card), the product is bit-equal (with
-        a bias, on the same linear without it: the plain version rounds the
-        product to bf16 before adding the bias)."""
+        1, groupsize 6 (scales from device memory): the mma.sync tiles take
+        the group sizes that are not multiples of 16, the wgmma body the
+        others; act-order, a bias, a ragged column tile and N = 11008; row
+        tiles of 64 (M = 40), 128 (M = 100, 512) and 256 (M = 130, 200, 256)
+        (the wgmma body's: 144 at M = 130). Where the plan splits K, held to
+        the plain version at 2e-2 * max|y|; where it does not, the product is
+        bit-equal (with a bias, on the same linear without it: the plain
+        version rounds the product to bf16 before adding the bias)."""
         import dataclasses
         from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for, qmm_cuda
         from gptq_for_llama_tpu_torch.ops.linear import PackedLinear, quant_matmul_plain
@@ -1361,7 +1529,7 @@ class Smoke:
             ref = quant_matmul_plain(x, lin)
             err = (y.float() - ref.float()).abs().max().item()
             tol = 2e-2 * ref.float().abs().max().item()
-            ok = path == "tile" and bool(torch.isfinite(y.float()).all()) and err <= tol
+            ok = path in TC_BODIES and bool(torch.isfinite(y.float()).all()) and err <= tol
             ulps = None
             if p.split == 1:
                 bare = dataclasses.replace(lin, bias=None)
@@ -1601,8 +1769,9 @@ class Smoke:
         permutation). Tolerance 2e-2 of each output row's norm: both sides use
         the same bf16 weight (bit-equal dequantization) and accumulate in fp32
         in another order; the plain matmul rounds to bf16 at the end, as the
-        kernel does. Then g = I on q_proj's linear: dx = W^T bit-exactly when
-        the kernel's dequantized slices are bit-equal to
+        kernel does. Each row forces both bodies too (the mma.sync tiles and
+        the wgmma body, ``_tc_bodies``). Then g = I on q_proj's linear: dx =
+        W^T bit-exactly when the kernel's dequantized weight is bit-equal to
         PackedLinear.dequantize."""
         from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import (plan_for, qmm_t_cuda,
                                                                 quant_matmul_t,
@@ -1628,11 +1797,12 @@ class Smoke:
                                iters=iters)
                 p = plan_for(g, lins[0])
                 nbytes = m * n * 2 + self._lin_bytes(lins[0]) + m * k * 2
+                bodies = self._tc_bodies(torch, "bwd", g, lins, ref, what, iters)
                 self._record("qmm_t", f"{what} dx = g @ W^T, K={k} N={n} M={m}", err, 2e-2, ms,
                              pms, lms, nbytes, 2 * m * k * n, main=(what == "q_proj" and m == 1024),
-                             row_rel=rel, ref_max=ref_max,
+                             row_rel=rel, ref_max=ref_max, path=p.path,
                              extra={"row_tile": p.mt, "split": p.split,
-                                    "bit_equal": bool(torch.equal(y, ref))})
+                                    "bit_equal": bool(torch.equal(y, ref)), "bodies_ms": bodies})
             if what == "q_proj":
                 eye = torch.eye(n, device="cuda", dtype=bf)
                 if not torch.equal(qmm_t_cuda(eye, lins[0]), wdq[0].T.contiguous()):
@@ -1752,15 +1922,31 @@ class Smoke:
             q, kc, vc, kn, vn, off_t, d ** -0.5, write_mask=wmask, max_live=max(serving) + 1)])
         pms = graph_ms(torch, [lambda: fused_decode_attention_plain(
             q, wk, wv, kn, vn, off_t, d ** -0.5, write_mask=wmask)], iters=10)
+        # the library yardstick, as the rows above: SDPA over the slots with
+        # every row's current k/v written (a masked-out row still attends
+        # them), on a poison-free copy
+        rows = torch.arange(b, device="cuda")
+        lk, lv = (c.masked_fill(dead, 0.0) for c in (wk, wv))
+        lk[rows, off_t.long()] = kn[:, 0]
+        lv[rows, off_t.long()] = vn[:, 0]
+        mask = (torch.arange(s, device="cuda")[None, :] <= off_t[:, None])[:, None, None, :]
+        qt, lkt, lvt = q.transpose(1, 2), lk.transpose(1, 2), lv.transpose(1, 2)
+        lib_err = row_rel_err(F.scaled_dot_product_attention(qt, lkt, lvt, attn_mask=mask)
+                              .transpose(1, 2), ref)
+        if not lib_err <= 1e-2:
+            raise AssertionError(f"fused_decode_attention: the library yardstick of the masked "
+                                 f"write computes another function ({lib_err})")
+        lms = graph_ms(torch, [lambda: F.scaled_dot_product_attention(qt, lkt, lvt,
+                                                                      attn_mask=mask)])
         stale = sum(serving)
         written = int(wmask.sum().item())
         nbytes = 2 * b * h * d * 2 + (stale + b) * h * d * 2 * 2 + written * h * d * 2 * 2
         self._record("fused_decode_attention", f"B={b} H={h} offsets 37..1500, write under the "
-                     f"mask {wmask.int().tolist()} (caches byte-equal)", err, 1e-2, ms, pms, None,
+                     f"mask {wmask.int().tolist()} (caches byte-equal)", err, 1e-2, ms, pms, lms,
                      nbytes, 4 * (stale + b) * h * d, row_rel=rel, ref_max=ref_max,
                      extra=self._plan_log(attention.plan_for(q, kc, off_t, max(serving) + 1,
                                                              True), h, serving))
-        del kc, vc, wk, wv
+        del kc, vc, wk, wv, lk, lv, lkt, lvt
         torch.cuda.empty_cache()
 
     def _ppl_eval_linears(self, torch, rng, randn):
@@ -1776,7 +1962,7 @@ class Smoke:
             p = plan_for(x, lin)
             ref = quant_matmul_plain(x, lin, bf)
             err = (y.float() - ref.float()).abs().max().item()
-            exact = p.path == "tile" and p.split == 1   # as phase_kernels' rows
+            exact = p.path in TC_BODIES and p.split == 1   # as phase_kernels' rows
             tol = 0 if exact else 2e-2 * ref.float().abs().max().item()
             ulps = bf16_ulps(torch, y, ref) if exact else None
             wdq = lin.dequantize(bf)
@@ -1784,8 +1970,11 @@ class Smoke:
             pms = graph_ms(torch, [lambda: quant_matmul_plain(x, lin, bf)], iters=2)
             lms = graph_ms(torch, [lambda: torch.matmul(x, wdq)], iters=2)
             nbytes = m * k * 2 + self._lin_bytes(lin) + m * n * 2
+            bodies = self._tc_bodies(torch, "fwd", x, [lin], ref, what, iters=2)
             self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
-                         2 * m * k * n, path=p.path, ulps=ulps)
+                         2 * m * k * n, path=p.path, ulps=ulps,
+                         extra={"form": {"path": p.path, "rows": p.mt, "split": p.split},
+                                "bodies_ms": bodies})
             del x, y, ref, wdq
         k, n = 4096, 11008
         gate, up = (self._linears(torch, rng, k, n, 1)[0] for _ in range(2))
@@ -2178,8 +2367,10 @@ class Smoke:
         want_fwd.update(qmm=7 * layers, rms_norm=2 * layers + 1, flash_prefill=layers)
         if "rms_norm:add" in want_fwd:
             want_fwd.update({"rms_norm:add": 2 * layers, "rms_norm:alone": 1})
-        if "qmm:tile" in want_fwd:   # 2 x 512 rows: every linear on the tiles
-            want_fwd["qmm:tile"] = 7 * layers
+        from gptq_for_llama_tpu_torch.ops.cuda import matmul, matmul_t
+        body = f"qmm:{matmul.plan(ids.numel(), 4096, 4096, 4).path}"
+        if body in want_fwd:   # 2 x 512 rows: every linear on one body (each LLaMA width)
+            want_fwd[body] = 7 * layers
         if "flash_prefill:d128" in want_fwd:   # kernel 5 counted by head dim
             want_fwd["flash_prefill:d128"] = layers
         if "flash_prefill:wgmma:d128" in want_fwd:   # and by body: 512 rows take wgmma
@@ -2187,6 +2378,9 @@ class Smoke:
             want_fwd[f"flash_prefill:{plan(ids.shape[1], 0, 128)}:d128"] = layers
         want_bwd = dict.fromkeys(want_fwd, 0)
         want_bwd.update(qmm_t=7 * layers - 3)
+        body = f"qmm_t:{matmul_t.plan(ids.numel(), 4096, 4096, 4).path}"
+        if body in want_bwd:   # kernel 8 counted by body (each LLaMA width on one)
+            want_bwd[body] = 7 * layers - 3
 
         def step():
             opt.zero_grad(set_to_none=True)
@@ -3240,13 +3434,24 @@ class Smoke:
             q, kc, vc, kn, vn, off_t, d ** -0.5, write_mask=wmask, max_live=max(serving) + 1)])
         pms = graph_ms(torch, [lambda: fused_decode_attention_plain(
             q, wk, wv, kn, vn, off_t, d ** -0.5, write_mask=wmask)], iters=10)
+        # the library yardstick, as the rows above: the live cache upcast to
+        # bf16 with every row's current k/v written, then SDPA, both timed
+        n = max(serving) + 1
+        mask = (torch.arange(n, device="cuda")[None, :] <= off_t[:, None])[:, None, None, :]
+        rows_, qt = torch.arange(b, device="cuda"), q.transpose(1, 2)
+        clean_k, clean_v = cache(b, s, h, d), cache(b, s, h, d)
+        for c, new in ((clean_k, kn), (clean_v, vn)):
+            kv_dtype.stored(c)[rows_, off_t.long()] = kv_dtype.encode(new[:, 0], dt)
+        lms = graph_ms(torch, [lambda: F.scaled_dot_product_attention(
+            qt, up(clean_k, n), up(clean_v, n), attn_mask=mask)])
         written = int(wmask.sum().item())
         nbytes = 2 * b * h * d * 2 + (sum(serving) + b) * h * d * isz * 2 + \
             written * h * d * isz * 2
         self._kv_record("fused_decode_attention", name,
                         f"B={b} H={h} offsets 37..1500, write under the mask "
                         f"{wmask.int().tolist()}, k_new up to 600 (caches byte-equal)", y, ref,
-                        ms, pms, None, nbytes, 4 * (sum(serving) + b) * h * d)
+                        ms, pms, lms, nbytes, 4 * (sum(serving) + b) * h * d)
+        del clean_k, clean_v
         del kc, vc, wk, wv
         torch.cuda.empty_cache()
         # kernel 7 at the serving shapes over a poisoned pool; bit-equal to
@@ -5109,9 +5314,11 @@ class Smoke:
                 pms = graph_ms(torch, [lambda l=l: quant_matmul_plain(x, l, bf) for l in lins],
                                iters=10)
                 lms = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wdq])
+                bodies = (self._tc_bodies(torch, "fwd", x, lins, ref, f"{what} tp{tp} {mode}")
+                          if m > FORCED_MS[-1] else None)
                 record("qmm", f"{what} tp{tp} {mode} {kl}x{nl} M={m}", err, tol, ms, pms, lms,
                        m * kl * 2 + self._lin_bytes(lin) + m * nl * 2, 2 * m * kl * nl,
-                       path=plan_for(x, lin).path)
+                       path=plan_for(x, lin).path, extra={"bodies_ms": bodies})
             del lins, wdq
         # kernel 2: gate/up column shards, tp 4's padded to 2816 (zero columns)
         for tp, pad in ((2, 0), (4, 64)):
@@ -5274,14 +5481,15 @@ class Smoke:
                          "plain_ms": e.get("plain_ms"), "bound_ms": e.get("bound_ms"),
                          "bound_by": e.get("bound_by"), "library_ms": e.get("library_ms"),
                          "shape": e.get("shape"), "serve": self.serve_entries.get(name)})
-            if name in ("qmm", "fused_mlp", "rms_norm"):   # the form of every row
+            if name in ("qmm", "fused_mlp", "rms_norm", "qmm_t"):   # the form of every row
                 rows[-1]["paths"] = {k[len(name) + 1:]: p for k, p in self.paths.items()
                                      if k.startswith(name + " ")}
             # the cache dtype read, and the head dim; kernels 4 and 5 by body
             # and head dim too
             by_dtype = ("bf16", "f32", "fp8", "fp8_e5m2", "d64", "d80", "d96", "d128", "d256")
             by_body = tuple(f"{b}:{d}" for b in ("sync", "wgmma") for d in by_dtype[4:])
-            forms = {"qmm": ("gemv", "frag", "tile"), "fused_mlp": ("gemv", "frag", "tile"),
+            forms = {"qmm": ("gemv", "frag", "tile", "wgmma"), "fused_mlp": ("gemv", "frag", "tile"),
+                     "qmm_t": ("tile", "wgmma"),
                      "rms_norm": ("alone", "add"), "decode_attention": by_dtype,
                      "flash_prefill_blocked": by_dtype + by_body,
                      "pool_decode_attention": by_dtype, "fused_decode_attention": by_dtype,

@@ -775,30 +775,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 }
 
 // -- host --------------------------------------------------------------------
-// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
-// -lcuda link)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess || q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess || q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
+using gptq_hopper::encode_tiled;
+using gptq_hopper::EncodeTiled;
 
 // The tensor map of a (B, rows, heads, D) bf16 tensor: a box of one sub-tile
 // (WgmmaDims<D>::kBoxDims dims) x 1 head x 128 rows x 1 batch row, in the

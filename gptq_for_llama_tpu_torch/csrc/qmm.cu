@@ -1,17 +1,20 @@
 // Dequant-GEMM over bit-packed weights: y = x @ dequant(W) (+ bias).
 //
-// Replaces gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. Three forms,
+// Replaces gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. Four forms,
 // chosen by the wrapper's plan (gptq_for_llama_tpu_torch/ops/cuda/matmul.py)
 // from M and the group size: gptq_qmm_frag, the register-fragment form of
 // qmm_frag.cuh with one stream, for 1-16 rows; gptq_qmm, the one-launch GEMV
 // of qmm_gemv.cuh, where the group size does not suit the fragments (and any
-// M whose shape the tiles do not take); gptq_qmm_tile, the tensor-core tiles
-// of qmm_tc.cuh, above 16 rows. Each header describes its bound and design. Plain C entry points,
-// bound from Python with ctypes.
+// M whose shape the tiles do not take); above 16 rows gptq_qmm_wgmma, the
+// Hopper body of qmm_wgmma.cuh (wgmma fed by TMA), where the group size
+// suits it and it measured faster, else gptq_qmm_tile, the mma.sync tiles of
+// qmm_tc.cuh. Each header describes its bound and design. Plain C entry
+// points, bound from Python with ctypes.
 #include "qmm_common.cuh"
 #include "qmm_frag.cuh"
 #include "qmm_gemv.cuh"
 #include "qmm_tc.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -86,4 +89,23 @@ extern "C" int gptq_qmm_tile(const void* x, const void* qweight, const void* sca
 #undef GPTQ_TILES
 #undef GPTQ_TILE
   return static_cast<int>(e);
+}
+
+// x (M, K) bf16 with K % 8 == 0; qweight (K * bits / 32, N) int32 with
+// N % 8 == 0; scales, zeros (G, N) bf16, groupsize % 16 == 0 or G == 1;
+// partial (split, M, N) fp32 when split > 1; bm: the row tile (64, 128, 144,
+// 256); slabs_per_split: 64-row slabs of K per split; sz_rows: the scale rows
+// of the most groups a slab touches (1, 2 or 4); smem_bytes: the plan's size.
+extern "C" int gptq_qmm_wgmma(const void* x, const void* qweight, const void* scales,
+                              const void* zeros, const void* bias, void* out, void* partial,
+                              int M, int K, int N, int G, int groupsize, int bits, int bm,
+                              int split, int slabs_per_split, int sz_rows, int smem_bytes,
+                              void* stream) {
+  const gptq::Stream w{static_cast<const int32_t*>(qweight),
+                       static_cast<const __nv_bfloat16*>(scales),
+                       static_cast<const __nv_bfloat16*>(zeros)};
+  return static_cast<int>(gptq_wg::launch_bits<false>(
+      bits, bm, x, w, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(partial), M, K, N, G, groupsize, split, slabs_per_split, sz_rows,
+      smem_bytes, static_cast<cudaStream_t>(stream)));
 }

@@ -41,6 +41,7 @@
 
 #include "mma_sync.cuh"
 #include "qmm_common.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -399,4 +400,23 @@ extern "C" int gptq_qmm_t(const void* g, const void* qweight, const void* scales
 #undef GPTQ_TILES
 #undef GPTQ_TILE
   return static_cast<int>(e);
+}
+
+// g (M, N) bf16 with N % 8 == 0; qweight (K * bits / 32, N) int32 with
+// K % 8 == 0; scales, zeros (G, N) bf16, groupsize % 16 == 0 or G == 1; dx
+// (M, K) bf16; partial (split, M, K) fp32 when split > 1; bm: the row tile
+// (64, 128, 144, 256); slices_per_split: 64-wide slices of N per split;
+// sz_rows: the scale rows of the groups a block's 128 rows of W touch (1, 2,
+// 4 or 8); smem_bytes: the plan's size.
+extern "C" int gptq_qmm_t_wgmma(const void* g, const void* qweight, const void* scales,
+                                const void* zeros, void* dx, void* partial, int M, int K, int N,
+                                int G, int groupsize, int bits, int bm, int split,
+                                int slices_per_split, int sz_rows, int smem_bytes, void* stream) {
+  const gptq::Stream w{static_cast<const int32_t*>(qweight),
+                       static_cast<const __nv_bfloat16*>(scales),
+                       static_cast<const __nv_bfloat16*>(zeros)};
+  return static_cast<int>(gptq_wg::launch_bits<true>(
+      bits, bm, g, w, nullptr, static_cast<__nv_bfloat16*>(dx), static_cast<float*>(partial), M,
+      K, N, G, groupsize, split, slices_per_split, sz_rows, smem_bytes,
+      static_cast<cudaStream_t>(stream)));
 }

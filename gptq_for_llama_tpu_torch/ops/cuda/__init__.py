@@ -47,10 +47,11 @@ KERNELS = {
 
 
 # kernels counted by form as well: kernels 1 and 2's GEMV, fragments and
-# tiles, kernel 6 alone or with the residual add folded in, and kernels 3, 4,
+# tiles, kernel 1's and kernel 8's wgmma body, kernel 6 alone or with the residual add folded in, and kernels 3, 4,
 # 5, 7 and 9 by the cache dtype they read (bf16, f32, fp8, fp8_e5m2) and by
 # head dim (d64, d80, d96, d128, d256)
 _BY_FORM = {"qmm": matmul.qmm_cuda, "fused_mlp": mlp.fused_mlp_cuda, "rms_norm": norm.rms_norm_cuda,
+            "qmm_t": matmul_t.qmm_t_cuda,
             "decode_attention": attention.decode_attention_cuda,
             "flash_prefill_blocked": flash.flash_prefill_blocked_cuda,
             "flash_prefill": flash_prefill.flash_prefill_cuda,

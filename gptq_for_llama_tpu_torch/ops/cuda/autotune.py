@@ -4,13 +4,14 @@ Counterpart of ``gptq_for_llama_tpu/ops/pallas/autotune.py`` (itself the
 reference's ``custom_autotune.py``), with the same kinds: "fwd" (kernel 1,
 ``matmul.py``), "mlp" (kernel 2, ``mlp.py``) and "bwd" (kernel 8,
 ``matmul_t.py``). The free choices of a plan are its form (``gemv``,
-``frag`` or ``tile``), its row tile ``mt`` and its split (along K; along N
-for kernel 8); the rest follows from them and the shape
-(``matmul.plan_of``, ``matmul_t.plan_of``).
+``frag``, ``tile`` or, for kernels 1 and 8, ``wgmma``), its row tile ``mt``
+and its split (along K; along N for kernel 8); the rest follows from them and
+the shape (``matmul.plan_of``, ``matmul_t.plan_of``).
 
 - ``candidates``: every plan the plan functions build for a shape, forced
   to each form and each power-of-two cluster split (the decode-width forms)
-  or each row tile and split (the tiles), kept where it is valid for every M
+  or each row tile and split (the tiles and the wgmma body), kept where it
+  is valid for every M
   of its pow2 bucket and its shared memory fits an SM; the heuristic's own
   pick first.
 - ``measure``: a chain of the model's own linears of one shape (256 MiB of
@@ -22,6 +23,8 @@ for kernel 8); the rest follows from them and the shape
 - The cache: a JSON file with a version, keyed (kind, K, N, bits,
   groupsize, pow2 M bucket, card name), so another card never reuses these
   answers; written to a temporary file and then renamed over the old one.
+  Version 2 added the wgmma body: a version-1 file (whose races never saw
+  it) raises with its message instead of pinning an old tile plan.
 - ``lookup`` answers the kernels' ``plan_for`` (an override first, then the
   cache; None on a miss, and the heuristic decides). A cached entry or an
   override that is not among the shape's candidates raises, naming where it
@@ -56,14 +59,15 @@ import torch
 MODE_ENV = "GPTQ_TORCH_AUTOTUNE"
 PATH_ENV = "GPTQ_TORCH_AUTOTUNE_CACHE"
 OVERRIDE_ENV = "GPTQ_TORCH_TUNE_OVERRIDE"
-VERSION = 1
+VERSION = 2
 KINDS = ("fwd", "mlp", "bwd")
 REPS = 7            # timed replays of a candidate's chain (the median decides)
 # the weight bytes one chain reads: five times the H100's 50 MB L2, so that
 # every weight comes from HBM as in the model (the 32 q_proj of a 7B model)
 CHAIN_BYTES = 256 * 2**20
 TILE_MIN_SLABS = 4  # the least 64-deep slabs (slices) one tile split keeps
-_OVERRIDE = re.compile(r"(fwd|mlp|bwd):K(\d+):N(\d+)(?::M(\d+))?=(gemv|frag|tile),(\d+),(\d+)")
+_OVERRIDE = re.compile(
+    r"(fwd|mlp|bwd):K(\d+):N(\d+)(?::M(\d+))?=(gemv|frag|tile|wgmma),(\d+),(\d+)")
 
 
 @dataclasses.dataclass
@@ -114,12 +118,15 @@ def parse_overrides(text: str) -> dict:
         if hit is None:
             raise ValueError(f"{OVERRIDE_ENV}: {entry!r} is not "
                              "kind:K<k>:N<n>[:M<bucket>]=path,mt,split (kind fwd, mlp or bwd; "
-                             "path gemv, frag or tile)")
+                             "path gemv, frag, tile or wgmma)")
         kind, k, n, mb, path, mt, split = hit.groups()
         if mb is not None and int(mb) != m_bucket(int(mb)):
             raise ValueError(f"{OVERRIDE_ENV}: {entry!r}: M{mb} is not a power of two")
-        if kind == "bwd" and path != "tile":
-            raise ValueError(f"{OVERRIDE_ENV}: {entry!r}: kernel 8 has the tiles only")
+        if kind == "bwd" and path not in ("tile", "wgmma"):
+            raise ValueError(f"{OVERRIDE_ENV}: {entry!r}: kernel 8 has the tile and wgmma "
+                             "bodies only")
+        if kind == "mlp" and path == "wgmma":
+            raise ValueError(f"{OVERRIDE_ENV}: {entry!r}: kernel 2 has no wgmma body")
         key = (kind, int(k), int(n), None if mb is None else int(mb))
         if key in out:
             raise ValueError(f"{OVERRIDE_ENV}: two entries for {entry.split('=')[0]}")
@@ -237,7 +244,10 @@ def candidates(kind: str, k: int, n: int, bits: int, gs: int, m: int, sms: int) 
       split empty; the tiles (K and N multiples of 8) at every row tile up to
       the one that holds the bucket, each at the split the heuristic gives it
       and at every power-of-two split that keeps ``TILE_MIN_SLABS`` slabs;
-    - kernel 8: its tiles, the same way along N's 64-wide slices.
+      kernel 1's wgmma body (``matmul.wgmma_ok``) the same way over its own
+      row tiles;
+    - kernel 8: its tiles and its wgmma body, the same way along N's
+      64-wide slices.
 
     Shared memory of each fits an SM (1 KB of it reserved per block)."""
     from . import matmul as mm
@@ -246,14 +256,17 @@ def candidates(kind: str, k: int, n: int, bits: int, gs: int, m: int, sms: int) 
         raise ValueError(f"autotune kinds are {KINDS}, got {kind!r}")
     mb = m_bucket(m)
     fits = mm.SMEM_PER_SM - 1024
+    wg = mm.wgmma_ok(k, n, bits, gs, -(-k // gs))
     if kind == "bwd":
-        first = mt_mod.plan(mb, k, n, bits, sms)
+        first = mt_mod.plan(mb, k, n, bits, sms, groupsize=gs)
         slices = -(-n // mt_mod.SLICE_N)
         out = [first]
-        for bm in _row_tiles(mb):
-            splits = [first.split if bm == first.mt else 1]
-            splits += _pow2_splits(max(1, slices // TILE_MIN_SLABS))
-            out += [mt_mod.plan_of(bm, s, n, bits) for s in splits]
+        for path in ("tile", "wgmma") if wg else ("tile",):
+            best = mt_mod.plan(mb, k, n, bits, sms, path=path, groupsize=gs)
+            for bm in _row_tiles(mb, path):
+                splits = [best.split if bm == best.mt else 1]
+                splits += _pow2_splits(max(1, slices // TILE_MIN_SLABS))
+                out += [mt_mod.plan_of(bm, s, n, bits, path) for s in splits]
         return _valid(out, fits)
     streams = 2 if kind == "mlp" else 1
     first = mm.plan(mb, k, n, bits, sms, streams, groupsize=gs)
@@ -269,20 +282,22 @@ def candidates(kind: str, k: int, n: int, bits: int, gs: int, m: int, sms: int) 
                 for s in _pow2_splits(mm.CLUSTER_MAX) if _nonempty(kbs, s)]
     if k % 8 == 0 and n % 8 == 0:
         slabs = -(-k // mm.TC_TILE_K)
-        tile = mm._tile_plan(mb, k, n, bits, sms, streams)
-        for bm in _row_tiles(mb):
-            splits = [tile.split if bm == tile.mt else 1]
-            splits += _pow2_splits(max(1, slabs // TILE_MIN_SLABS))
-            out += [mm.plan_of("tile", bm, s, k, bits, streams) for s in splits]
+        for path in ("tile", "wgmma") if wg and streams == 1 else ("tile",):
+            best = (mm._tile_plan(mb, k, n, bits, sms, streams) if path == "tile"
+                    else mm._wgmma_plan(mb, k, n, bits, sms))
+            for bm in _row_tiles(mb, path):
+                splits = [best.split if bm == best.mt else 1]
+                splits += _pow2_splits(max(1, slabs // TILE_MIN_SLABS))
+                out += [mm.plan_of(path, bm, s, k, bits, streams) for s in splits]
     return _valid(out, fits)
 
 
-def _row_tiles(mb: int) -> list[int]:
-    """The tiles' row tiles up to the first that holds a bucket of ``mb``
-    rows (a larger one only pads)."""
-    from .matmul import TC_ROW_TILES
+def _row_tiles(mb: int, path: str = "tile") -> list[int]:
+    """The row tiles of the tiles (or of the wgmma body) up to the first
+    that holds a bucket of ``mb`` rows (a larger one only pads)."""
+    from .matmul import TC_ROW_TILES, WG_ROW_TILES
     out = []
-    for bm in TC_ROW_TILES:
+    for bm in TC_ROW_TILES if path == "tile" else WG_ROW_TILES:
         out.append(bm)
         if bm >= mb:
             break

@@ -9,12 +9,16 @@ stream), bound by the packed weight bytes; where the group size does not
 suit them, the one-launch GEMV of ``csrc/qmm_gemv.cuh`` (a per-warp
 ``cp.async`` ring of the words, their scales and x; dot-then-scale per
 group); both split K across the blocks of a thread block cluster, whose
-partials meet in rank order in the same launch. Above that the tensor-core
-tiles of ``csrc/qmm_tc.cuh``, bound by operations (the slab dequantized to
-bf16 in shared memory, ``mma.sync`` with fp32 sums, a ``cp.async`` ring). The
-plain version is ``ops.linear.quant_matmul_plain`` (dequantize to the compute
-dtype, then matmul). Kernel 2 (``mlp.py``, two weight streams) takes its plan
-from ``plan`` too, with the same three forms.
+partials meet in rank order in the same launch. Above that, bound by
+operations, the Hopper body of ``csrc/qmm_wgmma.cuh`` (``"wgmma"``: the
+weight dequantized into ``wgmma`` A fragments in registers, x fed by TMA
+through an ``mbarrier`` ring; group sizes that are multiples of 16, or one
+group), else the tensor-core tiles of ``csrc/qmm_tc.cuh`` (``"tile"``: the
+slab dequantized to bf16 in shared memory, ``mma.sync`` with fp32 sums, a
+``cp.async`` ring). The plain version is ``ops.linear.quant_matmul_plain``
+(dequantize to the compute dtype, then matmul). Kernel 2 (``mlp.py``, two
+weight streams) takes its plan from ``plan`` too, with the GEMV, the
+fragments and the tiles.
 """
 
 from __future__ import annotations
@@ -44,6 +48,13 @@ TILE_N = 128          # columns per block: the GEMV's (4 a lane); the tiles' B-t
 GEMV_MAX_M = 0
 FUSED_GEMV_MAX_M = 1
 FRAG_MAX_M = 16
+# Above the fragment form kernel 1 takes the Hopper body (csrc/qmm_wgmma.cuh)
+# from WGMMA_MIN_M rows where its shapes allow (``wgmma_ok``), the mma.sync
+# tiles otherwise: the wgmma body measured faster at every M from the first
+# above FRAG_MAX_M (M = 17: 12.13 against the tiles' 22.40 us at 4096 x 4096,
+# 24.56 against 49.11 at 11008 x 4096; M = 1024: 51.74 against 144.51;
+# scripts/torch_qmm_bodies.py, PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
+WGMMA_MIN_M = FRAG_MAX_M + 1
 CLUSTER_MAX = 8       # blocks of one cluster the plans take
 CLUSTER_LIMIT = 16    # the most the kernels take (above 8: the non-portable attribute)
 GEMV_WARPS = 8
@@ -51,7 +62,12 @@ GEMV_STAGES = {1: 8, 2: 4}   # csrc/qmm_gemv.cuh's ring depth by streams
 FRAG_COLS, FRAG_WARPS, FRAG_STAGES = 32, 8, 3   # csrc/qmm_frag.cuh's block and ring
 # the tile path's row tiles, slab depth and staged groups: csrc/qmm_tc.cuh's
 TC_ROW_TILES, TC_TILE_K, TC_MAX_GROUPS = (64, 128, 256), 64, 4
+# the Hopper body's row tiles (wgmma's N), output columns a block, reduction
+# a stage, deepest ring and bytes of a stage's scale (and zero) rows:
+# csrc/qmm_wgmma.cuh's
+WG_ROW_TILES, WG_COLS, WG_DEPTH, WG_MAX_STAGES, WG_SZ_BYTES = (64, 128, 144, 256), 128, 64, 8, 1024
 SMEM_PER_SM = 233472      # the H100's shared memory of one SM (1 KB of it per block reserved)
+SMEM_PER_BLOCK = 232448   # the most dynamic shared memory one block may have
 
 
 @lru_cache(maxsize=None)
@@ -60,12 +76,14 @@ def _sm_count(index: int) -> int:
 
 
 class Plan(NamedTuple):
-    path: str        # "gemv" (csrc/qmm_gemv.cuh), "frag" (csrc/qmm_frag.cuh) or
-                     # "tile" (csrc/qmm_tc.cuh)
-    mt: int          # rows per block: 1, 2, 4, 8 (gemv), 8, 16 (frag), 64, 128, 256 (tile)
-    split: int       # blocks along K: one cluster (gemv, frag: partial sums added in
-                     # rank order in the launch), or partials summed by a second kernel (tile)
-    per_split: int   # packed words (gemv), K-blocks (frag) or 64-row slabs (tile) per split
+    path: str        # "gemv" (csrc/qmm_gemv.cuh), "frag" (csrc/qmm_frag.cuh), "tile"
+                     # (csrc/qmm_tc.cuh) or "wgmma" (csrc/qmm_wgmma.cuh)
+    mt: int          # rows per block: 1, 2, 4, 8 (gemv), 8, 16 (frag), 64, 128, 256 (tile),
+                     # 64, 128, 144, 256 (wgmma)
+    split: int       # blocks along K: one cluster (gemv, frag: partial sums added in rank
+                     # order in the launch), or partials summed by a second kernel (tile, wgmma)
+    per_split: int   # packed words (gemv), K-blocks (frag) or 64-row slabs (tile, wgmma)
+                     # per split
     smem: int        # dynamic shared memory of one block, bytes
 
 
@@ -79,6 +97,47 @@ def tile_smem_bytes(bits: int, bm: int = 128) -> int:
     scale_zero = 2 * TC_MAX_GROUPS * TILE_N * 2
     stage = bm * stride * 2 + words + scale_zero
     return (4 if bm == 256 else 3) * stage + 2 * TILE_N * stride * 2
+
+
+def wgmma_smem_bytes(bits: int, bm: int) -> int:
+    """Shared memory of one block of the Hopper body (qmm_wgmma.cuh's
+    ``Layout``), kernels 1 and 8 alike: as many stages as fit (at most
+    ``WG_MAX_STAGES``) of x's (g's) ``bm`` x 64 bf16 tile, the stage's packed
+    words (64 x 128 weights) and 1 KB each of scale and zero rows; then the
+    full and empty barriers, and 1 KB to align the stages to the 128-byte
+    swizzle's atom."""
+    stage = bm * WG_DEPTH * 2 + WG_DEPTH * WG_COLS * bits // 8 + 2 * WG_SZ_BYTES
+    bars = 2 * WG_MAX_STAGES * 8
+    stages = min(WG_MAX_STAGES, (SMEM_PER_BLOCK - bars - 1024) // stage)
+    return stages * stage + bars + 1024
+
+
+def wgmma_ok(k: int, n: int, bits: int, groupsize: int, groups: int) -> bool:
+    """The Hopper body's shapes: TMA's 16-byte strides (K and N multiples of
+    8) and every k16 step (kernel 8: every warp's 16 rows of W) inside one
+    group."""
+    return (bits in (2, 4, 8) and k % 8 == 0 and n % 8 == 0
+            and (groups == 1 or groupsize % 16 == 0))
+
+
+@lru_cache(maxsize=None)
+def wgmma_sz_rows(span: int, k: int, groupsize: int, groups: int) -> int:
+    """Scale (and zero) rows one stage of the Hopper body holds: the most
+    groups that ``span`` rows of K from a multiple of ``span`` touch (kernel
+    1's 64-row slab, kernel 8's 128 rows of W a block)."""
+    def group(r):
+        return min(r // groupsize, groups - 1)
+    return max(group(min(k, t + span) - 1) - group(t) + 1 for t in range(0, k, span))
+
+
+def wgmma_row_tile(m: int) -> int:
+    """The Hopper body's row tile (wgmma's N): the smallest of
+    ``WG_ROW_TILES`` that holds M up to 256 rows; above, 256 (measured
+    fastest from M = 512 to 16384 at every LLaMA-7B width, split or not),
+    unless 128-row tiles cover M in fewer rows."""
+    if m <= WG_ROW_TILES[-1]:
+        return next(b for b in WG_ROW_TILES if m <= b)
+    return 256 if -(-m // 256) * 256 <= -(-m // 128) * 128 else 128
 
 
 def tile_blocks_per_sm(bits: int, bm: int) -> int:
@@ -185,11 +244,14 @@ def plan_of(path: str, mt: int, split: int, k: int, bits: int, streams: int = 1)
     if path == "frag":
         per = -(-(-(-k // frag_rows_per_block(bits))) // split)
         return Plan("frag", mt, split, per, frag_smem_bytes(bits, mt // 8))
-    if path != "tile":
-        raise ValueError(f"kernel 1's forms are gemv, frag and tile, got {path!r}")
+    if path not in ("tile", "wgmma"):
+        raise ValueError(f"kernel 1's forms are gemv, frag, tile and wgmma, got {path!r}")
+    if path == "wgmma" and streams != 1:
+        raise ValueError("the wgmma body takes kernel 1 (one weight stream)")
     slabs = -(-k // TC_TILE_K)
     per = -(-slabs // split)
-    return Plan("tile", mt, -(-slabs // per), per, tile_smem_bytes(bits, mt))
+    smem = tile_smem_bytes(bits, mt) if path == "tile" else wgmma_smem_bytes(bits, mt)
+    return Plan(path, mt, -(-slabs // per), per, smem)
 
 
 def _tile_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int) -> Plan:
@@ -201,6 +263,27 @@ def _tile_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int) -> Pla
     slots = sms * tile_blocks_per_sm(bits, bm)
     split, _ = reduction_split(tiles, -(-k // TC_TILE_K), slots, sms, balance=streams == 2)
     return plan_of("tile", bm, split, k, bits, streams)
+
+
+def wgmma_split(tiles: int, units: int, sms: int) -> int:
+    """The wgmma body's split of the reduction (kernels 1 and 8, one block an
+    SM): where the output tiles fill at most half the SMs, the split of the
+    fewest waves x (stages per block + 2) from 1 up (``reduction_split``
+    balanced: 4 at M = 128 and N = 4096, where filling all 132 SMs would cost
+    a second wave; 2 at M = 512); above, none (86 tiles of N = 11008 at M =
+    128: unsplit 38.05 / 34.74 us against 38.64 / 36.73 split 3 for kernels 1
+    / 8). Each the fastest measured (scripts/torch_qmm_bodies.py)."""
+    if tiles > sms // 2:
+        return 1
+    return reduction_split(tiles, units, sms, sms, balance=True)[0]
+
+
+def _wgmma_plan(m: int, k: int, n: int, bits: int, sms: int) -> Plan:
+    """``wgmma_row_tile`` over N's 128-column tiles, then ``wgmma_split``
+    along K."""
+    bm = wgmma_row_tile(m)
+    tiles = -(-n // WG_COLS) * -(-m // bm)
+    return plan_of("wgmma", bm, wgmma_split(tiles, -(-k // WG_DEPTH), sms), k, bits)
 
 
 def cluster_split(tiles: int, units: int, blocks: int, least: int,
@@ -249,24 +332,33 @@ def _frag_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int,
 
 
 def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
-         path: str | None = None, groupsize: int = 128) -> Plan:
+         path: str | None = None, groupsize: int = 128, groups: int | None = None) -> Plan:
     """How one launch of kernel 1 (``streams=1``) or kernel 2 (``streams=2``)
     covers (M, K) @ (K, N).
 
     The GEMV (``_gemv_plan``) up to ``GEMV_MAX_M`` (kernel 1) or
     ``FUSED_GEMV_MAX_M`` (kernel 2) rows; the fragment form (``_frag_plan``)
     up to ``FRAG_MAX_M`` where ``groupsize`` puts every K-block in one group
-    (``frag_ok``), else the GEMV; above that the tiles (``_tile_plan``) when
-    K and N are multiples of 8 (16-byte copies), else the GEMV. ``path``
-    forces one (for measurements, through ``_launch``)."""
+    (``frag_ok``), else the GEMV; above that, for kernel 1, the wgmma body
+    (``_wgmma_plan``) where ``wgmma_ok`` takes the shape (``groups``: the
+    scale rows, ceil(K / groupsize) unless given); else the tiles
+    (``_tile_plan``) when K and N are multiples of 8 (16-byte copies), else
+    the GEMV. ``path`` forces one (for measurements, through ``_launch``)."""
     if path is None:
         wide = k % 8 == 0 and n % 8 == 0
         if m <= (GEMV_MAX_M if streams == 1 else FUSED_GEMV_MAX_M):
             path = "gemv"
         elif m <= FRAG_MAX_M:
             path = "frag" if frag_ok(k, n, bits, groupsize) else "gemv"
+        elif m >= WGMMA_MIN_M and streams == 1 and wgmma_ok(
+                k, n, bits, groupsize, -(-k // groupsize) if groups is None else groups):
+            path = "wgmma"
         else:
             path = "tile" if wide else "gemv"
+    if path == "wgmma":
+        if streams != 1:
+            raise ValueError("the wgmma body takes kernel 1 (one weight stream)")
+        return _wgmma_plan(m, k, n, bits, sms)
     if path == "tile":
         return _tile_plan(m, k, n, bits, sms, streams)
     if path == "frag":
@@ -304,14 +396,16 @@ def check_packed(lin: PackedLinear, x2: torch.Tensor) -> None:
         raise ValueError(f"x on {x2.device}, weights on {lin.qweight.device}")
 
 
-_ENTRIES = {"gemv": "gptq_qmm", "frag": "gptq_qmm_frag", "tile": "gptq_qmm_tile"}
+_ENTRIES = {"gemv": "gptq_qmm", "frag": "gptq_qmm_frag", "tile": "gptq_qmm_tile",
+            "wgmma": "gptq_qmm_wgmma"}
 
 
 def _entry(path: str):
     fn = getattr(build.library("qmm"), _ENTRIES[path])
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * (7 if path == "tile" else 6) + [i] * 10 + [p]
+        fn.argtypes = ([p] * (6 if path in ("gemv", "frag") else 7)
+                       + [i] * (11 if path == "wgmma" else 10) + [p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -323,7 +417,7 @@ def plan_for(x2: torch.Tensor, lin: PackedLinear) -> Plan:
     tuned = autotune.lookup("fwd", lin.in_features, lin.out_features, lin.bits, lin.groupsize,
                             m, sms, x2.device)
     return tuned or plan(m, lin.in_features, lin.out_features, lin.bits, sms,
-                         groupsize=lin.groupsize)
+                         groupsize=lin.groupsize, groups=lin.scales.shape[0])
 
 
 def qmm_cuda(x2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
@@ -342,18 +436,23 @@ def qmm_cuda(x2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
 def _launch(x2: torch.Tensor, lin: PackedLinear, p: Plan) -> torch.Tensor:
     """One launch of kernel 1 on checked operands under plan ``p`` (a
     measurement may pass a plan with its path forced)."""
-    m, k, n = x2.shape[0], lin.in_features, lin.out_features
+    m, k, n, groups = x2.shape[0], lin.in_features, lin.out_features, lin.scales.shape[0]
+    if p.path == "wgmma" and not wgmma_ok(k, n, lin.bits, lin.groupsize, groups):
+        raise ValueError(f"qmm: the wgmma body does not take K={k}, N={n}, {lin.bits}-bit, "
+                         f"groupsize {lin.groupsize} ({groups} groups)")
+    tiled = p.path in ("tile", "wgmma")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     partial = (torch.empty((p.split, m, n), dtype=torch.float32, device=x2.device)
-               if p.path == "tile" and p.split > 1 else None)
-    # the tiles' split sums fp32 partials in a second kernel
-    scratch = (() if p.path != "tile" else
-               (None if partial is None else partial.data_ptr(),))
+               if tiled and p.split > 1 else None)
+    # the tiles' and the wgmma body's split sums fp32 partials in a second kernel
+    scratch = (() if not tiled else (None if partial is None else partial.data_ptr(),))
     rows = p.mt // 8 if p.path == "frag" else p.mt
+    sz_rows = ((wgmma_sz_rows(WG_DEPTH, k, lin.groupsize, groups),) if p.path == "wgmma"
+               else ())
     err = _entry(p.path)(
         x2.data_ptr(), lin.qweight.data_ptr(), lin.scales.data_ptr(), lin.zeros.data_ptr(),
         None if lin.bias is None else lin.bias.data_ptr(), out.data_ptr(), *scratch,
-        m, k, n, lin.scales.shape[0], lin.groupsize, lin.bits, rows, p.split, p.per_split,
+        m, k, n, groups, lin.groupsize, lin.bits, rows, p.split, p.per_split, *sz_rows,
         p.smem, torch.cuda.current_stream(x2.device).cuda_stream)
     build.check(build.library("qmm"), err, f"qmm ({p.path})")
     qmm_cuda.launches += 1
@@ -362,4 +461,4 @@ def _launch(x2: torch.Tensor, lin: PackedLinear, p: Plan) -> torch.Tensor:
 
 
 qmm_cuda.launches = 0
-qmm_cuda.forms = {"gemv": 0, "frag": 0, "tile": 0}   # launches by form
+qmm_cuda.forms = {"gemv": 0, "frag": 0, "tile": 0, "wgmma": 0}   # launches by form

@@ -4,12 +4,15 @@ launch count and plain version.
 Replaces ``gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_t_kernel`` (entry
 ``quant_matmul_t_pallas``): ``dx = g @ dequant(W)^T``, the backward of every
 frozen packed linear when adapters train. The kernel is ``csrc/qmm_t.cu``
-(bf16 tensor cores; each 64-wide slice of W a block needs is dequantized into
-shared memory as the TPU kernel does, ``c * s - z * s`` in fp32 rounded to
-bf16, through a ``cp.async`` ring and two B tiles); its bound on the H100 at
-training row counts is operations. ``plan`` picks the row tile from M and
-splits N across blocks where the tiles alone do not fill the card. The plain
-version is ``g @ lin.dequantize(g.dtype).T``.
+with two bodies on bf16 tensor cores, each weight dequantized as the TPU
+kernel does (``c * s - z * s`` in fp32 rounded to bf16): from 17 rows the
+Hopper body of ``csrc/qmm_wgmma.cuh`` (the weight dequantized into
+``wgmma`` A fragments in registers, g fed by TMA) where the group size
+suits it, else the tiles (each 64-wide slice of W dequantized into shared
+memory through a ``cp.async`` ring and two B tiles, ``mma.sync``); its bound
+on the H100 at training row counts is operations. ``plan`` picks the body,
+the row tile from M and splits N across blocks where the tiles alone do not
+fill the card. The plain version is ``g @ lin.dequantize(g.dtype).T``.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ import torch
 
 from . import autotune, build
 from .grad import refuse_grad
-from .matmul import (TC_MAX_GROUPS, Plan, SMEM_PER_SM, _sm_count, check_tensor, reduction_split,
-                     row_tile)
+from .matmul import (TC_MAX_GROUPS, WG_COLS, WGMMA_MIN_M, Plan, SMEM_PER_SM, _sm_count,
+                     check_tensor, reduction_split, row_tile, wgmma_ok, wgmma_row_tile,
+                     wgmma_smem_bytes, wgmma_split, wgmma_sz_rows)
 from ..linear import PackedLinear
 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/qmm_t.cu"
@@ -51,26 +55,47 @@ def blocks_per_sm(bits: int, bm: int) -> int:
     return max(1, min(2, SMEM_PER_SM // (tile_smem_bytes(bits, bm) + 1024)))
 
 
-def plan(m: int, k: int, n: int, bits: int, sms: int = 132) -> Plan:
-    """How one launch of kernel 8 covers dx (M, K) = g (M, N) @ W^T: kernel
-    1's row tile over dx's 128-wide column tiles, then N split across blocks
-    where the tiles do not fill the card (the fp32 partials are summed in a
-    fixed order by a second kernel). ``per_split`` counts 64-wide slices."""
+def plan(m: int, k: int, n: int, bits: int, sms: int = 132, path: str | None = None,
+         groupsize: int = 128, groups: int | None = None) -> Plan:
+    """How one launch of kernel 8 covers dx (M, K) = g (M, N) @ W^T: from
+    ``matmul.WGMMA_MIN_M`` rows the Hopper body (``path="wgmma"``,
+    csrc/qmm_wgmma.cuh) where it takes the shape (``matmul.wgmma_ok``;
+    measured faster at every LoRA width and M, e.g. 50.84 against the tiles'
+    131.40 us at 4096 x 4096 and M = 1024, scripts/torch_qmm_bodies.py,
+    PERF.md section 6), else the mma.sync tiles (``"tile"``).
+    Each takes its row tile over dx's 128-wide column tiles, then splits N
+    across blocks where the tiles do not fill the card (the wgmma body:
+    ``matmul.wgmma_split``; the fp32 partials are summed in a fixed order by
+    a second kernel). ``per_split`` counts 64-wide slices. ``path`` forces a
+    body (for measurements)."""
+    if path is None:
+        groups = -(-k // groupsize) if groups is None else groups
+        path = ("wgmma" if m >= WGMMA_MIN_M and wgmma_ok(k, n, bits, groupsize, groups)
+                else "tile")
     cols = -(-k // TILE_K)
+    slices = -(-n // SLICE_N)
+    if path == "wgmma":
+        bm = wgmma_row_tile(m)
+        tiles = -(-k // WG_COLS) * -(-m // bm)
+        return plan_of(bm, wgmma_split(tiles, slices, sms), n, bits, path)
     bm = row_tile(m, cols, sms)
     tiles = cols * -(-m // bm)
-    split, _ = reduction_split(tiles, -(-n // SLICE_N), sms * blocks_per_sm(bits, bm), sms)
+    split, _ = reduction_split(tiles, slices, sms * blocks_per_sm(bits, bm), sms)
     return plan_of(bm, split, n, bits)
 
 
-def plan_of(bm: int, split: int, n: int, bits: int) -> Plan:
-    """The plan of kernel 8 with the free choices ``bm`` (the row tile) and
-    ``split`` (blocks along N): each split's 64-wide slices, the split
-    recounted so that none is empty, and the block's shared memory. Every
-    plan of ``plan`` ends here, and so does a tuned one (``autotune``)."""
+def plan_of(bm: int, split: int, n: int, bits: int, path: str = "tile") -> Plan:
+    """The plan of kernel 8 with the free choices ``path`` (the body),
+    ``bm`` (the row tile) and ``split`` (blocks along N): each split's
+    64-wide slices, the split recounted so that none is empty, and the
+    block's shared memory. Every plan of ``plan`` ends here, and so does a
+    tuned one (``autotune``)."""
+    if path not in ("tile", "wgmma"):
+        raise ValueError(f"kernel 8's bodies are tile and wgmma, got {path!r}")
     slices = -(-n // SLICE_N)
     per = -(-slices // split)
-    return Plan("tile", bm, -(-slices // per), per, tile_smem_bytes(bits, bm))
+    smem = tile_smem_bytes(bits, bm) if path == "tile" else wgmma_smem_bytes(bits, bm)
+    return Plan(path, bm, -(-slices // per), per, smem)
 
 
 def quant_matmul_t_plain(g2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
@@ -78,11 +103,11 @@ def quant_matmul_t_plain(g2: torch.Tensor, lin: PackedLinear) -> torch.Tensor:
     return g2 @ lin.dequantize(g2.dtype).T
 
 
-def _entry():
-    fn = build.library("qmm_t").gptq_qmm_t
+def _entry(path: str):
+    fn = getattr(build.library("qmm_t"), "gptq_qmm_t" if path == "tile" else "gptq_qmm_t_wgmma")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 10 + [p]
+        fn.argtypes = [p] * 6 + [i] * (10 if path == "tile" else 11) + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -93,7 +118,8 @@ def plan_for(g2: torch.Tensor, lin: PackedLinear) -> Plan:
     m, sms = g2.shape[0], _sm_count(g2.device.index or 0)
     tuned = autotune.lookup("bwd", lin.in_features, lin.out_features, lin.bits, lin.groupsize,
                             m, sms, g2.device)
-    return tuned or plan(m, lin.in_features, lin.out_features, lin.bits, sms)
+    return tuned or plan(m, lin.in_features, lin.out_features, lin.bits, sms,
+                         groupsize=lin.groupsize, groups=lin.scales.shape[0])
 
 
 def check_operands(g2: torch.Tensor, lin: PackedLinear) -> None:
@@ -126,20 +152,27 @@ def _launch(g2: torch.Tensor, lin: PackedLinear, p: Plan) -> torch.Tensor:
     """One launch of kernel 8 on checked operands under plan ``p`` (a
     measurement may pass another plan)."""
     m, k, n, groups = g2.shape[0], lin.in_features, lin.out_features, lin.scales.shape[0]
+    if p.path == "wgmma" and not wgmma_ok(k, n, lin.bits, lin.groupsize, groups):
+        raise ValueError(f"qmm_t: the wgmma body does not take K={k}, N={n}, {lin.bits}-bit, "
+                         f"groupsize {lin.groupsize} ({groups} groups)")
     out = torch.empty((m, k), dtype=torch.bfloat16, device=g2.device)
     partial = (torch.empty((p.split, m, k), dtype=torch.float32, device=g2.device)
                if p.split > 1 else None)
-    err = _entry()(g2.data_ptr(), lin.qweight.data_ptr(), lin.scales.data_ptr(),
-                   lin.zeros.data_ptr(), out.data_ptr(),
-                   None if partial is None else partial.data_ptr(), m, k, n, groups,
-                   lin.groupsize, lin.bits, p.mt, p.split, p.per_split, p.smem,
-                   torch.cuda.current_stream(g2.device).cuda_stream)
-    build.check(build.library("qmm_t"), err, "qmm_t")
+    sz_rows = ((wgmma_sz_rows(WG_COLS, k, lin.groupsize, groups),) if p.path == "wgmma"
+               else ())
+    err = _entry(p.path)(g2.data_ptr(), lin.qweight.data_ptr(), lin.scales.data_ptr(),
+                         lin.zeros.data_ptr(), out.data_ptr(),
+                         None if partial is None else partial.data_ptr(), m, k, n, groups,
+                         lin.groupsize, lin.bits, p.mt, p.split, p.per_split, *sz_rows, p.smem,
+                         torch.cuda.current_stream(g2.device).cuda_stream)
+    build.check(build.library("qmm_t"), err, f"qmm_t ({p.path})")
     qmm_t_cuda.launches += 1
+    qmm_t_cuda.forms[p.path] += 1
     return out
 
 
 qmm_t_cuda.launches = 0
+qmm_t_cuda.forms = {"tile": 0, "wgmma": 0}   # launches by body
 
 
 def quant_matmul_t(g: torch.Tensor, lin: PackedLinear) -> torch.Tensor:

@@ -39,7 +39,7 @@ def _lin(k=512, n=256, bits=4, gs=128, seed=0):
 
 def _heuristic(kind, k, n, m, bits=4, gs=128):
     if kind == "bwd":
-        return matmul_t.plan(m, k, n, bits, SMS)
+        return matmul_t.plan(m, k, n, bits, SMS, groupsize=gs)
     return matmul.plan(m, k, n, bits, SMS, 2 if kind == "mlp" else 1, groupsize=gs)
 
 
@@ -83,29 +83,37 @@ def test_candidates_are_valid_for_every_m_of_their_bucket(kind, k, n, m):
     with no empty split, fits an SM's shared memory, and is valid for every M
     of the pow2 bucket: the fragment form holds at most 8 rows per n8 tile
     and needs ``frag_ok``, cluster splits are powers of two up to the
-    kernels' limit."""
+    kernels' limit; kernels 1 and 8 race both tensor-core bodies (the
+    mma.sync tiles and the wgmma body, which takes any M), kernel 2 the tiles
+    only."""
     mb = at.m_bucket(m)
     cands = at.candidates(kind, k, n, 4, 128, m, SMS)
     assert cands[0] == _heuristic(kind, k, n, mb)
     assert len({(p.path, p.mt, p.split) for p in cands}) == len(cands)
-    if kind != "bwd":
+    if kind == "fwd":
+        assert {p.path for p in cands} >= ({"gemv", "frag", "tile", "wgmma"} if mb <= 16 else
+                                           {"gemv", "tile", "wgmma"})
+    elif kind == "mlp":
         assert {p.path for p in cands} >= ({"gemv", "frag", "tile"} if mb <= 16 else
                                            {"gemv", "tile"})
+        assert "wgmma" not in {p.path for p in cands}
+    else:
+        assert {p.path for p in cands} == {"tile", "wgmma"}
     for p in cands:
         assert p.smem <= matmul.SMEM_PER_SM - 1024
         if kind == "bwd":
-            assert p == matmul_t.plan_of(p.mt, p.split, n, 4)
+            assert p == matmul_t.plan_of(p.mt, p.split, n, 4, p.path)
             units = -(-n // matmul_t.SLICE_N)
         else:
             assert p == matmul.plan_of(p.path, p.mt, p.split, k, 4, 2 if kind == "mlp" else 1)
             units = {"gemv": k // 8, "frag": -(-k // matmul.frag_rows_per_block(4)),
-                     "tile": -(-k // matmul.TC_TILE_K)}[p.path]
+                     "tile": -(-k // matmul.TC_TILE_K), "wgmma": -(-k // matmul.WG_DEPTH)}[p.path]
         assert p.split * p.per_split >= units > (p.split - 1) * p.per_split
         if p.path in ("gemv", "frag"):
             assert p.split & (p.split - 1) == 0 and p.split <= matmul.CLUSTER_LIMIT
-        if p.path == "tile":
-            assert p.mt in matmul.TC_ROW_TILES
-            assert p.per_split >= at.TILE_MIN_SLABS or p == cands[0]
+        if p.path in ("tile", "wgmma"):
+            assert p.mt in (matmul.TC_ROW_TILES if p.path == "tile" else matmul.WG_ROW_TILES)
+            assert p.per_split >= at.TILE_MIN_SLABS or p == cands[0] or p.split == 1
         for rows in range(mb // 2 + 1, mb + 1):
             if p.path == "frag":
                 assert rows <= p.mt and matmul.frag_ok(k, n, 4, 128)
@@ -237,6 +245,7 @@ def test_mode_0_and_ro(tune, monkeypatch):
 @pytest.mark.parametrize("text", [
     "fwd:K4096:N4096=frag,16", "fwd:K4096=tile,64,1", "mlp:K4096:N11008=warp,8,1",
     "dx:K4096:N4096=tile,64,1", "fwd:K4096:N4096:M3=frag,8,1", "bwd:K4096:N4096=frag,8,1",
+    "mlp:K4096:N11008=wgmma,128,1", "bwd:K4096:N4096=wgma,128,1",
     "fwd:K4096:N4096=tile,64,1;fwd:K4096:N4096=tile,64,2", "fwd:K4096:N4096=tile,64,1,2",
     "fwd:k4096:n4096=tile,64,1"])
 def test_a_malformed_override_raises(tune, monkeypatch, text):
@@ -302,3 +311,54 @@ def test_ensure_is_a_no_op_on_the_cpu(tune, monkeypatch):
     at.ensure_mlp_pairs(pairs, 1)
     ModelRunner("llama", cfg, params, device="cpu").warmup(prefill_buckets=(16,))
     assert calls == [] and at.measurements == 0
+
+
+def test_an_override_naming_the_wgmma_body_is_parsed_and_checked(tune, monkeypatch):
+    """``path`` may name the wgmma body for kernels 1 and 8: a row tile and
+    split among the shape's candidates pins it; one that is not (a row tile
+    the body does not have) raises, naming the entry."""
+    monkeypatch.setenv(at.OVERRIDE_ENV, "fwd:K4096:N4096:M1024=wgmma,256,1;"
+                                        "bwd:K4096:N4096=wgmma,128,4;fwd:K4096:N4096:M128=wgmma,96,4")
+    at.configure()
+    got = at.lookup("fwd", 4096, 4096, 4, 128, 1000, SMS, "cuda")
+    assert (got.path, got.mt, got.split) == ("wgmma", 256, 1)
+    assert got == matmul.plan_of("wgmma", 256, 1, 4096, 4)
+    got = at.lookup("bwd", 4096, 4096, 4, 128, 128, SMS, "cuda")
+    assert got == matmul_t.plan_of(128, 4, 4096, 4, "wgmma")
+    with pytest.raises(ValueError, match="fwd:K4096:N4096:M128"):
+        at.lookup("fwd", 4096, 4096, 4, 128, 128, SMS, "cuda")
+
+
+def test_a_version_1_cache_raises(tune):
+    """A cache written before the wgmma body (version 1, whose races never
+    saw it) raises with its message instead of pinning an old tile plan."""
+    assert at.VERSION == 2
+    key = f"fwd:K4096:N4096:b4:g128:M1024:{CARD}"
+    with open(tune, "w") as f:
+        json.dump({"version": 1, "entries": {key: {"path": "tile", "mt": 128, "split": 1}}}, f)
+    at.configure()
+    with pytest.raises(ValueError, match="version 1, this package writes 2"):
+        at.lookup("fwd", 4096, 4096, 4, 128, 1024, SMS, "cuda")
+
+
+@pytest.mark.parametrize("kind,k,n,m", [c for c in CASES if c[0] != "mlp" and c[3] > 16]
+                         + [("fwd", 4096, 2048, 128), ("bwd", 4096, 11008, 2048)])
+def test_wgmma_candidates_are_valid_for_every_m_of_their_bucket(kind, k, n, m):
+    """The wgmma body's candidates: its row tiles (64, 128, 144, 256) up to
+    the first that holds the bucket, each at its heuristic split and at
+    every power-of-two split that keeps TILE_MIN_SLABS stages; any M of the
+    bucket runs on each (wgmma's N is the row tile, rows past M read as
+    zeros); its shapes must suit the body (g40 races the tiles only)."""
+    mb = at.m_bucket(m)
+    cands = [p for p in at.candidates(kind, k, n, 4, 128, m, SMS) if p.path == "wgmma"]
+    tiles = []
+    for bm in matmul.WG_ROW_TILES:
+        tiles.append(bm)
+        if bm >= mb:
+            break
+    assert {p.mt for p in cands} == set(tiles)
+    units = -(-(k if kind == "fwd" else n) // 64)
+    for p in cands:
+        assert p.smem == matmul.wgmma_smem_bytes(4, p.mt)
+        assert p.split * p.per_split >= units > (p.split - 1) * p.per_split
+    assert not [p for p in at.candidates(kind, k, n, 4, 40, m, SMS) if p.path == "wgmma"]

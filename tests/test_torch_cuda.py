@@ -115,18 +115,20 @@ def test_qmm_matches_plain(card, bits, m, k, gs, actorder):
     (8, 1024, 1024, 4104, 32, True, True), (4, 2048, 512, 4096, 1024, False, False),
     (3, 300, 1024, 8192, 128, False, True)])
 def test_qmm_tile_path_matches_plain(card, bits, m, k, n, gs, actorder, bias):
-    """Kernel 1's tensor-core tile path (M > 4) through the dispatch: 2, 4
+    """Kernel 1's tensor-core bodies (M > 16) through the dispatch: 2, 4
     and 8 bits and wire INT3; groupsize 40 (at 2 bits a group boundary falls
     inside a packed word), a ragged K slab (520, 560), G = 1, groupsize 6 (a
     slab touches more groups than the stage holds: scales from device memory);
-    act-order, a bias, a ragged column tile (264, 4104) and N = 11008; row
-    tiles of 64 (M = 40), 128 (M = 100, 512) and 256 (M = 130, 200, 256).
-    Where the plan splits K (fp32 partials summed by a second kernel) the
-    output is held to 2e-2 * max|y|, as the GEMV; where it does not, the tiles
-    sum the k16 products in cuBLAS's order and the product is bit-equal to the
-    plain version (with a bias, on the same linear without it: the plain
-    version rounds the product to bf16 before adding the bias)."""
+    act-order, a bias, a ragged column tile (264, 4104) and N = 11008. The
+    group sizes that are multiples of 16 (and G = 1) take the wgmma body (row
+    tiles 64, 128, 144, 256), the others the mma.sync tiles. Where the plan
+    splits K (fp32 partials summed by a second kernel) the output is held to
+    2e-2 * max|y|, as the GEMV; where it does not, both bodies sum the k16
+    products in cuBLAS's order and the product is bit-equal to the plain
+    version (with a bias, on the same linear without it: the plain version
+    rounds the product to bf16 before adding the bias)."""
     import dataclasses
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul
     from gptq_for_llama_tpu_torch.ops.cuda.matmul import plan_for
     lin = _linear(k, n, bits, gs, seed=m + k, device=card, actorder=actorder, bias=bias)
     x = torch.randn(m, k, device=card).bfloat16()
@@ -134,7 +136,10 @@ def test_qmm_tile_path_matches_plain(card, bits, m, k, n, gs, actorder, bias):
     got = quant_matmul(x, lin)
     torch.cuda.synchronize()
     p = plan_for(x, lin)
-    assert kernels.launch_counts()["qmm"] == 1 and p.path == "tile"
+    body = ("wgmma" if matmul.wgmma_ok(k, n, lin.bits, lin.groupsize, lin.scales.shape[0])
+            else "tile")
+    assert kernels.launch_counts()["qmm"] == 1 and p.path == body
+    assert kernels.launch_counts()[f"qmm:{body}"] == 1
     assert torch.isfinite(got.float()).all()
     assert _close(got, quant_matmul_plain(x, lin), 2e-2)
     if p.split == 1:
@@ -146,14 +151,14 @@ def test_qmm_tile_path_matches_plain(card, bits, m, k, n, gs, actorder, bias):
 @pytest.mark.parametrize("m", [1, 4, 5, 8, 64])
 def test_qmm_paths_agree_where_both_run(card, m):
     """Kernel 1's forms, forced, at M on either side of the thresholds (the
-    fragment form up to 16 rows): each within 2e-2 * max|y| of the plain
-    version."""
+    fragment form up to 16 rows; the two tensor-core bodies at any M): each
+    within 2e-2 * max|y| of the plain version."""
     from gptq_for_llama_tpu_torch.ops.cuda import matmul
     lin = _linear(1024, 512, 4, 128, seed=m, device=card, bias=True)
     x = torch.randn(m, 1024, device=card).bfloat16()
     want = quant_matmul_plain(x, lin)
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    for path in ("gemv", "tile") + (("frag",) if m <= matmul.FRAG_MAX_M else ()):
+    for path in ("gemv", "tile", "wgmma") + (("frag",) if m <= matmul.FRAG_MAX_M else ()):
         p = matmul.plan(m, 1024, 512, 4, sms, path=path)
         assert p.path == path
         assert _close(matmul._launch(x, lin, p), want, 2e-2), path
@@ -946,6 +951,25 @@ def test_qmm_t_plans_match_plain(card, k, n, m):
 
 
 @pytest.mark.cuda
+def test_tensor_core_bodies_hold_the_ragged_set(card):
+    """Kernels 1 and 8 with each tensor-core body forced (the mma.sync tiles
+    and the wgmma body) on chip_smoke.py's ragged set (``hold_tc_cases``:
+    every device bits value and wire INT3, g128, g64, g32, g16, G = 1,
+    act-order, a bias, ragged M 17-300, a ragged last column tile and group,
+    N = 11008, with and without a split): each within 2e-2 * max|plain|,
+    without a split the tiles' product bit-equal (the wgmma body's ulps
+    reported), two launches bit-equal and a CUDA-graph replay bit-equal to
+    the eager launch."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    rows = chip_smoke.hold_tc_cases(torch, ("tile", "wgmma"))
+    assert rows and all(r["ok"] for r in rows)
+    assert {r["path"] for r in rows} == {"tile", "wgmma"}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bits,k,gs,actorder", [(4, 512, 128, False), (2, 560, 40, False),
                                                 (8, 520, 40, True), (3, 512, 64, False),
                                                 (4, 1024, 1024, False), (4, 512, 6, False)])
@@ -1602,8 +1626,9 @@ def test_lora_step_on_neox_at_head_dim_96(card):
 @pytest.mark.cuda
 def test_lora_gradient_check_fails_on_a_planted_kernel_8_fault(card, tmp_path):
     """chip_smoke.py's 2-layer 7B-width LoRA gradient check has teeth: a copy
-    of the port whose kernel 8 reads the scale and zero of the next group
-    (built from scratch in a temporary directory) fails it. Prints the
+    of the port whose kernel 8 (its wgmma body, which the check's shapes
+    take) reads the scale and zero of the next group (built from scratch in
+    a temporary directory) fails it. Prints the
     check's reading (run with -s or -rA to see it)."""
     import pathlib
     import shutil
@@ -1614,10 +1639,12 @@ def test_lora_gradient_check_fails_on_a_planted_kernel_8_fault(card, tmp_path):
     shutil.copytree(root / "gptq_for_llama_tpu_torch", tmp_path / "gptq_for_llama_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy(root / "chip_smoke.py", tmp_path)
-    src = tmp_path / "gptq_for_llama_tpu_torch" / "csrc" / "qmm_t.cu"
-    text, good = src.read_text(), "int gi = min(r0 / groupsize, G - 1);"
+    # the check's linears (g128, M = 128) take kernel 8's wgmma body: its
+    # producer loads the scale and zero rows of the next group instead
+    src = tmp_path / "gptq_for_llama_tpu_torch" / "csrc" / "qmm_wgmma.cuh"
+    text, good = src.read_text(), "const int g_lo = group_of(o0, groupsize, G);"
     assert text.count(good) == 1
-    src.write_text(text.replace(good, "int gi = min(r0 / groupsize + 1, G - 1);"))
+    src.write_text(text.replace(good, "const int g_lo = group_of(o0 + groupsize, groupsize, G);"))
     code = textwrap.dedent("""
         import torch
         import chip_smoke

@@ -5,7 +5,9 @@ widths. Pure arithmetic: no card, no nvcc.
 
 Kernel 1 takes the one-stream register-fragment form up to ``FRAG_MAX_M``
 rows (the one-launch GEMV where the group size does not suit it, or at M <=
-``GEMV_MAX_M``) and the tensor-core tiles above; kernel 2 takes its GEMV at
+``GEMV_MAX_M``) and above them the Hopper body (``csrc/qmm_wgmma.cuh``:
+wgmma fed by TMA) where its shapes allow, the mma.sync tiles otherwise;
+kernel 8 the same two bodies; kernel 2 takes its GEMV at
 M = 1, the fragment form up to ``FRAG_MAX_M`` and kernel 1's tiles with two
 interleaved streams above; the decode-width forms split K across the blocks
 of one thread block cluster; kernel 8 takes kernel 1's row tile and splits N
@@ -20,8 +22,10 @@ import pytest
 from gptq_for_llama_tpu_torch.ops.cuda import matmul
 from gptq_for_llama_tpu_torch.ops.cuda.matmul import (CLUSTER_LIMIT, CLUSTER_MAX, FRAG_MAX_M,
                                                       FUSED_GEMV_MAX_M, GEMV_MAX_M, SMEM_PER_SM,
-                                                      TC_ROW_TILES, Plan, frag_ok, plan,
-                                                      tile_blocks_per_sm, tile_smem_bytes)
+                                                      TC_ROW_TILES, WG_ROW_TILES, WGMMA_MIN_M,
+                                                      Plan, frag_ok, plan, tile_blocks_per_sm,
+                                                      tile_smem_bytes, wgmma_ok, wgmma_smem_bytes,
+                                                      wgmma_sz_rows)
 
 SMS = 132   # the H100 SXM's SMs
 SMEM_PER_BLOCK = 232448   # the most dynamic shared memory one block may have
@@ -41,15 +45,15 @@ def test_kernel_1_keeps_the_gemv_for_decode(k, n, m, want):
     and K split 2 ways across a cluster (128 blocks, one an SM), K-blocks of
     32 rows per split; the GEMV (forced, or where the group size does not
     suit the fragments) takes 8 cluster splits of 64 or 172 packed words,
-    one row per block at M = 1 and 8 at M = 8, and the tiles take over from
-    M = 17."""
+    one row per block at M = 1 and 8 at M = 8, and the wgmma body takes over
+    from M = 17."""
     p = plan(m, k, n, 4, SMS)
     assert (p.path, p.mt, p.split, p.per_split) == want
     gemv = plan(1, k, n, 4, SMS, path="gemv")
     assert (gemv.mt, gemv.split, gemv.per_split) == (1, 8, k // 64)
     eight = plan(8, k, n, 4, SMS, path="gemv")
     assert (eight.mt, eight.split, eight.per_split) == (8, 8, k // 64)
-    assert plan(8, k, n, 4, SMS).path == "frag" and plan(17, k, n, 4, SMS).path == "tile"
+    assert plan(8, k, n, 4, SMS).path == "frag" and plan(17, k, n, 4, SMS).path == "wgmma"
     assert plan(m, k, n, 4, SMS, groupsize=40).path == "gemv"
 
 
@@ -57,31 +61,53 @@ def test_kernel_1_keeps_the_gemv_for_decode(k, n, m, want):
 @pytest.mark.parametrize("bits", [2, 4, 8])
 def test_kernel_1_takes_the_tiles_above_the_threshold(k, n, bits):
     """The fragment form up to FRAG_MAX_M rows (groupsize 128 suits it at
-    every width), the tiles above."""
+    every width), above it the tensor-core bodies: the wgmma body, which
+    replaced the mma.sync tiles from WGMMA_MIN_M wherever it takes the
+    shape (measured faster at every smoke M); the tiles forced cover K the
+    same way."""
+    assert WGMMA_MIN_M == FRAG_MAX_M + 1
+
     def want(m):
-        return "gemv" if m <= GEMV_MAX_M else "frag" if m <= FRAG_MAX_M else "tile"
+        return "gemv" if m <= GEMV_MAX_M else "frag" if m <= FRAG_MAX_M else "wgmma"
     for m in range(1, 40):
         assert plan(m, k, n, bits, SMS).path == want(m)
+    slabs = -(-k // matmul.TC_TILE_K)
     for m in SMOKE_MS:
         p = plan(m, k, n, bits, SMS)
         assert p.path == want(m)
-        if p.path == "tile":
-            slabs = -(-k // matmul.TC_TILE_K)
-            # the splits cover every 64-row slab, none is empty
-            assert p.mt in TC_ROW_TILES
-            assert p.split * p.per_split >= slabs > (p.split - 1) * p.per_split
+        for q, tiles in ((p, WG_ROW_TILES), (plan(m, k, n, bits, SMS, path="tile"), TC_ROW_TILES)):
+            if q.path in ("tile", "wgmma"):
+                # the splits cover every 64-row slab, none is empty
+                assert q.mt in tiles
+                assert q.split * q.per_split >= slabs > (q.split - 1) * q.per_split
 
 
 @pytest.mark.parametrize("k,n", SHAPES)
 def test_kernel_1_tiles_fill_the_card_at_the_serving_chunk(k, n):
-    """M = 100-136 at N = 4096 has one row of 32 tiles: K is split until
-    every SM has a block; each split keeps at least 4 slabs."""
+    """M = 100-136 at N = 4096 has one row of 32 tiles: the mma.sync tiles
+    (two blocks an SM) split K until every SM has a block; the wgmma body
+    (one block an SM) takes the split of the fewest waves x (slabs + 2)
+    where its tiles fill at most half the SMs, one wave of blocks at N =
+    4096 (4 ways: 128 blocks, measured fastest; 5 would start a second
+    wave), and no split above (86 tiles at N = 11008, measured fastest);
+    each split keeps at least 4 slabs."""
+    slabs = -(-k // matmul.TC_TILE_K)
     for m in range(100, 137):
-        p = plan(m, k, n, 4, SMS)
+        p = plan(m, k, n, 4, SMS, path="tile")
         tiles = -(-n // matmul.TILE_N) * -(-m // p.mt)
         assert tiles * p.split >= SMS
         assert p.per_split >= 4
-    assert plan(1024, 4096, 4096, 4, SMS).split == 1   # 256 tiles: no split
+        w = plan(m, k, n, 4, SMS)
+        tiles = -(-n // matmul.WG_COLS) * -(-m // w.mt)
+        assert w.path == "wgmma" and w.per_split >= 4
+        waves = -(-tiles * w.split // SMS)
+        if tiles <= SMS // 2:
+            assert all(waves * (w.per_split + 2) <= -(-tiles * s // SMS) * (-(-slabs // s) + 2)
+                       for s in range(1, slabs // 4 + 1))
+        else:   # 86 tiles at N = 11008: unsplit measured fastest
+            assert w.split == 1
+    assert plan(1024, 4096, 4096, 4, SMS, path="tile").split == 1   # 256 tiles: no split
+    assert plan(1024, 4096, 4096, 4, SMS).split == 1   # 128 wgmma tiles of 256 rows: none
 
 
 @pytest.mark.parametrize("m,want", [(5, 64), (9, 64), (64, 64), (65, 128), (100, 128), (128, 128),
@@ -102,11 +128,13 @@ def test_kernel_1_row_tile_covers_small_m_in_one_tile(m, want):
     (11008, 4096, 512, (128, 2, 86)), (11008, 4096, 2048, (256, 1, 172)),
     (4096, 11008, 128, (128, 3, 22)), (4096, 11008, 1024, (256, 1, 64))])
 def test_kernel_1_tile_plans_at_the_smoke_shapes(k, n, m, want):
-    """Row tile, K-splits and slabs per split at the shapes the smoke times
-    (the fewest waves x (slabs per block + 2) among the splits that fill the
-    card: 8 ways at the serving chunk, 2 at M = 512, none above)."""
-    p = plan(m, k, n, 4, SMS)
+    """The mma.sync tiles' row tile, K-splits and slabs per split at the
+    shapes the smoke times (the fewest waves x (slabs per block + 2) among
+    the splits that fill the card: 8 ways at the serving chunk, 2 at M =
+    512, none above), forced: the wgmma body took these shapes over."""
+    p = plan(m, k, n, 4, SMS, path="tile")
     assert p.path == "tile" and (p.mt, p.split, p.per_split) == want
+    assert plan(m, k, n, 4, SMS).path == "wgmma"
 
 
 def test_tile_path_needs_whole_16_byte_copies():
@@ -114,7 +142,8 @@ def test_tile_path_needs_whole_16_byte_copies():
     copies move 8 bf16 or 4 words at a time)."""
     assert plan(512, 4100, 4096, 8, SMS).path == "gemv"
     assert plan(512, 4096, 4100, 4, SMS).path == "gemv"
-    assert plan(512, 4096, 4104, 4, SMS).path == "tile"
+    assert plan(512, 4096, 4104, 4, SMS).path == "wgmma"   # TMA's strides: multiples of 8 too
+    assert plan(512, 4096, 4104, 4, SMS, groupsize=40).path == "tile"
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -167,8 +196,11 @@ def test_kernel_2_keeps_its_gemv_plan(m):
     assert (p.path == "gemv") == (m <= FUSED_GEMV_MAX_M)
     if p.path == "tile":
         assert p.smem == tile_smem_bytes(4, p.mt)
-        # the same plan as kernel 1 at the same columns of y (86 tiles of 128)
-        assert p == plan(m, 4096, 11008, 4, SMS) or m >= 512
+        # the same plan as kernel 1's tiles at the same columns of y (86
+        # tiles of 128)
+        assert p == plan(m, 4096, 11008, 4, SMS, path="tile") or m >= 512
+        with pytest.raises(ValueError):   # the wgmma body takes one weight stream
+            plan(m, 4096, 11008, 4, SMS, streams=2, path="wgmma")
 
 
 @pytest.mark.parametrize("k,n", [(4096, 11008), (512, 384), (1024, 256)])
@@ -228,13 +260,14 @@ def test_kernel_1_takes_the_fragment_form_up_to_16_rows(k, n, bits, gs):
     every K-block (4 packed word-rows, 128 / bits rows) lies in one group: a
     block covers 64 columns of y, one n8 tile of x's rows up to M = 8 and
     two up to 16; its splits cover every K-block, each warp keeps at least
-    two, the cluster has at most CLUSTER_MAX blocks; tiles from M = 17."""
+    two, the cluster has at most CLUSTER_MAX blocks; the wgmma body from M =
+    17 (every group size here a multiple of 16)."""
     kb = 4 * (32 // bits)
     assert frag_ok(k, n, bits, gs) == (gs % kb == 0)
     for m in range(1, 40):
         p = plan(m, k, n, bits, SMS, groupsize=gs)
         want = ("gemv" if m <= GEMV_MAX_M or (m <= FRAG_MAX_M and gs % kb) else
-                "frag" if m <= FRAG_MAX_M else "tile")
+                "frag" if m <= FRAG_MAX_M else "wgmma")
         assert p.path == want
         if p.path == "frag":
             kbs = -(-k // kb)
@@ -252,7 +285,8 @@ def test_kernel_1_takes_the_fragment_form_up_to_16_rows(k, n, bits, gs):
 def test_kernel_1_group_sizes_the_fragment_form_does_not_take(gs, bits):
     """A group size that puts a group boundary inside a K-block (40, 24 or 6
     rows against K-blocks of 64, 32 or 16) keeps kernel 1 on the GEMV up to
-    16 rows; the tiles take such sizes above."""
+    16 rows; the mma.sync tiles take such sizes above (the wgmma body needs
+    whole k16 steps in a group)."""
     k = 2 * 3 * 5 * 7 * 32   # whole packed words and K-blocks at every width
     assert not frag_ok(k, 256, bits, gs)
     for m in (1, 2, 8, 16):
@@ -314,7 +348,9 @@ def test_gemv_shared_memory(bits, mt, streams):
 
 def test_a_path_can_be_forced_for_measurement():
     assert plan(8, 4096, 4096, 4, SMS, path="tile").path == "tile"
-    assert plan(512, 4096, 4096, 4, SMS).path == "tile"
+    assert plan(512, 4096, 4096, 4, SMS).path == "wgmma"
+    assert plan(512, 4096, 4096, 4, SMS, path="tile").path == "tile"
+    assert plan(8, 4096, 4096, 4, SMS, path="wgmma").path == "wgmma"
     assert plan(8, 4096, 4096, 4, SMS, path="frag") == plan(8, 4096, 4096, 4, SMS)
     assert plan(512, 4096, 4096, 4, SMS, path="gemv") == plan(512, 4096, 4096, 4, SMS,
                                                               streams=1, path="gemv")
@@ -325,23 +361,35 @@ def test_a_path_can_be_forced_for_measurement():
 from gptq_for_llama_tpu_torch.ops.cuda import matmul_t  # noqa: E402
 
 
-@pytest.mark.parametrize("k,n,m,want", [
-    (4096, 4096, 1, (64, 8, 8)), (4096, 4096, 128, (128, 8, 8)),
-    (4096, 4096, 1024, (128, 1, 64)), (4096, 4096, 2048, (256, 1, 64)),
-    (11008, 4096, 1, (64, 3, 22)), (11008, 4096, 128, (128, 3, 22)),
-    (11008, 4096, 1024, (256, 1, 64)), (11008, 4096, 2048, (256, 1, 64)),
-    (4096, 11008, 1, (64, 8, 22)), (4096, 11008, 128, (128, 8, 22)),
-    (4096, 11008, 1024, (128, 1, 172)), (4096, 11008, 2048, (256, 1, 172))])
-def test_kernel_8_plans_at_the_lora_widths(k, n, m, want):
+@pytest.mark.parametrize("k,n,m,tile,wgmma", [
+    (4096, 4096, 1, (64, 8, 8), None), (4096, 4096, 128, (128, 8, 8), (128, 4, 16)),
+    (4096, 4096, 1024, (128, 1, 64), (256, 1, 64)), (4096, 4096, 2048, (256, 1, 64), (256, 1, 64)),
+    (11008, 4096, 1, (64, 3, 22), None), (11008, 4096, 128, (128, 3, 22), (128, 1, 64)),
+    (11008, 4096, 1024, (256, 1, 64), (256, 1, 64)),
+    (11008, 4096, 2048, (256, 1, 64), (256, 1, 64)),
+    (4096, 11008, 1, (64, 8, 22), None), (4096, 11008, 128, (128, 8, 22), (128, 4, 43)),
+    (4096, 11008, 1024, (128, 1, 172), (256, 1, 172)),
+    (4096, 11008, 2048, (256, 1, 172), (256, 1, 172))])
+def test_kernel_8_plans_at_the_lora_widths(k, n, m, tile, wgmma):
     """Row tile, N-splits and 64-wide slices per split of kernel 8 at the
     three LoRA widths (q/k/v/o, down_proj's transpose: dx of width 11008,
-    gate/up's: a reduction of 11008): kernel 1's row tile over dx's 128-wide
-    column tiles; at the gradient check's M = 128 the 32 or 86 tiles alone do
-    not fill 132 SMs and N is split; from the training batch (M = 1024) up it
-    is not."""
+    gate/up's: a reduction of 11008). From WGMMA_MIN_M rows the wgmma body
+    (measured faster at every LoRA width and M): its row tile holds M up to
+    256 rows, 256 above, and N is split to the fewest waves x (slices + 2)
+    where dx's column tiles fill at most half the SMs (4 ways at M = 128 and
+    K = 4096; none for dx's 86 column tiles at K = 11008, measured faster).
+    Below, and forced, the mma.sync tiles: kernel 1's row tile over dx's
+    128-wide column tiles; at the gradient check's M = 128 the 32 or 86
+    tiles alone do not fill 132 SMs and N is split; from the training batch
+    (M = 1024) up it is not."""
     p = matmul_t.plan(m, k, n, 4, SMS)
-    assert (p.mt, p.split, p.per_split) == want
-    assert p.smem == matmul_t.tile_smem_bytes(4, p.mt)
+    assert p.path == ("wgmma" if wgmma else "tile")
+    assert (p.mt, p.split, p.per_split) == (wgmma or tile)
+    assert p.smem == (wgmma_smem_bytes if wgmma else matmul_t.tile_smem_bytes)(4, p.mt)
+    t = matmul_t.plan(m, k, n, 4, SMS, path="tile")
+    assert t.path == "tile" and (t.mt, t.split, t.per_split) == tile
+    assert t.smem == matmul_t.tile_smem_bytes(4, t.mt)
+    assert matmul_t.plan(m, k, n, 4, SMS, groupsize=40).path == "tile"
 
 
 @pytest.mark.parametrize("k,n", SHAPES)
@@ -350,19 +398,29 @@ def test_kernel_8_plans_at_the_lora_widths(k, n, m, want):
 def test_kernel_8_splits_cover_the_reduction_in_order(k, n, bits, m):
     """The splits take consecutive runs of N's 64-wide slices, each run
     nonempty and at least 4 slices long when N is split; with a split the
-    tiles x splits fill every SM. The partial of split z covers slices
-    [z * per, (z + 1) * per) and the second kernel sums z = 0, 1, ... in
-    that order, so the plan alone fixes the order of the sums: dx is the
+    tiles x splits fill every SM (the mma.sync tiles), or take the fewest
+    waves (the wgmma body, one block an SM). The partial of split z covers
+    slices [z * per, (z + 1) * per) and the second kernel sums z = 0, 1, ...
+    in that order, so the plan alone fixes the order of the sums: dx is the
     same bytes on every launch."""
-    p = matmul_t.plan(m, k, n, bits, SMS)
     slices = -(-n // matmul_t.SLICE_N)
-    assert p.split * p.per_split >= slices > (p.split - 1) * p.per_split
-    tiles = -(-k // matmul_t.TILE_K) * -(-m // p.mt)
-    if p.split > 1:
-        assert p.per_split >= 4 and tiles * p.split >= SMS and tiles < SMS
-    assert p == matmul_t.plan(m, k, n, bits, SMS)
-    if m <= 256:
-        assert p.mt == next(b for b in TC_ROW_TILES if m <= b)
+    for path in ("tile", "wgmma"):
+        p = matmul_t.plan(m, k, n, bits, SMS, path=path)
+        assert p.path == path
+        assert p.split * p.per_split >= slices > (p.split - 1) * p.per_split
+        tiles = -(-k // matmul_t.TILE_K) * -(-m // p.mt)
+        if p.split > 1:
+            assert p.per_split >= 4 and tiles < 2 * SMS
+            if path == "tile":
+                assert tiles * p.split >= SMS and tiles < SMS
+            else:
+                waves = -(-tiles * p.split // SMS)
+                assert waves * (p.per_split + 2) <= -(-tiles // SMS) * (slices + 2)
+        assert p == matmul_t.plan(m, k, n, bits, SMS, path=path)
+        if m <= 256:
+            rows = TC_ROW_TILES if path == "tile" else WG_ROW_TILES
+            assert p.mt == next(b for b in rows if m <= b)
+    assert matmul_t.plan(m, k, n, bits, SMS).path == ("wgmma" if m >= WGMMA_MIN_M else "tile")
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -382,6 +440,121 @@ def test_kernel_8_shared_memory_fits(bits, bm):
     if bits < 8 and bm < 256:
         assert two
 
+
+# -- the wgmma body of kernels 1 and 8 (csrc/qmm_wgmma.cuh) --------------------
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("gs", [16, 32, 48, 64, 128, 256, 40, 24, 6, 100])
+def test_wgmma_body_takes_whole_k16_steps_in_a_group(bits, gs):
+    """The wgmma body's shapes: every k16 step of kernel 1 (every warp's 16
+    rows of W for kernel 8) in one group, so a group size that is a multiple
+    of 16 or a single group (G = 1, any K); K and N multiples of 8 (TMA's
+    16-byte strides); device bits 2, 4 and 8 (wire INT3 is stored as 4).
+    Other shapes keep the mma.sync tiles, for both kernels."""
+    k = 2 * 3 * 5 * 7 * 32
+    assert wgmma_ok(k, 256, bits, gs, -(-k // gs)) == (gs % 16 == 0)
+    assert wgmma_ok(k, 256, bits, k, 1) and wgmma_ok(520, 256, bits, 520, 1)
+    assert not wgmma_ok(k, 252, bits, 128, -(-k // 128))
+    assert not wgmma_ok(k + 4, 256, bits, 128, -(-(k + 4) // 128))
+    assert not wgmma_ok(k, 256, 3, 128, -(-k // 128))
+    want = "wgmma" if gs % 16 == 0 else "tile"
+    assert plan(100, k, 256, bits, SMS, groupsize=gs).path == want
+    assert matmul_t.plan(100, k, 256, bits, SMS, groupsize=gs).path == want
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("bm", WG_ROW_TILES)
+def test_wgmma_shared_memory_fits(bits, bm):
+    """qmm_wgmma.cuh's Layout: as many stages as fit, at most 8, of x's (g's)
+    bm x 64 bf16 tile, the stage's packed words (64 x 128 weights) and 1 KB
+    each of scale and zero rows; the barriers; 1 KB to align the stages to
+    the 128-byte swizzle's atom. One block (384 threads) fits the 227 KB a
+    block may have with a ring of at least 3 stages; each stage starts on a
+    1 KB boundary."""
+    smem = wgmma_smem_bytes(bits, bm)
+    stage = bm * 64 * 2 + 64 * 128 * bits // 8 + 2 * 1024
+    stages = (smem - 1024 - 128) // stage
+    assert stages >= 3 and stage % 1024 == 0
+    assert smem == min(8, (SMEM_PER_BLOCK - 128 - 1024) // stage) * stage + 128 + 1024
+    assert smem <= SMEM_PER_BLOCK
+    for kind, m in (("fwd", bm), ("bwd", bm)):
+        p = (plan(m, 4096, 4096, bits, SMS) if kind == "fwd"
+             else matmul_t.plan(m, 4096, 4096, bits, SMS))
+        if p.mt == bm:
+            assert p.smem == smem
+
+
+@pytest.mark.parametrize("gs,groups", [(16, None), (32, None), (48, None), (64, None),
+                                       (128, None), (1032, 1), (32, 33)])
+def test_wgmma_stage_holds_the_groups_it_touches(gs, groups):
+    """The scale and zero rows a stage holds (``wgmma_sz_rows``): the most
+    groups a 64-row slab (kernel 1) or a block's 128 rows of W (kernel 8)
+    touch, counted from the group of each row (a ragged last group read
+    through min(r / groupsize, G - 1)); within the 4 rows of 256 bytes
+    (kernel 1) or 8 rows of 128 bytes (kernel 8) the stage has room for."""
+    k = 1032
+    g = -(-k // gs) if groups is None else groups
+
+    def touched(span):
+        return max(len({min(r // gs, g - 1) for r in range(t, min(k, t + span))})
+                   for t in range(0, k, span))
+    for span, most in ((64, 4), (128, 8)):
+        rows = wgmma_sz_rows(span, k, gs, g)
+        assert rows == touched(span) <= most
+
+
+@pytest.mark.parametrize("k,n", SHAPES + ((4096, 2048),))
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_wgmma_splits_cover_the_reduction_in_order(k, n, bits):
+    """Kernel 1's wgmma body at every M the smoke gives the linears and the
+    ragged ones: the row tile is the smallest of 64, 128, 144, 256 that holds
+    M (256 above, or 128 where its tiles pad fewer rows), the splits take
+    consecutive runs of K's 64-row slabs, none empty, at least 4 slabs each
+    when K is split, and where the tiles fill at most half the SMs the blocks
+    (one an SM) take the fewest waves x (slabs + 2) of any split, elsewhere
+    none; the plan alone fixes the order of the sums."""
+    slabs = -(-k // matmul.WG_DEPTH)
+    for m in (17, 40, 64, 100, 128, 130, 136, 200, 256, 300, 512, 1024, 2048, 16384):
+        p = plan(m, k, n, bits, SMS)
+        assert p.path == "wgmma" and p.smem == wgmma_smem_bytes(bits, p.mt)
+        assert p.split * p.per_split >= slabs > (p.split - 1) * p.per_split
+        if m <= 256:
+            assert p.mt == next(b for b in WG_ROW_TILES if m <= b)
+        else:
+            assert p.mt in (128, 256) and -(-m // p.mt) * p.mt <= -(-m // 256) * 256
+        tiles = -(-n // matmul.WG_COLS) * -(-m // p.mt)
+        if p.split > 1:
+            assert p.per_split >= 4
+        cost = -(-tiles * p.split // SMS) * (p.per_split + 2)
+        if tiles <= SMS // 2:   # from half the SMs' worth of tiles up K is not split
+            assert all(cost <= -(-tiles * s // SMS) * (-(-slabs // s) + 2)
+                       for s in range(1, max(1, slabs // 4) + 1))
+        else:
+            assert p.split == 1
+
+
+# the wgmma body's plans (row tile, K splits, slabs per split) at the smoke's
+# shapes, each the fastest candidate measured there (scripts/torch_qmm_bodies.py)
+WGMMA_PLANS = {
+    (4096, 4096): {17: (64, 4, 16), 100: (128, 4, 16), 128: (128, 4, 16), 136: (144, 4, 16),
+                   512: (256, 2, 32), 1024: (256, 1, 64), 2048: (256, 1, 64),
+                   16384: (256, 1, 64)},
+    (11008, 4096): {17: (64, 4, 43), 128: (128, 4, 43), 136: (144, 4, 43), 512: (256, 2, 86),
+                    1024: (256, 1, 172), 2048: (256, 1, 172)},
+    (4096, 11008): {128: (128, 1, 64), 1024: (256, 1, 64)},
+    (4096, 2048): {128: (128, 8, 8)}}
+
+
+@pytest.mark.parametrize("k,n", list(WGMMA_PLANS))
+def test_kernel_1_form_at_the_smoke_shapes(k, n):
+    """The form, row tile and split kernel 1 takes at the smoke's M (17,
+    100, 128, 136, 512, 1024, 2048, 16384) and widths (LLaMA-7B's 4096 x
+    4096, 11008 x 4096, 4096 x 11008 and tensor parallelism's q/k/v column
+    shard 4096 x 2048): the wgmma body at the plan measured fastest."""
+    for m, want in WGMMA_PLANS[(k, n)].items():
+        p = plan(m, k, n, 4, SMS)
+        assert (p.path, p.mt, p.split, p.per_split) == ("wgmma",) + want
 
 
 # -- kernels 4 and 5, causal prefill attention: which body --------------------
