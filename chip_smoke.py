@@ -228,33 +228,32 @@ PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve"
 # chunked prefill
 # ("qmm:<form>", "fused_mlp:<form>", "qmm_t:<body>": kernels 1, 2 and 8 by
 # form: kernel 1's fragment form and kernel 2's GEMV at batch-1 decode, the
-# fragment forms at the 8-slot serving step, above 16 rows kernel 1's and
-# kernel 8's wgmma body (prefill, serving chunks, eval, LoRA, TP) and kernel
-# 2's tiles;
+# fragment forms at the 8-slot serving step, above 16 rows the wgmma body of
+# kernels 1, 2 and 8 (prefill, serving chunks, eval, LoRA, TP);
 # "rms_norm:<form>": kernel 6 alone, at layer 0's input norm, and with the
 # residual add folded in, at every other norm: every path runs both)
 NORMS = {"rms_norm", "rms_norm:alone", "rms_norm:add"}
 PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                    "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
+                    "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:wgmma"} | NORMS,
          "quantize": {"flash_prefill"} | NORMS,
-         "eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:wgmma", "fused_mlp:tile"} | NORMS,
+         "eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:wgmma", "fused_mlp:wgmma"} | NORMS,
          "serve:paged": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill_blocked",
                          "flash_prefill", "qmm:frag", "qmm:wgmma", "fused_mlp:frag",
-                         "fused_mlp:tile"} | NORMS,
+                         "fused_mlp:wgmma"} | NORMS,
          "serve:dense": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                         "qmm:frag", "qmm:wgmma", "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
+                         "qmm:frag", "qmm:wgmma", "fused_mlp:frag", "fused_mlp:wgmma"} | NORMS,
          # the CLI's demo prompts all have one length: every admission is batched
          "serve:cli": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill"} | NORMS,
          # the decode path with cache_impl="fold", in the runner and the dense engine
          "fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
-                  "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
+                  "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:wgmma"} | NORMS,
          "serve:fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
-                        "qmm:frag", "qmm:wgmma", "fused_mlp:frag", "fused_mlp:tile"} | NORMS,
+                        "qmm:frag", "qmm:wgmma", "fused_mlp:frag", "fused_mlp:wgmma"} | NORMS,
          # LoRA training steps (every linear adapted: gate/up unfused), and the
          # gradient check with gate/up frozen (the fused MLP and its backward)
          "lora": {"qmm", "flash_prefill", "qmm_t", "qmm:wgmma", "qmm_t:wgmma"} | NORMS,
          "lora:fused": {"qmm", "fused_mlp", "flash_prefill", "qmm_t", "qmm:wgmma", "qmm_t:wgmma",
-                        "fused_mlp:tile"} | NORMS,
+                        "fused_mlp:wgmma"} | NORMS,
          # kernels 3, 4, 7 and 9 by the cache dtype they read: the 7B decode
          # path and serving over fp8-e4m3 caches, the CLIs with --kv-dtype fp8
          # (a paged chunk attends its gathered prefix cast to bf16, as the TPU
@@ -299,9 +298,9 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          # the offloaded LLaMA-7B's generate (24 of 32 layers streamed), the
          # offloaded CLI's eval and decode benchmark (phase offload)
          "offload": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                     "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS,
+                     "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:wgmma"} | NORMS,
          "offload:eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:wgmma",
-                          "fused_mlp:tile"} | NORMS,
+                          "fused_mlp:wgmma"} | NORMS,
          "offload:benchmark": {"qmm", "fused_mlp", "decode_attention"} | NORMS,
          # LLaMA-7B's generate under the raced plans and under the heuristic
          # ones (phase autotune; the forms the race picks are its own)
@@ -315,7 +314,7 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          # paged, fold; bf16 and fp8 caches; admissions batched or not); the
          # calibration forward at dp 2
          **{f"tp:{name}": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                           "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:tile"} | NORMS
+                           "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:wgmma"} | NORMS
             for name in ("7b_tp2", "7b4_tp4", "7b4_tp4_gqa")},
          **{f"tp:serve:{mode}{kv}": {"qmm", "fused_mlp", f"{kernel}{kv}"} | NORMS
             for mode, kernel in (("dense", "decode_attention"),
@@ -490,15 +489,30 @@ TC_CASES_BWD = (
     (3, 300, 1024, 1024, 128, True), (8, 1024, 4096, 4096, 16, False),
     (4, 1024, 4096, 4096, 128, False), (4, 1024, 11008, 4096, 128, False),
     (2, 2048, 4096, 11008, 128, True))
+# kernel 2 (bits, M, K, N, groupsize, act-order; gate and up share the
+# permutation): the same kinds of case, LLaMA-7B's 4096 x 11008 and its TP
+# shards 4096 x 5504 and 4096 x 2816, split and unsplit
+TC_CASES_MLP = (
+    (4, 17, 4096, 11008, 128, False), (4, 40, 1024, 4096, 32, False),
+    (4, 100, 1024, 256, 128, False), (4, 128, 4096, 11008, 128, False),
+    (2, 130, 1024, 256, 64, False), (3, 130, 512, 256, 128, False),
+    (4, 136, 4096, 11008, 128, True), (8, 200, 1024, 264, 128, True),
+    (4, 201, 4096, 5504, 128, False), (4, 256, 1024, 4104, 16, False),
+    (4, 128, 4096, 2816, 128, False), (4, 512, 1024, 256, 1024, False),
+    (8, 512, 1024, 512, 32, True), (2, 1024, 4096, 11008, 128, False),
+    (4, 1024, 1032, 4096, 32, False), (4, 2048, 4096, 11008, 128, True))
 
 
-def wire_linear(torch, rng, k, n, gs, bits, actorder=False, bias=False):
+def wire_linear(torch, rng, k, n, gs, bits, actorder=False, bias=False, g_idx=None):
     """A seeded random packed linear on the card (``random_wire_linear``),
-    its rows in a random act-order if asked, with a bias if asked."""
+    its rows in a random act-order if asked (or in the order of ``g_idx``),
+    with a bias if asked."""
     from gptq_for_llama_tpu_torch.ops.linear import PackedLinear
     from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_linear
     w = random_wire_linear(rng, k, n, gs, bits)
-    if actorder:
+    if g_idx is not None:
+        w["g_idx"] = g_idx
+    elif actorder:
         w["g_idx"] = w["g_idx"][rng.permutation(k)]
     return PackedLinear.from_wire(w["qweight"], w["qzeros"], w["scales"], w["g_idx"], bits=bits,
                                   bias=rng.randn(n) if bias else None, dtype=torch.bfloat16,
@@ -506,71 +520,90 @@ def wire_linear(torch, rng, k, n, gs, bits, actorder=False, bias=False):
 
 
 def body_plan(kind, path, m, lin, sms):
-    """Kernel 1's ("fwd") or kernel 8's ("bwd") plan at M rows with its
-    tensor-core body forced to ``path`` ("tile" or "wgmma")."""
+    """Kernel 1's ("fwd"), kernel 2's ("mlp", ``lin`` its gate) or kernel
+    8's ("bwd") plan at M rows with its tensor-core body forced to ``path``
+    ("tile" or "wgmma")."""
     from gptq_for_llama_tpu_torch.ops.cuda import matmul, matmul_t
     k, n, g = lin.in_features, lin.out_features, lin.scales.shape[0]
-    if kind == "fwd":
-        return matmul.plan(m, k, n, lin.bits, sms, path=path, groupsize=lin.groupsize, groups=g)
+    if kind in ("fwd", "mlp"):
+        return matmul.plan(m, k, n, lin.bits, sms, streams=2 if kind == "mlp" else 1, path=path,
+                           groupsize=lin.groupsize, groups=g)
     return matmul_t.plan(m, k, n, lin.bits, sms, path=path, groupsize=lin.groupsize, groups=g)
 
 
-def hold_tc_cases(torch, bodies=("wgmma",)):
-    """Each body of ``bodies`` forced on the ragged set (TC_CASES_FWD,
-    TC_CASES_BWD), in device row order (the act-order permutation is the
-    dispatch's): held to the plain version at 2e-2 * max|plain|; without a
-    split the product (on the same linear without its bias: the plain
-    version rounds the product to bf16 before the bias) in bf16 ulps, 0 for
-    the tiles and reported for the wgmma body; two launches bit-equal, and a
-    CUDA-graph replay bit-equal to the eager launch. Returns the rows; raises
-    on any failure."""
+def hold_tc_cases(torch, bodies=("wgmma",), kinds=("fwd", "bwd", "mlp")):
+    """Each body of ``bodies`` forced on the ragged set of each kernel of
+    ``kinds`` (TC_CASES_FWD, TC_CASES_BWD, TC_CASES_MLP), in device row
+    order (the act-order permutation is the dispatch's): held to the plain
+    version at 2e-2 * max|plain| (kernel 2 also within 1e-2 of each row's
+    norm); without a split kernels 1 and 8's product (on the same linear
+    without its bias: the plain version rounds the product to bf16 before
+    the bias) in bf16 ulps, 0 for the tiles and reported for the wgmma body
+    (kernel 2's plain version rounds g and u to bf16 before silu(g) * u:
+    none); two launches bit-equal, and a CUDA-graph replay bit-equal to the
+    eager launch. Returns the rows; raises on any failure."""
     import dataclasses
-    from gptq_for_llama_tpu_torch.ops.cuda import matmul, matmul_t
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul, matmul_t, mlp
     from gptq_for_llama_tpu_torch.ops.cuda.matmul_t import quant_matmul_t_plain
     from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
     rng = np.random.RandomState(7)
     sms = matmul._sm_count(0)
     rows = []
-    for kind, cases in (("fwd", TC_CASES_FWD), ("bwd", TC_CASES_BWD)):
-        launch = matmul._launch if kind == "fwd" else matmul_t._launch
+    names = {"fwd": ("kernel 1", "qmm"), "bwd": ("kernel 8", "qmm_t"),
+             "mlp": ("kernel 2", "fused_mlp")}
+    for kind, cases in (("fwd", TC_CASES_FWD), ("bwd", TC_CASES_BWD), ("mlp", TC_CASES_MLP)):
+        if kind not in kinds:
+            continue
+        launch = {"fwd": matmul._launch, "bwd": matmul_t._launch,
+                  "mlp": lambda x, pair, p: mlp._launch(x, *pair, p)}[kind]
         for case in cases:
             bits, m, k, n, gs, act = case[:6]
             bias = kind == "fwd" and case[6]
             lin = wire_linear(torch, rng, k, n, gs, bits, act, bias)
             bare = dataclasses.replace(lin, bias=None)
-            x = torch.as_tensor(rng.randn(m, k if kind == "fwd" else n), dtype=torch.bfloat16,
+            x = torch.as_tensor(rng.randn(m, k if kind != "bwd" else n), dtype=torch.bfloat16,
                                 device="cuda")
-            if kind == "fwd":
+            if kind == "mlp":   # gate and up in one device row order
+                lin = bare = (lin, wire_linear(torch, rng, k, n, gs, bits, g_idx=lin.g_idx))
+                ref = ref_bare = mlp.fused_mlp_plain(
+                    x, *(dataclasses.replace(t, perm=None) for t in lin))
+            elif kind == "fwd":
                 ref = quant_matmul_plain(x, dataclasses.replace(lin, perm=None))
                 ref_bare = quant_matmul_plain(x, dataclasses.replace(bare, perm=None))
             else:
                 ref = ref_bare = quant_matmul_t_plain(x, lin)
             tol = 2e-2 * ref.float().abs().max().item()
             for path in bodies:
-                p = body_plan(kind, path, m, lin, sms)
+                p = body_plan(kind, path, m, lin[0] if kind == "mlp" else lin, sms)
                 y = launch(x, lin, p)
                 y2 = launch(x, lin, p)
                 torch.cuda.synchronize()
                 err = (y.float() - ref.float()).abs().max().item()
-                ulps = bf16_ulps(torch, launch(x, bare, p), ref_bare) if p.split == 1 else None
+                rel = row_rel_err(y, ref) if kind == "mlp" else None
+                ulps = (bf16_ulps(torch, launch(x, bare, p), ref_bare)
+                        if p.split == 1 and kind != "mlp" else None)
                 twice = bits_equal(y, y2)
                 graph_eq = bits_equal(graph_replay(torch, lambda: launch(x, lin, p), lambda: None),
                                       y)
                 ok = (p.path == path and err <= tol and twice and graph_eq
-                      and bool(torch.isfinite(y.float()).all())
+                      and bool(torch.isfinite(y.float()).all()) and (rel is None or rel <= 1e-2)
                       and (ulps is None or path == "wgmma" or ulps == 0))
-                what = (f"{'kernel 1' if kind == 'fwd' else 'kernel 8'} bits {bits} M={m} K={k} "
-                        f"N={n} g{gs}{' act-order' if act else ''}{' bias' if bias else ''}")
-                log(f"[kernel {'qmm' if kind == 'fwd' else 'qmm_t'}] {path} case {what} [row tile "
-                    f"{p.mt}, split {p.split}]: max_abs_err {err:.3e} (tol {tol:.3e}), product "
-                    f"{ulps} bf16 ulp, two launches equal {twice}, graph replay equal "
-                    f"{graph_eq}: {'ok' if ok else 'FAIL'}")
+                what = (f"{names[kind][0]} bits {bits} M={m} K={k} N={n} g{gs}"
+                        f"{' act-order' if act else ''}{' bias' if bias else ''}")
+                log(f"[kernel {names[kind][1]}] {path} case {what} [row tile {p.mt}, split "
+                    f"{p.split}]: max_abs_err {err:.3e} (tol {tol:.3e}), "
+                    + (f"worst row {rel:.3e} (tol 1e-2)" if kind == "mlp" else
+                       f"product {ulps} bf16 ulp")
+                    + f", two launches equal {twice}, graph replay equal {graph_eq}: "
+                    f"{'ok' if ok else 'FAIL'}")
                 rows.append({"case": what, "path": path, "row_tile": p.mt, "split": p.split,
                              "max_abs_err": err, "tol": tol, "product_bf16_ulps": ulps,
-                             "twice_equal": twice, "graph_equal": graph_eq, "ok": ok})
+                             "row_rel": rel, "twice_equal": twice, "graph_equal": graph_eq,
+                             "ok": ok})
                 if not ok:
-                    raise AssertionError(f"{path} case {what}: error {err} > {tol}, {ulps} bf16 "
-                                         f"ulp, twice equal {twice}, graph equal {graph_eq}")
+                    raise AssertionError(f"{path} case {what}: error {err} > {tol}, worst row "
+                                         f"{rel}, {ulps} bf16 ulp, twice equal {twice}, graph "
+                                         f"equal {graph_eq}")
             del lin, bare, x, ref, ref_bare
     return rows
 
@@ -1017,8 +1050,9 @@ class Smoke:
             for bm in matmul.TC_ROW_TILES:   # kernels 1 and 2 alike
                 smem[f"qmm / fused_mlp tile {bits}-bit BM={bm}"] = matmul.tile_smem_bytes(bits, bm)
                 smem[f"qmm_t {bits}-bit BM={bm}"] = matmul_t.tile_smem_bytes(bits, bm)
-            for bm in getattr(matmul, "WG_ROW_TILES", ()):   # kernels 1 and 8 alike
-                smem[f"qmm / qmm_t wgmma {bits}-bit BM={bm}"] = matmul.wgmma_smem_bytes(bits, bm)
+            for bm in getattr(matmul, "WG_ROW_TILES", ()):   # kernels 1, 2 and 8 alike
+                smem[f"qmm / fused_mlp / qmm_t wgmma {bits}-bit BM={bm}"] = \
+                    matmul.wgmma_smem_bytes(bits, bm)
             for nt in (1, 2):   # kernels 1 and 2 alike
                 smem[f"qmm / fused_mlp frag {bits}-bit M<={8 * nt}"] = matmul.frag_smem_bytes(bits,
                                                                                           nt)
@@ -1062,8 +1096,8 @@ class Smoke:
         ``main`` marks the kernel's row of the kernels line, ``serve`` the row
         at the shape of the serving decode step (or, for the prefill kernels,
         of a serving chunk or admission), printed beside it. ``path`` names
-        kernel 1's or 2's form (``gemv``, ``frag`` or ``tile``) or kernel 6's
-        (``alone`` or ``add``); ``extra`` adds measured keys."""
+        kernel 1's or 2's form (``gemv``, ``frag``, ``tile`` or ``wgmma``) or
+        kernel 6's (``alone`` or ``add``); ``extra`` adds measured keys."""
         b_ms, b_by = bound(nbytes, flops)
         checked = ulps if ulps is not None else err if row_rel is None else row_rel
         ok = checked <= tol
@@ -1431,8 +1465,12 @@ class Smoke:
     def _kernel2_row(self, torch, randn, gates, ups, m, iters, main=False, serve=False):
         """Kernel 2 at 4096 x 11008 and M rows through the dispatch (the plan's
         form), then every form it has (GEMV, the fragment form up to 16 rows,
-        the tiles), forced, each held to the plain version and timed, and
-        kernel 1 run twice at the same shape (the unfused gate and up). The
+        the tiles and the wgmma body above), forced, each held to the plain
+        version and timed, and kernel 1 run twice at the same shape (the
+        unfused gate and up), and, as a yardstick of the GEMM part alone,
+        torch.matmul of x and the dequantized [Wg | Wu] side by side (N =
+        2 * 11008; no PyTorch call computes kernel 2's function, so the row's
+        library time stays null). The
         tolerance is 2e-2 * max|plain| (kernel 1's: the GEMV keeps the weight
         in fp32, the tensor-core forms sum in another order), and 1e-2 of each
         row's norm; the worst row's gap between each tensor-core form and the
@@ -1458,7 +1496,7 @@ class Smoke:
                        iters=min(iters, 10))
         sms = matmul._sm_count(0)
         forced, gap, outs = {}, {}, {}
-        for path in ("gemv", "frag", "tile"):
+        for path in ("gemv", "frag", "tile", "wgmma"):
             if path == "frag" and m > matmul.FRAG_MAX_M:
                 continue
             fp = matmul.plan(m, k, n, 4, sms, streams=2, path=path)
@@ -1469,15 +1507,23 @@ class Smoke:
             forced[path] = graph_ms(torch, [lambda g=g, u=u, fp=fp: mlp._launch(x, g, u, fp)
                                             for g, u in pairs],
                                     iters=iters if path != "gemv" or m <= 136 else 2)
-        for path in ("frag", "tile"):
+        for path in ("frag", "tile", "wgmma"):
             if path in outs:
                 gap[path] = row_rel_err(outs[path], outs["gemv"])
         k1 = 2 * graph_ms(torch, [lambda g=g: qmm_cuda(x, g) for g in gates], iters=iters)
+        wcat = torch.cat([gates[0].dequantize(torch.bfloat16), ups[0].dequantize(torch.bfloat16)],
+                         dim=1)
+        wcats = [wcat] + [wcat.clone() for _ in range(copies_for(wcat.numel() * 2) - 1)]
+        gemm = graph_ms(torch, [lambda w=w: torch.matmul(x, w) for w in wcats],
+                        iters=min(iters, 20))
+        del wcat, wcats
         extra = {"form": {"path": p.path, "rows": p.mt, "split": p.split},
-                 "forced_ms": forced, "gap_to_gemv": gap, "kernel1_x2_ms": k1}
+                 "forced_ms": forced, "gap_to_gemv": gap, "kernel1_x2_ms": k1,
+                 "gemm_gate_up_ms": gemm}
         log(f"[kernel fused_mlp] M={m}: forms forced "
             + ", ".join(f"{a} {t * 1e3:.2f} us" for a, t in forced.items())
-            + f"; kernel 1 twice at {k}x{n} {k1 * 1e3:.2f} us; worst row vs the forced GEMV "
+            + f"; kernel 1 twice at {k}x{n} {k1 * 1e3:.2f} us; torch.matmul over [Wg | Wu] "
+            + f"{gemm * 1e3:.2f} us; worst row vs the forced GEMV "
             + ", ".join(f"{a} {g:.3e}" for a, g in gap.items()) + f" | {self.card}")
         nbytes = m * k * 2 + 2 * self._lin_bytes(gates[0]) + m * n * 2
         self._record("fused_mlp", f"gate+up {k}x{n} M={m}", err, tol, ms, pms, None, nbytes,
@@ -5320,7 +5366,10 @@ class Smoke:
                        m * kl * 2 + self._lin_bytes(lin) + m * nl * 2, 2 * m * kl * nl,
                        path=plan_for(x, lin).path, extra={"bodies_ms": bodies})
             del lins, wdq
-        # kernel 2: gate/up column shards, tp 4's padded to 2816 (zero columns)
+        # kernel 2: gate/up column shards, tp 4's padded to 2816 (zero columns);
+        # at the serving chunk's 128 rows both tensor-core bodies forced, and
+        # kernel 1 twice over the same weights
+        from gptq_for_llama_tpu_torch.ops.cuda import matmul, mlp
         for tp, pad in ((2, 0), (4, 64)):
             pairs = []
             for _ in range(copies_for(4096 * 11008 // tp)):
@@ -5329,7 +5378,7 @@ class Smoke:
                     g, u = (tp_model._pad_col_shards(x, tp, pad) for x in (g, u))
                 pairs.append((_tp_shard(torch, g, "col", tp), _tp_shard(torch, u, "col", tp)))
             g, u = pairs[0]
-            for m in (1, 8):
+            for m in (1, 8, 128):
                 x = randn(m, 4096)
                 y = fused_mlp_cuda(x, g, u)
                 ref = fused_mlp_plain(x, g, u)
@@ -5339,9 +5388,31 @@ class Smoke:
                 ms = graph_ms(torch, [lambda p=p: fused_mlp_cuda(x, *p) for p in pairs])
                 pms = graph_ms(torch, [lambda p=p: fused_mlp_plain(x, *p) for p in pairs], iters=10)
                 n = g.out_features
+                tp_plan = mlp.plan_for(x, g)
+                extra = {"form": {"path": tp_plan.path, "rows": tp_plan.mt,
+                                  "split": tp_plan.split}}
+                if m > FORCED_MS[-1]:
+                    extra["bodies_ms"] = {}
+                    for path in TC_BODIES:
+                        fp = body_plan("mlp", path, m, g, matmul._sm_count(0))
+                        fy = mlp._launch(x, g, u, fp)
+                        if row_rel_err(fy, ref) > 1e-2 or (pad and fy[:, -pad:].any()):
+                            raise AssertionError(f"fused_mlp tp{tp} M={m} ({path} forced): "
+                                                 f"worst row {row_rel_err(fy, ref)}")
+                        extra["bodies_ms"][path] = {
+                            "ms": graph_ms(torch, [lambda p=p, fp=fp: mlp._launch(x, *p, fp)
+                                                   for p in pairs]),
+                            "rows": fp.mt, "split": fp.split}
+                    extra["kernel1_x2_ms"] = 2 * graph_ms(
+                        torch, [lambda w=w: qmm_cuda(x, w) for p in pairs for w in p])
+                    log(f"[kernel fused_mlp] tp{tp} 4096x{n} M={m}: bodies forced "
+                        + ", ".join(f"{a} {b['ms'] * 1e3:.2f} us (rows {b['rows']}, split "
+                                    f"{b['split']})" for a, b in extra["bodies_ms"].items())
+                        + f"; kernel 1 twice {extra['kernel1_x2_ms'] * 1e3:.2f} us | {self.card}")
                 record("fused_mlp", f"gate/up tp{tp} 4096x{n} M={m}", err,
                        2e-2 * ref.float().abs().max().item(), ms, pms, None,
-                       m * 4096 * 2 + 2 * self._lin_bytes(g) + m * n * 2, 4 * m * 4096 * n)
+                       m * 4096 * 2 + 2 * self._lin_bytes(g) + m * n * 2, 4 * m * 4096 * n,
+                       path=tp_plan.path, extra=extra)
             del pairs
         # attention at the local heads: tp 2 (16 of 32), tp 4 (8), GQA tp 4 (8 over 2)
         d, s = 128, 512
@@ -5488,7 +5559,8 @@ class Smoke:
             # and head dim too
             by_dtype = ("bf16", "f32", "fp8", "fp8_e5m2", "d64", "d80", "d96", "d128", "d256")
             by_body = tuple(f"{b}:{d}" for b in ("sync", "wgmma") for d in by_dtype[4:])
-            forms = {"qmm": ("gemv", "frag", "tile", "wgmma"), "fused_mlp": ("gemv", "frag", "tile"),
+            forms = {"qmm": ("gemv", "frag", "tile", "wgmma"),
+                     "fused_mlp": ("gemv", "frag", "tile", "wgmma"),
                      "qmm_t": ("tile", "wgmma"),
                      "rms_norm": ("alone", "add"), "decode_attention": by_dtype,
                      "flash_prefill_blocked": by_dtype + by_body,

@@ -2,24 +2,30 @@
 //
 // Replaces gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel. x is read
 // once for both weight streams and neither intermediate reaches device
-// memory as bf16: the two fp32 sums meet in the epilogue. Three forms, chosen
+// memory as bf16: the two fp32 sums meet in the epilogue. Four forms, chosen
 // by the wrapper's plan (gptq_for_llama_tpu_torch/ops/cuda/matmul.py:plan,
-// streams=2) from M:
+// streams=2) from M and the group size:
 //  - gptq_fused_mlp: the one-launch GEMV of qmm_gemv.cuh (NW = 2) for the
 //    batch-1 decode row, bound by the two packed weight streams with their
 //    scales and zeros (2 x 23.9 MB at 4096x11008 INT4-g128: 14.3 us at
 //    3.35 TB/s);
 //  - gptq_fused_mlp_frag: M <= 16, the weight dequantized straight into
 //    mma.sync A fragments (qmm_frag.cuh, NW = 2);
-//  - gptq_fused_mlp_tile: above that, kernel 1's tensor-core tiles with the
-//    two streams interleaved in one B tile (qmm_tc.cuh, NW = 2), bound by
-//    operations at large M (4 M K N flops: 2.99 ms at M = 16384).
+//  - gptq_fused_mlp_wgmma: above that, where the group size is a multiple of
+//    16 (or one group) and K and N of 8, the Hopper body of kernels 1 and 8
+//    (qmm_wgmma.cuh, NW = 2: the gate and up weights dequantized into wgmma
+//    A fragments by the two consumer warpgroups over one TMA ring of x),
+//    bound by operations at large M (4 M K N flops: 2.99 ms at M = 16384);
+//  - gptq_fused_mlp_tile: the other shapes above 16 rows, kernel 1's
+//    mma.sync tiles with the two streams interleaved in one B tile
+//    (qmm_tc.cuh, NW = 2).
 // Each header describes its design. Plain C entry points, bound from Python
 // with ctypes.
 #include "qmm_common.cuh"
 #include "qmm_frag.cuh"
 #include "qmm_gemv.cuh"
 #include "qmm_tc.cuh"
+#include "qmm_wgmma.cuh"
 
 namespace {
 
@@ -100,4 +106,22 @@ extern "C" int gptq_fused_mlp_tile(const void* x, const void* qg, const void* sg
 #undef GPTQ_TILES
 #undef GPTQ_TILE
   return static_cast<int>(e);
+}
+
+// x (M, K) bf16 with K % 8 == 0; qweights (K * bits / 32, N) int32 with
+// N % 8 == 0; scales, zeros (G, N) bf16, groupsize % 16 == 0 or G == 1;
+// partial (2, split, M, N) fp32 when split > 1; bm: the row tile (64, 128,
+// 144, 256); slabs_per_split: 64-row slabs of K per split; sz_rows: the
+// scale rows of the most groups a slab touches (1, 2 or 4); smem_bytes: the
+// plan's size. A block covers 64 columns of y.
+extern "C" int gptq_fused_mlp_wgmma(const void* x, const void* qg, const void* sg, const void* zg,
+                                    const void* qu, const void* su, const void* zu, void* out,
+                                    void* partial, int M, int K, int N, int G, int groupsize,
+                                    int bits, int bm, int split, int slabs_per_split, int sz_rows,
+                                    int smem_bytes, void* stream) {
+  const Streams s = streams(qg, sg, zg, qu, su, zu);
+  return static_cast<int>(gptq_wg::launch_bits<false, 2>(
+      bits, bm, x, s.gate, s.up, nullptr, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(partial), M, K, N, G, groupsize, split, slabs_per_split, sz_rows,
+      smem_bytes, static_cast<cudaStream_t>(stream)));
 }

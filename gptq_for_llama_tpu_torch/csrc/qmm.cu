@@ -104,8 +104,8 @@ extern "C" int gptq_qmm_wgmma(const void* x, const void* qweight, const void* sc
   const gptq::Stream w{static_cast<const int32_t*>(qweight),
                        static_cast<const __nv_bfloat16*>(scales),
                        static_cast<const __nv_bfloat16*>(zeros)};
-  return static_cast<int>(gptq_wg::launch_bits<false>(
-      bits, bm, x, w, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
+  return static_cast<int>(gptq_wg::launch_bits<false, 1>(
+      bits, bm, x, w, w, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(partial), M, K, N, G, groupsize, split, slabs_per_split, sz_rows,
       smem_bytes, static_cast<cudaStream_t>(stream)));
 }

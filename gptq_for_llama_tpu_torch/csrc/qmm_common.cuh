@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace gptq {
 
 // 2^23 + c has c in its mantissa: exact for c < 2^23.
@@ -144,22 +146,54 @@ cudaError_t cluster_attributes(Kern kern, int smem) {
   return e;
 }
 
-// Sums the K-splits in order (deterministic) and applies the epilogue.
-template <int NW>
+// Sums the K-splits in order (deterministic) and applies the epilogue: VEC
+// (4 where N % 4 == 0, else 1) consecutive outputs a thread, each split's
+// VEC partials one load, the loads of all splits in flight together (one
+// output a thread with scalar loads left them latency-bound: 16.3 us for
+// kernel 2's 2 x 3 x 128 x 11008 partials, 2.2 TB/s).
+template <int NW, int VEC>
 __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
                                   const __nv_bfloat16* __restrict__ bias,
                                   __nv_bfloat16* __restrict__ out, int M, int N, int split) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * N) return;
-  const int n = (int)(i % N);
-  float v[NW];
+  using Vec = typename std::conditional<VEC == 4, float4, float>::type;
+  const size_t total = (size_t)M * N;
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (i >= total) return;
+  float v[VEC][NW];
 #pragma unroll
   for (int w = 0; w < NW; ++w) {
-    float t = 0.0f;
-    for (int s = 0; s < split; ++s) t += partial[(size_t)(w * split + s) * M * N + i];
-    v[w] = t;
+    float t[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) t[e] = 0.0f;
+#pragma unroll 4
+    for (int s = 0; s < split; ++s) {
+      const Vec p = *reinterpret_cast<const Vec*>(partial + (size_t)(w * split + s) * total + i);
+      const float* f = reinterpret_cast<const float*>(&p);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) t[e] += f[e];
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e][w] = t[e];
   }
-  out[i] = __float2bfloat16_rn(epilogue<NW>(v, bias, n));
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    out[i + e] = __float2bfloat16_rn(epilogue<NW>(v[e], bias, (int)((i + e) % N)));
+}
+
+// Launches qmm_reduce_kernel over partial (NW, split, M, N) into out (M, N).
+template <int NW>
+cudaError_t launch_reduce(const float* partial, const __nv_bfloat16* bias, __nv_bfloat16* out,
+                          int M, int N, int split, cudaStream_t stream) {
+  const size_t total = (size_t)M * N;
+  if (N % 4 == 0) {
+    const size_t threads = total / 4;
+    qmm_reduce_kernel<NW, 4><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+        partial, bias, out, M, N, split);
+  } else {
+    qmm_reduce_kernel<NW, 1><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        partial, bias, out, M, N, split);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace gptq

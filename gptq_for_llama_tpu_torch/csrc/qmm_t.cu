@@ -357,10 +357,7 @@ cudaError_t launch(const __nv_bfloat16* g, gptq::Stream w, __nv_bfloat16* dx, fl
                                               slices_per_split);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || split == 1) return e;
-  const size_t total = (size_t)M * K;
-  gptq::qmm_reduce_kernel<1><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, nullptr, dx, M, K, split);
-  return cudaGetLastError();
+  return gptq::launch_reduce<1>(partial, nullptr, dx, M, K, split, stream);
 }
 
 }  // namespace
@@ -415,8 +412,8 @@ extern "C" int gptq_qmm_t_wgmma(const void* g, const void* qweight, const void* 
   const gptq::Stream w{static_cast<const int32_t*>(qweight),
                        static_cast<const __nv_bfloat16*>(scales),
                        static_cast<const __nv_bfloat16*>(zeros)};
-  return static_cast<int>(gptq_wg::launch_bits<true>(
-      bits, bm, g, w, nullptr, static_cast<__nv_bfloat16*>(dx), static_cast<float*>(partial), M,
+  return static_cast<int>(gptq_wg::launch_bits<true, 1>(
+      bits, bm, g, w, w, nullptr, static_cast<__nv_bfloat16*>(dx), static_cast<float*>(partial), M,
       K, N, G, groupsize, split, slices_per_split, sz_rows, smem_bytes,
       static_cast<cudaStream_t>(stream)));
 }

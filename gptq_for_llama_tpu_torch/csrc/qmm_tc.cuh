@@ -406,10 +406,7 @@ cudaError_t launch_tile(const __nv_bfloat16* x, gptq::Stream s0, gptq::Stream s1
                                               groupsize, slabs_per_split);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || split == 1) return e;
-  const size_t total = (size_t)M * N;
-  gptq::qmm_reduce_kernel<NW><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, bias, out, M, N, split);
-  return cudaGetLastError();
+  return gptq::launch_reduce<NW>(partial, bias, out, M, N, split, stream);
 }
 
 }  // namespace gptq_tc

@@ -1,12 +1,14 @@
 // Hopper body of the dequant-GEMM above the decode rows, shared by kernel 1
-// (T = false: y = x @ dequant(W) (+ bias), entry gptq_qmm_wgmma in qmm.cu)
-// and kernel 8 (T = true: dx = g @ dequant(W)^T, entry gptq_qmm_t_wgmma in
-// qmm_t.cu).
+// (T = false, NW = 1: y = x @ dequant(W) (+ bias), entry gptq_qmm_wgmma in
+// qmm.cu), kernel 2 (T = false, NW = 2: silu(x @ dequant(Wg)) * (x @
+// dequant(Wu)), entry gptq_fused_mlp_wgmma in fused_mlp.cu) and kernel 8
+// (T = true: dx = g @ dequant(W)^T, entry gptq_qmm_t_wgmma in qmm_t.cu).
 //
 // Replaces, beside the mma.sync tiles of qmm_tc.cuh and qmm_t.cu where the
 // plan finds it faster, the TPU kernels
-// gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel (entry _qmm_2d) and
-// :_qmm_t_kernel (entry _qmm_t_2d). W is the packed (K * BITS / 32, N) int32
+// gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel (entry _qmm_2d),
+// :_qmm_t_kernel (entry _qmm_t_2d) and
+// gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel. W is the packed (K * BITS / 32, N) int32
 // weight with bf16 scales and zeros (G, N), in device row order; each element
 // is dequantized as c * s - z * s in fp32 and rounded once to bf16 (both
 // products are exact in fp32, so (c - z) * s rounded once is the same bf16:
@@ -59,7 +61,17 @@
 //    an SM, clusters of 4-8 blocks may not all fit the GPCs at once. Pairs
 //    of column tiles multicasting x's tile, half of x's L2 reads, measured
 //    no faster: those reads do not bound it.)
-// Scope: a k16 step (kernel 1) or a warp's 16 rows (kernel 8) lies in one
+//  - kernel 2 (NW = 2): a block covers 64 columns of y; consumer warpgroup 0
+//    multiplies the gate weight's 64 columns and warpgroup 1 the up
+//    weight's same 64, each with kernel 1's inner loop over the one x tile a
+//    stage. A stage holds one word box, one scale box and one zero box of
+//    64 columns of each weight: kernel 1's bytes, so the ring is kernel 1's.
+//    Once both have drained the ring, warpgroup 1 hands its fp32 sums to
+//    warpgroup 0 through the ring's shared memory (thread t of one holds the
+//    (row, column) pairs of thread t of the other), and warpgroup 0 stores
+//    silu(g) * u rounded once to bf16; split, each writes its partials
+//    into qmm_reduce_kernel<2>'s (2, split, M, N) layout.
+// Scope: a k16 step (kernel 1, 2) or a warp's 16 rows (kernel 8) lies in one
 // group, that is groupsize % 16 == 0 or G = 1; a stage holds the scale and
 // zero rows of at most sz_rows_max(T) groups (the wrapper's plan counts them).
 // K % 8 == 0 and N % 8 == 0 for TMA's 16-byte strides. Other shapes keep the
@@ -79,12 +91,22 @@ using namespace gptq_hopper;
 using gptq_mma::pack_bf16;
 
 constexpr int kThreads = 384;     // warpgroups 0-1 consume, warpgroup 2 produces
-constexpr int kCols = 128;        // output columns per block, 64 a consumer warpgroup
+constexpr int kCols = 128;        // weight columns per block, 64 a consumer warpgroup
 constexpr int kDepth = 64;        // reduction per stage: one 128-byte swizzled row of bf16
 constexpr int kSZBytes = 1024;    // a stage's scale rows, and as much for its zero rows
 constexpr int kMaxStages = 8;
 constexpr int kSmemLimit = 232448;   // dynamic shared memory one block may have
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+// kernel 2: row tiles a group of the launch order. Its 172 column tiles at N
+// = 11008 (gate and up, 45 MB a pass with their scales) make a wave of
+// blocks span under one row tile and every row tile read both weights
+// again; walking the column tiles of 8 row tiles at a time keeps a wave on
+// fewer weight columns. Two calls of scripts/torch_mlp_wgmma_variants.py
+// (NVIDIA H100 80GB HBM3, 700 W), 8 against unordered: M = 1024 326.3 /
+// 329.5 against 338.3 / 339.7 us, M = 2048 620.1 / 608.0 against 621.0 /
+// 633.9, M = 16384 4797 / 4986 against 5046 / 4859 (within the calls'
+// spread; kernel 1 twice moved 4603-4786 between processes).
+constexpr int kRasterRows = 8;
 
 // Scale and zero rows a stage holds: kernel 1's stage covers 64 rows of K for
 // 128 columns (4 rows of 256 bytes), kernel 8's the block's 128 rows of K for
@@ -130,27 +152,34 @@ __device__ __forceinline__ float magic8(uint32_t q, int b) {
   return __int_as_float(__byte_perm(q, 0x4B000000u, 0x7540 | b));
 }
 
-// grid: (ceil(O / kCols), split, ceil(M / BM)), O the output width (N for
-// kernel 1, K for kernel 8); block: kThreads; dynamic shared memory
+// grid: (ceil(O / (kCols / NW)), split, ceil(M / BM)), O the output width
+// (N for kernels 1 and 2, K for kernel 8); block: kThreads; dynamic shared memory
 // Layout<BITS, BM>::kBytes. The reduction (K for kernel 1, N for kernel 8)
 // runs in stages of kDepth; split z takes stages [z * per_split, ...) and,
 // with split > 1, writes partial[(z * M + m) * O + o] (qmm_reduce_kernel's
-// layout). Tensor maps: tx x (M, K) or g (M, N) bf16, box kDepth x BM,
-// 128-byte swizzle; tw the words (K * BITS / 32, N) int32, box kCols x 64 *
-// BITS / 32 (kernel 1) or kDepth x kCols * BITS / 32 (kernel 8); ts, tz
-// scales and zeros (G, N) bf16, box kCols (kernel 1) or kDepth (kernel 8) x
-// sz_rows.
-template <int BITS, int BM, bool T>
+// layout; kernel 2: partial[((w * split + z) * M + m) * N + n] for stream w).
+// Tensor maps: tx x (M, K) or g (M, N) bf16, box kDepth x BM, 128-byte
+// swizzle; tw the words (K * BITS / 32, N) int32, box kCols / NW x 64 * BITS
+// / 32 (kernels 1, 2) or kDepth x kCols * BITS / 32 (kernel 8); ts, tz scales
+// and zeros (G, N) bf16, box kCols / NW (kernels 1, 2) or kDepth (kernel 8) x
+// sz_rows; tw2, ts2, tz2 the up weight's (kernel 2; unused otherwise).
+template <int BITS, int BM, bool T, int NW>
 __global__ void __launch_bounds__(kThreads, 1)
 qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                  const __grid_constant__ CUtensorMap ts, const __grid_constant__ CUtensorMap tz,
+                 const __grid_constant__ CUtensorMap tw2, const __grid_constant__ CUtensorMap ts2,
+                 const __grid_constant__ CUtensorMap tz2,
                  const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ partial, int M, int K, int N, int G, int groupsize,
                  int per_split, int sz_rows) {
+  static_assert(NW == 1 || (NW == 2 && !T), "two weight streams: kernel 2");
   using L = Layout<BITS, BM>;
   constexpr int S = L::kStages;
   constexpr int kIpw = 32 / BITS;                   // rows of W per word
-  constexpr int kWCols = T ? kDepth : kCols;        // columns of the word and scale boxes
+  constexpr int kBoxCols = kCols / NW;              // kernels 1, 2: columns of one weight's boxes
+  constexpr int kWCols = T ? kDepth : kBoxCols;     // columns of the word and scale boxes
+  // kernel 2's sums handed from warpgroup 1 to 0 fit in the ring
+  static_assert(NW == 1 || S * L::kStage >= BM / 2 * 128 * 4, "the exchange fits the ring");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -165,7 +194,17 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
 
   const int O = T ? K : N;                          // output width
   const int R = T ? N : K;                          // reduction
-  const int o0 = blockIdx.x * kCols, m0 = blockIdx.z * BM;
+  // the block's column and row tiles: blocks launch in the order of x, then
+  // z; kernel 2 walks the column tiles of kRasterRows row tiles at a time
+  int bx = blockIdx.x, bz = blockIdx.z;
+  if constexpr (NW == 2 && kRasterRows > 1) {
+    const int id = bz * gridDim.x + bx, per = kRasterRows * gridDim.x;
+    const int first = id / per * kRasterRows;
+    const int rows = min(kRasterRows, (int)gridDim.z - first), local = id % per;
+    bz = first + local % rows;
+    bx = local / rows;
+  }
+  const int o0 = bx * (kCols / NW), m0 = bz * BM;
   const int split = gridDim.y;
   const int n_steps = (R + kDepth - 1) / kDepth;
   const int t_begin = blockIdx.y * per_split;
@@ -190,7 +229,12 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
       tma_prefetch_desc(&tw);
       tma_prefetch_desc(&ts);
       tma_prefetch_desc(&tz);
-      const uint32_t bytes = L::kX + L::kW + 2 * sz_rows * kWCols * 2;
+      if constexpr (NW == 2) {
+        tma_prefetch_desc(&tw2);
+        tma_prefetch_desc(&ts2);
+        tma_prefetch_desc(&tz2);
+      }
+      const uint32_t bytes = L::kX + L::kW + NW * 2 * sz_rows * kWCols * 2;
       for (int i = 0; i < t_count; ++i) {
         const int st = i % S, r0 = (t_begin + i) * kDepth;
         if (i >= S) mbar_wait(empty(st), (uint32_t)((i / S - 1) & 1));
@@ -206,17 +250,26 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
           tma_load_2d(sw(st), &tw, full(st), o0, r0 / kIpw);
           tma_load_2d(ss(st), &ts, full(st), o0, g_lo);
           tma_load_2d(sz(st), &tz, full(st), o0, g_lo);
+          if constexpr (NW == 2) {   // the up weight's boxes in the second halves
+            tma_load_2d(sw(st) + L::kW / 2, &tw2, full(st), o0, r0 / kIpw);
+            tma_load_2d(ss(st) + kSZBytes / 2, &ts2, full(st), o0, g_lo);
+            tma_load_2d(sz(st) + kSZBytes / 2, &tz2, full(st), o0, g_lo);
+          }
         }
       }
     }
     return;
   }
 
-  // consumers: warpgroup wg owns output columns o0 + 64 wg ..; a thread's A
-  // rows g and g + 8 are output columns c and c + 1
+  // consumers: warpgroup wg owns output columns o0 + 64 wg .. (kernel 2:
+  // columns o0 .. of weight wg, gate or up); a thread's A rows g and g + 8
+  // are output columns c and c + 1
   reg_alloc<kConsumerRegs>();
   const int wg = warp >> 2, w = warp & 3, g = lane >> 2, t4 = lane & 3;
-  const int c = 64 * wg + 16 * w + 2 * g;
+  const int c = (NW == 1 ? 64 * wg : 0) + 16 * w + 2 * g;
+  // kernel 2: this warpgroup's weight's boxes, the second halves for up
+  const uint32_t w_off = NW == 2 ? wg * (L::kW / 2) : 0;
+  const uint32_t s_off = NW == 2 ? wg * (kSZBytes / 2) : 0;
 
   float acc[BM / 2];
 #pragma unroll
@@ -248,7 +301,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
   };
   // kernel 1: column pair c, c + 1 of group row `row` of stage st
   auto k1_scales = [&](int st, int row) {
-    const unsigned char* p = sbase + (ss(st) - base) + (row * kCols + c) * 2;
+    const unsigned char* p = sbase + (ss(st) - base) + s_off + (row * kBoxCols + c) * 2;
     scale_pair(*reinterpret_cast<const uint32_t*>(p),
                *reinterpret_cast<const uint32_t*>(p + kSZBytes));
   };
@@ -268,27 +321,27 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
 
   // the A fragment of k16 step kk of stage st into f
   auto build = [&](int st, int kk, uint32_t (&f)[4]) {
-    const unsigned char* wd = sbase + (sw(st) - base);
+    const unsigned char* wd = sbase + (sw(st) - base) + w_off;
     if constexpr (!T) {
-      // words [64 / kIpw][kCols]: the pair of columns c, c + 1 is one 8-byte load
+      // words [64 / kIpw][kBoxCols]: the pair of columns c, c + 1 is one 8-byte load
       if constexpr (BITS == 8) {
-        const uint2 lo = *reinterpret_cast<const uint2*>(wd + ((4 * kk + (t4 >> 1)) * kCols + c) * 4);
-        const uint2 hi = *reinterpret_cast<const uint2*>(wd + ((4 * kk + 2 + (t4 >> 1)) * kCols + c) * 4);
+        const uint2 lo = *reinterpret_cast<const uint2*>(wd + ((4 * kk + (t4 >> 1)) * kBoxCols + c) * 4);
+        const uint2 hi = *reinterpret_cast<const uint2*>(wd + ((4 * kk + 2 + (t4 >> 1)) * kBoxCols + c) * 4);
         const int b = 2 * (t4 & 1);
         f[0] = pair8(lo.x, b, 0);
         f[1] = pair8(lo.y, b, 1);
         f[2] = pair8(hi.x, b, 0);
         f[3] = pair8(hi.y, b, 1);
       } else if constexpr (BITS == 4) {
-        const uint2 lo = *reinterpret_cast<const uint2*>(wd + ((2 * kk) * kCols + c) * 4);
-        const uint2 hi = *reinterpret_cast<const uint2*>(wd + ((2 * kk + 1) * kCols + c) * 4);
+        const uint2 lo = *reinterpret_cast<const uint2*>(wd + ((2 * kk) * kBoxCols + c) * 4);
+        const uint2 hi = *reinterpret_cast<const uint2*>(wd + ((2 * kk + 1) * kBoxCols + c) * 4);
         const int sh = 8 * t4;
         f[0] = hsub_hmul(pair_k(lo.x, sh), z2[0], s2[0]);
         f[1] = hsub_hmul(pair_k(lo.y, sh), z2[1], s2[1]);
         f[2] = hsub_hmul(pair_k(hi.x, sh), z2[0], s2[0]);
         f[3] = hsub_hmul(pair_k(hi.y, sh), z2[1], s2[1]);
       } else {
-        const uint2 q = *reinterpret_cast<const uint2*>(wd + (kk * kCols + c) * 4);
+        const uint2 q = *reinterpret_cast<const uint2*>(wd + (kk * kBoxCols + c) * 4);
         const int sh = 4 * t4;
         f[0] = hsub_hmul(pair_k(q.x, sh), z2[0], s2[0]);
         f[1] = hsub_hmul(pair_k(q.y, sh), z2[1], s2[1]);
@@ -383,20 +436,54 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
   // acc[4 j + e] is row g (column c) and acc[4 j + 2 + e] row g + 8 (column
   // c + 1) at x row 8 j + 2 t4 + e
   const int oc = o0 + c;
-  if (oc >= O) return;   // O % 8 == 0: the pair is all in or out
   if (split > 1) {   // fp32 partials, summed in split order by qmm_reduce_kernel
+    if (oc >= O) return;   // O % 8 == 0: the pair is all in or out
+    const size_t zw = (size_t)(NW == 2 ? wg : 0) * split + blockIdx.y;
 #pragma unroll
     for (int j = 0; j < BM / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int m = m0 + 8 * j + 2 * t4 + e;
         if (m < M)
-          *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.y * M + m) * O + oc) =
+          *reinterpret_cast<float2*>(partial + (zw * M + m) * O + oc) =
               make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
       }
     }
     return;
   }
+  if constexpr (NW == 2) {
+    // Both warpgroups are past their last product and every copy has landed,
+    // so the ring is free: warpgroup 1's up sums go into it, thread t's as
+    // float4s at [j][t] (whole 512-byte rows a warp), and thread t of
+    // warpgroup 0, which holds the gate sums of the same (row, column)
+    // pairs, reads them back. Named barrier 1 joins the 256 consumers.
+    float4* xch = reinterpret_cast<float4*>(smem_raw + (base - raw));
+    const int ct = tid & 127;
+    named_barrier(1, 256);
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j)
+        xch[j * 128 + ct] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    named_barrier(1, 256);
+    if (wg == 1 || oc >= O) return;
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+      const float4 u = xch[j * 128 + ct];
+      const float up[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * t4 + e;
+        const float v0[2] = {acc[4 * j + e], up[e]};
+        const float v1[2] = {acc[4 * j + 2 + e], up[2 + e]};
+        if (m < M)
+          *reinterpret_cast<uint32_t*>(out + (size_t)m * O + oc) =
+              pack_bf16(gptq::epilogue<2>(v0, nullptr, oc), gptq::epilogue<2>(v1, nullptr, oc + 1));
+      }
+    }
+    return;
+  }
+  if (oc >= O) return;
   float b0 = 0.0f, b1 = 0.0f;
   if (bias != nullptr) {
     b0 = __bfloat162float(bias[oc]);
@@ -435,15 +522,16 @@ inline bool map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const v
 }
 
 // One launch (then, with split > 1, the sum of the partials): x (M, R) bf16,
-// the packed weight (K * BITS / 32, N), scales and zeros (G, N); out (M, O);
-// partial (split, M, O) fp32 when split > 1. Sets the dynamic shared memory
-// attribute once per instantiation (not per launch, so a CUDA-graph capture
-// sees none). The tensor maps hold the pointers, so a captured launch
-// replays over the same buffers.
-template <int BITS, int BM, bool T>
-cudaError_t launch(const void* x, gptq::Stream w, const __nv_bfloat16* bias, __nv_bfloat16* out,
-                   float* partial, int M, int K, int N, int G, int groupsize, int split,
-                   int per_split, int sz_rows, int smem_bytes, cudaStream_t stream) {
+// the packed weight (K * BITS / 32, N), scales and zeros (G, N) (kernel 2:
+// w the gate's, w2 the up's, of one shape; kernels 1, 8 ignore w2); out (M,
+// O); partial (NW, split, M, O) fp32 when split > 1. Sets the dynamic shared
+// memory attribute once per instantiation (not per launch, so a CUDA-graph
+// capture sees none). The tensor maps hold the pointers, so a captured
+// launch replays over the same buffers.
+template <int BITS, int BM, bool T, int NW>
+cudaError_t launch(const void* x, gptq::Stream w, gptq::Stream w2, const __nv_bfloat16* bias,
+                   __nv_bfloat16* out, float* partial, int M, int K, int N, int G, int groupsize,
+                   int split, int per_split, int sz_rows, int smem_bytes, cudaStream_t stream) {
   using L = Layout<BITS, BM>;
   constexpr int kIpw = 32 / BITS;
   const int O = T ? K : N, R = T ? N : K;
@@ -454,41 +542,43 @@ cudaError_t launch(const void* x, gptq::Stream w, const __nv_bfloat16* bias, __n
       split < 1 || split > 65535 || per_split < 1 || (long long)split * per_split < n_steps ||
       (M + BM - 1) / BM > 65535 || (split > 1 && partial == nullptr))
     return cudaErrorInvalidValue;
-  auto kern = qmm_wgmma_kernel<BITS, BM, T>;
+  auto kern = qmm_wgmma_kernel<BITS, BM, T, NW>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return attr;
-  constexpr int kWCols = T ? kDepth : kCols;
-  CUtensorMap tx, tw, ts, tz;
+  constexpr int kWCols = T ? kDepth : kCols / NW;
+  // the word, scale and zero maps of one weight
+  auto weight_maps = [&](gptq::Stream s, CUtensorMap* mw, CUtensorMap* ms, CUtensorMap* mz) {
+    return map_2d(mw, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, s.qweight, K / kIpw, N, kWCols,
+                  (T ? kCols : kDepth) / kIpw, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+           map_2d(ms, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, s.scales, G, N, kWCols, sz_rows,
+                  CU_TENSOR_MAP_SWIZZLE_NONE) &&
+           map_2d(mz, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, s.zeros, G, N, kWCols, sz_rows,
+                  CU_TENSOR_MAP_SWIZZLE_NONE);
+  };
+  CUtensorMap tx, tw, ts, tz, tw2, ts2, tz2;
   if (!map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, R, kDepth, BM,
               CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, w.qweight, K / kIpw, N, kWCols,
-              (T ? kCols : kDepth) / kIpw, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !map_2d(&ts, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w.scales, G, N, kWCols, sz_rows,
-              CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !map_2d(&tz, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w.zeros, G, N, kWCols, sz_rows,
-              CU_TENSOR_MAP_SWIZZLE_NONE))
+      !weight_maps(w, &tw, &ts, &tz) || !weight_maps(NW == 2 ? w2 : w, &tw2, &ts2, &tz2))
     return cudaErrorInvalidValue;
-  dim3 grid((O + kCols - 1) / kCols, split, (M + BM - 1) / BM);
-  kern<<<grid, kThreads, L::kBytes, stream>>>(tx, tw, ts, tz, bias, out, partial, M, K, N, G,
-                                              groupsize, per_split, sz_rows);
+  dim3 grid((O + kCols / NW - 1) / (kCols / NW), split, (M + BM - 1) / BM);
+  kern<<<grid, kThreads, L::kBytes, stream>>>(tx, tw, ts, tz, tw2, ts2, tz2, bias, out, partial,
+                                              M, K, N, G, groupsize, per_split, sz_rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || split == 1) return e;
-  const size_t total = (size_t)M * O;
-  gptq::qmm_reduce_kernel<1><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, T ? nullptr : bias, out, M, O, split);
-  return cudaGetLastError();
+  return gptq::launch_reduce<NW>(partial, T || NW == 2 ? nullptr : bias, out, M, O, split,
+                                 stream);
 }
 
 // The row tiles BM (64, 128, 144, 256) and bits (2, 4, 8) of one kernel.
-template <bool T>
-cudaError_t launch_bits(int bits, int bm, const void* x, gptq::Stream w, const __nv_bfloat16* bias,
-                        __nv_bfloat16* out, float* partial, int M, int K, int N, int G,
-                        int groupsize, int split, int per_split, int sz_rows, int smem_bytes,
-                        cudaStream_t stream) {
-#define GPTQ_WG(B, R)                                                                       \
-  launch<B, R, T>(x, w, bias, out, partial, M, K, N, G, groupsize, split, per_split, sz_rows, \
-                  smem_bytes, stream)
+template <bool T, int NW>
+cudaError_t launch_bits(int bits, int bm, const void* x, gptq::Stream w, gptq::Stream w2,
+                        const __nv_bfloat16* bias, __nv_bfloat16* out, float* partial, int M,
+                        int K, int N, int G, int groupsize, int split, int per_split,
+                        int sz_rows, int smem_bytes, cudaStream_t stream) {
+#define GPTQ_WG(B, R)                                                                        \
+  launch<B, R, T, NW>(x, w, w2, bias, out, partial, M, K, N, G, groupsize, split, per_split,  \
+                      sz_rows, smem_bytes, stream)
 #define GPTQ_WGS(B)                                                                          \
   (bm == 64 ? GPTQ_WG(B, 64) : bm == 128 ? GPTQ_WG(B, 128) : bm == 144 ? GPTQ_WG(B, 144)   \
              : bm == 256 ? GPTQ_WG(B, 256) : cudaErrorInvalidValue)

@@ -4,7 +4,7 @@ Counterpart of ``gptq_for_llama_tpu/ops/pallas/autotune.py`` (itself the
 reference's ``custom_autotune.py``), with the same kinds: "fwd" (kernel 1,
 ``matmul.py``), "mlp" (kernel 2, ``mlp.py``) and "bwd" (kernel 8,
 ``matmul_t.py``). The free choices of a plan are its form (``gemv``,
-``frag``, ``tile`` or, for kernels 1 and 8, ``wgmma``), its row tile ``mt``
+``frag``, ``tile`` or ``wgmma``; kernel 8 has the last two), its row tile ``mt``
 and its split (along K; along N for kernel 8); the rest follows from them and
 the shape (``matmul.plan_of``, ``matmul_t.plan_of``).
 
@@ -23,8 +23,9 @@ the shape (``matmul.plan_of``, ``matmul_t.plan_of``).
 - The cache: a JSON file with a version, keyed (kind, K, N, bits,
   groupsize, pow2 M bucket, card name), so another card never reuses these
   answers; written to a temporary file and then renamed over the old one.
-  Version 2 added the wgmma body: a version-1 file (whose races never saw
-  it) raises with its message instead of pinning an old tile plan.
+  Version 2 added the wgmma body of kernels 1 and 8, version 3 kernel 2's:
+  a file of another version (whose races never saw them) raises with its
+  message instead of pinning an old tile plan.
 - ``lookup`` answers the kernels' ``plan_for`` (an override first, then the
   cache; None on a miss, and the heuristic decides). A cached entry or an
   override that is not among the shape's candidates raises, naming where it
@@ -59,7 +60,7 @@ import torch
 MODE_ENV = "GPTQ_TORCH_AUTOTUNE"
 PATH_ENV = "GPTQ_TORCH_AUTOTUNE_CACHE"
 OVERRIDE_ENV = "GPTQ_TORCH_TUNE_OVERRIDE"
-VERSION = 2
+VERSION = 3
 KINDS = ("fwd", "mlp", "bwd")
 REPS = 7            # timed replays of a candidate's chain (the median decides)
 # the weight bytes one chain reads: five times the H100's 50 MB L2, so that
@@ -125,8 +126,6 @@ def parse_overrides(text: str) -> dict:
         if kind == "bwd" and path not in ("tile", "wgmma"):
             raise ValueError(f"{OVERRIDE_ENV}: {entry!r}: kernel 8 has the tile and wgmma "
                              "bodies only")
-        if kind == "mlp" and path == "wgmma":
-            raise ValueError(f"{OVERRIDE_ENV}: {entry!r}: kernel 2 has no wgmma body")
         key = (kind, int(k), int(n), None if mb is None else int(mb))
         if key in out:
             raise ValueError(f"{OVERRIDE_ENV}: two entries for {entry.split('=')[0]}")
@@ -244,8 +243,8 @@ def candidates(kind: str, k: int, n: int, bits: int, gs: int, m: int, sms: int) 
       split empty; the tiles (K and N multiples of 8) at every row tile up to
       the one that holds the bucket, each at the split the heuristic gives it
       and at every power-of-two split that keeps ``TILE_MIN_SLABS`` slabs;
-      kernel 1's wgmma body (``matmul.wgmma_ok``) the same way over its own
-      row tiles;
+      the wgmma body (``matmul.wgmma_ok``) the same way over its own row
+      tiles;
     - kernel 8: its tiles and its wgmma body, the same way along N's
       64-wide slices.
 
@@ -282,9 +281,9 @@ def candidates(kind: str, k: int, n: int, bits: int, gs: int, m: int, sms: int) 
                 for s in _pow2_splits(mm.CLUSTER_MAX) if _nonempty(kbs, s)]
     if k % 8 == 0 and n % 8 == 0:
         slabs = -(-k // mm.TC_TILE_K)
-        for path in ("tile", "wgmma") if wg and streams == 1 else ("tile",):
+        for path in ("tile", "wgmma") if wg else ("tile",):
             best = (mm._tile_plan(mb, k, n, bits, sms, streams) if path == "tile"
-                    else mm._wgmma_plan(mb, k, n, bits, sms))
+                    else mm._wgmma_plan(mb, k, n, bits, sms, streams))
             for bm in _row_tiles(mb, path):
                 splits = [best.split if bm == best.mt else 1]
                 splits += _pow2_splits(max(1, slabs // TILE_MIN_SLABS))

@@ -17,8 +17,10 @@ group), else the tensor-core tiles of ``csrc/qmm_tc.cuh`` (``"tile"``: the
 slab dequantized to bf16 in shared memory, ``mma.sync`` with fp32 sums, a
 ``cp.async`` ring). The plain version is ``ops.linear.quant_matmul_plain``
 (dequantize to the compute dtype, then matmul). Kernel 2 (``mlp.py``, two
-weight streams) takes its plan from ``plan`` too, with the GEMV, the
-fragments and the tiles.
+weight streams) takes its plan from ``plan`` too (``streams=2``), with four
+forms: the GEMV at M = 1, the fragments to 16 rows, above them the Hopper
+body with the gate and up weights on its two consumer warpgroups (64 columns
+of y a block) where ``wgmma_ok`` takes the shape, the tiles otherwise.
 """
 
 from __future__ import annotations
@@ -48,9 +50,10 @@ TILE_N = 128          # columns per block: the GEMV's (4 a lane); the tiles' B-t
 GEMV_MAX_M = 0
 FUSED_GEMV_MAX_M = 1
 FRAG_MAX_M = 16
-# Above the fragment form kernel 1 takes the Hopper body (csrc/qmm_wgmma.cuh)
-# from WGMMA_MIN_M rows where its shapes allow (``wgmma_ok``), the mma.sync
-# tiles otherwise: the wgmma body measured faster at every M from the first
+# Above the fragment form kernels 1 and 2 take the Hopper body
+# (csrc/qmm_wgmma.cuh) from WGMMA_MIN_M rows where its shapes allow
+# (``wgmma_ok``), the mma.sync tiles otherwise: for kernel 1 the wgmma body
+# measured faster at every M from the first
 # above FRAG_MAX_M (M = 17: 12.13 against the tiles' 22.40 us at 4096 x 4096,
 # 24.56 against 49.11 at 11008 x 4096; M = 1024: 51.74 against 144.51;
 # scripts/torch_qmm_bodies.py, PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
@@ -62,9 +65,9 @@ GEMV_STAGES = {1: 8, 2: 4}   # csrc/qmm_gemv.cuh's ring depth by streams
 FRAG_COLS, FRAG_WARPS, FRAG_STAGES = 32, 8, 3   # csrc/qmm_frag.cuh's block and ring
 # the tile path's row tiles, slab depth and staged groups: csrc/qmm_tc.cuh's
 TC_ROW_TILES, TC_TILE_K, TC_MAX_GROUPS = (64, 128, 256), 64, 4
-# the Hopper body's row tiles (wgmma's N), output columns a block, reduction
-# a stage, deepest ring and bytes of a stage's scale (and zero) rows:
-# csrc/qmm_wgmma.cuh's
+# the Hopper body's row tiles (wgmma's N), weight columns a block (kernel 2:
+# 64 columns of y, of each of its two weights), reduction a stage, deepest
+# ring and bytes of a stage's scale (and zero) rows: csrc/qmm_wgmma.cuh's
 WG_ROW_TILES, WG_COLS, WG_DEPTH, WG_MAX_STAGES, WG_SZ_BYTES = (64, 128, 144, 256), 128, 64, 8, 1024
 SMEM_PER_SM = 233472      # the H100's shared memory of one SM (1 KB of it per block reserved)
 SMEM_PER_BLOCK = 232448   # the most dynamic shared memory one block may have
@@ -101,9 +104,10 @@ def tile_smem_bytes(bits: int, bm: int = 128) -> int:
 
 def wgmma_smem_bytes(bits: int, bm: int) -> int:
     """Shared memory of one block of the Hopper body (qmm_wgmma.cuh's
-    ``Layout``), kernels 1 and 8 alike: as many stages as fit (at most
+    ``Layout``), kernels 1, 2 and 8 alike: as many stages as fit (at most
     ``WG_MAX_STAGES``) of x's (g's) ``bm`` x 64 bf16 tile, the stage's packed
-    words (64 x 128 weights) and 1 KB each of scale and zero rows; then the
+    words (64 x 128 weights: kernel 2's 64 columns of each of its two) and 1
+    KB each of scale and zero rows; then the
     full and empty barriers, and 1 KB to align the stages to the 128-byte
     swizzle's atom."""
     stage = bm * WG_DEPTH * 2 + WG_DEPTH * WG_COLS * bits // 8 + 2 * WG_SZ_BYTES
@@ -211,7 +215,7 @@ def row_tile(m: int, cols: int, sms: int) -> int:
 
 
 def reduction_split(tiles: int, slabs: int, slots: int, sms: int,
-                    balance: bool = False) -> tuple[int, int]:
+                    balance: bool = False, most: int | None = None) -> tuple[int, int]:
     """How many blocks share one output tile's reduction, and how many
     64-deep slabs each takes. Fewer tiles than SMs split the reduction: the
     split that fills every SM and costs the fewest waves x (slabs per block +
@@ -220,10 +224,10 @@ def reduction_split(tiles: int, slabs: int, slots: int, sms: int,
     resident blocks on the card. ``balance`` (kernel 2, whose 64-column
     tiles at M <= 256 are 1-2 waves of long blocks): below two waves of
     tiles, the split of that cost from 1 up, so that a wave and a third
-    becomes two even waves of shorter blocks."""
+    becomes two even waves of shorter blocks. ``most`` caps the split."""
     split = 1
     if tiles < sms or (balance and tiles < 2 * slots):
-        hi = max(1, slabs // 4)
+        hi = max(1, slabs // 4) if most is None else max(1, min(slabs // 4, most))
         lo = 1 if balance else min(-(-sms // tiles), hi)
         split = min(range(lo, hi + 1),
                     key=lambda s: (-(-tiles * s // slots) * (-(-slabs // s) + 2), s))
@@ -246,8 +250,6 @@ def plan_of(path: str, mt: int, split: int, k: int, bits: int, streams: int = 1)
         return Plan("frag", mt, split, per, frag_smem_bytes(bits, mt // 8))
     if path not in ("tile", "wgmma"):
         raise ValueError(f"kernel 1's forms are gemv, frag, tile and wgmma, got {path!r}")
-    if path == "wgmma" and streams != 1:
-        raise ValueError("the wgmma body takes kernel 1 (one weight stream)")
     slabs = -(-k // TC_TILE_K)
     per = -(-slabs // split)
     smem = tile_smem_bytes(bits, mt) if path == "tile" else wgmma_smem_bytes(bits, mt)
@@ -265,25 +267,37 @@ def _tile_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int) -> Pla
     return plan_of("tile", bm, split, k, bits, streams)
 
 
-def wgmma_split(tiles: int, units: int, sms: int) -> int:
-    """The wgmma body's split of the reduction (kernels 1 and 8, one block an
-    SM): where the output tiles fill at most half the SMs, the split of the
-    fewest waves x (stages per block + 2) from 1 up (``reduction_split``
-    balanced: 4 at M = 128 and N = 4096, where filling all 132 SMs would cost
-    a second wave; 2 at M = 512); above, none (86 tiles of N = 11008 at M =
-    128: unsplit 38.05 / 34.74 us against 38.64 / 36.73 split 3 for kernels 1
-    / 8). Each the fastest measured (scripts/torch_qmm_bodies.py)."""
-    if tiles > sms // 2:
-        return 1
-    return reduction_split(tiles, units, sms, sms, balance=True)[0]
+def wgmma_split(tiles: int, units: int, sms: int, streams: int = 1, bm: int = 64) -> int:
+    """The wgmma body's split of the reduction (one block an SM): where the
+    output tiles fill at most half the SMs, the split of the fewest waves x
+    (stages per block + 2) from 1 up (``reduction_split`` balanced: 4 at M =
+    128 and N = 4096, where filling all 132 SMs would cost a second wave; 2
+    at M = 512); above, none for kernels 1 and 8 (86 tiles of N = 11008 at M
+    = 128: unsplit 38.05 / 34.74 us against 38.64 / 36.73 split 3 for
+    kernels 1 / 8). Kernel 2 (``streams=2``, 64 columns of y a tile) splits
+    the same way below two waves of tiles, at most 2 ways at 256-row tiles,
+    whose partials (2 x split x M x N fp32) cost the sum more: 172 tiles of
+    N = 11008, M = 17 / 100 / 128 / 136 split 3: 55.2 / 72.3 / 76.0 / 77.8
+    us (split 2: 58.7 / 72.3 / 75.0 / 80.1; none: 71.8 / 84.7 / 85.6 /
+    87.7), M = 201 / 256 split 2: 98.9 / 106.9 (3: 102.4 / 113.2; none:
+    106.9 / 108.7); 86 tiles of the tp 2 shard N = 5504 at M = 128 split 3:
+    37.4 (2: 48.5, one wave and a third; none: 43.4). Each the fastest
+    measured, NVIDIA H100 80GB HBM3, 700 W (scripts/torch_qmm_bodies.py)."""
+    if tiles <= sms // 2:
+        return reduction_split(tiles, units, sms, sms, balance=True)[0]
+    if streams == 2 and tiles < 2 * sms:
+        return reduction_split(tiles, units, sms, sms, balance=True,
+                               most=2 if bm > 144 else None)[0]
+    return 1
 
 
-def _wgmma_plan(m: int, k: int, n: int, bits: int, sms: int) -> Plan:
-    """``wgmma_row_tile`` over N's 128-column tiles, then ``wgmma_split``
-    along K."""
+def _wgmma_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int = 1) -> Plan:
+    """``wgmma_row_tile`` over N's column tiles (128 columns of y a block for
+    kernel 1, 64 for kernel 2), then ``wgmma_split`` along K."""
     bm = wgmma_row_tile(m)
-    tiles = -(-n // WG_COLS) * -(-m // bm)
-    return plan_of("wgmma", bm, wgmma_split(tiles, -(-k // WG_DEPTH), sms), k, bits)
+    tiles = -(-n // (WG_COLS // streams)) * -(-m // bm)
+    split = wgmma_split(tiles, -(-k // WG_DEPTH), sms, streams, bm)
+    return plan_of("wgmma", bm, split, k, bits, streams)
 
 
 def cluster_split(tiles: int, units: int, blocks: int, least: int,
@@ -339,7 +353,7 @@ def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
     The GEMV (``_gemv_plan``) up to ``GEMV_MAX_M`` (kernel 1) or
     ``FUSED_GEMV_MAX_M`` (kernel 2) rows; the fragment form (``_frag_plan``)
     up to ``FRAG_MAX_M`` where ``groupsize`` puts every K-block in one group
-    (``frag_ok``), else the GEMV; above that, for kernel 1, the wgmma body
+    (``frag_ok``), else the GEMV; above that, for both kernels, the wgmma body
     (``_wgmma_plan``) where ``wgmma_ok`` takes the shape (``groups``: the
     scale rows, ceil(K / groupsize) unless given); else the tiles
     (``_tile_plan``) when K and N are multiples of 8 (16-byte copies), else
@@ -350,15 +364,13 @@ def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
             path = "gemv"
         elif m <= FRAG_MAX_M:
             path = "frag" if frag_ok(k, n, bits, groupsize) else "gemv"
-        elif m >= WGMMA_MIN_M and streams == 1 and wgmma_ok(
+        elif m >= WGMMA_MIN_M and wgmma_ok(
                 k, n, bits, groupsize, -(-k // groupsize) if groups is None else groups):
             path = "wgmma"
         else:
             path = "tile" if wide else "gemv"
     if path == "wgmma":
-        if streams != 1:
-            raise ValueError("the wgmma body takes kernel 1 (one weight stream)")
-        return _wgmma_plan(m, k, n, bits, sms)
+        return _wgmma_plan(m, k, n, bits, sms, streams)
     if path == "tile":
         return _tile_plan(m, k, n, bits, sms, streams)
     if path == "frag":

@@ -4,11 +4,18 @@ and plain version.
 Replaces ``gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel``: computes
 ``silu(x @ dequant(Wg)) * (x @ dequant(Wu))`` with x read once and both sums
 kept in fp32 until the epilogue. The kernel is ``csrc/fused_mlp.cu`` with
-three forms that ``matmul.plan(..., streams=2)`` picks from M: the one-launch
-GEMV of ``csrc/qmm_gemv.cuh`` for the batch-1 decode row; up to 16 rows the
-weight dequantized straight into ``mma.sync`` fragments
-(``csrc/qmm_frag.cuh``); above that kernel 1's tensor-core tiles with the
-gate and up columns interleaved in one B tile (``csrc/qmm_tc.cuh``, NW = 2).
+four forms that ``matmul.plan(..., streams=2)`` picks from M and the group
+size (``fused_mlp_cuda.forms`` counts their launches): the one-launch GEMV
+of ``csrc/qmm_gemv.cuh`` for the batch-1 decode row (``"gemv"``); up to 16
+rows the weight dequantized straight into ``mma.sync`` fragments
+(``csrc/qmm_frag.cuh``, ``"frag"``); above that the Hopper body of kernels 1
+and 8 (``csrc/qmm_wgmma.cuh``, NW = 2, ``"wgmma"``: gate and up on its two
+consumer warpgroups over one TMA ring of x) where ``matmul.wgmma_ok`` takes
+the shape, else kernel 1's ``mma.sync`` tiles with the gate and up columns
+interleaved in one B tile (``csrc/qmm_tc.cuh``, NW = 2, ``"tile"``).
+``matmul.plan(..., streams=2, path=...)`` forces a form for a measurement
+(``_launch``); ``GPTQ_TORCH_TUNE_OVERRIDE='mlp:K4096:N11008:M1024=wgmma,256,1'``
+pins one (``autotune``).
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import torch.nn.functional as F
 
 from . import autotune, build
 from .grad import refuse_grad
-from .matmul import Plan, _sm_count, check_packed, plan
+from .matmul import WG_DEPTH, Plan, _sm_count, check_packed, plan, wgmma_ok, wgmma_sz_rows
 from ..linear import PackedLinear, quant_matmul_plain
 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/fused_mlp.cu"
@@ -52,14 +59,15 @@ def fused_mlp_plain(x: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> to
 
 
 _ENTRIES = {"gemv": "gptq_fused_mlp", "frag": "gptq_fused_mlp_frag",
-            "tile": "gptq_fused_mlp_tile"}
+            "tile": "gptq_fused_mlp_tile", "wgmma": "gptq_fused_mlp_wgmma"}
 
 
 def _entry(path: str):
     fn = getattr(build.library("fused_mlp"), _ENTRIES[path])
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * (9 if path == "tile" else 8) + [i] * 10 + [p]
+        fn.argtypes = ([p] * (9 if path in ("tile", "wgmma") else 8)
+                       + [i] * (11 if path == "wgmma" else 10) + [p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -71,7 +79,7 @@ def plan_for(x2: torch.Tensor, gate: PackedLinear) -> Plan:
     tuned = autotune.lookup("mlp", gate.in_features, gate.out_features, gate.bits,
                             gate.groupsize, m, sms, x2.device)
     return tuned or plan(m, gate.in_features, gate.out_features, gate.bits, sms, streams=2,
-                         groupsize=gate.groupsize)
+                         groupsize=gate.groupsize, groups=gate.scales.shape[0])
 
 
 def fused_mlp_cuda(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> torch.Tensor:
@@ -91,19 +99,24 @@ def fused_mlp_cuda(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> to
 def _launch(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear, p: Plan) -> torch.Tensor:
     """One launch of kernel 2 on checked operands under plan ``p`` (a
     measurement may pass a plan with its path forced)."""
-    m, k, n = x2.shape[0], gate.in_features, gate.out_features
+    m, k, n, groups = x2.shape[0], gate.in_features, gate.out_features, gate.scales.shape[0]
+    if p.path == "wgmma" and not wgmma_ok(k, n, gate.bits, gate.groupsize, groups):
+        raise ValueError(f"fused_mlp: the wgmma body does not take K={k}, N={n}, "
+                         f"{gate.bits}-bit, groupsize {gate.groupsize} ({groups} groups)")
+    tiled = p.path in ("tile", "wgmma")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     partial = (torch.empty((2, p.split, m, n), dtype=torch.float32, device=x2.device)
-               if p.path == "tile" and p.split > 1 else None)
-    # the tiles' split sums fp32 partials in a second kernel
-    scratch = (() if p.path != "tile" else
-               (None if partial is None else partial.data_ptr(),))
+               if tiled and p.split > 1 else None)
+    # the tiles' and the wgmma body's split sums fp32 partials in a second kernel
+    scratch = (() if not tiled else (None if partial is None else partial.data_ptr(),))
     rows = p.mt // 8 if p.path == "frag" else p.mt
+    sz_rows = ((wgmma_sz_rows(WG_DEPTH, k, gate.groupsize, groups),) if p.path == "wgmma"
+               else ())
     err = _entry(p.path)(
         x2.data_ptr(), gate.qweight.data_ptr(), gate.scales.data_ptr(), gate.zeros.data_ptr(),
         up.qweight.data_ptr(), up.scales.data_ptr(), up.zeros.data_ptr(), out.data_ptr(),
-        *scratch, m, k, n, gate.scales.shape[0], gate.groupsize, gate.bits, rows, p.split,
-        p.per_split, p.smem, torch.cuda.current_stream(x2.device).cuda_stream)
+        *scratch, m, k, n, groups, gate.groupsize, gate.bits, rows, p.split, p.per_split,
+        *sz_rows, p.smem, torch.cuda.current_stream(x2.device).cuda_stream)
     build.check(build.library("fused_mlp"), err, f"fused_mlp ({p.path})")
     fused_mlp_cuda.launches += 1
     fused_mlp_cuda.forms[p.path] += 1
@@ -111,7 +124,7 @@ def _launch(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear, p: Plan) -> 
 
 
 fused_mlp_cuda.launches = 0
-fused_mlp_cuda.forms = {"gemv": 0, "frag": 0, "tile": 0}   # launches by form
+fused_mlp_cuda.forms = {"gemv": 0, "frag": 0, "tile": 0, "wgmma": 0}   # launches by form
 
 
 def fused_mlp(x: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> torch.Tensor:

@@ -83,20 +83,15 @@ def test_candidates_are_valid_for_every_m_of_their_bucket(kind, k, n, m):
     with no empty split, fits an SM's shared memory, and is valid for every M
     of the pow2 bucket: the fragment form holds at most 8 rows per n8 tile
     and needs ``frag_ok``, cluster splits are powers of two up to the
-    kernels' limit; kernels 1 and 8 race both tensor-core bodies (the
-    mma.sync tiles and the wgmma body, which takes any M), kernel 2 the tiles
-    only."""
+    kernels' limit; kernels 1, 2 and 8 race both tensor-core bodies (the
+    mma.sync tiles and the wgmma body, which takes any M)."""
     mb = at.m_bucket(m)
     cands = at.candidates(kind, k, n, 4, 128, m, SMS)
     assert cands[0] == _heuristic(kind, k, n, mb)
     assert len({(p.path, p.mt, p.split) for p in cands}) == len(cands)
-    if kind == "fwd":
+    if kind in ("fwd", "mlp"):
         assert {p.path for p in cands} >= ({"gemv", "frag", "tile", "wgmma"} if mb <= 16 else
                                            {"gemv", "tile", "wgmma"})
-    elif kind == "mlp":
-        assert {p.path for p in cands} >= ({"gemv", "frag", "tile"} if mb <= 16 else
-                                           {"gemv", "tile"})
-        assert "wgmma" not in {p.path for p in cands}
     else:
         assert {p.path for p in cands} == {"tile", "wgmma"}
     for p in cands:
@@ -245,7 +240,7 @@ def test_mode_0_and_ro(tune, monkeypatch):
 @pytest.mark.parametrize("text", [
     "fwd:K4096:N4096=frag,16", "fwd:K4096=tile,64,1", "mlp:K4096:N11008=warp,8,1",
     "dx:K4096:N4096=tile,64,1", "fwd:K4096:N4096:M3=frag,8,1", "bwd:K4096:N4096=frag,8,1",
-    "mlp:K4096:N11008=wgmma,128,1", "bwd:K4096:N4096=wgma,128,1",
+    "mlp:K4096:N11008:M100=wgmma,128,1", "bwd:K4096:N4096=wgma,128,1",
     "fwd:K4096:N4096=tile,64,1;fwd:K4096:N4096=tile,64,2", "fwd:K4096:N4096=tile,64,1,2",
     "fwd:k4096:n4096=tile,64,1"])
 def test_a_malformed_override_raises(tune, monkeypatch, text):
@@ -314,35 +309,47 @@ def test_ensure_is_a_no_op_on_the_cpu(tune, monkeypatch):
 
 
 def test_an_override_naming_the_wgmma_body_is_parsed_and_checked(tune, monkeypatch):
-    """``path`` may name the wgmma body for kernels 1 and 8: a row tile and
-    split among the shape's candidates pins it; one that is not (a row tile
-    the body does not have) raises, naming the entry."""
+    """``path`` may name the wgmma body for kernels 1, 2 and 8: a row tile
+    and split among the shape's candidates pins it (kernel 2's plan then
+    has its 64-column tiles' shared memory, kernel 1's layout); one that is
+    not (a row tile the body does not have) raises, naming the entry."""
     monkeypatch.setenv(at.OVERRIDE_ENV, "fwd:K4096:N4096:M1024=wgmma,256,1;"
-                                        "bwd:K4096:N4096=wgmma,128,4;fwd:K4096:N4096:M128=wgmma,96,4")
+                                        "bwd:K4096:N4096=wgmma,128,4;fwd:K4096:N4096:M128=wgmma,96,4;"
+                                        "mlp:K4096:N11008:M1024=wgmma,256,2;"
+                                        "mlp:K4096:N11008:M128=wgmma,96,1")
     at.configure()
     got = at.lookup("fwd", 4096, 4096, 4, 128, 1000, SMS, "cuda")
     assert (got.path, got.mt, got.split) == ("wgmma", 256, 1)
     assert got == matmul.plan_of("wgmma", 256, 1, 4096, 4)
     got = at.lookup("bwd", 4096, 4096, 4, 128, 128, SMS, "cuda")
     assert got == matmul_t.plan_of(128, 4, 4096, 4, "wgmma")
+    got = at.lookup("mlp", 4096, 11008, 4, 128, 1000, SMS, "cuda")
+    assert got == matmul.plan_of("wgmma", 256, 2, 4096, 4, 2)
+    assert got.smem == matmul.wgmma_smem_bytes(4, 256)
     with pytest.raises(ValueError, match="fwd:K4096:N4096:M128"):
         at.lookup("fwd", 4096, 4096, 4, 128, 128, SMS, "cuda")
+    with pytest.raises(ValueError, match="mlp:K4096:N11008:M128"):
+        at.lookup("mlp", 4096, 11008, 4, 128, 128, SMS, "cuda")
 
 
 def test_a_version_1_cache_raises(tune):
-    """A cache written before the wgmma body (version 1, whose races never
-    saw it) raises with its message instead of pinning an old tile plan."""
-    assert at.VERSION == 2
+    """A cache of an earlier version (1, before the wgmma body; 2, before
+    kernel 2's: their races never saw it) raises with its message instead
+    of pinning an old tile plan."""
+    assert at.VERSION == 3
     key = f"fwd:K4096:N4096:b4:g128:M1024:{CARD}"
-    with open(tune, "w") as f:
-        json.dump({"version": 1, "entries": {key: {"path": "tile", "mt": 128, "split": 1}}}, f)
-    at.configure()
-    with pytest.raises(ValueError, match="version 1, this package writes 2"):
-        at.lookup("fwd", 4096, 4096, 4, 128, 1024, SMS, "cuda")
+    for old in (1, 2):
+        with open(tune, "w") as f:
+            json.dump({"version": old, "entries": {key: {"path": "tile", "mt": 128,
+                                                         "split": 1}}}, f)
+        at.configure()
+        with pytest.raises(ValueError, match=f"version {old}, this package writes 3"):
+            at.lookup("fwd", 4096, 4096, 4, 128, 1024, SMS, "cuda")
 
 
-@pytest.mark.parametrize("kind,k,n,m", [c for c in CASES if c[0] != "mlp" and c[3] > 16]
-                         + [("fwd", 4096, 2048, 128), ("bwd", 4096, 11008, 2048)])
+@pytest.mark.parametrize("kind,k,n,m", [c for c in CASES if c[3] > 16]
+                         + [("fwd", 4096, 2048, 128), ("bwd", 4096, 11008, 2048),
+                            ("mlp", 4096, 11008, 128), ("mlp", 4096, 5504, 100)])
 def test_wgmma_candidates_are_valid_for_every_m_of_their_bucket(kind, k, n, m):
     """The wgmma body's candidates: its row tiles (64, 128, 144, 256) up to
     the first that holds the bucket, each at its heuristic split and at
@@ -357,7 +364,7 @@ def test_wgmma_candidates_are_valid_for_every_m_of_their_bucket(kind, k, n, m):
         if bm >= mb:
             break
     assert {p.mt for p in cands} == set(tiles)
-    units = -(-(k if kind == "fwd" else n) // 64)
+    units = -(-(k if kind != "bwd" else n) // 64)
     for p in cands:
         assert p.smem == matmul.wgmma_smem_bytes(4, p.mt)
         assert p.split * p.per_split >= units > (p.split - 1) * p.per_split

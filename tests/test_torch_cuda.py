@@ -190,44 +190,90 @@ def _gate_up(card, k, n, bits, gs, actorder):
 
 # (bits, K, N, groupsize, act-order): 2, 4 and 8 bits, wire INT3, ragged
 # last groups (K = 1144: 9 groups of 128, the last 120 rows, and a last
-# K-block half past K; K = 1056: groups of 118 as the wire derives them),
-# groupsize 40 (a boundary inside a packed word at 2 bits; the fragment form
-# does not take it), act-order with gate and up sharing one permutation
+# K-block half past K; K = 1056: groups of 118 as the wire derives them,
+# which the wgmma body does not take), groupsize 40 (a boundary inside a
+# packed word at 2 bits; neither the fragment form nor the wgmma body takes
+# it), g16 and g32, act-order with gate and up sharing one permutation, a
+# ragged last column block (264), and the tensor-parallel gate/up shards of
+# LLaMA-7B: 4096 x 5504 (tp 2) and 4096 x 2816 (tp 4, its last 64 columns
+# zero: scales and zeros 0, as tp_model pads a shard)
 KERNEL_2_CASES = [(4, 1024, 512, 128, False), (2, 1024, 256, 64, False), (8, 512, 264, 32, False),
                   (3, 512, 256, 128, False), (4, 1144, 256, 128, False), (4, 1056, 256, 128, False),
-                  (2, 560, 256, 40, False), (4, 1024, 512, 128, True), (8, 1024, 264, 128, True)]
+                  (2, 560, 256, 40, False), (4, 1024, 512, 128, True), (8, 1024, 264, 128, True),
+                  (4, 512, 256, 16, False), (4, 4096, 5504, 128, False),
+                  (4, 4096, 2816, 128, False)]
+
+
+def _zero_last_columns(lin, pad):
+    """``lin`` with its last ``pad`` columns' scales and zeros 0: those
+    columns dequantize to exactly 0, as a padded TP shard's do."""
+    import dataclasses
+    keep = torch.ones(lin.out_features, dtype=lin.scales.dtype, device=lin.scales.device)
+    keep[-pad:] = 0
+    return dataclasses.replace(lin, scales=(lin.scales * keep).contiguous(),
+                               zeros=(lin.zeros * keep).contiguous())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits,k,n,gs,actorder", KERNEL_2_CASES)
-@pytest.mark.parametrize("m", [5, 8, 100, 128, 136, 1024])
+@pytest.mark.parametrize("m", [5, 8, 17, 100, 128, 136, 201, 1024])
 def test_fused_mlp_forms_match_plain(card, bits, k, n, gs, actorder, m):
-    """Kernel 2's tile form (NW = 2, gate and up interleaved in one B tile)
-    and, up to 16 rows, its fragment form, forced, and the dispatch (the
-    plan's form), against fused_mlp_plain: 1e-2 of each output row's norm
-    (both sides sum in fp32 and round once to bf16; the plain version rounds
-    g and u to bf16 before silu(g) * u). The readings are printed."""
+    """Kernel 2's tensor-core forms above 16 rows, forced: the mma.sync tiles
+    (NW = 2, gate and up interleaved in one B tile) and, where
+    ``matmul.wgmma_ok`` takes the shape, the Hopper body (gate and up on its
+    two consumer warpgroups); up to 16 rows its fragment form; and the
+    dispatch (the plan's form), against fused_mlp_plain: 1e-2 of each output
+    row's norm and 2e-2 * max|y| (both sides sum in fp32 and round once to
+    bf16; the plain version rounds g and u to bf16 before silu(g) * u). Each
+    forced form launched twice is bit-equal, and a CUDA-graph replay of it
+    bit-equal to the eager launch; a zero column is exactly 0. The readings
+    are printed."""
     from gptq_for_llama_tpu_torch.ops.cuda import matmul, mlp
     gate, up = _gate_up(card, k, n, bits, gs, actorder)
+    if n == 2816:
+        gate, up = _zero_last_columns(gate, 64), _zero_last_columns(up, 64)
     assert mlp.supports_fused(gate, up)
     x = torch.randn(m, k, device=card).bfloat16()
     want = fused_mlp_plain(x, gate, up)
     xp = x if gate.perm is None else x.index_select(-1, gate.perm).contiguous()
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    forms = ["tile"] + (["frag"] if m <= matmul.FRAG_MAX_M and
-                        matmul.frag_ok(k, n, gate.bits, gate.groupsize) else [])
+    groups = gate.scales.shape[0]
+    wg = matmul.wgmma_ok(k, n, gate.bits, gate.groupsize, groups)
+    forms = (["tile"] + (["wgmma"] if wg else [])
+             + (["frag"] if m <= matmul.FRAG_MAX_M and
+                matmul.frag_ok(k, n, gate.bits, gate.groupsize) else []))
     kernels.reset_launch_counts()
     for path in forms:
-        p = matmul.plan(m, k, n, gate.bits, sms, streams=2, path=path, groupsize=gate.groupsize)
-        got = mlp._launch(xp, gate, up, p)
+        p = matmul.plan(m, k, n, gate.bits, sms, streams=2, path=path, groupsize=gate.groupsize,
+                        groups=groups)
+        run = lambda: mlp._launch(xp, gate, up, p)   # noqa: E731
+        got, again = run(), run()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = run()
+        graph.replay()
         torch.cuda.synchronize()
         rel = float(_row_rel(got, want))
-        print(f"kernel 2 {path} bits={bits} K={k} N={n} gs={gs} act={actorder} M={m}: "
-              f"worst row rel {rel:.3e}")
+        print(f"kernel 2 {path} bits={bits} K={k} N={n} gs={gs} act={actorder} M={m} "
+              f"[row tile {p.mt}, split {p.split}]: worst row rel {rel:.3e}")
         assert torch.isfinite(got.float()).all() and rel <= 1e-2, path
+        assert _close(got, want, 2e-2), path
+        assert torch.equal(got, again) and torch.equal(replayed, got), path
+        if n == 2816:
+            assert not got[:, -64:].any(), path
     got = fused_mlp(x, gate, up)
     assert float(_row_rel(got, want)) <= 1e-2
-    assert kernels.launch_counts()["fused_mlp"] == len(forms) + 1
+    counts = kernels.launch_counts()
+    assert counts["fused_mlp"] == 4 * len(forms) + 1
+    form = ("gemv" if m <= matmul.FUSED_GEMV_MAX_M else "frag" if m <= matmul.FRAG_MAX_M
+            and matmul.frag_ok(k, n, gate.bits, gate.groupsize) else "gemv"
+            if m <= matmul.FRAG_MAX_M else "wgmma" if wg else "tile")
+    assert counts[f"fused_mlp:{form}"] == 1 + 4 * forms.count(form)
 
 
 # twice the largest worst-row gap measured on the card between kernel 2's
@@ -239,18 +285,19 @@ GEMV_GAP = 7.5e-3
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [2, 5, 8, 16, 100, 136])
+@pytest.mark.parametrize("m", [2, 5, 8, 16, 17, 100, 136, 201])
 def test_fused_mlp_tensor_core_forms_agree_with_the_gemv(card, m):
-    """Kernel 2's tile and fragment forms against its GEMV forced through a
-    plan, at 4096 x 11008 INT4-g128 (the 7B shape): within GEMV_GAP of each
-    output row's norm. The reading is printed."""
+    """Kernel 2's tensor-core forms (the tiles, the wgmma body and, up to 16
+    rows, the fragments) against its GEMV forced through a plan, at 4096 x
+    11008 INT4-g128 (the 7B shape): within GEMV_GAP of each output row's
+    norm. The reading is printed."""
     from gptq_for_llama_tpu_torch.ops.cuda import matmul, mlp
     gate = _linear(4096, 11008, 4, 128, seed=5, device=card)
     up = _linear(4096, 11008, 4, 128, seed=6, device=card)
     x = torch.randn(m, 4096, device=card).bfloat16()
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     gemv = mlp._launch(x, gate, up, matmul.plan(m, 4096, 11008, 4, sms, streams=2, path="gemv"))
-    for path in ("tile", "frag") if m <= matmul.FRAG_MAX_M else ("tile",):
+    for path in ("tile", "wgmma", "frag") if m <= matmul.FRAG_MAX_M else ("tile", "wgmma"):
         got = mlp._launch(x, gate, up, matmul.plan(m, 4096, 11008, 4, sms, streams=2, path=path))
         rel = float(_row_rel(got, gemv))
         print(f"kernel 2 {path} vs gemv M={m}: worst row rel {rel:.3e}")
@@ -952,8 +999,8 @@ def test_qmm_t_plans_match_plain(card, k, n, m):
 
 @pytest.mark.cuda
 def test_tensor_core_bodies_hold_the_ragged_set(card):
-    """Kernels 1 and 8 with each tensor-core body forced (the mma.sync tiles
-    and the wgmma body) on chip_smoke.py's ragged set (``hold_tc_cases``:
+    """Kernels 1, 2 and 8 with each tensor-core body forced (the mma.sync
+    tiles and the wgmma body) on chip_smoke.py's ragged set (``hold_tc_cases``:
     every device bits value and wire INT3, g128, g64, g32, g16, G = 1,
     act-order, a bias, ragged M 17-300, a ragged last column tile and group,
     N = 11008, with and without a split): each within 2e-2 * max|plain|,

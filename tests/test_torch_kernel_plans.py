@@ -8,8 +8,10 @@ rows (the one-launch GEMV where the group size does not suit it, or at M <=
 ``GEMV_MAX_M``) and above them the Hopper body (``csrc/qmm_wgmma.cuh``:
 wgmma fed by TMA) where its shapes allow, the mma.sync tiles otherwise;
 kernel 8 the same two bodies; kernel 2 takes its GEMV at
-M = 1, the fragment form up to ``FRAG_MAX_M`` and kernel 1's tiles with two
-interleaved streams above; the decode-width forms split K across the blocks
+M = 1, the fragment form up to ``FRAG_MAX_M`` and above it the Hopper body
+(gate and up on its two consumer warpgroups, 64 columns of y a block) where
+its shapes allow, kernel 1's tiles with two interleaved streams otherwise;
+the decode-width forms split K across the blocks
 of one thread block cluster; kernel 8 takes kernel 1's row tile and splits N
 where its tiles do not fill the card. Kernels 3, 7 and 9 split the live
 slots into chunks of whole tiles; a CPU model of the split and its combine
@@ -169,17 +171,21 @@ def test_tile_shared_memory_fits(bits, streams, bm):
     assert smem == stages * (bm * 72 * 2 + words + 2 * 4 * 128 * 2) + 2 * 128 * 72 * 2
     for m in (bm // 2 + 1, bm):
         k, n = (4096, 4096) if streams == 1 else (4096, 11008)
-        p = plan(m, k, n, bits, SMS, streams=streams)
-        if p.path == "tile" and p.mt == bm:
+        p = plan(m, k, n, bits, SMS, streams=streams, path="tile")
+        if p.mt == bm:
             assert p.smem == smem
 
 
 # kernel 2 (fused gate/up, 4096 x 11008) at every M of the smoke: path, row
-# tile, K splits, slabs (tile) or K-blocks (frag) per split
-KERNEL_2_PLANS = {1: ("gemv", 1, 4, 128), 8: ("frag", 8, 1, 128), 100: ("tile", 128, 3, 22),
-                  128: ("tile", 128, 3, 22), 136: ("tile", 256, 3, 22), 512: ("tile", 256, 1, 64),
-                  1024: ("tile", 256, 1, 64), 2048: ("tile", 256, 1, 64),
-                  16384: ("tile", 256, 1, 64)}
+# tile, K splits, packed words (gemv), K-blocks (frag) or 64-row slabs (wgmma)
+# per split; and its tiles, forced, above 16 rows
+KERNEL_2_PLANS = {1: ("gemv", 1, 4, 128), 8: ("frag", 8, 1, 128), 100: ("wgmma", 128, 3, 22),
+                  128: ("wgmma", 128, 3, 22), 136: ("wgmma", 144, 3, 22),
+                  512: ("wgmma", 256, 1, 64), 1024: ("wgmma", 256, 1, 64),
+                  2048: ("wgmma", 256, 1, 64), 16384: ("wgmma", 256, 1, 64)}
+KERNEL_2_TILES = {100: ("tile", 128, 3, 22), 128: ("tile", 128, 3, 22), 136: ("tile", 256, 3, 22),
+                  512: ("tile", 256, 1, 64), 1024: ("tile", 256, 1, 64),
+                  2048: ("tile", 256, 1, 64), 16384: ("tile", 256, 1, 64)}
 
 
 @pytest.mark.parametrize("m", SMOKE_MS)
@@ -188,19 +194,25 @@ def test_kernel_2_keeps_its_gemv_plan(m):
     measured crossover (M = 1: the GEMV 32.17 us, the fragment form 38.55;
     at M = 2 the fragment form wins, 38.76 against 42.28; PERF.md), takes
     the register-fragment form at the serving decode step (M = 8, the
-    fastest of the three forms there) and the tensor-core tiles above, with
-    kernel 1's row tile over its 64-column tiles and a K split that turns
-    the 172 tiles of one row into two even waves at M = 100-136."""
+    fastest of the three forms there) and the Hopper body above (gate and
+    up on its two consumer warpgroups: 64 columns of y a block, kernel 1's
+    shared memory at the same row tile), at the row tile and split measured
+    fastest (scripts/torch_qmm_bodies.py). The tiles, forced, keep kernel
+    1's row tile over their 64-column tiles and a K split that turns the 172
+    tiles of one row into two even waves at M = 100-136."""
     p = plan(m, 4096, 11008, 4, SMS, streams=2)
     assert p == Plan(*KERNEL_2_PLANS[m], p.smem)
     assert (p.path == "gemv") == (m <= FUSED_GEMV_MAX_M)
-    if p.path == "tile":
-        assert p.smem == tile_smem_bytes(4, p.mt)
+    if p.path == "wgmma":
+        assert p.smem == wgmma_smem_bytes(4, p.mt) <= SMEM_PER_BLOCK
+        # 64 columns of y a block: kernel 1's 128-column tiles halved
+        assert matmul.WG_COLS // 2 == 64 and -(-11008 // 64) == 172
+        tile = plan(m, 4096, 11008, 4, SMS, streams=2, path="tile")
+        assert tile == Plan(*KERNEL_2_TILES[m], tile.smem)
+        assert tile.smem == tile_smem_bytes(4, tile.mt)
         # the same plan as kernel 1's tiles at the same columns of y (86
         # tiles of 128)
-        assert p == plan(m, 4096, 11008, 4, SMS, path="tile") or m >= 512
-        with pytest.raises(ValueError):   # the wgmma body takes one weight stream
-            plan(m, 4096, 11008, 4, SMS, streams=2, path="wgmma")
+        assert tile == plan(m, 4096, 11008, 4, SMS, path="tile") or m >= 512
 
 
 @pytest.mark.parametrize("k,n", [(4096, 11008), (512, 384), (1024, 256)])
@@ -209,13 +221,17 @@ def test_kernel_2_takes_the_fragment_form_up_to_16_rows(k, n, bits, gs):
     """From M = 2 to 16 kernel 2 takes the fragment form where every K-block
     (4 packed word-rows, 128 / bits rows) lies in one group; its splits cover
     every K-block and each warp keeps at least two; one n8 tile of x's rows
-    up to M = 8, two up to 16; tiles from M = 17."""
+    up to M = 8, two up to 16; from M = 17 the wgmma body (every group size
+    here a multiple of 16), the tiles where ``wgmma_ok`` refuses the shape
+    (a group size of 40)."""
     kb = 4 * (32 // bits)
     assert frag_ok(k, n, bits, gs) == (gs % kb == 0)
     for m in range(1, 40):
         p = plan(m, k, n, bits, SMS, streams=2, groupsize=gs)
-        want = ("gemv" if m <= FUSED_GEMV_MAX_M else "frag" if m <= FRAG_MAX_M else "tile")
+        want = ("gemv" if m <= FUSED_GEMV_MAX_M else "frag" if m <= FRAG_MAX_M else "wgmma")
         assert p.path == want
+        if m >= WGMMA_MIN_M:
+            assert plan(m, k, n, bits, SMS, streams=2, groupsize=40).path == "tile"
         if p.path == "frag":
             kbs = -(-k // kb)
             assert p.mt == (8 if m <= 8 else 16)
@@ -532,6 +548,37 @@ def test_wgmma_splits_cover_the_reduction_in_order(k, n, bits):
                        for s in range(1, max(1, slabs // 4) + 1))
         else:
             assert p.split == 1
+
+
+@pytest.mark.parametrize("k,n", [(4096, 11008), (4096, 5504), (4096, 2816), (1024, 256),
+                                 (4096, 4104)])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_kernel_2_wgmma_splits_cover_the_reduction_in_order(k, n, bits):
+    """Kernel 2's wgmma body (two weight streams, 64 columns of y a block) at
+    every M the smoke gives it and the ragged ones: kernel 1's row tiles and
+    shared memory; the splits take consecutive runs of K's 64-row slabs, none
+    empty, at least 4 slabs each when K is split, the same runs for the gate
+    and up partials (one plan covers both streams: qmm_reduce_kernel<2>
+    sums (2, split, M, N) in split order); the plan alone fixes the order of
+    the sums, and a split is taken only where the 64-column tiles fill at
+    most half the SMs or below two waves of them, there at most 2 ways at
+    256-row tiles (``wgmma_split``)."""
+    slabs = -(-k // matmul.WG_DEPTH)
+    for m in (17, 40, 64, 100, 128, 130, 136, 200, 201, 256, 300, 512, 1024, 2048, 16384):
+        p = plan(m, k, n, bits, SMS, streams=2)
+        assert p.path == "wgmma" and p.smem == wgmma_smem_bytes(bits, p.mt)
+        assert p.mt == matmul.wgmma_row_tile(m)
+        assert p.split * p.per_split >= slabs > (p.split - 1) * p.per_split
+        runs = [(z * p.per_split, min(slabs, (z + 1) * p.per_split)) for z in range(p.split)]
+        assert all(a < b for a, b in runs) and runs[-1][1] == slabs
+        assert all(runs[i][1] == runs[i + 1][0] for i in range(p.split - 1))
+        if p.split > 1:
+            assert p.per_split >= 4
+        tiles = -(-n // 64) * -(-m // p.mt)
+        assert p.split == matmul.wgmma_split(tiles, slabs, SMS, 2, p.mt)
+        if p.split > 1:
+            assert tiles <= SMS // 2 or (tiles < 2 * SMS and (p.mt <= 144 or p.split == 2))
+        assert p == matmul.plan_of("wgmma", p.mt, p.split, k, bits, 2)
 
 
 # the wgmma body's plans (row tile, K splits, slabs per split) at the smoke's
