@@ -131,10 +131,15 @@ Phases, in order, on one card:
            bit-equal, kernel 7 bit-equal to kernel 3 on the gathered view,
            kernel 4 at offset 0 bit-equal to kernel 5, each timed beside the
            library's upcast plus SDPA and its bound; kernels 4 (bf16) and 5
-           name the body their plan takes, and at D = 64, 80, 96 each body
-           is forced as well (held, twice bit-equal, timed; kernel 4 at
-           offset 0 over the poisoned cache bit-equal to kernel 5 on the
-           same body). Kernel 1 at LLaMA-7B's
+           name the body their plan takes, and each body is forced as well
+           (held, twice bit-equal, timed; kernel 4 at offset 0 over the
+           poisoned cache bit-equal to kernel 5 on the same body); at D =
+           256 also kernel 5 at B = 8 and kernel 4 at SQ = 512 over 2048
+           slots. LLaMA at D = 256 (LLAMA_256: 7B widths, 16 heads of 256
+           over 2 kv heads, 2 layers) against the CPU, its 201-token prefill
+           graph and 32 greedy tokens bit-equal to the eager bodies, and the
+           eval forward at 8 x 2048: kernels 4 and 5 on their wgmma body at
+           d256 (tok/s, prefill device ms). Kernel 1 at LLaMA-7B's
            fused q/k/v (4096 x 12288, its columns against the three unfused
            launches) and at NeoX-20B's linears with their biases. Each
            family at 2 layers on the card against the CPU (logits 2e-2,
@@ -293,6 +298,14 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
                               "flash_prefill_blocked:d64", "flash_prefill_blocked:sync:d64"},
          "arch:gpt2:serve:dense": {"qmm", "decode_attention:d64", "flash_prefill_blocked:d64",
                                    "flash_prefill_blocked:wgmma:d64"},
+         # LLAMA_256 (phase archs): the runner's 201-token prefill (S_pad 256,
+         # past SYNC_MAX_KEYS[256]) and greedy decode, and the eval forward
+         # at 8 x 2048, kernels 4 and 5 on their wgmma body at d256
+         "arch:llama256:decode": {"qmm", "fused_mlp", "decode_attention:d256",
+                                  "flash_prefill_blocked:d256",
+                                  "flash_prefill_blocked:wgmma:d256"} | NORMS,
+         "arch:llama256:eval": {"qmm:wgmma", "fused_mlp:wgmma", "flash_prefill:d256",
+                                "flash_prefill:wgmma:d256"} | NORMS,
          # LLaMA-7B decode steps with q/k/v fused (one kernel-1 launch a layer for them)
          "fuse_qkv:decode": {"qmm", "fused_mlp", "decode_attention"} | NORMS,
          # the offloaded LLaMA-7B's generate (24 of 32 layers streamed), the
@@ -351,6 +364,12 @@ ARCH_CONFIGS = {
                  norm_eps=1e-5, act="gelu_new", pos_embedding="learned", attn_bias=True,
                  mlp_bias=True, tie_word_embeddings=True),
 }
+
+# phase archs' LLaMA at head dim 256: LLaMA-7B's hidden and intermediate
+# widths, 16 query heads of 256 over 2 kv heads (the head layout of the D =
+# 256 kernel rows), 2 layers. No published checkpoint: the layout the LLaMA
+# loader's head_dim admits (its Pallas kernels take D % 128 == 0)
+LLAMA_256 = dict(LLAMA_7B, num_layers=2, num_heads=16, num_kv_heads=2, head_dim=256)
 
 
 def log(msg: str) -> None:
@@ -696,16 +715,30 @@ def _plain_dense(tree, dtype):
     weight in ``dtype``, "bias"}. That is the product the plain path forms
     at every call (``quant_matmul_plain``: dequantize, then matmul), formed
     once; the logits and gradients are the same bit for bit, without a
-    dequantization per linear per step. Adapters keep theirs."""
+    dequantization per linear per step. Adapters keep theirs. The
+    dequantization (integer unpacking, then one fp32 subtract and one fp32
+    multiply an element, rounded once to ``dtype``) runs on the card, where it
+    gives the CPU's bits in a fraction of the host time; the first linear of
+    each call is also dequantized on the CPU and must match bit for bit."""
     import dataclasses
+    import torch
     from gptq_for_llama_tpu_torch.ops.linear import PackedLinear, dense
     from gptq_for_llama_tpu_torch.ops.lora import LoraLinear, map_leaves
+    checked = []
 
     def leaf(x):
         if isinstance(x, LoraLinear):
             return dataclasses.replace(x, base=map_leaves(leaf, x.base))
         if isinstance(x, PackedLinear) and x.perm is None:
-            return dense(x.dequantize(dtype), None if x.bias is None else x.bias.to(dtype))
+            card = dataclasses.replace(x, qweight=x.qweight.cuda(), scales=x.scales.cuda(),
+                                       zeros=x.zeros.cuda())
+            w = card.dequantize(dtype).cpu()
+            if not checked:
+                if not torch.equal(w.view(torch.uint8), x.dequantize(dtype).view(torch.uint8)):
+                    raise AssertionError("a weight dequantized on the card differs from the "
+                                         "CPU's")
+                checked.append(True)
+            return dense(w, None if x.bias is None else x.bias.to(dtype))
         return x
 
     return map_leaves(leaf, tree)
@@ -1069,11 +1102,20 @@ class Smoke:
 
     @staticmethod
     def _ptxas_log(built):
+        """Log the ptxas lines of each library built; fail where an entry of
+        the wgmma flash body (kernels 4 and 5, every head dim) spills."""
+        import re
         for name, text in sorted(built.items()):
+            entry = ""
             for line in text.splitlines():
+                if "Compiling entry" in line:
+                    entry = line
                 if any(w in line for w in ("registers", "spill", "Compiling entry", "arning",
                                            "Performance Loss")):
                     log(f"[ptxas {name}] {line.strip()}")
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if "flash_wgmma_kernel" in entry and spill and spill.groups() != ("0", "0"):
+                    raise AssertionError(f"{name}: the wgmma flash body spills ({line.strip()})")
 
     def _build_rest(self):
         """Wait for the libraries phase build left building; log their
@@ -1086,6 +1128,11 @@ class Smoke:
             log(f"[build] the other {len(built)} libraries built, {dt:.1f} s waited for here")
             self._ptxas_log(built)
             self.report["build_rest_wait_s"] = dt
+            smem = {d: build.library("flash_prefill", d).gptq_flash_smem_bytes(1)
+                    for d in build.HEAD_DIMS}
+            log(f"[build] the wgmma flash body's dynamic shared memory per block by head dim "
+                f"(bytes): {smem}")
+            self.report.setdefault("dynamic_smem_bytes", {})["flash wgmma by D"] = smem
 
     # -- phase 3 ---------------------------------------------------------------
     def _record(self, kernel, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops, main=False,
@@ -2174,7 +2221,7 @@ class Smoke:
                                "roofline_share": 1e3 / loop["graph_ms"] / roof_tok_s,
                                "peak_memory_bytes": peak, "weight_bytes": wbytes}
 
-    def _prefill_graphs_vs_eager(self, torch, runner, prompts):
+    def _prefill_graphs_vs_eager(self, torch, runner, prompts, label="full"):
         """Each prompt's prefill through its graph (captured by ``warmup``) and
         through the same body run eagerly (``_step``), then a second prefill
         of the first prompt at its own length's offset, which replays the
@@ -2209,8 +2256,8 @@ class Smoke:
             lg, cs = seen["graph"]
             le, ce = seen["eager"]
             if not torch.equal(lg, le) or not all(torch.equal(a, b) for a, b in zip(cs, ce)):
-                raise AssertionError(f"full: the prefill graph of {len(p)} tokens at offset "
-                                     f"{off} differs from its body run eagerly")
+                raise AssertionError(f"{label}: the prefill graph of {len(p)} tokens at "
+                                     f"offset {off} differs from its body run eagerly")
             s_pad = prefill_len(len(p), runner.max_len - off)
             key = ("prefill", s_pad, bucket_for(off + s_pad, runner.decode_buckets))
             dev = replay_ms(torch, runner.graphs, key, lambda o=off: offs.fill_(o), iters=4)
@@ -2218,7 +2265,7 @@ class Smoke:
             rows[name] = {"key": list(key), "graph_host_ms": times["graph"][0],
                           "graph_device_ms": dev, "eager_host_ms": times["eager"][0],
                           "eager_events_ms": times["eager"][1]}
-            log(f"[full] prefill of {len(p)} tokens at offset {off} (graph {key}): graph "
+            log(f"[{label}] prefill of {len(p)} tokens at offset {off} (graph {key}): graph "
                 f"{times['graph'][0]:.3f} ms host, {dev:.3f} ms device; eager body "
                 f"{times['eager'][0]:.3f} ms host ({times['eager'][1]:.3f} ms on events); "
                 f"logits and cache below the offset bit-equal | {self.card}")
@@ -2284,10 +2331,10 @@ class Smoke:
                                            span=1), o):
                 raise AssertionError(f"{label}: generate(span=1) differs from span 32")
         span1 = (time.perf_counter() - t0) / (len(prompts) * new) * 1e3
-        log(f"[{label}] graphs vs eager: the 3 prompts x {new} greedy tokens equal bit for bit "
-            f"through the eager _step loop, decode_greedy_scan's graphs, generate(span=1) and "
-            f"generate(span=32), forced_decode_scan's last logits the loop's; launches per "
-            f"decode forward equal ({per['graph']})")
+        log(f"[{label}] graphs vs eager: the {len(prompts)} prompts x {new} greedy tokens equal "
+            f"bit for bit through the eager _step loop, decode_greedy_scan's graphs, "
+            f"generate(span=1) and generate(span=32), forced_decode_scan's last logits the "
+            f"loop's; launches per decode forward equal ({per['graph']})")
         return {"eager_ms": ms["eager"], "graph_ms": ms["graph"], "span1_ms": span1,
                 "per_forward": per["graph"]}
 
@@ -3920,6 +3967,7 @@ class Smoke:
 
         for d in (64, 80, 96, 256):
             step(f"kernel rows at D = {d}", self._dim_kernel_rows, d)
+        step("LLaMA at head dim 256, 2 layers: CPU, prefill, decode, eval", self._llama256)
         step("kernel 1 at the fused q/k/v and NeoX-20B shapes", self._qmm_arch_rows)
         for name in ("neox", "opt", "gpt2"):
             step(f"{name} 2 layers against the CPU", self._arch_two_layers, name)
@@ -3942,10 +3990,11 @@ class Smoke:
         7 bit-equal to kernel 3 over the gathered view, kernel 4 at offset 0
         bit-equal to kernel 5; timed beside the library's upcast of the live
         cache to bf16 plus SDPA and beside the bound at the cache's bytes.
-        Kernels 4 (bf16) and 5 name the body their plan takes, and where D
-        has both (64, 80, 96) each body is forced too: held to the plain
-        version, launched twice bit-equal, timed, and kernel 4 at offset 0
-        over the poisoned cache bit-equal to kernel 5 on the same body."""
+        Kernels 4 (bf16) and 5 name the body their plan takes, and each body
+        is forced too: held to the plain version, launched twice bit-equal,
+        timed, and kernel 4 at offset 0 over the poisoned cache bit-equal to
+        kernel 5 on the same body. At D = 256 kernel 5 runs at B = 8 too (the
+        eval's batch) and kernel 4 at SQ = 512 over 2048 slots."""
         import torch.nn.functional as F
         from gptq_for_llama_tpu_torch.ops import kv_dtype
         from gptq_for_llama_tpu_torch.ops.cuda import flash, flash_prefill as fp
@@ -4129,9 +4178,11 @@ class Smoke:
                 4 * live * h * d, main=True)
             del kp, vp, kp_clean, vp_clean
             # kernel 4: a prompt (SQ = 100, offset 0) and a serving chunk (SQ =
-            # 128 at offset 128), the cache poisoned past the causal limit;
-            # at offset 0 over bf16 bit-equal to kernel 5 on the same rows
-            for sq, off0, skv in ((100, 0, s), (128, 128, 256))[:2 if bf16 else 1]:
+            # 128 at offset 128; at D = 256 also a 512-query bucket over 2048
+            # slots), the cache poisoned past the causal limit; at offset 0
+            # over bf16 bit-equal to kernel 5 on the same rows
+            chunks = ((100, 0, s), (128, 128, 256), (512, 0, s))
+            for sq, off0, skv in chunks[:(3 if d == 256 else 2) if bf16 else 1]:
                 hkv = hkv_mha
                 ncopy = copies_for(2 * skv * hkv * d * isz)
                 q = randn(1, sq, h, d)
@@ -4177,30 +4228,103 @@ class Smoke:
                     y, ref, ms, pms, lms, 2 * sq * h * d * 2 + n * hkv * d * isz * 2,
                     4 * h * pairs * d, main=(sq == 100 or bf16),
                     extra={"body": body, "bodies": bodies},
-                    key="bf16 chunk" if off0 > 0 else None)   # beside the prompt row
+                    key={(128, 128): "bf16 chunk", (512, 0): "bf16 bucket"}.get(
+                        (sq, off0)))   # beside the prompt row
                 del caches, kc, vc
-        # kernel 5: causal, no cache, S = 2048 (the calibration and eval window)
-        b, s5, hkv = 1, 2048, h if d != 256 else 2
-        q, k, v = randn(b, s5, h, d), randn(b, s5, hkv, d), randn(b, s5, hkv, d)
-        y, y2 = flash_prefill_cuda(q, k, v, sc), flash_prefill_cuda(q, k, v, sc)
-        ref = flash_prefill_plain(q, k, v, sc)
+        # kernel 5: causal, no cache, S = 2048 (the calibration and eval
+        # window; at D = 256 also the eval's batch of 8)
+        s5, hkv = 2048, h if d != 256 else 2
+        for b in (1, 8) if d == 256 else (1,):
+            q, k, v = randn(b, s5, h, d), randn(b, s5, hkv, d), randn(b, s5, hkv, d)
+            y, y2 = flash_prefill_cuda(q, k, v, sc), flash_prefill_cuda(q, k, v, sc)
+            ref = flash_prefill_plain(q, k, v, sc)
+            torch.cuda.synchronize()
+            if not torch.equal(y, y2):
+                raise AssertionError(f"flash_prefill D={d} B={b}: two launches differ")
+            body = fp.plan(s5, 0, d)
+            bodies = forced_bodies(f"kernel 5 B={b} S={s5}",
+                                   lambda b_, i: fp._launch(q, k, v, sc, b_), ref, 1)
+            gqa = {"enable_gqa": True} if h != hkv else {}
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            ms = graph_ms(torch, [lambda: flash_prefill_cuda(q, k, v, sc)], iters=6)
+            pms = graph_ms(torch, [lambda: flash_prefill_plain(q, k, v, sc)], iters=1)
+            lms = graph_ms(torch, [lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, **gqa)], iters=6)
+            rec("flash_prefill", "bf16", f"B={b} S={s5} H={h} Hkv={hkv} causal [{body}], two "
+                f"launches bit-equal", y, ref, ms, pms, lms,
+                2 * b * s5 * h * d * 2 + 2 * b * s5 * hkv * d * 2,
+                2 * b * h * s5 * (s5 + 1) * d, main=True,
+                extra={"body": body, "bodies": bodies}, key=None if b == 1 else f"bf16 B={b}")
+            del q, k, v, y, y2, ref
+            torch.cuda.empty_cache()
+
+    def _llama256(self, torch):
+        """LLAMA_256 (INT4-g128 ``gaussian_wire_llama``, seed 256): a 29-token
+        prefill and 6 teacher-forced steps against the fp32 CPU path (logits
+        within 2e-2, greedy tokens where clear); a 201-token prompt through
+        the runner's prefill graph (S_pad 256) and again at offset 201, both
+        bit-equal to the body run eagerly; 32 greedy tokens through generate,
+        the eager loop and the scans, bit for bit; the perplexity eval's
+        forward (``window_nll``) at 8 x 2048 three times, equal and finite.
+        The prefill, decode and eval launches are checked by path
+        (``arch:llama256:*``: kernels 4 and 5 on their wgmma body at d256).
+        Prints the eval forward's tok/s and the prefill's device ms."""
+        from gptq_for_llama_tpu_torch.engine.evaluate import window_nll
+        from gptq_for_llama_tpu_torch.models.config import ModelConfig
+        from gptq_for_llama_tpu_torch.models.registry import get_arch
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
+        from gptq_for_llama_tpu_torch.runtime.random_model import gaussian_wire_llama
+        cfg = ModelConfig(**LLAMA_256)
+        params = gaussian_wire_llama(cfg, seed=256, device="cuda", dtype=torch.bfloat16)
+        out = self.report.setdefault("archs", {}).setdefault("llama256", {})
+        label = "archs llama256"
+        cpu_params = _tree_to_cpu(params, torch.float32)
+        prompt = np.random.RandomState(256).randint(0, cfg.vocab_size, size=29)
+        err, scale, agreed, compared = self._hold_to_cpu(torch, f"{label} vs CPU", "llama", cfg,
+                                                         params, cpu_params, prompt, 6)
+        out["two_layers"] = {"max_abs_err": err, "max_abs_ref": scale, "tokens_agreed": agreed,
+                             "tokens_compared": compared}
+        del cpu_params
+
+        runner = ModelRunner("llama", cfg, params, dtype=torch.bfloat16, device="cuda")
+        prompt = np.random.RandomState(257).randint(0, cfg.vocab_size, size=201)
+        runner.warmup(prefill_buckets=(201,))
+        kernels.reset_launch_counts()
+        out["prefill"] = self._prefill_graphs_vs_eager(torch, runner, [prompt], label)
+        toks = generate(runner, prompt, max_new_tokens=32, temperature=0.0)
         torch.cuda.synchronize()
-        if not torch.equal(y, y2):
-            raise AssertionError(f"flash_prefill D={d}: two launches differ")
-        body = fp.plan(s5, 0, d)
-        bodies = forced_bodies(f"kernel 5 B={b} S={s5}",
-                               lambda b_, i: fp._launch(q, k, v, sc, b_), ref, 1)
-        gqa = {"enable_gqa": True} if h != hkv else {}
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms = graph_ms(torch, [lambda: flash_prefill_cuda(q, k, v, sc)], iters=6)
-        pms = graph_ms(torch, [lambda: flash_prefill_plain(q, k, v, sc)], iters=1)
-        lms = graph_ms(torch, [lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                      **gqa)], iters=6)
-        rec("flash_prefill", "bf16", f"B={b} S={s5} H={h} Hkv={hkv} causal [{body}], two "
-            f"launches bit-equal", y, ref, ms, pms, lms,
-            2 * b * s5 * h * d * 2 + 2 * b * s5 * hkv * d * 2, 2 * b * h * s5 * (s5 + 1) * d,
-            main=True, extra={"body": body, "bodies": bodies})
-        del q, k, v
+        counts = kernels.launch_counts()
+        self.check_path("arch:llama256:decode", counts)
+        out["decode"] = self._graphs_vs_eager(torch, label, runner, [prompt], [toks], 32)
+        out["launches_decode"] = {k: v for k, v in counts.items() if v}
+        del runner
+
+        arch = get_arch("llama")
+        ids = torch.as_tensor(np.random.RandomState(258).randint(0, cfg.vocab_size, (8, 2048)),
+                              device="cuda")
+        kernels.reset_launch_counts()
+        nll, times = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nll.append(window_nll(arch, cfg, params, ids))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        self.check_path("arch:llama256:eval", counts)
+        if not (torch.isfinite(nll[0]).all() and all(torch.equal(nll[0], n) for n in nll)):
+            raise AssertionError(f"{label}: eval NLL not finite, or three forwards differ")
+        tok_s = ids.numel() / sorted(times)[1]
+        out["eval"] = {"tok_s": tok_s, "seconds": times, "nll": nll[0].tolist(),
+                       "launches": {k: v for k, v in counts.items() if v}}
+        prefill = out["prefill"]["201 at offset 0"]
+        log(f"[archs] LLaMA head dim 256 (16 heads over 2, 2 layers at 7B width): eval forward "
+            f"8 x 2048 {tok_s:.1f} tok/s (median of 3, equal NLL); 201-token prefill "
+            f"{prefill['graph_device_ms']:.3f} ms device; launches: decode "
+            f"{_nonzero({k: v for k, v in out['launches_decode'].items() if 'flash' in k})}, "
+            f"eval {_nonzero({k: v for k, v in counts.items() if 'flash' in k})} | {self.card}")
+        del params, ids
         torch.cuda.empty_cache()
 
     def _qmm_arch_rows(self, torch):

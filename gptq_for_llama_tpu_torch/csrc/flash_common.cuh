@@ -31,27 +31,30 @@
 //    within a group: with the tile the fastest index at a few waves, the
 //    heavy tiles of the last heads started a wave late, and with every head
 //    in one group, the K/V of all heads did not stay in L2;
-//  - the producer keeps TMA loads of 128-key K and V tiles in flight through
-//    3-stage rings of mbarriers (full: bytes landed; empty: both consumer
-//    warpgroups done; K and V each their own), Q is loaded once; tensor maps
-//    are encoded on the host (4-D, so rows past SQ or SKV of a batch row read
-//    as zeros), a tile in sub-tiles of 64, 32 or 16 dims (WgmmaDims) whose
-//    rows take the 128-, 64- or 32-byte swizzle the wgmma descriptors expect;
-//  - S = Q K^T by wgmma.m64n128k16 from shared memory (D / 16 k-steps); the
-//    softmax runs on the accumulators in fp32 (running max and denominator
-//    per row); P goes from the accumulators straight to bf16 A fragments in
-//    registers, and O += P V by wgmma.m64nDk16 with V read from shared
-//    memory through the transpose bit; named barriers hand the tensor cores
-//    from one warpgroup to the other, so one's softmax runs while the other's
-//    products do, and each warpgroup issues P(t-1) V(t-1) with S(t), so its
-//    own softmax of tile t overlaps its previous tile's P V;
+//  - the producer keeps TMA loads of 128-key K and V tiles (80-key at D =
+//    256) in flight through 3-stage rings (2 at D = 256) of mbarriers (full:
+//    bytes landed; empty: both consumer warpgroups done; K and V each their
+//    own), Q is loaded once; tensor maps are encoded on the host (4-D, so
+//    rows past SQ or SKV of a batch row read as zeros), a tile in sub-tiles
+//    of 64, 32 or 16 dims (WgmmaDims) whose rows take the 128-, 64- or
+//    32-byte swizzle the wgmma descriptors expect;
+//  - S = Q K^T by wgmma.m64n128k16 (m64n80k16 at D = 256) from shared
+//    memory (D / 16 k-steps); the softmax runs on the accumulators in fp32
+//    (running max and denominator per row); P goes from the accumulators
+//    straight to bf16 A fragments in registers, and O += P V by
+//    wgmma.m64nDk16 with V read from shared memory through the transpose
+//    bit; named barriers hand the tensor cores from one warpgroup to the
+//    other, so one's softmax runs while the other's products do, and each
+//    warpgroup issues P(t-1) V(t-1) with S(t), so its own softmax of tile t
+//    overlaps its previous tile's P V;
 //  - key tiles wholly above the tile's causal limit (q_offset + its last row,
 //    kv_end) are never loaded; slots past kv_end are masked, and where a
 //    cache tile reaches past kv_end its V rows there are zeroed in shared
 //    memory before P V (a cache may hold NaN there, and 0 * NaN is NaN).
 //
-// flash_sync_kernel (a short causal prefix: at most 128 keys at D = 128,
-// 160 at 80 and 96, 192 at 64, and every length at 256):
+// flash_sync_kernel (a short causal prefix: at most
+// ops/cuda/flash_prefill.py:SYNC_MAX_KEYS[D] keys, the crossover measured
+// for each D):
 //  - one block of 4 warps per (64-query tile, head, batch row); each warp
 //    owns 16 query rows; heaviest tiles first;
 //  - K/V stream through shared memory in 64-key tiles with cp.async: V(t) is
@@ -82,14 +85,17 @@
 // Q's fragments are read from shared memory for each product, not kept in
 // registers, and a tile of another type than bf16 is converted as it is
 // loaded, so the 16 x 256 fp32 accumulator fits a thread's registers. The
-// wgmma body is a template on D too and takes D = 64, 80, 96 and 128: a row
-// of 2 D bytes is cut into sub-tiles of the widest swizzle that divides it
-// (64 dims at 128 and 64, 32 at 96, 16 at 80), one TMA box and one
-// descriptor mode each, and P V is one m64nDk16 product; at D = 256 its O
-// accumulator (128 fp32 a thread) and a 64 KB Q tile leave no room, so 256
-// runs the mma.sync body at every length (ops/cuda/flash_prefill.py:plan).
-// At D = 128 both bodies' arithmetic is the same, in the same order, as with
-// D fixed at 128.
+// wgmma body is a template on D too and takes D = 64, 80, 96, 128 and 256: a
+// row of 2 D bytes is cut into sub-tiles of the widest swizzle that divides
+// it (64 dims at 256, 128 and 64, 32 at 96, 16 at 80), one TMA box and one
+// descriptor mode each, and P V is one m64nDk16 product. At D = 256 its O
+// accumulator takes 128 fp32 a thread and Q a 64 KB tile, so the K and V
+// tiles hold 80 keys (kWKeys256), S is an m64n80k16 product of 40 fp32 a
+// thread, P V five m64n256k16 products a tile, and the rings hold 2 stages
+// (230,528 bytes of shared memory); a causal edge then falls inside a key
+// tile, which the mask handles as it does a ragged one.
+// Up to D = 128 both bodies' arithmetic is the same, in the same order, as
+// with D fixed at 128.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -439,11 +445,16 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 constexpr int kWBQ = 128;                 // query rows per block: two warpgroups of 64
-constexpr int kWBK = 128;                 // keys per K/V tile
 constexpr int kWThreads = 384;            // warps 0-7 consume, warps 8-11 produce
-// K and V tiles in flight: rings as deep as shared memory allows (6 stages at
-// D = 64, 5 at 80, 4 at 96) measured no faster (scripts/torch_flash_bodies.py)
+// K and V tiles in flight up to D = 128: rings as deep as shared memory
+// allows (6 stages at D = 64, 5 at 80, 4 at 96) measured no faster
+// (scripts/torch_flash_bodies.py); D = 256 has room for 2
 constexpr int kWStages = 3;
+// keys per K/V tile at D = 256 (128 below): a 64 KB Q tile and 2 stages of
+// K and V fit a block with 80-key tiles (229,376 B of tiles); 64-key ones
+// (196,608 B) measured 7 % slower at S = 2048, B = 1 and 8
+// (scripts/torch_flash_bodies.py, variant keys64)
+constexpr int kWKeys256 = 80;
 // registers a thread: 168 at launch (65536 / 384); the producer warpgroup
 // gives up 144 each, the consumers take 72 each (128 x 144 = 256 x 72)
 constexpr int kWConsumerRegs = 240, kWProducerRegs = 24;
@@ -452,34 +463,43 @@ constexpr int kWConsumerRegs = 240, kWProducerRegs = 24;
 constexpr int kBarZero = 1, kBarTurn = 2;
 
 // The head dims the wgmma body takes: each a whole number of 16-dim k-steps
-// and an m64nDk16 product; at 256 the O accumulator (128 fp32 a thread) and
-// a 64 KB Q tile leave no room for the ring.
-constexpr bool wgmma_dim(int d) { return d == 64 || d == 80 || d == 96 || d == 128; }
+// and an m64nDk16 product (at 256 the O accumulator is 128 fp32 a thread).
+constexpr bool wgmma_dim(int d) {
+  return d == 64 || d == 80 || d == 96 || d == 128 || d == 256;
+}
 
-// The wgmma body's layout at head dim D. A 128-row tile (Q, or a K or V tile
-// of 128 keys) is stored as D / kBoxDims sub-tiles, one TMA box each, of 128
+// The wgmma body's layout at head dim D. A tile (Q: 128 rows; a K or V tile:
+// kKeys rows) is stored as D / kBoxDims sub-tiles, one TMA box each, of its
 // rows x kBoxDims dims: rows of kRowBytes in the swizzle of that width (the
 // widest of 128, 64, 32 bytes that divides a row of 2 D bytes, so the
-// sub-tiles are alike and one descriptor mode reads them all: D = 128 and 64
-// in 64-dim sub-tiles with the 128-byte swizzle, 96 in 32-dim ones with the
-// 64-byte swizzle, 80 in 16-dim ones with the 32-byte swizzle). S = Q K^T
-// takes D / 16 k-steps, each inside one sub-tile; O += P V is one
+// sub-tiles are alike and one descriptor mode reads them all: D = 256, 128
+// and 64 in 64-dim sub-tiles with the 128-byte swizzle, 96 in 32-dim ones
+// with the 64-byte swizzle, 80 in 16-dim ones with the 32-byte swizzle).
+// S = Q K^T takes D / 16 k-steps, each inside one sub-tile; O += P V is one
 // m64nDk16 product a 16-key step, its N spread over the sub-tiles (the
-// descriptor's lbo).
+// descriptor's lbo). Up to D = 128 a K/V tile holds 128 keys and the rings 3
+// stages; at 256 a 64 KB Q tile leaves room for 2 stages of kWKeys256-key
+// tiles.
 template <int D>
 struct WgmmaDims {
-  static_assert(wgmma_dim(D), "the wgmma body takes D = 64, 80, 96 or 128");
+  static_assert(wgmma_dim(D), "the wgmma body takes D = 64, 80, 96, 128 or 256");
   static constexpr int kBoxDims = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
   static constexpr int kBoxes = D / kBoxDims;
   static constexpr int kRowBytes = 2 * kBoxDims;
-  static constexpr int kSub = kWBK * kRowBytes;    // one sub-tile
-  static constexpr int kTile = kBoxes * kSub;      // 128 rows x D dims, bf16
-  static constexpr int kAtom = 8 * kRowBytes;      // 8 rows: the swizzle atom
-  // Q, the K stages, the V stages, then 1 + 4 kWStages mbarriers (in 128 B
+  static constexpr int kKeys = D == 256 ? kWKeys256 : 128;   // keys per K/V tile
+  static constexpr int kStages = D == 256 ? 2 : kWStages;     // K and V tiles in flight
+  static constexpr int kSubQ = kWBQ * kRowBytes;     // one sub-tile of Q
+  static constexpr int kSubKV = kKeys * kRowBytes;   // one sub-tile of a K or V tile
+  static constexpr int kTileQ = kBoxes * kSubQ;      // 128 rows x D dims, bf16
+  static constexpr int kTileKV = kBoxes * kSubKV;    // kKeys rows x D dims, bf16
+  static constexpr int kAtom = 8 * kRowBytes;        // 8 rows: the swizzle atom
+  // Q, the K stages, the V stages, then 1 + 4 kStages mbarriers (in 128 B
   // steps); 1 KB to align the tiles: 230,528 bytes of the 232,448 a block may
-  // have at D = 128, 173,184 at 96, 144,512 at 80, 115,840 at 64
-  static constexpr int kBarBytes = ((1 + 4 * kWStages) * 8 + 127) / 128 * 128;
-  static constexpr int kSmemBytes = (1 + 2 * kWStages) * kTile + kBarBytes + 1024;
+  // have at D = 128 and at 256 (80-key tiles), 173,184 at 96, 144,512 at 80,
+  // 115,840 at 64
+  static constexpr int kBarBytes = ((1 + 4 * kStages) * 8 + 127) / 128 * 128;
+  static constexpr int kSmemBytes = kTileQ + 2 * kStages * kTileKV + kBarBytes + 1024;
+  static_assert(kKeys == 64 || kKeys == 80 || kKeys == 128, "an S product hopper.cuh has");
   static_assert(kSmemBytes <= 232448, "the ring fits a block");
 };
 
@@ -487,7 +507,7 @@ struct WgmmaDims {
 // dynamic smem:
 // WgmmaDims<D>::kSmemBytes. tq / tk / tv: 4-D tensor maps (D, heads, rows, B)
 // of q and (D, heads, rows, Bkv) of k, v with a box of one sub-tile
-// (kBoxDims, 1, 128, 1) in the swizzle of its row width.
+// (kBoxDims, 1, 128 or kKeys, 1) in the swizzle of its row width.
 //
 // Each consumer warpgroup runs, per key tile t: wait for its turn; issue S(t)
 // = Q K(t)^T and O += P(t-1) V(t-1); hand the turn to the other warpgroup;
@@ -504,30 +524,33 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
                    const int* __restrict__ rows, float scale) {
   using namespace gptq_hopper;
   using WD = WgmmaDims<D>;
-  constexpr int kTile = WD::kTile, kSub = WD::kSub;
+  constexpr int kTileQ = WD::kTileQ, kTileKV = WD::kTileKV;
+  constexpr int kSubQ = WD::kSubQ, kSubKV = WD::kSubKV;
   constexpr int kRow = WD::kRowBytes, kAtom = WD::kAtom;
+  constexpr int kKeys = WD::kKeys, kStages = WD::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   unsigned char* sbase = smem_raw + (base - raw);
-  const uint32_t sq = base;                                  // Q: sub-tiles kSub apart
-  auto sk = [&](int st) { return base + (1 + st) * kTile; };
-  auto sv = [&](int st) { return base + (1 + kWStages + st) * kTile; };
-  const uint32_t bars = base + (1 + 2 * kWStages) * kTile;
+  const uint32_t sq = base;                                  // Q: sub-tiles kSubQ apart
+  auto sk = [&](int st) { return base + kTileQ + st * kTileKV; };
+  auto sv = [&](int st) { return base + kTileQ + (kStages + st) * kTileKV; };
+  const uint32_t bars = base + kTileQ + 2 * kStages * kTileKV;
   const uint32_t q_full = bars;
   auto k_full = [&](int st) { return bars + 8 * (1 + st); };
-  auto v_full = [&](int st) { return bars + 8 * (1 + kWStages + st); };
-  auto k_empty = [&](int st) { return bars + 8 * (1 + 2 * kWStages + st); };
-  auto v_empty = [&](int st) { return bars + 8 * (1 + 3 * kWStages + st); };
-  // key tile t sits in stage t % kWStages; its barriers complete their
-  // (t / kWStages)-th phase when it lands and when it is released
-  auto parity = [](int t) { return (uint32_t)((t / kWStages) & 1); };
-  // a 128-row tile at dst: one TMA box a sub-tile, counted on bar
-  auto tma_tile = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar, int head, int row,
-                      int batch) {
+  auto v_full = [&](int st) { return bars + 8 * (1 + kStages + st); };
+  auto k_empty = [&](int st) { return bars + 8 * (1 + 2 * kStages + st); };
+  auto v_empty = [&](int st) { return bars + 8 * (1 + 3 * kStages + st); };
+  // key tile t sits in stage t % kStages; its barriers complete their
+  // (t / kStages)-th phase when it lands and when it is released
+  auto parity = [](int t) { return (uint32_t)((t / kStages) & 1); };
+  // a tile at dst: one TMA box a sub-tile (sub-tiles `sub` bytes apart),
+  // counted on bar
+  auto tma_tile = [&](uint32_t dst, int sub, const CUtensorMap* map, uint32_t bar, int head,
+                      int row, int batch) {
 #pragma unroll
     for (int i = 0; i < WD::kBoxes; ++i)
-      tma_load_4d(dst + i * kSub, map, bar, i * WD::kBoxDims, head, row, batch);
+      tma_load_4d(dst + i * sub, map, bar, i * WD::kBoxDims, head, row, batch);
   };
 
   // blocks start in linear order: a group of gridDim.x heads fastest, then
@@ -542,13 +565,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   const int kvh = h / (H / Hkv);
   // keys up to the causal limit of the tile's last real row
   const int kv_end = min(SKV, off + min(q0 + kWBQ, SQ));
-  const int n_kt = (kv_end - 1) / kWBK + 1;
+  const int n_kt = (kv_end - 1) / kKeys + 1;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   if (tid == 0) {
     mbar_init(q_full, 1);
 #pragma unroll
-    for (int st = 0; st < kWStages; ++st) {
+    for (int st = 0; st < kStages; ++st) {
       mbar_init(k_full(st), 1);
       mbar_init(v_full(st), 1);
       mbar_init(k_empty(st), 8);   // lane 0 of each consumer warp
@@ -566,20 +589,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       tma_prefetch_desc(&tq);
       tma_prefetch_desc(&tk);
       tma_prefetch_desc(&tv);
-      mbar_expect_tx(q_full, kTile);
-      tma_tile(sq, &tq, q_full, h, q0, b);
+      mbar_expect_tx(q_full, kTileQ);
+      tma_tile(sq, kSubQ, &tq, q_full, h, q0, b);
       for (int t = 0; t <= n_kt; ++t) {
         if (t < n_kt) {
-          const int st = t % kWStages;
-          if (t >= kWStages) mbar_wait(k_empty(st), parity(t - kWStages));
-          mbar_expect_tx(k_full(st), kTile);
-          tma_tile(sk(st), &tk, k_full(st), kvh, t * kWBK, kb);
+          const int st = t % kStages;
+          if (t >= kStages) mbar_wait(k_empty(st), parity(t - kStages));
+          mbar_expect_tx(k_full(st), kTileKV);
+          tma_tile(sk(st), kSubKV, &tk, k_full(st), kvh, t * kKeys, kb);
         }
         if (t >= 1) {
-          const int u = t - 1, st = u % kWStages;
-          if (u >= kWStages) mbar_wait(v_empty(st), parity(u - kWStages));
-          mbar_expect_tx(v_full(st), kTile);
-          tma_tile(sv(st), &tv, v_full(st), kvh, u * kWBK, kb);
+          const int u = t - 1, st = u % kStages;
+          if (u >= kStages) mbar_wait(v_empty(st), parity(u - kStages));
+          mbar_expect_tx(v_full(st), kTileKV);
+          tma_tile(sv(st), kSubKV, &tv, v_full(st), kvh, u * kKeys, kb);
         }
       }
     }
@@ -595,22 +618,29 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
-    float s[64];
-    uint32_t pf[kWBK / 16][4];
+    float s[kKeys / 2];
+    uint32_t pf[kKeys / 16][4];
     float m_lo = kNeg, m_hi = kNeg, l_lo = 0.0f, l_hi = 0.0f;
 
-    auto issue_s = [&](int st) {   // S = Q K^T: 64 rows x 128 keys
+    auto issue_s = [&](int st) {   // S = Q K^T: 64 rows x kKeys keys
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {   // dims 16 kk ..: a sub-tile, 32 B steps in a row
-        const uint32_t koff = (kk * 16 / WD::kBoxDims) * kSub + (kk * 16 % WD::kBoxDims) * 2;
-        wgmma_m64n128k16_ss<0>(s, desc_sw<kRow>(sq + wg * 64 * kRow + koff, 16, kAtom),
-                               desc_sw<kRow>(sk(st) + koff, 16, kAtom), kk > 0);
+        const int box = kk * 16 / WD::kBoxDims, col = (kk * 16 % WD::kBoxDims) * 2;
+        const uint64_t da = desc_sw<kRow>(sq + box * kSubQ + wg * 64 * kRow + col, 16, kAtom);
+        const uint64_t db = desc_sw<kRow>(sk(st) + box * kSubKV + col, 16, kAtom);
+        if constexpr (kKeys == 128) {
+          wgmma_m64n128k16_ss<0>(s, da, db, kk > 0);
+        } else if constexpr (kKeys == 80) {
+          wgmma_m64n80k16_ss<0>(s, da, db, kk > 0);
+        } else {
+          wgmma_m64n64k16_ss<0>(s, da, db, kk > 0);
+        }
       }
     };
     auto issue_pv = [&](int st) {   // O += P V: V is [key][dim], MN-major for the product
 #pragma unroll
-      for (int j = 0; j < kWBK / 16; ++j)
-        wgmma_rs<1>(o, pf[j], desc_sw<kRow>(sv(st) + j * 16 * kRow, kSub, kAtom), 1);
+      for (int j = 0; j < kKeys / 16; ++j)
+        wgmma_rs<1>(o, pf[j], desc_sw<kRow>(sv(st) + j * 16 * kRow, kSubKV, kAtom), 1);
     };
     auto release = [&](uint32_t bar) {
       __syncwarp();
@@ -624,10 +654,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // 0-1 row_lo, 2-3 row_hi)
     const float c = scale * 1.4426950408889634f;
     auto softmax = [&](int t, float& a_lo, float& a_hi) {
-      const int k0 = t * kWBK;
-      if ((k0 + kWBK - 1 > wg_first) || (k0 + kWBK > kv_end)) {
+      const int k0 = t * kKeys;
+      if ((k0 + kKeys - 1 > wg_first) || (k0 + kKeys > kv_end)) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i)
+        for (int i = 0; i < kKeys / 8; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + i * 8 + t4 * 2 + (e & 1);
@@ -636,7 +666,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       }
       float mx_lo = kNeg, mx_hi = kNeg;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < kKeys / 8; ++i) {
         mx_lo = fmaxf(mx_lo, fmaxf(s[4 * i], s[4 * i + 1]));
         mx_hi = fmaxf(mx_hi, fmaxf(s[4 * i + 2], s[4 * i + 3]));
       }
@@ -652,7 +682,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       m_hi = mn_hi;
       float sum_lo = 0.0f, sum_hi = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < kKeys / 8; ++i) {
         s[4 * i] = ex2(fmaf(s[4 * i], c, -mn_lo));
         s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], c, -mn_lo));
         s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], c, -mn_hi));
@@ -674,7 +704,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         o[4 * i + 3] *= a_hi;
       }
 #pragma unroll
-      for (int j = 0; j < kWBK / 16; ++j) {
+      for (int j = 0; j < kKeys / 16; ++j) {
         pf[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
         pf[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
         pf[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
@@ -704,7 +734,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     rescale_and_pack(a_lo, a_hi);
     // key tiles 1 ..: S(t) and P(t-1) V(t-1) in flight together
     for (int kt = 1; kt < n_kt; ++kt) {
-      const int st = kt % kWStages, pst = (kt - 1) % kWStages;
+      const int st = kt % kStages, pst = (kt - 1) % kStages;
       mbar_wait(k_full(st), parity(kt));
       mbar_wait(v_full(pst), parity(kt - 1));
       named_barrier(kBarTurn + wg, 256);
@@ -726,19 +756,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     }
 
     // the last tile's P V
-    const int lst = (n_kt - 1) % kWStages;
+    const int lst = (n_kt - 1) % kStages;
     mbar_wait(v_full(lst), parity(n_kt - 1));
-    if (OFFSET && kv_end < min(SKV, (n_kt - 1) * kWBK + kWBK)) {
+    if (OFFSET && kv_end < min(SKV, (n_kt - 1) * kKeys + kKeys)) {
       // the cache's slots from kv_end to the tile's edge may hold NaN: zero
       // their V rows (in every sub-tile; a swizzle moves 16-byte chunks
       // within a row only) before P V reads them
       constexpr int kRowChunks = kRow / 16, kChunks = WD::kBoxes * kRowChunks;
-      const int r0 = kv_end - (n_kt - 1) * kWBK;
-      const int chunks = (kWBK - r0) * kChunks;
+      const int r0 = kv_end - (n_kt - 1) * kKeys;
+      const int chunks = (kKeys - r0) * kChunks;
       for (int c = tid; c < chunks; c += 256) {
         const int r = r0 + c / kChunks, box = c % kChunks / kRowChunks, c16 = c % kRowChunks;
-        *reinterpret_cast<uint4*>(sbase + (sv(lst) - base) + box * kSub + r * kRow + c16 * 16) =
-            make_uint4(0u, 0u, 0u, 0u);
+        const uint32_t at = sv(lst) - base + box * kSubKV + r * kRow + c16 * 16;
+        *reinterpret_cast<uint4*>(sbase + at) = make_uint4(0u, 0u, 0u, 0u);
       }
       fence_proxy_async();
       named_barrier(kBarZero, 256);
@@ -779,18 +809,19 @@ using gptq_hopper::encode_tiled;
 using gptq_hopper::EncodeTiled;
 
 // The tensor map of a (B, rows, heads, D) bf16 tensor: a box of one sub-tile
-// (WgmmaDims<D>::kBoxDims dims) x 1 head x 128 rows x 1 batch row, in the
-// swizzle of its row width; rows past `rows` read as zeros. The strides (2 D,
-// 2 D heads, 2 D heads rows bytes) are multiples of 16 at every D it takes.
+// (WgmmaDims<D>::kBoxDims dims) x 1 head x box_rows rows x 1 batch row (128
+// for Q, WgmmaDims<D>::kKeys for K and V), in the swizzle of its row width;
+// rows past `rows` read as zeros. The strides (2 D, 2 D heads, 2 D heads rows
+// bytes) are multiples of 16 at every D it takes.
 template <int D>
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads) {
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads, int box_rows) {
   using WD = WgmmaDims<D>;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)rows * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)WD::kBoxDims, 1, (cuuint32_t)kWBK, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)WD::kBoxDims, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = WD::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : WD::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -826,8 +857,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, __nv_bfloa
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map<D>(&tq, q, B, SQ, H) || !tensor_map<D>(&tk, k, Bkv, SKV, Hkv) ||
-      !tensor_map<D>(&tv, v, Bkv, SKV, Hkv))
+  constexpr int kKeys = WgmmaDims<D>::kKeys;
+  if (!tensor_map<D>(&tq, q, B, SQ, H, kWBQ) || !tensor_map<D>(&tk, k, Bkv, SKV, Hkv, kKeys) ||
+      !tensor_map<D>(&tv, v, Bkv, SKV, Hkv, kKeys))
     return cudaErrorInvalidValue;
   // heads a group, a divisor of H: the fewest whose query tiles fill the
   // SMs once; past 16 waves of blocks one (the query tile fastest: a head's
@@ -858,9 +890,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, __nv_bfloa
 // whole cache, so a launch captured in a CUDA graph replays over the same
 // tensors whatever offset and rows the device buffers hold (kernel 4).
 // Kernel 5 passes null offset and rows, Bkv = B and bf16. A cache of another
-// type than bf16, and a head dim the wgmma body does not take (256), take the
-// mma.sync body only: asked for the wgmma body, they return
-// cudaErrorInvalidValue.
+// type than bf16 takes the mma.sync body only: asked for the wgmma body, it
+// returns cudaErrorInvalidValue (as would a head dim outside wgmma_dim).
 template <bool OFFSET, typename T = __nv_bfloat16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int SQ,
                    int Bkv, int SKV, int H, int Hkv, const int* q_offset, const int* rows,

@@ -18,8 +18,8 @@ extern "C" const char* gptq_error_string(int e) {
 extern "C" int gptq_flash_smem_bytes(int path) { return gptq_flash::smem_bytes(path); }
 
 // path: gptq_flash::kSync (64-query mma.sync blocks) or kWgmma (128-query
-// warp-specialised blocks, D = 64, 80, 96, 128); the wrapper's plan picks it
-// from S and D.
+// warp-specialised blocks, D = 64, 80, 96, 128, 256); the wrapper's plan
+// picks it from S and D.
 extern "C" int gptq_flash_prefill(const void* q, const void* k, const void* v, void* out, int B,
                                   int S, int H, int Hkv, int D, float scale, int path,
                                   void* stream) {

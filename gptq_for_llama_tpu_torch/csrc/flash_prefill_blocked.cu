@@ -45,7 +45,7 @@ extern "C" const char* gptq_error_string(int e) {
 // (gptq_kv::Code: bf16, f32, e4m3, e5m2); q_offset: device pointer to one
 // int32; rows: device pointer to B int32, or null (batch row b attends cache
 // row b; then Bkv == B). path: gptq_flash::kSync or kWgmma (a bf16 cache at
-// D = 64, 80, 96, 128).
+// D = 64, 80, 96, 128, 256).
 extern "C" int gptq_flash_prefill_blocked(const void* q, const void* k, const void* v,
                                           void* out, int B, int SQ, int Bkv, int SKV, int H,
                                           int Hkv, int D, const int* q_offset, const int* rows,

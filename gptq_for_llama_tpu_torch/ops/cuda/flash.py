@@ -23,10 +23,10 @@ is rounded before q k^T (kernels 3, 7 and 9 keep it in f32), an fp8 code is
 exact in bf16 (e4m3 codes 0x7F / 0xFF read as +-480). A cache other than bf16
 runs the ``mma.sync`` body at every length (``plan_kv``); the plain version
 reads the cache through ``kv_dtype.decode`` into q's dtype, the same rule.
-So does head dim 256 (``flash_prefill.plan``: the ``wgmma`` body takes D =
-64, 80, 96 and 128): the kernel takes the head dims of
-``attention.HEAD_DIMS``, one library each, and counts its launches by cache
-dtype, by head dim, and by body and head dim (``wgmma:d96``).
+The kernel takes the head dims of ``attention.HEAD_DIMS``, one library each,
+and over a bf16 cache both bodies at each of them (``flash_prefill.plan``);
+it counts its launches by cache dtype, by head dim, and by body and head dim
+(``wgmma:d256``).
 """
 
 from __future__ import annotations
@@ -100,9 +100,10 @@ def _device_offset(q_offset, bound, sq: int, device) -> tuple[torch.Tensor, int]
 
 def plan_kv(sq: int, q_offset: int, dtype: torch.dtype, d: int = 128) -> str:
     """The body kernel 4 launches over a cache of ``dtype`` at head dim
-    ``d``: kernel 5's plan (``flash_prefill.plan``: the ``mma.sync`` body at
-    D = 256 and for short prefixes) for bf16, the ``mma.sync`` body for any
-    other dtype (the ``wgmma`` body's TMA tiles take bf16 only)."""
+    ``d``: kernel 5's plan (``flash_prefill.plan``: the ``mma.sync`` body
+    for short prefixes, ``SYNC_MAX_KEYS[d]``, and the ``wgmma`` body above)
+    for bf16, the ``mma.sync`` body at every length for fp8 and f32 caches
+    (the ``wgmma`` body's TMA tiles take bf16 only)."""
     return plan(sq, q_offset, d) if dtype == torch.bfloat16 else "sync"
 
 

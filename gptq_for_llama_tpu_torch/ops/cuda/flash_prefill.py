@@ -11,11 +11,12 @@ warpgroup, and for a short causal prefix the 64-query ``mma.sync`` blocks;
 for kernel 4, so the two kernels stay bit-equal at offset 0. It takes any S
 (the TPU kernel needs S % 256 == 0 and K+V of a head in VMEM). The plain
 version is the fp32 masked softmax of ``attention.attention_plain``. The
-kernels take the head dims of ``attention.HEAD_DIMS`` (one library each);
-the ``wgmma`` body takes D = 64, 80, 96 and 128 (``WGMMA_HEAD_DIMS``: its
-tiles in sub-tiles of 64, 16, 32 and 64 dims), so ``plan`` sends D = 256 to
-the ``mma.sync`` body at every length. At D = 64, 80 and 96 the TPU package
-runs XLA (its kernels need D % 128 == 0), which the plain version computes.
+kernels take the head dims of ``attention.HEAD_DIMS`` (one library each),
+and so does the ``wgmma`` body (``WGMMA_HEAD_DIMS``: its tiles in sub-tiles
+of 64, 16, 32, 64 and 64 dims at D = 64, 80, 96, 128 and 256; at 256 its K
+and V tiles hold 80 keys, not 128); ``plan`` sends a short causal prefix to
+the ``mma.sync`` body at every D. At D = 64, 80 and 96 the TPU package runs
+XLA (its kernels need D % 128 == 0), which the plain version computes.
 Where a gradient is wanted (LoRA training) the forward still launches the
 kernel, inside ``_CausalAttention``, whose backward is the plain version's
 gradient recomputed from the saved q/k/v (the TPU package differentiates its
@@ -39,10 +40,15 @@ REPLACES = "gptq_for_llama_tpu/ops/pallas/flash.py:27"
 # Kernels 4 and 5 run the 64-query mma.sync body where the longest causal
 # prefix (offset + query rows) is at most SYNC_MAX_KEYS[D] keys, and the
 # warp-specialised wgmma body above: the crossover measured on the card for
-# each head dim the wgmma body takes (scripts/torch_flash_bodies.py, PERF.md
-# section 6; at D = 128 one 128-key tile). D = 256 has no entry: the
-# mma.sync body at every length.
-SYNC_MAX_KEYS = {64: 192, 80: 160, 96: 160, 128: 128}
+# each head dim (scripts/torch_flash_bodies.py, PERF.md section 6; at D =
+# 128 one 128-key tile). At D = 256 (16 heads over 2, NVIDIA H100 80GB HBM3,
+# 700 W) the bodies are within 4-15 % of each other up to 128 keys: kernel
+# 4's prompts at offset 0 favour mma.sync (SQ = 100: 10.26 against 11.08 us;
+# 128: 11.59 against 12.21), the chunks at an offset and kernel 5 wgmma
+# (S = 128: 12.65 against 11.68); above, wgmma by 1.2-3.7x (kernel 4 SQ =
+# 100 at offset 29: 13.06 against 10.82; kernel 5 S = 2048: 252.76 against
+# 68.34).
+SYNC_MAX_KEYS = {64: 192, 80: 160, 96: 160, 128: 128, 256: 128}
 WGMMA_HEAD_DIMS = tuple(SYNC_MAX_KEYS)   # csrc/flash_common.cuh's wgmma_dim
 PATH_IDS = {"sync": 0, "wgmma": 1}   # csrc/flash_common.cuh's Path
 
@@ -51,10 +57,7 @@ def plan(sq: int, q_offset: int = 0, d: int = 128) -> str:
     """The body kernels 4 and 5 launch for ``sq`` query rows at
     ``q_offset`` and head dim ``d``. A function of offset + SQ and D alone,
     so kernel 4 at offset 0 takes kernel 5's body and stays bit-equal to it.
-    A head dim the ``wgmma`` body does not take (256) runs ``mma.sync`` at
-    every length."""
-    if d not in SYNC_MAX_KEYS:
-        return "sync"
+    """
     return "sync" if q_offset + sq <= SYNC_MAX_KEYS[d] else "wgmma"
 
 

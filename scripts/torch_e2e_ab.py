@@ -4,6 +4,7 @@ trees in one call (run it once per tree, in turns: parent, change, change,
 parent).
 
     python3 scripts/torch_e2e_ab.py [--root TREE] [--label NAME] [--json PATH]
+                                    [--legs 7b,serve,eval,lora,neox,d256]
 
 ``--root`` names the checkout whose package is driven (default: this
 script's own); the script uses only what every tree since tensor
@@ -25,7 +26,14 @@ card's name and power limit:
   a fresh cache (kernel 1 forward and kernel 8 backward at M = 1024; the
   race's seconds beside) twice, the heuristic again;
 - GPT-NeoX-20B (44 layers, 64 heads of 96, INT4 g128 ``gaussian_wire_neox``):
-  the prefill of 37 and 100 tokens as above.
+  the prefill of 37 and 100 tokens as above;
+- LLaMA at head dim 256 (``d256``: LLaMA-7B's widths, 16 query heads of 256
+  over 2 kv heads, 2 layers, INT4 g128 ``gaussian_wire_llama``, seed 256, the
+  smoke's ``LLAMA_256``): the prefill of 37, 100 and 201 tokens as above and
+  the perplexity eval's forward (``window_nll``) at 8 x 2048, tok/s, median
+  of 3.
+
+``--legs`` runs a subset of the readings, in the order above.
 """
 
 from __future__ import annotations
@@ -41,6 +49,12 @@ import time
 
 import numpy as np
 
+LEGS = ("7b", "serve", "eval", "lora", "neox", "d256")
+# LLaMA-7B's widths at head dim 256 (chip_smoke.py's LLAMA_256, repeated here
+# because an earlier tree's smoke may not have it)
+LLAMA_256 = dict(arch="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                 num_layers=2, num_heads=16, num_kv_heads=2, head_dim=256, max_seq_len=2048)
+
 
 def log(msg):
     print(msg, flush=True)
@@ -51,7 +65,11 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--legs", default=",".join(LEGS))
     args = ap.parse_args()
+    legs = set(args.legs.split(","))
+    if not legs <= set(LEGS):
+        ap.error(f"--legs takes names among {','.join(LEGS)}")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     os.environ["GPTQ_TORCH_AUTOTUNE"] = "0"
@@ -75,7 +93,7 @@ def main() -> int:
     t0 = time.perf_counter()
     keys = ["qmm", "fused_mlp", "rms_norm", "qmm_t"] + [
         f"{n}:d{d}" for n in ("flash_prefill", "flash_prefill_blocked", "decode_attention")
-        for d in (128, 96)]
+        for d in (128, 96, 256)]
     build.start(keys)
     build.wait(keys)
     log(f"{tag} build {time.perf_counter() - t0:.1f} s")
@@ -101,118 +119,158 @@ def main() -> int:
                       "device_ms": statistics.median(dev[1:])}
         return out
 
-    # -- LLaMA-7B prefill ----------------------------------------------------
     cfg = ModelConfig(**LLAMA_7B)
-    params = gaussian_wire_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    runner = ModelRunner("llama", cfg, params, dtype=torch.bfloat16, device="cuda")
-    runner.warmup(prefill_buckets=(37, 100, 201))
-    report["prefill_7b"] = prefill_ms(runner, (37, 100, 201), np.random.RandomState(0))
-    log(f"{tag} 7B prefill " + ", ".join(f"{n}: host {r['host_ms']:.3f} ms, device "
-                                         f"{r['device_ms']:.3f} ms"
-                                         for n, r in report["prefill_7b"].items()) + f" | {card}")
-    del runner
-    torch.cuda.empty_cache()
+    if legs & {"7b", "serve", "eval", "lora"}:
+        params = gaussian_wire_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+
+    # -- LLaMA-7B prefill ----------------------------------------------------
+    if "7b" in legs:
+        runner = ModelRunner("llama", cfg, params, dtype=torch.bfloat16, device="cuda")
+        runner.warmup(prefill_buckets=(37, 100, 201))
+        report["prefill_7b"] = prefill_ms(runner, (37, 100, 201), np.random.RandomState(0))
+        log(f"{tag} 7B prefill " + ", ".join(f"{n}: host {r['host_ms']:.3f} ms, device "
+                                             f"{r['device_ms']:.3f} ms"
+                                             for n, r in report["prefill_7b"].items())
+            + f" | {card}")
+        del runner
+        torch.cuda.empty_cache()
 
     # -- dense serving, chunk 128 ----------------------------------------------
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(1, cfg.vocab_size, size=n)
-               for n in (37, 50, 100, 120, 200, 300, 450, 600, 64, 90, 256, 512)]
-    eng = ServingEngine("llama", cfg, params, batch_slots=8, max_seq_len=2048,
-                        prefill_buckets=(32, 128, 512), prefill_chunk=128, decode_span=8)
-    runs = []
-    for _ in range(2):
-        for uid, p in enumerate(prompts):
-            eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=48))
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        results = eng.run()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        tokens = sum(len(r) for r in results.values())
-        runs.append({"tok_s": tokens / dt, "ttft_p50_s": eng.stats()["ttft_p50_s"]})
-    report["serve_dense_chunk128"] = runs
-    log(f"{tag} dense serving chunk 128, 8 slots, 12 x 48: second run {runs[1]['tok_s']:.1f} "
-        f"tok/s, ttft p50 {runs[1]['ttft_p50_s']} s (first {runs[0]['tok_s']:.1f}) | {card}")
-    del eng
-    torch.cuda.empty_cache()
+    if "serve" in legs:
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(1, cfg.vocab_size, size=n)
+                   for n in (37, 50, 100, 120, 200, 300, 450, 600, 64, 90, 256, 512)]
+        eng = ServingEngine("llama", cfg, params, batch_slots=8, max_seq_len=2048,
+                            prefill_buckets=(32, 128, 512), prefill_chunk=128, decode_span=8)
+        runs = []
+        for _ in range(2):
+            for uid, p in enumerate(prompts):
+                eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=48))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            results = eng.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            tokens = sum(len(r) for r in results.values())
+            runs.append({"tok_s": tokens / dt, "ttft_p50_s": eng.stats()["ttft_p50_s"]})
+        report["serve_dense_chunk128"] = runs
+        log(f"{tag} dense serving chunk 128, 8 slots, 12 x 48: second run {runs[1]['tok_s']:.1f} "
+            f"tok/s, ttft p50 {runs[1]['ttft_p50_s']} s (first {runs[0]['tok_s']:.1f}) | {card}")
+        del eng
+        torch.cuda.empty_cache()
 
     # -- eval forward, 8 x 2048 ------------------------------------------------
-    ids = torch.as_tensor(np.random.RandomState(1).randint(0, cfg.vocab_size, (8, 2048)),
-                          device="cuda")
-    times = []
-    with torch.no_grad():
+    if "eval" in legs:
+        ids = torch.as_tensor(np.random.RandomState(1).randint(0, cfg.vocab_size, (8, 2048)),
+                              device="cuda")
+        times = []
+        with torch.no_grad():
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                llama.forward(params, cfg, ids)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+        report["eval_tok_s"] = ids.numel() / statistics.median(times[1:])
+        log(f"{tag} eval forward 8 x 2048, 32 layers: {report['eval_tok_s']:.1f} tok/s | {card}")
+        del ids
+        torch.cuda.empty_cache()
+
+    # -- LoRA step, heuristic then tuned plans ----------------------------------
+    if "lora" in legs:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        adapters, skeleton = split_lora(attach_lora("llama", params, rank=8, generator=gen,
+                                                    alpha=16.0))
+        leaves = [t.requires_grad_() for ab in adapters for t in (ab["a"], ab["b"])]
+        ids = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 512)),
+                              device="cuda")
+        opt = torch.optim.Adam(leaves, lr=1e-4)
+
+        def lora_ms(steps=9):
+            times = []
+            for _ in range(steps):
+                opt.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits = llama.forward(join_lora(skeleton, adapters), cfg, ids)
+                loss = F.cross_entropy(logits[:, :-1].flatten(0, 1).float(),
+                                       ids[:, 1:].flatten())
+                loss.backward()
+                opt.step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            return statistics.median(times[1:])
+
+        report["lora_step_ms"] = {"warm": lora_ms(5)}   # the allocator and autograd warm up
+        report["lora_step_ms"]["heuristic"] = lora_ms()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["GPTQ_TORCH_AUTOTUNE"] = "1"
+            os.environ["GPTQ_TORCH_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+            autotune.configure()
+            t = time.perf_counter()
+            # every packed linear: kernels 1 and 8
+            linears, _ = autotune.collect(params, "none")
+            autotune.ensure_linears(linears, ids.numel())
+            autotune.ensure_linears(linears, ids.numel(), kind="bwd")
+            race_s = time.perf_counter() - t
+            report["lora_step_ms"]["tuned"] = lora_ms()
+            report["lora_step_ms"]["tuned_again"] = lora_ms()
+            with open(os.path.join(tmp, "autotune.json")) as f:
+                report["lora_tuned_plans"] = json.load(f)["entries"]
+            os.environ["GPTQ_TORCH_AUTOTUNE"] = "0"
+            autotune.configure()
+        report["lora_step_ms"]["heuristic_again"] = lora_ms()
+        report["lora_race_s"] = race_s
+        lora = report["lora_step_ms"]
+        log(f"{tag} LoRA step 2 x 512, rank 8 on 224 linears, ms in turns: heuristic "
+            f"{lora['heuristic']:.1f}, tuned {lora['tuned']:.1f}, tuned "
+            f"{lora['tuned_again']:.1f}, heuristic {lora['heuristic_again']:.1f} (race "
+            f"{race_s:.1f} s; plans "
+            f"{report['lora_tuned_plans']}) | {card}")
+        del adapters, skeleton, leaves, opt, params
+        torch.cuda.empty_cache()
+
+    # -- GPT-NeoX-20B prefill --------------------------------------------------
+    if "neox" in legs:
+        ncfg = ModelConfig(**ARCH_CONFIGS["neox"])
+        nparams = GAUSSIAN_WIRE["neox"](ncfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        runner = ModelRunner("neox", ncfg, nparams, dtype=torch.bfloat16, device="cuda")
+        runner.warmup(prefill_buckets=(37, 100))
+        report["prefill_neox20b"] = prefill_ms(runner, (37, 100), np.random.RandomState(0))
+        log(f"{tag} NeoX-20B prefill " + ", ".join(f"{n}: host {r['host_ms']:.3f} ms, device "
+                                                   f"{r['device_ms']:.3f} ms"
+                                                   for n, r in report["prefill_neox20b"].items())
+            + f" | {card}")
+        del runner, nparams
+        torch.cuda.empty_cache()
+
+    # -- LLaMA at head dim 256, 2 layers -----------------------------------------
+    if "d256" in legs:
+        from gptq_for_llama_tpu_torch.engine.evaluate import window_nll
+        from gptq_for_llama_tpu_torch.models.registry import get_arch
+        dcfg = ModelConfig(**LLAMA_256)
+        dparams = gaussian_wire_llama(dcfg, seed=256, device="cuda", dtype=torch.bfloat16)
+        runner = ModelRunner("llama", dcfg, dparams, dtype=torch.bfloat16, device="cuda")
+        runner.warmup(prefill_buckets=(37, 100, 201))
+        report["prefill_d256"] = prefill_ms(runner, (37, 100, 201), np.random.RandomState(0))
+        del runner
+        ids = torch.as_tensor(np.random.RandomState(1).randint(0, dcfg.vocab_size, (8, 2048)),
+                              device="cuda")
+        times = []
         for _ in range(4):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            llama.forward(params, cfg, ids)
+            window_nll(get_arch("llama"), dcfg, dparams, ids)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-    report["eval_tok_s"] = ids.numel() / statistics.median(times[1:])
-    log(f"{tag} eval forward 8 x 2048, 32 layers: {report['eval_tok_s']:.1f} tok/s | {card}")
-    del ids
-    torch.cuda.empty_cache()
-
-    # -- LoRA step, heuristic then tuned plans ----------------------------------
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    adapters, skeleton = split_lora(attach_lora("llama", params, rank=8, generator=gen,
-                                                alpha=16.0))
-    leaves = [t.requires_grad_() for ab in adapters for t in (ab["a"], ab["b"])]
-    ids = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 512)),
-                          device="cuda")
-    opt = torch.optim.Adam(leaves, lr=1e-4)
-
-    def lora_ms(steps=9):
-        times = []
-        for _ in range(steps):
-            opt.zero_grad(set_to_none=True)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            logits = llama.forward(join_lora(skeleton, adapters), cfg, ids)
-            loss = F.cross_entropy(logits[:, :-1].flatten(0, 1).float(), ids[:, 1:].flatten())
-            loss.backward()
-            opt.step()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(times[1:])
-
-    report["lora_step_ms"] = {"warm": lora_ms(5)}   # the allocator and autograd warm up
-    report["lora_step_ms"]["heuristic"] = lora_ms()
-    with tempfile.TemporaryDirectory() as tmp:
-        os.environ["GPTQ_TORCH_AUTOTUNE"] = "1"
-        os.environ["GPTQ_TORCH_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.json")
-        autotune.configure()
-        t = time.perf_counter()
-        linears, _ = autotune.collect(params, "none")   # every packed linear: kernel 1 and 8
-        autotune.ensure_linears(linears, ids.numel())
-        autotune.ensure_linears(linears, ids.numel(), kind="bwd")
-        race_s = time.perf_counter() - t
-        report["lora_step_ms"]["tuned"] = lora_ms()
-        report["lora_step_ms"]["tuned_again"] = lora_ms()
-        with open(os.path.join(tmp, "autotune.json")) as f:
-            report["lora_tuned_plans"] = json.load(f)["entries"]
-        os.environ["GPTQ_TORCH_AUTOTUNE"] = "0"
-        autotune.configure()
-    report["lora_step_ms"]["heuristic_again"] = lora_ms()
-    report["lora_race_s"] = race_s
-    lora = report["lora_step_ms"]
-    log(f"{tag} LoRA step 2 x 512, rank 8 on 224 linears, ms in turns: heuristic "
-        f"{lora['heuristic']:.1f}, tuned {lora['tuned']:.1f}, tuned {lora['tuned_again']:.1f}, "
-        f"heuristic {lora['heuristic_again']:.1f} (race {race_s:.1f} s; plans "
-        f"{report['lora_tuned_plans']}) | {card}")
-    del adapters, skeleton, leaves, opt, params
-    torch.cuda.empty_cache()
-
-    # -- GPT-NeoX-20B prefill --------------------------------------------------
-    ncfg = ModelConfig(**ARCH_CONFIGS["neox"])
-    nparams = GAUSSIAN_WIRE["neox"](ncfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    runner = ModelRunner("neox", ncfg, nparams, dtype=torch.bfloat16, device="cuda")
-    runner.warmup(prefill_buckets=(37, 100))
-    report["prefill_neox20b"] = prefill_ms(runner, (37, 100), np.random.RandomState(0))
-    log(f"{tag} NeoX-20B prefill " + ", ".join(f"{n}: host {r['host_ms']:.3f} ms, device "
-                                               f"{r['device_ms']:.3f} ms"
-                                               for n, r in report["prefill_neox20b"].items())
-        + f" | {card}")
+        report["eval_d256_tok_s"] = ids.numel() / statistics.median(times[1:])
+        log(f"{tag} LLaMA D=256 (16 heads over 2, 2 layers at 7B width): prefill "
+            + ", ".join(f"{n}: host {r['host_ms']:.3f} ms, device {r['device_ms']:.3f} ms"
+                        for n, r in report["prefill_d256"].items())
+            + f"; eval forward 8 x 2048 {report['eval_d256_tok_s']:.1f} tok/s | {card}")
+        del dparams, ids
+        torch.cuda.empty_cache()
     if args.json:
         with open(args.json, "w") as f:
             json.dump(report, f, indent=1)

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Holds and times the two bodies of kernels 4 and 5 of the PyTorch/CUDA port
 (csrc/flash_common.cuh: the 64-query mma.sync blocks and the warp-specialised
-wgmma blocks) at head dims 64, 80, 96 and 128, on one GPU.
+wgmma blocks) at head dims 64, 80, 96, 128 and 256, on one GPU.
 
-    python3 scripts/torch_flash_bodies.py [--variants base,tile_fastest,one_group] [--dims 64,80,96,128]
+    python3 scripts/torch_flash_bodies.py [--variants base,tile_fastest,one_group] [--dims 64,80,96,128,256]
 
 Each variant is the package's CUDA sources with one constant edited, built
 with the package's nvcc flags (flash_prefill and flash_prefill_blocked, one
 library per head dim) into a temporary directory and run in a process of its
 own. ``base`` is the sources as they are (a wgmma ring of 3 K and 3 V
-stages at every D); ``deep_ring`` makes the ring as deep as shared memory
-allows (6 stages at D = 64, 5 at 80, 4 at 96, 3 at 128); ``no_turns`` lets
+stages of 128 keys up to D = 128, 2 of 80 keys at 256); ``deep_ring`` makes
+the ring as deep as shared memory allows (6 stages at D = 64, 5 at 80, 4 at
+96, 3 at 128); ``keys64`` takes 64-key K and V tiles at D = 256 (an
+m64n64k16 S product, 4 k16 steps of P V); ``no_turns`` lets
 the two consumer warpgroups issue their products without taking turns;
 ``tile_fastest`` launches the wgmma grid with one head a group at every grid
 size (the query tile fastest: the heaviest tile first within each head
@@ -18,7 +20,8 @@ only), ``one_group`` with every head in one group (the heads fastest, then
 the query tile).
 
 At each head dim, with the heads of the model that has it (64: GPT-2
-medium's 16, 80: OPT-2.7B's 32, 96: GPT-NeoX-20B's 64, 128: LLaMA-7B's 32),
+medium's 16, 80: OPT-2.7B's 32, 96: GPT-NeoX-20B's 64, 128: LLaMA-7B's 32;
+256: 16 query heads over 2 kv heads, the smoke's D = 256 layout),
 every body forced is first held to the plain version (1e-2 of each output
 row's norm) at causal S = 2048, GQA (Hkv = H / 4) at S = 300, ragged S =
 1000 (TMA's rows past S read as zeros), and kernel 4 at SQ = 100, offset 128
@@ -50,13 +53,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 LIBS = ("flash_prefill", "flash_prefill_blocked")
-HEADS = {64: 16, 80: 32, 96: 64, 128: 32}
+# query heads and kv heads at each head dim
+HEADS = {64: (16, 16), 80: (32, 32), 96: (64, 64), 128: (32, 32), 256: (16, 2)}
 # name -> [(file, old, new)]: one design choice each
 VARIANTS = {
     "base": [],
     "deep_ring": [("flash_common.cuh", "constexpr int kWStages = 3;",
                    "constexpr int kWStages = GPTQ_HEAD_DIM == 64 ? 6 : GPTQ_HEAD_DIM == 80 ? 5 "
                    ": GPTQ_HEAD_DIM == 96 ? 4 : 3;")],
+    # 64-key K and V tiles at D = 256 (2 stages: 196,608 bytes of tiles)
+    "keys64": [("flash_common.cuh", "constexpr int kWKeys256 = 80;",
+                "constexpr int kWKeys256 = 64;")],
     # the two consumer warpgroups issue their products without taking turns
     "no_turns": [("flash_common.cuh", "named_barrier(kBarTurn + wg, 256);", ";"),
                  ("flash_common.cuh", "if (wg == 0 || t < n_kt - 1) named_barrier_arrive("
@@ -117,10 +124,11 @@ def time_variant(name: str, out: str, dims) -> None:
             raise AssertionError(f"{name} {what}: not bit-equal")
 
     for d in dims:
-        h, sc = HEADS[d], d ** -0.5
+        (h, hk), sc = HEADS[d], d ** -0.5
         # correctness, every body forced
-        for b, s, hkv, what in ((1, 2048, h, "S=2048"), (2, 300, h // 4, "GQA S=300"),
-                                (1, 1000, h, "ragged S=1000")):
+        gqa_hkv = hk if hk != h else h // 4
+        for b, s, hkv, what in ((1, 2048, hk, "S=2048"), (2, 300, gqa_hkv, "GQA S=300"),
+                                (1, 1000, hk, "ragged S=1000")):
             q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
             want = fp.flash_prefill_plain(q, k, v, sc)
             for body in fp.PATH_IDS:
@@ -131,7 +139,7 @@ def time_variant(name: str, out: str, dims) -> None:
                 equal(y5, y5b, f"D={d} kernel 5 {body} {what}, two launches")
                 equal(y4, y5, f"D={d} kernel 4 at offset 0 vs kernel 5, {body} {what}")
         sq, off, skv = 100, 128, 300
-        q, k, v = randn(1, sq, h, d), randn(1, skv, h, d), randn(1, skv, h, d)
+        q, k, v = randn(1, sq, h, d), randn(1, skv, hk, d), randn(1, skv, hk, d)
         want = flash.flash_prefill_blocked_plain(q, k, v, off, sc)
         k[:, off + sq:], v[:, off + sq:] = float("nan"), float("nan")
         for body in fp.PATH_IDS:
@@ -142,20 +150,21 @@ def time_variant(name: str, out: str, dims) -> None:
 
         # kernel 5
         for b, s in [(1, n) for n in K5_LENGTHS] + [(8, 128), (8, 2048)]:
-            ins = [(randn(b, s, h, d), randn(b, s, h, d), randn(b, s, h, d))
-                   for _ in range(copies_for(4 * b * s * h * d * 2))]
+            ins = [(randn(b, s, h, d), randn(b, s, hk, d), randn(b, s, hk, d))
+                   for _ in range(copies_for(2 * b * s * (h + hk) * d * 2))]
             t = {body: graph_ms(torch, [lambda x=x, body=body: fp._launch(*x, sc, body)
                                         for x in ins], iters=20) for body in fp.PATH_IDS}
+            gqa = {"enable_gqa": True} if hk != h else {}
             lib = graph_ms(torch, [lambda x=x: F.scaled_dot_product_attention(
-                *(y.transpose(1, 2) for y in x), is_causal=True) for x in ins], iters=20)
+                *(y.transpose(1, 2) for y in x), is_causal=True, **gqa) for x in ins], iters=20)
             print(f"[{name}] D={d} kernel 5 B={b} S={s} H={h}: sync {t['sync'] * 1e3:.2f}, "
                   f"wgmma {t['wgmma'] * 1e3:.2f}, SDPA {lib * 1e3:.2f} us; faster: "
                   f"{min(t, key=t.get)}; plan: {fp.plan(s, 0, d)}", flush=True)
             del ins
         # kernel 4 over a 2048-slot cache
         skv = 2048
-        caches = [(randn(1, skv, h, d), randn(1, skv, h, d))
-                  for _ in range(copies_for(2 * skv * h * d * 2))]
+        caches = [(randn(1, skv, hk, d), randn(1, skv, hk, d))
+                  for _ in range(copies_for(2 * skv * hk * d * 2))]
         for sq, off in K4_CHUNKS:
             q = randn(1, sq, h, d)
             off_t = torch.tensor([off], dtype=torch.int32, device="cuda")
@@ -172,7 +181,7 @@ def time_variant(name: str, out: str, dims) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
-    ap.add_argument("--dims", default="64,80,96,128")
+    ap.add_argument("--dims", default="64,80,96,128,256")
     ap.add_argument("--one", nargs=2, metavar=("NAME", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     dims = [int(d) for d in args.dims.split(",")]

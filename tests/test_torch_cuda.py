@@ -581,8 +581,8 @@ def test_flash_prefill_matches_plain(card, b, s, h, hkv, d):
     """1e-2 of each row's norm: both softmax in fp32; the kernel rounds p and
     its output to bf16 (about 2^-9 relative each). S = 127-129 straddle the
     wgmma body's 128-query block and key tile (rows past S read as zeros).
-    At D = 64, 80 and 96 S = 63 runs the mma.sync body and S = 1000 the wgmma
-    body; D = 256 the mma.sync body at every length."""
+    At every other D S = 63 runs the mma.sync body and S = 1000 the wgmma
+    body (at D = 256 on 80-key K and V tiles)."""
     q = torch.randn(b, s, h, d, device=card).bfloat16()
     k = torch.randn(b, s, hkv, d, device=card).bfloat16()
     v = torch.randn(b, s, hkv, d, device=card).bfloat16()
@@ -596,8 +596,9 @@ def test_flash_prefill_matches_plain(card, b, s, h, hkv, d):
     assert _rows_close(got, flash_prefill_plain(q, k, v, d ** -0.5), 1e-2)
 
 
-# the head dims of both bodies besides 128 (GPT-2, OPT, GPT-NeoX)
-WGMMA_DIMS = (64, 80, 96)
+# the head dims of both bodies besides 128 (GPT-2, OPT, GPT-NeoX; 256 with
+# 80-key K and V tiles)
+WGMMA_DIMS = (64, 80, 96, 256)
 
 
 @pytest.mark.cuda
@@ -610,10 +611,10 @@ WGMMA_DIMS = (64, 80, 96)
 def test_flash_bodies_match_plain(card, path, b, s, h, hkv, d):
     """Both bodies of kernels 4 and 5, forced, whatever the plan would pick,
     at D = 128 and at the head dims whose sub-tiles take the 128-, 32- and
-    64-byte swizzles (64, 80, 96), with GQA and ragged S (TMA's rows past S
-    read as zeros): kernel 5 within 1e-2 of each row's norm of the plain
-    version, two launches bit-equal, and kernel 4 at offset 0 bit-equal to
-    it."""
+    64-byte swizzles (64, 80, 96) and at 256 (80-key K and V tiles), with
+    GQA and ragged S (TMA's rows past S read as zeros): kernel 5 within 1e-2
+    of each row's norm of the plain version, two launches bit-equal, and
+    kernel 4 at offset 0 bit-equal to it."""
     from gptq_for_llama_tpu_torch.ops.cuda import flash, flash_prefill as fp
     gen = torch.Generator(device=card)
     gen.manual_seed(s + d)

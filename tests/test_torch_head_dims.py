@@ -19,11 +19,15 @@ import torch
 from gptq_for_llama_tpu.models import common as jcommon
 from gptq_for_llama_tpu.ops.pallas import attention as jattn
 from gptq_for_llama_tpu.ops.pallas import flash as jflash
+from gptq_for_llama_tpu.runtime import ModelRunner as JaxModelRunner
+from gptq_for_llama_tpu.runtime import generate as jax_generate
 from gptq_for_llama_tpu_torch.ops.cuda import attention, build, flash, flash_prefill
 from gptq_for_llama_tpu_torch.ops.cuda.attention import (decode_attention,
                                                          decode_attention_cuda,
                                                          fused_decode_attention,
                                                          pool_decode_attention)
+from gptq_for_llama_tpu_torch.runtime import ModelRunner, generate
+from test_torch_model import _models
 
 DIMS = (64, 80, 96, 256)
 
@@ -141,21 +145,22 @@ def test_prefill_plains_match_jax_at_head_dim(d):
 def test_plans_at_head_dim(d):
     """The host plans at every built head dim: kernels 4 and 5 take the
     mma.sync body up to the crossover measured for D (offset + SQ <= 192 keys
-    at D = 64, 160 at 80 and 96, 128 at 128; at D = 256 whatever the length)
-    and the wgmma body above, over a bf16 cache only; kernels 3, 7 and 9 plan
+    at D = 64, 160 at 80 and 96, 128 at 128 and 256) and the wgmma body
+    above, over a bf16 cache only (fp8 and f32 caches: mma.sync at every
+    length); kernels 3, 7 and 9 plan
     their ring and scratch from D, and the layout each library reports is
     what the plan uses (csrc/decode_attention_dense.cuh: 4 stages under 128
     KB, f32 at D = 256 two; two resident blocks at D = 256)."""
     assert d in build.HEAD_DIMS and f"decode_attention:d{d}" in build.targets()
-    limit = {64: 192, 80: 160, 96: 160, 128: 128}.get(d)
-    assert flash_prefill.SYNC_MAX_KEYS.get(d) == limit
-    edges = () if limit is None else ((limit, 0), (limit - 100, 100), (limit + 1, 0),
-                                      (1, limit))
-    for sq, off in ((16, 0), (300, 700), (2048, 0), *edges):
+    limit = {64: 192, 80: 160, 96: 160, 128: 128, 256: 128}[d]
+    assert flash_prefill.SYNC_MAX_KEYS[d] == limit and d in flash_prefill.WGMMA_HEAD_DIMS
+    for sq, off in ((16, 0), (300, 700), (2048, 0), (limit, 0), (limit - 100, 100),
+                    (limit + 1, 0), (1, limit)):
         body = flash_prefill.plan(sq, off, d)
-        assert body == ("sync" if limit is None or off + sq <= limit else "wgmma")
+        assert body == ("sync" if off + sq <= limit else "wgmma")
         assert flash.plan_kv(sq, off, torch.bfloat16, d) == body
-        assert flash.plan_kv(sq, off, torch.float8_e4m3fn, d) == "sync"
+        for dt in (torch.float8_e4m3fn, torch.float8_e5m2, torch.float32):
+            assert flash.plan_kv(sq, off, dt, d) == "sync"
     for itemsize in (1, 2, 4):
         stages = attention.ring_stages(itemsize, d)
         ring = attention.ring_smem_bytes(itemsize, d)
@@ -181,3 +186,37 @@ def test_head_dims_without_a_kernel_raise_naming_b6(d):
     with pytest.raises(ValueError, match="B6"):
         build.library("decode_attention", d)
     assert not attention.supports_paged_decode(16, 4, 4, d)
+
+
+def test_llama_at_head_dim_256_runner_matches_jax():
+    """A tiny LLaMA whose config reads head_dim 256 (2 query heads over 1 kv
+    head, hidden 512, 2 layers, INT4-g128 wire weights), the layout the loader's
+    ``head_dim`` admits and the smoke drives at full width: the port's runner
+    against the TPU package's (fp32 on the CPU, both on their default paths):
+    a prompt's prefill logits, a chunk prefilled at an offset, then greedy
+    decode steps, logits close and tokens EQUAL."""
+    jcfg, jparams, cfg, params = _models(seed=256, hidden_size=512, intermediate_size=256,
+                                         num_heads=2, num_kv_heads=1, head_dim=256, gs=128)
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, size=(1, 12)).astype(np.int32)
+    jr = JaxModelRunner("llama", jcfg, jparams, batch_size=1, max_seq_len=32,
+                        dtype=jnp.float32)
+    r = ModelRunner("llama", cfg, params, batch_size=1, max_seq_len=32, dtype=torch.float32,
+                    device="cpu")
+    jcache, cache = jr.init_cache(), r.init_cache()
+    want, got, toks = [], [], []
+    for lo in (0, 6):   # the prompt, then a chunk at offset 6
+        jl, jcache = jr.prefill(jnp.asarray(ids[:, lo:lo + 6]), jcache)
+        lg, cache = r.prefill(torch.as_tensor(ids[:, lo:lo + 6]), cache)
+        want.append(np.asarray(jl))
+        got.append(lg.numpy())
+    for _ in range(3):   # greedy: each package feeds its own argmax
+        jtok, tok = np.asarray(want[-1][:, -1:].argmax(-1)), got[-1][:, -1:].argmax(-1)
+        np.testing.assert_array_equal(tok, jtok)
+        toks.append(int(tok[0, 0]))
+        jl, jcache = jr.decode(jnp.asarray(jtok, jnp.int32), jcache)
+        lg, cache = r.decode(torch.as_tensor(tok), cache)
+        want.append(np.asarray(jl))
+        got.append(lg.numpy())
+    np.testing.assert_allclose(np.concatenate(got, 1), np.concatenate(want, 1),
+                               atol=2e-4, rtol=1e-3)
+    assert cache.offset == 15 and len(toks) == 3
