@@ -22,7 +22,12 @@ Phases, in order, on one card:
            mma.sync tiles and the wgmma body, each at its own plan), and the
            wgmma body holds a ragged set (every bits value, group sizes 16 to
            G = 1, act-order, bias, ragged M and columns, with and without a
-           split) twice bit-equal and as a graph replay. Kernel
+           split) twice bit-equal and as a graph replay. At M = 1
+           kernels 1 and 2 run the batch-1 decode form: its rows (and
+           phase archs' NeoX-20B and fused q/k/v rows) time the other forms
+           forced beside it and are bit-equal twice and as a graph replay,
+           and the form holds a ragged set of its own (``hold_decode_cases``)
+           the same way. Kernel
            2's rows time every form forced beside kernel 1 run twice;
            kernel 7's rows time kernel 3 over the gathered view and require
            the two outputs bit-equal; kernel 6's rows time it alone and with
@@ -232,14 +237,14 @@ PHASES = ("build", "kernels", "e2e", "full", "fold", "lora", "quantize", "serve"
 # serving (bucketed and batched admission, spans) and dense serving with
 # chunked prefill
 # ("qmm:<form>", "fused_mlp:<form>", "qmm_t:<body>": kernels 1, 2 and 8 by
-# form: kernel 1's fragment form and kernel 2's GEMV at batch-1 decode, the
+# form: the decode form of kernels 1 and 2 at batch-1 decode, the
 # fragment forms at the 8-slot serving step, above 16 rows the wgmma body of
 # kernels 1, 2 and 8 (prefill, serving chunks, eval, LoRA, TP);
 # "rms_norm:<form>": kernel 6 alone, at layer 0's input norm, and with the
 # residual add folded in, at every other norm: every path runs both)
 NORMS = {"rms_norm", "rms_norm:alone", "rms_norm:add"}
 PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                    "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:wgmma"} | NORMS,
+                    "qmm:decode", "qmm:wgmma", "fused_mlp:decode", "fused_mlp:wgmma"} | NORMS,
          "quantize": {"flash_prefill"} | NORMS,
          "eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:wgmma", "fused_mlp:wgmma"} | NORMS,
          "serve:paged": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill_blocked",
@@ -251,7 +256,7 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          "serve:cli": {"qmm", "fused_mlp", "pool_decode_attention", "flash_prefill"} | NORMS,
          # the decode path with cache_impl="fold", in the runner and the dense engine
          "fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
-                  "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:wgmma"} | NORMS,
+                  "qmm:decode", "qmm:wgmma", "fused_mlp:decode", "fused_mlp:wgmma"} | NORMS,
          "serve:fold": {"qmm", "fused_mlp", "fused_decode_attention", "flash_prefill_blocked",
                         "qmm:frag", "qmm:wgmma", "fused_mlp:frag", "fused_mlp:wgmma"} | NORMS,
          # LoRA training steps (every linear adapted: gate/up unfused), and the
@@ -311,7 +316,7 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          # the offloaded LLaMA-7B's generate (24 of 32 layers streamed), the
          # offloaded CLI's eval and decode benchmark (phase offload)
          "offload": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                     "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:wgmma"} | NORMS,
+                     "qmm:decode", "qmm:wgmma", "fused_mlp:decode", "fused_mlp:wgmma"} | NORMS,
          "offload:eval": {"flash_prefill", "qmm", "fused_mlp", "qmm:wgmma",
                           "fused_mlp:wgmma"} | NORMS,
          "offload:benchmark": {"qmm", "fused_mlp", "decode_attention"} | NORMS,
@@ -327,7 +332,7 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          # paged, fold; bf16 and fp8 caches; admissions batched or not); the
          # calibration forward at dp 2
          **{f"tp:{name}": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_blocked",
-                           "qmm:frag", "qmm:wgmma", "fused_mlp:gemv", "fused_mlp:wgmma"} | NORMS
+                           "qmm:decode", "qmm:wgmma", "fused_mlp:decode", "fused_mlp:wgmma"} | NORMS
             for name in ("7b_tp2", "7b4_tp4", "7b4_tp4_gqa")},
          **{f"tp:serve:{mode}{kv}": {"qmm", "fused_mlp", f"{kernel}{kv}"} | NORMS
             for mode, kernel in (("dense", "decode_attention"),
@@ -624,6 +629,84 @@ def hold_tc_cases(torch, bodies=("wgmma",), kinds=("fwd", "bwd", "mlp")):
                                          f"{rel}, {ulps} bf16 ulp, twice equal {twice}, graph "
                                          f"equal {graph_eq}")
             del lin, bare, x, ref, ref_bare
+    return rows
+
+
+# the ragged set of kernels 1 and 2's batch-1 decode form (csrc/qmm_decode.cuh,
+# M = 1): kernel 1 (bits, K, N, groupsize, act-order, bias), kernel 2 the
+# same without a bias (gate and up share the permutation); every device bits
+# value and wire INT3, g32 to g128 and a ragged last group (K = 1032, g32),
+# N past the last 16-column strip (264, 4104), act-order, LLaMA-7B's and a TP
+# shard's widths and NeoX-20B's 6144 with a bias
+DEC_CASES_FWD = (
+    (4, 4096, 4096, 128, False, False), (4, 11008, 4096, 128, False, True),
+    (4, 1024, 264, 64, False, True), (2, 2048, 1024, 64, False, True),
+    (8, 1024, 4104, 32, True, True), (4, 1032, 512, 32, False, False),
+    (3, 1024, 2048, 128, True, False), (4, 4096, 2048, 128, False, False),
+    (4, 6144, 6144, 128, True, True))
+DEC_CASES_MLP = (
+    (4, 4096, 11008, 128, False), (4, 1024, 264, 64, False), (2, 2048, 1024, 64, False),
+    (8, 1024, 4104, 32, True), (4, 1032, 512, 32, False), (3, 512, 256, 128, True),
+    (4, 4096, 2816, 128, True))
+
+
+def hold_decode_cases(torch):
+    """The batch-1 decode form of kernels 1 and 2 forced on its ragged set
+    (DEC_CASES_FWD, DEC_CASES_MLP), in device row order (the act-order
+    permutation is the dispatch's): held to the plain version at 2e-2 *
+    max|plain| (kernel 2 also within 1e-2 of each row's norm), finite, two
+    launches bit-equal and a CUDA-graph replay bit-equal to the eager launch.
+    Returns the rows; raises on any failure."""
+    import dataclasses
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul, mlp
+    from gptq_for_llama_tpu_torch.ops.linear import quant_matmul_plain
+    rng = np.random.RandomState(21)
+    sms = matmul._sm_count(0)
+    rows = []
+    for kind, cases in (("fwd", DEC_CASES_FWD), ("mlp", DEC_CASES_MLP)):
+        for case in cases:
+            bits, k, n, gs, act = case[:5]
+            bias = kind == "fwd" and case[5]
+            lin = wire_linear(torch, rng, k, n, gs, bits, act, bias)
+            x = torch.as_tensor(rng.randn(1, k), dtype=torch.bfloat16, device="cuda")
+            if kind == "mlp":
+                up = wire_linear(torch, rng, k, n, gs, bits, g_idx=lin.g_idx)
+                ref = mlp.fused_mlp_plain(x, *(dataclasses.replace(t, perm=None)
+                                               for t in (lin, up)))
+                p = matmul.plan(1, k, n, lin.bits, sms, streams=2, path="decode",
+                                groupsize=lin.groupsize, groups=lin.scales.shape[0])
+
+                def launch():
+                    return mlp._launch(x, lin, up, p)
+            else:
+                ref = quant_matmul_plain(x, dataclasses.replace(lin, perm=None))
+                p = matmul.plan(1, k, n, lin.bits, sms, path="decode", groupsize=lin.groupsize,
+                                groups=lin.scales.shape[0])
+
+                def launch():
+                    return matmul._launch(x, lin, p)
+            y, y2 = launch(), launch()
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 2e-2 * ref.float().abs().max().item()
+            rel = row_rel_err(y, ref) if kind == "mlp" else None
+            twice = bits_equal(y, y2)
+            graph_eq = bits_equal(graph_replay(torch, launch, lambda: None), y)
+            ok = (err <= tol and twice and graph_eq and bool(torch.isfinite(y.float()).all())
+                  and (rel is None or rel <= 1e-2))
+            what = (f"kernel {1 if kind == 'fwd' else 2} bits {bits} M=1 K={k} N={n} g{gs}"
+                    f"{' act-order' if act else ''}{' bias' if bias else ''}")
+            log(f"[kernel {'qmm' if kind == 'fwd' else 'fused_mlp'}] decode case {what} "
+                f"[rows a stage {p.per_split}]: max_abs_err {err:.3e} (tol {tol:.3e})"
+                + ("" if rel is None else f", worst row {rel:.3e} (tol 1e-2)")
+                + f", two launches equal {twice}, graph replay equal {graph_eq}: "
+                f"{'ok' if ok else 'FAIL'}")
+            rows.append({"case": what, "rows": p.per_split, "max_abs_err": err, "tol": tol,
+                         "row_rel": rel, "twice_equal": twice, "graph_equal": graph_eq,
+                         "ok": ok})
+            if not ok:
+                raise AssertionError(f"decode case {what}: error {err} > {tol}, worst row "
+                                     f"{rel}, twice equal {twice}, graph equal {graph_eq}")
     return rows
 
 
@@ -1093,6 +1176,11 @@ class Smoke:
                 for streams, name in ((1, "qmm"), (2, "fused_mlp")):
                     smem[f"{name} gemv {bits}-bit MT={mt}"] = matmul.gemv_smem_bytes(bits, mt,
                                                                                      streams)
+        for k, n, streams, name in ((4096, 4096, 1, "qmm"), (11008, 4096, 1, "qmm"),
+                                    (4096, 11008, 2, "fused_mlp")):   # the decode form at 7B's
+            geo = matmul.decode_geometry(k, n, 4, matmul._sm_count(0), streams, 128, -(-k // 128))
+            smem[f"{name} decode {k}x{n} 4-bit ({geo.strips} strips, {geo.stages} stages of "
+                 f"{geo.rows} word rows)"] = geo.smem
         from gptq_for_llama_tpu_torch.ops.cuda import attention
         for name, itemsize in (("fp8", 1), ("bf16", 2), ("f32", 4)):   # layout checked at load
             smem[f"decode ring (kernels 3, 7, 9), {name} cache"] = attention.ring_smem_bytes(itemsize)
@@ -1264,6 +1352,9 @@ class Smoke:
                 extra = {"form": {"path": p.path, "rows": p.mt, "split": p.split}}
                 if m in FORCED_MS and what != "gate_proj":
                     extra["forced_ms"] = self._kernel1_forms(torch, x, lins, ref, tol, what)
+                if m == 1:   # the batch-1 row: two launches and a replay bit-equal
+                    extra.update(self._repeatable(torch, lambda: qmm_cuda(x, lin), y,
+                                                  f"qmm {what} M=1"))
                 if m > FORCED_MS[-1]:   # both tensor-core bodies forced
                     extra["bodies_ms"] = self._tc_bodies(torch, "fwd", x, lins, ref, what, iters)
                 self._record("qmm", f"{what} {k}x{n} M={m}", err, tol, ms, pms, lms, nbytes,
@@ -1273,6 +1364,7 @@ class Smoke:
             del lins, wdq
         self._qmm_tile_cases(torch, rng)
         self._wgmma_cases(torch)
+        self.report["decode_cases"] = hold_decode_cases(torch)
         k, n = 4096, 11008
         gates = self._linears(torch, rng, k, n, copies_for(k * n))
         ups = self._linears(torch, rng, k, n, len(gates))
@@ -1443,9 +1535,21 @@ class Smoke:
         self._ppl_eval_linears(torch, rng, randn)
         torch.cuda.synchronize()
 
+    @staticmethod
+    def _repeatable(torch, run, y, what):
+        """``run()`` launched twice and replayed as a CUDA graph, each
+        bit-equal to ``y``; raises otherwise."""
+        twice = bits_equal(run(), y) and bits_equal(run(), y)
+        graph_eq = bits_equal(graph_replay(torch, run, lambda: None), y)
+        if not (twice and graph_eq):
+            raise AssertionError(f"{what}: two launches equal {twice}, graph replay equal "
+                                 f"{graph_eq}")
+        return {"twice_equal": twice, "graph_equal": graph_eq}
+
     def _kernel1_forms(self, torch, x, lins, ref, tol, what):
-        """Kernel 1 with every form it has forced (the GEMV, the fragment form
-        up to 16 rows where the package has it, the tiles) at x's rows: each
+        """Kernel 1 with every form it has forced (the decode form at M = 1,
+        the GEMV, the fragment form up to 16 rows where the package has it,
+        the tiles) at x's rows: each
         held to the plain version within ``tol`` (2e-2 * max|plain|), timed
         over the weight copies; the forms' times are logged and returned."""
         from gptq_for_llama_tpu_torch.ops.cuda import matmul
@@ -1454,6 +1558,9 @@ class Smoke:
         sms = matmul._sm_count(0)
         tol = max(tol, 2e-2 * ref.float().abs().max().item())
         forms = ("gemv", "frag", "tile") if hasattr(matmul, "frag_cols") else ("gemv", "tile")
+        if m == 1 and matmul.decode_geometry(k, n, lin.bits, sms, 1, lin.groupsize,
+                                             lin.scales.shape[0]):
+            forms = ("decode",) + forms
         forced = {}
         for path in forms:
             fp = matmul.plan(m, k, n, lin.bits, sms, path=path)
@@ -1543,8 +1650,10 @@ class Smoke:
                        iters=min(iters, 10))
         sms = matmul._sm_count(0)
         forced, gap, outs = {}, {}, {}
-        for path in ("gemv", "frag", "tile", "wgmma"):
-            if path == "frag" and m > matmul.FRAG_MAX_M:
+        decode = m == 1 and matmul.decode_geometry(k, n, gates[0].bits, sms, 2,
+                                                   gates[0].groupsize, gates[0].scales.shape[0])
+        for path in ("decode", "gemv", "frag", "tile", "wgmma"):
+            if (path == "frag" and m > matmul.FRAG_MAX_M) or (path == "decode" and not decode):
                 continue
             fp = matmul.plan(m, k, n, 4, sms, streams=2, path=path)
             outs[path] = mlp._launch(x, gates[0], ups[0], fp)
@@ -1554,7 +1663,7 @@ class Smoke:
             forced[path] = graph_ms(torch, [lambda g=g, u=u, fp=fp: mlp._launch(x, g, u, fp)
                                             for g, u in pairs],
                                     iters=iters if path != "gemv" or m <= 136 else 2)
-        for path in ("frag", "tile", "wgmma"):
+        for path in ("decode", "frag", "tile", "wgmma"):
             if path in outs:
                 gap[path] = row_rel_err(outs[path], outs["gemv"])
         k1 = 2 * graph_ms(torch, [lambda g=g: qmm_cuda(x, g) for g in gates], iters=iters)
@@ -1567,6 +1676,9 @@ class Smoke:
         extra = {"form": {"path": p.path, "rows": p.mt, "split": p.split},
                  "forced_ms": forced, "gap_to_gemv": gap, "kernel1_x2_ms": k1,
                  "gemm_gate_up_ms": gemm}
+        if m == 1:   # the batch-1 row: two launches and a replay bit-equal
+            extra.update(self._repeatable(torch, lambda: fused_mlp_cuda(x, gates[0], ups[0]), y,
+                                          "fused_mlp M=1"))
         log(f"[kernel fused_mlp] M={m}: forms forced "
             + ", ".join(f"{a} {t * 1e3:.2f} us" for a, t in forced.items())
             + f"; kernel 1 twice at {k}x{n} {k1 * 1e3:.2f} us; torch.matmul over [Wg | Wu] "
@@ -4369,6 +4481,10 @@ class Smoke:
                 lms = graph_ms(torch, [lambda w=w: torch.matmul(x, w) + (lins[0].bias if bias
                                                                          else 0) for w in wdq])
                 extra = {"form": {"path": p.path, "rows": p.mt, "split": p.split}}
+                if m == 1:   # the old forms forced beside; two launches and a replay equal
+                    extra["forced_ms"] = self._kernel1_forms(torch, x, lins, ref, tol, what)
+                    extra.update(self._repeatable(torch, lambda: qmm_cuda(x, lins[0]), y,
+                                                  f"qmm {what} M=1"))
                 if n == 12288:
                     unf = torch.cat([qmm_cuda(x, part[0]) for part in parts], dim=-1)
                     # the three launches under the fused launch's plan: the same
@@ -5683,8 +5799,8 @@ class Smoke:
             # and head dim too
             by_dtype = ("bf16", "f32", "fp8", "fp8_e5m2", "d64", "d80", "d96", "d128", "d256")
             by_body = tuple(f"{b}:{d}" for b in ("sync", "wgmma") for d in by_dtype[4:])
-            forms = {"qmm": ("gemv", "frag", "tile", "wgmma"),
-                     "fused_mlp": ("gemv", "frag", "tile", "wgmma"),
+            forms = {"qmm": ("decode", "gemv", "frag", "tile", "wgmma"),
+                     "fused_mlp": ("decode", "gemv", "frag", "tile", "wgmma"),
                      "qmm_t": ("tile", "wgmma"),
                      "rms_norm": ("alone", "add"), "decode_attention": by_dtype,
                      "flash_prefill_blocked": by_dtype + by_body,

@@ -2,13 +2,16 @@
 //
 // Replaces gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel. x is read
 // once for both weight streams and neither intermediate reaches device
-// memory as bf16: the two fp32 sums meet in the epilogue. Four forms, chosen
+// memory as bf16: the two fp32 sums meet in the epilogue. Five forms, chosen
 // by the wrapper's plan (gptq_for_llama_tpu_torch/ops/cuda/matmul.py:plan,
 // streams=2) from M and the group size:
+//  - gptq_fused_mlp_decode: the batch-1 decode row, on qmm_decode.cuh (NW =
+//    2: a TMA ring of both packed weights, each block the same columns of
+//    the gate and the up weight), bound by the two packed weight streams
+//    with their scales and zeros (2 x 23.9 MB at 4096x11008 INT4-g128:
+//    14.3 us at 3.35 TB/s);
 //  - gptq_fused_mlp: the one-launch GEMV of qmm_gemv.cuh (NW = 2) for the
-//    batch-1 decode row, bound by the two packed weight streams with their
-//    scales and zeros (2 x 23.9 MB at 4096x11008 INT4-g128: 14.3 us at
-//    3.35 TB/s);
+//    batch-1 row where the group size does not suit the decode form;
 //  - gptq_fused_mlp_frag: M <= 16, the weight dequantized straight into
 //    mma.sync A fragments (qmm_frag.cuh, NW = 2);
 //  - gptq_fused_mlp_wgmma: above that, where the group size is a multiple of
@@ -22,6 +25,7 @@
 // Each header describes its design. Plain C entry points, bound from Python
 // with ctypes.
 #include "qmm_common.cuh"
+#include "qmm_decode.cuh"
 #include "qmm_frag.cuh"
 #include "qmm_gemv.cuh"
 #include "qmm_tc.cuh"
@@ -123,5 +127,21 @@ extern "C" int gptq_fused_mlp_wgmma(const void* x, const void* qg, const void* s
   return static_cast<int>(gptq_wg::launch_bits<false, 2>(
       bits, bm, x, s.gate, s.up, nullptr, static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(partial), M, K, N, G, groupsize, split, slabs_per_split, sz_rows,
+      smem_bytes, static_cast<cudaStream_t>(stream)));
+}
+
+// x (1, K) bf16 with K % 8 == 0; qweights (K * bits / 32, N) int32 with
+// N % 8 == 0; scales, zeros (G, N) bf16 with groupsize a multiple of 128 /
+// bits; strips: 16-column strips of each weight a block; rows, sz_rows,
+// stages, smem_bytes: kernel 1's gptq_qmm_decode.
+extern "C" int gptq_fused_mlp_decode(const void* x, const void* qg, const void* sg, const void* zg,
+                                     const void* qu, const void* su, const void* zu, void* out,
+                                     int K, int N, int G, int groupsize, int bits, int strips,
+                                     int rows, int sz_rows, int stages, int smem_bytes,
+                                     void* stream) {
+  const Streams s = streams(qg, sg, zg, qu, su, zu);
+  return static_cast<int>(gptq_dec::launch_bits<2>(
+      bits, static_cast<const __nv_bfloat16*>(x), s.gate, s.up, nullptr,
+      static_cast<__nv_bfloat16*>(out), K, N, G, groupsize, strips, rows, sz_rows, stages,
       smem_bytes, static_cast<cudaStream_t>(stream)));
 }

@@ -1,9 +1,11 @@
 // Dequant-GEMM over bit-packed weights: y = x @ dequant(W) (+ bias).
 //
-// Replaces gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. Four forms,
+// Replaces gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel. Five forms,
 // chosen by the wrapper's plan (gptq_for_llama_tpu_torch/ops/cuda/matmul.py)
-// from M and the group size: gptq_qmm_frag, the register-fragment form of
-// qmm_frag.cuh with one stream, for 1-16 rows; gptq_qmm, the one-launch GEMV
+// from M and the group size: gptq_qmm_decode, the batch-1 decode form of
+// qmm_decode.cuh (a TMA ring of the packed words, one block per column
+// tile), at M = 1; gptq_qmm_frag, the register-fragment form of
+// qmm_frag.cuh with one stream, for 2-16 rows; gptq_qmm, the one-launch GEMV
 // of qmm_gemv.cuh, where the group size does not suit the fragments (and any
 // M whose shape the tiles do not take); above 16 rows gptq_qmm_wgmma, the
 // Hopper body of qmm_wgmma.cuh (wgmma fed by TMA), where the group size
@@ -11,6 +13,7 @@
 // qmm_tc.cuh. Each header describes its bound and design. Plain C entry
 // points, bound from Python with ctypes.
 #include "qmm_common.cuh"
+#include "qmm_decode.cuh"
 #include "qmm_frag.cuh"
 #include "qmm_gemv.cuh"
 #include "qmm_tc.cuh"
@@ -107,5 +110,21 @@ extern "C" int gptq_qmm_wgmma(const void* x, const void* qweight, const void* sc
   return static_cast<int>(gptq_wg::launch_bits<false, 1>(
       bits, bm, x, w, w, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(partial), M, K, N, G, groupsize, split, slabs_per_split, sz_rows,
+      smem_bytes, static_cast<cudaStream_t>(stream)));
+}
+
+// x (1, K) bf16 with K % 8 == 0; qweight (K * bits / 32, N) int32 with
+// N % 8 == 0; scales, zeros (G, N) bf16 with groupsize a multiple of 128 /
+// bits; strips: 16-column strips a block; rows: packed word rows a stage
+// (64, 128, 256); sz_rows: the scale rows of the most groups a stage
+// touches; stages: the ring's depth; smem_bytes: the plan's size.
+extern "C" int gptq_qmm_decode(const void* x, const void* qweight, const void* scales,
+                               const void* zeros, const void* bias, void* out, int K, int N,
+                               int G, int groupsize, int bits, int strips, int rows, int sz_rows,
+                               int stages, int smem_bytes, void* stream) {
+  const gptq::Stream s0 = stream_of(qweight, scales, zeros);
+  return static_cast<int>(gptq_dec::launch_bits<1>(
+      bits, static_cast<const __nv_bfloat16*>(x), s0, s0, static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), K, N, G, groupsize, strips, rows, sz_rows, stages,
       smem_bytes, static_cast<cudaStream_t>(stream)));
 }

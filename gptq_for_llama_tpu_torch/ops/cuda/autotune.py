@@ -3,13 +3,15 @@
 Counterpart of ``gptq_for_llama_tpu/ops/pallas/autotune.py`` (itself the
 reference's ``custom_autotune.py``), with the same kinds: "fwd" (kernel 1,
 ``matmul.py``), "mlp" (kernel 2, ``mlp.py``) and "bwd" (kernel 8,
-``matmul_t.py``). The free choices of a plan are its form (``gemv``,
-``frag``, ``tile`` or ``wgmma``; kernel 8 has the last two), its row tile ``mt``
-and its split (along K; along N for kernel 8); the rest follows from them and
-the shape (``matmul.plan_of``, ``matmul_t.plan_of``).
+``matmul_t.py``). The free choices of a plan are its form (``decode``,
+``gemv``, ``frag``, ``tile`` or ``wgmma``; kernel 8 has the last two), its row
+tile ``mt`` and its split (along K; along N for kernel 8); the rest follows
+from them and the shape (``matmul.plan_of``, ``matmul_t.plan_of``; the
+decode form, which has no free choice, ``matmul._decode_plan``).
 
 - ``candidates``: every plan the plan functions build for a shape, forced
-  to each form and each power-of-two cluster split (the decode-width forms)
+  to each form (the batch-1 decode form at the M = 1 bucket where it takes
+  the shape) and each power-of-two cluster split (the GEMV and fragments)
   or each row tile and split (the tiles and the wgmma body), kept where it
   is valid for every M
   of its pow2 bucket and its shared memory fits an SM; the heuristic's own
@@ -23,7 +25,8 @@ the shape (``matmul.plan_of``, ``matmul_t.plan_of``).
 - The cache: a JSON file with a version, keyed (kind, K, N, bits,
   groupsize, pow2 M bucket, card name), so another card never reuses these
   answers; written to a temporary file and then renamed over the old one.
-  Version 2 added the wgmma body of kernels 1 and 8, version 3 kernel 2's:
+  Version 2 added the wgmma body of kernels 1 and 8, version 3 kernel 2's,
+  version 4 the batch-1 decode form of kernels 1 and 2:
   a file of another version (whose races never saw them) raises with its
   message instead of pinning an old tile plan.
 - ``lookup`` answers the kernels' ``plan_for`` (an override first, then the
@@ -60,7 +63,7 @@ import torch
 MODE_ENV = "GPTQ_TORCH_AUTOTUNE"
 PATH_ENV = "GPTQ_TORCH_AUTOTUNE_CACHE"
 OVERRIDE_ENV = "GPTQ_TORCH_TUNE_OVERRIDE"
-VERSION = 3
+VERSION = 4
 KINDS = ("fwd", "mlp", "bwd")
 REPS = 7            # timed replays of a candidate's chain (the median decides)
 # the weight bytes one chain reads: five times the H100's 50 MB L2, so that
@@ -68,7 +71,7 @@ REPS = 7            # timed replays of a candidate's chain (the median decides)
 CHAIN_BYTES = 256 * 2**20
 TILE_MIN_SLABS = 4  # the least 64-deep slabs (slices) one tile split keeps
 _OVERRIDE = re.compile(
-    r"(fwd|mlp|bwd):K(\d+):N(\d+)(?::M(\d+))?=(gemv|frag|tile|wgmma),(\d+),(\d+)")
+    r"(fwd|mlp|bwd):K(\d+):N(\d+)(?::M(\d+))?=(decode|gemv|frag|tile|wgmma),(\d+),(\d+)")
 
 
 @dataclasses.dataclass
@@ -119,7 +122,7 @@ def parse_overrides(text: str) -> dict:
         if hit is None:
             raise ValueError(f"{OVERRIDE_ENV}: {entry!r} is not "
                              "kind:K<k>:N<n>[:M<bucket>]=path,mt,split (kind fwd, mlp or bwd; "
-                             "path gemv, frag, tile or wgmma)")
+                             "path decode, gemv, frag, tile or wgmma)")
         kind, k, n, mb, path, mt, split = hit.groups()
         if mb is not None and int(mb) != m_bucket(int(mb)):
             raise ValueError(f"{OVERRIDE_ENV}: {entry!r}: M{mb} is not a power of two")
@@ -237,7 +240,9 @@ def candidates(kind: str, k: int, n: int, bits: int, gs: int, m: int, sms: int) 
     """Every plan of ``kind`` at (K, N) valid for every M of m's pow2 bucket,
     the heuristic's pick for the bucket's top first:
 
-    - kernels 1 and 2: the GEMV at the row tile ``_gemv_plan`` takes and the
+    - kernels 1 and 2: at the M = 1 bucket the decode form where
+      ``matmul.decode_geometry`` takes the shape; the GEMV at the row tile
+      ``_gemv_plan`` takes and the
       fragment form (M <= 8 per n8 tile, ``frag_ok``) at its own, each at
       every power-of-two cluster split up to ``CLUSTER_MAX`` that leaves no
       split empty; the tiles (K and N multiples of 8) at every row tile up to
@@ -270,6 +275,8 @@ def candidates(kind: str, k: int, n: int, bits: int, gs: int, m: int, sms: int) 
     streams = 2 if kind == "mlp" else 1
     first = mm.plan(mb, k, n, bits, sms, streams, groupsize=gs)
     out = [first]
+    if mb <= mm.DEC_MAX_M and mm.decode_geometry(k, n, bits, sms, streams, gs, -(-k // gs)):
+        out.append(mm._decode_plan(mb, k, n, bits, sms, streams, gs, None))
     gemv = mm._gemv_plan(mb, k, n, bits, sms, streams)
     units = k // (32 // bits)
     out += [mm.plan_of("gemv", gemv.mt, s, k, bits, streams)

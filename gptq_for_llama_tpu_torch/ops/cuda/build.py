@@ -11,13 +11,16 @@ per library, all started together, into ``gptq_for_llama_tpu_torch/_build/``
 sources and flags, so a changed source is rebuilt and a built one is reused.
 ``start`` and ``wait`` split a build in two: a caller can start some
 libraries at a lower priority, use the others at once, and wait for the
-rest where it needs them (``library`` waits for a build in flight).
+rest where it needs them (``library`` waits for a build in flight). No
+build outlives the process that started it: ``start`` registers ``cancel``
+with ``atexit`` (once), so an exit with builds in flight stops them.
 
 There is no fallback: a missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
@@ -43,6 +46,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 # builds started and not yet waited for: key -> (nvcc process, temporary
 # output, output, log file)
 _inflight: dict[str, tuple] = {}
+_cancel_at_exit = False   # ``cancel`` registered with atexit
 
 
 def _nvcc() -> str:
@@ -88,9 +92,14 @@ def lib_path(name: str, head_dim: int | None = None) -> str:
 def start(keys=None, nice: int = 0) -> None:
     """Start nvcc for every library of ``keys`` (default: all of
     ``targets()``) that is neither built nor building, and return at once.
-    ``nice`` > 0 runs those processes at that lower priority."""
+    ``nice`` > 0 runs those processes at that lower priority. Builds still
+    in flight when the process exits are cancelled."""
+    global _cancel_at_exit
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    if not _cancel_at_exit:
+        atexit.register(cancel)
+        _cancel_at_exit = True
     for key in targets() if keys is None else keys:
         name, _, d = key.partition(":d")
         out = lib_path(name, int(d) if d else None)

@@ -2,10 +2,14 @@
 and the launch plans of kernels 1 and 2 (``plan``).
 
 Replaces ``gptq_for_llama_tpu/ops/pallas/matmul.py:_qmm_kernel``. The kernel is
-``csrc/qmm.cu`` with three forms that ``plan`` picks from M and the group
-size: up to ``FRAG_MAX_M`` rows, the batch-1 decode row included, the weight
-dequantized straight into ``mma.sync`` fragments (``csrc/qmm_frag.cuh``, one
-stream), bound by the packed weight bytes; where the group size does not
+``csrc/qmm.cu`` with the forms that ``plan`` picks from M and the group
+size: at M = 1 the batch-1 decode form (``csrc/qmm_decode.cuh``,
+``"decode"``: one producer thread keeps TMA loads of the packed words, in
+their own layout, in flight through an ``mbarrier`` ring; one block per
+column tile, so the columns alone fill the card); up to ``FRAG_MAX_M`` rows
+the weight dequantized straight into ``mma.sync`` fragments
+(``csrc/qmm_frag.cuh``, one stream), bound by the packed weight bytes;
+where the group size does not
 suit them, the one-launch GEMV of ``csrc/qmm_gemv.cuh`` (a per-warp
 ``cp.async`` ring of the words, their scales and x; dot-then-scale per
 group); both split K across the blocks of a thread block cluster, whose
@@ -18,7 +22,8 @@ slab dequantized to bf16 in shared memory, ``mma.sync`` with fp32 sums, a
 ``cp.async`` ring). The plain version is ``ops.linear.quant_matmul_plain``
 (dequantize to the compute dtype, then matmul). Kernel 2 (``mlp.py``, two
 weight streams) takes its plan from ``plan`` too (``streams=2``), with four
-forms: the GEMV at M = 1, the fragments to 16 rows, above them the Hopper
+forms: the decode form at M = 1 (the GEMV where the group size does not
+suit it), the fragments to 16 rows, above them the Hopper
 body with the gate and up weights on its two consumer warpgroups (64 columns
 of y a block) where ``wgmma_ok`` takes the shape, the tiles otherwise.
 """
@@ -40,13 +45,17 @@ REPLACES = "gptq_for_llama_tpu/ops/pallas/matmul.py:68"
 
 TILE_N = 128          # columns per block: the GEMV's (4 a lane); the tiles' B-tile columns
 # The forms by M (measured crossovers, PERF.md section 6, NVIDIA H100 80GB
-# HBM3, 700 W): kernel 1 takes the GEMV for M <= GEMV_MAX_M, kernel 2 for
-# M <= FUSED_GEMV_MAX_M; both take the register-fragment form
-# (csrc/qmm_frag.cuh) up to FRAG_MAX_M where the group size suits it (else
-# the GEMV), the tiles above. Kernel 1's fragments beat its GEMV from M = 1
-# (9.42 against 10.68 us at 4096 x 4096, 17.56 against 25.55 at 11008 x
-# 4096); kernel 2's GEMV beats its fragments at M = 1 only (33.40 against
-# 35.49 us, M = 2: 38.69 against 35.80)
+# HBM3, 700 W): at M = 1 both kernels take the decode form (DEC_MAX_M
+# below) where the group size suits the fragments: kernel 1 8.54 against the
+# fragments' 9.96 us at 4096 x 4096, 16.52 against 19.06 at 11008 x 4096;
+# kernel 2 24.99 against its GEMV's 33.50 at 4096 x 11008
+# (scripts/torch_decode_gemm_variants.py). Else kernel 1 takes the GEMV for
+# M <= GEMV_MAX_M, kernel 2 for M <= FUSED_GEMV_MAX_M; both take the
+# register-fragment form (csrc/qmm_frag.cuh) up to FRAG_MAX_M where the group
+# size suits it (else the GEMV), the tiles above. Kernel 1's fragments beat
+# its GEMV from M = 1 (9.42 against 10.68 us at 4096 x 4096, 17.56 against
+# 25.55 at 11008 x 4096); kernel 2's GEMV beats its fragments at M = 1 only
+# (33.40 against 35.49 us, M = 2: 38.69 against 35.80)
 GEMV_MAX_M = 0
 FUSED_GEMV_MAX_M = 1
 FRAG_MAX_M = 16
@@ -63,6 +72,22 @@ CLUSTER_LIMIT = 16    # the most the kernels take (above 8: the non-portable att
 GEMV_WARPS = 8
 GEMV_STAGES = {1: 8, 2: 4}   # csrc/qmm_gemv.cuh's ring depth by streams
 FRAG_COLS, FRAG_WARPS, FRAG_STAGES = 32, 8, 3   # csrc/qmm_frag.cuh's block and ring
+# The batch-1 decode form (csrc/qmm_decode.cuh) takes M <= DEC_MAX_M rows
+# where the fragment form's group sizes hold (``frag_ok``) and its ring fits
+# (``decode_geometry``): columns of a word box (a strip), the deepest ring
+# and the word bytes of a stage it aims at; the strips of each weight a
+# block holds, by streams (csrc/qmm_decode.cuh's instantiations)
+DEC_MAX_M = 1
+DEC_STRIP, DEC_MAX_STAGES = 16, 16
+DEC_STAGE_BYTES = 16384
+DEC_STRIPS = {1: (1, 2, 3, 4, 5, 6), 2: (1, 2, 3)}
+
+
+def decode_warps(strips: int) -> int:
+    """Consumer warps of a decode-form block of ``strips`` strips (both
+    weights together; qmm_decode.cuh's ``consumer_warps``): 16 at one block
+    an SM where they are at most 3, else 8 at two blocks an SM."""
+    return 16 if strips <= 3 else 8
 # the tile path's row tiles, slab depth and staged groups: csrc/qmm_tc.cuh's
 TC_ROW_TILES, TC_TILE_K, TC_MAX_GROUPS = (64, 128, 256), 64, 4
 # the Hopper body's row tiles (wgmma's N), weight columns a block (kernel 2:
@@ -79,14 +104,16 @@ def _sm_count(index: int) -> int:
 
 
 class Plan(NamedTuple):
-    path: str        # "gemv" (csrc/qmm_gemv.cuh), "frag" (csrc/qmm_frag.cuh), "tile"
-                     # (csrc/qmm_tc.cuh) or "wgmma" (csrc/qmm_wgmma.cuh)
+    path: str        # "decode" (csrc/qmm_decode.cuh), "gemv" (csrc/qmm_gemv.cuh), "frag"
+                     # (csrc/qmm_frag.cuh), "tile" (csrc/qmm_tc.cuh) or "wgmma"
+                     # (csrc/qmm_wgmma.cuh)
     mt: int          # rows per block: 1, 2, 4, 8 (gemv), 8, 16 (frag), 64, 128, 256 (tile),
-                     # 64, 128, 144, 256 (wgmma)
-    split: int       # blocks along K: one cluster (gemv, frag: partial sums added in rank
-                     # order in the launch), or partials summed by a second kernel (tile, wgmma)
-    per_split: int   # packed words (gemv), K-blocks (frag) or 64-row slabs (tile, wgmma)
-                     # per split
+                     # 64, 128, 144, 256 (wgmma); decode (one row): 16-column strips a block
+    split: int       # blocks along K: none (decode), one cluster (gemv, frag: partial sums
+                     # added in rank order in the launch), or partials summed by a second
+                     # kernel (tile, wgmma)
+    per_split: int   # packed word rows a stage (decode), packed words (gemv), K-blocks
+                     # (frag) or 64-row slabs (tile, wgmma) per split
     smem: int        # dynamic shared memory of one block, bytes
 
 
@@ -198,6 +225,78 @@ def frag_smem_bytes(bits: int, nt: int) -> int:
             + cluster_recv_bytes(2, outs))
 
 
+class Decode(NamedTuple):
+    """The batch-1 decode form's launch geometry (``decode_geometry``)."""
+    strips: int      # 16-column strips of y a block (of each weight, kernel 2)
+    rows: int        # packed word rows a stage: 64, 128 or 256
+    sz_rows: int     # scale (and zero) rows a stage holds
+    stages: int      # the ring's depth
+    smem: int        # dynamic shared memory of one block, bytes
+
+
+def decode_smem_bytes(streams: int, strips: int, rows: int, sz_rows: int, k: int,
+                      stages: int) -> int:
+    """Shared memory of one decode-form block (qmm_decode.cuh's ``layout``):
+    ``stages`` stages, each the word boxes (``rows`` x 64 bytes a strip of
+    each weight) and each weight's scale and zero boxes (``sz_rows`` rows of
+    the block's columns, 128-byte aligned), 1 KB aligned; x (K bf16); the
+    warps' fp32 sums; the full and empty barriers; 1 KB of alignment."""
+    def up(v, a):
+        return -(-v // a) * a
+    words = streams * strips * rows * 64
+    stage = up(words + streams * 2 * up(sz_rows * strips * DEC_STRIP * 2, 128), 1024)
+    red = decode_warps(streams * strips) * streams * strips * DEC_STRIP * 4
+    return 1024 + stages * stage + up(k * 2, 128) + red + 2 * stages * 8
+
+
+@lru_cache(maxsize=None)
+def decode_geometry(k: int, n: int, bits: int, sms: int, streams: int, groupsize: int,
+                    groups: int, rows: int | None = None,
+                    strips: int | None = None) -> Decode | None:
+    """How the decode form covers (1, K) @ (K, N): the fewest 16-column
+    strips a block (of ``DEC_STRIPS``) whose blocks cover N in one wave, one
+    block an SM up to 3 strips over both weights (16 consumer warps), two
+    above (8 each: ``decode_warps``): 2 at N = 4096 (128 blocks), 3 of each
+    weight for kernel 2 at N = 11008 (230 blocks); the most there are, in
+    more than one wave, beyond. Then the deepest stage of the word rows 256,
+    128, 64 whose words stay within ``DEC_STAGE_BYTES`` (the least that
+    gives every warp an 8-row octet where none does); as many stages as the
+    block's share of shared memory holds, up to ``DEC_MAX_STAGES`` and the
+    stages K has. ``strips`` and ``rows`` force the block's strips and the
+    stage's word rows (a launch under another shape's plan: a column's sums
+    depend on the rows a stage and the consumer warps, which the strips
+    set, and nothing else of the geometry). None where fewer than two stages fit
+    (one where K has one), or the shape is not the fragment form's
+    (``frag_ok``)."""
+    if not frag_ok(k, n, bits, groupsize):
+        return None
+    units = -(-n // DEC_STRIP)
+
+    def per_sm(s):
+        return 1 if decode_warps(streams * s) == 16 else 2
+    if strips is None:
+        strips = next((s for s in DEC_STRIPS[streams] if s * per_sm(s) * sms >= units),
+                      DEC_STRIPS[streams][-1])
+    elif strips not in DEC_STRIPS[streams]:
+        return None
+    least = 8 * decode_warps(streams * strips)
+    budget = SMEM_PER_BLOCK if per_sm(strips) == 1 else SMEM_PER_SM // 2 - 1024
+    if rows is None:
+        rows = next((r for r in (256, 128) if streams * strips * r * 64 <= DEC_STAGE_BYTES),
+                    least)
+    if rows < least:
+        return None
+    sz_rows = wgmma_sz_rows(rows * (32 // bits), k, groupsize, groups)
+    if sz_rows > 256:
+        return None
+    n_st = -(-(k // (32 // bits)) // rows)
+    for stages in range(min(DEC_MAX_STAGES, n_st), 0, -1):
+        smem = decode_smem_bytes(streams, strips, rows, sz_rows, k, stages)
+        if smem <= budget:
+            return Decode(strips, rows, sz_rows, stages, smem) if stages >= min(2, n_st) else None
+    return None
+
+
 def frag_ok(k: int, n: int, bits: int, groupsize: int) -> bool:
     """The fragment form's shapes: whole 16-byte copies and every K-block
     inside one group."""
@@ -249,7 +348,8 @@ def plan_of(path: str, mt: int, split: int, k: int, bits: int, streams: int = 1)
         per = -(-(-(-k // frag_rows_per_block(bits))) // split)
         return Plan("frag", mt, split, per, frag_smem_bytes(bits, mt // 8))
     if path not in ("tile", "wgmma"):
-        raise ValueError(f"kernel 1's forms are gemv, frag, tile and wgmma, got {path!r}")
+        raise ValueError(f"plan_of takes the forms gemv, frag, tile and wgmma (the decode "
+                         f"form's plan is _decode_plan's), got {path!r}")
     slabs = -(-k // TC_TILE_K)
     per = -(-slabs // split)
     smem = tile_smem_bytes(bits, mt) if path == "tile" else wgmma_smem_bytes(bits, mt)
@@ -345,13 +445,27 @@ def _frag_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int,
     return plan_of("frag", 8 * nt, split, k, bits, streams)
 
 
+def _decode_plan(m: int, k: int, n: int, bits: int, sms: int, streams: int, groupsize: int,
+                 groups: int | None) -> Plan:
+    """The decode form at M = 1 (``decode_geometry``): 16-column strips a
+    block in ``mt``, word rows a stage in ``per_split``, no K split."""
+    geo = (decode_geometry(k, n, bits, sms, streams, groupsize,
+                           -(-k // groupsize) if groups is None else groups)
+           if m <= DEC_MAX_M else None)
+    if geo is None:
+        raise ValueError(f"the decode form does not take M={m}, K={k}, N={n}, {bits}-bit, "
+                         f"groupsize {groupsize}")
+    return Plan("decode", geo.strips, 1, geo.rows, geo.smem)
+
+
 def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
          path: str | None = None, groupsize: int = 128, groups: int | None = None) -> Plan:
     """How one launch of kernel 1 (``streams=1``) or kernel 2 (``streams=2``)
     covers (M, K) @ (K, N).
 
-    The GEMV (``_gemv_plan``) up to ``GEMV_MAX_M`` (kernel 1) or
-    ``FUSED_GEMV_MAX_M`` (kernel 2) rows; the fragment form (``_frag_plan``)
+    The decode form (``_decode_plan``) at M = 1 where ``decode_geometry``
+    takes the shape; else the GEMV (``_gemv_plan``) up to ``GEMV_MAX_M``
+    (kernel 1) or ``FUSED_GEMV_MAX_M`` (kernel 2) rows; the fragment form (``_frag_plan``)
     up to ``FRAG_MAX_M`` where ``groupsize`` puts every K-block in one group
     (``frag_ok``), else the GEMV; above that, for both kernels, the wgmma body
     (``_wgmma_plan``) where ``wgmma_ok`` takes the shape (``groups``: the
@@ -360,7 +474,10 @@ def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
     the GEMV. ``path`` forces one (for measurements, through ``_launch``)."""
     if path is None:
         wide = k % 8 == 0 and n % 8 == 0
-        if m <= (GEMV_MAX_M if streams == 1 else FUSED_GEMV_MAX_M):
+        groups_ = -(-k // groupsize) if groups is None else groups
+        if m <= DEC_MAX_M and decode_geometry(k, n, bits, sms, streams, groupsize, groups_):
+            path = "decode"
+        elif m <= (GEMV_MAX_M if streams == 1 else FUSED_GEMV_MAX_M):
             path = "gemv"
         elif m <= FRAG_MAX_M:
             path = "frag" if frag_ok(k, n, bits, groupsize) else "gemv"
@@ -369,6 +486,8 @@ def plan(m: int, k: int, n: int, bits: int, sms: int = 132, streams: int = 1,
             path = "wgmma"
         else:
             path = "tile" if wide else "gemv"
+    if path == "decode":
+        return _decode_plan(m, k, n, bits, sms, streams, groupsize, groups)
     if path == "wgmma":
         return _wgmma_plan(m, k, n, bits, sms, streams)
     if path == "tile":
@@ -408,15 +527,15 @@ def check_packed(lin: PackedLinear, x2: torch.Tensor) -> None:
         raise ValueError(f"x on {x2.device}, weights on {lin.qweight.device}")
 
 
-_ENTRIES = {"gemv": "gptq_qmm", "frag": "gptq_qmm_frag", "tile": "gptq_qmm_tile",
-            "wgmma": "gptq_qmm_wgmma"}
+_ENTRIES = {"decode": "gptq_qmm_decode", "gemv": "gptq_qmm", "frag": "gptq_qmm_frag",
+            "tile": "gptq_qmm_tile", "wgmma": "gptq_qmm_wgmma"}
 
 
 def _entry(path: str):
     fn = getattr(build.library("qmm"), _ENTRIES[path])
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * (6 if path in ("gemv", "frag") else 7)
+        fn.argtypes = ([p] * (7 if path in ("tile", "wgmma") else 6)
                        + [i] * (11 if path == "wgmma" else 10) + [p])
         fn.restype = ctypes.c_int
     return fn
@@ -449,6 +568,8 @@ def _launch(x2: torch.Tensor, lin: PackedLinear, p: Plan) -> torch.Tensor:
     """One launch of kernel 1 on checked operands under plan ``p`` (a
     measurement may pass a plan with its path forced)."""
     m, k, n, groups = x2.shape[0], lin.in_features, lin.out_features, lin.scales.shape[0]
+    if p.path == "decode":
+        return _launch_decode(x2, lin, p)
     if p.path == "wgmma" and not wgmma_ok(k, n, lin.bits, lin.groupsize, groups):
         raise ValueError(f"qmm: the wgmma body does not take K={k}, N={n}, {lin.bits}-bit, "
                          f"groupsize {lin.groupsize} ({groups} groups)")
@@ -472,5 +593,36 @@ def _launch(x2: torch.Tensor, lin: PackedLinear, p: Plan) -> torch.Tensor:
     return out
 
 
+def decode_launch_geometry(x2: torch.Tensor, lin: PackedLinear, p: Plan,
+                           streams: int = 1) -> Decode:
+    """The decode form's geometry for a launch of plan ``p`` on x2's card:
+    its strips (``p.mt``) and its stage's word rows (``p.per_split``), the
+    ring this shape takes; raises where the form does not take the
+    operands."""
+    m, k, n = x2.shape[0], lin.in_features, lin.out_features
+    geo = (decode_geometry(k, n, lin.bits, _sm_count(x2.device.index or 0), streams,
+                           lin.groupsize, lin.scales.shape[0], p.per_split, p.mt)
+           if m == 1 else None)
+    if geo is None:
+        raise ValueError(f"the decode form does not take M={m}, K={k}, N={n}, {lin.bits}-bit, "
+                         f"groupsize {lin.groupsize} under plan {p}")
+    return geo
+
+
+def _launch_decode(x2: torch.Tensor, lin: PackedLinear, p: Plan) -> torch.Tensor:
+    geo = decode_launch_geometry(x2, lin, p)
+    k, n, groups = lin.in_features, lin.out_features, lin.scales.shape[0]
+    out = torch.empty((1, n), dtype=torch.bfloat16, device=x2.device)
+    err = _entry("decode")(
+        x2.data_ptr(), lin.qweight.data_ptr(), lin.scales.data_ptr(), lin.zeros.data_ptr(),
+        None if lin.bias is None else lin.bias.data_ptr(), out.data_ptr(), k, n, groups,
+        lin.groupsize, lin.bits, geo.strips, geo.rows, geo.sz_rows, geo.stages, geo.smem,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    build.check(build.library("qmm"), err, "qmm (decode)")
+    qmm_cuda.launches += 1
+    qmm_cuda.forms["decode"] += 1
+    return out
+
+
 qmm_cuda.launches = 0
-qmm_cuda.forms = {"gemv": 0, "frag": 0, "tile": 0, "wgmma": 0}   # launches by form
+qmm_cuda.forms = {"decode": 0, "gemv": 0, "frag": 0, "tile": 0, "wgmma": 0}   # launches by form

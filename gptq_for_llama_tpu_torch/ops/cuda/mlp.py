@@ -4,9 +4,12 @@ and plain version.
 Replaces ``gptq_for_llama_tpu/ops/pallas/mlp.py:_fused_kernel``: computes
 ``silu(x @ dequant(Wg)) * (x @ dequant(Wu))`` with x read once and both sums
 kept in fp32 until the epilogue. The kernel is ``csrc/fused_mlp.cu`` with
-four forms that ``matmul.plan(..., streams=2)`` picks from M and the group
-size (``fused_mlp_cuda.forms`` counts their launches): the one-launch GEMV
-of ``csrc/qmm_gemv.cuh`` for the batch-1 decode row (``"gemv"``); up to 16
+five forms that ``matmul.plan(..., streams=2)`` picks from M and the group
+size (``fused_mlp_cuda.forms`` counts their launches): the batch-1 decode
+form of ``csrc/qmm_decode.cuh`` (NW = 2, ``"decode"``: a TMA ring of both
+packed weights, each block the same columns of gate and up) for the
+decode row, the one-launch GEMV of ``csrc/qmm_gemv.cuh`` for that row where
+the group size does not suit it (``"gemv"``); up to 16
 rows the weight dequantized straight into ``mma.sync`` fragments
 (``csrc/qmm_frag.cuh``, ``"frag"``); above that the Hopper body of kernels 1
 and 8 (``csrc/qmm_wgmma.cuh``, NW = 2, ``"wgmma"``: gate and up on its two
@@ -27,7 +30,8 @@ import torch.nn.functional as F
 
 from . import autotune, build
 from .grad import refuse_grad
-from .matmul import WG_DEPTH, Plan, _sm_count, check_packed, plan, wgmma_ok, wgmma_sz_rows
+from .matmul import (WG_DEPTH, Plan, _sm_count, check_packed, decode_launch_geometry, plan,
+                     wgmma_ok, wgmma_sz_rows)
 from ..linear import PackedLinear, quant_matmul_plain
 
 SOURCE = "gptq_for_llama_tpu_torch/csrc/fused_mlp.cu"
@@ -58,8 +62,9 @@ def fused_mlp_plain(x: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> to
     return F.silu(g) * u
 
 
-_ENTRIES = {"gemv": "gptq_fused_mlp", "frag": "gptq_fused_mlp_frag",
-            "tile": "gptq_fused_mlp_tile", "wgmma": "gptq_fused_mlp_wgmma"}
+_ENTRIES = {"decode": "gptq_fused_mlp_decode", "gemv": "gptq_fused_mlp",
+            "frag": "gptq_fused_mlp_frag", "tile": "gptq_fused_mlp_tile",
+            "wgmma": "gptq_fused_mlp_wgmma"}
 
 
 def _entry(path: str):
@@ -100,6 +105,19 @@ def _launch(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear, p: Plan) -> 
     """One launch of kernel 2 on checked operands under plan ``p`` (a
     measurement may pass a plan with its path forced)."""
     m, k, n, groups = x2.shape[0], gate.in_features, gate.out_features, gate.scales.shape[0]
+    if p.path == "decode":
+        geo = decode_launch_geometry(x2, gate, p, streams=2)
+        out = torch.empty((1, n), dtype=torch.bfloat16, device=x2.device)
+        err = _entry("decode")(
+            x2.data_ptr(), gate.qweight.data_ptr(), gate.scales.data_ptr(),
+            gate.zeros.data_ptr(), up.qweight.data_ptr(), up.scales.data_ptr(),
+            up.zeros.data_ptr(), out.data_ptr(), k, n, groups, gate.groupsize, gate.bits,
+            geo.strips, geo.rows, geo.sz_rows, geo.stages, geo.smem,
+            torch.cuda.current_stream(x2.device).cuda_stream)
+        build.check(build.library("fused_mlp"), err, "fused_mlp (decode)")
+        fused_mlp_cuda.launches += 1
+        fused_mlp_cuda.forms["decode"] += 1
+        return out
     if p.path == "wgmma" and not wgmma_ok(k, n, gate.bits, gate.groupsize, groups):
         raise ValueError(f"fused_mlp: the wgmma body does not take K={k}, N={n}, "
                          f"{gate.bits}-bit, groupsize {gate.groupsize} ({groups} groups)")
@@ -124,7 +142,8 @@ def _launch(x2: torch.Tensor, gate: PackedLinear, up: PackedLinear, p: Plan) -> 
 
 
 fused_mlp_cuda.launches = 0
-fused_mlp_cuda.forms = {"gemv": 0, "frag": 0, "tile": 0, "wgmma": 0}   # launches by form
+fused_mlp_cuda.forms = {"decode": 0, "gemv": 0, "frag": 0, "tile": 0,
+                        "wgmma": 0}   # launches by form
 
 
 def fused_mlp(x: torch.Tensor, gate: PackedLinear, up: PackedLinear) -> torch.Tensor:

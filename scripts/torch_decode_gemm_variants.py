@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Times the decode-width forms of kernels 1 and 2 of the PyTorch/CUDA port
-(csrc/qmm_gemv.cuh, csrc/qmm_frag.cuh) under design variants, on one GPU.
+(csrc/qmm_decode.cuh, csrc/qmm_gemv.cuh, csrc/qmm_frag.cuh) under design
+variants, on one GPU.
 
     python3 scripts/torch_decode_gemm_variants.py [--variants base,frag_s4,...]
 
 Each variant is the package's CUDA sources with one constant edited (ring
-depth, warps per block), built with the package's nvcc flags into a
+depth, warps per block) or one part of the kernel cut out (the attribution
+variants ``*_loads``, ``*_no_sums``, ``*_empty``: timed, not held), built with the package's nvcc flags into a
 temporary directory and timed in a process of its own, as chip_smoke.py
 times kernels: CUDA events around a CUDA graph of 60 launches cycling
 through weight copies larger than the L2. Every variant times kernel 1 at
 4096 x 4096 and 11008 x 4096 (M = 1 and 8) and kernel 2 at 4096 x 11008
-(M = 1 and 8) under each K split (cluster sizes 1 to 16) its forms take,
-after holding one launch of each to the plain version (2e-2 * max|y|).
+(M = 1 and 8) under each K split (cluster sizes 1 to 16) the GEMV and the
+fragments take, and at M = 1 the decode form, after holding one launch of
+each to the plain version (2e-2 * max|y|).
 Prints one line per variant and shape, then the card's name and power limit.
 Needs a CUDA device and nvcc; exits non-zero without them.
 """
@@ -44,6 +47,106 @@ VARIANTS = {
     "gemv_s16": ([("qmm_gemv.cuh", "kStages = NW == 1 ? 8 : 4", "kStages = NW == 1 ? 16 : 8")],
                  {"GEMV_STAGES": {1: 16, 2: 8}}),
 }
+# Attribution of a launch's time (timing only: their outputs are wrong, so
+# they are not held). ``*_loads``: the copies of every ring stage and
+# nothing else (no dequantization, product or sum); ``*_no_sums``: the
+# copies, the dequantization and the products, with the warps' and the
+# cluster's sums and the epilogue left out (the sums are kept alive by a
+# store no launch takes); ``*_empty``: a launch of the same grid, cluster
+# and shared memory that returns at once.
+_FRAG_KEEP = """  cp_async_wait_all();
+  {
+    float t = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        t += acc[j][nt][0] + acc[j][nt][1] + acc[j][nt][2] + acc[j][nt][3];
+    if (t == 1.2345f) out[0] = __float2bfloat16_rn(t);
+  }
+  return;"""
+_GEMV_KEEP = """  cp_async_wait_all();
+  {
+    float t = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) t += acc[w][m][c];
+    if (t == 1.2345f) out[0] = __float2bfloat16_rn(t);
+  }
+  return;"""
+_SMEM = "  extern __shared__ __align__(16) unsigned char smem[];"
+_WAIT = "  cp_async_wait_all();"
+VARIANTS.update({
+    "frag_loads": ([("qmm_frag.cuh", "for (int s = 0; s < kSteps; ++s) {",
+                     "for (int s = 0; s < 0; ++s) {"),
+                    ("qmm_frag.cuh", _WAIT, _WAIT + "\n  return;")], {}),
+    "frag_no_sums": ([("qmm_frag.cuh", _WAIT, _FRAG_KEEP)], {}),
+    "frag_empty": ([("qmm_frag.cuh", _SMEM, _SMEM + "\n  if (K > 0) return;")], {}),
+    "gemv_loads": ([("qmm_gemv.cuh", "    word(wa + i, q, st);", ""),
+                    ("qmm_gemv.cuh", _WAIT, _WAIT + "\n  return;")], {}),
+    "gemv_no_sums": ([("qmm_gemv.cuh", _WAIT, _GEMV_KEEP)], {}),
+    "gemv_empty": ([("qmm_gemv.cuh", _SMEM, _SMEM + "\n  if (K > 0) return;")], {}),
+})
+# the decode form's own attribution (timing only): its TMA ring alone (the
+# consumers wait for each stage and release it), everything but the sum and
+# the epilogue, an empty launch; and the tensor maps' L2 promotion
+_DEC_KEEP = """  {
+    float t = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kStrips; ++j)
+#pragma unroll
+      for (int c = 0; c < kChains; ++c) t += acc[j][c][0] + acc[j][c][1] + acc[j][c][2];
+    if (t == 1.2345f) out[0] = __float2bfloat16_rn(t);
+  }
+  return;
+  named_barrier(1, 32 * kWarps);"""
+VARIANTS.update({
+    "dec_loads": ([("qmm_decode.cuh", "  auto compute = [&](const Octet& q) {",
+                    "  auto compute = [&](const Octet& q) {\n    return;")], {}),
+    "dec_no_sums": ([("qmm_decode.cuh", "  named_barrier(1, 32 * kWarps);", _DEC_KEEP)], {}),
+    "dec_empty": ([("qmm_decode.cuh", "  extern __shared__ unsigned char smem_raw[];",
+                    "  extern __shared__ unsigned char smem_raw[];\n  if (K > 0) return;")], {}),
+    "dec_promo_none": ([("qmm_wgmma.cuh", "CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
+                         "CU_TENSOR_MAP_L2_PROMOTION_NONE")], {}),
+    "dec_promo_256": ([("qmm_wgmma.cuh", "CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
+                        "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")], {}),
+})
+# the decode form's consumer work, one part cut out at a time (timing only):
+# the dequantization (the raw words into the products), the products (the
+# fragments folded into the sums by cheap integer operations), the scale
+# and zero reads (constants instead)
+_DEQ = """          const uint32_t a[4] = {gptq_frag::dequant_pair<BITS>(q.qa[b][j], 2 * s, q.aa[j]),
+                                 gptq_frag::dequant_pair<BITS>(q.qb[b][j], 2 * s, q.ab[j]),
+                                 gptq_frag::dequant_pair<BITS>(q.qa[b][j], 2 * s + 1, q.aa[j]),
+                                 gptq_frag::dequant_pair<BITS>(q.qb[b][j], 2 * s + 1, q.ab[j])};"""
+_MMA = "          mma16816(acc[j][b % kChains], a, b0, b1);"
+_AFF = ("      q.aa[j] = gptq_frag::affine<BITS>(sr[0], zr[0]);\n"
+        "      q.ab[j] = gptq_frag::affine<BITS>(sr[8], zr[8]);")
+VARIANTS.update({
+    "dec_no_dequant_t": ([("qmm_decode.cuh", _DEQ, "          const uint32_t a[4] = "
+                           "{q.qa[b][j] + s, q.qb[b][j] + s, q.qa[b][j] ^ s, q.qb[b][j] ^ s};")],
+                         {}),
+    "dec_no_mma_t": ([("qmm_decode.cuh", _MMA, "          acc[j][0][0] += "
+                       "__uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1) & 0x3f800000u);")],
+                     {}),
+    "dec_no_scales_t": ([("qmm_decode.cuh", _AFF,
+                          "      q.aa[j] = gptq_frag::affine<BITS>(__float2bfloat16(0.01f), "
+                          "__float2bfloat16(8.0f));\n      q.ab[j] = q.aa[j];")], {}),
+})
+# two items of a stage (256 word rows a stage at 16 warps) unrolled together,
+# so that the second's reads can go out beside the first's products
+VARIANTS["dec_unroll2"] = ([("qmm_decode.cuh", "  for (int n = 0; n < n_items; ++n) {",
+                             "#pragma unroll 2\n  for (int n = 0; n < n_items; ++n) {")],
+                           {"DEC_STAGE_BYTES": 32768})
+# the decode form's stage: the word bytes a stage aims at (the plan's rows
+# follow from it)
+VARIANTS.update({"dec_stage8k": ([], {"DEC_STAGE_BYTES": 8192}),
+                 "dec_stage32k": ([], {"DEC_STAGE_BYTES": 32768})})
+TIMING_ONLY = {name for name in VARIANTS
+               if name.endswith(("_loads", "_no_sums", "_empty", "_t"))}
 
 
 def build_variant(name: str, out: str) -> list:
@@ -54,8 +157,8 @@ def build_variant(name: str, out: str) -> list:
     for fn, old, new in VARIANTS[name][0]:
         path = os.path.join(src, fn)
         text = open(path).read()
-        if old not in text:
-            raise RuntimeError(f"variant {name}: {fn} no longer holds {old!r}")
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: {fn} does not hold {old!r} once")
         with open(path, "w") as f:
             f.write(text.replace(old, new))
     return [subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o",
@@ -78,6 +181,7 @@ def time_variant(name: str, out: str) -> None:
             getattr(matmul, key).update(value)
         else:
             setattr(matmul, key, value)
+    matmul.decode_geometry.cache_clear()
     for lib in ("qmm", "fused_mlp"):
         build._libs[lib] = ctypes.CDLL(os.path.join(out, f"lib{lib}.so"))
     sms = matmul._sm_count(0)
@@ -89,6 +193,8 @@ def time_variant(name: str, out: str) -> None:
                                        dtype=torch.bfloat16, device="cuda") for _ in range(count)]
 
     def held(got, want, what):
+        if name in TIMING_ONLY:
+            return
         err = (got.float() - want.float()).abs().max().item()
         if not err <= 2e-2 * want.float().abs().max().item():
             raise AssertionError(f"{name} {what}: {err} off the plain version")
@@ -111,6 +217,11 @@ def time_variant(name: str, out: str) -> None:
                     held(matmul._launch(x, lins[0], p), want, f"qmm {path} M={m}")
                     t = graph_ms(torch, [lambda l=l, p=p: matmul._launch(x, l, p) for l in lins])
                     row.append(f"{path} split {p.split} {t * 1e3:.2f}")
+            if m == 1:
+                p = matmul.plan(1, k, n, 4, sms, path="decode")
+                held(matmul._launch(x, lins[0], p), want, "qmm decode M=1")
+                t = graph_ms(torch, [lambda l=l: matmul._launch(x, l, p) for l in lins])
+                row.append(f"decode (rows {p.per_split}) {t * 1e3:.2f}")
             print(f"[{name}] kernel 1 {k}x{n} M={m} (us): " + ", ".join(row), flush=True)
         del lins
     k, n = 4096, 11008
@@ -126,6 +237,11 @@ def time_variant(name: str, out: str) -> None:
                 t = graph_ms(torch, [lambda g=g, u=u, p=p: mlp._launch(x, g, u, p)
                                      for g, u in pairs])
                 row.append(f"{path} split {p.split} {t * 1e3:.2f}")
+        if m == 1:
+            p = matmul.plan(1, k, n, 4, sms, streams=2, path="decode")
+            held(mlp._launch(x, *pairs[0], p), want, "fused_mlp decode M=1")
+            t = graph_ms(torch, [lambda g=g, u=u: mlp._launch(x, g, u, p) for g, u in pairs])
+            row.append(f"decode (rows {p.per_split}) {t * 1e3:.2f}")
         print(f"[{name}] kernel 2 {k}x{n} M={m} (us): " + ", ".join(row), flush=True)
 
 

@@ -4,7 +4,7 @@ trees in one call (run it once per tree, in turns: parent, change, change,
 parent).
 
     python3 scripts/torch_e2e_ab.py [--root TREE] [--label NAME] [--json PATH]
-                                    [--legs 7b,serve,eval,lora,neox,d256]
+                                    [--legs 7b,decode,serve,eval,lora,neox,d256]
 
 ``--root`` names the checkout whose package is driven (default: this
 script's own); the script uses only what every tree since tensor
@@ -15,6 +15,13 @@ card's name and power limit:
 - LLaMA-7B (INT4 g128 ``gaussian_wire_llama``, seed 0, 32 layers, cache
   2048): the prefill of 37, 100 and 201 tokens through its CUDA graph, host
   ms of a synchronized call and device ms (CUDA events), median of 5;
+- batch-1 decode (``decode``): the LLaMA-7B decode graph's device ms at
+  offsets 164 and 2047 (a graph replay after the offset is set, CUDA
+  events, best of three means of 8), the host ms a token of 64 greedy
+  tokens through ``decode_greedy_scan``'s graphs after a 100-token prompt
+  (median of 3, after a run that captures), and GPT-NeoX-20B's decode graph
+  at offset 164 the same way (``chip_smoke.ARCH_CONFIGS``, INT4 g128
+  ``gaussian_wire_neox``);
 - dense serving with chunked prefill (chunk 128, span 8) on 8 slots, the
   smoke's 12 requests (prompts 37-600, 48 new tokens): tok/s and ttft p50 of
   the second run (every graph captured by the first);
@@ -49,7 +56,7 @@ import time
 
 import numpy as np
 
-LEGS = ("7b", "serve", "eval", "lora", "neox", "d256")
+LEGS = ("7b", "decode", "serve", "eval", "lora", "neox", "d256")
 # LLaMA-7B's widths at head dim 256 (chip_smoke.py's LLAMA_256, repeated here
 # because an earlier tree's smoke may not have it)
 LLAMA_256 = dict(arch="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
@@ -85,7 +92,7 @@ def main() -> int:
     from gptq_for_llama_tpu_torch.runtime import GenRequest, ModelRunner, ServingEngine
     from gptq_for_llama_tpu_torch.runtime.random_model import GAUSSIAN_WIRE, gaussian_wire_llama
     sys.path.insert(0, root)
-    from chip_smoke import ARCH_CONFIGS, LLAMA_7B
+    from chip_smoke import ARCH_CONFIGS, LLAMA_7B, replay_ms
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
     tag = f"[e2e {args.label or root}]"
@@ -119,8 +126,33 @@ def main() -> int:
                       "device_ms": statistics.median(dev[1:])}
         return out
 
+    def decode_ms(runner, offsets, scan=True):
+        """The decode graph's device ms at each offset; with ``scan``, the
+        host ms a token of decode_greedy_scan's graphs too."""
+        out = {}
+        if scan:
+            ids = torch.as_tensor(np.random.RandomState(0).randint(1, runner.cfg.vocab_size,
+                                                                   size=(1, 100)), device="cuda")
+            host = []
+            for _ in range(4):   # the first captures the scan's graphs
+                cache = runner.init_cache()
+                logits, cache = runner.prefill(ids, cache)
+                tok = logits[:, -1:].float().argmax(-1)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                runner.decode_greedy_scan(tok, cache, 64)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t) / 64 * 1e3)
+            out["scan_host_ms_per_token"] = statistics.median(host[1:])
+        offs = runner._store.offs
+        for o in offsets:
+            out[f"graph_device_ms_at_{o}"] = replay_ms(
+                torch, runner.graphs, ("decode", 256 if o < 256 else 2048),
+                lambda o=o: offs.fill_(o))
+        return out
+
     cfg = ModelConfig(**LLAMA_7B)
-    if legs & {"7b", "serve", "eval", "lora"}:
+    if legs & {"7b", "decode", "serve", "eval", "lora"}:
         params = gaussian_wire_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
 
     # -- LLaMA-7B prefill ----------------------------------------------------
@@ -134,6 +166,26 @@ def main() -> int:
             + f" | {card}")
         del runner
         torch.cuda.empty_cache()
+
+    # -- batch-1 decode: the decode graphs, the scan's host loop ---------------
+    if "decode" in legs:
+        runner = ModelRunner("llama", cfg, params, dtype=torch.bfloat16, device="cuda")
+        runner.warmup(prefill_buckets=(100,))
+        report["decode_7b"] = decode_ms(runner, (164, 2047))
+        del runner
+        torch.cuda.empty_cache()
+        ncfg = ModelConfig(**ARCH_CONFIGS["neox"])
+        nparams = GAUSSIAN_WIRE["neox"](ncfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        runner = ModelRunner("neox", ncfg, nparams, dtype=torch.bfloat16, device="cuda")
+        runner.warmup(prefill_buckets=(100,))
+        report["decode_neox20b"] = decode_ms(runner, (164,), scan=False)
+        del runner, nparams
+        torch.cuda.empty_cache()
+        d7, dn = report["decode_7b"], report["decode_neox20b"]
+        log(f"{tag} decode, batch 1: LLaMA-7B decode graph {d7['graph_device_ms_at_164']:.4f} / "
+            f"{d7['graph_device_ms_at_2047']:.4f} ms device at offset 164 / 2047, scan graphs "
+            f"{d7['scan_host_ms_per_token']:.4f} ms/token host; NeoX-20B decode graph "
+            f"{dn['graph_device_ms_at_164']:.4f} ms device at offset 164 | {card}")
 
     # -- dense serving, chunk 128 ----------------------------------------------
     if "serve" in legs:

@@ -81,10 +81,11 @@ def test_candidates_are_valid_for_every_m_of_their_bucket(kind, k, n, m):
     """The heuristic's pick at the bucket's top comes first; every
     candidate is the plan its free choices build, covers K (N for kernel 8)
     with no empty split, fits an SM's shared memory, and is valid for every M
-    of the pow2 bucket: the fragment form holds at most 8 rows per n8 tile
-    and needs ``frag_ok``, cluster splits are powers of two up to the
-    kernels' limit; kernels 1, 2 and 8 race both tensor-core bodies (the
-    mma.sync tiles and the wgmma body, which takes any M)."""
+    of the pow2 bucket: the batch-1 decode form is raced at the M = 1 bucket
+    only, the fragment form holds at most 8 rows per n8 tile and needs
+    ``frag_ok``, cluster splits are powers of two up to the kernels' limit;
+    kernels 1, 2 and 8 race both tensor-core bodies (the mma.sync tiles and
+    the wgmma body, which takes any M)."""
     mb = at.m_bucket(m)
     cands = at.candidates(kind, k, n, 4, 128, m, SMS)
     assert cands[0] == _heuristic(kind, k, n, mb)
@@ -92,10 +93,17 @@ def test_candidates_are_valid_for_every_m_of_their_bucket(kind, k, n, m):
     if kind in ("fwd", "mlp"):
         assert {p.path for p in cands} >= ({"gemv", "frag", "tile", "wgmma"} if mb <= 16 else
                                            {"gemv", "tile", "wgmma"})
+        assert ("decode" in {p.path for p in cands}) == (mb == 1)
     else:
         assert {p.path for p in cands} == {"tile", "wgmma"}
     for p in cands:
         assert p.smem <= matmul.SMEM_PER_SM - 1024
+        if p.path == "decode":   # no free choice, no K split: stages of word rows
+            streams = 2 if kind == "mlp" else 1
+            assert p == matmul._decode_plan(1, k, n, 4, SMS, streams, 128, None)
+            assert (p.split, mb) == (1, 1) and p.per_split in (64, 128, 256)
+            assert p.mt in matmul.DEC_STRIPS[streams]
+            continue
         if kind == "bwd":
             assert p == matmul_t.plan_of(p.mt, p.split, n, 4, p.path)
             units = -(-n // matmul_t.SLICE_N)
@@ -334,16 +342,16 @@ def test_an_override_naming_the_wgmma_body_is_parsed_and_checked(tune, monkeypat
 
 def test_a_version_1_cache_raises(tune):
     """A cache of an earlier version (1, before the wgmma body; 2, before
-    kernel 2's: their races never saw it) raises with its message instead
-    of pinning an old tile plan."""
-    assert at.VERSION == 3
+    kernel 2's; 3, before the batch-1 decode form: their races never saw
+    it) raises with its message instead of pinning an old plan."""
+    assert at.VERSION == 4
     key = f"fwd:K4096:N4096:b4:g128:M1024:{CARD}"
-    for old in (1, 2):
+    for old in (1, 2, 3):
         with open(tune, "w") as f:
             json.dump({"version": old, "entries": {key: {"path": "tile", "mt": 128,
                                                          "split": 1}}}, f)
         at.configure()
-        with pytest.raises(ValueError, match=f"version {old}, this package writes 3"):
+        with pytest.raises(ValueError, match=f"version {old}, this package writes 4"):
             at.lookup("fwd", 4096, 4096, 4, 128, 1024, SMS, "cuda")
 
 

@@ -423,6 +423,66 @@ def test_decode_forms_replay_bit_equal_in_a_graph(card, streams, path):
             assert torch.equal(y, run()), f"M={m} split {p.split}, new x"
 
 
+# (bits, K, N, groupsize, act-order, bias) of the batch-1 decode form
+# (csrc/qmm_decode.cuh): the other decode-width forms' cases whose group
+# size it takes (not 40, nor the 116 the wire derives at K = 576); N past
+# the last 16-column strip (264), a ragged last group (K = 1032 in groups
+# of 32), K past the last stage (K = 1144: 143 word rows), LLaMA-7B's 4096 x
+# 4096 and down_proj, a TP shard of 2048 columns, wire INT3
+DECODE_FORM_CASES = [c for c in DECODE_CASES_K1 if c[3] != 40 and c[1] != 576] + [
+    (4, 1032, 512, 32, True, True), (4, 11008, 4096, 128, False, True),
+    (4, 4096, 2048, 128, False, False), (3, 1024, 512, 128, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,k,n,gs,actorder,bias", DECODE_FORM_CASES)
+def test_decode_form_matches_plain_twice_and_in_a_graph(card, bits, k, n, gs, actorder, bias):
+    """The batch-1 decode form of kernels 1 and 2 (a TMA ring of the packed
+    words, one block per column tile), through the dispatch at M = 1 and
+    forced: within 2e-2 * max|y| of the plain version (kernel 2 also 1e-2 of
+    the row's norm), finite, two launches bit-equal and a CUDA-graph replay
+    bit-equal to the eager launch, replayed after x changed in place; the
+    dispatch counts one decode launch of each kernel."""
+    from gptq_for_llama_tpu_torch.ops.cuda import matmul, mlp
+    lin = _linear(k, n, bits, gs, seed=k + n, device=card, actorder=actorder, bias=bias)
+    gate, up = _gate_up(card, k, n, bits, gs, actorder)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    x = torch.randn(1, k, device=card).bfloat16()
+    kernels.reset_launch_counts()
+    assert _close(quant_matmul(x, lin), quant_matmul_plain(x, lin), 2e-2)
+    assert _row_rel(fused_mlp(x, gate, up), fused_mlp_plain(x, gate, up)) <= 1e-2
+    counts = kernels.launch_counts()
+    assert counts["qmm:decode"] == 1 and counts["fused_mlp:decode"] == 1
+    for streams, w in ((1, lin), (2, gate)):
+        xp = x if w.perm is None else x.index_select(-1, w.perm).contiguous()
+        p = matmul.plan(1, k, n, w.bits, sms, streams=streams, path="decode",
+                        groupsize=w.groupsize, groups=w.scales.shape[0])
+        run = ((lambda: matmul._launch(xp, lin, p)) if streams == 1 else
+               (lambda: mlp._launch(xp, gate, up, p)))
+        want = (quant_matmul_plain(x, lin) if streams == 1 else fused_mlp_plain(x, gate, up))
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        what = f"kernel {streams} rows a stage {p.per_split}"
+        assert torch.isfinite(got.float()).all() and _close(got, want, 2e-2), what
+        assert streams == 1 or _row_rel(got, want) <= 1e-2, what
+        assert torch.equal(got, again), what
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            y = run()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, got), what
+        xp.copy_(torch.randn_like(xp))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, run()), what
+
+
 # offsets on the edges of kernels 3 and 9's 32-slot tiles and of their 64- and
 # 128-slot chunks, and the last slot of a 2048-slot cache
 EDGES = (0, 63, 64, 127, 128, 255, 256, 2047)

@@ -1,9 +1,13 @@
 """A CPU model of the decode-width forms of kernels 1 and 2 held against the
 TPU package's kernels and the port's plain versions.
 
-The model repeats the arithmetic of ``csrc/qmm_gemv.cuh`` and
-``csrc/qmm_frag.cuh`` in fp32 numpy under the plan the wrapper launches
-(``ops/cuda/matmul.plan``): the GEMV keeps the codes exact in fp32 and sums
+The model repeats the arithmetic of ``csrc/qmm_decode.cuh``,
+``csrc/qmm_gemv.cuh`` and ``csrc/qmm_frag.cuh`` in fp32 numpy under the plan
+the wrapper launches (``ops/cuda/matmul.plan``): the batch-1 decode form
+rounds each weight to bf16 as the plain version does, each of its 8 or 16
+consumer warps sums its slice of every stage's word rows in fp32, stage by
+stage, and the warps add in warp order (no K split); the GEMV keeps the
+codes exact in fp32 and sums
 x . codes per group segment of each warp's run of packed words, then applies
 s_g * (x_g . c_g - z_g * sum(x_g)) (dot-then-scale; a word that a group
 boundary cuts is summed row by row); the fragment form rounds each weight to
@@ -141,16 +145,50 @@ def _frag_partials(x, codes, s, z, bits, gs, plan):
     return ranks
 
 
-def _model(x, lins, plan, bias=None):
+def _decode_partials(x, codes, s, z, bits, gs, plan, warps):
+    """Kernel 1/2's batch-1 decode form, one stream: the weight rounded to
+    bf16, warp w of ``warps`` summing rows [w * R / warps, (w + 1) * R /
+    warps) of every stage of R = ``plan.per_split`` packed word rows in
+    stage order, in fp32; the warps in order; one (M, N) sum (no K split)."""
+    assert x.shape[0] <= matmul.DEC_MAX_M and plan.split == 1
+    k = codes.shape[0]
+    kr = 32 // bits
+    kw = k // kr
+    gid = np.minimum(np.arange(k) // gs, s.shape[0] - 1)
+    w = _bf16((codes - z[gid]) * s[gid])
+    rows = plan.per_split
+    part = rows // warps
+    assert part % 8 == 0   # whole octets a warp
+    block = np.zeros((x.shape[0], codes.shape[1]), F32)
+    for warp in range(warps):
+        acc = np.zeros_like(block)
+        for r0 in range(0, kw, rows):
+            a, b = r0 + warp * part, min(kw, r0 + (warp + 1) * part)
+            if a < b:
+                acc += x[:, a * kr:b * kr] @ w[a * kr:b * kr]
+        block += acc
+    return [block]
+
+
+def _model(x, lins, plan, bias=None, warps=None):
     """The kernel's output for plan ``plan`` (its form, rows and K split):
     each stream's rank sums added in rank order, then the epilogue, one
-    rounding to bf16."""
-    partials = _gemv_partials if plan.path == "gemv" else _frag_partials
+    rounding to bf16. The decode form's consumer warps are its geometry's
+    on the H100 unless ``warps`` gives them."""
+    if plan.path == "decode" and warps is None:
+        lin = lins[0]
+        geo = matmul.decode_geometry(lin.in_features, lin.out_features, lin.bits, SMS,
+                                     len(lins), lin.groupsize, lin.scales.shape[0],
+                                     plan.per_split, plan.mt)
+        warps = matmul.decode_warps(len(lins) * geo.strips)
     sums = []
     for lin in lins:
         codes, s, z = _device_arrays(lin)
         total = np.zeros((x.shape[0], lin.out_features), F32)
-        for part in partials(x, codes, s, z, lin.bits, lin.groupsize, plan):
+        args = (x, codes, s, z, lin.bits, lin.groupsize, plan)
+        parts = (_decode_partials(*args, warps) if plan.path == "decode" else
+                 _gemv_partials(*args) if plan.path == "gemv" else _frag_partials(*args))
+        for part in parts:
             total += part
         sums.append(total)
     if len(sums) == 2:
@@ -189,8 +227,9 @@ KERNEL_1_CASES = [(4, 512, 128, 128, False, False), (2, 512, 256, 64, False, Tru
 @pytest.mark.parametrize("bits,k,n,gs,actorder,bias", KERNEL_1_CASES)
 @pytest.mark.parametrize("m", [1, 2, 8, 16])
 def test_kernel_1_model_matches_pallas_and_plain(bits, k, n, gs, actorder, bias, m):
-    """Kernel 1 under the plan the wrapper launches at M = 1 (the GEMV), 2, 8
-    and 16 (the fragment form where the group size suits it, else the GEMV),
+    """Kernel 1 under the plan the wrapper launches at M = 1 (the decode form
+    where the group size suits it), 2, 8 and 16 (the fragment form where the
+    group size suits it; else, and at M = 1, the GEMV),
     held against the Pallas kernel (interpret mode, where it takes the
     shape), JAX's XLA reference and the port's plain version."""
     rng = np.random.RandomState(100 * bits + m)
@@ -200,7 +239,8 @@ def test_kernel_1_model_matches_pallas_and_plain(bits, k, n, gs, actorder, bias,
     x = _bf16(rng.standard_normal((m, k)))
     p = matmul.plan(m, k, n, bits, SMS, groupsize=lin.groupsize)
     frag = matmul.frag_ok(k, n, bits, lin.groupsize)
-    assert p.path == ("gemv" if m <= matmul.GEMV_MAX_M or not frag else "frag")
+    assert p.path == ("gemv" if not frag else "decode" if m <= matmul.DEC_MAX_M else
+                      "gemv" if m <= matmul.GEMV_MAX_M else "frag")
     xp = x if lin.perm is None else x[:, lin.perm.numpy()]
     got = _model(xp, [lin], p, None if b is None else _bf16(lin.bias.float().numpy()))
     _close(got, quant_matmul_plain(torch.as_tensor(x).bfloat16(), lin).float().numpy())
@@ -237,15 +277,47 @@ KERNEL_2_CASES = [(4, 512, 128, 128, False), (2, 512, 128, 64, False), (8, 256, 
 @pytest.mark.parametrize("m", [1, 2, 8, 16])
 def test_kernel_2_model_matches_pallas_and_plain(bits, k, n, gs, actorder, m):
     """Kernel 2 (the SiLU-mul epilogue over two streams) under the plan the
-    wrapper launches: the GEMV at M = 1, the fragment form up to 16 rows
-    where the group size suits it, else the GEMV."""
+    wrapper launches: the decode form at M = 1 and the fragment form up to 16
+    rows where the group size suits them, else the GEMV."""
     rng = np.random.RandomState(200 * bits + m)
     gate, jgate = _loaded(_wire(k, n, bits, gs, seed=k, actorder=actorder, perm_seed=5), bits)
     up, jup = _loaded(_wire(k, n, bits, gs, seed=k + 1, actorder=actorder, perm_seed=5), bits)
     x = _bf16(rng.standard_normal((m, k)))
     p = matmul.plan(m, k, n, bits, SMS, streams=2, groupsize=gate.groupsize)
+    frag = matmul.frag_ok(k, n, bits, gate.groupsize)
+    assert p.path == ("gemv" if not frag or (m > 1 and m <= matmul.FUSED_GEMV_MAX_M) else
+                      "decode" if m <= matmul.DEC_MAX_M else "frag")
     xp = x if gate.perm is None else x[:, gate.perm.numpy()]
     got = _model(xp, [gate, up], p)
     _close(got, fused_mlp_plain(torch.as_tensor(x).bfloat16(), gate, up).float().numpy())
     if jmm.supports(jgate):
         _close(got, jmlp.fused_mlp_pallas(jnp.asarray(x), jgate, jup, interpret=True))
+
+
+@pytest.mark.parametrize("rows,warps", [(64, 8), (128, 8), (128, 16), (256, 16)])
+@pytest.mark.parametrize("streams", [1, 2])
+def test_decode_model_is_the_same_at_every_stage_depth(rows, warps, streams):
+    """The decode form's stage depth (packed word rows a stage) and its
+    consumer warps (8 or 16, so each warp's slice of a stage) only regroup
+    the fp32 sums: under 64, 128 and 256 rows a stage the model stays within
+    the tolerance of the plain version
+    and of JAX's XLA reference (4 bits, groupsize 32, act-order, K = 4104 =
+    513 word rows: a ragged last stage and a last group of 8 rows; a bias
+    for kernel 1, the SiLU-mul for kernel 2)."""
+    rng = np.random.RandomState(rows + streams)
+    k, n = 4104, 128
+    lins = [_loaded(_wire(k, n, 4, 32, seed=s, actorder=True, perm_seed=3), 4,
+                    rng.randn(n).astype(np.float16) if streams == 1 else None)
+            for s in range(streams)]
+    x = _bf16(rng.standard_normal((1, k)))
+    p = matmul.Plan("decode", 1, 1, rows, 0)   # warps given: the strips are not read
+    port = [lin for lin, _ in lins]
+    xp = x[:, port[0].perm.numpy()]
+    xt = torch.as_tensor(x).bfloat16()
+    if streams == 1:
+        got = _model(xp, port, p, _bf16(port[0].bias.float().numpy()), warps)
+        _close(got, quant_matmul_plain(xt, port[0]).float().numpy())
+        _close(got, quant_matmul_xla(jnp.asarray(x), lins[0][1], dtype=jnp.float32))
+    else:
+        got = _model(xp, port, p, warps=warps)
+        _close(got, fused_mlp_plain(xt, *port).float().numpy())

@@ -3,9 +3,11 @@ of kernel 8 (``ops/cuda/matmul_t.plan``), of kernels 4 and 5 (which body) and
 of kernels 3, 7 and 9 (``ops/cuda/attention.decode_plan``), at LLaMA-7B's
 widths. Pure arithmetic: no card, no nvcc.
 
-Kernel 1 takes the one-stream register-fragment form up to ``FRAG_MAX_M``
-rows (the one-launch GEMV where the group size does not suit it, or at M <=
-``GEMV_MAX_M``) and above them the Hopper body (``csrc/qmm_wgmma.cuh``:
+Kernels 1 and 2 take the batch-1 decode form (``csrc/qmm_decode.cuh``: a
+TMA ring of the packed words, one block per column tile, no K split) at M =
+1 where the fragment form's group sizes hold. Kernel 1 takes the one-stream
+register-fragment form up to ``FRAG_MAX_M`` rows (the one-launch GEMV where
+the group size does not suit it, or at M <= ``GEMV_MAX_M``) and above them the Hopper body (``csrc/qmm_wgmma.cuh``:
 wgmma fed by TMA) where its shapes allow, the mma.sync tiles otherwise;
 kernel 8 the same two bodies; kernel 2 takes its GEMV at
 M = 1, the fragment form up to ``FRAG_MAX_M`` and above it the Hopper body
@@ -22,8 +24,9 @@ mode."""
 import pytest
 
 from gptq_for_llama_tpu_torch.ops.cuda import matmul
-from gptq_for_llama_tpu_torch.ops.cuda.matmul import (CLUSTER_LIMIT, CLUSTER_MAX, FRAG_MAX_M,
-                                                      FUSED_GEMV_MAX_M, GEMV_MAX_M, SMEM_PER_SM,
+from gptq_for_llama_tpu_torch.ops.cuda.matmul import (CLUSTER_LIMIT, CLUSTER_MAX, DEC_MAX_M,
+                                                      FRAG_MAX_M, FUSED_GEMV_MAX_M, GEMV_MAX_M,
+                                                      SMEM_PER_SM,
                                                       TC_ROW_TILES, WG_ROW_TILES, WGMMA_MIN_M,
                                                       Plan, frag_ok, plan, tile_blocks_per_sm,
                                                       tile_smem_bytes, wgmma_ok, wgmma_smem_bytes,
@@ -39,13 +42,15 @@ SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))
 
 
 @pytest.mark.parametrize("k,n,m,want", [
-    (4096, 4096, 1, ("frag", 8, 2, 64)), (4096, 4096, 4, ("frag", 8, 2, 64)),
-    (11008, 4096, 1, ("frag", 8, 2, 172)), (11008, 4096, 4, ("frag", 8, 2, 172))])
+    (4096, 4096, 1, ("decode", 2, 1, 128)), (4096, 4096, 4, ("frag", 8, 2, 64)),
+    (11008, 4096, 1, ("decode", 2, 1, 128)), (11008, 4096, 4, ("frag", 8, 2, 172))])
 def test_kernel_1_keeps_the_gemv_for_decode(k, n, m, want):
-    """Kernel 1's decode plans at M = 1 and 4: the one-stream fragment form,
-    measured faster than the new GEMV from M = 1, one block per 64 columns
-    and K split 2 ways across a cluster (128 blocks, one an SM), K-blocks of
-    32 rows per split; the GEMV (forced, or where the group size does not
+    """Kernel 1's decode plans at M = 1 and 4: at M = 1 the batch-1 decode
+    form (2 strips a block, stages of 128 packed word rows); at M = 4 the
+    one-stream fragment
+    form, one block per 64 columns and K split 2 ways across a cluster (128
+    blocks, one an SM), K-blocks of 32 rows per split; the GEMV (forced, or
+    where the group size does not
     suit the fragments) takes 8 cluster splits of 64 or 172 packed words,
     one row per block at M = 1 and 8 at M = 8, and the wgmma body takes over
     from M = 17."""
@@ -70,7 +75,8 @@ def test_kernel_1_takes_the_tiles_above_the_threshold(k, n, bits):
     assert WGMMA_MIN_M == FRAG_MAX_M + 1
 
     def want(m):
-        return "gemv" if m <= GEMV_MAX_M else "frag" if m <= FRAG_MAX_M else "wgmma"
+        return ("decode" if m <= DEC_MAX_M else "gemv" if m <= GEMV_MAX_M else
+                "frag" if m <= FRAG_MAX_M else "wgmma")
     for m in range(1, 40):
         assert plan(m, k, n, bits, SMS).path == want(m)
     slabs = -(-k // matmul.TC_TILE_K)
@@ -179,7 +185,7 @@ def test_tile_shared_memory_fits(bits, streams, bm):
 # kernel 2 (fused gate/up, 4096 x 11008) at every M of the smoke: path, row
 # tile, K splits, packed words (gemv), K-blocks (frag) or 64-row slabs (wgmma)
 # per split; and its tiles, forced, above 16 rows
-KERNEL_2_PLANS = {1: ("gemv", 1, 4, 128), 8: ("frag", 8, 1, 128), 100: ("wgmma", 128, 3, 22),
+KERNEL_2_PLANS = {1: ("decode", 3, 1, 64), 8: ("frag", 8, 1, 128), 100: ("wgmma", 128, 3, 22),
                   128: ("wgmma", 128, 3, 22), 136: ("wgmma", 144, 3, 22),
                   512: ("wgmma", 256, 1, 64), 1024: ("wgmma", 256, 1, 64),
                   2048: ("wgmma", 256, 1, 64), 16384: ("wgmma", 256, 1, 64)}
@@ -190,9 +196,11 @@ KERNEL_2_TILES = {100: ("tile", 128, 3, 22), 128: ("tile", 128, 3, 22), 136: ("t
 
 @pytest.mark.parametrize("m", SMOKE_MS)
 def test_kernel_2_keeps_its_gemv_plan(m):
-    """Kernel 2 keeps its GEMV at the batch-1 decode row, at and below the
-    measured crossover (M = 1: the GEMV 32.17 us, the fragment form 38.55;
-    at M = 2 the fragment form wins, 38.76 against 42.28; PERF.md), takes
+    """Kernel 2 takes the batch-1 decode form at M = 1 (3 strips of each
+    weight a block, stages of 64 packed word rows of both), keeps its GEMV there (forced, or where the
+    group size does not suit the decode form: the GEMV measured faster than
+    the fragment form at M = 1, 32.17 against 38.55 us; at M = 2 the
+    fragment form wins, 38.76 against 42.28; PERF.md), takes
     the register-fragment form at the serving decode step (M = 8, the
     fastest of the three forms there) and the Hopper body above (gate and
     up on its two consumer warpgroups: 64 columns of y a block, kernel 1's
@@ -202,7 +210,11 @@ def test_kernel_2_keeps_its_gemv_plan(m):
     tiles of one row into two even waves at M = 100-136."""
     p = plan(m, 4096, 11008, 4, SMS, streams=2)
     assert p == Plan(*KERNEL_2_PLANS[m], p.smem)
-    assert (p.path == "gemv") == (m <= FUSED_GEMV_MAX_M)
+    assert (p.path == "decode") == (m <= DEC_MAX_M)
+    if m <= FUSED_GEMV_MAX_M:
+        gemv = plan(m, 4096, 11008, 4, SMS, streams=2, path="gemv")
+        assert gemv == Plan("gemv", 1, 4, 128, gemv.smem)
+        assert plan(m, 4096, 11008, 4, SMS, streams=2, groupsize=40).path == "gemv"
     if p.path == "wgmma":
         assert p.smem == wgmma_smem_bytes(4, p.mt) <= SMEM_PER_BLOCK
         # 64 columns of y a block: kernel 1's 128-column tiles halved
@@ -218,8 +230,9 @@ def test_kernel_2_keeps_its_gemv_plan(m):
 @pytest.mark.parametrize("k,n", [(4096, 11008), (512, 384), (1024, 256)])
 @pytest.mark.parametrize("bits,gs", [(2, 64), (4, 128), (4, 32), (8, 32), (8, 16)])
 def test_kernel_2_takes_the_fragment_form_up_to_16_rows(k, n, bits, gs):
-    """From M = 2 to 16 kernel 2 takes the fragment form where every K-block
-    (4 packed word-rows, 128 / bits rows) lies in one group; its splits cover
+    """At M = 1 kernel 2 takes the batch-1 decode form, from M = 2 to 16 the
+    fragment form, where every K-block (4 packed word-rows, 128 / bits rows)
+    lies in one group; its splits cover
     every K-block and each warp keeps at least two; one n8 tile of x's rows
     up to M = 8, two up to 16; from M = 17 the wgmma body (every group size
     here a multiple of 16), the tiles where ``wgmma_ok`` refuses the shape
@@ -228,7 +241,8 @@ def test_kernel_2_takes_the_fragment_form_up_to_16_rows(k, n, bits, gs):
     assert frag_ok(k, n, bits, gs) == (gs % kb == 0)
     for m in range(1, 40):
         p = plan(m, k, n, bits, SMS, streams=2, groupsize=gs)
-        want = ("gemv" if m <= FUSED_GEMV_MAX_M else "frag" if m <= FRAG_MAX_M else "wgmma")
+        want = ("decode" if m <= DEC_MAX_M else "gemv" if m <= FUSED_GEMV_MAX_M else
+                "frag" if m <= FRAG_MAX_M else "wgmma")
         assert p.path == want
         if m >= WGMMA_MIN_M:
             assert plan(m, k, n, bits, SMS, streams=2, groupsize=40).path == "tile"
@@ -272,8 +286,10 @@ def test_fragment_form_shared_memory(bits, nt):
                                  (1024, 256)])
 @pytest.mark.parametrize("bits,gs", [(2, 64), (4, 128), (4, 32), (8, 32), (8, 16)])
 def test_kernel_1_takes_the_fragment_form_up_to_16_rows(k, n, bits, gs):
-    """Kernel 1 (one stream) takes the fragment form from M = 1 to 16 where
-    every K-block (4 packed word-rows, 128 / bits rows) lies in one group: a
+    """Kernel 1 (one stream) takes the batch-1 decode form at M = 1 and the
+    fragment form from M = 2 to 16 where every K-block (4 packed word-rows,
+    128 / bits rows) lies in one group (the fragment form, forced, at M = 1
+    too): a
     block covers 64 columns of y, one n8 tile of x's rows up to M = 8 and
     two up to 16; its splits cover every K-block, each warp keeps at least
     two, the cluster has at most CLUSTER_MAX blocks; the wgmma body from M =
@@ -283,8 +299,10 @@ def test_kernel_1_takes_the_fragment_form_up_to_16_rows(k, n, bits, gs):
     for m in range(1, 40):
         p = plan(m, k, n, bits, SMS, groupsize=gs)
         want = ("gemv" if m <= GEMV_MAX_M or (m <= FRAG_MAX_M and gs % kb) else
-                "frag" if m <= FRAG_MAX_M else "wgmma")
+                "decode" if m <= DEC_MAX_M else "frag" if m <= FRAG_MAX_M else "wgmma")
         assert p.path == want
+        if p.path == "decode":
+            p = plan(m, k, n, bits, SMS, groupsize=gs, path="frag")
         if p.path == "frag":
             kbs = -(-k // kb)
             assert p.mt == (8 if m <= 8 else 16)
@@ -937,3 +955,75 @@ def test_pool_split_model_equals_dense_model_on_the_gathered_view(bs):
         dense, _ = _split_model(q, kd, vd, off, 0.09, plan)
         paged, _ = _split_model(q, None, None, off, 0.09, plan, pool=(kp, vp, guarded))
         assert np.array_equal(dense, paged)
+
+
+# the batch-1 decode form at the smoke's shapes (K, N, streams): LLaMA-7B's
+# q/k/v/o, down_proj and fused gate/up; its fused q/k/v; GPT-NeoX-20B's four
+# linears; the TP shards (tp 2 and 4: q/k/v columns, o and the K-padded
+# down_proj rows, gate/up) -> (strips of each weight a block, blocks, word
+# rows a stage, consumer warps)
+DECODE_SHAPES = {(4096, 4096, 1): (2, 128, 128, 16), (11008, 4096, 1): (2, 128, 128, 16),
+                 (4096, 11008, 2): (3, 230, 64, 8), (4096, 12288, 1): (4, 192, 64, 8),
+                 (6144, 18432, 1): (5, 231, 64, 8), (6144, 6144, 1): (3, 128, 128, 16),
+                 (6144, 24576, 1): (6, 256, 64, 8), (24576, 6144, 1): (3, 128, 128, 16),
+                 (4096, 2048, 1): (1, 128, 256, 16), (2048, 4096, 1): (2, 128, 128, 16),
+                 (5632, 4096, 1): (2, 128, 128, 16), (2816, 4096, 1): (2, 128, 128, 16),
+                 (4096, 1024, 1): (1, 64, 256, 16), (4096, 5504, 2): (2, 172, 64, 8),
+                 (4096, 2816, 2): (2, 88, 64, 8)}
+
+
+@pytest.mark.parametrize("k,n,streams", list(DECODE_SHAPES))
+def test_decode_form_at_the_smoke_shapes(k, n, streams):
+    """The batch-1 decode form (csrc/qmm_decode.cuh) at M = 1: the plan
+    takes it at every shape of the smoke; its column tiles of 16 x strips
+    cover N in one wave of blocks (one an SM with 16 consumer warps, two with
+    8), none empty; its stages of word rows cover K in order, every warp's
+    slice of a stage whole 8-row octets; a stage's scale rows hold every
+    group its rows touch; its shared memory is the kernel's layout, within
+    227 KB (half an SM's at two blocks an SM) with at least two stages; and
+    K split across no block (one launch, no cluster)."""
+    strips, blocks, rows, warps = DECODE_SHAPES[(k, n, streams)]
+    groups = -(-k // 128)
+    p = plan(1, k, n, 4, SMS, streams=streams)
+    geo = matmul.decode_geometry(k, n, 4, SMS, streams, 128, groups)
+    assert p == Plan("decode", geo.strips, 1, geo.rows, geo.smem) and p.split == 1
+    assert (geo.strips, -(-n // (16 * geo.strips)), geo.rows, matmul.decode_warps(
+        streams * geo.strips)) == (strips, blocks, rows, warps)
+    cols = 16 * geo.strips
+    assert blocks * cols >= n > (blocks - 1) * cols
+    per_sm = 1 if warps == 16 else 2
+    assert blocks <= per_sm * SMS
+    assert rows % (8 * warps) == 0
+    kw = k // 8
+    n_st = -(-kw // rows)
+    assert n_st * rows >= kw > (n_st - 1) * rows
+    assert 2 <= geo.stages <= min(matmul.DEC_MAX_STAGES, n_st) or geo.stages == n_st == 1
+    assert geo.sz_rows == max(min((min(kw, t + rows) * 8 - 1) // 128, groups - 1)
+                              - min(t * 8 // 128, groups - 1) + 1 for t in range(0, kw, rows))
+    assert geo.smem == matmul.decode_smem_bytes(streams, geo.strips, rows, geo.sz_rows, k,
+                                                geo.stages)
+    assert geo.smem <= (SMEM_PER_BLOCK if per_sm == 1 else SMEM_PER_SM // 2 - 1024)
+    # the layout in csrc/qmm_decode.cuh: word boxes, scale and zero boxes,
+    # x, the warps' sums, the barriers
+    words = streams * geo.strips * rows * 64
+    sz = -(-geo.sz_rows * cols * 2 // 128) * 128
+    stage = -(-(words + streams * 2 * sz) // 1024) * 1024
+    assert geo.smem == (1024 + geo.stages * stage + -(-k * 2 // 128) * 128
+                        + warps * streams * cols * 4 + 2 * geo.stages * 8)
+
+
+@pytest.mark.parametrize("gs,ok", [(128, True), (32, True), (64, True), (96, True), (40, False),
+                                   (16, False)])
+def test_decode_form_takes_the_fragment_forms_group_sizes(gs, ok):
+    """The decode form needs every aligned 4-word-row block inside one group
+    (the fragment form's ``frag_ok``: groupsize a multiple of 32 at 4 bits);
+    other group sizes keep the GEMV at M = 1, and the form forced raises."""
+    assert (matmul.decode_geometry(4096, 4096, 4, SMS, 1, gs, -(-4096 // gs)) is not None) == ok
+    assert plan(1, 4096, 4096, 4, SMS, groupsize=gs).path == ("decode" if ok else "gemv")
+    assert plan(1, 4096, 11008, 4, SMS, streams=2, groupsize=gs).path == (
+        "decode" if ok else "gemv")
+    if not ok:
+        with pytest.raises(ValueError):
+            plan(1, 4096, 4096, 4, SMS, groupsize=gs, path="decode")
+    with pytest.raises(ValueError):
+        plan(2, 4096, 4096, 4, SMS, path="decode")
