@@ -268,13 +268,17 @@ PATHS = {"decode": {"qmm", "fused_mlp", "decode_attention", "flash_prefill_block
          # path and serving over fp8-e4m3 caches, the CLIs with --kv-dtype fp8
          # (a paged chunk attends its gathered prefix cast to bf16, as the TPU
          # package's astype does)
+         # (kernel 4 past the crossover on its wgmma body over the fp8 cache:
+         # the 201-token prompt's prefill, the serving chunks)
          "kvdtype:decode": {"qmm", "fused_mlp", "decode_attention:fp8",
-                            "flash_prefill_blocked:fp8"} | NORMS,
+                            "flash_prefill_blocked:fp8", "flash_prefill_blocked:wgmma:fp8"} | NORMS,
          "kvdtype:serve:paged": {"qmm", "fused_mlp", "pool_decode_attention:fp8"} | NORMS,
          "kvdtype:serve:dense": {"qmm", "fused_mlp", "decode_attention:fp8",
-                                 "flash_prefill_blocked:fp8"} | NORMS,
+                                 "flash_prefill_blocked:fp8",
+                                 "flash_prefill_blocked:wgmma:fp8"} | NORMS,
          "kvdtype:serve:fold": {"qmm", "fused_mlp", "fused_decode_attention:fp8",
-                                "flash_prefill_blocked:fp8"} | NORMS,
+                                "flash_prefill_blocked:fp8",
+                                "flash_prefill_blocked:wgmma:fp8"} | NORMS,
          "kvdtype:cli": {"qmm", "fused_mlp", "decode_attention:fp8"} | NORMS,
          "kvdtype:serve:cli": {"qmm", "fused_mlp", "pool_decode_attention:fp8"} | NORMS,
          # OPT, GPT-NeoX and GPT-2 (phase archs): the attention kernels counted
@@ -411,6 +415,25 @@ def bf16_ulps(torch, got, want) -> int:
     return int((line(got) - line(want)).abs().max())
 
 
+def capture(torch, fn):
+    """``fn()`` captured in a new CUDA graph on a side stream, as
+    ``torch.cuda.graph`` captures it but without the context manager's
+    ``empty_cache`` (and garbage collection) first: the smoke times kernels
+    through hundreds of such graphs, and those calls cost it 17-19 s of
+    freeing and allocating device memory again (PERF.md section 5). Returns
+    (graph, what ``fn`` returned)."""
+    g, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        g.capture_begin()
+        try:
+            out = fn()
+        finally:
+            g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return g, out
+
+
 def graph_ms(torch, fns, iters: int = 60) -> float:
     """Device time of one call: ``iters`` calls (cycling ``fns``, one per
     weight copy) captured in a CUDA graph, replayed between CUDA events."""
@@ -421,10 +444,7 @@ def graph_ms(torch, fns, iters: int = 60) -> float:
             f()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for i in range(iters):
-            fns[i % len(fns)]()
+    g, _ = capture(torch, lambda: [fns[i % len(fns)]() for i in range(iters)])
     g.replay()
     torch.cuda.synchronize()
     best = float("inf")
@@ -469,9 +489,8 @@ def graph_replay(torch, fn, move):
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        out = fn()
+    torch.cuda.synchronize()
+    g, out = capture(torch, fn)
     move()
     g.replay()
     torch.cuda.synchronize()
@@ -1187,6 +1206,28 @@ class Smoke:
         log("[build] dynamic shared memory per block (bytes): "
             + ", ".join(f"{k} {v}" for k, v in smem.items()))
         self.report["dynamic_smem_bytes"] = smem
+        self._wgmma_layouts((128,))
+
+    def _wgmma_layouts(self, dims):
+        """Kernel 4's wgmma body at head dims ``dims`` over each cache dtype:
+        the layout its library reports (stages, staging chunk keys, slots,
+        staging bytes, dynamic shared memory) logged, and held equal to the
+        Python mirror (``flash.wgmma_layout``) and within a block's 232,448
+        bytes."""
+        from gptq_for_llama_tpu_torch.ops import kv_dtype
+        from gptq_for_llama_tpu_torch.ops.cuda import flash
+        out = self.report.setdefault("wgmma_layouts", {})
+        for d in dims:
+            for name, dt in kv_dtype.KV_DTYPES.items():
+                got, want = flash.library_layout(d, dt), flash.wgmma_layout(d, dt)
+                if got != want or (got is not None and got.smem > flash.SMEM_LIMIT):
+                    raise AssertionError(f"kernel 4's wgmma body at D={d} over {name}: the "
+                                         f"library's layout {got} is not its mirror {want}")
+                out[f"d{d}:{name}"] = None if got is None else got._asdict()
+                log(f"[build] kernel 4 wgmma body D={d} {name} cache: " + (
+                    "none (mma.sync only)" if got is None else
+                    f"{got.stages} stages, staging {got.slots} x {got.chunk_keys} keys = "
+                    f"{got.staging_bytes} B, {got.smem} B of shared memory (the mirror's)"))
 
     @staticmethod
     def _ptxas_log(built):
@@ -1221,6 +1262,7 @@ class Smoke:
             log(f"[build] the wgmma flash body's dynamic shared memory per block by head dim "
                 f"(bytes): {smem}")
             self.report.setdefault("dynamic_smem_bytes", {})["flash wgmma by D"] = smem
+            self._wgmma_layouts([d for d in build.HEAD_DIMS if d != 128])
 
     # -- phase 3 ---------------------------------------------------------------
     def _record(self, kernel, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops, main=False,
@@ -3530,8 +3572,10 @@ class Smoke:
         from gptq_for_llama_tpu_torch.ops.cuda.attention import (
             decode_attention_cuda, decode_attention_plain, fused_decode_attention_cuda,
             fused_decode_attention_plain, pool_decode_attention_cuda, pool_decode_attention_plain)
+        from gptq_for_llama_tpu_torch.ops.cuda import flash
         from gptq_for_llama_tpu_torch.ops.cuda.flash import (flash_prefill_blocked_cuda,
                                                              flash_prefill_blocked_plain)
+        from gptq_for_llama_tpu_torch.ops.cuda.flash_prefill import PATH_IDS
         dt = kv_dtype.KV_DTYPES[name]
         isz = torch.empty((), dtype=dt).element_size()
         gen = torch.Generator(device="cuda")
@@ -3720,8 +3764,12 @@ class Smoke:
                             4 * live * h * d, main=(hkv == 32 and offs == mixed))
             del kp, vp, kp_clean, vp_clean, tables
             torch.cuda.empty_cache()
-        # kernel 4 (its mma.sync body for every cache but bf16) at a prompt, a
-        # serving chunk and a bucket, the cache poisoned past the causal limit
+        # kernel 4 at a prompt, a serving chunk and a bucket through the body
+        # its plan names (past the crossover the wgmma body, its producer
+        # warpgroup converting a TMA staging ring), the cache poisoned past
+        # the causal limit; both bodies forced, each bit-equal to itself over
+        # the cache decoded to bf16 and timed; the chunk's graph captured at
+        # offset 0 replayed at 128, bit-equal to the eager launch
         b, h, hkv = 1, 32, 32
         for sq, off, skv in ((100, 0, s), (128, 128, 256), (512, 0, 512)):
             ncopy = copies_for(2 * skv * hkv * d * isz)
@@ -3731,12 +3779,30 @@ class Smoke:
             dead = (torch.arange(skv, device="cuda") >= off + sq)[None, :]
             pk, pv = self._kv_poison(torch, kc, dead), self._kv_poison(torch, vc, dead)
             off_t = torch.tensor([off], dtype=torch.int32, device="cuda")
+            body = flash.plan_kv(sq, off, dt, d)
             y = flash_prefill_blocked_cuda(q, pk, pv, off_t, d ** -0.5, off + sq)
             ref = flash_prefill_blocked_plain(q, kc, vc, off, d ** -0.5)
+            dk, dv = kv_dtype.decode(pk, bf), kv_dtype.decode(pv, bf)
+            forced = {b_: flash._launch(q, pk, pv, off_t, d ** -0.5, b_) for b_ in PATH_IDS}
+            same = {b_: bits_equal(y_, flash._launch(q, dk, dv, off_t, d ** -0.5, b_))
+                    for b_, y_ in forced.items()}
+            g_off = torch.zeros(1, dtype=torch.int32, device="cuda")
+            replayed = graph_replay(torch, lambda: flash_prefill_blocked_cuda(
+                q, pk, pv, g_off, d ** -0.5, off + sq), lambda: g_off.fill_(off))
             torch.cuda.synchronize()
             if not torch.isfinite(y.float()).all():
                 raise AssertionError(f"flash_prefill_blocked {name} SQ={sq}: a dead slot was read")
-            del pk, pv
+            if not (all(same.values()) and bits_equal(forced[body], y)
+                    and bits_equal(replayed, y)):
+                raise AssertionError(f"flash_prefill_blocked {name} SQ={sq} offset={off}: a body "
+                                     f"over the cache differs from itself over the cache decoded "
+                                     f"to bf16 ({same}), from the planned launch, or a graph "
+                                     f"replay at the offset from the eager launch")
+            for b_, y_ in forced.items():
+                if not row_rel_err(y_, ref) <= 1e-2:
+                    raise AssertionError(f"flash_prefill_blocked {name} SQ={sq} offset={off}: "
+                                         f"the {b_} body forced is off the plain version")
+            del pk, pv, dk, dv, forced
             n = off + sq
             allowed = (torch.arange(n, device="cuda")[None, :]
                        <= torch.arange(sq, device="cuda")[:, None] + off)
@@ -3748,26 +3814,37 @@ class Smoke:
                 q, c[0], c[1], off_t, d ** -0.5) for c in caches], iters=min(iters, 10))
             lms = graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
                 qt, up(c[0], n), up(c[1], n), attn_mask=allowed) for c in caches], iters=iters)
+            bodies_ms = {b_: graph_ms(torch, [lambda c=c, b_=b_: flash._launch(
+                q, c[0], c[1], off_t, d ** -0.5, b_) for c in caches], iters=iters)
+                for b_ in PATH_IDS}
+            log(f"[kvdtype] kernel 4 {name} SQ={sq} offset={off}: bodies forced, mma.sync "
+                f"{bodies_ms['sync'] * 1e3:.2f} us, wgmma {bodies_ms['wgmma'] * 1e3:.2f} us "
+                f"(plan: {body}), each bit-equal to itself over the cache decoded to bf16 | "
+                f"{self.card}")
             pairs = sum(off + i + 1 for i in range(sq))
             self._kv_record("flash_prefill_blocked", name,
                             f"B={b} SQ={sq} H={h} Hkv={hkv} SKV={skv} offset={off} (device "
-                            f"offset, dead slots poisoned) [sync]", y, ref, ms, pms, lms,
+                            f"offset, dead slots poisoned, bit-equal over the cache decoded to "
+                            f"bf16, graph replay bit-equal) [{body}]", y, ref, ms, pms, lms,
                             2 * b * sq * h * d * 2 + b * n * hkv * d * isz * 2,
-                            4 * b * h * pairs * d, main=(sq == 100))
+                            4 * b * h * pairs * d, main=(sq == 100),
+                            extra={"body": body, "sync_ms": bodies_ms["sync"],
+                                   "wgmma_ms": bodies_ms["wgmma"],
+                                   "decoded_bit_equal": True, "replay_bit_equal": True})
             del caches, kc, vc
         torch.cuda.empty_cache()
 
     def _kv_upcast_codes(self, torch):
         """Every e4m3 code (0x7F and 0xFF included) as the one live slot's V
-        row: kernels 3, 7 and 4 return it as bf16 as ``kv_dtype.decode``
-        gives it (+-480 for the two NaN codes); kernel 9, with the current
+        row: kernels 3, 7 and 4 (both its bodies) return it as bf16 as
+        ``kv_dtype.decode`` gives it (+-480 for the two NaN codes); kernel 9, with the current
         token's k/v zero, half of it. Equal bit for bit but for code 0x80
         (-0), which a sum started at +0 returns as +0: values are compared."""
         from gptq_for_llama_tpu_torch.ops import kv_dtype
         from gptq_for_llama_tpu_torch.ops.cuda.attention import (decode_attention_cuda,
                                                                  fused_decode_attention_cuda,
                                                                  pool_decode_attention_cuda)
-        from gptq_for_llama_tpu_torch.ops.cuda.flash import flash_prefill_blocked_cuda
+        from gptq_for_llama_tpu_torch.ops.cuda.flash import flash_prefill_blocked_cuda, plan_kv
         codes = torch.arange(256, dtype=torch.int32, device="cuda").to(torch.uint8)
         v = torch.zeros(1, 64, 2, 128, dtype=torch.uint8, device="cuda")
         v[0, 0] = codes.reshape(2, 128)
@@ -3778,10 +3855,17 @@ class Smoke:
         zero = torch.zeros(1, 1, 2, 128, device="cuda").bfloat16()
         off = torch.zeros(1, dtype=torch.int32, device="cuda")
         tables = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+        # kernel 4 planned for 1 key (its mma.sync body) and for 2048 (past the
+        # crossover: its wgmma body, the producer converting the staged codes)
+        if not (plan_kv(1, 0, v.dtype) == "sync" and plan_kv(1, 2047, v.dtype) == "wgmma"):
+            raise AssertionError("kernel 4 over e4m3: the plans for 1 and 2048 keys are not "
+                                 "mma.sync and wgmma")
         got = {"decode_attention": decode_attention_cuda(q, k, v, 0, 0.09),
                "pool_decode_attention": pool_decode_attention_cuda(
                    q, k.reshape(4, 16, 2, 128), v.reshape(4, 16, 2, 128), tables, off, 0.09),
-               "flash_prefill_blocked": flash_prefill_blocked_cuda(q, k, v, off, 0.09, 1)}
+               "flash_prefill_blocked": flash_prefill_blocked_cuda(q, k, v, off, 0.09, 1),
+               "flash_prefill_blocked (wgmma)": flash_prefill_blocked_cuda(q, k, v, off, 0.09,
+                                                                           2048)}
         fold, _, _ = fused_decode_attention_cuda(q, k, v, zero, zero, 1, 0.09, write=False)
         torch.cuda.synchronize()
         bad = [n for n, y in got.items() if not torch.equal(y, want)]
@@ -3806,9 +3890,9 @@ class Smoke:
                                      f"differs from the CPU encoder")
         log("[kvdtype] the encoder on the card and kernel 9's row write equal the CPU encoder "
             "(JAX's astype) on all 65536 bf16 bit patterns but NaN, in e4m3 and e5m2")
-        log("[kvdtype] e4m3 upcast: kernels 3, 7, 9 and 4 read all 256 codes equal to "
-            "kv_dtype.decode (the TPU kernels' _load_f32 / _load_bf16; bit for bit but -0): 0x7F "
-            "and 0xFF as +-480")
+        log("[kvdtype] e4m3 upcast: kernels 3, 7, 9 and 4 (its mma.sync and wgmma bodies) read "
+            "all 256 codes equal to kv_dtype.decode (the TPU kernels' _load_f32 / _load_bf16; bit "
+            "for bit but -0): 0x7F and 0xFF as +-480")
         self.report.setdefault("kvdtype", {})["e4m3_all_codes_bit_equal"] = True
 
     def _kv_full(self, torch):
@@ -3945,8 +4029,9 @@ class Smoke:
         cfg = ModelConfig(arch="llama", vocab_size=32000, hidden_size=4096,
                           intermediate_size=11008, num_layers=2, num_heads=32,
                           num_kv_heads=32, head_dim=128, max_seq_len=64)
-        tree = self.e2e_tree if self.e2e_tree is not None else random_wire_tree(cfg, seed=7)
-        self.e2e_tree = None
+        if self.e2e_tree is None:
+            self.e2e_tree = random_wire_tree(cfg, seed=7)
+        tree = self.e2e_tree   # read once more by phase profile
         gparams = params_from_jax(tree, "cuda", torch.bfloat16)
         cparams = _plain_dense(params_from_jax(tree, "cpu", torch.float32), torch.float32)
         rel_tol = 2e-2
@@ -4141,10 +4226,11 @@ class Smoke:
                     k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms", "body", "bodies") if k in row}
 
-        def forced_bodies(what, run, ref, copies, same_as=None):
+        def forced_bodies(what, run, ref, copies, same_as=None, same_what="kernel 5"):
             """Both bodies of kernel 4 or 5 forced, where D has both: each held
             to the plain version (1e-2 of each row's norm), launched twice
-            bit-equal and, given ``same_as`` (kernel 5 on the same body),
+            bit-equal and, given ``same_as`` (kernel 5 on the same body, or
+            kernel 4's body over the cache decoded to bf16: ``same_what``),
             bit-equal to it; then each timed over its ``copies`` inputs
             (``run(body, copy)``)."""
             if d not in fp.WGMMA_HEAD_DIMS:
@@ -4159,14 +4245,15 @@ class Smoke:
                         and bits_equal(y1, y2) and same is not False):
                     raise AssertionError(f"{what} D={d}, {body} body forced: worst row {worst} "
                                          f"(tol 1e-2), two launches bit-equal "
-                                         f"{bits_equal(y1, y2)}, equal to kernel 5 {same}")
-                out[body] = {"worst_row_rel": worst, "bit_equal_to_kernel5": same}
+                                         f"{bits_equal(y1, y2)}, equal to {same_what} {same}")
+                out[body] = {"worst_row_rel": worst, "bit_equal_to_kernel5" if same_what ==
+                             "kernel 5" else "bit_equal_to_decoded": same}
             for body in fp.PATH_IDS:
                 out[body]["ms"] = graph_ms(torch, [lambda i=i, body=body: run(body, i)
                                                    for i in range(copies)])
             log(f"[archs] {what} D={d}: bodies forced, mma.sync {out['sync']['ms'] * 1e3:.2f} "
                 f"us, wgmma {out['wgmma']['ms'] * 1e3:.2f} us, each held to the plain version "
-                f"and twice bit-equal{'' if same_as is None else ', equal to kernel 5'} "
+                f"and twice bit-equal{'' if same_as is None else f', equal to {same_what}'} "
                 f"({time.perf_counter() - t0:.2f} s) | {self.card}")
             return out
 
@@ -4290,11 +4377,14 @@ class Smoke:
                 4 * live * h * d, main=True)
             del kp, vp, kp_clean, vp_clean
             # kernel 4: a prompt (SQ = 100, offset 0) and a serving chunk (SQ =
-            # 128 at offset 128; at D = 256 also a 512-query bucket over 2048
-            # slots), the cache poisoned past the causal limit; at offset 0
-            # over bf16 bit-equal to kernel 5 on the same rows
+            # 128 at offset 128, past the crossover; at D = 256 also a
+            # 512-query bucket over 2048 slots), the cache poisoned past the
+            # causal limit; at offset 0 over bf16 bit-equal to kernel 5 on the
+            # same rows; over another dtype (at D = 256 the prompt on mma.sync
+            # alone) each body bit-equal to itself over the cache decoded to bf16
             chunks = ((100, 0, s), (128, 128, 256), (512, 0, s))
-            for sq, off0, skv in chunks[:(3 if d == 256 else 2) if bf16 else 1]:
+            conv = not bf16 and d in flash.WGMMA_KV_HEAD_DIMS
+            for sq, off0, skv in chunks[:(3 if d == 256 else 2) if bf16 or conv else 1]:
                 hkv = hkv_mha
                 ncopy = copies_for(2 * skv * hkv * d * isz)
                 q = randn(1, sq, h, d)
@@ -4316,12 +4406,21 @@ class Smoke:
                                          f"slot was read, or kernel 4 at offset 0 differs from "
                                          f"kernel 5")
                 body = flash.plan_kv(sq, off0, dt, d)
-                if bf16:   # the first launches over the poisoned cache, then over the copies
+                if bf16 or conv:   # the first launches over the poisoned cache, then the copies
                     kv = [(pk, pv)] + caches[1:]
+                    if conv:
+                        dk, dv = kv_dtype.decode(pk, bf), kv_dtype.decode(pv, bf)
                     bodies = forced_bodies(
-                        f"kernel 4 SQ={sq} offset={off0}",
+                        f"kernel 4 {name} SQ={sq} offset={off0}",
                         lambda b_, i: flash._launch(q, kv[i][0], kv[i][1], off_t, sc, b_), ref,
-                        len(kv), None if k5 is None else lambda b_: fp._launch(q, k5, v5, sc, b_))
+                        len(kv), None if k5 is None and not conv else
+                        (lambda b_: flash._launch(q, dk, dv, off_t, sc, b_)) if conv else
+                        (lambda b_: fp._launch(q, k5, v5, sc, b_)),
+                        "the decoded cache" if conv else "kernel 5")
+                    if not bits_equal(y, flash._launch(q, pk, pv, off_t, sc, body)):
+                        raise AssertionError(f"kernel 4 {name} D={d} SQ={sq}: the planned launch "
+                                             f"differs from its body forced")
+                    dk = dv = kv = None
                 del pk, pv, k5
                 n = off0 + sq
                 allowed = (torch.arange(n, device="cuda")[None, :]
@@ -4338,9 +4437,9 @@ class Smoke:
                 rec("flash_prefill_blocked", name, f"B=1 SQ={sq} H={h} SKV={skv} offset={off0} "
                     f"(device offset, dead slots poisoned){'' if same5 is None else ', bit-equal to kernel 5 at offset 0'} [{body}]",
                     y, ref, ms, pms, lms, 2 * sq * h * d * 2 + n * hkv * d * isz * 2,
-                    4 * h * pairs * d, main=(sq == 100 or bf16),
+                    4 * h * pairs * d, main=(sq == 100 or bf16 or conv),
                     extra={"body": body, "bodies": bodies},
-                    key={(128, 128): "bf16 chunk", (512, 0): "bf16 bucket"}.get(
+                    key={(128, 128): f"{name} chunk", (512, 0): f"{name} bucket"}.get(
                         (sq, off0)))   # beside the prompt row
                 del caches, kc, vc
         # kernel 5: causal, no cache, S = 2048 (the calibration and eval
@@ -5261,14 +5360,21 @@ class Smoke:
 
     # -- phase 14 --------------------------------------------------------------
     def phase_profile(self, torch):
+        from gptq_for_llama_tpu_torch.convert import params_from_jax
         from gptq_for_llama_tpu_torch.models.config import ModelConfig
         from gptq_for_llama_tpu_torch.runtime import ModelRunner
-        from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_llama
+        from gptq_for_llama_tpu_torch.runtime.random_model import random_wire_tree
 
         cfg = ModelConfig(arch="llama", vocab_size=32000, hidden_size=4096,
                           intermediate_size=11008, num_layers=4, num_heads=32,
                           num_kv_heads=32, head_dim=128, max_seq_len=512)
-        runner = ModelRunner("llama", cfg, random_wire_llama(cfg, seed=3), device="cuda")
+        # the e2e phase's random wire tree (its layers share their host
+        # arrays), four layers deep: drawing another took this phase 10 s
+        tree = self.e2e_tree if self.e2e_tree is not None else random_wire_tree(cfg, seed=7)
+        self.e2e_tree = None
+        tree = dict(tree, layers=[tree["layers"][0]] * cfg.num_layers)
+        runner = ModelRunner("llama", cfg, params_from_jax(tree, "cuda", torch.bfloat16),
+                             device="cuda")
         ids = torch.as_tensor(np.random.RandomState(3).randint(0, 32000, (1, 100)),
                               device="cuda")
         logits, cache = runner.prefill(ids, runner.init_cache())
@@ -5796,14 +5902,15 @@ class Smoke:
                 rows[-1]["paths"] = {k[len(name) + 1:]: p for k, p in self.paths.items()
                                      if k.startswith(name + " ")}
             # the cache dtype read, and the head dim; kernels 4 and 5 by body
-            # and head dim too
+            # and head dim too, kernel 4 by body and cache dtype
             by_dtype = ("bf16", "f32", "fp8", "fp8_e5m2", "d64", "d80", "d96", "d128", "d256")
             by_body = tuple(f"{b}:{d}" for b in ("sync", "wgmma") for d in by_dtype[4:])
+            by_body_dtype = tuple(f"{b}:{d}" for b in ("sync", "wgmma") for d in by_dtype[:4])
             forms = {"qmm": ("decode", "gemv", "frag", "tile", "wgmma"),
                      "fused_mlp": ("decode", "gemv", "frag", "tile", "wgmma"),
                      "qmm_t": ("tile", "wgmma"),
                      "rms_norm": ("alone", "add"), "decode_attention": by_dtype,
-                     "flash_prefill_blocked": by_dtype + by_body,
+                     "flash_prefill_blocked": by_dtype + by_body + by_body_dtype,
                      "pool_decode_attention": by_dtype, "fused_decode_attention": by_dtype,
                      "flash_prefill": by_dtype[4:] + by_body}
             if name in forms:

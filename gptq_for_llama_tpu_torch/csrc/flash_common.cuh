@@ -70,14 +70,19 @@
 // prefetch, and optionally the cache row of its batch row: the grid depends
 // on SQ alone, so one captured launch serves every offset and slot.
 // Kernel 4's cache may be stored in f32, fp8-e4m3 or fp8-e5m2 as well as bf16
-// (kv_dtype.cuh). Such a cache runs the mma.sync body at every length: its K
-// and V tiles are loaded in the stored type into registers where the bf16
-// body issues its cp.async (V(t) before S(t) is computed, K(t+1) before
-// P V(t)), then rounded to bf16 as the TPU kernel's _load_bf16 does (exact
-// for fp8, nearest even from f32) and stored in the bf16 tile layout. The
-// wgmma body takes bf16 only: its TMA tiles land in the 128-byte swizzle the
-// bf16 descriptors read, and a conversion stage would need shared memory the
-// block does not have.
+// (kv_dtype.cuh), under the same plan as bf16. Its tiles are rounded to bf16
+// as the TPU kernel's _load_bf16 does (exact for fp8, nearest even from f32;
+// kv_dtype.cuh: bf16x8) on their way into the bodies' bf16 tile layouts. In
+// the mma.sync body the K and V tiles are loaded in the stored type into
+// registers where the bf16 body issues its cp.async (V(t) before S(t) is
+// computed, K(t+1) before P V(t)). In the wgmma body (D = 64, 80, 96, 128)
+// the producer warpgroup's first thread keeps TMA loads of the stored chunks
+// in flight through a staging ring, and its 128 threads convert each chunk
+// into the swizzled bf16 stage the descriptors read; the consumers run
+// unchanged, so the output equals the bf16 body's over the cache decoded to
+// bf16, bit for bit. The ring takes shared memory: at D = 128 the bf16 rings
+// keep 2 stages and 4 staging slots of 16 KB take the third's room; at D =
+// 256 there is none, and such a cache takes the mma.sync body only.
 //
 // The head dim: one library per D (64, 80, 96, 128, 256), built with
 // -DGPTQ_HEAD_DIM. The mma.sync body is a template on D (any multiple of 16:
@@ -166,15 +171,7 @@ struct Staged<T, D, false> {};
 // for fp8; zeros stay zeros), into dst
 template <typename T>
 __device__ __forceinline__ void put8(__nv_bfloat16* dst, const T* x) {
-  float f[2][4];
-  gptq_kv::Kv<T>::load4(x, f[0]);
-  gptq_kv::Kv<T>::load4(x + 4, f[1]);
-  uint4 o;
-  o.x = pack_bf16(f[0][0], f[0][1]);
-  o.y = pack_bf16(f[0][2], f[0][3]);
-  o.z = pack_bf16(f[1][0], f[1][1]);
-  o.w = pack_bf16(f[1][2], f[1][3]);
-  *reinterpret_cast<uint4*>(dst) = o;
+  *reinterpret_cast<uint4*>(dst) = gptq_kv::bf16x8(x);
 }
 
 // 8 elements of type T (one or two 16-byte loads) into x; zeros when !ok
@@ -458,14 +455,45 @@ constexpr int kWKeys256 = 80;
 // registers a thread: 168 at launch (65536 / 384); the producer warpgroup
 // gives up 144 each, the consumers take 72 each (128 x 144 = 256 x 72)
 constexpr int kWConsumerRegs = 240, kWProducerRegs = 24;
+// over a cache of another type than bf16 the producer warpgroup converts
+// tiles and keeps 40 (its loops, the staging addresses and one 8-element
+// unit); the consumers take 232 (128 x 40 + 256 x 232 = 64,512)
+constexpr int kWConvConsumerRegs = 232, kWConvProducerRegs = 40;
 // named barriers: 1 orders the zeroing of V's rows past the causal limit;
 // 2 + w is warpgroup w's turn to issue its products
 constexpr int kBarZero = 1, kBarTurn = 2;
+// bytes of one staging slot at most: a chunk of a K or V tile in its stored
+// type (a whole 128-key tile of fp8 up to D = 128; 32-64 keys of f32)
+constexpr int kWSlotBytes = 16384;
+constexpr int kWMaxSlots = 4;
+constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may have
 
 // The head dims the wgmma body takes: each a whole number of 16-dim k-steps
 // and an m64nDk16 product (at 256 the O accumulator is 128 fp32 a thread).
 constexpr bool wgmma_dim(int d) {
   return d == 64 || d == 80 || d == 96 || d == 128 || d == 256;
+}
+// ... and over a cache of another type than bf16 (kernel 4): at D = 256 a 64
+// KB Q tile and 2 bf16 stages of 80-key K and V tiles take 230,528 of the
+// 232,448 bytes, which leaves no room for a staging ring
+constexpr bool wgmma_kv_dim(int d) { return wgmma_dim(d) && d != 256; }
+
+// the mbarriers of a block with `stages` K and V stages and up to `slots`
+// staging slots, in bytes (128-byte steps)
+constexpr int wgmma_bar_bytes(int stages, int slots) {
+  return ((1 + 4 * stages + 2 * slots) * 8 + 127) / 128 * 128;
+}
+// the bytes a block has left for staging slots beside Q, the stages, the
+// barriers and 1 KB of alignment
+constexpr int wgmma_room(int tile_q, int tile_kv, int stages, int slots) {
+  return kSmemLimit - 1024 - wgmma_bar_bytes(stages, slots) - tile_q - 2 * stages * tile_kv;
+}
+// keys of a staging chunk: the most (a tile's, halved) whose row_bytes-byte
+// rows fit a slot
+constexpr int chunk_keys(int keys, int row_bytes) {
+  int c = keys;
+  while (c * row_bytes > kWSlotBytes && c % 2 == 0 && c > 8) c /= 2;
+  return c;
 }
 
 // The wgmma body's layout at head dim D. A tile (Q: 128 rows; a K or V tile:
@@ -480,34 +508,77 @@ constexpr bool wgmma_dim(int d) {
 // descriptor's lbo). Up to D = 128 a K/V tile holds 128 keys and the rings 3
 // stages; at 256 a 64 KB Q tile leaves room for 2 stages of kWKeys256-key
 // tiles.
-template <int D>
+//
+// T is the cache's stored type. Over bf16 the TMA loads land in the stages
+// themselves. Over another type (up to D = 128) the producer warpgroup fills
+// the bf16 stages: TMA loads of chunks of kChunkKeys keys in the stored type
+// (no swizzle, rows of D elements) land in a ring of kSlots staging slots,
+// the warpgroup's 128 threads convert each into the stage's swizzled rows.
+// The staging ring takes the room of the third bf16 stage where there is no
+// other (D = 128: 2 stages of K and V and 4 slots of 16 KB).
+template <int D, typename T = __nv_bfloat16>
 struct WgmmaDims {
   static_assert(wgmma_dim(D), "the wgmma body takes D = 64, 80, 96, 128 or 256");
+  static constexpr bool kConv = !std::is_same<T, __nv_bfloat16>::value;   // the producer converts
+  static_assert(!kConv || wgmma_kv_dim(D), "a cache of another type than bf16: D <= 128");
   static constexpr int kBoxDims = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
   static constexpr int kBoxes = D / kBoxDims;
   static constexpr int kRowBytes = 2 * kBoxDims;
   static constexpr int kKeys = D == 256 ? kWKeys256 : 128;   // keys per K/V tile
-  static constexpr int kStages = D == 256 ? 2 : kWStages;     // K and V tiles in flight
   static constexpr int kSubQ = kWBQ * kRowBytes;     // one sub-tile of Q
   static constexpr int kSubKV = kKeys * kRowBytes;   // one sub-tile of a K or V tile
   static constexpr int kTileQ = kBoxes * kSubQ;      // 128 rows x D dims, bf16
   static constexpr int kTileKV = kBoxes * kSubKV;    // kKeys rows x D dims, bf16
   static constexpr int kAtom = 8 * kRowBytes;        // 8 rows: the swizzle atom
-  // Q, the K stages, the V stages, then 1 + 4 kStages mbarriers (in 128 B
-  // steps); 1 KB to align the tiles: 230,528 bytes of the 232,448 a block may
-  // have at D = 128 and at 256 (80-key tiles), 173,184 at 96, 144,512 at 80,
-  // 115,840 at 64
-  static constexpr int kBarBytes = ((1 + 4 * kStages) * 8 + 127) / 128 * 128;
-  static constexpr int kSmemBytes = kTileQ + 2 * kStages * kTileKV + kBarBytes + 1024;
+  // the staging ring: chunks of kChunkKeys keys (kChunks a tile), a slot each
+  static constexpr int kChunkKeys = chunk_keys(kKeys, D * (int)sizeof(T));
+  static constexpr int kChunks = kKeys / kChunkKeys;
+  static constexpr int kSlotBytes = kChunkKeys * D * (int)sizeof(T);
+  static constexpr int kMaxSlots = kConv ? kWMaxSlots : 0;
+  // Q, the K stages, the V stages, the staging slots, then 1 + 4 kStages + 2
+  // kMaxSlots mbarriers (in 128 B steps); 1 KB to align the tiles. Over bf16:
+  // 230,528 bytes of the 232,448 a block may have at D = 128 and at 256
+  // (80-key tiles), 173,184 at 96, 144,512 at 80, 115,840 at 64.
+  // K and V tiles in flight: 3 stages (2 at D = 256), 2 where 3 would leave
+  // no room for two staging slots
+  static constexpr int kStages =
+      D == 256 ? 2
+      : (!kConv || wgmma_room(kTileQ, kTileKV, kWStages, kMaxSlots) >= 2 * kSlotBytes)
+          ? kWStages
+          : kWStages - 1;
+  static constexpr int kRoom = wgmma_room(kTileQ, kTileKV, kStages, kMaxSlots);
+  static constexpr int kSlots =
+      kConv ? (kRoom / kSlotBytes < kMaxSlots ? kRoom / kSlotBytes : kMaxSlots) : 0;
+  static constexpr int kBarBytes = wgmma_bar_bytes(kStages, kMaxSlots);
+  static constexpr int kSmemBytes =
+      kTileQ + 2 * kStages * kTileKV + kSlots * kSlotBytes + kBarBytes + 1024;
   static_assert(kKeys == 64 || kKeys == 80 || kKeys == 128, "an S product hopper.cuh has");
-  static_assert(kSmemBytes <= 232448, "the ring fits a block");
+  static_assert(!kConv || (kSlots >= 2 && kChunks * kChunkKeys == kKeys && kSlotBytes % 1024 == 0),
+                "a staging ring of two whole slots or more");
+  static_assert(kSmemBytes <= kSmemLimit, "the ring fits a block");
 };
 
 // grid: (G, ceil(SQ / kWBQ), B * H / G), G heads a group; block: kWThreads;
 // dynamic smem:
-// WgmmaDims<D>::kSmemBytes. tq / tk / tv: 4-D tensor maps (D, heads, rows, B)
+// WgmmaDims<D, T>::kSmemBytes. tq / tk / tv: 4-D tensor maps (D, heads, rows, B)
 // of q and (D, heads, rows, Bkv) of k, v with a box of one sub-tile
-// (kBoxDims, 1, 128 or kKeys, 1) in the swizzle of its row width.
+// (kBoxDims, 1, 128 or kKeys, 1) in the swizzle of its row width; over
+// another type T than bf16, tk / tv have a box of one staging chunk (D, 1,
+// kChunkKeys, 1) in T, unswizzled.
+//
+// The producer warpgroup over such a cache, per chunk of the K(t), V(t - 1)
+// order: its first thread keeps the TMA loads of the next chunks in flight
+// through the staging ring (each slot reloaded once all 128 threads have
+// read it); every thread waits for the chunk, reads 8-element units of it,
+// rounds them to bf16 (kv_dtype.cuh: bf16x8) and stores each as one 16-byte
+// chunk of its row in the stage, at the place the TMA swizzle of that row
+// width puts it (16-byte chunk c of row r of a sub-tile at c ^ ((r kRow /
+// 128) mod (kRow / 16))); keys from kv_end on become zeros, so NaN past the
+// causal limit never reaches the stage. After a tile's last chunk each thread
+// fences its stores for the async proxy and arrives on the stage's full
+// barrier (128 arrivals: no transaction count). The consumers run as over
+// bf16: the stages hold the same bf16 values as a bf16 cache decoded from
+// this one would give them, so the output is the same bit for bit.
 //
 // Each consumer warpgroup runs, per key tile t: wait for its turn; issue S(t)
 // = Q K(t)^T and O += P(t-1) V(t-1); hand the turn to the other warpgroup;
@@ -516,18 +587,19 @@ struct WgmmaDims {
 // softmax runs while the other's products do, and within a warpgroup the
 // softmax of tile t overlaps P(t-1) V(t-1). O sees the same operations in the
 // same order as O = O a(t) + P(t) V(t) tile after tile.
-template <int D, bool OFFSET>
+template <int D, bool OFFSET, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                    int SQ, int Bkv, int SKV, int H, int Hkv, const int* __restrict__ q_offset,
                    const int* __restrict__ rows, float scale) {
   using namespace gptq_hopper;
-  using WD = WgmmaDims<D>;
+  using WD = WgmmaDims<D, T>;
   constexpr int kTileQ = WD::kTileQ, kTileKV = WD::kTileKV;
   constexpr int kSubQ = WD::kSubQ, kSubKV = WD::kSubKV;
   constexpr int kRow = WD::kRowBytes, kAtom = WD::kAtom;
   constexpr int kKeys = WD::kKeys, kStages = WD::kStages;
+  constexpr int kSlots = WD::kSlots;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -535,12 +607,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   const uint32_t sq = base;                                  // Q: sub-tiles kSubQ apart
   auto sk = [&](int st) { return base + kTileQ + st * kTileKV; };
   auto sv = [&](int st) { return base + kTileQ + (kStages + st) * kTileKV; };
-  const uint32_t bars = base + kTileQ + 2 * kStages * kTileKV;
+  // staging slot i (over another type than bf16)
+  auto stg = [&](int i) { return base + kTileQ + 2 * kStages * kTileKV + i * WD::kSlotBytes; };
+  const uint32_t bars = base + kTileQ + 2 * kStages * kTileKV + kSlots * WD::kSlotBytes;
   const uint32_t q_full = bars;
   auto k_full = [&](int st) { return bars + 8 * (1 + st); };
   auto v_full = [&](int st) { return bars + 8 * (1 + kStages + st); };
   auto k_empty = [&](int st) { return bars + 8 * (1 + 2 * kStages + st); };
   auto v_empty = [&](int st) { return bars + 8 * (1 + 3 * kStages + st); };
+  // a staging slot's chunk landed / read by every converting thread
+  auto s_full = [&](int i) { return bars + 8 * (1 + 4 * kStages + i); };
+  auto s_empty = [&](int i) { return bars + 8 * (1 + 4 * kStages + kSlots + i); };
   // key tile t sits in stage t % kStages; its barriers complete their
   // (t / kStages)-th phase when it lands and when it is released
   auto parity = [](int t) { return (uint32_t)((t / kStages) & 1); };
@@ -572,43 +649,143 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     mbar_init(q_full, 1);
 #pragma unroll
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(k_full(st), 1);
-      mbar_init(v_full(st), 1);
+      // over bf16 one arrival with the tile's bytes; else every producer thread
+      mbar_init(k_full(st), WD::kConv ? 128 : 1);
+      mbar_init(v_full(st), WD::kConv ? 128 : 1);
       mbar_init(k_empty(st), 8);   // lane 0 of each consumer warp
       mbar_init(v_empty(st), 8);
+    }
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      mbar_init(s_full(i), 1);
+      mbar_init(s_empty(i), 128);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (warp >= 8) {
-    // producer warpgroup: one lane of its first warp issues every copy, in
-    // the order the consumers take them: K(t), then V(t - 1)
-    reg_dealloc<kWProducerRegs>();
-    if (warp == 8 && lane == 0) {
-      tma_prefetch_desc(&tq);
-      tma_prefetch_desc(&tk);
-      tma_prefetch_desc(&tv);
-      mbar_expect_tx(q_full, kTileQ);
-      tma_tile(sq, kSubQ, &tq, q_full, h, q0, b);
-      for (int t = 0; t <= n_kt; ++t) {
-        if (t < n_kt) {
-          const int st = t % kStages;
-          if (t >= kStages) mbar_wait(k_empty(st), parity(t - kStages));
-          mbar_expect_tx(k_full(st), kTileKV);
-          tma_tile(sk(st), kSubKV, &tk, k_full(st), kvh, t * kKeys, kb);
+    if constexpr (WD::kConv) {
+      reg_dealloc<kWConvProducerRegs>();
+      const int ct = tid - 256;   // 0 .. 127; 0 issues the copies
+      if (ct == 0) {
+        tma_prefetch_desc(&tq);
+        mbar_expect_tx(q_full, kTileQ);
+        tma_tile(sq, kSubQ, &tq, q_full, h, q0, b);
+      }
+      // item i of the order the consumers take the tiles: K(0), K(1), V(0),
+      // K(2), V(1), ..., K(n_kt - 1), V(n_kt - 2), V(n_kt - 1); returns
+      // whether it is V and its tile
+      const int n_items = 2 * n_kt;
+      auto item = [&](int i, int& tile) {
+        tile = i == 0 ? 0 : i == n_items - 1 ? n_kt - 1 : (i & 1) ? (i + 1) >> 1 : (i >> 1) - 1;
+        return i != 0 && (i == n_items - 1 || !(i & 1));
+      };
+      constexpr int kRowUnits = D / 8;   // 8-element units a row
+      constexpr int kChunks = WD::kChunks, kCK = WD::kChunkKeys;
+      const int n_chunks = n_items * kChunks;
+      auto issue = [&](int j) {   // chunk j into slot j % kSlots
+        int tile;
+        const bool is_v = item(j / kChunks, tile);
+        const int i = j % kSlots;
+        mbar_expect_tx(s_full(i), WD::kSlotBytes);
+        tma_load_4d(stg(i), is_v ? &tv : &tk, s_full(i), 0, kvh,
+                    tile * kKeys + j % kChunks * kCK, kb);
+      };
+      if (ct == 0) {
+        tma_prefetch_desc(&tk);
+        tma_prefetch_desc(&tv);
+        for (int j = 0; j < kSlots && j < n_chunks; ++j) issue(j);
+      }
+      for (int j = 0; j < n_chunks; ++j) {
+        // slot (j - 1) % kSlots, read by all, takes chunk j - 1 + kSlots
+        if (ct == 0 && j >= 1 && j - 1 + kSlots < n_chunks) {
+          mbar_wait(s_empty((j - 1) % kSlots), (uint32_t)(((j - 1) / kSlots) & 1));
+          issue(j - 1 + kSlots);
         }
-        if (t >= 1) {
-          const int u = t - 1, st = u % kStages;
-          if (u >= kStages) mbar_wait(v_empty(st), parity(u - kStages));
-          mbar_expect_tx(v_full(st), kTileKV);
-          tma_tile(sv(st), kSubKV, &tv, v_full(st), kvh, u * kKeys, kb);
+        int tile;
+        const bool is_v = item(j / kChunks, tile);
+        const int c = j % kChunks, i = j % kSlots;
+        // before a tile's first chunk: its stage released by the consumers
+        if (c == 0 && tile >= kStages)
+          mbar_wait(is_v ? v_empty(tile % kStages) : k_empty(tile % kStages),
+                    parity(tile - kStages));
+        mbar_wait(s_full(i), (uint32_t)((j / kSlots) & 1));
+        const T* src = reinterpret_cast<const T*>(sbase + (stg(i) - base));
+        const uint32_t dst = is_v ? sv(tile % kStages) : sk(tile % kStages);
+        const int key0 = tile * kKeys + c * kCK;
+        if constexpr (128 % kRowUnits == 0 && kRow == 128) {
+          // D = 64, 128: each thread keeps one 8-element column and takes
+          // every kPass-th row from r0, a whole number of swizzle atoms
+          // apart, so its 16-byte chunk's place in a row never moves; kU
+          // units in flight
+          constexpr int kPass = 128 / kRowUnits, kU = sizeof(T) == 1 ? 4 : 2;
+          static_assert(kPass % 8 == 0 && kCK % (kPass * kU) == 0, "whole atoms, whole batches");
+          const int c8 = ct % kRowUnits, r0 = ct / kRowUnits;
+          const int box = c8 * 8 / WD::kBoxDims, k16 = c8 % (WD::kBoxDims / 8);
+          unsigned char* to = sbase + (dst - base) + box * kSubKV + (c * kCK + r0) * kRow +
+                              ((k16 ^ (r0 & 7)) << 4);
+          const T* from = src + r0 * D + c8 * 8;
+#pragma unroll 1
+          for (int r = 0; r < kCK; r += kPass * kU) {
+            alignas(16) T x[kU][8];
+#pragma unroll
+            for (int a = 0; a < kU; ++a)
+              load8(x[a], from + (r + a * kPass) * D, key0 + r0 + r + a * kPass < kv_end);
+#pragma unroll
+            for (int a = 0; a < kU; ++a)
+              *reinterpret_cast<uint4*>(to + (r + a * kPass) * kRow) = gptq_kv::bf16x8(x[a]);
+          }
+        } else {
+          // D = 80, 96: unit u of the chunk into row rr of the stage, 16
+          // bytes at the place the TMA swizzle would put them
+#pragma unroll 2
+          for (int u = ct; u < kCK * kRowUnits; u += 128) {
+            const int r = u / kRowUnits, rr = c * kCK + r, c8 = u % kRowUnits;
+            const int box = c8 * 8 / WD::kBoxDims, k16 = c8 % (WD::kBoxDims / 8);
+            alignas(16) T x[8];
+            load8(x, src + u * 8, key0 + r < kv_end);
+            *reinterpret_cast<uint4*>(sbase + (dst - base) + box * kSubKV + rr * kRow +
+                                      ((k16 ^ ((rr * kRow >> 7) & (kRow / 16 - 1))) << 4)) =
+                gptq_kv::bf16x8(x);
+          }
+        }
+        mbar_arrive(s_empty(i));
+        // after a tile's last chunk: the stores visible to wgmma, the stage full
+        if (c == kChunks - 1) {
+          fence_proxy_async();
+          mbar_arrive(is_v ? v_full(tile % kStages) : k_full(tile % kStages));
+        }
+      }
+    } else {
+      // producer warpgroup: one lane of its first warp issues every copy, in
+      // the order the consumers take them: K(t), then V(t - 1)
+      reg_dealloc<kWProducerRegs>();
+      if (warp == 8 && lane == 0) {
+        tma_prefetch_desc(&tq);
+        tma_prefetch_desc(&tk);
+        tma_prefetch_desc(&tv);
+        mbar_expect_tx(q_full, kTileQ);
+        tma_tile(sq, kSubQ, &tq, q_full, h, q0, b);
+        for (int t = 0; t <= n_kt; ++t) {
+          if (t < n_kt) {
+            const int st = t % kStages;
+            if (t >= kStages) mbar_wait(k_empty(st), parity(t - kStages));
+            mbar_expect_tx(k_full(st), kTileKV);
+            tma_tile(sk(st), kSubKV, &tk, k_full(st), kvh, t * kKeys, kb);
+          }
+          if (t >= 1) {
+            const int u = t - 1, st = u % kStages;
+            if (u >= kStages) mbar_wait(v_empty(st), parity(u - kStages));
+            mbar_expect_tx(v_full(st), kTileKV);
+            tma_tile(sv(st), kSubKV, &tv, v_full(st), kvh, u * kKeys, kb);
+          }
         }
       }
     }
   } else {
     // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
-    reg_alloc<kWConsumerRegs>();
+    reg_alloc<WD::kConv ? kWConvConsumerRegs : kWConsumerRegs>();
     const int wg = warp >> 2, wi = warp & 3;
     const int g = lane >> 2, t4 = lane & 3;
     const int row_lo = q0 + wg * 64 + wi * 16 + g, row_hi = row_lo + 8;
@@ -758,10 +935,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // the last tile's P V
     const int lst = (n_kt - 1) % kStages;
     mbar_wait(v_full(lst), parity(n_kt - 1));
-    if (OFFSET && kv_end < min(SKV, (n_kt - 1) * kKeys + kKeys)) {
+    if (!WD::kConv && OFFSET && kv_end < min(SKV, (n_kt - 1) * kKeys + kKeys)) {
       // the cache's slots from kv_end to the tile's edge may hold NaN: zero
       // their V rows (in every sub-tile; a swizzle moves 16-byte chunks
-      // within a row only) before P V reads them
+      // within a row only) before P V reads them (over another type than
+      // bf16 the producer stored zeros there)
       constexpr int kRowChunks = kRow / 16, kChunks = WD::kBoxes * kRowChunks;
       const int r0 = kv_end - (n_kt - 1) * kKeys;
       const int chunks = (kKeys - r0) * kChunks;
@@ -831,35 +1009,86 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads, i
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The tensor map of a (Bkv, rows, heads, D) cache k or v of type T as the
+// wgmma body over T reads it: over bf16 the map above; over another type a
+// box of one staging chunk (D elements x 1 head x kChunkKeys rows x 1 batch
+// row, unswizzled: the producer's threads read it), the same coordinates,
+// the strides D, D heads, D heads rows times the itemsize (multiples of 16
+// bytes).
+template <int D, typename T>
+bool tensor_map_kv(CUtensorMap* map, const void* ptr, int B, int rows, int heads) {
+  using WD = WgmmaDims<D, T>;
+  if constexpr (!WD::kConv) {
+    return tensor_map<D>(map, ptr, B, rows, heads, WD::kKeys);
+  } else {
+    EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return false;
+    constexpr cuuint64_t kIsz = sizeof(T);
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {D * kIsz, (cuuint64_t)heads * D * kIsz,
+                                   (cuuint64_t)rows * heads * D * kIsz};
+    const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)WD::kChunkKeys, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    return fn(map, kIsz == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+              const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
+}
+
 // The two bodies: the wrapper's plan names one
 enum Path { kSync = 0, kWgmma = 1 };
 
-// Dynamic shared memory of one block of body `path` at this library's D (0
-// where the body does not run).
-template <int D = kHeadDim>
+// Whether the wgmma body takes a cache of type T at head dim D
+template <int D, typename T>
+constexpr bool wgmma_takes() {
+  return std::is_same<T, __nv_bfloat16>::value ? wgmma_dim(D) : wgmma_kv_dim(D);
+}
+
+// Dynamic shared memory of one block of body `path` at this library's D over
+// a cache of type T (0 where the body does not run).
+template <int D = kHeadDim, typename T = __nv_bfloat16>
 int smem_bytes(int path) {
   if (path == kWgmma) {
-    if constexpr (wgmma_dim(D)) return WgmmaDims<D>::kSmemBytes;
+    if constexpr (wgmma_takes<D, T>()) return WgmmaDims<D, T>::kSmemBytes;
     return 0;
   }
   return SyncDims<D>::kSmemBytes;
 }
 
-// One launch of the wgmma body at head dim D (bf16 q, k, v); sets the dynamic
-// shared memory attribute once, as launch below.
-template <int D, bool OFFSET>
+// The wgmma body's layout at this library's D over a cache of type T, as
+// ops/cuda/flash.py:wgmma_layout mirrors it: K and V stages, keys of a
+// staging chunk, staging slots, staging bytes, dynamic shared memory (all 0
+// where the body does not take T).
+template <typename T>
+void wgmma_layout(int* out) {
+  if constexpr (wgmma_takes<kHeadDim, T>()) {
+    using WD = WgmmaDims<kHeadDim, T>;
+    out[0] = WD::kStages;
+    out[1] = WD::kConv ? WD::kChunkKeys : 0;
+    out[2] = WD::kSlots;
+    out[3] = WD::kSlots * WD::kSlotBytes;
+    out[4] = WD::kSmemBytes;
+  } else {
+    for (int i = 0; i < 5; ++i) out[i] = 0;
+  }
+}
+
+// One launch of the wgmma body at head dim D (bf16 q; k, v of type T); sets
+// the dynamic shared memory attribute once, as launch below.
+template <int D, bool OFFSET, typename T>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, __nv_bfloat16* out,
                          int B, int SQ, int Bkv, int SKV, int H, int Hkv, const int* q_offset,
                          const int* rows, float scale, cudaStream_t stream) {
-  constexpr int kSmem = WgmmaDims<D>::kSmemBytes;
-  auto kern = flash_wgmma_kernel<D, OFFSET>;
+  constexpr int kSmem = WgmmaDims<D, T>::kSmemBytes;
+  auto kern = flash_wgmma_kernel<D, OFFSET, T>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap tq, tk, tv;
-  constexpr int kKeys = WgmmaDims<D>::kKeys;
-  if (!tensor_map<D>(&tq, q, B, SQ, H, kWBQ) || !tensor_map<D>(&tk, k, Bkv, SKV, Hkv, kKeys) ||
-      !tensor_map<D>(&tv, v, Bkv, SKV, Hkv, kKeys))
+  if (!tensor_map<D>(&tq, q, B, SQ, H, kWBQ) || !tensor_map_kv<D, T>(&tk, k, Bkv, SKV, Hkv) ||
+      !tensor_map_kv<D, T>(&tv, v, Bkv, SKV, Hkv))
     return cudaErrorInvalidValue;
   // heads a group, a divisor of H: the fewest whose query tiles fill the
   // SMs once; past 16 waves of blocks one (the query tile fastest: a head's
@@ -889,19 +1118,19 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, __nv_bfloa
 // k/v are (Bkv, SKV, Hkv, D) of element type T: the tensor maps cover the
 // whole cache, so a launch captured in a CUDA graph replays over the same
 // tensors whatever offset and rows the device buffers hold (kernel 4).
-// Kernel 5 passes null offset and rows, Bkv = B and bf16. A cache of another
-// type than bf16 takes the mma.sync body only: asked for the wgmma body, it
-// returns cudaErrorInvalidValue (as would a head dim outside wgmma_dim).
+// Kernel 5 passes null offset and rows, Bkv = B and bf16. The wgmma body
+// takes a cache of another type than bf16 at D = 64, 80, 96 and 128; asked
+// for it at D = 256 (or at a head dim outside wgmma_dim), launch returns
+// cudaErrorInvalidValue: no body stands in for another.
 template <bool OFFSET, typename T = __nv_bfloat16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int SQ,
                    int Bkv, int SKV, int H, int Hkv, const int* q_offset, const int* rows,
                    float scale, int path, cudaStream_t stream) {
   auto* ob = static_cast<__nv_bfloat16*>(out);
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   if (path == kWgmma) {
-    if constexpr (kBf16 && wgmma_dim(kHeadDim)) {
-      return launch_wgmma<kHeadDim, OFFSET>(q, k, v, ob, B, SQ, Bkv, SKV, H, Hkv, q_offset, rows,
-                                            scale, stream);
+    if constexpr (wgmma_takes<kHeadDim, T>()) {
+      return launch_wgmma<kHeadDim, OFFSET, T>(q, k, v, ob, B, SQ, Bkv, SKV, H, Hkv, q_offset,
+                                               rows, scale, stream);
     } else {
       return cudaErrorInvalidValue;
     }

@@ -30,11 +30,15 @@
 // across blocks is needed there (PERF.md).
 //
 // The cache may be stored in bf16, f32, fp8-e4m3 or fp8-e5m2 and is read in
-// that type: a cache other than bf16 runs the mma.sync body at every length,
-// its tiles rounded to bf16 on their way into shared memory as the TPU
-// kernel's _load_bf16 reads them (an f32 cache is rounded before q k^T; e4m3
-// codes 0x7F / 0xFF read as +-480); the bytes it reads shrink with the
-// cache's itemsize.
+// that type, its tiles rounded to bf16 on their way into shared memory as the
+// TPU kernel's _load_bf16 reads them (an f32 cache is rounded before q k^T;
+// e4m3 codes 0x7F / 0xFF read as +-480); the bytes it reads shrink with the
+// cache's itemsize. Both bodies take every cache dtype at D = 64, 80, 96 and
+// 128, under the same plan as bf16: the mma.sync body rounds each tile in
+// registers, the wgmma body's producer warpgroup converts TMA staging chunks
+// into its bf16 stages (flash_common.cuh), so its output over such a cache
+// equals its output over the cache decoded to bf16 bit for bit. At D = 256
+// such a cache takes the mma.sync body only (no room for a staging ring).
 #include "flash_common.cuh"
 
 extern "C" const char* gptq_error_string(int e) {
@@ -45,7 +49,7 @@ extern "C" const char* gptq_error_string(int e) {
 // (gptq_kv::Code: bf16, f32, e4m3, e5m2); q_offset: device pointer to one
 // int32; rows: device pointer to B int32, or null (batch row b attends cache
 // row b; then Bkv == B). path: gptq_flash::kSync or kWgmma (a bf16 cache at
-// D = 64, 80, 96, 128, 256).
+// D = 64, 80, 96, 128, 256, another at 64, 80, 96, 128).
 extern "C" int gptq_flash_prefill_blocked(const void* q, const void* k, const void* v,
                                           void* out, int B, int SQ, int Bkv, int SKV, int H,
                                           int Hkv, int D, const int* q_offset, const int* rows,
@@ -58,5 +62,16 @@ extern "C" int gptq_flash_prefill_blocked(const void* q, const void* k, const vo
     return gptq_flash::launch<true, decltype(t)>(q, k, v, out, B, SQ, Bkv, SKV, H, Hkv, q_offset,
                                                  rows, scale, path,
                                                  static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// The wgmma body's layout over a cache of dtype ``kv`` at this library's D
+// into out[5]: K and V stages, keys of a staging chunk, staging slots,
+// staging bytes, dynamic shared memory (zeros where the body does not take
+// the dtype); ops/cuda/flash.py:wgmma_layout mirrors it.
+extern "C" int gptq_flash_wgmma_layout(int kv, int* out) {
+  return static_cast<int>(gptq_kv::dispatch(kv, [&](auto t) {
+    gptq_flash::wgmma_layout<decltype(t)>(out);
+    return cudaSuccess;
   }));
 }

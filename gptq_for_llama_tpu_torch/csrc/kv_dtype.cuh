@@ -12,7 +12,9 @@
 //    byte permute; e5m2 is an fp16 with 8 low zero bits (exact, inf and NaN
 //    included); f32 and bf16 load as they are.
 //  - kernel 4 rounds that value to bf16 (its operand type), nearest even, as
-//    ops/pallas/flash.py:_load_bf16 does: exact for every fp8 code.
+//    ops/pallas/flash.py:_load_bf16 does: exact for every fp8 code (bf16x8,
+//    the same in both of its bodies; e4m3 there by the pair form
+//    e4m3x2_bf16, which gives those bf16 bits without a float conversion).
 //  - encode is JAX's astype from a bf16 (or f32) value: round to nearest even;
 //    an e4m3 overflow (|x| > 464), inf or NaN becomes the NaN code 0x7F with
 //    the sign, not 448 (satfinite saturates); e5m2 overflows to +-inf.
@@ -132,6 +134,51 @@ struct Kv<e5m2> {
     for (int i = 0; i < 4; ++i) f[i] = e5m2_float(u >> (8 * i));
   }
 };
+
+// 8 consecutive elements of type T (in registers or shared memory) as 8 bf16
+// in 16 bytes, nearest even: kernel 4's operands, as ops/pallas/flash.py's
+// _load_bf16 reads the cache (exact for every fp8 code, e4m3's 0x7F / 0xFF
+// as +-480; zeros stay zeros). Both bodies of kernel 4 convert through it:
+// the mma.sync body's threads on a tile's way into shared memory, the wgmma
+// body's producer warpgroup from its staging ring into the bf16 stage.
+template <typename T>
+__device__ __forceinline__ uint4 bf16x8(const T* x) {
+  float f[2][4];
+  Kv<T>::load4(x, f[0]);
+  Kv<T>::load4(x + 4, f[1]);
+  alignas(16) __nv_bfloat162 o[4] = {__floats2bfloat162_rn(f[0][0], f[0][1]),
+                                     __floats2bfloat162_rn(f[0][2], f[0][3]),
+                                     __floats2bfloat162_rn(f[1][0], f[1][1]),
+                                     __floats2bfloat162_rn(f[1][2], f[1][3])};
+  return *reinterpret_cast<const uint4*>(o);
+}
+
+// two e4m3 codes, at bits 8-15 and 24-31 of t (the other bits zero), as a
+// bf16 pair without a float conversion: each code's sign to bit 15 of its
+// lane and its exponent and mantissa to bits 4-10 give the bf16 of its value
+// times 2^-120 (bf16's exponent bias is 120 above e4m3's; a subnormal code
+// lands on a subnormal bf16 of the same mantissa, and exponent field 15 is
+// finite), and one bf16 multiply by 2^120, exact, gives the value (0x7F /
+// 0xFF: +-480, as _load_bf16 reads them; 0x80: -0). mul.bf16x2 keeps
+// subnormal inputs (PTX has no .ftz for bf16). tests/test_torch_kv_dtype.py
+// holds a numpy model of these bits to JAX's _load_bf16 on all 256 codes.
+__device__ __forceinline__ uint32_t e4m3x2_bf16(uint32_t t) {
+  const uint32_t b = (t & 0x80008000u) | ((t >> 4) & 0x07F007F0u);
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(b), "r"(0x7B807B80u));   // x 2^120
+  return d;
+}
+
+// e4m3 through the pair form above: 4 byte permutes, 8 logic operations and 4
+// multiplies for 8 codes, where the float route takes about 40 instructions
+template <>
+__device__ __forceinline__ uint4 bf16x8(const e4m3* x) {
+  const uint2 u = *reinterpret_cast<const uint2*>(x);
+  return make_uint4(e4m3x2_bf16(__byte_perm(u.x, 0u, 0x1404)),    // codes 0, 1
+                    e4m3x2_bf16(__byte_perm(u.x, 0u, 0x3424)),    // codes 2, 3
+                    e4m3x2_bf16(__byte_perm(u.y, 0u, 0x1404)),
+                    e4m3x2_bf16(__byte_perm(u.y, 0u, 0x3424)));
+}
 
 // The cache dtype codes of the C entry points (ops/kv_dtype.py:KV_CODES)
 enum Code { kBf16 = 0, kF32 = 1, kE4m3 = 2, kE5m2 = 3 };

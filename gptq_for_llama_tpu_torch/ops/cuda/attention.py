@@ -288,10 +288,12 @@ def _decode_launch(q, k_cache, v_cache, offset, scale: float, plan: DecodePlan) 
 def new_forms(by_dtype: bool = True, bodies: tuple = ()) -> dict:
     """Launch counts by cache dtype (``by_dtype``), by head dim (``d64`` ...
     ``d256``) and, for kernels of several bodies, by body and head dim
-    (``wgmma:d96``)."""
-    return dict.fromkeys((*(kv_dtype.KV_DTYPES if by_dtype else ()),
-                          *(f"d{d}" for d in HEAD_DIMS),
-                          *(f"{body}:d{d}" for body in bodies for d in HEAD_DIMS)), 0)
+    (``wgmma:d96``) and, with ``by_dtype``, by body and cache dtype
+    (``wgmma:fp8``)."""
+    names = tuple(kv_dtype.KV_DTYPES) if by_dtype else ()
+    return dict.fromkeys((*names, *(f"d{d}" for d in HEAD_DIMS),
+                          *(f"{body}:d{d}" for body in bodies for d in HEAD_DIMS),
+                          *(f"{body}:{name}" for body in bodies for name in names)), 0)
 
 
 def count_forms(wrapper, dtype, d: int, body: str | None = None) -> None:
@@ -303,6 +305,8 @@ def count_forms(wrapper, dtype, d: int, body: str | None = None) -> None:
     wrapper.forms[f"d{d}"] += 1
     if body is not None:
         wrapper.forms[f"{body}:d{d}"] += 1
+        if f"{body}:{name}" in wrapper.forms:
+            wrapper.forms[f"{body}:{name}"] += 1
 
 
 decode_attention_cuda.launches = 0

@@ -20,18 +20,26 @@ The cache may be stored in bf16, f32, fp8-e4m3 or fp8-e5m2
 (``ops/kv_dtype.py``). The kernel reads it in that type and rounds K and V to
 bf16, its operand type, as the TPU kernel's ``_load_bf16`` does: an f32 cache
 is rounded before q k^T (kernels 3, 7 and 9 keep it in f32), an fp8 code is
-exact in bf16 (e4m3 codes 0x7F / 0xFF read as +-480). A cache other than bf16
-runs the ``mma.sync`` body at every length (``plan_kv``); the plain version
-reads the cache through ``kv_dtype.decode`` into q's dtype, the same rule.
-The kernel takes the head dims of ``attention.HEAD_DIMS``, one library each,
-and over a bf16 cache both bodies at each of them (``flash_prefill.plan``);
-it counts its launches by cache dtype, by head dim, and by body and head dim
-(``wgmma:d256``).
+exact in bf16 (e4m3 codes 0x7F / 0xFF read as +-480). The plain version reads
+the cache through ``kv_dtype.decode`` into q's dtype, the same rule. The
+kernel takes the head dims of ``attention.HEAD_DIMS``, one library each, and
+both bodies at each of them over a bf16 cache, and at ``WGMMA_KV_HEAD_DIMS``
+(64, 80, 96, 128) over the other dtypes, under the same plan
+(``plan_kv``: bf16's crossover, but for f32 at D = 80 and 96,
+``SYNC_ONLY_KV``, which keeps the ``mma.sync`` body): there the ``wgmma`` body's producer warpgroup
+converts TMA staging chunks of the stored tiles into its bf16 stages
+(``wgmma_layout``), so its output equals its output over the cache decoded to
+bf16, bit for bit. At D = 256 such a cache takes the ``mma.sync`` body at
+every length (``plan_kv``: no shared memory left for a staging ring), and the
+``wgmma`` body forced there raises. It counts its launches by cache dtype, by
+head dim, by body and head dim (``wgmma:d256``) and by body and cache dtype
+(``wgmma:fp8``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -75,6 +83,17 @@ def _entry(d: int):
     return fn
 
 
+def library_layout(d: int, dtype: torch.dtype) -> Layout | None:
+    """The wgmma body's layout as the built library at head dim ``d``
+    reports it for ``dtype`` (the card's build; None where the body does not
+    take the dtype)."""
+    lib = build.library("flash_prefill_blocked", d)
+    out = (ctypes.c_int * 5)()
+    build.check(lib, lib.gptq_flash_wgmma_layout(kv_dtype.KV_CODES[dtype], out),
+                "gptq_flash_wgmma_layout")
+    return Layout(*out) if out[4] else None
+
+
 def _device_offset(q_offset, bound, sq: int, device) -> tuple[torch.Tensor, int]:
     """The offset as the kernel reads it, a 1-element int32 tensor on the
     card, and the plan bound. A host int becomes such a tensor (a fill, no
@@ -98,13 +117,77 @@ def _device_offset(q_offset, bound, sq: int, device) -> tuple[torch.Tensor, int]
     return off_t, int(bound)
 
 
+# The head dims at which the wgmma body takes a cache of another dtype than
+# bf16 (csrc/flash_common.cuh: wgmma_kv_dim)
+WGMMA_KV_HEAD_DIMS = (64, 80, 96, 128)
+SMEM_LIMIT = 232448   # dynamic shared memory a block may have (H100)
+SLOT_BYTES, MAX_SLOTS = 16384, 4   # a staging slot at most, and the slots
+
+
+class Layout(NamedTuple):
+    """The wgmma body's shared memory over one cache dtype at one head dim
+    (``csrc/flash_common.cuh``: ``WgmmaDims``): K and V stages, keys of a
+    staging chunk, staging slots, staging bytes, dynamic shared memory."""
+    stages: int
+    chunk_keys: int
+    slots: int
+    staging_bytes: int
+    smem: int
+
+
+def wgmma_layout(d: int, dtype: torch.dtype) -> Layout | None:
+    """A mirror of the wgmma body's layout at head dim ``d`` over a cache of
+    ``dtype`` (None where the body does not take it). Q is a 128-row tile, K
+    and V tiles hold 128 keys (80 at D = 256), all bf16 in sub-tiles of the
+    widest swizzle (64, 32 or 16 dims). Over another dtype than bf16 a ring of
+    up to 4 staging slots, each a chunk of a tile in the stored type (the most
+    keys, halving, whose rows fit 16 KB), takes the room of a third bf16 stage
+    where there is no other. 1 + 4 stages (+ 2 a slot, counted at 4 slots)
+    mbarriers in 128-byte steps and 1 KB of alignment complete the block; the
+    library's ``gptq_flash_wgmma_layout`` reports the same."""
+    if dtype != torch.bfloat16 and d not in WGMMA_KV_HEAD_DIMS:
+        return None
+    box = 64 if d % 64 == 0 else 32 if d % 32 == 0 else 16
+    keys = 80 if d == 256 else 128
+    tile_q, tile_kv = 128 * (d // box) * 2 * box, keys * (d // box) * 2 * box
+    staged = dtype != torch.bfloat16
+    row = d * dtype.itemsize
+    chunk = keys
+    while chunk * row > SLOT_BYTES and chunk % 2 == 0 and chunk > 8:
+        chunk //= 2
+    slot, max_slots = chunk * row, MAX_SLOTS if staged else 0
+
+    def bars(stages):
+        return ((1 + 4 * stages + 2 * max_slots) * 8 + 127) // 128 * 128
+
+    def room(stages):
+        return SMEM_LIMIT - 1024 - bars(stages) - tile_q - 2 * stages * tile_kv
+
+    stages = 2 if d == 256 else 3 if not staged or room(3) >= 2 * slot else 2
+    slots = min(max_slots, room(stages) // slot) if staged else 0
+    return Layout(stages, chunk if staged else 0, slots, slots * slot,
+                  tile_q + 2 * stages * tile_kv + slots * slot + bars(stages) + 1024)
+
+
+# Over f32 at D = 80 and 96 the wgmma body's producer warpgroup converts
+# 32-key chunks of 320 / 384-byte rows more slowly than the consumers take
+# them, and the mma.sync body won at every chunk measured, up to SQ = 100 at
+# offset 1900 (70.73 against 82.86 us at D = 80, 78.01 against 86.43 at 96;
+# NVIDIA H100 80GB HBM3, 700 W; scripts/torch_flash_bodies.py --kv f32), so
+# kernel 4 keeps it there at every length. fp8 caches, and f32 at D = 64 and
+# 128, cross where bf16 does (within the run-to-run spread at 256 keys).
+SYNC_ONLY_KV = {(torch.float32, 80), (torch.float32, 96)}
+
+
 def plan_kv(sq: int, q_offset: int, dtype: torch.dtype, d: int = 128) -> str:
     """The body kernel 4 launches over a cache of ``dtype`` at head dim
-    ``d``: kernel 5's plan (``flash_prefill.plan``: the ``mma.sync`` body
-    for short prefixes, ``SYNC_MAX_KEYS[d]``, and the ``wgmma`` body above)
-    for bf16, the ``mma.sync`` body at every length for fp8 and f32 caches
-    (the ``wgmma`` body's TMA tiles take bf16 only)."""
-    return plan(sq, q_offset, d) if dtype == torch.bfloat16 else "sync"
+    ``d``: kernel 5's plan ``flash_prefill.plan`` (the ``mma.sync`` body up
+    to ``flash_prefill.SYNC_MAX_KEYS[d]`` keys of offset + SQ, the ``wgmma`` body above),
+    but the ``mma.sync`` body at every length over fp8 and f32 caches at D =
+    256 (not in ``WGMMA_KV_HEAD_DIMS``) and over the ``SYNC_ONLY_KV`` pairs."""
+    if dtype != torch.bfloat16 and (d not in WGMMA_KV_HEAD_DIMS or (dtype, d) in SYNC_ONLY_KV):
+        return "sync"
+    return plan(sq, q_offset, d)
 
 
 def flash_prefill_blocked_cuda(q, k, v, q_offset, scale: float, bound=None,
@@ -136,8 +219,9 @@ def flash_prefill_blocked_cuda(q, k, v, q_offset, scale: float, bound=None,
 
 def _launch(q, k, v, q_offset, scale: float, path: str, rows=None) -> torch.Tensor:
     """One launch of kernel 4 on checked operands through body ``path`` (a
-    measurement may force one; the ``wgmma`` body takes a bf16 cache only);
-    ``q_offset`` a host int or the offset tensor."""
+    measurement may force one; the ``wgmma`` body takes fp8 and f32 caches at
+    ``WGMMA_KV_HEAD_DIMS`` only, and raises elsewhere); ``q_offset`` a host
+    int or the offset tensor."""
     b, sq, h, d = q.shape
     if not isinstance(q_offset, torch.Tensor):
         q_offset = torch.full((1,), int(q_offset), dtype=torch.int32, device=q.device)
@@ -154,7 +238,8 @@ def _launch(q, k, v, q_offset, scale: float, path: str, rows=None) -> torch.Tens
 
 
 flash_prefill_blocked_cuda.launches = 0
-# launches by cache dtype, by head dim, and by body and head dim
+# launches by cache dtype, by head dim, by body and head dim, and by body and
+# cache dtype
 flash_prefill_blocked_cuda.forms = new_forms(bodies=tuple(PATH_IDS))
 
 

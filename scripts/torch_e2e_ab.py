@@ -4,7 +4,7 @@ trees in one call (run it once per tree, in turns: parent, change, change,
 parent).
 
     python3 scripts/torch_e2e_ab.py [--root TREE] [--label NAME] [--json PATH]
-                                    [--legs 7b,decode,serve,eval,lora,neox,d256]
+                                    [--legs 7b,decode,serve,eval,lora,neox,d256,kvdtype]
 
 ``--root`` names the checkout whose package is driven (default: this
 script's own); the script uses only what every tree since tensor
@@ -38,9 +38,16 @@ card's name and power limit:
   over 2 kv heads, 2 layers, INT4 g128 ``gaussian_wire_llama``, seed 256, the
   smoke's ``LLAMA_256``): the prefill of 37, 100 and 201 tokens as above and
   the perplexity eval's forward (``window_nll``) at 8 x 2048, tok/s, median
-  of 3.
+  of 3;
+- LLaMA-7B over fp8-e4m3 KV caches (``kvdtype``): the runner's 201-token
+  prefill graph as above, dense serving as above (chunk 128, span 8) and the
+  same with ``cache_impl="fold"`` (kernel 9, unfused chunks), tok/s and ttft
+  p50 of the second run each, and kernel 4's launches by body over fp8 in the
+  leg (``flash_prefill_blocked:sync:fp8`` / ``:wgmma:fp8``, where the tree
+  counts them).
 
-``--legs`` runs a subset of the readings, in the order above.
+``--legs`` runs a subset of the readings, in the order above but for
+``kvdtype``, which runs right after ``serve``.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ import time
 
 import numpy as np
 
-LEGS = ("7b", "decode", "serve", "eval", "lora", "neox", "d256")
+LEGS = ("7b", "decode", "serve", "eval", "lora", "neox", "d256", "kvdtype")
 # LLaMA-7B's widths at head dim 256 (chip_smoke.py's LLAMA_256, repeated here
 # because an earlier tree's smoke may not have it)
 LLAMA_256 = dict(arch="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
@@ -151,8 +158,32 @@ def main() -> int:
                 lambda o=o: offs.fill_(o))
         return out
 
+    def serve_runs(**kw):
+        """The 12 requests on 8 slots, dense, chunk 128, span 8, twice: tok/s
+        and ttft p50 of each run (the second with every graph captured)."""
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(1, cfg.vocab_size, size=n)
+                   for n in (37, 50, 100, 120, 200, 300, 450, 600, 64, 90, 256, 512)]
+        eng = ServingEngine("llama", cfg, params, batch_slots=8, max_seq_len=2048,
+                            prefill_buckets=(32, 128, 512), prefill_chunk=128, decode_span=8,
+                            **kw)
+        runs = []
+        for _ in range(2):
+            for uid, p in enumerate(prompts):
+                eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=48))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            results = eng.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            tokens = sum(len(r) for r in results.values())
+            runs.append({"tok_s": tokens / dt, "ttft_p50_s": eng.stats()["ttft_p50_s"]})
+        del eng
+        torch.cuda.empty_cache()
+        return runs
+
     cfg = ModelConfig(**LLAMA_7B)
-    if legs & {"7b", "decode", "serve", "eval", "lora"}:
+    if legs & {"7b", "decode", "serve", "eval", "lora", "kvdtype"}:
         params = gaussian_wire_llama(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
 
     # -- LLaMA-7B prefill ----------------------------------------------------
@@ -189,27 +220,33 @@ def main() -> int:
 
     # -- dense serving, chunk 128 ----------------------------------------------
     if "serve" in legs:
-        rng = np.random.RandomState(0)
-        prompts = [rng.randint(1, cfg.vocab_size, size=n)
-                   for n in (37, 50, 100, 120, 200, 300, 450, 600, 64, 90, 256, 512)]
-        eng = ServingEngine("llama", cfg, params, batch_slots=8, max_seq_len=2048,
-                            prefill_buckets=(32, 128, 512), prefill_chunk=128, decode_span=8)
-        runs = []
-        for _ in range(2):
-            for uid, p in enumerate(prompts):
-                eng.submit(GenRequest(uid=uid, prompt=p, max_new_tokens=48))
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            results = eng.run()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t
-            tokens = sum(len(r) for r in results.values())
-            runs.append({"tok_s": tokens / dt, "ttft_p50_s": eng.stats()["ttft_p50_s"]})
-        report["serve_dense_chunk128"] = runs
+        runs = report["serve_dense_chunk128"] = serve_runs()
         log(f"{tag} dense serving chunk 128, 8 slots, 12 x 48: second run {runs[1]['tok_s']:.1f} "
             f"tok/s, ttft p50 {runs[1]['ttft_p50_s']} s (first {runs[0]['tok_s']:.1f}) | {card}")
-        del eng
+
+    # -- LLaMA-7B over fp8-e4m3 caches: prefill graph, dense and fold serving ----
+    if "kvdtype" in legs:
+        from gptq_for_llama_tpu_torch.ops import cuda as kernels
+        fp8 = torch.float8_e4m3fn
+        kernels.reset_launch_counts()
+        runner = ModelRunner("llama", cfg, params, dtype=torch.bfloat16, device="cuda",
+                             kv_dtype=fp8)
+        runner.warmup(prefill_buckets=(201,))
+        pre = report["kv_fp8_prefill_7b"] = prefill_ms(runner, (201,), np.random.RandomState(0))
+        del runner
         torch.cuda.empty_cache()
+        dense = report["kv_fp8_serve_dense"] = serve_runs(kv_dtype=fp8)
+        fold = report["kv_fp8_serve_fold"] = serve_runs(kv_dtype=fp8, fused_chunk_decode=False,
+                                                        cache_impl="fold")
+        counts = kernels.launch_counts()
+        bodies = report["kv_fp8_kernel4_launches"] = {
+            b: counts.get(f"flash_prefill_blocked:{b}:fp8") for b in ("sync", "wgmma")}
+        log(f"{tag} fp8-e4m3 KV: 7B 201-token prefill graph host {pre[201]['host_ms']:.3f} ms, "
+            f"device {pre[201]['device_ms']:.3f} ms; dense serving chunk 128 second run "
+            f"{dense[1]['tok_s']:.1f} tok/s, ttft p50 {dense[1]['ttft_p50_s']} s (first "
+            f"{dense[0]['tok_s']:.1f}); fold serving {fold[1]['tok_s']:.1f} tok/s, ttft p50 "
+            f"{fold[1]['ttft_p50_s']} s (first {fold[0]['tok_s']:.1f}); kernel 4 launches over "
+            f"fp8 by body {bodies} | {card}")
 
     # -- eval forward, 8 x 2048 ------------------------------------------------
     if "eval" in legs:

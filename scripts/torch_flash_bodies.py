@@ -4,6 +4,7 @@
 wgmma blocks) at head dims 64, 80, 96, 128 and 256, on one GPU.
 
     python3 scripts/torch_flash_bodies.py [--variants base,tile_fastest,one_group] [--dims 64,80,96,128,256]
+                                          [--kv e4m3,e5m2,f32] [--no-bf16]
 
 Each variant is the package's CUDA sources with one constant edited, built
 with the package's nvcc flags (flash_prefill and flash_prefill_blocked, one
@@ -18,6 +19,14 @@ the two consumer warpgroups issue their products without taking turns;
 size (the query tile fastest: the heaviest tile first within each head
 only), ``one_group`` with every head in one group (the heads fastest, then
 the query tile).
+
+``--kv`` adds, at each head dim up to 128 (and at 256 the mma.sync body
+alone), kernel 4 over caches stored in those dtypes: both bodies forced are
+held to the plain version (1e-2 of each row) and bit-equal to the same body
+over the cache decoded to bf16, at the chunk list below over a cache holding
+the dtype's NaN past the causal limit; then both are timed over the same
+chunks as bf16 (a line per shape and dtype, as bf16's). ``--no-bf16`` skips
+the bf16 rows and kernel 5.
 
 At each head dim, with the heads of the model that has it (64: GPT-2
 medium's 16, 80: OPT-2.7B's 32, 96: GPT-NeoX-20B's 64, 128: LLaMA-7B's 32;
@@ -99,7 +108,10 @@ def build_variant(name: str, out: str, dims) -> list:
             for lib in LIBS for d in dims]
 
 
-def time_variant(name: str, out: str, dims) -> None:
+KV = {"e4m3": "float8_e4m3fn", "e5m2": "float8_e5m2", "f32": "float32"}
+
+
+def time_variant(name: str, out: str, dims, kvs=(), bf16=True) -> None:
     import torch
     import torch.nn.functional as F
     from chip_smoke import copies_for, graph_ms, row_rel_err
@@ -125,6 +137,10 @@ def time_variant(name: str, out: str, dims) -> None:
 
     for d in dims:
         (h, hk), sc = HEADS[d], d ** -0.5
+        if kvs:
+            time_kv(name, d, h, hk, kvs, randn, held, equal)
+        if not bf16:
+            continue
         # correctness, every body forced
         gqa_hkv = hk if hk != h else h // 4
         for b, s, hkv, what in ((1, 2048, hk, "S=2048"), (2, 300, gqa_hkv, "GQA S=300"),
@@ -178,15 +194,59 @@ def time_variant(name: str, out: str, dims) -> None:
         torch.cuda.empty_cache()
 
 
+def time_kv(name, d, h, hk, kvs, randn, held, equal) -> None:
+    """Kernel 4 over caches stored in ``kvs`` at head dim ``d``: each body
+    the library takes there held and timed at every chunk of K4_CHUNKS."""
+    import torch
+    from chip_smoke import copies_for, graph_ms
+    from gptq_for_llama_tpu_torch.ops import kv_dtype
+    from gptq_for_llama_tpu_torch.ops.cuda import flash
+    sc, skv, bf = d ** -0.5, 2048, torch.bfloat16
+    bodies = ("sync", "wgmma") if d in flash.WGMMA_KV_HEAD_DIMS else ("sync",)
+    for kv in kvs:
+        dt = getattr(torch, KV[kv])
+        nan = kv_dtype.encode(torch.tensor([float("nan")], device="cuda"), dt)
+        caches = [tuple(kv_dtype.round_to(randn(1, skv, hk, d), dt) for _ in range(2))
+                  for _ in range(copies_for(2 * skv * hk * d * dt.itemsize))]
+        for sq, off in K4_CHUNKS:
+            q = randn(1, sq, h, d)
+            k, v = (c.clone() for c in caches[0])
+            want = flash.flash_prefill_blocked_plain(q, k, v, off, sc)
+            for c in (k, v):
+                kv_dtype.stored(c)[:, off + sq:] = nan.to(kv_dtype.stored(c).dtype)
+            dk, dv = kv_dtype.decode(k, bf), kv_dtype.decode(v, bf)
+            for body in bodies:
+                got = flash._launch(q, k, v, off, sc, body)
+                held(got, want, f"D={d} kernel 4 {kv} SQ={sq} offset {off} {body}")
+                equal(got, flash._launch(q, dk, dv, off, sc, body),
+                      f"D={d} kernel 4 {kv} SQ={sq} offset {off} {body} against the cache "
+                      f"decoded to bf16")
+            off_t = torch.tensor([off], dtype=torch.int32, device="cuda")
+            t = {body: graph_ms(torch, [lambda c=c, body=body: flash._launch(
+                q, c[0], c[1], off_t, sc, body) for c in caches], iters=40) for body in bodies}
+            print(f"[{name}] D={d} kernel 4 {kv} SQ={sq} offset={off} (offset + SQ = "
+                  f"{off + sq}) H={h}: " + ", ".join(f"{b} {t[b] * 1e3:.2f}" for b in bodies) +
+                  f" us; faster: {min(t, key=t.get)}; plan: {flash.plan_kv(sq, off, dt, d)}",
+                  flush=True)
+        print(f"[{name}] D={d} {kv}: every body held to the plain version (1e-2 of each row) "
+              f"and bit-equal to itself over the cache decoded to bf16, NaN past the limit",
+              flush=True)
+        del caches
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--dims", default="64,80,96,128,256")
+    ap.add_argument("--kv", default="", help="cache dtypes of kernel 4 to add: e4m3,e5m2,f32")
+    ap.add_argument("--no-bf16", action="store_true", help="skip the bf16 rows and kernel 5")
     ap.add_argument("--one", nargs=2, metavar=("NAME", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     dims = [int(d) for d in args.dims.split(",")]
+    kvs = [k for k in args.kv.split(",") if k]
     if args.one:   # a variant's own process
-        time_variant(*args.one, dims)
+        time_variant(*args.one, dims, kvs, not args.no_bf16)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -207,8 +267,8 @@ def main() -> int:
                     print(f"[ptxas {name}] {line.strip()}", flush=True)
         for name in names:
             subprocess.run([sys.executable, os.path.abspath(__file__), "--one", name,
-                            os.path.join(tmp, name), "--dims", args.dims], check=True,
-                           timeout=400)
+                            os.path.join(tmp, name), "--dims", args.dims, "--kv", args.kv,
+                            *(["--no-bf16"] if args.no_bf16 else [])], check=True, timeout=600)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     return 0

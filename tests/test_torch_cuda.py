@@ -1854,20 +1854,38 @@ def test_kernels_3_7_9_read_each_cache_dtype(card, name, d):
 @pytest.mark.parametrize("name", list(KV_DTYPES))
 @pytest.mark.parametrize("sq,off", [(100, 0), (128, 128), (512, 0)])
 def test_kernel_4_reads_each_cache_dtype(card, name, sq, off, d):
-    """Kernel 4 over a cache stored in ``name`` (its mma.sync body at every
-    length), NaN past the causal limit where the dtype has one: 1e-2 of each
-    row's norm against the plain version (the cache read through
-    ``_load_bf16``'s rule); a graph captured at offset 0 replays at ``off``
-    bit-equal to the eager launch."""
+    """Kernel 4 over a cache stored in ``name``, NaN past the causal limit
+    where the dtype has one, through the body its plan names (``plan_kv``)
+    and through each body forced (at D = 256 the mma.sync body alone: the
+    wgmma body forced there raises): 1e-2 of each row's norm against the
+    plain version (the cache read through ``_load_bf16``'s rule), each body
+    bit-equal to itself over the cache decoded to bf16; a graph captured at
+    offset 0 replays at ``off`` bit-equal to the eager launch."""
+    from gptq_for_llama_tpu_torch.ops.cuda import flash
     dt = KV_DTYPES[name]
     q = torch.randn(1, sq, 8, d, device=card).bfloat16()
     k, v = (kv_dtype.round_to(torch.randn(1, 1024, 2, d, device=card), dt) for _ in range(2))
     dead = (torch.arange(1024, device=card) >= off + sq)[None, :, None, None]
     pk, pv = _poisoned(k, dead), _poisoned(v, dead)
     want = flash_prefill_blocked_plain(q, k, v, off, d ** -0.5)
+    body = flash.plan_kv(sq, off, dt, d)
+    kernels.reset_launch_counts()
     got = flash_prefill_blocked(q, pk, pv, off, d ** -0.5)
-    torch.cuda.synchronize()
-    assert torch.isfinite(got.float()).all() and _rows_close(got, want, 1e-2)
+    assert kernels.launch_counts()[f"flash_prefill_blocked:{body}:{name}"] == 1
+    dk, dv = kv_dtype.decode(pk, torch.bfloat16), kv_dtype.decode(pv, torch.bfloat16)
+    bodies = ("sync", "wgmma") if d in flash.WGMMA_KV_HEAD_DIMS else ("sync",)
+    for b in bodies:
+        forced = flash._launch(q, pk, pv, off, d ** -0.5, b)
+        decoded = flash._launch(q, dk, dv, off, d ** -0.5, b)
+        torch.cuda.synchronize()
+        assert torch.isfinite(forced.float()).all() and _rows_close(forced, want, 1e-2), b
+        assert torch.equal(forced.view(torch.int16), decoded.view(torch.int16)), b
+        if b == body:
+            assert torch.equal(got.view(torch.int16), forced.view(torch.int16))
+    if d == 256:
+        assert body == "sync"
+        with pytest.raises(RuntimeError):
+            flash._launch(q, pk, pv, off, d ** -0.5, "wgmma")
     dev_off = torch.zeros(1, dtype=torch.int32, device=card)
     g = torch.cuda.CUDAGraph()
     flash_prefill_blocked(q, pk, pv, dev_off, d ** -0.5, off + sq)
@@ -1883,7 +1901,7 @@ def test_kernel_4_reads_each_cache_dtype(card, name, sq, off, d):
 @pytest.mark.cuda
 def test_e4m3_upcast_is_bit_equal_on_every_code(card):
     """Every e4m3 code (0x7F and 0xFF included) as the one live slot's V row:
-    kernels 3, 7, 9 and 4 return it as bf16 bit for bit, the value
+    kernels 3, 7, 9 and 4 (both its bodies) return it as bf16 bit for bit, the value
     ``kv_dtype.decode`` gives (+-480 for the two NaN codes), but for code
     0x80 (-0): a sum that starts at +0 gives +0, so values are compared."""
     from gptq_for_llama_tpu_torch.ops.cuda.attention import fused_decode_attention
@@ -1905,8 +1923,12 @@ def test_e4m3_upcast_is_bit_equal_on_every_code(card):
                                         torch.zeros(1, 1, 2, 128, device=card).bfloat16(), 1,
                                         0.09, write=False)
     got4 = flash_prefill_blocked(q, k, v, 0, 0.09)
+    # kernel 4 planned for 2048 keys: past the crossover, its wgmma body
+    kernels.reset_launch_counts()
+    got4w = flash_prefill_blocked(q, k, v, 0, 0.09, 2048)
+    assert kernels.launch_counts()["flash_prefill_blocked:wgmma:fp8"] == 1
     torch.cuda.synchronize()
-    for got in (got3, got7, got4):
+    for got in (got3, got7, got4, got4w):
         assert got.dtype == torch.bfloat16 and torch.equal(got, want)
     assert torch.equal(got9, (want.float() / 2).bfloat16())
 

@@ -146,8 +146,9 @@ def test_plans_at_head_dim(d):
     """The host plans at every built head dim: kernels 4 and 5 take the
     mma.sync body up to the crossover measured for D (offset + SQ <= 192 keys
     at D = 64, 160 at 80 and 96, 128 at 128 and 256) and the wgmma body
-    above, over a bf16 cache only (fp8 and f32 caches: mma.sync at every
-    length); kernels 3, 7 and 9 plan
+    above, kernel 4 over every cache dtype up to D = 128 (at D = 256 fp8 and
+    f32 caches, and f32 at D = 80 and 96, its measured crossover, take
+    mma.sync at every length); kernels 3, 7 and 9 plan
     their ring and scratch from D, and the layout each library reports is
     what the plan uses (csrc/decode_attention_dense.cuh: 4 stages under 128
     KB, f32 at D = 256 two; two resident blocks at D = 256)."""
@@ -160,7 +161,8 @@ def test_plans_at_head_dim(d):
         assert body == ("sync" if off + sq <= limit else "wgmma")
         assert flash.plan_kv(sq, off, torch.bfloat16, d) == body
         for dt in (torch.float8_e4m3fn, torch.float8_e5m2, torch.float32):
-            assert flash.plan_kv(sq, off, dt, d) == "sync"
+            kept = d == 256 or (dt == torch.float32 and d in (80, 96))
+            assert flash.plan_kv(sq, off, dt, d) == ("sync" if kept else body)
     for itemsize in (1, 2, 4):
         stages = attention.ring_stages(itemsize, d)
         ring = attention.ring_smem_bytes(itemsize, d)
@@ -171,6 +173,32 @@ def test_plans_at_head_dim(d):
     p = attention.decode_plan(2, 8, 4, 2048, 132, 2, d)
     assert attention.partial_floats(2, 8, 4, p, d) == 2 * 8 * p.nsplit * 4 * (d + 2)
     assert p == attention.decode_plan(2, 8, 4, 2048, 132, 2, 128) or d == 256
+
+
+@pytest.mark.parametrize("d", (*DIMS, 128))
+def test_wgmma_layouts_fit_a_block(d):
+    """The wgmma body's shared memory at D over each cache dtype (the mirror
+    of csrc/flash_common.cuh's WgmmaDims, which the smoke's build phase holds
+    against the library's own report) fits a block's 232,448 bytes: over bf16
+    the rings as they were (3 stages, 2 at D = 256); over fp8 and f32 up to
+    D = 128 a staging ring of 4 slots, each a whole chunk of a K or V tile in
+    the stored type (the most keys, halving from 128, whose rows fit 16 KB),
+    beside 3 bf16 stages, 2 at D = 128; no such layout at D = 256."""
+    bf16 = {64: 115840, 80: 144512, 96: 173184, 128: 230528, 256: 230528}
+    assert flash.SMEM_LIMIT == 232448
+    assert flash.wgmma_layout(d, torch.bfloat16) == flash.Layout(2 if d == 256 else 3, 0, 0, 0,
+                                                                   bf16[d])
+    for dt in (torch.float8_e4m3fn, torch.float8_e5m2, torch.float32):
+        lay = flash.wgmma_layout(d, dt)
+        if d == 256:
+            assert lay is None
+            continue
+        row, chunk = d * dt.itemsize, lay.chunk_keys
+        assert 128 % chunk == 0 and chunk * row <= 16384 and (chunk == 128 or 2 * chunk * row > 16384)
+        assert lay.slots == 4 and lay.staging_bytes == 4 * chunk * row
+        assert lay.stages == (2 if d == 128 else 3)
+        tiles = (128 + 2 * lay.stages * 128) * d * 2
+        assert tiles + lay.staging_bytes < lay.smem <= flash.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("d", (72, 112, 512))

@@ -133,6 +133,31 @@ def test_decoder_equals_tpu_loads_on_every_code():
         np.asarray(jflash._load_bf16(jnp.asarray(f))).view(np.int16))
 
 
+def test_e4m3_bf16_pair_form_equals_load_bf16_on_every_code():
+    """A numpy model of kernel 4's e4m3 -> bf16 bit form (csrc/kv_dtype.cuh
+    ``e4m3x2_bf16``, which both its bodies convert through): two codes byte
+    permuted to bits 8-15 and 24-31 of a word, (t & 0x80008000) | ((t >> 4) &
+    0x07F007F0) as a bf16 pair, each lane times 2^120 in one bf16 multiply
+    (exact, subnormals kept). Every code in either lane, beside every other
+    code, gives ``_load_bf16``'s bf16 bit for bit (0x7F / 0xFF: +-480, 0x80:
+    -0)."""
+    lo, hi = (a.reshape(-1).astype(np.uint32) for a in np.meshgrid(np.arange(256),
+                                                                    np.arange(256)))
+    t = (hi << 24) | (lo << 8)   # __byte_perm(u, 0, 0x1404): code 0 low, code 1 high
+    b = (t & 0x80008000) | ((t >> 4) & 0x07F007F0)
+
+    def lane(bits):   # a bf16 lane times 2^120 in float32 (numpy keeps subnormals)
+        v = ((bits.astype(np.uint32) << 16).view(np.float32) * np.float32(2.0 ** 120))
+        assert (v.view(np.uint32) & 0xFFFF == 0).all()   # exact: a bf16, no rounding
+        return (v.view(np.uint32) >> 16).astype(np.uint16)
+
+    want = np.asarray(jflash._load_bf16(jnp.arange(256, dtype=jnp.uint8).view(
+        jnp.float8_e4m3fn))).view(np.uint16)
+    np.testing.assert_array_equal(lane(b & 0xFFFF), want[lo])
+    np.testing.assert_array_equal(lane(b >> 16), want[hi])
+    assert want[0x7F] == 0x43F0 and want[0xFF] == 0xC3F0 and want[0x80] == 0x8000
+
+
 # ---------------------------------------------------------------------------
 # kernels 3, 7, 9 and 4: the plain versions against the Pallas kernels
 # ---------------------------------------------------------------------------
